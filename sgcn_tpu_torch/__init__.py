@@ -1,0 +1,21 @@
+"""sgcn_tpu_torch — the PyTorch + CUDA port of ``sgcn_tpu`` for NVIDIA Hopper.
+
+The JAX package ``sgcn_tpu`` stays beside this one as the reference.  This
+package imports ``torch``, ``numpy`` and ``scipy`` and never ``jax`` or
+anything of ``sgcn_tpu``: the host-side modules it needs (MatrixMarket I/O,
+normalization, part vectors, the communication plan) are its own copies.
+Module paths mirror the reference so each counterpart is easy to find.
+
+Ported so far: the partitioned GCN *serving* forward on one device —
+read graph, normalize Â, read the partition, ``build_comm_plan``, then per
+layer halo exchange → tile SpMM (a hand-written CUDA kernel for ``sm_90a``,
+``csrc/tile_spmm.cu``) → dense projection → activation, and query routing.
+All ``k`` parts run stacked along a leading axis in one process on one
+device (``ops/pspmm.py::halo_exchange`` is the one place that knows).
+
+Entry points run on ``cuda`` unless the caller asks for ``device="cpu"``;
+without a GPU they raise instead of falling back.  CLI:
+``python -m sgcn_tpu_torch.serve``.
+"""
+
+__version__ = "0.1.0"
