@@ -31,10 +31,31 @@ failure raises and the script exits non-zero:
      against the float64 forward; p50/p99 latency, QPS, the per-layer
      kernel time, a per-stage breakdown of one forward, the idle share,
      and K1 held against its plain version on this layer's real tiles;
-  4. one JSON line ``{"kernels": [...]}`` — per ported kernel its launches
-     on the main path (phases 2 + 3), max |kernel − plain|, kernel /
-     plain / bound / library times at the flagship layer;
-  5. the last line: ``{"ok": true, "device": {...}}``.
+  4. training on real data: ``python -m sgcn_tpu_torch.train``'s ``main``
+     in-process on the card, cora2708 (k = 8 hp), GCN 1433 → 16 → 7,
+     ``--experiment accuracy --epochs 60``: the dense oracle above 0.75
+     test accuracy and the partitioned trainer within 0.03 of it (the JAX
+     package's own bands), and the kernel's launch count exact;
+  5. training at the flagship width: phase 3's graph, features and plan,
+     labels uniform in [0, 40), every row in the train mask; 1 warm-up
+     and 5 timed steps of ``FullBatchTrainer.fit``.  The step-1 weight
+     gradients are held against a float64 scipy backprop of the same
+     loss with the run's ReLU masks (relative Frobenius error ≤ 1e-5 per
+     layer; see ``GRAD_RTOL``), the initial loss against its float64
+     value (rtol 1e-5), and the largest halo class alone is timed (the
+     per-class dispatch's unit); every loss must be
+     finite, the kernel's launches must equal steps × (forward passes +
+     the backward passes autograd really runs) × classes, and the kernel
+     on this run's real gradient tables must equal its plain version bit
+     for bit.  Prints ``epoch_s``, a per-step breakdown (forward,
+     backward, optimizer) from CUDA events, the idle share over 3 steps
+     under ``torch.profiler``, and the backward layer's kernel time, bound
+     and ``torch.sparse.mm`` time on the same gradient;
+  6. one JSON line ``{"kernels": [...]}`` — per ported kernel (the tile
+     SpMM, and its use as the aggregation's backward) its launches on the
+     main path (phases 2–5), max |kernel − plain|, kernel / plain / bound
+     / library times at the flagship layer;
+  7. the last line: ``{"ok": true, "device": {...}}``.
 
 Without CUDA, or without the rest of the repository beside it, the script
 prints no result and exits with code 2 or 3.
@@ -42,6 +63,8 @@ prints no result and exits with code 2 or 3.
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import os
 import subprocess
@@ -56,6 +79,12 @@ HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
 
 RTOL, ATOL = 1e-4, 1e-5          # served logits vs the float64 forward
+# step-1 weight gradients vs a float64 backprop that uses the float32
+# run's ReLU masks: relative Frobenius error per layer.  Float32 rounding
+# gives ~2.6e-7 here; with float64's own masks, one pre-activation within
+# rounding of 0 at the flagship flips sign and moves the earlier layers'
+# gradients by up to ~1e-4 relative — a different function, not an error
+GRAD_RTOL = 1e-5
 
 
 def log(*a):
@@ -385,8 +414,8 @@ def forward_breakdown(eng):
     return rows
 
 
-def device_busy(eng, qids, batches: int = 5):
-    """Device time vs wall over ``batches`` served batches under
+def device_busy(run, reps: int = 5):
+    """Device time vs wall over ``reps`` calls of ``run`` under
     ``torch.profiler``: returns (wall ms, device ms, top kernels).  The
     device time sums the events the profiler recorded ON the device
     (kernels, copies — one stream, so they do not overlap; the host-side
@@ -401,8 +430,8 @@ def device_busy(eng, qids, batches: int = 5):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        for _ in range(batches):
-            eng.query(qids)
+        for _ in range(reps):
+            run()
         torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows = [(e.key, e.self_device_time_total / 1e3)
@@ -411,15 +440,143 @@ def device_busy(eng, qids, batches: int = 5):
     return wall_ms, sum(ms for _, ms in rows), rows[:5]
 
 
-def log_device_busy(name, eng, qids):
-    wall, dev_ms, top = device_busy(eng, qids)
+def log_device_busy(name, run, reps: int = 5, what: str = "batches"):
+    wall, dev_ms, top = device_busy(run, reps)
     if dev_ms == 0:
         log(f"  {name}: profiler saw no device time — idle share not "
             "measured")
         return
-    log(f"  {name}: 5 batches under torch.profiler: wall {wall:.3f} ms, "
+    log(f"  {name}: {reps} {what} under torch.profiler: wall {wall:.3f} ms, "
         f"device {dev_ms:.3f} ms, idle share <= {1 - dev_ms / wall:.3f}; "
         "top: " + "; ".join(f"{k[:60]} {ms:.3f} ms" for k, ms in top))
+
+
+# ---------------------------------------------------------- training path
+def backward_passes(fin, widths):
+    """Aggregation backward passes one step really runs: autograd calls a
+    layer's backward only where its aggregated input needs a gradient —
+    every layer past the first, and the first only when it projects
+    before aggregating (``agg(h0 @ w0)``)."""
+    from sgcn_tpu_torch.models.gcn import PROJECT_FIRST_MIN_FIN
+
+    first = widths[0] < fin and fin >= PROJECT_FIRST_MIN_FIN
+    return len(widths) - 1 + int(first)
+
+
+def backprop64(ahat, feats, labels, params, masks=None):
+    """Float64 host loss and weight gradients of the GCN with ReLU between
+    layers, no activation after the last, and the mean softmax
+    cross-entropy over every row, in the trainer's layer order (a wide
+    input narrowed by the layer projects first).  Â is symmetric, so
+    the transpose of each aggregation is Â itself.
+
+    ``masks``: per hidden layer, the ReLU derivative (``z > 0``) to use in
+    place of float64's own — the float32 run's, so that an entry whose
+    pre-activation lies within rounding of 0 (where the two runs may
+    disagree on the sign) does not count as an error of the gradient.
+    Returns (loss, grads, per-layer count of entries whose mask differs
+    from float64's)."""
+    import numpy as np
+
+    from sgcn_tpu_torch.models.gcn import PROJECT_FIRST_MIN_FIN
+
+    a = ahat.astype(np.float64).tocsr()
+    h = np.asarray(feats, np.float64)
+    ws = [np.asarray(w, np.float64) for w in params]
+    ins, relu, pfs = [], [], []
+    for i, w in enumerate(ws):
+        pf = w.shape[1] < h.shape[1] and h.shape[1] >= PROJECT_FIRST_MIN_FIN
+        ins.append(h if pf else a @ h)        # what the layer's W multiplies
+        z = a @ (h @ w) if pf else ins[-1] @ w
+        pfs.append(pf)
+        if i < len(ws) - 1:
+            relu.append(z > 0)
+            h = np.maximum(z, 0.0)
+        else:
+            h = z
+    flips = [0] * len(relu)
+    if masks is not None:
+        flips = [int((m != r).sum()) for m, r in zip(masks, relu)]
+        relu = masks
+    n = h.shape[0]
+    z = h - h.max(axis=1, keepdims=True)
+    logp = z - np.log(np.exp(z).sum(axis=1, keepdims=True))
+    loss = -logp[np.arange(n), labels].mean()
+    dz = np.exp(logp)
+    dz[np.arange(n), labels] -= 1.0
+    dz /= n
+    grads = [None] * len(ws)
+    for i in reversed(range(len(ws))):
+        if pfs[i]:                           # z = Â (h W)
+            adz = a @ dz
+            grads[i] = ins[i].T @ adz
+            dh = adz @ ws[i].T
+        else:                                # z = (Â h) W
+            grads[i] = ins[i].T @ dz
+            dh = a @ (dz @ ws[i].T)
+        if i:
+            dz = dh * relu[i - 1]
+    return float(loss), grads, flips
+
+
+def forward_backward_trace(tr, data):
+    """One forward and backward of the trainer's loss at its current
+    weights, written out with the public op, without an optimizer step:
+    returns the pre-activations of every layer and, by layer, the
+    gradient table that reaches each aggregation's backward."""
+    import torch
+
+    from sgcn_tpu_torch.models.gcn import PROJECT_FIRST_MIN_FIN
+    from sgcn_tpu_torch.ops.tile_spmm import TILE_PLAN_FIELDS, pspmm_tiles_sym
+    from sgcn_tpu_torch.train import LOSSES
+
+    st = tr.model.fwd_static
+    zs, caught = [], {}
+    weights = list(tr.model.weights)
+    h = data.h0
+    for i, w in enumerate(weights):
+        pf = w.shape[1] < h.shape[-1] and h.shape[-1] >= PROJECT_FIRST_MIN_FIN
+        z = pspmm_tiles_sym(h @ w if pf else h,
+                            *(tr.pa[f] for f in TILE_PLAN_FIELDS),
+                            st["pallas_tb"], st["pallas_lclasses"],
+                            st["pallas_hclasses"])
+        if z.requires_grad:
+            z.register_hook(lambda g, i=i: caught.__setitem__(
+                i, g.detach().contiguous()))
+        z = z if pf else z @ w
+        zs.append(z.detach())
+        h = torch.relu(z) if i < len(weights) - 1 else z
+    loss = LOSSES[tr.loss_name](h, data.labels, data.train_valid)
+    torch.autograd.grad(loss, weights)
+    torch.cuda.synchronize()
+    return zs, caught
+
+
+def step_breakdown(tr, data, steps: int = 3):
+    """Device time of the three parts of a training step — forward with
+    the loss, backward, optimizer — from CUDA events around each, over
+    ``steps`` steps (the trainer's ``_one_step`` written out)."""
+    import torch
+
+    from sgcn_tpu_torch.train import LOSSES
+
+    rows = []
+    for _ in range(steps):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+        ev[0].record()
+        tr.opt.zero_grad(set_to_none=True)
+        loss = LOSSES[tr.loss_name](tr.model(data.h0, tr.pa), data.labels,
+                                    data.train_valid)
+        ev[1].record()
+        loss.backward()
+        ev[2].record()
+        tr.opt.step()
+        ev[3].record()
+        torch.cuda.synchronize()
+        rows.append([ev[j].elapsed_time(ev[j + 1]) for j in range(3)])
+    return {key: sum(r[j] for r in rows) / steps
+            for j, key in enumerate(("forward_ms", "backward_ms",
+                                     "optimizer_ms"))}
 
 
 def main() -> int:
@@ -486,7 +643,7 @@ def main() -> int:
     eng_c, _res_c, launches_c = serve_and_check(
         "cora2708", ahat, feats, pv, 8, [16, 7], queries=128, max_batch=32,
         seed=1)
-    log_device_busy("cora2708", eng_c, np.arange(32))
+    log_device_busy("cora2708", lambda: eng_c.query(np.arange(32)))
     pa = eng_c.pa
     st = eng_c.setup.fwd_static
     x16 = torch.as_tensor(rng.standard_normal(
@@ -518,7 +675,7 @@ def main() -> int:
     log(f"  dispatch: {json.dumps(decision['tile_dispatch'])}")
     for row in forward_breakdown(eng_f):
         log(f"  forward breakdown: {json.dumps(row)}")
-    log_device_busy("flagship", eng_f, np.arange(64))
+    log_device_busy("flagship", lambda: eng_f.query(np.arange(64)))
 
     from sgcn_tpu_torch.ops.pspmm import halo_exchange
     h0 = eng_f._h0
@@ -541,19 +698,157 @@ def main() -> int:
         f"{layer['ms']!r} ms; bound {layer['bound_ms']!r} ms")
 
     # ---------------------------------------------------------- phase 4
+    log("phase 4: train cora2708 on the card, k=8 hp, GCN 1433 -> 16 -> 7 "
+        "(python -m sgcn_tpu_torch.train --experiment accuracy --epochs 60)")
+    from sgcn_tpu_torch.ops.tile_spmm import PspmmTilesSym, spmm_tiles
+    from sgcn_tpu_torch.train import FullBatchTrainer, make_train_data
+    from sgcn_tpu_torch.train.__main__ import main as train_main
+
+    epochs_c = 60
+    cls_c = (len(eng_c.setup.fwd_static["pallas_lclasses"])
+             + len(eng_c.setup.fwd_static["pallas_hclasses"]))
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    spmm_tiles.launches = 0                     # the main path starts here
+    PspmmTilesSym.backward_launches = 0
+    with contextlib.redirect_stdout(out):
+        train_main(["--npz", os.path.join(fix, "cora2708.npz"), "--normalize",
+                    "-p", os.path.join(fix, "cora2708.8.hp"), "-s", "8",
+                    "-l", "2", "--hidden", "16", "--experiment", "accuracy",
+                    "--epochs", str(epochs_c)])
+    launches_tc = spmm_tiles.launches           # ... and ends here
+    bwd_tc = PspmmTilesSym.backward_launches
+    acc = json.loads(out.getvalue().strip().splitlines()[-1])
+    log(f"  report ({time.perf_counter() - t0:.2f} s): {json.dumps(acc)}")
+    # per epoch 2 forward + 2 backward passes (layer 0 projects first),
+    # then one evaluation forward; every pass runs every local + halo class
+    want_c = (epochs_c * (2 + backward_passes(1433, [16, 7])) + 2) * cls_c
+    want_bwd_c = epochs_c * backward_passes(1433, [16, 7]) * cls_c
+    log(f"  kernel launches {launches_tc} (backward {bwd_tc}); expected "
+        f"{want_c} ({want_bwd_c})")
+    if launches_tc != want_c or bwd_tc != want_bwd_c:
+        raise AssertionError("cora training: kernel launch count differs "
+                             "from the passes the program runs")
+    gap = abs(acc["oracle_test_acc"] - acc["fullbatch_test_acc"])
+    if not (acc["oracle_test_acc"] > 0.75 and gap < 0.03):
+        raise AssertionError(f"cora accuracy outside the bands (oracle > "
+                             f"0.75, |oracle - fullbatch| < 0.03): {acc}")
+
+    # ---------------------------------------------------------- phase 5
+    log("phase 5: train ER n=169343 deg 14, k=8 rp, GCN 128 -> 128 -> 128 "
+        "-> 40 (ReLU, xent), 1 warm-up + 5 timed steps")
+    widths_f = [128, 128, 40]
+    labels_f = np.random.default_rng(4).integers(0, 40, n_f)
+    tr = FullBatchTrainer(plan, fin=128, widths=widths_f, seed=5, device=dev)
+    data = make_train_data(plan, feats_f, labels_f, device=dev)
+    p_init = [w.detach().cpu().numpy() for w in tr.params]
+    zs, caught = forward_backward_trace(tr, data)      # at the step-1 weights
+    masks = [plan.gather_rows((z > 0).cpu().numpy()) for z in zs[:-1]]
+    t0 = time.perf_counter()
+    loss64, grads64, _ = backprop64(ahat_f, feats_f, labels_f, p_init)
+    _, grads64m, flips = backprop64(ahat_f, feats_f, labels_f, p_init,
+                                    masks=masks)
+    log(f"  float64 host backprop {time.perf_counter() - t0:.2f} s (twice), "
+        f"loss {loss64!r}; ReLU entries whose sign float32 and float64 "
+        f"disagree on, by hidden layer: {flips}")
+    loss0, _ = tr.evaluate(data)
+    if abs(loss0 - loss64) > 1e-5 * abs(loss64):
+        raise AssertionError(f"initial loss {loss0} vs float64 {loss64}")
+    step_grads = []
+    tr.opt.register_step_pre_hook(lambda opt, a, kw: None if step_grads else
+                                  step_grads.append([w.grad.cpu().numpy()
+                                                     for w in tr.params]))
+    steps_f = 1 + 5
+    spmm_tiles.launches = 0                     # the main path starts here
+    PspmmTilesSym.backward_launches = 0
+    rep = tr.fit(data, epochs=5, warmup=1, verbose=False)
+    launches_tf = spmm_tiles.launches           # ... and ends here
+    bwd_tf = PspmmTilesSym.backward_launches
+    cls_f = len(st["pallas_lclasses"]) + len(st["pallas_hclasses"])
+    bwd_f = backward_passes(128, widths_f)
+    want_f = steps_f * (len(widths_f) + bwd_f) * cls_f
+    log(f"  kernel launches {launches_tf} (backward {bwd_tf}) = {steps_f} "
+        f"steps x ({len(widths_f)} forward + {bwd_f} backward passes) x "
+        f"{cls_f} classes = {want_f}")
+    if launches_tf != want_f or bwd_tf != steps_f * bwd_f * cls_f:
+        raise AssertionError("flagship training: kernel launch count "
+                             "differs from the passes the program runs")
+    losses = [loss0] + rep["loss_history"]
+    log(f"  losses (initial eval, timed steps): {losses}")
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"non-finite loss: {losses}")
+    for i, (got, want, own) in enumerate(zip(step_grads[0], grads64m,
+                                              grads64)):
+        rel = float(np.linalg.norm(got - want) / np.linalg.norm(want))
+        rel_own = float(np.linalg.norm(got - own) / np.linalg.norm(own))
+        log(f"  step-1 dW{i} {got.shape}: relative Frobenius error vs "
+            f"float64 {rel:.3g} with the run's ReLU masks, {rel_own:.3g} "
+            f"with float64's own")
+        if not rel <= GRAD_RTOL:
+            raise AssertionError(f"layer {i} gradient off float64 by {rel}")
+    log(f"  epoch_s {rep['epoch_s']!r} (5 timed steps, host clock); "
+        f"phases {json.dumps(rep['phases'])}")
+    log(f"  step breakdown (CUDA events, mean of 3): "
+        f"{json.dumps(step_breakdown(tr, data))}")
+    log_device_busy("flagship training", lambda: tr.step(data), reps=3,
+                    what="steps")
+
+    layer_b = max(caught)                       # the deepest backward pass
+    g = caught[layer_b]
+    ghalo = halo_exchange(g, pa["send_idx"], pa["halo_src"])
+    grad_err = max(
+        check_k1(ltiles, g, st["pallas_lclasses"], tb,
+                 f"flagship layer-{layer_b} gradient local pass f=128"),
+        check_k1(htiles, ghalo, st["pallas_hclasses"], tb,
+                 f"flagship layer-{layer_b} gradient halo pass f=128"))
+    b_loc = time_k1([t.cpu().numpy() for t in ltiles], ltiles, g,
+                    st["pallas_lclasses"], tb, plan.b,
+                    f"flagship layer-{layer_b} gradient local pass f=128")
+    b_halo = time_k1([t.cpu().numpy() for t in htiles], htiles, ghalo,
+                     st["pallas_hclasses"], tb, plan.r,
+                     f"flagship layer-{layer_b} gradient halo pass f=128")
+    bwd = {key: b_loc[key] + b_halo[key]
+           for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    log(f"  flagship backward kernel time (layer {layer_b}, local + halo "
+        f"passes on the gradient, f=128): {bwd['ms']!r} ms; bound "
+        f"{bwd['bound_ms']!r} ms; torch.sparse.mm {bwd['library_ms']!r} ms")
+    # one degree class alone (the per-class dispatch's unit): the largest
+    # halo class by stored slots
+    hcls = st["pallas_hclasses"]
+    c = max(range(len(hcls)), key=lambda j: hcls[j][0] * hcls[j][1])
+    off = sum(t * e for t, e, *_ in hcls[:c])
+    size = hcls[c][0] * hcls[c][1]
+    ctiles = [x[:, off: off + size] for x in htiles]
+    time_k1([x.cpu().numpy() for x in ctiles], ctiles, ghalo, (hcls[c],), tb,
+            plan.r, f"flagship largest halo class {hcls[c][:2]} on the "
+            f"layer-{layer_b} gradient, f=128")
+
+    # ---------------------------------------------------------- phase 6
     kernels = [{
         "name": "tile_spmm",
         "route": "cuda",
         "source": "sgcn_tpu_torch/csrc/tile_spmm.cu",
         "replaces": "sgcn_tpu/ops/pallas_spmm.py:203",
-        "launches": launches_c + launches_f,
-        "max_abs_err": max_err,
+        "launches": launches_c + launches_f + launches_tc + launches_tf,
+        "max_abs_err": max(max_err, grad_err),
         "ms": layer["ms"],
         "kernel_ms": layer["ms"],
         "plain_ms": layer["plain_ms"],
         "bound_ms": layer["bound_ms"],
         "bound_by": t_halo["bound_by"],
         "library_ms": layer["library_ms"],
+    }, {
+        "name": "pspmm_tiles_sym_backward",
+        "route": "cuda",
+        "source": "sgcn_tpu_torch/csrc/tile_spmm.cu",
+        "replaces": "sgcn_tpu/ops/pallas_spmm.py:457-464",
+        "launches": bwd_tc + bwd_tf,
+        "max_abs_err": grad_err,
+        "ms": bwd["ms"],
+        "plain_ms": bwd["plain_ms"],
+        "bound_ms": bwd["bound_ms"],
+        "bound_by": b_halo["bound_by"],
+        "library_ms": bwd["library_ms"],
     }]
     log(f"total {time.perf_counter() - t_start:.1f} s; card: {smi}")
     log(json.dumps({"kernels": kernels}))

@@ -9,13 +9,15 @@ Module paths mirror the reference so each counterpart is easy to find.
 Ported so far: the partitioned GCN *serving* forward on one device —
 read graph, normalize Â, read the partition, ``build_comm_plan``, then per
 layer halo exchange → tile SpMM (a hand-written CUDA kernel for ``sm_90a``,
-``csrc/tile_spmm.cu``) → dense projection → activation, and query routing.
+``csrc/tile_spmm.cu``) → dense projection → activation, and query routing
+— and the exact full-batch *trainer* on that forward, whose aggregation
+backward runs the same kernel on the gradient (Â is symmetric).
 All ``k`` parts run stacked along a leading axis in one process on one
 device (``ops/pspmm.py::halo_exchange`` is the one place that knows).
 
 Entry points run on ``cuda`` unless the caller asks for ``device="cpu"``;
 without a GPU they raise instead of falling back.  CLI:
-``python -m sgcn_tpu_torch.serve``.
+``python -m sgcn_tpu_torch.serve`` and ``python -m sgcn_tpu_torch.train``.
 """
 
 __version__ = "0.1.0"

@@ -1,7 +1,8 @@
-"""Dataset loaders and generators (port of the serving subset of
-``sgcn_tpu/io/datasets.py``): the planetoid/ogbn ``.npz`` snapshot reader
-and the Erdős–Rényi benchmark stand-in graph.  Same numpy RNG calls as the
-reference, so the same seed gives the same graph."""
+"""Dataset loaders and generators (port of the serving and training subset
+of ``sgcn_tpu/io/datasets.py``): the planetoid/ogbn ``.npz`` snapshot
+reader, the Erdős–Rényi benchmark stand-in graph and the planetoid
+train/test split.  Same numpy RNG calls as the reference, so the same seed
+gives the same graph and the same split."""
 
 from __future__ import annotations
 
@@ -24,6 +25,27 @@ def er_graph(n: int, avg_deg: int = 14, seed: int = 0) -> sp.csr_matrix:
     src, dst = src[keep], dst[keep]
     a = sp.coo_matrix((np.ones(len(src), np.float32), (src, dst)), shape=(n, n))
     return sp.csr_matrix(((a + a.T) > 0).astype(np.float32))
+
+
+def planetoid_split(labels: np.ndarray, per_class: int = 20,
+                    ntest: int = 1000, seed: int = 0):
+    """Planetoid split semantics: ``per_class`` train nodes per class, a
+    held-out test block of ``ntest`` nodes, the rest unused.
+
+    Returns ``(train_mask, test_mask)`` float32 0/1 vectors.
+    """
+    labels = np.asarray(labels)
+    n = len(labels)
+    rng = np.random.default_rng(seed)
+    perm = rng.permutation(n)
+    train = np.zeros(n, np.float32)
+    for c in np.unique(labels):
+        picks = perm[labels[perm] == c][:per_class]
+        train[picks] = 1.0
+    test = np.zeros(n, np.float32)
+    pool = perm[train[perm] == 0.0]
+    test[pool[-min(ntest, len(pool)):]] = 1.0
+    return train, test
 
 
 def load_npz_dataset(path: str):

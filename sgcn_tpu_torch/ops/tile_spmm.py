@@ -15,9 +15,11 @@ holds, in the reference's order:
     ``spmm_pallas_classes``);
   * ``choose_tile_dispatch`` — the per-class table, logged the way
     ``choose_pallas_dispatch`` logs it;
-  * ``pspmm_tiles_sym`` — the forward of ``pspmm_pallas_sym``: halo
-    exchange, the kernel over the local table, the kernel over the halo
-    table, ``local + remote``.
+  * ``pspmm_tiles_sym`` — ``pspmm_pallas_sym`` with its custom VJP as the
+    ``torch.autograd.Function`` ``PspmmTilesSym``: halo exchange, the
+    kernel over the local table, the kernel over the halo table,
+    ``local + remote``; the backward is the same op on the gradient
+    (Â is symmetric).
 
 Every function takes the ``k`` parts stacked on a leading axis
 (``(k, ...)`` tile arrays and tables); the single-part 2-D forms are
@@ -297,15 +299,55 @@ def choose_tile_dispatch(plan, tb: int = 256,
             "pallas_hclasses": hclasses}
 
 
-def pspmm_tiles_sym(h, send_idx, halo_src, lsrc, lld, lw, hsrc, hld, hw,
-                    tb: int, lclasses, hclasses):
-    """Forward of ``pspmm_pallas_sym`` over stacked parts: exchange the
-    boundary rows, run the tile kernel over the local table ``h`` and over
-    the halo table, and return ``local + remote`` sliced to the ``b``
-    owned rows.  ``h``: ``(k, b, f)`` float32.  The backward (the same op
-    on the gradient) comes with the training slice."""
+def _pspmm_tiles_once(h, send_idx, halo_src, lsrc, lld, lw, hsrc, hld, hw,
+                      tb, lclasses, hclasses):
+    """``_pspmm_pallas_once`` over stacked parts: exchange the boundary
+    rows, run the tile kernel over the local table ``h`` and over the halo
+    table, and return ``local + remote`` sliced to the ``b`` owned rows."""
     halo = halo_exchange(h, send_idx, halo_src)
     b = h.shape[1]
     local = spmm_tiles_classes(lsrc, lld, lw, h, lclasses, tb)[:, :b]
     remote = spmm_tiles_classes(hsrc, hld, hw, halo, hclasses, tb)[:, :b]
     return local + remote
+
+
+class PspmmTilesSym(torch.autograd.Function):
+    """``pspmm_pallas_sym`` with its custom VJP: Â·h over stacked parts,
+    and — Â being symmetric — the backward is the same op on the
+    gradient: exchange of the gradient's boundary rows, the tile kernel
+    over the local table ``g``, the tile kernel over the halo table of
+    ``g``, ``local + remote``.  Plan tensors get no gradient.
+
+    ``PspmmTilesSym.backward_launches`` counts the tile-kernel launches
+    the backward made (CUDA tensors only; the plain version on the CPU
+    launches nothing)."""
+
+    backward_launches = 0
+
+    @staticmethod
+    def forward(ctx, h, send_idx, halo_src, lsrc, lld, lw, hsrc, hld, hw,
+                tb, lclasses, hclasses):
+        ctx.save_for_backward(send_idx, halo_src, lsrc, lld, lw, hsrc, hld,
+                              hw)
+        ctx.static = (tb, lclasses, hclasses)
+        return _pspmm_tiles_once(h, send_idx, halo_src, lsrc, lld, lw, hsrc,
+                                 hld, hw, tb, lclasses, hclasses)
+
+    @staticmethod
+    def backward(ctx, g):
+        before = spmm_tiles.launches
+        # the incoming gradient may be a strided view (the [:, :b] slice,
+        # a matmul's backward); the kernel reads row-major tables
+        gh = _pspmm_tiles_once(g.contiguous(), *ctx.saved_tensors,
+                               *ctx.static)
+        PspmmTilesSym.backward_launches += spmm_tiles.launches - before
+        return (gh,) + (None,) * 11
+
+
+def pspmm_tiles_sym(h, send_idx, halo_src, lsrc, lld, lw, hsrc, hld, hw,
+                    tb: int, lclasses, hclasses):
+    """``pspmm_pallas_sym`` over stacked parts (``PspmmTilesSym``).
+    ``h``: ``(k, b, f)`` float32; returns ``(k, b, f)``.  Differentiable
+    in ``h``: the backward re-runs the op on the gradient."""
+    return PspmmTilesSym.apply(h, send_idx, halo_src, lsrc, lld, lw, hsrc,
+                               hld, hw, tb, lclasses, hclasses)

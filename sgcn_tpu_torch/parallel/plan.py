@@ -1,8 +1,9 @@
 """Communication plan: partition vector → static all_to_all layout.
 
 Port of the subset of ``sgcn_tpu/parallel/plan.py`` the GCN serving
-forward reads.  Same construction, same arrays, so every field and static
-tuple equals the reference's array for array (``tests/test_torch_plan.py``):
+forward and the exact full-batch trainer read.  Same construction, same
+arrays, so every field and static tuple equals the reference's array for
+array (``tests/test_torch_plan.py``):
 
   * vertices are relabeled so part ``p`` owns local slots ``0..B-1``
     (``B`` = max part size; rows within a part ranked descending by local
@@ -176,6 +177,11 @@ class CommPlan:
         partitioners' connectivity metric Σ(λ−1)."""
         return self.offwire_send_counts().sum(axis=1)
 
+    @property
+    def predicted_message_count(self) -> np.ndarray:
+        """Per-part count of non-empty peer messages (k,)."""
+        return (self.offwire_send_counts() > 0).sum(axis=1)
+
     # --------------------------------------------------------- data placement
     def scatter_rows(self, x: np.ndarray, fill: float = 0.0) -> np.ndarray:
         """Global (n, f) row data → stacked per-part (k, B, f) padded blocks."""
@@ -184,6 +190,10 @@ class CommPlan:
         out = np.full((self.k, self.b, f), fill, dtype=x.dtype)
         out[self.owner, self.local_idx] = x.reshape(self.n, f)
         return out
+
+    def gather_rows(self, blocks: np.ndarray) -> np.ndarray:
+        """Stacked per-part (k, B, f) blocks → global (n, f) row data."""
+        return np.asarray(blocks)[self.owner, self.local_idx]
 
     def global_row_ids(self) -> np.ndarray:
         """(k, B) int64: the global vertex id in each (part, local slot);

@@ -97,16 +97,12 @@ class ServeEngine:
         if params is None:
             params = self.setup.init_fn(torch.Generator().manual_seed(seed),
                                         dims)
-        params = [w if isinstance(w, torch.Tensor)
-                  else torch.tensor(np.asarray(w, np.float32))
-                  for w in params]
         if [tuple(w.shape) for w in params] != dims:
             raise ValueError(
                 f"param shapes {[tuple(w.shape) for w in params]} != "
                 f"layer dims {dims}")
-        self.model = GCN(
-            [w.to(self.device, torch.float32) for w in params],
-            fwd_static=self.setup.fwd_static).to(self.device)
+        self.model = GCN(params,
+                         fwd_static=self.setup.fwd_static).to(self.device)
         self.pa = self.setup.ship_arrays(plan, self.device)
         self._h0 = None                    # set_features()
         self.compile_count = 0             # no per-bucket compile (yet)

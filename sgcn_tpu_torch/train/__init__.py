@@ -1,3 +1,5 @@
-from .fullbatch import ForwardSetup, resolve_forward_setup
+from .fullbatch import (LOSSES, ForwardSetup, FullBatchTrainer, TrainData,
+                        make_train_data, resolve_forward_setup)
 
-__all__ = ["ForwardSetup", "resolve_forward_setup"]
+__all__ = ["LOSSES", "ForwardSetup", "FullBatchTrainer", "TrainData",
+           "make_train_data", "resolve_forward_setup"]

@@ -46,6 +46,11 @@ class PhaseTimer:
                 if self._stack:
                     self._stack[-1][1] += dt
 
+    def inclusive_total(self, name: str) -> float:
+        """Wall seconds spent inside phase ``name``, nested phases
+        included."""
+        return self.inclusive[name]
+
     def report(self) -> dict:
         return {
             name: {"total_s": self.totals[name], "count": self.counts[name],

@@ -1,5 +1,6 @@
 """Tests of the port that need the card: the CUDA tile SpMM kernel against
-its plain PyTorch version, and the serve engine on ``cuda``.
+its plain PyTorch version, its backward (``PspmmTilesSym``), the serve
+engine and a training step on ``cuda``.
 
 This module imports no JAX, so it also runs on a GPU machine without it:
 
@@ -14,12 +15,16 @@ import pytest
 import torch
 
 from sgcn_tpu_torch.io.datasets import er_graph
-from sgcn_tpu_torch.ops.tile_spmm import (spmm_tiles, spmm_tiles_classes,
+from sgcn_tpu_torch.ops.tile_spmm import (TILE_PLAN_FIELDS, PspmmTilesSym,
+                                          choose_tile_dispatch,
+                                          pspmm_tiles_sym, spmm_tiles,
+                                          spmm_tiles_classes,
                                           spmm_tiles_plain)
 from sgcn_tpu_torch.parallel import build_comm_plan
 from sgcn_tpu_torch.partition import balanced_random_partition
 from sgcn_tpu_torch.prep import normalize_adjacency
 from sgcn_tpu_torch.serve import ServeEngine
+from sgcn_tpu_torch.train import FullBatchTrainer, make_train_data
 
 
 @pytest.fixture
@@ -113,3 +118,71 @@ def test_engine_on_cuda_launches_kernel_and_matches_cpu(cuda_device):
     got = gpu.query(q)
     assert spmm_tiles.launches == 1 * 2 * 2 * nclasses
     np.testing.assert_allclose(got, cpu.query(q), rtol=1e-5, atol=1e-6)
+
+
+def _er_plan(n=3000, k=4, seed=1):
+    a = normalize_adjacency(er_graph(n, avg_deg=10, seed=seed))
+    return build_comm_plan(a, balanced_random_partition(n, k, seed=seed), k)
+
+
+def test_backward_on_cuda_bitwise_equals_cpu(cuda_device):
+    """The aggregation's backward launches the kernel on the gradient
+    (one launch per local and per halo class) and equals the same
+    Function on CPU tensors bit for bit — also for a strided gradient,
+    which the backward makes row-major before the launch."""
+    plan = _er_plan()
+    st = choose_tile_dispatch(plan)
+    static = (st["pallas_tb"], st["pallas_lclasses"], st["pallas_hclasses"])
+    pa = [torch.from_numpy(np.ascontiguousarray(getattr(plan, f)))
+          for f in TILE_PLAN_FIELDS]
+    rng = np.random.default_rng(3)
+    h = torch.from_numpy(rng.standard_normal(
+        (plan.k, plan.b, 24)).astype(np.float32))
+    wide = torch.from_numpy(rng.standard_normal(
+        (plan.k, plan.b, 48)).astype(np.float32))
+    for g in (wide[..., :24].contiguous(), wide[..., ::2]):
+        out = {}
+        for dev in ("cpu", cuda_device):
+            x = h.to(dev, copy=True).requires_grad_()
+            y = pspmm_tiles_sym(x, *(t.to(dev) for t in pa), *static)
+            before = PspmmTilesSym.backward_launches
+            y.backward(g.to(dev))
+            torch.cuda.synchronize()
+            out[str(dev)] = (x.grad.cpu(),
+                             PspmmTilesSym.backward_launches - before)
+        (cpu, n_cpu), (gpu, n_gpu) = out["cpu"], out["cuda"]
+        assert n_cpu == 0 and n_gpu == len(static[1]) + len(static[2])
+        assert torch.equal(cpu, gpu), (
+            f"backward cuda != cpu, max diff {(cpu - gpu).abs().max()}")
+
+
+def test_trainer_step_on_cuda_matches_cpu(cuda_device):
+    """One ``FullBatchTrainer.step`` on the card vs on the CPU from the
+    same weights: loss rtol 1e-5, weight gradients rtol 1e-4 / atol 1e-7
+    (the dense products sum in other orders on the card).  The card step
+    launches the kernel for 2 forward passes and 1 backward pass (layer 0
+    aggregates first: its input needs no gradient), per local and halo
+    class."""
+    plan = _er_plan()
+    rng = np.random.default_rng(4)
+    feats = rng.standard_normal((plan.n, 24)).astype(np.float32)
+    labels = rng.integers(0, 5, plan.n)
+    got = {}
+    for dev in ("cpu", cuda_device):
+        tr = FullBatchTrainer(plan, fin=24, widths=[32, 5], seed=2,
+                              device=dev)
+        data = make_train_data(plan, feats, labels, device=dev)
+        grads = []
+        tr.opt.register_step_pre_hook(lambda opt, a, kw, tr=tr: grads.append(
+            [w.grad.cpu().clone() for w in tr.params]))
+        spmm_tiles.launches = 0
+        loss = tr.step(data)
+        got[str(dev)] = (loss, grads[0], spmm_tiles.launches,
+                         tr.model.fwd_static)
+    (loss_c, g_c, n_c, _), (loss_g, g_g, n_g, st) = got["cpu"], got["cuda"]
+    classes = len(st["pallas_lclasses"]) + len(st["pallas_hclasses"])
+    assert n_c == 0 and n_g == (2 + 1) * classes
+    assert loss_g == pytest.approx(loss_c, rel=1e-5)
+    for a, b in zip(g_g, g_c):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-4,
+                                   atol=1e-7)

@@ -1,6 +1,7 @@
 """The port stands alone: no module of ``sgcn_tpu_torch`` and not
-``chip_smoke.py`` imports ``jax`` or the JAX package ``sgcn_tpu`` (whose
-``__init__`` imports jax even for its numpy-only modules).  An AST scan,
+``chip_smoke.py`` imports ``jax``, ``optax`` or the JAX package
+``sgcn_tpu`` (whose ``__init__`` imports jax even for its numpy-only
+modules).  An AST scan,
 so imports inside functions count too."""
 
 import ast
@@ -9,7 +10,7 @@ import os
 import pytest
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-FORBIDDEN = ("jax", "jaxlib", "sgcn_tpu")
+FORBIDDEN = ("jax", "jaxlib", "optax", "sgcn_tpu")
 
 
 def _sources():
