@@ -51,11 +51,33 @@ failure raises and the script exits non-zero:
      backward, optimizer) from CUDA events, the idle share over 3 steps
      under ``torch.profiler``, and the backward layer's kernel time, bound
      and ``torch.sparse.mm`` time on the same gradient;
-  6. one JSON line ``{"kernels": [...]}`` — per ported kernel (the tile
-     SpMM, and its use as the aggregation's backward) its launches on the
-     main path (phases 2–5), max |kernel − plain|, kernel / plain / bound
-     / library times at the flagship layer;
-  7. the last line: ``{"ok": true, "device": {...}}``.
+  6. K5, the kernel's int8-mask entry point (the GAT attention pass), on
+     phase 1's tiles as 0/1 masks at f ∈ {1, 41, 128}: bit-identical to
+     its plain version, to K1 on the upcast mask and between two
+     launches; timed as phase 1;
+  7. serving GAT (no activation between layers): cora2708 8-hp 1433 → 16
+     → 7 and phase 3's graph, features and plan at 128 → 128 → 128 → 40
+     (split, split, fused table forms).  Served rows against a float64
+     host GAT (``gat64``: ``torch.sparse.softmax`` of z1_i + z2_j over
+     Â's pattern) within rtol 1e-4 / atol 1e-5, exact mask-kernel
+     launches, p50/p99, QPS, a per-stage breakdown of one flagship forward
+     and the idle share;
+  8. training GAT at the flagship width, 1 warm-up + 5 timed steps: step-1
+     gradients of ``w`` and ``a2`` within 1e-5 (relative Frobenius, per
+     layer) of ``gat64``'s float64 autograd, ``a1``'s exactly 0, finite
+     losses, exact launches (every layer runs its backward passes), the
+     kernel on this run's real forward and backward tables == plain, and
+     its times at the flagship layer; ``epoch_s``, the step breakdown and
+     the idle share;
+  9. training cora2708 GAT through the CLI's ``main`` in-process
+     (``--model gat``, 5 steps): the losses track the dense GAT oracle
+     from the same seed on the card within 1e-4 relative, exact launches;
+  10. one JSON line ``{"kernels": [...]}`` — per ported kernel (the tile
+     SpMM, its use as the GCN aggregation's backward, the GAT attention
+     pass and its use in the GAT layer's backward) its launches on the
+     main path (phases 2–5 and 7–9), max |kernel − plain|, kernel /
+     plain / bound / library times at the flagship layer;
+  11. the last line: ``{"ok": true, "device": {...}}``.
 
 Without CUDA, or without the rest of the repository beside it, the script
 prints no result and exits with code 2 or 3.
@@ -77,6 +99,9 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 # float32 outside the tensor cores — the K1 bound's two rates
 HBM_BYTES_PER_S = 3.35e12
 F32_FLOPS_PER_S = 67e12
+
+# the flagship graph's vertex count (bench.py's ER shape, ogbn-arxiv's n)
+FLAGSHIP_N = 169343
 
 RTOL, ATOL = 1e-4, 1e-5          # served logits vs the float64 forward
 # step-1 weight gradients vs a float64 backprop that uses the float32
@@ -144,16 +169,18 @@ def random_class_tiles(rng, k, classes, tb, n):
 
 def k1_work(flat_src, flat_w, k, n, f, out_rows):
     """Bytes and flops the K1 call needs on these inputs: every stored
-    slot's (src, ld, w) read once, each DISTINCT referenced table row read
-    once, the output written once; 2 flops (multiply, add) per real edge
-    and column."""
+    slot's (src, ld, w) read once — 12 bytes, 9 with int8 mask weights
+    (K5) — each DISTINCT referenced table row read once, the output
+    written once; 2 flops (multiply, add) per real edge and column."""
     import numpy as np
 
     src = np.asarray(flat_src, np.int64)
-    real = np.asarray(flat_w) != 0
+    w = np.asarray(flat_w)
+    real = w != 0
     parts = np.broadcast_to(np.arange(k)[:, None], src.shape)
     rows = np.unique(parts[real] * n + src[real]).size
-    nbytes = src.size * 12 + rows * f * 4 + out_rows * f * 4
+    nbytes = (src.size * (8 + w.itemsize) + rows * f * 4
+              + out_rows * f * 4)
     flops = 2 * int(real.sum()) * f
     return nbytes, flops
 
@@ -183,7 +210,7 @@ def library_spmm(flat_src, flat_ld, flat_w, classes, k, n, tb, device):
         pk, ti, _ = np.nonzero(real)
         rows.append(pk * t_all * tb + (row0 + ti) * tb + d[real])
         cols.append(pk * n + s[real])
-        vals.append(w[real])
+        vals.append(w[real].astype(np.float32))
         off += t * e
         row0 += t
     idx = torch.as_tensor(np.stack([np.concatenate(rows),
@@ -297,12 +324,78 @@ class RecordingEngine:
         return out
 
 
-def serve_and_check(name, ahat, feats, pv, k, widths, queries, max_batch,
-                    seed, check_rows=None, device="cuda"):
-    """Drive the serving main path on the card and hold it to the float64
-    forward.  Returns (engine, result, launches, expected launches)."""
+def gat_params_numpy(seed, dims):
+    """GAT params from a numpy seed: per layer ``w`` N(0, 2/(fin+fout)),
+    ``a1``/``a2`` N(0, 1)/√fout (the reference's scales)."""
     import numpy as np
 
+    rng = np.random.default_rng(seed)
+    return [{"w": (rng.standard_normal((a, b)) * np.sqrt(2.0 / (a + b)))
+             .astype(np.float32),
+             "a1": (rng.standard_normal(b) / np.sqrt(b)).astype(np.float32),
+             "a2": (rng.standard_normal(b) / np.sqrt(b)).astype(np.float32)}
+            for a, b in dims]
+
+
+def gat64(ahat, feats, params, labels=None):
+    """Global float64 GAT on the host, written here apart from the port's
+    code: per layer ``z = h·w``, the scores ``s_ij = z1_i + z2_j`` on Â's
+    nonzero pattern, ``torch.sparse.softmax`` over each row, ``h = α·z``;
+    no activation (PGAT).  Returns the (n, nout) logits, or with
+    ``labels`` the mean softmax cross-entropy over every row and its
+    gradients by torch autograd on the CPU (per layer ``{w, a1, a2}``).
+    A check only: nothing else uses it."""
+    import numpy as np
+    import scipy.sparse as sp
+    import torch
+
+    a = sp.csr_matrix(ahat, dtype=np.float64)
+    a.eliminate_zeros()
+    a.sort_indices()
+    coo = a.tocoo()
+    idx = torch.as_tensor(np.stack([coo.row, coo.col]).astype(np.int64))
+    n = a.shape[0]
+    grad = labels is not None
+    ps = [{k: torch.tensor(np.asarray(v, np.float64), requires_grad=grad)
+           for k, v in p.items()} for p in params]
+    h = torch.as_tensor(np.asarray(feats, np.float64))
+    with torch.set_grad_enabled(grad):
+        for p in ps:
+            z = h @ p["w"]
+            s = (z @ p["a1"])[idx[0]] + (z @ p["a2"])[idx[1]]
+            scores = torch.sparse_coo_tensor(idx, s, (n, n), is_coalesced=True,
+                                             check_invariants=False)
+            alpha = torch.sparse.softmax(scores, dim=1).to_sparse_csr()
+            h = torch.sparse.mm(alpha, z)
+        if not grad:
+            return h.numpy()
+        loss = torch.nn.functional.cross_entropy(
+            h, torch.as_tensor(np.asarray(labels, np.int64)))
+        leaves = [p[k] for p in ps for k in ("w", "a1", "a2")]
+        grads = torch.autograd.grad(loss, leaves)
+    return float(loss.detach()), [
+        {k: grads[3 * i + j].numpy() for j, k in enumerate(("w", "a1", "a2"))}
+        for i in range(len(ps))]
+
+
+def gat_passes(widths):
+    """Kernel passes per class of one GAT forward (or backward): 1 for a
+    fused layer, 2 for a split one."""
+    from sgcn_tpu_torch.models.gat import gat_table_form
+
+    return sum(1 if gat_table_form(w) == "fused" else 2 for w in widths)
+
+
+def serve_and_check(name, ahat, feats, pv, k, widths, queries, max_batch,
+                    seed, check_rows=None, device="cuda", model="gcn",
+                    plan=None):
+    """Drive the serving main path on the card and hold it to the float64
+    forward (GCN: ``oracle_forward``; GAT: ``gat64``).  Returns (engine,
+    result, launches): the tile kernel's launches for GCN, its int8-mask
+    entry point's for GAT."""
+    import numpy as np
+
+    from sgcn_tpu_torch.models import gat as gat_model
     from sgcn_tpu_torch.models.gcn import params_from_jax
     from sgcn_tpu_torch.ops.tile_spmm import spmm_tiles
     from sgcn_tpu_torch.parallel import build_comm_plan
@@ -311,40 +404,56 @@ def serve_and_check(name, ahat, feats, pv, k, widths, queries, max_batch,
 
     n, fin = feats.shape
     t0 = time.perf_counter()
-    plan = build_comm_plan(ahat, pv, k)
+    plan = build_comm_plan(ahat, pv, k) if plan is None else plan
     dims = list(zip([fin] + widths[:-1], widths))
-    params = glorot_numpy(seed, dims)
-    eng = ServeEngine(plan, fin=fin, widths=widths,
-                      params=params_from_jax(params), max_batch=max_batch,
+    if model == "gat":
+        params = gat_params_numpy(seed, dims)
+        torch_params = gat_model.params_from_jax(params)
+    else:
+        params = glorot_numpy(seed, dims)
+        torch_params = params_from_jax(params)
+    eng = ServeEngine(plan, fin=fin, widths=widths, model=model,
+                      params=torch_params, max_batch=max_batch,
                       device=device)
     eng.set_features(feats)
-    lcls = eng.setup.fwd_static["pallas_lclasses"]
-    hcls = eng.setup.fwd_static["pallas_hclasses"]
+    st = eng.setup.fwd_static
+    if model == "gat":
+        classes, counter = st["pallas_cclasses"], "mask_launches"
+        passes = gat_passes(widths)
+        what = f"combined {[(t, e) for t, e, _ in classes]}"
+    else:
+        classes, counter = st["pallas_lclasses"], "launches"
+        hcls = st["pallas_hclasses"]
+        if len(classes) != len(hcls):
+            raise AssertionError(f"{name}: {len(classes)} local and "
+                                 f"{len(hcls)} halo classes")
+        passes = 2 * len(widths)
+        what = (f"local {[(t, e) for t, e, _ in classes]} halo "
+                f"{[(t, e) for t, e, _ in hcls]}")
     log(f"  {name}: plan + engine {time.perf_counter() - t0:.2f} s; "
-        f"b={plan.b} S={plan.s} R={plan.r} classes local "
-        f"{[(t, e) for t, e, _ in lcls]} halo {[(t, e) for t, e, _ in hcls]}")
+        f"b={plan.b} S={plan.s} R={plan.r} classes {what}")
     qids = synthetic_query_ids(n, queries, seed=seed)
     rec = RecordingEngine(eng)
 
-    spmm_tiles.launches = 0                     # the main path starts here
+    setattr(spmm_tiles, counter, 0)             # the main path starts here
     fwd0 = eng.forward_count
     eng.warmup(qids)
     result = run_loadgen(rec, qids)
-    launches = spmm_tiles.launches              # ... and ends here
+    launches = getattr(spmm_tiles, counter)     # ... and ends here
     forwards = eng.forward_count - fwd0
-    expected = forwards * len(widths) * 2 * len(lcls)
-    if len(lcls) != len(hcls) or launches != expected:
+    expected = forwards * passes * len(classes)
+    if launches != expected:
         raise AssertionError(
             f"{name}: tile kernel launched {launches} times, expected "
-            f"{forwards} forwards x {len(widths)} layers x 2 passes x "
-            f"{len(lcls)} classes = {expected}")
+            f"{forwards} forwards x {passes} passes x {len(classes)} "
+            f"classes = {expected}")
     if launches == 0:
         raise AssertionError(f"{name}: the main path launched no kernel")
     s = result.summary()
     log(f"  {name}: {s['queries']} queries in {s['batches']} batches, "
         f"{s['achieved_qps']} QPS, p50 {s['latency_p50_ms']} ms, "
         f"p99 {s['latency_p99_ms']} ms; kernel launches {launches} "
-        f"= {forwards} forwards x {len(widths)} x 2 x {len(lcls)}")
+        f"= {forwards} forwards x {passes} passes x {len(classes)}")
 
     q = np.concatenate([np.asarray(a, np.int64) for a, _ in rec.served])
     got = np.concatenate([o for _, o in rec.served])
@@ -356,11 +465,13 @@ def serve_and_check(name, ahat, feats, pv, k, widths, queries, max_batch,
         pick = np.random.default_rng(seed).permutation(len(q))[:check_rows]
         q, got = q[pick], got[pick]
     t0 = time.perf_counter()
-    want = oracle_forward(ahat, feats, params)[q]
+    want = (gat64(ahat, feats, params) if model == "gat"
+            else oracle_forward(ahat, feats, params))[q]
     err = np.abs(got - want)
     log(f"  {name}: {len(q)} served rows vs float64 forward "
         f"({time.perf_counter() - t0:.2f} s): max abs err {err.max():.3g}, "
-        f"max rel err {(err / np.maximum(np.abs(want), 1e-30)).max():.3g}")
+        f"max rel err {(err / np.maximum(np.abs(want), 1e-30)).max():.3g}, "
+        f"max |float64 row| {np.abs(want).max():.3g}")
     if not np.allclose(got, want, rtol=RTOL, atol=ATOL):
         raise AssertionError(f"{name}: served logits differ from the "
                              f"float64 forward beyond rtol {RTOL}, atol {ATOL}")
@@ -579,6 +690,142 @@ def step_breakdown(tr, data, steps: int = 3):
                                      "optimizer_ms"))}
 
 
+def gat_forward_breakdown(eng):
+    """Device time of each stage of one GAT forward (CUDA events around
+    each stage, run back to back), per layer: projection (``z = h·w``,
+    scores, ``u``, ``p = u·z``), exchange (the table or the split pair to
+    the halo, and the ``[local; halo]`` concatenation), numerator pass
+    (the one pass of a fused layer), denominator pass (split layers; the
+    lane slice of a fused one), division.  The stages are the forward's
+    own ops in its order, so the last layer's rows must equal the
+    engine's forward bit for bit."""
+    import torch
+
+    from sgcn_tpu_torch.models.gat import gat_table_form, score_project
+    from sgcn_tpu_torch.ops.pspmm import halo_exchange
+    from sgcn_tpu_torch.ops.tile_spmm import gat_tiles_pass
+
+    pa, st = eng.pa, eng.setup.fwd_static
+    tb, cls = st["pallas_tb"], st["pallas_cclasses"]
+    tiles = (pa["ptile_csrc"], pa["ptile_cld"], pa["ptile_cw"])
+    ex = (pa["send_idx"], pa["halo_src"])
+    h = eng._h0
+    b = h.shape[1]
+    rows = []
+    torch.cuda.synchronize()
+    with torch.inference_mode():
+        for i, p in enumerate(eng.model.layer_params()):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
+            ev[0].record()
+            z = h @ p["w"]
+            z2 = score_project(z, p["a2"])
+            cg = torch.where(pa["row_valid"] > 0, z2,
+                             torch.full_like(z2, -float("inf"))).max()
+            u = torch.exp(z2 - cg)
+            pz = u[..., None] * z
+            ev[1].record()
+            fout = z.shape[-1]
+            form = gat_table_form(fout)
+            if form == "fused":
+                t = torch.cat([pz, u[..., None]], dim=-1)
+                full = torch.cat([t, halo_exchange(t, *ex)], dim=1)
+            else:
+                full = torch.cat([pz, halo_exchange(pz, *ex)], dim=1)
+                full_u = torch.cat([u, halo_exchange(u, *ex)], dim=1)
+            ev[2].record()
+            out = gat_tiles_pass(*tiles, full, cls, tb, b)
+            ev[3].record()
+            if form == "fused":
+                num, den = out[..., :fout], out[..., fout]
+            else:
+                num = out
+                den = gat_tiles_pass(*tiles, full_u[..., None], cls, tb,
+                                     b)[..., 0]
+            ev[4].record()
+            h = num / torch.clamp(den, min=1e-30)[..., None]
+            ev[5].record()
+            torch.cuda.synchronize()
+            el = [ev[j].elapsed_time(ev[j + 1]) for j in range(5)]
+            rows.append({"layer": i, "form": form, "width": fout,
+                         "project_ms": el[0], "exchange_ms": el[1],
+                         "numerator_pass_ms": el[2],
+                         "denominator_pass_ms": el[3], "divide_ms": el[4]})
+        if not torch.equal(h, eng.forward()):
+            raise AssertionError("GAT breakdown != the engine's forward")
+    return rows
+
+
+def record_gat_aggregates(tr, data):
+    """One forward and backward of the GAT trainer's loss at its current
+    weights, without an optimizer step, recording the arguments of every
+    aggregation it runs (``models/gat.py::_gat_tiles_aggregate``): the
+    forward's layers in order, then the backward's in reverse."""
+    import torch
+
+    from sgcn_tpu_torch.models import gat as gat_model
+    from sgcn_tpu_torch.train import LOSSES
+
+    seen = []
+    orig = gat_model._gat_tiles_aggregate
+
+    def recording(*args):
+        seen.append(tuple(x.detach() if torch.is_tensor(x) else x
+                          for x in args))
+        return orig(*args)
+
+    gat_model._gat_tiles_aggregate = recording
+    try:
+        loss = LOSSES[tr.loss_name](tr.model(data.h0, tr.pa), data.labels,
+                                    data.train_valid)
+        torch.autograd.grad(loss, list(tr.model.parameters()))
+    finally:
+        gat_model._gat_tiles_aggregate = orig
+    torch.cuda.synchronize()
+    return seen
+
+
+def gat_pass_tables(call):
+    """The kernel tables of one recorded aggregation, built as
+    ``_gat_tiles_aggregate`` builds them: ``[full]`` for a fused layer,
+    ``[full_p, full_u]`` for a split one; and its (tiles, classes, tb)."""
+    import torch
+
+    from sgcn_tpu_torch.ops.pspmm import halo_exchange
+
+    p, s, form, send_idx, halo_src, csrc, cld, cw, tb, cls = call
+    if form == "fused":
+        t = torch.cat([p, s[..., None]], dim=-1)
+        tables = [torch.cat([t, halo_exchange(t, send_idx, halo_src)], 1)]
+    else:
+        tables = [torch.cat([p, halo_exchange(p, send_idx, halo_src)], 1),
+                  torch.cat([s, halo_exchange(s, send_idx, halo_src)],
+                            1)[..., None].contiguous()]
+    return tables, [csrc, cld, cw], cls, tb
+
+
+def check_time_gat_call(call, what):
+    """K5 on one recorded aggregation's real tables: the mask kernel ==
+    its plain version (and two launches) bit for bit per table, then its
+    time, plain time, bound and library time summed over the tables.
+    Returns (max |kernel - plain|, timing dict)."""
+    tables, tiles, cls, tb = gat_pass_tables(call)
+    tiles_np = [t.cpu().numpy() for t in tiles]
+    err, tot, bound_by = 0.0, {}, None
+    for table in tables:
+        f = table.shape[-1]
+        err = max(err, check_k1(tiles, table, cls, tb, f"{what} f={f}"))
+        t = time_k1(tiles_np, tiles, table, cls, tb, table.shape[1],
+                    f"{what} f={f}", plain_reps=2)
+        for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
+            tot[key] = tot.get(key, 0.0) + t[key]
+        bound_by = bound_by or t["bound_by"]
+    tot["bound_by"] = bound_by
+    log(f"  {what}: K5 over its {len(tables)} table(s): {tot['ms']!r} ms; "
+        f"bound {tot['bound_ms']!r} ms; plain {tot['plain_ms']!r} ms; "
+        f"torch.sparse.mm {tot['library_ms']!r} ms")
+    return err, tot
+
+
 def main() -> int:
     import torch
 
@@ -656,10 +903,10 @@ def main() -> int:
             eng_c.plan.b, "cora local pass f=16")
 
     # ---------------------------------------------------------- phase 3
-    log("phase 3: serve ER n=169343 deg 14, k=8 rp, GCN 128 -> 128 -> "
+    n_f = FLAGSHIP_N
+    log(f"phase 3: serve ER n={n_f} deg 14, k=8 rp, GCN 128 -> 128 -> "
         "128 -> 40 (ReLU)")
     t0 = time.perf_counter()
-    n_f = 169343
     ahat_f = normalize_adjacency(er_graph(n_f, avg_deg=14, seed=0))
     feats_f = np.random.default_rng(2).standard_normal(
         (n_f, 128)).astype(np.float32)
@@ -735,7 +982,7 @@ def main() -> int:
                              f"0.75, |oracle - fullbatch| < 0.03): {acc}")
 
     # ---------------------------------------------------------- phase 5
-    log("phase 5: train ER n=169343 deg 14, k=8 rp, GCN 128 -> 128 -> 128 "
+    log(f"phase 5: train ER n={n_f} deg 14, k=8 rp, GCN 128 -> 128 -> 128 "
         "-> 40 (ReLU, xent), 1 warm-up + 5 timed steps")
     widths_f = [128, 128, 40]
     labels_f = np.random.default_rng(4).integers(0, 40, n_f)
@@ -824,6 +1071,166 @@ def main() -> int:
             f"layer-{layer_b} gradient, f=128")
 
     # ---------------------------------------------------------- phase 6
+    log("phase 6: K5 — the int8-mask entry point vs its plain version and "
+        "K1 on the upcast mask, on phase 1's tiles as 0/1 masks")
+    from sgcn_tpu_torch.models.gat import GatLayerSym
+    from sgcn_tpu_torch.ops.tile_spmm import spmm_tiles_classes
+
+    mask_np = (tiles_np[0], tiles_np[1], (tiles_np[2] != 0).astype(np.int8))
+    mtiles = [torch.as_tensor(x).to(dev) for x in mask_np]
+    k5_err = 0.0
+    for f in (1, 41, 128):
+        table = torch.as_tensor(rng.standard_normal((k, n, f)).astype(
+            np.float32)).to(dev)
+        k5_err = max(k5_err, check_k1(mtiles, table, classes, tb,
+                                      f"K5 random tiles f={f}"))
+        k1_up = spmm_tiles_classes(*mtiles[:2], mtiles[2].float(), table,
+                                   classes, tb)
+        if not torch.equal(k1_up, spmm_tiles_classes(*mtiles, table,
+                                                     classes, tb)):
+            raise AssertionError(f"K5 f={f}: mask kernel != K1 on the "
+                                 "upcast mask")
+        log(f"  K5 random tiles f={f}: == K1 on the upcast mask")
+        time_k1(mask_np, mtiles, table, classes, tb, n,
+                f"K5 random tiles f={f}")
+
+    # ---------------------------------------------------------- phase 7
+    log("phase 7: serve GAT (no activation): cora2708 k=8 hp 1433 -> 16 -> "
+        "7, and phase 3's graph, features and plan at 128 -> 128 -> 128 -> "
+        "40")
+    eng_gc, _res_gc, launches_gc = serve_and_check(
+        "cora2708 GAT", ahat, feats, pv, 8, [16, 7], queries=128,
+        max_batch=32, seed=1, model="gat")
+    log_device_busy("cora2708 GAT", lambda: eng_gc.query(np.arange(32)))
+    widths_f = [128, 128, 40]
+    eng_gf, _res_gf, launches_gf = serve_and_check(
+        "flagship GAT", ahat_f, feats_f, pv_f, 8, widths_f, queries=512,
+        max_batch=64, seed=3, check_rows=256, model="gat", plan=plan)
+    cls_g = eng_gf.setup.fwd_static["pallas_cclasses"]
+    for row in gat_forward_breakdown(eng_gf):
+        log(f"  GAT forward breakdown: {json.dumps(row)}")
+    log_device_busy("flagship GAT", lambda: eng_gf.query(np.arange(64)))
+
+    # ---------------------------------------------------------- phase 8
+    log("phase 8: train GAT on phase 5's graph, features, labels and plan, "
+        "128 -> 128 -> 128 -> 40 (no activation, xent), 1 warm-up + 5 timed "
+        "steps")
+    from sgcn_tpu_torch.models.gat import params_from_jax as gat_from_numpy
+
+    params_g = gat_params_numpy(7, list(zip([128] + widths_f[:-1],
+                                            widths_f)))
+    trg = FullBatchTrainer(plan, fin=128, widths=widths_f, model="gat",
+                           activation="none", params=gat_from_numpy(params_g),
+                           device=dev)
+    t0 = time.perf_counter()
+    loss64_g, grads64_g = gat64(ahat_f, feats_f, params_g, labels=labels_f)
+    log(f"  float64 host GAT backprop (torch autograd, CPU) "
+        f"{time.perf_counter() - t0:.2f} s, loss {loss64_g!r}")
+    loss0_g, _ = trg.evaluate(data)
+    if abs(loss0_g - loss64_g) > 1e-5 * abs(loss64_g):
+        raise AssertionError(f"GAT initial loss {loss0_g} vs float64 "
+                             f"{loss64_g}")
+    gsteps = []
+    trg.opt.register_step_pre_hook(lambda opt, a, kw: None if gsteps else
+                                   gsteps.append([
+                                       {k: v.grad.cpu().numpy()
+                                        for k, v in p.items()}
+                                       for p in trg.params]))
+    spmm_tiles.mask_launches = 0                # the main path starts here
+    GatLayerSym.backward_launches = 0
+    rep_g = trg.fit(data, epochs=5, warmup=1, verbose=False)
+    launches_gt = spmm_tiles.mask_launches      # ... and ends here
+    bwd_gt = GatLayerSym.backward_launches
+    want_gt = steps_f * 2 * gat_passes(widths_f) * len(cls_g)
+    log(f"  K5 launches {launches_gt} (backward {bwd_gt}) = {steps_f} steps "
+        f"x 2 directions x {gat_passes(widths_f)} passes x {len(cls_g)} "
+        f"classes = {want_gt}")
+    if launches_gt != want_gt or bwd_gt != want_gt // 2:
+        raise AssertionError("flagship GAT training: K5 launch count "
+                             "differs from the passes the program runs")
+    losses_g = [loss0_g] + rep_g["loss_history"]
+    log(f"  losses (initial eval, timed steps): {losses_g}")
+    if not np.isfinite(losses_g).all():
+        raise AssertionError(f"non-finite GAT loss: {losses_g}")
+    for i, (got, want) in enumerate(zip(gsteps[0], grads64_g)):
+        if got["a1"].any():
+            raise AssertionError(f"layer {i}: a1 gradient is not exactly 0")
+        for key in ("w", "a2"):
+            rel = float(np.linalg.norm(got[key] - want[key])
+                        / np.linalg.norm(want[key]))
+            log(f"  step-1 d{key}{i} {got[key].shape}: relative Frobenius "
+                f"error vs float64 {rel:.3g}")
+            if not rel <= GRAD_RTOL:
+                raise AssertionError(f"GAT layer {i} d{key} off float64 by "
+                                     f"{rel}")
+        log(f"  step-1 da1{i}: exactly 0 (float64 autograd's "
+            f"|da1| {np.linalg.norm(want['a1']):.3g}, zero up to rounding)")
+    log(f"  epoch_s {rep_g['epoch_s']!r} (5 timed steps, host clock); "
+        f"phases {json.dumps(rep_g['phases'])}")
+    log(f"  step breakdown (CUDA events, mean of 3): "
+        f"{json.dumps(step_breakdown(trg, data))}")
+    log_device_busy("flagship GAT training", lambda: trg.step(data), reps=3,
+                    what="steps")
+    calls = record_gat_aggregates(trg, data)
+    nl = len(widths_f)
+    if len(calls) != 2 * nl:
+        raise AssertionError(f"{len(calls)} aggregations recorded, "
+                             f"expected {2 * nl}")
+    # the flagship layer: layer 0's forward and layer 1's backward, both
+    # split (f = 128 numerator + f = 1 denominator)
+    err_f, gat_fwd = check_time_gat_call(calls[0], "flagship GAT layer-0 "
+                                         "forward")
+    err_b, gat_bwd = check_time_gat_call(calls[nl + 1], "flagship GAT "
+                                         "layer-1 backward")
+    for j in (nl, 2 * nl - 1):                 # the other backward tables
+        tables, gtiles, gcls, gtb = gat_pass_tables(calls[j])
+        for table in tables:
+            err_b = max(err_b, check_k1(
+                gtiles, table, gcls, gtb, f"flagship GAT backward layer "
+                f"{2 * nl - 1 - j} f={table.shape[-1]}"))
+
+    # ---------------------------------------------------------- phase 9
+    log("phase 9: train cora2708 GAT on the card through the CLI (--model "
+        "gat --epochs 5 --warmup 0), against the dense GAT oracle from the "
+        "same seed")
+    from sgcn_tpu_torch.baselines import DenseGATOracle
+
+    out = io.StringIO()
+    t0 = time.perf_counter()
+    spmm_tiles.mask_launches = 0                # the main path starts here
+    GatLayerSym.backward_launches = 0
+    with contextlib.redirect_stdout(out):
+        train_main(["--npz", os.path.join(fix, "cora2708.npz"), "--normalize",
+                    "-p", os.path.join(fix, "cora2708.8.hp"), "-s", "8",
+                    "-l", "2", "--hidden", "16", "--model", "gat",
+                    "--epochs", "5", "--warmup", "0", "--seed", "11"])
+    launches_gtc = spmm_tiles.mask_launches     # ... and ends here
+    bwd_gtc = GatLayerSym.backward_launches
+    lines = out.getvalue().strip().splitlines()
+    rep_gc = json.loads(lines[-1])
+    cli_losses = [float(x.split()[-1]) for x in lines
+                  if x.startswith("epoch ")]
+    labels_c = load_npz_dataset(os.path.join(fix, "cora2708.npz"))[2]
+    oracle = DenseGATOracle(ahat, 1433, [16, 7], seed=11, device=dev)
+    want_losses = oracle.fit(feats, labels_c, epochs=5)
+    rel = np.abs(np.asarray(cli_losses) / np.asarray(want_losses) - 1)
+    log(f"  CLI report ({time.perf_counter() - t0:.2f} s with the oracle): "
+        f"{json.dumps(rep_gc)}")
+    log(f"  CLI losses {cli_losses}; dense GAT oracle {want_losses}; max "
+        f"relative gap {rel.max():.3g}")
+    cls_gc = eng_gc.setup.fwd_static["pallas_cclasses"]
+    want_gtc = 5 * 2 * gat_passes([16, 7]) * len(cls_gc)
+    log(f"  K5 launches {launches_gtc} (backward {bwd_gtc}); expected "
+        f"{want_gtc} ({want_gtc // 2})")
+    if launches_gtc != want_gtc or bwd_gtc != want_gtc // 2:
+        raise AssertionError("cora GAT training: K5 launch count differs "
+                             "from the passes the program runs")
+    if rep_gc["model"] != "gat" or len(cli_losses) != 5 \
+            or not rel.max() <= 1e-4:
+        raise AssertionError("cora GAT: the CLI's losses do not track the "
+                             "dense GAT oracle within 1e-4 relative")
+
+    # ---------------------------------------------------------- phase 10
     kernels = [{
         "name": "tile_spmm",
         "route": "cuda",
@@ -849,6 +1256,30 @@ def main() -> int:
         "bound_ms": bwd["bound_ms"],
         "bound_by": b_halo["bound_by"],
         "library_ms": bwd["library_ms"],
+    }, {
+        "name": "gat_tiles_pass",
+        "route": "cuda",
+        "source": "sgcn_tpu_torch/csrc/tile_spmm.cu",
+        "replaces": "sgcn_tpu/ops/pallas_spmm.py:530-545",
+        "launches": launches_gc + launches_gf + launches_gt + launches_gtc,
+        "max_abs_err": max(k5_err, err_f, err_b),
+        "ms": gat_fwd["ms"],
+        "plain_ms": gat_fwd["plain_ms"],
+        "bound_ms": gat_fwd["bound_ms"],
+        "bound_by": gat_fwd["bound_by"],
+        "library_ms": gat_fwd["library_ms"],
+    }, {
+        "name": "gat_layer_sym_backward",
+        "route": "cuda",
+        "source": "sgcn_tpu_torch/csrc/tile_spmm.cu",
+        "replaces": "sgcn_tpu/models/gat.py:637-687",
+        "launches": bwd_gt + bwd_gtc,
+        "max_abs_err": err_b,
+        "ms": gat_bwd["ms"],
+        "plain_ms": gat_bwd["plain_ms"],
+        "bound_ms": gat_bwd["bound_ms"],
+        "bound_by": gat_bwd["bound_by"],
+        "library_ms": gat_bwd["library_ms"],
     }]
     log(f"total {time.perf_counter() - t_start:.1f} s; card: {smi}")
     log(json.dumps({"kernels": kernels}))

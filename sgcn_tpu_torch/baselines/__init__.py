@@ -1,3 +1,4 @@
+from .gat_oracle import DenseGATOracle
 from .oracle import DenseOracle
 
-__all__ = ["DenseOracle"]
+__all__ = ["DenseGATOracle", "DenseOracle"]

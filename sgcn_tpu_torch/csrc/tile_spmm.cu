@@ -1,7 +1,9 @@
 // Destination-tiled SpMM for Hopper (sm_90a): out = Â_tiles · table.
 //
-// Replaces the TPU kernel sgcn_tpu/ops/pallas_spmm.py::spmm_pallas.  It
-// computes what that kernel computes, not how: per tile of `tb` destination
+// Replaces the TPU kernel sgcn_tpu/ops/pallas_spmm.py::spmm_pallas (K1) and,
+// through its int8-mask entry point, that kernel's use as the GAT attention
+// pass gat_pallas_pass (K5).  It computes what that kernel computes, not
+// how: per tile of `tb` destination
 // rows, start every (row, column) sum at 0.0f, walk the tile's `emax` padded
 // edges in STORED order and add w * table[src] into row `ld`.  Pad edges
 // (w = 0, ld = tb-1) are not skipped — they add 0*x exactly as the
@@ -14,8 +16,9 @@
 // bit-identical, and equal to the plain PyTorch loop in ops/tile_spmm.py.
 //
 // What bounds it on the H100: bytes, not operations.  Each edge slot is
-// 12 bytes of (src, ld, w) and 2 flops per feature column; each gathered
-// table row is f*4 bytes read from HBM through the 50 MB L2 (the TPU
+// 12 bytes of (src, ld, w) (9 with int8 masks) and 2 flops per feature
+// column; each gathered table row is f*4 bytes read from HBM through the
+// 50 MB L2 (the TPU
 // kernel's premise that the whole table sits in VMEM does not apply here).
 // Design against that: one block per (tile, part) — the part is grid.y
 // over the stacked (k, ...) arrays, so one launch serves all k parts; the
@@ -40,10 +43,14 @@ constexpr int kMaxCols = 32;     // columns per pass over the edges
 constexpr int kEdgeChunk = 1024; // edges staged in shared memory at once
 constexpr int kAhead = 4;        // edges whose row reads are issued together
 
+// W is the stored weight type: float (Â's values, K1) or int8_t (the GAT
+// passes' 0/1 edge masks, K5).  Each weight is converted to float as it is
+// staged, exactly, so both entry points run the same float arithmetic.
+template <typename W>
 __global__ void __launch_bounds__(kThreads)
 tile_spmm_f32_kernel(const int32_t* __restrict__ tsrc,
                      const int32_t* __restrict__ tld,
-                     const float* __restrict__ tw,
+                     const W* __restrict__ tw,
                      const float* __restrict__ table,
                      float* __restrict__ out,
                      int emax, int tb, int n_rows, int f, int cols_log2,
@@ -65,7 +72,7 @@ tile_spmm_f32_kernel(const int32_t* __restrict__ tsrc,
       (long long)part * idx_part_stride + (long long)tile * emax;
   const int32_t* src_p = tsrc + eoff;
   const int32_t* ld_p = tld + eoff;
-  const float* w_p = tw + eoff;
+  const W* w_p = tw + eoff;
   const float* tab = table + (long long)part * table_part_stride;
   float* outp = out + (long long)part * out_part_stride +
                 (long long)tile * tb * f;
@@ -87,7 +94,7 @@ tile_spmm_f32_kernel(const int32_t* __restrict__ tsrc,
           __trap();
         s_src[i] = s;
         s_ld[i] = l;
-        s_w[i] = w_p[e0 + i];
+        s_w[i] = static_cast<float>(w_p[e0 + i]);
       }
       __syncthreads();
       int e = 0;
@@ -128,23 +135,12 @@ tile_spmm_f32_kernel(const int32_t* __restrict__ tsrc,
   }
 }
 
-}  // namespace
-
-// Launch over k stacked parts of one tile class.  Pointers are device
-// pointers; the index arrays of part p start at p * idx_part_stride and
-// hold t rows of emax slots; table part p is (n_rows, f) row-major at
-// p * table_part_stride; out part p is (t * tb, f) row-major at
-// p * out_part_stride.  Launches on `stream` of CUDA device `device`, does
-// not synchronize, and returns the cudaError_t of the launch
-// (cudaGetLastError()).
-extern "C" int sgcn_tile_spmm_f32(const void* tsrc, const void* tld,
-                                  const void* tw, const void* table,
-                                  void* out, int k, int t, int emax, int tb,
-                                  int n_rows, int f,
-                                  long long idx_part_stride,
-                                  long long table_part_stride,
-                                  long long out_part_stride, int device,
-                                  void* stream) {
+template <typename W>
+int launch(const void* tsrc, const void* tld, const void* tw,
+           const void* table, void* out, int k, int t, int emax, int tb,
+           int n_rows, int f, long long idx_part_stride,
+           long long table_part_stride, long long out_part_stride,
+           int device, void* stream) {
   if (k < 1 || k > 65535 || t < 1 || emax < 1 || tb < 1 || tb > kMaxTile ||
       n_rows < 1 || f < 1)
     return (int)cudaErrorInvalidValue;
@@ -155,11 +151,52 @@ extern "C" int sgcn_tile_spmm_f32(const void* tsrc, const void* tld,
   int cols_log2 = 0;
   while ((1 << cols_log2) < f && (1 << cols_log2) < kMaxCols) ++cols_log2;
   dim3 grid((unsigned)t, (unsigned)k);
-  tile_spmm_f32_kernel<<<grid, kThreads, 0, (cudaStream_t)stream>>>(
-      (const int32_t*)tsrc, (const int32_t*)tld, (const float*)tw,
+  tile_spmm_f32_kernel<W><<<grid, kThreads, 0, (cudaStream_t)stream>>>(
+      (const int32_t*)tsrc, (const int32_t*)tld, (const W*)tw,
       (const float*)table, (float*)out, emax, tb, n_rows, f, cols_log2,
       idx_part_stride, table_part_stride, out_part_stride);
   return (int)cudaGetLastError();
+}
+
+}  // namespace
+
+// Launch over k stacked parts of one tile class.  Pointers are device
+// pointers; the index arrays of part p start at p * idx_part_stride and
+// hold t rows of emax slots; table part p is (n_rows, f) row-major at
+// p * table_part_stride; out part p is (t * tb, f) row-major at
+// p * out_part_stride.  Launches on `stream` of CUDA device `device`, does
+// not synchronize, and returns the cudaError_t of the launch
+// (cudaGetLastError()).  `tw` is float32 (K1: Â's values).
+extern "C" int sgcn_tile_spmm_f32(const void* tsrc, const void* tld,
+                                  const void* tw, const void* table,
+                                  void* out, int k, int t, int emax, int tb,
+                                  int n_rows, int f,
+                                  long long idx_part_stride,
+                                  long long table_part_stride,
+                                  long long out_part_stride, int device,
+                                  void* stream) {
+  return launch<float>(tsrc, tld, tw, table, out, k, t, emax, tb, n_rows, f,
+                       idx_part_stride, table_part_stride, out_part_stride,
+                       device, stream);
+}
+
+// The same launch with int8 0/1 weights (K5, the GAT attention passes:
+// sgcn_tpu/ops/pallas_spmm.py::gat_pallas_pass, whose mask tiles the plan
+// ships as int8).  The reference upcasts the whole mask array to f32 before
+// its kernel; here each weight converts as the block stages it, so no
+// (k, ΣT_c·Emax_c) f32 copy is made per pass and a slot is 9 bytes, not 12.
+// Per element the arithmetic is K1's on the upcast mask, bit for bit.
+extern "C" int sgcn_tile_spmm_mask_f32(const void* tsrc, const void* tld,
+                                       const void* tw, const void* table,
+                                       void* out, int k, int t, int emax,
+                                       int tb, int n_rows, int f,
+                                       long long idx_part_stride,
+                                       long long table_part_stride,
+                                       long long out_part_stride, int device,
+                                       void* stream) {
+  return launch<int8_t>(tsrc, tld, tw, table, out, k, t, emax, tb, n_rows, f,
+                        idx_part_stride, table_part_stride, out_part_stride,
+                        device, stream);
 }
 
 extern "C" const char* sgcn_cuda_error_string(int code) {

@@ -1,0 +1,310 @@
+"""Partitioned GAT over the tile-SpMM attention pass (port of the a2a
+tile-kernel branch of ``sgcn_tpu/models/gat.py``).
+
+Per layer the reference computes ``Z = H·W`` and the scores
+``s_ij = z1_i + z2_j`` (``z1 = Z·a1``, ``z2 = Z·a2``), softmaxes each row
+over its in-edges and aggregates ``H' = α·Z``.  Two facts reshape the
+layer (the reference's ``gat_layer_sym``):
+
+  * the row softmax is shift-invariant, so ``z1``/``a1`` cancel
+    (``∂L/∂a1 = 0`` exactly) and ``α_ij = u_j / Σ_{j'∈N(i)} u_j'`` with
+    ``u_j = exp(z2_j − C)``: the layer is ``out_i = N_i / D_i`` with
+    ``N = P·(u z)`` and ``D = P·u``, two mask-weighted aggregations over
+    the combined ``[local; halo]`` edges.  ``C`` is the max of ``z2`` over
+    every part's real rows (the reference's ``pmax``);
+  * for a symmetric edge pattern the backward of ``N``/``D`` is the same
+    pair of aggregations on ``[ḡ/D ‖ −(ḡ·out)/D]``: no scatter.
+
+The aggregations run the tile kernel's int8-mask entry point
+(``ops/tile_spmm.py::gat_tiles_pass``, K5) on the table form the reference
+ships (``gat_table_form``): one fused ``(fout+1)``-lane pass, or split
+feature and scalar passes.  All ``k`` parts are stacked on a leading axis;
+each of the reference's per-chip weight-gradient psums is a sum over the
+``k`` parts.  Params keep the reference's layout — per layer a dict
+``{w (fin, fout), a1 (fout,), a2 (fout,)}`` — so ``params_from_jax``
+carries the JAX package's params across unchanged.
+
+Not ported: the packed bf16 table form (ROADMAP A6), the asymmetric
+``gat_layer_local`` (A2), the ragged ring (A4) and the sub-graph
+stabilizers (A11).
+"""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..ops.pspmm import halo_exchange
+from ..ops.tile_spmm import gat_tiles_pass, spmm_tiles
+from .activations import get_activation
+
+# plan arrays the tile-kernel GAT forward ships (the reference's
+# GAT_PLAN_FIELDS_PALLAS, same names); ptile_cw ships as int8
+GAT_PLAN_FIELDS_PALLAS = ("send_idx", "halo_src", "ptile_csrc", "ptile_cld",
+                          "ptile_cw", "row_valid")
+
+# Widest row of the fused one-pass table form.  Structural default
+# MEASURED ON THE TPU (v5e: one 128-lane tile; a 129-lane f32 array doubles
+# under tile padding) and kept so this port's table forms, kernel launches
+# and wire census match the reference's; to be re-measured on the H100
+# (ROADMAP).
+FUSED_MAX_LANES = 128
+
+_NEG = -1e30
+
+
+def score_project(z, a2):
+    """Per-row attention score ``z2_i = z_i · a2`` as a row-local
+    multiply-reduce (the reference's form; every consumer, forward and
+    backward, goes through it)."""
+    return (z * a2).sum(dim=-1)
+
+
+def gat_exchange_lane_widths(widths):
+    """Per-layer wire width of the GAT attention-table exchange in
+    f32-lane equivalents, the reference's lane model: ``fout + 1`` for the
+    f32 fused table and the split pair alike (the bf16 forms are not
+    ported, A6)."""
+    return [int(fout) + 1 for fout in widths]
+
+
+def _fused_form(fout: int) -> bool:
+    """One pass over the ``(fout+1)``-lane table only while it fits
+    ``FUSED_MAX_LANES``."""
+    return fout + 1 <= FUSED_MAX_LANES
+
+
+def gat_table_form(fout: int, compute_dtype=None) -> str:
+    """The table form one GAT exchange ships at width ``fout``:
+    ``'fused'`` (one ``(·, fout+1)`` table, one kernel pass) or
+    ``'split'`` (feature rows and the scalar ``u`` as two tables, two
+    passes).  Both directions ship the same form.  The reference's third
+    form, ``'packed'`` bf16, is not ported yet."""
+    if compute_dtype not in (None, "float32", torch.float32):
+        raise NotImplementedError(
+            f"GAT compute dtype {compute_dtype!r} (the packed bf16 table "
+            "form) is not ported yet (ROADMAP item A6)")
+    return "fused" if _fused_form(fout) else "split"
+
+
+def init_gat_params(generator: torch.Generator, dims, device="cpu"):
+    """The reference's init on a ``torch.Generator``: per layer a
+    Glorot-normal ``w`` (truncated at two standard deviations, as
+    ``jax.nn.initializers.glorot_normal``) and ``a1``/``a2`` drawn
+    N(0, 1)/√fout.  Other numbers than ``jax.random`` gives for the same
+    seed: parity tests carry the reference's params over with
+    ``params_from_jax``."""
+    out = []
+    for fin, fout in dims:
+        # variance 2/(fin+fout) after truncation: the std of a standard
+        # normal truncated to [-2, 2] is 0.87962566103423978
+        std = math.sqrt(2.0 / (fin + fout)) / 0.87962566103423978
+        w = torch.empty((fin, fout), dtype=torch.float32)
+        nn.init.trunc_normal_(w, std=std, a=-2 * std, b=2 * std,
+                              generator=generator)
+        a1 = torch.randn(fout, generator=generator) / math.sqrt(fout)
+        a2 = torch.randn(fout, generator=generator) / math.sqrt(fout)
+        out.append({"w": w.to(device), "a1": a1.to(device),
+                    "a2": a2.to(device)})
+    return out
+
+
+def gat_param_tensors(params, device="cpu"):
+    """Per-layer ``{w, a1, a2}`` dicts of numpy arrays (e.g. the JAX
+    package's) or tensors → float32 copies on ``device``."""
+    def one(x):
+        if isinstance(x, torch.Tensor):
+            return x.detach().to(device, torch.float32, copy=True)
+        return torch.tensor(np.asarray(x, np.float32), device=device)
+
+    return [{name: one(p[name]) for name in ("w", "a1", "a2")}
+            for p in params]
+
+
+def params_from_jax(params, device="cpu"):
+    """The JAX package's GAT params (a list of ``{w, a1, a2}`` dicts,
+    passed as numpy) → float32 tensors on ``device``, same layout."""
+    return gat_param_tensors(params, device)
+
+
+def edge_softmax(scores, edge_mask, edge_dst, num_rows: int):
+    """Numerically stable softmax over the incoming edges of each dst
+    row, over a dst-sorted COO edge list (the reference's helper, for
+    callers holding plain edge lists; masked edges get 0)."""
+    scores = torch.where(edge_mask, scores, torch.full_like(scores, _NEG))
+    dst = edge_dst.long()
+    row_max = torch.full((num_rows,), -math.inf, dtype=scores.dtype,
+                         device=scores.device)
+    row_max = row_max.scatter_reduce(0, dst, scores, "amax",
+                                     include_self=False)
+    row_max = torch.clamp(row_max, min=_NEG)     # empty rows: -inf → _NEG
+    ex = torch.where(edge_mask, torch.exp(scores - row_max[dst]),
+                     torch.zeros_like(scores))
+    denom = torch.zeros(num_rows, dtype=scores.dtype,
+                        device=scores.device).index_add(0, dst, ex)
+    return ex / (denom[dst] + 1e-9)
+
+
+def _gat_tiles_aggregate(p, s, form, send_idx, halo_src, csrc, cld, cw,
+                         tb, cclasses):
+    """Masked Σ over every row's in-edges of ``[p ‖ s]`` — the a2a half of
+    the reference's ``_gat_pallas_aggregate``.  ``p``: ``(k, b, fout)``,
+    ``s``: ``(k, b)``.  ``form='fused'`` exchanges one ``(k, b, fout+1)``
+    table and runs ONE kernel pass whose last lane is the scalar sum;
+    ``'split'`` exchanges the feature rows and the scalar separately (the
+    scalar in its own ``(k, S)`` buffer) and runs two passes, the second
+    at width 1.  Every kernel column is summed on its own in stored edge
+    order, so the two forms give the same bits.  Returns
+    ``(N (k, b, fout), D (k, b))``."""
+    b, fout = p.shape[1], p.shape[2]
+    if form == "fused":
+        table = torch.cat([p, s[..., None]], dim=-1)
+        halo = halo_exchange(table, send_idx, halo_src)
+        full = torch.cat([table, halo], dim=1)       # (k, B+R, fout+1)
+        out = gat_tiles_pass(csrc, cld, cw, full, cclasses, tb, b)
+        return out[..., :fout], out[..., fout]
+    if form != "split":
+        raise ValueError(f"the tile GAT pass takes the fused/split table "
+                         f"forms, not {form!r}")
+    full_p = torch.cat([p, halo_exchange(p, send_idx, halo_src)], dim=1)
+    full_u = torch.cat([s, halo_exchange(s, send_idx, halo_src)], dim=1)
+    num = gat_tiles_pass(csrc, cld, cw, full_p, cclasses, tb, b)
+    den = gat_tiles_pass(csrc, cld, cw, full_u[..., None], cclasses, tb,
+                         b)[..., 0]
+    return num, den
+
+
+def _gat_factored_fwd_core(w, a2, h, send_idx, halo_src, csrc, cld, cw,
+                           row_valid, tb, cclasses, form=None):
+    """The factored layer over stacked parts: returns
+    ``(out, z, u, den, cg)``.  ``cg`` is the max of ``z2`` over every
+    part's real rows (the reference's ``pmax``, pad rows excluded),
+    without gradient: ``out`` is exactly invariant to it."""
+    z = h @ w
+    z2 = score_project(z, a2)
+    z2m = torch.where(row_valid > 0, z2.detach(),
+                      torch.full_like(z2, -math.inf))
+    cg = z2m.max()
+    u = torch.exp(z2 - cg)                           # (k, b) in (0, 1]
+    if form is None:
+        form = gat_table_form(z.shape[-1])
+    num, den = _gat_tiles_aggregate(u[..., None] * z, u, form, send_idx,
+                                    halo_src, csrc, cld, cw, tb, cclasses)
+    # max(den, tiny): u > 0 on every real edge, so this stays exact until
+    # genuine f32 underflow; the reference's guard, kept as it is
+    out = num / torch.clamp(den, min=1e-30)[..., None]
+    return out, z, u, den, cg
+
+
+class GatLayerSym(torch.autograd.Function):
+    """``gat_layer_sym`` with its custom VJP, over stacked parts, for a
+    SYMMETRIC edge pattern.  The forward keeps ``(w, a1, a2, h, cg, den,
+    out)`` and the plan tensors, not ``z`` or ``u``: the backward
+    recomputes ``z = h·w`` and ``u`` from ``cg``, forms ``dn = ḡ/D`` and
+    ``dd = −(ḡ·out)/D`` and sends them through the same exchange and the
+    same kernel passes as the forward (the transpose of a symmetric
+    pattern's aggregation is the aggregation).  ``∂L/∂a1`` is exactly 0;
+    the weight gradients sum over the ``k`` parts (the reference's psum).
+
+    ``GatLayerSym.backward_launches`` counts the kernel launches the
+    backward made (CUDA tensors only)."""
+
+    backward_launches = 0
+
+    @staticmethod
+    def forward(ctx, w, a1, a2, h, send_idx, halo_src, csrc, cld, cw,
+                row_valid, tb, cclasses, form=None):
+        if form is None:
+            form = gat_table_form(w.shape[1])
+        out, _z, _u, den, cg = _gat_factored_fwd_core(
+            w, a2, h, send_idx, halo_src, csrc, cld, cw, row_valid, tb,
+            cclasses, form)
+        ctx.save_for_backward(w, a1, a2, h, cg, den, out, send_idx,
+                              halo_src, csrc, cld, cw)
+        ctx.static = (tb, cclasses, form)
+        return out
+
+    @staticmethod
+    def backward(ctx, gbar):
+        (w, a1, a2, h, cg, den, out, send_idx, halo_src, csrc, cld,
+         cw) = ctx.saved_tensors
+        tb, cclasses, form = ctx.static
+        before = spmm_tiles.mask_launches
+        z = h @ w                                    # recomputed
+        fin, fout = w.shape
+        u = torch.exp(score_project(z, a2) - cg)
+        dng = torch.clamp(den, min=1e-30)            # the forward's guard
+        dn = gbar / dng[..., None]                   # (k, b, fout)
+        dd = -(gbar * out).sum(dim=-1) / dng         # (k, b)
+        dp, du_agg = _gat_tiles_aggregate(dn, dd, form, send_idx, halo_src,
+                                          csrc, cld, cw, tb, cclasses)
+        # p = u·z, u = exp(z2 − C): chain rules (C is constant a.e.)
+        dz2 = u * ((dp * z).sum(dim=-1) + du_agg)
+        dz_total = u[..., None] * dp + dz2[..., None] * a2
+        dh = dz_total @ w.T if ctx.needs_input_grad[3] else None
+        dw = h.reshape(-1, fin).T @ dz_total.reshape(-1, fout)
+        da2 = z.reshape(-1, fout).T @ dz2.reshape(-1)
+        GatLayerSym.backward_launches += spmm_tiles.mask_launches - before
+        return (dw, torch.zeros_like(a1), da2, dh) + (None,) * 9
+
+
+def gat_forward_local(
+    params,
+    h,                              # (k, B, f_in) stacked local rows
+    pa,                             # plan tensors (GAT_PLAN_FIELDS_PALLAS)
+    activation: str = "none",
+    final_activation: str = "none",
+    symmetric: bool = True,         # the custom backward needs Â's pattern
+                                    # symmetric
+    pallas_tb: int = 256,           # static tile height
+    pallas_cclasses: tuple = (),    # static combined tile classes
+):
+    """Stacked forward: L × (``GatLayerSym`` → activation) →
+    ``(k, B, nout)``.  The reference stacks bare PGAT layers (no
+    inter-layer activation by default)."""
+    if not symmetric:
+        raise NotImplementedError(
+            "gat_layer_local (asymmetric edge patterns, autodiff through "
+            "the forward) is not ported yet (ROADMAP item A2); the tile "
+            "GAT pass rides the symmetric custom backward")
+    act = get_activation(activation)
+    fact = get_activation(final_activation)
+    nl = len(params)
+    for i, p in enumerate(params):
+        h = GatLayerSym.apply(
+            p["w"], p["a1"], p["a2"], h, pa["send_idx"], pa["halo_src"],
+            pa["ptile_csrc"], pa["ptile_cld"], pa["ptile_cw"],
+            pa["row_valid"], pallas_tb, pallas_cclasses)
+        h = fact(h) if i == nl - 1 else act(h)
+    return h
+
+
+class GAT(nn.Module):
+    """The GAT as a module: per layer ``w``, ``a1`` and ``a2`` as
+    trainable parameters (from numpy arrays or tensors, copied), the
+    plan's static tile structure as attributes, ``forward(h, pa)`` over
+    stacked parts."""
+
+    def __init__(self, params, activation: str = "none",
+                 final_activation: str = "none", fwd_static=None):
+        super().__init__()
+        tensors = gat_param_tensors(params)
+        self.w, self.a1, self.a2 = (
+            nn.ParameterList(nn.Parameter(p[name]) for p in tensors)
+            for name in ("w", "a1", "a2"))
+        self.activation = activation
+        self.final_activation = final_activation
+        self.fwd_static = dict(fwd_static or {})
+
+    def layer_params(self) -> list:
+        """Per layer ``{w, a1, a2}`` (the live parameters)."""
+        return [{"w": w, "a1": a1, "a2": a2}
+                for w, a1, a2 in zip(self.w, self.a1, self.a2)]
+
+    def forward(self, h, pa):
+        return gat_forward_local(
+            self.layer_params(), h, pa, activation=self.activation,
+            final_activation=self.final_activation, **self.fwd_static)

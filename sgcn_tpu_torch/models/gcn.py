@@ -122,6 +122,10 @@ class GCN(nn.Module):
         self.final_activation = final_activation
         self.fwd_static = dict(fwd_static or {})
 
+    def layer_params(self) -> list:
+        """Per layer the ``(fin, fout)`` weight (the live parameters)."""
+        return list(self.weights)
+
     def forward(self, h, pa):
         return gcn_forward_local(
             list(self.weights), h, pa, activation=self.activation,

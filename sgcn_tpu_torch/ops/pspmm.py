@@ -20,18 +20,20 @@ def halo_exchange(h, send_idx, halo_src):
     """Exchange boundary rows; return every part's halo row block.
 
     Args:
-      h: ``(k, B, f)`` local feature rows of all parts.
+      h: ``(k, B, f)`` local feature rows of all parts, or ``(k, B)`` one
+        scalar per row (the split GAT form ships its ``u`` in its own
+        ``(k, S)`` buffer, the reference's ``_exchange_rows_scalar``).
       send_idx: ``(k, k, S)`` int — ``send_idx[p, q]`` the local rows part
         ``p`` ships to part ``q`` (padded with 0; receivers never gather
         padded slots).
       halo_src: ``(k, R)`` int — flat indices into each part's received
-        ``(k*S, f)`` buffer, in the plan's (owner, vertex-id) halo order.
+        ``(k*S, ...)`` buffer, in the plan's (owner, vertex-id) halo order.
 
-    Returns ``(k, R, f)`` halo rows (padding rows hold garbage; only
-    weight-0 edges reference them).
+    Returns ``(k, R, f)`` (or ``(k, R)``) halo rows (padding rows hold
+    garbage; only weight-0 edges reference them).
     """
-    k, _, f = h.shape
+    k = h.shape[0]
     parts = torch.arange(k, device=h.device)
-    send = h[parts[:, None, None], send_idx.long()]        # (k, k, S, f)
-    recv = send.transpose(0, 1).reshape(k, -1, f)          # recv[q, p·S + t]
-    return recv[parts[:, None], halo_src.long()]           # (k, R, f)
+    send = h[parts[:, None, None], send_idx.long()]        # (k, k, S, ...)
+    recv = send.transpose(0, 1).reshape(k, -1, *h.shape[2:])  # recv[q, p·S+t]
+    return recv[parts[:, None], halo_src.long()]           # (k, R, ...)

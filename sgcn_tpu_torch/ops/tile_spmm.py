@@ -19,7 +19,11 @@ holds, in the reference's order:
     ``torch.autograd.Function`` ``PspmmTilesSym``: halo exchange, the
     kernel over the local table, the kernel over the halo table,
     ``local + remote``; the backward is the same op on the gradient
-    (Â is symmetric).
+    (Â is symmetric);
+  * ``gat_tiles_pass`` — ``gat_pallas_pass`` (K5): the GAT attention pass,
+    the kernel over the combined-edge tiles with int8 0/1 mask weights.
+    ``spmm_tiles`` launches the kernel's int8 entry point for an int8
+    ``tw`` and counts it in ``spmm_tiles.mask_launches``.
 
 Every function takes the ``k`` parts stacked on a leading axis
 (``(k, ...)`` tile arrays and tables); the single-part 2-D forms are
@@ -113,8 +117,10 @@ def spmm_tiles_plain(tsrc, tld, tw, table, tb: int = 256):
     separately — the kernel's arithmetic, on any device.
 
     ``tsrc``/``tld``: int32 ``(k, T, Emax)`` (or ``(T, Emax)``); ``tw``
-    float32, same shape; ``table``: ``(k, N, f)`` (or ``(N, f)``).
-    Returns ``(k, T·tb, f)`` (or ``(T·tb, f)``) float32.
+    float32, or int8 0/1 masks (upcast here), same shape; ``table``:
+    ``(k, N, f)`` (or ``(N, f)``).  Returns ``(k, T·tb, f)`` (or
+    ``(T·tb, f)``) float32 — float64 for a float64 table, which autograd
+    can differentiate (the float64 gradient checks of the GAT layer).
     """
     single = tsrc.dim() == 2
     if single:
@@ -128,13 +134,14 @@ def spmm_tiles_plain(tsrc, tld, tw, table, tb: int = 256):
         raise IndexError(f"tile indices out of range (table rows {n}, "
                          f"tile height {tb})")
     dev = table.device
-    flat_table = table.reshape(k * n, f).to(torch.float32)
+    dt = torch.float64 if table.dtype == torch.float64 else torch.float32
+    flat_table = table.reshape(k * n, f).to(dt)
     src = (src + (torch.arange(k, device=dev) * n).view(k, 1, 1)) \
         .reshape(k * t, emax)
     ld = (ld + (torch.arange(k * t, device=dev) * tb).view(k, t, 1)) \
         .reshape(k * t, emax)
-    w = tw.to(torch.float32).reshape(k * t, emax)
-    acc = torch.zeros(k * t * tb, f, dtype=torch.float32, device=dev)
+    w = tw.to(dt).reshape(k * t, emax)
+    acc = torch.zeros(k * t * tb, f, dtype=dt, device=dev)
     for e in range(emax):
         rows = ld[:, e]
         acc[rows] = acc[rows] + w[:, e, None] * flat_table[src[:, e]]
@@ -147,10 +154,11 @@ def _lib():
 
     lib = _build.load("tile_spmm")
     if not getattr(lib, "_sgcn_typed", False):
-        lib.sgcn_tile_spmm_f32.argtypes = (
-            [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
-            + [ctypes.c_longlong] * 3 + [ctypes.c_int, ctypes.c_void_p])
-        lib.sgcn_tile_spmm_f32.restype = ctypes.c_int
+        for fn in (lib.sgcn_tile_spmm_f32, lib.sgcn_tile_spmm_mask_f32):
+            fn.argtypes = (
+                [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+                + [ctypes.c_longlong] * 3 + [ctypes.c_int, ctypes.c_void_p])
+            fn.restype = ctypes.c_int
         lib.sgcn_cuda_error_string.argtypes = [ctypes.c_int]
         lib.sgcn_cuda_error_string.restype = ctypes.c_char_p
         lib._sgcn_typed = True
@@ -162,8 +170,9 @@ def _check_cuda_args(tsrc, tld, tw, table, tb: int):
         raise ValueError("tile arrays and table must be on the same device")
     if tsrc.dtype != torch.int32 or tld.dtype != torch.int32:
         raise TypeError("tsrc/tld must be int32 (the plan's stored form)")
-    if tw.dtype != torch.float32:
-        raise TypeError("tw must be float32")
+    if tw.dtype not in (torch.float32, torch.int8):
+        raise TypeError("tw must be float32 (Â's values) or int8 (0/1 "
+                        "edge masks)")
     if tsrc.shape != tld.shape or tsrc.shape != tw.shape or tsrc.dim() != 3:
         raise ValueError(f"tile arrays must share one (k, T, Emax) shape, "
                          f"got {tuple(tsrc.shape)}, {tuple(tld.shape)}, "
@@ -190,21 +199,27 @@ def spmm_tiles(tsrc, tld, tw, table, tb: int = 256):
     Args:
       tsrc/tld/tw: ``(k, T, Emax)`` tile arrays (``(T, Emax)`` for one
         part): int32 source row, int32 local destination row in
-        ``[0, tb)``, float32 weight; pads carry weight 0 and dst ``tb-1``.
+        ``[0, tb)``, and the weight: float32 (Â's values) or int8 (the
+        GAT passes' 0/1 edge masks); pads carry weight 0 and dst ``tb-1``.
       table: ``(k, N, f)`` float32 feature rows (``(N, f)`` for one part).
-        f32 only in this slice: bf16 tables are ROADMAP item A6.
+        f32 only in this slice: bf16 tables are ROADMAP item A6 (the
+        plain version also takes float64, on the CPU only).
 
     Returns ``(k, T·tb, f)`` float32 (``(T·tb, f)`` for one part); slice to
     the true row count.  On CPU tensors this is ``spmm_tiles_plain``; on
     CUDA tensors it launches the CUDA kernel on the current stream (no
-    synchronize) and counts the launch in ``spmm_tiles.launches``.  Any
-    other device, dtype or layout raises.
+    synchronize) — the float32-weight entry point, counted in
+    ``spmm_tiles.launches``, or for an int8 ``tw`` the mask entry point,
+    counted in ``spmm_tiles.mask_launches``.  Any other device, dtype or
+    layout raises.
     """
-    if table.dtype != torch.float32:
+    cpu = table.device.type == "cpu" and all(
+        x.device.type == "cpu" for x in (tsrc, tld, tw))
+    if table.dtype != torch.float32 and not (
+            cpu and table.dtype == torch.float64):
         raise TypeError(f"tile SpMM tables are float32 in this port "
                         f"(got {table.dtype}; bf16 is ROADMAP item A6)")
-    if table.device.type == "cpu" and all(
-            x.device.type == "cpu" for x in (tsrc, tld, tw)):
+    if cpu:
         return spmm_tiles_plain(tsrc, tld, tw, table, tb)
     if table.device.type != "cuda":
         raise ValueError(f"tile SpMM runs on cpu or cuda tensors, got "
@@ -221,9 +236,11 @@ def spmm_tiles(tsrc, tld, tw, table, tb: int = 256):
     out = torch.empty((k, t * tb, f), dtype=torch.float32,
                       device=table.device)
     lib = _lib()
+    mask = tw.dtype == torch.int8
+    entry = lib.sgcn_tile_spmm_mask_f32 if mask else lib.sgcn_tile_spmm_f32
     dev = table.device.index if table.device.index is not None \
         else torch.cuda.current_device()
-    rc = lib.sgcn_tile_spmm_f32(
+    rc = entry(
         tsrc.data_ptr(), tld.data_ptr(), tw.data_ptr(),
         table.data_ptr(), out.data_ptr(), k, t, emax, tb, n, f,
         tsrc.stride(0), table.stride(0), out.stride(0), dev,
@@ -232,11 +249,15 @@ def spmm_tiles(tsrc, tld, tw, table, tb: int = 256):
         raise RuntimeError(
             f"tile_spmm launch failed: "
             f"{lib.sgcn_cuda_error_string(rc).decode()} (cudaError {rc})")
-    spmm_tiles.launches += 1
+    if mask:
+        spmm_tiles.mask_launches += 1
+    else:
+        spmm_tiles.launches += 1
     return out[0] if single else out
 
 
-spmm_tiles.launches = 0
+spmm_tiles.launches = 0          # float32-weight entry (K1)
+spmm_tiles.mask_launches = 0     # int8 0/1-mask entry (K5)
 
 
 def spmm_tiles_classes(flat_src, flat_ld, flat_w, table, classes, tb: int):
@@ -271,32 +292,46 @@ def _classes_log(classes) -> list:
             for t, e, kern in classes]
 
 
-def choose_tile_dispatch(plan, tb: int = 256,
-                         decision: dict | None = None) -> dict:
+def choose_tile_dispatch(plan, tb: int = 256, decision: dict | None = None,
+                         model: str = "gcn") -> dict:
     """Build the plan's tile-class layouts and assign the kernel per class
-    — the counterpart of ``choose_pallas_dispatch``.  Returns the static
+    — the counterpart of ``choose_pallas_dispatch``.  GCN gets the local
+    and halo families (``pallas_lclasses``/``pallas_hclasses``), GAT the
+    combined-edge family (``pallas_cclasses``).  Returns the static
     forward kwargs and fills ``decision['tile_dispatch']`` with the
     per-class table.  Every class runs the CUDA kernel (on CPU tensors
     its plain version): the reference's TPU-measured class rules are
     recorded as not carried."""
-    plan.ensure_pallas_tiles(tb)
-    lclasses = tuple((t, e, TILE_KERNEL) for t, e in plan.pallas_lclasses)
-    hclasses = tuple((t, e, TILE_KERNEL) for t, e in plan.pallas_hclasses)
+    not_carried = {
+        "vmem_budget": "pallas_spmm_fits 4 MiB is a TPU VMEM residency "
+                       "rule; the CUDA kernel reads its table from HBM "
+                       "through L2",
+        "emax_cap": "pallas_emax_cap 8192 is a TPU serial-chain rule; no "
+                    "H100 class rule is measured yet",
+    }
+    log = {"model": model, "schedule": "a2a", "tb": tb,
+           "rule": "every class runs the tile kernel",
+           "not_carried": not_carried}
+    out = {"pallas_tb": tb}
+    if model == "gat":
+        plan.ensure_pallas_cell_tiles(tb)
+        out["pallas_cclasses"] = tuple(
+            (t, e, TILE_KERNEL) for t, e in plan.pallas_cclasses)
+        not_carried["gat_memory"] = (
+            "check_gat_memory's coefficients were fitted to TPU v5e "
+            "compile OOMs")
+        log["combined"] = _classes_log(out["pallas_cclasses"])
+    else:
+        plan.ensure_pallas_tiles(tb)
+        out["pallas_lclasses"] = tuple(
+            (t, e, TILE_KERNEL) for t, e in plan.pallas_lclasses)
+        out["pallas_hclasses"] = tuple(
+            (t, e, TILE_KERNEL) for t, e in plan.pallas_hclasses)
+        log["local"] = _classes_log(out["pallas_lclasses"])
+        log["halo"] = _classes_log(out["pallas_hclasses"])
     if decision is not None:
-        decision["tile_dispatch"] = {
-            "model": "gcn", "schedule": "a2a", "tb": tb,
-            "rule": "every class runs the tile kernel",
-            "not_carried": {
-                "vmem_budget": "pallas_spmm_fits 4 MiB is a TPU VMEM "
-                               "residency rule; the CUDA kernel reads its "
-                               "table from HBM through L2",
-                "emax_cap": "pallas_emax_cap 8192 is a TPU serial-chain "
-                            "rule; no H100 class rule is measured yet",
-            },
-            "local": _classes_log(lclasses),
-            "halo": _classes_log(hclasses)}
-    return {"pallas_tb": tb, "pallas_lclasses": lclasses,
-            "pallas_hclasses": hclasses}
+        decision["tile_dispatch"] = log
+    return out
 
 
 def _pspmm_tiles_once(h, send_idx, halo_src, lsrc, lld, lw, hsrc, hld, hw,
@@ -351,3 +386,15 @@ def pspmm_tiles_sym(h, send_idx, halo_src, lsrc, lld, lw, hsrc, hld, hw,
     in ``h``: the backward re-runs the op on the gradient."""
     return PspmmTilesSym.apply(h, send_idx, halo_src, lsrc, lld, lw, hsrc,
                                hld, hw, tb, lclasses, hclasses)
+
+
+def gat_tiles_pass(csrc, cld, cw, table, cclasses, tb: int, num_rows: int):
+    """One GAT attention pass — the counterpart of ``gat_pallas_pass``: the
+    class-dispatched kernel over the combined-edge tiles with 0/1 mask
+    weights ``cw`` (int8 as the trainer ships them: on CUDA the kernel's
+    mask entry point converts each in the kernel, on the CPU the plain
+    version upcasts).  ``table``: the ``(k, B+R, lanes)`` ``[local; halo]``
+    rows of whichever form the layer ships — the fused ``[p ‖ u]`` table
+    or one of the split pair.  Returns ``(k, num_rows, lanes)`` float32."""
+    return spmm_tiles_classes(csrc, cld, cw, table, cclasses,
+                              tb)[:, :num_rows]

@@ -19,10 +19,14 @@ array (``tests/test_torch_plan.py``):
   * ``ensure_pallas_tiles`` regroups both families into ``tb``-row tiles
     binned into degree-aligned classes — the layout the tile SpMM kernel
     (``ops/tile_spmm.py``) consumes.  The field names keep the
-    reference's ``ptile_*``/``pallas_*`` so the two plans compare by name.
+    reference's ``ptile_*``/``pallas_*`` so the two plans compare by name;
+  * ``ensure_cell`` lays the combined ``[local; halo]``-sourced edge list
+    out as bucketed ELL plus a hub tail (``cell_*``/``ctail_*``), and
+    ``ensure_pallas_cell_tiles`` regroups it into tiles with 0/1 mask
+    weights (``ptile_c*``) — the GAT attention passes' layout.
 
-Ragged, combined-edge (GAT), replica and stale layouts are not ported yet.
-Everything here is offline numpy.
+Ragged, replica and stale layouts are not ported yet.  Everything here is
+offline numpy.
 """
 
 from __future__ import annotations
@@ -110,6 +114,26 @@ class CommPlan:
     ptile_hld: np.ndarray | None = None   # (k, ΣT_c·Emax_c) int32
     ptile_hw: np.ndarray | None = None    # (k, ΣT_c·Emax_c) float32
 
+    # combined-edge layout (lazy, ``ensure_cell``; GAT): the full edge
+    # list, src in [local; halo], as bucketed ELL over ``cell_buckets``
+    # plus the COO tail of hub rows past the width cap
+    ctl: int | None = None                 # padded combined-tail length
+    cell_buckets: tuple | None = None      # ((nb, wb), ...) static
+    cell_idx: np.ndarray | None = None     # (k, CET) int32 flat src
+    cell_w: np.ndarray | None = None       # (k, CET) float32, 0 on padding
+    ctail_dst: np.ndarray | None = None    # (k, CTL) int32
+    ctail_src: np.ndarray | None = None    # (k, CTL) int32
+    ctail_w: np.ndarray | None = None      # (k, CTL) float32, 0 on padding
+    ctail_nnz: np.ndarray | None = None    # (k,) true combined-tail nnz
+
+    # combined-edge dst tiles (lazy, ``ensure_pallas_cell_tiles``): the
+    # same tile classes over ``cell_buckets``, 0/1 MASK weights
+    pallas_ctb: int | None = None          # static combined tile height
+    pallas_cclasses: tuple | None = None   # ((T_c, Emax_c), ...) combined
+    ptile_csrc: np.ndarray | None = None   # (k, ·) int32 src in [0, B+R)
+    ptile_cld: np.ndarray | None = None    # (k, ·) int32 local dst
+    ptile_cw: np.ndarray | None = None     # (k, ·) float32 0/1 edge mask
+
     def _pallas_family(self, dst, src, w, tb: int, class_tiles):
         """Stack one edge family's per-part tile classes into flat
         ``(k, ΣT_c·Emax_c)`` arrays (per class, Emax_c padded to the max
@@ -151,6 +175,36 @@ class CommPlan:
          self.pallas_hclasses) = self._pallas_family(
             self.hedge_dst, self.hedge_src, self.hedge_w, tb, class_tiles)
         self.pallas_tb = tb
+        return self
+
+    def ensure_cell(self) -> "CommPlan":
+        """Build the combined-edge bucketed layout on first use (GAT):
+        ``_build_ell`` over the whole dst-sorted edge list."""
+        if self.cell_buckets is None:
+            fields = _cell_fields(_build_ell(
+                self.edge_dst, self.edge_src, self.edge_w, self.nnz, self.b,
+                row_order=self.row_order))
+            for name, val in fields.items():
+                setattr(self, name, val)
+        return self
+
+    def ensure_pallas_cell_tiles(self, tb: int = 256) -> "CommPlan":
+        """Build the combined-edge dst-tile layout on first use (GAT): the
+        ``[local ‖ halo]``-sourced edges in the degree-binned tile classes
+        of ``cell_buckets``, with 0/1 MASK weights on ``edge_w != 0`` —
+        attention aggregates by edge presence, not Â's values."""
+        if self.pallas_ctb == tb and self.ptile_csrc is not None:
+            return self
+        from ..ops.tile_spmm import tile_classes_from_buckets
+
+        self.ensure_cell()
+        class_tiles = tile_classes_from_buckets(self.cell_buckets, self.b,
+                                                tb)
+        mask = (np.asarray(self.edge_w) != 0).astype(np.float32)
+        (self.ptile_csrc, self.ptile_cld, self.ptile_cw,
+         self.pallas_cclasses) = self._pallas_family(
+            self.edge_dst, self.edge_src, mask, tb, class_tiles)
+        self.pallas_ctb = tb
         return self
 
     def wire_rows_per_exchange(self, schedule: str = "a2a") -> int:
@@ -349,7 +403,7 @@ def _single_bucket_width(alldeg: np.ndarray, tail_frac: float) -> int:
 def _build_ell(ledge_dst, ledge_src, ledge_w, lnnz, b,
                row_order: str = "degree", tail_frac: float = 0.02,
                max_buckets: int = 6):
-    """Bucketed-ELL layout of the local-src edge lists (see CommPlan):
+    """Bucketed-ELL layout of dst-sorted edge lists (see CommPlan):
     ``row_order='degree'`` takes the buckets of ``_choose_buckets``,
     ``'id'`` one bucket of the classic tail-bounded width."""
     k = ledge_dst.shape[0]
@@ -407,6 +461,14 @@ def _build_ell(ledge_dst, ledge_src, ledge_w, lnnz, b,
                 ell_buckets=buckets, ell_idx=ell_idx, ell_w=ell_wv,
                 ltail_dst=ltail_dst, ltail_src=ltail_src, ltail_w=ltail_w,
                 ltail_nnz=ltail_nnz)
+
+
+def _cell_fields(ell: dict) -> dict:
+    """Rename a ``_build_ell`` result into the combined-edge field names."""
+    return dict(ctl=ell["tl"], cell_buckets=ell["ell_buckets"],
+                cell_idx=ell["ell_idx"], cell_w=ell["ell_w"],
+                ctail_dst=ell["ltail_dst"], ctail_src=ell["ltail_src"],
+                ctail_w=ell["ltail_w"], ctail_nnz=ell["ltail_nnz"])
 
 
 def _check_symmetric(a: sp.spmatrix) -> bool:

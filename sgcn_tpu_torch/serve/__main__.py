@@ -1,5 +1,5 @@
 """Serving CLI of the port — sustained synthetic query traffic over a
-partitioned GCN with random weights.
+partitioned GCN or GAT (``--model gat``) with random weights.
 
 ::
 
@@ -38,6 +38,8 @@ def main(argv=None) -> None:
     p.add_argument("--random-init", action="store_true",
                    help="serve fresh Glorot-init weights (required: "
                         "checkpoints are not ported yet)")
+    p.add_argument("--model", default="gcn", choices=["gcn", "gat"],
+                   help="gcn, or gat (PGAT: no inter-layer activation)")
     p.add_argument("-l", "--nlayers", type=int, default=2)
     p.add_argument("-f", "--nfeatures", type=int, default=16)
     p.add_argument("--hidden", type=int, default=None)
@@ -117,7 +119,8 @@ def main(argv=None) -> None:
     from .loadgen import run_loadgen, synthetic_query_ids
 
     engine = ServeEngine(
-        plan, fin=f, widths=widths, max_batch=args.max_batch,
+        plan, fin=f, widths=widths, model=args.model,
+        max_batch=args.max_batch,
         buckets=buckets, latency_budget_ms=args.latency_budget_ms,
         seed=args.seed, device=device)
     engine.set_features(feats)
@@ -141,7 +144,8 @@ def main(argv=None) -> None:
         "deadline_flushes": engine.batcher.deadline_flushes,
         "full_flushes": engine.batcher.full_flushes,
         "latency_budget_ms": args.latency_budget_ms,
-        "model": "gcn",
+        "model": args.model,
+        "activation": engine.activation,
         "widths": widths,
         "weights": "random-init",
         **engine.gauges(),

@@ -1,5 +1,5 @@
 """Partitioned inference engine, full-forward mode (port of
-``sgcn_tpu/serve/engine.py``, ``mode='full'``, GCN, a2a, float32).
+``sgcn_tpu/serve/engine.py``, ``mode='full'``, GCN or GAT, a2a, float32).
 
 Each micro-batch runs the whole partitioned forward over the ``k`` parts
 stacked on one device — halo exchange, tile SpMM, projection, activation
@@ -26,8 +26,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..models.gcn import GCN
-from ..train.fullbatch import resolve_forward_setup
+from ..train.fullbatch import check_param_dims, resolve_forward_setup
 from ..utils.backend import device_name, resolve_device, synchronize
 from ..utils.timers import PhaseTimer, SpanTimer
 from .batcher import MicroBatcher, default_buckets
@@ -69,14 +68,16 @@ class ServeEngine:
         seed: int = 0,
         device=None,
     ):
-        """The reference engine's ``mode='full'`` with its GCN defaults:
-        ReLU between layers, no activation after the last.
-        ``params``: a list of ``(fin, fout)`` weights (numpy arrays —
-        e.g. the JAX package's — or tensors); ``None`` draws Glorot
-        weights from a ``torch.Generator`` seeded with ``seed``.
-        ``device``: ``None`` means ``cuda`` and raises without a GPU;
-        pass ``"cpu"`` to run on the CPU.  ``model``/``comm_schedule``
-        other than GCN/a2a raise "not ported yet"."""
+        """The reference engine's ``mode='full'`` with its defaults: the
+        model's inter-layer activation (ReLU for GCN, none for GAT, PGAT's
+        bare layers), no activation after the last.
+        ``params``: per layer a ``(fin, fout)`` weight (GCN) or a
+        ``{w, a1, a2}`` dict (GAT), numpy arrays — e.g. the JAX
+        package's — or tensors; ``None`` draws the model's init from a
+        ``torch.Generator`` seeded with ``seed``.  ``device``: ``None``
+        means ``cuda`` and raises without a GPU; pass ``"cpu"`` to run on
+        the CPU.  A ``comm_schedule`` other than a2a raises "not ported
+        yet"."""
         self.device = resolve_device(device)
         self.plan = plan
         self.fin = int(fin)
@@ -84,6 +85,7 @@ class ServeEngine:
         self.setup = resolve_forward_setup(plan, model=model,
                                            comm_schedule=comm_schedule)
         self.comm_schedule = self.setup.comm_schedule
+        self.activation = self.setup.activation
         self.router = VertexRouter(plan)
         self.batcher = MicroBatcher(
             max_batch=max_batch,
@@ -97,12 +99,10 @@ class ServeEngine:
         if params is None:
             params = self.setup.init_fn(torch.Generator().manual_seed(seed),
                                         dims)
-        if [tuple(w.shape) for w in params] != dims:
-            raise ValueError(
-                f"param shapes {[tuple(w.shape) for w in params]} != "
-                f"layer dims {dims}")
-        self.model = GCN(params,
-                         fwd_static=self.setup.fwd_static).to(self.device)
+        check_param_dims(params, dims)
+        self.model = self.setup.module(
+            params, activation=self.activation, final_activation="none",
+            fwd_static=self.setup.fwd_static).to(self.device)
         self.pa = self.setup.ship_arrays(plan, self.device)
         self._h0 = None                    # set_features()
         self.compile_count = 0             # no per-bucket compile (yet)

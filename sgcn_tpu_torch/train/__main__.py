@@ -1,5 +1,5 @@
-"""Training CLI of the port — the exact full-batch GCN trainer and the
-accuracy-parity experiment.
+"""Training CLI of the port — the exact full-batch GCN/GAT trainer
+(``--model gat``) and the accuracy-parity experiment.
 
 ::
 
@@ -9,7 +9,7 @@ accuracy-parity experiment.
 Same flag names as ``python -m sgcn_tpu.train`` for the subset ported
 here, with ``--device {cuda,cpu}`` (default cuda; without a GPU the run
 fails unless ``--device cpu`` is given) in place of ``-b/--backend``.
-Flags whose feature is not ported are not defined (mini-batch, GAT,
+Flags whose feature is not ported are not defined (mini-batch,
 precision and wire levers, stale halos, replicas, the ragged ring,
 checkpoints, profiling, metrics, memory budget).  Prints ONE JSON line:
 the comm report and epoch timing under the reference's keys, or with
@@ -34,9 +34,11 @@ def main(argv=None) -> None:
     p.add_argument("-s", "--nparts", type=int, required=True)
     p.add_argument("-l", "--nlayers", type=int, default=2)
     p.add_argument("-f", "--nfeatures", type=int, default=16)
-    p.add_argument("--activation", default="relu",
+    p.add_argument("--model", default="gcn", choices=["gcn", "gat"])
+    p.add_argument("--activation", default=None,
                    choices=["relu", "sigmoid", "elu", "none"],
-                   help="inter-layer activation (default relu)")
+                   help="inter-layer activation; defaults to relu for gcn "
+                        "and none for gat (PGAT stacks bare layers)")
     p.add_argument("--loss", default="xent", choices=["xent", "bce"],
                    help="xent = log-softmax + NLL; bce = sigmoid + BCE "
                         "with the reported `err` metric")
@@ -66,13 +68,13 @@ def main(argv=None) -> None:
                         "fallback)")
     args = p.parse_args(argv)
 
-    if args.experiment == "accuracy" and (args.loss != "xent"
-                                          or args.activation != "relu"):
+    if args.experiment == "accuracy" and (
+            args.model != "gcn" or args.loss != "xent"
+            or (args.activation or "relu") != "relu"):
         raise SystemExit(
             "--experiment accuracy compares against the dense GCN oracle "
-            "and supports only --loss xent --activation relu; drop the "
-            "conflicting flags")
-
+            "and supports only --model gcn --loss xent --activation relu; "
+            "drop the conflicting flags")
     import numpy as np
 
     from ..io.mtx import read_dense_features, read_mtx, read_onehot_labels
@@ -80,7 +82,10 @@ def main(argv=None) -> None:
     from ..partition.emit import read_partvec, read_partvec_pickle
     from ..prep.normalize import normalize_adjacency
     from ..utils.backend import resolve_device
-    from .fullbatch import FullBatchTrainer, make_train_data
+    from .fullbatch import MODELS, FullBatchTrainer, make_train_data
+
+    # the model's own inter-layer activation unless one is asked for
+    activation = args.activation or MODELS[args.model].activation
 
     device = resolve_device(args.device)
     feats = labels = None
@@ -139,15 +144,16 @@ def main(argv=None) -> None:
 
     plan = build_comm_plan(a, pv, k)
     tr = FullBatchTrainer(plan, fin=f, widths=widths, lr=args.lr,
-                          loss=args.loss, activation=args.activation,
-                          seed=args.seed, device=device)
+                          model=args.model, loss=args.loss,
+                          activation=activation, seed=args.seed,
+                          device=device)
     data = make_train_data(plan, feats, labels, device=device)
     report = tr.fit(data, epochs=args.epochs, warmup=args.warmup)
 
     # end-of-run line under the reference's keys
     report["device"] = args.device
-    report["model"] = "gcn"
-    report["activation"] = args.activation
+    report["model"] = args.model
+    report["activation"] = activation
     report["loss"] = args.loss
     report.pop("loss_history", None)
     print(json.dumps(report), flush=True)

@@ -1,16 +1,20 @@
-"""Full-batch partitioned GCN trainer and the forward setup it shares with
-the serve engine (port of ``sgcn_tpu/train/fullbatch.py``, exact path).
+"""Full-batch partitioned GCN/GAT trainer and the forward setup it shares
+with the serve engine (port of ``sgcn_tpu/train/fullbatch.py``, exact
+path).
 
-``resolve_forward_setup`` ports only the GCN / dense-a2a / tile-kernel
-selection; what the reference resolves beyond it raises a clear "not
-ported yet" error: GAT, the ragged ring and asymmetric plans
-(``pspmm_overlap``); bf16 tables are refused by the kernel wrapper.
+``resolve_forward_setup`` ports the dense-a2a tile-kernel selection for
+both models: GCN over the local and halo tile families, GAT over the
+combined-edge family with its int8 0/1 mask tiles.  What the reference
+resolves beyond it raises a clear "not ported yet" error: the ragged ring
+and asymmetric plans (``pspmm_overlap``, ``gat_layer_local``); bf16
+tables are refused by the kernel wrapper.
 
 ``FullBatchTrainer`` is the reference's exact trainer over the ``k``
 parts stacked on one device: per step the L-layer forward (exchange →
-tile SpMM → projection → activation), the masked loss, autograd's
-backward (each aggregation's backward re-runs the tile SpMM on the
-gradient, ``ops/tile_spmm.py::PspmmTilesSym``) and Adam.  The levers of
+tile SpMM → projection → activation for GCN; the factored attention layer
+for GAT), the masked loss, autograd's backward (each aggregation's
+backward re-runs the kernel on the gradient: ``ops/tile_spmm.py::
+PspmmTilesSym``, ``models/gat.py::GatLayerSym``) and Adam.  The levers of
 the reference that are not ported — precision, remat, stale halos,
 replicas, the ragged ring, memory budgets — raise "not ported yet" with
 their ROADMAP item.
@@ -19,18 +23,46 @@ their ROADMAP item.
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import NamedTuple
 
 import numpy as np
 import torch
 
-from ..models.gcn import (GCN, exchange_widths, gcn_forward_local,
-                          init_gcn_params, masked_accuracy_local,
+from ..models.gat import (GAT, GAT_PLAN_FIELDS_PALLAS,
+                          gat_exchange_lane_widths, init_gat_params)
+from ..models.gcn import (GCN, exchange_widths, init_gcn_params,
+                          masked_accuracy_local,
                           masked_err_local, masked_sigmoid_bce_local,
                           masked_softmax_xent_local)
 from ..ops.tile_spmm import TILE_PLAN_FIELDS, choose_tile_dispatch
 from ..utils.backend import resolve_device, synchronize
 from ..utils.stats import CommStats
 from ..utils.timers import PhaseTimer, SpanTimer
+
+class ModelSpec(NamedTuple):
+    """One model's facts, as the forward setup, trainer and engine read
+    them."""
+
+    init_fn: object               # param init on a torch.Generator
+    module: type                  # nn.Module over the stacked forward
+    plan_fields: tuple            # CommPlan array fields the forward reads
+    lane_widths_fn: object        # (fin, widths) → per-layer wire lanes
+    activation: str               # inter-layer activation by default
+    mask_fields: tuple = ()       # plan fields shipped as int8 0/1 masks
+
+
+# model registry.  PGAT stacks bare layers (no activation between them),
+# the GCN uses ReLU — the reference CLIs' and serve engine's rule.  GAT's
+# tile weights narrow to int8 on ``!= 0`` (attention ignores Â's values),
+# as the reference ships them; the kernel converts each mask to float as
+# it stages it.
+MODELS = {
+    "gcn": ModelSpec(init_gcn_params, GCN, TILE_PLAN_FIELDS,
+                     exchange_widths, "relu"),
+    "gat": ModelSpec(init_gat_params, GAT, GAT_PLAN_FIELDS_PALLAS,
+                     lambda fin, widths: gat_exchange_lane_widths(widths),
+                     "none", mask_fields=("ptile_cw",)),
+}
 
 # loss registry: 'xent' is the torch stack's log-softmax + NLL, 'bce' the
 # MPI stack's sigmoid + BCE whose reported metric is `err`
@@ -42,50 +74,66 @@ LOSSES = {
 
 @dataclass
 class ForwardSetup:
-    """Resolved forward configuration: the plan fields the forward reads,
-    its static kwargs, and the selection log."""
+    """Resolved forward configuration: the model's facts (``ModelSpec``),
+    the forward's static kwargs, and the selection log."""
 
     model: str
     comm_schedule: str            # resolved: 'a2a'
-    plan_fields: tuple            # CommPlan array fields the forward reads
     fwd_static: dict              # static kwargs of the forward fn
-    forward_fn: object            # stacked forward
-    init_fn: object               # param init
     decision: dict                # selection log
+    init_fn: object               # ModelSpec's fields from here on
+    module: type
+    plan_fields: tuple
+    lane_widths_fn: object
+    activation: str
+    mask_fields: tuple
 
     def ship_arrays(self, plan, device) -> dict:
         """The plan arrays the forward consumes, as tensors on ``device``
-        (integer arrays stay int32, the kernel's stored form)."""
-        return {f: torch.as_tensor(np.ascontiguousarray(getattr(plan, f)))
-                .to(device) for f in self.plan_fields}
+        (integer arrays stay int32, the kernel's stored form; the
+        ``mask_fields`` narrow to int8 0/1)."""
+        arrays = {f: np.ascontiguousarray(getattr(plan, f))
+                  for f in self.plan_fields}
+        for f in self.mask_fields:
+            arrays[f] = (arrays[f] != 0).astype(np.int8)
+        return {f: torch.as_tensor(a).to(device) for f, a in arrays.items()}
 
 
 def resolve_forward_setup(plan, model: str = "gcn",
                           comm_schedule: str | None = None) -> ForwardSetup:
-    """Resolve the ported subset: GCN on a symmetric plan over the dense
-    a2a exchange, every tile class on the tile kernel
+    """Resolve the ported subset: GCN or GAT on a symmetric plan over the
+    dense a2a exchange, every tile class on the tile kernel
     (``choose_tile_dispatch``, tile height 256).  Builds the plan's tile
     layout as a side effect, as the reference does.  The reference's
     ``fin``/``widths`` fed its VMEM-fit rule, which is not carried."""
-    if model != "gcn":
+    if model not in MODELS:
         raise NotImplementedError(
-            f"model {model!r} is not ported yet (GCN only; GAT is "
-            "ROADMAP item A5)")
+            f"model {model!r} is not ported yet (ported: "
+            f"{', '.join(MODELS)})")
     if comm_schedule not in (None, "a2a"):
         raise NotImplementedError(
             f"comm_schedule {comm_schedule!r} is not ported yet (dense a2a "
             "only; the ragged ring is ROADMAP item A4)")
     if not plan.symmetric:
         raise NotImplementedError(
-            "asymmetric plans need pspmm_overlap, which is not ported yet "
-            "(ROADMAP item A2); this port serves symmetric Â")
+            "asymmetric plans need pspmm_overlap / gat_layer_local, which "
+            "are not ported yet (ROADMAP item A2); this port serves "
+            "symmetric Â")
     decision: dict = {"asked": comm_schedule, "resolved": "a2a",
                       "rule": "only transport ported"}
-    fwd_static = choose_tile_dispatch(plan, decision=decision)
+    fwd_static = choose_tile_dispatch(plan, decision=decision, model=model)
     return ForwardSetup(model=model, comm_schedule="a2a",
-                        plan_fields=TILE_PLAN_FIELDS, fwd_static=fwd_static,
-                        forward_fn=gcn_forward_local,
-                        init_fn=init_gcn_params, decision=decision)
+                        fwd_static=fwd_static, decision=decision,
+                        **MODELS[model]._asdict())
+
+
+def check_param_dims(params, dims) -> None:
+    """Raise unless the per-layer weights (``(fin, fout)`` arrays, or
+    ``{w, a1, a2}`` dicts for GAT) have the layer dims' shapes."""
+    shapes = [tuple(np.shape(p["w"] if isinstance(p, dict) else p))
+              for p in params]
+    if shapes != dims:
+        raise ValueError(f"param shapes {shapes} != layer dims {dims}")
 
 
 @dataclass
@@ -140,8 +188,8 @@ _UNPORTED_LEVERS = {
 
 
 class FullBatchTrainer:
-    """Full-batch partitioned GCN trainer, exact a2a path (the reference's
-    ``FullBatchTrainer`` with its defaults)."""
+    """Full-batch partitioned GCN/GAT trainer, exact a2a path (the
+    reference's ``FullBatchTrainer`` with its defaults)."""
 
     def __init__(
         self,
@@ -172,9 +220,10 @@ class FullBatchTrainer:
         callable taking the parameter list and returning a
         ``torch.optim.Optimizer``; ``None`` is Adam with optax's defaults
         (``lr``, betas (0.9, 0.999), eps 1e-8), as the reference uses.
-        ``params``: initial ``(fin, fout)`` weights (numpy arrays — e.g.
-        the JAX package's — or tensors); ``None`` draws Glorot weights
-        from a ``torch.Generator`` seeded with ``seed``.  ``device``:
+        ``params``: initial weights — ``(fin, fout)`` arrays for GCN,
+        ``{w, a1, a2}`` dicts for GAT (numpy, e.g. the JAX package's, or
+        tensors); ``None`` draws the model's init from a
+        ``torch.Generator`` seeded with ``seed``.  ``device``:
         ``None`` means ``cuda`` and raises without a GPU; pass ``"cpu"``
         to train on the CPU.  Levers not ported raise
         ``NotImplementedError``."""
@@ -207,21 +256,20 @@ class FullBatchTrainer:
         dims = list(zip([self.fin] + self.widths[:-1], self.widths))
         if params is None:
             params = setup.init_fn(torch.Generator().manual_seed(seed), dims)
-        if [tuple(w.shape) for w in params] != dims:
-            raise ValueError(
-                f"param shapes {[tuple(w.shape) for w in params]} != "
-                f"layer dims {dims}")
-        self.model = GCN(params, activation=activation,
-                         final_activation=final_activation,
-                         fwd_static=setup.fwd_static).to(self.device)
+        check_param_dims(params, dims)
+        self.model = setup.module(params, activation=activation,
+                                  final_activation=final_activation,
+                                  fwd_static=setup.fwd_static).to(self.device)
         self.pa = setup.ship_arrays(plan, self.device)
         self.opt = (optimizer(list(self.model.parameters()))
                     if optimizer is not None else
                     torch.optim.Adam(self.model.parameters(), lr=lr,
                                      betas=(0.9, 0.999), eps=1e-8))
+        # per-exchange wire lane widths: GCN ships feature rows at the
+        # project-first widths, GAT its (fout+1)-lane attention tables
         self.stats = CommStats.from_plan(
             plan, schedule=self.comm_schedule,
-            lane_widths=exchange_widths(self.fin, self.widths),
+            lane_widths=setup.lane_widths_fn(self.fin, self.widths),
             wire_itemsize=4)
         self.timer = PhaseTimer()
         self.spans = SpanTimer(timer=self.timer)
@@ -231,8 +279,9 @@ class FullBatchTrainer:
     # ------------------------------------------------------------- state
     @property
     def params(self) -> list:
-        """The weights, ``(fin, fout)`` per layer (live parameters)."""
-        return list(self.model.weights)
+        """The weights per layer (live parameters): the ``(fin, fout)``
+        matrix for GCN, the ``{w, a1, a2}`` dict for GAT."""
+        return self.model.layer_params()
 
     @property
     def nlayers(self) -> int:
@@ -257,8 +306,9 @@ class FullBatchTrainer:
                if self.loss_name == "bce" else loss.detach())
         # the reference all-reduces per-chip weight gradients
         # (lax.psum); with all k parts stacked on one device that sum is
-        # the one autograd forms over the k·b rows of each h @ w.  A
-        # multi-process runtime (ROADMAP A2b) all-reduces .grad here.
+        # the one autograd (GCN) or GatLayerSym's backward (GAT) forms
+        # over the k·b rows of each h @ w.  A multi-process runtime
+        # (ROADMAP A2b) all-reduces .grad here.
         loss.backward()
         self.opt.step()
         return loss.detach(), err

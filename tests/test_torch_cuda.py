@@ -1,6 +1,8 @@
 """Tests of the port that need the card: the CUDA tile SpMM kernel against
 its plain PyTorch version, its backward (``PspmmTilesSym``), the serve
-engine and a training step on ``cuda``.
+engine and a training step on ``cuda``; the kernel's int8-mask entry
+point (the GAT attention pass, K5) and the GAT layer (``GatLayerSym``),
+engine and trainer on ``cuda``.
 
 This module imports no JAX, so it also runs on a GPU machine without it:
 
@@ -15,6 +17,8 @@ import pytest
 import torch
 
 from sgcn_tpu_torch.io.datasets import er_graph
+from sgcn_tpu_torch.models import gat as gat_mod
+from sgcn_tpu_torch.models.gat import GatLayerSym
 from sgcn_tpu_torch.ops.tile_spmm import (TILE_PLAN_FIELDS, PspmmTilesSym,
                                           choose_tile_dispatch,
                                           pspmm_tiles_sym, spmm_tiles,
@@ -24,7 +28,8 @@ from sgcn_tpu_torch.parallel import build_comm_plan
 from sgcn_tpu_torch.partition import balanced_random_partition
 from sgcn_tpu_torch.prep import normalize_adjacency
 from sgcn_tpu_torch.serve import ServeEngine
-from sgcn_tpu_torch.train import FullBatchTrainer, make_train_data
+from sgcn_tpu_torch.train import (FullBatchTrainer, make_train_data,
+                                  resolve_forward_setup)
 
 
 @pytest.fixture
@@ -182,6 +187,152 @@ def test_trainer_step_on_cuda_matches_cpu(cuda_device):
     (loss_c, g_c, n_c, _), (loss_g, g_g, n_g, st) = got["cpu"], got["cuda"]
     classes = len(st["pallas_lclasses"]) + len(st["pallas_hclasses"])
     assert n_c == 0 and n_g == (2 + 1) * classes
+    assert loss_g == pytest.approx(loss_c, rel=1e-5)
+    for a, b in zip(g_g, g_c):
+        np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-4,
+                                   atol=1e-7)
+
+
+# ------------------------------------------------------------ GAT (K5)
+@pytest.mark.parametrize("f", [1, 41, 128])
+def test_mask_kernel_equals_plain_and_k1_on_upcast_mask(cuda_device, f):
+    """The int8-mask entry point: == its plain version, == K1 on the
+    upcast f32 mask, and two launches agree, bit for bit; counted in
+    ``spmm_tiles.mask_launches``, not in ``spmm_tiles.launches``."""
+    k, t, emax, tb, n = 2, 6, 1040, 256, 500
+    src, ld, w = _tiles(k, t, emax, tb, n, seed=f)
+    mask = (w != 0).astype(np.int8)
+    arrays = [torch.from_numpy(a).to(cuda_device) for a in (src, ld, mask)]
+    table = torch.from_numpy(np.random.default_rng(f).standard_normal(
+        (k, n, f)).astype(np.float32)).to(cuda_device)
+    before, before_k1 = spmm_tiles.mask_launches, spmm_tiles.launches
+    one = spmm_tiles(*arrays, table, tb)
+    two = spmm_tiles(*arrays, table, tb)
+    torch.cuda.synchronize()
+    assert spmm_tiles.mask_launches == before + 2
+    assert spmm_tiles.launches == before_k1
+    k1 = spmm_tiles(*arrays[:2], arrays[2].float(), table, tb)
+    plain = spmm_tiles_plain(*arrays, table, tb)
+    assert torch.equal(one, two), "two launches differ"
+    assert torch.equal(one, plain), (
+        f"mask kernel != plain, max diff {(one - plain).abs().max().item()}")
+    assert torch.equal(one, k1), "mask kernel != K1 on the upcast mask"
+    assert not one[0, :tb].any()
+
+
+def _gat_layer_inputs(plan, fin, fout, seed):
+    rng = np.random.default_rng(seed)
+    valid = plan.row_valid[..., None]
+    h = rng.standard_normal((plan.k, plan.b, fin)) * valid
+    w = rng.standard_normal((fin, fout)) / np.sqrt(fin)
+    a1, a2 = (rng.standard_normal(fout) / np.sqrt(fout) for _ in range(2))
+    g = rng.standard_normal((plan.k, plan.b, fout)) * valid
+    return [torch.tensor(x, dtype=torch.float32) for x in (w, a1, a2, h, g)]
+
+
+@pytest.mark.parametrize("fout", [40, 128])
+def test_gat_layer_on_cuda_matches_cpu(cuda_device, fout, monkeypatch):
+    """``GatLayerSym`` forward and backward on the card vs the same
+    Function on CPU tensors.  Every aggregation the card ran (forward and
+    backward) equals the plain version on the same tables bit for bit;
+    the layer's output and the gradients of ``w``, ``a2`` and ``h`` agree
+    within a relative Frobenius error of 1e-5 each — the dense products
+    (cuBLAS vs the CPU's BLAS) and ``exp`` round their last bits
+    differently (up to ~5e-7 absolute on outputs of order 1), so
+    whole-layer bits may differ.  ``a1``'s
+    gradient is exactly 0; the card launches the mask kernel per class
+    once (fused, fout = 40) or twice (split, fout = 128) per direction."""
+    plan = _er_plan()
+    setup = resolve_forward_setup(plan, model="gat")
+    cls = setup.fwd_static["pallas_cclasses"]
+    w, a1, a2, h, g = _gat_layer_inputs(plan, 24, fout, seed=fout)
+    seen = []
+    orig = gat_mod._gat_tiles_aggregate
+
+    def recording(p, s, form, *rest):
+        out = orig(p, s, form, *rest)
+        seen.append(((p.detach(), s.detach(), form) + rest,
+                     [x.detach() for x in out]))
+        return out
+
+    monkeypatch.setattr(gat_mod, "_gat_tiles_aggregate", recording)
+    got = {}
+    for dev in ("cpu", cuda_device):
+        pa = setup.ship_arrays(plan, dev)
+        leaves = [x.to(dev, copy=True).requires_grad_()
+                  for x in (w, a1, a2, h)]
+        seen.clear()
+        before = spmm_tiles.mask_launches
+        bwd_before = GatLayerSym.backward_launches
+        out = GatLayerSym.apply(
+            *leaves, *(pa[f] for f in ("send_idx", "halo_src", "ptile_csrc",
+                                        "ptile_cld", "ptile_cw",
+                                        "row_valid")), 256, cls)
+        out.backward(g.to(dev))
+        torch.cuda.synchronize()
+        got[str(dev)] = ([out.detach().cpu()]
+                         + [x.grad.cpu() for x in leaves],
+                         spmm_tiles.mask_launches - before,
+                         GatLayerSym.backward_launches - bwd_before,
+                         list(seen))
+    (cpu, n_cpu, _, _), (gpu, n_gpu, n_bwd, calls) = got["cpu"], got["cuda"]
+    passes = 1 if fout + 1 <= 128 else 2
+    assert n_cpu == 0
+    assert n_gpu == 2 * passes * len(cls) and n_bwd == passes * len(cls)
+    assert len(calls) == 2                       # forward, backward
+    for (p, s, form, *rest), outs in calls:
+        plain = orig(p.cpu(), s.cpu(), form,
+                     *(x.cpu() if torch.is_tensor(x) else x for x in rest))
+        for x, y in zip(outs, plain):
+            assert torch.equal(x.cpu(), y), "K5 on the card != plain"
+    assert not gpu[2].any() and not cpu[2].any()   # d a1
+    for name, x, y in zip(("out", "w", "a2", "h"), gpu[:2] + gpu[3:],
+                          cpu[:2] + cpu[3:]):
+        rel = float((x - y).norm() / y.norm())
+        print(f"fout {fout} {name}: relative Frobenius gap {rel:.3g}, max "
+              f"|card - cpu| {float((x - y).abs().max()):.3g}")
+        assert rel <= 1e-5, name
+
+
+def test_gat_engine_and_trainer_on_cuda_match_cpu(cuda_device):
+    """The GAT serve engine and one trainer step on the card vs the CPU
+    from the same weights: served rows rtol 1e-5 / atol 1e-6, loss
+    rtol 1e-5, gradients rtol 1e-4 / atol 1e-7.  Launches of the mask
+    kernel: forward passes (split 2, fused 1 per layer) per class to
+    serve; forward + backward passes (every layer's backward runs) to
+    train."""
+    plan = _er_plan()
+    rng = np.random.default_rng(6)
+    feats = rng.standard_normal((plan.n, 24)).astype(np.float32)
+    labels = rng.integers(0, 5, plan.n)
+    kw = dict(fin=24, widths=[130, 5], seed=3)
+    cls = resolve_forward_setup(plan, model="gat").fwd_static[
+        "pallas_cclasses"]
+    passes = 2 + 1
+    engines = [ServeEngine(plan, model="gat", max_batch=8, device=d, **kw)
+               for d in ("cpu", cuda_device)]
+    q = np.arange(0, plan.n, 397)
+    rows = []
+    for e in engines:
+        e.set_features(feats)
+        before = spmm_tiles.mask_launches
+        rows.append(e.query(q))
+        assert spmm_tiles.mask_launches - before == (
+            0 if e.device.type == "cpu" else passes * len(cls))
+    np.testing.assert_allclose(rows[1], rows[0], rtol=1e-5, atol=1e-6)
+    got = {}
+    for dev in ("cpu", cuda_device):
+        tr = FullBatchTrainer(plan, model="gat", activation="none",
+                              device=dev, **kw)
+        data = make_train_data(plan, feats, labels, device=dev)
+        grads = []
+        tr.opt.register_step_pre_hook(lambda opt, a, k, tr=tr: grads.append(
+            [p.grad.cpu().clone() for p in tr.model.parameters()]))
+        before = spmm_tiles.mask_launches
+        loss = tr.step(data)
+        got[str(dev)] = (loss, grads[0], spmm_tiles.mask_launches - before)
+    (loss_c, g_c, n_c), (loss_g, g_g, n_g) = got["cpu"], got["cuda"]
+    assert n_c == 0 and n_g == 2 * passes * len(cls)
     assert loss_g == pytest.approx(loss_c, rel=1e-5)
     for a, b in zip(g_g, g_c):
         np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-4,

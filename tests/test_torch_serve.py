@@ -240,7 +240,7 @@ def test_entry_points_without_cpu_raise_when_no_gpu(cora):
 def test_unported_features_raise(cora):
     kw = dict(fin=cora["feats"].shape[1], widths=[16, 7], device="cpu")
     with pytest.raises(NotImplementedError, match="not ported"):
-        ServeEngine(cora["plan"], model="gat", **kw)
+        ServeEngine(cora["plan"], model="gin", **kw)
     with pytest.raises(NotImplementedError, match="not ported"):
         ServeEngine(cora["plan"], comm_schedule="ragged", **kw)
     # an asymmetric Â needs pspmm_overlap, which is not ported
