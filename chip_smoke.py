@@ -72,12 +72,38 @@ failure raises and the script exits non-zero:
   9. training cora2708 GAT through the CLI's ``main`` in-process
      (``--model gat``, 5 steps): the losses track the dense GAT oracle
      from the same seed on the card within 1e-4 relative, exact launches;
-  10. one JSON line ``{"kernels": [...]}`` — per ported kernel (the tile
+  10. K4 serving: ragged ``ServeEngine``s (``comm_schedule='ragged'``)
+     for GCN and GAT on phase 3's plan, features and weights — every
+     served row and the whole forward ``torch.equal`` to the a2a engines'
+     of phases 3 and 7, exact launches, p50/p99, QPS, the per-stage
+     breakdown with the ring's exchange beside the a2a's, the idle share;
+     K1 on the real ring table and K5 on every real ring table of a
+     served GAT forward == plain, and the per-layer kernel times on the
+     ring;
+  11. K4 training: GCN and GAT on the ring from phases 5 and 8's initial
+     weights, 1 warm-up + 5 timed steps: losses and weights after ``fit``
+     ``torch.equal`` to the a2a runs', exact launches (forward and
+     backward through ``PspmmTilesRagged``), ``epoch_s``, the step
+     breakdown, the idle share, K1 on the real ring gradient table and K5
+     on every ring table of a training step == plain;
+  12. cora2708 8-hp through the train CLI with ``--comm-schedule auto``:
+     it resolves to the ring (padding efficiency 0.311 < 0.5) and its
+     losses equal the ``--comm-schedule a2a`` run's, GCN and GAT, exact
+     launches; then each transport's ``epoch_s`` over 3 CLI runs of 3
+     warm-up + 20 timed steps, interleaved;
+  13. K6, the row-shuffle kernel, vs its plain version at S = 2048 and
+     f ∈ {1, 41, 128} (bit-identical, two launches equal), then
+     ``python -m sgcn_tpu_torch.tools.spmm_micro``'s ``main`` at its
+     defaults (this card's stream, gather and matmul ceilings), and K6's
+     device time per call against its bound and
+     ``torch.take_along_dim``;
+  14. one JSON line ``{"kernels": [...]}`` — per ported kernel (the tile
      SpMM, its use as the GCN aggregation's backward, the GAT attention
-     pass and its use in the GAT layer's backward) its launches on the
-     main path (phases 2–5 and 7–9), max |kernel − plain|, kernel /
+     pass and its use in the GAT layer's backward, the ragged ring
+     aggregation and its backward, the row shuffle) its launches on the
+     main path (phases 2–5 and 7–13), max |kernel − plain|, kernel /
      plain / bound / library times at the flagship layer;
-  11. the last line: ``{"ok": true, "device": {...}}``.
+  15. the last line: ``{"ok": true, "device": {...}}``.
 
 Without CUDA, or without the rest of the repository beside it, the script
 prints no result and exits with code 2 or 3.
@@ -89,6 +115,7 @@ import contextlib
 import io
 import json
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -386,6 +413,48 @@ def gat_passes(widths):
     return sum(1 if gat_table_form(w) == "fused" else 2 for w in widths)
 
 
+def drive_serving(name, eng, queries, seed):
+    """Drive the serving main path through ``eng``: warm every bucket, then
+    ``queries`` synthetic closed-loop queries through ``run_loadgen``.  The
+    kernel's launches (the tile kernel's for GCN, its int8-mask entry's
+    for GAT) are counted from 0 and must be exactly forwards × passes ×
+    classes.  Returns (recording engine, loadgen result, launches)."""
+    from sgcn_tpu_torch.ops.tile_spmm import spmm_tiles
+    from sgcn_tpu_torch.serve import run_loadgen, synthetic_query_ids
+
+    st, widths = eng.setup.fwd_static, eng.widths
+    if eng.setup.model == "gat":
+        classes, counter = st["pallas_cclasses"], "mask_launches"
+        passes = gat_passes(widths)
+    else:
+        classes, counter = st["pallas_lclasses"], "launches"
+        if len(classes) != len(st["pallas_hclasses"]):
+            raise AssertionError(f"{name}: local and halo class counts "
+                                 "differ")
+        passes = 2 * len(widths)
+    qids = synthetic_query_ids(eng.plan.n, queries, seed=seed)
+    rec = RecordingEngine(eng)
+
+    setattr(spmm_tiles, counter, 0)             # the main path starts here
+    fwd0 = eng.forward_count
+    eng.warmup(qids)
+    result = run_loadgen(rec, qids)
+    launches = getattr(spmm_tiles, counter)     # ... and ends here
+    forwards = eng.forward_count - fwd0
+    expected = forwards * passes * len(classes)
+    if launches != expected or launches == 0:
+        raise AssertionError(
+            f"{name}: tile kernel launched {launches} times, expected "
+            f"{forwards} forwards x {passes} passes x {len(classes)} "
+            f"classes = {expected}")
+    s = result.summary()
+    log(f"  {name}: {s['queries']} queries in {s['batches']} batches, "
+        f"{s['achieved_qps']} QPS, p50 {s['latency_p50_ms']} ms, "
+        f"p99 {s['latency_p99_ms']} ms; kernel launches {launches} "
+        f"= {forwards} forwards x {passes} passes x {len(classes)}")
+    return rec, result, launches
+
+
 def serve_and_check(name, ahat, feats, pv, k, widths, queries, max_batch,
                     seed, check_rows=None, device="cuda", model="gcn",
                     plan=None):
@@ -397,10 +466,8 @@ def serve_and_check(name, ahat, feats, pv, k, widths, queries, max_batch,
 
     from sgcn_tpu_torch.models import gat as gat_model
     from sgcn_tpu_torch.models.gcn import params_from_jax
-    from sgcn_tpu_torch.ops.tile_spmm import spmm_tiles
     from sgcn_tpu_torch.parallel import build_comm_plan
-    from sgcn_tpu_torch.serve import (ServeEngine, run_loadgen,
-                                      synthetic_query_ids)
+    from sgcn_tpu_torch.serve import ServeEngine
 
     n, fin = feats.shape
     t0 = time.perf_counter()
@@ -413,47 +480,18 @@ def serve_and_check(name, ahat, feats, pv, k, widths, queries, max_batch,
         params = glorot_numpy(seed, dims)
         torch_params = params_from_jax(params)
     eng = ServeEngine(plan, fin=fin, widths=widths, model=model,
-                      params=torch_params, max_batch=max_batch,
-                      device=device)
+                      comm_schedule="a2a", params=torch_params,
+                      max_batch=max_batch, device=device)
     eng.set_features(feats)
     st = eng.setup.fwd_static
     if model == "gat":
-        classes, counter = st["pallas_cclasses"], "mask_launches"
-        passes = gat_passes(widths)
-        what = f"combined {[(t, e) for t, e, _ in classes]}"
+        what = f"combined {[(t, e) for t, e, _ in st['pallas_cclasses']]}"
     else:
-        classes, counter = st["pallas_lclasses"], "launches"
-        hcls = st["pallas_hclasses"]
-        if len(classes) != len(hcls):
-            raise AssertionError(f"{name}: {len(classes)} local and "
-                                 f"{len(hcls)} halo classes")
-        passes = 2 * len(widths)
-        what = (f"local {[(t, e) for t, e, _ in classes]} halo "
-                f"{[(t, e) for t, e, _ in hcls]}")
+        what = (f"local {[(t, e) for t, e, _ in st['pallas_lclasses']]} "
+                f"halo {[(t, e) for t, e, _ in st['pallas_hclasses']]}")
     log(f"  {name}: plan + engine {time.perf_counter() - t0:.2f} s; "
         f"b={plan.b} S={plan.s} R={plan.r} classes {what}")
-    qids = synthetic_query_ids(n, queries, seed=seed)
-    rec = RecordingEngine(eng)
-
-    setattr(spmm_tiles, counter, 0)             # the main path starts here
-    fwd0 = eng.forward_count
-    eng.warmup(qids)
-    result = run_loadgen(rec, qids)
-    launches = getattr(spmm_tiles, counter)     # ... and ends here
-    forwards = eng.forward_count - fwd0
-    expected = forwards * passes * len(classes)
-    if launches != expected:
-        raise AssertionError(
-            f"{name}: tile kernel launched {launches} times, expected "
-            f"{forwards} forwards x {passes} passes x {len(classes)} "
-            f"classes = {expected}")
-    if launches == 0:
-        raise AssertionError(f"{name}: the main path launched no kernel")
-    s = result.summary()
-    log(f"  {name}: {s['queries']} queries in {s['batches']} batches, "
-        f"{s['achieved_qps']} QPS, p50 {s['latency_p50_ms']} ms, "
-        f"p99 {s['latency_p99_ms']} ms; kernel launches {launches} "
-        f"= {forwards} forwards x {passes} passes x {len(classes)}")
+    rec, result, launches = drive_serving(name, eng, queries, seed)
 
     q = np.concatenate([np.asarray(a, np.int64) for a, _ in rec.served])
     got = np.concatenate([o for _, o in rec.served])
@@ -480,16 +518,19 @@ def serve_and_check(name, ahat, feats, pv, k, widths, queries, max_batch,
 
 def forward_breakdown(eng):
     """Device time of each stage of one forward (CUDA events around each
-    stage, run back to back): exchange, local pass, halo pass, sum,
-    projection, activation — per layer."""
+    stage, run back to back): exchange (the a2a's halo table, or the
+    ring's receive concat), local pass, halo pass, sum, projection,
+    activation — per layer."""
     import torch
 
     from sgcn_tpu_torch.models.gcn import PROJECT_FIRST_MIN_FIN
-    from sgcn_tpu_torch.ops.pspmm import halo_exchange
+    from sgcn_tpu_torch.ops.pspmm import halo_exchange, ring_concat
     from sgcn_tpu_torch.ops.tile_spmm import spmm_tiles_classes
 
     pa, st = eng.pa, eng.setup.fwd_static
     tb, lcls, hcls = st["pallas_tb"], st["pallas_lclasses"], st["pallas_hclasses"]
+    ragged = eng.comm_schedule == "ragged"
+    hsrc = pa["ptile_hrsrc"] if ragged else pa["ptile_hsrc"]
     weights = list(eng.model.weights)
     h = eng._h0
     rows = []
@@ -501,13 +542,15 @@ def forward_breakdown(eng):
             ev[0].record()
             x = h @ w if pf else h
             ev[1].record()
-            halo = halo_exchange(x, pa["send_idx"], pa["halo_src"])
+            halo = (ring_concat(x, pa["rsend_idx"], st["rr_sizes"])
+                    if ragged else
+                    halo_exchange(x, pa["send_idx"], pa["halo_src"]))
             ev[2].record()
             b = x.shape[1]
             loc = spmm_tiles_classes(pa["ptile_lsrc"], pa["ptile_lld"],
                                      pa["ptile_lw"], x, lcls, tb)[:, :b]
             ev[3].record()
-            rem = spmm_tiles_classes(pa["ptile_hsrc"], pa["ptile_hld"],
+            rem = spmm_tiles_classes(hsrc, pa["ptile_hld"],
                                      pa["ptile_hw"], halo, hcls, tb)[:, :b]
             ev[4].record()
             z = loc + rem
@@ -522,6 +565,8 @@ def forward_breakdown(eng):
                          "project_ms": el[0] + el[5], "exchange_ms": el[1],
                          "local_kernel_ms": el[2], "halo_kernel_ms": el[3],
                          "sum_ms": el[4], "act_ms": el[6]})
+        if not torch.equal(h, eng.forward()):
+            raise AssertionError("breakdown != the engine's forward")
     return rows
 
 
@@ -638,19 +683,29 @@ def forward_backward_trace(tr, data):
     import torch
 
     from sgcn_tpu_torch.models.gcn import PROJECT_FIRST_MIN_FIN
-    from sgcn_tpu_torch.ops.tile_spmm import TILE_PLAN_FIELDS, pspmm_tiles_sym
+    from sgcn_tpu_torch.ops.tile_spmm import (TILE_PLAN_FIELDS,
+                                              TILE_PLAN_FIELDS_RAGGED,
+                                              pspmm_tiles_ragged,
+                                              pspmm_tiles_sym)
     from sgcn_tpu_torch.train import LOSSES
 
     st = tr.model.fwd_static
+    static = (st["pallas_tb"], st["pallas_lclasses"], st["pallas_hclasses"])
+    if tr.comm_schedule == "ragged":
+        def agg(x):
+            return pspmm_tiles_ragged(
+                x, *(tr.pa[f] for f in TILE_PLAN_FIELDS_RAGGED), *static,
+                st["rr_sizes"])
+    else:
+        def agg(x):
+            return pspmm_tiles_sym(
+                x, *(tr.pa[f] for f in TILE_PLAN_FIELDS), *static)
     zs, caught = [], {}
     weights = list(tr.model.weights)
     h = data.h0
     for i, w in enumerate(weights):
         pf = w.shape[1] < h.shape[-1] and h.shape[-1] >= PROJECT_FIRST_MIN_FIN
-        z = pspmm_tiles_sym(h @ w if pf else h,
-                            *(tr.pa[f] for f in TILE_PLAN_FIELDS),
-                            st["pallas_tb"], st["pallas_lclasses"],
-                            st["pallas_hclasses"])
+        z = agg(h @ w if pf else h)
         if z.requires_grad:
             z.register_hook(lambda g, i=i: caught.__setitem__(
                 i, g.detach().contiguous()))
@@ -691,139 +746,224 @@ def step_breakdown(tr, data, steps: int = 3):
 
 
 def gat_forward_breakdown(eng):
-    """Device time of each stage of one GAT forward (CUDA events around
-    each stage, run back to back), per layer: projection (``z = h·w``,
-    scores, ``u``, ``p = u·z``), exchange (the table or the split pair to
-    the halo, and the ``[local; halo]`` concatenation), numerator pass
-    (the one pass of a fused layer), denominator pass (split layers; the
-    lane slice of a fused one), division.  The stages are the forward's
-    own ops in its order, so the last layer's rows must equal the
-    engine's forward bit for bit."""
-    import torch
-
-    from sgcn_tpu_torch.models.gat import gat_table_form, score_project
-    from sgcn_tpu_torch.ops.pspmm import halo_exchange
-    from sgcn_tpu_torch.ops.tile_spmm import gat_tiles_pass
-
-    pa, st = eng.pa, eng.setup.fwd_static
-    tb, cls = st["pallas_tb"], st["pallas_cclasses"]
-    tiles = (pa["ptile_csrc"], pa["ptile_cld"], pa["ptile_cw"])
-    ex = (pa["send_idx"], pa["halo_src"])
-    h = eng._h0
-    b = h.shape[1]
-    rows = []
-    torch.cuda.synchronize()
-    with torch.inference_mode():
-        for i, p in enumerate(eng.model.layer_params()):
-            ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
-            ev[0].record()
-            z = h @ p["w"]
-            z2 = score_project(z, p["a2"])
-            cg = torch.where(pa["row_valid"] > 0, z2,
-                             torch.full_like(z2, -float("inf"))).max()
-            u = torch.exp(z2 - cg)
-            pz = u[..., None] * z
-            ev[1].record()
-            fout = z.shape[-1]
-            form = gat_table_form(fout)
-            if form == "fused":
-                t = torch.cat([pz, u[..., None]], dim=-1)
-                full = torch.cat([t, halo_exchange(t, *ex)], dim=1)
-            else:
-                full = torch.cat([pz, halo_exchange(pz, *ex)], dim=1)
-                full_u = torch.cat([u, halo_exchange(u, *ex)], dim=1)
-            ev[2].record()
-            out = gat_tiles_pass(*tiles, full, cls, tb, b)
-            ev[3].record()
-            if form == "fused":
-                num, den = out[..., :fout], out[..., fout]
-            else:
-                num = out
-                den = gat_tiles_pass(*tiles, full_u[..., None], cls, tb,
-                                     b)[..., 0]
-            ev[4].record()
-            h = num / torch.clamp(den, min=1e-30)[..., None]
-            ev[5].record()
-            torch.cuda.synchronize()
-            el = [ev[j].elapsed_time(ev[j + 1]) for j in range(5)]
-            rows.append({"layer": i, "form": form, "width": fout,
-                         "project_ms": el[0], "exchange_ms": el[1],
-                         "numerator_pass_ms": el[2],
-                         "denominator_pass_ms": el[3], "divide_ms": el[4]})
-        if not torch.equal(h, eng.forward()):
-            raise AssertionError("GAT breakdown != the engine's forward")
-    return rows
-
-
-def record_gat_aggregates(tr, data):
-    """One forward and backward of the GAT trainer's loss at its current
-    weights, without an optimizer step, recording the arguments of every
-    aggregation it runs (``models/gat.py::_gat_tiles_aggregate``): the
-    forward's layers in order, then the backward's in reverse."""
+    """Device time of each stage of one GAT forward, per layer, from CUDA
+    events recorded at the boundaries of the model's own functions while
+    ``eng.forward()`` runs (``_gat_factored_fwd_core``,
+    ``_gat_tiles_aggregate``, ``gat_tiles_pass``): projection (``z =
+    h·w``, scores, ``u``, ``p = u·z``: the layer's start to its
+    aggregation), exchange (the table or the split pair to the halo or
+    the ring, and the ``[local; halo]`` concatenation: to the first
+    pass), numerator pass (the one pass of a fused layer), denominator
+    pass (a split layer's second pass; a fused one's lane slice: from the
+    first pass's end to the aggregation's), division (to the layer's
+    end)."""
     import torch
 
     from sgcn_tpu_torch.models import gat as gat_model
-    from sgcn_tpu_torch.train import LOSSES
 
-    seen = []
-    orig = gat_model._gat_tiles_aggregate
+    layers = []
 
-    def recording(*args):
-        seen.append(tuple(x.detach() if torch.is_tensor(x) else x
-                          for x in args))
-        return orig(*args)
+    def mark(label):
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        layers[-1].append((label, ev))
 
-    gat_model._gat_tiles_aggregate = recording
-    try:
-        loss = LOSSES[tr.loss_name](tr.model(data.h0, tr.pa), data.labels,
-                                    data.train_valid)
-        torch.autograd.grad(loss, list(tr.model.parameters()))
-    finally:
-        gat_model._gat_tiles_aggregate = orig
+    def around(fn, before, after, new_layer=False):
+        def wrapped(*args, **kw):
+            if new_layer:
+                layers.append([])
+            mark(before)
+            out = fn(*args, **kw)
+            mark(after)
+            return out
+        return wrapped
+
+    names = ("_gat_factored_fwd_core", "_gat_tiles_aggregate",
+             "gat_tiles_pass")
+    orig = {name: getattr(gat_model, name) for name in names}
+    gat_model._gat_factored_fwd_core = around(
+        orig["_gat_factored_fwd_core"], "start", "end", new_layer=True)
+    gat_model._gat_tiles_aggregate = around(
+        orig["_gat_tiles_aggregate"], "agg", "agg_end")
+    gat_model.gat_tiles_pass = around(orig["gat_tiles_pass"], "pass",
+                                      "pass_end")
     torch.cuda.synchronize()
-    return seen
+    try:
+        out = eng.forward()
+    finally:
+        for name, fn in orig.items():
+            setattr(gat_model, name, fn)
+    torch.cuda.synchronize()
+    rows = []
+    for i, (marks, p) in enumerate(zip(layers, eng.model.layer_params())):
+        at = {}
+        for label, ev in marks:                  # first mark of each label
+            at.setdefault(label, ev)
+        passes = sum(label == "pass" for label, _ in marks)
+        fout = p["w"].shape[1]
+
+        def ms(a, b):
+            return at[a].elapsed_time(at[b])
+
+        rows.append({"layer": i, "form": "fused" if passes == 1 else "split",
+                     "width": fout, "project_ms": ms("start", "agg"),
+                     "exchange_ms": ms("agg", "pass"),
+                     "numerator_pass_ms": ms("pass", "pass_end"),
+                     "denominator_pass_ms": ms("pass_end", "agg_end"),
+                     "divide_ms": ms("agg_end", "end")})
+    if len(rows) != len(eng.widths) or not torch.equal(out, eng.forward()):
+        raise AssertionError("GAT breakdown: the recorded forward != the "
+                             "engine's forward")
+    return rows
 
 
-def gat_pass_tables(call):
-    """The kernel tables of one recorded aggregation, built as
-    ``_gat_tiles_aggregate`` builds them: ``[full]`` for a fused layer,
-    ``[full_p, full_u]`` for a split one; and its (tiles, classes, tb)."""
+def gat_train_pass(tr, data):
+    """One forward and backward of the GAT trainer's loss at its current
+    weights, without an optimizer step."""
     import torch
 
-    from sgcn_tpu_torch.ops.pspmm import halo_exchange
+    from sgcn_tpu_torch.train import LOSSES
 
-    p, s, form, send_idx, halo_src, csrc, cld, cw, tb, cls = call
-    if form == "fused":
-        t = torch.cat([p, s[..., None]], dim=-1)
-        tables = [torch.cat([t, halo_exchange(t, send_idx, halo_src)], 1)]
-    else:
-        tables = [torch.cat([p, halo_exchange(p, send_idx, halo_src)], 1),
-                  torch.cat([s, halo_exchange(s, send_idx, halo_src)],
-                            1)[..., None].contiguous()]
-    return tables, [csrc, cld, cw], cls, tb
+    loss = LOSSES[tr.loss_name](tr.model(data.h0, tr.pa), data.labels,
+                                data.train_valid)
+    torch.autograd.grad(loss, list(tr.model.parameters()))
 
 
-def check_time_gat_call(call, what):
+def record_gat_passes(run):
+    """Run ``run()`` recording every K5 pass the GAT model makes: the
+    arguments of each ``gat_tiles_pass`` call of ``models/gat.py``, the
+    tables exactly as the model built them (a2a or ring), grouped by
+    aggregation (``_gat_tiles_aggregate``): for a training pass the
+    forward's layers in order, then the backward's in reverse.  Each
+    group holds one pass for a fused layer, two (numerator, denominator)
+    for a split one; each pass is (tiles, table, classes, tb)."""
+    import torch
+
+    from sgcn_tpu_torch.models import gat as gat_model
+
+    groups = []
+    orig_agg, orig_pass = gat_model._gat_tiles_aggregate, \
+        gat_model.gat_tiles_pass
+
+    def aggregate(*args):
+        groups.append([])
+        return orig_agg(*args)
+
+    def recording(csrc, cld, cw, table, cclasses, tb, num_rows):
+        groups[-1].append(([csrc, cld, cw], table.detach(), cclasses, tb))
+        return orig_pass(csrc, cld, cw, table, cclasses, tb, num_rows)
+
+    gat_model._gat_tiles_aggregate = aggregate
+    gat_model.gat_tiles_pass = recording
+    try:
+        run()
+    finally:
+        gat_model._gat_tiles_aggregate = orig_agg
+        gat_model.gat_tiles_pass = orig_pass
+    torch.cuda.synchronize()
+    return groups
+
+
+def check_time_gat_call(passes, what):
     """K5 on one recorded aggregation's real tables: the mask kernel ==
-    its plain version (and two launches) bit for bit per table, then its
-    time, plain time, bound and library time summed over the tables.
+    its plain version (and two launches) bit for bit per pass, then its
+    time, plain time, bound and library time summed over the passes.
     Returns (max |kernel - plain|, timing dict)."""
-    tables, tiles, cls, tb = gat_pass_tables(call)
-    tiles_np = [t.cpu().numpy() for t in tiles]
     err, tot, bound_by = 0.0, {}, None
-    for table in tables:
+    for tiles, table, cls, tb in passes:
         f = table.shape[-1]
         err = max(err, check_k1(tiles, table, cls, tb, f"{what} f={f}"))
-        t = time_k1(tiles_np, tiles, table, cls, tb, table.shape[1],
-                    f"{what} f={f}", plain_reps=2)
+        t = time_k1([x.cpu().numpy() for x in tiles], tiles, table, cls, tb,
+                    table.shape[1], f"{what} f={f}", plain_reps=2)
         for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
             tot[key] = tot.get(key, 0.0) + t[key]
         bound_by = bound_by or t["bound_by"]
     tot["bound_by"] = bound_by
-    log(f"  {what}: K5 over its {len(tables)} table(s): {tot['ms']!r} ms; "
+    log(f"  {what}: K5 over its {len(passes)} table(s): {tot['ms']!r} ms; "
         f"bound {tot['bound_ms']!r} ms; plain {tot['plain_ms']!r} ms; "
         f"torch.sparse.mm {tot['library_ms']!r} ms")
     return err, tot
+
+
+def check_gat_passes(groups, what):
+    """K5 == plain bit for bit on every recorded pass; returns the max
+    |kernel - plain|."""
+    err = 0.0
+    for j, passes in enumerate(groups):
+        for tiles, table, cls, tb in passes:
+            err = max(err, check_k1(tiles, table, cls, tb, f"{what} "
+                                    f"aggregation {j} f={table.shape[-1]}"))
+    return err
+
+
+# -------------------------------------------------------- the ragged ring
+def serve_ragged(name, eng_a, feats, queries, max_batch, seed):
+    """Drive the serving main path on the ragged ring: an engine on
+    ``eng_a``'s plan, weights and features with ``comm_schedule='ragged'``.
+    Its launches must be exact (for GCN, every one through
+    ``PspmmTilesRagged``) and every served row must equal the a2a
+    engine's row for the same query, bit for bit.  Returns (engine,
+    result, launches)."""
+    import numpy as np
+    import torch
+
+    from sgcn_tpu_torch.ops.tile_spmm import PspmmTilesRagged
+    from sgcn_tpu_torch.serve import ServeEngine
+
+    eng = ServeEngine(eng_a.plan, fin=eng_a.fin, widths=eng_a.widths,
+                      model=eng_a.setup.model, comm_schedule="ragged",
+                      params=eng_a.model.layer_params(),
+                      max_batch=max_batch, device=eng_a.device)
+    if eng.comm_schedule != "ragged":
+        raise AssertionError(f"{name}: resolved {eng.comm_schedule}")
+    eng.set_features(feats)
+    PspmmTilesRagged.launches = 0
+    rec, result, launches = drive_serving(name, eng, queries, seed)
+    if PspmmTilesRagged.launches != (
+            0 if eng.setup.model == "gat" else launches):
+        raise AssertionError(f"{name}: {PspmmTilesRagged.launches} "
+                             "launches through the ring op")
+    for q, out in rec.served:
+        if not np.array_equal(out, eng_a.query(q)):
+            raise AssertionError(f"{name}: served rows != the a2a "
+                                 "engine's rows")
+    if not torch.equal(eng.forward(), eng_a.forward()):
+        raise AssertionError(f"{name}: ragged forward != a2a forward")
+    log(f"  {name}: {len(rec.served)} served batches and the whole "
+        f"forward == the a2a engine's, bit for bit; wire rows per "
+        f"exchange {eng.gauges()['wire_rows_per_exchange']} (a2a "
+        f"{eng_a.gauges()['wire_rows_per_exchange']})")
+    return eng, result, launches
+
+
+def log_side_by_side(name, a2a_rows, ring_rows, keys):
+    for a, r in zip(a2a_rows, ring_rows):
+        log(f"  {name} layer {a['layer']}: " + ", ".join(
+            f"{k} a2a {a[k]:.4f} / ring {r[k]:.4f} ms" for k in keys))
+
+
+def run_train_cli(argv):
+    """``python -m sgcn_tpu_torch.train``'s ``main`` in-process: its
+    per-epoch losses and its JSON report."""
+    from sgcn_tpu_torch.train.__main__ import main as train_main
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        train_main(argv)
+    lines = out.getvalue().strip().splitlines()
+    return ([float(x.split()[-1]) for x in lines if x.startswith("epoch ")],
+            json.loads(lines[-1]))
+
+
+def k6_bound_ms(idx, f):
+    """Bytes the row shuffle needs on these inputs — each distinct
+    referenced row read once, the index read once, the output written
+    once — over the HBM rate; it does no arithmetic."""
+    import numpy as np
+
+    rows = np.unique(idx.cpu().numpy()).size
+    s = idx.shape[0]
+    return (rows * f * 4 + s * 4 + s * f * 4) / HBM_BYTES_PER_S * 1e3
 
 
 def main() -> int:
@@ -849,6 +989,9 @@ def main() -> int:
     from sgcn_tpu_torch.utils.backend import resolve_device
 
     t_start = time.perf_counter()
+    # every phase names its transport; the accuracy harness (phase 4) has
+    # no knob and takes the default, so the variable must not choose it
+    os.environ.pop("SGCN_COMM_SCHEDULE", None)
     # ---------------------------------------------------------- phase 0
     smi = nvidia_smi_line()
     dev = resolve_device("cuda")             # TF32 off for the dense matmuls
@@ -920,7 +1063,8 @@ def main() -> int:
     decision = {}
     choose_tile_dispatch(plan, tb=tb, decision=decision)
     log(f"  dispatch: {json.dumps(decision['tile_dispatch'])}")
-    for row in forward_breakdown(eng_f):
+    bd_f = forward_breakdown(eng_f)
+    for row in bd_f:
         log(f"  forward breakdown: {json.dumps(row)}")
     log_device_busy("flagship", lambda: eng_f.query(np.arange(64)))
 
@@ -986,7 +1130,8 @@ def main() -> int:
         "-> 40 (ReLU, xent), 1 warm-up + 5 timed steps")
     widths_f = [128, 128, 40]
     labels_f = np.random.default_rng(4).integers(0, 40, n_f)
-    tr = FullBatchTrainer(plan, fin=128, widths=widths_f, seed=5, device=dev)
+    tr = FullBatchTrainer(plan, fin=128, widths=widths_f, seed=5,
+                          comm_schedule="a2a", device=dev)
     data = make_train_data(plan, feats_f, labels_f, device=dev)
     p_init = [w.detach().cpu().numpy() for w in tr.params]
     zs, caught = forward_backward_trace(tr, data)      # at the step-1 weights
@@ -1011,6 +1156,9 @@ def main() -> int:
     rep = tr.fit(data, epochs=5, warmup=1, verbose=False)
     launches_tf = spmm_tiles.launches           # ... and ends here
     bwd_tf = PspmmTilesSym.backward_launches
+    # the weights right after fit, before the breakdown steps move them
+    # (phase 11 trains the ring from the same start and must end here)
+    fit_f = [w.detach().clone() for w in tr.params]
     cls_f = len(st["pallas_lclasses"]) + len(st["pallas_hclasses"])
     bwd_f = backward_passes(128, widths_f)
     want_f = steps_f * (len(widths_f) + bwd_f) * cls_f
@@ -1107,7 +1255,8 @@ def main() -> int:
         "flagship GAT", ahat_f, feats_f, pv_f, 8, widths_f, queries=512,
         max_batch=64, seed=3, check_rows=256, model="gat", plan=plan)
     cls_g = eng_gf.setup.fwd_static["pallas_cclasses"]
-    for row in gat_forward_breakdown(eng_gf):
+    bd_gf = gat_forward_breakdown(eng_gf)
+    for row in bd_gf:
         log(f"  GAT forward breakdown: {json.dumps(row)}")
     log_device_busy("flagship GAT", lambda: eng_gf.query(np.arange(64)))
 
@@ -1121,7 +1270,7 @@ def main() -> int:
                                             widths_f)))
     trg = FullBatchTrainer(plan, fin=128, widths=widths_f, model="gat",
                            activation="none", params=gat_from_numpy(params_g),
-                           device=dev)
+                           comm_schedule="a2a", device=dev)
     t0 = time.perf_counter()
     loss64_g, grads64_g = gat64(ahat_f, feats_f, params_g, labels=labels_f)
     log(f"  float64 host GAT backprop (torch autograd, CPU) "
@@ -1141,6 +1290,7 @@ def main() -> int:
     rep_g = trg.fit(data, epochs=5, warmup=1, verbose=False)
     launches_gt = spmm_tiles.mask_launches      # ... and ends here
     bwd_gt = GatLayerSym.backward_launches
+    fit_g = [p.detach().clone() for p in trg.model.parameters()]
     want_gt = steps_f * 2 * gat_passes(widths_f) * len(cls_g)
     log(f"  K5 launches {launches_gt} (backward {bwd_gt}) = {steps_f} steps "
         f"x 2 directions x {gat_passes(widths_f)} passes x {len(cls_g)} "
@@ -1171,23 +1321,22 @@ def main() -> int:
         f"{json.dumps(step_breakdown(trg, data))}")
     log_device_busy("flagship GAT training", lambda: trg.step(data), reps=3,
                     what="steps")
-    calls = record_gat_aggregates(trg, data)
+    calls = record_gat_passes(lambda: gat_train_pass(trg, data))
     nl = len(widths_f)
-    if len(calls) != 2 * nl:
-        raise AssertionError(f"{len(calls)} aggregations recorded, "
-                             f"expected {2 * nl}")
+    want_passes = [gat_passes([w]) for w in widths_f]
+    if [len(c) for c in calls] != want_passes + want_passes[::-1]:
+        raise AssertionError(f"recorded K5 passes per aggregation "
+                             f"{[len(c) for c in calls]}, expected the "
+                             f"forward's {want_passes} and the backward's "
+                             "in reverse")
     # the flagship layer: layer 0's forward and layer 1's backward, both
     # split (f = 128 numerator + f = 1 denominator)
     err_f, gat_fwd = check_time_gat_call(calls[0], "flagship GAT layer-0 "
                                          "forward")
     err_b, gat_bwd = check_time_gat_call(calls[nl + 1], "flagship GAT "
                                          "layer-1 backward")
-    for j in (nl, 2 * nl - 1):                 # the other backward tables
-        tables, gtiles, gcls, gtb = gat_pass_tables(calls[j])
-        for table in tables:
-            err_b = max(err_b, check_k1(
-                gtiles, table, gcls, gtb, f"flagship GAT backward layer "
-                f"{2 * nl - 1 - j} f={table.shape[-1]}"))
+    err_b = max(err_b, check_gat_passes(           # the other backward passes
+        [calls[nl], calls[2 * nl - 1]], "flagship GAT backward"))
 
     # ---------------------------------------------------------- phase 9
     log("phase 9: train cora2708 GAT on the card through the CLI (--model "
@@ -1203,7 +1352,8 @@ def main() -> int:
         train_main(["--npz", os.path.join(fix, "cora2708.npz"), "--normalize",
                     "-p", os.path.join(fix, "cora2708.8.hp"), "-s", "8",
                     "-l", "2", "--hidden", "16", "--model", "gat",
-                    "--epochs", "5", "--warmup", "0", "--seed", "11"])
+                    "--epochs", "5", "--warmup", "0", "--seed", "11",
+                    "--comm-schedule", "a2a"])
     launches_gtc = spmm_tiles.mask_launches     # ... and ends here
     bwd_gtc = GatLayerSym.backward_launches
     lines = out.getvalue().strip().splitlines()
@@ -1231,13 +1381,264 @@ def main() -> int:
                              "dense GAT oracle within 1e-4 relative")
 
     # ---------------------------------------------------------- phase 10
+    log("phase 10: K4 serving — the ragged ring for GCN and GAT on phase "
+        "3's plan, features and weights; served rows == the a2a engines' "
+        "(phases 3 and 7), bit for bit")
+    from sgcn_tpu_torch.ops.pspmm import ring_concat
+    from sgcn_tpu_torch.ops.tile_spmm import (TILE_PLAN_FIELDS,
+                                              TILE_PLAN_FIELDS_RAGGED,
+                                              PspmmTilesRagged,
+                                              pspmm_tiles_ragged,
+                                              pspmm_tiles_sym)
+    from sgcn_tpu_torch.parallel import resolve_comm_schedule
+
+    d_f = {}
+    resolve_comm_schedule("auto", [plan], "gcn", decision=d_f)
+    log(f"  flagship ring: rr_sizes {plan.ensure_ragged().rr_sizes}, S "
+        f"{plan.s}, R {plan.r}; wire rows per exchange a2a "
+        f"{d_f['wire_rows_a2a']}, ragged {d_f['wire_rows_ragged']}, true "
+        f"{d_f['true_rows']} (padding efficiency "
+        f"{d_f['padding_efficiency']:.3f}); auto resolves "
+        f"{d_f['resolved']} ({d_f['rule']})")
+    eng_fr, _res_fr, launches_fr = serve_ragged(
+        "flagship GCN ragged", eng_f, feats_f, 512, 64, 3)
+    log_side_by_side("GCN forward breakdown", bd_f, forward_breakdown(eng_fr),
+                     ("exchange_ms", "halo_kernel_ms", "local_kernel_ms"))
+    log_device_busy("flagship GCN ragged", lambda: eng_fr.query(np.arange(64)))
+    pa_r, st_r = eng_fr.pa, eng_fr.setup.fwd_static
+    ring0 = ring_concat(h0, pa_r["rsend_idx"], st_r["rr_sizes"])
+    rtiles = [pa_r["ptile_hrsrc"], pa_r["ptile_hld"], pa_r["ptile_hw"]]
+    rtiles_np = [t.cpu().numpy() for t in rtiles]
+    k4_err = check_k1(rtiles, ring0, st_r["pallas_hclasses"], tb,
+                      "flagship ring pass f=128")
+    t_ring = time_k1(rtiles_np, rtiles, ring0, st_r["pallas_hclasses"], tb,
+                     ring0.shape[1], "flagship ring pass f=128")
+    k4 = {key: t_loc[key] + t_ring[key]
+          for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    log(f"  flagship per-layer kernel time on the ring (local + ring "
+        f"passes, f=128): {k4['ms']!r} ms; bound {k4['bound_ms']!r} ms; "
+        f"a2a {layer['ms']!r} ms")
+    ring_args = [pa_r[f] for f in TILE_PLAN_FIELDS_RAGGED]
+    sym_args = [pa[f] for f in TILE_PLAN_FIELDS]
+    statics = (tb, st["pallas_lclasses"], st["pallas_hclasses"])
+    with torch.inference_mode():
+        op_ring = cuda_ms(lambda: pspmm_tiles_ragged(
+            h0, *ring_args, *statics, st_r["rr_sizes"]), reps=10)
+        op_a2a = cuda_ms(lambda: pspmm_tiles_sym(h0, *sym_args, *statics),
+                         reps=10)
+    log(f"  one whole aggregation at f=128 (exchange + both passes + sum): "
+        f"ring {op_ring!r} ms, a2a {op_a2a!r} ms")
+
+    eng_gfr, _res_gfr, launches_gfr = serve_ragged(
+        "flagship GAT ragged", eng_gf, feats_f, 512, 64, 3)
+    log_side_by_side("GAT forward breakdown", bd_gf,
+                     gat_forward_breakdown(eng_gfr),
+                     ("exchange_ms", "numerator_pass_ms",
+                      "denominator_pass_ms"))
+    log_device_busy("flagship GAT ragged",
+                    lambda: eng_gfr.query(np.arange(64)))
+    k5r_err = check_gat_passes(record_gat_passes(eng_gfr.forward),
+                               "flagship GAT ring forward")
+
+    # ---------------------------------------------------------- phase 11
+    log("phase 11: K4 training — GCN and GAT on the ring on phases 5 and "
+        "8's plan and data from the same initial weights, 1 warm-up + 5 "
+        "timed steps; losses and weights == the a2a runs'")
+    trr = FullBatchTrainer(plan, fin=128, widths=widths_f, seed=5,
+                           comm_schedule="ragged", device=dev)
+    spmm_tiles.launches = 0                     # the main path starts here
+    PspmmTilesRagged.launches = PspmmTilesRagged.backward_launches = 0
+    rep_r = trr.fit(data, epochs=5, warmup=1, verbose=False)
+    launches_rt = spmm_tiles.launches           # ... and ends here
+    ring_rt = PspmmTilesRagged.launches
+    ring_bwd_rt = PspmmTilesRagged.backward_launches
+    log(f"  GCN kernel launches {launches_rt} (ring forward {ring_rt}, "
+        f"ring backward {ring_bwd_rt}); expected {want_f}")
+    if (launches_rt != want_f or ring_bwd_rt != steps_f * bwd_f * cls_f
+            or ring_rt + ring_bwd_rt != launches_rt):
+        raise AssertionError("ragged GCN training: launch count differs "
+                             "from the passes the program runs")
+    same_w = all(torch.equal(a, b) for a, b in zip(trr.params, fit_f))
+    log(f"  GCN losses {rep_r['loss_history']}; == a2a: "
+        f"{rep_r['loss_history'] == rep['loss_history']}; weights == a2a: "
+        f"{same_w}")
+    if rep_r["loss_history"] != rep["loss_history"] or not same_w:
+        raise AssertionError("ragged GCN training differs from a2a")
+    log(f"  GCN epoch_s ring {rep_r['epoch_s']!r} (a2a {rep['epoch_s']!r}); "
+        f"comm {json.dumps({k: rep_r[k] for k in ('comm_schedule', 'wire_rows_per_exchange', 'true_rows_per_exchange', 'padding_efficiency')})}")
+    log(f"  GCN step breakdown on the ring (CUDA events, mean of 3): "
+        f"{json.dumps(step_breakdown(trr, data))}")
+    log_device_busy("flagship GCN ragged training", lambda: trr.step(data),
+                    reps=3, what="steps")
+    _zs, caught_r = forward_backward_trace(trr, data)
+    g_r = caught_r[layer_b]
+    gring = ring_concat(g_r, pa_r["rsend_idx"], st_r["rr_sizes"])
+    k4b_err = max(
+        check_k1(ltiles, g_r, st_r["pallas_lclasses"], tb,
+                 f"flagship layer-{layer_b} gradient local pass (ring run)"),
+        check_k1(rtiles, gring, st_r["pallas_hclasses"], tb,
+                 f"flagship layer-{layer_b} gradient ring pass f=128"))
+    rb_loc = time_k1([t.cpu().numpy() for t in ltiles], ltiles, g_r,
+                     st_r["pallas_lclasses"], tb, plan.b,
+                     f"flagship layer-{layer_b} gradient local pass f=128")
+    rb_ring = time_k1(rtiles_np, rtiles, gring, st_r["pallas_hclasses"], tb,
+                      gring.shape[1],
+                      f"flagship layer-{layer_b} gradient ring pass f=128")
+    k4b = {key: rb_loc[key] + rb_ring[key]
+           for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+
+    trgr = FullBatchTrainer(plan, fin=128, widths=widths_f, model="gat",
+                            activation="none",
+                            params=gat_from_numpy(params_g),
+                            comm_schedule="ragged", device=dev)
+    spmm_tiles.mask_launches = 0                # the main path starts here
+    GatLayerSym.backward_launches = 0
+    rep_gr = trgr.fit(data, epochs=5, warmup=1, verbose=False)
+    launches_grt = spmm_tiles.mask_launches     # ... and ends here
+    bwd_grt = GatLayerSym.backward_launches
+    log(f"  GAT K5 launches {launches_grt} (backward {bwd_grt}); expected "
+        f"{want_gt} ({want_gt // 2})")
+    if launches_grt != want_gt or bwd_grt != want_gt // 2:
+        raise AssertionError("ragged GAT training: K5 launch count "
+                             "differs from the passes the program runs")
+    same_g = all(torch.equal(a, b)
+                 for a, b in zip(trgr.model.parameters(), fit_g))
+    log(f"  GAT losses {rep_gr['loss_history']}; == a2a: "
+        f"{rep_gr['loss_history'] == rep_g['loss_history']}; weights == "
+        f"a2a: {same_g}")
+    if rep_gr["loss_history"] != rep_g["loss_history"] or not same_g:
+        raise AssertionError("ragged GAT training differs from a2a")
+    log(f"  GAT epoch_s ring {rep_gr['epoch_s']!r} (a2a "
+        f"{rep_g['epoch_s']!r})")
+    log(f"  GAT step breakdown on the ring (CUDA events, mean of 3): "
+        f"{json.dumps(step_breakdown(trgr, data))}")
+    log_device_busy("flagship GAT ragged training", lambda: trgr.step(data),
+                    reps=3, what="steps")
+    k5r_err = max(k5r_err, check_gat_passes(
+        record_gat_passes(lambda: gat_train_pass(trgr, data)),
+        "flagship GAT ring training"))
+
+    # ---------------------------------------------------------- phase 12
+    log("phase 12: cora2708 8-hp through the train CLI with --comm-schedule "
+        "auto (resolves to the ring) against --comm-schedule a2a, GCN and "
+        "GAT, 5 steps; then each transport's epoch_s with warm-up")
+    cli_base = ["--npz", os.path.join(fix, "cora2708.npz"), "--normalize",
+                "-p", os.path.join(fix, "cora2708.8.hp"), "-s", "8", "-l",
+                "2", "--hidden", "16", "--seed", "11"]
+    cli = cli_base + ["--epochs", "5", "--warmup", "0"]
+    spmm_tiles.launches = 0                     # the main path starts here
+    losses_ca, rep_ca = run_train_cli(cli + ["--comm-schedule", "a2a"])
+    launches_ca = spmm_tiles.launches           # ... and ends here
+    spmm_tiles.launches = 0                     # the main path starts here
+    PspmmTilesRagged.launches = PspmmTilesRagged.backward_launches = 0
+    losses_cr, rep_cr = run_train_cli(cli + ["--comm-schedule", "auto"])
+    launches_cr = spmm_tiles.launches           # ... and ends here
+    ring_cr = PspmmTilesRagged.launches
+    ring_bwd_cr = PspmmTilesRagged.backward_launches
+    want_cc = 5 * (2 + backward_passes(1433, [16, 7])) * cls_c
+    log(f"  GCN: a2a losses {losses_ca}; auto -> {rep_cr['comm_schedule']} "
+        f"(wire rows {rep_cr['wire_rows_per_exchange']} vs "
+        f"{rep_ca['wire_rows_per_exchange']}) losses {losses_cr}; launches "
+        f"{launches_ca} / {launches_cr} (ring {ring_cr} + {ring_bwd_cr}), "
+        f"expected {want_cc}; epoch_s a2a {rep_ca['epoch_s']!r}, ring "
+        f"{rep_cr['epoch_s']!r} (host-bound)")
+    if (rep_cr["comm_schedule"] != "ragged" or rep_ca["comm_schedule"]
+            != "a2a" or losses_cr != losses_ca or len(losses_cr) != 5
+            or launches_ca != want_cc or launches_cr != want_cc
+            or ring_cr + ring_bwd_cr != want_cc):
+        raise AssertionError("cora GCN CLI: auto did not train the ring "
+                             "with the a2a losses and exact launches")
+    spmm_tiles.mask_launches = 0                # the main path starts here
+    GatLayerSym.backward_launches = 0
+    losses_gcr, rep_gcr = run_train_cli(
+        cli + ["--model", "gat", "--comm-schedule", "auto"])
+    launches_gcr = spmm_tiles.mask_launches     # ... and ends here
+    bwd_gcr = GatLayerSym.backward_launches
+    log(f"  GAT: auto -> {rep_gcr['comm_schedule']} losses {losses_gcr}; "
+        f"phase 9's a2a {cli_losses}; K5 launches {launches_gcr} (backward "
+        f"{bwd_gcr}), expected {want_gtc}; epoch_s a2a "
+        f"{rep_gc['epoch_s']!r}, ring {rep_gcr['epoch_s']!r}")
+    if (rep_gcr["comm_schedule"] != "ragged" or losses_gcr != cli_losses
+            or launches_gcr != want_gtc or bwd_gcr != want_gtc // 2):
+        raise AssertionError("cora GAT CLI: auto did not train the ring "
+                             "with the a2a losses and exact launches")
+    # epoch_s of each transport, 3 runs each of 3 warm-up + 20 timed
+    # steps, in the order a2a, ring, ring, a2a, a2a, ring so that a drift
+    # of the shared host weighs on both alike
+    for model in ("gcn", "gat"):
+        runs = {"a2a": [], "ragged": []}
+        for sched in ("a2a", "ragged", "ragged", "a2a", "a2a", "ragged"):
+            runs[sched].append(run_train_cli(
+                cli_base + ["--epochs", "20", "--warmup", "3", "--model",
+                            model, "--comm-schedule", sched])[1]["epoch_s"])
+        med = {key: statistics.median(v) for key, v in runs.items()}
+        log(f"  cora {model.upper()} epoch_s, 3 + 20 steps per run: a2a "
+            f"{runs['a2a']!r}, ring {runs['ragged']!r}; medians a2a "
+            f"{med['a2a']!r}, ring {med['ragged']!r}, ring / a2a "
+            f"{med['ragged'] / med['a2a']:.3f}")
+
+    # ---------------------------------------------------------- phase 13
+    log("phase 13: K6 — the row shuffle kernel vs its plain version at "
+        "S = 2048, then the micro-benchmark (python -m "
+        "sgcn_tpu_torch.tools.spmm_micro) at its defaults")
+    from sgcn_tpu_torch.ops.row_shuffle import row_shuffle, row_shuffle_plain
+    from sgcn_tpu_torch.tools.spmm_micro import main as micro_main
+
+    s_k6 = 2048
+    k6_err = 0.0
+    for f in (1, 41, 128):
+        chunk = torch.as_tensor(rng.standard_normal((s_k6, f)).astype(
+            np.float32)).to(dev)
+        gidx = torch.as_tensor(rng.integers(0, s_k6, (s_k6, 1)).astype(
+            np.int32)).to(dev)
+        one, two = row_shuffle(chunk, gidx), row_shuffle(chunk, gidx)
+        plain = row_shuffle_plain(chunk, gidx)
+        torch.cuda.synchronize()
+        diff = float((one - plain).abs().max())
+        log(f"  row_shuffle f={f}: max |kernel - plain| = {diff!r} "
+            f"(relaunch identical: {torch.equal(one, two)})")
+        if not (torch.equal(one, two) and torch.equal(one, plain)):
+            raise AssertionError(f"row_shuffle f={f}: kernel != plain")
+        k6_err = max(k6_err, diff)
+    row_shuffle.launches = 0                    # the main path starts here
+    micro = micro_main([])
+    launches_k6 = row_shuffle.launches          # ... and ends here
+    if launches_k6 == 0:
+        raise AssertionError("spmm_micro launched no row_shuffle kernel")
+    log("  this card's ceilings (spmm_micro): " + "; ".join(
+        f"{p_['name']} {p_.get('gbps', p_.get('tflops'))!r} "
+        f"{'GB/s' if 'gbps' in p_ else 'TFLOP/s'}"
+        for p_ in micro["spmm_micro"]))
+    # at this size a call is shorter than the host's launch of it, so
+    # CUDA events around back-to-back calls time the host; the device's
+    # own time per call comes from the profiler (kernels and copies only)
+    idx_l = gidx.long().expand(s_k6, 128)
+    calls = {"ms": lambda: row_shuffle(chunk, gidx),
+             "plain_ms": lambda: row_shuffle_plain(chunk, gidx),
+             "library_ms": lambda: torch.take_along_dim(chunk, idx_l, dim=0)}
+    k6 = {key: device_busy(fn, reps=100)[1] / 100
+          for key, fn in calls.items()}
+    if not all(v > 0 for v in k6.values()):
+        raise AssertionError(f"the profiler saw no device time: {k6}")
+    k6["bound_ms"] = k6_bound_ms(gidx, 128)
+    events = {key: cuda_ms(fn) for key, fn in calls.items()}
+    log(f"  row_shuffle S={s_k6} f=128, device time per call "
+        f"(torch.profiler, 100 calls): kernel {k6['ms']!r} ms, plain "
+        f"{k6['plain_ms']!r} ms, torch.take_along_dim "
+        f"{k6['library_ms']!r} ms; bound {k6['bound_ms']!r} ms by bytes; "
+        f"CUDA events per back-to-back call (host-bound): "
+        f"{json.dumps(events)}")
+
+    # ---------------------------------------------------------- phase 14
     kernels = [{
         "name": "tile_spmm",
         "route": "cuda",
         "source": "sgcn_tpu_torch/csrc/tile_spmm.cu",
         "replaces": "sgcn_tpu/ops/pallas_spmm.py:203",
-        "launches": launches_c + launches_f + launches_tc + launches_tf,
-        "max_abs_err": max(max_err, grad_err),
+        "launches": (launches_c + launches_f + launches_tc + launches_tf
+                     + launches_fr + launches_rt + launches_ca
+                     + launches_cr),
+        "max_abs_err": max(max_err, grad_err, k4_err, k4b_err),
         "ms": layer["ms"],
         "kernel_ms": layer["ms"],
         "plain_ms": layer["plain_ms"],
@@ -1261,8 +1662,9 @@ def main() -> int:
         "route": "cuda",
         "source": "sgcn_tpu_torch/csrc/tile_spmm.cu",
         "replaces": "sgcn_tpu/ops/pallas_spmm.py:530-545",
-        "launches": launches_gc + launches_gf + launches_gt + launches_gtc,
-        "max_abs_err": max(k5_err, err_f, err_b),
+        "launches": (launches_gc + launches_gf + launches_gt + launches_gtc
+                     + launches_gfr + launches_grt + launches_gcr),
+        "max_abs_err": max(k5_err, err_f, err_b, k5r_err),
         "ms": gat_fwd["ms"],
         "plain_ms": gat_fwd["plain_ms"],
         "bound_ms": gat_fwd["bound_ms"],
@@ -1273,13 +1675,49 @@ def main() -> int:
         "route": "cuda",
         "source": "sgcn_tpu_torch/csrc/tile_spmm.cu",
         "replaces": "sgcn_tpu/models/gat.py:637-687",
-        "launches": bwd_gt + bwd_gtc,
-        "max_abs_err": err_b,
+        "launches": bwd_gt + bwd_gtc + bwd_grt + bwd_gcr,
+        "max_abs_err": max(err_b, k5r_err),
         "ms": gat_bwd["ms"],
         "plain_ms": gat_bwd["plain_ms"],
         "bound_ms": gat_bwd["bound_ms"],
         "bound_by": gat_bwd["bound_by"],
         "library_ms": gat_bwd["library_ms"],
+    }, {
+        "name": "pspmm_tiles_ragged",
+        "route": "cuda",
+        "source": "sgcn_tpu_torch/csrc/tile_spmm.cu",
+        "replaces": "sgcn_tpu/ops/pallas_spmm.py:469-527",
+        "launches": launches_fr + ring_rt + ring_cr,
+        "max_abs_err": k4_err,
+        "ms": k4["ms"],
+        "plain_ms": k4["plain_ms"],
+        "bound_ms": k4["bound_ms"],
+        "bound_by": t_ring["bound_by"],
+        "library_ms": k4["library_ms"],
+    }, {
+        "name": "pspmm_tiles_ragged_backward",
+        "route": "cuda",
+        "source": "sgcn_tpu_torch/csrc/tile_spmm.cu",
+        "replaces": "sgcn_tpu/ops/pallas_spmm.py:517-523",
+        "launches": ring_bwd_rt + ring_bwd_cr,
+        "max_abs_err": k4b_err,
+        "ms": k4b["ms"],
+        "plain_ms": k4b["plain_ms"],
+        "bound_ms": k4b["bound_ms"],
+        "bound_by": rb_ring["bound_by"],
+        "library_ms": k4b["library_ms"],
+    }, {
+        "name": "row_shuffle",
+        "route": "cuda",
+        "source": "sgcn_tpu_torch/csrc/row_shuffle.cu",
+        "replaces": "scripts/spmm_micro.py:163",
+        "launches": launches_k6,
+        "max_abs_err": k6_err,
+        "ms": k6["ms"],
+        "plain_ms": k6["plain_ms"],
+        "bound_ms": k6["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": k6["library_ms"],
     }]
     log(f"total {time.perf_counter() - t_start:.1f} s; card: {smi}")
     log(json.dumps({"kernels": kernels}))

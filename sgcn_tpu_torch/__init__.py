@@ -11,13 +11,18 @@ read graph, normalize Â, read the partition, ``build_comm_plan``, then per
 layer halo exchange → tile SpMM (a hand-written CUDA kernel for ``sm_90a``,
 ``csrc/tile_spmm.cu``) → dense projection → activation, and query routing
 — and the exact full-batch *trainer* on that forward, whose aggregation
-backward runs the same kernel on the gradient (Â is symmetric).
+backward runs the same kernel on the gradient (Â is symmetric); GCN and
+GAT (the attention pass on the kernel's int8-mask entry point), over the
+dense a2a exchange or the ragged ring (``--comm-schedule``).
 All ``k`` parts run stacked along a leading axis in one process on one
-device (``ops/pspmm.py::halo_exchange`` is the one place that knows).
+device (``ops/pspmm.py::halo_exchange`` and ``ring_concat`` are the one
+place that knows).
 
 Entry points run on ``cuda`` unless the caller asks for ``device="cpu"``;
 without a GPU they raise instead of falling back.  CLI:
-``python -m sgcn_tpu_torch.serve`` and ``python -m sgcn_tpu_torch.train``.
+``python -m sgcn_tpu_torch.serve``, ``python -m sgcn_tpu_torch.train`` and
+the micro-benchmark ``python -m sgcn_tpu_torch.tools.spmm_micro`` (its
+row-shuffle probe is a CUDA kernel too, ``csrc/row_shuffle.cu``).
 """
 
 __version__ = "0.1.0"

@@ -24,9 +24,11 @@ each of the reference's per-chip weight-gradient psums is a sum over the
 ``{w (fin, fout), a1 (fout,), a2 (fout,)}`` — so ``params_from_jax``
 carries the JAX package's params across unchanged.
 
-Not ported: the packed bf16 table form (ROADMAP A6), the asymmetric
-``gat_layer_local`` (A2), the ragged ring (A4) and the sub-graph
-stabilizers (A11).
+Both transports: the dense a2a exchange and the ragged ring
+(``comm_schedule='ragged'``: the tables ride ``ops/pspmm.py::
+ring_concat`` and the pass reads ``[local ‖ ring concat]``), bit for bit
+the same.  Not ported: the packed bf16 table form (ROADMAP A6), the
+asymmetric ``gat_layer_local`` (A2) and the sub-graph stabilizers (A11).
 """
 
 from __future__ import annotations
@@ -37,7 +39,7 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..ops.pspmm import halo_exchange
+from ..ops.pspmm import halo_exchange, ring_concat
 from ..ops.tile_spmm import gat_tiles_pass, spmm_tiles
 from .activations import get_activation
 
@@ -45,6 +47,10 @@ from .activations import get_activation
 # GAT_PLAN_FIELDS_PALLAS, same names); ptile_cw ships as int8
 GAT_PLAN_FIELDS_PALLAS = ("send_idx", "halo_src", "ptile_csrc", "ptile_cld",
                           "ptile_cw", "row_valid")
+# ... and its ragged flavor's: the ring's send rows, the combined tiles'
+# sources re-based to [local ‖ ring concat] (no halo table, no rhalo_dst)
+GAT_PLAN_FIELDS_PALLAS_RAGGED = ("rsend_idx", "ptile_crsrc", "ptile_cld",
+                                 "ptile_cw", "row_valid")
 
 # Widest row of the fused one-pass table form.  Structural default
 # MEASURED ON THE TPU (v5e: one 128-lane tile; a 129-lane f32 array doubles
@@ -149,28 +155,43 @@ def edge_softmax(scores, edge_mask, edge_dst, num_rows: int):
 
 
 def _gat_tiles_aggregate(p, s, form, send_idx, halo_src, csrc, cld, cw,
-                         tb, cclasses):
-    """Masked Σ over every row's in-edges of ``[p ‖ s]`` — the a2a half of
-    the reference's ``_gat_pallas_aggregate``.  ``p``: ``(k, b, fout)``,
-    ``s``: ``(k, b)``.  ``form='fused'`` exchanges one ``(k, b, fout+1)``
-    table and runs ONE kernel pass whose last lane is the scalar sum;
-    ``'split'`` exchanges the feature rows and the scalar separately (the
-    scalar in its own ``(k, S)`` buffer) and runs two passes, the second
-    at width 1.  Every kernel column is summed on its own in stored edge
-    order, so the two forms give the same bits.  Returns
-    ``(N (k, b, fout), D (k, b))``."""
+                         tb, cclasses, rr_sizes=None):
+    """Masked Σ over every row's in-edges of ``[p ‖ s]`` — the reference's
+    ``_gat_pallas_aggregate``.  ``p``: ``(k, b, fout)``, ``s``: ``(k, b)``.
+    ``form='fused'`` exchanges one ``(k, b, fout+1)`` table and runs ONE
+    kernel pass whose last lane is the scalar sum; ``'split'`` exchanges
+    the feature rows and the scalar separately (the scalar in its own
+    ``(k, S)`` buffer) and runs two passes, the second at width 1.  Every
+    kernel column is summed on its own in stored edge order, so the two
+    forms give the same bits.
+
+    ``rr_sizes`` given selects the ragged ring: ``send_idx`` is then the
+    ring's ``rsend_idx``, ``halo_src`` is unused and ``csrc`` the
+    ring-re-based ``ptile_crsrc``; the pass reads ``[local ‖ ring
+    concat]``.  The split form ships ONE ring of ``[p ‖ s]`` (the
+    reference's two-lane ring) and cuts it into the two tables with a
+    ``cat``, which also makes the kernel's tables row-major.  Same bits as
+    the a2a flavor.  Returns ``(N (k, b, fout), D (k, b))``."""
     b, fout = p.shape[1], p.shape[2]
+    ragged = rr_sizes is not None
     if form == "fused":
         table = torch.cat([p, s[..., None]], dim=-1)
-        halo = halo_exchange(table, send_idx, halo_src)
+        halo = (ring_concat(table, send_idx, rr_sizes) if ragged
+                else halo_exchange(table, send_idx, halo_src))
         full = torch.cat([table, halo], dim=1)       # (k, B+R, fout+1)
         out = gat_tiles_pass(csrc, cld, cw, full, cclasses, tb, b)
         return out[..., :fout], out[..., fout]
     if form != "split":
         raise ValueError(f"the tile GAT pass takes the fused/split table "
                          f"forms, not {form!r}")
-    full_p = torch.cat([p, halo_exchange(p, send_idx, halo_src)], dim=1)
-    full_u = torch.cat([s, halo_exchange(s, send_idx, halo_src)], dim=1)
+    if ragged:
+        ring = ring_concat(torch.cat([p, s[..., None]], dim=-1), send_idx,
+                           rr_sizes)
+        full_p = torch.cat([p, ring[..., :fout]], dim=1)
+        full_u = torch.cat([s, ring[..., fout]], dim=1)
+    else:
+        full_p = torch.cat([p, halo_exchange(p, send_idx, halo_src)], dim=1)
+        full_u = torch.cat([s, halo_exchange(s, send_idx, halo_src)], dim=1)
     num = gat_tiles_pass(csrc, cld, cw, full_p, cclasses, tb, b)
     den = gat_tiles_pass(csrc, cld, cw, full_u[..., None], cclasses, tb,
                          b)[..., 0]
@@ -178,11 +199,13 @@ def _gat_tiles_aggregate(p, s, form, send_idx, halo_src, csrc, cld, cw,
 
 
 def _gat_factored_fwd_core(w, a2, h, send_idx, halo_src, csrc, cld, cw,
-                           row_valid, tb, cclasses, form=None):
+                           row_valid, tb, cclasses, form=None,
+                           rr_sizes=None):
     """The factored layer over stacked parts: returns
     ``(out, z, u, den, cg)``.  ``cg`` is the max of ``z2`` over every
     part's real rows (the reference's ``pmax``, pad rows excluded),
-    without gradient: ``out`` is exactly invariant to it."""
+    without gradient: ``out`` is exactly invariant to it.  ``rr_sizes``
+    selects the ragged ring (``_gat_tiles_aggregate``)."""
     z = h @ w
     z2 = score_project(z, a2)
     z2m = torch.where(row_valid > 0, z2.detach(),
@@ -192,7 +215,8 @@ def _gat_factored_fwd_core(w, a2, h, send_idx, halo_src, csrc, cld, cw,
     if form is None:
         form = gat_table_form(z.shape[-1])
     num, den = _gat_tiles_aggregate(u[..., None] * z, u, form, send_idx,
-                                    halo_src, csrc, cld, cw, tb, cclasses)
+                                    halo_src, csrc, cld, cw, tb, cclasses,
+                                    rr_sizes)
     # max(den, tiny): u > 0 on every real edge, so this stays exact until
     # genuine f32 underflow; the reference's guard, kept as it is
     out = num / torch.clamp(den, min=1e-30)[..., None]
@@ -209,6 +233,10 @@ class GatLayerSym(torch.autograd.Function):
     pattern's aggregation is the aggregation).  ``∂L/∂a1`` is exactly 0;
     the weight gradients sum over the ``k`` parts (the reference's psum).
 
+    ``rr_sizes`` given selects the ragged ring in both directions
+    (``send_idx`` is then ``rsend_idx``, ``halo_src`` is ``None`` and
+    ``csrc`` is ``ptile_crsrc``).
+
     ``GatLayerSym.backward_launches`` counts the kernel launches the
     backward made (CUDA tensors only)."""
 
@@ -216,22 +244,22 @@ class GatLayerSym(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, w, a1, a2, h, send_idx, halo_src, csrc, cld, cw,
-                row_valid, tb, cclasses, form=None):
+                row_valid, tb, cclasses, form=None, rr_sizes=None):
         if form is None:
             form = gat_table_form(w.shape[1])
         out, _z, _u, den, cg = _gat_factored_fwd_core(
             w, a2, h, send_idx, halo_src, csrc, cld, cw, row_valid, tb,
-            cclasses, form)
+            cclasses, form, rr_sizes)
         ctx.save_for_backward(w, a1, a2, h, cg, den, out, send_idx,
                               halo_src, csrc, cld, cw)
-        ctx.static = (tb, cclasses, form)
+        ctx.static = (tb, cclasses, form, rr_sizes)
         return out
 
     @staticmethod
     def backward(ctx, gbar):
         (w, a1, a2, h, cg, den, out, send_idx, halo_src, csrc, cld,
          cw) = ctx.saved_tensors
-        tb, cclasses, form = ctx.static
+        tb, cclasses, form, rr_sizes = ctx.static
         before = spmm_tiles.mask_launches
         z = h @ w                                    # recomputed
         fin, fout = w.shape
@@ -240,7 +268,8 @@ class GatLayerSym(torch.autograd.Function):
         dn = gbar / dng[..., None]                   # (k, b, fout)
         dd = -(gbar * out).sum(dim=-1) / dng         # (k, b)
         dp, du_agg = _gat_tiles_aggregate(dn, dd, form, send_idx, halo_src,
-                                          csrc, cld, cw, tb, cclasses)
+                                          csrc, cld, cw, tb, cclasses,
+                                          rr_sizes)
         # p = u·z, u = exp(z2 − C): chain rules (C is constant a.e.)
         dz2 = u * ((dp * z).sum(dim=-1) + du_agg)
         dz_total = u[..., None] * dp + dz2[..., None] * a2
@@ -248,36 +277,51 @@ class GatLayerSym(torch.autograd.Function):
         dw = h.reshape(-1, fin).T @ dz_total.reshape(-1, fout)
         da2 = z.reshape(-1, fout).T @ dz2.reshape(-1)
         GatLayerSym.backward_launches += spmm_tiles.mask_launches - before
-        return (dw, torch.zeros_like(a1), da2, dh) + (None,) * 9
+        return (dw, torch.zeros_like(a1), da2, dh) + (None,) * 10
 
 
 def gat_forward_local(
     params,
     h,                              # (k, B, f_in) stacked local rows
-    pa,                             # plan tensors (GAT_PLAN_FIELDS_PALLAS)
+    pa,                             # plan tensors (GAT_PLAN_FIELDS_PALLAS,
+                                    # or GAT_PLAN_FIELDS_PALLAS_RAGGED)
     activation: str = "none",
     final_activation: str = "none",
     symmetric: bool = True,         # the custom backward needs Â's pattern
                                     # symmetric
     pallas_tb: int = 256,           # static tile height
     pallas_cclasses: tuple = (),    # static combined tile classes
+    comm_schedule: str = "a2a",     # static: 'a2a' or 'ragged' (the ring)
+    rr_sizes: tuple | None = None,  # static plan.rr_sizes (ragged)
 ):
     """Stacked forward: L × (``GatLayerSym`` → activation) →
     ``(k, B, nout)``.  The reference stacks bare PGAT layers (no
-    inter-layer activation by default)."""
+    inter-layer activation by default).  Under ``comm_schedule='ragged'``
+    both directions of every layer ride the ring, bit-identical to the
+    a2a flavor."""
     if not symmetric:
         raise NotImplementedError(
             "gat_layer_local (asymmetric edge patterns, autodiff through "
             "the forward) is not ported yet (ROADMAP item A2); the tile "
             "GAT pass rides the symmetric custom backward")
+    if comm_schedule == "ragged":
+        if rr_sizes is None:
+            raise ValueError("the ragged GAT forward needs the plan's "
+                             "static rr_sizes (CommPlan.ensure_ragged)")
+        ex = (pa["rsend_idx"], None, pa["ptile_crsrc"])
+    elif comm_schedule == "a2a":
+        ex, rr_sizes = (pa["send_idx"], pa["halo_src"], pa["ptile_csrc"]), None
+    else:
+        raise ValueError(f"unknown comm_schedule {comm_schedule!r} (the "
+                         "trainer resolves 'auto' before the forward)")
     act = get_activation(activation)
     fact = get_activation(final_activation)
     nl = len(params)
     for i, p in enumerate(params):
         h = GatLayerSym.apply(
-            p["w"], p["a1"], p["a2"], h, pa["send_idx"], pa["halo_src"],
-            pa["ptile_csrc"], pa["ptile_cld"], pa["ptile_cw"],
-            pa["row_valid"], pallas_tb, pallas_cclasses)
+            p["w"], p["a1"], p["a2"], h, *ex, pa["ptile_cld"],
+            pa["ptile_cw"], pa["row_valid"], pallas_tb, pallas_cclasses,
+            None, rr_sizes)
         h = fact(h) if i == nl - 1 else act(h)
     return h
 

@@ -1,10 +1,11 @@
 """Partitioned GCN: per-layer stack over the tile-SpMM aggregator, and its
 losses.
 
-Port of the a2a tile-kernel branch of ``sgcn_tpu/models/gcn.py``
-(``gcn_forward_local``), run over all ``k`` parts stacked on a leading
-axis: per layer, halo exchange → tile SpMM → dense projection →
-activation, with the reference's project-first layer order.  Weights keep
+Port of the tile-kernel branches of ``sgcn_tpu/models/gcn.py``
+(``gcn_forward_local``, over the dense a2a exchange or the ragged ring),
+run over all ``k`` parts stacked on a leading axis: per layer, halo
+exchange → tile SpMM → dense projection → activation, with the
+reference's project-first layer order.  Weights keep
 the reference's layout, ``(fin, fout)`` with ``h @ w``, so
 ``params_from_jax`` carries the JAX package's weights across unchanged.
 
@@ -22,7 +23,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.tile_spmm import pspmm_tiles_sym
+from ..ops.tile_spmm import pspmm_tiles_ragged, pspmm_tiles_sym
 from .activations import get_activation
 
 # Minimum input width (f32 elements) for the project-before-aggregate
@@ -75,27 +76,48 @@ def weight_tensors(params, device="cpu"):
 def gcn_forward_local(
     params,
     h,                              # (k, B, f_in) stacked local rows
-    pa,                             # plan tensors (TILE_PLAN_FIELDS)
+    pa,                             # plan tensors (TILE_PLAN_FIELDS, or
+                                    # TILE_PLAN_FIELDS_RAGGED)
     activation: str = "relu",
     final_activation: str = "none",
     pallas_tb: int = 256,           # static tile height
     pallas_lclasses: tuple = (),    # static local tile classes
     pallas_hclasses: tuple = (),    # static halo tile classes
+    comm_schedule: str = "a2a",     # static: 'a2a' (dense exchange) or
+                                    # 'ragged' (the ring)
+    rr_sizes: tuple | None = None,  # static plan.rr_sizes (ragged)
 ):
     """Stacked forward: L × (tile pspmm ⊗ dense matmul → activation) →
     ``(k, B, nout)``.  A wide input narrowed by the layer is projected
     first (``(Â·H)·W = Â·(H·W)``), so the exchange and the SpMM touch the
-    narrower rows — the reference's rule and threshold."""
+    narrower rows — the reference's rule and threshold.  Under
+    ``comm_schedule='ragged'`` each aggregation rides the ring
+    (``pspmm_tiles_ragged``), bit-identical to the a2a flavor."""
     act = get_activation(activation)
     fact = get_activation(final_activation)
     nl = len(params)
 
-    def agg(x):
-        return pspmm_tiles_sym(
-            x, pa["send_idx"], pa["halo_src"],
-            pa["ptile_lsrc"], pa["ptile_lld"], pa["ptile_lw"],
-            pa["ptile_hsrc"], pa["ptile_hld"], pa["ptile_hw"],
-            pallas_tb, pallas_lclasses, pallas_hclasses)
+    if comm_schedule == "ragged":
+        if rr_sizes is None:
+            raise ValueError("the ragged GCN forward needs the plan's "
+                             "static rr_sizes (CommPlan.ensure_ragged)")
+
+        def agg(x):
+            return pspmm_tiles_ragged(
+                x, pa["rsend_idx"],
+                pa["ptile_lsrc"], pa["ptile_lld"], pa["ptile_lw"],
+                pa["ptile_hrsrc"], pa["ptile_hld"], pa["ptile_hw"],
+                pallas_tb, pallas_lclasses, pallas_hclasses, rr_sizes)
+    elif comm_schedule == "a2a":
+        def agg(x):
+            return pspmm_tiles_sym(
+                x, pa["send_idx"], pa["halo_src"],
+                pa["ptile_lsrc"], pa["ptile_lld"], pa["ptile_lw"],
+                pa["ptile_hsrc"], pa["ptile_hld"], pa["ptile_hw"],
+                pallas_tb, pallas_lclasses, pallas_hclasses)
+    else:
+        raise ValueError(f"unknown comm_schedule {comm_schedule!r} (the "
+                         "trainer resolves 'auto' before the forward)")
 
     for i, w in enumerate(params):
         if w.shape[1] < h.shape[-1] and h.shape[-1] >= PROJECT_FIRST_MIN_FIN:

@@ -22,7 +22,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "sgcn_tpu_torch"
-SOURCES = {"tile_spmm": "tile_spmm.cu"}
+SOURCES = {"tile_spmm": "tile_spmm.cu", "row_shuffle": "row_shuffle.cu"}
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 

@@ -1,14 +1,18 @@
-"""Halo exchange over stacked parts (port of
-``sgcn_tpu/ops/pspmm.py::halo_exchange``).
+"""Halo exchange and the ragged ring over stacked parts (port of
+``sgcn_tpu/ops/pspmm.py::halo_exchange``, ``ragged_live_rounds`` and
+``sgcn_tpu/ops/pallas_spmm.py::pallas_ring_concat``).
 
 Rank layout of this port: all ``k`` parts run stacked along a leading axis
 in one process on one device (NCCL refuses two ranks on one GPU).  The
 reference's per-chip ``lax.all_to_all(split_axis=0, concat_axis=0)`` of the
 ``(k, S, f)`` send buffer is, over the stacked ``(k, k, S, f)`` buffer,
 exactly ``recv[q, p] = send[p, q]`` — a transpose of the first two axes
-(the identity for ``k = 1``).  This function is the one place that knows
-the layout: a multi-GPU slice swaps the transpose for
-``torch.distributed.all_to_all_single`` and nothing else changes.
+(the identity for ``k = 1``).  Its ``lax.ppermute`` of ring round ``d``
+(part ``p`` sends to ``(p+d) mod k``) is a roll of the stacked round
+buffer by ``d`` parts.  ``halo_exchange`` and ``ring_concat`` are the one
+place that knows the layout: a multi-GPU slice swaps the transpose for
+``torch.distributed.all_to_all_single`` and the roll for
+``batch_isend_irecv``, and nothing else changes.
 """
 
 from __future__ import annotations
@@ -37,3 +41,45 @@ def halo_exchange(h, send_idx, halo_src):
     send = h[parts[:, None, None], send_idx.long()]        # (k, k, S, ...)
     recv = send.transpose(0, 1).reshape(k, -1, *h.shape[2:])  # recv[q, p·S+t]
     return recv[parts[:, None], halo_src.long()]           # (k, R, ...)
+
+
+def ragged_live_rounds(rr_sizes) -> tuple:
+    """Ring distances ``d`` (1-based) of the rounds with ``S_d > 0``: the
+    rounds that run.  A round of size 0 ships nothing and has no slot in
+    the receive concat."""
+    return tuple(d for d, sd in enumerate(rr_sizes, start=1) if sd > 0)
+
+
+def ring_concat(h, rsend_idx, rr_sizes):
+    """The ragged ring's receive buffers, concatenated in round order —
+    the remote pass's table.
+
+    Per live round ``d`` (``ragged_live_rounds``) every part ``p`` gathers
+    its round slots ``h[p, rsend_idx[p, off:off+S_d]]`` and ships them to
+    ``(p+d) mod k``, so part ``q`` receives from ``(q−d) mod k``: over the
+    stacked parts that is ``torch.roll(·, shifts=d, dims=0)``.  Nothing is
+    scattered into an ``(R, f)`` halo table: the plan re-bases the halo
+    tile sources to positions in this concat (``ptile_hrsrc``,
+    ``ptile_crsrc``).
+
+    Args:
+      h: ``(k, B, f)`` local rows of all parts (any trailing shape).
+      rsend_idx: ``(k, ΣS_d)`` int — each part's send rows, round-major.
+      rr_sizes: the static round sizes ``(S_1, …, S_{k−1})``.
+
+    Returns ``(k, Σ_live S_d, f)``; an all-empty ring (k = 1, or no halo)
+    gives a ``(k, 1, f)`` zero table.
+    """
+    k = h.shape[0]
+    parts = torch.arange(k, device=h.device)[:, None]
+    segs = []
+    live = ragged_live_rounds(rr_sizes)
+    off = 0
+    for d, sd in enumerate(rr_sizes, start=1):
+        if d in live:
+            buf = h[parts, rsend_idx[:, off: off + sd].long()]  # (k, S_d, ...)
+            segs.append(torch.roll(buf, shifts=d, dims=0))      # q ← q−d
+        off += sd
+    if not segs:
+        return h.new_zeros((k, 1) + tuple(h.shape[2:]))
+    return segs[0] if len(segs) == 1 else torch.cat(segs, dim=1)

@@ -20,6 +20,11 @@ holds, in the reference's order:
     kernel over the local table, the kernel over the halo table,
     ``local + remote``; the backward is the same op on the gradient
     (Â is symmetric);
+  * ``pspmm_tiles_ragged`` — ``pspmm_pallas_ragged`` (K4) with its custom
+    VJP as ``PspmmTilesRagged``: the same op on the ragged ring, the
+    kernel over the local table and over the ring's receive concat
+    (``ops/pspmm.py::ring_concat``) through the ring-re-based halo tiles;
+    bit-identical to ``pspmm_tiles_sym`` (same tiles, same edge order);
   * ``gat_tiles_pass`` — ``gat_pallas_pass`` (K5): the GAT attention pass,
     the kernel over the combined-edge tiles with int8 0/1 mask weights.
     ``spmm_tiles`` launches the kernel's int8 entry point for an int8
@@ -43,7 +48,7 @@ import ctypes
 import numpy as np
 import torch
 
-from .pspmm import halo_exchange
+from .pspmm import halo_exchange, ring_concat
 
 
 # ----------------------------------------------------------- tile builders
@@ -285,6 +290,11 @@ TILE_KERNEL = "tile_spmm"
 # PALLAS_PLAN_FIELDS, same names)
 TILE_PLAN_FIELDS = ("send_idx", "halo_src", "ptile_lsrc", "ptile_lld",
                     "ptile_lw", "ptile_hsrc", "ptile_hld", "ptile_hw")
+# ... and the ragged flavor's (PALLAS_PLAN_FIELDS_RAGGED): the ring's send
+# rows replace the dense layout, the halo tiles read ring positions
+TILE_PLAN_FIELDS_RAGGED = ("rsend_idx", "ptile_lsrc", "ptile_lld",
+                           "ptile_lw", "ptile_hrsrc", "ptile_hld",
+                           "ptile_hw")
 
 
 def _classes_log(classes) -> list:
@@ -293,15 +303,17 @@ def _classes_log(classes) -> list:
 
 
 def choose_tile_dispatch(plan, tb: int = 256, decision: dict | None = None,
-                         model: str = "gcn") -> dict:
+                         model: str = "gcn", schedule: str = "a2a") -> dict:
     """Build the plan's tile-class layouts and assign the kernel per class
     — the counterpart of ``choose_pallas_dispatch``.  GCN gets the local
     and halo families (``pallas_lclasses``/``pallas_hclasses``), GAT the
-    combined-edge family (``pallas_cclasses``).  Returns the static
-    forward kwargs and fills ``decision['tile_dispatch']`` with the
-    per-class table.  Every class runs the CUDA kernel (on CPU tensors
-    its plain version): the reference's TPU-measured class rules are
-    recorded as not carried."""
+    combined-edge family (``pallas_cclasses``); ``schedule='ragged'``
+    also builds the ring layout and the ring-re-based halo sources
+    (``ptile_hrsrc``/``ptile_crsrc``) and adds the ring's static
+    ``comm_schedule``/``rr_sizes`` to the returned forward kwargs.
+    Fills ``decision['tile_dispatch']`` with the per-class table.  Every
+    class runs the CUDA kernel (on CPU tensors its plain version): the
+    reference's TPU-measured class rules are recorded as not carried."""
     not_carried = {
         "vmem_budget": "pallas_spmm_fits 4 MiB is a TPU VMEM residency "
                        "rule; the CUDA kernel reads its table from HBM "
@@ -309,12 +321,20 @@ def choose_tile_dispatch(plan, tb: int = 256, decision: dict | None = None,
         "emax_cap": "pallas_emax_cap 8192 is a TPU serial-chain rule; no "
                     "H100 class rule is measured yet",
     }
-    log = {"model": model, "schedule": "a2a", "tb": tb,
+    if schedule not in ("a2a", "ragged"):
+        raise ValueError(f"unknown comm schedule {schedule!r} (resolve "
+                         "'auto' first: parallel/plan.py::"
+                         "resolve_comm_schedule)")
+    log = {"model": model, "schedule": schedule, "tb": tb,
            "rule": "every class runs the tile kernel",
            "not_carried": not_carried}
     out = {"pallas_tb": tb}
+    if schedule == "ragged":
+        plan.ensure_ragged()
     if model == "gat":
         plan.ensure_pallas_cell_tiles(tb)
+        if schedule == "ragged":
+            plan.ensure_pallas_cell_ragged_tiles()
         out["pallas_cclasses"] = tuple(
             (t, e, TILE_KERNEL) for t, e in plan.pallas_cclasses)
         not_carried["gat_memory"] = (
@@ -323,12 +343,18 @@ def choose_tile_dispatch(plan, tb: int = 256, decision: dict | None = None,
         log["combined"] = _classes_log(out["pallas_cclasses"])
     else:
         plan.ensure_pallas_tiles(tb)
+        if schedule == "ragged":
+            plan.ensure_pallas_ragged_tiles()
         out["pallas_lclasses"] = tuple(
             (t, e, TILE_KERNEL) for t, e in plan.pallas_lclasses)
         out["pallas_hclasses"] = tuple(
             (t, e, TILE_KERNEL) for t, e in plan.pallas_hclasses)
         log["local"] = _classes_log(out["pallas_lclasses"])
         log["halo"] = _classes_log(out["pallas_hclasses"])
+    if schedule == "ragged":
+        # both models thread the same static ring spec
+        out.update(comm_schedule="ragged", rr_sizes=plan.rr_sizes)
+        log["rr_sizes"] = list(plan.rr_sizes)
     if decision is not None:
         decision["tile_dispatch"] = log
     return out
@@ -386,6 +412,65 @@ def pspmm_tiles_sym(h, send_idx, halo_src, lsrc, lld, lw, hsrc, hld, hw,
     in ``h``: the backward re-runs the op on the gradient."""
     return PspmmTilesSym.apply(h, send_idx, halo_src, lsrc, lld, lw, hsrc,
                                hld, hw, tb, lclasses, hclasses)
+
+
+def _pspmm_tiles_ragged_once(h, rsend_idx, lsrc, lld, lw, rsrc, rld, rw,
+                             tb, lclasses, hclasses, rr_sizes):
+    """``_pspmm_pallas_ragged_once`` over stacked parts: the tile kernel
+    over the local table ``h`` and over the ring's receive concat (the
+    halo tiles' sources re-based to ring positions), then
+    ``local + remote`` sliced to the ``b`` owned rows."""
+    ring = ring_concat(h, rsend_idx, rr_sizes)
+    b = h.shape[1]
+    local = spmm_tiles_classes(lsrc, lld, lw, h, lclasses, tb)[:, :b]
+    # the a2a flavor's halo tiles in the a2a flavor's edge order, reading
+    # the same rows at their ring positions: the same bits
+    remote = spmm_tiles_classes(rsrc, rld, rw, ring, hclasses, tb)[:, :b]
+    return local + remote
+
+
+class PspmmTilesRagged(torch.autograd.Function):
+    """``pspmm_pallas_ragged`` with its custom VJP: ``PspmmTilesSym`` on
+    the ragged ring.  The backward is the same op on the gradient — the
+    gradient rides the same ring at the same round sizes (Â symmetric).
+    Bit-identical to ``PspmmTilesSym`` forward and backward.
+
+    ``PspmmTilesRagged.launches`` and ``.backward_launches`` count the
+    tile-kernel launches of the forward and the backward (CUDA tensors
+    only; the plain version on the CPU launches nothing)."""
+
+    launches = 0
+    backward_launches = 0
+
+    @staticmethod
+    def forward(ctx, h, rsend_idx, lsrc, lld, lw, rsrc, rld, rw, tb,
+                lclasses, hclasses, rr_sizes):
+        ctx.save_for_backward(rsend_idx, lsrc, lld, lw, rsrc, rld, rw)
+        ctx.static = (tb, lclasses, hclasses, rr_sizes)
+        before = spmm_tiles.launches
+        out = _pspmm_tiles_ragged_once(h, rsend_idx, lsrc, lld, lw, rsrc,
+                                       rld, rw, tb, lclasses, hclasses,
+                                       rr_sizes)
+        PspmmTilesRagged.launches += spmm_tiles.launches - before
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        before = spmm_tiles.launches
+        gh = _pspmm_tiles_ragged_once(g.contiguous(), *ctx.saved_tensors,
+                                      *ctx.static)
+        PspmmTilesRagged.backward_launches += spmm_tiles.launches - before
+        return (gh,) + (None,) * 11
+
+
+def pspmm_tiles_ragged(h, rsend_idx, lsrc, lld, lw, rsrc, rld, rw,
+                       tb: int, lclasses, hclasses, rr_sizes):
+    """``pspmm_pallas_ragged`` over stacked parts (``PspmmTilesRagged``).
+    ``h``: ``(k, b, f)`` float32; ``rsrc`` the ring-re-based halo tile
+    sources (``ptile_hrsrc``); returns ``(k, b, f)``.  Differentiable in
+    ``h``: the backward re-runs the op on the gradient."""
+    return PspmmTilesRagged.apply(h, rsend_idx, lsrc, lld, lw, rsrc, rld, rw,
+                                  tb, lclasses, hclasses, rr_sizes)
 
 
 def gat_tiles_pass(csrc, cld, cw, table, cclasses, tb: int, num_rows: int):

@@ -1,3 +1,3 @@
-from .plan import CommPlan, build_comm_plan
+from .plan import CommPlan, build_comm_plan, resolve_comm_schedule
 
-__all__ = ["CommPlan", "build_comm_plan"]
+__all__ = ["CommPlan", "build_comm_plan", "resolve_comm_schedule"]

@@ -23,10 +23,19 @@ array (``tests/test_torch_plan.py``):
   * ``ensure_cell`` lays the combined ``[local; halo]``-sourced edge list
     out as bucketed ELL plus a hub tail (``cell_*``/``ctail_*``), and
     ``ensure_pallas_cell_tiles`` regroups it into tiles with 0/1 mask
-    weights (``ptile_c*``) — the GAT attention passes' layout.
+    weights (``ptile_c*``) — the GAT attention passes' layout;
+  * ``ensure_ragged`` lays the exchange out as the ragged ring: round ``d``
+    carries part ``p`` → ``(p+d) mod k`` in a buffer sized to that round's
+    own largest send list (``rr_sizes``, ``rsend_idx``, ``rhalo_dst``), and
+    ``ensure_pallas_ragged_tiles``/``ensure_pallas_cell_ragged_tiles``
+    re-base the halo tile sources to positions in the ring's round-major
+    receive concat (``ptile_hrsrc``/``ptile_crsrc``);
+  * ``resolve_comm_schedule`` picks the transport (``a2a``, ``ragged`` or
+    ``auto``) by the reference's exact-mode rule.
 
-Ragged, replica and stale layouts are not ported yet.  Everything here is
-offline numpy.
+Not ported: the forced ring envelope and the per-round edge split
+(``rr_edge_sizes``, ``redge_*``), and the replica and stale layouts.
+Everything here is offline numpy.
 """
 
 from __future__ import annotations
@@ -35,6 +44,15 @@ from dataclasses import dataclass
 
 import numpy as np
 import scipy.sparse as sp
+
+# ``comm_schedule='auto'`` picks the ragged ring only when the dense a2a's
+# padding efficiency (Σ send_counts / (k²·S)) falls below this.  A
+# structural default MEASURED ON THE TPU, where it prices k−1 ppermutes
+# against one all_to_all; kept so the port resolves ``auto`` as the
+# reference does, and no H100 fact: on an H100 it picks the slower
+# transport for the flagship GCN and for cora 8-hp (PERF.md; ROADMAP
+# A16 replaces it).
+RAGGED_AUTO_EFFICIENCY = 0.5
 
 
 @dataclass
@@ -113,6 +131,7 @@ class CommPlan:
     ptile_hsrc: np.ndarray | None = None  # (k, ΣT_c·Emax_c) int32 halo rank
     ptile_hld: np.ndarray | None = None   # (k, ΣT_c·Emax_c) int32
     ptile_hw: np.ndarray | None = None    # (k, ΣT_c·Emax_c) float32
+    ptile_hrsrc: np.ndarray | None = None  # (k, ΣT_c·Emax_c) int32 RING pos
 
     # combined-edge layout (lazy, ``ensure_cell``; GAT): the full edge
     # list, src in [local; halo], as bucketed ELL over ``cell_buckets``
@@ -133,6 +152,18 @@ class CommPlan:
     ptile_csrc: np.ndarray | None = None   # (k, ·) int32 src in [0, B+R)
     ptile_cld: np.ndarray | None = None    # (k, ·) int32 local dst
     ptile_cw: np.ndarray | None = None     # (k, ·) float32 0/1 edge mask
+    ptile_crsrc: np.ndarray | None = None  # (k, ·) int32 src in [0, B+ΣS_d):
+    #                                        halo sources re-based to
+    #                                        B + ring position
+
+    # ragged ring layout (lazy, ``ensure_ragged``): round d (1-based)
+    # carries part p → (p+d) mod k in a buffer of S_d = max_p
+    # send_counts[p, (p+d) mod k] rows; the rounds' slots lie one after
+    # another along the trailing axis (round d's start at Σ_{d'<d} S_d')
+    rr_sizes: tuple | None = None          # (k-1,) static round sizes S_d
+    rsend_idx: np.ndarray | None = None    # (k, ΣS_d) int32 local rows sent
+    rhalo_dst: np.ndarray | None = None    # (k, ΣS_d) int32 halo rank per
+    #                                        receive slot (r = pad)
 
     def _pallas_family(self, dst, src, w, tb: int, class_tiles):
         """Stack one edge family's per-part tile classes into flat
@@ -175,6 +206,39 @@ class CommPlan:
          self.pallas_hclasses) = self._pallas_family(
             self.hedge_dst, self.hedge_src, self.hedge_w, tb, class_tiles)
         self.pallas_tb = tb
+        self.ptile_hrsrc = None            # ring re-base follows the layout
+        return self
+
+    def _ring_pos_of_rank(self) -> np.ndarray:
+        """(k, R+1) map halo rank → position in the ragged ring's
+        round-major receive concat (``rhalo_dst`` inverted; the extra slot
+        absorbs the pad rank R)."""
+        if self.rhalo_dst is None:
+            raise ValueError(
+                "ring positions need the ragged layout (ensure_ragged)")
+        st = self.rsend_idx.shape[1]
+        pos = np.zeros((self.k, self.r + 1), np.int64)
+        ar = np.arange(st)
+        for p in range(self.k):
+            pos[p, self.rhalo_dst[p]] = ar
+        return pos
+
+    def ensure_pallas_ragged_tiles(self) -> "CommPlan":
+        """Re-base the halo tile sources from halo ranks to ring positions
+        (``ptile_hrsrc``): the remote pass reads the ring's round-major
+        receive concat in place, with the a2a flavor's tiles and per-tile
+        edge order — the ragged == a2a bit-identity.  Needs
+        ``ensure_pallas_tiles`` and ``ensure_ragged``."""
+        if self.ptile_hrsrc is not None:
+            return self
+        if self.ptile_hsrc is None:
+            raise ValueError(
+                "ragged tiles need the tile layout first "
+                "(ensure_pallas_tiles)")
+        pos = self._ring_pos_of_rank()
+        self.ptile_hrsrc = np.stack([
+            pos[p][self.ptile_hsrc[p]] for p in range(self.k)
+        ]).astype(np.int32)
         return self
 
     def ensure_cell(self) -> "CommPlan":
@@ -205,17 +269,97 @@ class CommPlan:
          self.pallas_cclasses) = self._pallas_family(
             self.edge_dst, self.edge_src, mask, tb, class_tiles)
         self.pallas_ctb = tb
+        self.ptile_crsrc = None            # ring re-base follows the layout
         return self
 
-    def wire_rows_per_exchange(self, schedule: str = "a2a") -> int:
-        """Padded rows the dense a2a puts on the wire per exchange over all
-        parts: each ships its whole (k, S) buffer, k²·S rows in all."""
-        if schedule != "a2a":
+    def ensure_pallas_cell_ragged_tiles(self) -> "CommPlan":
+        """Combined-tile sources for the ragged ring (``ptile_crsrc``):
+        local sources stay, halo sources (≥ B) re-base to ``B +`` their
+        ring position, so the pass reads ``[local table ‖ ring concat]``.
+        Needs ``ensure_pallas_cell_tiles`` and ``ensure_ragged``."""
+        if self.ptile_crsrc is not None:
+            return self
+        if self.ptile_csrc is None:
             raise ValueError(
-                f"comm schedule {schedule!r} is not ported yet "
-                "(only the dense 'a2a' exchange is)")
+                "ragged cell tiles need the combined tile layout first "
+                "(ensure_pallas_cell_tiles)")
+        pos = self._ring_pos_of_rank()
+        out = []
+        for p in range(self.k):
+            src = self.ptile_csrc[p]
+            halo = src >= self.b
+            out.append(np.where(halo, self.b + pos[p][np.where(
+                halo, src - self.b, 0)], src))
+        self.ptile_crsrc = np.stack(out).astype(np.int32)
+        return self
+
+    # -------------------------------------------------------- ragged schedule
+    def ragged_round_sizes(self) -> tuple:
+        """Natural round sizes S_d = max_p send_counts[p, (p+d) mod k] for
+        d = 1..k−1: the ring's static buffer sizes."""
+        sc = np.asarray(self.send_counts)
+        k = sc.shape[0]
+        idx = np.arange(k)
+        return tuple(int(sc[idx, (idx + d) % k].max()) for d in range(1, k))
+
+    def ensure_ragged(self) -> "CommPlan":
+        """Build the ragged ring layout on first use: ``rr_sizes``, the
+        send rows ``rsend_idx`` (round d's slots of part p hold
+        ``send_idx[p, (p+d) mod k]``) and the receive map ``rhalo_dst``
+        (round d's slots of part q name the halo ranks of the rows owner
+        ``(q−d) mod k`` sends; pads name rank R).  The halo order is
+        (owner, vertex) and every send list is id-sorted, so a round's
+        rows arrive exactly as the owner's contiguous halo slice."""
+        if self.rr_sizes is not None:
+            return self
+        rr_sizes = self.ragged_round_sizes()
+        k, s, r = self.k, self.s, self.r
+        sc = np.asarray(self.send_counts)
+        owner_rank = np.asarray(self.halo_src) // s       # (k, R) owner per
+        st = max(1, sum(rr_sizes))                        # halo rank
+        rsend_idx = np.zeros((k, st), np.int32)
+        rhalo_dst = np.full((k, st), r, np.int32)         # r = dropped pad
+        off = 0
+        for d, sd in enumerate(rr_sizes, start=1):
+            for p in range(k):
+                cnt = int(sc[p, (p + d) % k])             # send side: p → p+d
+                rsend_idx[p, off: off + cnt] = self.send_idx[p, (p + d) % k,
+                                                             :cnt]
+                o = (p - d) % k                           # recv side: o → p
+                rc = int(sc[o, p])
+                if rc:
+                    hs = int(self.halo_counts[p])
+                    ranks = np.nonzero(owner_rank[p, :hs] == o)[0]
+                    if len(ranks) != rc:                  # plan invariant
+                        raise ValueError(
+                            f"halo sublist of owner {o} on part {p} has "
+                            f"{len(ranks)} rows, send list says {rc}")
+                    rhalo_dst[p, off: off + rc] = ranks.astype(np.int32)
+            off += sd
+        self.rr_sizes = rr_sizes
+        self.rsend_idx = rsend_idx
+        self.rhalo_dst = rhalo_dst
+        return self
+
+    def padding_efficiency(self) -> float:
+        """Σ send_counts / (k²·S): the share of the dense a2a's padded
+        wire rows that carry real boundary rows (``auto``'s gauge)."""
+        wire = self.wire_rows_per_exchange("a2a")
+        return float(self.send_counts.sum()) / wire if wire else 1.0
+
+    def wire_rows_per_exchange(self, schedule: str = "a2a") -> int:
+        """Padded rows the schedule puts on the wire per exchange over all
+        parts: the dense a2a ships each part's whole (k, S) buffer, k²·S
+        rows in all; the ragged ring ships Σ_d S_d rows per part,
+        k·Σ_d S_d in all."""
         rows, peers = np.asarray(self.send_counts).shape
-        return int(rows * peers * self.s)
+        if schedule == "a2a":
+            return int(rows * peers * self.s)
+        if schedule == "ragged":
+            sizes = (self.rr_sizes if self.rr_sizes is not None
+                     else self.ragged_round_sizes())
+            return int(rows * sum(sizes))
+        raise ValueError(f"unknown comm schedule {schedule!r}")
 
     # ------------------------------------------------------------------ stats
     def offwire_send_counts(self) -> np.ndarray:
@@ -487,6 +631,59 @@ def _check_symmetric(a: sp.spmatrix) -> bool:
         return True
     scale = max(float(np.abs(a.data).max()), 1e-30)
     return float(np.abs(a.data - at.data).max()) <= 1e-6 * scale
+
+
+def resolve_comm_schedule(schedule: str | None, plans, model: str,
+                          decision: dict | None = None) -> str:
+    """Resolve a ``comm_schedule`` knob to a transport, by the reference's
+    exact-mode rule (``halo_staleness=0``, no replicas: those levers are
+    not ported, ROADMAP A7).
+
+    ``None`` reads ``$SGCN_COMM_SCHEDULE`` (default ``'a2a'``).  An
+    explicit ``'a2a'``/``'ragged'`` resolves to itself (callers validate an
+    explicit ``'ragged'`` themselves).  ``'auto'`` picks ``'ragged'`` only
+    when every plan supports the ring (symmetric, k > 1) and the dense
+    a2a's padding efficiency — true rows over wire rows, summed over the
+    plans — falls below ``RAGGED_AUTO_EFFICIENCY``; else ``'a2a'``.
+    Every exchange of a plan ships the same row set at every lane width,
+    so the byte ratio is the row ratio for both models.
+
+    ``decision`` (a dict, filled in place): the inputs and the rule that
+    fired, under the reference's keys."""
+    import os
+    log = decision if decision is not None else {}
+    asked = schedule
+    if schedule is None:
+        schedule = os.environ.get("SGCN_COMM_SCHEDULE", "a2a")
+        asked = f"${{SGCN_COMM_SCHEDULE}}={schedule}"
+    if schedule not in ("a2a", "ragged", "auto"):
+        raise ValueError(
+            f"comm_schedule must be 'a2a', 'ragged' or 'auto', got "
+            f"{schedule!r}")
+    log.update(asked=asked, model=model)
+
+    def resolved(value: str, rule: str) -> str:
+        log.update(resolved=value, rule=rule)
+        return value
+
+    if schedule != "auto":
+        return resolved(schedule, "explicit")
+    true = wire = wire_ragged = 0
+    for p in plans:
+        sc = np.asarray(p.send_counts)
+        if not (p.symmetric and sc.shape[1] > 1):
+            return resolved("a2a", "plan does not support the ragged ring "
+                                   "(asymmetric, sliced, or k == 1)")
+        true += int(sc.sum())
+        wire += p.wire_rows_per_exchange("a2a")
+        wire_ragged += p.wire_rows_per_exchange("ragged")
+    log.update(true_rows=true, wire_rows_a2a=wire,
+               wire_rows_ragged=wire_ragged,
+               padding_efficiency=(true / wire if wire else 1.0),
+               threshold=RAGGED_AUTO_EFFICIENCY)
+    if not wire or true / wire >= RAGGED_AUTO_EFFICIENCY:
+        return resolved("a2a", "padding efficiency at/above threshold")
+    return resolved("ragged", "padding efficiency below threshold")
 
 
 def build_comm_plan(

@@ -8,10 +8,11 @@ partitioned GCN or GAT (``--model gat``) with random weights.
 
 Same flag names as ``python -m sgcn_tpu.serve`` for the subset ported
 here, plus ``--device {cuda,cpu}`` (default cuda; without a GPU the run
-fails unless ``--device cpu`` is given).  Flags whose feature is not
-ported are not defined (checkpoints, the ragged schedule, bf16 wire,
-sub-graph mode, concurrent dispatch, metrics, memory budget, shedding,
-checkpoint watching).  Prints ONE JSON line: achieved QPS, p50/p95/p99
+fails unless ``--device cpu`` is given).  ``--comm-schedule
+{a2a,ragged,auto}`` picks the halo transport (default
+``$SGCN_COMM_SCHEDULE``, else a2a).  Flags whose feature is not ported
+are not defined (checkpoints, bf16 wire, sub-graph mode, concurrent
+dispatch, metrics, memory budget, shedding, checkpoint watching).  Prints ONE JSON line: achieved QPS, p50/p95/p99
 latency and the batching/wire gauges, under the reference's keys.
 """
 
@@ -60,6 +61,13 @@ def main(argv=None) -> None:
     p.add_argument("--query-skew", type=float, default=0.0,
                    help="Zipf exponent of the synthetic query distribution "
                         "(0 = uniform)")
+    p.add_argument("--comm-schedule", default=None,
+                   choices=["a2a", "ragged", "auto"],
+                   help="halo transport: a2a = dense padded exchange "
+                        "(default), ragged = per-round-sized ring (same "
+                        "bits, fewer wire rows on skewed partitions), auto "
+                        "= ragged when the a2a's padding efficiency is "
+                        "below 0.5; unset reads $SGCN_COMM_SCHEDULE")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="where the forward runs (default cuda; no CPU "
@@ -120,7 +128,7 @@ def main(argv=None) -> None:
 
     engine = ServeEngine(
         plan, fin=f, widths=widths, model=args.model,
-        max_batch=args.max_batch,
+        comm_schedule=args.comm_schedule, max_batch=args.max_batch,
         buckets=buckets, latency_budget_ms=args.latency_budget_ms,
         seed=args.seed, device=device)
     engine.set_features(feats)

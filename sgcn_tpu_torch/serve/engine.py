@@ -1,5 +1,6 @@
 """Partitioned inference engine, full-forward mode (port of
-``sgcn_tpu/serve/engine.py``, ``mode='full'``, GCN or GAT, a2a, float32).
+``sgcn_tpu/serve/engine.py``, ``mode='full'``, GCN or GAT, float32, over
+the dense a2a exchange or the ragged ring).
 
 Each micro-batch runs the whole partitioned forward over the ``k`` parts
 stacked on one device — halo exchange, tile SpMM, projection, activation
@@ -76,8 +77,9 @@ class ServeEngine:
         package's — or tensors; ``None`` draws the model's init from a
         ``torch.Generator`` seeded with ``seed``.  ``device``: ``None``
         means ``cuda`` and raises without a GPU; pass ``"cpu"`` to run on
-        the CPU.  A ``comm_schedule`` other than a2a raises "not ported
-        yet"."""
+        the CPU.  ``comm_schedule``: ``'a2a'``, ``'ragged'``, ``'auto'``
+        or ``None`` (``$SGCN_COMM_SCHEDULE``), resolved as the trainer
+        resolves it (``resolve_forward_setup``)."""
         self.device = resolve_device(device)
         self.plan = plan
         self.fin = int(fin)
@@ -180,7 +182,8 @@ class ServeEngine:
 
     def gauges(self) -> dict:
         """Plan-derived per-batch gauges of the full-forward mode, under
-        the reference's report keys where they apply."""
+        the reference's report keys where they apply; the wire rows are
+        the resolved schedule's (a2a k²·S, ragged k·Σ_d S_d)."""
         wire = self.plan.wire_rows_per_exchange(self.comm_schedule)
         true = int(self.plan.predicted_send_volume.sum())
         return {

@@ -9,9 +9,11 @@
 Same flag names as ``python -m sgcn_tpu.train`` for the subset ported
 here, with ``--device {cuda,cpu}`` (default cuda; without a GPU the run
 fails unless ``--device cpu`` is given) in place of ``-b/--backend``.
-Flags whose feature is not ported are not defined (mini-batch,
-precision and wire levers, stale halos, replicas, the ragged ring,
-checkpoints, profiling, metrics, memory budget).  Prints ONE JSON line:
+``--comm-schedule {a2a,ragged,auto}`` picks the halo transport (default
+``$SGCN_COMM_SCHEDULE``, else a2a); ``ragged`` does not compose with
+``--experiment accuracy``, as in the reference.  Flags whose feature is
+not ported are not defined (mini-batch, precision and wire levers, stale
+halos, replicas, checkpoints, profiling, metrics, memory budget).  Prints ONE JSON line:
 the comm report and epoch timing under the reference's keys, or with
 ``--experiment accuracy`` the oracle's and the partitioned trainer's
 test accuracy.
@@ -62,11 +64,24 @@ def main(argv=None) -> None:
                         "report the test accuracy of each")
     p.add_argument("--train-per-class", type=int, default=20,
                    help="planetoid split: train nodes per class")
+    p.add_argument("--comm-schedule", default=None,
+                   choices=["a2a", "ragged", "auto"],
+                   help="halo transport: a2a = dense padded exchange "
+                        "(default), ragged = per-round-sized ring (same "
+                        "bits, fewer wire rows on skewed partitions), auto "
+                        "= ragged when the a2a's padding efficiency is "
+                        "below 0.5; unset reads $SGCN_COMM_SCHEDULE")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="where training runs (default cuda; no CPU "
                         "fallback)")
     args = p.parse_args(argv)
+
+    if args.comm_schedule == "ragged" and args.experiment == "accuracy":
+        raise SystemExit(
+            "--comm-schedule ragged: the accuracy-parity harness is "
+            "defined for the default transport — drop the conflicting "
+            "flag or use --comm-schedule auto")
 
     if args.experiment == "accuracy" and (
             args.model != "gcn" or args.loss != "xent"
@@ -146,7 +161,7 @@ def main(argv=None) -> None:
     tr = FullBatchTrainer(plan, fin=f, widths=widths, lr=args.lr,
                           model=args.model, loss=args.loss,
                           activation=activation, seed=args.seed,
-                          device=device)
+                          comm_schedule=args.comm_schedule, device=device)
     data = make_train_data(plan, feats, labels, device=device)
     report = tr.fit(data, epochs=args.epochs, warmup=args.warmup)
 

@@ -2,22 +2,25 @@
 with the serve engine (port of ``sgcn_tpu/train/fullbatch.py``, exact
 path).
 
-``resolve_forward_setup`` ports the dense-a2a tile-kernel selection for
-both models: GCN over the local and halo tile families, GAT over the
-combined-edge family with its int8 0/1 mask tiles.  What the reference
-resolves beyond it raises a clear "not ported yet" error: the ragged ring
-and asymmetric plans (``pspmm_overlap``, ``gat_layer_local``); bf16
-tables are refused by the kernel wrapper.
+``resolve_forward_setup`` ports the tile-kernel selection for both
+models on both transports: GCN over the local and halo tile families, GAT
+over the combined-edge family with its int8 0/1 mask tiles, over the
+dense a2a exchange or the ragged ring (``comm_schedule``: ``a2a``,
+``ragged``, ``auto`` or ``None`` for ``$SGCN_COMM_SCHEDULE``, resolved by
+``parallel/plan.py::resolve_comm_schedule``).  What the reference
+resolves beyond it raises a clear "not ported yet" error: asymmetric
+plans (``pspmm_overlap``, ``gat_layer_local``); bf16 tables are refused
+by the kernel wrapper.
 
 ``FullBatchTrainer`` is the reference's exact trainer over the ``k``
 parts stacked on one device: per step the L-layer forward (exchange →
 tile SpMM → projection → activation for GCN; the factored attention layer
 for GAT), the masked loss, autograd's backward (each aggregation's
 backward re-runs the kernel on the gradient: ``ops/tile_spmm.py::
-PspmmTilesSym``, ``models/gat.py::GatLayerSym``) and Adam.  The levers of
-the reference that are not ported — precision, remat, stale halos,
-replicas, the ragged ring, memory budgets — raise "not ported yet" with
-their ROADMAP item.
+PspmmTilesSym``/``PspmmTilesRagged``, ``models/gat.py::GatLayerSym``)
+and Adam.  The levers of the reference that are not ported — precision,
+remat, stale halos, replicas, memory budgets — raise "not ported yet"
+with their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -29,12 +32,15 @@ import numpy as np
 import torch
 
 from ..models.gat import (GAT, GAT_PLAN_FIELDS_PALLAS,
+                          GAT_PLAN_FIELDS_PALLAS_RAGGED,
                           gat_exchange_lane_widths, init_gat_params)
 from ..models.gcn import (GCN, exchange_widths, init_gcn_params,
                           masked_accuracy_local,
                           masked_err_local, masked_sigmoid_bce_local,
                           masked_softmax_xent_local)
-from ..ops.tile_spmm import TILE_PLAN_FIELDS, choose_tile_dispatch
+from ..ops.tile_spmm import (TILE_PLAN_FIELDS, TILE_PLAN_FIELDS_RAGGED,
+                             choose_tile_dispatch)
+from ..parallel.plan import resolve_comm_schedule
 from ..utils.backend import resolve_device, synchronize
 from ..utils.stats import CommStats
 from ..utils.timers import PhaseTimer, SpanTimer
@@ -45,7 +51,8 @@ class ModelSpec(NamedTuple):
 
     init_fn: object               # param init on a torch.Generator
     module: type                  # nn.Module over the stacked forward
-    plan_fields: tuple            # CommPlan array fields the forward reads
+    plan_fields: tuple            # CommPlan array fields the a2a forward
+    plan_fields_ragged: tuple     # ... and the ragged forward read
     lane_widths_fn: object        # (fin, widths) → per-layer wire lanes
     activation: str               # inter-layer activation by default
     mask_fields: tuple = ()       # plan fields shipped as int8 0/1 masks
@@ -58,8 +65,9 @@ class ModelSpec(NamedTuple):
 # it stages it.
 MODELS = {
     "gcn": ModelSpec(init_gcn_params, GCN, TILE_PLAN_FIELDS,
-                     exchange_widths, "relu"),
+                     TILE_PLAN_FIELDS_RAGGED, exchange_widths, "relu"),
     "gat": ModelSpec(init_gat_params, GAT, GAT_PLAN_FIELDS_PALLAS,
+                     GAT_PLAN_FIELDS_PALLAS_RAGGED,
                      lambda fin, widths: gat_exchange_lane_widths(widths),
                      "none", mask_fields=("ptile_cw",)),
 }
@@ -78,12 +86,12 @@ class ForwardSetup:
     the forward's static kwargs, and the selection log."""
 
     model: str
-    comm_schedule: str            # resolved: 'a2a'
+    comm_schedule: str            # resolved: 'a2a' or 'ragged'
     fwd_static: dict              # static kwargs of the forward fn
     decision: dict                # selection log
-    init_fn: object               # ModelSpec's fields from here on
+    plan_fields: tuple            # the resolved schedule's plan fields
+    init_fn: object               # ModelSpec's other fields from here on
     module: type
-    plan_fields: tuple
     lane_widths_fn: object
     activation: str
     mask_fields: tuple
@@ -101,30 +109,44 @@ class ForwardSetup:
 
 def resolve_forward_setup(plan, model: str = "gcn",
                           comm_schedule: str | None = None) -> ForwardSetup:
-    """Resolve the ported subset: GCN or GAT on a symmetric plan over the
-    dense a2a exchange, every tile class on the tile kernel
-    (``choose_tile_dispatch``, tile height 256).  Builds the plan's tile
-    layout as a side effect, as the reference does.  The reference's
-    ``fin``/``widths`` fed its VMEM-fit rule, which is not carried."""
+    """Resolve the ported subset: GCN or GAT on a symmetric plan, over the
+    transport ``resolve_comm_schedule`` picks (``None`` reads
+    ``$SGCN_COMM_SCHEDULE``, default a2a; ``auto`` takes the ring when the
+    a2a's padding efficiency is below ``RAGGED_AUTO_EFFICIENCY``), every
+    tile class on the tile kernel (``choose_tile_dispatch``, tile height
+    256).  An explicit ``'ragged'`` raises on an asymmetric plan (the
+    gradient rides the ring through the symmetric backward) and on k = 1
+    (no ring).  Builds the plan's tile and ring layouts as a side effect,
+    as the reference does.  The reference's ``fin``/``widths`` fed its
+    VMEM-fit rule, which is not carried."""
     if model not in MODELS:
         raise NotImplementedError(
             f"model {model!r} is not ported yet (ported: "
             f"{', '.join(MODELS)})")
-    if comm_schedule not in (None, "a2a"):
-        raise NotImplementedError(
-            f"comm_schedule {comm_schedule!r} is not ported yet (dense a2a "
-            "only; the ragged ring is ROADMAP item A4)")
+    decision: dict = {}
+    schedule = resolve_comm_schedule(comm_schedule, [plan], model,
+                                     decision=decision)
+    if schedule == "ragged" and not plan.symmetric:
+        raise ValueError(
+            "comm_schedule='ragged' uses the symmetric custom backward (the "
+            "gradient rides the same ring); this plan is asymmetric — run "
+            "the a2a schedule")
+    if schedule == "ragged" and plan.k == 1:
+        raise ValueError("comm_schedule='ragged' needs k > 1 parts: with "
+                         "one part there is no ring")
     if not plan.symmetric:
         raise NotImplementedError(
             "asymmetric plans need pspmm_overlap / gat_layer_local, which "
             "are not ported yet (ROADMAP item A2); this port serves "
             "symmetric Â")
-    decision: dict = {"asked": comm_schedule, "resolved": "a2a",
-                      "rule": "only transport ported"}
-    fwd_static = choose_tile_dispatch(plan, decision=decision, model=model)
-    return ForwardSetup(model=model, comm_schedule="a2a",
-                        fwd_static=fwd_static, decision=decision,
-                        **MODELS[model]._asdict())
+    fwd_static = choose_tile_dispatch(plan, decision=decision, model=model,
+                                      schedule=schedule)
+    spec = MODELS[model]._asdict()
+    ragged_fields = spec.pop("plan_fields_ragged")
+    if schedule == "ragged":
+        spec["plan_fields"] = ragged_fields
+    return ForwardSetup(model=model, comm_schedule=schedule,
+                        fwd_static=fwd_static, decision=decision, **spec)
 
 
 def check_param_dims(params, dims) -> None:
@@ -188,8 +210,9 @@ _UNPORTED_LEVERS = {
 
 
 class FullBatchTrainer:
-    """Full-batch partitioned GCN/GAT trainer, exact a2a path (the
-    reference's ``FullBatchTrainer`` with its defaults)."""
+    """Full-batch partitioned GCN/GAT trainer, exact path over the a2a
+    exchange or the ragged ring (the reference's ``FullBatchTrainer``
+    with its defaults)."""
 
     def __init__(
         self,
@@ -237,8 +260,7 @@ class FullBatchTrainer:
             if given[name] != off:
                 raise NotImplementedError(
                     f"{name}={given[name]!r} is not ported yet (ROADMAP "
-                    f"item {item}); this port trains the exact f32 a2a "
-                    "path")
+                    f"item {item}); this port trains the exact f32 path")
         if loss not in LOSSES:
             raise ValueError(f"unknown loss {loss!r}; one of {sorted(LOSSES)}")
         self.device = resolve_device(device)

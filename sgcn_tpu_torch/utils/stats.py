@@ -3,7 +3,7 @@ exact-mode subset of ``sgcn_tpu/utils/stats.py::CommStats``).
 
 Per part, ``send/recv_comm_volume`` (feature rows shipped) and
 ``send/recv_message_count``, summed and maxed over parts into one
-end-of-run line.  Under the static a2a plan the per-exchange volume is
+end-of-run line.  Under the static plan the per-exchange volume is
 known at plan time, so the counters advance per step by the reference's
 rule: a training step books ``nlayers`` forward and ``nlayers`` backward
 exchanges, a forward (evaluation) ``nlayers``.  The rule is kept even for

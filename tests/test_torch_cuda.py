@@ -2,7 +2,9 @@
 its plain PyTorch version, its backward (``PspmmTilesSym``), the serve
 engine and a training step on ``cuda``; the kernel's int8-mask entry
 point (the GAT attention pass, K5) and the GAT layer (``GatLayerSym``),
-engine and trainer on ``cuda``.
+engine and trainer on ``cuda``; the ragged ring (K4,
+``PspmmTilesRagged`` and the ragged GAT layer) against the a2a flavor on
+the card; the row-shuffle kernel (K6) against its plain version.
 
 This module imports no JAX, so it also runs on a GPU machine without it:
 
@@ -19,8 +21,12 @@ import torch
 from sgcn_tpu_torch.io.datasets import er_graph
 from sgcn_tpu_torch.models import gat as gat_mod
 from sgcn_tpu_torch.models.gat import GatLayerSym
-from sgcn_tpu_torch.ops.tile_spmm import (TILE_PLAN_FIELDS, PspmmTilesSym,
+from sgcn_tpu_torch.ops.row_shuffle import row_shuffle, row_shuffle_plain
+from sgcn_tpu_torch.ops.tile_spmm import (TILE_PLAN_FIELDS,
+                                          TILE_PLAN_FIELDS_RAGGED,
+                                          PspmmTilesRagged, PspmmTilesSym,
                                           choose_tile_dispatch,
+                                          pspmm_tiles_ragged,
                                           pspmm_tiles_sym, spmm_tiles,
                                           spmm_tiles_classes,
                                           spmm_tiles_plain)
@@ -337,3 +343,108 @@ def test_gat_engine_and_trainer_on_cuda_match_cpu(cuda_device):
     for a, b in zip(g_g, g_c):
         np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-4,
                                    atol=1e-7)
+
+
+# ------------------------------------------------------- the ring (K4)
+def test_ragged_on_cuda_equals_a2a_bitwise(cuda_device):
+    """``pspmm_tiles_ragged`` on the card: forward and backward equal
+    ``pspmm_tiles_sym`` on the card and the ragged op on the CPU, bit for
+    bit; one launch per local and per halo class in each direction,
+    counted in ``PspmmTilesRagged.launches``/``.backward_launches``."""
+    plan = _er_plan()
+    st = choose_tile_dispatch(plan, schedule="ragged")
+    static = (st["pallas_tb"], st["pallas_lclasses"], st["pallas_hclasses"])
+    fields = TILE_PLAN_FIELDS + ("rsend_idx", "ptile_hrsrc")
+    pa = {f: torch.from_numpy(np.ascontiguousarray(getattr(plan, f)))
+          for f in fields}
+    rng = np.random.default_rng(11)
+    h = torch.from_numpy(rng.standard_normal(
+        (plan.k, plan.b, 40)).astype(np.float32))
+    g = torch.from_numpy(rng.standard_normal(
+        (plan.k, plan.b, 80)).astype(np.float32))[..., ::2]
+    out = {}
+    for dev, sched in (("cpu", "ragged"), (cuda_device, "ragged"),
+                       (cuda_device, "a2a")):
+        x = h.to(dev, copy=True).requires_grad_()
+        t = {f: v.to(dev) for f, v in pa.items()}
+        before = (PspmmTilesRagged.launches,
+                  PspmmTilesRagged.backward_launches)
+        if sched == "ragged":
+            y = pspmm_tiles_ragged(x, *(t[f] for f in
+                                        TILE_PLAN_FIELDS_RAGGED),
+                                   *static, st["rr_sizes"])
+        else:
+            y = pspmm_tiles_sym(x, *(t[f] for f in TILE_PLAN_FIELDS),
+                                *static)
+        y.backward(g.to(dev))
+        torch.cuda.synchronize()
+        out[(str(dev), sched)] = (
+            y.detach().cpu(), x.grad.cpu(),
+            PspmmTilesRagged.launches - before[0],
+            PspmmTilesRagged.backward_launches - before[1])
+    ncls = len(static[1]) + len(static[2])
+    cpu, gpu, a2a = (out[("cpu", "ragged")], out[("cuda", "ragged")],
+                     out[("cuda", "a2a")])
+    assert cpu[2:] == (0, 0) and gpu[2:] == (ncls, ncls) and a2a[2:] == (0, 0)
+    for i in (0, 1):
+        assert torch.equal(gpu[i], a2a[i]), "ragged != a2a on the card"
+        assert torch.equal(gpu[i], cpu[i]), "ragged card != CPU"
+
+
+@pytest.mark.parametrize("model,widths", [("gcn", [32, 5]),
+                                          ("gat", [130, 5])])
+def test_ragged_trainer_and_engine_on_cuda_equal_a2a(cuda_device, model,
+                                                     widths):
+    """Serving and two training steps on the ring, on the card: rows,
+    losses and weights equal the a2a runs' bit for bit.  The GAT case is
+    split at width 130, whose ring slices ``ring[..., :fout]`` and
+    ``ring[..., fout]`` are strided views: the layer ``cat``s them into
+    row-major tables before the kernel, which refuses strided tables."""
+    plan = _er_plan()
+    rng = np.random.default_rng(12)
+    feats = rng.standard_normal((plan.n, 24)).astype(np.float32)
+    labels = rng.integers(0, 5, plan.n)
+    kw = dict(fin=24, widths=widths, model=model, seed=4)
+    act = {"activation": "none"} if model == "gat" else {}
+    rows, runs = {}, {}
+    q = np.arange(0, plan.n, 397)
+    for sched in ("a2a", "ragged"):
+        eng = ServeEngine(plan, comm_schedule=sched, max_batch=8,
+                          device=cuda_device, **kw)
+        eng.set_features(feats)
+        rows[sched] = eng.query(q)
+        tr = FullBatchTrainer(plan, comm_schedule=sched, device=cuda_device,
+                              **kw, **act)
+        data = make_train_data(plan, feats, labels, device=cuda_device)
+        losses = [tr.step(data) for _ in range(2)]
+        runs[sched] = (losses, [p.detach().cpu()
+                                for p in tr.model.parameters()])
+    np.testing.assert_array_equal(rows["a2a"], rows["ragged"])
+    assert runs["a2a"][0] == runs["ragged"][0]
+    assert all(torch.equal(a, b) for a, b in zip(runs["a2a"][1],
+                                                 runs["ragged"][1]))
+
+
+# ----------------------------------------------------- the row shuffle (K6)
+@pytest.mark.parametrize("f", [1, 41, 128])
+def test_row_shuffle_kernel_equals_plain(cuda_device, f):
+    """The row-shuffle kernel at the probe's S = 2048: == its plain
+    version and two launches agree, bit for bit; counted in
+    ``row_shuffle.launches``.  A table whose base is not 16-byte aligned
+    takes the one-float-per-lane path and gives the same bits."""
+    s = 2048
+    rng = np.random.default_rng(f)
+    x = torch.from_numpy(rng.standard_normal((s, f)).astype(
+        np.float32)).to(cuda_device)
+    idx = torch.from_numpy(rng.integers(0, s, (s, 1)).astype(
+        np.int32)).to(cuda_device)
+    before = row_shuffle.launches
+    one, two = row_shuffle(x, idx), row_shuffle(x, idx)
+    odd = torch.empty(s * f + 1, device=cuda_device)[1:].view(s, f)
+    odd.copy_(x)
+    three = row_shuffle(odd, idx)
+    torch.cuda.synchronize()
+    assert row_shuffle.launches == before + 3
+    plain = row_shuffle_plain(x, idx)
+    assert torch.equal(one, two) and torch.equal(one, plain)
+    assert torch.equal(three, plain)

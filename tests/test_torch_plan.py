@@ -99,8 +99,10 @@ def test_plan_methods_equal(plans):
         ref.wire_rows_per_exchange("a2a")
     np.testing.assert_array_equal(port.predicted_send_volume,
                                   ref.predicted_send_volume)
-    with pytest.raises(ValueError, match="not ported"):
-        port.wire_rows_per_exchange("ragged")
+    assert port.wire_rows_per_exchange("ragged") == \
+        ref.wire_rows_per_exchange("ragged")
+    with pytest.raises(ValueError, match="unknown comm schedule"):
+        port.wire_rows_per_exchange("ring")
 
 
 @pytest.mark.parametrize("tb", [8, 64])

@@ -218,7 +218,7 @@ def test_cli_runs_in_process(capsys):
 
 
 def test_cli_leaves_unported_flags_undefined():
-    for flag in ("--checkpoint", "--comm-schedule", "--halo-dtype",
+    for flag in ("--checkpoint", "--halo-dtype",
                  "--serve-mode", "--concurrent", "--metrics-out"):
         with pytest.raises(SystemExit):
             serve_main(["-p", HP8, "-s", "8", "--random-init", flag, "x"])
@@ -241,8 +241,6 @@ def test_unported_features_raise(cora):
     kw = dict(fin=cora["feats"].shape[1], widths=[16, 7], device="cpu")
     with pytest.raises(NotImplementedError, match="not ported"):
         ServeEngine(cora["plan"], model="gin", **kw)
-    with pytest.raises(NotImplementedError, match="not ported"):
-        ServeEngine(cora["plan"], comm_schedule="ragged", **kw)
     # an asymmetric Â needs pspmm_overlap, which is not ported
     a = cora["a"].tolil()
     a[0, 1], a[1, 0] = 1.0, 0.0

@@ -491,7 +491,7 @@ def test_cli_accuracy_experiment_in_process(capsys):
 @pytest.mark.parametrize("flag", [
     "-b", "--backend", "-n", "--batch-size", "--dtype",
     "--halo-dtype", "--halo-staleness", "--halo-delta", "--sync-every",
-    "--replica-budget", "--refresh-band", "--comm-schedule", "--resume",
+    "--replica-budget", "--refresh-band", "--resume",
     "--save-checkpoint", "--checkpoint-dir", "--checkpoint-every",
     "--keep-checkpoints", "--profile", "--metrics-out", "--memory-budget"])
 def test_cli_leaves_unported_flags_undefined(flag, capsys):
@@ -517,7 +517,7 @@ def test_without_cpu_the_entry_points_raise_when_no_gpu(cora):
     ("halo_dtype", "bfloat16", "A6"), ("halo_staleness", 1, "A7"),
     ("halo_delta", True, "A7"), ("sync_every", 2, "A7"),
     ("replica_budget", 4, "A7"), ("refresh_band", 0.1, "A7"),
-    ("memory_budget", 1 << 30, "A10"), ("comm_schedule", "ragged", "A4")])
+    ("memory_budget", 1 << 30, "A10")])
 def test_unported_levers_raise(cora, lever, value, item):
     with pytest.raises(NotImplementedError, match=f"not ported.*{item}"):
         FullBatchTrainer(cora["plan"], fin=1433, widths=WIDTHS,
