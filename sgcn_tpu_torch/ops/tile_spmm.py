@@ -7,12 +7,16 @@ holds, in the reference's order:
   * the numpy tile builders ``tile_classes_from_buckets`` and
     ``build_dst_tile_classes`` (copied; the plan's tile layout rests on
     them);
-  * ``spmm_tiles`` — the kernel wrapper (counterpart of ``spmm_pallas``)
-    and ``spmm_tiles_plain``, its plain PyTorch version.  The wrapper runs
-    the plain version only for tensors on the CPU; a CUDA tensor launches
-    the kernel or raises.  ``spmm_tiles.launches`` counts kernel launches;
-  * ``spmm_tiles_classes`` — the per-degree-class dispatch (counterpart of
-    ``spmm_pallas_classes``);
+  * ``spmm_tiles_classes`` — the degree-binned SpMM over a tile family's
+    flat class arrays (counterpart of ``spmm_pallas_classes``): on CUDA
+    tensors ONE kernel launch for all the family's classes, on CPU
+    tensors ``spmm_tiles_plain``, its plain PyTorch version, per class.
+    A CUDA tensor launches the kernel or raises.  ``spmm_tiles`` (the
+    counterpart of ``spmm_pallas``) is its one-class case, and
+    ``spmm_tiles.launches`` counts kernel launches, one per family pass;
+    ``pack_class_table`` packs the launch's class structure and
+    ``check_tile_layout`` checks the kernel's premise on a layout (each
+    tile's local destinations do not decrease along its slots);
   * ``choose_tile_dispatch`` — the per-class table, logged the way
     ``choose_pallas_dispatch`` logs it;
   * ``pspmm_tiles_sym`` — ``pspmm_pallas_sym`` with its custom VJP as the
@@ -27,8 +31,8 @@ holds, in the reference's order:
     bit-identical to ``pspmm_tiles_sym`` (same tiles, same edge order);
   * ``gat_tiles_pass`` — ``gat_pallas_pass`` (K5): the GAT attention pass,
     the kernel over the combined-edge tiles with int8 0/1 mask weights.
-    ``spmm_tiles`` launches the kernel's int8 entry point for an int8
-    ``tw`` and counts it in ``spmm_tiles.mask_launches``.
+    An int8 ``tw`` launches the kernel's int8 entry point, counted in
+    ``spmm_tiles.mask_launches``.
 
 Every function takes the ``k`` parts stacked on a leading axis
 (``(k, ...)`` tile arrays and tables); the single-part 2-D forms are
@@ -154,14 +158,84 @@ def spmm_tiles_plain(tsrc, tld, tw, table, tb: int = 256):
     return out[0] if single else out
 
 
+# classes one family launch takes (``kMaxClasses`` of csrc/tile_spmm.cu)
+MAX_CLASSES = 32
+
+
+def pack_class_table(classes, slots: int | None = None):
+    """The static class structure of one family launch: for class c of
+    ``classes`` (``((t_c, emax_c[, kernel]), ...)``) its first tile, its
+    first slot within a part, and its ``emax``.  Returns
+    ``(first_tile, slot_off, emax)``: int32 ``(n+1,)``, int64 ``(n,)``,
+    int32 ``(n,)``.  Raises for more than ``MAX_CLASSES`` classes, an
+    empty class, or (given ``slots``, the flat arrays' per-part length)
+    classes that do not cover the flat layout exactly."""
+    n = len(classes)
+    if not 1 <= n <= MAX_CLASSES:
+        raise ValueError(f"{n} tile classes; one launch takes 1 to "
+                         f"{MAX_CLASSES}")
+    first = np.zeros(n + 1, np.int32)
+    off = np.zeros(n, np.int64)
+    emax = np.zeros(n, np.int32)
+    total = 0
+    for c, (t, e, *_) in enumerate(classes):
+        if int(t) < 1 or int(e) < 1:
+            raise ValueError(f"tile class {c} is ({t}, {e}): every class "
+                             "needs at least one tile of at least one slot")
+        first[c + 1] = first[c] + int(t)
+        off[c] = total
+        emax[c] = int(e)
+        total += int(t) * int(e)
+    if slots is not None and total != slots:
+        raise ValueError(f"the tile classes cover {total} slots per part, "
+                         f"the flat arrays hold {slots}")
+    return first, off, emax
+
+
+def check_tile_layout(flat_ld, classes, tb: int) -> None:
+    """Raise unless every tile of the flat ``(k, ΣT_c·Emax_c)`` local
+    destinations (or one part's 1-D form) lies in ``[0, tb)`` and does not
+    decrease along its slots — the CUDA kernel's premise: it finds row
+    r's slots as ``[lower_bound(r), lower_bound(r+1))`` of its tile.
+    Tiles cut from dst-sorted edge lists meet it (pads, at ``tb-1``,
+    last); the plan checks every layout it builds."""
+    ld = np.asarray(flat_ld)
+    ld = ld.reshape(-1, ld.shape[-1])
+    _first, offs, _emax = pack_class_table(classes, ld.shape[1])
+    for c, ((t, e, *_), off) in enumerate(zip(classes, offs)):
+        blk = ld[:, off: off + t * e].reshape(ld.shape[0], t, e)
+        if blk.min() < 0 or blk.max() >= tb:
+            raise ValueError(f"tile class {c}: local destinations outside "
+                             f"[0, {tb})")
+        down = np.argwhere(np.diff(blk, axis=-1) < 0)
+        if len(down):
+            p, i, j = down[0]
+            raise ValueError(
+                f"tile class {c}, part {p}, tile {i}: local destination "
+                f"decreases at slot {j + 1} ({blk[p, i, j]} -> "
+                f"{blk[p, i, j + 1]}); the kernel needs each tile's slots "
+                "in destination order")
+
+
+def vector_width(f: int, ptr: int, part_stride: int) -> int:
+    """Floats per lane load the kernel uses on a table: 4 (one 16-byte
+    load) when rows are whole 16-byte units — ``f % 4 == 0``, a 16-byte
+    aligned base and part stride — and wide enough (``f >= 32``) to fill a
+    group of 8 lanes; else 1."""
+    return 4 if (f % 4 == 0 and f >= 32 and ptr % 16 == 0
+                 and part_stride % 4 == 0) else 1
+
+
 def _lib():
     from . import _build
 
     lib = _build.load("tile_spmm")
     if not getattr(lib, "_sgcn_typed", False):
-        for fn in (lib.sgcn_tile_spmm_f32, lib.sgcn_tile_spmm_mask_f32):
+        for fn in (lib.sgcn_tile_spmm_family_f32,
+                   lib.sgcn_tile_spmm_family_mask_f32):
             fn.argtypes = (
-                [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+                [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2
+                + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
                 + [ctypes.c_longlong] * 3 + [ctypes.c_int, ctypes.c_void_p])
             fn.restype = ctypes.c_int
         lib.sgcn_cuda_error_string.argtypes = [ctypes.c_int]
@@ -170,42 +244,91 @@ def _lib():
     return lib
 
 
-def _check_cuda_args(tsrc, tld, tw, table, tb: int):
-    if not all(x.device == table.device for x in (tsrc, tld, tw)):
+def _launch_family(flat_src, flat_ld, flat_w, table, classes, tb: int):
+    """One kernel launch over a whole tile family on CUDA tensors:
+    ``flat_*`` ``(k, ΣT_c·Emax_c)`` (each part's slots contiguous, one
+    common part stride), ``table`` ``(k, N, f)`` row-major per part.
+    Returns ``(k, ΣT_c·tb, f)`` float32."""
+    if not all(x.device == table.device for x in (flat_src, flat_ld, flat_w)):
         raise ValueError("tile arrays and table must be on the same device")
-    if tsrc.dtype != torch.int32 or tld.dtype != torch.int32:
+    if flat_src.dtype != torch.int32 or flat_ld.dtype != torch.int32:
         raise TypeError("tsrc/tld must be int32 (the plan's stored form)")
-    if tw.dtype not in (torch.float32, torch.int8):
+    if flat_w.dtype not in (torch.float32, torch.int8):
         raise TypeError("tw must be float32 (Â's values) or int8 (0/1 "
                         "edge masks)")
-    if tsrc.shape != tld.shape or tsrc.shape != tw.shape or tsrc.dim() != 3:
-        raise ValueError(f"tile arrays must share one (k, T, Emax) shape, "
-                         f"got {tuple(tsrc.shape)}, {tuple(tld.shape)}, "
-                         f"{tuple(tw.shape)}")
-    k, t, emax = tsrc.shape
+    if flat_src.dim() != 2 or flat_src.shape != flat_ld.shape \
+            or flat_src.shape != flat_w.shape:
+        raise ValueError(f"tile arrays must share one (k, slots) shape, got "
+                         f"{tuple(flat_src.shape)}, {tuple(flat_ld.shape)}, "
+                         f"{tuple(flat_w.shape)}")
+    k, slots = flat_src.shape
+    for x in (flat_src, flat_ld, flat_w):
+        if (slots > 1 and x.stride(1) != 1) or (
+                k > 1 and x.stride(0) != flat_src.stride(0)):
+            raise ValueError("tile arrays must be row-major (T, Emax) per "
+                             "part with one common part stride")
     if table.dim() != 3 or table.shape[0] != k:
         raise ValueError(f"table must be (k={k}, N, f), got "
                          f"{tuple(table.shape)}")
     if not 1 <= tb <= 256:
         raise ValueError(f"tile height tb={tb} outside the kernel's [1, 256]")
-    # each part's (T, Emax) block must be row-major; parts may sit at any
-    # stride (a class slice of the flat (k, ΣT_c·Emax_c) plan arrays)
-    for x in (tsrc, tld, tw):
-        if x.stride(2) != 1 or x.stride(1) != emax or x.stride(0) != tsrc.stride(0):
-            raise ValueError("tile arrays must be row-major (T, Emax) per "
-                             "part with one common part stride")
-    if table.stride(2) != 1 or table.stride(1) != table.shape[2]:
+    n, f = table.shape[1], table.shape[2]
+    if table.stride(2) != 1 or table.stride(1) != f:
         raise ValueError("table must be row-major (N, f) per part")
+    if n == 0 or f == 0:
+        raise ValueError(f"empty tile SpMM table {tuple(table.shape)}")
+    first, offs, emax = pack_class_table(classes, slots)
+    out = torch.empty((k, int(first[-1]) * tb, f), dtype=torch.float32,
+                      device=table.device)
+    lib = _lib()
+    mask = flat_w.dtype == torch.int8
+    entry = (lib.sgcn_tile_spmm_family_mask_f32 if mask
+             else lib.sgcn_tile_spmm_family_f32)
+    dev = table.device.index if table.device.index is not None \
+        else torch.cuda.current_device()
+    rc = entry(
+        flat_src.data_ptr(), flat_ld.data_ptr(), flat_w.data_ptr(),
+        table.data_ptr(), out.data_ptr(), k, len(classes),
+        first.ctypes.data, emax.ctypes.data, offs.ctypes.data, tb, n, f,
+        vector_width(f, table.data_ptr(), table.stride(0)),
+        flat_src.stride(0), table.stride(0), out.stride(0), dev,
+        torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(
+            f"tile_spmm launch failed: "
+            f"{lib.sgcn_cuda_error_string(rc).decode()} (cudaError {rc})")
+    if mask:
+        spmm_tiles.mask_launches += 1
+    else:
+        spmm_tiles.launches += 1
+    return out
+
+
+def _on_cpu(table, *arrays):
+    """True for CPU tensors (the plain version); raises for a table dtype
+    or device the port does not take."""
+    cpu = table.device.type == "cpu" and all(
+        x.device.type == "cpu" for x in arrays)
+    if table.dtype != torch.float32 and not (
+            cpu and table.dtype == torch.float64):
+        raise TypeError(f"tile SpMM tables are float32 in this port "
+                        f"(got {table.dtype}; bf16 is ROADMAP item A6)")
+    if not cpu and table.device.type != "cuda":
+        raise ValueError(f"tile SpMM runs on cpu or cuda tensors, got "
+                         f"{table.device}")
+    return cpu
 
 
 def spmm_tiles(tsrc, tld, tw, table, tb: int = 256):
-    """Â·table over dst tiles — the counterpart of ``spmm_pallas``.
+    """Â·table over dst tiles — the counterpart of ``spmm_pallas``: the
+    one-class case of ``spmm_tiles_classes``.
 
     Args:
       tsrc/tld/tw: ``(k, T, Emax)`` tile arrays (``(T, Emax)`` for one
         part): int32 source row, int32 local destination row in
-        ``[0, tb)``, and the weight: float32 (Â's values) or int8 (the
-        GAT passes' 0/1 edge masks); pads carry weight 0 and dst ``tb-1``.
+        ``[0, tb)``, not decreasing along a tile's slots, and the weight:
+        float32 (Â's values) or int8 (the GAT passes' 0/1 edge masks);
+        pads carry weight 0 and dst ``tb-1``.
       table: ``(k, N, f)`` float32 feature rows (``(N, f)`` for one part).
         f32 only in this slice: bf16 tables are ROADMAP item A6 (the
         plain version also takes float64, on the CPU only).
@@ -218,46 +341,25 @@ def spmm_tiles(tsrc, tld, tw, table, tb: int = 256):
     counted in ``spmm_tiles.mask_launches``.  Any other device, dtype or
     layout raises.
     """
-    cpu = table.device.type == "cpu" and all(
-        x.device.type == "cpu" for x in (tsrc, tld, tw))
-    if table.dtype != torch.float32 and not (
-            cpu and table.dtype == torch.float64):
-        raise TypeError(f"tile SpMM tables are float32 in this port "
-                        f"(got {table.dtype}; bf16 is ROADMAP item A6)")
-    if cpu:
+    if _on_cpu(table, tsrc, tld, tw):
         return spmm_tiles_plain(tsrc, tld, tw, table, tb)
-    if table.device.type != "cuda":
-        raise ValueError(f"tile SpMM runs on cpu or cuda tensors, got "
-                         f"{table.device}")
     single = tsrc.dim() == 2
     if single:
         tsrc, tld, tw, table = (x.unsqueeze(0) for x in (tsrc, tld, tw, table))
-    _check_cuda_args(tsrc, tld, tw, table, tb)
+    if tsrc.dim() != 3 or tsrc.shape != tld.shape or tsrc.shape != tw.shape:
+        raise ValueError(f"tile arrays must share one (k, T, Emax) shape, "
+                         f"got {tuple(tsrc.shape)}, {tuple(tld.shape)}, "
+                         f"{tuple(tw.shape)}")
     k, t, emax = tsrc.shape
-    n, f = table.shape[1], table.shape[2]
-    if n == 0 or f == 0 or t == 0:
-        raise ValueError(f"empty tile SpMM: table {tuple(table.shape)}, "
-                         f"{t} tiles")
-    out = torch.empty((k, t * tb, f), dtype=torch.float32,
-                      device=table.device)
-    lib = _lib()
-    mask = tw.dtype == torch.int8
-    entry = lib.sgcn_tile_spmm_mask_f32 if mask else lib.sgcn_tile_spmm_f32
-    dev = table.device.index if table.device.index is not None \
-        else torch.cuda.current_device()
-    rc = entry(
-        tsrc.data_ptr(), tld.data_ptr(), tw.data_ptr(),
-        table.data_ptr(), out.data_ptr(), k, t, emax, tb, n, f,
-        tsrc.stride(0), table.stride(0), out.stride(0), dev,
-        torch.cuda.current_stream(dev).cuda_stream)
-    if rc != 0:
-        raise RuntimeError(
-            f"tile_spmm launch failed: "
-            f"{lib.sgcn_cuda_error_string(rc).decode()} (cudaError {rc})")
-    if mask:
-        spmm_tiles.mask_launches += 1
-    else:
-        spmm_tiles.launches += 1
+    if t == 0:
+        raise ValueError("empty tile SpMM: 0 tiles")
+    flat = []
+    for x in (tsrc, tld, tw):
+        if x.stride(2) != 1 or x.stride(1) != emax:
+            raise ValueError("tile arrays must be row-major (T, Emax) per "
+                             "part with one common part stride")
+        flat.append(x.as_strided((k, t * emax), (x.stride(0), 1)))
+    out = _launch_family(*flat, table, ((t, emax),), tb)
     return out[0] if single else out
 
 
@@ -266,20 +368,29 @@ spmm_tiles.mask_launches = 0     # int8 0/1-mask entry (K5)
 
 
 def spmm_tiles_classes(flat_src, flat_ld, flat_w, table, classes, tb: int):
-    """Degree-binned dispatch over the flat tile-class arrays — the
+    """Degree-binned SpMM over the flat tile-class arrays — the
     counterpart of ``spmm_pallas_classes``.  ``classes`` is
     ``((t_c, emax_c[, kernel]), ...)``: class c owns the next
-    ``t_c·emax_c`` flat slots of every part, viewed (not copied) as its
-    own ``(k, t_c, emax_c)`` pad.  Every class runs ``spmm_tiles``.
-    Returns ``(k, Σ t_c·tb, f)`` float32 (no leading k for 1-D inputs)."""
-    outs, off = [], 0
-    for tc, ec, *_ in classes:
-        sl = slice(off, off + tc * ec)
+    ``t_c·emax_c`` flat slots of every part.  On CUDA tensors the whole
+    family is ONE kernel launch writing the ``(k, Σ t_c·tb, f)`` output
+    directly; on CPU tensors each class, viewed (not copied) as its own
+    ``(k, t_c, emax_c)`` pad, runs the plain version.  Returns
+    ``(k, Σ t_c·tb, f)`` float32 (no leading k for 1-D inputs)."""
+    if not _on_cpu(table, flat_src, flat_ld, flat_w):
+        if flat_src.dim() == 1:
+            return _launch_family(
+                *(x.unsqueeze(0) for x in (flat_src, flat_ld, flat_w)),
+                table.unsqueeze(0), classes, tb)[0]
+        return _launch_family(flat_src, flat_ld, flat_w, table, classes, tb)
+    _first, offs, _emax = pack_class_table(classes, flat_src.shape[-1])
+    outs = []
+    for (tc, ec, *_), off in zip(classes, offs):
+        sl = slice(int(off), int(off) + tc * ec)
         shape = flat_src.shape[:-1] + (tc, ec)
-        outs.append(spmm_tiles(flat_src[..., sl].reshape(shape),
-                               flat_ld[..., sl].reshape(shape),
-                               flat_w[..., sl].reshape(shape), table, tb))
-        off += tc * ec
+        outs.append(spmm_tiles_plain(flat_src[..., sl].reshape(shape),
+                                     flat_ld[..., sl].reshape(shape),
+                                     flat_w[..., sl].reshape(shape), table,
+                                     tb))
     return outs[0] if len(outs) == 1 else torch.cat(outs, dim=-2)
 
 

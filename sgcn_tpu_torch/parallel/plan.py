@@ -168,8 +168,10 @@ class CommPlan:
     def _pallas_family(self, dst, src, w, tb: int, class_tiles):
         """Stack one edge family's per-part tile classes into flat
         ``(k, ΣT_c·Emax_c)`` arrays (per class, Emax_c padded to the max
-        across parts) + the static class structure."""
-        from ..ops.tile_spmm import build_dst_tile_classes
+        across parts) + the static class structure.  Raises if a tile's
+        local destinations decrease along its slots (``check_tile_layout``:
+        the CUDA kernel finds each row's slots by that order)."""
+        from ..ops.tile_spmm import build_dst_tile_classes, check_tile_layout
 
         per = [build_dst_tile_classes(dst[p], src[p], w[p], self.b, tb,
                                       class_tiles)
@@ -186,8 +188,9 @@ class CommPlan:
                     np.pad(x[c][i], ((0, 0), (0, emax - x[c][i].shape[1])),
                            constant_values=fills[i]).astype(dtypes[i])
                     .reshape(-1) for x in per]))
-        return tuple(np.concatenate(f, axis=1) for f in flats) \
-            + (tuple(classes),)
+        flats = tuple(np.concatenate(f, axis=1) for f in flats)
+        check_tile_layout(flats[1], classes, tb)
+        return flats + (tuple(classes),)
 
     def ensure_pallas_tiles(self, tb: int = 256) -> "CommPlan":
         """Build the dst-tile layout of both edge families on first use:
@@ -235,6 +238,11 @@ class CommPlan:
             raise ValueError(
                 "ragged tiles need the tile layout first "
                 "(ensure_pallas_tiles)")
+        from ..ops.tile_spmm import check_tile_layout
+
+        # the ring pass reads the a2a halo tiles' destinations as they are
+        check_tile_layout(self.ptile_hld, self.pallas_hclasses,
+                          self.pallas_tb)
         pos = self._ring_pos_of_rank()
         self.ptile_hrsrc = np.stack([
             pos[p][self.ptile_hsrc[p]] for p in range(self.k)
@@ -283,6 +291,10 @@ class CommPlan:
             raise ValueError(
                 "ragged cell tiles need the combined tile layout first "
                 "(ensure_pallas_cell_tiles)")
+        from ..ops.tile_spmm import check_tile_layout
+
+        check_tile_layout(self.ptile_cld, self.pallas_cclasses,
+                          self.pallas_ctb)
         pos = self._ring_pos_of_rank()
         out = []
         for p in range(self.k):

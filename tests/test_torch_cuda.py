@@ -113,6 +113,94 @@ def test_kernel_refuses_bf16_and_bad_layouts(cuda_device):
         spmm_tiles(*arrays, table, 512)
 
 
+def _edge_tiles(k, classes, tb, n, seed):
+    """Flat (k, Σ t_c·e_c) tiles over ``classes`` with the kernel's edge
+    cases: a hub row of 1100 slots (class 0, tile 0, part 0), empty rows
+    (the last quarter of every tile), an all-pad tile (class 1, tile 0)
+    and a pad-heavy last class (at most 8 real slots per tile) whose pads
+    read row 0 in even parts and mixed rows in odd parts."""
+    rng = np.random.default_rng(seed)
+    flats = [[], [], []]
+    for ci, (t, e) in enumerate(classes):
+        src = np.zeros((k, t, e), np.int32)
+        ld = np.full((k, t, e), tb - 1, np.int32)
+        w = np.zeros((k, t, e), np.float32)
+        for p in range(k):
+            for i in range(t):
+                c = (0 if (ci, i) == (1, 0) else
+                     int(rng.integers(0, 9)) if ci == len(classes) - 1 else
+                     e if (ci, i) == (0, 0) else int(rng.integers(0, e + 1)))
+                rows = rng.integers(0, 3 * tb // 4, c)
+                if (ci, i, p) == (0, 0, 0):
+                    rows[:1100] = 5
+                src[p, i, :c] = rng.integers(0, n, c)
+                ld[p, i, :c] = np.sort(rows)
+                w[p, i, :c] = rng.standard_normal(c)
+                if ci == len(classes) - 1 and p % 2:
+                    src[p, i, c:] = rng.integers(0, n, e - c)
+        for j, a in enumerate((src, ld, w)):
+            flats[j].append(a.reshape(k, -1))
+    return [np.concatenate(x, axis=1) for x in flats]
+
+
+@pytest.mark.parametrize("weights", ["f32", "mask"])
+@pytest.mark.parametrize("f", [1, 7, 8, 16, 17, 40, 41, 128, 129])
+def test_family_launch_equals_plain(cuda_device, f, weights):
+    """One launch over a whole family of 4 classes == the plain version
+    class by class, bit for bit, for both weight types, on a 16-byte
+    aligned table and on a view whose base is 4-byte but not 16-byte
+    aligned; two launches agree; one launch per call."""
+    k, tb, n = 2, 256, 300
+    classes = ((1, 1536, "tile_spmm"), (2, 64, "tile_spmm"),
+               (1, 256, "tile_spmm"), (2, 600, "tile_spmm"))
+    src, ld, w = _edge_tiles(k, [c[:2] for c in classes], tb, n, seed=f)
+    if weights == "mask":
+        w = (w != 0).astype(np.int8)
+    arrays = [torch.from_numpy(a) for a in (src, ld, w)]
+    base = torch.from_numpy(np.random.default_rng(f).standard_normal(
+        (k, n, f)).astype(np.float32))
+    want = spmm_tiles_classes(*arrays, base, classes, tb)        # plain
+    dev = [a.to(cuda_device) for a in arrays]
+    odd = torch.empty(k * n * f + 1, device=cuda_device)[1:].view(k, n, f)
+    odd.copy_(base)
+    assert odd.data_ptr() % 16 == 4
+    counter = "mask_launches" if weights == "mask" else "launches"
+    before = getattr(spmm_tiles, counter)
+    one = spmm_tiles_classes(*dev, base.to(cuda_device), classes, tb)
+    two = spmm_tiles_classes(*dev, base.to(cuda_device), classes, tb)
+    three = spmm_tiles_classes(*dev, odd, classes, tb)
+    torch.cuda.synchronize()
+    assert getattr(spmm_tiles, counter) == before + 3
+    assert torch.equal(one, two), "two launches differ"
+    assert torch.equal(one.cpu(), want), (
+        f"kernel != plain, max diff {(one.cpu() - want).abs().max()}")
+    assert torch.equal(three.cpu(), want), "unaligned table != plain"
+    assert not one[:, tb: 2 * tb].any()          # the all-pad tile
+
+
+@pytest.mark.parametrize("f", [1, 40, 129])
+def test_family_launch_keeps_nan_of_pads(cuda_device, f):
+    """A pad adds 0·x: where the row the pads read holds inf or NaN, the
+    tile's last row turns NaN, as in the plain version — the kernel adds a
+    one-source run of pads once and keeps that, and every other value's
+    bits; pads of mixed sources are walked one by one."""
+    k, tb, n = 2, 256, 300
+    classes = ((1, 1536), (2, 64), (1, 256), (2, 600))
+    src, ld, w = _edge_tiles(k, classes, tb, n, seed=100 + f)
+    table = np.random.default_rng(f).standard_normal(
+        (k, n, f)).astype(np.float32)
+    table[:, 0, 0] = np.inf                        # pads read row 0
+    table[:, 0, -1] = np.nan
+    arrays = [torch.from_numpy(a) for a in (src, ld, w)]
+    want = spmm_tiles_classes(*arrays, torch.from_numpy(table), classes, tb)
+    got = spmm_tiles_classes(*(a.to(cuda_device) for a in arrays),
+                             torch.from_numpy(table).to(cuda_device),
+                             classes, tb).cpu()
+    nan = torch.isnan(want)
+    assert nan[:, tb - 1:: tb].any() and torch.equal(torch.isnan(got), nan)
+    assert torch.equal(got[~nan], want[~nan])
+
+
 def test_engine_on_cuda_launches_kernel_and_matches_cpu(cuda_device):
     a = normalize_adjacency(er_graph(3000, avg_deg=10, seed=1))
     plan = build_comm_plan(a, balanced_random_partition(3000, 4, seed=1), 4)
@@ -123,11 +211,11 @@ def test_engine_on_cuda_launches_kernel_and_matches_cpu(cuda_device):
     gpu = ServeEngine(plan, device=cuda_device, **kw)
     for e in (cpu, gpu):
         e.set_features(feats)
-    nclasses = len(gpu.setup.fwd_static["pallas_lclasses"])
     spmm_tiles.launches = 0
     q = np.arange(0, 3000, 397)
     got = gpu.query(q)
-    assert spmm_tiles.launches == 1 * 2 * 2 * nclasses
+    # one forward x 2 layers x (local + halo family), one launch each
+    assert spmm_tiles.launches == 1 * 2 * 2
     np.testing.assert_allclose(got, cpu.query(q), rtol=1e-5, atol=1e-6)
 
 
@@ -138,9 +226,9 @@ def _er_plan(n=3000, k=4, seed=1):
 
 def test_backward_on_cuda_bitwise_equals_cpu(cuda_device):
     """The aggregation's backward launches the kernel on the gradient
-    (one launch per local and per halo class) and equals the same
-    Function on CPU tensors bit for bit — also for a strided gradient,
-    which the backward makes row-major before the launch."""
+    (one launch for the local family, one for the halo family) and equals
+    the same Function on CPU tensors bit for bit — also for a strided
+    gradient, which the backward makes row-major before the launch."""
     plan = _er_plan()
     st = choose_tile_dispatch(plan)
     static = (st["pallas_tb"], st["pallas_lclasses"], st["pallas_hclasses"])
@@ -162,7 +250,8 @@ def test_backward_on_cuda_bitwise_equals_cpu(cuda_device):
             out[str(dev)] = (x.grad.cpu(),
                              PspmmTilesSym.backward_launches - before)
         (cpu, n_cpu), (gpu, n_gpu) = out["cpu"], out["cuda"]
-        assert n_cpu == 0 and n_gpu == len(static[1]) + len(static[2])
+        assert len(static[1]) > 1 and len(static[2]) > 1
+        assert n_cpu == 0 and n_gpu == 2
         assert torch.equal(cpu, gpu), (
             f"backward cuda != cpu, max diff {(cpu - gpu).abs().max()}")
 
@@ -172,8 +261,8 @@ def test_trainer_step_on_cuda_matches_cpu(cuda_device):
     same weights: loss rtol 1e-5, weight gradients rtol 1e-4 / atol 1e-7
     (the dense products sum in other orders on the card).  The card step
     launches the kernel for 2 forward passes and 1 backward pass (layer 0
-    aggregates first: its input needs no gradient), per local and halo
-    class."""
+    aggregates first: its input needs no gradient), once per local and
+    once per halo family."""
     plan = _er_plan()
     rng = np.random.default_rng(4)
     feats = rng.standard_normal((plan.n, 24)).astype(np.float32)
@@ -188,11 +277,9 @@ def test_trainer_step_on_cuda_matches_cpu(cuda_device):
             [w.grad.cpu().clone() for w in tr.params]))
         spmm_tiles.launches = 0
         loss = tr.step(data)
-        got[str(dev)] = (loss, grads[0], spmm_tiles.launches,
-                         tr.model.fwd_static)
-    (loss_c, g_c, n_c, _), (loss_g, g_g, n_g, st) = got["cpu"], got["cuda"]
-    classes = len(st["pallas_lclasses"]) + len(st["pallas_hclasses"])
-    assert n_c == 0 and n_g == (2 + 1) * classes
+        got[str(dev)] = (loss, grads[0], spmm_tiles.launches)
+    (loss_c, g_c, n_c), (loss_g, g_g, n_g) = got["cpu"], got["cuda"]
+    assert n_c == 0 and n_g == (2 + 1) * 2
     assert loss_g == pytest.approx(loss_c, rel=1e-5)
     for a, b in zip(g_g, g_c):
         np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-4,
@@ -246,8 +333,9 @@ def test_gat_layer_on_cuda_matches_cpu(cuda_device, fout, monkeypatch):
     (cuBLAS vs the CPU's BLAS) and ``exp`` round their last bits
     differently (up to ~5e-7 absolute on outputs of order 1), so
     whole-layer bits may differ.  ``a1``'s
-    gradient is exactly 0; the card launches the mask kernel per class
-    once (fused, fout = 40) or twice (split, fout = 128) per direction."""
+    gradient is exactly 0; the card launches the mask kernel once (fused,
+    fout = 40) or twice (split, fout = 128) per direction, each launch
+    covering all the combined family's classes."""
     plan = _er_plan()
     setup = resolve_forward_setup(plan, model="gat")
     cls = setup.fwd_static["pallas_cclasses"]
@@ -284,7 +372,8 @@ def test_gat_layer_on_cuda_matches_cpu(cuda_device, fout, monkeypatch):
     (cpu, n_cpu, _, _), (gpu, n_gpu, n_bwd, calls) = got["cpu"], got["cuda"]
     passes = 1 if fout + 1 <= 128 else 2
     assert n_cpu == 0
-    assert n_gpu == 2 * passes * len(cls) and n_bwd == passes * len(cls)
+    assert len(cls) > 1
+    assert n_gpu == 2 * passes and n_bwd == passes
     assert len(calls) == 2                       # forward, backward
     for (p, s, form, *rest), outs in calls:
         plain = orig(p.cpu(), s.cpu(), form,
@@ -304,16 +393,14 @@ def test_gat_engine_and_trainer_on_cuda_match_cpu(cuda_device):
     """The GAT serve engine and one trainer step on the card vs the CPU
     from the same weights: served rows rtol 1e-5 / atol 1e-6, loss
     rtol 1e-5, gradients rtol 1e-4 / atol 1e-7.  Launches of the mask
-    kernel: forward passes (split 2, fused 1 per layer) per class to
-    serve; forward + backward passes (every layer's backward runs) to
-    train."""
+    kernel, one per pass over the whole combined family: forward passes
+    (split 2, fused 1 per layer) to serve; forward + backward passes
+    (every layer's backward runs) to train."""
     plan = _er_plan()
     rng = np.random.default_rng(6)
     feats = rng.standard_normal((plan.n, 24)).astype(np.float32)
     labels = rng.integers(0, 5, plan.n)
     kw = dict(fin=24, widths=[130, 5], seed=3)
-    cls = resolve_forward_setup(plan, model="gat").fwd_static[
-        "pallas_cclasses"]
     passes = 2 + 1
     engines = [ServeEngine(plan, model="gat", max_batch=8, device=d, **kw)
                for d in ("cpu", cuda_device)]
@@ -324,7 +411,7 @@ def test_gat_engine_and_trainer_on_cuda_match_cpu(cuda_device):
         before = spmm_tiles.mask_launches
         rows.append(e.query(q))
         assert spmm_tiles.mask_launches - before == (
-            0 if e.device.type == "cpu" else passes * len(cls))
+            0 if e.device.type == "cpu" else passes)
     np.testing.assert_allclose(rows[1], rows[0], rtol=1e-5, atol=1e-6)
     got = {}
     for dev in ("cpu", cuda_device):
@@ -338,7 +425,7 @@ def test_gat_engine_and_trainer_on_cuda_match_cpu(cuda_device):
         loss = tr.step(data)
         got[str(dev)] = (loss, grads[0], spmm_tiles.mask_launches - before)
     (loss_c, g_c, n_c), (loss_g, g_g, n_g) = got["cpu"], got["cuda"]
-    assert n_c == 0 and n_g == 2 * passes * len(cls)
+    assert n_c == 0 and n_g == 2 * passes
     assert loss_g == pytest.approx(loss_c, rel=1e-5)
     for a, b in zip(g_g, g_c):
         np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-4,
@@ -349,7 +436,7 @@ def test_gat_engine_and_trainer_on_cuda_match_cpu(cuda_device):
 def test_ragged_on_cuda_equals_a2a_bitwise(cuda_device):
     """``pspmm_tiles_ragged`` on the card: forward and backward equal
     ``pspmm_tiles_sym`` on the card and the ragged op on the CPU, bit for
-    bit; one launch per local and per halo class in each direction,
+    bit; one launch per local and per halo family in each direction,
     counted in ``PspmmTilesRagged.launches``/``.backward_launches``."""
     plan = _er_plan()
     st = choose_tile_dispatch(plan, schedule="ragged")
@@ -382,10 +469,9 @@ def test_ragged_on_cuda_equals_a2a_bitwise(cuda_device):
             y.detach().cpu(), x.grad.cpu(),
             PspmmTilesRagged.launches - before[0],
             PspmmTilesRagged.backward_launches - before[1])
-    ncls = len(static[1]) + len(static[2])
     cpu, gpu, a2a = (out[("cpu", "ragged")], out[("cuda", "ragged")],
                      out[("cuda", "a2a")])
-    assert cpu[2:] == (0, 0) and gpu[2:] == (ncls, ncls) and a2a[2:] == (0, 0)
+    assert cpu[2:] == (0, 0) and gpu[2:] == (2, 2) and a2a[2:] == (0, 0)
     for i in (0, 1):
         assert torch.equal(gpu[i], a2a[i]), "ragged != a2a on the card"
         assert torch.equal(gpu[i], cpu[i]), "ragged card != CPU"
