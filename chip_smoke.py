@@ -104,13 +104,42 @@ failure raises and the script exits non-zero:
      defaults (this card's stream, gather and matmul ceilings), and K6's
      device time per call against its bound and
      ``torch.take_along_dim``;
-  14. one JSON line ``{"kernels": [...]}`` — per ported kernel (the tile
+  14. K1 and K5 on bf16 tables (the kernel's bf16 entry points) vs their
+     plain version on phase 1's tiles at f ∈ {1, 7, 8, 16, 17, 40, 41,
+     128, 129}: on an 8-byte aligned table, on a view whose base is
+     2-byte but not 8-byte aligned, and with inf and NaN in the row the
+     pads read — bit-identical (NaN where the plain version has NaN) and
+     between two launches; K1-bf16 timed at f ∈ {16, 128} against its
+     bound (2 bytes a table value) and ``torch.sparse.mm`` on a bf16 CSR
+     where this torch has one;
+  15. the flagship GCN of phase 5 under ``halo_dtype='bfloat16'`` and
+     ``compute_dtype='bfloat16'``, each on both transports from phase 5's
+     initial weights: ragged == a2a bit for bit (losses and weights after
+     ``fit``), the 5 losses within the reference's bf16 band (rtol 0.05 /
+     atol 0.02) of phase 5's float32 losses and not equal to them, exact
+     launches per entry point; ``epoch_s``, the step breakdown and the
+     profiler's split (gathers, copies, roll, cat, K1, matmul, idle); K1
+     on the compute run's real bf16 forward and gradient tables == plain,
+     and its time at the flagship layer;
+  16. flagship GCN serving with ``halo_dtype='bfloat16'`` on both
+     transports: served rows within rtol 5e-3 / atol 5e-3 of the float64
+     forward, ring == a2a bit for bit, exact launches, p50/p99 and QPS
+     beside the float32 engines';
+  17. the flagship GAT of phase 8 under ``compute_dtype='bfloat16'`` (every
+     layer packed) on both transports: ragged == a2a bit for bit, losses
+     within the reference's GAT bf16 band (rtol 0.05 / atol 0.03) of phase
+     8's and not equal, exact launches per entry point, the step
+     breakdown and split, K5 on every real table of a step == plain; then
+     cora2708 GAT ``--dtype bfloat16`` through the train CLI (the odd
+     width 7 takes the fused bf16 table) against phase 9's losses;
+  18. one JSON line ``{"kernels": [...]}`` — per ported kernel (the tile
      SpMM, its use as the GCN aggregation's backward, the GAT attention
      pass and its use in the GAT layer's backward, the ragged ring
-     aggregation and its backward, the row shuffle) its launches on the
-     main path (phases 2–5 and 7–13), max |kernel − plain|, kernel /
-     plain / bound / library times at the flagship layer;
-  15. the last line: ``{"ok": true, "device": {...}}``.
+     aggregation and its backward, the row shuffle, and the tile SpMM's
+     and the GAT pass's bf16 flavors) its launches on the main path
+     (phases 2–5, 7–13 and 15–17), max |kernel − plain|, kernel / plain /
+     bound / library times at the flagship layer;
+  19. the last line: ``{"ok": true, "device": {...}}``.
 
 Without CUDA, or without the rest of the repository beside it, the script
 prints no result and exits with code 2 or 3.
@@ -213,15 +242,16 @@ def random_class_tiles(rng, k, classes, tb, n):
 
 
 def unaligned_copy(table):
-    """The same rows in a view whose base is 4-byte but not 16-byte
-    aligned: the kernel's one-float-per-lane path."""
+    """The same rows in a view whose base is aligned to one value (4 bytes
+    for float32, 2 for bf16) but not to a 4-value vector (16 or 8 bytes):
+    the kernel's one-value-per-lane path."""
     import torch
 
-    odd = torch.empty(table.numel() + 1, device=table.device)[1:] \
-        .view(table.shape)
+    odd = torch.empty(table.numel() + 1, dtype=table.dtype,
+                      device=table.device)[1:].view(table.shape)
     odd.copy_(table)
-    if odd.data_ptr() % 16 == 0:
-        raise AssertionError("the unaligned view is 16-byte aligned")
+    if odd.data_ptr() % (4 * table.element_size()) == 0:
+        raise AssertionError("the unaligned view is vector-aligned")
     return odd
 
 
@@ -239,11 +269,13 @@ def ptxas_report(log):
             for c in re.finditer(r"(\d+)([A-Za-z_])", name):
                 base = name[c.start(2): c.start(2) + int(c.group(1))]
                 if base.endswith("_kernel"):
-                    t = re.match(r"I(\w)Li(\d+)ELi(\d+)ELi(\d+)E",
+                    t = re.match(r"I(\w)(f|13__nv_bfloat16)Li(\d+)ELi(\d+)"
+                                 r"ELi(\d+)E",
                                  name[c.start(2) + len(base):])
                     name = base + (
                         f"<{'float' if t.group(1) == 'f' else 'int8'}, "
-                        f"VEC={t.group(2)}, G={t.group(3)}, NV={t.group(4)}>"
+                        f"{'float' if t.group(2) == 'f' else 'bf16'}, "
+                        f"VEC={t.group(3)}, G={t.group(4)}, NV={t.group(5)}>"
                         if t else "")
                     break
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
@@ -258,11 +290,12 @@ def ptxas_report(log):
     return lines
 
 
-def k1_work(flat_src, flat_w, k, n, f, out_rows):
+def k1_work(flat_src, flat_w, k, n, f, out_rows, itemsize=4):
     """Bytes and flops the K1 call needs on these inputs: every stored
     slot's (src, ld, w) read once — 12 bytes, 9 with int8 mask weights
-    (K5) — each DISTINCT referenced table row read once, the output
-    written once; 2 flops (multiply, add) per real edge and column."""
+    (K5) — each DISTINCT referenced table row read once (``itemsize``
+    bytes a value: 4 for float32, 2 for bf16), the float32 output written
+    once; 2 flops (multiply, add) per real edge and column."""
     import numpy as np
 
     src = np.asarray(flat_src, np.int64)
@@ -270,7 +303,7 @@ def k1_work(flat_src, flat_w, k, n, f, out_rows):
     real = w != 0
     parts = np.broadcast_to(np.arange(k)[:, None], src.shape)
     rows = np.unique(parts[real] * n + src[real]).size
-    nbytes = (src.size * (8 + w.itemsize) + rows * f * 4
+    nbytes = (src.size * (8 + w.itemsize) + rows * f * itemsize
               + out_rows * f * 4)
     flops = 2 * int(real.sum()) * f
     return nbytes, flops
@@ -282,11 +315,13 @@ def k1_bound_ms(nbytes, flops):
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations")
 
 
-def library_spmm(flat_src, flat_ld, flat_w, classes, k, n, tb, device):
+def library_spmm(flat_src, flat_ld, flat_w, classes, k, n, tb, device,
+                 dtype=None):
     """``torch.sparse.mm`` of a CSR holding the same real edges as the
     tile arrays, shaped so ``csr @ table.reshape(k*n, f)`` is the K1
     output — the library yardstick, timed here and used nowhere in the
-    port."""
+    port.  ``dtype``: the CSR's values (the table's dtype; float32 by
+    default)."""
     import numpy as np
     import torch
 
@@ -307,14 +342,27 @@ def library_spmm(flat_src, flat_ld, flat_w, classes, k, n, tb, device):
     idx = torch.as_tensor(np.stack([np.concatenate(rows),
                                     np.concatenate(cols)]))
     coo = torch.sparse_coo_tensor(
-        idx, torch.as_tensor(np.concatenate(vals)),
+        idx, torch.as_tensor(np.concatenate(vals)).to(dtype or torch.float32),
         (k * t_all * tb, k * n), device=device)
     return coo.coalesce().to_sparse_csr()
 
 
-def check_k1(tiles, table, classes, tb, what):
+def same_bits(a, b, nan_ok=False):
+    """``torch.equal``; with ``nan_ok``, NaN in the same places and equal
+    bits everywhere else."""
+    import torch
+
+    if not nan_ok:
+        return torch.equal(a, b)
+    nan = torch.isnan(b)
+    return torch.equal(torch.isnan(a), nan) and torch.equal(a[~nan], b[~nan])
+
+
+def check_k1(tiles, table, classes, tb, what, nan_ok=False):
     """Kernel vs plain on the card: bit identity and two-launch
-    determinism.  Returns the max |kernel − plain| (0.0 when identical)."""
+    determinism (``nan_ok``: NaN where the plain version has NaN, the
+    same bits elsewhere).  Returns the max |kernel − plain| over the
+    entries where the plain version is finite (0.0 when identical)."""
     import torch
 
     from sgcn_tpu_torch.ops.tile_spmm import (spmm_tiles_classes,
@@ -330,12 +378,17 @@ def check_k1(tiles, table, classes, tb, what):
         off += t * e
     plain = torch.cat(plain, dim=1)
     torch.cuda.synchronize()
-    diff = float((one - plain).abs().max())
+    fin = torch.isfinite(plain)
+    diff = float((one[fin] - plain[fin]).abs().max())
+    relaunch = same_bits(one, two, nan_ok)
     log(f"  {what}: max |kernel - plain| = {diff!r}  "
-        f"(relaunch identical: {torch.equal(one, two)})")
-    if not torch.equal(one, two):
+        f"(relaunch identical: {relaunch}"
+        + (f"; NaN entries {int(torch.isnan(plain).sum())}, in the same "
+           f"places: {torch.equal(torch.isnan(one), torch.isnan(plain))}"
+           if nan_ok else "") + ")")
+    if not relaunch:
         raise AssertionError(f"{what}: two launches differ")
-    if not torch.equal(one, plain):
+    if not same_bits(one, plain, nan_ok):
         raise AssertionError(f"{what}: kernel != plain version "
                              f"(max diff {diff})")
     return diff
@@ -361,13 +414,26 @@ def time_k1(tiles_np, tiles, table, classes, tb, n, what, plain_reps=3):
 
     ms = cuda_ms(lambda: spmm_tiles_classes(*tiles, table, classes, tb))
     plain_ms = cuda_ms(plain, reps=plain_reps, warmup=1)
-    csr = library_spmm(*tiles_np, classes, k, n, tb, table.device)
     dense = table.reshape(k * n, f)
-    lib_out = torch.sparse.mm(csr, dense)
+    try:
+        # on a bf16 table, a bf16 CSR: where this torch has no CUDA kernel
+        # for it, there is no library call to time
+        csr = library_spmm(*tiles_np, classes, k, n, tb, table.device,
+                           dtype=table.dtype)
+        lib_out = torch.sparse.mm(csr, dense)
+        library_ms = cuda_ms(lambda: torch.sparse.mm(csr, dense))
+    except (RuntimeError, NotImplementedError) as e:
+        if table.dtype == torch.float32:
+            raise
+        log(f"  {what}: torch.sparse.mm on a {table.dtype} CSR is not "
+            f"available here ({str(e).splitlines()[0][:120]}): no library "
+            "call")
+        lib_out, library_ms = None, None
     kern_out = spmm_tiles_classes(*tiles, table, classes, tb).reshape(-1, f)
-    lib_diff = float((lib_out - kern_out).abs().max())
-    library_ms = cuda_ms(lambda: torch.sparse.mm(csr, dense))
-    nbytes, flops = k1_work(tiles_np[0], tiles_np[2], k, n, f, k * t_all * tb)
+    lib_diff = (float((lib_out.float() - kern_out).abs().max())
+                if lib_out is not None else float("nan"))
+    nbytes, flops = k1_work(tiles_np[0], tiles_np[2], k, n, f, k * t_all * tb,
+                            itemsize=table.element_size())
     bound_ms, bound_by = k1_bound_ms(nbytes, flops)
     log(f"  {what}: kernel {ms!r} ms, plain {plain_ms!r} ms, "
         f"torch.sparse.mm {library_ms!r} ms (|lib - kernel| {lib_diff:.3g}), "
@@ -658,6 +724,53 @@ def device_busy(run, reps: int = 5):
     return wall_ms, sum(ms for _, ms in rows), rows[:5]
 
 
+# device-time classes of a flagship step, by kernel name (torch.profiler);
+# the first class whose key the name holds ("roll_cuda", not "roll": the
+# casts and copies run in unrolled_elementwise_kernel)
+DEVICE_CLASSES = (("K1/K5", ("tile_spmm_kernel",)),
+                  ("gathers", ("index", "gather")),
+                  ("roll", ("roll_cuda",)),
+                  ("cat", ("CatArray",)),
+                  ("copies (transpose, casts)", ("copy",)),
+                  ("matmul", ("gemm", "Kernel2", "cutlass", "sm90_xmma",
+                              "cublas")))
+
+
+def device_split(name, run, reps: int = 3, what: str = "steps"):
+    """Device time of ``reps`` calls of ``run`` under ``torch.profiler``,
+    split into ``DEVICE_CLASSES`` by kernel name (the rest as "other"),
+    and the idle share's upper bound; logged and returned as a dict."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            run()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    split = {label: 0.0 for label, _ in DEVICE_CLASSES}
+    split["other"] = 0.0
+    for e in prof.key_averages():
+        ms = e.self_device_time_total / 1e3
+        if e.device_type != DeviceType.CUDA or ms <= 0:
+            continue
+        label = next((lab for lab, keys in DEVICE_CLASSES
+                      if any(k in e.key for k in keys)), "other")
+        split[label] += ms
+    dev_ms = sum(split.values())
+    out = {"wall_ms": wall, "device_ms": dev_ms,
+           "idle_le": (1 - dev_ms / wall) if dev_ms else None, **split}
+    log(f"  {name}: {reps} {what} under torch.profiler: wall {wall:.3f} ms, "
+        f"device {dev_ms:.3f} ms, idle share <= "
+        f"{out['idle_le'] if dev_ms else 'not measured'}; device ms by "
+        "class: " + ", ".join(f"{k} {v:.3f}" for k, v in split.items()))
+    return out
+
+
 def log_device_busy(name, run, reps: int = 5, what: str = "batches"):
     wall, dev_ms, top = device_busy(run, reps)
     if dev_ms == 0:
@@ -793,7 +906,7 @@ def step_breakdown(tr, data, steps: int = 3):
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
         ev[0].record()
         tr.opt.zero_grad(set_to_none=True)
-        loss = LOSSES[tr.loss_name](tr.model(data.h0, tr.pa), data.labels,
+        loss = LOSSES[tr.loss_name](tr._forward(data.h0), data.labels,
                                     data.train_valid)
         ev[1].record()
         loss.backward()
@@ -886,7 +999,7 @@ def gat_train_pass(tr, data):
 
     from sgcn_tpu_torch.train import LOSSES
 
-    loss = LOSSES[tr.loss_name](tr.model(data.h0, tr.pa), data.labels,
+    loss = LOSSES[tr.loss_name](tr._forward(data.h0), data.labels,
                                 data.train_valid)
     torch.autograd.grad(loss, list(tr.model.parameters()))
 
@@ -1026,6 +1139,389 @@ def k6_bound_ms(idx, f):
     rows = np.unique(idx.cpu().numpy()).size
     s = idx.shape[0]
     return (rows * f * 4 + s * 4 + s * f * 4) / HBM_BYTES_PER_S * 1e3
+
+
+# ------------------------------------------------------- the bf16 levers
+BF16_WIDTHS = (1, 7, 8, 16, 17, 40, 41, 128, 129)
+BAND_GCN = dict(rtol=0.05, atol=0.02)    # tests/test_train_parity.py:122
+BAND_GAT = dict(rtol=0.05, atol=0.03)    # tests/test_gat.py:171
+SERVE_BF16_TOL = dict(rtol=5e-3, atol=5e-3)   # tests/test_halo_dtype.py:43
+
+
+def phase_bf16_kernels(rng, dev, tiles_np, tiles, classes, tb, n):
+    """Phase 14: K1 and K5 on bf16 tables (the kernel's bf16 entry
+    points) vs their plain version, bit for bit and between two launches,
+    on phase 1's tiles (hub row, all-pad tile, pad-heavy class) at every
+    width of ``BF16_WIDTHS``: on an 8-byte aligned table, on a view whose
+    base is 2-byte but not 8-byte aligned, and with inf and NaN in the row
+    the pads read.  Times K1-bf16 at f ∈ {16, 128}.  Returns the max
+    |kernel − plain| of each and the times."""
+    import numpy as np
+    import torch
+
+    from sgcn_tpu_torch.ops.tile_spmm import spmm_tiles
+
+    k = tiles[0].shape[0]
+    mtiles = tiles[:2] + [(tiles[2] != 0).to(torch.int8)]
+    err = {"k1": 0.0, "k5": 0.0}
+    times = {}
+    before = (spmm_tiles.launches, spmm_tiles.mask_launches,
+              spmm_tiles.bf16_launches, spmm_tiles.bf16_mask_launches)
+    for f in BF16_WIDTHS:
+        table = torch.as_tensor(rng.standard_normal((k, n, f)).astype(
+            np.float32)).to(dev).bfloat16()
+        bad = table.clone()
+        bad[:, 0, 0], bad[:, 0, -1] = float("inf"), float("nan")
+        for t_, how, nan_ok in ((table, "", False),
+                                (unaligned_copy(table), " 2-byte aligned",
+                                 False),
+                                (bad, " inf/NaN in the pads' row", True)):
+            err["k1"] = max(err["k1"], check_k1(
+                tiles, t_, classes, tb, f"K1 bf16 f={f}{how}", nan_ok))
+            err["k5"] = max(err["k5"], check_k1(
+                mtiles, t_, classes, tb, f"K5 bf16 f={f}{how}", nan_ok))
+        if f in (16, 128):
+            times[f] = time_k1(tiles_np, tiles, table, classes, tb, n,
+                               f"K1 bf16 random tiles f={f}")
+    after = (spmm_tiles.launches, spmm_tiles.mask_launches,
+             spmm_tiles.bf16_launches, spmm_tiles.bf16_mask_launches)
+    if after[:2] != before[:2] or after[2] == before[2] \
+            or after[3] == before[3]:
+        raise AssertionError(f"bf16 tables launched {after} from {before}: "
+                             "not (only) the bf16 entries")
+    return err, times
+
+
+def record_aggregations(run):
+    """Run ``run()`` recording the table of every GCN aggregation
+    (``_pspmm_tiles_once`` of ``ops/tile_spmm.py``, which the forward and
+    the backward of ``PspmmTilesSym`` call): the forward's layers in
+    order, then the backward's gradient tables."""
+    import torch
+
+    from sgcn_tpu_torch.ops import tile_spmm
+
+    calls, orig = [], tile_spmm._pspmm_tiles_once
+
+    def recording(h, *args):
+        calls.append(h.detach())
+        return orig(h, *args)
+
+    tile_spmm._pspmm_tiles_once = recording
+    try:
+        run()
+    finally:
+        tile_spmm._pspmm_tiles_once = orig
+    torch.cuda.synchronize()
+    return calls
+
+
+def gcn_train_pass(tr, data):
+    """One forward and backward of the GCN trainer's loss at its current
+    weights, without an optimizer step."""
+    import torch
+
+    from sgcn_tpu_torch.train import LOSSES
+
+    loss = LOSSES[tr.loss_name](tr._forward(data.h0), data.labels,
+                                data.train_valid)
+    torch.autograd.grad(loss, list(tr.params))
+
+
+def time_layer(pa, st, table, tb, what):
+    """K1 over one aggregation's two families on ``table`` (its halo from
+    the a2a exchange, on the table's own dtype): bit for bit against the
+    plain version, then the two passes' times summed.  Returns (max
+    |kernel − plain|, timing dict)."""
+    from sgcn_tpu_torch.ops.pspmm import halo_exchange
+
+    halo = halo_exchange(table, pa["send_idx"], pa["halo_src"])
+    ltiles = [pa["ptile_lsrc"], pa["ptile_lld"], pa["ptile_lw"]]
+    htiles = [pa["ptile_hsrc"], pa["ptile_hld"], pa["ptile_hw"]]
+    err = max(check_k1(ltiles, table, st["pallas_lclasses"], tb,
+                       f"{what} local pass"),
+              check_k1(htiles, halo, st["pallas_hclasses"], tb,
+                       f"{what} halo pass"))
+    t_l = time_k1([t.cpu().numpy() for t in ltiles], ltiles, table,
+                  st["pallas_lclasses"], tb, table.shape[1],
+                  f"{what} local pass")
+    t_h = time_k1([t.cpu().numpy() for t in htiles], htiles, halo,
+                  st["pallas_hclasses"], tb, halo.shape[1],
+                  f"{what} halo pass")
+    out = {key: (None if t_l[key] is None or t_h[key] is None
+                 else t_l[key] + t_h[key])
+           for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    out["bound_by"] = t_h["bound_by"]
+    log(f"  {what}: K1 over both families {out['ms']!r} ms; bound "
+        f"{out['bound_ms']!r} ms; plain {out['plain_ms']!r} ms; "
+        f"torch.sparse.mm {out['library_ms']!r} ms")
+    return err, out
+
+
+def split_f32(model, trainers, data):
+    """The float32 trainers' step breakdown and profiler split, beside
+    which the bf16 runs of phases 15 and 17 are read."""
+    for sched, tr in trainers.items():
+        log(f"  {model} float32 {sched}: step breakdown (CUDA events, mean "
+            f"of 3): {json.dumps(step_breakdown(tr, data))}")
+        device_split(f"{model} float32 {sched} training",
+                     lambda tr=tr: tr.step(data))
+
+
+def phase_bf16_gcn_training(plan, data, p_init, widths, rep32, dev, tb,
+                            steps, bwd):
+    """Phase 15: the flagship GCN trained under each bf16 lever on both
+    transports from phase 5's initial weights, 1 warm-up + 5 timed steps:
+    ragged == a2a bit for bit (losses and weights after ``fit``), the
+    losses inside the reference's bf16 band of phase 5's float32 run and
+    not equal to them, exact launches per entry (``halo_dtype`` keeps
+    float32 tables: the float32 entry; ``compute_dtype``: the bf16 entry
+    only); ``epoch_s``, the step breakdown and the profiler's split; K1
+    on the compute run's real bf16 forward and gradient tables == plain,
+    and K1-bf16's time at the flagship layer.  Returns (launches per
+    entry, max |kernel − plain|, the forward layer's timing)."""
+    import numpy as np
+    import torch
+
+    from sgcn_tpu_torch.ops.tile_spmm import (PspmmTilesRagged,
+                                              PspmmTilesSym, spmm_tiles)
+    from sgcn_tpu_torch.train import FullBatchTrainer
+
+    fam = 2
+    want = steps * (len(widths) + bwd) * fam
+    runs, launches = {}, {"f32": 0, "bf16": 0}
+    for lever in ("halo_dtype", "compute_dtype"):
+        for sched in ("a2a", "ragged"):
+            tr = FullBatchTrainer(plan, fin=128, widths=widths,
+                                  params=p_init, comm_schedule=sched,
+                                  device=dev, **{lever: "bfloat16"})
+            spmm_tiles.launches = spmm_tiles.bf16_launches = 0  # starts here
+            PspmmTilesSym.backward_launches = 0
+            PspmmTilesRagged.launches = PspmmTilesRagged.backward_launches = 0
+            rep = tr.fit(data, epochs=5, warmup=1, verbose=False)
+            n32, n16 = spmm_tiles.launches, spmm_tiles.bf16_launches  # ends
+            nbwd = (PspmmTilesRagged.backward_launches if sched == "ragged"
+                    else PspmmTilesSym.backward_launches)
+            exp = (want, 0) if lever == "halo_dtype" else (0, want)
+            log(f"  GCN {lever}=bfloat16 {sched}: launches float32 entry "
+                f"{n32}, bf16 entry {n16} (backward {nbwd}); expected "
+                f"{exp} = {steps} steps x ({len(widths)} forward + {bwd} "
+                f"backward passes) x {fam} families; losses "
+                f"{rep['loss_history']}; epoch_s {rep['epoch_s']!r}; "
+                f"wire bytes per step {rep['halo_bytes_wire_per_step']}")
+            if (n32, n16) != exp or nbwd != steps * bwd * fam:
+                raise AssertionError(f"GCN {lever} {sched}: launch counts "
+                                     "differ from the passes run")
+            launches["f32"] += n32
+            launches["bf16"] += n16
+            runs[(lever, sched)] = {
+                "rep": rep, "tr": tr,
+                "w": [w.detach().clone() for w in tr.params]}
+        a2a, ring = runs[(lever, "a2a")], runs[(lever, "ragged")]
+        same = (a2a["rep"]["loss_history"] == ring["rep"]["loss_history"]
+                and all(torch.equal(x, y) for x, y in zip(a2a["w"],
+                                                          ring["w"])))
+        l16 = np.asarray(a2a["rep"]["loss_history"])
+        l32 = np.asarray(rep32["loss_history"])
+        band = np.allclose(l16, l32, **BAND_GCN)
+        log(f"  GCN {lever}: ragged == a2a (losses, weights): {same}; "
+            f"losses vs float32 {l32.tolist()}: max |gap| "
+            f"{np.abs(l16 - l32).max():.3g}, inside the band {BAND_GCN}: "
+            f"{band}, bit-equal: {np.array_equal(l16, l32)}")
+        if not same or not band or np.array_equal(l16, l32) \
+                or not np.isfinite(l16).all():
+            raise AssertionError(f"GCN {lever}: ragged != a2a, or losses "
+                                 "outside the band, or equal to float32")
+    for (lever, sched), run in runs.items():
+        tr = run["tr"]
+        log(f"  GCN {lever} {sched}: epoch_s {run['rep']['epoch_s']!r}; "
+            f"step breakdown (CUDA events, mean of 3): "
+            f"{json.dumps(step_breakdown(tr, data))}")
+        run["split"] = device_split(f"GCN {lever} {sched} training",
+                                    lambda tr=tr: tr.step(data))
+    tr = runs[("compute_dtype", "a2a")]["tr"]
+    calls = record_aggregations(lambda: gcn_train_pass(tr, data))
+    if [c.dtype for c in calls] != [torch.bfloat16] * (len(widths) + bwd):
+        raise AssertionError(f"compute run's aggregation tables "
+                             f"{[c.dtype for c in calls]}")
+    st, pa = tr.model.fwd_static, tr.pa
+    err_g, _ = time_layer(pa, st, calls[len(widths)], tb,
+                          "flagship bf16 gradient (layer 2 backward)")
+    err_f, t_fwd = time_layer(pa, st, calls[0], tb,
+                              "flagship bf16 layer-0 forward table")
+    return launches, max(err_g, err_f), t_fwd
+
+
+def phase_bf16_serving(eng_f, eng_fr, res_f, res_fr, ahat, feats, dev):
+    """Phase 16: flagship GCN serving with ``halo_dtype='bfloat16'`` on
+    both transports, phase 3's plan, weights and features: 512 queries,
+    256 served rows within rtol 5e-3 / atol 5e-3 of the float64 forward,
+    the ring's rows and whole forward == the a2a engine's bit for bit,
+    exact launches (float32 tables: the float32 entry); p50/p99 and QPS
+    beside the float32 engines'.  Returns the launches."""
+    import numpy as np
+    import torch
+
+    from sgcn_tpu_torch.serve import ServeEngine
+
+    params = [w.detach().cpu().numpy() for w in eng_f.model.weights]
+    want_all = oracle_forward(ahat, feats, params)
+    engines, total = {}, 0
+    for sched in ("a2a", "ragged"):
+        eng = ServeEngine(eng_f.plan, fin=eng_f.fin, widths=eng_f.widths,
+                          comm_schedule=sched, halo_dtype="bfloat16",
+                          params=eng_f.model.layer_params(), max_batch=64,
+                          device=dev)
+        eng.set_features(feats)
+        rec, result, launches = drive_serving(
+            f"flagship GCN halo_dtype=bfloat16 {sched}", eng, 512, 3)
+        total += launches
+        q = np.concatenate([np.asarray(a, np.int64) for a, _ in rec.served])
+        got = np.concatenate([o for _, o in rec.served])
+        pick = np.random.default_rng(3).permutation(len(q))[:256]
+        err = np.abs(got[pick] - want_all[q[pick]])
+        ok = np.allclose(got[pick], want_all[q[pick]], **SERVE_BF16_TOL)
+        log(f"  {sched}: 256 served rows vs float64 forward: max abs err "
+            f"{err.max():.3g} (inside {SERVE_BF16_TOL}: {ok})")
+        if not ok or not np.isfinite(got).all():
+            raise AssertionError(f"halo_dtype serving {sched}: rows off the "
+                                 "float64 forward")
+        engines[sched] = (eng, rec, result)
+    (ea, _ra, res_a), (er, rr, res_r) = engines["a2a"], engines["ragged"]
+    for q, out in rr.served:
+        if not np.array_equal(out, ea.query(q)):
+            raise AssertionError("halo_dtype serving: ring rows != a2a rows")
+    if not torch.equal(er.forward(), ea.forward()):
+        raise AssertionError("halo_dtype serving: ring forward != a2a")
+    for name, r16, r32 in (("a2a", res_a, res_f), ("ring", res_r, res_fr)):
+        a, b = r16.summary(), r32.summary()
+        log(f"  flagship GCN serving {name}: bf16 wire p50 "
+            f"{a['latency_p50_ms']} ms, p99 {a['latency_p99_ms']} ms, "
+            f"{a['achieved_qps']} QPS; float32 p50 {b['latency_p50_ms']} "
+            f"ms, p99 {b['latency_p99_ms']} ms, {b['achieved_qps']} QPS")
+    log("  ring rows and whole forward == a2a, bit for bit; breakdown "
+        "a2a: " + json.dumps(forward_breakdown_halo(ea)))
+    log_device_busy("flagship GCN halo_dtype a2a",
+                    lambda: ea.query(np.arange(64)))
+    log_device_busy("flagship GCN halo_dtype ring",
+                    lambda: er.query(np.arange(64)))
+    return total
+
+
+def forward_breakdown_halo(eng):
+    """One bf16-wire exchange of layer 0 against the float32 one on the
+    same table (CUDA events, mean of 10): the wire's effect alone."""
+    from sgcn_tpu_torch.ops.pspmm import halo_exchange
+
+    pa, h = eng.pa, eng._h0
+    return {"exchange_f32_ms": cuda_ms(lambda: halo_exchange(
+                h, pa["send_idx"], pa["halo_src"]), reps=10),
+            "exchange_bf16_wire_ms": cuda_ms(lambda: halo_exchange(
+                h, pa["send_idx"], pa["halo_src"], "bfloat16"), reps=10)}
+
+
+def phase_bf16_gat(plan, data, params_g, widths, rep32, dev, steps,
+                   cli, cli_losses):
+    """Phase 17: the flagship GAT trained under ``compute_dtype=
+    'bfloat16'`` on both transports (every layer packed: 128, 128 and 40
+    are even), 1 warm-up + 5 timed steps: ragged == a2a bit for bit, the
+    losses inside the reference's GAT bf16 band of phase 8's float32 run
+    and not equal to them, exact launches per entry (a packed pass runs
+    the bf16 entry on the feature lanes and the float32 one on ``u``);
+    ``epoch_s``, the step breakdown, the profiler's split; K5 on every
+    real table of a training step == plain and K5-bf16's time at the
+    flagship layer.  Then cora2708 GAT 1433 → 16 → 7 ``--dtype bfloat16``
+    through the train CLI (16 packed, 7 odd: the fused bf16 table),
+    against phase 9's float32 CLI run.  Returns (launches per entry, max
+    |kernel − plain|, the flagship feature pass's timing)."""
+    import numpy as np
+    import torch
+
+    from sgcn_tpu_torch.models.gat import GatLayerSym
+    from sgcn_tpu_torch.models.gat import params_from_jax as gat_from_numpy
+    from sgcn_tpu_torch.ops.tile_spmm import spmm_tiles
+    from sgcn_tpu_torch.train import FullBatchTrainer
+
+    per_dir = len(widths)                 # one bf16 + one f32 pass a layer
+    runs, launches = {}, {"f32": 0, "bf16": 0}
+    for sched in ("a2a", "ragged"):
+        tr = FullBatchTrainer(plan, fin=128, widths=widths, model="gat",
+                              activation="none",
+                              params=gat_from_numpy(params_g),
+                              comm_schedule=sched, compute_dtype="bfloat16",
+                              device=dev)
+        spmm_tiles.mask_launches = spmm_tiles.bf16_mask_launches = 0
+        GatLayerSym.backward_launches = 0       # the main path starts here
+        rep = tr.fit(data, epochs=5, warmup=1, verbose=False)
+        n32, n16 = spmm_tiles.mask_launches, spmm_tiles.bf16_mask_launches
+        nbwd = GatLayerSym.backward_launches    # ... and ends here
+        want = steps * 2 * per_dir
+        log(f"  GAT bf16 {sched}: K5 launches float32 entry {n32}, bf16 "
+            f"entry {n16} (backward {nbwd}); expected {want} each = {steps} "
+            f"steps x 2 directions x {per_dir} packed layers; losses "
+            f"{rep['loss_history']}; epoch_s {rep['epoch_s']!r}; wire bytes "
+            f"per step {rep['halo_bytes_wire_per_step']}")
+        if (n32, n16, nbwd) != (want, want, want):
+            raise AssertionError(f"GAT bf16 {sched}: K5 launch counts differ "
+                                 "from the passes run")
+        launches["f32"] += n32
+        launches["bf16"] += n16
+        runs[sched] = {"rep": rep, "tr": tr, "w": [
+            p.detach().clone() for p in tr.model.parameters()]}
+    a2a, ring = runs["a2a"], runs["ragged"]
+    same = (a2a["rep"]["loss_history"] == ring["rep"]["loss_history"]
+            and all(torch.equal(x, y) for x, y in zip(a2a["w"], ring["w"])))
+    l16 = np.asarray(a2a["rep"]["loss_history"])
+    l32 = np.asarray(rep32["loss_history"])
+    band = np.allclose(l16, l32, **BAND_GAT)
+    log(f"  GAT bf16: ragged == a2a (losses, weights): {same}; losses vs "
+        f"float32 {l32.tolist()}: max |gap| {np.abs(l16 - l32).max():.3g}, "
+        f"inside the band {BAND_GAT}: {band}, bit-equal: "
+        f"{np.array_equal(l16, l32)}")
+    if not same or not band or np.array_equal(l16, l32) \
+            or not np.isfinite(l16).all():
+        raise AssertionError("GAT bf16: ragged != a2a, or losses outside "
+                             "the band, or equal to float32")
+    for sched, run in runs.items():
+        tr = run["tr"]
+        log(f"  GAT bf16 {sched}: epoch_s {run['rep']['epoch_s']!r}; step "
+            f"breakdown (CUDA events, mean of 3): "
+            f"{json.dumps(step_breakdown(tr, data))}")
+        run["split"] = device_split(f"GAT bf16 {sched} training",
+                                    lambda tr=tr: tr.step(data))
+    calls = record_gat_passes(lambda: gat_train_pass(a2a["tr"], data))
+    dtypes = [[str(t.dtype)[6:] for _, t, _, _ in c] for c in calls]
+    log(f"  one training pass's K5 tables by aggregation: {dtypes}")
+    if dtypes != [["bfloat16", "float32"]] * (2 * per_dir):
+        raise AssertionError("GAT bf16: packed passes' tables are not "
+                             "bf16 features + float32 u")
+    err = check_gat_passes(calls, "flagship GAT bf16")
+    tiles, table, cls, tb = calls[0][0]
+    t5 = time_k1([x.cpu().numpy() for x in tiles], tiles, table, cls, tb,
+                 table.shape[1], "flagship GAT bf16 layer-0 forward "
+                 "feature pass f=128")
+
+    spmm_tiles.mask_launches = spmm_tiles.bf16_mask_launches = 0
+    GatLayerSym.backward_launches = 0           # the main path starts here
+    losses, rep_c = run_train_cli(cli + ["--model", "gat", "--dtype",
+                                         "bfloat16", "--comm-schedule",
+                                         "a2a"])
+    n32, n16 = spmm_tiles.mask_launches, spmm_tiles.bf16_mask_launches
+    # per step: forward packed 16 (bf16 + f32) and fused bf16 7 (bf16);
+    # backward packed (bf16 + f32) and fused float32 (f32)
+    want_c = (5 * 3, 5 * 3)
+    band_c = np.allclose(losses, cli_losses, **BAND_GAT)
+    log(f"  cora GAT --dtype bfloat16 CLI: losses {losses} (float32 "
+        f"{cli_losses}, inside {BAND_GAT}: {band_c}); K5 launches float32 "
+        f"{n32}, bf16 {n16} (expected {want_c}); wire bytes per step "
+        f"{rep_c['halo_bytes_wire_per_step']}; epoch_s "
+        f"{rep_c['epoch_s']!r}")
+    if (n32, n16) != want_c or not band_c or rep_c["dtype"] != "bfloat16" \
+            or losses == cli_losses:
+        raise AssertionError("cora GAT bf16 CLI: launches, band or dtype")
+    launches["f32"] += n32
+    launches["bf16"] += n16
+    return launches, err, t5
 
 
 def main() -> int:
@@ -1198,7 +1694,7 @@ def main() -> int:
     tr = FullBatchTrainer(plan, fin=128, widths=widths_f, seed=5,
                           comm_schedule="a2a", device=dev)
     data = make_train_data(plan, feats_f, labels_f, device=dev)
-    p_init = [w.detach().cpu().numpy() for w in tr.params]
+    p_init = [w.detach().cpu().numpy().copy() for w in tr.params]
     zs, caught = forward_backward_trace(tr, data)      # at the step-1 weights
     masks = [plan.gather_rows((z > 0).cpu().numpy()) for z in zs[:-1]]
     t0 = time.perf_counter()
@@ -1696,6 +2192,35 @@ def main() -> int:
         f"{json.dumps(events)}")
 
     # ---------------------------------------------------------- phase 14
+    log("phase 14: K1 and K5 on bf16 tables (the bf16 entry points) vs "
+        "their plain version on phase 1's tiles")
+    err16, times16 = phase_bf16_kernels(rng, dev, tiles_np, tiles, classes,
+                                        tb, n)
+
+    # ---------------------------------------------------------- phase 15
+    log("phase 15: the flagship GCN (phase 5) under halo_dtype='bfloat16' "
+        "and compute_dtype='bfloat16', both transports, from phase 5's "
+        "initial weights")
+    split_f32("GCN", {"a2a": tr, "ragged": trr}, data)
+    l15, err15, k1_16 = phase_bf16_gcn_training(
+        plan, data, p_init, widths_f, rep, dev, tb, steps_f, bwd_f)
+
+    # ---------------------------------------------------------- phase 16
+    log("phase 16: flagship GCN serving with halo_dtype='bfloat16', both "
+        "transports (phase 3's plan, weights and features)")
+    launches_16 = phase_bf16_serving(eng_f, eng_fr, res_f, _res_fr, ahat_f,
+                                     feats_f, dev)
+
+    # ---------------------------------------------------------- phase 17
+    log("phase 17: the flagship GAT (phase 8) under compute_dtype="
+        "'bfloat16', both transports; then cora2708 GAT --dtype bfloat16 "
+        "through the CLI")
+    split_f32("GAT", {"a2a": trg, "ragged": trgr}, data)
+    l17, err17, k5_16 = phase_bf16_gat(
+        plan, data, params_g, widths_f, rep_g, dev, steps_f, cli,
+        cli_losses)
+
+    # ---------------------------------------------------------- phase 18
     kernels = [{
         "name": "tile_spmm",
         "route": "cuda",
@@ -1703,7 +2228,7 @@ def main() -> int:
         "replaces": "sgcn_tpu/ops/pallas_spmm.py:203",
         "launches": (launches_c + launches_f + launches_tc + launches_tf
                      + launches_fr + launches_rt + launches_ca
-                     + launches_cr),
+                     + launches_cr + l15["f32"] + launches_16),
         "max_abs_err": max(max_err, grad_err, k4_err, k4b_err),
         "ms": layer["ms"],
         "kernel_ms": layer["ms"],
@@ -1729,7 +2254,8 @@ def main() -> int:
         "source": "sgcn_tpu_torch/csrc/tile_spmm.cu",
         "replaces": "sgcn_tpu/ops/pallas_spmm.py:530-545",
         "launches": (launches_gc + launches_gf + launches_gt + launches_gtc
-                     + launches_gfr + launches_grt + launches_gcr),
+                     + launches_gfr + launches_grt + launches_gcr
+                     + l17["f32"]),
         "max_abs_err": max(k5_err, err_f, err_b, k5r_err),
         "ms": gat_fwd["ms"],
         "plain_ms": gat_fwd["plain_ms"],
@@ -1784,6 +2310,30 @@ def main() -> int:
         "bound_ms": k6["bound_ms"],
         "bound_by": "bytes",
         "library_ms": k6["library_ms"],
+    }, {
+        "name": "tile_spmm_bf16",
+        "route": "cuda",
+        "source": "sgcn_tpu_torch/csrc/tile_spmm.cu",
+        "replaces": "sgcn_tpu/ops/pallas_spmm.py:203",
+        "launches": l15["bf16"],
+        "max_abs_err": max(err16["k1"], err15),
+        "ms": k1_16["ms"],
+        "plain_ms": k1_16["plain_ms"],
+        "bound_ms": k1_16["bound_ms"],
+        "bound_by": k1_16["bound_by"],
+        "library_ms": k1_16["library_ms"],
+    }, {
+        "name": "gat_tiles_pass_bf16",
+        "route": "cuda",
+        "source": "sgcn_tpu_torch/csrc/tile_spmm.cu",
+        "replaces": "sgcn_tpu/ops/pallas_spmm.py:530-545",
+        "launches": l17["bf16"],
+        "max_abs_err": max(err16["k5"], err17),
+        "ms": k5_16["ms"],
+        "plain_ms": k5_16["plain_ms"],
+        "bound_ms": k5_16["bound_ms"],
+        "bound_by": k5_16["bound_by"],
+        "library_ms": k5_16["library_ms"],
     }]
     log(f"total {time.perf_counter() - t_start:.1f} s; card: {smi}")
     log(json.dumps({"kernels": kernels}))

@@ -6,6 +6,10 @@
 // gat_pallas_pass (K5).  It computes what those compute, not how: for every
 // tile of `tb` destination rows, every (row, column) sum starts at 0.0f and
 // adds w * table[src] over the tile's padded edge slots in STORED order.
+// The table is float32 or bfloat16: spmm_pallas keeps its table in its own
+// dtype and upcasts each row as it reads it (pallas_spmm.py:192), and so do
+// the bf16 entry points here — each bf16 value widens exactly to float32,
+// then enters the same float32 chain; the output is float32 either way.
 // Pad slots (w = 0, ld = tb-1) count as in the reference — each adds 0*x,
 // NaN where x is not finite — and rows with no slots come out as exact
 // zeros.
@@ -18,8 +22,9 @@
 //
 // What bounds it on the H100: bytes.  A slot is 12 bytes of (src, ld, w)
 // (9 with int8 masks) and 2 flops per column; each gathered table row is
-// f*4 bytes read through the 50 MB L2 from HBM (the TPU kernel's premise,
-// a table resident in VMEM, does not carry over).  The design:
+// f*4 bytes (f*2 for a bf16 table) read through the 50 MB L2 from HBM (the
+// TPU kernel's premise, a table resident in VMEM, does not carry over).
+// The design:
 //
 //  * One launch per tile FAMILY (all its degree classes): the class
 //    structure (first tile, first slot, emax per class) rides in a small
@@ -37,9 +42,10 @@
 //    (a power of two, G <= 32) walks one row's slots: the group stages a
 //    batch of slots' (src, w) with coalesced loads, broadcasts each with
 //    __shfl_sync, and every lane gathers its own columns of that slot's
-//    table row — float4 per lane when f % 4 == 0 and the table is 16-byte
-//    aligned (one warp = one 128-column row), else one float per lane,
-//    lane-strided.  Narrow widths pack 32/G rows into a warp; at f = 1
+//    table row — four columns per lane in one vector load when f % 4 == 0
+//    and the rows are whole vectors (float4, 16 bytes; for a bf16 table
+//    4 × bf16, 8 bytes; one warp = one 128-column row), else one value per
+//    lane, lane-strided.  Narrow widths pack 32/G rows into a warp; at f = 1
 //    every lane runs its own row's chain.  Several slots' row loads are
 //    issued before their adds.  Each output row is written once.
 //  * Pads come in long runs of weight-0 slots that all read one source row
@@ -57,6 +63,7 @@
 //    and TMA has no per-row gather.
 
 #include <cuda_runtime.h>
+#include <cuda_bf16.h>
 #include <stdint.h>
 
 namespace {
@@ -93,16 +100,39 @@ __device__ int warp_lower_bound(const int32_t* __restrict__ a, int n, int key,
   return lo + __popc(__ballot_sync(0xffffffffu, below));
 }
 
-template <int VEC>
-__device__ __forceinline__ void load_cols(const float* p, float (&x)[VEC]) {
-  if constexpr (VEC == 4) {
-    const float4 v = __ldg(reinterpret_cast<const float4*>(p));
-    x[0] = v.x;
-    x[1] = v.y;
-    x[2] = v.z;
-    x[3] = v.w;
+// A bf16 value's exact float32 value (what __bfloat162float returns): its
+// 16 bits are the high half of the float's.
+__device__ __forceinline__ float bf16_bits_to_float(unsigned int bits) {
+  return __uint_as_float(bits << 16);
+}
+
+// VEC columns of a table row, widened to float: T = float (one float4 or
+// one float) or __nv_bfloat16 (one 8-byte vector of 4 × bf16, or one bf16).
+template <typename T, int VEC>
+__device__ __forceinline__ void load_cols(const T* p, float (&x)[VEC]) {
+  if constexpr (sizeof(T) == 4) {
+    if constexpr (VEC == 4) {
+      const float4 v = __ldg(reinterpret_cast<const float4*>(p));
+      x[0] = v.x;
+      x[1] = v.y;
+      x[2] = v.z;
+      x[3] = v.w;
+    } else {
+      x[0] = __ldg(reinterpret_cast<const float*>(p));
+    }
   } else {
-    x[0] = __ldg(p);
+    static_assert(sizeof(T) == 2, "tables are float or bf16");
+    if constexpr (VEC == 4) {
+      // little-endian: column c + 2j is the low half of word j
+      const uint2 v = __ldg(reinterpret_cast<const uint2*>(p));
+      x[0] = bf16_bits_to_float(v.x & 0xffffu);
+      x[1] = bf16_bits_to_float(v.x >> 16);
+      x[2] = bf16_bits_to_float(v.y & 0xffffu);
+      x[3] = bf16_bits_to_float(v.y >> 16);
+    } else {
+      x[0] = bf16_bits_to_float(
+          __ldg(reinterpret_cast<const unsigned short*>(p)));
+    }
   }
 }
 
@@ -117,13 +147,15 @@ __device__ __forceinline__ void store_cols(float* p, const float (&x)[VEC]) {
 
 // W: the stored weight type, float (Â's values, K1) or int8_t (the GAT
 // passes' 0/1 masks, K5), converted to float exactly as it is staged.
-// VEC: floats per lane load (4 or 1).  G: lanes per row.  NV: vectors per
-// lane, so one walk over a row's slots covers G*NV*VEC columns.
-template <typename W, int VEC, int G, int NV>
+// T: the table type, float or __nv_bfloat16, widened to float exactly as
+// it is loaded.  VEC: columns per lane load (4 or 1).  G: lanes per row.
+// NV: vectors per lane, so one walk over a row's slots covers G*NV*VEC
+// columns.
+template <typename W, typename T, int VEC, int G, int NV>
 __global__ void __launch_bounds__(kThreads)
 tile_spmm_kernel(const int32_t* __restrict__ tsrc,
                  const int32_t* __restrict__ tld, const W* __restrict__ tw,
-                 const float* __restrict__ table, float* __restrict__ out,
+                 const T* __restrict__ table, float* __restrict__ out,
                  const ClassTable ct, int tb, int rows_per_block,
                  int chunks_per_tile, int n_rows, int f,
                  long long idx_part_stride, long long table_part_stride,
@@ -159,7 +191,7 @@ tile_spmm_kernel(const int32_t* __restrict__ tsrc,
   const int32_t* src_p = tsrc + base;
   const int32_t* ld_p = tld + base;
   const W* w_p = tw + base;
-  const float* tab = table + (long long)part * table_part_stride;
+  const T* tab = table + (long long)part * table_part_stride;
   float* outp = out + (long long)part * out_part_stride +
                 ((long long)tile * tb + r0) * f;
 
@@ -249,12 +281,12 @@ tile_spmm_kernel(const int32_t* __restrict__ tsrc,
             const int j = j0 + a;
             const int sj = __shfl_sync(gmask, my_src[j / G], j % G, G);
             wj[a] = __shfl_sync(gmask, my_w[j / G], j % G, G);
-            const float* row = tab + (long long)sj * f + c0;
+            const T* row = tab + (long long)sj * f + c0;
 #pragma unroll
             for (int v = 0; v < NV; ++v) {
               const int col = (v * G + li) * VEC;
               if (j < cnt && c0 + col < f) {
-                load_cols<VEC>(row + col, x[a][v]);
+                load_cols<T, VEC>(row + col, x[a][v]);
               } else {
 #pragma unroll
                 for (int q = 0; q < VEC; ++q) x[a][v][q] = 0.0f;
@@ -280,7 +312,7 @@ tile_spmm_kernel(const int32_t* __restrict__ tsrc,
           const int sv = src_p[run];
           if ((unsigned)sv >= (unsigned)n_rows) __trap();
           float x[VEC];
-          load_cols<VEC>(tab + (long long)sv * f + col, x);
+          load_cols<T, VEC>(tab + (long long)sv * f + col, x);
           const float w = static_cast<float>(w_p[run]);
 #pragma unroll
           for (int q = 0; q < VEC; ++q)
@@ -296,14 +328,14 @@ struct Args {
   const int32_t* tsrc;
   const int32_t* tld;
   const void* tw;
-  const float* table;
+  const void* table;
   float* out;
   ClassTable ct;
   int tb, n_rows, f;
   long long idx_part_stride, table_part_stride, out_part_stride;
 };
 
-template <typename W, int VEC, int G, int NV>
+template <typename W, typename T, int VEC, int G, int NV>
 int launch(const Args& a, int k, int t_all, cudaStream_t stream) {
   constexpr int kGroups = kThreads / G;
   // at least 32 rows per block, so that its two searches and the scan are
@@ -313,14 +345,15 @@ int launch(const Args& a, int k, int t_all, cudaStream_t stream) {
   const long long blocks = (long long)t_all * chunks;
   if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
   dim3 grid((unsigned)blocks, (unsigned)k);
-  tile_spmm_kernel<W, VEC, G, NV><<<grid, kThreads, 0, stream>>>(
-      a.tsrc, a.tld, static_cast<const W*>(a.tw), a.table, a.out, a.ct, a.tb,
+  tile_spmm_kernel<W, T, VEC, G, NV><<<grid, kThreads, 0, stream>>>(
+      a.tsrc, a.tld, static_cast<const W*>(a.tw),
+      static_cast<const T*>(a.table), a.out, a.ct, a.tb,
       rows, chunks, a.n_rows, a.f, a.idx_part_stride, a.table_part_stride,
       a.out_part_stride);
   return (int)cudaGetLastError();
 }
 
-template <typename W>
+template <typename W, typename T>
 int launch_family(const void* tsrc, const void* tld, const void* tw,
                   const void* table, void* out, int k, int n_classes,
                   const int* first_tile, const int* emax,
@@ -347,9 +380,9 @@ int launch_family(const void* tsrc, const void* tld, const void* tw,
     slots += (long long)tiles * emax[c];
   }
   a.ct.first_tile[n_classes] = first_tile[n_classes];
-  // float4 loads need 16-byte rows: f % 4 == 0, an aligned base and part
-  // stride
-  if (vec == 4 && (f % 4 != 0 || (uintptr_t)table % 16 != 0 ||
+  // vector loads need whole 4-column vectors per row: f % 4 == 0, a base
+  // aligned to 4 * sizeof(T) bytes and a part stride of whole vectors
+  if (vec == 4 && (f % 4 != 0 || (uintptr_t)table % (4 * sizeof(T)) != 0 ||
                    table_part_stride % 4 != 0))
     return (int)cudaErrorMisalignedAddress;
   // this library carries its own CUDA runtime: select the tensors' device
@@ -359,7 +392,7 @@ int launch_family(const void* tsrc, const void* tld, const void* tw,
   a.tsrc = (const int32_t*)tsrc;
   a.tld = (const int32_t*)tld;
   a.tw = tw;
-  a.table = (const float*)table;
+  a.table = table;
   a.out = (float*)out;
   a.tb = tb;
   a.n_rows = n_rows;
@@ -376,21 +409,21 @@ int launch_family(const void* tsrc, const void* tld, const void* tw,
   while (g < nvec && g < 32) g <<= 1;
   const int nv = nvec <= 32 ? 1 : nvec <= 64 ? 2 : 4;
   if (vec == 4) {
-    if (nv == 1 && g <= 8) return launch<W, 4, 8, 1>(a, k, t_all, st);
-    if (nv == 1 && g == 16) return launch<W, 4, 16, 1>(a, k, t_all, st);
-    if (nv == 1) return launch<W, 4, 32, 1>(a, k, t_all, st);
-    if (nv == 2) return launch<W, 4, 32, 2>(a, k, t_all, st);
-    return launch<W, 4, 32, 4>(a, k, t_all, st);
+    if (nv == 1 && g <= 8) return launch<W, T, 4, 8, 1>(a, k, t_all, st);
+    if (nv == 1 && g == 16) return launch<W, T, 4, 16, 1>(a, k, t_all, st);
+    if (nv == 1) return launch<W, T, 4, 32, 1>(a, k, t_all, st);
+    if (nv == 2) return launch<W, T, 4, 32, 2>(a, k, t_all, st);
+    return launch<W, T, 4, 32, 4>(a, k, t_all, st);
   }
   switch (nv == 1 ? g : 32 * nv) {
-    case 1: return launch<W, 1, 1, 1>(a, k, t_all, st);
-    case 2: return launch<W, 1, 2, 1>(a, k, t_all, st);
-    case 4: return launch<W, 1, 4, 1>(a, k, t_all, st);
-    case 8: return launch<W, 1, 8, 1>(a, k, t_all, st);
-    case 16: return launch<W, 1, 16, 1>(a, k, t_all, st);
-    case 32: return launch<W, 1, 32, 1>(a, k, t_all, st);
-    case 64: return launch<W, 1, 32, 2>(a, k, t_all, st);
-    default: return launch<W, 1, 32, 4>(a, k, t_all, st);
+    case 1: return launch<W, T, 1, 1, 1>(a, k, t_all, st);
+    case 2: return launch<W, T, 1, 2, 1>(a, k, t_all, st);
+    case 4: return launch<W, T, 1, 4, 1>(a, k, t_all, st);
+    case 8: return launch<W, T, 1, 8, 1>(a, k, t_all, st);
+    case 16: return launch<W, T, 1, 16, 1>(a, k, t_all, st);
+    case 32: return launch<W, T, 1, 32, 1>(a, k, t_all, st);
+    case 64: return launch<W, T, 1, 32, 2>(a, k, t_all, st);
+    default: return launch<W, T, 1, 32, 4>(a, k, t_all, st);
   }
 }
 
@@ -404,21 +437,22 @@ int launch_family(const void* tsrc, const void* tld, const void* tw,
 // slot_off[c] of a part (first_tile, emax, slot_off: host arrays of
 // n_classes + 1, n_classes, n_classes entries).  Table part p is (n_rows, f)
 // row-major at p * table_part_stride; out part p is (first_tile[n] * tb, f)
-// row-major at p * out_part_stride.  vec = 4 reads 16 bytes per lane (f % 4
-// == 0, 16-byte aligned table and part stride), vec = 1 one float.
+// row-major at p * out_part_stride.  vec = 4 reads 4 columns per lane in
+// one load (f % 4 == 0, table and part stride aligned to 4 columns), vec = 1
+// one column.
 // Launches on `stream` of CUDA device `device`, does not synchronize, and
 // returns the cudaError_t of the launch (cudaGetLastError()).  `tw` is
-// float32 (K1: Â's values).
+// float32 (K1: Â's values), the table float32.
 extern "C" int sgcn_tile_spmm_family_f32(
     const void* tsrc, const void* tld, const void* tw, const void* table,
     void* out, int k, int n_classes, const int* first_tile, const int* emax,
     const long long* slot_off, int tb, int n_rows, int f, int vec,
     long long idx_part_stride, long long table_part_stride,
     long long out_part_stride, int device, void* stream) {
-  return launch_family<float>(tsrc, tld, tw, table, out, k, n_classes,
-                              first_tile, emax, slot_off, tb, n_rows, f, vec,
-                              idx_part_stride, table_part_stride,
-                              out_part_stride, device, stream);
+  return launch_family<float, float>(
+      tsrc, tld, tw, table, out, k, n_classes, first_tile, emax, slot_off,
+      tb, n_rows, f, vec, idx_part_stride, table_part_stride, out_part_stride,
+      device, stream);
 }
 
 // The same launch with int8 0/1 weights (K5, the GAT attention passes:
@@ -433,10 +467,40 @@ extern "C" int sgcn_tile_spmm_family_mask_f32(
     const long long* slot_off, int tb, int n_rows, int f, int vec,
     long long idx_part_stride, long long table_part_stride,
     long long out_part_stride, int device, void* stream) {
-  return launch_family<int8_t>(tsrc, tld, tw, table, out, k, n_classes,
-                               first_tile, emax, slot_off, tb, n_rows, f, vec,
-                               idx_part_stride, table_part_stride,
-                               out_part_stride, device, stream);
+  return launch_family<int8_t, float>(
+      tsrc, tld, tw, table, out, k, n_classes, first_tile, emax, slot_off,
+      tb, n_rows, f, vec, idx_part_stride, table_part_stride, out_part_stride,
+      device, stream);
+}
+
+// The two launches above on a bfloat16 table (`table` holds __nv_bfloat16,
+// the part stride counts bf16 elements): spmm_pallas's bf16 flavor, which
+// the reference feeds under compute_dtype='bfloat16' (K1, K3, K4), and the
+// GAT passes over bf16 attention tables (K5).  Each value is widened to
+// float32 exactly as it is loaded; the chain, the pads and the float32
+// output are the float table's.
+extern "C" int sgcn_tile_spmm_family_bf16(
+    const void* tsrc, const void* tld, const void* tw, const void* table,
+    void* out, int k, int n_classes, const int* first_tile, const int* emax,
+    const long long* slot_off, int tb, int n_rows, int f, int vec,
+    long long idx_part_stride, long long table_part_stride,
+    long long out_part_stride, int device, void* stream) {
+  return launch_family<float, __nv_bfloat16>(
+      tsrc, tld, tw, table, out, k, n_classes, first_tile, emax, slot_off,
+      tb, n_rows, f, vec, idx_part_stride, table_part_stride, out_part_stride,
+      device, stream);
+}
+
+extern "C" int sgcn_tile_spmm_family_mask_bf16(
+    const void* tsrc, const void* tld, const void* tw, const void* table,
+    void* out, int k, int n_classes, const int* first_tile, const int* emax,
+    const long long* slot_off, int tb, int n_rows, int f, int vec,
+    long long idx_part_stride, long long table_part_stride,
+    long long out_part_stride, int device, void* stream) {
+  return launch_family<int8_t, __nv_bfloat16>(
+      tsrc, tld, tw, table, out, k, n_classes, first_tile, emax, slot_off,
+      tb, n_rows, f, vec, idx_part_stride, table_part_stride, out_part_stride,
+      device, stream);
 }
 
 extern "C" const char* sgcn_cuda_error_string(int code) {

@@ -27,8 +27,26 @@ carries the JAX package's params across unchanged.
 Both transports: the dense a2a exchange and the ragged ring
 (``comm_schedule='ragged'``: the tables ride ``ops/pspmm.py::
 ring_concat`` and the pass reads ``[local ‖ ring concat]``), bit for bit
-the same.  Not ported: the packed bf16 table form (ROADMAP A6), the
-asymmetric ``gat_layer_local`` (A2) and the sub-graph stabilizers (A11).
+the same.
+
+Mixed precision (``compute_dtype='bfloat16'``, the reference's
+``--dtype bfloat16``): each layer casts ``w``, ``a2`` and ``h`` to bf16
+inside ``GatLayerSym`` (``z = h·w`` in bf16; the scores' ``u`` and the
+stabilizer in float32) and returns float32 rows and float32 gradients,
+as the reference's custom VJP does.  An even ``fout`` ships the
+reference's ``'packed'`` form: ``u·z`` in bf16, bit-paired into
+``fout/2`` float32 words, beside ``u`` in float32 — one ``(fout/2 + 1)``
+-word table on the wire; an odd ``fout`` keeps the fused or split form
+with bf16 tables.  The reference runs its bf16 GAT on the ELL slot pass,
+not on its kernel: ``use_pallas_spmm`` carves it out because the kernel
+cannot read packed words.  The port unpacks the received words with a
+``Tensor.view`` before its kernel — the feature lanes as a bf16 table, the
+``u`` lane as a float32 one — so it computes the same function, every
+in-edge summed in float32, on the combined-edge tiles it already builds,
+through the kernel's bf16 entry point (the order of each row's sum is the
+tiles', not the ELL buckets').  The ELL path stays ROADMAP item A2.  Not
+ported: the asymmetric ``gat_layer_local`` (A2) and the sub-graph
+stabilizers (A11).
 """
 
 from __future__ import annotations
@@ -39,8 +57,8 @@ import numpy as np
 import torch
 from torch import nn
 
-from ..ops.pspmm import halo_exchange, ring_concat
-from ..ops.tile_spmm import gat_tiles_pass, spmm_tiles
+from ..ops.pspmm import halo_exchange, narrow_dtype, ring_concat
+from ..ops.tile_spmm import gat_tiles_pass, k5_launches
 from .activations import get_activation
 
 # plan arrays the tile-kernel GAT forward ships (the reference's
@@ -69,12 +87,21 @@ def score_project(z, a2):
     return (z * a2).sum(dim=-1)
 
 
-def gat_exchange_lane_widths(widths):
+def gat_exchange_lane_widths(widths, compute_dtype=None):
     """Per-layer wire width of the GAT attention-table exchange in
     f32-lane equivalents, the reference's lane model: ``fout + 1`` for the
-    f32 fused table and the split pair alike (the bf16 forms are not
-    ported, A6)."""
-    return [int(fout) + 1 for fout in widths]
+    f32 fused table and the split pair alike; under bf16 compute
+    ``fout/2 + 1`` for the packed table (even ``fout``) and
+    ``(fout + 1)/2`` for the ``fout + 1`` bf16 lanes of an odd one."""
+    bf16 = _is_bf16(compute_dtype)
+    out = []
+    for fout in widths:
+        fout = int(fout)
+        if bf16:
+            out.append(fout // 2 + 1 if fout % 2 == 0 else (fout + 1) // 2)
+        else:
+            out.append(fout + 1)
+    return out
 
 
 def _fused_form(fout: int) -> bool:
@@ -83,17 +110,44 @@ def _fused_form(fout: int) -> bool:
     return fout + 1 <= FUSED_MAX_LANES
 
 
+def _is_bf16(dtype) -> bool:
+    """Whether a compute dtype (the reference's name, a torch dtype or
+    ``None``) is bf16."""
+    return dtype in ("bfloat16", torch.bfloat16)
+
+
+def _widened(x):
+    """``x`` in float32 if it is bf16, else as it is (float32, or the
+    float64 of the gradient checks): the reference's ``astype(float32)``
+    of the layer's scores and backward operands."""
+    return x.float() if x.dtype == torch.bfloat16 else x
+
+
 def gat_table_form(fout: int, compute_dtype=None) -> str:
     """The table form one GAT exchange ships at width ``fout``:
-    ``'fused'`` (one ``(·, fout+1)`` table, one kernel pass) or
-    ``'split'`` (feature rows and the scalar ``u`` as two tables, two
-    passes).  Both directions ship the same form.  The reference's third
-    form, ``'packed'`` bf16, is not ported yet."""
-    if compute_dtype not in (None, "float32", torch.float32):
-        raise NotImplementedError(
-            f"GAT compute dtype {compute_dtype!r} (the packed bf16 table "
-            "form) is not ported yet (ROADMAP item A6)")
+    ``'fused'`` (one ``(·, fout+1)`` table, one kernel pass), ``'split'``
+    (feature rows and the scalar ``u`` as two tables, two passes) or,
+    under bf16 compute at an even ``fout``, ``'packed'`` (the bit-paired
+    ``(·, fout/2 + 1)`` float32 table, two passes).  Both directions ship
+    the same form.  ``compute_dtype``: ``None``, ``'bfloat16'`` or a
+    torch dtype (the layer's own)."""
+    if _is_bf16(compute_dtype) and fout % 2 == 0:
+        return "packed"
     return "fused" if _fused_form(fout) else "split"
+
+
+def _pack_rows(x16):
+    """``(..., f)`` bf16 → ``(..., f/2)`` float32 words, bit-pairing
+    adjacent lanes (a bit cast, no copy of a contiguous input): the
+    reference's ``_pack_rows``."""
+    return x16.contiguous().view(torch.float32)
+
+
+def _unpack_rows(xp):
+    """``(..., f/2)`` float32 words → ``(..., f)`` bf16, row-major (the
+    inverse of ``_pack_rows``; a strided input is copied to contiguous
+    rows first, as the kernel reads row-major tables)."""
+    return xp.contiguous().view(torch.bfloat16)
 
 
 def init_gat_params(generator: torch.Generator, dims, device="cpu"):
@@ -165,6 +219,14 @@ def _gat_tiles_aggregate(p, s, form, send_idx, halo_src, csrc, cld, cw,
     kernel column is summed on its own in stored edge order, so the two
     forms give the same bits.
 
+    ``form='packed'`` (bf16 compute, even ``fout``): ``p`` is bf16 and
+    ``s`` float32; the exchange ships one ``(k, b, fout/2 + 1)`` float32
+    table, ``p`` bit-packed beside ``s`` (the reference's
+    ``_packed_aggregate`` wire), and the received words unpack to a bf16
+    feature table and a float32 scalar table, each ``[local; halo]``,
+    for two passes (the bf16 one at width ``fout``, the float32 one at
+    width 1).
+
     ``rr_sizes`` given selects the ragged ring: ``send_idx`` is then the
     ring's ``rsend_idx``, ``halo_src`` is unused and ``csrc`` the
     ring-re-based ``ptile_crsrc``; the pass reads ``[local ‖ ring
@@ -174,6 +236,17 @@ def _gat_tiles_aggregate(p, s, form, send_idx, halo_src, csrc, cld, cw,
     the a2a flavor.  Returns ``(N (k, b, fout), D (k, b))``."""
     b, fout = p.shape[1], p.shape[2]
     ragged = rr_sizes is not None
+    if form == "packed":
+        half = fout // 2
+        table = torch.cat([_pack_rows(p), s[..., None]], dim=-1)
+        halo = (ring_concat(table, send_idx, rr_sizes) if ragged
+                else halo_exchange(table, send_idx, halo_src))
+        full_p = torch.cat([p, _unpack_rows(halo[..., :half])], dim=1)
+        full_u = torch.cat([s, halo[..., half]], dim=1)
+        num = gat_tiles_pass(csrc, cld, cw, full_p, cclasses, tb, b)
+        den = gat_tiles_pass(csrc, cld, cw, full_u[..., None], cclasses, tb,
+                             b)[..., 0]
+        return num, den
     if form == "fused":
         table = torch.cat([p, s[..., None]], dim=-1)
         halo = (ring_concat(table, send_idx, rr_sizes) if ragged
@@ -182,8 +255,8 @@ def _gat_tiles_aggregate(p, s, form, send_idx, halo_src, csrc, cld, cw,
         out = gat_tiles_pass(csrc, cld, cw, full, cclasses, tb, b)
         return out[..., :fout], out[..., fout]
     if form != "split":
-        raise ValueError(f"the tile GAT pass takes the fused/split table "
-                         f"forms, not {form!r}")
+        raise ValueError(f"the tile GAT pass takes the fused, split and "
+                         f"packed table forms, not {form!r}")
     if ragged:
         ring = ring_concat(torch.cat([p, s[..., None]], dim=-1), send_idx,
                            rr_sizes)
@@ -205,18 +278,23 @@ def _gat_factored_fwd_core(w, a2, h, send_idx, halo_src, csrc, cld, cw,
     ``(out, z, u, den, cg)``.  ``cg`` is the max of ``z2`` over every
     part's real rows (the reference's ``pmax``, pad rows excluded),
     without gradient: ``out`` is exactly invariant to it.  ``rr_sizes``
-    selects the ragged ring (``_gat_tiles_aggregate``)."""
+    selects the ragged ring (``_gat_tiles_aggregate``).  ``w``, ``a2``
+    and ``h`` in bf16 run the layer in bf16 (``z`` bf16; ``u``, ``cg``,
+    the sums and ``out`` float32, as in the reference)."""
     z = h @ w
-    z2 = score_project(z, a2)
+    z2 = _widened(score_project(z, a2))
     z2m = torch.where(row_valid > 0, z2.detach(),
                       torch.full_like(z2, -math.inf))
     cg = z2m.max()
     u = torch.exp(z2 - cg)                           # (k, b) in (0, 1]
     if form is None:
-        form = gat_table_form(z.shape[-1])
-    num, den = _gat_tiles_aggregate(u[..., None] * z, u, form, send_idx,
-                                    halo_src, csrc, cld, cw, tb, cclasses,
-                                    rr_sizes)
+        form = gat_table_form(z.shape[-1], z.dtype)
+    # the packed form keeps u in float32 beside the bf16 u·z; the others
+    # ship both in z's dtype
+    s = u if form == "packed" else u.to(z.dtype)
+    num, den = _gat_tiles_aggregate(u.to(z.dtype)[..., None] * z, s, form,
+                                    send_idx, halo_src, csrc, cld, cw, tb,
+                                    cclasses, rr_sizes)
     # max(den, tiny): u > 0 on every real edge, so this stays exact until
     # genuine f32 underflow; the reference's guard, kept as it is
     out = num / torch.clamp(den, min=1e-30)[..., None]
@@ -237,6 +315,15 @@ class GatLayerSym(torch.autograd.Function):
     (``send_idx`` is then ``rsend_idx``, ``halo_src`` is ``None`` and
     ``csrc`` is ``ptile_crsrc``).
 
+    ``compute_dtype='bfloat16'`` casts ``w``, ``a2`` and ``h`` to bf16
+    inside the layer (the reference's mixed-precision layer): the forward
+    runs in bf16 and returns float32 rows; the backward's tables are the
+    forward's form (the packed one with the cotangent ``ḡ/D`` rounded to
+    bf16 and ``dd`` in float32, ``sgcn_tpu/models/gat.py:659-662``; the
+    fused and split ones in float32), its matmuls run in float32 on the
+    bf16 values, and the gradients return unrounded in the inputs' own
+    dtypes, as the reference's VJP hands float32 cotangents to its casts.
+
     ``GatLayerSym.backward_launches`` counts the kernel launches the
     backward made (CUDA tensors only)."""
 
@@ -244,40 +331,51 @@ class GatLayerSym(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, w, a1, a2, h, send_idx, halo_src, csrc, cld, cw,
-                row_valid, tb, cclasses, form=None, rr_sizes=None):
+                row_valid, tb, cclasses, form=None, rr_sizes=None,
+                compute_dtype=None):
+        dt = narrow_dtype(compute_dtype, "compute_dtype")
+        dtypes = (w.dtype, a2.dtype, h.dtype)
+        if dt is not None:
+            w, a2, h = w.to(dt), a2.to(dt), h.to(dt)
         if form is None:
-            form = gat_table_form(w.shape[1])
+            form = gat_table_form(w.shape[1], w.dtype)
         out, _z, _u, den, cg = _gat_factored_fwd_core(
             w, a2, h, send_idx, halo_src, csrc, cld, cw, row_valid, tb,
             cclasses, form, rr_sizes)
         ctx.save_for_backward(w, a1, a2, h, cg, den, out, send_idx,
                               halo_src, csrc, cld, cw)
-        ctx.static = (tb, cclasses, form, rr_sizes)
+        ctx.static = (tb, cclasses, form, rr_sizes, dtypes)
         return out
 
     @staticmethod
     def backward(ctx, gbar):
         (w, a1, a2, h, cg, den, out, send_idx, halo_src, csrc, cld,
          cw) = ctx.saved_tensors
-        tb, cclasses, form, rr_sizes = ctx.static
-        before = spmm_tiles.mask_launches
+        tb, cclasses, form, rr_sizes, dtypes = ctx.static
+        before = k5_launches()
         z = h @ w                                    # recomputed
         fin, fout = w.shape
-        u = torch.exp(score_project(z, a2) - cg)
+        u = torch.exp(_widened(score_project(z, a2)) - cg)
         dng = torch.clamp(den, min=1e-30)            # the forward's guard
         dn = gbar / dng[..., None]                   # (k, b, fout)
         dd = -(gbar * out).sum(dim=-1) / dng         # (k, b)
+        if form == "packed":
+            dn = dn.to(torch.bfloat16)
         dp, du_agg = _gat_tiles_aggregate(dn, dd, form, send_idx, halo_src,
                                           csrc, cld, cw, tb, cclasses,
                                           rr_sizes)
-        # p = u·z, u = exp(z2 − C): chain rules (C is constant a.e.)
+        # p = u·z, u = exp(z2 − C): chain rules (C is constant a.e.), in
+        # float32 on bf16 operands under mixed precision
+        w, a2, h, z = (_widened(x) for x in (w, a2, h, z))
         dz2 = u * ((dp * z).sum(dim=-1) + du_agg)
         dz_total = u[..., None] * dp + dz2[..., None] * a2
-        dh = dz_total @ w.T if ctx.needs_input_grad[3] else None
-        dw = h.reshape(-1, fin).T @ dz_total.reshape(-1, fout)
-        da2 = z.reshape(-1, fout).T @ dz2.reshape(-1)
-        GatLayerSym.backward_launches += spmm_tiles.mask_launches - before
-        return (dw, torch.zeros_like(a1), da2, dh) + (None,) * 10
+        dh = (dz_total @ w.T).to(dtypes[2]) if ctx.needs_input_grad[3] \
+            else None
+        dw = (h.reshape(-1, fin).T @ dz_total.reshape(-1, fout)) \
+            .to(dtypes[0])
+        da2 = (z.reshape(-1, fout).T @ dz2.reshape(-1)).to(dtypes[1])
+        GatLayerSym.backward_launches += k5_launches() - before
+        return (dw, torch.zeros_like(a1), da2, dh) + (None,) * 11
 
 
 def gat_forward_local(
@@ -293,12 +391,15 @@ def gat_forward_local(
     pallas_cclasses: tuple = (),    # static combined tile classes
     comm_schedule: str = "a2a",     # static: 'a2a' or 'ragged' (the ring)
     rr_sizes: tuple | None = None,  # static plan.rr_sizes (ragged)
+    compute_dtype: str | None = None,  # 'bfloat16': every layer in bf16
 ):
     """Stacked forward: L × (``GatLayerSym`` → activation) →
-    ``(k, B, nout)``.  The reference stacks bare PGAT layers (no
+    ``(k, B, nout)`` float32.  The reference stacks bare PGAT layers (no
     inter-layer activation by default).  Under ``comm_schedule='ragged'``
     both directions of every layer ride the ring, bit-identical to the
-    a2a flavor."""
+    a2a flavor.  ``compute_dtype='bfloat16'`` runs every layer in bf16
+    (``GatLayerSym``), each on its float32 input cast to bf16 — the
+    reference's cast of ``h`` between layers."""
     if not symmetric:
         raise NotImplementedError(
             "gat_layer_local (asymmetric edge patterns, autodiff through "
@@ -321,7 +422,7 @@ def gat_forward_local(
         h = GatLayerSym.apply(
             p["w"], p["a1"], p["a2"], h, *ex, pa["ptile_cld"],
             pa["ptile_cw"], pa["row_valid"], pallas_tb, pallas_cclasses,
-            None, rr_sizes)
+            None, rr_sizes, compute_dtype)
         h = fact(h) if i == nl - 1 else act(h)
     return h
 

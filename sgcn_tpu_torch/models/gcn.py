@@ -23,6 +23,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.pspmm import narrow_dtype
 from ..ops.tile_spmm import pspmm_tiles_ragged, pspmm_tiles_sym
 from .activations import get_activation
 
@@ -86,16 +87,31 @@ def gcn_forward_local(
     comm_schedule: str = "a2a",     # static: 'a2a' (dense exchange) or
                                     # 'ragged' (the ring)
     rr_sizes: tuple | None = None,  # static plan.rr_sizes (ragged)
+    halo_dtype: str | None = None,  # wire-only exchange dtype ('bfloat16')
+    compute_dtype: str | None = None,  # the forward's dtype ('bfloat16'):
+                                    # the weights and h are cast to it
 ):
     """Stacked forward: L × (tile pspmm ⊗ dense matmul → activation) →
     ``(k, B, nout)``.  A wide input narrowed by the layer is projected
     first (``(Â·H)·W = Â·(H·W)``), so the exchange and the SpMM touch the
     narrower rows — the reference's rule and threshold.  Under
     ``comm_schedule='ragged'`` each aggregation rides the ring
-    (``pspmm_tiles_ragged``), bit-identical to the a2a flavor."""
+    (``pspmm_tiles_ragged``), bit-identical to the a2a flavor.
+
+    ``halo_dtype`` narrows every exchange's wire (both aggregations and,
+    in training, their backward).  ``compute_dtype='bfloat16'`` runs the
+    layers in bf16, as the reference's trainer does under mixed precision
+    (``sgcn_tpu/train/fullbatch.py::_forward``): weights and ``h`` cast to
+    bf16 here (autograd carries float32 gradients back to float32 master
+    weights), bf16 tables into the kernel, each aggregation rounded once
+    to bf16, bf16 matmuls; the result stays bf16 (the caller upcasts)."""
     act = get_activation(activation)
     fact = get_activation(final_activation)
     nl = len(params)
+    dt = narrow_dtype(compute_dtype, "compute_dtype")
+    if dt is not None:
+        params = [w.to(dt) for w in params]
+        h = h.to(dt)
 
     if comm_schedule == "ragged":
         if rr_sizes is None:
@@ -107,14 +123,15 @@ def gcn_forward_local(
                 x, pa["rsend_idx"],
                 pa["ptile_lsrc"], pa["ptile_lld"], pa["ptile_lw"],
                 pa["ptile_hrsrc"], pa["ptile_hld"], pa["ptile_hw"],
-                pallas_tb, pallas_lclasses, pallas_hclasses, rr_sizes)
+                pallas_tb, pallas_lclasses, pallas_hclasses, rr_sizes,
+                halo_dtype)
     elif comm_schedule == "a2a":
         def agg(x):
             return pspmm_tiles_sym(
                 x, pa["send_idx"], pa["halo_src"],
                 pa["ptile_lsrc"], pa["ptile_lld"], pa["ptile_lw"],
                 pa["ptile_hsrc"], pa["ptile_hld"], pa["ptile_hw"],
-                pallas_tb, pallas_lclasses, pallas_hclasses)
+                pallas_tb, pallas_lclasses, pallas_hclasses, halo_dtype)
     else:
         raise ValueError(f"unknown comm_schedule {comm_schedule!r} (the "
                          "trainer resolves 'auto' before the forward)")

@@ -34,6 +34,15 @@ holds, in the reference's order:
     An int8 ``tw`` launches the kernel's int8 entry point, counted in
     ``spmm_tiles.mask_launches``.
 
+Tables are float32 or bfloat16, as ``spmm_pallas`` keeps its table in its
+own dtype and upcasts each row as it reads it; the output is float32
+either way.  A bf16 table launches the kernel's bf16 entry points, counted
+apart in ``spmm_tiles.bf16_launches`` and ``spmm_tiles.bf16_mask_launches``
+(``k1_launches``/``k5_launches`` sum each weight type over both tables).
+``_pspmm_tiles_once`` and its ragged flavor take the reference's
+``halo_dtype`` (the wire only) and return ``(local + remote)`` rounded once
+to the table's dtype, as ``_pspmm_pallas_once`` does.
+
 Every function takes the ``k`` parts stacked on a leading axis
 (``(k, ...)`` tile arrays and tables); the single-part 2-D forms are
 accepted by ``spmm_tiles``/``spmm_tiles_classes`` too.
@@ -127,7 +136,9 @@ def spmm_tiles_plain(tsrc, tld, tw, table, tb: int = 256):
 
     ``tsrc``/``tld``: int32 ``(k, T, Emax)`` (or ``(T, Emax)``); ``tw``
     float32, or int8 0/1 masks (upcast here), same shape; ``table``:
-    ``(k, N, f)`` (or ``(N, f)``).  Returns ``(k, T·tb, f)`` (or
+    ``(k, N, f)`` (or ``(N, f)``), float32 or bfloat16 — a bf16 table is
+    upcast to float32 here, exactly, before any product, as the kernel
+    widens each value it loads.  Returns ``(k, T·tb, f)`` (or
     ``(T·tb, f)``) float32 — float64 for a float64 table, which autograd
     can differentiate (the float64 gradient checks of the GAT layer).
     """
@@ -217,13 +228,26 @@ def check_tile_layout(flat_ld, classes, tb: int) -> None:
                 "in destination order")
 
 
-def vector_width(f: int, ptr: int, part_stride: int) -> int:
-    """Floats per lane load the kernel uses on a table: 4 (one 16-byte
-    load) when rows are whole 16-byte units — ``f % 4 == 0``, a 16-byte
-    aligned base and part stride — and wide enough (``f >= 32``) to fill a
-    group of 8 lanes; else 1."""
-    return 4 if (f % 4 == 0 and f >= 32 and ptr % 16 == 0
+def vector_width(f: int, ptr: int, part_stride: int, itemsize: int = 4) -> int:
+    """Columns per lane load the kernel uses on a table of ``itemsize``-byte
+    values: 4 (one load of ``4 * itemsize`` bytes: a float4, or 4 × bf16)
+    when rows are whole 4-column vectors — ``f % 4 == 0``, a base aligned
+    to ``4 * itemsize`` bytes and a part stride of whole vectors — and wide
+    enough (``f >= 32``) to fill a group of 8 lanes; else 1."""
+    return 4 if (f % 4 == 0 and f >= 32 and ptr % (4 * itemsize) == 0
                  and part_stride % 4 == 0) else 1
+
+
+# the kernel's entry points by (weights are masks, table dtype), and the
+# spmm_tiles counter each one's launches go to
+_ENTRIES = {
+    (False, torch.float32): ("sgcn_tile_spmm_family_f32", "launches"),
+    (True, torch.float32): ("sgcn_tile_spmm_family_mask_f32",
+                            "mask_launches"),
+    (False, torch.bfloat16): ("sgcn_tile_spmm_family_bf16", "bf16_launches"),
+    (True, torch.bfloat16): ("sgcn_tile_spmm_family_mask_bf16",
+                             "bf16_mask_launches"),
+}
 
 
 def _lib():
@@ -231,8 +255,8 @@ def _lib():
 
     lib = _build.load("tile_spmm")
     if not getattr(lib, "_sgcn_typed", False):
-        for fn in (lib.sgcn_tile_spmm_family_f32,
-                   lib.sgcn_tile_spmm_family_mask_f32):
+        for name, _counter in _ENTRIES.values():
+            fn = getattr(lib, name)
             fn.argtypes = (
                 [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2
                 + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
@@ -247,8 +271,8 @@ def _lib():
 def _launch_family(flat_src, flat_ld, flat_w, table, classes, tb: int):
     """One kernel launch over a whole tile family on CUDA tensors:
     ``flat_*`` ``(k, ΣT_c·Emax_c)`` (each part's slots contiguous, one
-    common part stride), ``table`` ``(k, N, f)`` row-major per part.
-    Returns ``(k, ΣT_c·tb, f)`` float32."""
+    common part stride), ``table`` ``(k, N, f)`` float32 or bfloat16,
+    row-major per part.  Returns ``(k, ΣT_c·tb, f)`` float32."""
     if not all(x.device == table.device for x in (flat_src, flat_ld, flat_w)):
         raise ValueError("tile arrays and table must be on the same device")
     if flat_src.dtype != torch.int32 or flat_ld.dtype != torch.int32:
@@ -281,26 +305,22 @@ def _launch_family(flat_src, flat_ld, flat_w, table, classes, tb: int):
     out = torch.empty((k, int(first[-1]) * tb, f), dtype=torch.float32,
                       device=table.device)
     lib = _lib()
-    mask = flat_w.dtype == torch.int8
-    entry = (lib.sgcn_tile_spmm_family_mask_f32 if mask
-             else lib.sgcn_tile_spmm_family_f32)
+    name, counter = _ENTRIES[(flat_w.dtype == torch.int8, table.dtype)]
     dev = table.device.index if table.device.index is not None \
         else torch.cuda.current_device()
-    rc = entry(
+    rc = getattr(lib, name)(
         flat_src.data_ptr(), flat_ld.data_ptr(), flat_w.data_ptr(),
         table.data_ptr(), out.data_ptr(), k, len(classes),
         first.ctypes.data, emax.ctypes.data, offs.ctypes.data, tb, n, f,
-        vector_width(f, table.data_ptr(), table.stride(0)),
+        vector_width(f, table.data_ptr(), table.stride(0),
+                     table.element_size()),
         flat_src.stride(0), table.stride(0), out.stride(0), dev,
         torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError(
             f"tile_spmm launch failed: "
             f"{lib.sgcn_cuda_error_string(rc).decode()} (cudaError {rc})")
-    if mask:
-        spmm_tiles.mask_launches += 1
-    else:
-        spmm_tiles.launches += 1
+    setattr(spmm_tiles, counter, getattr(spmm_tiles, counter) + 1)
     return out
 
 
@@ -309,10 +329,10 @@ def _on_cpu(table, *arrays):
     or device the port does not take."""
     cpu = table.device.type == "cpu" and all(
         x.device.type == "cpu" for x in arrays)
-    if table.dtype != torch.float32 and not (
+    if table.dtype not in (torch.float32, torch.bfloat16) and not (
             cpu and table.dtype == torch.float64):
-        raise TypeError(f"tile SpMM tables are float32 in this port "
-                        f"(got {table.dtype}; bf16 is ROADMAP item A6)")
+        raise TypeError(f"tile SpMM tables are float32 or bfloat16 (got "
+                        f"{table.dtype})")
     if not cpu and table.device.type != "cuda":
         raise ValueError(f"tile SpMM runs on cpu or cuda tensors, got "
                          f"{table.device}")
@@ -329,17 +349,19 @@ def spmm_tiles(tsrc, tld, tw, table, tb: int = 256):
         ``[0, tb)``, not decreasing along a tile's slots, and the weight:
         float32 (Â's values) or int8 (the GAT passes' 0/1 edge masks);
         pads carry weight 0 and dst ``tb-1``.
-      table: ``(k, N, f)`` float32 feature rows (``(N, f)`` for one part).
-        f32 only in this slice: bf16 tables are ROADMAP item A6 (the
-        plain version also takes float64, on the CPU only).
+      table: ``(k, N, f)`` float32 or bfloat16 feature rows (``(N, f)``
+        for one part); the plain version also takes float64, on the CPU
+        only.
 
     Returns ``(k, T·tb, f)`` float32 (``(T·tb, f)`` for one part); slice to
     the true row count.  On CPU tensors this is ``spmm_tiles_plain``; on
     CUDA tensors it launches the CUDA kernel on the current stream (no
     synchronize) — the float32-weight entry point, counted in
     ``spmm_tiles.launches``, or for an int8 ``tw`` the mask entry point,
-    counted in ``spmm_tiles.mask_launches``.  Any other device, dtype or
-    layout raises.
+    counted in ``spmm_tiles.mask_launches``; on a bfloat16 table their
+    bf16 flavors, counted in ``spmm_tiles.bf16_launches`` and
+    ``spmm_tiles.bf16_mask_launches``.  Any other device, dtype or layout
+    raises (a float16 table among them).
     """
     if _on_cpu(table, tsrc, tld, tw):
         return spmm_tiles_plain(tsrc, tld, tw, table, tb)
@@ -363,8 +385,20 @@ def spmm_tiles(tsrc, tld, tw, table, tb: int = 256):
     return out[0] if single else out
 
 
-spmm_tiles.launches = 0          # float32-weight entry (K1)
-spmm_tiles.mask_launches = 0     # int8 0/1-mask entry (K5)
+spmm_tiles.launches = 0              # float32-weight entry (K1)
+spmm_tiles.mask_launches = 0         # int8 0/1-mask entry (K5)
+spmm_tiles.bf16_launches = 0         # ... each on a bfloat16 table
+spmm_tiles.bf16_mask_launches = 0
+
+
+def k1_launches() -> int:
+    """Float32-weight launches (K1) on either table dtype."""
+    return spmm_tiles.launches + spmm_tiles.bf16_launches
+
+
+def k5_launches() -> int:
+    """Int8-mask launches (K5) on either table dtype."""
+    return spmm_tiles.mask_launches + spmm_tiles.bf16_mask_launches
 
 
 def spmm_tiles_classes(flat_src, flat_ld, flat_w, table, classes, tb: int):
@@ -472,15 +506,17 @@ def choose_tile_dispatch(plan, tb: int = 256, decision: dict | None = None,
 
 
 def _pspmm_tiles_once(h, send_idx, halo_src, lsrc, lld, lw, hsrc, hld, hw,
-                      tb, lclasses, hclasses):
+                      tb, lclasses, hclasses, halo_dtype=None):
     """``_pspmm_pallas_once`` over stacked parts: exchange the boundary
-    rows, run the tile kernel over the local table ``h`` and over the halo
-    table, and return ``local + remote`` sliced to the ``b`` owned rows."""
-    halo = halo_exchange(h, send_idx, halo_src)
+    rows (on a ``halo_dtype`` wire, if given), run the tile kernel over the
+    local table ``h`` and over the halo table, and return ``local +
+    remote`` sliced to the ``b`` owned rows: summed in float32, then
+    rounded once to ``h``'s dtype (``pallas_spmm.py:428``)."""
+    halo = halo_exchange(h, send_idx, halo_src, halo_dtype)
     b = h.shape[1]
     local = spmm_tiles_classes(lsrc, lld, lw, h, lclasses, tb)[:, :b]
     remote = spmm_tiles_classes(hsrc, hld, hw, halo, hclasses, tb)[:, :b]
-    return local + remote
+    return (local + remote).to(h.dtype)
 
 
 class PspmmTilesSym(torch.autograd.Function):
@@ -492,52 +528,58 @@ class PspmmTilesSym(torch.autograd.Function):
 
     ``PspmmTilesSym.backward_launches`` counts the tile-kernel launches
     the backward made (CUDA tensors only; the plain version on the CPU
-    launches nothing)."""
+    launches nothing).  ``halo_dtype`` narrows the wire of both
+    directions; the gradient ``g`` arrives in ``h``'s dtype."""
 
     backward_launches = 0
 
     @staticmethod
     def forward(ctx, h, send_idx, halo_src, lsrc, lld, lw, hsrc, hld, hw,
-                tb, lclasses, hclasses):
+                tb, lclasses, hclasses, halo_dtype=None):
         ctx.save_for_backward(send_idx, halo_src, lsrc, lld, lw, hsrc, hld,
                               hw)
-        ctx.static = (tb, lclasses, hclasses)
+        ctx.static = (tb, lclasses, hclasses, halo_dtype)
         return _pspmm_tiles_once(h, send_idx, halo_src, lsrc, lld, lw, hsrc,
-                                 hld, hw, tb, lclasses, hclasses)
+                                 hld, hw, tb, lclasses, hclasses, halo_dtype)
 
     @staticmethod
     def backward(ctx, g):
-        before = spmm_tiles.launches
+        before = k1_launches()
         # the incoming gradient may be a strided view (the [:, :b] slice,
         # a matmul's backward); the kernel reads row-major tables
         gh = _pspmm_tiles_once(g.contiguous(), *ctx.saved_tensors,
                                *ctx.static)
-        PspmmTilesSym.backward_launches += spmm_tiles.launches - before
-        return (gh,) + (None,) * 11
+        PspmmTilesSym.backward_launches += k1_launches() - before
+        return (gh,) + (None,) * 12
 
 
 def pspmm_tiles_sym(h, send_idx, halo_src, lsrc, lld, lw, hsrc, hld, hw,
-                    tb: int, lclasses, hclasses):
+                    tb: int, lclasses, hclasses, halo_dtype=None):
     """``pspmm_pallas_sym`` over stacked parts (``PspmmTilesSym``).
-    ``h``: ``(k, b, f)`` float32; returns ``(k, b, f)``.  Differentiable
-    in ``h``: the backward re-runs the op on the gradient."""
+    ``h``: ``(k, b, f)`` float32 or bfloat16; returns ``(k, b, f)`` in
+    ``h``'s dtype.  ``halo_dtype`` (``'bfloat16'``) narrows the exchange's
+    wire only.  Differentiable in ``h``: the backward re-runs the op on
+    the gradient."""
     return PspmmTilesSym.apply(h, send_idx, halo_src, lsrc, lld, lw, hsrc,
-                               hld, hw, tb, lclasses, hclasses)
+                               hld, hw, tb, lclasses, hclasses, halo_dtype)
 
 
 def _pspmm_tiles_ragged_once(h, rsend_idx, lsrc, lld, lw, rsrc, rld, rw,
-                             tb, lclasses, hclasses, rr_sizes):
+                             tb, lclasses, hclasses, rr_sizes,
+                             halo_dtype=None):
     """``_pspmm_pallas_ragged_once`` over stacked parts: the tile kernel
     over the local table ``h`` and over the ring's receive concat (the
-    halo tiles' sources re-based to ring positions), then
-    ``local + remote`` sliced to the ``b`` owned rows."""
-    ring = ring_concat(h, rsend_idx, rr_sizes)
+    halo tiles' sources re-based to ring positions; each round on a
+    ``halo_dtype`` wire, if given), then ``local + remote`` sliced to the
+    ``b`` owned rows, summed in float32 and rounded once to ``h``'s
+    dtype."""
+    ring = ring_concat(h, rsend_idx, rr_sizes, halo_dtype)
     b = h.shape[1]
     local = spmm_tiles_classes(lsrc, lld, lw, h, lclasses, tb)[:, :b]
     # the a2a flavor's halo tiles in the a2a flavor's edge order, reading
     # the same rows at their ring positions: the same bits
     remote = spmm_tiles_classes(rsrc, rld, rw, ring, hclasses, tb)[:, :b]
-    return local + remote
+    return (local + remote).to(h.dtype)
 
 
 class PspmmTilesRagged(torch.autograd.Function):
@@ -555,33 +597,36 @@ class PspmmTilesRagged(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, h, rsend_idx, lsrc, lld, lw, rsrc, rld, rw, tb,
-                lclasses, hclasses, rr_sizes):
+                lclasses, hclasses, rr_sizes, halo_dtype=None):
         ctx.save_for_backward(rsend_idx, lsrc, lld, lw, rsrc, rld, rw)
-        ctx.static = (tb, lclasses, hclasses, rr_sizes)
-        before = spmm_tiles.launches
+        ctx.static = (tb, lclasses, hclasses, rr_sizes, halo_dtype)
+        before = k1_launches()
         out = _pspmm_tiles_ragged_once(h, rsend_idx, lsrc, lld, lw, rsrc,
                                        rld, rw, tb, lclasses, hclasses,
-                                       rr_sizes)
-        PspmmTilesRagged.launches += spmm_tiles.launches - before
+                                       rr_sizes, halo_dtype)
+        PspmmTilesRagged.launches += k1_launches() - before
         return out
 
     @staticmethod
     def backward(ctx, g):
-        before = spmm_tiles.launches
+        before = k1_launches()
         gh = _pspmm_tiles_ragged_once(g.contiguous(), *ctx.saved_tensors,
                                       *ctx.static)
-        PspmmTilesRagged.backward_launches += spmm_tiles.launches - before
-        return (gh,) + (None,) * 11
+        PspmmTilesRagged.backward_launches += k1_launches() - before
+        return (gh,) + (None,) * 12
 
 
 def pspmm_tiles_ragged(h, rsend_idx, lsrc, lld, lw, rsrc, rld, rw,
-                       tb: int, lclasses, hclasses, rr_sizes):
+                       tb: int, lclasses, hclasses, rr_sizes,
+                       halo_dtype=None):
     """``pspmm_pallas_ragged`` over stacked parts (``PspmmTilesRagged``).
-    ``h``: ``(k, b, f)`` float32; ``rsrc`` the ring-re-based halo tile
-    sources (``ptile_hrsrc``); returns ``(k, b, f)``.  Differentiable in
-    ``h``: the backward re-runs the op on the gradient."""
+    ``h``: ``(k, b, f)`` float32 or bfloat16; ``rsrc`` the ring-re-based
+    halo tile sources (``ptile_hrsrc``); ``halo_dtype`` narrows each
+    round's wire; returns ``(k, b, f)`` in ``h``'s dtype.  Differentiable
+    in ``h``: the backward re-runs the op on the gradient."""
     return PspmmTilesRagged.apply(h, rsend_idx, lsrc, lld, lw, rsrc, rld, rw,
-                                  tb, lclasses, hclasses, rr_sizes)
+                                  tb, lclasses, hclasses, rr_sizes,
+                                  halo_dtype)
 
 
 def gat_tiles_pass(csrc, cld, cw, table, cclasses, tb: int, num_rows: int):
@@ -590,7 +635,8 @@ def gat_tiles_pass(csrc, cld, cw, table, cclasses, tb: int, num_rows: int):
     weights ``cw`` (int8 as the trainer ships them: on CUDA the kernel's
     mask entry point converts each in the kernel, on the CPU the plain
     version upcasts).  ``table``: the ``(k, B+R, lanes)`` ``[local; halo]``
-    rows of whichever form the layer ships — the fused ``[p ‖ u]`` table
-    or one of the split pair.  Returns ``(k, num_rows, lanes)`` float32."""
+    rows of whichever form the layer ships — the fused ``[p ‖ u]`` table,
+    one of the split pair, or one lane group of the packed bf16 form —
+    float32 or bfloat16.  Returns ``(k, num_rows, lanes)`` float32."""
     return spmm_tiles_classes(csrc, cld, cw, table, cclasses,
                               tb)[:, :num_rows]

@@ -10,9 +10,10 @@ Same flag names as ``python -m sgcn_tpu.serve`` for the subset ported
 here, plus ``--device {cuda,cpu}`` (default cuda; without a GPU the run
 fails unless ``--device cpu`` is given).  ``--comm-schedule
 {a2a,ragged,auto}`` picks the halo transport (default
-``$SGCN_COMM_SCHEDULE``, else a2a).  Flags whose feature is not ported
-are not defined (checkpoints, bf16 wire, sub-graph mode, concurrent
-dispatch, metrics, memory budget, shedding, checkpoint watching).  Prints ONE JSON line: achieved QPS, p50/p95/p99
+``$SGCN_COMM_SCHEDULE``, else a2a); ``--halo-dtype bfloat16`` narrows the
+GCN exchange's wire.  Flags whose feature is not ported are not defined
+(checkpoints, sub-graph mode, concurrent dispatch, metrics, memory
+budget, shedding, checkpoint watching).  Prints ONE JSON line: achieved QPS, p50/p95/p99
 latency and the batching/wire gauges, under the reference's keys.
 """
 
@@ -68,6 +69,8 @@ def main(argv=None) -> None:
                         "bits, fewer wire rows on skewed partitions), auto "
                         "= ragged when the a2a's padding efficiency is "
                         "below 0.5; unset reads $SGCN_COMM_SCHEDULE")
+    p.add_argument("--halo-dtype", default=None, choices=["bfloat16"],
+                   help="wire-only exchange dtype (GCN)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="where the forward runs (default cuda; no CPU "
@@ -128,7 +131,8 @@ def main(argv=None) -> None:
 
     engine = ServeEngine(
         plan, fin=f, widths=widths, model=args.model,
-        comm_schedule=args.comm_schedule, max_batch=args.max_batch,
+        comm_schedule=args.comm_schedule, halo_dtype=args.halo_dtype,
+        max_batch=args.max_batch,
         buckets=buckets, latency_budget_ms=args.latency_budget_ms,
         seed=args.seed, device=device)
     engine.set_features(feats)

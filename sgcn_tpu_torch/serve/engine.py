@@ -1,6 +1,7 @@
 """Partitioned inference engine, full-forward mode (port of
 ``sgcn_tpu/serve/engine.py``, ``mode='full'``, GCN or GAT, float32, over
-the dense a2a exchange or the ragged ring).
+the dense a2a exchange or the ragged ring; for GCN the reference's
+``halo_dtype`` wire lever).
 
 Each micro-batch runs the whole partitioned forward over the ``k`` parts
 stacked on one device — halo exchange, tile SpMM, projection, activation
@@ -27,6 +28,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..ops.pspmm import narrow_dtype
 from ..train.fullbatch import check_param_dims, resolve_forward_setup
 from ..utils.backend import device_name, resolve_device, synchronize
 from ..utils.timers import PhaseTimer, SpanTimer
@@ -62,6 +64,7 @@ class ServeEngine:
         widths: list[int],
         model: str = "gcn",
         comm_schedule: str | None = None,
+        halo_dtype: str | None = None,
         params=None,
         max_batch: int = 64,
         buckets: tuple | None = None,
@@ -79,7 +82,14 @@ class ServeEngine:
         means ``cuda`` and raises without a GPU; pass ``"cpu"`` to run on
         the CPU.  ``comm_schedule``: ``'a2a'``, ``'ragged'``, ``'auto'``
         or ``None`` (``$SGCN_COMM_SCHEDULE``), resolved as the trainer
-        resolves it (``resolve_forward_setup``)."""
+        resolves it (``resolve_forward_setup``).  ``halo_dtype``
+        (``'bfloat16'``, GCN only): every exchange ships bf16 rows, every
+        table and sum stays float32."""
+        if halo_dtype is not None and model != "gcn":
+            raise ValueError(
+                "halo_dtype is a GCN wire lever; the GAT exchange ships "
+                "attention tables (same rule as the trainer)")
+        narrow_dtype(halo_dtype)
         self.device = resolve_device(device)
         self.plan = plan
         self.fin = int(fin)
@@ -87,6 +97,7 @@ class ServeEngine:
         self.setup = resolve_forward_setup(plan, model=model,
                                            comm_schedule=comm_schedule)
         self.comm_schedule = self.setup.comm_schedule
+        self.halo_dtype = halo_dtype
         self.activation = self.setup.activation
         self.router = VertexRouter(plan)
         self.batcher = MicroBatcher(
@@ -102,9 +113,12 @@ class ServeEngine:
             params = self.setup.init_fn(torch.Generator().manual_seed(seed),
                                         dims)
         check_param_dims(params, dims)
+        fwd_static = dict(self.setup.fwd_static)
+        if halo_dtype is not None:
+            fwd_static["halo_dtype"] = halo_dtype
         self.model = self.setup.module(
             params, activation=self.activation, final_activation="none",
-            fwd_static=self.setup.fwd_static).to(self.device)
+            fwd_static=fwd_static).to(self.device)
         self.pa = self.setup.ship_arrays(plan, self.device)
         self._h0 = None                    # set_features()
         self.compile_count = 0             # no per-bucket compile (yet)
@@ -189,6 +203,7 @@ class ServeEngine:
         return {
             "serve_mode": "full",
             "comm_schedule": self.comm_schedule,
+            "halo_dtype": self.halo_dtype,
             "exchanges_per_batch": self.nlayers,
             "wire_rows_per_exchange": wire,
             "true_rows_per_exchange": true,

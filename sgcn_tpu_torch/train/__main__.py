@@ -11,9 +11,12 @@ here, with ``--device {cuda,cpu}`` (default cuda; without a GPU the run
 fails unless ``--device cpu`` is given) in place of ``-b/--backend``.
 ``--comm-schedule {a2a,ragged,auto}`` picks the halo transport (default
 ``$SGCN_COMM_SCHEDULE``, else a2a); ``ragged`` does not compose with
-``--experiment accuracy``, as in the reference.  Flags whose feature is
-not ported are not defined (mini-batch, precision and wire levers, stale
-halos, replicas, checkpoints, profiling, metrics, memory budget).  Prints ONE JSON line:
+``--experiment accuracy``, as in the reference.  ``--dtype bfloat16`` is
+the mixed-precision step (float32 master weights, bf16 forward and
+backward) and ``--halo-dtype bfloat16`` the GCN wire-only lever, with the
+reference's flag guards.  Flags whose feature is not ported are not
+defined (mini-batch, stale halos, replicas, checkpoints, profiling,
+metrics, memory budget).  Prints ONE JSON line:
 the comm report and epoch timing under the reference's keys, or with
 ``--experiment accuracy`` the oracle's and the partitioned trainer's
 test accuracy.
@@ -44,6 +47,12 @@ def main(argv=None) -> None:
     p.add_argument("--loss", default="xent", choices=["xent", "bce"],
                    help="xent = log-softmax + NLL; bce = sigmoid + BCE "
                         "with the reported `err` metric")
+    p.add_argument("--dtype", default=None, choices=["bfloat16"],
+                   help="mixed-precision compute (f32 master params)")
+    p.add_argument("--halo-dtype", default=None, choices=["bfloat16"],
+                   help="wire-only exchange dtype: halves the exchange's "
+                        "bytes, all compute stays f32 (full-batch GCN "
+                        "only)")
     p.add_argument("--epochs", type=int, default=4)
     p.add_argument("--warmup", type=int, default=1)
     p.add_argument("--lr", type=float, default=0.01)
@@ -77,6 +86,17 @@ def main(argv=None) -> None:
                         "fallback)")
     args = p.parse_args(argv)
 
+    # pure flag conflicts fail before any dataset load (the reference's
+    # guards, with its words)
+    if args.halo_dtype and (args.model != "gcn"
+                            or args.experiment == "accuracy"
+                            or args.dtype):
+        raise SystemExit(
+            "--halo-dtype narrows the full-batch GCN exchange only (the "
+            "mini-batch trainer and GAT narrow via --dtype bfloat16; the "
+            "accuracy-parity harness is defined for the f32-wire config; "
+            "under --dtype bfloat16 the wire is already bf16, so the flag "
+            "would be a silent no-op)")
     if args.comm_schedule == "ragged" and args.experiment == "accuracy":
         raise SystemExit(
             "--comm-schedule ragged: the accuracy-parity harness is "
@@ -84,12 +104,12 @@ def main(argv=None) -> None:
             "flag or use --comm-schedule auto")
 
     if args.experiment == "accuracy" and (
-            args.model != "gcn" or args.loss != "xent"
+            args.model != "gcn" or args.loss != "xent" or args.dtype
             or (args.activation or "relu") != "relu"):
         raise SystemExit(
             "--experiment accuracy compares against the dense GCN oracle "
-            "and supports only --model gcn --loss xent --activation relu; "
-            "drop the conflicting flags")
+            "and supports only --model gcn --loss xent --activation relu "
+            "(f32); drop the conflicting flags")
     import numpy as np
 
     from ..io.mtx import read_dense_features, read_mtx, read_onehot_labels
@@ -161,6 +181,8 @@ def main(argv=None) -> None:
     tr = FullBatchTrainer(plan, fin=f, widths=widths, lr=args.lr,
                           model=args.model, loss=args.loss,
                           activation=activation, seed=args.seed,
+                          compute_dtype=args.dtype,
+                          halo_dtype=args.halo_dtype,
                           comm_schedule=args.comm_schedule, device=device)
     data = make_train_data(plan, feats, labels, device=device)
     report = tr.fit(data, epochs=args.epochs, warmup=args.warmup)
@@ -170,6 +192,8 @@ def main(argv=None) -> None:
     report["model"] = args.model
     report["activation"] = activation
     report["loss"] = args.loss
+    report["dtype"] = args.dtype
+    report["halo_dtype"] = args.halo_dtype
     report.pop("loss_history", None)
     print(json.dumps(report), flush=True)
 

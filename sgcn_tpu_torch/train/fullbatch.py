@@ -9,8 +9,7 @@ dense a2a exchange or the ragged ring (``comm_schedule``: ``a2a``,
 ``ragged``, ``auto`` or ``None`` for ``$SGCN_COMM_SCHEDULE``, resolved by
 ``parallel/plan.py::resolve_comm_schedule``).  What the reference
 resolves beyond it raises a clear "not ported yet" error: asymmetric
-plans (``pspmm_overlap``, ``gat_layer_local``); bf16 tables are refused
-by the kernel wrapper.
+plans (``pspmm_overlap``, ``gat_layer_local``).
 
 ``FullBatchTrainer`` is the reference's exact trainer over the ``k``
 parts stacked on one device: per step the L-layer forward (exchange →
@@ -18,9 +17,13 @@ tile SpMM → projection → activation for GCN; the factored attention layer
 for GAT), the masked loss, autograd's backward (each aggregation's
 backward re-runs the kernel on the gradient: ``ops/tile_spmm.py::
 PspmmTilesSym``/``PspmmTilesRagged``, ``models/gat.py::GatLayerSym``)
-and Adam.  The levers of the reference that are not ported — precision,
-remat, stale halos, replicas, memory budgets — raise "not ported yet"
-with their ROADMAP item.
+and Adam.  Its two precision levers are the reference's:
+``compute_dtype='bfloat16'`` (float32 master weights, the forward and
+backward in bf16, the loss on float32 logits) and ``halo_dtype='bfloat16'``
+(GCN only: the exchange's wire narrows, every table and sum stays
+float32).  The levers of the reference that are not ported — remat,
+stale halos, replicas, memory budgets — raise "not ported yet" with their
+ROADMAP item.
 """
 
 from __future__ import annotations
@@ -38,6 +41,7 @@ from ..models.gcn import (GCN, exchange_widths, init_gcn_params,
                           masked_accuracy_local,
                           masked_err_local, masked_sigmoid_bce_local,
                           masked_softmax_xent_local)
+from ..ops.pspmm import narrow_dtype
 from ..ops.tile_spmm import (TILE_PLAN_FIELDS, TILE_PLAN_FIELDS_RAGGED,
                              choose_tile_dispatch)
 from ..parallel.plan import resolve_comm_schedule
@@ -53,7 +57,8 @@ class ModelSpec(NamedTuple):
     module: type                  # nn.Module over the stacked forward
     plan_fields: tuple            # CommPlan array fields the a2a forward
     plan_fields_ragged: tuple     # ... and the ragged forward read
-    lane_widths_fn: object        # (fin, widths) → per-layer wire lanes
+    lane_widths_fn: object        # (fin, widths, compute_dtype) → per-layer
+                                  # wire lanes
     activation: str               # inter-layer activation by default
     mask_fields: tuple = ()       # plan fields shipped as int8 0/1 masks
 
@@ -65,10 +70,13 @@ class ModelSpec(NamedTuple):
 # it stages it.
 MODELS = {
     "gcn": ModelSpec(init_gcn_params, GCN, TILE_PLAN_FIELDS,
-                     TILE_PLAN_FIELDS_RAGGED, exchange_widths, "relu"),
+                     TILE_PLAN_FIELDS_RAGGED,
+                     lambda fin, widths, dt: exchange_widths(fin, widths),
+                     "relu"),
     "gat": ModelSpec(init_gat_params, GAT, GAT_PLAN_FIELDS_PALLAS,
                      GAT_PLAN_FIELDS_PALLAS_RAGGED,
-                     lambda fin, widths: gat_exchange_lane_widths(widths),
+                     lambda fin, widths, dt: gat_exchange_lane_widths(
+                         widths, dt),
                      "none", mask_fields=("ptile_cw",)),
 }
 
@@ -96,15 +104,25 @@ class ForwardSetup:
     activation: str
     mask_fields: tuple
 
-    def ship_arrays(self, plan, device) -> dict:
+    def ship_arrays(self, plan, device, compute_dtype=None) -> dict:
         """The plan arrays the forward consumes, as tensors on ``device``
         (integer arrays stay int32, the kernel's stored form; the
-        ``mask_fields`` narrow to int8 0/1)."""
+        ``mask_fields`` narrow to int8 0/1).  Under
+        ``compute_dtype='bfloat16'`` every float32 array is rounded
+        through bf16 and kept as float32, as the reference's trainer casts
+        its float32 plan arrays to the compute dtype and its kernel
+        wrappers upcast the tile weights again (``ptile_lw``/``ptile_hw``:
+        one rounding of each weight)."""
         arrays = {f: np.ascontiguousarray(getattr(plan, f))
                   for f in self.plan_fields}
         for f in self.mask_fields:
             arrays[f] = (arrays[f] != 0).astype(np.int8)
-        return {f: torch.as_tensor(a).to(device) for f, a in arrays.items()}
+        out = {f: torch.as_tensor(a).to(device) for f, a in arrays.items()}
+        dt = narrow_dtype(compute_dtype, "compute_dtype")
+        if dt is not None:
+            out = {f: t.to(dt).float() if t.dtype == torch.float32 else t
+                   for f, t in out.items()}
+        return out
 
 
 def resolve_forward_setup(plan, model: str = "gcn",
@@ -197,9 +215,7 @@ def make_train_data(plan, features: np.ndarray, labels: np.ndarray,
 # trainer levers of the reference that this port does not carry yet:
 # name -> (default meaning "off", ROADMAP item)
 _UNPORTED_LEVERS = {
-    "compute_dtype": (None, "A6"),
     "remat": (False, "A3"),
-    "halo_dtype": (None, "A6"),
     "halo_staleness": (0, "A7"),
     "halo_delta": (False, "A7"),
     "sync_every": (0, "A7"),
@@ -248,10 +264,13 @@ class FullBatchTrainer:
         tensors); ``None`` draws the model's init from a
         ``torch.Generator`` seeded with ``seed``.  ``device``:
         ``None`` means ``cuda`` and raises without a GPU; pass ``"cpu"``
-        to train on the CPU.  Levers not ported raise
-        ``NotImplementedError``."""
-        given = {"compute_dtype": compute_dtype, "remat": remat,
-                 "halo_dtype": halo_dtype, "halo_staleness": halo_staleness,
+        to train on the CPU.  ``compute_dtype='bfloat16'``: float32
+        master weights and Adam, the forward and backward in bf16 (the
+        float32 plan weights rounded through bf16 once, here), the loss
+        on the logits upcast to float32.  ``halo_dtype='bfloat16'`` (GCN
+        only): both directions' exchanges ship bf16, every table and sum
+        stays float32.  Levers not ported raise ``NotImplementedError``."""
+        given = {"remat": remat, "halo_staleness": halo_staleness,
                  "halo_delta": halo_delta, "sync_every": sync_every,
                  "replica_budget": replica_budget,
                  "refresh_band": refresh_band,
@@ -260,7 +279,15 @@ class FullBatchTrainer:
             if given[name] != off:
                 raise NotImplementedError(
                     f"{name}={given[name]!r} is not ported yet (ROADMAP "
-                    f"item {item}); this port trains the exact f32 path")
+                    f"item {item}); this port trains the exact path")
+        if halo_dtype is not None and model != "gcn":
+            raise ValueError(
+                "halo_dtype is a GCN-trainer lever; for GAT use "
+                "compute_dtype='bfloat16' (the packed exchange already "
+                "ships half-width rows)")
+        narrowed = {name: "bfloat16" for name, dt in (
+            ("compute_dtype", narrow_dtype(compute_dtype, "compute_dtype")),
+            ("halo_dtype", narrow_dtype(halo_dtype))) if dt is not None}
         if loss not in LOSSES:
             raise ValueError(f"unknown loss {loss!r}; one of {sorted(LOSSES)}")
         self.device = resolve_device(device)
@@ -275,24 +302,29 @@ class FullBatchTrainer:
         self.final_activation = final_activation
         self.loss_name = loss
         self._loss_fn = LOSSES[loss]
+        self.compute_dtype = narrowed.get("compute_dtype")
+        self.halo_dtype = narrowed.get("halo_dtype")
         dims = list(zip([self.fin] + self.widths[:-1], self.widths))
         if params is None:
             params = setup.init_fn(torch.Generator().manual_seed(seed), dims)
         check_param_dims(params, dims)
-        self.model = setup.module(params, activation=activation,
-                                  final_activation=final_activation,
-                                  fwd_static=setup.fwd_static).to(self.device)
-        self.pa = setup.ship_arrays(plan, self.device)
+        self.model = setup.module(
+            params, activation=activation, final_activation=final_activation,
+            fwd_static={**setup.fwd_static, **narrowed}).to(self.device)
+        self.pa = setup.ship_arrays(plan, self.device, self.compute_dtype)
         self.opt = (optimizer(list(self.model.parameters()))
                     if optimizer is not None else
                     torch.optim.Adam(self.model.parameters(), lr=lr,
                                      betas=(0.9, 0.999), eps=1e-8))
         # per-exchange wire lane widths: GCN ships feature rows at the
-        # project-first widths, GAT its (fout+1)-lane attention tables
+        # project-first widths, GAT its attention tables (whose lanes
+        # encode the dtype, at 4 bytes each); a GCN wire narrows to 2
+        # bytes under either bf16 lever, both directions
         self.stats = CommStats.from_plan(
             plan, schedule=self.comm_schedule,
-            lane_widths=setup.lane_widths_fn(self.fin, self.widths),
-            wire_itemsize=4)
+            lane_widths=setup.lane_widths_fn(self.fin, self.widths,
+                                             self.compute_dtype),
+            wire_itemsize=2 if setup.model == "gcn" and narrowed else 4)
         self.timer = PhaseTimer()
         self.spans = SpanTimer(timer=self.timer)
         self._step_count = 0
@@ -314,7 +346,8 @@ class FullBatchTrainer:
 
     # ----------------------------------------------------------------- step
     def _forward(self, h0):
-        return self.model(h0, self.pa)
+        # float32 logits for the loss (a no-op on the float32 path)
+        return self.model(h0, self.pa).float()
 
     def _one_step(self, data: TrainData):
         """Loss, backward and optimizer update of one step; returns the

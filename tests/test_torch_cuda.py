@@ -4,7 +4,10 @@ engine and a training step on ``cuda``; the kernel's int8-mask entry
 point (the GAT attention pass, K5) and the GAT layer (``GatLayerSym``),
 engine and trainer on ``cuda``; the ragged ring (K4,
 ``PspmmTilesRagged`` and the ragged GAT layer) against the a2a flavor on
-the card; the row-shuffle kernel (K6) against its plain version.
+the card; the row-shuffle kernel (K6) against its plain version; the
+kernel's bf16 entry points (K1 and K5 on bf16 tables) against their plain
+version, and the bf16 levers (``compute_dtype``, ``halo_dtype``) on the
+card against the CPU and ragged against a2a.
 
 This module imports no JAX, so it also runs on a GPU machine without it:
 
@@ -101,11 +104,22 @@ def test_kernel_on_class_slices_of_flat_arrays(cuda_device):
 
 
 def test_kernel_refuses_bf16_and_bad_layouts(cuda_device):
+    """A bf16 table launches the bf16 entry point (== the plain version,
+    counted in ``spmm_tiles.bf16_launches``); a float16 table, a strided
+    table and a tile taller than 256 rows raise."""
     arrays = [torch.from_numpy(a).to(cuda_device)
               for a in _tiles(1, 2, 8, 8, 10, seed=0)]
     table = torch.zeros(1, 10, 4, device=cuda_device)
-    with pytest.raises(TypeError, match="float32"):
-        spmm_tiles(*arrays, table.bfloat16(), 8)
+    t16 = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        (1, 10, 4)).astype(np.float32)).to(cuda_device).bfloat16()
+    before = spmm_tiles.bf16_launches
+    got = spmm_tiles(*arrays, t16, 8)
+    torch.cuda.synchronize()
+    assert spmm_tiles.bf16_launches == before + 1
+    assert got.dtype == torch.float32
+    assert torch.equal(got, spmm_tiles_plain(*arrays, t16, 8))
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        spmm_tiles(*arrays, table.half(), 8)
     with pytest.raises(ValueError, match="row-major"):
         spmm_tiles(*arrays, table.transpose(1, 2).contiguous()
                    .transpose(1, 2), 8)
@@ -199,6 +213,119 @@ def test_family_launch_keeps_nan_of_pads(cuda_device, f):
     nan = torch.isnan(want)
     assert nan[:, tb - 1:: tb].any() and torch.equal(torch.isnan(got), nan)
     assert torch.equal(got[~nan], want[~nan])
+
+
+def _nan_same(got, want):
+    """Equal bits wherever ``want`` is not NaN, NaN where it is."""
+    nan = torch.isnan(want)
+    return torch.equal(torch.isnan(got), nan) and torch.equal(got[~nan],
+                                                              want[~nan])
+
+
+@pytest.mark.parametrize("weights", ["f32", "mask"])
+@pytest.mark.parametrize("f", [1, 7, 8, 16, 17, 40, 41, 128, 129])
+def test_family_launch_on_bf16_table_equals_plain(cuda_device, f, weights):
+    """K1 and K5 on a bf16 table: one launch over the 4-class family ==
+    the plain version (which upcasts the table) bit for bit, on an 8-byte
+    aligned table and on a view whose base is 2-byte but not 8-byte
+    aligned; two launches agree; with inf and NaN in the row the pads
+    read, the NaNs land where the plain version's do.  Counted in the
+    bf16 counters only."""
+    k, tb, n = 2, 256, 300
+    classes = ((1, 1536, "tile_spmm"), (2, 64, "tile_spmm"),
+               (1, 256, "tile_spmm"), (2, 600, "tile_spmm"))
+    src, ld, w = _edge_tiles(k, [c[:2] for c in classes], tb, n, seed=f)
+    if weights == "mask":
+        w = (w != 0).astype(np.int8)
+    arrays = [torch.from_numpy(a) for a in (src, ld, w)]
+    dev = [a.to(cuda_device) for a in arrays]
+    base = torch.from_numpy(np.random.default_rng(f).standard_normal(
+        (k, n, f)).astype(np.float32)).bfloat16()
+    odd = torch.empty(k * n * f + 1, dtype=torch.bfloat16,
+                      device=cuda_device)[1:].view(k, n, f)
+    odd.copy_(base)
+    assert odd.data_ptr() % 8 != 0
+    counter = "bf16_mask_launches" if weights == "mask" else "bf16_launches"
+    before = (getattr(spmm_tiles, counter), spmm_tiles.launches,
+              spmm_tiles.mask_launches)
+    want = spmm_tiles_classes(*arrays, base, classes, tb)        # plain
+    one = spmm_tiles_classes(*dev, base.to(cuda_device), classes, tb)
+    two = spmm_tiles_classes(*dev, base.to(cuda_device), classes, tb)
+    three = spmm_tiles_classes(*dev, odd, classes, tb)
+    nanb = base.clone()
+    nanb[:, 0, 0], nanb[:, 0, -1] = float("inf"), float("nan")
+    four = spmm_tiles_classes(*dev, nanb.to(cuda_device), classes, tb)
+    torch.cuda.synchronize()
+    assert (getattr(spmm_tiles, counter), spmm_tiles.launches,
+            spmm_tiles.mask_launches) == (before[0] + 4,) + before[1:]
+    assert one.dtype == torch.float32
+    assert torch.equal(one, two), "two launches differ"
+    assert torch.equal(one.cpu(), want), (
+        f"kernel != plain, max diff {(one.cpu() - want).abs().max()}")
+    assert torch.equal(three.cpu(), want), "unaligned bf16 table != plain"
+    want_nan = spmm_tiles_classes(*arrays, nanb, classes, tb)
+    assert torch.isnan(want_nan[:, tb - 1:: tb]).any()
+    assert _nan_same(four.cpu(), want_nan)
+
+
+@pytest.mark.parametrize("lever", ["halo_dtype", "compute_dtype"])
+@pytest.mark.parametrize("sched", ["a2a", "ragged"])
+def test_gcn_bf16_levers_on_cuda_match_cpu(cuda_device, lever, sched):
+    """Two GCN training steps under each bf16 lever on each transport, on
+    the card and on the CPU from the same weights: losses rtol 2e-2 (bf16
+    matmuls round differently on the two devices); on the card the
+    launches go to the entry of the table's dtype — f32 under
+    ``halo_dtype``, bf16 under ``compute_dtype`` — 2 forward + 1 backward
+    passes per step, each a local and a halo family."""
+    plan = _er_plan()
+    rng = np.random.default_rng(21)
+    feats = rng.standard_normal((plan.n, 24)).astype(np.float32)
+    labels = rng.integers(0, 5, plan.n)
+    got = {}
+    for dev in ("cpu", cuda_device):
+        tr = FullBatchTrainer(plan, fin=24, widths=[32, 5], seed=2,
+                              device=dev, comm_schedule=sched,
+                              **{lever: "bfloat16"})
+        data = make_train_data(plan, feats, labels, device=dev)
+        spmm_tiles.launches = spmm_tiles.bf16_launches = 0
+        losses = [tr.step(data) for _ in range(2)]
+        got[str(dev)] = (losses, spmm_tiles.launches,
+                         spmm_tiles.bf16_launches)
+    (l_c, *_), (l_g, n32, n16) = got["cpu"], got["cuda"]
+    want = 2 * (2 + 1) * 2
+    assert (n32, n16) == ((want, 0) if lever == "halo_dtype" else (0, want))
+    np.testing.assert_allclose(l_g, l_c, rtol=2e-2)
+
+
+@pytest.mark.parametrize("widths", [[6, 4], [6, 3], [130, 5]])
+def test_gat_bf16_on_cuda_ragged_equals_a2a_and_tracks_cpu(cuda_device,
+                                                          widths):
+    """GAT under ``compute_dtype='bfloat16'`` on the card: packed (even),
+    fused bf16 (odd) and split bf16 (odd, 130 → split) layers; two steps
+    on the ring == on a2a bit for bit, the bf16 mask entry launched, and
+    the losses within rtol 2e-2 of the CPU's."""
+    plan = _er_plan()
+    rng = np.random.default_rng(22)
+    feats = rng.standard_normal((plan.n, 24)).astype(np.float32)
+    labels = rng.integers(0, widths[-1], plan.n)
+    runs = {}
+    for dev, sched in (("cpu", "a2a"), (cuda_device, "a2a"),
+                       (cuda_device, "ragged")):
+        tr = FullBatchTrainer(plan, fin=24, widths=widths, model="gat",
+                              activation="none", seed=4, device=dev,
+                              comm_schedule=sched, compute_dtype="bfloat16")
+        data = make_train_data(plan, feats, labels, device=dev)
+        spmm_tiles.bf16_mask_launches = 0
+        losses = [tr.step(data) for _ in range(2)]
+        runs[(str(dev), sched)] = (losses, [p.detach().cpu() for p in
+                                            tr.model.parameters()],
+                                   spmm_tiles.bf16_mask_launches)
+    cpu, a2a, ring = (runs[("cpu", "a2a")], runs[("cuda", "a2a")],
+                      runs[("cuda", "ragged")])
+    assert a2a[2] > 0 and ring[2] == a2a[2] and cpu[2] == 0
+    assert ring[0] == a2a[0]
+    assert all(torch.equal(a, b) for a, b in zip(ring[1], a2a[1]))
+    np.testing.assert_allclose(a2a[0], cpu[0], rtol=2e-2)
 
 
 def test_engine_on_cuda_launches_kernel_and_matches_cpu(cuda_device):

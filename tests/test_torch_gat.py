@@ -240,8 +240,13 @@ def test_table_forms_and_lane_widths_equal_reference(monkeypatch):
     widths = [128, 127, 40, 7]
     assert port_gat.gat_exchange_lane_widths(widths) == \
         ref_gat.gat_exchange_lane_widths(widths)
-    with pytest.raises(NotImplementedError, match="not ported.*A6"):
-        port_gat.gat_table_form(16, "bfloat16")
+    # the packed bf16 form and its lane widths (f32-lane equivalents)
+    for fout in (1, 7, 16, 127, 128):
+        assert port_gat.gat_table_form(fout, "bfloat16") == \
+            ref_gat.gat_table_form(fout, "bfloat16")
+    assert port_gat.gat_exchange_lane_widths(widths, "bfloat16") == \
+        ref_gat.gat_exchange_lane_widths(widths, "bfloat16") == \
+        [65, 64, 21, 4]
 
 
 def test_init_params_and_params_from_jax():
@@ -349,8 +354,10 @@ def test_fused_equals_split_bitwise(cora, fout):
         out.backward(g)
         res[form] = [out.detach()] + [x.grad for x in leaves]
     assert all(torch.equal(x, y) for x, y in zip(res["fused"], res["split"]))
-    with pytest.raises(ValueError, match="fused/split"):
-        _gat_tiles_aggregate(p, s, "packed", *args, 256,
+    # 'packed' is the bf16 form now (tests/test_torch_bf16.py); any other
+    # name is refused
+    with pytest.raises(ValueError, match="fused, split and packed"):
+        _gat_tiles_aggregate(p, s, "ell", *args, 256,
                              st["pallas_cclasses"])
 
 
@@ -402,9 +409,10 @@ def test_asymmetric_and_unported_forms_raise(cora):
     with pytest.raises(NotImplementedError, match="asymmetric.*A2"):
         FullBatchTrainer(asym, fin=1433, widths=WIDTHS, model="gat",
                          device="cpu")
-    with pytest.raises(NotImplementedError, match="not ported.*A6"):
+    # the wire-only lever is GCN's; GAT narrows through compute_dtype
+    with pytest.raises(ValueError, match="GCN-trainer lever"):
         FullBatchTrainer(plan, fin=1433, widths=WIDTHS, model="gat",
-                         device="cpu", compute_dtype="bfloat16")
+                         device="cpu", halo_dtype="bfloat16")
 
 
 # ------------------------------------------------- trainer vs reference

@@ -218,7 +218,7 @@ def test_cli_runs_in_process(capsys):
 
 
 def test_cli_leaves_unported_flags_undefined():
-    for flag in ("--checkpoint", "--halo-dtype",
+    for flag in ("--checkpoint",
                  "--serve-mode", "--concurrent", "--metrics-out"):
         with pytest.raises(SystemExit):
             serve_main(["-p", HP8, "-s", "8", "--random-init", flag, "x"])

@@ -204,3 +204,15 @@ def test_vector_width_needs_whole_aligned_rows(f, ptr, stride, want):
     """16-byte loads only for rows that are whole 16-byte units (f % 4 == 0,
     an aligned base and part stride) and wide enough to fill 8 lanes."""
     assert vector_width(f, ptr, stride) == want
+
+
+@pytest.mark.parametrize("f,ptr,stride,want", [
+    (128, 0x1008, 128 * 500, 4), (40, 0x1000, 40 * 7, 4),
+    (128, 0x1004, 128 * 500, 1), (128, 0x1002, 128 * 500, 1),
+    (129, 0x1000, 129 * 500, 1), (128, 0x1000, 128 * 500 + 2, 1)])
+def test_vector_width_on_bf16_rows(f, ptr, stride, want):
+    """On a bf16 table (2-byte values) a lane's 4-column load is 8 bytes:
+    it needs an 8-byte aligned base, f % 4 == 0 and a part stride of whole
+    4-column vectors; a 2- or 4-byte aligned base takes one value per
+    lane."""
+    assert vector_width(f, ptr, stride, itemsize=2) == want

@@ -158,8 +158,8 @@ def test_wrapper_refuses_what_it_does_not_take():
     before = spmm_tiles.launches
     spmm_tiles(tsrc, tld, tw, torch.zeros(10, 4), 8)
     assert spmm_tiles.launches == before      # the plain path is no launch
-    with pytest.raises(TypeError, match="float32"):
-        spmm_tiles(tsrc, tld, tw, torch.zeros(10, 4, dtype=torch.bfloat16), 8)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        spmm_tiles(tsrc, tld, tw, torch.zeros(10, 4, dtype=torch.float16), 8)
     with pytest.raises(ValueError, match="cpu or cuda"):
         spmm_tiles(tsrc.to("meta"), tld.to("meta"), tw.to("meta"),
                    torch.zeros(10, 4, device="meta"), 8)

@@ -489,8 +489,8 @@ def test_cli_accuracy_experiment_in_process(capsys):
 
 
 @pytest.mark.parametrize("flag", [
-    "-b", "--backend", "-n", "--batch-size", "--dtype",
-    "--halo-dtype", "--halo-staleness", "--halo-delta", "--sync-every",
+    "-b", "--backend", "-n", "--batch-size",
+    "--halo-staleness", "--halo-delta", "--sync-every",
     "--replica-budget", "--refresh-band", "--resume",
     "--save-checkpoint", "--checkpoint-dir", "--checkpoint-every",
     "--keep-checkpoints", "--profile", "--metrics-out", "--memory-budget"])
@@ -513,8 +513,7 @@ def test_without_cpu_the_entry_points_raise_when_no_gpu(cora):
 
 
 @pytest.mark.parametrize("lever,value,item", [
-    ("compute_dtype", "bfloat16", "A6"), ("remat", True, "A3"),
-    ("halo_dtype", "bfloat16", "A6"), ("halo_staleness", 1, "A7"),
+    ("remat", True, "A3"), ("halo_staleness", 1, "A7"),
     ("halo_delta", True, "A7"), ("sync_every", 2, "A7"),
     ("replica_budget", 4, "A7"), ("refresh_band", 0.1, "A7"),
     ("memory_budget", 1 << 30, "A10")])
@@ -522,6 +521,38 @@ def test_unported_levers_raise(cora, lever, value, item):
     with pytest.raises(NotImplementedError, match=f"not ported.*{item}"):
         FullBatchTrainer(cora["plan"], fin=1433, widths=WIDTHS,
                          device="cpu", **{lever: value})
+
+
+@pytest.mark.parametrize("lever", ["compute_dtype", "halo_dtype"])
+def test_precision_levers_train_and_book_a_bf16_wire(cora, lever):
+    """The two precision levers are ported: the trainer takes each, trains
+    on the CPU (one step, finite loss, float32 master weights) and books
+    the GCN wire at 2 bytes a lane, half the float32 run's bytes; an
+    unknown narrow dtype raises."""
+    data = make_train_data(cora["plan"], cora["feats"], cora["labels"])
+    runs = {}
+    for value in ("bfloat16", None):
+        tr = FullBatchTrainer(cora["plan"], fin=1433, widths=WIDTHS, seed=1,
+                              device="cpu", **{lever: value})
+        runs[value] = (tr.step(data), tr.stats.report())
+        assert all(w.dtype == torch.float32 for w in tr.params)
+    assert np.isfinite(runs["bfloat16"][0])
+    assert runs["bfloat16"][0] != runs[None][0]
+    assert runs["bfloat16"][1]["halo_bytes_wire_per_step"] * 2 == \
+        runs[None][1]["halo_bytes_wire_per_step"]
+    with pytest.raises(ValueError, match="bfloat16"):
+        FullBatchTrainer(cora["plan"], fin=1433, widths=WIDTHS,
+                         device="cpu", **{lever: "float16"})
+
+
+@pytest.mark.parametrize("flag", ["--dtype", "--halo-dtype"])
+def test_cli_precision_flags_take_bfloat16_only(flag, capsys):
+    """``--dtype`` and ``--halo-dtype`` are defined and take ``bfloat16``
+    alone, as the reference's."""
+    with pytest.raises(SystemExit) as exc:
+        train_main(["-p", HP8, "-s", "8", "--device", "cpu", flag, "1"])
+    assert exc.value.code == 2
+    assert "invalid choice" in capsys.readouterr().err
 
 
 # -------------------------------------------------------- serving intact
