@@ -21,22 +21,32 @@ failure raises and the script exits non-zero:
      is 4-byte but not 16-byte aligned: bit-identical to the plain version
      and between two launches.  Times the kernel, the plain version and
      the ``torch.sparse.mm`` yardstick with CUDA events at f ∈ {16, 40,
-     128}, and prints the kernel's bound for the same work;
+     128}, and prints the kernel's bound for the same work; then (1b) the
+     stacked row pack against its plain version at 1, 2, 7, 41, 65 and
+     128 words a row, float32 → float32, float32 → bf16 (±inf, NaN and
+     rounding ties, NaN bits included) and bf16 → bf16, on aligned and
+     4-byte-only aligned bases, and the fused local + remote entry
+     against its plain version on phase 1's tiles and a second random
+     family, h and the remote table float32/float32, float32/bf16 and
+     bf16/bf16, on unaligned tables and with inf/NaN in the pads' row;
   2. the serving main path on real data: cora2708 (k = 8 hp parts), GCN
      1433 → 16 → 7 with ReLU, Glorot weights from a numpy seed carried by
      ``params_from_jax``, 128 synthetic queries through ``ServeEngine`` and
      ``run_loadgen`` on the card.  Every served row is checked against a
      float64 scipy forward ``act(Â·X·W…)`` (rtol 1e-4, atol 1e-5), and the
-     kernel's launch count must be exactly forwards × layers × 2 passes
-     (the local and the halo family, one launch each); then device time
-     vs wall over 5 batches under ``torch.profiler`` (the device's idle
-     share);
+     launch counts must be exactly forwards × layers: one row pack (the
+     exchange) and one fused tile launch (local pass, halo pass and their
+     sum) per aggregation; then device time vs wall over 5 batches under
+     ``torch.profiler`` (the device's idle share);
   3. the same at the flagship width: Erdős–Rényi n = 169343, average
      degree 14, features N(0, 1), k = 8 balanced random parts, GCN 128 →
      128 → 128 → 40; 512 closed-loop queries, 256 served rows checked
      against the float64 forward; p50/p99 latency, QPS, the per-layer
      kernel time, a per-stage breakdown of one forward, the idle share,
-     and K1 held against its plain version on this layer's real tiles;
+     K1 held against its plain version on this layer's real tiles, the
+     pack and the fused entry on this layer's real exchange, and the
+     whole K3 op (pack + fused launch) timed against its bound, its plain
+     version and ``torch.index_select`` + ``torch.sparse.mm``;
   4. training on real data: ``python -m sgcn_tpu_torch.train``'s ``main``
      in-process on the card, cora2708 (k = 8 hp), GCN 1433 → 16 → 7,
      ``--experiment accuracy --epochs 60``: the dense oracle above 0.75
@@ -52,12 +62,12 @@ failure raises and the script exits non-zero:
      unit the per-class dispatch launched) beside the halo family's one
      launch; every loss must be finite, the kernel's launches must equal
      steps × (forward passes + the backward passes autograd really runs)
-     × 2 families, and the kernel on this run's real gradient tables must
-     equal its plain version bit for bit.  Prints ``epoch_s``, a per-step
-     breakdown (forward, backward, optimizer) from CUDA events, the idle
-     share over 3 steps under ``torch.profiler``, and the backward
-     layer's kernel time, bound and ``torch.sparse.mm`` time on the same
-     gradient;
+     (one pack and one fused launch each), and the kernels on this run's
+     real gradient tables must equal their plain versions bit for bit.
+     Prints ``epoch_s``, a per-step breakdown (forward, backward,
+     optimizer) from CUDA events, the idle share over 3 steps under
+     ``torch.profiler``, and the backward layer's whole-op time, bound
+     and library time on the same gradient;
   6. K5, the kernel's int8-mask entry point (the GAT attention pass), on
      phase 1's tiles as 0/1 masks at phase 1's widths and tables:
      bit-identical to its plain version, to K1 on the upcast mask and
@@ -85,8 +95,8 @@ failure raises and the script exits non-zero:
      of phases 3 and 7, exact launches, p50/p99, QPS, the per-stage
      breakdown with the ring's exchange beside the a2a's, the idle share;
      K1 on the real ring table and K5 on every real ring table of a
-     served GAT forward == plain, and the per-layer kernel times on the
-     ring;
+     served GAT forward == plain, and the whole K4 op (ring pack + fused
+     launch) timed as phase 3 times K3;
   11. K4 training: GCN and GAT on the ring from phases 5 and 8's initial
      weights, 1 warm-up + 5 timed steps: losses and weights after ``fit``
      ``torch.equal`` to the a2a runs', exact launches (forward and
@@ -117,10 +127,13 @@ failure raises and the script exits non-zero:
      initial weights: ragged == a2a bit for bit (losses and weights after
      ``fit``), the 5 losses within the reference's bf16 band (rtol 0.05 /
      atol 0.02) of phase 5's float32 losses and not equal to them, exact
-     launches per entry point; ``epoch_s``, the step breakdown and the
-     profiler's split (gathers, copies, roll, cat, K1, matmul, idle); K1
-     on the compute run's real bf16 forward and gradient tables == plain,
-     and its time at the flagship layer;
+     launches per entry point (the fused entry's bf16-wire flavor under
+     ``halo_dtype``, its bf16 one under ``compute_dtype``); ``epoch_s``,
+     the step breakdown and the profiler's split (fused, K1/K5, pack,
+     gathers, copies, roll, cat, matmul, idle); K1 and the fused entry on
+     the compute run's real bf16 forward and gradient tables == plain,
+     their times and the whole op's at the flagship layer, and the pack
+     and fused entry on the bf16 wire;
   16. flagship GCN serving with ``halo_dtype='bfloat16'`` on both
      transports: served rows within rtol 5e-3 / atol 5e-3 of the float64
      forward, ring == a2a bit for bit, exact launches, p50/p99 and QPS
@@ -132,14 +145,21 @@ failure raises and the script exits non-zero:
      breakdown and split, K5 on every real table of a step == plain; then
      cora2708 GAT ``--dtype bfloat16`` through the train CLI (the odd
      width 7 takes the fused bf16 table) against phase 9's losses;
-  18. one JSON line ``{"kernels": [...]}`` — per ported kernel (the tile
-     SpMM, its use as the GCN aggregation's backward, the GAT attention
-     pass and its use in the GAT layer's backward, the ragged ring
-     aggregation and its backward, the row shuffle, and the tile SpMM's
-     and the GAT pass's bf16 flavors) its launches on the main path
-     (phases 2–5, 7–13 and 15–17), max |kernel − plain|, kernel / plain /
-     bound / library times at the flagship layer;
-  19. the last line: ``{"ok": true, "device": {...}}``.
+  18. the row pack and the fused entry against their plain versions on
+     every exchange and aggregation one flagship training pass (forward
+     and backward) makes, GCN and GAT, both transports;
+  19. one JSON line ``{"kernels": [...]}`` — per ported kernel (the tile
+     SpMM, the GCN aggregation's backward, the GAT attention pass and its
+     use in the GAT layer's backward, the ragged ring aggregation and its
+     backward, the row shuffle, the tile SpMM's and the GAT pass's bf16
+     flavors, the row pack and the fused local + remote entry) its
+     launches on the main path (phases 2–5, 7–13 and 15–17), max |kernel
+     − plain|, kernel / plain / bound / library times at the flagship
+     layer.  The tile SpMM's own float-weight family entries (both
+     tables) must show 0 launches there — the fused entry runs their
+     chains and counts those launches — and any other kernel with no
+     launch there fails the run;
+  20. the last line: ``{"ok": true, "device": {...}}``.
 
 Without CUDA, or without the rest of the repository beside it, the script
 prints no result and exits with code 2 or 3.
@@ -269,14 +289,20 @@ def ptxas_report(log):
             for c in re.finditer(r"(\d+)([A-Za-z_])", name):
                 base = name[c.start(2): c.start(2) + int(c.group(1))]
                 if base.endswith("_kernel"):
-                    t = re.match(r"I(\w)(f|13__nv_bfloat16)Li(\d+)ELi(\d+)"
-                                 r"ELi(\d+)E",
+                    t = re.match(r"I(f|a|13__nv_bfloat16)(f|13__nv_bfloat16"
+                                 r"|S\d*_)Li(\d+)ELi(\d+)ELi(\d+)E",
                                  name[c.start(2) + len(base):])
-                    name = base + (
-                        f"<{'float' if t.group(1) == 'f' else 'int8'}, "
-                        f"{'float' if t.group(2) == 'f' else 'bf16'}, "
-                        f"VEC={t.group(3)}, G={t.group(4)}, NV={t.group(5)}>"
-                        if t else "")
+                    kinds = {"f": "float", "a": "int8",
+                             "13__nv_bfloat16": "bf16"}
+                    if t:
+                        a, b = kinds[t.group(1)], kinds.get(t.group(2), "")
+                        name = base + (
+                            f"<{a}, {b or a}, VEC={t.group(3)}, "
+                            f"G={t.group(4)}, NV={t.group(5)}>")
+                    else:
+                        m2 = re.match(r"I(\w+?)EEv",
+                                      name[c.start(2) + len(base):])
+                        name = base + (f"<{m2.group(1)}>" if m2 else "")
                     break
         m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads",
                       line)
@@ -366,17 +392,11 @@ def check_k1(tiles, table, classes, tb, what, nan_ok=False):
     import torch
 
     from sgcn_tpu_torch.ops.tile_spmm import (spmm_tiles_classes,
-                                              spmm_tiles_plain)
+                                              spmm_tiles_classes_plain)
 
     one = spmm_tiles_classes(*tiles, table, classes, tb)
     two = spmm_tiles_classes(*tiles, table, classes, tb)
-    plain, off = [], 0
-    for t, e, *_ in classes:
-        sl = slice(off, off + t * e)
-        plain.append(spmm_tiles_plain(
-            *(x[:, sl].reshape(x.shape[0], t, e) for x in tiles), table, tb))
-        off += t * e
-    plain = torch.cat(plain, dim=1)
+    plain = spmm_tiles_classes_plain(*tiles, table, classes, tb)
     torch.cuda.synchronize()
     fin = torch.isfinite(plain)
     diff = float((one[fin] - plain[fin]).abs().max())
@@ -399,21 +419,13 @@ def time_k1(tiles_np, tiles, table, classes, tb, n, what, plain_reps=3):
     import torch
 
     from sgcn_tpu_torch.ops.tile_spmm import (spmm_tiles_classes,
-                                              spmm_tiles_plain)
+                                              spmm_tiles_classes_plain)
 
     k, f = table.shape[0], table.shape[2]
     t_all = sum(t for t, _e, *_ in classes)
-
-    def plain():
-        off = 0
-        for t, e, *_ in classes:
-            sl = slice(off, off + t * e)
-            spmm_tiles_plain(*(x[:, sl].reshape(k, t, e) for x in tiles),
-                             table, tb)
-            off += t * e
-
     ms = cuda_ms(lambda: spmm_tiles_classes(*tiles, table, classes, tb))
-    plain_ms = cuda_ms(plain, reps=plain_reps, warmup=1)
+    plain_ms = cuda_ms(lambda: spmm_tiles_classes_plain(
+        *tiles, table, classes, tb), reps=plain_reps, warmup=1)
     dense = table.reshape(k * n, f)
     try:
         # on a bf16 table, a bf16 CSR: where this torch has no CUDA kernel
@@ -441,6 +453,305 @@ def time_k1(tiles_np, tiles, table, classes, tb, n, what, plain_reps=3):
         f"{100 * bound_ms / ms:.1f}% of bound")
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
             "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+# ------------------------------------------- the pack and the fused entry
+def check_pack(src, flat, dtype, what):
+    """The row pack vs its plain version on the card, on the same inputs:
+    bit for bit (NaN where the plain version has NaN), and two launches
+    the same.  Returns 0.0 (a copy or one rounding: no error to report
+    when they agree)."""
+    import torch
+
+    from sgcn_tpu_torch.ops.row_shuffle import row_pack, row_pack_plain
+
+    one, two = row_pack(src, flat, dtype), row_pack(src, flat, dtype)
+    plain = row_pack_plain(src, flat, dtype)
+    torch.cuda.synchronize()
+    ok = same_bits(one, plain, nan_ok=True) and same_bits(one, two, True)
+    # NaN's own bits: the card's cast and the kernel's store agree on them
+    nan = torch.isnan(plain)
+    if ok and nan.any() and plain.dtype == torch.bfloat16:
+        ok = torch.equal(one[nan].view(torch.int16),
+                         plain[nan].view(torch.int16))
+    if not ok:
+        raise AssertionError(f"{what}: row pack != plain version")
+    return 0.0
+
+
+def check_fused(ltiles, h, htiles, remote, lcls, hcls, tb, what):
+    """The fused entry vs its plain version (two plain family passes,
+    slices, add, cast: torch arithmetic, no kernel) on the card: bit for
+    bit (NaN in the same places,
+    with the same bits), and two launches the same.  Returns the max
+    |kernel − plain| over the finite entries."""
+    import torch
+
+    from sgcn_tpu_torch.ops.tile_spmm import (spmm_tiles_fused,
+                                              spmm_tiles_fused_plain)
+
+    one = spmm_tiles_fused(ltiles, h, htiles, remote, lcls, hcls, tb)
+    two = spmm_tiles_fused(ltiles, h, htiles, remote, lcls, hcls, tb)
+    plain = spmm_tiles_fused_plain(ltiles, h, htiles, remote, lcls, hcls,
+                                   tb)
+    torch.cuda.synchronize()
+    fin = torch.isfinite(plain)
+    diff = float((one[fin].float() - plain[fin].float()).abs().max()) \
+        if fin.any() else 0.0
+    nan = torch.isnan(plain)
+    bits = torch.int16 if plain.dtype == torch.bfloat16 else torch.int32
+    ok = (same_bits(one, plain, nan_ok=True) and same_bits(one, two, True)
+          and torch.equal(one[nan].view(bits), plain[nan].view(bits)))
+    log(f"  {what}: max |fused - plain| = {diff!r} (relaunch identical, "
+        f"NaN {int(nan.sum())} with the same bits: {ok})")
+    if not ok:
+        raise AssertionError(f"{what}: fused entry != plain version")
+    return diff
+
+
+def pack_work(src, flat, dtype):
+    """Bytes the pack needs on these inputs: each distinct referenced
+    source row read once, the index read once, the output written once
+    (it does no arithmetic)."""
+    import numpy as np
+    import torch
+
+    w = src[0, 0].numel()
+    rows = np.unique(flat.cpu().numpy()).size
+    return (rows * w * src.element_size() + flat.numel() * 4
+            + flat.numel() * w * torch.empty((), dtype=dtype).element_size())
+
+
+def time_pack(src, flat, dtype, what):
+    """The pack's time (CUDA events), its plain version's, the library
+    yardstick's (``torch.index_select`` of the same rows: one PyTorch
+    call; None when the pack also casts) and the bound."""
+    import torch
+
+    from sgcn_tpu_torch.ops.row_shuffle import row_pack, row_pack_plain
+
+    ms = cuda_ms(lambda: row_pack(src, flat, dtype))
+    plain_ms = cuda_ms(lambda: row_pack_plain(src, flat, dtype), reps=5)
+    library_ms = None
+    if dtype == src.dtype:
+        flat2d = src.reshape(src.shape[0] * src.shape[1], -1)
+        idx = flat.reshape(-1).long()
+        library_ms = cuda_ms(lambda: torch.index_select(flat2d, 0, idx))
+    nbytes = pack_work(src, flat, dtype)
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    log(f"  {what}: pack {ms!r} ms, plain {plain_ms!r} ms, "
+        f"torch.index_select {library_ms!r} ms, bound {bound_ms!r} ms by "
+        f"bytes ({nbytes} B), {100 * bound_ms / ms:.1f}% of bound")
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bound_ms, "bound_by": "bytes", "bytes": nbytes}
+
+
+def fused_work(ltiles, h, htiles, remote):
+    """Bytes and flops of the fused launch on these inputs: both
+    families' K1 work (``k1_work``, no float32 output) and the (k, b, f)
+    output written once in h's dtype."""
+    k, b, f = h.shape
+    lb, lf = k1_work(ltiles[0].cpu().numpy(), ltiles[2].cpu().numpy(), k,
+                     h.shape[1], f, 0, itemsize=h.element_size())
+    hb, hf = k1_work(htiles[0].cpu().numpy(), htiles[2].cpu().numpy(), k,
+                     remote.shape[1], f, 0, itemsize=remote.element_size())
+    return lb + hb + k * b * f * h.element_size(), lf + hf + k * b * f
+
+
+def library_fused(ltiles, h, htiles, remote, lcls, hcls, tb):
+    """The fused launch's library yardstick: ``torch.sparse.mm`` of one
+    CSR holding both families' real edges over the stacked ``[h; remote]``
+    rows (the concatenation is set-up, outside the timed call), sliced
+    to the owned rows by the CSR's own row count.  Returns (csr, dense)
+    or None where the tables' dtypes differ."""
+    import numpy as np
+    import torch
+
+    if h.dtype != remote.dtype:
+        return None
+    k, b, f = h.shape
+    nl, nh = h.shape[1], remote.shape[1]
+    rows, cols, vals = [], [], []
+    for tiles, cls, base, n in ((ltiles, lcls, 0, nl),
+                                (htiles, hcls, k * nl, nh)):
+        src, ld, w = (t.cpu().numpy() for t in tiles)
+        off = row0 = 0
+        for t, e, *_ in cls:
+            sl = slice(off, off + t * e)
+            s_ = src[:, sl].reshape(k, t, e).astype(np.int64)
+            d_ = ld[:, sl].reshape(k, t, e).astype(np.int64)
+            w_ = w[:, sl].reshape(k, t, e)
+            real = w_ != 0
+            pk, ti, _ = np.nonzero(real)
+            r = (row0 + ti) * tb + d_[real]
+            keep = r < b
+            rows.append((pk * b + r)[keep])
+            cols.append((base + pk * n + s_[real])[keep])
+            vals.append(w_[real][keep].astype(np.float32))
+            off += t * e
+            row0 += t
+    idx = torch.as_tensor(np.stack([np.concatenate(rows),
+                                    np.concatenate(cols)]))
+    csr = torch.sparse_coo_tensor(
+        idx, torch.as_tensor(np.concatenate(vals)).to(h.dtype),
+        (k * b, k * (nl + nh)), device=h.device).coalesce().to_sparse_csr()
+    dense = torch.cat([h.reshape(k * nl, f), remote.reshape(k * nh, f)])
+    return csr, dense
+
+
+def time_fused(ltiles, h, htiles, remote, lcls, hcls, tb, what):
+    """The fused launch's time, its plain version's (one call: it takes
+    seconds at the flagship), the library yardstick's (``library_fused``)
+    and the bound."""
+    import torch
+
+    from sgcn_tpu_torch.ops.tile_spmm import (spmm_tiles_fused,
+                                              spmm_tiles_fused_plain)
+
+    args = (ltiles, h, htiles, remote, lcls, hcls, tb)
+    ms = cuda_ms(lambda: spmm_tiles_fused(*args))
+    plain_ms = cuda_ms(lambda: spmm_tiles_fused_plain(*args), reps=1,
+                       warmup=0)
+    lib = library_fused(*args)
+    try:
+        library_ms = (cuda_ms(lambda: torch.sparse.mm(*lib))
+                      if lib is not None else None)
+    except (RuntimeError, NotImplementedError) as e:
+        # a bf16 CSR where this torch has no kernel for it: no library call
+        if h.dtype == torch.float32:
+            raise
+        log(f"  {what}: torch.sparse.mm on a {h.dtype} CSR is not "
+            f"available here ({str(e).splitlines()[0][:120]})")
+        library_ms = None
+    nbytes, flops = fused_work(ltiles, h, htiles, remote)
+    bound_ms, bound_by = k1_bound_ms(nbytes, flops)
+    log(f"  {what}: fused {ms!r} ms, plain {plain_ms!r} ms, "
+        f"torch.sparse.mm {library_ms!r} ms, bound {bound_ms!r} ms by "
+        f"{bound_by} ({nbytes} B, {flops} flop), {100 * bound_ms / ms:.1f}% "
+        "of bound")
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes}
+
+
+def time_whole_op(h, pa, st, tb, ragged, what):
+    """One GCN aggregation (K3, or K4 on the ring) at this table: the
+    whole op (exchange pack + fused launch), each part alone, the plain
+    version (torch indexing + the plain family passes, add and cast), the
+    library yardsticks summed, and the whole op's bound (the pack's bytes
+    plus the fused launch's)."""
+    import torch
+
+    from sgcn_tpu_torch.ops.pspmm import exchange_recv, ring_concat
+    from sgcn_tpu_torch.ops.row_shuffle import row_pack_plain
+    from sgcn_tpu_torch.ops.tile_spmm import (pspmm_tiles_ragged,
+                                              pspmm_tiles_sym,
+                                              spmm_tiles_fused_plain)
+
+    lt = [pa["ptile_lsrc"], pa["ptile_lld"], pa["ptile_lw"]]
+    if ragged:
+        flat = pa["ring_src"]
+        remote = ring_concat(h, flat, st["rr_sizes"])
+        ht = [pa["ptile_hrsrc"], pa["ptile_hld"], pa["ptile_hw"]]
+    else:
+        flat = pa["recv_src"]
+        remote = exchange_recv(h, flat)
+        ht = [pa["ptile_hwsrc"], pa["ptile_hld"], pa["ptile_hw"]]
+    static = (tb, st["pallas_lclasses"], st["pallas_hclasses"])
+    pack = time_pack(h, flat, h.dtype, f"{what} exchange")
+    fused = time_fused(lt, h, ht, remote, st["pallas_lclasses"],
+                       st["pallas_hclasses"], tb, f"{what} fused launch")
+    with torch.inference_mode():
+        if ragged:
+            op = cuda_ms(lambda: pspmm_tiles_ragged(
+                h, flat, *lt, *ht, *static, st["rr_sizes"]))
+        else:
+            op = cuda_ms(lambda: pspmm_tiles_sym(h, flat, *lt, *ht, *static))
+    plain = cuda_ms(lambda: spmm_tiles_fused_plain(
+        lt, h, ht, row_pack_plain(h, flat), *static[1:], tb), reps=1,
+        warmup=0)
+    bound = (pack["bytes"] + fused["bytes"]) / HBM_BYTES_PER_S * 1e3
+    lib = (None if pack["library_ms"] is None or fused["library_ms"] is None
+           else pack["library_ms"] + fused["library_ms"])
+    log(f"  {what}: whole op {op!r} ms (exchange {pack['ms']!r} + fused "
+        f"{fused['ms']!r}); bound {bound!r} ms by bytes, "
+        f"{100 * bound / op:.1f}% of bound; plain {plain!r} ms; library "
+        f"(index_select + sparse.mm) {lib!r} ms")
+    return {"ms": op, "plain_ms": plain, "library_ms": lib,
+            "bound_ms": bound, "bound_by": "bytes", "pack": pack,
+            "fused": fused}
+
+
+PACK_WIDTHS = (1, 2, 7, 41, 65, 128)
+FUSED_DTYPES = (("float32", "float32"), ("float32", "bfloat16"),
+                ("bfloat16", "bfloat16"))
+
+
+def special_rows(x):
+    """Writes ±inf, NaN and float32 values at bf16 rounding ties (1 +
+    2⁻⁸ rounds down to 1, 1 + 3·2⁻⁸ up to 1 + 2⁻⁶: nearest even) into
+    the first rows of ``x`` (k, rows, ...) float32."""
+    flat = x.reshape(x.shape[0], x.shape[1], -1)
+    vals = (float("inf"), -float("inf"), float("nan"), 1.0 + 2 ** -8,
+            1.0 + 3 * 2 ** -8, -(1.0 + 2 ** -8))
+    for i, v in enumerate(vals):
+        flat[:, i % x.shape[1], i % flat.shape[2]] = v
+    return x
+
+
+def phase_pack_fused_random(rng, dev, tiles, classes, tb, n):
+    """Phase 1's second half: the row pack at ``PACK_WIDTHS`` words on
+    float32 → float32, float32 → bf16 (±inf, NaN, rounding ties) and bf16
+    → bf16, on 16-byte aligned and 4-byte-only aligned (bf16: 2-byte)
+    bases; then the fused entry on phase 1's tiles as the local family and
+    a second random draw (its own Emax, the same tile counts) as the halo
+    family, on each of ``FUSED_DTYPES`` at ``BF16_WIDTHS``, on unaligned
+    tables, and with inf/NaN in the row the pads read.  Every launch ==
+    plain bit for bit.  Returns the max |fused − plain|."""
+    import numpy as np
+    import torch
+
+    k = tiles[0].shape[0]
+    dt = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+    n_pack = 0
+    for w in PACK_WIDTHS:
+        base = torch.as_tensor(rng.standard_normal((k, 700, w)).astype(
+            np.float32)).to(dev)
+        special_rows(base)
+        flat = torch.as_tensor(rng.integers(0, k * 700, (k, 900)).astype(
+            np.int32)).to(dev)
+        for sdt, odt in (("float32", "float32"), ("float32", "bfloat16"),
+                         ("bfloat16", "bfloat16")):
+            src = base.to(dt[sdt])
+            for t_, how in ((src, ""), (unaligned_copy(src), " unaligned")):
+                t_ = t_ if w > 1 else t_[..., 0]       # a (k, rows) table
+                check_pack(t_, flat, dt[odt], f"pack w={w} {sdt}->{odt}{how}")
+                n_pack += 1
+    log(f"  row pack: {n_pack} cases == plain bit for bit (NaN bits "
+        "included), relaunch identical")
+    classes2 = tuple((t, max(8, e // 2)) for t, e, *_ in classes)
+    htiles_np = random_class_tiles(rng, k, classes2, tb, n)
+    htiles = [torch.as_tensor(a).to(dev) for a in htiles_np]
+    err = 0.0
+    for f in BF16_WIDTHS:
+        h32 = torch.as_tensor(rng.standard_normal((k, n, f)).astype(
+            np.float32)).to(dev)
+        r32 = torch.as_tensor(rng.standard_normal((k, n, f)).astype(
+            np.float32)).to(dev)
+        for hd, rd in FUSED_DTYPES:
+            h, r = h32.to(dt[hd]), r32.to(dt[rd])
+            cases = [(h, r, "")]
+            if f in (7, 40, 129):
+                cases.append((unaligned_copy(h), unaligned_copy(r),
+                              " unaligned"))
+            if f in (1, 40, 129):
+                hb, rb = h.clone(), r.clone()
+                hb[:, 0, 0], rb[:, 0, -1] = float("inf"), float("nan")
+                cases.append((hb, rb, " inf/NaN in the pads' row"))
+            for h_, r_, how in cases:
+                err = max(err, check_fused(
+                    tiles, h_, htiles, r_, classes, classes2, tb,
+                    f"fused f={f} h {hd} remote {rd}{how}"))
+    return err
 
 
 # ----------------------------------------------------------- serving path
@@ -543,43 +854,96 @@ def gat_passes(widths):
     return sum(1 if gat_table_form(w) == "fused" else 2 for w in widths)
 
 
+# row-pack launches counted on the main path's runs (drive_serving and the
+# training phases add theirs)
+MAIN_PATH_PACKS = [0]
+
+# launches of K1's own family entries (float32 weights, on float32 and bf16
+# tables) made inside the main path's runs: the fused entry runs K1's two
+# family chains since the K3/K4 redesign, GAT runs the mask entries, so
+# these stay 0; the kernels line reports them under K1's own rows
+MAIN_PATH_K1 = {"launches": 0, "bf16_launches": 0}
+_K1_AT_OPEN = {}
+
+
+def k1_open():
+    """Marks the start of a main-path run for ``MAIN_PATH_K1``."""
+    from sgcn_tpu_torch.ops.tile_spmm import spmm_tiles
+
+    _K1_AT_OPEN.update({c: getattr(spmm_tiles, c) for c in MAIN_PATH_K1})
+
+
+def k1_close():
+    """Adds the K1 family-entry launches since ``k1_open``."""
+    from sgcn_tpu_torch.ops.tile_spmm import spmm_tiles
+
+    for c in MAIN_PATH_K1:
+        MAIN_PATH_K1[c] += getattr(spmm_tiles, c) - _K1_AT_OPEN.pop(c)
+
+
+def pack_launches(model, schedule, widths, compute_dtype=None):
+    """Row-pack launches of one forward (or one backward) over these
+    layer widths: GCN one per aggregation; GAT per layer on the ring one
+    (one ``[p ‖ u]`` concat), on the a2a exchange two per exchanged table
+    (the receive layout, then the halo rows): one table for the fused and
+    packed forms, two for the split form."""
+    from sgcn_tpu_torch.models.gat import gat_table_form
+
+    if model == "gcn" or schedule == "ragged":
+        return len(widths)
+    return sum(4 if gat_table_form(w, compute_dtype) == "split" else 2
+               for w in widths)
+
+
 def drive_serving(name, eng, queries, seed):
     """Drive the serving main path through ``eng``: warm every bucket, then
     ``queries`` synthetic closed-loop queries through ``run_loadgen``.  The
-    kernel's launches (the tile kernel's for GCN, its int8-mask entry's
-    for GAT) are counted from 0 and must be exactly forwards × passes:
-    one launch per pass over a whole tile family.  Returns (recording
-    engine, loadgen result, launches)."""
-    from sgcn_tpu_torch.ops.tile_spmm import spmm_tiles
+    launches — GCN: the fused tile entry (one per aggregation, on the
+    float32 or the bf16-wire flavor); GAT: the int8-mask entry (one per
+    pass) — and the row pack's are counted from 0 and must be exactly
+    forwards × passes; the pack's are added to ``MAIN_PATH_PACKS``.
+    Returns (recording engine, loadgen result, tile launches)."""
+    from sgcn_tpu_torch.ops.row_shuffle import row_pack
+    from sgcn_tpu_torch.ops.tile_spmm import spmm_tiles, spmm_tiles_fused
     from sgcn_tpu_torch.serve import run_loadgen, synthetic_query_ids
 
     st, widths = eng.setup.fwd_static, eng.widths
     if eng.setup.model == "gat":
-        classes, counter = st["pallas_cclasses"], "mask_launches"
+        classes, owner, counter = (st["pallas_cclasses"], spmm_tiles,
+                                   "mask_launches")
         passes = gat_passes(widths)
     else:
-        classes, counter = st["pallas_lclasses"], "launches"
-        passes = 2 * len(widths)                # local + halo family
+        classes, owner = st["pallas_lclasses"], spmm_tiles_fused
+        counter = "wire_bf16_launches" if eng.halo_dtype else "launches"
+        passes = len(widths)                    # one fused launch a layer
+    packs = pack_launches(eng.setup.model, eng.comm_schedule, widths)
     qids = synthetic_query_ids(eng.plan.n, queries, seed=seed)
     rec = RecordingEngine(eng)
 
-    setattr(spmm_tiles, counter, 0)             # the main path starts here
+    setattr(owner, counter, 0)                  # the main path starts here
+    k1_open()
+    row_pack.launches = 0
     fwd0 = eng.forward_count
     eng.warmup(qids)
     result = run_loadgen(rec, qids)
-    launches = getattr(spmm_tiles, counter)     # ... and ends here
+    k1_close()
+    launches = getattr(owner, counter)          # ... and ends here
+    n_pack = row_pack.launches
     forwards = eng.forward_count - fwd0
     expected = forwards * passes
-    if launches != expected or launches == 0:
+    if launches != expected or launches == 0 or n_pack != forwards * packs:
         raise AssertionError(
             f"{name}: tile kernel launched {launches} times, expected "
-            f"{forwards} forwards x {passes} passes = {expected}")
+            f"{forwards} forwards x {passes} passes = {expected}; row pack "
+            f"{n_pack}, expected {forwards} x {packs}")
     s = result.summary()
     log(f"  {name}: {s['queries']} queries in {s['batches']} batches, "
         f"{s['achieved_qps']} QPS, p50 {s['latency_p50_ms']} ms, "
-        f"p99 {s['latency_p99_ms']} ms; kernel launches {launches} "
-        f"= {forwards} forwards x {passes} passes (each over "
-        f"{len(classes)} classes)")
+        f"p99 {s['latency_p99_ms']} ms; launches: tile kernel "
+        f"({counter}) {launches} = {forwards} forwards x {passes} passes "
+        f"(each over {len(classes)} classes), row pack {n_pack} = "
+        f"{forwards} x {packs}")
+    MAIN_PATH_PACKS[0] += n_pack
     return rec, result, launches
 
 
@@ -588,8 +952,8 @@ def serve_and_check(name, ahat, feats, pv, k, widths, queries, max_batch,
                     plan=None):
     """Drive the serving main path on the card and hold it to the float64
     forward (GCN: ``oracle_forward``; GAT: ``gat64``).  Returns (engine,
-    result, launches): the tile kernel's launches for GCN, its int8-mask
-    entry point's for GAT."""
+    result, launches): the tile kernel's fused entry's launches for GCN,
+    its int8-mask entry point's for GAT."""
     import numpy as np
 
     from sgcn_tpu_torch.models import gat as gat_model
@@ -645,54 +1009,48 @@ def serve_and_check(name, ahat, feats, pv, k, widths, queries, max_batch,
 
 
 def forward_breakdown(eng):
-    """Device time of each stage of one forward (CUDA events around each
-    stage, run back to back): exchange (the a2a's halo table, or the
-    ring's receive concat), local pass, halo pass, sum, projection,
-    activation — per layer."""
+    """Device time of each stage of one GCN forward (CUDA events around
+    each stage, run back to back): projection, exchange (the a2a receive
+    buffer or the ring's concat: one row pack), the fused tile launch
+    (local pass, halo pass and their sum), activation — per layer."""
     import torch
 
     from sgcn_tpu_torch.models.gcn import PROJECT_FIRST_MIN_FIN
-    from sgcn_tpu_torch.ops.pspmm import halo_exchange, ring_concat
-    from sgcn_tpu_torch.ops.tile_spmm import spmm_tiles_classes
+    from sgcn_tpu_torch.ops.pspmm import exchange_recv, ring_concat
+    from sgcn_tpu_torch.ops.tile_spmm import spmm_tiles_fused
 
     pa, st = eng.pa, eng.setup.fwd_static
     tb, lcls, hcls = st["pallas_tb"], st["pallas_lclasses"], st["pallas_hclasses"]
     ragged = eng.comm_schedule == "ragged"
-    hsrc = pa["ptile_hrsrc"] if ragged else pa["ptile_hsrc"]
+    hsrc = pa["ptile_hrsrc"] if ragged else pa["ptile_hwsrc"]
     weights = list(eng.model.weights)
     h = eng._h0
     rows = []
     torch.cuda.synchronize()
     with torch.inference_mode():
         for i, w in enumerate(weights):
-            ev = [torch.cuda.Event(enable_timing=True) for _ in range(8)]
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(6)]
             pf = w.shape[1] < h.shape[-1] and h.shape[-1] >= PROJECT_FIRST_MIN_FIN
             ev[0].record()
             x = h @ w if pf else h
             ev[1].record()
-            halo = (ring_concat(x, pa["rsend_idx"], st["rr_sizes"])
-                    if ragged else
-                    halo_exchange(x, pa["send_idx"], pa["halo_src"]))
+            remote = (ring_concat(x, pa["ring_src"], st["rr_sizes"])
+                      if ragged else exchange_recv(x, pa["recv_src"]))
             ev[2].record()
-            b = x.shape[1]
-            loc = spmm_tiles_classes(pa["ptile_lsrc"], pa["ptile_lld"],
-                                     pa["ptile_lw"], x, lcls, tb)[:, :b]
+            z = spmm_tiles_fused(
+                (pa["ptile_lsrc"], pa["ptile_lld"], pa["ptile_lw"]), x,
+                (hsrc, pa["ptile_hld"], pa["ptile_hw"]), remote, lcls, hcls,
+                tb)
             ev[3].record()
-            rem = spmm_tiles_classes(hsrc, pa["ptile_hld"],
-                                     pa["ptile_hw"], halo, hcls, tb)[:, :b]
-            ev[4].record()
-            z = loc + rem
-            ev[5].record()
             z = z if pf else z @ w
-            ev[6].record()
+            ev[4].record()
             h = torch.relu(z) if i < len(weights) - 1 else z
-            ev[7].record()
+            ev[5].record()
             torch.cuda.synchronize()
-            el = [ev[j].elapsed_time(ev[j + 1]) for j in range(7)]
+            el = [ev[j].elapsed_time(ev[j + 1]) for j in range(5)]
             rows.append({"layer": i, "width": int(x.shape[-1]),
-                         "project_ms": el[0] + el[5], "exchange_ms": el[1],
-                         "local_kernel_ms": el[2], "halo_kernel_ms": el[3],
-                         "sum_ms": el[4], "act_ms": el[6]})
+                         "project_ms": el[0] + el[3], "exchange_ms": el[1],
+                         "fused_kernel_ms": el[2], "act_ms": el[4]})
         if not torch.equal(h, eng.forward()):
             raise AssertionError("breakdown != the engine's forward")
     return rows
@@ -727,7 +1085,9 @@ def device_busy(run, reps: int = 5):
 # device-time classes of a flagship step, by kernel name (torch.profiler);
 # the first class whose key the name holds ("roll_cuda", not "roll": the
 # casts and copies run in unrolled_elementwise_kernel)
-DEVICE_CLASSES = (("K1/K5", ("tile_spmm_kernel",)),
+DEVICE_CLASSES = (("K3/K4 fused", ("tile_spmm_fused_kernel",)),
+                  ("K1/K5", ("tile_spmm_kernel",)),
+                  ("pack", ("row_pack_kernel",)),
                   ("gathers", ("index", "gather")),
                   ("roll", ("roll_cuda",)),
                   ("cat", ("CatArray",)),
@@ -1216,6 +1576,38 @@ def record_aggregations(run):
     return calls
 
 
+def record_exchanges(run):
+    """Run ``run()`` recording the inputs of every row pack
+    (``ops/pspmm.py``'s exchanges) and every fused tile launch
+    (``ops/tile_spmm.py``'s aggregations) it makes, GCN or GAT, a2a or
+    ring.  Returns (packs, fused): lists of argument tuples."""
+    import torch
+
+    from sgcn_tpu_torch.ops import pspmm, tile_spmm
+
+    packs, fused = [], []
+    orig_pack, orig_fused = pspmm.row_pack, tile_spmm.spmm_tiles_fused
+
+    def pack(src, flat, dtype=None):
+        packs.append((src.detach(), flat, dtype or src.dtype))
+        return orig_pack(src, flat, dtype)
+
+    def fuse(ltiles, h, htiles, remote, lcls, hcls, tb):
+        fused.append((ltiles, h.detach(), htiles, remote, lcls, hcls, tb))
+        return orig_fused(ltiles, h, htiles, remote, lcls, hcls, tb)
+
+    # the wrappers share the wrapped functions' launch counters, which
+    # the ops read through the module attribute they replace
+    pack.__dict__, fuse.__dict__ = orig_pack.__dict__, orig_fused.__dict__
+    pspmm.row_pack, tile_spmm.spmm_tiles_fused = pack, fuse
+    try:
+        run()
+    finally:
+        pspmm.row_pack, tile_spmm.spmm_tiles_fused = orig_pack, orig_fused
+    torch.cuda.synchronize()
+    return packs, fused
+
+
 def gcn_train_pass(tr, data):
     """One forward and backward of the GCN trainer's loss at its current
     weights, without an optimizer step."""
@@ -1229,24 +1621,28 @@ def gcn_train_pass(tr, data):
 
 
 def time_layer(pa, st, table, tb, what):
-    """K1 over one aggregation's two families on ``table`` (its halo from
-    the a2a exchange, on the table's own dtype): bit for bit against the
-    plain version, then the two passes' times summed.  Returns (max
-    |kernel − plain|, timing dict)."""
-    from sgcn_tpu_torch.ops.pspmm import halo_exchange
+    """K1 over one aggregation's two families on ``table`` (its halo
+    family over the a2a receive buffer, on the table's own dtype): bit for
+    bit against the plain version, the fused entry on the same inputs
+    likewise, then the two K1 passes' times summed and the whole op's
+    (``time_whole_op``).  Returns (max |kernel − plain|, K1 timing dict,
+    whole-op timing dict)."""
+    from sgcn_tpu_torch.ops.pspmm import exchange_recv
 
-    halo = halo_exchange(table, pa["send_idx"], pa["halo_src"])
+    recv = exchange_recv(table, pa["recv_src"])
     ltiles = [pa["ptile_lsrc"], pa["ptile_lld"], pa["ptile_lw"]]
-    htiles = [pa["ptile_hsrc"], pa["ptile_hld"], pa["ptile_hw"]]
+    htiles = [pa["ptile_hwsrc"], pa["ptile_hld"], pa["ptile_hw"]]
     err = max(check_k1(ltiles, table, st["pallas_lclasses"], tb,
                        f"{what} local pass"),
-              check_k1(htiles, halo, st["pallas_hclasses"], tb,
-                       f"{what} halo pass"))
+              check_k1(htiles, recv, st["pallas_hclasses"], tb,
+                       f"{what} halo pass"),
+              check_fused(ltiles, table, htiles, recv, st["pallas_lclasses"],
+                          st["pallas_hclasses"], tb, f"{what} fused"))
     t_l = time_k1([t.cpu().numpy() for t in ltiles], ltiles, table,
                   st["pallas_lclasses"], tb, table.shape[1],
                   f"{what} local pass")
-    t_h = time_k1([t.cpu().numpy() for t in htiles], htiles, halo,
-                  st["pallas_hclasses"], tb, halo.shape[1],
+    t_h = time_k1([t.cpu().numpy() for t in htiles], htiles, recv,
+                  st["pallas_hclasses"], tb, recv.shape[1],
                   f"{what} halo pass")
     out = {key: (None if t_l[key] is None or t_h[key] is None
                  else t_l[key] + t_h[key])
@@ -1255,7 +1651,8 @@ def time_layer(pa, st, table, tb, what):
     log(f"  {what}: K1 over both families {out['ms']!r} ms; bound "
         f"{out['bound_ms']!r} ms; plain {out['plain_ms']!r} ms; "
         f"torch.sparse.mm {out['library_ms']!r} ms")
-    return err, out
+    return err, out, time_whole_op(table, pa, st, tb, False,
+                                   f"{what} whole K3 op")
 
 
 def split_f32(model, trainers, data):
@@ -1283,37 +1680,52 @@ def phase_bf16_gcn_training(plan, data, p_init, widths, rep32, dev, tb,
     import numpy as np
     import torch
 
+    from sgcn_tpu_torch.ops.row_shuffle import row_pack
     from sgcn_tpu_torch.ops.tile_spmm import (PspmmTilesRagged,
-                                              PspmmTilesSym, spmm_tiles)
+                                              PspmmTilesSym, spmm_tiles,
+                                              spmm_tiles_fused)
     from sgcn_tpu_torch.train import FullBatchTrainer
 
-    fam = 2
+    fam = 1
     want = steps * (len(widths) + bwd) * fam
-    runs, launches = {}, {"f32": 0, "bf16": 0}
+    runs, launches = {}, {"wire": 0, "bf16": 0}
     for lever in ("halo_dtype", "compute_dtype"):
         for sched in ("a2a", "ragged"):
             tr = FullBatchTrainer(plan, fin=128, widths=widths,
                                   params=p_init, comm_schedule=sched,
                                   device=dev, **{lever: "bfloat16"})
-            spmm_tiles.launches = spmm_tiles.bf16_launches = 0  # starts here
+            # the main path starts here
+            for c in ("launches", "wire_bf16_launches", "bf16_launches"):
+                setattr(spmm_tiles_fused, c, 0)
+            spmm_tiles.launches = spmm_tiles.bf16_launches = 0
+            row_pack.launches = 0
             PspmmTilesSym.backward_launches = 0
             PspmmTilesRagged.launches = PspmmTilesRagged.backward_launches = 0
+            k1_open()
             rep = tr.fit(data, epochs=5, warmup=1, verbose=False)
-            n32, n16 = spmm_tiles.launches, spmm_tiles.bf16_launches  # ends
+            k1_close()
+            n = (spmm_tiles_fused.launches,           # ... and ends here
+                 spmm_tiles_fused.wire_bf16_launches,
+                 spmm_tiles_fused.bf16_launches,
+                 spmm_tiles.launches + spmm_tiles.bf16_launches)
+            n_pack = row_pack.launches
             nbwd = (PspmmTilesRagged.backward_launches if sched == "ragged"
                     else PspmmTilesSym.backward_launches)
-            exp = (want, 0) if lever == "halo_dtype" else (0, want)
-            log(f"  GCN {lever}=bfloat16 {sched}: launches float32 entry "
-                f"{n32}, bf16 entry {n16} (backward {nbwd}); expected "
-                f"{exp} = {steps} steps x ({len(widths)} forward + {bwd} "
-                f"backward passes) x {fam} families; losses "
+            exp = ((0, want, 0, 0) if lever == "halo_dtype"
+                   else (0, 0, want, 0))
+            log(f"  GCN {lever}=bfloat16 {sched}: fused launches float32 "
+                f"{n[0]}, bf16 wire {n[1]}, bf16 {n[2]}; K1 {n[3]}; "
+                f"backward {nbwd}; row pack {n_pack}; expected {exp} and "
+                f"{want} packs = {steps} steps x ({len(widths)} forward + "
+                f"{bwd} backward aggregations); losses "
                 f"{rep['loss_history']}; epoch_s {rep['epoch_s']!r}; "
                 f"wire bytes per step {rep['halo_bytes_wire_per_step']}")
-            if (n32, n16) != exp or nbwd != steps * bwd * fam:
+            if n != exp or nbwd != steps * bwd * fam or n_pack != want:
                 raise AssertionError(f"GCN {lever} {sched}: launch counts "
                                      "differ from the passes run")
-            launches["f32"] += n32
-            launches["bf16"] += n16
+            launches["wire"] += n[1]
+            launches["bf16"] += n[2]
+            MAIN_PATH_PACKS[0] += n_pack
             runs[(lever, sched)] = {
                 "rep": rep, "tr": tr,
                 "w": [w.detach().clone() for w in tr.params]}
@@ -1345,11 +1757,28 @@ def phase_bf16_gcn_training(plan, data, p_init, widths, rep32, dev, tb,
         raise AssertionError(f"compute run's aggregation tables "
                              f"{[c.dtype for c in calls]}")
     st, pa = tr.model.fwd_static, tr.pa
-    err_g, _ = time_layer(pa, st, calls[len(widths)], tb,
-                          "flagship bf16 gradient (layer 2 backward)")
-    err_f, t_fwd = time_layer(pa, st, calls[0], tb,
-                              "flagship bf16 layer-0 forward table")
-    return launches, max(err_g, err_f), t_fwd
+    err_g, _, _ = time_layer(pa, st, calls[len(widths)], tb,
+                             "flagship bf16 gradient (layer 2 backward)")
+    err_f, t_fwd, op_fwd = time_layer(pa, st, calls[0], tb,
+                                      "flagship bf16 layer-0 forward table")
+    # the bf16 wire under halo_dtype: the pack narrows, the fused launch
+    # reads the bf16 receive buffer beside the float32 h
+    from sgcn_tpu_torch.ops.pspmm import exchange_recv
+
+    trw = runs[("halo_dtype", "a2a")]["tr"]
+    h32 = record_aggregations(lambda: gcn_train_pass(trw, data))[0]
+    pw = trw.pa
+    check_pack(h32, pw["recv_src"], torch.bfloat16,
+               "flagship layer-0 exchange on the bf16 wire")
+    wire = exchange_recv(h32, pw["recv_src"], "bfloat16")
+    err_w = check_fused(
+        [pw["ptile_lsrc"], pw["ptile_lld"], pw["ptile_lw"]], h32,
+        [pw["ptile_hwsrc"], pw["ptile_hld"], pw["ptile_hw"]], wire,
+        st["pallas_lclasses"], st["pallas_hclasses"], tb,
+        "flagship layer-0 fused on the bf16 wire")
+    t_wire = time_pack(h32, pw["recv_src"], torch.bfloat16,
+                       "flagship layer-0 exchange, bf16 wire")
+    return launches, max(err_g, err_f, err_w), t_fwd, op_fwd, t_wire
 
 
 def phase_bf16_serving(eng_f, eng_fr, res_f, res_fr, ahat, feats, dev):
@@ -1411,13 +1840,13 @@ def phase_bf16_serving(eng_f, eng_fr, res_f, res_fr, ahat, feats, dev):
 def forward_breakdown_halo(eng):
     """One bf16-wire exchange of layer 0 against the float32 one on the
     same table (CUDA events, mean of 10): the wire's effect alone."""
-    from sgcn_tpu_torch.ops.pspmm import halo_exchange
+    from sgcn_tpu_torch.ops.pspmm import exchange_recv
 
     pa, h = eng.pa, eng._h0
-    return {"exchange_f32_ms": cuda_ms(lambda: halo_exchange(
-                h, pa["send_idx"], pa["halo_src"]), reps=10),
-            "exchange_bf16_wire_ms": cuda_ms(lambda: halo_exchange(
-                h, pa["send_idx"], pa["halo_src"], "bfloat16"), reps=10)}
+    return {"exchange_f32_ms": cuda_ms(lambda: exchange_recv(
+                h, pa["recv_src"]), reps=10),
+            "exchange_bf16_wire_ms": cuda_ms(lambda: exchange_recv(
+                h, pa["recv_src"], "bfloat16"), reps=10)}
 
 
 def phase_bf16_gat(plan, data, params_g, widths, rep32, dev, steps,
@@ -1439,6 +1868,7 @@ def phase_bf16_gat(plan, data, params_g, widths, rep32, dev, steps,
 
     from sgcn_tpu_torch.models.gat import GatLayerSym
     from sgcn_tpu_torch.models.gat import params_from_jax as gat_from_numpy
+    from sgcn_tpu_torch.ops.row_shuffle import row_pack
     from sgcn_tpu_torch.ops.tile_spmm import spmm_tiles
     from sgcn_tpu_torch.train import FullBatchTrainer
 
@@ -1451,17 +1881,25 @@ def phase_bf16_gat(plan, data, params_g, widths, rep32, dev, steps,
                               comm_schedule=sched, compute_dtype="bfloat16",
                               device=dev)
         spmm_tiles.mask_launches = spmm_tiles.bf16_mask_launches = 0
+        row_pack.launches = 0
         GatLayerSym.backward_launches = 0       # the main path starts here
+        k1_open()
         rep = tr.fit(data, epochs=5, warmup=1, verbose=False)
         n32, n16 = spmm_tiles.mask_launches, spmm_tiles.bf16_mask_launches
+        k1_close()
         nbwd = GatLayerSym.backward_launches    # ... and ends here
+        n_pack = row_pack.launches
+        MAIN_PATH_PACKS[0] += n_pack
         want = steps * 2 * per_dir
+        want_pack = steps * 2 * pack_launches("gat", sched, widths,
+                                              "bfloat16")
         log(f"  GAT bf16 {sched}: K5 launches float32 entry {n32}, bf16 "
             f"entry {n16} (backward {nbwd}); expected {want} each = {steps} "
-            f"steps x 2 directions x {per_dir} packed layers; losses "
+            f"steps x 2 directions x {per_dir} packed layers; row pack "
+            f"{n_pack} (expected {want_pack}); losses "
             f"{rep['loss_history']}; epoch_s {rep['epoch_s']!r}; wire bytes "
             f"per step {rep['halo_bytes_wire_per_step']}")
-        if (n32, n16, nbwd) != (want, want, want):
+        if (n32, n16, nbwd, n_pack) != (want, want, want, want_pack):
             raise AssertionError(f"GAT bf16 {sched}: K5 launch counts differ "
                                  "from the passes run")
         launches["f32"] += n32
@@ -1502,22 +1940,29 @@ def phase_bf16_gat(plan, data, params_g, widths, rep32, dev, steps,
                  "feature pass f=128")
 
     spmm_tiles.mask_launches = spmm_tiles.bf16_mask_launches = 0
+    row_pack.launches = 0
     GatLayerSym.backward_launches = 0           # the main path starts here
+    k1_open()
     losses, rep_c = run_train_cli(cli + ["--model", "gat", "--dtype",
                                          "bfloat16", "--comm-schedule",
                                          "a2a"])
     n32, n16 = spmm_tiles.mask_launches, spmm_tiles.bf16_mask_launches
+    k1_close()
+    n_pack = row_pack.launches                  # ... and ends here
+    MAIN_PATH_PACKS[0] += n_pack
+    want_pack = 5 * 2 * pack_launches("gat", "a2a", [16, 7], "bfloat16")
     # per step: forward packed 16 (bf16 + f32) and fused bf16 7 (bf16);
     # backward packed (bf16 + f32) and fused float32 (f32)
     want_c = (5 * 3, 5 * 3)
     band_c = np.allclose(losses, cli_losses, **BAND_GAT)
     log(f"  cora GAT --dtype bfloat16 CLI: losses {losses} (float32 "
         f"{cli_losses}, inside {BAND_GAT}: {band_c}); K5 launches float32 "
-        f"{n32}, bf16 {n16} (expected {want_c}); wire bytes per step "
+        f"{n32}, bf16 {n16} (expected {want_c}), row pack {n_pack} "
+        f"(expected {want_pack}); wire bytes per step "
         f"{rep_c['halo_bytes_wire_per_step']}; epoch_s "
         f"{rep_c['epoch_s']!r}")
     if (n32, n16) != want_c or not band_c or rep_c["dtype"] != "bfloat16" \
-            or losses == cli_losses:
+            or losses == cli_losses or n_pack != want_pack:
         raise AssertionError("cora GAT bf16 CLI: launches, band or dtype")
     launches["f32"] += n32
     launches["bf16"] += n16
@@ -1585,6 +2030,9 @@ def main() -> int:
         if f in (16, 40, 128):
             time_k1(tiles_np, tiles, table, classes, tb, n,
                     f"random tiles f={f}")
+    log("phase 1b: the row pack and the fused local + remote entry vs "
+        "their plain versions on random inputs")
+    fused_err = phase_pack_fused_random(rng, dev, tiles, classes, tb, n)
 
     # ---------------------------------------------------------- phase 2
     log("phase 2: serve cora2708, k=8 hp, GCN 1433 -> 16 -> 7 (ReLU)")
@@ -1630,55 +2078,70 @@ def main() -> int:
         log(f"  forward breakdown: {json.dumps(row)}")
     log_device_busy("flagship", lambda: eng_f.query(np.arange(64)))
 
-    from sgcn_tpu_torch.ops.pspmm import halo_exchange
+    from sgcn_tpu_torch.ops.pspmm import exchange_recv
     h0 = eng_f._h0
-    halo = halo_exchange(h0, pa["send_idx"], pa["halo_src"])
+    recv = exchange_recv(h0, pa["recv_src"])
     ltiles = [pa["ptile_lsrc"], pa["ptile_lld"], pa["ptile_lw"]]
-    htiles = [pa["ptile_hsrc"], pa["ptile_hld"], pa["ptile_hw"]]
+    htiles = [pa["ptile_hwsrc"], pa["ptile_hld"], pa["ptile_hw"]]
+    check_pack(h0, pa["recv_src"], h0.dtype, "flagship layer-0 exchange")
+    fused_err = max(fused_err, check_fused(
+        ltiles, h0, htiles, recv, st["pallas_lclasses"],
+        st["pallas_hclasses"], tb, "flagship layer-0 fused f=128"))
     max_err = max(max_err, check_k1(ltiles, h0, st["pallas_lclasses"], tb,
                                     "flagship local pass f=128"))
-    max_err = max(max_err, check_k1(htiles, halo, st["pallas_hclasses"], tb,
-                                    "flagship halo pass f=128"))
+    max_err = max(max_err, check_k1(htiles, recv, st["pallas_hclasses"], tb,
+                                    "flagship halo pass f=128 (on the "
+                                    "receive buffer)"))
     t_loc = time_k1([t.cpu().numpy() for t in ltiles], ltiles, h0,
                     st["pallas_lclasses"], tb, plan.b,
                     "flagship local pass f=128")
-    t_halo = time_k1([t.cpu().numpy() for t in htiles], htiles, halo,
-                     st["pallas_hclasses"], tb, plan.r,
+    t_halo = time_k1([t.cpu().numpy() for t in htiles], htiles, recv,
+                     st["pallas_hclasses"], tb, recv.shape[1],
                      "flagship halo pass f=128")
     layer = {key: t_loc[key] + t_halo[key]
              for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
-    log(f"  flagship per-layer kernel time (local + halo passes, f=128): "
-        f"{layer['ms']!r} ms; bound {layer['bound_ms']!r} ms")
+    log(f"  flagship per-layer K1 time (local + halo family launches, "
+        f"f=128): {layer['ms']!r} ms; bound {layer['bound_ms']!r} ms")
+    k3 = time_whole_op(h0, pa, st, tb, False,
+                       "flagship K3 layer 0 forward f=128")
 
     # ---------------------------------------------------------- phase 4
     log("phase 4: train cora2708 on the card, k=8 hp, GCN 1433 -> 16 -> 7 "
         "(python -m sgcn_tpu_torch.train --experiment accuracy --epochs 60)")
-    from sgcn_tpu_torch.ops.tile_spmm import PspmmTilesSym, spmm_tiles
+    from sgcn_tpu_torch.ops.row_shuffle import row_pack
+    from sgcn_tpu_torch.ops.tile_spmm import (PspmmTilesSym, spmm_tiles,
+                                              spmm_tiles_fused)
     from sgcn_tpu_torch.train import FullBatchTrainer, make_train_data
     from sgcn_tpu_torch.train.__main__ import main as train_main
 
     epochs_c = 60
-    fam = 2               # an aggregation: one local + one halo family launch
+    fam = 1               # an aggregation: one fused tile launch, one pack
     out = io.StringIO()
     t0 = time.perf_counter()
-    spmm_tiles.launches = 0                     # the main path starts here
+    spmm_tiles_fused.launches = 0               # the main path starts here
+    k1_open()
+    row_pack.launches = 0
     PspmmTilesSym.backward_launches = 0
     with contextlib.redirect_stdout(out):
         train_main(["--npz", os.path.join(fix, "cora2708.npz"), "--normalize",
                     "-p", os.path.join(fix, "cora2708.8.hp"), "-s", "8",
                     "-l", "2", "--hidden", "16", "--experiment", "accuracy",
                     "--epochs", str(epochs_c)])
-    launches_tc = spmm_tiles.launches           # ... and ends here
+    k1_close()
+    launches_tc = spmm_tiles_fused.launches     # ... and ends here
+    packs_tc = row_pack.launches
     bwd_tc = PspmmTilesSym.backward_launches
+    MAIN_PATH_PACKS[0] += packs_tc
     acc = json.loads(out.getvalue().strip().splitlines()[-1])
     log(f"  report ({time.perf_counter() - t0:.2f} s): {json.dumps(acc)}")
     # per epoch 2 forward + 2 backward passes (layer 0 projects first),
-    # then one evaluation forward; every pass launches once per family
+    # then one evaluation forward; every pass launches once: one fused
+    # tile launch and one pack
     want_c = (epochs_c * (2 + backward_passes(1433, [16, 7])) + 2) * fam
     want_bwd_c = epochs_c * backward_passes(1433, [16, 7]) * fam
-    log(f"  kernel launches {launches_tc} (backward {bwd_tc}); expected "
-        f"{want_c} ({want_bwd_c})")
-    if launches_tc != want_c or bwd_tc != want_bwd_c:
+    log(f"  fused launches {launches_tc} (backward {bwd_tc}), row pack "
+        f"{packs_tc}; expected {want_c} ({want_bwd_c}), {want_c}")
+    if launches_tc != want_c or bwd_tc != want_bwd_c or packs_tc != want_c:
         raise AssertionError("cora training: kernel launch count differs "
                              "from the passes the program runs")
     gap = abs(acc["oracle_test_acc"] - acc["fullbatch_test_acc"])
@@ -1712,20 +2175,26 @@ def main() -> int:
                                   step_grads.append([w.grad.cpu().numpy()
                                                      for w in tr.params]))
     steps_f = 1 + 5
-    spmm_tiles.launches = 0                     # the main path starts here
+    spmm_tiles_fused.launches = 0               # the main path starts here
+    k1_open()
+    row_pack.launches = 0
     PspmmTilesSym.backward_launches = 0
     rep = tr.fit(data, epochs=5, warmup=1, verbose=False)
-    launches_tf = spmm_tiles.launches           # ... and ends here
+    k1_close()
+    launches_tf = spmm_tiles_fused.launches     # ... and ends here
+    packs_tf = row_pack.launches
     bwd_tf = PspmmTilesSym.backward_launches
+    MAIN_PATH_PACKS[0] += packs_tf
     # the weights right after fit, before the breakdown steps move them
     # (phase 11 trains the ring from the same start and must end here)
     fit_f = [w.detach().clone() for w in tr.params]
     bwd_f = backward_passes(128, widths_f)
     want_f = steps_f * (len(widths_f) + bwd_f) * fam
-    log(f"  kernel launches {launches_tf} (backward {bwd_tf}) = {steps_f} "
-        f"steps x ({len(widths_f)} forward + {bwd_f} backward passes) x "
-        f"{fam} families = {want_f}")
-    if launches_tf != want_f or bwd_tf != steps_f * bwd_f * fam:
+    log(f"  fused launches {launches_tf} (backward {bwd_tf}), row pack "
+        f"{packs_tf}; each = {steps_f} steps x ({len(widths_f)} forward + "
+        f"{bwd_f} backward aggregations) = {want_f}")
+    if launches_tf != want_f or bwd_tf != steps_f * bwd_f * fam \
+            or packs_tf != want_f:
         raise AssertionError("flagship training: kernel launch count "
                              "differs from the passes the program runs")
     losses = [loss0] + rep["loss_history"]
@@ -1750,23 +2219,21 @@ def main() -> int:
 
     layer_b = max(caught)                       # the deepest backward pass
     g = caught[layer_b]
-    ghalo = halo_exchange(g, pa["send_idx"], pa["halo_src"])
+    ghalo = exchange_recv(g, pa["recv_src"])
     grad_err = max(
         check_k1(ltiles, g, st["pallas_lclasses"], tb,
                  f"flagship layer-{layer_b} gradient local pass f=128"),
         check_k1(htiles, ghalo, st["pallas_hclasses"], tb,
                  f"flagship layer-{layer_b} gradient halo pass f=128"))
-    b_loc = time_k1([t.cpu().numpy() for t in ltiles], ltiles, g,
-                    st["pallas_lclasses"], tb, plan.b,
-                    f"flagship layer-{layer_b} gradient local pass f=128")
+    fused_err = max(fused_err, check_fused(
+        ltiles, g, htiles, ghalo, st["pallas_lclasses"],
+        st["pallas_hclasses"], tb, f"flagship layer-{layer_b} gradient "
+        "fused f=128"))
+    k3b = time_whole_op(g, pa, st, tb, False, f"flagship K3 layer-{layer_b}"
+                        " backward (on the gradient) f=128")
     b_halo = time_k1([t.cpu().numpy() for t in htiles], htiles, ghalo,
-                     st["pallas_hclasses"], tb, plan.r,
+                     st["pallas_hclasses"], tb, ghalo.shape[1],
                      f"flagship layer-{layer_b} gradient halo pass f=128")
-    bwd = {key: b_loc[key] + b_halo[key]
-           for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
-    log(f"  flagship backward kernel time (layer {layer_b}, local + halo "
-        f"passes on the gradient, f=128): {bwd['ms']!r} ms; bound "
-        f"{bwd['bound_ms']!r} ms; torch.sparse.mm {bwd['library_ms']!r} ms")
     # K2: the halo family is one launch (timed above); one degree class
     # alone, the largest halo class by stored slots, is the unit the
     # per-class dispatch launched before
@@ -1776,7 +2243,7 @@ def main() -> int:
     size = hcls[c][0] * hcls[c][1]
     ctiles = [x[:, off: off + size] for x in htiles]
     time_k1([x.cpu().numpy() for x in ctiles], ctiles, ghalo, (hcls[c],), tb,
-            plan.r, f"flagship largest halo class {hcls[c][:2]} on the "
+            ghalo.shape[1], f"flagship largest halo class {hcls[c][:2]} on the "
             f"layer-{layer_b} gradient, f=128")
     log(f"  K2: the halo family's {len(hcls)} classes in one launch "
         f"{b_halo['ms']!r} ms (bound {b_halo['bound_ms']!r} ms)")
@@ -1849,16 +2316,24 @@ def main() -> int:
                                         for k, v in p.items()}
                                        for p in trg.params]))
     spmm_tiles.mask_launches = 0                # the main path starts here
+    k1_open()
+    row_pack.launches = 0
     GatLayerSym.backward_launches = 0
     rep_g = trg.fit(data, epochs=5, warmup=1, verbose=False)
+    k1_close()
     launches_gt = spmm_tiles.mask_launches      # ... and ends here
+    packs_gt = row_pack.launches
     bwd_gt = GatLayerSym.backward_launches
+    MAIN_PATH_PACKS[0] += packs_gt
     fit_g = [p.detach().clone() for p in trg.model.parameters()]
     want_gt = steps_f * 2 * gat_passes(widths_f)
+    want_pg = steps_f * 2 * pack_launches("gat", "a2a", widths_f)
     log(f"  K5 launches {launches_gt} (backward {bwd_gt}) = {steps_f} steps "
         f"x 2 directions x {gat_passes(widths_f)} passes (each over "
-        f"{len(cls_g)} classes) = {want_gt}")
-    if launches_gt != want_gt or bwd_gt != want_gt // 2:
+        f"{len(cls_g)} classes) = {want_gt}; row pack {packs_gt} (expected "
+        f"{want_pg})")
+    if launches_gt != want_gt or bwd_gt != want_gt // 2 \
+            or packs_gt != want_pg:
         raise AssertionError("flagship GAT training: K5 launch count "
                              "differs from the passes the program runs")
     losses_g = [loss0_g] + rep_g["loss_history"]
@@ -1910,6 +2385,8 @@ def main() -> int:
     out = io.StringIO()
     t0 = time.perf_counter()
     spmm_tiles.mask_launches = 0                # the main path starts here
+    k1_open()
+    row_pack.launches = 0
     GatLayerSym.backward_launches = 0
     with contextlib.redirect_stdout(out):
         train_main(["--npz", os.path.join(fix, "cora2708.npz"), "--normalize",
@@ -1917,8 +2394,11 @@ def main() -> int:
                     "-l", "2", "--hidden", "16", "--model", "gat",
                     "--epochs", "5", "--warmup", "0", "--seed", "11",
                     "--comm-schedule", "a2a"])
+    k1_close()
     launches_gtc = spmm_tiles.mask_launches     # ... and ends here
+    packs_gtc = row_pack.launches
     bwd_gtc = GatLayerSym.backward_launches
+    MAIN_PATH_PACKS[0] += packs_gtc
     lines = out.getvalue().strip().splitlines()
     rep_gc = json.loads(lines[-1])
     cli_losses = [float(x.split()[-1]) for x in lines
@@ -1932,9 +2412,11 @@ def main() -> int:
     log(f"  CLI losses {cli_losses}; dense GAT oracle {want_losses}; max "
         f"relative gap {rel.max():.3g}")
     want_gtc = 5 * 2 * gat_passes([16, 7])
-    log(f"  K5 launches {launches_gtc} (backward {bwd_gtc}); expected "
-        f"{want_gtc} ({want_gtc // 2})")
-    if launches_gtc != want_gtc or bwd_gtc != want_gtc // 2:
+    want_pgc = 5 * 2 * pack_launches("gat", "a2a", [16, 7])
+    log(f"  K5 launches {launches_gtc} (backward {bwd_gtc}), row pack "
+        f"{packs_gtc}; expected {want_gtc} ({want_gtc // 2}), {want_pgc}")
+    if launches_gtc != want_gtc or bwd_gtc != want_gtc // 2 \
+            or packs_gtc != want_pgc:
         raise AssertionError("cora GAT training: K5 launch count differs "
                              "from the passes the program runs")
     if rep_gc["model"] != "gat" or len(cli_losses) != 5 \
@@ -1947,11 +2429,7 @@ def main() -> int:
         "3's plan, features and weights; served rows == the a2a engines' "
         "(phases 3 and 7), bit for bit")
     from sgcn_tpu_torch.ops.pspmm import ring_concat
-    from sgcn_tpu_torch.ops.tile_spmm import (TILE_PLAN_FIELDS,
-                                              TILE_PLAN_FIELDS_RAGGED,
-                                              PspmmTilesRagged,
-                                              pspmm_tiles_ragged,
-                                              pspmm_tiles_sym)
+    from sgcn_tpu_torch.ops.tile_spmm import PspmmTilesRagged
     from sgcn_tpu_torch.parallel import resolve_comm_schedule
 
     d_f = {}
@@ -1965,31 +2443,25 @@ def main() -> int:
     eng_fr, _res_fr, launches_fr = serve_ragged(
         "flagship GCN ragged", eng_f, feats_f, 512, 64, 3)
     log_side_by_side("GCN forward breakdown", bd_f, forward_breakdown(eng_fr),
-                     ("exchange_ms", "halo_kernel_ms", "local_kernel_ms"))
+                     ("exchange_ms", "fused_kernel_ms"))
     log_device_busy("flagship GCN ragged", lambda: eng_fr.query(np.arange(64)))
     pa_r, st_r = eng_fr.pa, eng_fr.setup.fwd_static
-    ring0 = ring_concat(h0, pa_r["rsend_idx"], st_r["rr_sizes"])
+    ring0 = ring_concat(h0, pa_r["ring_src"], st_r["rr_sizes"])
     rtiles = [pa_r["ptile_hrsrc"], pa_r["ptile_hld"], pa_r["ptile_hw"]]
     rtiles_np = [t.cpu().numpy() for t in rtiles]
+    check_pack(h0, pa_r["ring_src"], h0.dtype, "flagship layer-0 ring")
+    fused_err = max(fused_err, check_fused(
+        ltiles, h0, rtiles, ring0, st_r["pallas_lclasses"],
+        st_r["pallas_hclasses"], tb, "flagship layer-0 ring fused f=128"))
     k4_err = check_k1(rtiles, ring0, st_r["pallas_hclasses"], tb,
                       "flagship ring pass f=128")
     t_ring = time_k1(rtiles_np, rtiles, ring0, st_r["pallas_hclasses"], tb,
                      ring0.shape[1], "flagship ring pass f=128")
-    k4 = {key: t_loc[key] + t_ring[key]
-          for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
-    log(f"  flagship per-layer kernel time on the ring (local + ring "
-        f"passes, f=128): {k4['ms']!r} ms; bound {k4['bound_ms']!r} ms; "
-        f"a2a {layer['ms']!r} ms")
-    ring_args = [pa_r[f] for f in TILE_PLAN_FIELDS_RAGGED]
-    sym_args = [pa[f] for f in TILE_PLAN_FIELDS]
-    statics = (tb, st["pallas_lclasses"], st["pallas_hclasses"])
-    with torch.inference_mode():
-        op_ring = cuda_ms(lambda: pspmm_tiles_ragged(
-            h0, *ring_args, *statics, st_r["rr_sizes"]), reps=10)
-        op_a2a = cuda_ms(lambda: pspmm_tiles_sym(h0, *sym_args, *statics),
-                         reps=10)
-    log(f"  one whole aggregation at f=128 (exchange + both passes + sum): "
-        f"ring {op_ring!r} ms, a2a {op_a2a!r} ms")
+    k4 = time_whole_op(h0, pa_r, st_r, tb, True,
+                       "flagship K4 layer 0 forward f=128")
+    log(f"  one whole aggregation at f=128 (exchange + fused launch): "
+        f"ring {k4['ms']!r} ms, a2a {k3['ms']!r} ms; K1 alone on the ring "
+        f"pass {t_ring['ms']!r} ms")
 
     eng_gfr, _res_gfr, launches_gfr = serve_ragged(
         "flagship GAT ragged", eng_gf, feats_f, 512, 64, 3)
@@ -2008,16 +2480,22 @@ def main() -> int:
         "timed steps; losses and weights == the a2a runs'")
     trr = FullBatchTrainer(plan, fin=128, widths=widths_f, seed=5,
                            comm_schedule="ragged", device=dev)
-    spmm_tiles.launches = 0                     # the main path starts here
+    spmm_tiles_fused.launches = 0               # the main path starts here
+    k1_open()
+    row_pack.launches = 0
     PspmmTilesRagged.launches = PspmmTilesRagged.backward_launches = 0
     rep_r = trr.fit(data, epochs=5, warmup=1, verbose=False)
-    launches_rt = spmm_tiles.launches           # ... and ends here
+    k1_close()
+    launches_rt = spmm_tiles_fused.launches     # ... and ends here
+    packs_rt = row_pack.launches
     ring_rt = PspmmTilesRagged.launches
     ring_bwd_rt = PspmmTilesRagged.backward_launches
-    log(f"  GCN kernel launches {launches_rt} (ring forward {ring_rt}, "
-        f"ring backward {ring_bwd_rt}); expected {want_f}")
+    MAIN_PATH_PACKS[0] += packs_rt
+    log(f"  GCN fused launches {launches_rt} (ring forward {ring_rt}, "
+        f"ring backward {ring_bwd_rt}), row pack {packs_rt}; expected "
+        f"{want_f} each")
     if (launches_rt != want_f or ring_bwd_rt != steps_f * bwd_f * fam
-            or ring_rt + ring_bwd_rt != launches_rt):
+            or ring_rt + ring_bwd_rt != launches_rt or packs_rt != want_f):
         raise AssertionError("ragged GCN training: launch count differs "
                              "from the passes the program runs")
     same_w = all(torch.equal(a, b) for a, b in zip(trr.params, fit_f))
@@ -2034,33 +2512,38 @@ def main() -> int:
                     reps=3, what="steps")
     _zs, caught_r = forward_backward_trace(trr, data)
     g_r = caught_r[layer_b]
-    gring = ring_concat(g_r, pa_r["rsend_idx"], st_r["rr_sizes"])
+    gring = ring_concat(g_r, pa_r["ring_src"], st_r["rr_sizes"])
     k4b_err = max(
         check_k1(ltiles, g_r, st_r["pallas_lclasses"], tb,
                  f"flagship layer-{layer_b} gradient local pass (ring run)"),
         check_k1(rtiles, gring, st_r["pallas_hclasses"], tb,
                  f"flagship layer-{layer_b} gradient ring pass f=128"))
-    rb_loc = time_k1([t.cpu().numpy() for t in ltiles], ltiles, g_r,
-                     st_r["pallas_lclasses"], tb, plan.b,
-                     f"flagship layer-{layer_b} gradient local pass f=128")
-    rb_ring = time_k1(rtiles_np, rtiles, gring, st_r["pallas_hclasses"], tb,
-                      gring.shape[1],
-                      f"flagship layer-{layer_b} gradient ring pass f=128")
-    k4b = {key: rb_loc[key] + rb_ring[key]
-           for key in ("ms", "plain_ms", "library_ms", "bound_ms")}
+    fused_err = max(fused_err, check_fused(
+        ltiles, g_r, rtiles, gring, st_r["pallas_lclasses"],
+        st_r["pallas_hclasses"], tb, f"flagship layer-{layer_b} gradient "
+        "ring fused f=128"))
+    k4b = time_whole_op(g_r, pa_r, st_r, tb, True, f"flagship K4 "
+                        f"layer-{layer_b} backward (on the gradient) f=128")
 
     trgr = FullBatchTrainer(plan, fin=128, widths=widths_f, model="gat",
                             activation="none",
                             params=gat_from_numpy(params_g),
                             comm_schedule="ragged", device=dev)
     spmm_tiles.mask_launches = 0                # the main path starts here
+    k1_open()
+    row_pack.launches = 0
     GatLayerSym.backward_launches = 0
     rep_gr = trgr.fit(data, epochs=5, warmup=1, verbose=False)
+    k1_close()
     launches_grt = spmm_tiles.mask_launches     # ... and ends here
+    packs_grt = row_pack.launches
     bwd_grt = GatLayerSym.backward_launches
-    log(f"  GAT K5 launches {launches_grt} (backward {bwd_grt}); expected "
-        f"{want_gt} ({want_gt // 2})")
-    if launches_grt != want_gt or bwd_grt != want_gt // 2:
+    MAIN_PATH_PACKS[0] += packs_grt
+    want_pgr = steps_f * 2 * pack_launches("gat", "ragged", widths_f)
+    log(f"  GAT K5 launches {launches_grt} (backward {bwd_grt}), row pack "
+        f"{packs_grt}; expected {want_gt} ({want_gt // 2}), {want_pgr}")
+    if launches_grt != want_gt or bwd_grt != want_gt // 2 \
+            or packs_grt != want_pgr:
         raise AssertionError("ragged GAT training: K5 launch count "
                              "differs from the passes the program runs")
     same_g = all(torch.equal(a, b)
@@ -2088,40 +2571,57 @@ def main() -> int:
                 "-p", os.path.join(fix, "cora2708.8.hp"), "-s", "8", "-l",
                 "2", "--hidden", "16", "--seed", "11"]
     cli = cli_base + ["--epochs", "5", "--warmup", "0"]
-    spmm_tiles.launches = 0                     # the main path starts here
+    spmm_tiles_fused.launches = 0               # the main path starts here
+    k1_open()
+    row_pack.launches = 0
     losses_ca, rep_ca = run_train_cli(cli + ["--comm-schedule", "a2a"])
-    launches_ca = spmm_tiles.launches           # ... and ends here
-    spmm_tiles.launches = 0                     # the main path starts here
+    k1_close()
+    launches_ca = spmm_tiles_fused.launches     # ... and ends here
+    packs_ca = row_pack.launches
+    spmm_tiles_fused.launches = 0               # the main path starts here
+    k1_open()
+    row_pack.launches = 0
     PspmmTilesRagged.launches = PspmmTilesRagged.backward_launches = 0
     losses_cr, rep_cr = run_train_cli(cli + ["--comm-schedule", "auto"])
-    launches_cr = spmm_tiles.launches           # ... and ends here
+    k1_close()
+    launches_cr = spmm_tiles_fused.launches     # ... and ends here
+    packs_cr = row_pack.launches
     ring_cr = PspmmTilesRagged.launches
     ring_bwd_cr = PspmmTilesRagged.backward_launches
+    MAIN_PATH_PACKS[0] += packs_ca + packs_cr
     want_cc = 5 * (2 + backward_passes(1433, [16, 7])) * fam
     log(f"  GCN: a2a losses {losses_ca}; auto -> {rep_cr['comm_schedule']} "
         f"(wire rows {rep_cr['wire_rows_per_exchange']} vs "
-        f"{rep_ca['wire_rows_per_exchange']}) losses {losses_cr}; launches "
-        f"{launches_ca} / {launches_cr} (ring {ring_cr} + {ring_bwd_cr}), "
-        f"expected {want_cc}; epoch_s a2a {rep_ca['epoch_s']!r}, ring "
+        f"{rep_ca['wire_rows_per_exchange']}) losses {losses_cr}; fused "
+        f"launches {launches_ca} / {launches_cr} (ring {ring_cr} + "
+        f"{ring_bwd_cr}), row pack {packs_ca} / {packs_cr}, expected "
+        f"{want_cc} each; epoch_s a2a {rep_ca['epoch_s']!r}, ring "
         f"{rep_cr['epoch_s']!r} (host-bound)")
     if (rep_cr["comm_schedule"] != "ragged" or rep_ca["comm_schedule"]
             != "a2a" or losses_cr != losses_ca or len(losses_cr) != 5
             or launches_ca != want_cc or launches_cr != want_cc
-            or ring_cr + ring_bwd_cr != want_cc):
+            or ring_cr + ring_bwd_cr != want_cc
+            or packs_ca != want_cc or packs_cr != want_cc):
         raise AssertionError("cora GCN CLI: auto did not train the ring "
                              "with the a2a losses and exact launches")
     spmm_tiles.mask_launches = 0                # the main path starts here
+    k1_open()
+    row_pack.launches = 0
     GatLayerSym.backward_launches = 0
     losses_gcr, rep_gcr = run_train_cli(
         cli + ["--model", "gat", "--comm-schedule", "auto"])
+    k1_close()
     launches_gcr = spmm_tiles.mask_launches     # ... and ends here
+    packs_gcr = row_pack.launches
     bwd_gcr = GatLayerSym.backward_launches
+    MAIN_PATH_PACKS[0] += packs_gcr
     log(f"  GAT: auto -> {rep_gcr['comm_schedule']} losses {losses_gcr}; "
         f"phase 9's a2a {cli_losses}; K5 launches {launches_gcr} (backward "
         f"{bwd_gcr}), expected {want_gtc}; epoch_s a2a "
         f"{rep_gc['epoch_s']!r}, ring {rep_gcr['epoch_s']!r}")
     if (rep_gcr["comm_schedule"] != "ragged" or losses_gcr != cli_losses
-            or launches_gcr != want_gtc or bwd_gcr != want_gtc // 2):
+            or launches_gcr != want_gtc or bwd_gcr != want_gtc // 2
+            or packs_gcr != 5 * 2 * pack_launches("gat", "ragged", [16, 7])):
         raise AssertionError("cora GAT CLI: auto did not train the ring "
                              "with the a2a losses and exact launches")
     # epoch_s of each transport, 3 runs each of 3 warm-up + 20 timed
@@ -2163,7 +2663,9 @@ def main() -> int:
             raise AssertionError(f"row_shuffle f={f}: kernel != plain")
         k6_err = max(k6_err, diff)
     row_shuffle.launches = 0                    # the main path starts here
+    k1_open()
     micro = micro_main([])
+    k1_close()
     launches_k6 = row_shuffle.launches          # ... and ends here
     if launches_k6 == 0:
         raise AssertionError("spmm_micro launched no row_shuffle kernel")
@@ -2202,7 +2704,7 @@ def main() -> int:
         "and compute_dtype='bfloat16', both transports, from phase 5's "
         "initial weights")
     split_f32("GCN", {"a2a": tr, "ragged": trr}, data)
-    l15, err15, k1_16 = phase_bf16_gcn_training(
+    l15, err15, k1_16, op_16, wire_16 = phase_bf16_gcn_training(
         plan, data, p_init, widths_f, rep, dev, tb, steps_f, bwd_f)
 
     # ---------------------------------------------------------- phase 16
@@ -2221,33 +2723,59 @@ def main() -> int:
         cli_losses)
 
     # ---------------------------------------------------------- phase 18
+    log("phase 18: the row pack and the fused entry on every real exchange "
+        "and aggregation of one flagship training pass (forward and "
+        "backward), GCN and GAT, both transports: kernel == plain")
+    for name, trainer, run in (
+            ("GCN a2a", tr, gcn_train_pass), ("GCN ring", trr, gcn_train_pass),
+            ("GAT a2a", trg, gat_train_pass),
+            ("GAT ring", trgr, gat_train_pass)):
+        packs, fused = record_exchanges(lambda: run(trainer, data))
+        for j, (src, flat, dtype) in enumerate(packs):
+            check_pack(src, flat, dtype, f"{name} exchange {j}")
+        for j, args in enumerate(fused):
+            fused_err = max(fused_err, check_fused(
+                *args, f"{name} aggregation {j} fused"))
+        log(f"  {name}: {len(packs)} exchanges (tables "
+            f"{sorted({tuple(p[0].shape[2:]) for p in packs})}) == plain "
+            f"bit for bit; {len(fused)} fused launches == plain")
+        if not packs or (name.startswith("GCN") and not fused):
+            raise AssertionError(f"{name}: recorded no exchange")
+
+    # ---------------------------------------------------------- phase 19
+    fused_main = (launches_c + launches_f + launches_tc + launches_tf
+                  + launches_fr + launches_rt + launches_ca + launches_cr
+                  + l15["wire"] + l15["bf16"] + launches_16)
     kernels = [{
+        # K1's own float32-weight family entry: its launches on the main
+        # path (0 since its two family chains run inside the fused entry,
+        # which counts those launches under tile_spmm_fused); the times
+        # are its own family launches at the flagship layer
         "name": "tile_spmm",
         "route": "cuda",
         "source": "sgcn_tpu_torch/csrc/tile_spmm.cu",
         "replaces": "sgcn_tpu/ops/pallas_spmm.py:203",
-        "launches": (launches_c + launches_f + launches_tc + launches_tf
-                     + launches_fr + launches_rt + launches_ca
-                     + launches_cr + l15["f32"] + launches_16),
+        "launches": MAIN_PATH_K1["launches"],
         "max_abs_err": max(max_err, grad_err, k4_err, k4b_err),
         "ms": layer["ms"],
-        "kernel_ms": layer["ms"],
         "plain_ms": layer["plain_ms"],
         "bound_ms": layer["bound_ms"],
         "bound_by": t_halo["bound_by"],
         "library_ms": layer["library_ms"],
     }, {
+        # K3's backward: the whole op (exchange + fused launch) on the
+        # gradient
         "name": "pspmm_tiles_sym_backward",
         "route": "cuda",
         "source": "sgcn_tpu_torch/csrc/tile_spmm.cu",
         "replaces": "sgcn_tpu/ops/pallas_spmm.py:457-464",
         "launches": bwd_tc + bwd_tf,
-        "max_abs_err": grad_err,
-        "ms": bwd["ms"],
-        "plain_ms": bwd["plain_ms"],
-        "bound_ms": bwd["bound_ms"],
-        "bound_by": b_halo["bound_by"],
-        "library_ms": bwd["library_ms"],
+        "max_abs_err": max(grad_err, fused_err),
+        "ms": k3b["ms"],
+        "plain_ms": k3b["plain_ms"],
+        "bound_ms": k3b["bound_ms"],
+        "bound_by": k3b["bound_by"],
+        "library_ms": k3b["library_ms"],
     }, {
         "name": "gat_tiles_pass",
         "route": "cuda",
@@ -2275,16 +2803,17 @@ def main() -> int:
         "bound_by": gat_bwd["bound_by"],
         "library_ms": gat_bwd["library_ms"],
     }, {
+        # K4: the whole op (ring pack + fused launch) per flagship layer
         "name": "pspmm_tiles_ragged",
         "route": "cuda",
         "source": "sgcn_tpu_torch/csrc/tile_spmm.cu",
         "replaces": "sgcn_tpu/ops/pallas_spmm.py:469-527",
         "launches": launches_fr + ring_rt + ring_cr,
-        "max_abs_err": k4_err,
+        "max_abs_err": max(k4_err, fused_err),
         "ms": k4["ms"],
         "plain_ms": k4["plain_ms"],
         "bound_ms": k4["bound_ms"],
-        "bound_by": t_ring["bound_by"],
+        "bound_by": k4["bound_by"],
         "library_ms": k4["library_ms"],
     }, {
         "name": "pspmm_tiles_ragged_backward",
@@ -2292,11 +2821,11 @@ def main() -> int:
         "source": "sgcn_tpu_torch/csrc/tile_spmm.cu",
         "replaces": "sgcn_tpu/ops/pallas_spmm.py:517-523",
         "launches": ring_bwd_rt + ring_bwd_cr,
-        "max_abs_err": k4b_err,
+        "max_abs_err": max(k4b_err, fused_err),
         "ms": k4b["ms"],
         "plain_ms": k4b["plain_ms"],
         "bound_ms": k4b["bound_ms"],
-        "bound_by": rb_ring["bound_by"],
+        "bound_by": k4b["bound_by"],
         "library_ms": k4b["library_ms"],
     }, {
         "name": "row_shuffle",
@@ -2311,11 +2840,14 @@ def main() -> int:
         "bound_by": "bytes",
         "library_ms": k6["library_ms"],
     }, {
+        # K1's own family entry on bf16 tables: its main-path launches
+        # (0: the compute_dtype path runs it inside the fused bf16 entry);
+        # the times are its own family launches at the flagship layer
         "name": "tile_spmm_bf16",
         "route": "cuda",
         "source": "sgcn_tpu_torch/csrc/tile_spmm.cu",
         "replaces": "sgcn_tpu/ops/pallas_spmm.py:203",
-        "launches": l15["bf16"],
+        "launches": MAIN_PATH_K1["bf16_launches"],
         "max_abs_err": max(err16["k1"], err15),
         "ms": k1_16["ms"],
         "plain_ms": k1_16["plain_ms"],
@@ -2334,7 +2866,50 @@ def main() -> int:
         "bound_ms": k5_16["bound_ms"],
         "bound_by": k5_16["bound_by"],
         "library_ms": k5_16["library_ms"],
+    }, {
+        # the stacked row pack: every exchange of K3 (a2a) and K4 (ring),
+        # GCN and GAT; timed on the flagship layer-0 a2a exchange
+        "name": "row_pack",
+        "route": "cuda",
+        "source": "sgcn_tpu_torch/csrc/row_shuffle.cu",
+        "replaces": "sgcn_tpu/ops/pallas_spmm.py:418",
+        "launches": MAIN_PATH_PACKS[0],
+        "max_abs_err": 0.0,
+        "ms": k3["pack"]["ms"],
+        "plain_ms": k3["pack"]["plain_ms"],
+        "bound_ms": k3["pack"]["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": k3["pack"]["library_ms"],
+    }, {
+        # the fused local + remote entry: K3/K4's tile work and sum in one
+        # launch, every dtype flavor; timed at the flagship layer 0 (a2a)
+        "name": "tile_spmm_fused",
+        "route": "cuda",
+        "source": "sgcn_tpu_torch/csrc/tile_spmm.cu",
+        "replaces": "sgcn_tpu/ops/pallas_spmm.py:413-428",
+        "launches": fused_main,
+        "max_abs_err": fused_err,
+        "ms": k3["fused"]["ms"],
+        "plain_ms": k3["fused"]["plain_ms"],
+        "bound_ms": k3["fused"]["bound_ms"],
+        "bound_by": k3["fused"]["bound_by"],
+        "library_ms": k3["fused"]["library_ms"],
     }]
+    # K1's family entries left the main path with the fused entry: they
+    # must stay off it (0 launches); every other kernel must be on it
+    off_path = ("tile_spmm", "tile_spmm_bf16")
+    for kern in kernels:
+        if kern["name"] in off_path:
+            if kern["launches"]:
+                raise AssertionError(f"{kern['name']}: {kern['launches']} "
+                                     "family-entry launches on the main "
+                                     "path, expected 0 (the fused entry "
+                                     "runs its chains)")
+        elif not kern["launches"]:
+            raise AssertionError(f"{kern['name']}: no launch on the main "
+                                 "path")
+    log("  launches on the main path per entry: " + json.dumps(
+        {kern["name"]: kern["launches"] for kern in kernels}))
     log(f"total {time.perf_counter() - t_start:.1f} s; card: {smi}")
     log(json.dumps({"kernels": kernels}))
     log(json.dumps({"ok": True, "device": {

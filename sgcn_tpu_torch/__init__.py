@@ -8,8 +8,11 @@ Module paths mirror the reference so each counterpart is easy to find.
 
 Ported so far: the partitioned GCN *serving* forward on one device —
 read graph, normalize Â, read the partition, ``build_comm_plan``, then per
-layer halo exchange → tile SpMM (a hand-written CUDA kernel for ``sm_90a``,
-``csrc/tile_spmm.cu``) → dense projection → activation, and query routing
+layer halo exchange (a row-pack kernel that writes the receive layout,
+``csrc/row_shuffle.cu``) → tile SpMM (a hand-written CUDA kernel for
+``sm_90a``, ``csrc/tile_spmm.cu``, whose GCN entry runs the local and halo
+passes and their sum in one launch) → dense projection → activation, and
+query routing
 — and the exact full-batch *trainer* on that forward, whose aggregation
 backward runs the same kernel on the gradient (Â is symmetric); GCN and
 GAT (the attention pass on the kernel's int8-mask entry point), over the

@@ -58,6 +58,17 @@
 //    serial chain's bits, NaN included.  The block finds its trailing
 //    weight-0 run while it scans its slots; a run with mixed sources is
 //    walked slot by slot.
+//  * A GCN aggregation (K3, _pspmm_pallas_once, and K4, its ring flavor:
+//    pallas_spmm.py:413-527) is two families and a sum: the local tiles
+//    over h, the halo tiles over the exchange's receive buffer (or the
+//    ring's concat), read in place, then (local + remote) rounded once to
+//    h's dtype.  The fused entry runs all of it in one launch: the two
+//    families share their tile classes, so a block takes the same rows of
+//    the same tile in both, walks each row's local chain and halo chain
+//    exactly as above, adds them in one float32 add and stores the row
+//    once in h's dtype, for the b owned rows only — no two (k, T·tb, f)
+//    float32 outputs, slices, add or cast in device memory.  Its bound is
+//    the two families' slot and row bytes plus b·f values written.
 //  * ≈ 170k rows per flagship pass give thousands of blocks: many waves.
 //  * No wgmma and no TMA: there is nothing to multiply on the tensor cores,
 //    and TMA has no per-row gather.
@@ -145,6 +156,163 @@ __device__ __forceinline__ void store_cols(float* p, const float (&x)[VEC]) {
   }
 }
 
+// The block's rows [r0, r0 + nrows) of one tile of one family: finds
+// their slots [lo, hi) by two warp searches, scans them once into row
+// pointers (row r's slots are [s_start[r], s_start[r+1])) and finds the
+// block's trailing weight-0 run.  Returns the run's first slot when the run
+// reads one source row (every row adds its part of the run's product once),
+// else hi.  Every thread of the block calls it; it synchronizes the block.
+// s_start holds kMaxTile + 1 ints, s_misc 4 (bounds, last nonzero, mixed).
+template <typename W>
+__device__ int scan_block_slots(const int32_t* __restrict__ src_p,
+                                const int32_t* __restrict__ ld_p,
+                                const W* __restrict__ w_p, int emax, int tb,
+                                int r0, int nrows, int* s_start, int* s_misc) {
+  int* s_bound = s_misc;        // [2]
+  int* s_last_nz = s_misc + 2;  // the block's last slot of nonzero weight
+  int* s_mixed = s_misc + 3;    // its trailing weight-0 run reads > 1 row
+  // the block's slots [lo, hi): from row r0's first to row r0+nrows's first
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  if (threadIdx.x == 0) {
+    *s_last_nz = -1;
+    *s_mixed = 0;
+  }
+  if (warp < 2) {
+    const int key = r0 + warp * nrows;
+    const int at = key == 0 ? 0
+                   : key >= tb ? emax
+                               : warp_lower_bound(ld_p, emax, key, lane);
+    if (lane == 0) s_bound[warp] = at;
+  }
+  __syncthreads();
+  const int lo = s_bound[0], hi = s_bound[1];
+  if (hi < lo) __trap();
+  // row pointers.  Every slot of [lo, hi) is checked here, and the blocks'
+  // ranges tile [0, emax), so a tile whose ld decreases, or leaves [0, tb),
+  // traps rather than drop or misplace edges
+  int last_nz = -1;
+  for (int i = lo + threadIdx.x; i < hi; i += kThreads) {
+    const int v = ld_p[i] - r0;
+    const int prev = i == lo ? -1 : ld_p[i - 1] - r0;
+    if (v < prev || v < 0 || v >= nrows) __trap();
+    for (int r = prev + 1; r <= v; ++r) s_start[r] = i;
+    if (i == hi - 1)
+      for (int r = v + 1; r <= nrows; ++r) s_start[r] = hi;
+    if (w_p[i] != W(0)) last_nz = i;
+  }
+  if (lo == hi)
+    for (int r = threadIdx.x; r <= nrows; r += kThreads) s_start[r] = lo;
+  if (last_nz >= 0) atomicMax(s_last_nz, last_nz);
+  __syncthreads();
+
+  // the block's trailing weight-0 run [z, hi): one source row, or walked
+  const int z = max(lo, *s_last_nz + 1);
+  if (z < hi) {
+    const int src0 = src_p[z];
+    for (int i = z + threadIdx.x; i < hi; i += kThreads)
+      if (src_p[i] != src0) *s_mixed = 1;
+    __syncthreads();
+  }
+  return z < hi && !*s_mixed ? z : hi;
+}
+
+// One row's chain over columns [c0, c0 + G*NV*VEC) of its lane group:
+// acc += w * table[src] over the slots [s, e) in stored order, then, if
+// the row has a part of the block's one-source weight-0 run, that run's
+// product once.  W, T, VEC, G, NV as for tile_spmm_kernel below.
+template <typename W, typename T, int VEC, int G, int NV>
+__device__ __forceinline__ void walk_row(
+    float (&acc)[NV][VEC], const int32_t* __restrict__ src_p,
+    const W* __restrict__ w_p, const T* __restrict__ tab, int n_rows, int f,
+    int c0, int s, int e, bool in_run, int run, int li, unsigned gmask) {
+  constexpr int kBatch = G >= 8 ? G : 8;           // slots staged per batch
+  constexpr int kPer = kBatch / G;                 // ... by each lane
+  constexpr int kWide = 32 / (NV * VEC);
+  constexpr int kAhead = kWide < 2 ? 2 : (kWide > kBatch ? kBatch : kWide);
+  for (int b = s; b < e; b += kBatch) {
+    const int cnt = min(kBatch, e - b);
+    int my_src[kPer];
+    float my_w[kPer];
+#pragma unroll
+    for (int u = 0; u < kPer; ++u) {
+      const int j = u * G + li;
+      my_src[u] = 0;
+      my_w[u] = 0.0f;
+      if (j < cnt) {
+        my_src[u] = src_p[b + j];
+        my_w[u] = static_cast<float>(w_p[b + j]);
+        // a bad index is a plan bug: fail the launch loudly rather than
+        // read out of bounds
+        if ((unsigned)my_src[u] >= (unsigned)n_rows) __trap();
+      }
+    }
+#pragma unroll
+    for (int j0 = 0; j0 < kBatch; j0 += kAhead) {
+      if (j0 >= cnt) break;  // cnt is the same for the whole group
+      float x[kAhead][NV][VEC];
+      float wj[kAhead];
+#pragma unroll
+      for (int a = 0; a < kAhead; ++a) {
+        const int j = j0 + a;
+        const int sj = __shfl_sync(gmask, my_src[j / G], j % G, G);
+        wj[a] = __shfl_sync(gmask, my_w[j / G], j % G, G);
+        const T* row = tab + (long long)sj * f + c0;
+#pragma unroll
+        for (int v = 0; v < NV; ++v) {
+          const int col = (v * G + li) * VEC;
+          if (j < cnt && c0 + col < f) {
+            load_cols<T, VEC>(row + col, x[a][v]);
+          } else {
+#pragma unroll
+            for (int q = 0; q < VEC; ++q) x[a][v][q] = 0.0f;
+          }
+        }
+      }
+#pragma unroll
+      for (int a = 0; a < kAhead; ++a)
+        if (j0 + a < cnt)
+#pragma unroll
+          for (int v = 0; v < NV; ++v)
+#pragma unroll
+            for (int q = 0; q < VEC; ++q)
+              acc[v][q] = __fadd_rn(acc[v][q], __fmul_rn(wj[a], x[a][v][q]));
+    }
+  }
+  if (!in_run) return;
+  const int sv = src_p[run];
+  if ((unsigned)sv >= (unsigned)n_rows) __trap();
+  const float w = static_cast<float>(w_p[run]);
+#pragma unroll
+  for (int v = 0; v < NV; ++v) {
+    const int col = c0 + (v * G + li) * VEC;
+    if (col >= f) continue;
+    float x[VEC];
+    load_cols<T, VEC>(tab + (long long)sv * f + col, x);
+#pragma unroll
+    for (int q = 0; q < VEC; ++q)
+      acc[v][q] = __fadd_rn(acc[v][q], __fmul_rn(w, x[q]));
+  }
+}
+
+// The class of a tile in a family's class table: (emax, first tile,
+// first slot).
+__device__ __forceinline__ void find_class(const int* first_tile,
+                                           const int* emax_of,
+                                           const long long* slot_off, int n,
+                                           int tile, int& emax, int& t0,
+                                           long long& off) {
+  emax = 0;
+  t0 = 0;
+  off = 0;
+#pragma unroll
+  for (int c = 0; c < kMaxClasses; ++c)
+    if (c < n && tile >= first_tile[c]) {
+      emax = emax_of[c];
+      t0 = first_tile[c];
+      off = slot_off[c];
+    }
+}
+
 // W: the stored weight type, float (Â's values, K1) or int8_t (the GAT
 // passes' 0/1 masks, K5), converted to float exactly as it is staged.
 // T: the table type, float or __nv_bfloat16, widened to float exactly as
@@ -161,86 +329,31 @@ tile_spmm_kernel(const int32_t* __restrict__ tsrc,
                  long long idx_part_stride, long long table_part_stride,
                  long long out_part_stride) {
   constexpr int kGroups = kThreads / G;            // rows walked at once
-  constexpr int kBatch = G >= 8 ? G : 8;           // slots staged per batch
-  constexpr int kPer = kBatch / G;                 // ... by each lane
-  constexpr int kWide = 32 / (NV * VEC);
-  constexpr int kAhead = kWide < 2 ? 2 : (kWide > kBatch ? kBatch : kWide);
   constexpr int kCols = G * NV * VEC;              // columns per walk
 
   __shared__ int s_start[kMaxTile + 1];
-  __shared__ int s_bound[2];
-  __shared__ int s_last_nz;   // the block's last slot of nonzero weight
-  __shared__ int s_mixed;     // its trailing weight-0 run reads > 1 row
+  __shared__ int s_misc[4];
 
   const int part = blockIdx.y;
   const int tile = blockIdx.x / chunks_per_tile;
   const int r0 = (blockIdx.x - tile * chunks_per_tile) * rows_per_block;
   const int nrows = min(rows_per_block, tb - r0);
 
-  int emax = 0, t0 = 0;
-  long long off = 0;
-#pragma unroll
-  for (int c = 0; c < kMaxClasses; ++c)
-    if (c < ct.n && tile >= ct.first_tile[c]) {
-      emax = ct.emax[c];
-      t0 = ct.first_tile[c];
-      off = ct.slot_off[c];
-    }
+  int emax, t0;
+  long long off;
+  find_class(ct.first_tile, ct.emax, ct.slot_off, ct.n, tile, emax, t0, off);
   const long long base =
       (long long)part * idx_part_stride + off + (long long)(tile - t0) * emax;
   const int32_t* src_p = tsrc + base;
-  const int32_t* ld_p = tld + base;
   const W* w_p = tw + base;
   const T* tab = table + (long long)part * table_part_stride;
   float* outp = out + (long long)part * out_part_stride +
                 ((long long)tile * tb + r0) * f;
-
-  // the block's slots [lo, hi): from row r0's first to row r0+nrows's first
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  if (threadIdx.x == 0) {
-    s_last_nz = -1;
-    s_mixed = 0;
-  }
-  if (warp < 2) {
-    const int key = r0 + warp * nrows;
-    const int at = key == 0 ? 0
-                   : key >= tb ? emax
-                               : warp_lower_bound(ld_p, emax, key, lane);
-    if (lane == 0) s_bound[warp] = at;
-  }
-  __syncthreads();
-  const int lo = s_bound[0], hi = s_bound[1];
-  if (hi < lo) __trap();
-  // row pointers: row r's slots are [s_start[r], s_start[r+1]).  Every slot
-  // of [lo, hi) is checked here, and the blocks' ranges tile [0, emax), so
-  // a tile whose ld decreases, or leaves [0, tb), traps rather than drop or
-  // misplace edges
-  int last_nz = -1;
-  for (int i = lo + threadIdx.x; i < hi; i += kThreads) {
-    const int v = ld_p[i] - r0;
-    const int prev = i == lo ? -1 : ld_p[i - 1] - r0;
-    if (v < prev || v < 0 || v >= nrows) __trap();
-    for (int r = prev + 1; r <= v; ++r) s_start[r] = i;
-    if (i == hi - 1)
-      for (int r = v + 1; r <= nrows; ++r) s_start[r] = hi;
-    if (w_p[i] != W(0)) last_nz = i;
-  }
-  if (lo == hi)
-    for (int r = threadIdx.x; r <= nrows; r += kThreads) s_start[r] = lo;
-  if (last_nz >= 0) atomicMax(&s_last_nz, last_nz);
-  __syncthreads();
-
-  // the block's trailing weight-0 run [z, hi): one source row, or walked
-  const int z = max(lo, s_last_nz + 1);
-  if (z < hi) {
-    const int src0 = src_p[z];
-    for (int i = z + threadIdx.x; i < hi; i += kThreads)
-      if (src_p[i] != src0) s_mixed = 1;
-    __syncthreads();
-  }
-  const int run = z < hi && !s_mixed ? z : hi;
+  const int run = scan_block_slots<W>(src_p, tld + base, w_p, emax, tb, r0,
+                                      nrows, s_start, s_misc);
 
   const int li = threadIdx.x & (G - 1);
+  const int lane = threadIdx.x & 31;
   const unsigned gmask = (0xffffffffu >> (32 - G)) << (lane & ~(G - 1));
   for (int r = threadIdx.x / G; r < nrows; r += kGroups) {
     const int s = s_start[r], end = s_start[r + 1];
@@ -254,74 +367,207 @@ tile_spmm_kernel(const int32_t* __restrict__ tsrc,
       for (int v = 0; v < NV; ++v)
 #pragma unroll
         for (int q = 0; q < VEC; ++q) acc[v][q] = 0.0f;
-      for (int b = s; b < e; b += kBatch) {
-        const int cnt = min(kBatch, e - b);
-        int my_src[kPer];
-        float my_w[kPer];
+      walk_row<W, T, VEC, G, NV>(acc, src_p, w_p, tab, n_rows, f, c0, s, e,
+                                 in_run, run, li, gmask);
 #pragma unroll
-        for (int u = 0; u < kPer; ++u) {
-          const int j = u * G + li;
-          my_src[u] = 0;
-          my_w[u] = 0.0f;
-          if (j < cnt) {
-            my_src[u] = src_p[b + j];
-            my_w[u] = static_cast<float>(w_p[b + j]);
-            // a bad index is a plan bug: fail the launch loudly rather
-            // than read out of bounds
-            if ((unsigned)my_src[u] >= (unsigned)n_rows) __trap();
-          }
-        }
-#pragma unroll
-        for (int j0 = 0; j0 < kBatch; j0 += kAhead) {
-          if (j0 >= cnt) break;  // cnt is the same for the whole group
-          float x[kAhead][NV][VEC];
-          float wj[kAhead];
-#pragma unroll
-          for (int a = 0; a < kAhead; ++a) {
-            const int j = j0 + a;
-            const int sj = __shfl_sync(gmask, my_src[j / G], j % G, G);
-            wj[a] = __shfl_sync(gmask, my_w[j / G], j % G, G);
-            const T* row = tab + (long long)sj * f + c0;
-#pragma unroll
-            for (int v = 0; v < NV; ++v) {
-              const int col = (v * G + li) * VEC;
-              if (j < cnt && c0 + col < f) {
-                load_cols<T, VEC>(row + col, x[a][v]);
-              } else {
-#pragma unroll
-                for (int q = 0; q < VEC; ++q) x[a][v][q] = 0.0f;
-              }
-            }
-          }
-#pragma unroll
-          for (int a = 0; a < kAhead; ++a)
-            if (j0 + a < cnt)
-#pragma unroll
-              for (int v = 0; v < NV; ++v)
-#pragma unroll
-                for (int q = 0; q < VEC; ++q)
-                  acc[v][q] =
-                      __fadd_rn(acc[v][q], __fmul_rn(wj[a], x[a][v][q]));
-        }
+      for (int v = 0; v < NV; ++v) {
+        const int col = c0 + (v * G + li) * VEC;
+        if (col < f) store_cols<VEC>(orow + col, acc[v]);
       }
+    }
+  }
+}
+
+// VEC columns rounded to bf16 as torch's CUDA cast rounds
+// (c10::BFloat16's constructor on sm_80+ is __float2bfloat16: nearest
+// even, the same NaN), stored as one 8-byte vector or one value.
+__device__ __forceinline__ unsigned int bf16_bits(float x) {
+  return __bfloat16_as_ushort(__float2bfloat16_rn(x));
+}
+
+template <int VEC>
+__device__ __forceinline__ void store_cols(__nv_bfloat16* p,
+                                           const float (&x)[VEC]) {
+  if constexpr (VEC == 4) {
+    *reinterpret_cast<uint2*>(p) =
+        make_uint2(bf16_bits(x[0]) | (bf16_bits(x[1]) << 16),
+                   bf16_bits(x[2]) | (bf16_bits(x[3]) << 16));
+  } else {
+    *reinterpret_cast<unsigned short*>(p) = (unsigned short)bf16_bits(x[0]);
+  }
+}
+
+// Both families of a GCN aggregation in one launch, with their sum: the
+// local family over `ltab` (h) and the halo family over `htab` (the a2a
+// receive buffer or the ring concat, read in place, on h's dtype or the
+// bf16 wire) share their tile classes, so a block that covers rows of one
+// tile finds that tile in both families under the same class index.  Each
+// owned row (tile * tb + r < b) runs its local chain, its halo chain, each
+// exactly as tile_spmm_kernel runs it, then out = local + remote in one
+// float32 add (pallas_spmm.py:428), stored once in h's dtype TL.  Rows at
+// or past b are neither walked nor stored.
+struct FusedClasses {
+  int n;
+  int first_tile[kMaxClasses + 1];
+  int emax[2][kMaxClasses];
+  long long slot_off[2][kMaxClasses];
+};
+
+struct Family {
+  const int32_t* src;
+  const int32_t* ld;
+  const float* w;
+  const void* table;
+  int n_rows;
+  long long idx_part_stride, table_part_stride;
+};
+
+// Two chains' state per row takes ~110-120 registers at f = 128 when
+// uncapped, room for 2 blocks an SM; capped at 85 (3 blocks, as the
+// family kernel runs) the f = 128 shapes spill a few dozen bytes and keep
+// half as many warps again in flight for the gathers (chip_smoke.py
+// phase 0 prints each instantiation's registers and spills).
+constexpr int kFusedMinBlocks = 3;
+
+template <typename TL, typename TR, int VEC, int G, int NV>
+__global__ void __launch_bounds__(kThreads, kFusedMinBlocks)
+tile_spmm_fused_kernel(const Family fl, const Family fh, TL* __restrict__ out,
+                       const FusedClasses ct, int tb, int b,
+                       int rows_per_block, int chunks_per_tile, int f,
+                       long long out_part_stride) {
+  constexpr int kGroups = kThreads / G;
+  constexpr int kCols = G * NV * VEC;
+
+  __shared__ int s_start[2][kMaxTile + 1];
+  __shared__ int s_misc[2][4];
+
+  const int part = blockIdx.y;
+  const int tile = blockIdx.x / chunks_per_tile;
+  const int r0 = (blockIdx.x - tile * chunks_per_tile) * rows_per_block;
+  // the block's owned rows; a block past b has none (uniform: return)
+  const int nrows = min(min(rows_per_block, tb - r0), b - (tile * tb + r0));
+  if (nrows <= 0) return;
+
+  const int32_t* src_p[2];
+  const float* w_p[2];
+  int run[2];
+#pragma unroll
+  for (int fam = 0; fam < 2; ++fam) {
+    const Family& F = fam ? fh : fl;
+    int emax, t0;
+    long long off;
+    find_class(ct.first_tile, ct.emax[fam], ct.slot_off[fam], ct.n, tile,
+               emax, t0, off);
+    const long long base = (long long)part * F.idx_part_stride + off +
+                           (long long)(tile - t0) * emax;
+    src_p[fam] = F.src + base;
+    w_p[fam] = F.w + base;
+    run[fam] = scan_block_slots<float>(src_p[fam], F.ld + base, w_p[fam],
+                                       emax, tb, r0, nrows, s_start[fam],
+                                       s_misc[fam]);
+  }
+  const TL* ltab =
+      static_cast<const TL*>(fl.table) + (long long)part * fl.table_part_stride;
+  const TR* htab =
+      static_cast<const TR*>(fh.table) + (long long)part * fh.table_part_stride;
+  TL* outp = out + (long long)part * out_part_stride +
+             ((long long)tile * tb + r0) * f;
+
+  const int li = threadIdx.x & (G - 1);
+  const int lane = threadIdx.x & 31;
+  const unsigned gmask = (0xffffffffu >> (32 - G)) << (lane & ~(G - 1));
+  for (int r = threadIdx.x / G; r < nrows; r += kGroups) {
+    int s[2], e[2];
+    bool in_run[2];
+#pragma unroll
+    for (int fam = 0; fam < 2; ++fam) {
+      s[fam] = s_start[fam][r];
+      const int end = s_start[fam][r + 1];
+      in_run[fam] = end > max(s[fam], run[fam]);
+      e[fam] = in_run[fam] ? max(s[fam], run[fam]) : end;
+    }
+    TL* orow = outp + (long long)r * f;
+    for (int c0 = 0; c0 < f; c0 += kCols) {
+      float loc[NV][VEC], rem[NV][VEC];
+#pragma unroll
+      for (int v = 0; v < NV; ++v)
+#pragma unroll
+        for (int q = 0; q < VEC; ++q) loc[v][q] = rem[v][q] = 0.0f;
+      walk_row<float, TL, VEC, G, NV>(loc, src_p[0], w_p[0], ltab, fl.n_rows,
+                                      f, c0, s[0], e[0], in_run[0], run[0],
+                                      li, gmask);
+      walk_row<float, TR, VEC, G, NV>(rem, src_p[1], w_p[1], htab, fh.n_rows,
+                                      f, c0, s[1], e[1], in_run[1], run[1],
+                                      li, gmask);
 #pragma unroll
       for (int v = 0; v < NV; ++v) {
         const int col = c0 + (v * G + li) * VEC;
         if (col >= f) continue;
-        if (in_run) {
-          const int sv = src_p[run];
-          if ((unsigned)sv >= (unsigned)n_rows) __trap();
-          float x[VEC];
-          load_cols<T, VEC>(tab + (long long)sv * f + col, x);
-          const float w = static_cast<float>(w_p[run]);
 #pragma unroll
-          for (int q = 0; q < VEC; ++q)
-            acc[v][q] = __fadd_rn(acc[v][q], __fmul_rn(w, x[q]));
-        }
-        store_cols<VEC>(orow + col, acc[v]);
+        for (int q = 0; q < VEC; ++q) loc[v][q] = __fadd_rn(loc[v][q], rem[v][q]);
+        store_cols<VEC>(orow + col, loc[v]);
       }
     }
   }
+}
+
+// Rows per block: at least 32, so that its two searches and the scan are
+// shared by several rows; never more than one tile.
+int block_rows(int tb, int groups) {
+  return min(tb, groups > 32 ? groups : 32);
+}
+
+// Calls l.template run<VEC, G, NV>() for the lane shape of width f at
+// vector width vec: lanes per row enough vectors for the row, up to a
+// warp; past 32 vectors a lane takes 2 or 4 (more columns walk the slots
+// again).
+template <typename L>
+int by_lane_shape(const L& l, int f, int vec) {
+  const int nvec = f / vec + (f % vec != 0);
+  int g = 1;
+  while (g < nvec && g < 32) g <<= 1;
+  const int nv = nvec <= 32 ? 1 : nvec <= 64 ? 2 : 4;
+  if (vec == 4) {
+    if (nv == 1 && g <= 8) return l.template run<4, 8, 1>();
+    if (nv == 1 && g == 16) return l.template run<4, 16, 1>();
+    if (nv == 1) return l.template run<4, 32, 1>();
+    if (nv == 2) return l.template run<4, 32, 2>();
+    return l.template run<4, 32, 4>();
+  }
+  switch (nv == 1 ? g : 32 * nv) {
+    case 1: return l.template run<1, 1, 1>();
+    case 2: return l.template run<1, 2, 1>();
+    case 4: return l.template run<1, 4, 1>();
+    case 8: return l.template run<1, 8, 1>();
+    case 16: return l.template run<1, 16, 1>();
+    case 32: return l.template run<1, 32, 1>();
+    case 64: return l.template run<1, 32, 2>();
+    default: return l.template run<1, 32, 4>();
+  }
+}
+
+// Checks that n_classes classes lie one after another, tiles and slots:
+// first_tile[0] == 0, every class at least one tile of at least one slot,
+// slot_off the running sum.  Fills first_tile (n + 1 entries).
+bool check_classes(int n_classes, const int* first_tile, const int* emax,
+                   const long long* slot_off, int* first_out) {
+  if (n_classes < 1 || n_classes > kMaxClasses || first_tile[0] != 0)
+    return false;
+  long long slots = 0;
+  for (int c = 0; c < n_classes; ++c) {
+    const int tiles = first_tile[c + 1] - first_tile[c];
+    if (tiles < 1 || emax[c] < 1 || slot_off[c] != slots) return false;
+    slots += (long long)tiles * emax[c];
+  }
+  for (int c = 0; c <= n_classes; ++c) first_out[c] = first_tile[c];
+  return true;
+}
+
+// Vector loads need whole 4-column vectors per row: f % 4 == 0, a base
+// aligned to 4 values and a part stride of whole vectors.
+bool vec_ok(int f, const void* table, int itemsize, long long part_stride) {
+  return f % 4 == 0 && (uintptr_t)table % (4 * itemsize) == 0 &&
+         part_stride % 4 == 0;
 }
 
 struct Args {
@@ -335,23 +581,26 @@ struct Args {
   long long idx_part_stride, table_part_stride, out_part_stride;
 };
 
-template <typename W, typename T, int VEC, int G, int NV>
-int launch(const Args& a, int k, int t_all, cudaStream_t stream) {
-  constexpr int kGroups = kThreads / G;
-  // at least 32 rows per block, so that its two searches and the scan are
-  // shared by several rows; never more than one tile
-  const int rows = min(a.tb, kGroups > 32 ? kGroups : 32);
-  const int chunks = (a.tb + rows - 1) / rows;
-  const long long blocks = (long long)t_all * chunks;
-  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
-  dim3 grid((unsigned)blocks, (unsigned)k);
-  tile_spmm_kernel<W, T, VEC, G, NV><<<grid, kThreads, 0, stream>>>(
-      a.tsrc, a.tld, static_cast<const W*>(a.tw),
-      static_cast<const T*>(a.table), a.out, a.ct, a.tb,
-      rows, chunks, a.n_rows, a.f, a.idx_part_stride, a.table_part_stride,
-      a.out_part_stride);
-  return (int)cudaGetLastError();
-}
+template <typename W, typename T>
+struct FamilyLaunch {
+  const Args& a;
+  int k, t_all;
+  cudaStream_t stream;
+  template <int VEC, int G, int NV>
+  int run() const {
+    const int rows = block_rows(a.tb, kThreads / G);
+    const int chunks = (a.tb + rows - 1) / rows;
+    const long long blocks = (long long)t_all * chunks;
+    if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+    dim3 grid((unsigned)blocks, (unsigned)k);
+    tile_spmm_kernel<W, T, VEC, G, NV><<<grid, kThreads, 0, stream>>>(
+        a.tsrc, a.tld, static_cast<const W*>(a.tw),
+        static_cast<const T*>(a.table), a.out, a.ct, a.tb, rows, chunks,
+        a.n_rows, a.f, a.idx_part_stride, a.table_part_stride,
+        a.out_part_stride);
+    return (int)cudaGetLastError();
+  }
+};
 
 template <typename W, typename T>
 int launch_family(const void* tsrc, const void* tld, const void* tw,
@@ -361,29 +610,18 @@ int launch_family(const void* tsrc, const void* tld, const void* tw,
                   int vec, long long idx_part_stride,
                   long long table_part_stride, long long out_part_stride,
                   int device, void* stream) {
-  if (k < 1 || k > 65535 || n_classes < 1 || n_classes > kMaxClasses ||
-      tb < 1 || tb > kMaxTile || n_rows < 1 || f < 1 ||
-      (vec != 1 && vec != 4))
+  if (k < 1 || k > 65535 || tb < 1 || tb > kMaxTile || n_rows < 1 ||
+      f < 1 || (vec != 1 && vec != 4))
     return (int)cudaErrorInvalidValue;
-  // the classes must lie one after another: tiles and slots
   Args a{};
   a.ct.n = n_classes;
-  long long slots = 0;
-  if (first_tile[0] != 0) return (int)cudaErrorInvalidValue;
+  if (!check_classes(n_classes, first_tile, emax, slot_off, a.ct.first_tile))
+    return (int)cudaErrorInvalidValue;
   for (int c = 0; c < n_classes; ++c) {
-    const int tiles = first_tile[c + 1] - first_tile[c];
-    if (tiles < 1 || emax[c] < 1 || slot_off[c] != slots)
-      return (int)cudaErrorInvalidValue;
-    a.ct.first_tile[c] = first_tile[c];
     a.ct.emax[c] = emax[c];
     a.ct.slot_off[c] = slot_off[c];
-    slots += (long long)tiles * emax[c];
   }
-  a.ct.first_tile[n_classes] = first_tile[n_classes];
-  // vector loads need whole 4-column vectors per row: f % 4 == 0, a base
-  // aligned to 4 * sizeof(T) bytes and a part stride of whole vectors
-  if (vec == 4 && (f % 4 != 0 || (uintptr_t)table % (4 * sizeof(T)) != 0 ||
-                   table_part_stride % 4 != 0))
+  if (vec == 4 && !vec_ok(f, table, sizeof(T), table_part_stride))
     return (int)cudaErrorMisalignedAddress;
   // this library carries its own CUDA runtime: select the tensors' device
   // in it (the caller's runtime state is not shared)
@@ -400,31 +638,82 @@ int launch_family(const void* tsrc, const void* tld, const void* tw,
   a.idx_part_stride = idx_part_stride;
   a.table_part_stride = table_part_stride;
   a.out_part_stride = out_part_stride;
-  const int t_all = first_tile[n_classes];
-  cudaStream_t st = (cudaStream_t)stream;
-  // lanes per row: enough vectors for the row, up to a warp; past 32
-  // vectors a lane takes 2 or 4 (more columns walk the slots again)
-  const int nvec = f / vec + (f % vec != 0);
-  int g = 1;
-  while (g < nvec && g < 32) g <<= 1;
-  const int nv = nvec <= 32 ? 1 : nvec <= 64 ? 2 : 4;
-  if (vec == 4) {
-    if (nv == 1 && g <= 8) return launch<W, T, 4, 8, 1>(a, k, t_all, st);
-    if (nv == 1 && g == 16) return launch<W, T, 4, 16, 1>(a, k, t_all, st);
-    if (nv == 1) return launch<W, T, 4, 32, 1>(a, k, t_all, st);
-    if (nv == 2) return launch<W, T, 4, 32, 2>(a, k, t_all, st);
-    return launch<W, T, 4, 32, 4>(a, k, t_all, st);
+  return by_lane_shape(
+      FamilyLaunch<W, T>{a, k, first_tile[n_classes], (cudaStream_t)stream}, f,
+      vec);
+}
+
+template <typename TL, typename TR>
+struct FusedLaunch {
+  const Family& fl;
+  const Family& fh;
+  void* out;
+  const FusedClasses& ct;
+  int k, tb, b, f;
+  long long out_part_stride;
+  cudaStream_t stream;
+  template <int VEC, int G, int NV>
+  int run() const {
+    const int rows = block_rows(tb, kThreads / G);
+    const int chunks = (tb + rows - 1) / rows;
+    const long long blocks = (long long)ct.first_tile[ct.n] * chunks;
+    if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+    dim3 grid((unsigned)blocks, (unsigned)k);
+    tile_spmm_fused_kernel<TL, TR, VEC, G, NV><<<grid, kThreads, 0, stream>>>(
+        fl, fh, static_cast<TL*>(out), ct, tb, b, rows, chunks, f,
+        out_part_stride);
+    return (int)cudaGetLastError();
   }
-  switch (nv == 1 ? g : 32 * nv) {
-    case 1: return launch<W, T, 1, 1, 1>(a, k, t_all, st);
-    case 2: return launch<W, T, 1, 2, 1>(a, k, t_all, st);
-    case 4: return launch<W, T, 1, 4, 1>(a, k, t_all, st);
-    case 8: return launch<W, T, 1, 8, 1>(a, k, t_all, st);
-    case 16: return launch<W, T, 1, 16, 1>(a, k, t_all, st);
-    case 32: return launch<W, T, 1, 32, 1>(a, k, t_all, st);
-    case 64: return launch<W, T, 1, 32, 2>(a, k, t_all, st);
-    default: return launch<W, T, 1, 32, 4>(a, k, t_all, st);
+};
+
+template <typename TL, typename TR>
+int launch_fused(const void* lsrc, const void* lld, const void* lw,
+                 const void* ltable, const void* hsrc, const void* hld,
+                 const void* hw, const void* htable, void* out, int k,
+                 int n_classes, const int* first_tile, const int* lemax,
+                 const long long* lslot_off, const int* hemax,
+                 const long long* hslot_off, int tb, int b, int n_lrows,
+                 int n_hrows, int f, int vec, long long lidx_part_stride,
+                 long long hidx_part_stride, long long ltable_part_stride,
+                 long long htable_part_stride, long long out_part_stride,
+                 int device, void* stream) {
+  if (k < 1 || k > 65535 || tb < 1 || tb > kMaxTile || n_lrows < 1 ||
+      n_hrows < 1 || f < 1 || (vec != 1 && vec != 4))
+    return (int)cudaErrorInvalidValue;
+  FusedClasses ct{};
+  ct.n = n_classes;
+  // one class structure of tiles, each family its own slots
+  if (!check_classes(n_classes, first_tile, lemax, lslot_off,
+                     ct.first_tile) ||
+      !check_classes(n_classes, first_tile, hemax, hslot_off, ct.first_tile))
+    return (int)cudaErrorInvalidValue;
+  for (int c = 0; c < n_classes; ++c) {
+    ct.emax[0][c] = lemax[c];
+    ct.emax[1][c] = hemax[c];
+    ct.slot_off[0][c] = lslot_off[c];
+    ct.slot_off[1][c] = hslot_off[c];
   }
+  // the owned rows lie in the tiles
+  if (b < 1 || b > first_tile[n_classes] * tb)
+    return (int)cudaErrorInvalidValue;
+  if (vec == 4 && (!vec_ok(f, ltable, sizeof(TL), ltable_part_stride) ||
+                   !vec_ok(f, htable, sizeof(TR), htable_part_stride) ||
+                   !vec_ok(f, out, sizeof(TL), out_part_stride)))
+    return (int)cudaErrorMisalignedAddress;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  const Family fl{(const int32_t*)lsrc, (const int32_t*)lld,
+                  (const float*)lw,     ltable,
+                  n_lrows,              lidx_part_stride,
+                  ltable_part_stride};
+  const Family fh{(const int32_t*)hsrc, (const int32_t*)hld,
+                  (const float*)hw,     htable,
+                  n_hrows,              hidx_part_stride,
+                  htable_part_stride};
+  return by_lane_shape(
+      FusedLaunch<TL, TR>{fl, fh, out, ct, k, tb, b, f, out_part_stride,
+                          (cudaStream_t)stream},
+      f, vec);
 }
 
 }  // namespace
@@ -501,6 +790,71 @@ extern "C" int sgcn_tile_spmm_family_mask_bf16(
       tsrc, tld, tw, table, out, k, n_classes, first_tile, emax, slot_off,
       tb, n_rows, f, vec, idx_part_stride, table_part_stride, out_part_stride,
       device, stream);
+}
+
+// One GCN aggregation's tile work in one launch (K3/K4's local pass,
+// remote pass and sum): the local family (lsrc/lld/lw, k parts at
+// lidx_part_stride) over ltable, the halo family (hsrc/hld/hw at
+// hidx_part_stride) over htable, both float32 weights, sharing one class
+// structure of tiles (first_tile, n_classes + 1 entries) with each its own
+// slots (lemax/lslot_off, hemax/hslot_off: host arrays).  ltable part p is
+// (n_lrows, f) row-major at p * ltable_part_stride, htable part p
+// (n_hrows, f) at p * htable_part_stride; out part p is (b, f) row-major at
+// p * out_part_stride, b <= first_tile[n] * tb the owned rows: out =
+// local + remote summed in float32 and stored once in ltable's dtype.
+// Launches on `stream` of CUDA device `device`, does not synchronize, and
+// returns the cudaError_t of the launch.  float32 h and remote table:
+extern "C" int sgcn_tile_spmm_fused_f32(
+    const void* lsrc, const void* lld, const void* lw, const void* ltable,
+    const void* hsrc, const void* hld, const void* hw, const void* htable,
+    void* out, int k, int n_classes, const int* first_tile, const int* lemax,
+    const long long* lslot_off, const int* hemax, const long long* hslot_off,
+    int tb, int b, int n_lrows, int n_hrows, int f, int vec,
+    long long lidx_part_stride, long long hidx_part_stride,
+    long long ltable_part_stride, long long htable_part_stride,
+    long long out_part_stride, int device, void* stream) {
+  return launch_fused<float, float>(
+      lsrc, lld, lw, ltable, hsrc, hld, hw, htable, out, k, n_classes,
+      first_tile, lemax, lslot_off, hemax, hslot_off, tb, b, n_lrows, n_hrows,
+      f, vec, lidx_part_stride, hidx_part_stride, ltable_part_stride,
+      htable_part_stride, out_part_stride, device, stream);
+}
+
+// ... float32 h, the remote table on the bf16 wire (halo_dtype='bfloat16':
+// each bf16 value widens exactly, as the upcast table would give it),
+// float32 out
+extern "C" int sgcn_tile_spmm_fused_f32_bf16wire(
+    const void* lsrc, const void* lld, const void* lw, const void* ltable,
+    const void* hsrc, const void* hld, const void* hw, const void* htable,
+    void* out, int k, int n_classes, const int* first_tile, const int* lemax,
+    const long long* lslot_off, const int* hemax, const long long* hslot_off,
+    int tb, int b, int n_lrows, int n_hrows, int f, int vec,
+    long long lidx_part_stride, long long hidx_part_stride,
+    long long ltable_part_stride, long long htable_part_stride,
+    long long out_part_stride, int device, void* stream) {
+  return launch_fused<float, __nv_bfloat16>(
+      lsrc, lld, lw, ltable, hsrc, hld, hw, htable, out, k, n_classes,
+      first_tile, lemax, lslot_off, hemax, hslot_off, tb, b, n_lrows, n_hrows,
+      f, vec, lidx_part_stride, hidx_part_stride, ltable_part_stride,
+      htable_part_stride, out_part_stride, device, stream);
+}
+
+// ... bf16 h and remote table (compute_dtype='bfloat16'), the sum rounded
+// once to bf16 as torch's CUDA cast rounds it
+extern "C" int sgcn_tile_spmm_fused_bf16(
+    const void* lsrc, const void* lld, const void* lw, const void* ltable,
+    const void* hsrc, const void* hld, const void* hw, const void* htable,
+    void* out, int k, int n_classes, const int* first_tile, const int* lemax,
+    const long long* lslot_off, const int* hemax, const long long* hslot_off,
+    int tb, int b, int n_lrows, int n_hrows, int f, int vec,
+    long long lidx_part_stride, long long hidx_part_stride,
+    long long ltable_part_stride, long long htable_part_stride,
+    long long out_part_stride, int device, void* stream) {
+  return launch_fused<__nv_bfloat16, __nv_bfloat16>(
+      lsrc, lld, lw, ltable, hsrc, hld, hw, htable, out, k, n_classes,
+      first_tile, lemax, lslot_off, hemax, hslot_off, tb, b, n_lrows, n_hrows,
+      f, vec, lidx_part_stride, hidx_part_stride, ltable_part_stride,
+      htable_part_stride, out_part_stride, device, stream);
 }
 
 extern "C" const char* sgcn_cuda_error_string(int code) {

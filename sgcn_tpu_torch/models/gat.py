@@ -61,13 +61,16 @@ from ..ops.pspmm import halo_exchange, narrow_dtype, ring_concat
 from ..ops.tile_spmm import gat_tiles_pass, k5_launches
 from .activations import get_activation
 
-# plan arrays the tile-kernel GAT forward ships (the reference's
-# GAT_PLAN_FIELDS_PALLAS, same names); ptile_cw ships as int8
-GAT_PLAN_FIELDS_PALLAS = ("send_idx", "halo_src", "ptile_csrc", "ptile_cld",
-                          "ptile_cw", "row_valid")
-# ... and its ragged flavor's: the ring's send rows, the combined tiles'
-# sources re-based to [local ‖ ring concat] (no halo table, no rhalo_dst)
-GAT_PLAN_FIELDS_PALLAS_RAGGED = ("rsend_idx", "ptile_crsrc", "ptile_cld",
+# plan arrays the tile-kernel GAT forward ships: the reference's
+# GAT_PLAN_FIELDS_PALLAS with its exchange arrays replaced by the flat
+# sources of the port's row packs (``recv_src`` for send_idx,
+# ``halo_src_flat`` for halo_src); ptile_cw ships as int8
+GAT_PLAN_FIELDS_PALLAS = ("recv_src", "halo_src_flat", "ptile_csrc",
+                          "ptile_cld", "ptile_cw", "row_valid")
+# ... and its ragged flavor's (``ring_src`` for rsend_idx): the combined
+# tiles' sources re-based to [local ‖ ring concat] (no halo table, no
+# rhalo_dst)
+GAT_PLAN_FIELDS_PALLAS_RAGGED = ("ring_src", "ptile_crsrc", "ptile_cld",
                                  "ptile_cw", "row_valid")
 
 # Widest row of the fused one-pass table form.  Structural default
@@ -208,7 +211,7 @@ def edge_softmax(scores, edge_mask, edge_dst, num_rows: int):
     return ex / (denom[dst] + 1e-9)
 
 
-def _gat_tiles_aggregate(p, s, form, send_idx, halo_src, csrc, cld, cw,
+def _gat_tiles_aggregate(p, s, form, ex_src, halo_src_flat, csrc, cld, cw,
                          tb, cclasses, rr_sizes=None):
     """Masked Σ over every row's in-edges of ``[p ‖ s]`` — the reference's
     ``_gat_pallas_aggregate``.  ``p``: ``(k, b, fout)``, ``s``: ``(k, b)``.
@@ -227,10 +230,12 @@ def _gat_tiles_aggregate(p, s, form, send_idx, halo_src, csrc, cld, cw,
     for two passes (the bf16 one at width ``fout``, the float32 one at
     width 1).
 
-    ``rr_sizes`` given selects the ragged ring: ``send_idx`` is then the
-    ring's ``rsend_idx``, ``halo_src`` is unused and ``csrc`` the
+    ``ex_src`` and ``halo_src_flat`` are the plan's ``recv_src`` and
+    ``halo_src_flat`` (``ops/pspmm.py::halo_exchange``: two row packs).
+    ``rr_sizes`` given selects the ragged ring: ``ex_src`` is then the
+    plan's ``ring_src``, ``halo_src_flat`` is unused and ``csrc`` the
     ring-re-based ``ptile_crsrc``; the pass reads ``[local ‖ ring
-    concat]``.  The split form ships ONE ring of ``[p ‖ s]`` (the
+    concat]`` (one row pack).  The split form ships ONE ring of ``[p ‖ s]`` (the
     reference's two-lane ring) and cuts it into the two tables with a
     ``cat``, which also makes the kernel's tables row-major.  Same bits as
     the a2a flavor.  Returns ``(N (k, b, fout), D (k, b))``."""
@@ -239,8 +244,8 @@ def _gat_tiles_aggregate(p, s, form, send_idx, halo_src, csrc, cld, cw,
     if form == "packed":
         half = fout // 2
         table = torch.cat([_pack_rows(p), s[..., None]], dim=-1)
-        halo = (ring_concat(table, send_idx, rr_sizes) if ragged
-                else halo_exchange(table, send_idx, halo_src))
+        halo = (ring_concat(table, ex_src, rr_sizes) if ragged
+                else halo_exchange(table, ex_src, halo_src_flat))
         full_p = torch.cat([p, _unpack_rows(halo[..., :half])], dim=1)
         full_u = torch.cat([s, halo[..., half]], dim=1)
         num = gat_tiles_pass(csrc, cld, cw, full_p, cclasses, tb, b)
@@ -249,8 +254,8 @@ def _gat_tiles_aggregate(p, s, form, send_idx, halo_src, csrc, cld, cw,
         return num, den
     if form == "fused":
         table = torch.cat([p, s[..., None]], dim=-1)
-        halo = (ring_concat(table, send_idx, rr_sizes) if ragged
-                else halo_exchange(table, send_idx, halo_src))
+        halo = (ring_concat(table, ex_src, rr_sizes) if ragged
+                else halo_exchange(table, ex_src, halo_src_flat))
         full = torch.cat([table, halo], dim=1)       # (k, B+R, fout+1)
         out = gat_tiles_pass(csrc, cld, cw, full, cclasses, tb, b)
         return out[..., :fout], out[..., fout]
@@ -258,20 +263,22 @@ def _gat_tiles_aggregate(p, s, form, send_idx, halo_src, csrc, cld, cw,
         raise ValueError(f"the tile GAT pass takes the fused, split and "
                          f"packed table forms, not {form!r}")
     if ragged:
-        ring = ring_concat(torch.cat([p, s[..., None]], dim=-1), send_idx,
+        ring = ring_concat(torch.cat([p, s[..., None]], dim=-1), ex_src,
                            rr_sizes)
         full_p = torch.cat([p, ring[..., :fout]], dim=1)
         full_u = torch.cat([s, ring[..., fout]], dim=1)
     else:
-        full_p = torch.cat([p, halo_exchange(p, send_idx, halo_src)], dim=1)
-        full_u = torch.cat([s, halo_exchange(s, send_idx, halo_src)], dim=1)
+        full_p = torch.cat([p, halo_exchange(p, ex_src, halo_src_flat)],
+                           dim=1)
+        full_u = torch.cat([s, halo_exchange(s, ex_src, halo_src_flat)],
+                           dim=1)
     num = gat_tiles_pass(csrc, cld, cw, full_p, cclasses, tb, b)
     den = gat_tiles_pass(csrc, cld, cw, full_u[..., None], cclasses, tb,
                          b)[..., 0]
     return num, den
 
 
-def _gat_factored_fwd_core(w, a2, h, send_idx, halo_src, csrc, cld, cw,
+def _gat_factored_fwd_core(w, a2, h, ex_src, halo_src_flat, csrc, cld, cw,
                            row_valid, tb, cclasses, form=None,
                            rr_sizes=None):
     """The factored layer over stacked parts: returns
@@ -293,8 +300,8 @@ def _gat_factored_fwd_core(w, a2, h, send_idx, halo_src, csrc, cld, cw,
     # ship both in z's dtype
     s = u if form == "packed" else u.to(z.dtype)
     num, den = _gat_tiles_aggregate(u.to(z.dtype)[..., None] * z, s, form,
-                                    send_idx, halo_src, csrc, cld, cw, tb,
-                                    cclasses, rr_sizes)
+                                    ex_src, halo_src_flat, csrc, cld, cw,
+                                    tb, cclasses, rr_sizes)
     # max(den, tiny): u > 0 on every real edge, so this stays exact until
     # genuine f32 underflow; the reference's guard, kept as it is
     out = num / torch.clamp(den, min=1e-30)[..., None]
@@ -311,9 +318,10 @@ class GatLayerSym(torch.autograd.Function):
     pattern's aggregation is the aggregation).  ``∂L/∂a1`` is exactly 0;
     the weight gradients sum over the ``k`` parts (the reference's psum).
 
-    ``rr_sizes`` given selects the ragged ring in both directions
-    (``send_idx`` is then ``rsend_idx``, ``halo_src`` is ``None`` and
-    ``csrc`` is ``ptile_crsrc``).
+    ``ex_src`` and ``halo_src_flat`` are the plan's ``recv_src`` and
+    ``halo_src_flat``; ``rr_sizes`` given selects the ragged ring in both
+    directions (``ex_src`` is then ``ring_src``, ``halo_src_flat`` is
+    ``None`` and ``csrc`` is ``ptile_crsrc``).
 
     ``compute_dtype='bfloat16'`` casts ``w``, ``a2`` and ``h`` to bf16
     inside the layer (the reference's mixed-precision layer): the forward
@@ -330,7 +338,7 @@ class GatLayerSym(torch.autograd.Function):
     backward_launches = 0
 
     @staticmethod
-    def forward(ctx, w, a1, a2, h, send_idx, halo_src, csrc, cld, cw,
+    def forward(ctx, w, a1, a2, h, ex_src, halo_src_flat, csrc, cld, cw,
                 row_valid, tb, cclasses, form=None, rr_sizes=None,
                 compute_dtype=None):
         dt = narrow_dtype(compute_dtype, "compute_dtype")
@@ -340,16 +348,16 @@ class GatLayerSym(torch.autograd.Function):
         if form is None:
             form = gat_table_form(w.shape[1], w.dtype)
         out, _z, _u, den, cg = _gat_factored_fwd_core(
-            w, a2, h, send_idx, halo_src, csrc, cld, cw, row_valid, tb,
+            w, a2, h, ex_src, halo_src_flat, csrc, cld, cw, row_valid, tb,
             cclasses, form, rr_sizes)
-        ctx.save_for_backward(w, a1, a2, h, cg, den, out, send_idx,
-                              halo_src, csrc, cld, cw)
+        ctx.save_for_backward(w, a1, a2, h, cg, den, out, ex_src,
+                              halo_src_flat, csrc, cld, cw)
         ctx.static = (tb, cclasses, form, rr_sizes, dtypes)
         return out
 
     @staticmethod
     def backward(ctx, gbar):
-        (w, a1, a2, h, cg, den, out, send_idx, halo_src, csrc, cld,
+        (w, a1, a2, h, cg, den, out, ex_src, halo_src_flat, csrc, cld,
          cw) = ctx.saved_tensors
         tb, cclasses, form, rr_sizes, dtypes = ctx.static
         before = k5_launches()
@@ -361,9 +369,9 @@ class GatLayerSym(torch.autograd.Function):
         dd = -(gbar * out).sum(dim=-1) / dng         # (k, b)
         if form == "packed":
             dn = dn.to(torch.bfloat16)
-        dp, du_agg = _gat_tiles_aggregate(dn, dd, form, send_idx, halo_src,
-                                          csrc, cld, cw, tb, cclasses,
-                                          rr_sizes)
+        dp, du_agg = _gat_tiles_aggregate(dn, dd, form, ex_src,
+                                          halo_src_flat, csrc, cld, cw, tb,
+                                          cclasses, rr_sizes)
         # p = u·z, u = exp(z2 − C): chain rules (C is constant a.e.), in
         # float32 on bf16 operands under mixed precision
         w, a2, h, z = (_widened(x) for x in (w, a2, h, z))
@@ -409,9 +417,10 @@ def gat_forward_local(
         if rr_sizes is None:
             raise ValueError("the ragged GAT forward needs the plan's "
                              "static rr_sizes (CommPlan.ensure_ragged)")
-        ex = (pa["rsend_idx"], None, pa["ptile_crsrc"])
+        ex = (pa["ring_src"], None, pa["ptile_crsrc"])
     elif comm_schedule == "a2a":
-        ex, rr_sizes = (pa["send_idx"], pa["halo_src"], pa["ptile_csrc"]), None
+        ex = (pa["recv_src"], pa["halo_src_flat"], pa["ptile_csrc"])
+        rr_sizes = None
     else:
         raise ValueError(f"unknown comm_schedule {comm_schedule!r} (the "
                          "trainer resolves 'auto' before the forward)")

@@ -120,7 +120,7 @@ def gcn_forward_local(
 
         def agg(x):
             return pspmm_tiles_ragged(
-                x, pa["rsend_idx"],
+                x, pa["ring_src"],
                 pa["ptile_lsrc"], pa["ptile_lld"], pa["ptile_lw"],
                 pa["ptile_hrsrc"], pa["ptile_hld"], pa["ptile_hw"],
                 pallas_tb, pallas_lclasses, pallas_hclasses, rr_sizes,
@@ -128,9 +128,9 @@ def gcn_forward_local(
     elif comm_schedule == "a2a":
         def agg(x):
             return pspmm_tiles_sym(
-                x, pa["send_idx"], pa["halo_src"],
+                x, pa["recv_src"],
                 pa["ptile_lsrc"], pa["ptile_lld"], pa["ptile_lw"],
-                pa["ptile_hsrc"], pa["ptile_hld"], pa["ptile_hw"],
+                pa["ptile_hwsrc"], pa["ptile_hld"], pa["ptile_hw"],
                 pallas_tb, pallas_lclasses, pallas_hclasses, halo_dtype)
     else:
         raise ValueError(f"unknown comm_schedule {comm_schedule!r} (the "

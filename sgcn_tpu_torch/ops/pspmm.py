@@ -4,26 +4,36 @@
 
 Rank layout of this port: all ``k`` parts run stacked along a leading axis
 in one process on one device (NCCL refuses two ranks on one GPU).  The
-reference's per-chip ``lax.all_to_all(split_axis=0, concat_axis=0)`` of the
-``(k, S, f)`` send buffer is, over the stacked ``(k, k, S, f)`` buffer,
-exactly ``recv[q, p] = send[p, q]`` — a transpose of the first two axes
-(the identity for ``k = 1``).  Its ``lax.ppermute`` of ring round ``d``
-(part ``p`` sends to ``(p+d) mod k``) is a roll of the stacked round
-buffer by ``d`` parts.  ``halo_exchange`` and ``ring_concat`` are the one
-place that knows the layout: a multi-GPU slice swaps the transpose for
-``torch.distributed.all_to_all_single`` and the roll for
-``batch_isend_irecv``, and nothing else changes.
+reference's per-chip ``jnp.take`` of the send rows, its
+``lax.all_to_all(split_axis=0, concat_axis=0)`` of the ``(k, S, f)`` send
+buffer and its ``jnp.take`` of the halo rows are, over the stacked parts,
+gathers of rows by a flat index ``part·rows + row`` that the plan computes
+in numpy (``CommPlan.ensure_exchange``/``ensure_ragged``): part ``q``'s
+receive buffer ``recv[q, p·S + t] = h[p, send_idx[p, q, t]]``
+(``recv_src``), its halo rows ``recv[q, halo_src[q, r]]``
+(``halo_src_flat``), and the ring's round-major concat
+(``ring_src``: round ``d``'s rows arrive from part ``(q−d) mod k``, the
+reference's ``lax.ppermute``).  Each is one launch of the row pack
+(``ops/row_shuffle.py::row_pack``) that writes the receive layout
+directly: no send buffer, transpose, roll or concatenation.  The functions
+here are the one place that knows the layout: under one process per GPU
+(ROADMAP A2b) each rank's gather by ``recv_src`` becomes its send pack
+(``send_idx[p]`` in peer order), ``torch.distributed.all_to_all_single``
+takes the place of the stacked layout's transpose, and the ring's rounds
+become ``batch_isend_irecv``; nothing else changes.
 
 Both take the reference's ``halo_dtype``, a narrower dtype for the WIRE
-only: the send buffer is cast after the send gather and the received rows
-are upcast back to ``h``'s dtype after the receive side's gather, so the
-transpose (or the roll) moves half the bytes under ``'bfloat16'`` while
-every table and sum stays in ``h``'s dtype.
+only: the pack rounds each row to it as it stores it, so the receive
+buffer and the ring concat hold half the bytes under ``'bfloat16'``; the
+tile kernel reads them in place and widens each value exactly, which is
+the reference's upcast of the received rows.
 """
 
 from __future__ import annotations
 
 import torch
+
+from .row_shuffle import row_pack
 
 # the dtypes a halo_dtype or compute_dtype may name, by the reference's
 # names: float32 (no narrowing, None) or bfloat16
@@ -41,32 +51,49 @@ def narrow_dtype(dtype, what: str = "halo_dtype"):
     return _NARROW[dtype]
 
 
-def halo_exchange(h, send_idx, halo_src, halo_dtype=None):
-    """Exchange boundary rows; return every part's halo row block.
+def _wire(h, halo_dtype):
+    return narrow_dtype(halo_dtype) or h.dtype
+
+
+def exchange_recv(h, recv_src, halo_dtype=None):
+    """Every part's receive buffer of the dense a2a exchange, in the wire's
+    dtype: ``recv[q, p·S + t] = h[p, send_idx[p, q, t]]`` — one row pack.
+
+    Args:
+      h: ``(k, B, f)`` local rows of all parts (``(k, B)``: one scalar per
+        row).
+      recv_src: ``(k, k·S)`` int32, the plan's ``recv_src``: the flat
+        stacked row ``p·B + send_idx[p, q, t]`` of each receive slot.
+      halo_dtype: the wire's dtype (``'bfloat16'``), or ``None`` for
+        ``h``'s own.
+
+    Returns ``(k, k·S, f)`` (or ``(k, k·S)``) in the wire's dtype.  The
+    halo tiles of the GCN aggregation read it in place (``ptile_hwsrc``);
+    slots past a send list's length hold row 0 of the sender."""
+    return row_pack(h.contiguous(), recv_src, _wire(h, halo_dtype))
+
+
+def halo_exchange(h, recv_src, halo_src_flat, halo_dtype=None):
+    """Exchange boundary rows; return every part's halo row block: the
+    receive buffer (``exchange_recv``), then its halo rows in the plan's
+    (owner, vertex-id) order, upcast to ``h``'s dtype — two row packs.
 
     Args:
       h: ``(k, B, f)`` local feature rows of all parts, or ``(k, B)`` one
         scalar per row (the split GAT form ships its ``u`` in its own
-        ``(k, S)`` buffer, the reference's ``_exchange_rows_scalar``).
-      send_idx: ``(k, k, S)`` int — ``send_idx[p, q]`` the local rows part
-        ``p`` ships to part ``q`` (padded with 0; receivers never gather
-        padded slots).
-      halo_src: ``(k, R)`` int — flat indices into each part's received
-        ``(k*S, ...)`` buffer, in the plan's (owner, vertex-id) halo order.
+        buffer, the reference's ``_exchange_rows_scalar``).
+      recv_src: ``(k, k·S)`` int32, the plan's ``recv_src``.
+      halo_src_flat: ``(k, R)`` int32, the plan's ``halo_src_flat``:
+        ``q·k·S + halo_src[q, r]``, the halo rows' flat positions in the
+        stacked receive buffers.
       halo_dtype: the wire's dtype (``'bfloat16'``), or ``None`` for
         ``h``'s own (``sgcn_tpu/ops/pspmm.py::halo_exchange``).
 
     Returns ``(k, R, f)`` (or ``(k, R)``) halo rows in ``h``'s dtype
     (padding rows hold garbage; only weight-0 edges reference them).
     """
-    k = h.shape[0]
-    wire = narrow_dtype(halo_dtype)
-    parts = torch.arange(k, device=h.device)
-    send = h[parts[:, None, None], send_idx.long()]        # (k, k, S, ...)
-    if wire is not None:
-        send = send.to(wire)
-    recv = send.transpose(0, 1).reshape(k, -1, *h.shape[2:])  # recv[q, p·S+t]
-    return recv[parts[:, None], halo_src.long()].to(h.dtype)  # (k, R, ...)
+    return row_pack(exchange_recv(h, recv_src, halo_dtype), halo_src_flat,
+                    h.dtype)
 
 
 def ragged_live_rounds(rr_sizes) -> tuple:
@@ -76,43 +103,32 @@ def ragged_live_rounds(rr_sizes) -> tuple:
     return tuple(d for d, sd in enumerate(rr_sizes, start=1) if sd > 0)
 
 
-def ring_concat(h, rsend_idx, rr_sizes, halo_dtype=None):
+def ring_concat(h, ring_src, rr_sizes, halo_dtype=None):
     """The ragged ring's receive buffers, concatenated in round order —
-    the remote pass's table.
+    the remote pass's table — in one row pack.
 
-    Per live round ``d`` (``ragged_live_rounds``) every part ``p`` gathers
-    its round slots ``h[p, rsend_idx[p, off:off+S_d]]`` and ships them to
-    ``(p+d) mod k``, so part ``q`` receives from ``(q−d) mod k``: over the
-    stacked parts that is ``torch.roll(·, shifts=d, dims=0)``.  Nothing is
-    scattered into an ``(R, f)`` halo table: the plan re-bases the halo
-    tile sources to positions in this concat (``ptile_hrsrc``,
+    Per live round ``d`` (``ragged_live_rounds``) every part ``p`` ships
+    its round slots ``h[p, rsend_idx[p, off:off+S_d]]`` to
+    ``(p+d) mod k``, so part ``q`` receives from ``(q−d) mod k``; the
+    plan's ``ring_src`` holds each concat slot's flat stacked row.
+    Nothing is scattered into an ``(R, f)`` halo table: the plan re-bases
+    the halo tile sources to positions in this concat (``ptile_hrsrc``,
     ``ptile_crsrc``).
 
     Args:
       h: ``(k, B, f)`` local rows of all parts (any trailing shape).
-      rsend_idx: ``(k, ΣS_d)`` int — each part's send rows, round-major.
+      ring_src: ``(k, ΣS_d)`` int32, the plan's ``ring_src``:
+        ``((q−d) mod k)·B + rsend_idx[(q−d) mod k, off_d + t]``.
       rr_sizes: the static round sizes ``(S_1, …, S_{k−1})``.
       halo_dtype: each round's wire dtype (``'bfloat16'``), or ``None``
-        for ``h``'s own: the round buffer is cast before the roll and
-        upcast after it (``pallas_spmm.py:404-406``).
+        for ``h``'s own.
 
-    Returns ``(k, Σ_live S_d, f)`` in ``h``'s dtype; an all-empty ring
-    (k = 1, or no halo) gives a ``(k, 1, f)`` zero table.
+    Returns ``(k, Σ_live S_d, f)`` in the wire's dtype (the tile kernel
+    widens a bf16 wire exactly as it reads it: the reference's upcast,
+    ``pallas_spmm.py:404-406``); an all-empty ring (k = 1, or no halo)
+    gives a ``(k, 1, f)`` zero table.
     """
-    k = h.shape[0]
-    wire = narrow_dtype(halo_dtype)
-    parts = torch.arange(k, device=h.device)[:, None]
-    segs = []
-    live = ragged_live_rounds(rr_sizes)
-    off = 0
-    for d, sd in enumerate(rr_sizes, start=1):
-        if d in live:
-            buf = h[parts, rsend_idx[:, off: off + sd].long()]  # (k, S_d, ...)
-            if wire is not None:
-                buf = buf.to(wire)
-            segs.append(torch.roll(buf, shifts=d, dims=0)       # q ← q−d
-                        .to(h.dtype))
-        off += sd
-    if not segs:
-        return h.new_zeros((k, 1) + tuple(h.shape[2:]))
-    return segs[0] if len(segs) == 1 else torch.cat(segs, dim=1)
+    if not ragged_live_rounds(rr_sizes):
+        return h.new_zeros((h.shape[0], 1) + tuple(h.shape[2:]),
+                           dtype=_wire(h, halo_dtype))
+    return row_pack(h.contiguous(), ring_src, _wire(h, halo_dtype))

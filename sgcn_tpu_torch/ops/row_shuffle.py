@@ -1,16 +1,23 @@
-"""Row shuffle — the port of the micro-benchmark probe K6
-(``scripts/spmm_micro.py::tga_kernel``, a Pallas ``take_along_axis`` over
-an ``(S, f)`` f32 chunk driven by an ``(S, 1)`` int32 index).
+"""Row gathers on the card (``csrc/row_shuffle.cu``, built by
+``ops/_build.py``):
 
-  * ``row_shuffle`` — the kernel wrapper: ``out[i, :] = x[idx[i], :]``.
-    On CPU tensors it is ``row_shuffle_plain``; a CUDA tensor launches the
-    CUDA kernel (``csrc/row_shuffle.cu``, built by ``ops/_build.py``) on
-    the current stream or raises.  ``row_shuffle.launches`` counts kernel
-    launches;
-  * ``row_shuffle_plain`` — its plain PyTorch version, an advanced index.
+  * ``row_shuffle`` — the port of the micro-benchmark probe K6
+    (``scripts/spmm_micro.py::tga_kernel``, a Pallas ``take_along_axis``
+    over an ``(S, f)`` f32 chunk driven by an ``(S, 1)`` int32 index):
+    ``out[i, :] = x[idx[i], :]``.  On CPU tensors it is
+    ``row_shuffle_plain``, an advanced index; a CUDA tensor launches the
+    kernel on the current stream or raises.  ``row_shuffle.launches``
+    counts kernel launches;
+  * ``row_pack`` — the stacked row pack that carries the halo exchange and
+    the ragged ring (K3, K4; ``ops/pspmm.py``): ``out[q, j] =
+    src[flat[q, j] // rows, flat[q, j] % rows]`` over a ``(k, rows, ...)``
+    stack, cast to the output dtype as it is stored.  On CPU tensors it is
+    ``row_pack_plain``; a CUDA tensor launches the kernel or raises.
+    ``row_pack.launches`` counts kernel launches.
 
-A copy rounds nothing, so the kernel and the plain version agree bit for
-bit.
+A copy rounds nothing, and the pack's float32 → bf16 store rounds as
+torch's cast on the same device does, so each kernel agrees with its plain
+version bit for bit.
 """
 
 from __future__ import annotations
@@ -34,6 +41,9 @@ def _lib():
         lib.sgcn_row_shuffle_f32.argtypes = (
             [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4 + [ctypes.c_void_p])
         lib.sgcn_row_shuffle_f32.restype = ctypes.c_int
+        lib.sgcn_row_pack.argtypes = (
+            [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
+        lib.sgcn_row_pack.restype = ctypes.c_int
         lib.sgcn_row_shuffle_error_string.argtypes = [ctypes.c_int]
         lib.sgcn_row_shuffle_error_string.restype = ctypes.c_char_p
         lib._sgcn_typed = True
@@ -92,3 +102,79 @@ def row_shuffle(x, idx):
 
 
 row_shuffle.launches = 0
+
+
+# the pack's dtypes and their codes in csrc/row_shuffle.cu
+_PACK_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+
+def row_pack_plain(src, flat, dtype=None):
+    """``src.reshape(k·rows, ...)[flat]`` in ``dtype`` (default
+    ``src.dtype``): ``src`` ``(k, rows, ...)``, ``flat`` ``(k, J)`` int →
+    ``(k, J, ...)``."""
+    k, rows = src.shape[:2]
+    out = src.reshape(k * rows, *src.shape[2:])[flat.reshape(-1).long()]
+    return out.reshape(*flat.shape, *src.shape[2:]).to(dtype or src.dtype)
+
+
+def row_pack(src, flat, dtype=None):
+    """Gather rows of the ``k`` stacked parts by one flat index and cast.
+
+    Args:
+      src: ``(k, rows, ...)`` float32 or bfloat16, the parts stacked (a
+        row is everything past the first two axes, ``w`` values).
+      flat: ``(k, J)`` int32 — output row ``(q, j)`` is stacked row
+        ``flat[q, j] = part·rows + row`` of ``src`` (any part).
+      dtype: the output dtype, float32 or bfloat16 (default ``src``'s):
+        float32 → bf16 rounds to nearest even, bf16 → float32 widens
+        exactly.
+
+    Returns ``(k, J, ...)`` in ``dtype``.  On CPU tensors this is
+    ``row_pack_plain``; on CUDA tensors it launches the kernel on the
+    current stream (no synchronize) and counts it in
+    ``row_pack.launches``.  A non-contiguous source, another dtype or
+    device raises; an index outside ``[0, k·rows)`` fails the launch."""
+    dtype = dtype or src.dtype
+    if src.dim() < 2 or flat.dim() != 2:
+        raise ValueError(f"row_pack takes a (k, rows, ...) source and a "
+                         f"(k, J) index, got {tuple(src.shape)} and "
+                         f"{tuple(flat.shape)}")
+    if flat.dtype != torch.int32:
+        raise TypeError(f"row_pack takes an int32 index, got {flat.dtype}")
+    if flat.device != src.device:
+        raise ValueError("source and index must be on the same device")
+    if src.device.type == "cpu":
+        return row_pack_plain(src, flat, dtype)
+    if src.device.type != "cuda":
+        raise ValueError(f"row_pack runs on cpu or cuda tensors, got "
+                         f"{src.device}")
+    if src.dtype not in _PACK_DTYPES or dtype not in _PACK_DTYPES:
+        raise TypeError(f"row_pack moves float32 and bfloat16 rows, got "
+                        f"{src.dtype} -> {dtype}")
+    if not (src.is_contiguous() and flat.is_contiguous()):
+        raise ValueError("row_pack takes a row-major source and a "
+                         "contiguous index")
+    n_src, n_out = src.shape[0] * src.shape[1], flat.numel()
+    w = src[0, 0].numel() if n_src else 0
+    if n_src == 0 or n_out == 0 or w == 0:
+        raise ValueError(f"empty row pack: source {tuple(src.shape)}, "
+                         f"index {tuple(flat.shape)}")
+    out = torch.empty((*flat.shape, *src.shape[2:]), dtype=dtype,
+                      device=src.device)
+    lib = _lib()
+    dev = src.device.index if src.device.index is not None \
+        else torch.cuda.current_device()
+    rc = lib.sgcn_row_pack(
+        src.data_ptr(), flat.data_ptr(), out.data_ptr(), n_out, n_src, w,
+        _PACK_DTYPES[src.dtype], _PACK_DTYPES[dtype], dev,
+        torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(
+            f"row_pack launch failed: "
+            f"{lib.sgcn_row_shuffle_error_string(rc).decode()} "
+            f"(cudaError {rc})")
+    row_pack.launches += 1
+    return out
+
+
+row_pack.launches = 0

@@ -10,8 +10,9 @@ holds, in the reference's order:
   * ``spmm_tiles_classes`` — the degree-binned SpMM over a tile family's
     flat class arrays (counterpart of ``spmm_pallas_classes``): on CUDA
     tensors ONE kernel launch for all the family's classes, on CPU
-    tensors ``spmm_tiles_plain``, its plain PyTorch version, per class.
-    A CUDA tensor launches the kernel or raises.  ``spmm_tiles`` (the
+    tensors ``spmm_tiles_classes_plain``, its plain PyTorch version
+    (``spmm_tiles_plain`` per class).  A CUDA tensor launches the kernel
+    or raises.  ``spmm_tiles`` (the
     counterpart of ``spmm_pallas``) is its one-class case, and
     ``spmm_tiles.launches`` counts kernel launches, one per family pass;
     ``pack_class_table`` packs the launch's class structure and
@@ -19,16 +20,23 @@ holds, in the reference's order:
     tile's local destinations do not decrease along its slots);
   * ``choose_tile_dispatch`` — the per-class table, logged the way
     ``choose_pallas_dispatch`` logs it;
-  * ``pspmm_tiles_sym`` — ``pspmm_pallas_sym`` with its custom VJP as the
-    ``torch.autograd.Function`` ``PspmmTilesSym``: halo exchange, the
-    kernel over the local table, the kernel over the halo table,
-    ``local + remote``; the backward is the same op on the gradient
-    (Â is symmetric);
+  * ``spmm_tiles_fused`` — one GCN aggregation's tile work in one launch
+    of the kernel's fused entry point: the local family over ``h``, the
+    halo family over the exchange's receive buffer (or the ring concat)
+    read in place, ``local + remote`` rounded once to ``h``'s dtype for
+    the owned rows; ``spmm_tiles_fused_plain`` is its plain version (the
+    two plain family passes, the slices, the add and the cast);
+  * ``pspmm_tiles_sym`` — ``pspmm_pallas_sym`` (K3) with its custom VJP as
+    the ``torch.autograd.Function`` ``PspmmTilesSym``: the exchange's
+    receive buffer (one row pack, ``ops/pspmm.py::exchange_recv``), then
+    the fused launch; the backward is the same op on the gradient (Â is
+    symmetric);
   * ``pspmm_tiles_ragged`` — ``pspmm_pallas_ragged`` (K4) with its custom
     VJP as ``PspmmTilesRagged``: the same op on the ragged ring, the
-    kernel over the local table and over the ring's receive concat
-    (``ops/pspmm.py::ring_concat``) through the ring-re-based halo tiles;
-    bit-identical to ``pspmm_tiles_sym`` (same tiles, same edge order);
+    fused launch over the local table and the ring's receive concat
+    (``ops/pspmm.py::ring_concat``, one row pack) through the
+    ring-re-based halo tiles; bit-identical to ``pspmm_tiles_sym`` (same
+    tiles, same edge order);
   * ``gat_tiles_pass`` — ``gat_pallas_pass`` (K5): the GAT attention pass,
     the kernel over the combined-edge tiles with int8 0/1 mask weights.
     An int8 ``tw`` launches the kernel's int8 entry point, counted in
@@ -38,10 +46,11 @@ Tables are float32 or bfloat16, as ``spmm_pallas`` keeps its table in its
 own dtype and upcasts each row as it reads it; the output is float32
 either way.  A bf16 table launches the kernel's bf16 entry points, counted
 apart in ``spmm_tiles.bf16_launches`` and ``spmm_tiles.bf16_mask_launches``
-(``k1_launches``/``k5_launches`` sum each weight type over both tables).
+(``k5_launches`` sums the mask launches over both tables).
 ``_pspmm_tiles_once`` and its ragged flavor take the reference's
-``halo_dtype`` (the wire only) and return ``(local + remote)`` rounded once
-to the table's dtype, as ``_pspmm_pallas_once`` does.
+``halo_dtype`` (the wire only: the fused launch reads the bf16 receive
+buffer through a bf16 remote table) and return ``(local + remote)``
+rounded once to the table's dtype, as ``_pspmm_pallas_once`` does.
 
 Every function takes the ``k`` parts stacked on a leading axis
 (``(k, ...)`` tile arrays and tables); the single-part 2-D forms are
@@ -61,7 +70,7 @@ import ctypes
 import numpy as np
 import torch
 
-from .pspmm import halo_exchange, ring_concat
+from .pspmm import exchange_recv, ring_concat
 
 
 # ----------------------------------------------------------- tile builders
@@ -250,6 +259,18 @@ _ENTRIES = {
 }
 
 
+# the fused entry points by (h's dtype, the remote table's dtype), and the
+# spmm_tiles_fused counter each one's launches go to
+_FUSED_ENTRIES = {
+    (torch.float32, torch.float32): ("sgcn_tile_spmm_fused_f32",
+                                     "launches"),
+    (torch.float32, torch.bfloat16): ("sgcn_tile_spmm_fused_f32_bf16wire",
+                                      "wire_bf16_launches"),
+    (torch.bfloat16, torch.bfloat16): ("sgcn_tile_spmm_fused_bf16",
+                                       "bf16_launches"),
+}
+
+
 def _lib():
     from . import _build
 
@@ -261,6 +282,13 @@ def _lib():
                 [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2
                 + [ctypes.c_void_p] * 3 + [ctypes.c_int] * 4
                 + [ctypes.c_longlong] * 3 + [ctypes.c_int, ctypes.c_void_p])
+            fn.restype = ctypes.c_int
+        for name, _counter in _FUSED_ENTRIES.values():
+            fn = getattr(lib, name)
+            fn.argtypes = (
+                [ctypes.c_void_p] * 9 + [ctypes.c_int] * 2
+                + [ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
+                + [ctypes.c_longlong] * 5 + [ctypes.c_int, ctypes.c_void_p])
             fn.restype = ctypes.c_int
         lib.sgcn_cuda_error_string.argtypes = [ctypes.c_int]
         lib.sgcn_cuda_error_string.restype = ctypes.c_char_p
@@ -391,11 +419,6 @@ spmm_tiles.bf16_launches = 0         # ... each on a bfloat16 table
 spmm_tiles.bf16_mask_launches = 0
 
 
-def k1_launches() -> int:
-    """Float32-weight launches (K1) on either table dtype."""
-    return spmm_tiles.launches + spmm_tiles.bf16_launches
-
-
 def k5_launches() -> int:
     """Int8-mask launches (K5) on either table dtype."""
     return spmm_tiles.mask_launches + spmm_tiles.bf16_mask_launches
@@ -407,8 +430,7 @@ def spmm_tiles_classes(flat_src, flat_ld, flat_w, table, classes, tb: int):
     ``((t_c, emax_c[, kernel]), ...)``: class c owns the next
     ``t_c·emax_c`` flat slots of every part.  On CUDA tensors the whole
     family is ONE kernel launch writing the ``(k, Σ t_c·tb, f)`` output
-    directly; on CPU tensors each class, viewed (not copied) as its own
-    ``(k, t_c, emax_c)`` pad, runs the plain version.  Returns
+    directly; on CPU tensors ``spmm_tiles_classes_plain``.  Returns
     ``(k, Σ t_c·tb, f)`` float32 (no leading k for 1-D inputs)."""
     if not _on_cpu(table, flat_src, flat_ld, flat_w):
         if flat_src.dim() == 1:
@@ -416,6 +438,15 @@ def spmm_tiles_classes(flat_src, flat_ld, flat_w, table, classes, tb: int):
                 *(x.unsqueeze(0) for x in (flat_src, flat_ld, flat_w)),
                 table.unsqueeze(0), classes, tb)[0]
         return _launch_family(flat_src, flat_ld, flat_w, table, classes, tb)
+    return spmm_tiles_classes_plain(flat_src, flat_ld, flat_w, table,
+                                    classes, tb)
+
+
+def spmm_tiles_classes_plain(flat_src, flat_ld, flat_w, table, classes,
+                             tb: int):
+    """Plain PyTorch version of ``spmm_tiles_classes`` on any device: each
+    class, viewed as its own ``(k, t_c, emax_c)`` pad, through
+    ``spmm_tiles_plain``, the outputs concatenated along the rows."""
     _first, offs, _emax = pack_class_table(classes, flat_src.shape[-1])
     outs = []
     for (tc, ec, *_), off in zip(classes, offs):
@@ -428,16 +459,132 @@ def spmm_tiles_classes(flat_src, flat_ld, flat_w, table, classes, tb: int):
     return outs[0] if len(outs) == 1 else torch.cat(outs, dim=-2)
 
 
+def spmm_tiles_fused_plain(ltiles, h, htiles, remote, lclasses, hclasses,
+                           tb: int):
+    """Plain PyTorch version of the fused aggregation, torch arithmetic on
+    any device (it launches no kernel): the plain tile SpMM over each
+    family, sliced to the ``b`` owned rows, summed in float32 and rounded
+    once to ``h``'s dtype (``pallas_spmm.py:428``)."""
+    b = h.shape[1]
+    local = spmm_tiles_classes_plain(*ltiles, h, lclasses, tb)[:, :b]
+    rem = spmm_tiles_classes_plain(*htiles, remote, hclasses, tb)[:, :b]
+    return (local + rem).to(h.dtype)
+
+
+def spmm_tiles_fused(ltiles, h, htiles, remote, lclasses, hclasses,
+                     tb: int):
+    """``local + remote`` of one GCN aggregation in one kernel launch: the
+    local family ``ltiles = (src, ld, w)`` (flat ``(k, Σ T_c·Emax_c)``)
+    over ``h`` and the halo family ``htiles`` over ``remote`` (the a2a
+    receive buffer or the ring concat, read in place), each row's two
+    chains exactly as ``spmm_tiles_classes`` runs them, summed in float32
+    and stored once in ``h``'s dtype — the tile work of
+    ``_pspmm_pallas_once``.
+
+    Args:
+      ltiles/htiles: the two families' flat int32/int32/float32 arrays;
+        their classes (``lclasses``/``hclasses``) must have the same tile
+        counts (the plan builds both on one ``class_tiles``).
+      h: ``(k, b, f)`` float32 or bfloat16, the local table; its ``b``
+        rows are the owned rows of the output.
+      remote: ``(k, N, f)`` in ``h``'s dtype, or bfloat16 under a float32
+        ``h`` (the ``halo_dtype`` wire).
+
+    Returns ``(k, b, f)`` in ``h``'s dtype.  On CPU tensors this is
+    ``spmm_tiles_fused_plain``; on CUDA tensors it launches the kernel's
+    fused entry point on the current stream (no synchronize), counted in
+    ``spmm_tiles_fused.launches`` (float32 ``h`` and ``remote``),
+    ``.wire_bf16_launches`` (float32 ``h``, bf16 ``remote``) or
+    ``.bf16_launches`` (both bf16).  Any other device, dtype pair or
+    layout raises."""
+    arrays = (*ltiles, *htiles)
+    if _on_cpu(h, *arrays) and _on_cpu(remote, *arrays):
+        return spmm_tiles_fused_plain(ltiles, h, htiles, remote, lclasses,
+                                      hclasses, tb)
+    if not all(x.device == h.device for x in (*arrays, remote)):
+        raise ValueError("tile arrays and tables must be on the same device")
+    key = (h.dtype, remote.dtype)
+    if key not in _FUSED_ENTRIES:
+        raise TypeError(f"the fused aggregation takes h and its remote "
+                        f"table as float32/float32, float32/bfloat16 or "
+                        f"bfloat16/bfloat16, got {h.dtype}/{remote.dtype}")
+    for x in ltiles + htiles:
+        if x.dim() != 2 or x.stride(1) != 1:
+            raise ValueError("tile arrays must be flat (k, slots), row-major")
+    if any(x.dtype != torch.int32 for x in ltiles[:2] + htiles[:2]) or \
+            ltiles[2].dtype != torch.float32 or \
+            htiles[2].dtype != torch.float32:
+        raise TypeError("tile arrays must be int32 src/ld and float32 w")
+    for fam in (ltiles, htiles):
+        if any(x.shape != fam[0].shape or x.stride(0) != fam[0].stride(0)
+               for x in fam):
+            raise ValueError("a family's tile arrays must share one "
+                             "(k, slots) shape and part stride")
+    k, b, f = h.shape
+    for name, t in (("h", h), ("remote", remote)):
+        if t.dim() != 3 or t.shape[0] != k or t.shape[2] != f \
+                or t.stride(2) != 1 or t.stride(1) != f or t.shape[1] == 0:
+            raise ValueError(f"{name} must be (k={k}, N, f={f}) row-major, "
+                             f"got {tuple(t.shape)}")
+    if ltiles[0].shape[0] != k or htiles[0].shape[0] != k:
+        raise ValueError("tile arrays and tables must have the same k")
+    if not 1 <= tb <= 256:
+        raise ValueError(f"tile height tb={tb} outside the kernel's [1, 256]")
+    first, loffs, lemax = pack_class_table(lclasses, ltiles[0].shape[1])
+    hfirst, hoffs, hemax = pack_class_table(hclasses, htiles[0].shape[1])
+    if not np.array_equal(first, hfirst):
+        raise ValueError("the local and halo families must share their tile "
+                         f"classes' tile counts: {lclasses} vs {hclasses}")
+    if not 0 < b <= int(first[-1]) * tb:
+        raise ValueError(f"{b} owned rows outside the {int(first[-1])} tiles "
+                         f"of {tb}")
+    out = torch.empty((k, b, f), dtype=h.dtype, device=h.device)
+    vec = min(vector_width(f, t.data_ptr(), t.stride(0), t.element_size())
+              for t in (h, remote, out))
+    lib = _lib()
+    name, counter = _FUSED_ENTRIES[key]
+    dev = h.device.index if h.device.index is not None \
+        else torch.cuda.current_device()
+    rc = getattr(lib, name)(
+        *(x.data_ptr() for x in ltiles), h.data_ptr(),
+        *(x.data_ptr() for x in htiles), remote.data_ptr(), out.data_ptr(),
+        k, len(lclasses), first.ctypes.data, lemax.ctypes.data,
+        loffs.ctypes.data, hemax.ctypes.data, hoffs.ctypes.data, tb, b,
+        h.shape[1], remote.shape[1], f, vec, ltiles[0].stride(0),
+        htiles[0].stride(0), h.stride(0), remote.stride(0), out.stride(0),
+        dev, torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(
+            f"tile_spmm fused launch failed: "
+            f"{lib.sgcn_cuda_error_string(rc).decode()} (cudaError {rc})")
+    setattr(spmm_tiles_fused, counter, getattr(spmm_tiles_fused, counter) + 1)
+    return out
+
+
+spmm_tiles_fused.launches = 0            # float32 h and remote table
+spmm_tiles_fused.wire_bf16_launches = 0  # float32 h, bf16 wire
+spmm_tiles_fused.bf16_launches = 0       # bf16 h and remote table
+
+
+def fused_launches() -> int:
+    """Fused-entry launches on any dtype pair: one per GCN aggregation."""
+    return (spmm_tiles_fused.launches + spmm_tiles_fused.wire_bf16_launches
+            + spmm_tiles_fused.bf16_launches)
+
+
 # ----------------------------------------------------- plan-driven dispatch
 TILE_KERNEL = "tile_spmm"
 
-# plan arrays the tile-kernel GCN forward ships (the reference's
-# PALLAS_PLAN_FIELDS, same names)
-TILE_PLAN_FIELDS = ("send_idx", "halo_src", "ptile_lsrc", "ptile_lld",
-                    "ptile_lw", "ptile_hsrc", "ptile_hld", "ptile_hw")
-# ... and the ragged flavor's (PALLAS_PLAN_FIELDS_RAGGED): the ring's send
-# rows replace the dense layout, the halo tiles read ring positions
-TILE_PLAN_FIELDS_RAGGED = ("rsend_idx", "ptile_lsrc", "ptile_lld",
+# plan arrays the tile-kernel GCN forward ships: the reference's
+# PALLAS_PLAN_FIELDS with its exchange arrays replaced by the port's
+# receive layout — ``recv_src`` for send_idx and halo_src, and the halo
+# tiles re-based into the receive buffer (``ptile_hwsrc`` for ptile_hsrc)
+TILE_PLAN_FIELDS = ("recv_src", "ptile_lsrc", "ptile_lld", "ptile_lw",
+                    "ptile_hwsrc", "ptile_hld", "ptile_hw")
+# ... and the ragged flavor's (PALLAS_PLAN_FIELDS_RAGGED, with the ring
+# concat's flat sources ``ring_src`` for rsend_idx): the halo tiles read
+# ring positions
+TILE_PLAN_FIELDS_RAGGED = ("ring_src", "ptile_lsrc", "ptile_lld",
                            "ptile_lw", "ptile_hrsrc", "ptile_hld",
                            "ptile_hw")
 
@@ -476,6 +623,8 @@ def choose_tile_dispatch(plan, tb: int = 256, decision: dict | None = None,
     out = {"pallas_tb": tb}
     if schedule == "ragged":
         plan.ensure_ragged()
+    else:
+        plan.ensure_exchange()
     if model == "gat":
         plan.ensure_pallas_cell_tiles(tb)
         if schedule == "ragged":
@@ -505,28 +654,27 @@ def choose_tile_dispatch(plan, tb: int = 256, decision: dict | None = None,
     return out
 
 
-def _pspmm_tiles_once(h, send_idx, halo_src, lsrc, lld, lw, hsrc, hld, hw,
-                      tb, lclasses, hclasses, halo_dtype=None):
-    """``_pspmm_pallas_once`` over stacked parts: exchange the boundary
-    rows (on a ``halo_dtype`` wire, if given), run the tile kernel over the
-    local table ``h`` and over the halo table, and return ``local +
-    remote`` sliced to the ``b`` owned rows: summed in float32, then
-    rounded once to ``h``'s dtype (``pallas_spmm.py:428``)."""
-    halo = halo_exchange(h, send_idx, halo_src, halo_dtype)
-    b = h.shape[1]
-    local = spmm_tiles_classes(lsrc, lld, lw, h, lclasses, tb)[:, :b]
-    remote = spmm_tiles_classes(hsrc, hld, hw, halo, hclasses, tb)[:, :b]
-    return (local + remote).to(h.dtype)
+def _pspmm_tiles_once(h, recv_src, lsrc, lld, lw, hwsrc, hld, hw, tb,
+                      lclasses, hclasses, halo_dtype=None):
+    """``_pspmm_pallas_once`` over stacked parts: the exchange's receive
+    buffer (one row pack, on a ``halo_dtype`` wire if given), then the
+    fused tile launch — the local family over ``h``, the halo family over
+    the receive buffer in place (``hwsrc``: the plan's ``ptile_hwsrc``),
+    summed in float32 and rounded once to ``h``'s dtype
+    (``pallas_spmm.py:428``) for the ``b`` owned rows."""
+    recv = exchange_recv(h, recv_src, halo_dtype)
+    return spmm_tiles_fused((lsrc, lld, lw), h, (hwsrc, hld, hw), recv,
+                            lclasses, hclasses, tb)
 
 
 class PspmmTilesSym(torch.autograd.Function):
     """``pspmm_pallas_sym`` with its custom VJP: Â·h over stacked parts,
     and — Â being symmetric — the backward is the same op on the
-    gradient: exchange of the gradient's boundary rows, the tile kernel
-    over the local table ``g``, the tile kernel over the halo table of
-    ``g``, ``local + remote``.  Plan tensors get no gradient.
+    gradient: exchange of the gradient's boundary rows and the fused tile
+    launch over the local table ``g`` and its receive buffer.  Plan
+    tensors get no gradient.
 
-    ``PspmmTilesSym.backward_launches`` counts the tile-kernel launches
+    ``PspmmTilesSym.backward_launches`` counts the fused tile launches
     the backward made (CUDA tensors only; the plain version on the CPU
     launches nothing).  ``halo_dtype`` narrows the wire of both
     directions; the gradient ``g`` arrives in ``h``'s dtype."""
@@ -534,52 +682,50 @@ class PspmmTilesSym(torch.autograd.Function):
     backward_launches = 0
 
     @staticmethod
-    def forward(ctx, h, send_idx, halo_src, lsrc, lld, lw, hsrc, hld, hw,
-                tb, lclasses, hclasses, halo_dtype=None):
-        ctx.save_for_backward(send_idx, halo_src, lsrc, lld, lw, hsrc, hld,
-                              hw)
+    def forward(ctx, h, recv_src, lsrc, lld, lw, hwsrc, hld, hw, tb,
+                lclasses, hclasses, halo_dtype=None):
+        ctx.save_for_backward(recv_src, lsrc, lld, lw, hwsrc, hld, hw)
         ctx.static = (tb, lclasses, hclasses, halo_dtype)
-        return _pspmm_tiles_once(h, send_idx, halo_src, lsrc, lld, lw, hsrc,
-                                 hld, hw, tb, lclasses, hclasses, halo_dtype)
+        return _pspmm_tiles_once(h, recv_src, lsrc, lld, lw, hwsrc, hld, hw,
+                                 tb, lclasses, hclasses, halo_dtype)
 
     @staticmethod
     def backward(ctx, g):
-        before = k1_launches()
-        # the incoming gradient may be a strided view (the [:, :b] slice,
-        # a matmul's backward); the kernel reads row-major tables
+        before = fused_launches()
+        # the incoming gradient may be a strided view (a matmul's
+        # backward); the kernels read row-major tables
         gh = _pspmm_tiles_once(g.contiguous(), *ctx.saved_tensors,
                                *ctx.static)
-        PspmmTilesSym.backward_launches += k1_launches() - before
-        return (gh,) + (None,) * 12
+        PspmmTilesSym.backward_launches += fused_launches() - before
+        return (gh,) + (None,) * 11
 
 
-def pspmm_tiles_sym(h, send_idx, halo_src, lsrc, lld, lw, hsrc, hld, hw,
-                    tb: int, lclasses, hclasses, halo_dtype=None):
+def pspmm_tiles_sym(h, recv_src, lsrc, lld, lw, hwsrc, hld, hw, tb: int,
+                    lclasses, hclasses, halo_dtype=None):
     """``pspmm_pallas_sym`` over stacked parts (``PspmmTilesSym``).
-    ``h``: ``(k, b, f)`` float32 or bfloat16; returns ``(k, b, f)`` in
-    ``h``'s dtype.  ``halo_dtype`` (``'bfloat16'``) narrows the exchange's
-    wire only.  Differentiable in ``h``: the backward re-runs the op on
-    the gradient."""
-    return PspmmTilesSym.apply(h, send_idx, halo_src, lsrc, lld, lw, hsrc,
-                               hld, hw, tb, lclasses, hclasses, halo_dtype)
+    ``h``: ``(k, b, f)`` float32 or bfloat16; ``recv_src`` and ``hwsrc``
+    the plan's ``recv_src`` and ``ptile_hwsrc``; returns ``(k, b, f)`` in
+    ``h``'s dtype.  ``halo_dtype`` (``'bfloat16'``) narrows the
+    exchange's wire only.  Differentiable in ``h``: the backward re-runs
+    the op on the gradient."""
+    return PspmmTilesSym.apply(h, recv_src, lsrc, lld, lw, hwsrc, hld, hw,
+                               tb, lclasses, hclasses, halo_dtype)
 
 
-def _pspmm_tiles_ragged_once(h, rsend_idx, lsrc, lld, lw, rsrc, rld, rw,
+def _pspmm_tiles_ragged_once(h, ring_src, lsrc, lld, lw, rsrc, rld, rw,
                              tb, lclasses, hclasses, rr_sizes,
                              halo_dtype=None):
-    """``_pspmm_pallas_ragged_once`` over stacked parts: the tile kernel
-    over the local table ``h`` and over the ring's receive concat (the
-    halo tiles' sources re-based to ring positions; each round on a
-    ``halo_dtype`` wire, if given), then ``local + remote`` sliced to the
-    ``b`` owned rows, summed in float32 and rounded once to ``h``'s
-    dtype."""
-    ring = ring_concat(h, rsend_idx, rr_sizes, halo_dtype)
-    b = h.shape[1]
-    local = spmm_tiles_classes(lsrc, lld, lw, h, lclasses, tb)[:, :b]
+    """``_pspmm_pallas_ragged_once`` over stacked parts: the ring's
+    receive concat (one row pack, each round on a ``halo_dtype`` wire if
+    given), then the fused tile launch over the local table ``h`` and the
+    concat in place (the halo tiles' sources re-based to ring positions),
+    summed in float32 and rounded once to ``h``'s dtype for the ``b``
+    owned rows."""
+    ring = ring_concat(h, ring_src, rr_sizes, halo_dtype)
     # the a2a flavor's halo tiles in the a2a flavor's edge order, reading
     # the same rows at their ring positions: the same bits
-    remote = spmm_tiles_classes(rsrc, rld, rw, ring, hclasses, tb)[:, :b]
-    return (local + remote).to(h.dtype)
+    return spmm_tiles_fused((lsrc, lld, lw), h, (rsrc, rld, rw), ring,
+                            lclasses, hclasses, tb)
 
 
 class PspmmTilesRagged(torch.autograd.Function):
@@ -589,42 +735,43 @@ class PspmmTilesRagged(torch.autograd.Function):
     Bit-identical to ``PspmmTilesSym`` forward and backward.
 
     ``PspmmTilesRagged.launches`` and ``.backward_launches`` count the
-    tile-kernel launches of the forward and the backward (CUDA tensors
+    fused tile launches of the forward and the backward (CUDA tensors
     only; the plain version on the CPU launches nothing)."""
 
     launches = 0
     backward_launches = 0
 
     @staticmethod
-    def forward(ctx, h, rsend_idx, lsrc, lld, lw, rsrc, rld, rw, tb,
+    def forward(ctx, h, ring_src, lsrc, lld, lw, rsrc, rld, rw, tb,
                 lclasses, hclasses, rr_sizes, halo_dtype=None):
-        ctx.save_for_backward(rsend_idx, lsrc, lld, lw, rsrc, rld, rw)
+        ctx.save_for_backward(ring_src, lsrc, lld, lw, rsrc, rld, rw)
         ctx.static = (tb, lclasses, hclasses, rr_sizes, halo_dtype)
-        before = k1_launches()
-        out = _pspmm_tiles_ragged_once(h, rsend_idx, lsrc, lld, lw, rsrc,
+        before = fused_launches()
+        out = _pspmm_tiles_ragged_once(h, ring_src, lsrc, lld, lw, rsrc,
                                        rld, rw, tb, lclasses, hclasses,
                                        rr_sizes, halo_dtype)
-        PspmmTilesRagged.launches += k1_launches() - before
+        PspmmTilesRagged.launches += fused_launches() - before
         return out
 
     @staticmethod
     def backward(ctx, g):
-        before = k1_launches()
+        before = fused_launches()
         gh = _pspmm_tiles_ragged_once(g.contiguous(), *ctx.saved_tensors,
                                       *ctx.static)
-        PspmmTilesRagged.backward_launches += k1_launches() - before
+        PspmmTilesRagged.backward_launches += fused_launches() - before
         return (gh,) + (None,) * 12
 
 
-def pspmm_tiles_ragged(h, rsend_idx, lsrc, lld, lw, rsrc, rld, rw,
+def pspmm_tiles_ragged(h, ring_src, lsrc, lld, lw, rsrc, rld, rw,
                        tb: int, lclasses, hclasses, rr_sizes,
                        halo_dtype=None):
     """``pspmm_pallas_ragged`` over stacked parts (``PspmmTilesRagged``).
-    ``h``: ``(k, b, f)`` float32 or bfloat16; ``rsrc`` the ring-re-based
-    halo tile sources (``ptile_hrsrc``); ``halo_dtype`` narrows each
-    round's wire; returns ``(k, b, f)`` in ``h``'s dtype.  Differentiable
-    in ``h``: the backward re-runs the op on the gradient."""
-    return PspmmTilesRagged.apply(h, rsend_idx, lsrc, lld, lw, rsrc, rld, rw,
+    ``h``: ``(k, b, f)`` float32 or bfloat16; ``ring_src`` the plan's
+    ``ring_src``, ``rsrc`` the ring-re-based halo tile sources
+    (``ptile_hrsrc``); ``halo_dtype`` narrows each round's wire; returns
+    ``(k, b, f)`` in ``h``'s dtype.  Differentiable in ``h``: the
+    backward re-runs the op on the gradient."""
+    return PspmmTilesRagged.apply(h, ring_src, lsrc, lld, lw, rsrc, rld, rw,
                                   tb, lclasses, hclasses, rr_sizes,
                                   halo_dtype)
 

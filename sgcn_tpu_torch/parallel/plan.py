@@ -31,7 +31,14 @@ array (``tests/test_torch_plan.py``):
     re-base the halo tile sources to positions in the ring's round-major
     receive concat (``ptile_hrsrc``/``ptile_crsrc``);
   * ``resolve_comm_schedule`` picks the transport (``a2a``, ``ragged`` or
-    ``auto``) by the reference's exact-mode rule.
+    ``auto``) by the reference's exact-mode rule;
+  * port-only arrays, which the reference has no counterpart of, lay the
+    exchange out for one row gather over the stacked parts
+    (``ops/pspmm.py``): ``ensure_exchange`` builds the a2a receive
+    layout's flat sources (``recv_src``, ``halo_src_flat``),
+    ``ensure_ragged`` the ring concat's (``ring_src``), and
+    ``ensure_pallas_tiles`` re-bases the halo tiles to positions in the
+    a2a receive buffer (``ptile_hwsrc``), so they read it in place.
 
 Not ported: the forced ring envelope and the per-round edge split
 (``rr_edge_sizes``, ``redge_*``), and the replica and stale layouts.
@@ -132,6 +139,9 @@ class CommPlan:
     ptile_hld: np.ndarray | None = None   # (k, ΣT_c·Emax_c) int32
     ptile_hw: np.ndarray | None = None    # (k, ΣT_c·Emax_c) float32
     ptile_hrsrc: np.ndarray | None = None  # (k, ΣT_c·Emax_c) int32 RING pos
+    ptile_hwsrc: np.ndarray | None = None  # (k, ΣT_c·Emax_c) int32 position
+    #                                        in the (k·S) a2a receive buffer
+    #                                        (port only)
 
     # combined-edge layout (lazy, ``ensure_cell``; GAT): the full edge
     # list, src in [local; halo], as bucketed ELL over ``cell_buckets``
@@ -164,6 +174,15 @@ class CommPlan:
     rsend_idx: np.ndarray | None = None    # (k, ΣS_d) int32 local rows sent
     rhalo_dst: np.ndarray | None = None    # (k, ΣS_d) int32 halo rank per
     #                                        receive slot (r = pad)
+    ring_src: np.ndarray | None = None     # (k, ΣS_d) int32 flat stacked
+    #                                        row p·B + i of each ring concat
+    #                                        slot (port only)
+
+    # a2a receive layout over the stacked parts (lazy, ``ensure_exchange``;
+    # port only): recv[q, p·S + t] = h[p, send_idx[p, q, t]]
+    recv_src: np.ndarray | None = None     # (k, k·S) int32 flat p·B + i
+    halo_src_flat: np.ndarray | None = None  # (k, R) int32 q·k·S +
+    #                                          halo_src[q, r]
 
     def _pallas_family(self, dst, src, w, tb: int, class_tiles):
         """Stack one edge family's per-part tile classes into flat
@@ -208,8 +227,35 @@ class CommPlan:
         (self.ptile_hsrc, self.ptile_hld, self.ptile_hw,
          self.pallas_hclasses) = self._pallas_family(
             self.hedge_dst, self.hedge_src, self.hedge_w, tb, class_tiles)
+        # the halo tiles read the a2a receive buffer in place: halo rank →
+        # its halo_src position (the same rows in the same slot order)
+        self.ptile_hwsrc = np.stack([
+            np.asarray(self.halo_src[p])[self.ptile_hsrc[p]]
+            for p in range(self.k)]).astype(np.int32)
         self.pallas_tb = tb
         self.ptile_hrsrc = None            # ring re-base follows the layout
+        return self
+
+    def ensure_exchange(self) -> "CommPlan":
+        """Build the a2a receive layout's flat sources on first use (port
+        only): ``recv_src[q, p·S + t] = p·B + send_idx[p, q, t]``, the
+        stacked row of ``h`` each receive slot holds, and
+        ``halo_src_flat[q, r] = q·k·S + halo_src[q, r]``, each halo row's
+        flat position in the stacked ``(k, k·S)`` receive buffers — the
+        indices of ``ops/pspmm.py``'s row packs."""
+        if self.recv_src is not None:
+            return self
+        k, s, b = self.k, self.s, self.b
+        if k * b >= 2 ** 31 or k * k * s >= 2 ** 31:
+            raise ValueError(f"stacked exchange of k={k}, B={b}, S={s} "
+                             "overflows int32 row indices")
+        src = (np.asarray(self.send_idx, np.int64)
+               + (np.arange(k, dtype=np.int64) * b)[:, None, None])
+        self.recv_src = np.ascontiguousarray(
+            src.transpose(1, 0, 2).reshape(k, k * s)).astype(np.int32)
+        self.halo_src_flat = (
+            np.asarray(self.halo_src, np.int64)
+            + (np.arange(k, dtype=np.int64) * k * s)[:, None]).astype(np.int32)
         return self
 
     def _ring_pos_of_rank(self) -> np.ndarray:
@@ -348,9 +394,23 @@ class CommPlan:
                             f"{len(ranks)} rows, send list says {rc}")
                     rhalo_dst[p, off: off + rc] = ranks.astype(np.int32)
             off += sd
+        # each concat slot's flat stacked row: round d's slots of part q
+        # hold what part (q−d) mod k sends
+        ring_src = np.zeros((k, st), np.int64)
+        off = 0
+        for d, sd in enumerate(rr_sizes, start=1):
+            for q in range(k):
+                o = (q - d) % k
+                ring_src[q, off: off + sd] = (
+                    o * self.b + rsend_idx[o, off: off + sd])
+            off += sd
+        if k * self.b >= 2 ** 31:
+            raise ValueError(f"stacked ring of k={k}, B={self.b} overflows "
+                             "int32 row indices")
         self.rr_sizes = rr_sizes
         self.rsend_idx = rsend_idx
         self.rhalo_dst = rhalo_dst
+        self.ring_src = ring_src.astype(np.int32)
         return self
 
     def padding_efficiency(self) -> float:

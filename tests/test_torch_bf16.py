@@ -44,7 +44,7 @@ from sgcn_tpu.train.fullbatch import make_train_data as ref_make_train_data
 from sgcn_tpu_torch.io.datasets import load_npz_dataset
 from sgcn_tpu_torch.models import gat as port_gat
 from sgcn_tpu_torch.models import gcn as port_gcn
-from sgcn_tpu_torch.ops.pspmm import halo_exchange, ring_concat
+from sgcn_tpu_torch.ops.pspmm import exchange_recv, halo_exchange, ring_concat
 from sgcn_tpu_torch.ops.tile_spmm import (TILE_PLAN_FIELDS,
                                           TILE_PLAN_FIELDS_RAGGED,
                                           _pspmm_tiles_once,
@@ -116,9 +116,13 @@ def test_aggregation_on_bf16_tables_matches_pallas_once(cora, schedule):
     ragged = schedule == "ragged"
     pfields = TILE_PLAN_FIELDS_RAGGED if ragged else TILE_PLAN_FIELDS
     rfields = PALLAS_PLAN_FIELDS_RAGGED if ragged else PALLAS_PLAN_FIELDS
-    assert pfields == rfields
-    pa_np = [np.ascontiguousarray(getattr(plan, f)) for f in pfields]
-    pa = [torch.from_numpy(x) for x in pa_np]
+    # the port's fields are the reference's with the exchange arrays
+    # replaced by the receive layout's flat sources
+    assert pfields[1:] == tuple(
+        {"ptile_hsrc": "ptile_hwsrc"}.get(f, f) for f in rfields[-6:])
+    pa_np = [np.ascontiguousarray(getattr(plan, f)) for f in rfields]
+    pa = [torch.from_numpy(np.ascontiguousarray(getattr(plan, f)))
+          for f in pfields]
     h_np, h16 = _tables(plan, 16, seed=7)
 
     def per_chip(h, *a):
@@ -141,16 +145,15 @@ def test_aggregation_on_bf16_tables_matches_pallas_once(cora, schedule):
         cora["mesh"], per_chip, (P("v"),) * (1 + len(pa_np)),
         (P("v"), P("v")))(h_np, *pa_np))
     if ragged:
-        ring = ring_concat(h16, pa[0], plan.rr_sizes)
-        tabs = ((pa[1:4], h16), (pa[4:7], ring))
+        remote = ring_concat(h16, pa[0], plan.rr_sizes)
         got16 = _pspmm_tiles_ragged_once(h16, *pa, 256, st["pallas_lclasses"],
                                          st["pallas_hclasses"],
                                          plan.rr_sizes)
     else:
-        halo = halo_exchange(h16, pa[0], pa[1])
-        tabs = ((pa[2:5], h16), (pa[5:8], halo))
+        remote = exchange_recv(h16, pa[0])
         got16 = _pspmm_tiles_once(h16, *pa, 256, st["pallas_lclasses"],
                                   st["pallas_hclasses"])
+    tabs = ((pa[1:4], h16), (pa[4:7], remote))
     local, remote = (spmm_tiles_classes(*t, tab, cls, 256)[:, :plan.b]
                      for (t, tab), cls in zip(tabs, (st["pallas_lclasses"],
                                                      st["pallas_hclasses"])))
@@ -179,7 +182,8 @@ def test_aggregation_on_bf16_wire_matches_pallas_once(cora, schedule):
     hcls = tuple((t, e, "vmem") for t, e, _ in st["pallas_hclasses"])
     ragged = schedule == "ragged"
     fields = TILE_PLAN_FIELDS_RAGGED if ragged else TILE_PLAN_FIELDS
-    pa_np = [np.ascontiguousarray(getattr(plan, f)) for f in fields]
+    rfields = PALLAS_PLAN_FIELDS_RAGGED if ragged else PALLAS_PLAN_FIELDS
+    pa_np = [np.ascontiguousarray(getattr(plan, f)) for f in rfields]
     h = np.random.default_rng(8).standard_normal(
         (plan.k, plan.b, 16)).astype(np.float32)
 
@@ -194,7 +198,9 @@ def test_aggregation_on_bf16_wire_matches_pallas_once(cora, schedule):
 
     want = np.asarray(_smap(cora["mesh"], per_chip,
                             (P("v"),) * (1 + len(pa_np)), P("v"))(h, *pa_np))
-    args = (torch.from_numpy(h), *(torch.from_numpy(x) for x in pa_np), 256,
+    args = (torch.from_numpy(h),
+            *(torch.from_numpy(np.ascontiguousarray(getattr(plan, f)))
+              for f in fields), 256,
             st["pallas_lclasses"], st["pallas_hclasses"])
     if ragged:
         got = _pspmm_tiles_ragged_once(*args, plan.rr_sizes, "bfloat16")
@@ -216,10 +222,15 @@ def test_aggregation_on_bf16_wire_matches_pallas_once(cora, schedule):
 def test_halo_exchange_and_ring_with_halo_dtype_equal_reference(cora, width):
     """``halo_exchange`` and ``ring_concat`` with ``halo_dtype='bfloat16'``
     vs the reference's ``halo_exchange`` and ``pallas_ring_concat`` with
-    the same wire, per chip: equal, bit for bit; the result keeps the
-    input's float32 dtype."""
+    the same wire, per chip: equal, bit for bit.  The halo rows keep the
+    input's float32 dtype; the ring concat stays on the bf16 wire (the
+    tile kernel reads it in place), and its exact upcast is the
+    reference's."""
     plan = cora["plan"]
     plan.ensure_ragged()
+    plan.ensure_exchange()
+    recv, hflat, ring = (torch.from_numpy(getattr(plan, f)) for f in
+                         ("recv_src", "halo_src_flat", "ring_src"))
     h = np.random.default_rng(9).standard_normal(
         (plan.k, plan.b, width)).astype(np.float32)
     sidx, hsrc, rsend = (np.ascontiguousarray(getattr(plan, f))
@@ -235,18 +246,15 @@ def test_halo_exchange_and_ring_with_halo_dtype_equal_reference(cora, width):
         cora["mesh"], per_chip, (P("v"),) * 4, (P("v"), P("v")))(
             h, sidx, hsrc, rsend))
     ht = torch.from_numpy(h)
-    got_h = halo_exchange(ht, torch.from_numpy(sidx), torch.from_numpy(hsrc),
-                          "bfloat16")
-    got_r = ring_concat(ht, torch.from_numpy(rsend), plan.rr_sizes,
-                        halo_dtype=torch.bfloat16)
-    assert got_h.dtype == got_r.dtype == torch.float32
+    got_h = halo_exchange(ht, recv, hflat, "bfloat16")
+    got_r = ring_concat(ht, ring, plan.rr_sizes, halo_dtype=torch.bfloat16)
+    assert got_h.dtype == torch.float32 and got_r.dtype == torch.bfloat16
     np.testing.assert_array_equal(got_h.numpy(), want_h)
-    np.testing.assert_array_equal(got_r.numpy(), want_r)
-    assert not np.array_equal(got_h.numpy(), halo_exchange(
-        ht, torch.from_numpy(sidx), torch.from_numpy(hsrc)).numpy())
+    np.testing.assert_array_equal(got_r.float().numpy(), want_r)
+    assert not np.array_equal(got_h.numpy(),
+                              halo_exchange(ht, recv, hflat).numpy())
     with pytest.raises(ValueError, match="bfloat16"):
-        halo_exchange(ht, torch.from_numpy(sidx), torch.from_numpy(hsrc),
-                      "float16")
+        halo_exchange(ht, recv, hflat, "float16")
 
 
 # ------------------------------------------------ (c, e, f) the trainers

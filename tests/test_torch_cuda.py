@@ -7,7 +7,9 @@ engine and trainer on ``cuda``; the ragged ring (K4,
 the card; the row-shuffle kernel (K6) against its plain version; the
 kernel's bf16 entry points (K1 and K5 on bf16 tables) against their plain
 version, and the bf16 levers (``compute_dtype``, ``halo_dtype``) on the
-card against the CPU and ragged against a2a.
+card against the CPU and ragged against a2a; the stacked row pack that
+carries every exchange and the fused local + remote entry of the GCN
+aggregation (K3, K4) against their plain versions.
 
 This module imports no JAX, so it also runs on a GPU machine without it:
 
@@ -24,7 +26,8 @@ import torch
 from sgcn_tpu_torch.io.datasets import er_graph
 from sgcn_tpu_torch.models import gat as gat_mod
 from sgcn_tpu_torch.models.gat import GatLayerSym
-from sgcn_tpu_torch.ops.row_shuffle import row_shuffle, row_shuffle_plain
+from sgcn_tpu_torch.ops.row_shuffle import (row_pack, row_pack_plain,
+                                            row_shuffle, row_shuffle_plain)
 from sgcn_tpu_torch.ops.tile_spmm import (TILE_PLAN_FIELDS,
                                           TILE_PLAN_FIELDS_RAGGED,
                                           PspmmTilesRagged, PspmmTilesSym,
@@ -32,6 +35,8 @@ from sgcn_tpu_torch.ops.tile_spmm import (TILE_PLAN_FIELDS,
                                           pspmm_tiles_ragged,
                                           pspmm_tiles_sym, spmm_tiles,
                                           spmm_tiles_classes,
+                                          spmm_tiles_fused,
+                                          spmm_tiles_fused_plain,
                                           spmm_tiles_plain)
 from sgcn_tpu_torch.parallel import build_comm_plan
 from sgcn_tpu_torch.partition import balanced_random_partition
@@ -274,9 +279,10 @@ def test_gcn_bf16_levers_on_cuda_match_cpu(cuda_device, lever, sched):
     """Two GCN training steps under each bf16 lever on each transport, on
     the card and on the CPU from the same weights: losses rtol 2e-2 (bf16
     matmuls round differently on the two devices); on the card the
-    launches go to the entry of the table's dtype — f32 under
-    ``halo_dtype``, bf16 under ``compute_dtype`` — 2 forward + 1 backward
-    passes per step, each a local and a halo family."""
+    launches go to the fused entry of the tables' dtypes — float32 h and
+    a bf16 wire under ``halo_dtype``, bf16 both under ``compute_dtype`` —
+    one per aggregation, 2 forward + 1 backward per step, and no K1
+    family launch."""
     plan = _er_plan()
     rng = np.random.default_rng(21)
     feats = rng.standard_normal((plan.n, 24)).astype(np.float32)
@@ -287,13 +293,18 @@ def test_gcn_bf16_levers_on_cuda_match_cpu(cuda_device, lever, sched):
                               device=dev, comm_schedule=sched,
                               **{lever: "bfloat16"})
         data = make_train_data(plan, feats, labels, device=dev)
+        for c in ("launches", "wire_bf16_launches", "bf16_launches"):
+            setattr(spmm_tiles_fused, c, 0)
         spmm_tiles.launches = spmm_tiles.bf16_launches = 0
         losses = [tr.step(data) for _ in range(2)]
-        got[str(dev)] = (losses, spmm_tiles.launches,
-                         spmm_tiles.bf16_launches)
-    (l_c, *_), (l_g, n32, n16) = got["cpu"], got["cuda"]
-    want = 2 * (2 + 1) * 2
-    assert (n32, n16) == ((want, 0) if lever == "halo_dtype" else (0, want))
+        got[str(dev)] = (losses, spmm_tiles_fused.launches,
+                         spmm_tiles_fused.wire_bf16_launches,
+                         spmm_tiles_fused.bf16_launches,
+                         spmm_tiles.launches + spmm_tiles.bf16_launches)
+    (l_c, *_), (l_g, *n) = got["cpu"], got["cuda"]
+    want = 2 * (2 + 1)
+    assert tuple(n) == ((0, want, 0, 0) if lever == "halo_dtype"
+                        else (0, 0, want, 0))
     np.testing.assert_allclose(l_g, l_c, rtol=2e-2)
 
 
@@ -338,11 +349,11 @@ def test_engine_on_cuda_launches_kernel_and_matches_cpu(cuda_device):
     gpu = ServeEngine(plan, device=cuda_device, **kw)
     for e in (cpu, gpu):
         e.set_features(feats)
-    spmm_tiles.launches = 0
+    spmm_tiles_fused.launches = row_pack.launches = 0
     q = np.arange(0, 3000, 397)
     got = gpu.query(q)
-    # one forward x 2 layers x (local + halo family), one launch each
-    assert spmm_tiles.launches == 1 * 2 * 2
+    # one forward x 2 layers: one exchange pack and one fused launch each
+    assert spmm_tiles_fused.launches == row_pack.launches == 1 * 2
     np.testing.assert_allclose(got, cpu.query(q), rtol=1e-5, atol=1e-6)
 
 
@@ -352,8 +363,8 @@ def _er_plan(n=3000, k=4, seed=1):
 
 
 def test_backward_on_cuda_bitwise_equals_cpu(cuda_device):
-    """The aggregation's backward launches the kernel on the gradient
-    (one launch for the local family, one for the halo family) and equals
+    """The aggregation's backward launches the fused entry on the gradient
+    (one launch: the local and halo families and their sum) and equals
     the same Function on CPU tensors bit for bit — also for a strided
     gradient, which the backward makes row-major before the launch."""
     plan = _er_plan()
@@ -378,7 +389,7 @@ def test_backward_on_cuda_bitwise_equals_cpu(cuda_device):
                              PspmmTilesSym.backward_launches - before)
         (cpu, n_cpu), (gpu, n_gpu) = out["cpu"], out["cuda"]
         assert len(static[1]) > 1 and len(static[2]) > 1
-        assert n_cpu == 0 and n_gpu == 2
+        assert n_cpu == 0 and n_gpu == 1
         assert torch.equal(cpu, gpu), (
             f"backward cuda != cpu, max diff {(cpu - gpu).abs().max()}")
 
@@ -387,9 +398,9 @@ def test_trainer_step_on_cuda_matches_cpu(cuda_device):
     """One ``FullBatchTrainer.step`` on the card vs on the CPU from the
     same weights: loss rtol 1e-5, weight gradients rtol 1e-4 / atol 1e-7
     (the dense products sum in other orders on the card).  The card step
-    launches the kernel for 2 forward passes and 1 backward pass (layer 0
-    aggregates first: its input needs no gradient), once per local and
-    once per halo family."""
+    launches the fused entry for 2 forward and 1 backward aggregations
+    (layer 0 aggregates first: its input needs no gradient), once
+    each."""
     plan = _er_plan()
     rng = np.random.default_rng(4)
     feats = rng.standard_normal((plan.n, 24)).astype(np.float32)
@@ -402,11 +413,11 @@ def test_trainer_step_on_cuda_matches_cpu(cuda_device):
         grads = []
         tr.opt.register_step_pre_hook(lambda opt, a, kw, tr=tr: grads.append(
             [w.grad.cpu().clone() for w in tr.params]))
-        spmm_tiles.launches = 0
+        spmm_tiles_fused.launches = 0
         loss = tr.step(data)
-        got[str(dev)] = (loss, grads[0], spmm_tiles.launches)
+        got[str(dev)] = (loss, grads[0], spmm_tiles_fused.launches)
     (loss_c, g_c, n_c), (loss_g, g_g, n_g) = got["cpu"], got["cuda"]
-    assert n_c == 0 and n_g == (2 + 1) * 2
+    assert n_c == 0 and n_g == 2 + 1
     assert loss_g == pytest.approx(loss_c, rel=1e-5)
     for a, b in zip(g_g, g_c):
         np.testing.assert_allclose(a.numpy(), b.numpy(), rtol=1e-4,
@@ -486,9 +497,9 @@ def test_gat_layer_on_cuda_matches_cpu(cuda_device, fout, monkeypatch):
         before = spmm_tiles.mask_launches
         bwd_before = GatLayerSym.backward_launches
         out = GatLayerSym.apply(
-            *leaves, *(pa[f] for f in ("send_idx", "halo_src", "ptile_csrc",
-                                        "ptile_cld", "ptile_cw",
-                                        "row_valid")), 256, cls)
+            *leaves, *(pa[f] for f in ("recv_src", "halo_src_flat",
+                                        "ptile_csrc", "ptile_cld",
+                                        "ptile_cw", "row_valid")), 256, cls)
         out.backward(g.to(dev))
         torch.cuda.synchronize()
         got[str(dev)] = ([out.detach().cpu()]
@@ -563,12 +574,13 @@ def test_gat_engine_and_trainer_on_cuda_match_cpu(cuda_device):
 def test_ragged_on_cuda_equals_a2a_bitwise(cuda_device):
     """``pspmm_tiles_ragged`` on the card: forward and backward equal
     ``pspmm_tiles_sym`` on the card and the ragged op on the CPU, bit for
-    bit; one launch per local and per halo family in each direction,
-    counted in ``PspmmTilesRagged.launches``/``.backward_launches``."""
+    bit; one fused launch in each direction, counted in
+    ``PspmmTilesRagged.launches``/``.backward_launches``."""
     plan = _er_plan()
     st = choose_tile_dispatch(plan, schedule="ragged")
+    plan.ensure_exchange()
     static = (st["pallas_tb"], st["pallas_lclasses"], st["pallas_hclasses"])
-    fields = TILE_PLAN_FIELDS + ("rsend_idx", "ptile_hrsrc")
+    fields = TILE_PLAN_FIELDS + ("ring_src", "ptile_hrsrc")
     pa = {f: torch.from_numpy(np.ascontiguousarray(getattr(plan, f)))
           for f in fields}
     rng = np.random.default_rng(11)
@@ -598,7 +610,7 @@ def test_ragged_on_cuda_equals_a2a_bitwise(cuda_device):
             PspmmTilesRagged.backward_launches - before[1])
     cpu, gpu, a2a = (out[("cpu", "ragged")], out[("cuda", "ragged")],
                      out[("cuda", "a2a")])
-    assert cpu[2:] == (0, 0) and gpu[2:] == (2, 2) and a2a[2:] == (0, 0)
+    assert cpu[2:] == (0, 0) and gpu[2:] == (1, 1) and a2a[2:] == (0, 0)
     for i in (0, 1):
         assert torch.equal(gpu[i], a2a[i]), "ragged != a2a on the card"
         assert torch.equal(gpu[i], cpu[i]), "ragged card != CPU"
@@ -661,3 +673,120 @@ def test_row_shuffle_kernel_equals_plain(cuda_device, f):
     plain = row_shuffle_plain(x, idx)
     assert torch.equal(one, two) and torch.equal(one, plain)
     assert torch.equal(three, plain)
+
+
+# ------------------------------------- the row pack and the fused entry
+def _special(x):
+    """±inf, NaN and float32 values at bf16 rounding ties in the first
+    rows (1 + 2⁻⁸ rounds down, 1 + 3·2⁻⁸ up: nearest even)."""
+    vals = (float("inf"), -float("inf"), float("nan"), 1.0 + 2 ** -8,
+            1.0 + 3 * 2 ** -8, -(1.0 + 2 ** -8))
+    flat = x.reshape(x.shape[0], x.shape[1], -1)
+    for i, v in enumerate(vals):
+        flat[:, i % x.shape[1], i % flat.shape[2]] = v
+    return x
+
+
+def _bits(t):
+    return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("kind", ["f32", "f32->bf16", "bf16", "bf16->f32"])
+@pytest.mark.parametrize("w", [1, 2, 7, 41, 65, 128])
+def test_row_pack_equals_plain_bitwise(cuda_device, w, kind, aligned):
+    """The row pack at ``w`` words a row (a ``(k, rows)`` table at w = 1),
+    on each dtype pair, from a 16-byte aligned source or one whose base is
+    4-byte (bf16: 2-byte) but not 16-byte aligned: == its plain version
+    on the card bit for bit — ±inf, NaN and rounding ties included, the
+    NaN bits torch's cast writes — and two launches agree; counted in
+    ``row_pack.launches``."""
+    src_dt, out_dt = {"f32": (torch.float32, torch.float32),
+                      "f32->bf16": (torch.float32, torch.bfloat16),
+                      "bf16": (torch.bfloat16, torch.bfloat16),
+                      "bf16->f32": (torch.bfloat16, torch.float32)}[kind]
+    rng = np.random.default_rng(w)
+    k, rows = 3, 300
+    x = _special(torch.from_numpy(rng.standard_normal(
+        (k, rows, w)).astype(np.float32))).to(src_dt).to(cuda_device)
+    if not aligned:
+        odd = torch.empty(x.numel() + 1, dtype=src_dt,
+                          device=cuda_device)[1:].view(x.shape)
+        odd.copy_(x)
+        x = odd
+        assert x.data_ptr() % 16
+    if w == 1:
+        x = x[..., 0]
+    flat = torch.from_numpy(rng.integers(0, k * rows, (k, 500)).astype(
+        np.int32)).to(cuda_device)
+    before = row_pack.launches
+    one, two = row_pack(x, flat, out_dt), row_pack(x, flat, out_dt)
+    torch.cuda.synchronize()
+    assert row_pack.launches == before + 2
+    plain = row_pack_plain(x, flat, out_dt)
+    assert one.dtype == out_dt and one.shape == plain.shape
+    assert torch.equal(_bits(one), _bits(two))
+    assert torch.equal(_bits(one), _bits(plain))
+
+
+def test_row_pack_refuses_bad_inputs(cuda_device):
+    """A strided source, an int64 index or a float16 table raise; an
+    index out of range fails the launch (the kernel traps)."""
+    x = torch.zeros(2, 10, 8, device=cuda_device)
+    flat = torch.zeros(2, 4, dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="row-major"):
+        row_pack(x[:, :, ::2], flat)
+    with pytest.raises(TypeError, match="int32"):
+        row_pack(x, flat.long())
+    with pytest.raises(TypeError, match="float32 and bfloat16"):
+        row_pack(x.half(), flat)
+
+
+def _fused_case(dev, f, hd, rd, seed, nan=False):
+    k, tb, n = 2, 256, 700
+    lclasses = ((2, 1040), (3, 24))
+    hclasses = ((2, 520), (3, 16))
+    lt = [torch.from_numpy(a).to(dev) for a in _edge_tiles(
+        k, lclasses, tb, n, seed)]
+    ht = [torch.from_numpy(a).to(dev) for a in _edge_tiles(
+        k, hclasses, tb, n, seed + 1)]
+    rng = np.random.default_rng(seed)
+    h = torch.from_numpy(rng.standard_normal((k, n, f)).astype(
+        np.float32)).to(hd).to(dev)
+    r = torch.from_numpy(rng.standard_normal((k, n, f)).astype(
+        np.float32)).to(rd).to(dev)
+    if nan:
+        h[:, 0, 0], r[:, 0, -1] = float("inf"), float("nan")
+    return lt, h, ht, r, lclasses, hclasses, tb
+
+
+@pytest.mark.parametrize("dtypes", ["f32/f32", "f32/bf16", "bf16/bf16"])
+@pytest.mark.parametrize("f", [1, 7, 16, 40, 41, 128, 129])
+def test_fused_entry_equals_plain_bitwise(cuda_device, f, dtypes):
+    """The fused local + remote entry on random tiles with a hub row and
+    pad-heavy tiles (``_edge_tiles``), h and the remote table in each of
+    the port's dtype pairs: == its plain version (the two plain family
+    passes, the slices, the float32 add and the cast; no kernel) bit for
+    bit, with inf and
+    NaN in the row the pads read too; two launches agree; one launch,
+    counted in the pair's counter."""
+    dt = {"f32": torch.float32, "bf16": torch.bfloat16}
+    hd, rd = (dt[x] for x in dtypes.split("/"))
+    counter = {"f32/f32": "launches", "f32/bf16": "wire_bf16_launches",
+               "bf16/bf16": "bf16_launches"}[dtypes]
+    for nan in (False, True):
+        args = _fused_case(cuda_device, f, hd, rd, seed=f, nan=nan)
+        before = getattr(spmm_tiles_fused, counter)
+        one = spmm_tiles_fused(*args)
+        two = spmm_tiles_fused(*args)
+        torch.cuda.synchronize()
+        assert getattr(spmm_tiles_fused, counter) == before + 2
+        k1_before = (spmm_tiles.launches, spmm_tiles.bf16_launches)
+        plain = spmm_tiles_fused_plain(*args)
+        # the plain version is torch arithmetic: no family launch
+        assert (spmm_tiles.launches, spmm_tiles.bf16_launches) == k1_before
+        assert one.dtype == hd and one.shape == (2, 700, f)
+        assert torch.equal(_bits(one), _bits(two))
+        assert torch.equal(_bits(one), _bits(plain)), (
+            f"fused != plain, max diff "
+            f"{(one.float() - plain.float()).abs().nan_to_num().max()}")

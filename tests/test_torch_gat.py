@@ -144,7 +144,11 @@ def test_dispatch_logs_combined_classes(cora):
     assert {"vmem_budget", "emax_cap", "gat_memory"} <= set(
         log["not_carried"])
     setup = resolve_forward_setup(cora["plan"], model="gat")
-    assert setup.plan_fields == ref_gat.GAT_PLAN_FIELDS_PALLAS
+    # the reference's fields, with its exchange arrays replaced by the
+    # flat sources of the port's row packs
+    assert setup.plan_fields == tuple(
+        {"send_idx": "recv_src", "halo_src": "halo_src_flat"}.get(f, f)
+        for f in ref_gat.GAT_PLAN_FIELDS_PALLAS)
     pa = setup.ship_arrays(cora["plan"], "cpu")
     assert pa["ptile_cw"].dtype == torch.int8
     np.testing.assert_array_equal(pa["ptile_cw"].numpy(),
@@ -218,9 +222,10 @@ def test_scalar_exchange_matches_reference(cora):
     ``u``) vs the reference's per-chip exchange: a pure copy, exact."""
     plan = cora["plan"]
     u = np.random.default_rng(3).random((plan.k, plan.b)).astype(np.float32)
+    plan.ensure_exchange()
     got = halo_exchange(torch.from_numpy(u),
-                        torch.from_numpy(plan.send_idx),
-                        torch.from_numpy(plan.halo_src))
+                        torch.from_numpy(plan.recv_src),
+                        torch.from_numpy(plan.halo_src_flat))
     want = _smap(cora["mesh"], lambda u, s, h: ref_halo_exchange(
         u[0][:, None], s[0], h[0])[None, :, 0], (P("v"),) * 3, P("v"))(
         u, plan.send_idx, plan.halo_src)
@@ -338,7 +343,7 @@ def test_fused_equals_split_bitwise(cora, fout):
     st = choose_tile_dispatch(plan, model="gat")
     pa = resolve_forward_setup(plan, model="gat").ship_arrays(plan, "cpu")
     w, a1, a2, h, g = _layer_inputs(plan, 24, fout, seed=fout)
-    args = (pa["send_idx"], pa["halo_src"], pa["ptile_csrc"],
+    args = (pa["recv_src"], pa["halo_src_flat"], pa["ptile_csrc"],
             pa["ptile_cld"], pa["ptile_cw"])
     p, s = torch.rand(plan.k, plan.b, fout), torch.rand(plan.k, plan.b)
     fused = _gat_tiles_aggregate(p, s, "fused", *args, 256,
@@ -374,7 +379,7 @@ def test_layer_backward_matches_autograd_float64(cora, form):
     pa = resolve_forward_setup(plan, model="gat").ship_arrays(plan, "cpu")
     w, a1, a2, h, g = _layer_inputs(plan, 20, 9, seed=1,
                                     dtype=torch.float64)
-    args = (pa["send_idx"], pa["halo_src"], pa["ptile_csrc"],
+    args = (pa["recv_src"], pa["halo_src_flat"], pa["ptile_csrc"],
             pa["ptile_cld"], pa["ptile_cw"], pa["row_valid"], 256,
             st["pallas_cclasses"], form)
     ours = [x.clone().requires_grad_() for x in (w, a1, a2, h)]

@@ -29,6 +29,7 @@ from sgcn_tpu_torch.models import (GCN, exchange_widths, gcn_forward_local,
                                    init_gcn_params, params_from_jax)
 from sgcn_tpu_torch.models.activations import get_activation
 from sgcn_tpu_torch.ops import halo_exchange, pspmm_tiles_sym
+from sgcn_tpu_torch.ops.tile_spmm import TILE_PLAN_FIELDS
 from sgcn_tpu_torch.parallel import build_comm_plan
 from sgcn_tpu_torch.partition import read_partvec
 from sgcn_tpu_torch.prep import normalize_adjacency
@@ -42,6 +43,7 @@ def cora():
     pv = read_partvec(os.path.join(FIX, "cora2708.8.hp"))
     plan = build_comm_plan(normalize_adjacency(a), pv, 8)
     plan.ensure_pallas_tiles(256)
+    plan.ensure_exchange()
     return {"plan": plan, "feats": feats, "mesh": make_mesh_1d(8)}
 
 
@@ -51,8 +53,10 @@ def _smap(mesh, fn, nargs):
 
 
 def _pa_torch(plan):
+    """The port's plan arrays: the reference's, with the exchange's
+    replaced by the receive layout's flat sources."""
     return {f: torch.from_numpy(np.ascontiguousarray(getattr(plan, f)))
-            for f in PALLAS_PLAN_FIELDS}
+            for f in TILE_PLAN_FIELDS}
 
 
 def _classes(plan):
@@ -70,8 +74,8 @@ def test_halo_exchange_matches_shard_map(cora):
 
     want = np.asarray(_smap(cora["mesh"], per_chip, 3)(
         h, plan.send_idx, plan.halo_src))
-    got = halo_exchange(torch.from_numpy(h), torch.from_numpy(plan.send_idx),
-                        torch.from_numpy(plan.halo_src)).numpy()
+    got = halo_exchange(torch.from_numpy(h), torch.from_numpy(plan.recv_src),
+                        torch.from_numpy(plan.halo_src_flat)).numpy()
     assert got.shape == (plan.k, plan.r, 5)
     for p in range(plan.k):
         hc = int(plan.halo_counts[p])
@@ -93,7 +97,7 @@ def test_one_layer_pspmm_tiles_matches_pallas_sym(cora):
     want = np.asarray(_smap(cora["mesh"], per_chip, len(args))(*args))
     pa = _pa_torch(plan)
     got = pspmm_tiles_sym(torch.from_numpy(h),
-                          *(pa[f] for f in PALLAS_PLAN_FIELDS),
+                          *(pa[f] for f in TILE_PLAN_FIELDS),
                           256, lcls, hcls).numpy()
     diff = float(np.abs(got - want).max())
     print(f"one layer: max |port - reference| = {diff:.3g}")

@@ -243,10 +243,15 @@ def test_dispatch_and_setup_of_the_ring(cora):
         (t, e, "tile_spmm") for t, e, _ in ref_st["pallas_hclasses"])
     gcn = resolve_forward_setup(plan, comm_schedule="ragged")
     gat = resolve_forward_setup(plan, model="gat", comm_schedule="ragged")
+    # the reference's tuples, with the ring's send rows replaced by the
+    # flat sources of the port's ring pack
+    def port(fields):
+        return tuple({"rsend_idx": "ring_src"}.get(f, f) for f in fields)
+
     assert gcn.plan_fields == TILE_PLAN_FIELDS_RAGGED \
-        == PALLAS_PLAN_FIELDS_RAGGED
+        == port(PALLAS_PLAN_FIELDS_RAGGED)
     assert gat.plan_fields == port_gat.GAT_PLAN_FIELDS_PALLAS_RAGGED \
-        == ref_gat.GAT_PLAN_FIELDS_PALLAS_RAGGED
+        == port(ref_gat.GAT_PLAN_FIELDS_PALLAS_RAGGED)
     assert gat.ship_arrays(plan, "cpu")["ptile_cw"].dtype == torch.int8
     with pytest.raises(ValueError, match="unknown comm schedule"):
         choose_tile_dispatch(plan, schedule="auto")
@@ -258,12 +263,12 @@ def test_ring_concat_holds_the_halo_rows_at_ring_positions(cora):
     its ring position, exactly: part q receives round d from (q − d)
     mod k.  The concat has Σ_live S_d rows; an empty ring is one zero
     row."""
-    plan = cora["plan"].ensure_ragged()
+    plan = cora["plan"].ensure_ragged().ensure_exchange()
     h = torch.from_numpy(np.random.default_rng(0).standard_normal(
         (plan.k, plan.b, 5)).astype(np.float32))
-    ring = ring_concat(h, torch.from_numpy(plan.rsend_idx), plan.rr_sizes)
-    halo = halo_exchange(h, torch.from_numpy(plan.send_idx),
-                         torch.from_numpy(plan.halo_src))
+    ring = ring_concat(h, torch.from_numpy(plan.ring_src), plan.rr_sizes)
+    halo = halo_exchange(h, torch.from_numpy(plan.recv_src),
+                         torch.from_numpy(plan.halo_src_flat))
     assert ring.shape == (plan.k, sum(plan.rr_sizes), 5)
     assert ragged_live_rounds(plan.rr_sizes) == tuple(range(1, plan.k))
     pos = plan._ring_pos_of_rank()
@@ -291,9 +296,10 @@ def test_pspmm_ragged_equals_a2a_bitwise(cora):
     CPU."""
     plan = cora["plan"]
     st = choose_tile_dispatch(plan, schedule="ragged")
+    plan.ensure_exchange()
     static = (st["pallas_tb"], st["pallas_lclasses"], st["pallas_hclasses"])
     pa = {f: torch.from_numpy(np.ascontiguousarray(getattr(plan, f)))
-          for f in TILE_PLAN_FIELDS + ("rsend_idx", "ptile_hrsrc")}
+          for f in TILE_PLAN_FIELDS + ("ring_src", "ptile_hrsrc")}
     rng = np.random.default_rng(1)
     h = torch.from_numpy(rng.standard_normal(
         (plan.k, plan.b, 16)).astype(np.float32))
@@ -378,9 +384,10 @@ def test_gat_layer_forms_ragged_equal_a2a_bitwise(cora, fout):
     for sched, setup in setups.items():
         pa = setup.ship_arrays(plan, "cpu")
         if sched == "ragged":
-            ex, rr = (pa["rsend_idx"], None, pa["ptile_crsrc"]), plan.rr_sizes
+            ex, rr = (pa["ring_src"], None, pa["ptile_crsrc"]), plan.rr_sizes
         else:
-            ex, rr = (pa["send_idx"], pa["halo_src"], pa["ptile_csrc"]), None
+            ex = (pa["recv_src"], pa["halo_src_flat"], pa["ptile_csrc"])
+            rr = None
         for form in ("fused", "split"):
             aggs[sched, form] = _gat_tiles_aggregate(
                 p, s, form, *ex, pa["ptile_cld"], pa["ptile_cw"], 256, cls,
@@ -449,7 +456,9 @@ def test_gcn_ragged_forward_matches_reference(cora):
     pa = {f: torch.from_numpy(x) for f, x in pa_np.items()}
     h = np.random.default_rng(1).standard_normal(
         (plan.k, plan.b, 16)).astype(np.float32)
-    args = [h] + [pa_np[f] for f in PALLAS_PLAN_FIELDS_RAGGED]
+    ref_np = {f: np.ascontiguousarray(getattr(plan, f))
+              for f in PALLAS_PLAN_FIELDS_RAGGED}
+    args = [h] + [ref_np[f] for f in PALLAS_PLAN_FIELDS_RAGGED]
 
     def per_chip(*a):
         return pspmm_pallas_ragged(*(x[0] for x in a), 256, lcls, hcls,
@@ -477,7 +486,7 @@ def test_gcn_ragged_forward_matches_reference(cora):
 
     want = np.asarray(_smap(cora["mesh"], fwd, (P(), P("v"), P("v")),
                             P("v"))([jnp.asarray(w) for w in params], h0,
-                                    pa_np))
+                                    ref_np))
     got = port_gcn.gcn_forward_local(port_gcn.params_from_jax(params),
                                      torch.from_numpy(h0), pa,
                                      **st).numpy()

@@ -256,7 +256,9 @@ def test_one_layer_vjp_matches_pallas_sym(cora):
 
     want = np.asarray(_smap(cora["mesh"], per_chip, (P("v"),) * 10,
                             P("v"))(h, g, *pa))
-    pa_t = [torch.from_numpy(np.ascontiguousarray(x)) for x in pa]
+    plan.ensure_exchange()
+    pa_t = [torch.from_numpy(np.ascontiguousarray(getattr(plan, f)))
+            for f in TILE_PLAN_FIELDS]
     ht = torch.from_numpy(h).requires_grad_()
     out = pspmm_tiles_sym(ht, *pa_t, 256, lcls, hcls)
     out.backward(torch.from_numpy(g))
