@@ -148,18 +148,47 @@ failure raises and the script exits non-zero:
   18. the row pack and the fused entry against their plain versions on
      every exchange and aggregation one flagship training pass (forward
      and backward) makes, GCN and GAT, both transports;
-  19. one JSON line ``{"kernels": [...]}`` — per ported kernel (the tile
+  19. serving on the directed flagship graph (an asymmetric Â): 14·n
+     ordered pairs from ``default_rng(0)``, self pairs dropped,
+     ``normalize_adjacency``, phase 3's features and parts, GCN and GAT
+     128 → 128 → 128 → 40; 512 closed-loop queries at batch 64, 256
+     served rows against the float64 forward with Â (phase 3's and 7's
+     gates), exact launches, p50/p99/QPS, the idle share;
+  20. training there, GCN and GAT, 1 warm-up + 5 timed steps: step-1
+     gradients within 1e-5 (relative Frobenius, per layer) of a float64
+     backprop with Âᵀ (GCN, with the run's ReLU masks) or of float64
+     autograd (GAT ``w``/``a2``; ``a1``'s exactly 0), exact launches (a
+     forward aggregation: one pack, one fused launch; a backward one:
+     one K1 family launch of the halo rows' transpose, one reverse pack,
+     one fused launch; GAT the K5 passes of each form, then per exchanged
+     table one K5 pass, one pack, one fused launch), every family launch,
+     pack and fused launch of one training pass == plain bit for bit on
+     its real inputs, ``epoch_s``, the step breakdown and the profiler's
+     split; one backward aggregation at the layer-0 table (f = 128) timed
+     whole and by step against its byte bound, its plain version and
+     ``torch.sparse.mm`` + ``torch.index_select`` + ``torch.sparse.mm``;
+  21. the directed GCN of phase 20 under ``halo_dtype`` and
+     ``compute_dtype``: losses in the reference's bf16 band of the
+     float32 run and not equal to it, exact launches per entry, every
+     launch of one pass == plain;
+  22. the same training repeated in one process
+     (``tools/repeat_run.py::repeat_training``, fresh trainers from one
+     start): cora2708 GAT a2a (phase 9's run) 20 times, the directed
+     flagship GCN and GAT 3 times each — exactly one loss history and one
+     weight digest each;
+  23. one JSON line ``{"kernels": [...]}`` — per ported kernel (the tile
      SpMM, the GCN aggregation's backward, the GAT attention pass and its
      use in the GAT layer's backward, the ragged ring aggregation and its
      backward, the row shuffle, the tile SpMM's and the GAT pass's bf16
      flavors, the row pack and the fused local + remote entry) its
-     launches on the main path (phases 2–5, 7–13 and 15–17), max |kernel
-     − plain|, kernel / plain / bound / library times at the flagship
-     layer.  The tile SpMM's own float-weight family entries (both
-     tables) must show 0 launches there — the fused entry runs their
-     chains and counts those launches — and any other kernel with no
-     launch there fails the run;
-  20. the last line: ``{"ok": true, "device": {...}}``.
+     launches on the main path (phases 2–5, 7–13, 15–17 and 19–21), max
+     |kernel − plain|, kernel / plain / bound / library times at the
+     flagship layer.  The tile SpMM's own float-weight family entries
+     (both tables) launch on the main path only in the asymmetric
+     backward (phases 20–21): the symmetric phases must show 0 of them —
+     the fused entry runs their chains and counts those launches — and any
+     kernel with no launch on the main path fails the run;
+  24. the last line: ``{"ok": true, "device": {...}}``.
 
 Without CUDA, or without the rest of the repository beside it, the script
 prints no result and exits with code 2 or 3.
@@ -452,7 +481,7 @@ def time_k1(tiles_np, tiles, table, classes, tb, n, what, plain_reps=3):
         f"bound {bound_ms!r} ms by {bound_by} ({nbytes} B, {flops} flop), "
         f"{100 * bound_ms / ms:.1f}% of bound")
     return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by}
+            "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes}
 
 
 # ------------------------------------------- the pack and the fused entry
@@ -859,9 +888,10 @@ def gat_passes(widths):
 MAIN_PATH_PACKS = [0]
 
 # launches of K1's own family entries (float32 weights, on float32 and bf16
-# tables) made inside the main path's runs: the fused entry runs K1's two
-# family chains since the K3/K4 redesign, GAT runs the mask entries, so
-# these stay 0; the kernels line reports them under K1's own rows
+# tables) made inside the symmetric main path's runs: the fused entry runs
+# K1's two family chains since the K3/K4 redesign, GAT runs the mask
+# entries, so these stay 0 (asserted); only the asymmetric backward
+# launches them (phases 20-21, counted there)
 MAIN_PATH_K1 = {"launches": 0, "bf16_launches": 0}
 _K1_AT_OPEN = {}
 
@@ -1158,8 +1188,8 @@ def backprop64(ahat, feats, labels, params, masks=None):
     """Float64 host loss and weight gradients of the GCN with ReLU between
     layers, no activation after the last, and the mean softmax
     cross-entropy over every row, in the trainer's layer order (a wide
-    input narrowed by the layer projects first).  Â is symmetric, so
-    the transpose of each aggregation is Â itself.
+    input narrowed by the layer projects first).  The backward of each
+    aggregation multiplies by Âᵀ (Â itself on a symmetric graph).
 
     ``masks``: per hidden layer, the ReLU derivative (``z > 0``) to use in
     place of float64's own — the float32 run's, so that an entry whose
@@ -1172,6 +1202,7 @@ def backprop64(ahat, feats, labels, params, masks=None):
     from sgcn_tpu_torch.models.gcn import PROJECT_FIRST_MIN_FIN
 
     a = ahat.astype(np.float64).tocsr()
+    at = a.T.tocsr()
     h = np.asarray(feats, np.float64)
     ws = [np.asarray(w, np.float64) for w in params]
     ins, relu, pfs = [], [], []
@@ -1199,12 +1230,12 @@ def backprop64(ahat, feats, labels, params, masks=None):
     grads = [None] * len(ws)
     for i in reversed(range(len(ws))):
         if pfs[i]:                           # z = Â (h W)
-            adz = a @ dz
+            adz = at @ dz
             grads[i] = ins[i].T @ adz
             dh = adz @ ws[i].T
         else:                                # z = (Â h) W
             grads[i] = ins[i].T @ dz
-            dh = a @ (dz @ ws[i].T)
+            dh = at @ (dz @ ws[i].T)
         if i:
             dz = dh * relu[i - 1]
     return float(loss), grads, flips
@@ -1220,13 +1251,20 @@ def forward_backward_trace(tr, data):
     from sgcn_tpu_torch.models.gcn import PROJECT_FIRST_MIN_FIN
     from sgcn_tpu_torch.ops.tile_spmm import (TILE_PLAN_FIELDS,
                                               TILE_PLAN_FIELDS_RAGGED,
+                                              pspmm_tiles_gen,
                                               pspmm_tiles_ragged,
                                               pspmm_tiles_sym)
     from sgcn_tpu_torch.train import LOSSES
 
     st = tr.model.fwd_static
     static = (st["pallas_tb"], st["pallas_lclasses"], st["pallas_hclasses"])
-    if tr.comm_schedule == "ragged":
+    if not st.get("symmetric", True):
+        def agg(x):
+            return pspmm_tiles_gen(
+                x, tr.pa, *static, (st["pallas_tlclasses"],
+                                    st["pallas_thclasses"],
+                                    st["pallas_t1classes"]))
+    elif tr.comm_schedule == "ragged":
         def agg(x):
             return pspmm_tiles_ragged(
                 x, *(tr.pa[f] for f in TILE_PLAN_FIELDS_RAGGED), *static,
@@ -1574,38 +1612,6 @@ def record_aggregations(run):
         tile_spmm._pspmm_tiles_once = orig
     torch.cuda.synchronize()
     return calls
-
-
-def record_exchanges(run):
-    """Run ``run()`` recording the inputs of every row pack
-    (``ops/pspmm.py``'s exchanges) and every fused tile launch
-    (``ops/tile_spmm.py``'s aggregations) it makes, GCN or GAT, a2a or
-    ring.  Returns (packs, fused): lists of argument tuples."""
-    import torch
-
-    from sgcn_tpu_torch.ops import pspmm, tile_spmm
-
-    packs, fused = [], []
-    orig_pack, orig_fused = pspmm.row_pack, tile_spmm.spmm_tiles_fused
-
-    def pack(src, flat, dtype=None):
-        packs.append((src.detach(), flat, dtype or src.dtype))
-        return orig_pack(src, flat, dtype)
-
-    def fuse(ltiles, h, htiles, remote, lcls, hcls, tb):
-        fused.append((ltiles, h.detach(), htiles, remote, lcls, hcls, tb))
-        return orig_fused(ltiles, h, htiles, remote, lcls, hcls, tb)
-
-    # the wrappers share the wrapped functions' launch counters, which
-    # the ops read through the module attribute they replace
-    pack.__dict__, fuse.__dict__ = orig_pack.__dict__, orig_fused.__dict__
-    pspmm.row_pack, tile_spmm.spmm_tiles_fused = pack, fuse
-    try:
-        run()
-    finally:
-        pspmm.row_pack, tile_spmm.spmm_tiles_fused = orig_pack, orig_fused
-    torch.cuda.synchronize()
-    return packs, fused
 
 
 def gcn_train_pass(tr, data):
@@ -1967,6 +1973,419 @@ def phase_bf16_gat(plan, data, params_g, widths, rep32, dev, steps,
     launches["f32"] += n32
     launches["bf16"] += n16
     return launches, err, t5
+
+
+# ------------------------------------------------- asymmetric Â (directed)
+def directed_er_graph(n, seed=0):
+    """The directed flagship graph: 14·n ordered pairs (i, j) from
+    ``default_rng(seed)``, self pairs dropped, every edge of weight 1
+    (a pair drawn twice is one edge); the caller normalizes it."""
+    import numpy as np
+    import scipy.sparse as sp
+
+    r, c = np.random.default_rng(seed).integers(0, n, (2, 14 * n))
+    keep = r != c
+    a = sp.csr_matrix((np.ones(int(keep.sum()), np.float32),
+                       (r[keep], c[keep])), shape=(n, n))
+    a.data[:] = 1.0
+    return a
+
+
+def record_launches(run):
+    """Run ``run()`` recording the inputs of every tile family launch
+    (``spmm_tiles_classes``: K1 on float32 weights, K5 on int8 masks),
+    every row pack and every fused launch it makes, through the module
+    attributes the ops call them by.  Returns (families, packs, fused):
+    lists of argument tuples."""
+    import torch
+
+    from sgcn_tpu_torch.ops import pspmm, tile_spmm
+
+    fams, packs, fused = [], [], []
+    orig = (tile_spmm.spmm_tiles_classes, pspmm.row_pack,
+            tile_spmm.spmm_tiles_fused)
+
+    def family(src, ld, w, table, classes, tb):
+        fams.append(([src, ld, w], table.detach(), classes, tb))
+        return orig[0](src, ld, w, table, classes, tb)
+
+    def pack(src, flat, dtype=None):
+        packs.append((src.detach(), flat, dtype or src.dtype))
+        return orig[1](src, flat, dtype)
+
+    def fuse(ltiles, h, htiles, remote, lcls, hcls, tb):
+        fused.append((ltiles, h.detach(), htiles, remote, lcls, hcls, tb))
+        return orig[2](ltiles, h, htiles, remote, lcls, hcls, tb)
+
+    # the wrappers share the wrapped functions' launch counters
+    for wrapper, wrapped in zip((family, pack, fuse), orig):
+        wrapper.__dict__ = wrapped.__dict__
+    (tile_spmm.spmm_tiles_classes, pspmm.row_pack,
+     tile_spmm.spmm_tiles_fused) = family, pack, fuse
+    try:
+        run()
+    finally:
+        (tile_spmm.spmm_tiles_classes, pspmm.row_pack,
+         tile_spmm.spmm_tiles_fused) = orig
+    torch.cuda.synchronize()
+    return fams, packs, fused
+
+
+def check_launches(name, recorded):
+    """Every recorded family launch, pack and fused launch == its plain
+    version on the same (real) inputs, bit for bit.  Returns the max
+    |kernel − plain| (0.0 when identical)."""
+    fams, packs, fused = recorded
+    err = 0.0
+    for j, (tiles, table, cls, tb) in enumerate(fams):
+        err = max(err, check_k1(tiles, table, cls, tb, f"{name} family "
+                                f"launch {j} f={table.shape[-1]}"))
+    for j, (src, flat, dtype) in enumerate(packs):
+        check_pack(src, flat, dtype, f"{name} pack {j}")
+    for j, args in enumerate(fused):
+        err = max(err, check_fused(*args, f"{name} fused launch {j}"))
+    log(f"  {name}: {len(fams)} family launches, {len(packs)} packs, "
+        f"{len(fused)} fused launches == plain, bit for bit")
+    return err
+
+
+def time_transposed_op(g, pa, st, tb, what):
+    """One backward aggregation of an asymmetric Â on the table ``g``
+    (``pspmm_tiles_transposed``): the whole op (halo-ᵀ family launch,
+    reverse pack, fused local-ᵀ + owner sum) by CUDA events, each step
+    alone, the plain version once (torch arithmetic), the library
+    yardsticks summed (``torch.sparse.mm`` of the halo rows' Âᵀ, the
+    ``torch.index_select`` of the reverse wire, ``torch.sparse.mm`` of the
+    local rows' Âᵀ beside the owner sum) and the bound: the three steps'
+    bytes at the card's memory rate."""
+    import torch
+
+    from sgcn_tpu_torch.ops.pspmm import reverse_exchange
+    from sgcn_tpu_torch.ops.row_shuffle import row_pack_plain
+    from sgcn_tpu_torch.ops.tile_spmm import (pspmm_tiles_transposed,
+                                              spmm_tiles_classes,
+                                              spmm_tiles_classes_plain,
+                                              spmm_tiles_fused_plain)
+
+    tl, th, t1 = ([pa[f"ptile_t{x}{y}"] for y in ("src", "ld", "w")]
+                  for x in ("l", "h", "1"))
+    cls = (st["pallas_tlclasses"], st["pallas_thclasses"],
+           st["pallas_t1classes"])
+    send = spmm_tiles_classes(*th, g, cls[1], tb)
+    rwire = reverse_exchange(send, pa["rev_src"], dtype=g.dtype)
+    fam = time_k1([t.cpu().numpy() for t in th], th, g, cls[1], tb,
+                  g.shape[1], f"{what} halo-T family launch")
+    pack = time_pack(send, pa["rev_src"], g.dtype, f"{what} reverse pack")
+    fused = time_fused(tl, g, t1, rwire, cls[0], cls[2], tb,
+                       f"{what} fused local-T + owner sum")
+    args = (g, tl, th, t1, pa["rev_src"], tb, *cls)
+    with torch.inference_mode():
+        op = cuda_ms(lambda: pspmm_tiles_transposed(*args))
+    plain = cuda_ms(lambda: spmm_tiles_fused_plain(
+        tl, g, t1, row_pack_plain(spmm_tiles_classes_plain(
+            *th, g, cls[1], tb), pa["rev_src"], g.dtype), cls[0], cls[2],
+        tb), reps=1, warmup=0)
+    nbytes = fam["bytes"] + pack["bytes"] + fused["bytes"]
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    parts = (fam["library_ms"], pack["library_ms"], fused["library_ms"])
+    lib = None if None in parts else sum(parts)
+    log(f"  {what}: whole op {op!r} ms (halo-T {fam['ms']!r} + pack "
+        f"{pack['ms']!r} + fused {fused['ms']!r}); bound {bound!r} ms by "
+        f"bytes ({nbytes} B), {100 * bound / op:.1f}% of bound; plain "
+        f"{plain!r} ms; library (sparse.mm + index_select + sparse.mm) "
+        f"{lib!r} ms")
+    return {"ms": op, "plain_ms": plain, "library_ms": lib,
+            "bound_ms": bound, "bound_by": "bytes", "family": fam,
+            "pack": pack, "fused": fused}
+
+
+def phase_asymmetric(ahat_d, feats, labels, pv, widths, dev, tb, steps,
+                     k3b):
+    """Phases 19–21: the directed flagship graph (serving, training, the
+    backward op's time, the bf16 levers).  Returns the launches per
+    kernel entry on these main-path runs, the max |kernel − plain|, the
+    trainers' initial weights and plan for the repeat phase."""
+    import numpy as np
+    import torch
+
+    from sgcn_tpu_torch.models.gat import GatLayerGen
+    from sgcn_tpu_torch.models.gat import params_from_jax as gat_from_numpy
+    from sgcn_tpu_torch.ops.row_shuffle import row_pack
+    from sgcn_tpu_torch.ops.tile_spmm import (PspmmTilesGen, spmm_tiles,
+                                              spmm_tiles_fused)
+    from sgcn_tpu_torch.train import FullBatchTrainer, make_train_data
+
+    n = ahat_d.shape[0]
+    out = {"k1": 0, "k1_bf16": 0, "k5": 0, "fused": 0, "err": 0.0}
+
+    def reset():
+        for c in ("launches", "mask_launches", "bf16_launches",
+                  "bf16_mask_launches"):
+            setattr(spmm_tiles, c, 0)
+        for c in ("launches", "wire_bf16_launches", "bf16_launches"):
+            setattr(spmm_tiles_fused, c, 0)
+        row_pack.launches = 0
+        PspmmTilesGen.backward_launches = GatLayerGen.backward_launches = 0
+
+    def counts():
+        return {"k1": spmm_tiles.launches, "k1_bf16": spmm_tiles.bf16_launches,
+                "k5": spmm_tiles.mask_launches
+                + spmm_tiles.bf16_mask_launches,
+                "fused": spmm_tiles_fused.launches,
+                "fused_wire": spmm_tiles_fused.wire_bf16_launches,
+                "fused_bf16": spmm_tiles_fused.bf16_launches,
+                "pack": row_pack.launches,
+                "gen_bwd": PspmmTilesGen.backward_launches,
+                "gat_gen_bwd": GatLayerGen.backward_launches}
+
+    def book(c):
+        out["k1"] += c["k1"]
+        out["k1_bf16"] += c["k1_bf16"]
+        out["k5"] += c["k5"]
+        out["fused"] += c["fused"] + c["fused_wire"] + c["fused_bf16"]
+        MAIN_PATH_PACKS[0] += c["pack"]
+
+    # ---------------------------------------------------------- phase 19
+    log("phase 19: serve the directed flagship graph (asymmetric Â), GCN "
+        f"and GAT 128 -> {' -> '.join(map(str, widths))}, a2a")
+    reset()
+    eng, _res, _l = serve_and_check(
+        "directed flagship GCN", ahat_d, feats, pv, 8, widths, queries=512,
+        max_batch=64, seed=3, check_rows=256)
+    book(counts())
+    plan = eng.plan
+    log(f"  directed flagship plan: nnz {ahat_d.nnz}, B {plan.b}, S "
+        f"{plan.s}, R {plan.r}, true halo rows {int(plan.halo_counts.sum())}"
+        f", EL/EH per part {plan.el}/{plan.eh}, symmetric {plan.symmetric}; "
+        f"transposed classes: local "
+        f"{[c[:2] for c in eng.setup.fwd_static['pallas_tlclasses']]}, halo "
+        f"{[c[:2] for c in eng.setup.fwd_static['pallas_thclasses']]}, "
+        f"owner sum "
+        f"{[c[:2] for c in eng.setup.fwd_static['pallas_t1classes']]}")
+    if plan.symmetric or eng.setup.fwd_static.get("symmetric", True):
+        raise AssertionError("the directed flagship plan came out symmetric")
+    log_device_busy("directed flagship GCN", lambda: eng.query(np.arange(64)))
+    reset()
+    eng_g, _res_g, _l = serve_and_check(
+        "directed flagship GAT", ahat_d, feats, pv, 8, widths, queries=512,
+        max_batch=64, seed=3, check_rows=256, model="gat", plan=plan)
+    book(counts())
+    log_device_busy("directed flagship GAT",
+                    lambda: eng_g.query(np.arange(64)))
+
+    # ---------------------------------------------------------- phase 20
+    log("phase 20: train the directed flagship graph, GCN and GAT, 1 "
+        "warm-up + 5 timed steps; step-1 gradients vs a float64 backprop "
+        "with Â^T, exact launches, every launch of one step == plain")
+    data = make_train_data(plan, feats, labels, device=dev)
+    tr = FullBatchTrainer(plan, fin=128, widths=widths, seed=5,
+                          comm_schedule="a2a", device=dev)
+    p_init = [w.detach().cpu().numpy().copy() for w in tr.params]
+    zs, caught = forward_backward_trace(tr, data)
+    masks = [plan.gather_rows((z > 0).cpu().numpy()) for z in zs[:-1]]
+    t0 = time.perf_counter()
+    loss64, _g64, _ = backprop64(ahat_d, feats, labels, p_init)
+    _, grads64m, flips = backprop64(ahat_d, feats, labels, p_init,
+                                    masks=masks)
+    log(f"  float64 host backprop with A^T {time.perf_counter() - t0:.2f} s"
+        f", loss {loss64!r}; ReLU sign flips by hidden layer: {flips}")
+    loss0, _ = tr.evaluate(data)
+    if abs(loss0 - loss64) > 1e-5 * abs(loss64):
+        raise AssertionError(f"directed GCN initial loss {loss0} vs "
+                             f"float64 {loss64}")
+    step_grads = []
+    tr.opt.register_step_pre_hook(lambda opt, a, kw: None if step_grads else
+                                  step_grads.append([w.grad.cpu().numpy()
+                                                     for w in tr.params]))
+    reset()
+    rep = tr.fit(data, epochs=5, warmup=1, verbose=False)
+    c = counts()
+    book(c)
+    nf, nb = len(widths), backward_passes(128, widths)
+    want = {"fused": steps * (nf + nb), "pack": steps * (nf + nb),
+            "k1": steps * nb, "gen_bwd": steps * nb}
+    log(f"  GCN launches {json.dumps(c)}; expected {json.dumps(want)} "
+        f"({steps} steps x ({nf} forward + {nb} backward aggregations); a "
+        "backward: one K1 family, one pack, one fused)")
+    if any(c[key] != v for key, v in want.items()) or c["k5"] \
+            or c["fused_wire"] or c["fused_bf16"] or c["k1_bf16"]:
+        raise AssertionError("directed GCN training: launch counts differ "
+                             "from the passes the program runs")
+    losses = [loss0] + rep["loss_history"]
+    if not np.isfinite(losses).all():
+        raise AssertionError(f"directed GCN: non-finite loss {losses}")
+    for i, (got, want_g) in enumerate(zip(step_grads[0], grads64m)):
+        rel = float(np.linalg.norm(got - want_g) / np.linalg.norm(want_g))
+        log(f"  GCN step-1 dW{i} {got.shape}: relative Frobenius error vs "
+            f"float64 (A^T backward, the run's ReLU masks) {rel:.3g}")
+        if not rel <= GRAD_RTOL:
+            raise AssertionError(f"directed GCN layer {i} gradient off "
+                                 f"float64 by {rel}")
+    comm = {key: rep[key] for key in (
+        "exchanges", "total_send_volume", "max_send_volume",
+        "max_recv_volume", "wire_rows_per_exchange")}
+    log(f"  GCN losses {losses}; epoch_s {rep['epoch_s']!r} (5 timed steps, "
+        f"host clock); comm {json.dumps(comm)}")
+    log(f"  GCN step breakdown (CUDA events, mean of 3): "
+        f"{json.dumps(step_breakdown(tr, data))}")
+    device_split("directed GCN training", lambda: tr.step(data))
+    out["err"] = max(out["err"], check_launches(
+        "directed GCN training pass",
+        record_launches(lambda: gcn_train_pass(tr, data))))
+    st, pa = tr.model.fwd_static, tr.pa
+    out["op"] = time_transposed_op(data.h0, pa, st, tb, "directed flagship "
+                                   "backward aggregation, layer-0 table "
+                                   "f=128")
+    log(f"  backward aggregation f=128: asymmetric {out['op']['ms']!r} ms "
+        f"(bound {out['op']['bound_ms']!r}) vs the symmetric one (phase 5) "
+        f"{k3b['ms']!r} ms (bound {k3b['bound_ms']!r})")
+    fwd = time_whole_op(data.h0, pa, st, tb, False, "directed flagship "
+                        "forward aggregation layer 0 f=128")
+    out["fwd_op"] = fwd
+
+    params_g = gat_params_numpy(7, list(zip([128] + widths[:-1], widths)))
+    trg = FullBatchTrainer(plan, fin=128, widths=widths, model="gat",
+                           activation="none", params=gat_from_numpy(params_g),
+                           comm_schedule="a2a", device=dev)
+    t0 = time.perf_counter()
+    loss64_g, grads64_g = gat64(ahat_d, feats, params_g, labels=labels)
+    log(f"  float64 host GAT autograd on the directed pattern "
+        f"{time.perf_counter() - t0:.2f} s, loss {loss64_g!r}")
+    loss0_g, _ = trg.evaluate(data)
+    if abs(loss0_g - loss64_g) > 1e-5 * abs(loss64_g):
+        raise AssertionError(f"directed GAT initial loss {loss0_g} vs "
+                             f"float64 {loss64_g}")
+    gsteps = []
+    trg.opt.register_step_pre_hook(lambda opt, a, kw: None if gsteps else
+                                   gsteps.append([
+                                       {k: v.grad.cpu().numpy()
+                                        for k, v in p.items()}
+                                       for p in trg.params]))
+    reset()
+    rep_g = trg.fit(data, epochs=5, warmup=1, verbose=False)
+    c = counts()
+    book(c)
+    fwd_p, tables = gat_passes(widths), gat_passes(widths)
+    want = {"k5": steps * (fwd_p + tables),
+            "pack": steps * (pack_launches("gat", "a2a", widths) + tables),
+            "fused": steps * tables, "gat_gen_bwd": steps * tables}
+    log(f"  GAT launches {json.dumps(c)}; expected {json.dumps(want)} "
+        f"({steps} steps x forward {fwd_p} K5 passes and "
+        f"{pack_launches('gat', 'a2a', widths)} packs, backward per "
+        f"exchanged table ({tables}) one K5 pass, one pack, one fused)")
+    if any(c[key] != v for key, v in want.items()) or c["k1"] \
+            or c["k1_bf16"] or c["fused_wire"] or c["fused_bf16"]:
+        raise AssertionError("directed GAT training: launch counts differ "
+                             "from the passes the program runs")
+    losses_g = [loss0_g] + rep_g["loss_history"]
+    if not np.isfinite(losses_g).all():
+        raise AssertionError(f"directed GAT: non-finite loss {losses_g}")
+    for i, (got, want_g) in enumerate(zip(gsteps[0], grads64_g)):
+        if got["a1"].any():
+            raise AssertionError(f"directed GAT layer {i}: a1 gradient is "
+                                 "not exactly 0")
+        for key in ("w", "a2"):
+            rel = float(np.linalg.norm(got[key] - want_g[key])
+                        / np.linalg.norm(want_g[key]))
+            log(f"  GAT step-1 d{key}{i} {got[key].shape}: relative "
+                f"Frobenius error vs float64 autograd {rel:.3g}")
+            if not rel <= GRAD_RTOL:
+                raise AssertionError(f"directed GAT layer {i} d{key} off "
+                                     f"float64 by {rel}")
+    log(f"  GAT losses {losses_g}; epoch_s {rep_g['epoch_s']!r}")
+    log(f"  GAT step breakdown (CUDA events, mean of 3): "
+        f"{json.dumps(step_breakdown(trg, data))}")
+    device_split("directed GAT training", lambda: trg.step(data))
+    out["err"] = max(out["err"], check_launches(
+        "directed GAT training pass",
+        record_launches(lambda: gat_train_pass(trg, data))))
+
+    # ---------------------------------------------------------- phase 21
+    log("phase 21: the directed flagship GCN under halo_dtype='bfloat16' "
+        "and compute_dtype='bfloat16' from phase 20's initial weights: "
+        "losses in the reference's bf16 band of the float32 run, exact "
+        "launches, every launch of one step == plain")
+    l32 = np.asarray(rep["loss_history"])
+    for lever in ("halo_dtype", "compute_dtype"):
+        trb = FullBatchTrainer(plan, fin=128, widths=widths, params=p_init,
+                               comm_schedule="a2a", device=dev,
+                               **{lever: "bfloat16"})
+        reset()
+        rep_b = trb.fit(data, epochs=5, warmup=1, verbose=False)
+        c = counts()
+        book(c)
+        agg = steps * (nf + nb)
+        want = ({"fused_wire": agg, "k1": steps * nb} if lever == "halo_dtype"
+                else {"fused_bf16": agg, "k1_bf16": steps * nb})
+        want.update(pack=agg, gen_bwd=steps * nb)
+        l16 = np.asarray(rep_b["loss_history"])
+        band = np.allclose(l16, l32, **BAND_GCN)
+        log(f"  GCN {lever}: launches {json.dumps(c)}, expected "
+            f"{json.dumps(want)}; losses {l16.tolist()} vs float32 "
+            f"{l32.tolist()}: max |gap| {np.abs(l16 - l32).max():.3g}, in "
+            f"the band {BAND_GCN}: {band}; epoch_s {rep_b['epoch_s']!r}")
+        others = {"fused", "fused_wire", "fused_bf16", "k1", "k1_bf16",
+                  "k5"} - set(want)
+        if any(c[key] != v for key, v in want.items()) \
+                or any(c[key] for key in others):
+            raise AssertionError(f"directed GCN {lever}: launch counts "
+                                 "differ from the passes the program runs")
+        if not band or np.array_equal(l16, l32) \
+                or not np.isfinite(l16).all():
+            raise AssertionError(f"directed GCN {lever}: losses outside the "
+                                 "band or equal to float32")
+        out["err"] = max(out["err"], check_launches(
+            f"directed GCN {lever} training pass",
+            record_launches(lambda trb=trb: gcn_train_pass(trb, data))))
+    out.update(plan=plan, data=data, p_init=p_init, params_g=params_g)
+    return out
+
+
+def phase_repeat(fix, dev, asym, widths):
+    """Phase 22: the same training run repeated in one process
+    (``tools/repeat_run.py``'s ``repeat_training``, fresh trainers from
+    the same start): cora2708 GAT a2a (phase 9's configuration, 5 steps)
+    20 times, the directed flagship GCN and GAT (phase 20's, 1 + 5 steps)
+    3 times each.  Each must give exactly one loss history and one weight
+    digest."""
+    from sgcn_tpu_torch.io.datasets import load_npz_dataset
+    from sgcn_tpu_torch.models.gat import params_from_jax as gat_from_numpy
+    from sgcn_tpu_torch.parallel import build_comm_plan
+    from sgcn_tpu_torch.partition import read_partvec
+    from sgcn_tpu_torch.prep import normalize_adjacency
+    from sgcn_tpu_torch.tools.repeat_run import repeat_training
+    from sgcn_tpu_torch.train import FullBatchTrainer, make_train_data
+
+    a, feats, labels = load_npz_dataset(os.path.join(fix, "cora2708.npz"))
+    plan_c = build_comm_plan(normalize_adjacency(a), read_partvec(
+        os.path.join(fix, "cora2708.8.hp")), 8)
+    data_c = make_train_data(plan_c, feats, labels, device=dev)
+    plan, data = asym["plan"], asym["data"]
+    cases = (
+        ("cora2708 GAT a2a (phase 9)", 20, 5, data_c, lambda: FullBatchTrainer(
+            plan_c, fin=1433, widths=[16, 7], model="gat",
+            activation="none", seed=11, comm_schedule="a2a", device=dev)),
+        ("directed flagship GCN", 3, 6, data, lambda: FullBatchTrainer(
+            plan, fin=128, widths=widths, params=asym["p_init"],
+            comm_schedule="a2a", device=dev)),
+        ("directed flagship GAT", 3, 6, data, lambda: FullBatchTrainer(
+            plan, fin=128, widths=widths, model="gat", activation="none",
+            params=gat_from_numpy(asym["params_g"]), comm_schedule="a2a",
+            device=dev)))
+    for name, runs, steps, d, make in cases:
+        t0 = time.perf_counter()
+        rep = repeat_training(make, d, steps, runs)
+        log(f"  {name}: {runs} runs of {steps} steps in "
+            f"{time.perf_counter() - t0:.2f} s: "
+            f"{rep['distinct_loss_histories']} loss history(ies) "
+            f"{[x['count'] for x in rep['loss_histories']]}, "
+            f"{rep['distinct_weight_digests']} weight digest(s) "
+            f"{[x['count'] for x in rep['weight_digests']]}; losses "
+            f"{[float.fromhex(x) for x in rep['loss_histories'][0]['value']]}")
+        if rep["distinct_loss_histories"] != 1 \
+                or rep["distinct_weight_digests"] != 1:
+            raise AssertionError(f"{name}: repeated runs differ: "
+                                 f"{json.dumps(rep)}")
 
 
 def main() -> int:
@@ -2730,7 +3149,7 @@ def main() -> int:
             ("GCN a2a", tr, gcn_train_pass), ("GCN ring", trr, gcn_train_pass),
             ("GAT a2a", trg, gat_train_pass),
             ("GAT ring", trgr, gat_train_pass)):
-        packs, fused = record_exchanges(lambda: run(trainer, data))
+        _fams, packs, fused = record_launches(lambda: run(trainer, data))
         for j, (src, flat, dtype) in enumerate(packs):
             check_pack(src, flat, dtype, f"{name} exchange {j}")
         for j, args in enumerate(fused):
@@ -2742,21 +3161,42 @@ def main() -> int:
         if not packs or (name.startswith("GCN") and not fused):
             raise AssertionError(f"{name}: recorded no exchange")
 
-    # ---------------------------------------------------------- phase 19
+    # ------------------------------------------------------ phases 19-21
+    # K1's float-weight family entries make no launch on the symmetric
+    # paths above (the fused entry runs their chains); the asymmetric
+    # backward launches them (the halo rows' transpose)
+    if any(MAIN_PATH_K1.values()):
+        raise AssertionError(f"K1 family-entry launches on the symmetric "
+                             f"main path: {MAIN_PATH_K1}, expected 0")
+    t0 = time.perf_counter()
+    ahat_d = normalize_adjacency(directed_er_graph(n_f, seed=0))
+    log(f"  directed flagship graph {time.perf_counter() - t0:.2f} s, nnz "
+        f"{ahat_d.nnz}")
+    asym = phase_asymmetric(ahat_d, feats_f, labels_f, pv_f, widths_f, dev,
+                            tb, steps_f, k3b)
+
+    # ---------------------------------------------------------- phase 22
+    log("phase 22: repeated runs in one process (tools/repeat_run.py): "
+        "cora2708 GAT a2a x 20, the directed flagship GCN and GAT x 3; "
+        "exactly one loss history and one weight digest each")
+    phase_repeat(fix, dev, asym, widths_f)
+
+    # ---------------------------------------------------------- phase 23
     fused_main = (launches_c + launches_f + launches_tc + launches_tf
                   + launches_fr + launches_rt + launches_ca + launches_cr
-                  + l15["wire"] + l15["bf16"] + launches_16)
+                  + l15["wire"] + l15["bf16"] + launches_16 + asym["fused"])
     kernels = [{
         # K1's own float32-weight family entry: its launches on the main
-        # path (0 since its two family chains run inside the fused entry,
-        # which counts those launches under tile_spmm_fused); the times
-        # are its own family launches at the flagship layer
+        # path are the asymmetric backward's halo-ᵀ launches (the
+        # symmetric paths run its chains inside the fused entry, which
+        # counts those launches under tile_spmm_fused); the times are its
+        # own family launches at the flagship layer
         "name": "tile_spmm",
         "route": "cuda",
         "source": "sgcn_tpu_torch/csrc/tile_spmm.cu",
         "replaces": "sgcn_tpu/ops/pallas_spmm.py:203",
-        "launches": MAIN_PATH_K1["launches"],
-        "max_abs_err": max(max_err, grad_err, k4_err, k4b_err),
+        "launches": asym["k1"],
+        "max_abs_err": max(max_err, grad_err, k4_err, k4b_err, asym["err"]),
         "ms": layer["ms"],
         "plain_ms": layer["plain_ms"],
         "bound_ms": layer["bound_ms"],
@@ -2783,7 +3223,7 @@ def main() -> int:
         "replaces": "sgcn_tpu/ops/pallas_spmm.py:530-545",
         "launches": (launches_gc + launches_gf + launches_gt + launches_gtc
                      + launches_gfr + launches_grt + launches_gcr
-                     + l17["f32"]),
+                     + l17["f32"] + asym["k5"]),
         "max_abs_err": max(k5_err, err_f, err_b, k5r_err),
         "ms": gat_fwd["ms"],
         "plain_ms": gat_fwd["plain_ms"],
@@ -2841,13 +3281,14 @@ def main() -> int:
         "library_ms": k6["library_ms"],
     }, {
         # K1's own family entry on bf16 tables: its main-path launches
-        # (0: the compute_dtype path runs it inside the fused bf16 entry);
-        # the times are its own family launches at the flagship layer
+        # are the asymmetric compute_dtype backward's (the symmetric
+        # compute_dtype path runs it inside the fused bf16 entry); the
+        # times are its own family launches at the flagship layer
         "name": "tile_spmm_bf16",
         "route": "cuda",
         "source": "sgcn_tpu_torch/csrc/tile_spmm.cu",
         "replaces": "sgcn_tpu/ops/pallas_spmm.py:203",
-        "launches": MAIN_PATH_K1["bf16_launches"],
+        "launches": asym["k1_bf16"],
         "max_abs_err": max(err16["k1"], err15),
         "ms": k1_16["ms"],
         "plain_ms": k1_16["plain_ms"],
@@ -2895,19 +3336,17 @@ def main() -> int:
         "bound_by": k3["fused"]["bound_by"],
         "library_ms": k3["fused"]["library_ms"],
     }]
-    # K1's family entries left the main path with the fused entry: they
-    # must stay off it (0 launches); every other kernel must be on it
-    off_path = ("tile_spmm", "tile_spmm_bf16")
+    # every kernel must be on the main path (K1's family entries through
+    # the asymmetric backward only: asserted 0 on the symmetric paths)
     for kern in kernels:
-        if kern["name"] in off_path:
-            if kern["launches"]:
-                raise AssertionError(f"{kern['name']}: {kern['launches']} "
-                                     "family-entry launches on the main "
-                                     "path, expected 0 (the fused entry "
-                                     "runs its chains)")
-        elif not kern["launches"]:
+        if not kern["launches"]:
             raise AssertionError(f"{kern['name']}: no launch on the main "
                                  "path")
+    op = asym["op"]
+    log("  asymmetric backward aggregation (flagship, f=128; halo-T K1 + "
+        "reverse pack + fused): " + json.dumps(
+            {key: op[key] for key in ("ms", "plain_ms", "bound_ms",
+                                      "bound_by", "library_ms")}))
     log("  launches on the main path per entry: " + json.dumps(
         {kern["name"]: kern["launches"] for kern in kernels}))
     log(f"total {time.perf_counter() - t_start:.1f} s; card: {smi}")

@@ -44,9 +44,19 @@ cannot read packed words.  The port unpacks the received words with a
 ``u`` lane as a float32 one — so it computes the same function, every
 in-edge summed in float32, on the combined-edge tiles it already builds,
 through the kernel's bf16 entry point (the order of each row's sum is the
-tiles', not the ELL buckets').  The ELL path stays ROADMAP item A2.  Not
-ported: the asymmetric ``gat_layer_local`` (A2) and the sub-graph
-stabilizers (A11).
+tiles', not the ELL buckets').  The ELL path stays ROADMAP item A2.
+
+An asymmetric edge pattern (a directed graph; the reference's
+``gat_layer_local``, the factored forward with autodiff as its backward)
+runs ``GatLayerGen``: the same forward, and the symmetric layer's chain
+rules with the aggregation replaced by its transpose
+(``_gat_tiles_aggregate_T``: per exchanged table, K5 over the halo rows'
+transposed masks into the reverse send buffer, the reverse exchange, and
+one fused launch of the local rows' transposed masks plus the owner's sum
+of what came back).  a2a only, as in the reference.  Under
+``compute_dtype='bfloat16'`` this is the packed table's true gradient;
+the reference differentiates through ``_pack_rows``'s bit cast, which
+carries none (ROADMAP C5).  Not ported: the sub-graph stabilizers (A11).
 """
 
 from __future__ import annotations
@@ -58,7 +68,8 @@ import torch
 from torch import nn
 
 from ..ops.pspmm import halo_exchange, narrow_dtype, ring_concat
-from ..ops.tile_spmm import gat_tiles_pass, k5_launches
+from ..ops.tile_spmm import (gat_tiles_pass, k5_launches,
+                             pspmm_tiles_transposed)
 from .activations import get_activation
 
 # plan arrays the tile-kernel GAT forward ships: the reference's
@@ -72,6 +83,14 @@ GAT_PLAN_FIELDS_PALLAS = ("recv_src", "halo_src_flat", "ptile_csrc",
 # rhalo_dst)
 GAT_PLAN_FIELDS_PALLAS_RAGGED = ("ring_src", "ptile_crsrc", "ptile_cld",
                                  "ptile_cw", "row_valid")
+# ... and on an asymmetric plan the a2a flavor's plus the backward's
+# transposed layouts (port only; ``CommPlan.ensure_cell_transpose_tiles``);
+# ptile_tchw ships as int8 (K5's masks), the fused entry's families as
+# float32 0/1 weights
+GAT_PLAN_FIELDS_PALLAS_GEN = GAT_PLAN_FIELDS_PALLAS + (
+    "ptile_tclsrc", "ptile_tclld", "ptile_tclw", "ptile_tchsrc",
+    "ptile_tchld", "ptile_tchw", "ptile_tc1src", "ptile_tc1ld",
+    "ptile_tc1w", "rev_csrc")
 
 # Widest row of the fused one-pass table form.  Structural default
 # MEASURED ON THE TPU (v5e: one 128-lane tile; a 129-lane f32 array doubles
@@ -278,6 +297,38 @@ def _gat_tiles_aggregate(p, s, form, ex_src, halo_src_flat, csrc, cld, cw,
     return num, den
 
 
+def _gat_tiles_aggregate_T(p, s, form, tl, th, t1, rev, tlclasses,
+                           thclasses, t1classes, tb):
+    """The transpose of ``_gat_tiles_aggregate`` for an asymmetric
+    pattern: per owned row j, the masked Σ of ``[p ‖ s]`` over every row
+    that reads j (``Mᵀ·[p ‖ s]``), from the plan's transposed combined
+    layouts (``CommPlan.ensure_cell_transpose_tiles``).  Per exchanged
+    table: K5 over the halo rows' transposed masks (``th``, int8) writes
+    every part's reverse send buffer (float32 partials at the forward wire
+    slots), the reverse exchange ships them back (one row pack), and one
+    fused launch sums, per owned row, the local rows' transposed masks
+    over the table (``tl``) and the weight-1 chain over what came back
+    (``t1``).  ``form='fused'`` ships one ``(fout+1)``-lane table; the
+    split and packed forms two, the features and the scalar (the packed
+    form's bf16 ``p`` widened exactly to float32: the partials and their
+    sums stay float32, as the reference's float32 scatter-adds).  Returns
+    ``(N (k, b, fout), D (k, b))`` float32."""
+    fout = p.shape[2]
+    if form == "fused":
+        tables = [torch.cat([p, s[..., None]], dim=-1)]
+    elif form in ("split", "packed"):
+        tables = [_widened(p), _widened(s)[..., None]]
+    else:
+        raise ValueError(f"the tile GAT pass takes the fused, split and "
+                         f"packed table forms, not {form!r}")
+    outs = [pspmm_tiles_transposed(table.contiguous(), tl, th, t1, rev, tb,
+                                   tlclasses, thclasses, t1classes)
+            for table in tables]
+    if form == "fused":
+        return outs[0][..., :fout], outs[0][..., fout]
+    return outs[0], outs[1][..., 0]
+
+
 def _gat_factored_fwd_core(w, a2, h, ex_src, halo_src_flat, csrc, cld, cw,
                            row_valid, tb, cclasses, form=None,
                            rr_sizes=None):
@@ -357,33 +408,84 @@ class GatLayerSym(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, gbar):
-        (w, a1, a2, h, cg, den, out, ex_src, halo_src_flat, csrc, cld,
-         cw) = ctx.saved_tensors
-        tb, cclasses, form, rr_sizes, dtypes = ctx.static
+        ex_src, halo_src_flat, csrc, cld, cw = ctx.saved_tensors[7:]
+        tb, cclasses, form, rr_sizes, _dtypes = ctx.static
         before = k5_launches()
-        z = h @ w                                    # recomputed
-        fin, fout = w.shape
-        u = torch.exp(_widened(score_project(z, a2)) - cg)
-        dng = torch.clamp(den, min=1e-30)            # the forward's guard
-        dn = gbar / dng[..., None]                   # (k, b, fout)
-        dd = -(gbar * out).sum(dim=-1) / dng         # (k, b)
-        if form == "packed":
-            dn = dn.to(torch.bfloat16)
-        dp, du_agg = _gat_tiles_aggregate(dn, dd, form, ex_src,
-                                          halo_src_flat, csrc, cld, cw, tb,
-                                          cclasses, rr_sizes)
-        # p = u·z, u = exp(z2 − C): chain rules (C is constant a.e.), in
-        # float32 on bf16 operands under mixed precision
-        w, a2, h, z = (_widened(x) for x in (w, a2, h, z))
-        dz2 = u * ((dp * z).sum(dim=-1) + du_agg)
-        dz_total = u[..., None] * dp + dz2[..., None] * a2
-        dh = (dz_total @ w.T).to(dtypes[2]) if ctx.needs_input_grad[3] \
-            else None
-        dw = (h.reshape(-1, fin).T @ dz_total.reshape(-1, fout)) \
-            .to(dtypes[0])
-        da2 = (z.reshape(-1, fout).T @ dz2.reshape(-1)).to(dtypes[1])
+        grads = _gat_layer_grads(
+            ctx, gbar, lambda dn, dd: _gat_tiles_aggregate(
+                dn, dd, form, ex_src, halo_src_flat, csrc, cld, cw, tb,
+                cclasses, rr_sizes))
         GatLayerSym.backward_launches += k5_launches() - before
-        return (dw, torch.zeros_like(a1), da2, dh) + (None,) * 11
+        return grads + (None,) * 11
+
+
+def _gat_layer_grads(ctx, gbar, aggregate):
+    """The GAT layer's chain rules (``GatLayerSym``'s backward) with the
+    aggregation of ``[dn ‖ dd]`` given: ``aggregate(dn, dd)`` returns
+    ``(dp, du)`` — the same passes as the forward for a symmetric
+    pattern, their transpose otherwise.  Returns ``(dw, da1, da2, dh)``."""
+    w, a1, a2, h, cg, den, out = ctx.saved_tensors[:7]
+    form, dtypes = ctx.static[2], ctx.static[4]
+    z = h @ w                                    # recomputed
+    fin, fout = w.shape
+    u = torch.exp(_widened(score_project(z, a2)) - cg)
+    dng = torch.clamp(den, min=1e-30)            # the forward's guard
+    dn = gbar / dng[..., None]                   # (k, b, fout)
+    dd = -(gbar * out).sum(dim=-1) / dng         # (k, b)
+    if form == "packed":
+        dn = dn.to(torch.bfloat16)
+    dp, du_agg = aggregate(dn, dd)
+    # p = u·z, u = exp(z2 − C): chain rules (C is constant a.e.), in
+    # float32 on bf16 operands under mixed precision
+    w, a2, h, z = (_widened(x) for x in (w, a2, h, z))
+    dz2 = u * ((dp * z).sum(dim=-1) + du_agg)
+    dz_total = u[..., None] * dp + dz2[..., None] * a2
+    dh = (dz_total @ w.T).to(dtypes[2]) if ctx.needs_input_grad[3] \
+        else None
+    dw = (h.reshape(-1, fin).T @ dz_total.reshape(-1, fout)) \
+        .to(dtypes[0])
+    da2 = (z.reshape(-1, fout).T @ dz2.reshape(-1)).to(dtypes[1])
+    return dw, torch.zeros_like(a1), da2, dh
+
+
+class GatLayerGen(torch.autograd.Function):
+    """``gat_layer_local`` over stacked parts, for an ASYMMETRIC edge
+    pattern: ``GatLayerSym``'s forward (the factored
+    ``_gat_factored_fwd_core``, a2a) and its chain rules, with the
+    aggregation of ``[ḡ/D ‖ −(ḡ·out)/D]`` replaced by its transpose
+    (``_gat_tiles_aggregate_T`` on the plan's transposed combined
+    layouts, ``transposed = (tl, th, t1, rev_csrc, tlclasses, thclasses,
+    t1classes)``).  The reference lets autodiff transpose its forward
+    (scatter-adds); this is the same gradient as a chain of gathers in
+    stored order, with no float atomics.  Under ``compute_dtype=
+    'bfloat16'`` the packed form's gradient is the true one (the
+    reference's differentiates through a bit cast and drops the feature
+    lanes' share: ROADMAP C5).
+
+    ``GatLayerGen.backward_launches`` counts the K5 launches the backward
+    made (CUDA tensors only); its fused launches count in
+    ``spmm_tiles_fused.launches``."""
+
+    backward_launches = 0
+
+    @staticmethod
+    def forward(ctx, w, a1, a2, h, ex_src, halo_src_flat, csrc, cld, cw,
+                row_valid, tb, cclasses, transposed, form=None,
+                compute_dtype=None):
+        ctx.transposed = transposed
+        return GatLayerSym.forward(ctx, w, a1, a2, h, ex_src, halo_src_flat,
+                                   csrc, cld, cw, row_valid, tb, cclasses,
+                                   form, None, compute_dtype)
+
+    @staticmethod
+    def backward(ctx, gbar):
+        tb, form = ctx.static[0], ctx.static[2]
+        before = k5_launches()
+        grads = _gat_layer_grads(
+            ctx, gbar, lambda dn, dd: _gat_tiles_aggregate_T(
+                dn, dd, form, *ctx.transposed, tb))
+        GatLayerGen.backward_launches += k5_launches() - before
+        return grads + (None,) * 11
 
 
 def gat_forward_local(
@@ -400,6 +502,9 @@ def gat_forward_local(
     comm_schedule: str = "a2a",     # static: 'a2a' or 'ragged' (the ring)
     rr_sizes: tuple | None = None,  # static plan.rr_sizes (ragged)
     compute_dtype: str | None = None,  # 'bfloat16': every layer in bf16
+    pallas_tclclasses: tuple = (),  # static transposed combined classes
+    pallas_tchclasses: tuple = (),  # (asymmetric)
+    pallas_tc1classes: tuple = (),
 ):
     """Stacked forward: L × (``GatLayerSym`` → activation) →
     ``(k, B, nout)`` float32.  The reference stacks bare PGAT layers (no
@@ -407,12 +512,14 @@ def gat_forward_local(
     both directions of every layer ride the ring, bit-identical to the
     a2a flavor.  ``compute_dtype='bfloat16'`` runs every layer in bf16
     (``GatLayerSym``), each on its float32 input cast to bf16 — the
-    reference's cast of ``h`` between layers."""
-    if not symmetric:
-        raise NotImplementedError(
-            "gat_layer_local (asymmetric edge patterns, autodiff through "
-            "the forward) is not ported yet (ROADMAP item A2); the tile "
-            "GAT pass rides the symmetric custom backward")
+    reference's cast of ``h`` between layers.  ``symmetric=False`` (an
+    asymmetric pattern, the reference's ``gat_layer_local``) runs every
+    layer as ``GatLayerGen`` on ``GAT_PLAN_FIELDS_PALLAS_GEN``, a2a only."""
+    if not symmetric and comm_schedule != "a2a":
+        raise ValueError(
+            "comm_schedule='ragged' uses the symmetric custom backward (the "
+            "gradient table rides the same ring); asymmetric plans run the "
+            "a2a schedule")
     if comm_schedule == "ragged":
         if rr_sizes is None:
             raise ValueError("the ragged GAT forward needs the plan's "
@@ -427,11 +534,22 @@ def gat_forward_local(
     act = get_activation(activation)
     fact = get_activation(final_activation)
     nl = len(params)
+    if not symmetric:
+        transposed = (
+            tuple(pa[f"ptile_tcl{x}"] for x in ("src", "ld", "w")),
+            tuple(pa[f"ptile_tch{x}"] for x in ("src", "ld", "w")),
+            tuple(pa[f"ptile_tc1{x}"] for x in ("src", "ld", "w")),
+            pa["rev_csrc"], pallas_tclclasses, pallas_tchclasses,
+            pallas_tc1classes)
     for i, p in enumerate(params):
-        h = GatLayerSym.apply(
-            p["w"], p["a1"], p["a2"], h, *ex, pa["ptile_cld"],
-            pa["ptile_cw"], pa["row_valid"], pallas_tb, pallas_cclasses,
-            None, rr_sizes, compute_dtype)
+        plan_args = (p["w"], p["a1"], p["a2"], h, *ex, pa["ptile_cld"],
+                     pa["ptile_cw"], pa["row_valid"], pallas_tb,
+                     pallas_cclasses)
+        if symmetric:
+            h = GatLayerSym.apply(*plan_args, None, rr_sizes, compute_dtype)
+        else:
+            h = GatLayerGen.apply(*plan_args, transposed, None,
+                                  compute_dtype)
         h = fact(h) if i == nl - 1 else act(h)
     return h
 

@@ -2,7 +2,8 @@
 losses.
 
 Port of the tile-kernel branches of ``sgcn_tpu/models/gcn.py``
-(``gcn_forward_local``, over the dense a2a exchange or the ragged ring),
+(``gcn_forward_local``, over the dense a2a exchange or the ragged ring,
+and on an asymmetric Â the ``pspmm_overlap`` branch, a2a only),
 run over all ``k`` parts stacked on a leading axis: per layer, halo
 exchange → tile SpMM → dense projection → activation, with the
 reference's project-first layer order.  Weights keep
@@ -24,7 +25,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.pspmm import narrow_dtype
-from ..ops.tile_spmm import pspmm_tiles_ragged, pspmm_tiles_sym
+from ..ops.tile_spmm import (pspmm_tiles_gen, pspmm_tiles_ragged,
+                              pspmm_tiles_sym)
 from .activations import get_activation
 
 # Minimum input width (f32 elements) for the project-before-aggregate
@@ -90,6 +92,11 @@ def gcn_forward_local(
     halo_dtype: str | None = None,  # wire-only exchange dtype ('bfloat16')
     compute_dtype: str | None = None,  # the forward's dtype ('bfloat16'):
                                     # the weights and h are cast to it
+    symmetric: bool = True,         # static: False for an asymmetric Â
+                                    # (TILE_PLAN_FIELDS_GEN)
+    pallas_tlclasses: tuple = (),   # static transposed classes (asymmetric)
+    pallas_thclasses: tuple = (),
+    pallas_t1classes: tuple = (),
 ):
     """Stacked forward: L × (tile pspmm ⊗ dense matmul → activation) →
     ``(k, B, nout)``.  A wide input narrowed by the layer is projected
@@ -113,7 +120,18 @@ def gcn_forward_local(
         params = [w.to(dt) for w in params]
         h = h.to(dt)
 
-    if comm_schedule == "ragged":
+    if not symmetric:
+        if comm_schedule != "a2a":
+            raise ValueError(
+                "comm_schedule='ragged' uses the symmetric custom backward "
+                "(the gradient rides the same ring); asymmetric plans run "
+                "the a2a schedule")
+        tclasses = (pallas_tlclasses, pallas_thclasses, pallas_t1classes)
+
+        def agg(x):
+            return pspmm_tiles_gen(x, pa, pallas_tb, pallas_lclasses,
+                                   pallas_hclasses, tclasses, halo_dtype)
+    elif comm_schedule == "ragged":
         if rr_sizes is None:
             raise ValueError("the ragged GCN forward needs the plan's "
                              "static rr_sizes (CommPlan.ensure_ragged)")

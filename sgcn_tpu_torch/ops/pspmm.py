@@ -22,8 +22,14 @@ here are the one place that knows the layout: under one process per GPU
 takes the place of the stacked layout's transpose, and the ring's rounds
 become ``batch_isend_irecv``; nothing else changes.
 
-Both take the reference's ``halo_dtype``, a narrower dtype for the WIRE
-only: the pack rounds each row to it as it stores it, so the receive
+An asymmetric Â (a directed graph) sends each aggregation's backward the
+other way: every part's halo rows' partial gradients, laid out in its
+forward receive layout, go back to their owners — ``reverse_exchange``,
+one row pack by the plan's ``rev_src`` (the transpose of ``recv_src``);
+under NCCL ranks it is the reverse ``all_to_all_single`` of the forward's.
+
+The functions take the reference's ``halo_dtype``, a narrower dtype for
+the WIRE only: the pack rounds each row to it as it stores it, so the receive
 buffer and the ring concat hold half the bytes under ``'bfloat16'``; the
 tile kernel reads them in place and widens each value exactly, which is
 the reference's upcast of the received rows.
@@ -71,6 +77,30 @@ def exchange_recv(h, recv_src, halo_dtype=None):
     halo tiles of the GCN aggregation read it in place (``ptile_hwsrc``);
     slots past a send list's length hold row 0 of the sender."""
     return row_pack(h.contiguous(), recv_src, _wire(h, halo_dtype))
+
+
+def reverse_exchange(send_rev, rev_src, halo_dtype=None, dtype=None):
+    """The backward's exchange of an asymmetric Â: every part's reverse
+    send buffer — its halo rows' partials in its forward receive layout —
+    goes back to the owners, ``rwire[p, q·S + t] = send_rev[q, p·S + t]``:
+    one row pack.
+
+    Args:
+      send_rev: ``(k, rows, f)`` float32, the halo-ᵀ launch's output
+        (slot ``q·S + t`` of part ``p`` holds the partial for row
+        ``send_idx[q, p, t]`` of part ``q``; ``rows`` ≥ ``k·S``).
+      rev_src: ``(k, k·S)`` int32, the plan's ``rev_src``
+        (``CommPlan.ensure_transpose_tiles``).
+      halo_dtype: the wire's dtype (``'bfloat16'``): the pack narrows the
+        partials in its store — the rounding point of the reference's
+        transpose of the halo rows' upcast (``sgcn_tpu/ops/pspmm.py:135-
+        139``); the owner's sum over them stays float32.
+      dtype: the wire's dtype without ``halo_dtype`` (the backward table's,
+        bf16 under ``compute_dtype``); default ``send_rev``'s.
+
+    Returns ``(k, k·S, f)`` in the wire's dtype."""
+    return row_pack(send_rev.contiguous(), rev_src,
+                    narrow_dtype(halo_dtype) or dtype or send_rev.dtype)
 
 
 def halo_exchange(h, recv_src, halo_src_flat, halo_dtype=None):

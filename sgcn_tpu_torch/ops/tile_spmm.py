@@ -31,6 +31,14 @@ holds, in the reference's order:
     receive buffer (one row pack, ``ops/pspmm.py::exchange_recv``), then
     the fused launch; the backward is the same op on the gradient (Â is
     symmetric);
+  * ``pspmm_tiles_gen`` — the same forward on an asymmetric Â (the
+    reference's ``pspmm_overlap``, whose backward is XLA's transpose) as
+    ``PspmmTilesGen``: its backward runs Âᵀ as tile SpMMs over the plan's
+    transposed layouts — one family launch of the halo rows' Âᵀ into each
+    part's reverse send buffer, the reverse exchange (one row pack), then
+    one fused launch of the local rows' Âᵀ over the gradient and the
+    weight-1 owner sum over what came back: no scatter-add, no float
+    atomics;
   * ``pspmm_tiles_ragged`` — ``pspmm_pallas_ragged`` (K4) with its custom
     VJP as ``PspmmTilesRagged``: the same op on the ragged ring, the
     fused launch over the local table and the ring's receive concat
@@ -70,7 +78,7 @@ import ctypes
 import numpy as np
 import torch
 
-from .pspmm import exchange_recv, ring_concat
+from .pspmm import exchange_recv, reverse_exchange, ring_concat
 
 
 # ----------------------------------------------------------- tile builders
@@ -581,6 +589,11 @@ TILE_KERNEL = "tile_spmm"
 # tiles re-based into the receive buffer (``ptile_hwsrc`` for ptile_hsrc)
 TILE_PLAN_FIELDS = ("recv_src", "ptile_lsrc", "ptile_lld", "ptile_lw",
                     "ptile_hwsrc", "ptile_hld", "ptile_hw")
+# ... and on an asymmetric plan the a2a flavor's plus the backward's
+# transposed layouts (port only; ``CommPlan.ensure_transpose_tiles``)
+TILE_PLAN_FIELDS_GEN = TILE_PLAN_FIELDS + (
+    "ptile_tlsrc", "ptile_tlld", "ptile_tlw", "ptile_thsrc", "ptile_thld",
+    "ptile_thw", "ptile_t1src", "ptile_t1ld", "ptile_t1w", "rev_src")
 # ... and the ragged flavor's (PALLAS_PLAN_FIELDS_RAGGED, with the ring
 # concat's flat sources ``ring_src`` for rsend_idx): the halo tiles read
 # ring positions
@@ -602,9 +615,12 @@ def choose_tile_dispatch(plan, tb: int = 256, decision: dict | None = None,
     combined-edge family (``pallas_cclasses``); ``schedule='ragged'``
     also builds the ring layout and the ring-re-based halo sources
     (``ptile_hrsrc``/``ptile_crsrc``) and adds the ring's static
-    ``comm_schedule``/``rr_sizes`` to the returned forward kwargs.
-    Fills ``decision['tile_dispatch']`` with the per-class table.  Every
-    class runs the CUDA kernel (on CPU tensors its plain version): the
+    ``comm_schedule``/``rr_sizes`` to the returned forward kwargs.  An
+    asymmetric plan also builds the backward's transposed layouts and
+    adds ``symmetric=False`` and their classes (``pallas_t{l,h,1}classes``
+    for GCN, ``pallas_tc{l,h,1}classes`` for GAT).  Fills
+    ``decision['tile_dispatch']`` with the per-class table.  Every class
+    runs the CUDA kernel (on CPU tensors its plain version): the
     reference's TPU-measured class rules are recorded as not carried."""
     not_carried = {
         "vmem_budget": "pallas_spmm_fits 4 MiB is a TPU VMEM residency "
@@ -625,6 +641,19 @@ def choose_tile_dispatch(plan, tb: int = 256, decision: dict | None = None,
         plan.ensure_ragged()
     else:
         plan.ensure_exchange()
+    if not plan.symmetric:
+        # an asymmetric Â: the backward runs on the transposed layouts
+        out["symmetric"] = False
+        if model == "gat":
+            plan.ensure_cell_transpose_tiles(tb)
+        else:
+            plan.ensure_transpose_tiles(tb)
+        pre = "pallas_tc" if model == "gat" else "pallas_t"
+        for fam in ("l", "h", "1"):
+            out[f"{pre}{fam}classes"] = tuple(
+                (t, e, TILE_KERNEL)
+                for t, e in getattr(plan, f"{pre}{fam}classes"))
+            log[f"transpose_{fam}"] = _classes_log(out[f"{pre}{fam}classes"])
     if model == "gat":
         plan.ensure_pallas_cell_tiles(tb)
         if schedule == "ragged":
@@ -710,6 +739,76 @@ def pspmm_tiles_sym(h, recv_src, lsrc, lld, lw, hwsrc, hld, hw, tb: int,
     the op on the gradient."""
     return PspmmTilesSym.apply(h, recv_src, lsrc, lld, lw, hwsrc, hld, hw,
                                tb, lclasses, hclasses, halo_dtype)
+
+
+def pspmm_tiles_transposed(g, tl, th, t1, rev_src, tb, tlclasses,
+                            thclasses, t1classes, halo_dtype=None):
+    """Âᵀ·g of an asymmetric Â over stacked parts, from the plan's
+    transposed layouts (``CommPlan.ensure_transpose_tiles``; GAT's
+    ``ensure_cell_transpose_tiles``, whose ``th`` weights are int8 masks:
+    its family launch is then K5): one family launch of the halo rows'
+    Âᵀ (``th``) over ``g`` writes every part's reverse send buffer (its
+    halo rows' partials at their forward wire slots, float32), one row
+    pack ships them back (``ops/pspmm.py::reverse_exchange``, narrowed to
+    ``halo_dtype`` — or to ``g``'s bf16 — in its store), then one fused
+    launch runs, per owned row, the local rows' Âᵀ chain over ``g``
+    (``tl``) and the weight-1 chain over the partials that came back
+    (``t1``, in q order), adds them in float32 and stores once in ``g``'s
+    dtype.  Every element is one serial chain in stored slot order."""
+    send_rev = spmm_tiles_classes(*th, g, thclasses, tb)
+    rwire = reverse_exchange(send_rev, rev_src, halo_dtype, g.dtype)
+    return spmm_tiles_fused(tl, g, t1, rwire, tlclasses, t1classes, tb)
+
+
+class PspmmTilesGen(torch.autograd.Function):
+    """``PspmmTilesSym`` for an asymmetric Â (a directed graph; the
+    reference's ``pspmm_overlap``, whose backward is XLA's transpose):
+    the same forward (``_pspmm_tiles_once``), and a backward that runs
+    Âᵀ on the plan's transposed layouts (``pspmm_tiles_transposed``): one
+    family launch (halo-ᵀ), one row pack (the reverse exchange) and one
+    fused launch (local-ᵀ + the owner sum) per aggregation.  Plan tensors
+    get no gradient.
+
+    ``PspmmTilesGen.backward_launches`` counts the fused launches the
+    backward made (CUDA tensors only); its family launches count in
+    ``spmm_tiles.launches`` (``.bf16_launches`` on a bf16 gradient).
+    ``halo_dtype`` narrows both directions' wire."""
+
+    backward_launches = 0
+
+    @staticmethod
+    def forward(ctx, h, recv_src, lsrc, lld, lw, hwsrc, hld, hw, tb,
+                lclasses, hclasses, transposed, halo_dtype=None):
+        ctx.transposed = transposed
+        ctx.static = (tb, halo_dtype)
+        return _pspmm_tiles_once(h, recv_src, lsrc, lld, lw, hwsrc, hld, hw,
+                                 tb, lclasses, hclasses, halo_dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        tb, halo_dtype = ctx.static
+        before = fused_launches()
+        gh = pspmm_tiles_transposed(g.contiguous(), *ctx.transposed[:4],
+                                     tb, *ctx.transposed[4:], halo_dtype)
+        PspmmTilesGen.backward_launches += fused_launches() - before
+        return (gh,) + (None,) * 12
+
+
+def pspmm_tiles_gen(h, pa, tb: int, lclasses, hclasses, tclasses,
+                    halo_dtype=None):
+    """Â·h over stacked parts for an asymmetric Â (``PspmmTilesGen``).
+    ``pa``: the plan tensors of ``TILE_PLAN_FIELDS_GEN``; ``tclasses``:
+    the transposed families' classes ``(tl, th, t1)``.  Returns ``(k, b,
+    f)`` in ``h``'s dtype; differentiable in ``h`` (Âᵀ on the gradient)."""
+    transposed = (
+        tuple(pa[f"ptile_tl{x}"] for x in ("src", "ld", "w")),
+        tuple(pa[f"ptile_th{x}"] for x in ("src", "ld", "w")),
+        tuple(pa[f"ptile_t1{x}"] for x in ("src", "ld", "w")),
+        pa["rev_src"], *tclasses)
+    return PspmmTilesGen.apply(
+        h, pa["recv_src"], pa["ptile_lsrc"], pa["ptile_lld"], pa["ptile_lw"],
+        pa["ptile_hwsrc"], pa["ptile_hld"], pa["ptile_hw"], tb, lclasses,
+        hclasses, transposed, halo_dtype)
 
 
 def _pspmm_tiles_ragged_once(h, ring_src, lsrc, lld, lw, rsrc, rld, rw,

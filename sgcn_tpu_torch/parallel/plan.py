@@ -38,7 +38,18 @@ array (``tests/test_torch_plan.py``):
     layout's flat sources (``recv_src``, ``halo_src_flat``),
     ``ensure_ragged`` the ring concat's (``ring_src``), and
     ``ensure_pallas_tiles`` re-bases the halo tiles to positions in the
-    a2a receive buffer (``ptile_hwsrc``), so they read it in place.
+    a2a receive buffer (``ptile_hwsrc``), so they read it in place;
+  * for an asymmetric Â (a directed graph), the transposed layouts the
+    backward aggregation runs on (port only; the reference lets autodiff
+    transpose its gathers into scatter-adds): ``ensure_transpose_tiles``
+    builds, for GCN, the local rows' ``Â_localᵀ`` tiles (``ptile_tl*``),
+    the halo rows' ``Â_haloᵀ`` tiles whose destinations are the forward's
+    wire slots (``ptile_th*``: the launch writes each part's reverse send
+    buffer), the reverse exchange's flat sources (``rev_src``) and the
+    weight-1 tiles that sum, for each owned row, the partials the other
+    parts sent back (``ptile_t1*``); ``ensure_cell_transpose_tiles`` the
+    same over the combined-edge 0/1 masks for GAT (``ptile_tc*``,
+    ``rev_csrc``).
 
 Not ported: the forced ring envelope and the per-round edge split
 (``rr_edge_sizes``, ``redge_*``), and the replica and stale layouts.
@@ -183,6 +194,46 @@ class CommPlan:
     recv_src: np.ndarray | None = None     # (k, k·S) int32 flat p·B + i
     halo_src_flat: np.ndarray | None = None  # (k, R) int32 q·k·S +
     #                                          halo_src[q, r]
+
+    # transposed layouts of an asymmetric Â (lazy, ``ensure_transpose_tiles``
+    # / ``ensure_cell_transpose_tiles``; port only), each a tile family in
+    # the ``ptile_*`` form: ``tl`` the local rows' Âᵀ (dst own row j, src
+    # own row i, for every local edge i←j), ``th`` the halo rows' Âᵀ (dst
+    # the forward wire slot q·S + t in [0, k·S), src own row i) and ``t1``
+    # the weight-1 sum over the reverse wire (dst own row j, src q·S + t
+    # for every send_idx[p, q, t] = j); ``tl`` and ``t1`` share their tile
+    # classes (the fused entry runs both).  ``tc*`` are GAT's, over the
+    # combined-edge 0/1 masks
+    pallas_ttb: int | None = None          # static tile height
+    pallas_tlclasses: tuple | None = None  # ((T_c, Emax_c), ...) each
+    pallas_thclasses: tuple | None = None
+    pallas_t1classes: tuple | None = None
+    ptile_tlsrc: np.ndarray | None = None  # (k, ·) int32 / int32 / float32
+    ptile_tlld: np.ndarray | None = None
+    ptile_tlw: np.ndarray | None = None
+    ptile_thsrc: np.ndarray | None = None
+    ptile_thld: np.ndarray | None = None
+    ptile_thw: np.ndarray | None = None
+    ptile_t1src: np.ndarray | None = None
+    ptile_t1ld: np.ndarray | None = None
+    ptile_t1w: np.ndarray | None = None
+    rev_src: np.ndarray | None = None      # (k, k·S) int32: rwire[p, q·S +
+    #                                        t] = send_rev[q, p·S + t], flat
+    #                                        q·rows + p·S + t
+    pallas_tctb: int | None = None
+    pallas_tclclasses: tuple | None = None
+    pallas_tchclasses: tuple | None = None
+    pallas_tc1classes: tuple | None = None
+    ptile_tclsrc: np.ndarray | None = None
+    ptile_tclld: np.ndarray | None = None
+    ptile_tclw: np.ndarray | None = None
+    ptile_tchsrc: np.ndarray | None = None
+    ptile_tchld: np.ndarray | None = None
+    ptile_tchw: np.ndarray | None = None
+    ptile_tc1src: np.ndarray | None = None
+    ptile_tc1ld: np.ndarray | None = None
+    ptile_tc1w: np.ndarray | None = None
+    rev_csrc: np.ndarray | None = None
 
     def _pallas_family(self, dst, src, w, tb: int, class_tiles):
         """Stack one edge family's per-part tile classes into flat
@@ -349,6 +400,130 @@ class CommPlan:
             out.append(np.where(halo, self.b + pos[p][np.where(
                 halo, src - self.b, 0)], src))
         self.ptile_crsrc = np.stack(out).astype(np.int32)
+        return self
+
+    # ---------------------------------------- transposed (asymmetric Â)
+    def _wire_sum_edges(self):
+        """Per part the weight-1 edges of the reverse exchange's owner sum:
+        owned row j reads ``q·S + t`` of its reverse wire for every
+        ``send_idx[p, q, t] = j`` (t below ``send_counts[p, q]``), in q
+        order — ``(dst, src, w)`` lists, dst-sorted."""
+        out = []
+        for p in range(self.k):
+            d, s0 = [], []
+            for q in range(self.k):
+                cnt = int(self.send_counts[p, q])
+                d.append(np.asarray(self.send_idx[p, q, :cnt], np.int64))
+                s0.append(q * self.s + np.arange(cnt, dtype=np.int64))
+            d, s0 = np.concatenate(d), np.concatenate(s0)
+            o = np.argsort(d, kind="stable")
+            out.append((d[o], s0[o], np.ones(len(d), np.float32)))
+        return out
+
+    def _transpose_families(self, local, halo, tb: int):
+        """Tile the three transposed families of one model: ``local`` and
+        ``halo`` per part ``(dst, src, w)`` of the forward's local-source
+        edges (src an own row) and halo-source edges (src a halo rank).
+        Returns ``(tl, th, t1, rev_src)``, each family ``(src, ld, w,
+        classes)``: the local-ᵀ and weight-1 families over the ``B`` owned
+        rows on shared tile classes, the halo-ᵀ family over the ``k·S``
+        wire slots, and the reverse pack's flat sources into the halo-ᵀ
+        launch's ``(k, T·tb)`` output."""
+        from ..ops.tile_spmm import tile_classes_from_buckets
+
+        k, b, s = self.k, self.b, self.s
+        tl, th = [], []
+        for p in range(k):
+            d, s0, w = local[p]
+            o = np.argsort(s0, kind="stable")      # by the transposed dst
+            tl.append((s0[o], d[o], w[o]))
+            d, s0, w = halo[p]
+            slot = np.asarray(self.halo_src[p], np.int64)[s0]
+            o = np.argsort(slot, kind="stable")
+            th.append((slot[o], d[o], w[o]))
+        t1 = self._wire_sum_edges()
+
+        def classes(fams, rows):
+            # per destination row the most slots any part gives it, summed
+            # over the families that share the classes
+            prof = sum(np.max([np.bincount(x[0], minlength=rows)
+                               for x in fam], axis=0) for fam in fams)
+            return tile_classes_from_buckets(_choose_buckets(prof), rows, tb)
+
+        def family(fam, cls):
+            return self._pallas_family([x[0] for x in fam],
+                                       [x[1] for x in fam],
+                                       [x[2] for x in fam], tb, cls)
+
+        own = classes((tl, t1), b)
+        fl, f1 = family(tl, own), family(t1, own)
+        fh = family(th, classes((th,), k * s))
+        rows = int(sum(t for t, _e in fh[3])) * tb
+        if k * rows >= 2 ** 31:
+            raise ValueError(f"stacked reverse exchange of k={k} parts of "
+                             f"{rows} rows overflows int32 row indices")
+        q = np.arange(k, dtype=np.int64)[None, :, None]
+        p = np.arange(k, dtype=np.int64)[:, None, None]
+        t = np.arange(s, dtype=np.int64)[None, None, :]
+        rev = (q * rows + p * s + t).reshape(k, k * s).astype(np.int32)
+        return fl, fh, f1, rev
+
+    def ensure_transpose_tiles(self, tb: int = 256) -> "CommPlan":
+        """Build the GCN backward's transposed layouts of an asymmetric Â
+        on first use (port only): ``ptile_tl*`` (``Â_localᵀ``: the forward's
+        local edges i←j as j←i, in a stable sort of ``ledge_*`` by source),
+        ``ptile_th*`` (``Â_haloᵀ``: each halo edge's destination is the
+        forward wire slot ``halo_src[p, r]`` of the halo row it reads, so
+        one launch writes each part's ``(k·S, f)`` reverse send buffer;
+        slots no edge reaches come out 0), ``rev_src`` (the a2a transpose
+        as one flat gather: ``rwire[p, q·S + t] = send_rev[q, p·S + t]``)
+        and ``ptile_t1*`` (weight 1.0: owned row j sums the partials
+        ``q·S + t`` with ``send_idx[p, q, t] = j``, in q order), with
+        their class tuples.  Each output element of the backward is then
+        one serial chain: no scatter, no float atomics."""
+        if self.pallas_ttb == tb and self.ptile_tlsrc is not None:
+            return self
+        local, halo = [], []
+        for p in range(self.k):
+            lc, hc = int(self.lnnz[p]), int(self.hnnz[p])
+            local.append((self.ledge_dst[p, :lc], self.ledge_src[p, :lc],
+                          self.ledge_w[p, :lc]))
+            halo.append((self.hedge_dst[p, :hc], self.hedge_src[p, :hc],
+                         self.hedge_w[p, :hc]))
+        fl, fh, f1, self.rev_src = self._transpose_families(local, halo, tb)
+        (self.ptile_tlsrc, self.ptile_tlld, self.ptile_tlw,
+         self.pallas_tlclasses) = fl
+        (self.ptile_thsrc, self.ptile_thld, self.ptile_thw,
+         self.pallas_thclasses) = fh
+        (self.ptile_t1src, self.ptile_t1ld, self.ptile_t1w,
+         self.pallas_t1classes) = f1
+        self.pallas_ttb = tb
+        return self
+
+    def ensure_cell_transpose_tiles(self, tb: int = 256) -> "CommPlan":
+        """``ensure_transpose_tiles`` for GAT (port only): the same three
+        families over the combined edge list's 0/1 masks (``edge_w !=
+        0``), local sources (``< B``) and halo sources (``≥ B``) taken in
+        the combined list's order — ``ptile_tcl*``, ``ptile_tch*``,
+        ``ptile_tc1*``, ``rev_csrc``."""
+        if self.pallas_tctb == tb and self.ptile_tclsrc is not None:
+            return self
+        local, halo = [], []
+        for p in range(self.k):
+            c = int(self.nnz[p])
+            d, s0 = self.edge_dst[p, :c], self.edge_src[p, :c]
+            w = (self.edge_w[p, :c] != 0).astype(np.float32)
+            lm = s0 < self.b
+            local.append((d[lm], s0[lm], w[lm]))
+            halo.append((d[~lm], s0[~lm] - self.b, w[~lm]))
+        fl, fh, f1, self.rev_csrc = self._transpose_families(local, halo, tb)
+        (self.ptile_tclsrc, self.ptile_tclld, self.ptile_tclw,
+         self.pallas_tclclasses) = fl
+        (self.ptile_tchsrc, self.ptile_tchld, self.ptile_tchw,
+         self.pallas_tchclasses) = fh
+        (self.ptile_tc1src, self.ptile_tc1ld, self.ptile_tc1w,
+         self.pallas_tc1classes) = f1
+        self.pallas_tctb = tb
         return self
 
     # -------------------------------------------------------- ragged schedule

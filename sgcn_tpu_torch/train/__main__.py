@@ -29,9 +29,10 @@ import json
 import sys
 
 
-def main(argv=None) -> None:
-    p = argparse.ArgumentParser(
-        description="sgcn_tpu_torch partitioned full-batch trainer")
+def build_parser(description: str = "sgcn_tpu_torch partitioned full-batch "
+                 "trainer") -> argparse.ArgumentParser:
+    """The trainer's flags (``tools/repeat_run.py`` adds its own)."""
+    p = argparse.ArgumentParser(description=description)
     p.add_argument("-a", "--adjacency", default=None,
                    help=".mtx adjacency (or use --npz)")
     p.add_argument("-p", "--partvec", required=True,
@@ -84,45 +85,20 @@ def main(argv=None) -> None:
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="where training runs (default cuda; no CPU "
                         "fallback)")
-    args = p.parse_args(argv)
+    return p
 
-    # pure flag conflicts fail before any dataset load (the reference's
-    # guards, with its words)
-    if args.halo_dtype and (args.model != "gcn"
-                            or args.experiment == "accuracy"
-                            or args.dtype):
-        raise SystemExit(
-            "--halo-dtype narrows the full-batch GCN exchange only (the "
-            "mini-batch trainer and GAT narrow via --dtype bfloat16; the "
-            "accuracy-parity harness is defined for the f32-wire config; "
-            "under --dtype bfloat16 the wire is already bf16, so the flag "
-            "would be a silent no-op)")
-    if args.comm_schedule == "ragged" and args.experiment == "accuracy":
-        raise SystemExit(
-            "--comm-schedule ragged: the accuracy-parity harness is "
-            "defined for the default transport — drop the conflicting "
-            "flag or use --comm-schedule auto")
 
-    if args.experiment == "accuracy" and (
-            args.model != "gcn" or args.loss != "xent" or args.dtype
-            or (args.activation or "relu") != "relu"):
-        raise SystemExit(
-            "--experiment accuracy compares against the dense GCN oracle "
-            "and supports only --model gcn --loss xent --activation relu "
-            "(f32); drop the conflicting flags")
+def load_inputs(args):
+    """The run's inputs from the parsed flags: ``(a, features, labels,
+    part vector, k, fin, widths)`` — the adjacency normalized under
+    ``--normalize``, synthetic features and labels where the input has
+    none."""
     import numpy as np
 
     from ..io.mtx import read_dense_features, read_mtx, read_onehot_labels
-    from ..parallel.plan import build_comm_plan
     from ..partition.emit import read_partvec, read_partvec_pickle
     from ..prep.normalize import normalize_adjacency
-    from ..utils.backend import resolve_device
-    from .fullbatch import MODELS, FullBatchTrainer, make_train_data
 
-    # the model's own inter-layer activation unless one is asked for
-    activation = args.activation or MODELS[args.model].activation
-
-    device = resolve_device(args.device)
     feats = labels = None
     if args.npz:
         from ..io.datasets import load_npz_dataset
@@ -163,6 +139,45 @@ def main(argv=None) -> None:
 
     hidden = args.hidden or f
     widths = [hidden] * (args.nlayers - 1) + [nclasses]
+    return a, feats, labels, pv, k, f, widths
+
+
+def main(argv=None) -> None:
+    args = build_parser().parse_args(argv)
+
+    # pure flag conflicts fail before any dataset load (the reference's
+    # guards, with its words)
+    if args.halo_dtype and (args.model != "gcn"
+                            or args.experiment == "accuracy"
+                            or args.dtype):
+        raise SystemExit(
+            "--halo-dtype narrows the full-batch GCN exchange only (the "
+            "mini-batch trainer and GAT narrow via --dtype bfloat16; the "
+            "accuracy-parity harness is defined for the f32-wire config; "
+            "under --dtype bfloat16 the wire is already bf16, so the flag "
+            "would be a silent no-op)")
+    if args.comm_schedule == "ragged" and args.experiment == "accuracy":
+        raise SystemExit(
+            "--comm-schedule ragged: the accuracy-parity harness is "
+            "defined for the default transport — drop the conflicting "
+            "flag or use --comm-schedule auto")
+
+    if args.experiment == "accuracy" and (
+            args.model != "gcn" or args.loss != "xent" or args.dtype
+            or (args.activation or "relu") != "relu"):
+        raise SystemExit(
+            "--experiment accuracy compares against the dense GCN oracle "
+            "and supports only --model gcn --loss xent --activation relu "
+            "(f32); drop the conflicting flags")
+    from ..parallel.plan import build_comm_plan
+    from ..utils.backend import resolve_device
+    from .fullbatch import MODELS, FullBatchTrainer, make_train_data
+
+    # the model's own inter-layer activation unless one is asked for
+    activation = args.activation or MODELS[args.model].activation
+
+    device = resolve_device(args.device)
+    a, feats, labels, pv, k, f, widths = load_inputs(args)
 
     if args.experiment == "accuracy":
         from ..io.datasets import planetoid_split

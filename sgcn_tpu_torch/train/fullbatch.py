@@ -7,16 +7,19 @@ models on both transports: GCN over the local and halo tile families, GAT
 over the combined-edge family with its int8 0/1 mask tiles, over the
 dense a2a exchange or the ragged ring (``comm_schedule``: ``a2a``,
 ``ragged``, ``auto`` or ``None`` for ``$SGCN_COMM_SCHEDULE``, resolved by
-``parallel/plan.py::resolve_comm_schedule``).  What the reference
-resolves beyond it raises a clear "not ported yet" error: asymmetric
-plans (``pspmm_overlap``, ``gat_layer_local``).
+``parallel/plan.py::resolve_comm_schedule``).  An asymmetric plan (a
+directed graph: the reference's ``pspmm_overlap`` and
+``gat_layer_local``) runs the a2a exchange with the backward on the
+plan's transposed layouts; the ring raises on it, as in the reference.
 
 ``FullBatchTrainer`` is the reference's exact trainer over the ``k``
 parts stacked on one device: per step the L-layer forward (exchange →
 tile SpMM → projection → activation for GCN; the factored attention layer
 for GAT), the masked loss, autograd's backward (each aggregation's
 backward re-runs the kernel on the gradient: ``ops/tile_spmm.py::
-PspmmTilesSym``/``PspmmTilesRagged``, ``models/gat.py::GatLayerSym``)
+PspmmTilesSym``/``PspmmTilesRagged``, ``models/gat.py::GatLayerSym``;
+on an asymmetric plan ``PspmmTilesGen``/``GatLayerGen`` run Âᵀ on the
+transposed layouts)
 and Adam.  Its two precision levers are the reference's:
 ``compute_dtype='bfloat16'`` (float32 master weights, the forward and
 backward in bf16, the loss on float32 logits) and ``halo_dtype='bfloat16'``
@@ -35,6 +38,7 @@ import numpy as np
 import torch
 
 from ..models.gat import (GAT, GAT_PLAN_FIELDS_PALLAS,
+                          GAT_PLAN_FIELDS_PALLAS_GEN,
                           GAT_PLAN_FIELDS_PALLAS_RAGGED,
                           gat_exchange_lane_widths, init_gat_params)
 from ..models.gcn import (GCN, exchange_widths, init_gcn_params,
@@ -42,8 +46,8 @@ from ..models.gcn import (GCN, exchange_widths, init_gcn_params,
                           masked_err_local, masked_sigmoid_bce_local,
                           masked_softmax_xent_local)
 from ..ops.pspmm import narrow_dtype
-from ..ops.tile_spmm import (TILE_PLAN_FIELDS, TILE_PLAN_FIELDS_RAGGED,
-                             choose_tile_dispatch)
+from ..ops.tile_spmm import (TILE_PLAN_FIELDS, TILE_PLAN_FIELDS_GEN,
+                             TILE_PLAN_FIELDS_RAGGED, choose_tile_dispatch)
 from ..parallel.plan import resolve_comm_schedule
 from ..utils.backend import resolve_device, synchronize
 from ..utils.stats import CommStats
@@ -57,6 +61,9 @@ class ModelSpec(NamedTuple):
     module: type                  # nn.Module over the stacked forward
     plan_fields: tuple            # CommPlan array fields the a2a forward
     plan_fields_ragged: tuple     # ... and the ragged forward read
+    plan_fields_gen: tuple        # ... and the a2a forward of an
+                                  # asymmetric plan (with the backward's
+                                  # transposed layouts)
     lane_widths_fn: object        # (fin, widths, compute_dtype) → per-layer
                                   # wire lanes
     activation: str               # inter-layer activation by default
@@ -70,14 +77,15 @@ class ModelSpec(NamedTuple):
 # it stages it.
 MODELS = {
     "gcn": ModelSpec(init_gcn_params, GCN, TILE_PLAN_FIELDS,
-                     TILE_PLAN_FIELDS_RAGGED,
+                     TILE_PLAN_FIELDS_RAGGED, TILE_PLAN_FIELDS_GEN,
                      lambda fin, widths, dt: exchange_widths(fin, widths),
                      "relu"),
     "gat": ModelSpec(init_gat_params, GAT, GAT_PLAN_FIELDS_PALLAS,
                      GAT_PLAN_FIELDS_PALLAS_RAGGED,
+                     GAT_PLAN_FIELDS_PALLAS_GEN,
                      lambda fin, widths, dt: gat_exchange_lane_widths(
                          widths, dt),
-                     "none", mask_fields=("ptile_cw",)),
+                     "none", mask_fields=("ptile_cw", "ptile_tchw")),
 }
 
 # loss registry: 'xent' is the torch stack's log-softmax + NLL, 'bce' the
@@ -116,7 +124,8 @@ class ForwardSetup:
         arrays = {f: np.ascontiguousarray(getattr(plan, f))
                   for f in self.plan_fields}
         for f in self.mask_fields:
-            arrays[f] = (arrays[f] != 0).astype(np.int8)
+            if f in arrays:
+                arrays[f] = (arrays[f] != 0).astype(np.int8)
         out = {f: torch.as_tensor(a).to(device) for f, a in arrays.items()}
         dt = narrow_dtype(compute_dtype, "compute_dtype")
         if dt is not None:
@@ -127,16 +136,18 @@ class ForwardSetup:
 
 def resolve_forward_setup(plan, model: str = "gcn",
                           comm_schedule: str | None = None) -> ForwardSetup:
-    """Resolve the ported subset: GCN or GAT on a symmetric plan, over the
-    transport ``resolve_comm_schedule`` picks (``None`` reads
+    """Resolve the ported subset: GCN or GAT over the transport
+    ``resolve_comm_schedule`` picks (``None`` reads
     ``$SGCN_COMM_SCHEDULE``, default a2a; ``auto`` takes the ring when the
     a2a's padding efficiency is below ``RAGGED_AUTO_EFFICIENCY``), every
     tile class on the tile kernel (``choose_tile_dispatch``, tile height
     256).  An explicit ``'ragged'`` raises on an asymmetric plan (the
     gradient rides the ring through the symmetric backward) and on k = 1
-    (no ring).  Builds the plan's tile and ring layouts as a side effect,
-    as the reference does.  The reference's ``fin``/``widths`` fed its
-    VMEM-fit rule, which is not carried."""
+    (no ring); ``auto`` gives a2a on an asymmetric plan, whose backward
+    runs on the plan's transposed layouts (``TILE_PLAN_FIELDS_GEN``,
+    ``GAT_PLAN_FIELDS_PALLAS_GEN``).  Builds the plan's tile and ring
+    layouts as a side effect, as the reference does.  The reference's
+    ``fin``/``widths`` fed its VMEM-fit rule, which is not carried."""
     if model not in MODELS:
         raise NotImplementedError(
             f"model {model!r} is not ported yet (ported: "
@@ -152,17 +163,15 @@ def resolve_forward_setup(plan, model: str = "gcn",
     if schedule == "ragged" and plan.k == 1:
         raise ValueError("comm_schedule='ragged' needs k > 1 parts: with "
                          "one part there is no ring")
-    if not plan.symmetric:
-        raise NotImplementedError(
-            "asymmetric plans need pspmm_overlap / gat_layer_local, which "
-            "are not ported yet (ROADMAP item A2); this port serves "
-            "symmetric Â")
     fwd_static = choose_tile_dispatch(plan, decision=decision, model=model,
                                       schedule=schedule)
     spec = MODELS[model]._asdict()
     ragged_fields = spec.pop("plan_fields_ragged")
+    gen_fields = spec.pop("plan_fields_gen")
     if schedule == "ragged":
         spec["plan_fields"] = ragged_fields
+    elif not plan.symmetric:
+        spec["plan_fields"] = gen_fields
     return ForwardSetup(model=model, comm_schedule=schedule,
                         fwd_static=fwd_static, decision=decision, **spec)
 

@@ -9,6 +9,13 @@ rule: a training step books ``nlayers`` forward and ``nlayers`` backward
 exchanges, a forward (evaluation) ``nlayers``.  The rule is kept even for
 a layer whose backward exchange never runs (an aggregate-first first
 layer has no input gradient), so the counters equal the reference's.
+On a symmetric Â the backward ships the gradient's rows the forward's
+way; on an asymmetric one (``reverse_backward``) it ships the halo rows'
+partials back to their owners — the same rows in reverse — so each
+part's backward send volume and messages are its forward receive ones
+and the other way round.  The totals are the same either way; the
+reference books its asymmetric backward the forward's way, so its
+per-part maxima can differ from these.
 
 The stale, replica and partial-refresh fields of the reference are not
 ported (ROADMAP A7): every exchange here is exposed.
@@ -38,6 +45,8 @@ class CommStats:
     wire_itemsize: int = 4                 # bytes per f32 lane, both ways
     halo_bytes_true_total: int = 0
     halo_bytes_wire_total: int = 0
+    reverse_backward: bool = False         # the backward ships in reverse
+    backward_exchanges: int = 0            # subset of ``exchanges``
 
     @classmethod
     def from_plan(cls, plan, schedule: str = "a2a", lane_widths: tuple = (),
@@ -59,6 +68,7 @@ class CommStats:
             padding_efficiency=(true / wire if wire else 1.0),
             lane_widths=tuple(int(w) for w in lane_widths),
             wire_itemsize=int(wire_itemsize),
+            reverse_backward=not plan.symmetric,
         )
 
     def _accumulate_bytes(self, fwd_sweeps: int, bwd_sweeps: int) -> None:
@@ -77,6 +87,7 @@ class CommStats:
         """One training step = ``nlayers`` forward + ``nlayers`` backward
         exchanges (the backward exchange mirrors the forward)."""
         self.exchanges += 2 * nlayers
+        self.backward_exchanges += nlayers
         self._accumulate_bytes(1, 1)
 
     def count_forward(self, nlayers: int) -> None:
@@ -84,10 +95,18 @@ class CommStats:
         self._accumulate_bytes(1, 0)
 
     def cumulative(self) -> tuple:
-        """Per-part cumulative (send_vol, send_msgs, recv_vol, recv_msgs)."""
-        return tuple(p * self.exchanges for p in (
-            self.send_volume_per_exchange, self.send_msgs_per_exchange,
-            self.recv_volume_per_exchange, self.recv_msgs_per_exchange))
+        """Per-part cumulative (send_vol, send_msgs, recv_vol, recv_msgs);
+        under ``reverse_backward`` the backward exchanges book each part's
+        forward receive figures as its send ones and the other way
+        round."""
+        per = (self.send_volume_per_exchange, self.send_msgs_per_exchange,
+               self.recv_volume_per_exchange, self.recv_msgs_per_exchange)
+        if not self.reverse_backward:
+            return tuple(p * self.exchanges for p in per)
+        fwd, bwd = self.exchanges - self.backward_exchanges, \
+            self.backward_exchanges
+        return tuple(p * fwd + r * bwd
+                     for p, r in zip(per, per[2:] + per[:2]))
 
     @staticmethod
     def report_from_cumulative(sv, sm, rv, rm) -> dict:

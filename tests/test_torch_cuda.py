@@ -9,7 +9,11 @@ kernel's bf16 entry points (K1 and K5 on bf16 tables) against their plain
 version, and the bf16 levers (``compute_dtype``, ``halo_dtype``) on the
 card against the CPU and ragged against a2a; the stacked row pack that
 carries every exchange and the fused local + remote entry of the GCN
-aggregation (K3, K4) against their plain versions.
+aggregation (K3, K4) against their plain versions; the backward of an
+asymmetric Â (a directed graph) on its transposed layouts — the halo
+rows' Âᵀ family launch, the reverse pack and the fused local-ᵀ + owner
+sum — against their plain versions, and two asymmetric trainings on the
+card bit-identical.
 
 This module imports no JAX, so it also runs on a GPU machine without it:
 
@@ -30,11 +34,14 @@ from sgcn_tpu_torch.ops.row_shuffle import (row_pack, row_pack_plain,
                                             row_shuffle, row_shuffle_plain)
 from sgcn_tpu_torch.ops.tile_spmm import (TILE_PLAN_FIELDS,
                                           TILE_PLAN_FIELDS_RAGGED,
-                                          PspmmTilesRagged, PspmmTilesSym,
+                                          PspmmTilesGen, PspmmTilesRagged,
+                                          PspmmTilesSym,
                                           choose_tile_dispatch,
+                                          pspmm_tiles_gen,
                                           pspmm_tiles_ragged,
                                           pspmm_tiles_sym, spmm_tiles,
                                           spmm_tiles_classes,
+                                          spmm_tiles_classes_plain,
                                           spmm_tiles_fused,
                                           spmm_tiles_fused_plain,
                                           spmm_tiles_plain)
@@ -790,3 +797,100 @@ def test_fused_entry_equals_plain_bitwise(cuda_device, f, dtypes):
         assert torch.equal(_bits(one), _bits(plain)), (
             f"fused != plain, max diff "
             f"{(one.float() - plain.float()).abs().nan_to_num().max()}")
+
+
+# --------------------------------------------- asymmetric Â (directed)
+def _directed_plan(n=3000, deg=8, k=4, seed=1):
+    """A directed Erdős–Rényi graph (n·deg ordered pairs, self pairs
+    dropped), normalized, in k balanced random parts."""
+    import scipy.sparse as sp
+
+    rng = np.random.default_rng(seed)
+    r, c = rng.integers(0, n, (2, n * deg))
+    keep = r != c
+    a = sp.csr_matrix((np.ones(int(keep.sum()), np.float32),
+                       (r[keep], c[keep])), shape=(n, n))
+    a.data[:] = 1.0
+    plan = build_comm_plan(normalize_adjacency(a),
+                           balanced_random_partition(n, k, seed=seed), k)
+    assert not plan.symmetric
+    return plan
+
+
+@pytest.mark.parametrize("lever", [None, "halo_dtype", "compute_dtype"])
+def test_transposed_launches_equal_plain_bitwise(cuda_device, lever):
+    """The backward of an asymmetric Â's aggregation on the card: its
+    halo-ᵀ family launch, its reverse pack and its fused launch each ==
+    their plain versions on the same inputs, bit for bit, and the whole
+    backward (``PspmmTilesGen``) == the same Function on CPU tensors,
+    with one launch of each per aggregation.  ``halo_dtype`` narrows the
+    reverse wire, ``compute_dtype`` runs bf16 tables."""
+    from sgcn_tpu_torch.ops.pspmm import reverse_exchange
+
+    plan = _directed_plan()
+    setup = resolve_forward_setup(plan)
+    st = setup.fwd_static
+    cpu_pa = setup.ship_arrays(plan, "cpu")
+    pa = {f: t.to(cuda_device) for f, t in cpu_pa.items()}
+    dt = torch.bfloat16 if lever == "compute_dtype" else torch.float32
+    halo = "bfloat16" if lever == "halo_dtype" else None
+    rng = np.random.default_rng(6)
+    g = torch.from_numpy(rng.standard_normal(
+        (plan.k, plan.b, 40)).astype(np.float32)).to(cuda_device, dt)
+    fam = [tuple(pa[f"ptile_t{x}{y}"] for y in ("src", "ld", "w"))
+           for x in ("l", "h", "1")]
+    counter = "bf16_launches" if dt == torch.bfloat16 else "launches"
+    before = getattr(spmm_tiles, counter)
+    send = spmm_tiles_classes(*fam[1], g, st["pallas_thclasses"], 256)
+    assert getattr(spmm_tiles, counter) == before + 1
+    assert torch.equal(send, spmm_tiles_classes_plain(
+        *fam[1], g, st["pallas_thclasses"], 256))
+    before = row_pack.launches
+    rwire = reverse_exchange(send, pa["rev_src"], halo, dt)
+    assert row_pack.launches == before + 1
+    assert torch.equal(_bits(rwire), _bits(row_pack_plain(
+        send, pa["rev_src"], rwire.dtype)))
+    args = (fam[0], g, fam[2], rwire, st["pallas_tlclasses"],
+            st["pallas_t1classes"], 256)
+    assert torch.equal(_bits(spmm_tiles_fused(*args)),
+                       _bits(spmm_tiles_fused_plain(*args)))
+    tcls = (st["pallas_tlclasses"], st["pallas_thclasses"],
+            st["pallas_t1classes"])
+    out = {}
+    for dev, arrays in (("cpu", cpu_pa), ("cuda", pa)):
+        x = g.detach().to(dev, copy=True).requires_grad_()
+        y = pspmm_tiles_gen(x, arrays, 256, st["pallas_lclasses"],
+                            st["pallas_hclasses"], tcls, halo)
+        before = (spmm_tiles.launches + spmm_tiles.bf16_launches,
+                  row_pack.launches, PspmmTilesGen.backward_launches)
+        y.backward(g.to(dev))
+        torch.cuda.synchronize()
+        after = (spmm_tiles.launches + spmm_tiles.bf16_launches,
+                 row_pack.launches, PspmmTilesGen.backward_launches)
+        out[dev] = (x.grad.cpu(), tuple(b - a for a, b in zip(before, after)))
+    assert out["cpu"][1] == (0, 0, 0) and out["cuda"][1] == (1, 1, 1)
+    assert torch.equal(_bits(out["cpu"][0]), _bits(out["cuda"][0]))
+
+
+@pytest.mark.parametrize("model", ["gcn", "gat"])
+def test_asymmetric_training_on_cuda_is_bit_identical(cuda_device, model):
+    """Two trainers from the same seed on a directed graph on the card:
+    the same 3 losses and weights, bit for bit (no float atomics on the
+    path), and both track the CPU's losses within rtol 1e-5.  GAT at an
+    odd and a 130-wide layer runs the fused and split transposed
+    passes."""
+    plan = _directed_plan()
+    rng = np.random.default_rng(8)
+    feats = rng.standard_normal((plan.n, 24)).astype(np.float32)
+    labels = rng.integers(0, 5, plan.n)
+    widths = [130, 5] if model == "gat" else [32, 5]
+    runs = []
+    for dev in (cuda_device, cuda_device, "cpu"):
+        tr = FullBatchTrainer(plan, fin=24, widths=widths, model=model,
+                              seed=2, device=dev)
+        data = make_train_data(plan, feats, labels, device=dev)
+        runs.append(([tr.step(data) for _ in range(3)],
+                     [p.detach().cpu() for p in tr.model.parameters()]))
+    assert runs[0][0] == runs[1][0]
+    assert all(torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1]))
+    np.testing.assert_allclose(runs[0][0], runs[2][0], rtol=1e-5)

@@ -400,20 +400,28 @@ def test_layer_backward_matches_autograd_float64(cora, form):
 
 
 def test_asymmetric_and_unported_forms_raise(cora):
+    """An asymmetric plan trains GAT on the a2a exchange (``GatLayerGen``,
+    the transposed layouts shipped); the ring on it still raises, as in the
+    reference, and so do the levers GAT does not take."""
     plan = cora["plan"]
     setup = resolve_forward_setup(plan, model="gat")
     pa = setup.ship_arrays(plan, "cpu")
     params = port_gat.init_gat_params(torch.Generator().manual_seed(0),
                                       [(1433, 7)])
-    with pytest.raises(NotImplementedError, match="gat_layer_local.*A2"):
+    st = dict(setup.fwd_static, comm_schedule="ragged")
+    with pytest.raises(ValueError, match="asymmetric plans run the a2a"):
         gat_forward_local(params, torch.zeros(8, plan.b, 1433), pa,
-                          symmetric=False, **setup.fwd_static)
+                          symmetric=False, **st)
     a = cora["a"].tolil()
     a[0, 1], a[1, 0] = 1.0, 0.0
     asym = build_comm_plan(a.tocsr(), cora["pv"], 8)
-    with pytest.raises(NotImplementedError, match="asymmetric.*A2"):
-        FullBatchTrainer(asym, fin=1433, widths=WIDTHS, model="gat",
-                         device="cpu")
+    tr = FullBatchTrainer(asym, fin=1433, widths=WIDTHS, model="gat",
+                          device="cpu")
+    assert tr.model.fwd_static["symmetric"] is False
+    assert tr.pa["ptile_tchw"].dtype == torch.int8 and "rev_csrc" in tr.pa
+    data = make_train_data(asym, cora["feats"], cora["labels"])
+    losses = [tr.step(data) for _ in range(2)]
+    assert np.isfinite(losses).all() and losses[1] < losses[0]
     # the wire-only lever is GCN's; GAT narrows through compute_dtype
     with pytest.raises(ValueError, match="GCN-trainer lever"):
         FullBatchTrainer(plan, fin=1433, widths=WIDTHS, model="gat",

@@ -241,10 +241,18 @@ def test_unported_features_raise(cora):
     kw = dict(fin=cora["feats"].shape[1], widths=[16, 7], device="cpu")
     with pytest.raises(NotImplementedError, match="not ported"):
         ServeEngine(cora["plan"], model="gin", **kw)
-    # an asymmetric Â needs pspmm_overlap, which is not ported
+    # an asymmetric Â serves on the a2a exchange (the reference's
+    # pspmm_overlap forward): rows within rtol 1e-4 / atol 1e-5 of a
+    # float64 dense forward relu(Â·X·W0)·W1
     a = cora["a"].tolil()
     a[0, 1], a[1, 0] = 1.0, 0.0
-    asym = build_comm_plan(a.tocsr(), cora["pv"], 8)
+    asym = build_comm_plan(normalize_adjacency(a.tocsr()), cora["pv"], 8)
     assert not asym.symmetric
-    with pytest.raises(NotImplementedError, match="asymmetric"):
-        ServeEngine(asym, **kw)
+    eng = ServeEngine(asym, seed=3, **kw)
+    eng.set_features(cora["feats"])
+    q = np.arange(0, asym.n, 97)
+    ahat = normalize_adjacency(a.tocsr()).astype(np.float64)
+    w0, w1 = (w.detach().double().numpy() for w in eng.model.weights)
+    want = ahat @ np.maximum(ahat @ (cora["feats"] @ w0), 0) @ w1
+    np.testing.assert_allclose(eng.query(q), want[q], rtol=1e-4, atol=1e-5)
+    assert eng.gauges()["comm_schedule"] == "a2a"
