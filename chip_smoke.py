@@ -176,19 +176,44 @@ failure raises and the script exits non-zero:
      start): cora2708 GAT a2a (phase 9's run) 20 times, the directed
      flagship GCN and GAT 3 times each — exactly one loss history and one
      weight digest each;
-  23. one JSON line ``{"kernels": [...]}`` — per ported kernel (the tile
+  23. checkpoints at the flagship width (phase 3's graph, features and
+     parts, phase 5's labels; GCN a2a and ring, GAT a2a, 128 → 128 → 128
+     → 40, float32, 6 steps from the train CLI's seed 0): per run a child
+     process (``torch.multiprocessing``, ``spawn``; four at once) runs the
+     train CLI with ``--checkpoint-every 3`` under
+     ``SGCN_FAULT=kill-after-save:3`` and must exit 43, and one more GCN
+     a2a child runs ``--checkpoint-every 2`` under
+     ``corrupt-after-save:4:bitflip``; then a new child per run resumes
+     with ``--resume auto`` to 6 steps (the corrupt one must fall back to
+     step 2 with a warning).  Their losses and the digest of their final
+     weights and Adam state must equal the same runs trained here
+     uninterrupted, bit for bit.  ``ServeEngine(checkpoint=…)`` on the
+     step-6 files (GCN and GAT) serves the trainer's ``predict`` rows bit
+     for bit and within rtol 1e-4 / atol 1e-5 of the float64 forward; a
+     file under another part vector or other widths is refused with the
+     reference's message; one ``poll`` of a watched directory hot-swaps
+     the newest file into a random-weight engine (rows move to the
+     trainer's, ``weights_rev`` + 1, every parameter keeps its storage)
+     and skips a corrupt newest file.  Prints the checkpoint's bytes and
+     its save and load ms, each child's start-up against its training
+     seconds, and the poll + swap ms, beside the card's name and power
+     limit.  The children's inputs come from an ``.npz`` written under
+     ``build/chip_smoke_ckpt/``, and every child is stopped when the
+     phase ends;
+  24. one JSON line ``{"kernels": [...]}`` — per ported kernel (the tile
      SpMM, the GCN aggregation's backward, the GAT attention pass and its
      use in the GAT layer's backward, the ragged ring aggregation and its
      backward, the row shuffle, the tile SpMM's and the GAT pass's bf16
      flavors, the row pack and the fused local + remote entry) its
-     launches on the main path (phases 2–5, 7–13, 15–17 and 19–21), max
+     launches on the main path (phases 2–5, 7–13, 15–17, 19–21 and 23,
+     the resumed children's included), max
      |kernel − plain|, kernel / plain / bound / library times at the
      flagship layer.  The tile SpMM's own float-weight family entries
      (both tables) launch on the main path only in the asymmetric
      backward (phases 20–21): the symmetric phases must show 0 of them —
      the fused entry runs their chains and counts those launches — and any
      kernel with no launch on the main path fails the run;
-  24. the last line: ``{"ok": true, "device": {...}}``.
+  25. the last line: ``{"ok": true, "device": {...}}``.
 
 Without CUDA, or without the rest of the repository beside it, the script
 prints no result and exits with code 2 or 3.
@@ -2388,6 +2413,407 @@ def phase_repeat(fix, dev, asym, widths):
                                  f"{json.dumps(rep)}")
 
 
+# ------------------------------- checkpoints, crash-safe resume, hot swap
+CKPT_DIR = os.path.join(REPO, "build", "chip_smoke_ckpt")
+
+# phase 23's training runs: (model, transport) by name; every one trains
+# 6 steps in all from the CLI's default seed
+CKPT_CASES = {"gcn-a2a": ("gcn", "a2a"), "gcn-ragged": ("gcn", "ragged"),
+              "gat-a2a": ("gat", "a2a")}
+
+
+def launch_counts(zero: bool = False) -> dict:
+    """The launch counts of every kernel entry phase 23's paths run (and
+    K1's float-weight family entries, which must stay 0 there); with
+    ``zero``, each is set to 0 first — the start of a path."""
+    from sgcn_tpu_torch.models.gat import GatLayerSym
+    from sgcn_tpu_torch.ops.row_shuffle import row_pack
+    from sgcn_tpu_torch.ops.tile_spmm import (PspmmTilesRagged,
+                                              PspmmTilesSym, spmm_tiles,
+                                              spmm_tiles_fused)
+
+    owners = {"fused": (spmm_tiles_fused, "launches"),
+              "pack": (row_pack, "launches"),
+              "k5": (spmm_tiles, "mask_launches"),
+              "k1": (spmm_tiles, "launches"),
+              "k1_bf16": (spmm_tiles, "bf16_launches"),
+              "sym_bwd": (PspmmTilesSym, "backward_launches"),
+              "gat_bwd": (GatLayerSym, "backward_launches"),
+              "ring": (PspmmTilesRagged, "launches"),
+              "ring_bwd": (PspmmTilesRagged, "backward_launches")}
+    if zero:
+        for obj, attr in owners.values():
+            setattr(obj, attr, 0)
+    return {key: getattr(obj, attr) for key, (obj, attr) in owners.items()}
+
+
+def ckpt_child(argv, fault, out_path):
+    """One process of phase 23, started with the ``spawn`` context:
+    ``python -m sgcn_tpu_torch.train argv`` in-process on the card under
+    ``$SGCN_FAULT=fault`` (``None``: no fault), set here before the CLI
+    builds anything.  When the CLI returns, writes its JSON report, the
+    warnings it raised, its launch counts and its clock marks to
+    ``out_path``; a run the fault kills writes nothing."""
+    t_enter = time.time()
+    if fault:
+        os.environ["SGCN_FAULT"] = fault
+    else:
+        os.environ.pop("SGCN_FAULT", None)
+    sys.path.insert(0, REPO)
+    import warnings
+
+    import torch
+
+    from sgcn_tpu_torch.train.__main__ import main as train_main
+
+    launch_counts(zero=True)                 # this child's path starts here
+    t_imported = time.time()
+    out = io.StringIO()
+    with warnings.catch_warnings(record=True) as caught, \
+            contextlib.redirect_stdout(out):
+        warnings.simplefilter("always")
+        train_main(list(argv))
+    torch.cuda.synchronize()
+    launches = launch_counts()                # ... and ends here
+    with open(out_path, "w") as fh:
+        json.dump({"report": json.loads(out.getvalue().strip()
+                                        .splitlines()[-1]),
+                   "warnings": [str(w.message) for w in caught],
+                   "launches": launches, "t_enter": t_enter,
+                   "t_imported": t_imported, "t_end": time.time()}, fh)
+
+
+class Children:
+    """Phase 23's child processes: ``start`` spawns one per job, all at
+    once; ``join`` waits for them (a child alive past the deadline is
+    terminated and fails the run); ``stop`` terminates whatever still
+    runs, so no child outlives the script."""
+
+    def __init__(self):
+        import torch.multiprocessing as mp
+
+        self.ctx = mp.get_context("spawn")
+        self.running = []
+
+    def start(self, jobs):
+        procs = []
+        for job in jobs:
+            p = self.ctx.Process(target=ckpt_child, args=job)
+            t = time.time()
+            p.start()
+            procs.append((p, t))
+        self.running += [p for p, _ in procs]
+        return procs
+
+    def join(self, procs, timeout=600.0):
+        deadline = time.monotonic() + timeout
+        codes = []
+        for p, _ in procs:
+            p.join(max(0.0, deadline - time.monotonic()))
+            if p.is_alive():
+                self.stop()
+                raise AssertionError(f"phase 23: child {p.pid} still runs "
+                                     f"after {timeout:.0f} s")
+            codes.append(p.exitcode)
+        return codes
+
+    def stop(self):
+        for p in self.running:
+            if p.is_alive():
+                p.terminate()
+                p.join()
+
+
+def leaves_digest(leaves) -> str:
+    """sha256 over a checkpoint leaf list's dtypes, shapes and bytes."""
+    import hashlib
+
+    import numpy as np
+
+    h = hashlib.sha256()
+    for x in leaves:
+        x = np.ascontiguousarray(x)
+        h.update(repr((x.dtype.str, x.shape)).encode())
+        h.update(x.tobytes())
+    return h.hexdigest()[:16]
+
+
+def phase_checkpoints(plan, ahat, feats, labels, pv, widths, data, dev, smi):
+    """Phase 23: checkpoints, crash-safe resume and serving from a
+    checkpoint at the flagship width (module docstring).  Returns the
+    launch counts of its paths (this process's and the resumed
+    children's) by kernel entry."""
+    children = Children()
+    try:
+        return _phase_checkpoints(children, plan, ahat, feats, labels, pv,
+                                  widths, data, dev, smi)
+    finally:
+        children.stop()
+
+
+def _phase_checkpoints(children, plan, ahat, feats, labels, pv, widths,
+                       data, dev, smi):
+    import shutil
+    import warnings
+
+    import numpy as np
+    import scipy.sparse as sp
+    import torch
+
+    from sgcn_tpu_torch.parallel import build_comm_plan
+    from sgcn_tpu_torch.partition import balanced_random_partition
+    from sgcn_tpu_torch.resilience import faults
+    from sgcn_tpu_torch.resilience.checkpoint import CheckpointManager
+    from sgcn_tpu_torch.serve import ServeEngine, synthetic_query_ids
+    from sgcn_tpu_torch.serve.engine import CheckpointWatcher
+    from sgcn_tpu_torch.train import FullBatchTrainer
+    from sgcn_tpu_torch.train.fullbatch import MODELS
+    from sgcn_tpu_torch.utils.checkpoint import (load_checkpoint,
+                                                 save_checkpoint, to_leaves)
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(CKPT_DIR, ignore_errors=True)
+    os.makedirs(CKPT_DIR)
+    n, fin = feats.shape
+    t0 = time.perf_counter()
+    npz = os.path.join(CKPT_DIR, "flagship.npz")
+    a = sp.csr_matrix(ahat)
+    np.savez(npz, adj_data=a.data, adj_indices=a.indices,
+             adj_indptr=a.indptr, adj_shape=np.asarray(a.shape),
+             attr_matrix=feats, labels=np.asarray(labels))
+    parts = os.path.join(CKPT_DIR, "flagship.8.rp")
+    np.savetxt(parts, pv, fmt="%d")
+    log(f"  inputs for the children (Â as normalized, features, labels, "
+        f"parts) written in {time.perf_counter() - t0:.2f} s")
+    base = ["--npz", npz, "-p", parts, "-s", "8", "-l", str(len(widths)),
+            "--hidden", str(widths[0]), "--warmup", "0", "--epochs", "6",
+            "--device", "cuda"]
+    argv, jobs, resumes = {}, [], []
+    for case, (model, sched) in CKPT_CASES.items():
+        argv[case] = base + ["--model", model, "--comm-schedule", sched,
+                             "--checkpoint-dir", os.path.join(CKPT_DIR, case),
+                             "--checkpoint-every", "3"]
+        jobs.append((argv[case], "kill-after-save:3",
+                     os.path.join(CKPT_DIR, f"{case}.kill.json")))
+    argv["bitflip"] = base + ["--comm-schedule", "a2a", "--checkpoint-dir",
+                              os.path.join(CKPT_DIR, "bitflip"),
+                              "--checkpoint-every", "2"]
+    jobs.append((argv["bitflip"], "corrupt-after-save:4:bitflip",
+                 os.path.join(CKPT_DIR, "bitflip.kill.json")))
+    names = list(CKPT_CASES) + ["bitflip"]
+
+    # ---- (a) 4 children killed after a save, while this process trains
+    # the same runs uninterrupted (6 steps from the CLI's seed 0); the
+    # a2a GCN also writes the hot-swap directory at steps 4 and 6
+    launch_counts(zero=True)                  # the phase's path starts here
+    wave = children.start(jobs)
+    hot = os.path.join(CKPT_DIR, "hot")
+    q = synthetic_query_ids(n, 256, seed=7)
+    full, hot_rows = {}, {}
+    for case, (model, sched) in CKPT_CASES.items():
+        tr = FullBatchTrainer(plan, fin=fin, widths=widths, model=model,
+                              activation=MODELS[model].activation, seed=0,
+                              comm_schedule=sched, device=dev)
+        losses = []
+        for step in range(1, 7):
+            losses.append(tr.step(data))
+            if case == "gcn-a2a" and step in (4, 6):
+                CheckpointManager(hot).save(tr, step)
+                hot_rows[step] = tr.predict(data)[q]
+        full[case] = (tr, losses)
+        log(f"  {case}: uninterrupted losses {losses}")
+    codes = children.join(wave)
+    listing = {c: sorted(os.listdir(os.path.join(CKPT_DIR, c)))
+               for c in names}
+    log(f"  killed children: exit codes {dict(zip(names, codes))}, "
+        f"directories {listing}")
+    if codes != [faults.FAULT_EXIT_CODE] * len(jobs):
+        raise AssertionError(f"phase 23: killed children exited {codes}, "
+                             f"expected {faults.FAULT_EXIT_CODE} each")
+    want_ls = {c: ["ckpt_00000003.npz"] for c in CKPT_CASES}
+    want_ls["bitflip"] = ["ckpt_00000002.npz", "ckpt_00000004.npz"]
+    if listing != want_ls:
+        raise AssertionError(f"phase 23: checkpoint directories {listing}")
+
+    # ---- a new process per killed run: --resume auto to 6 steps
+    for case in names:
+        resumes.append((argv[case] + [
+            "--resume", "auto", "--save-checkpoint",
+            os.path.join(CKPT_DIR, f"{case}.final.npz")], None,
+            os.path.join(CKPT_DIR, f"{case}.resume.json")))
+    wave = children.start(resumes)
+    codes = children.join(wave)
+    if codes != [0] * len(resumes):
+        raise AssertionError(f"phase 23: resumed children exited {codes}")
+    child_launches = {}
+    for (p, t_spawn), case in zip(wave, names):
+        with open(os.path.join(CKPT_DIR, f"{case}.resume.json")) as fh:
+            res = json.load(fh)
+        rep = res["report"]
+        model, _ = CKPT_CASES.get(case, ("gcn", "a2a"))
+        tr, losses = full[case if case in CKPT_CASES else "gcn-a2a"]
+        start = 2 if case == "bitflip" else 3
+        setup_s = res["t_end"] - res["t_imported"] - rep["elapsed_s"]
+        log(f"  {case}: resumed at step {rep['resumed']['step']} "
+            f"(fallback {rep['resumed']['fallback']}), losses "
+            f"{rep['losses']}; child start-up {res['t_enter'] - t_spawn:.2f}"
+            f" s interpreter + {res['t_imported'] - res['t_enter']:.2f} s "
+            f"imports + {setup_s:.2f} s inputs, plan, trainer, resume load "
+            f"and final save; training {rep['elapsed_s']:.3f} s "
+            f"({rep['steps_run']} steps, step_s_wall "
+            f"{rep['step_s_wall']:.4f} s); 4 children at once; card: {smi}")
+        if rep["resumed"]["step"] != start or rep["losses"] != losses[start:]:
+            raise AssertionError(f"phase 23 {case}: resumed losses "
+                                 f"{rep['losses']} != uninterrupted "
+                                 f"{losses[start:]}")
+        if case == "bitflip" and not (rep["resumed"]["fallback"] and any(
+                "ckpt_00000004.npz" in w and "falling back" in w
+                for w in res["warnings"])):
+            raise AssertionError(f"phase 23: no fallback warning past the "
+                                 f"corrupt step-4 file: {res['warnings']}")
+        with np.load(os.path.join(CKPT_DIR, f"{case}.final.npz")) as z:
+            got = [z[f"leaf_{i}"] for i in range(
+                sum(f.startswith("leaf_") for f in z.files))]
+            state = json.loads(str(z["__train_state__"]))
+        want = to_leaves(tr.params, tr.opt)
+        d_got, d_want = leaves_digest(got), leaves_digest(want)
+        log(f"  {case}: weights + Adam state digest resumed {d_got}, "
+            f"uninterrupted {d_want}; step_count {state['step_count']}")
+        if d_got != d_want or state["step_count"] != 6 or \
+                state["comm_stats"]["exchanges"] != 6 * 2 * len(widths):
+            raise AssertionError(f"phase 23 {case}: the resumed state "
+                                 "differs from the uninterrupted run's")
+        ln = res["launches"]
+        # GAT: K5 passes and packs; GCN: packs and fused launches,
+        # through the ring's Function or the a2a one
+        need = (["pack", "k5", "gat_bwd"] if model == "gat" else
+                ["pack", "fused"] + (["ring", "ring_bwd"] if "ragged" in case
+                                     else ["sym_bwd"]))
+        if any(not ln[key] for key in need) or ln["k1"] or ln["k1_bf16"]:
+            raise AssertionError(f"phase 23 {case}: child launches {ln}")
+        child_launches[case] = ln
+
+    # ---- (b) serve from the step-6 files the resumed children wrote
+    for case in ("gcn-a2a", "gat-a2a"):
+        model = CKPT_CASES[case][0]
+        path = os.path.join(CKPT_DIR, case, "ckpt_00000006.npz")
+        tr = full[case][0]
+        eng = ServeEngine(plan, fin=fin, widths=widths, model=model,
+                          comm_schedule="a2a", checkpoint=path,
+                          max_batch=64, device=dev)
+        eng.set_features(feats)
+        rows = np.concatenate([eng.query(q[i:i + 64])
+                               for i in range(0, len(q), 64)])
+        pred = tr.predict(data)[q]
+        params = [{k: v.detach().cpu().numpy() for k, v in p.items()}
+                  if isinstance(p, dict) else p.detach().cpu().numpy()
+                  for p in tr.params]
+        want = (gat64(ahat, feats, params) if model == "gat"
+                else oracle_forward(ahat, feats, params))[q]
+        err = np.abs(rows - want)
+        log(f"  {case}: engine from the step-6 file, {len(q)} rows: == "
+            f"the trainer's predict rows {np.array_equal(rows, pred)}; vs "
+            f"float64 max abs err {err.max():.3g}, max rel err "
+            f"{(err / np.maximum(np.abs(want), 1e-30)).max():.3g}")
+        if not np.array_equal(rows, pred):
+            raise AssertionError(f"phase 23 {case}: served rows differ from "
+                                 "the trainer's predict rows")
+        if not np.allclose(rows, want, rtol=RTOL, atol=ATOL):
+            raise AssertionError(f"phase 23 {case}: served rows differ from "
+                                 f"float64 beyond rtol {RTOL}, atol {ATOL}")
+        del eng
+    path = os.path.join(CKPT_DIR, "gcn-a2a", "ckpt_00000006.npz")
+    t0 = time.perf_counter()
+    plan2 = build_comm_plan(ahat, balanced_random_partition(n, 8, seed=1), 8)
+    log(f"  another part vector's plan built in "
+        f"{time.perf_counter() - t0:.2f} s (host)")
+    for what, p_, w_, msg in (
+            ("part vector", plan2, widths,
+             "plan digest mismatch — checkpoint was saved under plan"),
+            ("widths", plan, [widths[0], 64, widths[-1]],
+             "model config mismatch on 'widths'")):
+        try:
+            ServeEngine(p_, fin=fin, widths=w_, checkpoint=path, device=dev)
+        except ValueError as e:
+            if msg not in str(e):
+                raise
+            log(f"  refused under another {what}: {str(e)[:90]}...")
+        else:
+            raise AssertionError(f"phase 23: a checkpoint under another "
+                                 f"{what} was not refused")
+
+    # ---- (c) hot swap on a random-weight engine
+    eng = ServeEngine(plan, fin=fin, widths=widths, comm_schedule="a2a",
+                      seed=11, max_batch=64, device=dev)
+    eng.set_features(feats)
+    rows_r = eng.query(q[:64])
+    init = [p.detach().cpu().numpy() for p in eng.model.layer_params()]
+    if not np.allclose(rows_r, oracle_forward(ahat, feats, init)[q[:64]],
+                       rtol=RTOL, atol=ATOL):
+        raise AssertionError("phase 23: random-weight rows differ from "
+                             "float64")
+    ptrs = [p.data_ptr() for p in eng.model.parameters()]
+    watch = eng.attach_checkpoint_watch(hot)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    swapped = watch.poll(eng)
+    torch.cuda.synchronize()
+    swap_ms = (time.perf_counter() - t0) * 1e3
+    rows = eng.query(q[:64])
+    ok = (swapped and eng.weights_rev == 1 and np.array_equal(
+        rows, hot_rows[6][:64])
+        and [p.data_ptr() for p in eng.model.parameters()] == ptrs)
+    log(f"  hot swap: one poll + swap of the step-6 file "
+        f"{swap_ms:.2f} ms wall; weights_rev {eng.weights_rev}, rows == "
+        f"the trainer's {np.array_equal(rows, hot_rows[6][:64])}, storage "
+        f"kept {[p.data_ptr() for p in eng.model.parameters()] == ptrs}; "
+        f"card: {smi}")
+    if not ok:
+        raise AssertionError("phase 23: hot swap failed")
+    bad = os.path.join(CKPT_DIR, "hot_corrupt")
+    shutil.copytree(hot, bad)
+    faults.corrupt_file(os.path.join(bad, "ckpt_00000006.npz"))
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        swapped = CheckpointWatcher(bad).poll(eng)
+    rows = eng.query(q[:64])
+    warned = any("corrupt" in str(w.message) for w in caught)
+    log(f"  corrupt newest file: swapped {swapped}, warned {warned}, now "
+        f"step {eng.checkpoint_meta['step']}, weights_rev "
+        f"{eng.weights_rev}, rows == the trainer's step-4 rows "
+        f"{np.array_equal(rows, hot_rows[4][:64])}")
+    if not (swapped and warned and eng.checkpoint_meta["step"] == 4
+            and eng.weights_rev == 2
+            and np.array_equal(rows, hot_rows[4][:64])
+            and [p.data_ptr() for p in eng.model.parameters()] == ptrs):
+        raise AssertionError("phase 23: the poll did not skip the corrupt "
+                             "newest file")
+    del eng
+
+    # ---- (d) the flagship checkpoint's save and load on the card
+    for case in ("gcn-a2a", "gat-a2a"):
+        tr = full[case][0]
+        path = os.path.join(CKPT_DIR, f"timing_{case}.npz")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        save_checkpoint(tr, path, step=6)
+        save_ms = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        load_checkpoint(tr, path)
+        torch.cuda.synchronize()
+        load_ms = (time.perf_counter() - t0) * 1e3
+        log(f"  {case} flagship checkpoint: {os.path.getsize(path)} bytes, "
+            f"save {save_ms:.2f} ms, load {load_ms:.2f} ms wall; card: {smi}")
+    parent = launch_counts()                  # ... and ends here
+    if parent["k1"] or parent["k1_bf16"]:
+        raise AssertionError(f"phase 23: K1 family launches {parent}")
+    total = {key: parent[key] + sum(ln[key] for ln in child_launches.values())
+             for key in parent}
+    log(f"  phase 23 launches (this process {parent}, resumed children "
+        f"{child_launches}); phase wall {time.perf_counter() - t_phase:.1f} s")
+    return total
+
+
 def main() -> int:
     import torch
 
@@ -3182,9 +3608,18 @@ def main() -> int:
     phase_repeat(fix, dev, asym, widths_f)
 
     # ---------------------------------------------------------- phase 23
+    log("phase 23: checkpoints at the flagship width (GCN a2a and ring, "
+        "GAT a2a, float32): kill after a save and resume in a new process, "
+        "a corrupt newest file, serving from a checkpoint, hot swap")
+    p23 = phase_checkpoints(plan, ahat_f, feats_f, labels_f, pv_f, widths_f,
+                            data, dev, smi)
+    MAIN_PATH_PACKS[0] += p23["pack"]
+
+    # ---------------------------------------------------------- phase 24
     fused_main = (launches_c + launches_f + launches_tc + launches_tf
                   + launches_fr + launches_rt + launches_ca + launches_cr
-                  + l15["wire"] + l15["bf16"] + launches_16 + asym["fused"])
+                  + l15["wire"] + l15["bf16"] + launches_16 + asym["fused"]
+                  + p23["fused"])
     kernels = [{
         # K1's own float32-weight family entry: its launches on the main
         # path are the asymmetric backward's halo-ᵀ launches (the
@@ -3209,7 +3644,7 @@ def main() -> int:
         "route": "cuda",
         "source": "sgcn_tpu_torch/csrc/tile_spmm.cu",
         "replaces": "sgcn_tpu/ops/pallas_spmm.py:457-464",
-        "launches": bwd_tc + bwd_tf,
+        "launches": bwd_tc + bwd_tf + p23["sym_bwd"],
         "max_abs_err": max(grad_err, fused_err),
         "ms": k3b["ms"],
         "plain_ms": k3b["plain_ms"],
@@ -3223,7 +3658,7 @@ def main() -> int:
         "replaces": "sgcn_tpu/ops/pallas_spmm.py:530-545",
         "launches": (launches_gc + launches_gf + launches_gt + launches_gtc
                      + launches_gfr + launches_grt + launches_gcr
-                     + l17["f32"] + asym["k5"]),
+                     + l17["f32"] + asym["k5"] + p23["k5"]),
         "max_abs_err": max(k5_err, err_f, err_b, k5r_err),
         "ms": gat_fwd["ms"],
         "plain_ms": gat_fwd["plain_ms"],
@@ -3235,7 +3670,7 @@ def main() -> int:
         "route": "cuda",
         "source": "sgcn_tpu_torch/csrc/tile_spmm.cu",
         "replaces": "sgcn_tpu/models/gat.py:637-687",
-        "launches": bwd_gt + bwd_gtc + bwd_grt + bwd_gcr,
+        "launches": bwd_gt + bwd_gtc + bwd_grt + bwd_gcr + p23["gat_bwd"],
         "max_abs_err": max(err_b, k5r_err),
         "ms": gat_bwd["ms"],
         "plain_ms": gat_bwd["plain_ms"],
@@ -3248,7 +3683,7 @@ def main() -> int:
         "route": "cuda",
         "source": "sgcn_tpu_torch/csrc/tile_spmm.cu",
         "replaces": "sgcn_tpu/ops/pallas_spmm.py:469-527",
-        "launches": launches_fr + ring_rt + ring_cr,
+        "launches": launches_fr + ring_rt + ring_cr + p23["ring"],
         "max_abs_err": max(k4_err, fused_err),
         "ms": k4["ms"],
         "plain_ms": k4["plain_ms"],
@@ -3260,7 +3695,7 @@ def main() -> int:
         "route": "cuda",
         "source": "sgcn_tpu_torch/csrc/tile_spmm.cu",
         "replaces": "sgcn_tpu/ops/pallas_spmm.py:517-523",
-        "launches": ring_bwd_rt + ring_bwd_cr,
+        "launches": ring_bwd_rt + ring_bwd_cr + p23["ring_bwd"],
         "max_abs_err": max(k4b_err, fused_err),
         "ms": k4b["ms"],
         "plain_ms": k4b["plain_ms"],

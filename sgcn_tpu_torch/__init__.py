@@ -16,7 +16,10 @@ query routing
 — and the exact full-batch *trainer* on that forward, whose aggregation
 backward runs the same kernel on the gradient (Â is symmetric); GCN and
 GAT (the attention pass on the kernel's int8-mask entry point), over the
-dense a2a exchange or the ragged ring (``--comm-schedule``).
+dense a2a exchange or the ragged ring (``--comm-schedule``); and the
+reference's checkpoints (``utils/checkpoint.py``, the same ``.npz``
+format), crash-safe resume (``resilience/``) and serving from a
+checkpoint with hot swap (``serve/engine.py``).
 All ``k`` parts run stacked along a leading axis in one process on one
 device (``ops/pspmm.py::halo_exchange`` and ``ring_concat`` are the one
 place that knows).

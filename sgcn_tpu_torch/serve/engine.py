@@ -21,6 +21,14 @@ chips) is, over the stacked ``(k, B, nout)`` logits, one advanced index
 ``logits[q_owner, q_local]``; padding slots are masked to zeros.  There is
 no per-bucket compile (``compile_count`` stays 0); capturing one CUDA
 graph per bucket is a later slice.
+
+Weights come from a trainer checkpoint (``checkpoint=``, either package's
+``.npz``: provenance verified first, then the params read off the leading
+leaves through ``utils/checkpoint.py::from_leaves``), from ``params=`` or
+from a seeded init.  ``swap_weights`` hot-swaps a new checkpoint in place
+— every parameter tensor keeps its storage, so a forward captured once
+(CUDA graphs, ROADMAP A20) stays valid — and ``attach_checkpoint_watch``
+polls a ``CheckpointManager`` directory once per micro-batch.
 """
 
 from __future__ import annotations
@@ -29,8 +37,12 @@ import numpy as np
 import torch
 
 from ..ops.pspmm import narrow_dtype
-from ..train.fullbatch import check_param_dims, resolve_forward_setup
+from ..train.fullbatch import (MODELS, check_param_dims,
+                               resolve_forward_setup)
 from ..utils.backend import device_name, resolve_device, synchronize
+from ..utils.checkpoint import (check_leaves, from_leaves,
+                                load_checkpoint_leaves,
+                                verify_checkpoint_provenance)
 from ..utils.timers import PhaseTimer, SpanTimer
 from .batcher import MicroBatcher, default_buckets
 from .router import VertexRouter
@@ -54,6 +66,45 @@ class InFlightBatch:
         return out[: self._nq]
 
 
+class CheckpointWatcher:
+    """Poll a ``CheckpointManager`` directory and hot-swap the newest
+    INTACT checkpoint into a running engine — the ``--watch-checkpoint-dir``
+    machinery: one ``poll`` per micro-batch, corrupt candidates skipped
+    with a loud warning (the manager's newest-intact rule), provenance
+    mismatches raised loudly (a wrong-plan checkpoint in the watched
+    directory is a config bug, not something to serve past)."""
+
+    def __init__(self, directory: str, last_step: int = -1):
+        from ..resilience.checkpoint import CheckpointManager
+
+        self.manager = CheckpointManager(directory)
+        self.last_step = int(last_step)
+
+    def poll(self, engine) -> bool:
+        """Swap in the newest intact checkpoint stamped past ``last_step``;
+        returns True when a swap happened.  The swap itself detects
+        corruption (``load_checkpoint_leaves`` checksums every array
+        BEFORE provenance checking or any engine state change), so each
+        candidate is read exactly once."""
+        import warnings
+
+        from ..utils.checkpoint import CheckpointCorruptError
+
+        for step, path in reversed(self.manager.checkpoints()):
+            if step <= self.last_step:
+                return False
+            try:
+                engine.swap_weights(path)
+            except CheckpointCorruptError as e:
+                warnings.warn(
+                    f"checkpoint watch: {path!r} is corrupt ({e}); trying "
+                    "the previous candidate", RuntimeWarning, stacklevel=2)
+                continue
+            self.last_step = step
+            return True
+        return False
+
+
 class ServeEngine:
     """Forward-only partitioned inference over one plan + weights."""
 
@@ -63,22 +114,28 @@ class ServeEngine:
         fin: int,
         widths: list[int],
         model: str = "gcn",
+        activation: str | None = None,
+        final_activation: str = "none",
         comm_schedule: str | None = None,
         halo_dtype: str | None = None,
         params=None,
+        checkpoint: str | None = None,
         max_batch: int = 64,
         buckets: tuple | None = None,
         latency_budget_ms: float = 50.0,
         seed: int = 0,
         device=None,
     ):
-        """The reference engine's ``mode='full'`` with its defaults: the
-        model's inter-layer activation (ReLU for GCN, none for GAT, PGAT's
-        bare layers), no activation after the last.
-        ``params``: per layer a ``(fin, fout)`` weight (GCN) or a
-        ``{w, a1, a2}`` dict (GAT), numpy arrays — e.g. the JAX
-        package's — or tensors; ``None`` draws the model's init from a
-        ``torch.Generator`` seeded with ``seed``.  ``device``: ``None``
+        """The reference engine's ``mode='full'``.  ``activation``:
+        between layers, ``None`` for the model's own (ReLU for GCN, none
+        for GAT, PGAT's bare layers); ``final_activation`` after the last.
+        ``checkpoint``: a trainer checkpoint ``.npz`` of either package —
+        its plan digest and model config are verified against this
+        engine's first, and its params replace ``params``.  ``params``:
+        per layer a ``(fin, fout)`` weight (GCN) or a ``{w, a1, a2}`` dict
+        (GAT), numpy arrays — e.g. the JAX package's — or tensors;
+        ``None`` draws the model's init from a ``torch.Generator`` seeded
+        with ``seed``.  ``device``: ``None``
         means ``cuda`` and raises without a GPU; pass ``"cpu"`` to run on
         the CPU.  ``comm_schedule``: ``'a2a'``, ``'ragged'``, ``'auto'``
         or ``None`` (``$SGCN_COMM_SCHEDULE``), resolved as the trainer
@@ -94,11 +151,23 @@ class ServeEngine:
         self.plan = plan
         self.fin = int(fin)
         self.widths = list(widths)
+        self.model_kind = model
+        spec = MODELS.get(model)
+        self.activation = (activation if activation is not None
+                           else spec.activation if spec is not None
+                           else None)
+        self.final_activation = final_activation
+        self.weights_rev = 0        # bumped by every swap_weights
+        self.checkpoint_meta = None
+        self._watch = None          # CheckpointWatcher
+        # a checkpoint is read and verified before anything is built (the
+        # plan's tile layouts included); an unknown model raises below
+        leaves = (self._load_leaves(checkpoint)
+                  if checkpoint is not None and spec is not None else None)
         self.setup = resolve_forward_setup(plan, model=model,
                                            comm_schedule=comm_schedule)
         self.comm_schedule = self.setup.comm_schedule
         self.halo_dtype = halo_dtype
-        self.activation = self.setup.activation
         self.router = VertexRouter(plan)
         self.batcher = MicroBatcher(
             max_batch=max_batch,
@@ -117,12 +186,59 @@ class ServeEngine:
         if halo_dtype is not None:
             fwd_static["halo_dtype"] = halo_dtype
         self.model = self.setup.module(
-            params, activation=self.activation, final_activation="none",
+            params, activation=self.activation,
+            final_activation=final_activation,
             fwd_static=fwd_static).to(self.device)
+        if leaves is not None:
+            from_leaves(leaves, self.model.layer_params())
         self.pa = self.setup.ship_arrays(plan, self.device)
         self._h0 = None                    # set_features()
         self.compile_count = 0             # no per-bucket compile (yet)
         self.forward_count = 0             # full forwards run
+
+    # ------------------------------------------------------------- loading
+    def _load_leaves(self, path: str) -> list:
+        """The checkpoint's param leaves (Adam state skipped — inference
+        has none), after verifying its plan digest and model config and
+        checking every param leaf against this engine's dims — a
+        wrong-plan or wrong-model file fails with a clear message before
+        any engine state changes."""
+        leaves, meta = load_checkpoint_leaves(path)
+        verify_checkpoint_provenance(
+            meta, plan=self.plan, model=self.model_kind, fin=self.fin,
+            widths=self.widths, activation=self.activation,
+            final_activation=self.final_activation,
+            what=f"serve engine ({path!r})")
+        dims = list(zip([self.fin] + self.widths[:-1], self.widths))
+        template = MODELS[self.model_kind].init_fn(
+            torch.Generator().manual_seed(0), dims)
+        check_leaves(leaves, template, what=f"checkpoint {path!r}")
+        self.checkpoint_meta = meta
+        return leaves
+
+    def swap_weights(self, checkpoint: str) -> dict:
+        """Hot-swap a new checkpoint into the running engine: provenance
+        and shapes are verified FIRST — a mismatch or a corrupt file
+        raises before any engine state changes — then the params are
+        copied into the live parameter tensors in place (each keeps its
+        storage), and ``weights_rev`` goes up by one.  Returns the new
+        checkpoint's meta block."""
+        leaves = self._load_leaves(checkpoint)
+        from_leaves(leaves, self.model.layer_params())
+        self.weights_rev += 1
+        return self.checkpoint_meta
+
+    def attach_checkpoint_watch(self, directory: str) -> CheckpointWatcher:
+        """Watch a ``CheckpointManager`` directory: every micro-batch polls
+        once and hot-swaps the newest intact checkpoint stamped past the
+        one loaded (CLI: ``--watch-checkpoint-dir``)."""
+        last = -1
+        if self.checkpoint_meta:
+            step = self.checkpoint_meta.get("step")
+            if step is not None:        # step 0 is a real stamp, not falsy
+                last = int(step)
+        self._watch = CheckpointWatcher(directory, last_step=last)
+        return self._watch
 
     # ------------------------------------------------------------ features
     def set_features(self, features: np.ndarray) -> None:
@@ -158,6 +274,10 @@ class ServeEngine:
         if nq == 0:
             return InFlightBatch(
                 self, torch.zeros((0, self.widths[-1])), 0)
+        if self._watch is not None:
+            # one poll per micro-batch: a newer intact checkpoint in the
+            # watched directory swaps in before this batch dispatches
+            self._watch.poll(self)
         with self.spans.span("serve:route"):
             owners, locals_ = self.router.lookup(qids)
         with self.spans.span("serve:batch"):
@@ -214,5 +334,6 @@ class ServeEngine:
             "buckets": list(self.batcher.buckets),
             "compiles": self.compile_count,
             "forwards": self.forward_count,
+            "weights_rev": self.weights_rev,
             "device": device_name(self.device),
         }

@@ -14,12 +14,20 @@ fails unless ``--device cpu`` is given) in place of ``-b/--backend``.
 ``--experiment accuracy``, as in the reference.  ``--dtype bfloat16`` is
 the mixed-precision step (float32 master weights, bf16 forward and
 backward) and ``--halo-dtype bfloat16`` the GCN wire-only lever, with the
-reference's flag guards.  Flags whose feature is not ported are not
-defined (mini-batch, stale halos, replicas, checkpoints, profiling,
-metrics, memory budget).  Prints ONE JSON line:
-the comm report and epoch timing under the reference's keys, or with
-``--experiment accuracy`` the oracle's and the partitioned trainer's
-test accuracy.
+reference's flag guards.  Checkpoints: ``--save-checkpoint CKPT`` writes
+the full trainer state after training, ``--resume CKPT`` restores one
+first (either package's ``.npz``), and ``--checkpoint-dir DIR`` runs the
+resumable loop (``resilience.run_resumable``) with a durable checkpoint
+every ``--checkpoint-every N`` steps, the newest ``--keep-checkpoints K``
+kept; ``--resume auto`` restores the newest intact one there and trains
+the rest of the ``--warmup + --epochs`` schedule, bit-identical to the
+uninterrupted run.  ``$SGCN_FAULT`` (``resilience/faults.py``) kills or
+corrupts a run after a named save.  Flags whose feature is not ported are
+not defined (mini-batch, stale halos, replicas, profiling, metrics, memory
+budget).  Prints ONE JSON line: the comm report and epoch timing under the
+reference's keys (with ``--checkpoint-dir``: ``steps``, ``step_s_wall``
+and the per-step ``losses``), or with ``--experiment accuracy`` the
+oracle's and the partitioned trainer's test accuracy.
 """
 
 from __future__ import annotations
@@ -81,6 +89,27 @@ def build_parser(description: str = "sgcn_tpu_torch partitioned full-batch "
                         "bits, fewer wire rows on skewed partitions), auto "
                         "= ragged when the a2a's padding efficiency is "
                         "below 0.5; unset reads $SGCN_COMM_SCHEDULE")
+    p.add_argument("--resume", default=None, metavar="CKPT|auto",
+                   help="restore the full trainer state (params, Adam "
+                        "state, step counter and cumulative comm gauges) "
+                        "from a checkpoint .npz before training; 'auto' "
+                        "picks the newest INTACT checkpoint in "
+                        "--checkpoint-dir, falling back past corrupt files "
+                        "with a logged warning, and trains only the "
+                        "REMAINING steps of the --warmup + --epochs "
+                        "schedule — bit-identical to the uninterrupted run")
+    p.add_argument("--save-checkpoint", default=None, metavar="CKPT",
+                   help="save the full trainer state after training")
+    p.add_argument("--checkpoint-dir", default=None, metavar="DIR",
+                   help="durable checkpoint directory: step-stamped atomic "
+                        "checkpoints with keep-last-K rotation — the "
+                        "directory --resume auto restores from")
+    p.add_argument("--checkpoint-every", type=int, default=0, metavar="N",
+                   help="write a durable full-state checkpoint into "
+                        "--checkpoint-dir every N optimizer steps.  0 = off")
+    p.add_argument("--keep-checkpoints", type=int, default=3, metavar="K",
+                   help="rotation depth of --checkpoint-dir (keep the "
+                        "newest K checkpoints; default 3)")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="where training runs (default cuda; no CPU "
@@ -161,6 +190,20 @@ def main(argv=None) -> None:
             "--comm-schedule ragged: the accuracy-parity harness is "
             "defined for the default transport — drop the conflicting "
             "flag or use --comm-schedule auto")
+    if args.checkpoint_every < 0:
+        raise SystemExit(
+            f"--checkpoint-every must be >= 0, got {args.checkpoint_every}")
+    if (args.checkpoint_every or args.resume == "auto") \
+            and not args.checkpoint_dir:
+        raise SystemExit(
+            "--checkpoint-every / --resume auto operate on the durable "
+            "checkpoint directory; add --checkpoint-dir DIR "
+            "(docs/resilience.md)")
+    if args.checkpoint_dir and args.experiment == "accuracy":
+        raise SystemExit(
+            "--experiment accuracy trains fresh oracle+partitioned pairs; "
+            "durable checkpointing (--checkpoint-dir) is not supported "
+            "there")
 
     if args.experiment == "accuracy" and (
             args.model != "gcn" or args.loss != "xent" or args.dtype
@@ -169,6 +212,12 @@ def main(argv=None) -> None:
             "--experiment accuracy compares against the dense GCN oracle "
             "and supports only --model gcn --loss xent --activation relu "
             "(f32); drop the conflicting flags")
+    if args.experiment == "accuracy" and (args.resume
+                                          or args.save_checkpoint):
+        raise SystemExit(
+            "--experiment accuracy trains fresh oracle+partitioned pairs "
+            "for the parity comparison; --resume/--save-checkpoint are "
+            "not supported there")
     from ..parallel.plan import build_comm_plan
     from ..utils.backend import resolve_device
     from .fullbatch import MODELS, FullBatchTrainer, make_train_data
@@ -199,8 +248,53 @@ def main(argv=None) -> None:
                           compute_dtype=args.dtype,
                           halo_dtype=args.halo_dtype,
                           comm_schedule=args.comm_schedule, device=device)
+    # durable checkpointing: one manager per checkpoint directory
+    mgr = None
+    if args.checkpoint_dir:
+        from ..resilience.checkpoint import CheckpointManager
+        mgr = CheckpointManager(args.checkpoint_dir,
+                                keep_last=args.keep_checkpoints)
+    resumed = None
+    start_step = 0
+    if args.resume == "auto":
+        start_step, rpath, skipped = mgr.load_latest(tr)
+        resumed = {"step": start_step, "path": rpath,
+                   "fallback": bool(skipped)}
+    elif args.resume:
+        from ..utils.checkpoint import load_checkpoint
+        start_step = load_checkpoint(tr, args.resume)
     data = make_train_data(plan, feats, labels, device=device)
-    report = tr.fit(data, epochs=args.epochs, warmup=args.warmup)
+    if mgr is not None:
+        # the resumable per-step loop: durable checkpoints every N steps +
+        # the fault-injection kill point.  --resume auto: --warmup/--epochs
+        # name the run's TOTAL step schedule and the resumed process
+        # completes the remainder (the bit-identity contract).  Explicit
+        # --resume CKPT keeps its chained meaning (train warmup+epochs MORE
+        # steps) but threads the loaded step through, so the durable stamps
+        # continue the trainer's real step count instead of restarting at 1
+        from ..resilience.runner import run_resumable
+        total = args.warmup + args.epochs
+        if args.resume and args.resume != "auto":
+            total += start_step
+        report = run_resumable(
+            tr, data, total, manager=mgr,
+            checkpoint_every=args.checkpoint_every,
+            start_step=start_step if args.resume else 0)
+    else:
+        report = tr.fit(data, epochs=args.epochs, warmup=args.warmup)
+    if resumed is not None:
+        report["resumed"] = resumed
+    if args.save_checkpoint:
+        # warm-up steps are real optimizer steps, so they count toward the
+        # saved step; --resume auto completes a FIXED total schedule, so
+        # its final step is absolute, not additive
+        from ..utils.checkpoint import save_checkpoint
+        if args.resume == "auto":
+            final_step = args.epochs + args.warmup
+        else:
+            final_step = start_step + args.epochs + args.warmup
+        report["checkpoint"] = save_checkpoint(
+            tr, args.save_checkpoint, step=final_step)
 
     # end-of-run line under the reference's keys
     report["device"] = args.device

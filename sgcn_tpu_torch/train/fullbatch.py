@@ -302,6 +302,7 @@ class FullBatchTrainer:
         self.device = resolve_device(device)
         setup = resolve_forward_setup(plan, model=model,
                                       comm_schedule=comm_schedule)
+        self.setup = setup
         self.comm_decision = setup.decision
         self.comm_schedule = setup.comm_schedule
         self.plan = plan
@@ -338,6 +339,7 @@ class FullBatchTrainer:
         self.spans = SpanTimer(timer=self.timer)
         self._step_count = 0
         self.last_err = None
+        self.last_restore_partial = False  # set by load_checkpoint
 
     # ------------------------------------------------------------- state
     @property
@@ -352,6 +354,30 @@ class FullBatchTrainer:
 
     def _sync(self) -> None:
         synchronize(self.device)
+
+    # ------------------------------------------------- checkpoint/resume state
+    def _carry_attr(self) -> str | None:
+        """The carry attribute a full-state checkpoint persists: none on
+        the exact path (the stale-halo and replica carries are ROADMAP
+        A7)."""
+        return None
+
+    def resume_state(self) -> tuple[dict, list]:
+        """``(state, carry_leaves)`` — what a bit-identical resume needs
+        beyond (params, Adam state), under the reference's keys: the step
+        counter, the effective ``sync_every`` (0: no sync schedule on the
+        exact path) and the cumulative CommStats gauges; no carry leaves."""
+        return {"step_count": int(self._step_count), "sync_every": 0,
+                "comm_stats": self.stats.state()}, []
+
+    def restore_resume_state(self, state: dict, carry_leaves=None) -> None:
+        """Restore ``resume_state()`` output (the checkpoint loader has
+        checked the mode already).  The backward exchanges, which the
+        reference's gauges do not record, are ``nlayers`` per step."""
+        self._step_count = int(state.get("step_count", 0))
+        if state.get("comm_stats"):
+            self.stats.load_state(state["comm_stats"])
+        self.stats.backward_exchanges = self.nlayers * self._step_count
 
     # ----------------------------------------------------------------- step
     def _forward(self, h0):

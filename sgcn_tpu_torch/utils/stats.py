@@ -94,6 +94,32 @@ class CommStats:
         self.exchanges += nlayers
         self._accumulate_bytes(1, 0)
 
+    # ----------------------------------------------------- checkpoint state
+    # the reference's cumulative gauges (its ``_CUMULATIVE_ATTRS``), all
+    # nine written so a port-written file restores cleanly there; the
+    # hidden, replica and partial-refresh ones are not counted here (every
+    # exchange is exposed, ROADMAP A7) and are written as 0.
+    # ``backward_exchanges`` is not among them: the trainer re-derives it
+    # from its step count (``FullBatchTrainer.restore_resume_state``).
+    _CUMULATIVE_ATTRS = (
+        "exchanges", "hidden_exchanges", "replica_exchanges",
+        "hidden_replica_exchanges", "halo_bytes_true_total",
+        "halo_bytes_wire_total", "partial_refresh_steps",
+        "partial_refresh_rows_total", "partial_refresh_wire_rows_total")
+    _COUNTED_ATTRS = ("exchanges", "halo_bytes_true_total",
+                      "halo_bytes_wire_total")
+
+    def state(self) -> dict:
+        """JSON-able snapshot of the cumulative gauges."""
+        return {a: int(getattr(self, a, 0)) for a in self._CUMULATIVE_ATTRS}
+
+    def load_state(self, state: dict) -> None:
+        """Restore ``state()`` onto a freshly built counter (``from_plan``
+        already re-derived the per-exchange figures)."""
+        for a in self._COUNTED_ATTRS:
+            if a in state:
+                setattr(self, a, int(state[a]))
+
     def cumulative(self) -> tuple:
         """Per-part cumulative (send_vol, send_msgs, recv_vol, recv_msgs);
         under ``reverse_backward`` the backward exchanges book each part's

@@ -894,3 +894,90 @@ def test_asymmetric_training_on_cuda_is_bit_identical(cuda_device, model):
     assert runs[0][0] == runs[1][0]
     assert all(torch.equal(a, b) for a, b in zip(runs[0][1], runs[1][1]))
     np.testing.assert_allclose(runs[0][0], runs[2][0], rtol=1e-5)
+
+
+# ------------------------------------------------ checkpoints on the card
+def _er_files(tmp_path, n=300):
+    """A symmetric ER graph as a ``.mtx`` and a 4-part random part vector
+    as a text file, for the train CLI."""
+    import scipy.io
+
+    mtx, parts = str(tmp_path / "g.mtx"), str(tmp_path / "g.4.rp")
+    scipy.io.mmwrite(mtx, er_graph(n, avg_deg=8, seed=3))
+    np.savetxt(parts, balanced_random_partition(n, 4, seed=1), fmt="%d")
+    return ["-a", mtx, "--normalize", "-p", parts, "-s", "4", "-f", "24",
+            "-l", "2", "--hidden", "32", "--warmup", "0", "--epochs", "6",
+            "--device", "cuda"]
+
+
+@pytest.mark.parametrize("model", ["gcn", "gat"])
+def test_kill_and_resume_on_cuda_is_bit_identical(cuda_device, model,
+                                                  tmp_path):
+    """On the card: a child killed after its step-3 save (exit 43), a new
+    process resuming it to 6 steps, and an uninterrupted child end with
+    the same losses and the same final state file, bit for bit."""
+    import json
+
+    import torch_resume_child as child
+
+    argv = _er_files(tmp_path) + ["--model", model, "--checkpoint-every",
+                                  "3"]
+    full, kill = str(tmp_path / "full"), str(tmp_path / "kill")
+    codes = child.spawn_all([
+        (argv + ["--checkpoint-dir", full + ".d", "--save-checkpoint",
+                 full + ".npz"], None, full),
+        (argv + ["--checkpoint-dir", kill + ".d"], "kill-after-save:3",
+         kill)])
+    assert codes == [0, 43]
+    resume = str(tmp_path / "resume")
+    assert child.spawn_all([(argv + [
+        "--checkpoint-dir", kill + ".d", "--resume", "auto",
+        "--save-checkpoint", resume + ".npz"], None, resume)]) == [0]
+    want = child.read_result(full)["report"]
+    got = child.read_result(resume)["report"]
+    assert got["resumed"]["step"] == 3
+    assert got["losses"] == want["losses"][3:]
+    with np.load(full + ".npz") as a, np.load(resume + ".npz") as b:
+        assert sorted(a.files) == sorted(b.files)
+        for key in a.files:
+            assert np.array_equal(a[key], b[key]), key
+    assert json.loads(str(np.load(full + ".npz")["__train_state__"]))[
+        "step_count"] == 6
+
+
+@pytest.mark.parametrize("model", ["gcn", "gat"])
+def test_engine_from_checkpoint_on_cuda_serves_predict_rows(cuda_device,
+                                                            model, tmp_path):
+    """``ServeEngine(checkpoint=…)`` on the card serves the trainer's
+    ``predict`` rows bit for bit; a hot swap keeps every parameter's
+    storage and moves the rows to the new file's."""
+    from sgcn_tpu_torch.resilience.checkpoint import CheckpointManager
+    from sgcn_tpu_torch.utils.checkpoint import save_checkpoint
+
+    n = 300
+    plan = build_comm_plan(normalize_adjacency(er_graph(n, avg_deg=8,
+                                                        seed=3)),
+                           balanced_random_partition(n, 4, seed=1), 4)
+    rng = np.random.default_rng(4)
+    feats = rng.standard_normal((n, 24)).astype(np.float32)
+    labels = rng.integers(0, 5, n)
+    tr = FullBatchTrainer(plan, fin=24, widths=[32, 5], model=model,
+                          activation="none" if model == "gat" else "relu",
+                          seed=2, device=cuda_device)
+    data = make_train_data(plan, feats, labels, device=cuda_device)
+    tr.step(data)
+    first = save_checkpoint(tr, str(tmp_path / "one"), step=1)
+    rows1 = tr.predict(data)
+    tr.step(data)
+    CheckpointManager(str(tmp_path / "d")).save(tr, 2)
+    rows2 = tr.predict(data)
+    q = np.arange(0, n, 7)
+    eng = ServeEngine(plan, fin=24, widths=[32, 5], model=model,
+                      checkpoint=first, max_batch=64, device=cuda_device)
+    eng.set_features(feats)
+    assert np.array_equal(eng.query(q), rows1[q])
+    ptrs = [p.data_ptr() for p in eng.model.parameters()]
+    eng.attach_checkpoint_watch(str(tmp_path / "d"))
+    assert np.array_equal(eng.query(q), rows2[q])
+    assert eng.weights_rev == 1
+    assert [p.data_ptr() for p in eng.model.parameters()] == ptrs

@@ -49,3 +49,14 @@ def test_scan_sees_the_package_and_matches_exact_names():
     roots = [n.names[0].name.split(".")[0] if isinstance(n, ast.Import)
              else n.module.split(".")[0] for n in tree.body]
     assert [r in FORBIDDEN for r in roots] == [False, True]
+
+
+def test_scan_sees_the_checkpoint_and_resilience_modules():
+    """The checkpoint layer (its own copy of ``plan_digest`` included) is
+    in the scan, so it too imports nothing of JAX or the JAX package."""
+    names = {os.path.relpath(p, REPO) for p in _sources()}
+    for rel in (("obs", "recorder.py"), ("utils", "checkpoint.py"),
+                ("resilience", "atomic.py"), ("resilience", "checkpoint.py"),
+                ("resilience", "faults.py"), ("resilience", "runner.py"),
+                ("resilience", "__init__.py")):
+        assert os.path.join("sgcn_tpu_torch", *rel) in names

@@ -217,11 +217,18 @@ def test_cli_runs_in_process(capsys):
     assert rep["compiles"] == 0 and rep["comm_schedule"] == "a2a"
 
 
-def test_cli_leaves_unported_flags_undefined():
-    for flag in ("--checkpoint",
-                 "--serve-mode", "--concurrent", "--metrics-out"):
-        with pytest.raises(SystemExit):
+def test_cli_leaves_unported_flags_undefined(capsys):
+    """Flags of features not ported are undefined (argparse exit 2);
+    ``--checkpoint`` is ported and exclusive with ``--random-init``."""
+    for flag in ("--serve-mode", "--concurrent", "--metrics-out",
+                 "--shed-factor"):
+        with pytest.raises(SystemExit) as exc:
             serve_main(["-p", HP8, "-s", "8", "--random-init", flag, "x"])
+        assert exc.value.code == 2
+        assert "unrecognized arguments" in capsys.readouterr().err
+    with pytest.raises(SystemExit, match="exclusive"):
+        serve_main(["-p", HP8, "-s", "8", "--random-init",
+                    "--checkpoint", "x"])
 
 
 # ---------------------------------------------------------------- device

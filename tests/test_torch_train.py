@@ -490,6 +490,10 @@ def test_cli_accuracy_experiment_in_process(capsys):
                     "--experiment", "accuracy", "--device", "cpu"])
 
 
+CHECKPOINT_FLAGS = ("--resume", "--save-checkpoint", "--checkpoint-dir",
+                    "--checkpoint-every", "--keep-checkpoints")
+
+
 @pytest.mark.parametrize("flag", [
     "-b", "--backend", "-n", "--batch-size",
     "--halo-staleness", "--halo-delta", "--sync-every",
@@ -497,8 +501,15 @@ def test_cli_accuracy_experiment_in_process(capsys):
     "--save-checkpoint", "--checkpoint-dir", "--checkpoint-every",
     "--keep-checkpoints", "--profile", "--metrics-out", "--memory-budget"])
 def test_cli_leaves_unported_flags_undefined(flag, capsys):
+    """Flags of features not ported are undefined (argparse exit 2).  The
+    checkpoint flags are ported (``tests/test_torch_checkpoint.py``): they
+    parse, and the run stops at the input guard instead."""
     with pytest.raises(SystemExit) as exc:
         train_main(["-p", HP8, "-s", "8", "--device", "cpu", flag, "1"])
+    if flag in CHECKPOINT_FLAGS:
+        assert exc.value.code != 2
+        assert "unrecognized arguments" not in capsys.readouterr().err
+        return
     assert exc.value.code == 2
     assert "unrecognized arguments" in capsys.readouterr().err
 
