@@ -12,7 +12,9 @@ failure raises and the script exits non-zero:
      CUDA versions, and build every kernel from ``sgcn_tpu_torch/csrc``
      (one ``nvcc`` per source, started together), with its build time and
      the tile kernel's ``-Xptxas -v`` report (registers, shared memory,
-     spills per instantiation);
+     spills per instantiation); then make phase 24's DCSBM flagship graph
+     and start its hp and gp partitions on two host threads, which run
+     beside phases 1–23;
   1. the tile SpMM kernel (K1) against its plain PyTorch version on the
      card, on random tiles from a numpy seed — one launch over a family
      of 4 classes with a hub row of 1100 slots, an all-pad tile, a
@@ -200,20 +202,46 @@ failure raises and the script exits non-zero:
      limit.  The children's inputs come from an ``.npz`` written under
      ``build/chip_smoke_ckpt/``, and every child is stopped when the
      phase ends;
-  24. one JSON line ``{"kernels": [...]}`` — per ported kernel (the tile
+  24. the offline pipeline.  (a) cora2708 through the CLIs, each in a
+     child process as phase 23 runs them: its adjacency written with the
+     port's ``write_mtx``, ``python -m sgcn_tpu_torch.prep`` on it (the
+     printed line checked), ``python -m sgcn_tpu_torch.partition -k 8 -m
+     hp,gp,rp`` (every part vector complete, its printed km1 / edge cut
+     equal to a numpy recount, hp and gp sending fewer rows than rp),
+     then three children at once: the train CLI on ``cora.A.mtx`` and
+     ``….8.hp`` for 1 + 5 steps on each transport (exact launches; the
+     ring's losses and its saved weights and Adam state == a2a's bit for
+     bit) and the serve CLI with ``--random-init`` (exact launches);
+     files under ``build/chip_smoke_pipeline/``.  (b) the DCSBM flagship
+     (``dcsbm_graph(169343)``: 64 communities, degree 14, seed 0; Â
+     normalized) on its hp and gp parts from the port's native binding
+     (k = 8, seed 1; each partitioned twice, the vectors equal, the
+     metrics equal to a numpy recount) and balanced random parts (seed
+     1): each plan's B, S, R, true and wire rows and ``auto``'s pick,
+     printed; hp and gp must send fewer rows than rp; at 128 → 128 → 128
+     → 40 with phase 3's features and phase 5's labels, GCN 1 warm-up + 5
+     timed steps on a2a and on the ring on the hp and the rp parts (exact
+     launches, ragged == a2a bit for bit), GAT a2a the same on both,
+     their ``device_split`` and epoch_s hp against rp; GCN serving on both
+     (512 closed-loop queries at batch 64, rows vs the float64 forward,
+     exact launches); the row pack and the fused entry == plain on the hp
+     plan's layer 0, whose tiles hold the longest row (checked); K3's
+     whole op timed on both plans.  Partition seconds are host seconds.
+     K1's float-weight family entries must stay at 0 launches;
+  25. one JSON line ``{"kernels": [...]}`` — per ported kernel (the tile
      SpMM, the GCN aggregation's backward, the GAT attention pass and its
      use in the GAT layer's backward, the ragged ring aggregation and its
      backward, the row shuffle, the tile SpMM's and the GAT pass's bf16
      flavors, the row pack and the fused local + remote entry) its
-     launches on the main path (phases 2–5, 7–13, 15–17, 19–21 and 23,
-     the resumed children's included), max
+     launches on the main path (phases 2–5, 7–13, 15–17, 19–21, 23 and
+     24, the children's included), max
      |kernel − plain|, kernel / plain / bound / library times at the
      flagship layer.  The tile SpMM's own float-weight family entries
      (both tables) launch on the main path only in the asymmetric
      backward (phases 20–21): the symmetric phases must show 0 of them —
      the fused entry runs their chains and counts those launches — and any
      kernel with no launch on the main path fails the run;
-  25. the last line: ``{"ok": true, "device": {...}}``.
+  26. the last line: ``{"ok": true, "device": {...}}``.
 
 Without CUDA, or without the rest of the repository beside it, the script
 prints no result and exits with code 2 or 3.
@@ -2447,45 +2475,51 @@ def launch_counts(zero: bool = False) -> dict:
     return {key: getattr(obj, attr) for key, (obj, attr) in owners.items()}
 
 
-def ckpt_child(argv, fault, out_path):
-    """One process of phase 23, started with the ``spawn`` context:
-    ``python -m sgcn_tpu_torch.train argv`` in-process on the card under
-    ``$SGCN_FAULT=fault`` (``None``: no fault), set here before the CLI
-    builds anything.  When the CLI returns, writes its JSON report, the
-    warnings it raised, its launch counts and its clock marks to
-    ``out_path``; a run the fault kills writes nothing."""
+def cli_child(module, argv, fault, out_path):
+    """One child process of phases 23 and 24, started with the ``spawn``
+    context: ``python -m sgcn_tpu_torch.<module> argv`` in-process (its
+    ``main``) under ``$SGCN_FAULT=fault`` (``None``: no fault), set here
+    before the CLI builds anything.  When the CLI returns, writes its
+    standard output, its JSON report (the last line, where it prints
+    one), the warnings it raised, its launch counts and its clock marks
+    to ``out_path``; a run the fault kills writes nothing."""
     t_enter = time.time()
     if fault:
         os.environ["SGCN_FAULT"] = fault
     else:
         os.environ.pop("SGCN_FAULT", None)
     sys.path.insert(0, REPO)
+    import importlib
     import warnings
 
     import torch
 
-    from sgcn_tpu_torch.train.__main__ import main as train_main
-
+    main = importlib.import_module(f"sgcn_tpu_torch.{module}.__main__").main
     launch_counts(zero=True)                 # this child's path starts here
     t_imported = time.time()
     out = io.StringIO()
     with warnings.catch_warnings(record=True) as caught, \
             contextlib.redirect_stdout(out):
         warnings.simplefilter("always")
-        train_main(list(argv))
-    torch.cuda.synchronize()
+        main(list(argv))
+    if torch.cuda.is_initialized():
+        torch.cuda.synchronize()
     launches = launch_counts()                # ... and ends here
+    text = out.getvalue()
+    last = text.strip().splitlines()[-1] if text.strip() else ""
     with open(out_path, "w") as fh:
-        json.dump({"report": json.loads(out.getvalue().strip()
-                                        .splitlines()[-1]),
+        json.dump({"stdout": text,
+                   "report": json.loads(last) if last.startswith("{")
+                   else None,
                    "warnings": [str(w.message) for w in caught],
                    "launches": launches, "t_enter": t_enter,
                    "t_imported": t_imported, "t_end": time.time()}, fh)
 
 
 class Children:
-    """Phase 23's child processes: ``start`` spawns one per job, all at
-    once; ``join`` waits for them (a child alive past the deadline is
+    """Phases 23 and 24's child processes (``cli_child``): ``start``
+    spawns one per job ``(module, argv, fault, out_path)``, all at once;
+    ``join`` waits for them (a child alive past the deadline is
     terminated and fails the run); ``stop`` terminates whatever still
     runs, so no child outlives the script."""
 
@@ -2498,7 +2532,7 @@ class Children:
     def start(self, jobs):
         procs = []
         for job in jobs:
-            p = self.ctx.Process(target=ckpt_child, args=job)
+            p = self.ctx.Process(target=cli_child, args=job)
             t = time.time()
             p.start()
             procs.append((p, t))
@@ -2512,7 +2546,7 @@ class Children:
             p.join(max(0.0, deadline - time.monotonic()))
             if p.is_alive():
                 self.stop()
-                raise AssertionError(f"phase 23: child {p.pid} still runs "
+                raise AssertionError(f"child {p.pid} still runs "
                                      f"after {timeout:.0f} s")
             codes.append(p.exitcode)
         return codes
@@ -2593,12 +2627,12 @@ def _phase_checkpoints(children, plan, ahat, feats, labels, pv, widths,
         argv[case] = base + ["--model", model, "--comm-schedule", sched,
                              "--checkpoint-dir", os.path.join(CKPT_DIR, case),
                              "--checkpoint-every", "3"]
-        jobs.append((argv[case], "kill-after-save:3",
+        jobs.append(("train", argv[case], "kill-after-save:3",
                      os.path.join(CKPT_DIR, f"{case}.kill.json")))
     argv["bitflip"] = base + ["--comm-schedule", "a2a", "--checkpoint-dir",
                               os.path.join(CKPT_DIR, "bitflip"),
                               "--checkpoint-every", "2"]
-    jobs.append((argv["bitflip"], "corrupt-after-save:4:bitflip",
+    jobs.append(("train", argv["bitflip"], "corrupt-after-save:4:bitflip",
                  os.path.join(CKPT_DIR, "bitflip.kill.json")))
     names = list(CKPT_CASES) + ["bitflip"]
 
@@ -2637,7 +2671,7 @@ def _phase_checkpoints(children, plan, ahat, feats, labels, pv, widths,
 
     # ---- a new process per killed run: --resume auto to 6 steps
     for case in names:
-        resumes.append((argv[case] + [
+        resumes.append(("train", argv[case] + [
             "--resume", "auto", "--save-checkpoint",
             os.path.join(CKPT_DIR, f"{case}.final.npz")], None,
             os.path.join(CKPT_DIR, f"{case}.resume.json")))
@@ -2814,6 +2848,447 @@ def _phase_checkpoints(children, plan, ahat, feats, labels, pv, widths,
     return total
 
 
+# ------------------------- the offline pipeline: prep, partition, the files
+PIPE_DIR = os.path.join(REPO, "build", "chip_smoke_pipeline")
+# the DCSBM flagship's partitions: k parts, the partition CLI's seed
+PART_K, PART_SEED = 8, 1
+# threads and pools that must not outlive the script (closed at exit)
+BACKGROUND = []
+
+
+class FlagshipPartitions:
+    """Phase 24's hp and gp partitions of the DCSBM flagship graph, each
+    twice (the determinism check), on two host threads started after
+    phase 0, so that their host seconds pass beside the card's phases 1–23
+    (the native calls release the interpreter lock).  ``result`` waits for
+    all four and re-raises a failure; ``close`` cancels what has not
+    started."""
+
+    def __init__(self, ahat, k, seed):
+        from concurrent.futures import ThreadPoolExecutor
+
+        self.pool = ThreadPoolExecutor(max_workers=2,
+                                       thread_name_prefix="partition")
+        self.futures = {(mode, rep): self.pool.submit(
+            self._run, ahat, mode, k, seed)
+            for mode in ("hp", "gp") for rep in (0, 1)}
+        BACKGROUND.append(self)
+
+    @staticmethod
+    def _run(ahat, mode, k, seed):
+        from sgcn_tpu_torch.partition import (partition_graph,
+                                              partition_hypergraph_colnet)
+
+        fn = partition_hypergraph_colnet if mode == "hp" else partition_graph
+        t0, c0 = time.perf_counter(), time.thread_time()
+        pv, metric = fn(ahat, k, seed=seed)
+        return pv, metric, time.perf_counter() - t0, time.thread_time() - c0
+
+    def result(self):
+        return {key: f.result() for key, f in self.futures.items()}
+
+    def close(self):
+        self.pool.shutdown(wait=False, cancel_futures=True)
+
+
+def check_partvec(pv, n, k, what):
+    """A part vector is complete: n entries, every one in [0, k), every
+    part non-empty."""
+    import numpy as np
+
+    if not (pv.shape == (n,) and pv.min() >= 0 and pv.max() < k
+            and len(np.unique(pv)) == k):
+        raise AssertionError(f"{what}: part vector incomplete (shape "
+                             f"{pv.shape}, ids {pv.min()}..{pv.max()}, "
+                             f"{len(np.unique(pv))} parts of {k})")
+
+
+def edge_cut(a, pv):
+    """The graph partitioner's objective recounted in numpy: edges of the
+    symmetrized unit pattern, diagonal dropped, whose ends lie in two
+    parts."""
+    import scipy.sparse as sp
+
+    pat = sp.csr_matrix(a, copy=True)
+    pat.data[:] = 1.0
+    sym = sp.triu(pat + pat.T, k=1).tocoo()
+    return int((pv[sym.row] != pv[sym.col]).sum())
+
+
+def km1_count(a, pv, k):
+    """The hypergraph partitioner's objective recounted in numpy: Σ over
+    the columns (nets) of (parts among the column's rows − 1)."""
+    import numpy as np
+    import scipy.sparse as sp
+
+    c = sp.csc_matrix(a)
+    cols = np.repeat(np.arange(c.shape[1], dtype=np.int64), np.diff(c.indptr))
+    pairs = np.unique(cols * k + pv[c.indices])
+    lam = np.bincount(pairs // k, minlength=c.shape[1])
+    return int(np.maximum(lam - 1, 0).sum())
+
+
+def phase_pipeline(parts_bg, ahat_dc, fix, dev, tb, smi):
+    """Phase 24 (module docstring): the cora CLI pipeline in child
+    processes, then the DCSBM flagship on its hp, gp and rp parts in this
+    one.  Returns the launch counts of its paths by kernel entry and the
+    fused entry's max |kernel − plain| on the hp plan."""
+    children = Children()
+    try:
+        cora = _pipeline_cora_clis(children, fix, smi)
+    finally:
+        children.stop()
+    flag, fused_err = _pipeline_flagship(parts_bg, ahat_dc, dev, tb, smi)
+    return {key: cora[key] + flag[key] for key in flag}, fused_err
+
+
+def _pipeline_cora_clis(children, fix, smi):
+    import shutil
+
+    import numpy as np
+
+    from sgcn_tpu_torch.io.datasets import load_npz_dataset
+    from sgcn_tpu_torch.io.mtx import read_mtx, write_mtx
+    from sgcn_tpu_torch.parallel import build_comm_plan
+    from sgcn_tpu_torch.partition import read_partvec
+
+    shutil.rmtree(PIPE_DIR, ignore_errors=True)
+    os.makedirs(PIPE_DIR)
+    a, _, _ = load_npz_dataset(os.path.join(fix, "cora2708.npz"))
+    raw = os.path.join(PIPE_DIR, "cora2708.mtx")
+    write_mtx(raw, a)
+    amtx = os.path.join(PIPE_DIR, "cora.A.mtx")
+    total = {key: 0 for key in launch_counts()}
+
+    def run(jobs):
+        wave = children.start([(module, argv, None,
+                                os.path.join(PIPE_DIR, f"{name}.json"))
+                               for name, module, argv in jobs])
+        codes = children.join(wave)
+        if codes != [0] * len(jobs):
+            raise AssertionError(f"phase 24: children {[j[0] for j in jobs]}"
+                                 f" exited {codes}")
+        out = {}
+        for (_, t_spawn), (name, _, _) in zip(wave, jobs):
+            with open(os.path.join(PIPE_DIR, f"{name}.json")) as fh:
+                res = json.load(fh)
+            for key in total:
+                total[key] += res["launches"][key]
+            log(f"  {name} child: start-up {res['t_imported'] - t_spawn:.2f}"
+                f" s, in the CLI {res['t_end'] - res['t_imported']:.2f} s")
+            out[name] = res
+        return out
+
+    # ---- python -m sgcn_tpu_torch.prep on the raw adjacency
+    res = run([("prep", "prep", ["-a", raw, "-o", PIPE_DIR, "-n", "cora",
+                                 "-l", "2", "-f", "16", "-c", "7"])])["prep"]
+    log(f"  prep: {res['stdout'].strip()}")
+    if res["stdout"] != (f"wrote cora.A/H/Y.mtx + config (n=2708, "
+                         f"widths=[16, 7]) to {PIPE_DIR}\n"):
+        raise AssertionError(f"phase 24: prep printed {res['stdout']!r}")
+
+    # ---- python -m sgcn_tpu_torch.partition -k 8 -m hp,gp,rp on Â
+    res = run([("partition", "partition",
+                ["-a", amtx, "-k", "8", "-m", "hp,gp,rp"])])["partition"]
+    lines = res["stdout"].strip().splitlines()
+    ahat = read_mtx(amtx)
+    sent = {}
+    for mode, line in zip(("hp", "gp", "rp"), lines):
+        log(f"  partition: {line}")
+        path = f"{amtx}.8.{mode}"
+        pv = read_partvec(path)
+        check_partvec(pv, 2708, 8, f"cora {mode}")
+        fields = dict(tok.split("=") for tok in line.split()[2:])
+        key, want = {"hp": ("km1", km1_count(ahat, pv, 8)),
+                     "gp": ("edgecut", edge_cut(ahat, pv)),
+                     "rp": ("none", -1)}[mode]
+        if not line.startswith(f"{mode}: {path}  ") \
+                or int(fields[key]) != want \
+                or int(fields["max_part"]) != np.bincount(pv).max():
+            raise AssertionError(f"phase 24: cora {mode} line {line!r}, "
+                                 f"numpy recount {key}={want}")
+        sent[mode] = int(build_comm_plan(ahat, pv, 8)
+                         .predicted_send_volume.sum())
+    log(f"  cora rows sent per exchange by part vector: {sent}")
+    if len(lines) != 3 or not (sent["hp"] < sent["rp"]
+                               and sent["gp"] < sent["rp"]):
+        raise AssertionError(f"phase 24: cora partitions {lines}, {sent}")
+
+    # ---- train (both transports) and serve on the files, 3 children
+    files = ["-a", amtx, "-p", f"{amtx}.8.hp", "-s", "8", "--features-mtx",
+             os.path.join(PIPE_DIR, "cora.H.mtx"), "-l", "2", "--hidden",
+             "16", "--device", "cuda"]
+    train = files + ["--labels-mtx", os.path.join(PIPE_DIR, "cora.Y.mtx"),
+                     "--epochs", "5", "--warmup", "1"]
+    jobs = [(f"train-{s}", "train", train + [
+        "--comm-schedule", s, "--save-checkpoint",
+        os.path.join(PIPE_DIR, f"{s}.npz")]) for s in ("a2a", "ragged")]
+    jobs.append(("serve", "serve", files + [
+        "--random-init", "--classes", "7", "--queries", "256",
+        "--max-batch", "32", "--comm-schedule", "a2a"]))
+    res = run(jobs)
+    steps, bwd = 6, backward_passes(1, [16, 7])
+    want = steps * (2 + bwd)
+    losses, leaves = {}, {}
+    for sched in ("a2a", "ragged"):
+        r = res[f"train-{sched}"]
+        ln, rep = r["launches"], r["report"]
+        losses[sched] = [float(x.split()[-1]) for x in r["stdout"].splitlines()
+                         if x.startswith("epoch ")]
+        with np.load(os.path.join(PIPE_DIR, f"{sched}.npz")) as z:
+            leaves[sched] = [z[f"leaf_{i}"] for i in range(
+                sum(f.startswith("leaf_") for f in z.files))]
+        ring = ln["ring"] + ln["ring_bwd"]
+        log(f"  train {sched}: losses {losses[sched]}, epoch_s "
+            f"{rep['epoch_s']!r}, wire rows {rep['wire_rows_per_exchange']}; "
+            f"fused {ln['fused']} (backward {ln['sym_bwd']}, ring "
+            f"{ring}), row pack {ln['pack']}; expected {want} = {steps} "
+            f"steps x (2 + {bwd})")
+        if (rep["comm_schedule"] != sched or len(losses[sched]) != 5
+                or not np.isfinite(losses[sched]).all()
+                or ln["fused"] != want or ln["pack"] != want
+                or (ring != want if sched == "ragged"
+                    else ln["sym_bwd"] != steps * bwd)
+                or ln["k1"] or ln["k1_bf16"]):
+            raise AssertionError(f"phase 24: cora train {sched}: {rep}, "
+                                 f"launches {ln}")
+    same = losses["a2a"] == losses["ragged"] and len(leaves["a2a"]) == len(
+        leaves["ragged"]) and all(np.array_equal(x, y) for x, y in zip(
+            leaves["a2a"], leaves["ragged"]))
+    log(f"  ragged == a2a on the cora hp files (losses, weights + Adam "
+        f"state after 6 steps): {same}")
+    if not same:
+        raise AssertionError("phase 24: cora ragged training != a2a")
+    r = res["serve"]
+    rep, ln = r["report"], r["launches"]
+    log(f"  serve (random init): {rep['queries']} queries, "
+        f"{rep['achieved_qps']} QPS, p50 {rep['latency_p50_ms']} ms, p99 "
+        f"{rep['latency_p99_ms']} ms, {rep['forwards']} forwards; fused "
+        f"{ln['fused']}, row pack {ln['pack']} (expected forwards x 2)")
+    if (rep["queries"] != 256 or rep["weights"] != "random-init"
+            or rep["comm_schedule"] != "a2a"
+            or not np.isfinite([rep["latency_p50_ms"],
+                                rep["latency_p99_ms"]]).all()
+            or ln["fused"] != 2 * rep["forwards"] or ln["pack"] != ln["fused"]
+            or ln["k1"] or ln["k1_bf16"]):
+        raise AssertionError(f"phase 24: cora serve {rep}, launches {ln}")
+    log(f"  cora CLI pipeline launches {total}; card: {smi}")
+    return total
+
+
+def _pipeline_flagship(parts_bg, ahat_dc, dev, tb, smi):
+    import numpy as np
+    import torch
+
+    from sgcn_tpu_torch.models.gat import params_from_jax as gat_from_numpy
+    from sgcn_tpu_torch.ops.pspmm import exchange_recv
+    from sgcn_tpu_torch.parallel import build_comm_plan, resolve_comm_schedule
+    from sgcn_tpu_torch.partition import balanced_random_partition
+    from sgcn_tpu_torch.train import FullBatchTrainer, make_train_data
+
+    n, k = ahat_dc.shape[0], PART_K
+    t0 = time.perf_counter()
+    res = parts_bg.result()
+    log(f"  the partitions' threads: {time.perf_counter() - t0:.2f} s "
+        "waited for them here")
+    pvs = {}
+    for mode, name in (("hp", "km1"), ("gp", "edgecut")):
+        (pv, metric, wall, cpu), (pv2, metric2, wall2, cpu2) = \
+            res[(mode, 0)], res[(mode, 1)]
+        check_partvec(pv, n, k, f"DCSBM {mode}")
+        recount = km1_count(ahat_dc, pv, k) if mode == "hp" \
+            else edge_cut(ahat_dc, pv)
+        log(f"  {mode}: {name}={metric} (numpy recount {recount}); "
+            f"partition host seconds {wall!r} and {wall2!r} wall, "
+            f"{cpu!r} and {cpu2!r} thread CPU (two runs, two threads beside "
+            "phases 1-23); the second run's vector == the first's: "
+            f"{np.array_equal(pv, pv2)}")
+        if metric != recount or metric2 != metric \
+                or not np.array_equal(pv, pv2):
+            raise AssertionError(f"phase 24: DCSBM {mode} partition")
+        pvs[mode] = pv
+    pvs["rp"] = balanced_random_partition(n, k, PART_SEED)
+    plans, sent = {}, {}
+    for mode, pv in pvs.items():
+        t0 = time.perf_counter()
+        plan = build_comm_plan(ahat_dc, pv, k)
+        t_plan = time.perf_counter() - t0
+        decision = {}
+        pick = resolve_comm_schedule("auto", [plan], "gcn", decision)
+        sizes = np.bincount(pv, minlength=k)
+        sent[mode] = int(plan.predicted_send_volume.sum())
+        log(f"  {mode}: B {plan.b} S {plan.s} R {plan.r}; true halo rows "
+            f"{sent[mode]}, a2a wire rows {plan.wire_rows_per_exchange('a2a')}"
+            f" (efficiency {plan.padding_efficiency():.3f}), ring wire rows "
+            f"{plan.wire_rows_per_exchange('ragged')}; auto -> {pick}; part "
+            f"sizes {sizes.min()}..{sizes.max()} (B {plan.b / (n / k):.4f} x "
+            f"the mean); plan built in {t_plan:.2f} s (host)")
+        plans[mode] = plan
+    if not (sent["hp"] < sent["rp"] and sent["gp"] < sent["rp"]):
+        raise AssertionError(f"phase 24: hp/gp send no less than rp: {sent}")
+
+    feats = np.random.default_rng(2).standard_normal((n, 128)).astype(
+        np.float32)
+    labels = np.random.default_rng(4).integers(0, 40, n)
+    widths = [128, 128, 40]
+    steps, bwd = 1 + 5, backward_passes(128, widths)
+    want = steps * (len(widths) + bwd)
+    total = {key: 0 for key in launch_counts()}
+
+    def counted(run):
+        launch_counts(zero=True)               # a main-path run starts here
+        out = run()
+        torch.cuda.synchronize()
+        ln = launch_counts()                   # ... and ends here
+        for key in total:
+            total[key] += ln[key]
+        if ln["k1"] or ln["k1_bf16"]:
+            raise AssertionError(f"phase 24: K1 family launches {ln}")
+        return out, ln
+
+    # ---- GCN: 1 warm-up + 5 timed steps, a2a and the ring, hp and rp
+    datas, gcn = {}, {}
+    for mode in ("hp", "rp"):
+        datas[mode] = data = make_train_data(plans[mode], feats, labels,
+                                             device=dev)
+        for sched in ("a2a", "ragged"):
+            tr = FullBatchTrainer(plans[mode], fin=128, widths=widths, seed=5,
+                                  comm_schedule=sched, device=dev)
+            rep, ln = counted(lambda: tr.fit(data, epochs=5, warmup=1,
+                                             verbose=False))
+            ring = ln["ring"] + ln["ring_bwd"]
+            log(f"  GCN {mode} {sched}: epoch_s {rep['epoch_s']!r}, losses "
+                f"{rep['loss_history']}; fused {ln['fused']} (backward "
+                f"{ln['sym_bwd']}, ring {ring}), row pack {ln['pack']}; "
+                f"expected {want}")
+            if (ln["fused"] != want or ln["pack"] != want
+                    or (ring != want if sched == "ragged"
+                        else ln["sym_bwd"] != steps * bwd)
+                    or not np.isfinite(rep["loss_history"]).all()):
+                raise AssertionError(f"phase 24: GCN {mode} {sched}")
+            gcn[(mode, sched)] = (tr, rep, [w.detach().clone()
+                                            for w in tr.params])
+        (_, ra, wa), (_, rr, wr) = gcn[(mode, "a2a")], gcn[(mode, "ragged")]
+        same = ra["loss_history"] == rr["loss_history"] and all(
+            torch.equal(x, y) for x, y in zip(wa, wr))
+        log(f"  GCN {mode}: ragged == a2a bit for bit (losses, weights after "
+            f"the 6 steps): {same}")
+        if not same:
+            raise AssertionError(f"phase 24: GCN {mode} ragged != a2a")
+    split = {mode: device_split(f"DCSBM {mode} GCN a2a training",
+                                lambda: gcn[(mode, "a2a")][0].step(
+                                    datas[mode]), reps=3)
+             for mode in ("hp", "rp")}
+
+    # ---- GAT a2a: 1 warm-up + 5 timed steps, hp and rp
+    params_g = gat_params_numpy(7, list(zip([128] + widths[:-1], widths)))
+    want_g = steps * 2 * gat_passes(widths)
+    want_pg = steps * 2 * pack_launches("gat", "a2a", widths)
+    gat = {}
+    for mode in ("hp", "rp"):
+        trg = FullBatchTrainer(plans[mode], fin=128, widths=widths,
+                               model="gat", activation="none",
+                               params=gat_from_numpy(params_g),
+                               comm_schedule="a2a", device=dev)
+        rep, ln = counted(lambda: trg.fit(datas[mode], epochs=5, warmup=1,
+                                          verbose=False))
+        log(f"  GAT {mode} a2a: epoch_s {rep['epoch_s']!r}, losses "
+            f"{rep['loss_history']}; K5 {ln['k5']} (backward "
+            f"{ln['gat_bwd']}), row pack {ln['pack']}; expected {want_g}, "
+            f"{want_pg}")
+        if (ln["k5"] != want_g or ln["gat_bwd"] != want_g // 2
+                or ln["pack"] != want_pg
+                or not np.isfinite(rep["loss_history"]).all()):
+            raise AssertionError(f"phase 24: GAT {mode}")
+        gat[mode] = rep
+
+    # ---- GCN serving: 512 closed-loop queries at batch 64, hp and rp
+    serve = {}
+    for mode in ("hp", "rp"):
+        launch_counts(zero=True)
+        eng, result, launches = serve_and_check(
+            f"DCSBM {mode}", ahat_dc, feats, pvs[mode], k, widths,
+            queries=512, max_batch=64, seed=3, check_rows=256,
+            plan=plans[mode])
+        total["fused"] += launches     # drive_serving books its packs
+        ln = launch_counts()
+        if ln["k1"] or ln["k1_bf16"]:
+            raise AssertionError(f"phase 24: K1 family launches {ln}")
+        serve[mode] = (eng, result.summary())
+
+    # ---- the fused entry == plain on one hp-plan layer, with the hub rows
+    eng = serve["hp"][0]
+    pa, st, h0 = eng.pa, eng.setup.fwd_static, eng._h0
+    recv = exchange_recv(h0, pa["recv_src"])
+    check_pack(h0, pa["recv_src"], h0.dtype, "DCSBM hp layer-0 exchange")
+    fused_err = check_fused(
+        [pa["ptile_lsrc"], pa["ptile_lld"], pa["ptile_lw"]], h0,
+        [pa["ptile_hwsrc"], pa["ptile_hld"], pa["ptile_hw"]], recv,
+        st["pallas_lclasses"], st["pallas_hclasses"], tb,
+        "DCSBM hp layer-0 fused f=128")
+    # the hub rows are in that layer: the longest row's slots, local and
+    # halo, are all in the plan's edge lists, and every edge is in a tile
+    plan = plans["hp"]
+    row_nnz = np.diff(ahat_dc.indptr)
+    hub = int(np.argmax(row_nnz))
+    p, r = int(plan.owner[hub]), int(plan.local_idx[hub])
+    lc, hc = int(plan.lnnz[p]), int(plan.hnnz[p])
+    local = int((plan.ledge_dst[p, :lc] == r).sum())
+    halo = int((plan.hedge_dst[p, :hc] == r).sum())
+    tiled = all(int((plan.ptile_lw[q] != 0).sum()) == int(plan.lnnz[q]) and
+                int((plan.ptile_hw[q] != 0).sum()) == int(plan.hnnz[q])
+                for q in range(k))
+    log(f"  the longest row of Â (vertex {hub}, {row_nnz[hub]} slots) in "
+        f"the hp plan: part {p}, {local} local + {halo} halo slots; every "
+        f"edge in a tile: {tiled}")
+    if local + halo != row_nnz[hub] or not tiled:
+        raise AssertionError("phase 24: the hp tiles do not hold the "
+                             "longest row")
+    k3 = {mode: time_whole_op(e._h0, e.pa, e.setup.fwd_static, tb, False,
+                              f"DCSBM {mode} K3 layer 0 forward f=128")
+          for mode, (e, _) in serve.items()}
+
+    # ---- hp against rp
+    ratio = {
+        "GCN a2a epoch_s": gcn[("hp", "a2a")][1]["epoch_s"]
+        / gcn[("rp", "a2a")][1]["epoch_s"],
+        "GCN ring epoch_s": gcn[("hp", "ragged")][1]["epoch_s"]
+        / gcn[("rp", "ragged")][1]["epoch_s"],
+        "GAT a2a epoch_s": gat["hp"]["epoch_s"] / gat["rp"]["epoch_s"],
+        "pack ms": k3["hp"]["pack"]["ms"] / k3["rp"]["pack"]["ms"],
+        "fused ms": k3["hp"]["fused"]["ms"] / k3["rp"]["fused"]["ms"],
+        "K3 ms": k3["hp"]["ms"] / k3["rp"]["ms"],
+        "served p50": serve["hp"][1]["latency_p50_ms"]
+        / serve["rp"][1]["latency_p50_ms"],
+        "device ms a step": split["hp"]["device_ms"]
+        / split["rp"]["device_ms"],
+    }
+    log("  hp / rp: " + json.dumps(ratio))
+    summary = {mode: {"B": plans[mode].b, "S": plans[mode].s,
+                      "R": plans[mode].r, "true_rows": sent[mode],
+                      "a2a_wire_rows": plans[mode].wire_rows_per_exchange(
+                          "a2a"),
+                      "ring_wire_rows": plans[mode].wire_rows_per_exchange(
+                          "ragged")} for mode in pvs}
+    for mode in ("hp", "gp"):
+        summary[mode]["partition_s"] = [res[(mode, r)][2] for r in (0, 1)]
+    for mode in ("hp", "rp"):
+        summary[mode].update(
+            gcn_epoch_s_a2a=gcn[(mode, "a2a")][1]["epoch_s"],
+            gcn_epoch_s_ring=gcn[(mode, "ragged")][1]["epoch_s"],
+            gat_epoch_s_a2a=gat[mode]["epoch_s"],
+            p50_ms=serve[mode][1]["latency_p50_ms"],
+            p99_ms=serve[mode][1]["latency_p99_ms"],
+            qps=serve[mode][1]["achieved_qps"], k3_ms=k3[mode]["ms"],
+            k3_bound_ms=k3[mode]["bound_ms"],
+            pack_ms=k3[mode]["pack"]["ms"],
+            fused_ms=k3[mode]["fused"]["ms"],
+            device_ms_3_steps=split[mode]["device_ms"])
+    log("  DCSBM summary: " + json.dumps(summary))
+    log(f"  card: {smi}")
+    return total, fused_err
+
+
 def main() -> int:
     import torch
 
@@ -2828,7 +3303,8 @@ def main() -> int:
         return 3
     import numpy as np
 
-    from sgcn_tpu_torch.io.datasets import er_graph, load_npz_dataset
+    from sgcn_tpu_torch.io.datasets import (dcsbm_graph, er_graph,
+                                            load_npz_dataset)
     from sgcn_tpu_torch.ops import _build
     from sgcn_tpu_torch.ops.tile_spmm import choose_tile_dispatch
     from sgcn_tpu_torch.partition import (balanced_random_partition,
@@ -2854,6 +3330,17 @@ def main() -> int:
     for k, v in built.items():
         for line in ptxas_report(v["log"]):
             log(f"    {k}: {line}")
+    # phase 24's DCSBM flagship graph; its partitions run on two host
+    # threads from here on, beside phases 1-23
+    t0 = time.perf_counter()
+    ahat_dc = normalize_adjacency(dcsbm_graph(FLAGSHIP_N))
+    row_nnz = np.diff(ahat_dc.indptr)
+    log(f"  DCSBM flagship graph (n={FLAGSHIP_N}, 64 communities, degree "
+        f"14, seed 0), Â normalized, in {time.perf_counter() - t0:.2f} s: "
+        f"nnz {ahat_dc.nnz}, longest row {row_nnz.max()} slots, p99 "
+        f"{np.percentile(row_nnz, 99):.0f}; its hp and gp partitions (k="
+        f"{PART_K}, seed {PART_SEED}, twice each) start on two threads")
+    parts_bg = FlagshipPartitions(ahat_dc, PART_K, PART_SEED)
 
     # ---------------------------------------------------------- phase 1
     log("phase 1: tile SpMM kernel vs plain version on random tiles")
@@ -3616,10 +4103,19 @@ def main() -> int:
     MAIN_PATH_PACKS[0] += p23["pack"]
 
     # ---------------------------------------------------------- phase 24
+    log("phase 24: the offline pipeline — cora2708 through the prep, "
+        "partition (hp, gp, rp), train (both transports) and serve CLIs in "
+        "child processes; then the DCSBM flagship on its hp, gp and rp "
+        "parts: GCN (both transports) and GAT training, GCN serving")
+    p24, fused_err24 = phase_pipeline(parts_bg, ahat_dc, fix, dev, tb, smi)
+    MAIN_PATH_PACKS[0] += p24["pack"]
+    fused_err = max(fused_err, fused_err24)
+
+    # ---------------------------------------------------------- phase 25
     fused_main = (launches_c + launches_f + launches_tc + launches_tf
                   + launches_fr + launches_rt + launches_ca + launches_cr
                   + l15["wire"] + l15["bf16"] + launches_16 + asym["fused"]
-                  + p23["fused"])
+                  + p23["fused"] + p24["fused"])
     kernels = [{
         # K1's own float32-weight family entry: its launches on the main
         # path are the asymmetric backward's halo-ᵀ launches (the
@@ -3644,7 +4140,7 @@ def main() -> int:
         "route": "cuda",
         "source": "sgcn_tpu_torch/csrc/tile_spmm.cu",
         "replaces": "sgcn_tpu/ops/pallas_spmm.py:457-464",
-        "launches": bwd_tc + bwd_tf + p23["sym_bwd"],
+        "launches": bwd_tc + bwd_tf + p23["sym_bwd"] + p24["sym_bwd"],
         "max_abs_err": max(grad_err, fused_err),
         "ms": k3b["ms"],
         "plain_ms": k3b["plain_ms"],
@@ -3658,7 +4154,7 @@ def main() -> int:
         "replaces": "sgcn_tpu/ops/pallas_spmm.py:530-545",
         "launches": (launches_gc + launches_gf + launches_gt + launches_gtc
                      + launches_gfr + launches_grt + launches_gcr
-                     + l17["f32"] + asym["k5"] + p23["k5"]),
+                     + l17["f32"] + asym["k5"] + p23["k5"] + p24["k5"]),
         "max_abs_err": max(k5_err, err_f, err_b, k5r_err),
         "ms": gat_fwd["ms"],
         "plain_ms": gat_fwd["plain_ms"],
@@ -3670,7 +4166,8 @@ def main() -> int:
         "route": "cuda",
         "source": "sgcn_tpu_torch/csrc/tile_spmm.cu",
         "replaces": "sgcn_tpu/models/gat.py:637-687",
-        "launches": bwd_gt + bwd_gtc + bwd_grt + bwd_gcr + p23["gat_bwd"],
+        "launches": (bwd_gt + bwd_gtc + bwd_grt + bwd_gcr + p23["gat_bwd"]
+                     + p24["gat_bwd"]),
         "max_abs_err": max(err_b, k5r_err),
         "ms": gat_bwd["ms"],
         "plain_ms": gat_bwd["plain_ms"],
@@ -3683,7 +4180,8 @@ def main() -> int:
         "route": "cuda",
         "source": "sgcn_tpu_torch/csrc/tile_spmm.cu",
         "replaces": "sgcn_tpu/ops/pallas_spmm.py:469-527",
-        "launches": launches_fr + ring_rt + ring_cr + p23["ring"],
+        "launches": (launches_fr + ring_rt + ring_cr + p23["ring"]
+                     + p24["ring"]),
         "max_abs_err": max(k4_err, fused_err),
         "ms": k4["ms"],
         "plain_ms": k4["plain_ms"],
@@ -3695,7 +4193,8 @@ def main() -> int:
         "route": "cuda",
         "source": "sgcn_tpu_torch/csrc/tile_spmm.cu",
         "replaces": "sgcn_tpu/ops/pallas_spmm.py:517-523",
-        "launches": ring_bwd_rt + ring_bwd_cr + p23["ring_bwd"],
+        "launches": (ring_bwd_rt + ring_bwd_cr + p23["ring_bwd"]
+                     + p24["ring_bwd"]),
         "max_abs_err": max(k4b_err, fused_err),
         "ms": k4b["ms"],
         "plain_ms": k4b["plain_ms"],
@@ -3793,4 +4292,9 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        code = main()
+    finally:
+        for bg in BACKGROUND:
+            bg.close()
+    sys.exit(code)

@@ -1,9 +1,11 @@
-"""MatrixMarket coordinate input (port of ``sgcn_tpu/io/mtx.py``).
+"""MatrixMarket coordinate I/O (port of ``sgcn_tpu/io/mtx.py``).
 
 The reference pipeline communicates through MatrixMarket files
 (``<name>.A.mtx`` adjacency, ``.H.mtx`` features, ``.Y.mtx`` one-hot
-labels).  Same semantics as the reference reader: ``scipy.io.mmread``,
-CSR float32, duplicates summed, symmetric/pattern storage expanded.
+labels).  Same semantics as the reference: ``scipy.io.mmread`` into CSR
+float32, duplicates summed, symmetric/pattern storage expanded; and
+``scipy.io.mmwrite`` of the COO form at precision 8, so a file the port
+writes is byte-equal to the JAX package's.
 """
 
 from __future__ import annotations
@@ -19,6 +21,11 @@ def read_mtx(path: str) -> sp.csr_matrix:
     m = sp.csr_matrix(m, dtype=np.float32)
     m.sum_duplicates()
     return m
+
+
+def write_mtx(path: str, m: sp.spmatrix, comment: str = "") -> None:
+    """Write CSR/COO to MatrixMarket coordinate general format (1-based)."""
+    scipy.io.mmwrite(path, sp.coo_matrix(m), comment=comment, precision=8)
 
 
 def read_dense_features(path: str) -> np.ndarray:

@@ -1,9 +1,14 @@
-"""Random partitioning with exact balance (port of
-``sgcn_tpu/partition/random_part.py``; same numpy RNG, same vector)."""
+"""Random partitioning (port of ``sgcn_tpu/partition/random_part.py``;
+same numpy RNG, same vectors): the ``.rp`` baseline flavor."""
 
 from __future__ import annotations
 
 import numpy as np
+
+
+def random_partition(n: int, k: int, seed: int = 0) -> np.ndarray:
+    """Uniform iid random part vector (may be unbalanced)."""
+    return np.random.default_rng(seed).integers(0, k, size=n).astype(np.int64)
 
 
 def balanced_random_partition(n: int, k: int, seed: int = 0) -> np.ndarray:

@@ -1,3 +1,5 @@
-from .normalize import normalize_adjacency
+from .normalize import (normalize_adjacency, preprocess, synthetic_features,
+                        synthetic_labels)
 
-__all__ = ["normalize_adjacency"]
+__all__ = ["normalize_adjacency", "preprocess", "synthetic_features",
+           "synthetic_labels"]

@@ -13,7 +13,8 @@ aggregation (K3, K4) against their plain versions; the backward of an
 asymmetric Â (a directed graph) on its transposed layouts — the halo
 rows' Âᵀ family launch, the reverse pack and the fused local-ᵀ + owner
 sum — against their plain versions, and two asymmetric trainings on the
-card bit-identical.
+card bit-identical; the pack, the fused entry and the ring on a plan from
+the port's native hypergraph partitioner (a DCSBM graph at n = 20 000).
 
 This module imports no JAX, so it also runs on a GPU machine without it:
 
@@ -22,6 +23,8 @@ This module imports no JAX, so it also runs on a GPU machine without it:
 On a machine without CUDA every test skips (the kernel has no CPU mode);
 whether there is a card is decided inside the fixture, never at import.
 """
+
+import functools
 
 import numpy as np
 import pytest
@@ -981,3 +984,82 @@ def test_engine_from_checkpoint_on_cuda_serves_predict_rows(cuda_device,
     assert np.array_equal(eng.query(q), rows2[q])
     assert eng.weights_rev == 1
     assert [p.data_ptr() for p in eng.model.parameters()] == ptrs
+
+
+# ------------------------------------ hypergraph-partitioned plans (hp)
+@functools.lru_cache(maxsize=1)
+def _hp_dcsbm_plan(n=20000, k=8):
+    """The DCSBM graph (power-law degrees, 64 planted communities) at n,
+    Â normalized, in k parts from the port's native hypergraph
+    partitioner (seed 1): uneven parts, a hub row, an uneven ring.
+    Built once, on the first test that gets past the card check."""
+    from sgcn_tpu_torch.io.datasets import dcsbm_graph
+    from sgcn_tpu_torch.partition import partition_hypergraph_colnet
+
+    a = normalize_adjacency(dcsbm_graph(n))
+    pv, _ = partition_hypergraph_colnet(a, k, seed=1)
+    return a, build_comm_plan(a, pv, k)
+
+
+@pytest.mark.parametrize("f", [1, 41, 128])
+def test_fused_entry_equals_plain_on_hp_dcsbm_plan(cuda_device, f):
+    """The exchange pack and the fused local + remote entry on an
+    hp-partitioned DCSBM plan at n = 20 000 == their plain versions bit
+    for bit; the plan's tiles hold every edge, the longest row's
+    included."""
+    a, plan = _hp_dcsbm_plan()
+    st = choose_tile_dispatch(plan)
+    plan.ensure_exchange()
+    tb, lcls, hcls = (st["pallas_tb"], st["pallas_lclasses"],
+                      st["pallas_hclasses"])
+    dev = cuda_device
+    lt = [torch.from_numpy(getattr(plan, x)).to(dev)
+          for x in ("ptile_lsrc", "ptile_lld", "ptile_lw")]
+    ht = [torch.from_numpy(getattr(plan, x)).to(dev)
+          for x in ("ptile_hwsrc", "ptile_hld", "ptile_hw")]
+    flat = torch.from_numpy(plan.recv_src).to(dev)
+    h = torch.from_numpy(np.random.default_rng(f).standard_normal(
+        (plan.k, plan.b, f)).astype(np.float32)).to(dev)
+    recv = row_pack(h, flat)
+    assert torch.equal(recv, row_pack_plain(h, flat))
+    one = spmm_tiles_fused(lt, h, ht, recv, lcls, hcls, tb)
+    two = spmm_tiles_fused(lt, h, ht, recv, lcls, hcls, tb)
+    plain = spmm_tiles_fused_plain(lt, h, ht, row_pack_plain(h, flat),
+                                   lcls, hcls, tb)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(one), _bits(two))
+    assert torch.equal(_bits(one), _bits(plain)), (
+        f"fused != plain, max diff {(one - plain).abs().max()}")
+    row_nnz = np.diff(a.indptr)
+    hub = int(np.argmax(row_nnz))
+    p, r = int(plan.owner[hub]), int(plan.local_idx[hub])
+    slots = (int((plan.ledge_dst[p, :plan.lnnz[p]] == r).sum())
+             + int((plan.hedge_dst[p, :plan.hnnz[p]] == r).sum()))
+    assert row_nnz[hub] > 100 and slots == row_nnz[hub]
+    for q in range(plan.k):
+        assert (plan.ptile_lw[q] != 0).sum() == plan.lnnz[q]
+        assert (plan.ptile_hw[q] != 0).sum() == plan.hnnz[q]
+
+
+def test_hp_dcsbm_training_on_cuda_ragged_equals_a2a(cuda_device):
+    """Two GCN steps on the hp DCSBM plan on the card: the ring's losses
+    and weights == a2a's bit for bit, and within rtol 1e-5 of the CPU's
+    (the trainers' CPU/card tolerance)."""
+    _, plan = _hp_dcsbm_plan()
+    rng = np.random.default_rng(13)
+    feats = rng.standard_normal((plan.n, 24)).astype(np.float32)
+    labels = rng.integers(0, 5, plan.n)
+    runs = {}
+    for dev, sched in ((cuda_device, "a2a"), (cuda_device, "ragged"),
+                       ("cpu", "a2a")):
+        tr = FullBatchTrainer(plan, fin=24, widths=[32, 5], seed=4,
+                              comm_schedule=sched, device=dev)
+        data = make_train_data(plan, feats, labels, device=dev)
+        runs[(str(dev), sched)] = (
+            [tr.step(data) for _ in range(2)],
+            [p.detach().cpu() for p in tr.model.parameters()])
+    a2a, ring, cpu = (runs[("cuda", "a2a")], runs[("cuda", "ragged")],
+                      runs[("cpu", "a2a")])
+    assert a2a[0] == ring[0]
+    assert all(torch.equal(x, y) for x, y in zip(a2a[1], ring[1]))
+    np.testing.assert_allclose(a2a[0], cpu[0], rtol=1e-5)

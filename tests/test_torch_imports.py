@@ -60,3 +60,16 @@ def test_scan_sees_the_checkpoint_and_resilience_modules():
                 ("resilience", "faults.py"), ("resilience", "runner.py"),
                 ("resilience", "__init__.py")):
         assert os.path.join("sgcn_tpu_torch", *rel) in names
+
+
+def test_scan_sees_the_offline_pipeline_modules():
+    """The offline pipeline (prep and partition CLIs, the native binding,
+    the file family, the generators) is in the scan, so it too imports
+    nothing of JAX or the JAX package."""
+    names = {os.path.relpath(p, REPO) for p in _sources()}
+    for rel in (("io", "config.py"), ("io", "mtx.py"), ("io", "datasets.py"),
+                ("prep", "normalize.py"), ("prep", "__main__.py"),
+                ("partition", "native.py"), ("partition", "emit.py"),
+                ("partition", "random_part.py"),
+                ("partition", "__init__.py"), ("partition", "__main__.py")):
+        assert os.path.join("sgcn_tpu_torch", *rel) in names
