@@ -228,20 +228,43 @@ failure raises and the script exits non-zero:
      plan's layer 0, whose tiles hold the longest row (checked); K3's
      whole op timed on both plans.  Partition seconds are host seconds.
      K1's float-weight family entries must stay at 0 launches;
-  25. one JSON line ``{"kernels": [...]}`` — per ported kernel (the tile
+  25. the pipelined stale-halo trainer (``halo_staleness=1``) at the
+     flagship width of phases 5 and 11 (same plan, data and initial
+     weights): ``sync_every=1`` on both transports, delta off and on,
+     equals phase 5's losses and weights after ``fit`` bit for bit (and
+     under ``halo_dtype`` without delta phase 15's runs); stale ragged ==
+     stale a2a bit for bit for ``sync_every`` 0 and 4, delta off and on,
+     over 1 + 8 steps; exact launch counts per stale and per sync step
+     (packs, fused launches, backward fused launches; K1's family
+     entries 0), and the pack and the fused entry == plain on every
+     exchange and aggregation of one stale and one sync step of the a2a
+     delta run, on their real carry tables; the stale + delta losses
+     within the reference's
+     band (rtol/atol 1e-2, ``tests/test_stale_halo.py:192-200``) of phase
+     5's, the gap printed; epoch_s (host clock and CUDA events) of exact,
+     stale and stale + delta on both transports in two interleaved rounds,
+     the device split (pack, fused, elementwise, matmul) and idle share,
+     the delta arithmetic timed alone, the carries' bytes; a flagship
+     child (``cli_child``, GCN a2a, stale + delta, ``--sync-every 3``)
+     killed after its step-4 save and resumed in a new one: losses and
+     the weights + Adam and carry digests == the uninterrupted run in
+     this process; the cora CLI with ``--comm-schedule auto
+     --halo-staleness 1 --sync-every 2`` resolves to the ring by the
+     hidden-exchange rule and prints the controller's log;
+  26. one JSON line ``{"kernels": [...]}`` — per ported kernel (the tile
      SpMM, the GCN aggregation's backward, the GAT attention pass and its
      use in the GAT layer's backward, the ragged ring aggregation and its
      backward, the row shuffle, the tile SpMM's and the GAT pass's bf16
      flavors, the row pack and the fused local + remote entry) its
-     launches on the main path (phases 2–5, 7–13, 15–17, 19–21, 23 and
-     24, the children's included), max
+     launches on the main path (phases 2–5, 7–13, 15–17, 19–21 and
+     23–25, the children's included), max
      |kernel − plain|, kernel / plain / bound / library times at the
      flagship layer.  The tile SpMM's own float-weight family entries
      (both tables) launch on the main path only in the asymmetric
      backward (phases 20–21): the symmetric phases must show 0 of them —
      the fused entry runs their chains and counts those launches — and any
      kernel with no launch on the main path fails the run;
-  26. the last line: ``{"ok": true, "device": {...}}``.
+  27. the last line: ``{"ok": true, "device": {...}}``.
 
 Without CUDA, or without the rest of the repository beside it, the script
 prints no result and exits with code 2 or 3.
@@ -1179,10 +1202,11 @@ DEVICE_CLASSES = (("K3/K4 fused", ("tile_spmm_fused_kernel",)),
                               "cublas")))
 
 
-def device_split(name, run, reps: int = 3, what: str = "steps"):
+def device_split(name, run, reps: int = 3, what: str = "steps",
+                 classes=DEVICE_CLASSES):
     """Device time of ``reps`` calls of ``run`` under ``torch.profiler``,
-    split into ``DEVICE_CLASSES`` by kernel name (the rest as "other"),
-    and the idle share's upper bound; logged and returned as a dict."""
+    split into ``classes`` by kernel name (the rest as "other"), and the
+    idle share's upper bound; logged and returned as a dict."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -1195,13 +1219,13 @@ def device_split(name, run, reps: int = 3, what: str = "steps"):
             run()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    split = {label: 0.0 for label, _ in DEVICE_CLASSES}
+    split = {label: 0.0 for label, _ in classes}
     split["other"] = 0.0
     for e in prof.key_averages():
         ms = e.self_device_time_total / 1e3
         if e.device_type != DeviceType.CUDA or ms <= 0:
             continue
-        label = next((lab for lab, keys in DEVICE_CLASSES
+        label = next((lab for lab, keys in classes
                       if any(k in e.key for k in keys)), "other")
         split[label] += ms
     dev_ms = sum(split.values())
@@ -1735,7 +1759,8 @@ def phase_bf16_gcn_training(plan, data, p_init, widths, rep32, dev, tb,
     only); ``epoch_s``, the step breakdown and the profiler's split; K1
     on the compute run's real bf16 forward and gradient tables == plain,
     and K1-bf16's time at the flagship layer.  Returns (launches per
-    entry, max |kernel − plain|, the forward layer's timing)."""
+    entry, max |kernel − plain|, the forward layer's timing, and the
+    ``halo_dtype`` runs' losses and weights by transport)."""
     import numpy as np
     import torch
 
@@ -1837,7 +1862,11 @@ def phase_bf16_gcn_training(plan, data, p_init, widths, rep32, dev, tb,
         "flagship layer-0 fused on the bf16 wire")
     t_wire = time_pack(h32, pw["recv_src"], torch.bfloat16,
                        "flagship layer-0 exchange, bf16 wire")
-    return launches, max(err_g, err_f, err_w), t_fwd, op_fwd, t_wire
+    halo_runs = {sched: (runs[("halo_dtype", sched)]["rep"]["loss_history"],
+                         runs[("halo_dtype", sched)]["w"])
+                 for sched in ("a2a", "ragged")}
+    return launches, max(err_g, err_f, err_w), t_fwd, op_fwd, t_wire, \
+        halo_runs
 
 
 def phase_bf16_serving(eng_f, eng_fr, res_f, res_fr, ahat, feats, dev):
@@ -2451,16 +2480,19 @@ CKPT_CASES = {"gcn-a2a": ("gcn", "a2a"), "gcn-ragged": ("gcn", "ragged"),
 
 
 def launch_counts(zero: bool = False) -> dict:
-    """The launch counts of every kernel entry phase 23's paths run (and
-    K1's float-weight family entries, which must stay 0 there); with
+    """The launch counts of every kernel entry phases 23–25's paths run
+    (and K1's float-weight family entries, which must stay 0 there); with
     ``zero``, each is set to 0 first — the start of a path."""
     from sgcn_tpu_torch.models.gat import GatLayerSym
     from sgcn_tpu_torch.ops.row_shuffle import row_pack
     from sgcn_tpu_torch.ops.tile_spmm import (PspmmTilesRagged,
+                                              PspmmTilesStale,
                                               PspmmTilesSym, spmm_tiles,
                                               spmm_tiles_fused)
 
     owners = {"fused": (spmm_tiles_fused, "launches"),
+              "fused_wire": (spmm_tiles_fused, "wire_bf16_launches"),
+              "stale_bwd": (PspmmTilesStale, "backward_launches"),
               "pack": (row_pack, "launches"),
               "k5": (spmm_tiles, "mask_launches"),
               "k1": (spmm_tiles, "launches"),
@@ -3289,6 +3321,296 @@ def _pipeline_flagship(parts_bg, ahat_dc, dev, tb, smi):
     return total, fused_err
 
 
+# ------------------------------------------- the pipelined stale trainer
+STALE_DIR = os.path.join(REPO, "build", "chip_smoke_stale")
+# the reference's band for the stale + delta losses against the exact run
+# (tests/test_stale_halo.py:192-200)
+BAND_STALE = dict(rtol=1e-2, atol=1e-2)
+# phase 25's device-time classes: DEVICE_CLASSES with the elementwise
+# kernels apart (the delta cache's sub, casts and add run there, beside
+# the ReLUs and the loss; the delta's share is the difference to the
+# plain stale step)
+STALE_CLASSES = (("K3/K4 fused", ("tile_spmm_fused_kernel",)),
+                 ("pack", ("row_pack_kernel",)),
+                 ("elementwise", ("elementwise_kernel", "copy")),
+                 ("matmul", ("gemm", "Kernel2", "cutlass", "sm90_xmma",
+                             "cublas")))
+
+
+def carry_bytes(tr) -> int:
+    """Bytes of a stale trainer's carries (feature and gradient, every
+    layer) on the card."""
+    return sum(x.numel() * x.element_size()
+               for v in tr.halo_carry.values() for x in v)
+
+
+def phase_stale(plan, data, p_init, widths, rep5, fit_w, halo_runs, dev, tb,
+                cli_base, smi):
+    """Phase 25: the pipelined stale-halo trainer at the flagship width
+    (module docstring).  Returns the main path's launches by entry
+    (``launch_counts`` keys, this process's and the resumed child's) and
+    the max |fused − plain| of its checks."""
+    children = Children()
+    try:
+        return _phase_stale(children, plan, data, p_init, widths, rep5,
+                            fit_w, halo_runs, dev, tb, cli_base, smi)
+    finally:
+        children.stop()
+
+
+def _phase_stale(children, plan, data, p_init, widths, rep5, fit_w,
+                 halo_runs, dev, tb, cli_base, smi):
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from sgcn_tpu_torch.ops import pspmm
+    from sgcn_tpu_torch.resilience import faults
+    from sgcn_tpu_torch.train import FullBatchTrainer
+    from sgcn_tpu_torch.utils.checkpoint import to_leaves
+
+    nl = len(widths)
+    bwd = backward_passes(128, widths)
+    per_step = nl + bwd                 # packs = fused launches a step
+    totals = {}
+    fused_err = 0.0
+
+    def counted(run):
+        """``run()`` as a main-path run: counts zeroed before, read after
+        and added to the phase's totals; K1's family entries must stay
+        0."""
+        launch_counts(zero=True)              # the main path starts here
+        k1_open()
+        out = run()
+        k1_close()
+        c = launch_counts()                   # ... and ends here
+        if c["k1"] or c["k1_bf16"]:
+            raise AssertionError(f"phase 25: K1 family launches {c}")
+        for key, v in c.items():
+            totals[key] = totals.get(key, 0) + v
+        return out, c
+
+    def stale(sched, params=p_init, **kw):
+        return FullBatchTrainer(plan, fin=128, widths=widths, params=params,
+                                comm_schedule=sched, device=dev,
+                                halo_staleness=1, **kw)
+
+    # ---- (g) first: the flagship child killed after its step-4 save, in
+    # the background (phase 23's inputs), while the rest runs here
+    shutil.rmtree(STALE_DIR, ignore_errors=True)
+    os.makedirs(STALE_DIR)
+    argv = ["--npz", os.path.join(CKPT_DIR, "flagship.npz"), "-p",
+            os.path.join(CKPT_DIR, "flagship.8.rp"), "-s", "8", "-l",
+            str(nl), "--hidden", str(widths[0]), "--warmup", "0",
+            "--epochs", "6", "--device", "cuda", "--comm-schedule", "a2a",
+            "--halo-staleness", "1", "--halo-delta", "--sync-every", "3",
+            "--checkpoint-dir", os.path.join(STALE_DIR, "ck"),
+            "--checkpoint-every", "4"]
+    kill = children.start([("train", argv, "kill-after-save:4",
+                            os.path.join(STALE_DIR, "kill.json"))])
+
+    # ---- (a) sync_every=1 == exact, bit for bit
+    runs = [(sched, delta, None) for sched in ("a2a", "ragged")
+            for delta in (False, True)]
+    runs += [(sched, False, "bfloat16") for sched in ("a2a", "ragged")]
+    for sched, delta, hd in runs:
+        tr = stale(sched, halo_delta=delta, sync_every=1, halo_dtype=hd)
+        rep, c = counted(lambda: tr.fit(data, epochs=5, warmup=1,
+                                        verbose=False))
+        want_l, want_w = ((rep5["loss_history"], fit_w) if hd is None
+                          else halo_runs[sched])
+        same = rep["loss_history"] == want_l and all(
+            torch.equal(a, b) for a, b in zip(tr.params, want_w))
+        fused = c["fused_wire" if hd else "fused"]
+        n = 6 * per_step
+        log(f"  sync_every=1 {sched} delta={delta} halo_dtype={hd}: losses "
+            f"and weights == {'phase 15' if hd else 'phase 5'}: {same}; "
+            f"packs {c['pack']}, fused {fused}, backward fused "
+            f"{c['stale_bwd']} (expected {n}, {n}, {6 * bwd}); hidden "
+            f"exchanges {rep['hidden_exchanges']}")
+        if not same or (c["pack"], fused, c["stale_bwd"]) != (n, n, 6 * bwd):
+            raise AssertionError(f"phase 25: sync_every=1 {sched} "
+                                 f"delta={delta} halo_dtype={hd} differs "
+                                 "from the exact run or its launches")
+        del tr
+
+    # ---- (d) stale ragged == stale a2a, bit for bit, 1 + 8 steps
+    for sync_every in (0, 4):
+        for delta in (False, True):
+            out = {}
+            for sched in ("a2a", "ragged"):
+                tr = stale(sched, halo_delta=delta, sync_every=sync_every)
+                rep, _ = counted(lambda: tr.fit(data, epochs=8, warmup=1,
+                                                verbose=False))
+                out[sched] = (rep, [w.detach().clone() for w in tr.params])
+                del tr
+            (ra, wa), (rr, wr) = out["a2a"], out["ragged"]
+            same = rr["loss_history"] == ra["loss_history"] and all(
+                torch.equal(a, b) for a, b in zip(wa, wr))
+            log(f"  stale sync_every={sync_every} delta={delta}: ragged == "
+                f"a2a (losses, weights): {same}; losses "
+                f"{ra['loss_history']}; hidden exchanges "
+                f"{ra['hidden_exchanges']} of {ra['exchanges']}")
+            if not same:
+                raise AssertionError(f"phase 25: stale ragged != a2a, "
+                                     f"sync_every={sync_every}, "
+                                     f"delta={delta}")
+
+    # ---- (b, c) launches per stale and per sync step, and the pack and
+    # the fused entry == plain on every exchange and aggregation of one
+    # stale and one sync step, on their real carry tables
+    # (the ring's fused launches read the same rows in the same order:
+    # its steps are counted, and (d) holds it to a2a bit for bit)
+    for sched, delta in (("a2a", True), ("ragged", False)):
+        tr = stale(sched, halo_delta=delta, sync_every=2)
+        counted(lambda: tr.step(data))                # the initializing sync
+        for kind in ("stale", "sync"):
+            def step():
+                if sched == "ragged":
+                    tr.step(data)
+                    return [], [], []
+                return record_launches(lambda: tr.step(data))
+            (fams, packs, fused), c = counted(step)
+            for j, (src, flat, dtype) in enumerate(packs):
+                check_pack(src, flat, dtype, f"stale {sched} delta={delta} "
+                           f"{kind} step exchange {j}")
+            for j, args in enumerate(fused):
+                fused_err = max(fused_err, check_fused(
+                    *args, f"stale {sched} delta={delta} {kind} step "
+                    f"aggregation {j} (carry {tuple(args[3].shape)} "
+                    f"{args[3].dtype})"))
+            log(f"  {sched} delta={delta} {kind} step: packs {c['pack']}, "
+                f"fused {c['fused']}, backward fused {c['stale_bwd']} "
+                f"(expected {per_step}, {per_step}, {bwd}); K1 family "
+                f"{c['k1']}; {len(packs)} packs and {len(fused)} fused "
+                "launches checked == plain")
+            if (c["pack"], c["fused"], c["stale_bwd"]) != \
+                    (per_step, per_step, bwd) or fams:
+                raise AssertionError(f"phase 25: {kind} step launches {c}")
+        del tr
+
+    # ---- (e) the stale losses against the exact run: the reference's band
+    for delta, sync_every in ((True, 2), (False, 0)):
+        tr = stale("a2a", halo_delta=delta, sync_every=sync_every)
+        rep, _ = counted(lambda: tr.fit(data, epochs=5, warmup=1,
+                                        verbose=False))
+        got, want = (np.asarray(rep["loss_history"]),
+                     np.asarray(rep5["loss_history"]))
+        band = bool(np.allclose(got, want, **BAND_STALE))
+        log(f"  stale delta={delta} sync_every={sync_every}: losses "
+            f"{got.tolist()} vs exact {want.tolist()}: max |gap| "
+            f"{np.abs(got - want).max():.3g}, inside {BAND_STALE}: {band}")
+        if delta and (not band or not np.isfinite(got).all()):
+            raise AssertionError("phase 25: stale + delta losses outside "
+                                 "the reference's band of the exact run")
+        del tr
+
+    # ---- (f) times, in two interleaved rounds
+    cfgs = {}
+    for sched in ("a2a", "ragged"):
+        cfgs[f"exact {sched}"] = FullBatchTrainer(
+            plan, fin=128, widths=widths, params=p_init,
+            comm_schedule=sched, device=dev)
+        cfgs[f"stale {sched}"] = stale(sched)
+        cfgs[f"stale+delta {sched}"] = stale(sched, halo_delta=True)
+    times = {name: {"epoch_s": [], "event_ms": []} for name in cfgs}
+    for _round in range(2):
+        for name, tr in cfgs.items():
+            rep, _ = counted(lambda: tr.fit(data, epochs=10, warmup=2,
+                                            verbose=False))
+            times[name]["epoch_s"].append(rep["epoch_s"])
+            (ms, _) = counted(lambda: cuda_ms(
+                lambda: tr.step(data, sync=False), reps=10, warmup=1))
+            times[name]["event_ms"].append(ms)
+    for name, t in times.items():
+        tr = cfgs[name]
+        extra = (f"; carries {carry_bytes(tr)} B"
+                 if tr.halo_carry is not None else "")
+        log(f"  {name}: epoch_s {t['epoch_s']!r} (host clock, 10 timed "
+            f"steps a round); CUDA events {t['event_ms']!r} ms a step (10 "
+            f"steps, no readback){extra}; card: {smi}")
+    splits = {}
+    for name in ("exact a2a", "stale a2a", "stale+delta a2a",
+                 "stale+delta ragged"):
+        tr = cfgs[name]
+        splits[name], _ = counted(lambda: device_split(
+            f"{name} training", lambda: tr.step(data),
+            classes=STALE_CLASSES))
+    delta_dev = (splits["stale+delta a2a"]["elementwise"]
+                 - splits["stale a2a"]["elementwise"]) / 3
+    log(f"  the delta cache's elementwise device time, stale+delta a2a "
+        f"minus stale a2a: {delta_dev:.3f} ms a step ({nl} layers)")
+    # the delta arithmetic of one layer alone, on the real layer-0 carry
+    trd = cfgs["stale+delta a2a"]
+    carry = trd.halo_carry["halos"][0]
+    full = pspmm.exchange_recv(data.h0, trd.pa["recv_src"])
+    d_ms = cuda_ms(lambda: pspmm.delta_step(full, carry))
+    d_bytes = 3 * carry.numel() * 4     # read full and carry, write carry
+    d_bound = d_bytes / HBM_BYTES_PER_S * 1e3
+    log(f"  delta arithmetic alone (ops/pspmm.py::delta_step), one layer "
+        f"{tuple(carry.shape)}: {d_ms!r} ms (CUDA events); bound "
+        f"{d_bound:.4f} ms by bytes ({d_bytes} B: two float32 reads, one "
+        f"write); carries per layer and direction {carry.numel() * 4} B")
+    torch.cuda.synchronize()
+    log(f"  peak device memory so far {torch.cuda.max_memory_allocated()} B")
+    del cfgs, trd, carry, full
+
+    # ---- (h) the controller on the cora CLI
+    (losses, rep), _ = counted(lambda: run_train_cli(
+        cli_base + ["--epochs", "5", "--warmup", "0", "--comm-schedule",
+                    "auto", "--halo-staleness", "1", "--sync-every", "2"]))
+    log(f"  cora CLI --comm-schedule auto --halo-staleness 1 --sync-every 2:"
+        f" {rep['comm_schedule']} ({rep['wire_rows_per_exchange']} wire rows)"
+        f", losses {losses}, hidden exchanges {rep['hidden_exchanges']} of "
+        f"{rep['exchanges']}; controller {json.dumps(rep['controller'])}")
+    if rep["comm_schedule"] != "ragged" or \
+            rep["wire_rows_per_exchange"] != 4128 or \
+            rep["controller"]["initial_sync_every"] != 2:
+        raise AssertionError(f"phase 25: the stale CLI resolved {rep}")
+
+    # ---- (g) the uninterrupted run of the killed child, here; then the
+    # resuming child
+    tr = FullBatchTrainer(plan, fin=128, widths=widths, seed=0,
+                          comm_schedule="a2a", halo_staleness=1,
+                          halo_delta=True, sync_every=3, device=dev)
+    full_losses, _ = counted(lambda: [tr.step(data) for _ in range(6)])
+    codes = children.join(kill)
+    listing = sorted(os.listdir(os.path.join(STALE_DIR, "ck")))
+    if codes != [faults.FAULT_EXIT_CODE] or listing != ["ckpt_00000004.npz"]:
+        raise AssertionError(f"phase 25: killed child exited {codes}, "
+                             f"directory {listing}")
+    final = os.path.join(STALE_DIR, "final.npz")
+    wave = children.start([("train", argv + ["--resume", "auto",
+                                             "--save-checkpoint", final],
+                            None, os.path.join(STALE_DIR, "resume.json"))])
+    if children.join(wave) != [0]:
+        raise AssertionError("phase 25: the resuming child failed")
+    with open(os.path.join(STALE_DIR, "resume.json")) as fh:
+        res = json.load(fh)
+    with np.load(final) as z:
+        leaves = [z[f"leaf_{i}"] for i in range(
+            sum(f.startswith("leaf_") for f in z.files))]
+        carry = [z[f"carry_{i}"] for i in range(
+            sum(f.startswith("carry_") for f in z.files))]
+    got = (leaves_digest(leaves), leaves_digest(carry))
+    want = (leaves_digest(to_leaves(tr.params, tr.opt)),
+            leaves_digest(tr.resume_state()[1]))
+    rep = res["report"]
+    log(f"  killed child exit {codes[0]} after its step-4 save; resumed at "
+        f"step {rep['resumed']['step']}, losses {rep['losses']} vs "
+        f"uninterrupted {full_losses[4:]}; weights + Adam digest {got[0]} / "
+        f"{want[0]}, carry digest {got[1]} / {want[1]}; child launches "
+        f"{res['launches']}")
+    if rep["losses"] != full_losses[4:] or got != want:
+        raise AssertionError("phase 25: the resumed stale run differs from "
+                             "the uninterrupted one")
+    for key, v in res["launches"].items():
+        totals[key] = totals.get(key, 0) + v
+    log(f"  phase 25's main-path launches: {json.dumps(totals)}")
+    return totals, fused_err
+
+
 def main() -> int:
     import torch
 
@@ -4036,7 +4358,7 @@ def main() -> int:
         "and compute_dtype='bfloat16', both transports, from phase 5's "
         "initial weights")
     split_f32("GCN", {"a2a": tr, "ragged": trr}, data)
-    l15, err15, k1_16, op_16, wire_16 = phase_bf16_gcn_training(
+    l15, err15, k1_16, op_16, wire_16, halo_runs = phase_bf16_gcn_training(
         plan, data, p_init, widths_f, rep, dev, tb, steps_f, bwd_f)
 
     # ---------------------------------------------------------- phase 16
@@ -4112,10 +4434,24 @@ def main() -> int:
     fused_err = max(fused_err, fused_err24)
 
     # ---------------------------------------------------------- phase 25
+    log("phase 25: the pipelined stale-halo trainer (halo_staleness=1) at "
+        "the flagship width: sync_every=1 == exact, stale ragged == stale "
+        "a2a, launches and kernels == plain per stale and sync step, the "
+        "reference's loss band, times, kill and resume, the controller on "
+        "the CLI")
+    t25 = time.perf_counter()
+    p25, fused_err25 = phase_stale(plan, data, p_init, widths_f, rep, fit_f,
+                                   halo_runs, dev, tb, cli_base, smi)
+    MAIN_PATH_PACKS[0] += p25["pack"]
+    fused_err = max(fused_err, fused_err25)
+    log(f"  phase 25 took {time.perf_counter() - t25:.1f} s")
+
+    # ---------------------------------------------------------- phase 26
     fused_main = (launches_c + launches_f + launches_tc + launches_tf
                   + launches_fr + launches_rt + launches_ca + launches_cr
                   + l15["wire"] + l15["bf16"] + launches_16 + asym["fused"]
-                  + p23["fused"] + p24["fused"])
+                  + p23["fused"] + p24["fused"] + p25["fused"]
+                  + p25["fused_wire"])
     kernels = [{
         # K1's own float32-weight family entry: its launches on the main
         # path are the asymmetric backward's halo-ᵀ launches (the
@@ -4140,7 +4476,8 @@ def main() -> int:
         "route": "cuda",
         "source": "sgcn_tpu_torch/csrc/tile_spmm.cu",
         "replaces": "sgcn_tpu/ops/pallas_spmm.py:457-464",
-        "launches": bwd_tc + bwd_tf + p23["sym_bwd"] + p24["sym_bwd"],
+        "launches": (bwd_tc + bwd_tf + p23["sym_bwd"] + p24["sym_bwd"]
+                     + p25["sym_bwd"]),
         "max_abs_err": max(grad_err, fused_err),
         "ms": k3b["ms"],
         "plain_ms": k3b["plain_ms"],
@@ -4181,7 +4518,7 @@ def main() -> int:
         "source": "sgcn_tpu_torch/csrc/tile_spmm.cu",
         "replaces": "sgcn_tpu/ops/pallas_spmm.py:469-527",
         "launches": (launches_fr + ring_rt + ring_cr + p23["ring"]
-                     + p24["ring"]),
+                     + p24["ring"] + p25["ring"]),
         "max_abs_err": max(k4_err, fused_err),
         "ms": k4["ms"],
         "plain_ms": k4["plain_ms"],
@@ -4194,7 +4531,7 @@ def main() -> int:
         "source": "sgcn_tpu_torch/csrc/tile_spmm.cu",
         "replaces": "sgcn_tpu/ops/pallas_spmm.py:517-523",
         "launches": (ring_bwd_rt + ring_bwd_cr + p23["ring_bwd"]
-                     + p24["ring_bwd"]),
+                     + p24["ring_bwd"] + p25["ring_bwd"]),
         "max_abs_err": max(k4b_err, fused_err),
         "ms": k4b["ms"],
         "plain_ms": k4b["plain_ms"],

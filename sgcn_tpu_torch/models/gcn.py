@@ -3,8 +3,10 @@ losses.
 
 Port of the tile-kernel branches of ``sgcn_tpu/models/gcn.py``
 (``gcn_forward_local``, over the dense a2a exchange or the ragged ring,
-and on an asymmetric Â the ``pspmm_overlap`` branch, a2a only),
-run over all ``k`` parts stacked on a leading axis: per layer, halo
+and on an asymmetric Â the ``pspmm_overlap`` branch, a2a only) and of the
+non-replica branches of ``gcn_forward_local_stale`` (the pipelined
+trainer's forward, both transports), run over all ``k`` parts stacked on
+a leading axis: per layer, halo
 exchange → tile SpMM → dense projection → activation, with the
 reference's project-first layer order.  Weights keep
 the reference's layout, ``(fin, fout)`` with ``h @ w``, so
@@ -24,8 +26,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.pspmm import narrow_dtype
+from ..ops.pspmm import exchange_recv, narrow_dtype, ring_concat
 from ..ops.tile_spmm import (pspmm_tiles_gen, pspmm_tiles_ragged,
+                              pspmm_tiles_stale, pspmm_tiles_stale_ragged,
                               pspmm_tiles_sym)
 from .activations import get_activation
 
@@ -161,6 +164,94 @@ def gcn_forward_local(
             z = agg(h) @ w
         h = fact(z) if i == nl - 1 else act(z)
     return h
+
+
+def gcn_forward_local_stale(
+    params,
+    h,                              # (k, B, f_in) stacked local rows
+    pa,                             # plan tensors (TILE_PLAN_FIELDS, or
+                                    # TILE_PLAN_FIELDS_RAGGED)
+    halos,                          # per-layer feature carries (step t−1)
+    ghalos,                         # per-layer gradient carries (step t−1)
+    gholder,                        # list the backward writes the next
+                                    # gradient carries into
+    activation: str = "relu",
+    final_activation: str = "none",
+    pallas_tb: int = 256,
+    pallas_lclasses: tuple = (),
+    pallas_hclasses: tuple = (),
+    comm_schedule: str = "a2a",
+    rr_sizes: tuple | None = None,
+    delta: bool = False,            # the halo-delta cache on the wire
+    wire_dtype: str | None = None,  # the feature wire's dtype
+    gwire_dtype: str | None = None,  # the gradient wire's dtype
+    fresh: bool = False,            # a sync step (exact math)
+    gauges: bool = False,           # also return the per-layer qerr
+):
+    """Stacked forward under the pipelined stale-halo exchange (port of
+    the non-replica branches of ``gcn_forward_local_stale``).
+
+    The layer math and project-first order of ``gcn_forward_local``
+    (``exchange_widths`` encodes the same rule, so the carries' widths
+    stay in step with it), with every aggregation a stale op
+    (``pspmm_tiles_stale``, or ``pspmm_tiles_stale_ragged`` under
+    ``comm_schedule='ragged'``): layer ℓ reads ``halos[ℓ]`` and issues
+    step t's exchange into the next carry.  The carries are in the
+    receive layout of the transport (``ops/pspmm.py::stale_exchange``).
+    Returns ``(out, new_halos)``; the backward writes each layer's next
+    gradient carry into ``gholder[ℓ]``.  Symmetric Â and float32 only
+    (the trainer gates them).
+
+    ``gauges=True`` also returns, per layer, ``Σ (full − carry_next)²``
+    over the send buffer — this step's halo-delta rounding residual (zero
+    without ``delta`` and on sync steps): ``(out, new_halos, qerrs)``.
+    Its extra pack of the full rows runs only then."""
+    if comm_schedule not in ("a2a", "ragged"):
+        raise ValueError(f"unknown comm_schedule {comm_schedule!r} "
+                         "(the trainer resolves 'auto' before the forward)")
+    if comm_schedule == "ragged" and rr_sizes is None:
+        raise ValueError("the stale ragged forward needs the plan's static "
+                         "rr_sizes (CommPlan.ensure_ragged)")
+    act = get_activation(activation)
+    fact = get_activation(final_activation)
+    nl = len(params)
+    new_halos, qerrs = [], []
+    for i, w in enumerate(params):
+        project_first = (w.shape[1] < h.shape[-1]
+                         and h.shape[-1] >= PROJECT_FIRST_MIN_FIN)
+        x = (h @ w) if project_first else h
+        mode = dict(delta=delta, wire_dtype=wire_dtype,
+                    gwire_dtype=gwire_dtype, fresh=fresh, gholder=gholder,
+                    layer=i)
+        if comm_schedule == "ragged":
+            z, hn = pspmm_tiles_stale_ragged(
+                x, halos[i], ghalos[i], pa["ring_src"],
+                pa["ptile_lsrc"], pa["ptile_lld"], pa["ptile_lw"],
+                pa["ptile_hrsrc"], pa["ptile_hld"], pa["ptile_hw"],
+                pallas_tb, pallas_lclasses, pallas_hclasses, rr_sizes,
+                **mode)
+        else:
+            z, hn = pspmm_tiles_stale(
+                x, halos[i], ghalos[i], pa["recv_src"],
+                pa["ptile_lsrc"], pa["ptile_lld"], pa["ptile_lw"],
+                pa["ptile_hwsrc"], pa["ptile_hld"], pa["ptile_hw"],
+                pallas_tb, pallas_lclasses, pallas_hclasses, **mode)
+        if gauges:
+            # a sync step re-bases with the full row: its residual is 0
+            if delta and not fresh:
+                full = (ring_concat(x.detach(), pa["ring_src"], rr_sizes)
+                        if comm_schedule == "ragged"
+                        else exchange_recv(x.detach(), pa["recv_src"]))
+                qerrs.append(torch.sum(torch.square(full - hn)))
+            else:
+                qerrs.append(x.new_zeros(()))
+        if not project_first:
+            z = z @ w
+        new_halos.append(hn)
+        h = fact(z) if i == nl - 1 else act(z)
+    if gauges:
+        return h, new_halos, qerrs
+    return h, new_halos
 
 
 class GCN(nn.Module):

@@ -1,6 +1,7 @@
 """Halo exchange and the ragged ring over stacked parts (port of
 ``sgcn_tpu/ops/pspmm.py::halo_exchange``, ``ragged_live_rounds`` and
-``sgcn_tpu/ops/pallas_spmm.py::pallas_ring_concat``).
+``sgcn_tpu/ops/pallas_spmm.py::pallas_ring_concat``, and the stale
+mode's ``_stale_exchange`` / ``_stale_ragged_exchange``).
 
 Rank layout of this port: all ``k`` parts run stacked along a leading axis
 in one process on one device (NCCL refuses two ranks on one GPU).  The
@@ -27,6 +28,12 @@ other way: every part's halo rows' partial gradients, laid out in its
 forward receive layout, go back to their owners — ``reverse_exchange``,
 one row pack by the plan's ``rev_src`` (the transpose of ``recv_src``);
 under NCCL ranks it is the reverse ``all_to_all_single`` of the forward's.
+
+``stale_exchange`` and ``stale_ring_exchange`` issue the stale mode's
+exchange into a carry that stays in the receive layout (the halo-delta
+cache's arithmetic included); the reference's ``(R, f)`` halo tables and
+``(k, S, f)`` baselines exist in the port only at the checkpoint's edge
+(``train/fullbatch.py``).
 
 The functions take the reference's ``halo_dtype``, a narrower dtype for
 the WIRE only: the pack rounds each row to it as it stores it, so the receive
@@ -162,3 +169,130 @@ def ring_concat(h, ring_src, rr_sizes, halo_dtype=None):
         return h.new_zeros((h.shape[0], 1) + tuple(h.shape[2:]),
                            dtype=_wire(h, halo_dtype))
     return row_pack(h.contiguous(), ring_src, _wire(h, halo_dtype))
+
+
+def _stale_step(exchange, x, carry_in, delta, wire_dtype, fresh):
+    """One stale-mode exchange into the carry's layout (the lockstep
+    contract of ``_stale_exchange``).  Without ``delta`` the carry is
+    the exchange itself at ``wire_dtype``.  With it the carry is float32:
+    a ``fresh`` step re-bases with the full row; a stale step ships
+    ``(full − carry)`` rounded to ``wire_dtype`` (bf16 by default) and
+    adds that increment to the carry."""
+    if not delta:
+        return exchange(x, wire_dtype)
+    full = exchange(x, None)
+    return full if fresh else delta_step(full, carry_in, wire_dtype)
+
+
+def delta_step(full, carry_in, wire_dtype=None):
+    """The halo-delta cache's arithmetic on a float32 carry: ``carry +
+    wire`` with ``wire = (full − carry)`` rounded to ``wire_dtype``
+    (``None``: bf16) — what both ends of the wire add.  Two passes: the
+    difference is rounded as it is stored, and the add widens the
+    increment exactly; the same bits as ``(full − carry).to(dtype)`` and
+    ``carry + wire.float()``, with no float32 temporaries."""
+    wdt = (torch.bfloat16 if wire_dtype is None
+           else narrow_dtype(wire_dtype) or torch.float32)
+    wire = torch.empty(full.shape, dtype=wdt, device=full.device)
+    torch.sub(full, carry_in, out=wire)
+    return carry_in + wire
+
+
+def stale_exchange(x, carry_in, recv_src, delta=False, wire_dtype=None,
+                   fresh=False):
+    """Issue step t's a2a exchange of the stale mode and return the next
+    carry (port of ``sgcn_tpu/ops/pspmm.py::_stale_exchange``).
+
+    The carry is every part's receive buffer ``(k, k·S, f)``
+    (``exchange_recv``'s layout, which the halo tiles read in place), not
+    the reference's ``(R, f)`` halo table; the reference's ``(R, f)``
+    rows are its gather by ``halo_src_flat``.  Under ``delta`` the
+    halo-delta cache's two ends — the receiver's cached halo and the
+    sender's baseline ``base[p, q, t]`` — hold the same value in every
+    receive slot ``recv[q, p·S + t]``: both start from the fresh row of a
+    sync step and add the same quantized increment.  So one float32
+    tensor is both, and the baseline is its transpose: ``base[p, q, t] =
+    carry[q, p·S + t]``.
+
+    Args:
+      x: ``(k, B, f)`` float32 local rows of all parts.
+      carry_in: the carry from step t−1 (ignored unless ``delta`` and not
+        ``fresh``).
+      recv_src: the plan's ``recv_src``.
+      delta: the halo-delta cache (float32 carry, bf16 increments).
+      wire_dtype: the wire's dtype: the increments' under ``delta``
+        (``None`` = bf16), else the full rows' (``None`` = ``x``'s).
+      fresh: a sync step: the full row, exactly the exact exchange.
+
+    Returns the next carry ``(k, k·S, f)``: ``x``'s dtype under ``delta``,
+    else the wire's."""
+    return _stale_step(lambda h, dt: exchange_recv(h, recv_src, dt), x,
+                       carry_in, delta, wire_dtype, fresh)
+
+
+def stale_ring_exchange(x, carry_in, ring_src, rr_sizes, delta=False,
+                        wire_dtype=None, fresh=False):
+    """``stale_exchange`` on the ragged ring (port of
+    ``sgcn_tpu/ops/pspmm.py::_stale_ragged_exchange``): the carry is the
+    ring's round-major receive concat ``(k, ΣS_d, f)`` (``ring_concat``),
+    which is the reference's own carry layout, one row pack per step.
+    Under ``delta`` each round's increment is rounded and added per slot,
+    so the round structure needs no code of its own; the reference's
+    sender-side baseline of round ``d`` is the carry rolled back by ``d``
+    parts (``base[p, off_d + t] = carry[(p + d) mod k, off_d + t]``)."""
+    return _stale_step(lambda h, dt: ring_concat(h, ring_src, rr_sizes, dt),
+                       x, carry_in, delta, wire_dtype, fresh)
+
+
+# ------------------------------------------- the reference's carry layout
+# The stale trainer's carries stay in the receive layouts above; these
+# convert them to the reference's layout (its checkpoint's, and the rows
+# its drift gauges sum over) and back.
+def recv_halo_rows(recv, halo_src_flat):
+    """The reference's ``(R, f)`` halo table of every part from a2a
+    receive buffers: ``(k, k·S, f)`` → ``(k, R, f)`` float32, padding
+    rows included (each reads the slot its ``halo_src`` names)."""
+    k, _, f = recv.shape
+    idx = halo_src_flat.reshape(-1).long()
+    return recv.reshape(-1, f).index_select(0, idx).reshape(k, -1, f).float()
+
+
+def recv_from_halo_rows(rows, halo_src_flat, shape, dtype):
+    """Receive buffers holding the ``(k, R, f)`` halo rows at the slots
+    their ``halo_src`` names and 0 elsewhere: the slots no halo row names
+    (send-list padding) carry weight 0 in every halo tile, so their values
+    change no sum.  Inverse of ``recv_halo_rows`` on the named slots."""
+    out = rows.new_zeros(shape, dtype=dtype)
+    idx = halo_src_flat.reshape(-1).long()
+    out.reshape(-1, shape[-1]).index_copy_(
+        0, idx, rows.reshape(-1, shape[-1]).to(dtype))
+    return out
+
+
+def recv_to_send_bases(recv, s: int):
+    """The senders' ``(k, S, f)`` delta baselines from the a2a carry:
+    ``base[p, q, t] = recv[q, p·S + t]`` → ``(k, k, S, f)`` float32."""
+    k, _, f = recv.shape
+    return recv.reshape(k, k, s, f).transpose(0, 1).float().contiguous()
+
+
+def recv_from_send_bases(base, dtype):
+    """Inverse of ``recv_to_send_bases``: ``(k, k, S, f)`` → ``(k, k·S,
+    f)``."""
+    k, _, s, f = base.shape
+    return base.transpose(0, 1).reshape(k, k * s, f).to(dtype).contiguous()
+
+
+def ring_to_send_bases(ring, rr_sizes, inverse: bool = False):
+    """The senders' round-major delta baselines from the ring carry: the
+    slots of round ``d`` arrived from part ``(q − d) mod k``, so
+    ``base[p, off_d + t] = ring[(p + d) mod k, off_d + t]``;
+    ``inverse=True`` maps baselines back to the carry."""
+    out = ring.float().clone()
+    off = 0
+    for d, sd in enumerate(rr_sizes, start=1):
+        if sd:
+            out[:, off: off + sd] = torch.roll(ring[:, off: off + sd],
+                                               d if inverse else -d, dims=0)
+        off += sd
+    return out

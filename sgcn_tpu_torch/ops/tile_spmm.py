@@ -45,6 +45,12 @@ holds, in the reference's order:
     (``ops/pspmm.py::ring_concat``, one row pack) through the
     ring-re-based halo tiles; bit-identical to ``pspmm_tiles_sym`` (same
     tiles, same edge order);
+  * ``pspmm_tiles_stale`` / ``pspmm_tiles_stale_ragged`` — the
+    reference's ``pspmm_stale`` / ``pspmm_stale_ragged`` (the pipelined
+    trainer's one-step-stale aggregation, whose reference runs no Pallas
+    kernel) as ``PspmmTilesStale``, on the same pack and fused launch: the
+    exchange goes into a carry in the receive layout, the fused launch
+    reads the previous step's carry;
   * ``gat_tiles_pass`` — ``gat_pallas_pass`` (K5): the GAT attention pass,
     the kernel over the combined-edge tiles with int8 0/1 mask weights.
     An int8 ``tw`` launches the kernel's int8 entry point, counted in
@@ -78,7 +84,8 @@ import ctypes
 import numpy as np
 import torch
 
-from .pspmm import exchange_recv, reverse_exchange, ring_concat
+from .pspmm import (exchange_recv, reverse_exchange, ring_concat,
+                    stale_exchange, stale_ring_exchange)
 
 
 # ----------------------------------------------------------- tile builders
@@ -692,7 +699,17 @@ def _pspmm_tiles_once(h, recv_src, lsrc, lld, lw, hwsrc, hld, hw, tb,
     summed in float32 and rounded once to ``h``'s dtype
     (``pallas_spmm.py:428``) for the ``b`` owned rows."""
     recv = exchange_recv(h, recv_src, halo_dtype)
-    return spmm_tiles_fused((lsrc, lld, lw), h, (hwsrc, hld, hw), recv,
+    return _fused_on(h, recv, lsrc, lld, lw, hwsrc, hld, hw, tb, lclasses,
+                     hclasses)
+
+
+def _fused_on(h, table, lsrc, lld, lw, hsrc, hld, hw, tb, lclasses,
+              hclasses):
+    """The fused tile launch of one GCN aggregation on a given remote
+    table — the exchange's receive buffer or ring concat of this step, or
+    a stale carry in the same layout (``hsrc``: ``ptile_hwsrc`` or
+    ``ptile_hrsrc``)."""
+    return spmm_tiles_fused((lsrc, lld, lw), h, (hsrc, hld, hw), table,
                             lclasses, hclasses, tb)
 
 
@@ -823,8 +840,8 @@ def _pspmm_tiles_ragged_once(h, ring_src, lsrc, lld, lw, rsrc, rld, rw,
     ring = ring_concat(h, ring_src, rr_sizes, halo_dtype)
     # the a2a flavor's halo tiles in the a2a flavor's edge order, reading
     # the same rows at their ring positions: the same bits
-    return spmm_tiles_fused((lsrc, lld, lw), h, (rsrc, rld, rw), ring,
-                            lclasses, hclasses, tb)
+    return _fused_on(h, ring, lsrc, lld, lw, rsrc, rld, rw, tb, lclasses,
+                     hclasses)
 
 
 class PspmmTilesRagged(torch.autograd.Function):
@@ -873,6 +890,113 @@ def pspmm_tiles_ragged(h, ring_src, lsrc, lld, lw, rsrc, rld, rw,
     return PspmmTilesRagged.apply(h, ring_src, lsrc, lld, lw, rsrc, rld, rw,
                                   tb, lclasses, hclasses, rr_sizes,
                                   halo_dtype)
+
+
+class PspmmTilesStale(torch.autograd.Function):
+    """``pspmm_stale`` (a2a) and ``pspmm_stale_ragged`` (the ring) with
+    their custom VJPs: the one-step-stale aggregation of the pipelined
+    trainer, on the same two halves as ``PspmmTilesSym``/
+    ``PspmmTilesRagged`` — one row pack, one fused launch.
+
+    Forward: step t's exchange goes into the next carry
+    (``ops/pspmm.py::stale_exchange`` / ``stale_ring_exchange``, the
+    halo-delta cache's arithmetic included), and one fused launch sums
+    ``Â_local·x + Â_halo·used`` with ``used`` the carry from step t−1 —
+    or, on a ``fresh`` (sync) step, the exchange just made, which is the
+    exact op bit for bit.  Backward (Â symmetric): one pack of the
+    gradient ``g`` at ``gwire_dtype`` (never delta) makes the next
+    gradient carry, and one fused launch sums ``Â_local·g +
+    Â_halo·ghalo_in`` (the fresh carry on a sync step).
+
+    The reference hands the fresh gradient carry out as the cotangent of
+    its ``ghalo_in`` argument.  Here the backward stores it in
+    ``gholder[layer]``, a list the caller owns, and returns no gradient
+    for any carry.  A layer whose input needs no gradient (an
+    aggregate-first first layer) runs no backward, so its slot keeps
+    what the caller put there.
+
+    The carries stay in the layout the fused launch reads in place: the
+    a2a receive buffer ``(k, k·S, f)`` (``hsrc`` = ``ptile_hwsrc``) or the
+    ring concat ``(k, ΣS_d, f)`` (``ptile_hrsrc``, ``rr_sizes`` given).
+    ``PspmmTilesStale.backward_launches`` counts the backward's fused
+    launches (CUDA tensors only)."""
+
+    backward_launches = 0
+
+    @staticmethod
+    def forward(ctx, x, halo_in, ghalo_in, src, lsrc, lld, lw, hsrc, hld, hw,
+                spec, mode, gholder, layer):
+        tb, lclasses, hclasses, rr_sizes = spec
+        delta, wire_dtype, gwire_dtype, fresh = mode
+        halo_next = _stale_exchange_of(rr_sizes)(
+            x, halo_in, src, delta, wire_dtype, fresh)
+        used = halo_next if fresh else halo_in
+        out = _fused_on(x, used, lsrc, lld, lw, hsrc, hld, hw, tb, lclasses,
+                        hclasses)
+        ctx.save_for_backward(ghalo_in, src, lsrc, lld, lw, hsrc, hld, hw)
+        ctx.static = (spec, gwire_dtype, fresh, gholder, layer)
+        ctx.mark_non_differentiable(halo_next)
+        # the carry gets no gradient: do not let autograd fill a zero
+        # receive-layout tensor for it on every backward
+        ctx.set_materialize_grads(False)
+        return out, halo_next
+
+    @staticmethod
+    def backward(ctx, g, _g_carry):
+        ghalo_in, src, lsrc, lld, lw, hsrc, hld, hw = ctx.saved_tensors
+        (tb, lclasses, hclasses, rr_sizes), gwire_dtype, fresh, gholder, \
+            layer = ctx.static
+        g = g.contiguous()
+        gh_next = _stale_exchange_of(rr_sizes)(g, None, src, False,
+                                               gwire_dtype, False)
+        before = fused_launches()
+        gx = _fused_on(g, gh_next if fresh else ghalo_in, lsrc, lld, lw,
+                       hsrc, hld, hw, tb, lclasses, hclasses)
+        PspmmTilesStale.backward_launches += fused_launches() - before
+        if gholder is not None:
+            gholder[layer] = gh_next
+        return (gx,) + (None,) * 13
+
+
+def _stale_exchange_of(rr_sizes):
+    """The stale exchange of a transport: a2a without ``rr_sizes``."""
+    if rr_sizes is None:
+        return stale_exchange
+    return lambda x, carry, src, *a: stale_ring_exchange(x, carry, src,
+                                                         rr_sizes, *a)
+
+
+def pspmm_tiles_stale(x, halo_in, ghalo_in, recv_src, lsrc, lld, lw, hwsrc,
+                      hld, hw, tb: int, lclasses, hclasses, delta=False,
+                      wire_dtype=None, gwire_dtype=None, fresh=False,
+                      gholder=None, layer: int = 0):
+    """``pspmm_stale`` over stacked parts (``PspmmTilesStale``, a2a).
+    ``x``: ``(k, b, f)`` float32; ``halo_in``/``ghalo_in``: the feature
+    and gradient carries, ``(k, k·S, f)`` receive buffers (float32 under
+    ``delta``, else the wire's dtype).  Returns ``(out, halo_next)``;
+    differentiable in ``x``, the next gradient carry goes to
+    ``gholder[layer]``."""
+    return PspmmTilesStale.apply(
+        x, halo_in, ghalo_in, recv_src, lsrc, lld, lw, hwsrc, hld, hw,
+        (tb, lclasses, hclasses, None),
+        (delta, wire_dtype, gwire_dtype, fresh), gholder, layer)
+
+
+def pspmm_tiles_stale_ragged(x, halo_in, ghalo_in, ring_src, lsrc, lld, lw,
+                             rsrc, rld, rw, tb: int, lclasses, hclasses,
+                             rr_sizes, delta=False, wire_dtype=None,
+                             gwire_dtype=None, fresh=False, gholder=None,
+                             layer: int = 0):
+    """``pspmm_stale_ragged`` over stacked parts (``PspmmTilesStale`` on
+    the ring): as ``pspmm_tiles_stale`` with ``(k, ΣS_d, f)`` ring-concat
+    carries and the ring-re-based halo tiles (``ptile_hrsrc``).  The
+    carries hold the same rows as the a2a flavor's and the fused launch
+    walks the same slot order, so it equals ``pspmm_tiles_stale`` bit for
+    bit."""
+    return PspmmTilesStale.apply(
+        x, halo_in, ghalo_in, ring_src, lsrc, lld, lw, rsrc, rld, rw,
+        (tb, lclasses, hclasses, tuple(rr_sizes)),
+        (delta, wire_dtype, gwire_dtype, fresh), gholder, layer)
 
 
 def gat_tiles_pass(csrc, cld, cw, table, cclasses, tb: int, num_rows: int):

@@ -31,7 +31,7 @@ array (``tests/test_torch_plan.py``):
     re-base the halo tile sources to positions in the ring's round-major
     receive concat (``ptile_hrsrc``/``ptile_crsrc``);
   * ``resolve_comm_schedule`` picks the transport (``a2a``, ``ragged`` or
-    ``auto``) by the reference's exact-mode rule;
+    ``auto``) by the reference's rules, exact and stale;
   * port-only arrays, which the reference has no counterpart of, lay the
     exchange out for one row gather over the stacked parts
     (``ops/pspmm.py``): ``ensure_exchange`` builds the a2a receive
@@ -51,8 +51,10 @@ array (``tests/test_torch_plan.py``):
     same over the combined-edge 0/1 masks for GAT (``ptile_tc*``,
     ``rev_csrc``).
 
-Not ported: the forced ring envelope and the per-round edge split
-(``rr_edge_sizes``, ``redge_*``), and the replica and stale layouts.
+``stale_carry_shapes`` gives the stale-halo mode's carries in the
+reference's layout (the checkpoint's).  Not ported: the forced ring
+envelope and the per-round edge split (``rr_edge_sizes``, ``redge_*``),
+and the replica layouts (ROADMAP A7b).
 Everything here is offline numpy.
 """
 
@@ -608,6 +610,47 @@ class CommPlan:
             return int(rows * sum(sizes))
         raise ValueError(f"unknown comm schedule {schedule!r}")
 
+    # ------------------------------------------------------------ stale halo
+    def stale_carry_shapes(self, fin: int, widths, delta: bool = False,
+                           comm_schedule: str = "a2a") -> dict:
+        """Per-layer carry shapes of the stale-halo mode in the
+        reference's layout, without the stacked leading ``k`` axis — the
+        layout its checkpoints hold.  ``f_ℓ`` is each layer's exchanged
+        width (``models.gcn.exchange_widths``, the project-first rule).
+
+        ``'a2a'``: ``halos``/``ghalos`` ``(R, f_ℓ)`` halo tables, ``bases``
+        the sender's ``(k, S, f_ℓ)`` delta baseline under ``delta``, else a
+        ``(1, 1, 1)`` placeholder.  ``'ragged'``: every carry is the
+        ring's round-major receive concat ``(max(1, Σ_d S_d), f_ℓ)``
+        (placeholder base ``(1, 1)``); needs ``ensure_ragged()`` first.
+        The port's trainer carries the receive layouts the fused launch
+        reads in place and converts to these shapes only at the
+        checkpoint (``train/fullbatch.py``)."""
+        from ..models.gcn import exchange_widths   # deferred: avoids a cycle
+
+        fs = exchange_widths(fin, list(widths))
+        if comm_schedule == "ragged":
+            if self.rr_sizes is None:
+                raise ValueError(
+                    "round-structured stale carries need the ragged layout; "
+                    "call ensure_ragged() before stale_carry_shapes("
+                    "comm_schedule='ragged')")
+            st = max(1, sum(self.rr_sizes))
+            return {
+                "halos": [(st, f) for f in fs],
+                "ghalos": [(st, f) for f in fs],
+                "bases": [((st, f) if delta else (1, 1)) for f in fs],
+            }
+        if comm_schedule != "a2a":
+            raise ValueError(f"unknown comm_schedule {comm_schedule!r}")
+        peers = self.send_idx.shape[1]
+        return {
+            "halos": [(self.r, f) for f in fs],
+            "ghalos": [(self.r, f) for f in fs],
+            "bases": [((peers, self.s, f) if delta else (1, 1, 1))
+                      for f in fs],
+        }
+
     # ------------------------------------------------------------------ stats
     def offwire_send_counts(self) -> np.ndarray:
         """``send_counts`` with each part's self-slot zeroed — the rows that
@@ -881,17 +924,24 @@ def _check_symmetric(a: sp.spmatrix) -> bool:
 
 
 def resolve_comm_schedule(schedule: str | None, plans, model: str,
-                          decision: dict | None = None) -> str:
+                          decision: dict | None = None,
+                          halo_staleness: int = 0) -> str:
     """Resolve a ``comm_schedule`` knob to a transport, by the reference's
-    exact-mode rule (``halo_staleness=0``, no replicas: those levers are
-    not ported, ROADMAP A7).
+    rules (the replica-aware scoring is ROADMAP A7b).
 
     ``None`` reads ``$SGCN_COMM_SCHEDULE`` (default ``'a2a'``).  An
     explicit ``'a2a'``/``'ragged'`` resolves to itself (callers validate an
     explicit ``'ragged'`` themselves).  ``'auto'`` picks ``'ragged'`` only
-    when every plan supports the ring (symmetric, k > 1) and the dense
-    a2a's padding efficiency — true rows over wire rows, summed over the
-    plans — falls below ``RAGGED_AUTO_EFFICIENCY``; else ``'a2a'``.
+    when every plan supports the ring (symmetric, k > 1) and its cost
+    rule says so, else ``'a2a'``:
+
+    * exact mode (``halo_staleness=0``): the dense a2a's padding
+      efficiency — true rows over wire rows, summed over the plans —
+      falls below ``RAGGED_AUTO_EFFICIENCY``;
+    * stale mode (``halo_staleness=1``): the exchange has no same-step
+      consumer, so only wire bytes count — the ring wins whenever it
+      ships strictly fewer wire rows (the hidden-exchange rule).
+
     Every exchange of a plan ships the same row set at every lane width,
     so the byte ratio is the row ratio for both models.
 
@@ -907,7 +957,8 @@ def resolve_comm_schedule(schedule: str | None, plans, model: str,
         raise ValueError(
             f"comm_schedule must be 'a2a', 'ragged' or 'auto', got "
             f"{schedule!r}")
-    log.update(asked=asked, model=model)
+    log.update(asked=asked, model=model, halo_staleness=int(halo_staleness),
+               replica_budget=0)
 
     def resolved(value: str, rule: str) -> str:
         log.update(resolved=value, rule=rule)
@@ -928,6 +979,12 @@ def resolve_comm_schedule(schedule: str | None, plans, model: str,
                wire_rows_ragged=wire_ragged,
                padding_efficiency=(true / wire if wire else 1.0),
                threshold=RAGGED_AUTO_EFFICIENCY)
+    if halo_staleness:
+        if wire_ragged < wire:
+            return resolved("ragged", "hidden-exchange wire-byte rule: "
+                                      "ragged ships fewer wire rows")
+        return resolved("a2a", "hidden-exchange wire-byte rule: ragged "
+                               "ships no fewer wire rows")
     if not wire or true / wire >= RAGGED_AUTO_EFFICIENCY:
         return resolved("a2a", "padding efficiency at/above threshold")
     return resolved("ragged", "padding efficiency below threshold")

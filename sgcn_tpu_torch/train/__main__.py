@@ -22,10 +22,15 @@ every ``--checkpoint-every N`` steps, the newest ``--keep-checkpoints K``
 kept; ``--resume auto`` restores the newest intact one there and trains
 the rest of the ``--warmup + --epochs`` schedule, bit-identical to the
 uninterrupted run.  ``$SGCN_FAULT`` (``resilience/faults.py``) kills or
-corrupts a run after a named save.  Flags whose feature is not ported are
-not defined (mini-batch, stale halos, replicas, profiling, metrics, memory
-budget).  Prints ONE JSON line: the comm report and epoch timing under the
-reference's keys (with ``--checkpoint-dir``: ``steps``, ``step_s_wall``
+corrupts a run after a named save.  ``--halo-staleness 1`` trains the
+pipelined stale-halo GCN (``--halo-delta`` adds the bf16 halo-delta
+cache, ``--sync-every N`` a sync step every N steps, and with
+``--comm-schedule auto`` the controller retunes N), with the reference's
+guards.  Flags whose feature is not ported are not defined (mini-batch,
+replicas, profiling, metrics, memory budget).  Prints ONE JSON line: the
+comm report and epoch timing under the reference's keys (in the stale
+mode with its hidden/exposed split, the stale flags and the controller's
+log) (with ``--checkpoint-dir``: ``steps``, ``step_s_wall``
 and the per-step ``losses``), or with ``--experiment accuracy`` the
 oracle's and the partitioned trainer's test accuracy.
 """
@@ -62,6 +67,20 @@ def build_parser(description: str = "sgcn_tpu_torch partitioned full-batch "
                    help="wire-only exchange dtype: halves the exchange's "
                         "bytes, all compute stays f32 (full-batch GCN "
                         "only)")
+    p.add_argument("--halo-staleness", type=int, default=0, choices=[0, 1],
+                   help="0 (default) = exact per-layer halo exchange; 1 = "
+                        "pipelined one-step-stale exchange: layer L of step "
+                        "t aggregates with the halo exchanged during step "
+                        "t-1, so the exchange leaves the critical path "
+                        "(full-batch GCN, symmetric adjacency only)")
+    p.add_argument("--halo-delta", action="store_true",
+                   help="halo-delta cache on top of --halo-staleness 1: "
+                        "boundary rows ship as bf16 deltas accumulated "
+                        "into the carried remote halo (half the wire bytes)")
+    p.add_argument("--sync-every", type=int, default=0,
+                   help="stale mode: run a full-sync (exact-math) step "
+                        "every N steps to bound staleness/quantization "
+                        "drift; 0 = only the initializing first step")
     p.add_argument("--epochs", type=int, default=4)
     p.add_argument("--warmup", type=int, default=1)
     p.add_argument("--lr", type=float, default=0.01)
@@ -185,6 +204,24 @@ def main(argv=None) -> None:
             "accuracy-parity harness is defined for the f32-wire config; "
             "under --dtype bfloat16 the wire is already bf16, so the flag "
             "would be a silent no-op)")
+    if args.halo_staleness and (args.model != "gcn"
+                                or args.experiment == "accuracy"
+                                or args.dtype):
+        raise SystemExit(
+            "--halo-staleness 1 pipelines the full-batch GCN trainer only "
+            "(the mini-batch sweep re-plans per batch, GAT ships per-layer "
+            "attention tables, the accuracy-parity harness is defined for "
+            "the exact exchange, and the carries are f32 state — drop the "
+            "conflicting flag)")
+    if args.halo_delta and not args.halo_staleness:
+        raise SystemExit(
+            "--halo-delta configures the stale pipelined exchange; add "
+            "--halo-staleness 1")
+    if args.sync_every and not args.halo_staleness:
+        raise SystemExit(
+            "--sync-every schedules the stale mode's full-sync steps or "
+            "the replica mode's refresh steps; add --halo-staleness 1 or "
+            "--replica-budget B")
     if args.comm_schedule == "ragged" and args.experiment == "accuracy":
         raise SystemExit(
             "--comm-schedule ragged: the accuracy-parity harness is "
@@ -247,6 +284,9 @@ def main(argv=None) -> None:
                           activation=activation, seed=args.seed,
                           compute_dtype=args.dtype,
                           halo_dtype=args.halo_dtype,
+                          halo_staleness=args.halo_staleness,
+                          halo_delta=args.halo_delta,
+                          sync_every=args.sync_every,
                           comm_schedule=args.comm_schedule, device=device)
     # durable checkpointing: one manager per checkpoint directory
     mgr = None
@@ -303,6 +343,13 @@ def main(argv=None) -> None:
     report["loss"] = args.loss
     report["dtype"] = args.dtype
     report["halo_dtype"] = args.halo_dtype
+    if args.halo_staleness:
+        # the stale block: the mode's flags, the sync interval in force
+        # at the end (the controller may have retuned it) and its log
+        report.update(halo_staleness=args.halo_staleness,
+                      halo_delta=args.halo_delta, sync_every=tr.sync_every)
+        if tr.controller is not None:
+            report["controller"] = tr.comm_decision["controller"]
     report.pop("loss_history", None)
     print(json.dumps(report), flush=True)
 

@@ -1,6 +1,6 @@
 """Full-batch partitioned GCN/GAT trainer and the forward setup it shares
-with the serve engine (port of ``sgcn_tpu/train/fullbatch.py``, exact
-path).
+with the serve engine (port of ``sgcn_tpu/train/fullbatch.py``: the exact
+path and the pipelined stale-halo mode).
 
 ``resolve_forward_setup`` ports the tile-kernel selection for both
 models on both transports: GCN over the local and halo tile families, GAT
@@ -24,9 +24,21 @@ and Adam.  Its two precision levers are the reference's:
 ``compute_dtype='bfloat16'`` (float32 master weights, the forward and
 backward in bf16, the loss on float32 logits) and ``halo_dtype='bfloat16'``
 (GCN only: the exchange's wire narrows, every table and sum stays
-float32).  The levers of the reference that are not ported — remat,
-stale halos, replicas, memory budgets — raise "not ported yet" with their
-ROADMAP item.
+float32).
+
+``halo_staleness=1`` is the reference's pipelined trainer (GCN, symmetric
+Â, float32): layer ℓ of step t aggregates with the halo exchanged during
+step t−1 (``models/gcn.py::gcn_forward_local_stale``,
+``ops/tile_spmm.py::PspmmTilesStale``), features and gradients alike;
+step 0 and every ``sync_every``-th step run the sync step (exact math);
+``halo_delta`` ships bf16 increments into a float32 carry; under
+``comm_schedule='auto'`` with ``sync_every`` a ``CommController``
+retunes the interval from the drift measured at sync steps.  The carries
+live in the receive layouts the fused launch reads
+(``ops/pspmm.py::stale_exchange``) and take the reference's layout only
+in checkpoints and drift gauges.  The levers of the reference that are
+not ported — remat, replicas, memory budgets — raise "not ported yet"
+with their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -41,10 +53,11 @@ from ..models.gat import (GAT, GAT_PLAN_FIELDS_PALLAS,
                           GAT_PLAN_FIELDS_PALLAS_GEN,
                           GAT_PLAN_FIELDS_PALLAS_RAGGED,
                           gat_exchange_lane_widths, init_gat_params)
-from ..models.gcn import (GCN, exchange_widths, init_gcn_params,
-                          masked_accuracy_local,
+from ..models.gcn import (GCN, exchange_widths, gcn_forward_local_stale,
+                          init_gcn_params, masked_accuracy_local,
                           masked_err_local, masked_sigmoid_bce_local,
                           masked_softmax_xent_local)
+from ..ops import pspmm as layout
 from ..ops.pspmm import narrow_dtype
 from ..ops.tile_spmm import (TILE_PLAN_FIELDS, TILE_PLAN_FIELDS_GEN,
                              TILE_PLAN_FIELDS_RAGGED, choose_tile_dispatch)
@@ -135,7 +148,8 @@ class ForwardSetup:
 
 
 def resolve_forward_setup(plan, model: str = "gcn",
-                          comm_schedule: str | None = None) -> ForwardSetup:
+                          comm_schedule: str | None = None,
+                          halo_staleness: int = 0) -> ForwardSetup:
     """Resolve the ported subset: GCN or GAT over the transport
     ``resolve_comm_schedule`` picks (``None`` reads
     ``$SGCN_COMM_SCHEDULE``, default a2a; ``auto`` takes the ring when the
@@ -145,16 +159,19 @@ def resolve_forward_setup(plan, model: str = "gcn",
     gradient rides the ring through the symmetric backward) and on k = 1
     (no ring); ``auto`` gives a2a on an asymmetric plan, whose backward
     runs on the plan's transposed layouts (``TILE_PLAN_FIELDS_GEN``,
-    ``GAT_PLAN_FIELDS_PALLAS_GEN``).  Builds the plan's tile and ring
-    layouts as a side effect, as the reference does.  The reference's
-    ``fin``/``widths`` fed its VMEM-fit rule, which is not carried."""
+    ``GAT_PLAN_FIELDS_PALLAS_GEN``).  ``halo_staleness=1`` switches
+    ``auto`` to the hidden exchange's wire-row rule.  Builds the plan's
+    tile and ring layouts as a side effect, as the reference does.  The
+    reference's ``fin``/``widths`` fed its VMEM-fit rule, which is not
+    carried."""
     if model not in MODELS:
         raise NotImplementedError(
             f"model {model!r} is not ported yet (ported: "
             f"{', '.join(MODELS)})")
     decision: dict = {}
     schedule = resolve_comm_schedule(comm_schedule, [plan], model,
-                                     decision=decision)
+                                     decision=decision,
+                                     halo_staleness=halo_staleness)
     if schedule == "ragged" and not plan.symmetric:
         raise ValueError(
             "comm_schedule='ragged' uses the symmetric custom backward (the "
@@ -225,19 +242,55 @@ def make_train_data(plan, features: np.ndarray, labels: np.ndarray,
 # name -> (default meaning "off", ROADMAP item)
 _UNPORTED_LEVERS = {
     "remat": (False, "A3"),
-    "halo_staleness": (0, "A7"),
-    "halo_delta": (False, "A7"),
-    "sync_every": (0, "A7"),
-    "replica_budget": (0, "A7"),
-    "refresh_band": (None, "A7"),
+    "replica_budget": (0, "A7b"),
+    "refresh_band": (None, "A7b"),
     "memory_budget": (None, "A10"),
 }
 
 
+def check_stale_levers(model: str, symmetric: bool, halo_staleness: int,
+                       halo_delta: bool, sync_every: int, compute_dtype,
+                       remat: bool, replica_budget=0) -> None:
+    """The reference trainer's gates on the stale-halo levers, with its
+    messages (``ValueError``)."""
+    if halo_staleness not in (0, 1):
+        raise ValueError(
+            f"halo_staleness must be 0 (exact) or 1 (pipelined), got "
+            f"{halo_staleness}")
+    if halo_delta and not halo_staleness:
+        raise ValueError(
+            "halo_delta accumulates into the stale halo carry; it "
+            "requires halo_staleness=1")
+    if sync_every < 0:
+        raise ValueError(f"sync_every must be >= 0, got {sync_every}")
+    if sync_every and not (halo_staleness or replica_budget):
+        raise ValueError(
+            "sync_every schedules the stale mode's full-sync steps / "
+            "the replica mode's refresh steps; it requires "
+            "halo_staleness=1 or replica_budget>0 (exact mode is "
+            "always in sync)")
+    if halo_staleness:
+        if model != "gcn":
+            raise ValueError(
+                "halo_staleness=1 pipelines the GCN hot path; the GAT "
+                "exchange ships per-layer attention tables whose "
+                "staleness is not supported (models/gat.py)")
+        if not symmetric:
+            raise ValueError(
+                "halo_staleness=1 uses the symmetric-Â custom backward "
+                "(stale gradient exchange == stale forward exchange "
+                "pattern); this plan is asymmetric — run exact mode")
+        if compute_dtype is not None or remat:
+            raise ValueError(
+                "halo_staleness=1 is defined for the f32 non-remat "
+                "trainer (carries are f32 state threaded through the "
+                "step); drop compute_dtype/remat or run exact mode")
+
+
 class FullBatchTrainer:
-    """Full-batch partitioned GCN/GAT trainer, exact path over the a2a
-    exchange or the ragged ring (the reference's ``FullBatchTrainer``
-    with its defaults)."""
+    """Full-batch partitioned GCN/GAT trainer over the a2a exchange or the
+    ragged ring (the reference's ``FullBatchTrainer``): the exact path,
+    and for GCN the pipelined stale-halo mode."""
 
     def __init__(
         self,
@@ -278,22 +331,39 @@ class FullBatchTrainer:
         float32 plan weights rounded through bf16 once, here), the loss
         on the logits upcast to float32.  ``halo_dtype='bfloat16'`` (GCN
         only): both directions' exchanges ship bf16, every table and sum
-        stays float32.  Levers not ported raise ``NotImplementedError``."""
-        given = {"remat": remat, "halo_staleness": halo_staleness,
-                 "halo_delta": halo_delta, "sync_every": sync_every,
-                 "replica_budget": replica_budget,
+        stays float32.
+
+        ``halo_staleness=1`` trains the pipelined stale-halo mode (GCN,
+        symmetric plan, float32, both transports): each layer aggregates
+        with the halo exchanged the step before, features forward and
+        gradients backward; step 0 and, with ``sync_every=N``, every N-th
+        step are sync steps (exact math, the carries refreshed).
+        ``halo_delta`` ships each stale step's feature rows as bf16
+        increments into a float32 carry (a sync step re-bases with the
+        full float32 row); the gradient wire keeps ``halo_dtype``.  With
+        ``comm_schedule='auto'`` and ``sync_every`` the drift-banded
+        ``CommController`` retunes ``sync_every`` at each sync step
+        (``comm_decision['controller']`` holds its log).  Evaluation runs
+        the exact forward.  The reference's gates raise its
+        ``ValueError``s; the levers not ported raise
+        ``NotImplementedError``."""
+        if halo_dtype is not None and model != "gcn":
+            raise ValueError(
+                "halo_dtype is a GCN-trainer lever; for GAT use "
+                "compute_dtype='bfloat16' (the packed exchange already "
+                "ships half-width rows)")
+        check_stale_levers(model, plan.symmetric, halo_staleness,
+                           halo_delta, sync_every, compute_dtype, remat,
+                           replica_budget)
+        given = {"remat": remat, "replica_budget": replica_budget,
                  "refresh_band": refresh_band,
                  "memory_budget": memory_budget}
         for name, (off, item) in _UNPORTED_LEVERS.items():
             if given[name] != off:
                 raise NotImplementedError(
                     f"{name}={given[name]!r} is not ported yet (ROADMAP "
-                    f"item {item}); this port trains the exact path")
-        if halo_dtype is not None and model != "gcn":
-            raise ValueError(
-                "halo_dtype is a GCN-trainer lever; for GAT use "
-                "compute_dtype='bfloat16' (the packed exchange already "
-                "ships half-width rows)")
+                    f"item {item}); this port trains the exact and stale "
+                    "paths")
         narrowed = {name: "bfloat16" for name, dt in (
             ("compute_dtype", narrow_dtype(compute_dtype, "compute_dtype")),
             ("halo_dtype", narrow_dtype(halo_dtype))) if dt is not None}
@@ -301,7 +371,8 @@ class FullBatchTrainer:
             raise ValueError(f"unknown loss {loss!r}; one of {sorted(LOSSES)}")
         self.device = resolve_device(device)
         setup = resolve_forward_setup(plan, model=model,
-                                      comm_schedule=comm_schedule)
+                                      comm_schedule=comm_schedule,
+                                      halo_staleness=halo_staleness)
         self.setup = setup
         self.comm_decision = setup.decision
         self.comm_schedule = setup.comm_schedule
@@ -329,17 +400,38 @@ class FullBatchTrainer:
         # per-exchange wire lane widths: GCN ships feature rows at the
         # project-first widths, GAT its attention tables (whose lanes
         # encode the dtype, at 4 bytes each); a GCN wire narrows to 2
-        # bytes under either bf16 lever, both directions
+        # bytes under either bf16 lever, both directions, and the
+        # halo-delta cache narrows the feature wire alone
+        gcn = setup.model == "gcn"
         self.stats = CommStats.from_plan(
             plan, schedule=self.comm_schedule,
             lane_widths=setup.lane_widths_fn(self.fin, self.widths,
                                              self.compute_dtype),
-            wire_itemsize=2 if setup.model == "gcn" and narrowed else 4)
+            wire_itemsize=2 if gcn and (narrowed or halo_delta) else 4,
+            wire_itemsize_bwd=2 if gcn and narrowed else 4)
         self.timer = PhaseTimer()
         self.spans = SpanTimer(timer=self.timer)
         self._step_count = 0
         self.last_err = None
         self.last_restore_partial = False  # set by load_checkpoint
+        self.halo_staleness = int(halo_staleness)
+        self.halo_delta = bool(halo_delta)
+        self.sync_every = int(sync_every)
+        # the drift-banded sync_every retune: when the schedule was asked
+        # as 'auto' and there is a sync schedule to tune
+        self.controller = None
+        if (str(self.comm_decision.get("asked")) == "auto" and sync_every
+                and halo_staleness):
+            from .controller import CommController
+            self.controller = CommController(sync_every=sync_every)
+            self.comm_decision["controller"] = self.controller.log()
+        # drift gauges on every step (else only on a controller's sync
+        # steps); the newest land in last_gauges
+        self.drift_gauges = False
+        self.last_gauges = None
+        self.halo_carry = None
+        if halo_staleness:
+            self._init_stale_carry()
 
     # ------------------------------------------------------------- state
     @property
@@ -355,29 +447,224 @@ class FullBatchTrainer:
     def _sync(self) -> None:
         synchronize(self.device)
 
+    # ------------------------------------------------------- stale halos
+    def _init_stale_carry(self) -> None:
+        """Zero carries in the receive layouts (never consumed: step 0 is
+        a sync step), float32 under ``halo_delta``, else the wire's dtype;
+        the gradient carries in the gradient wire's."""
+        plan, k = self.plan, self.plan.k
+        ragged = self.comm_schedule == "ragged"
+        rows = max(1, sum(plan.rr_sizes)) if ragged else k * plan.s
+        wire = narrow_dtype(self.halo_dtype) or torch.float32
+        hdt = torch.float32 if self.halo_delta else wire
+        fs = exchange_widths(self.fin, self.widths)
+        self.halo_carry = {
+            "halos": [torch.zeros((k, rows, f), dtype=hdt,
+                                  device=self.device) for f in fs],
+            "ghalos": [torch.zeros((k, rows, f), dtype=wire,
+                                   device=self.device) for f in fs]}
+        self._halo_src_flat = (None if ragged else torch.as_tensor(
+            plan.halo_src_flat.astype(np.int64)).to(self.device))
+        self._stale_step_idx = 0
+        self._last_sync_idx = 0
+
+    def _stale_sync_due(self) -> bool:
+        """Carry init (step 0) + the periodic full-sync schedule."""
+        if self._stale_step_idx == 0:
+            return True
+        return bool(self.sync_every) and \
+            self._stale_step_idx % self.sync_every == 0
+
+    def _halo_rows(self, carry):
+        """A carry's rows in the reference's layout, float32: the a2a
+        receive buffer gathered to its ``(k, R, f)`` halo tables; the
+        ring concat as it is."""
+        if self._halo_src_flat is None:
+            return carry.float()
+        return layout.recv_halo_rows(carry, self._halo_src_flat)
+
+    def _one_step_stale(self, data: TrainData, fresh: bool,
+                        gauges: bool = False):
+        """One step under the pipelined stale exchange: the stale forward
+        reads the carries of step t−1 and makes step t's; the backward
+        writes the next gradient carries into a holder.  ``gauges``: the
+        drift gauges of the reference's ``_one_step_stale``, over its
+        ``(R, f)`` rows (padding rows included) — ``drift_sq[ℓ] = Σ
+        (halo_next − halo_in)²``, ``ref_sq[ℓ] = Σ halo_next²`` and the
+        halo-delta residual ``qerr_sq[ℓ]`` (float64 numpy)."""
+        self.opt.zero_grad(set_to_none=True)
+        halos_in = self.halo_carry["halos"]
+        gholder = list(self.halo_carry["ghalos"])
+        out = gcn_forward_local_stale(
+            list(self.model.weights), data.h0, self.pa, halos_in,
+            self.halo_carry["ghalos"], gholder,
+            activation=self.activation,
+            final_activation=self.final_activation,
+            delta=self.halo_delta,
+            # the delta cache IS the bf16 wire; otherwise the stale feature
+            # wire keeps the exact mode's halo_dtype
+            wire_dtype="bfloat16" if self.halo_delta else self.halo_dtype,
+            gwire_dtype=self.halo_dtype, fresh=fresh, gauges=gauges,
+            **self.setup.fwd_static)
+        logits = out[0].float()
+        loss = self._loss_fn(logits, data.labels, data.train_valid)
+        err = (masked_err_local(logits.detach(), data.labels,
+                                data.train_valid)
+               if self.loss_name == "bce" else loss.detach())
+        loss.backward()
+        self.opt.step()
+        # carries are per-part state: never reduced, never differentiated
+        self.halo_carry = {"halos": out[1], "ghalos": gholder}
+        if gauges:
+            with torch.no_grad():
+                new = [self._halo_rows(x) for x in out[1]]
+                old = [self._halo_rows(x) for x in halos_in]
+                sums = {"drift_sq": [torch.sum(torch.square(n - o))
+                                     for n, o in zip(new, old)],
+                        "ref_sq": [torch.sum(torch.square(n)) for n in new],
+                        "qerr_sq": out[2]}
+                self.last_gauges = {
+                    name: np.array([float(x) for x in v], np.float64)
+                    for name, v in sums.items()}
+        return loss.detach(), err
+
+    def _stale_run_one(self, data: TrainData):
+        """One stale-mode optimizer step, sync or pipelined per schedule;
+        books the step's exchanges as hidden unless it is a sync step (a
+        delta sync step's feature wire at 4 bytes: the float32 re-base)."""
+        sync_step = self._stale_sync_due()
+        first = sync_step and self._stale_step_idx == 0
+        gauges = self.drift_gauges or (self.controller is not None
+                                       and sync_step)
+        loss, err = self._one_step_stale(data, sync_step, gauges)
+        if sync_step:
+            self._controller_observe(first)
+            self._last_sync_idx = self._stale_step_idx
+        self._stale_step_idx += 1
+        self.stats.count_step(
+            nlayers=self.nlayers, hidden=not sync_step,
+            wire_itemsize=4 if (self.halo_delta and sync_step) else None)
+        return loss, err
+
+    def _controller_observe(self, first: bool = False) -> None:
+        """Feed a sync step's measured drift (the max over layers of the
+        relative RMS) to the controller and apply its ``sync_every``.  The
+        initializing sync is skipped: it compares against the zero carry,
+        which measures initialization, not drift."""
+        if self.controller is None or first:
+            return
+        g = self.last_gauges
+        d = np.sqrt(np.maximum(g["drift_sq"], 0))
+        r = np.sqrt(np.maximum(g["ref_sq"], 0))
+        rel = float(np.max(d / np.maximum(r, 1e-30))) if d.size else 0.0
+        self.sync_every = self.controller.observe(self._stale_step_idx, rel)
+        self.comm_decision["controller"] = self.controller.log()
+
     # ------------------------------------------------- checkpoint/resume state
     def _carry_attr(self) -> str | None:
-        """The carry attribute a full-state checkpoint persists: none on
-        the exact path (the stale-halo and replica carries are ROADMAP
-        A7)."""
-        return None
+        """The carry attribute a full-state checkpoint persists:
+        ``'halo_carry'`` in the stale mode, none on the exact path (the
+        replica carries are ROADMAP A7b)."""
+        return "halo_carry" if self.halo_staleness else None
+
+    def carry_leaf_shapes(self) -> list:
+        """The checkpoint's carry leaf shapes: the reference's ``jax.tree``
+        order of ``{halos, ghalos, bases}`` (sorted keys: bases, ghalos,
+        halos; each a list by layer), stacked ``(k,) + shape``
+        (``CommPlan.stale_carry_shapes``)."""
+        shapes = self.plan.stale_carry_shapes(
+            self.fin, self.widths, delta=self.halo_delta,
+            comm_schedule=self.comm_schedule)
+        return [(self.plan.k,) + tuple(x) for key in ("bases", "ghalos",
+                                                      "halos")
+                for x in shapes[key]]
+
+    def _carry_leaves(self) -> list:
+        """The carries in the reference's layout and order, float32
+        numpy: the a2a receive buffers gathered to ``(R, f)`` tables and
+        the delta baselines transposed back to the senders' ``(k, S, f)``;
+        the ring concat as it is, its baselines rolled back per round.  A
+        placeholder base without ``halo_delta``."""
+        halos, ghalos = self.halo_carry["halos"], self.halo_carry["ghalos"]
+        k = self.plan.k
+        ragged = self.comm_schedule == "ragged"
+        if not self.halo_delta:
+            pad = (k, 1, 1) if ragged else (k, 1, 1, 1)
+            bases = [torch.zeros(pad) for _ in halos]
+        elif ragged:
+            bases = [layout.ring_to_send_bases(x, self.plan.rr_sizes)
+                     for x in halos]
+        else:
+            bases = [layout.recv_to_send_bases(x, self.plan.s)
+                     for x in halos]
+        rows = [self._halo_rows(x) for x in ghalos + halos]
+        return [x.detach().cpu().numpy().astype(np.float32)
+                for x in bases + rows]
+
+    def _restore_carry(self, leaves) -> None:
+        """Inverse of ``_carry_leaves``.  An a2a halo table fills the
+        receive slots its rows name and leaves 0 in the others (they
+        carry weight 0 in every halo tile); under ``halo_delta`` the
+        baselines fill every slot (the carry and the baseline hold the
+        same value in each, ``ops/pspmm.py::stale_exchange``)."""
+        n = self.nlayers
+        t = [torch.as_tensor(np.asarray(x, np.float32)).to(self.device)
+             for x in leaves]
+        bases, ghalos, halos = t[:n], t[n:2 * n], t[2 * n:]
+        live = self.halo_carry
+        if self._halo_src_flat is None:
+            new_h = [h.to(c.dtype) for h, c in zip(halos, live["halos"])]
+            new_g = [g.to(c.dtype) for g, c in zip(ghalos, live["ghalos"])]
+        else:
+            def scatter(rows, like):
+                return layout.recv_from_halo_rows(
+                    rows, self._halo_src_flat, like.shape, like.dtype)
+            new_h = ([layout.recv_from_send_bases(b, c.dtype)
+                      for b, c in zip(bases, live["halos"])]
+                     if self.halo_delta else
+                     [scatter(h, c) for h, c in zip(halos, live["halos"])])
+            new_g = [scatter(g, c) for g, c in zip(ghalos, live["ghalos"])]
+        self.halo_carry = {"halos": new_h, "ghalos": new_g}
 
     def resume_state(self) -> tuple[dict, list]:
         """``(state, carry_leaves)`` — what a bit-identical resume needs
         beyond (params, Adam state), under the reference's keys: the step
-        counter, the effective ``sync_every`` (0: no sync schedule on the
-        exact path) and the cumulative CommStats gauges; no carry leaves."""
-        return {"step_count": int(self._step_count), "sync_every": 0,
-                "comm_stats": self.stats.state()}, []
+        counter, the effective ``sync_every`` and the cumulative CommStats
+        gauges; in the stale mode also the sync schedule's counters, the
+        controller's state and the carries (``_carry_leaves``)."""
+        state = {"step_count": int(self._step_count),
+                 "sync_every": int(self.sync_every),
+                 "comm_stats": self.stats.state()}
+        if self.controller is not None:
+            state["controller"] = self.controller.state()
+        if not self.halo_staleness:
+            return state, []
+        state["stale_step_idx"] = int(self._stale_step_idx)
+        state["last_sync_idx"] = int(self._last_sync_idx)
+        carry = self._carry_leaves()
+        state["carry"] = "halo_carry"
+        state["n_carry"] = len(carry)
+        return state, carry
 
     def restore_resume_state(self, state: dict, carry_leaves=None) -> None:
         """Restore ``resume_state()`` output (the checkpoint loader has
-        checked the mode already).  The backward exchanges, which the
-        reference's gauges do not record, are ``nlayers`` per step."""
+        checked the mode and the carry shapes already).  The backward
+        exchanges, which the reference's gauges do not record, are
+        ``nlayers`` per step."""
         self._step_count = int(state.get("step_count", 0))
+        if "sync_every" in state:
+            self.sync_every = int(state["sync_every"])
+        if self.halo_staleness:
+            self._stale_step_idx = int(state.get("stale_step_idx", 0))
+            self._last_sync_idx = int(state.get("last_sync_idx", 0))
+        if self.controller is not None and state.get("controller"):
+            self.controller.load_state(state["controller"])
+            self.comm_decision["controller"] = self.controller.log()
         if state.get("comm_stats"):
             self.stats.load_state(state["comm_stats"])
         self.stats.backward_exchanges = self.nlayers * self._step_count
+        if self.halo_staleness and carry_leaves:
+            self._restore_carry(carry_leaves)
 
     # ----------------------------------------------------------------- step
     def _forward(self, h0):
@@ -404,11 +691,16 @@ class FullBatchTrainer:
         return loss.detach(), err
 
     def step(self, data: TrainData, sync: bool = True):
-        """One training step.  ``sync=True`` returns the loss as a float
+        """One training step (a stale-mode step under
+        ``halo_staleness=1``).  ``sync=True`` returns the loss as a float
         (a device readback); ``sync=False`` returns the device scalar."""
-        loss, err = self._one_step(data.to(self.device))
+        data = data.to(self.device)
+        if self.halo_staleness:
+            loss, err = self._stale_run_one(data)
+        else:
+            loss, err = self._one_step(data)
+            self.stats.count_step(nlayers=self.nlayers)
         self.last_err = err
-        self.stats.count_step(nlayers=self.nlayers)
         self._step_count += 1
         return float(loss) if sync else loss
 

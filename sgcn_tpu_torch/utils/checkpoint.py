@@ -31,6 +31,11 @@ atomic``), every array carries a CRC32, and any damage raises
 back to the previous intact file.  A file claiming a NEWER format version
 than ``CKPT_VERSION`` is refused.
 
+A stale-halo run (``halo_staleness=1``) also writes ``carry_<i>``: its
+carries in the reference's layout and ``jax.tree`` order
+(``FullBatchTrainer.carry_leaf_shapes``), so its files and the
+reference's restore each other with full state.
+
 Works for the port's ``FullBatchTrainer`` (``params``, ``opt``, ``plan``,
 ``resume_state``).
 """
@@ -464,6 +469,14 @@ def verify_checkpoint_file(path: str) -> dict:
     return meta
 
 
+def _trainer_is_stateful(trainer) -> bool:
+    """Does this trainer hold state beyond (params, Adam state) — a
+    stale carry or a live controller — that a params-only restore would
+    silently reinitialize?"""
+    return (getattr(trainer, "halo_carry", None) is not None
+            or getattr(trainer, "controller", None) is not None)
+
+
 def load_checkpoint(trainer, path: str, verify: bool = True) -> int:
     """Restore the FULL trainer state in place; returns the saved step
     counter.
@@ -471,23 +484,24 @@ def load_checkpoint(trainer, path: str, verify: bool = True) -> int:
     The recorded provenance (plan digest, model kind, dims, activations)
     is verified FIRST with a clear message (``verify=False`` skips it),
     then the leaves are validated against the trainer's params and Adam
-    state; nothing is assigned before everything checks out.  The file's
-    train state (step counter, comm gauges) is restored through
-    ``trainer.restore_resume_state``.  A file whose train state carries a
-    stale/replica carry (a reference run in such a mode; the port trains
-    the exact path) loads params-only with a LOUD ``RuntimeWarning`` —
-    never silently.  A v1 file (no train state) restores the params and
-    Adam state; the exact trainer holds no carry or controller state a
-    params-only restore would lose, so ``trainer.last_restore_partial``
-    (the reference's flag) stays False until A7's carries land."""
+    state, and a stale run's carry leaves against the trainer's
+    ``carry_leaf_shapes()``; nothing is assigned before everything checks
+    out.  The file's train state (step counters, the effective
+    ``sync_every`` and controller, comm gauges, carries) is restored
+    through ``trainer.restore_resume_state``.  A carry-mode mismatch
+    either way (a stale file into an exact trainer, an exact or replica
+    file into a stale one) loads params-only with the reference's LOUD
+    ``RuntimeWarning``, and so does a v1 file into a stateful trainer —
+    never silently; ``trainer.last_restore_partial`` then says so."""
     path_n = _norm(path)
     with _open_guarded(path_n) as data:
         meta = _read_meta_open(data, path_n)
         _check_version(meta, path_n)
-        arrays = _read_arrays(
-            data, [f"leaf_{i}" for i in range(meta["n_leaves"])],
-            path_n, meta["checksums"])
+        keys = ([f"leaf_{i}" for i in range(meta["n_leaves"])]
+                + [f"carry_{i}" for i in range(meta["n_carry"])])
+        arrays = _read_arrays(data, keys, path_n, meta["checksums"])
     leaves = [arrays[f"leaf_{i}"] for i in range(meta["n_leaves"])]
+    file_carry = [arrays[f"carry_{i}"] for i in range(meta["n_carry"])]
     if verify:
         verify_checkpoint_provenance(
             meta, plan=getattr(trainer, "plan", None),
@@ -498,7 +512,7 @@ def load_checkpoint(trainer, path: str, verify: bool = True) -> int:
             final_activation=getattr(trainer, "final_activation", None),
             what=f"load_checkpoint({path!r})")
     check_leaves(leaves, trainer.params, trainer.opt, what="checkpoint")
-    state = meta.get("state")
+    state, carry_leaves = meta.get("state"), []
     restore_state = state is not None and hasattr(trainer,
                                                   "restore_resume_state")
     if restore_state:
@@ -518,8 +532,41 @@ def load_checkpoint(trainer, path: str, verify: bool = True) -> int:
                 "schedule and comm gauges are NOT imported); rebuild the "
                 "trainer with the checkpoint's mode flags for a bit-"
                 "identical resume", RuntimeWarning, stacklevel=2)
+        elif want_carry is not None and have_carry is None:
+            restore_state = False
+            warnings.warn(
+                f"load_checkpoint({path!r}): PARTIAL STATE — this trainer "
+                f"carries {want_carry!r} state the checkpoint (saved by "
+                "a carry-free mode) does not record; params-only restore "
+                "(the carry re-initializes at the next sync step, the "
+                "counters and comm gauges restart), so the resumed "
+                "trajectory is NOT bit-identical to the uninterrupted "
+                "run", RuntimeWarning, stacklevel=2)
+        elif have_carry is not None:
+            carry_leaves = file_carry
+            want = trainer.carry_leaf_shapes()
+            if len(carry_leaves) != len(want):
+                raise ValueError(
+                    f"checkpoint has {len(carry_leaves)} carry leaves, "
+                    f"trainer expects {len(want)} — different sync "
+                    "schedule/transport flags than the saving run")
+            for have, shape in zip(carry_leaves, want):
+                if tuple(have.shape) != tuple(shape):
+                    raise ValueError(
+                        f"checkpoint carry leaf shape {have.shape} != "
+                        f"trainer {tuple(shape)} — different mode/transport "
+                        "flags than the saving run")
+    elif _trainer_is_stateful(trainer):
+        warnings.warn(
+            f"load_checkpoint({path!r}): PARTIAL STATE — checkpoint "
+            f"format v{meta['version']} records params/opt_state only; "
+            "this trainer's carry/controller/step-counter state is NOT "
+            "restored (carries re-initialize at the next sync step, the "
+            "comm gauges restart at zero).  Re-save with this version for "
+            "full-state resume", RuntimeWarning, stacklevel=2)
     from_leaves(leaves, trainer.params, trainer.opt)
     if restore_state:
-        trainer.restore_resume_state(state, [])
-    trainer.last_restore_partial = False
+        trainer.restore_resume_state(state, carry_leaves)
+    trainer.last_restore_partial = (not restore_state
+                                    and _trainer_is_stateful(trainer))
     return meta["step"]

@@ -14,7 +14,10 @@ asymmetric Â (a directed graph) on its transposed layouts — the halo
 rows' Âᵀ family launch, the reverse pack and the fused local-ᵀ + owner
 sum — against their plain versions, and two asymmetric trainings on the
 card bit-identical; the pack, the fused entry and the ring on a plan from
-the port's native hypergraph partitioner (a DCSBM graph at n = 20 000).
+the port's native hypergraph partitioner (a DCSBM graph at n = 20 000);
+the stale-halo ops (``PspmmTilesStale``, both transports) against their
+CPU versions, and the stale trainer's ``sync_every=1`` == exact and ring
+== a2a on the card.
 
 This module imports no JAX, so it also runs on a GPU machine without it:
 
@@ -38,10 +41,12 @@ from sgcn_tpu_torch.ops.row_shuffle import (row_pack, row_pack_plain,
 from sgcn_tpu_torch.ops.tile_spmm import (TILE_PLAN_FIELDS,
                                           TILE_PLAN_FIELDS_RAGGED,
                                           PspmmTilesGen, PspmmTilesRagged,
-                                          PspmmTilesSym,
+                                          PspmmTilesStale, PspmmTilesSym,
                                           choose_tile_dispatch,
                                           pspmm_tiles_gen,
                                           pspmm_tiles_ragged,
+                                          pspmm_tiles_stale,
+                                          pspmm_tiles_stale_ragged,
                                           pspmm_tiles_sym, spmm_tiles,
                                           spmm_tiles_classes,
                                           spmm_tiles_classes_plain,
@@ -1063,3 +1068,104 @@ def test_hp_dcsbm_training_on_cuda_ragged_equals_a2a(cuda_device):
     assert a2a[0] == ring[0]
     assert all(torch.equal(x, y) for x, y in zip(a2a[1], ring[1]))
     np.testing.assert_allclose(a2a[0], cpu[0], rtol=1e-5)
+
+
+# --------------------------------------------- the stale-halo trainer
+@pytest.mark.parametrize("delta", [False, True])
+@pytest.mark.parametrize("sched", ["a2a", "ragged"])
+def test_stale_op_on_cuda_equals_cpu_bitwise(cuda_device, sched, delta):
+    """``pspmm_tiles_stale`` (a2a) and ``pspmm_tiles_stale_ragged`` on the
+    card — the pack and the fused launch on a given carry — equal the same
+    ops on the CPU (their plain versions) bit for bit: forward, next
+    carry, input gradient and next gradient carry, on a stale step (random
+    carries) and a sync step; one fused launch in the backward, counted
+    in ``PspmmTilesStale.backward_launches``."""
+    plan = _er_plan()
+    st = choose_tile_dispatch(plan, schedule=sched)
+    static = (st["pallas_tb"], st["pallas_lclasses"], st["pallas_hclasses"])
+    fields = (TILE_PLAN_FIELDS_RAGGED if sched == "ragged"
+              else TILE_PLAN_FIELDS)
+    pa = {f: torch.from_numpy(np.ascontiguousarray(getattr(plan, f)))
+          for f in fields}
+    rows = (sum(plan.rr_sizes) if sched == "ragged"
+            else plan.k * plan.s)
+    rng = np.random.default_rng(13)
+
+    def draw(*shape):
+        return torch.from_numpy(rng.standard_normal(shape)
+                                .astype(np.float32))
+
+    h, g = draw(plan.k, plan.b, 40), draw(plan.k, plan.b, 40)
+    carry, gcarry = draw(plan.k, rows, 40), draw(plan.k, rows, 40)
+    out = {}
+    for fresh in (False, True):
+        for dev in ("cpu", cuda_device):
+            x = h.to(dev, copy=True).requires_grad_()
+            t = {f: v.to(dev) for f, v in pa.items()}
+            holder = [None]
+            kw = dict(delta=delta, fresh=fresh, gholder=holder)
+            before = PspmmTilesStale.backward_launches
+            if sched == "ragged":
+                y, nxt = pspmm_tiles_stale_ragged(
+                    x, carry.to(dev), gcarry.to(dev),
+                    *(t[f] for f in TILE_PLAN_FIELDS_RAGGED), *static,
+                    st["rr_sizes"], **kw)
+            else:
+                y, nxt = pspmm_tiles_stale(
+                    x, carry.to(dev), gcarry.to(dev),
+                    *(t[f] for f in TILE_PLAN_FIELDS), *static, **kw)
+            y.backward(g.to(dev))
+            torch.cuda.synchronize()
+            out[(str(dev), fresh)] = (
+                y.detach().cpu(), nxt.cpu(), x.grad.cpu(), holder[0].cpu(),
+                PspmmTilesStale.backward_launches - before)
+        cpu, gpu = out[("cpu", fresh)], out[("cuda", fresh)]
+        assert cpu[4] == 0 and gpu[4] == 1
+        for i in range(4):
+            assert torch.equal(gpu[i], cpu[i]), (i, fresh)
+
+
+def test_stale_trainer_on_cuda_sync_every_1_is_exact_and_ring_is_a2a(
+        cuda_device):
+    """On the card: ``sync_every=1`` (delta on) trains bit for bit as the
+    exact trainer on both transports, and the stale ragged trainer equals
+    the stale a2a one (delta on, ``sync_every`` 3) over 1 + 5 steps; a
+    stale step makes one pack and one fused launch per aggregation and
+    direction, and no launch of K1's family entries."""
+    plan = _er_plan()
+    rng = np.random.default_rng(14)
+    feats = rng.standard_normal((plan.n, 24)).astype(np.float32)
+    labels = rng.integers(0, 5, plan.n)
+    data = make_train_data(plan, feats, labels, device=cuda_device)
+    kw = dict(fin=24, widths=[32, 5], seed=6, device=cuda_device)
+    runs = {}
+    for name, extra in (
+            ("exact a2a", {"comm_schedule": "a2a"}),
+            ("exact ragged", {"comm_schedule": "ragged"}),
+            ("sync1 a2a", {"comm_schedule": "a2a", "halo_staleness": 1,
+                           "halo_delta": True, "sync_every": 1}),
+            ("sync1 ragged", {"comm_schedule": "ragged", "halo_staleness": 1,
+                              "halo_delta": True, "sync_every": 1}),
+            ("stale a2a", {"comm_schedule": "a2a", "halo_staleness": 1,
+                           "halo_delta": True, "sync_every": 3}),
+            ("stale ragged", {"comm_schedule": "ragged",
+                              "halo_staleness": 1, "halo_delta": True,
+                              "sync_every": 3})):
+        tr = FullBatchTrainer(plan, **kw, **extra)
+        counts = (row_pack.launches, spmm_tiles_fused.launches,
+                  spmm_tiles.launches)
+        losses = [tr.step(data) for _ in range(6)]
+        torch.cuda.synchronize()
+        runs[name] = (losses, [p.detach().cpu() for p in tr.params],
+                      (row_pack.launches - counts[0],
+                       spmm_tiles_fused.launches - counts[1],
+                       spmm_tiles.launches - counts[2]))
+    for a, b in (("exact a2a", "sync1 a2a"), ("exact ragged", "sync1 ragged"),
+                 ("stale a2a", "stale ragged")):
+        assert runs[a][0] == runs[b][0], (a, b)
+        assert all(torch.equal(x, y) for x, y in zip(runs[a][1],
+                                                     runs[b][1])), (a, b)
+    # 6 steps x (2 forward + 1 backward aggregations: layer 0 aggregates
+    # first at fin 24, so its input needs no gradient)
+    assert runs["stale a2a"][2] == (18, 18, 0)
+    assert runs["stale a2a"][0] != runs["exact a2a"][0]

@@ -73,3 +73,15 @@ def test_scan_sees_the_offline_pipeline_modules():
                 ("partition", "random_part.py"),
                 ("partition", "__init__.py"), ("partition", "__main__.py")):
         assert os.path.join("sgcn_tpu_torch", *rel) in names
+
+
+def test_scan_sees_the_stale_halo_modules():
+    """The stale-halo trainer's modules (its own copy of the reference's
+    ``CommController`` included) are in the scan, so they too import
+    nothing of JAX or the JAX package."""
+    names = {os.path.relpath(p, REPO) for p in _sources()}
+    for rel in (("train", "controller.py"), ("train", "fullbatch.py"),
+                ("models", "gcn.py"), ("ops", "pspmm.py"),
+                ("ops", "tile_spmm.py"), ("parallel", "plan.py"),
+                ("utils", "stats.py")):
+        assert os.path.join("sgcn_tpu_torch", *rel) in names

@@ -492,6 +492,7 @@ def test_cli_accuracy_experiment_in_process(capsys):
 
 CHECKPOINT_FLAGS = ("--resume", "--save-checkpoint", "--checkpoint-dir",
                     "--checkpoint-every", "--keep-checkpoints")
+STALE_FLAGS = ("--halo-staleness", "--halo-delta", "--sync-every")
 
 
 @pytest.mark.parametrize("flag", [
@@ -502,11 +503,14 @@ CHECKPOINT_FLAGS = ("--resume", "--save-checkpoint", "--checkpoint-dir",
     "--keep-checkpoints", "--profile", "--metrics-out", "--memory-budget"])
 def test_cli_leaves_unported_flags_undefined(flag, capsys):
     """Flags of features not ported are undefined (argparse exit 2).  The
-    checkpoint flags are ported (``tests/test_torch_checkpoint.py``): they
-    parse, and the run stops at the input guard instead."""
+    checkpoint flags (``tests/test_torch_checkpoint.py``) and the stale
+    flags (``tests/test_torch_stale.py``) are ported: they parse, and the
+    run stops at a guard or the input check instead (``--halo-delta``
+    takes no value)."""
+    value = [] if flag == "--halo-delta" else ["1"]
     with pytest.raises(SystemExit) as exc:
-        train_main(["-p", HP8, "-s", "8", "--device", "cpu", flag, "1"])
-    if flag in CHECKPOINT_FLAGS:
+        train_main(["-p", HP8, "-s", "8", "--device", "cpu", flag, *value])
+    if flag in CHECKPOINT_FLAGS + STALE_FLAGS:
         assert exc.value.code != 2
         assert "unrecognized arguments" not in capsys.readouterr().err
         return
@@ -525,15 +529,33 @@ def test_without_cpu_the_entry_points_raise_when_no_gpu(cora):
         train_main(["--npz", NPZ, "--normalize", "-p", HP8, "-s", "8"])
 
 
-@pytest.mark.parametrize("lever,value,item", [
-    ("remat", True, "A3"), ("halo_staleness", 1, "A7"),
-    ("halo_delta", True, "A7"), ("sync_every", 2, "A7"),
-    ("replica_budget", 4, "A7"), ("refresh_band", 0.1, "A7"),
-    ("memory_budget", 1 << 30, "A10")])
-def test_unported_levers_raise(cora, lever, value, item):
-    with pytest.raises(NotImplementedError, match=f"not ported.*{item}"):
+@pytest.mark.parametrize("kwargs,error,match", [
+    pytest.param({"remat": True}, NotImplementedError, "not ported.*A3",
+                 id="remat-True-A3"),
+    pytest.param({"halo_staleness": 1, "model": "gat",
+                  "activation": "none"}, ValueError,
+                 "halo_staleness=1 pipelines the GCN hot path",
+                 id="halo_staleness-1-A7"),
+    pytest.param({"halo_delta": True}, ValueError,
+                 "halo_delta accumulates into the stale halo carry",
+                 id="halo_delta-True-A7"),
+    pytest.param({"sync_every": 2}, ValueError,
+                 "sync_every schedules the stale mode",
+                 id="sync_every-2-A7"),
+    pytest.param({"replica_budget": 4}, NotImplementedError,
+                 "not ported.*A7b", id="replica_budget-4-A7"),
+    pytest.param({"refresh_band": 0.1}, NotImplementedError,
+                 "not ported.*A7b", id="refresh_band-0.1-A7"),
+    pytest.param({"memory_budget": 1 << 30}, NotImplementedError,
+                 "not ported.*A10", id="memory_budget-1073741824-A10")])
+def test_unported_levers_raise(cora, kwargs, error, match):
+    """The levers not ported raise ``NotImplementedError`` naming their
+    ROADMAP item (the replicas' is A7b); the stale levers are ported, and
+    these cases of them raise the reference's gates (``ValueError``, its
+    messages: ``tests/test_torch_stale.py`` compares them verbatim)."""
+    with pytest.raises(error, match=match):
         FullBatchTrainer(cora["plan"], fin=1433, widths=WIDTHS,
-                         device="cpu", **{lever: value})
+                         device="cpu", **kwargs)
 
 
 @pytest.mark.parametrize("lever", ["compute_dtype", "halo_dtype"])
