@@ -251,20 +251,45 @@ failure raises and the script exits non-zero:
      this process; the cora CLI with ``--comm-schedule auto
      --halo-staleness 1 --sync-every 2`` resolves to the ring by the
      hidden-exchange rule and prints the controller's log;
-  26. one JSON line ``{"kernels": [...]}`` — per ported kernel (the tile
+  26. hot-halo replicas (``replica_budget``) at the flagship width: the
+     ER plan of phases 5 and 25 on both transports and the DCSBM flagship
+     on phase 24's hp parts (not partitioned again), B from ``auto`` (the
+     knee and ``score_covered`` printed) and the clamp (B ≥ the boundary
+     rows).  ``sync_every=1`` == phase 5's losses and weights bit for bit
+     for pure and composed (``halo_staleness=1``) replicas on both
+     transports, and under ``halo_dtype`` == phase 15's; replica ring ==
+     replica a2a bit for bit at ``sync_every`` 0, 2 and 3; the
+     destination-indexed pack (``row_pack_into``) == its plain version
+     bit for bit on both flagships' kept lists, f32 and bf16 outputs;
+     exact launches per replica step (one kept pack and one fused launch
+     per aggregation and direction) and per refresh step (the exact
+     exchange's pack), and a replica step at the clamp packs nothing; the
+     replica and composed losses within the reference's stale band
+     (rtol/atol 1e-2) of phase 5's; ``refresh_band`` 0 ships every
+     drifted replica copy and 1e12 none; epoch_s (host clock and CUDA
+     events) of exact, replica and composed on both transports (ER) and
+     on the a2a (DCSBM hp) in two interleaved rounds, pack rows and ms of
+     a replica step's layer against an exact step's, the kept pack
+     against its bound and ``index_copy_``, carry bytes, the device
+     split; a flagship child (``--replica-budget auto --sync-every 3``)
+     killed after its step-4 save and resumed == the uninterrupted run;
+     the cora CLI with ``--replica-budget auto --sync-every 3``
+     (``build/chip_smoke_replica/``);
+  27. one JSON line ``{"kernels": [...]}`` — per ported kernel (the tile
      SpMM, the GCN aggregation's backward, the GAT attention pass and its
      use in the GAT layer's backward, the ragged ring aggregation and its
      backward, the row shuffle, the tile SpMM's and the GAT pass's bf16
-     flavors, the row pack and the fused local + remote entry) its
+     flavors, the row pack, the fused local + remote entry and the
+     destination-indexed pack) its
      launches on the main path (phases 2–5, 7–13, 15–17, 19–21 and
-     23–25, the children's included), max
+     23–26, the children's included), max
      |kernel − plain|, kernel / plain / bound / library times at the
      flagship layer.  The tile SpMM's own float-weight family entries
      (both tables) launch on the main path only in the asymmetric
      backward (phases 20–21): the symmetric phases must show 0 of them —
      the fused entry runs their chains and counts those launches — and any
      kernel with no launch on the main path fails the run;
-  27. the last line: ``{"ok": true, "device": {...}}``.
+  28. the last line: ``{"ok": true, "device": {...}}``.
 
 Without CUDA, or without the rest of the repository beside it, the script
 prints no result and exits with code 2 or 3.
@@ -2480,12 +2505,13 @@ CKPT_CASES = {"gcn-a2a": ("gcn", "a2a"), "gcn-ragged": ("gcn", "ragged"),
 
 
 def launch_counts(zero: bool = False) -> dict:
-    """The launch counts of every kernel entry phases 23–25's paths run
+    """The launch counts of every kernel entry phases 23–26's paths run
     (and K1's float-weight family entries, which must stay 0 there); with
     ``zero``, each is set to 0 first — the start of a path."""
     from sgcn_tpu_torch.models.gat import GatLayerSym
-    from sgcn_tpu_torch.ops.row_shuffle import row_pack
+    from sgcn_tpu_torch.ops.row_shuffle import row_pack, row_pack_into
     from sgcn_tpu_torch.ops.tile_spmm import (PspmmTilesRagged,
+                                              PspmmTilesReplica,
                                               PspmmTilesStale,
                                               PspmmTilesSym, spmm_tiles,
                                               spmm_tiles_fused)
@@ -2493,7 +2519,9 @@ def launch_counts(zero: bool = False) -> dict:
     owners = {"fused": (spmm_tiles_fused, "launches"),
               "fused_wire": (spmm_tiles_fused, "wire_bf16_launches"),
               "stale_bwd": (PspmmTilesStale, "backward_launches"),
+              "rep_bwd": (PspmmTilesReplica, "backward_launches"),
               "pack": (row_pack, "launches"),
+              "pack_into": (row_pack_into, "launches"),
               "k5": (spmm_tiles, "mask_launches"),
               "k1": (spmm_tiles, "launches"),
               "k1_bf16": (spmm_tiles, "bf16_launches"),
@@ -3611,6 +3639,420 @@ def _phase_stale(children, plan, data, p_init, widths, rep5, fit_w,
     return totals, fused_err
 
 
+REPLICA_DIR = os.path.join(REPO, "build", "chip_smoke_replica")
+# the reference gives no loss band of its own for replica training; the
+# replica losses are held to its band for the other approximate-halo mode,
+# the stale one (tests/test_stale_halo.py:192-200)
+BAND_REPLICA = BAND_STALE
+REPLICA_CLASSES = (("K3/K4 fused", ("tile_spmm_fused_kernel",)),
+                   ("pack", ("row_pack_kernel",)),
+                   ("gather/scatter", ("index", "gather", "scatter")),
+                   ("elementwise", ("elementwise_kernel", "copy")),
+                   ("matmul", ("gemm", "Kernel2", "cutlass", "sm90_xmma",
+                               "cublas")))
+
+
+def replica_carry_bytes(tr) -> int:
+    """Bytes of a replica or composed trainer's carries on the card."""
+    carry = tr.replica_carry if tr.replica_carry is not None \
+        else tr.halo_carry
+    return sum(x.numel() * x.element_size() for v in carry.values()
+               for x in v)
+
+
+def check_pack_into(out, src, flat, dst, what):
+    """The destination-indexed pack vs its plain version on the card, on
+    the same inputs: bit for bit, the rows it does not name untouched,
+    two launches the same.  Returns 0.0."""
+    import torch
+
+    from sgcn_tpu_torch.ops.row_shuffle import (row_pack_into,
+                                                row_pack_into_plain)
+
+    one = row_pack_into(out.clone(), src, flat, dst)
+    two = row_pack_into(out.clone(), src, flat, dst)
+    plain = row_pack_into_plain(out.clone(), src, flat, dst)
+    torch.cuda.synchronize()
+    if not (same_bits(one, plain, nan_ok=True)
+            and same_bits(one, two, nan_ok=True)):
+        raise AssertionError(f"{what}: row_pack_into != plain version")
+    return 0.0
+
+
+def time_pack_into(out, src, flat, dst, what):
+    """The destination-indexed pack's time (CUDA events), its plain
+    version's, ``index_copy_`` of the already gathered rows (one PyTorch
+    call: the store half of the plain version) and the bound: each
+    distinct source row read once, the two int32 index lists read once,
+    every named row written once (as ``pack_work`` counts the pack)."""
+    import numpy as np
+    import torch
+
+    from sgcn_tpu_torch.ops.row_shuffle import (row_pack_into,
+                                                row_pack_into_plain)
+
+    w = out[0, 0].numel()
+    ms = cuda_ms(lambda: row_pack_into(out, src, flat, dst))
+    plain_ms = cuda_ms(lambda: row_pack_into_plain(out, src, flat, dst),
+                       reps=5)
+    out2d, d64 = out.view(-1, w), dst.long()
+    rows = src.reshape(-1, w).index_select(0, flat.long()).to(out.dtype)
+    library_ms = cuda_ms(lambda: out2d.index_copy_(0, d64, rows))
+    n = flat.numel()
+    distinct = np.unique(flat.cpu().numpy()).size
+    nbytes = (distinct * w * src.element_size() + 8 * n
+              + n * w * out.element_size())
+    bound_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    log(f"  {what}: {n} rows of {w}: row_pack_into {ms!r} ms, plain "
+        f"{plain_ms!r} ms, index_copy_ of the gathered rows {library_ms!r} "
+        f"ms, bound {bound_ms!r} ms by bytes ({nbytes} B), "
+        f"{100 * bound_ms / ms:.1f}% of bound")
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bound_ms, "bound_by": "bytes", "rows": n,
+            "distinct_rows": distinct}
+
+
+def phase_replicas(plan, data, p_init, widths, rep5, fit_w, halo_runs,
+                   parts_bg, ahat_dc, dev, tb, cli_base, smi):
+    """Phase 26: hot-halo replicas at the flagship width (module
+    docstring).  Returns the main path's launches by entry
+    (``launch_counts`` keys, this process's and the resumed child's) and
+    the timing of the destination-indexed pack."""
+    children = Children()
+    try:
+        return _phase_replicas(children, plan, data, p_init, widths, rep5,
+                               fit_w, halo_runs, parts_bg, ahat_dc, dev, tb,
+                               cli_base, smi)
+    finally:
+        children.stop()
+
+
+def _phase_replicas(children, plan, data, p_init, widths, rep5, fit_w,
+                    halo_runs, parts_bg, ahat_dc, dev, tb, cli_base, smi):
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from sgcn_tpu_torch.ops.row_shuffle import row_pack
+    from sgcn_tpu_torch.parallel import build_comm_plan
+    from sgcn_tpu_torch.parallel.plan import choose_replica_budget
+    from sgcn_tpu_torch.resilience import faults
+    from sgcn_tpu_torch.train import FullBatchTrainer, make_train_data
+    from sgcn_tpu_torch.utils.checkpoint import to_leaves
+
+    nl = len(widths)
+    bwd = backward_passes(128, widths)
+    per_step = nl + bwd                 # aggregations a step
+    totals = {}
+
+    def counted(run):
+        """``run()`` as a main-path run: counts zeroed before, read after
+        and added to the phase's totals; K1's family entries must stay
+        0."""
+        launch_counts(zero=True)              # the main path starts here
+        k1_open()
+        out = run()
+        torch.cuda.synchronize()
+        k1_close()
+        c = launch_counts()                   # ... and ends here
+        if c["k1"] or c["k1_bf16"]:
+            raise AssertionError(f"phase 26: K1 family launches {c}")
+        for key, v in c.items():
+            totals[key] = totals.get(key, 0) + v
+        return out, c
+
+    def trainer(p, sched, params=p_init, **kw):
+        return FullBatchTrainer(p, fin=128, widths=widths, params=params,
+                                comm_schedule=sched, device=dev, **kw)
+
+    # ---- the killed child first, in the background (phase 23's inputs)
+    shutil.rmtree(REPLICA_DIR, ignore_errors=True)
+    os.makedirs(REPLICA_DIR)
+    argv = ["--npz", os.path.join(CKPT_DIR, "flagship.npz"), "-p",
+            os.path.join(CKPT_DIR, "flagship.8.rp"), "-s", "8", "-l",
+            str(nl), "--hidden", str(widths[0]), "--warmup", "0",
+            "--epochs", "6", "--device", "cuda", "--comm-schedule", "a2a",
+            "--replica-budget", "auto", "--sync-every", "3",
+            "--checkpoint-dir", os.path.join(REPLICA_DIR, "ck"),
+            "--checkpoint-every", "4"]
+    kill = children.start([("train", argv, "kill-after-save:4",
+                            os.path.join(REPLICA_DIR, "kill.json"))])
+
+    # ---- plans: the ER flagship (phase 5's, both transports) and the
+    # DCSBM flagship on phase 24's hp parts; budgets 'auto' and the clamp
+    plans = {"ER": plan}
+    t0 = time.perf_counter()
+    pv_hp = parts_bg.result()[("hp", 0)][0]
+    plans["DCSBM hp"] = build_comm_plan(ahat_dc, pv_hp, PART_K)
+    log(f"  DCSBM hp plan (phase 24's parts) built in "
+        f"{time.perf_counter() - t0:.2f} s (host)")
+    budgets = {}
+    for name, p in plans.items():
+        knee = {}
+        budgets[name] = choose_replica_budget(p, decision=knee)
+        t0 = time.perf_counter()
+        p.ensure_exchange()
+        p.ensure_ragged()
+        p.ensure_replicas(budgets[name])
+        log(f"  {name}: replica_budget auto -> B {budgets[name]} (knee of "
+            f"{knee['boundary_rows']} boundary rows, score_covered "
+            f"{knee['score_covered']!r}); {p.replica_rows} rows replicated, "
+            f"{p.replica_send_saving} copies off the wire; kept receive "
+            f"slots {len(p.keep_recv_src)} of {int(p.send_counts.sum())}; "
+            f"wire rows a2a {p.wire_rows_per_exchange('a2a')} -> "
+            f"{p.wire_rows_per_exchange('a2a', replica=True)}, ring "
+            f"{p.wire_rows_per_exchange('ragged')} -> "
+            f"{p.wire_rows_per_exchange('ragged', replica=True)}; layout "
+            f"{time.perf_counter() - t0:.2f} s (host)")
+    n_dc = ahat_dc.shape[0]
+    feats_dc = np.random.default_rng(2).standard_normal(
+        (n_dc, 128)).astype(np.float32)
+    labels_dc = np.random.default_rng(4).integers(0, 40, n_dc)
+    data_dc = make_train_data(plans["DCSBM hp"], feats_dc, labels_dc,
+                              device=dev)
+    datas = {"ER": data, "DCSBM hp": data_dc}
+    b_er = budgets["ER"]
+
+    # ---- (a) sync_every=1 == exact, bit for bit: pure and composed on
+    # both transports (phase 5/11's fit), pure a2a under halo_dtype
+    # (phase 15's)
+    runs = [(sched, stale, None) for sched in ("a2a", "ragged")
+            for stale in (0, 1)] + [("a2a", 0, "bfloat16")]
+    for sched, stale, hd in runs:
+        tr = trainer(plan, sched, replica_budget=b_er, sync_every=1,
+                     halo_staleness=stale, halo_dtype=hd)
+        rep, c = counted(lambda: tr.fit(data, epochs=5, warmup=1,
+                                        verbose=False))
+        want_l, want_w = ((rep5["loss_history"], fit_w) if hd is None
+                          else halo_runs[sched])
+        same = rep["loss_history"] == want_l and all(
+            torch.equal(a, b) for a, b in zip(tr.params, want_w))
+        log(f"  sync_every=1 {sched} {'composed' if stale else 'replica'} "
+            f"halo_dtype={hd}: losses and weights == "
+            f"{'phase 15' if hd else 'phase 5'}: {same}; packs {c['pack']}, "
+            f"kept packs {c['pack_into']} (expected {6 * per_step}, 0)")
+        if not same or (c["pack"], c["pack_into"]) != (6 * per_step, 0):
+            raise AssertionError(f"phase 26: sync_every=1 {sched} "
+                                 f"staleness={stale} halo_dtype={hd}")
+        del tr
+
+    # ---- (b) replica ring == replica a2a, bit for bit, 1 + 6 steps
+    for sync_every in (0, 2, 3):
+        out = {}
+        for sched in ("a2a", "ragged"):
+            tr = trainer(plan, sched, replica_budget=b_er,
+                         sync_every=sync_every)
+            rep, _ = counted(lambda: tr.fit(data, epochs=6, warmup=1,
+                                            verbose=False))
+            out[sched] = (rep, [w.detach().clone() for w in tr.params])
+            del tr
+        (ra, wa), (rr, wr) = out["a2a"], out["ragged"]
+        same = rr["loss_history"] == ra["loss_history"] and all(
+            torch.equal(a, b) for a, b in zip(wa, wr))
+        log(f"  replica sync_every={sync_every}: ragged == a2a (losses, "
+            f"weights): {same}; losses {ra['loss_history']}; replica "
+            f"exchanges {ra['replica_exchanges']} of {ra['exchanges']}")
+        if not same:
+            raise AssertionError(f"phase 26: replica ragged != a2a, "
+                                 f"sync_every={sync_every}")
+
+    # ---- (c) the new pack == plain on the flagships' kept lists, f32
+    # and bf16, on the real layer-0 rows; (d) launches per replica and
+    # per refresh step, both transports, both plans, and at the clamp
+    pack_t = {}
+    for name, p in plans.items():
+        h0 = datas[name].h0
+        for sched in ("a2a", "ragged"):
+            pre = "ring" if sched == "ragged" else "recv"
+            src = torch.as_tensor(getattr(p, f"keep_{pre}_src")).to(dev)
+            dst = torch.as_tensor(getattr(p, f"keep_{pre}_dst")).to(dev)
+            rows = (max(1, sum(p.rr_sizes)) if sched == "ragged"
+                    else p.k * p.s)
+            for dt in (torch.float32, torch.bfloat16):
+                out = torch.randn((p.k, rows, 128), device=dev).to(dt)
+                check_pack_into(out, h0, src, dst, f"{name} {sched} kept "
+                                f"pack f32 -> {dt}")
+            if sched == "a2a":
+                out = torch.zeros((p.k, rows, 128), device=dev)
+                pack_t[name] = time_pack_into(
+                    out, h0, src, dst, f"{name} replica step's kept pack "
+                    "(layer 0, f=128, float32)")
+                recv_src = torch.as_tensor(p.recv_src).to(dev)
+                exact_ms = cuda_ms(lambda: row_pack(h0, recv_src))
+                pack_t[name]["exact_ms"] = exact_ms
+                pack_t[name]["exact_rows"] = int(recv_src.numel())
+                log(f"  {name}: pack rows and ms a step's layer, replica "
+                    f"step {pack_t[name]['rows']} rows {pack_t[name]['ms']!r}"
+                    f" ms vs exact step {recv_src.numel()} rows "
+                    f"{exact_ms!r} ms (row_pack of the whole receive "
+                    f"buffer); card: {smi}")
+            tr = trainer(p, sched, params=None, seed=5,
+                         replica_budget=budgets[name], sync_every=2)
+            counted(lambda: tr.step(datas[name]))   # the initializing refresh
+            for kind in ("replica", "refresh"):
+                _, c = counted(lambda: tr.step(datas[name]))
+                # a refresh is the stale op's sync step: its backward
+                # counts there
+                want = ((0, per_step, bwd, 0) if kind == "replica"
+                        else (per_step, 0, 0, bwd))
+                got = (c["pack"], c["pack_into"], c["rep_bwd"],
+                       c["stale_bwd"])
+                log(f"  {name} {sched} {kind} step: packs, kept packs, "
+                    f"replica and sync backward fused {got}, fused "
+                    f"{c['fused']} (expected {want}, {per_step})")
+                if got != want or c["fused"] != per_step:
+                    raise AssertionError(f"phase 26: {name} {sched} {kind} "
+                                         f"step launches {c}")
+            del tr
+    tr = trainer(plan, "a2a", replica_budget=10 ** 7, sync_every=2)
+    counted(lambda: tr.step(data))
+    _, c = counted(lambda: tr.step(data))
+    log(f"  clamp (B 10^7, {plan.replica_rows} boundary rows replicated): "
+        f"kept lists {len(plan.keep_recv_src)} rows; a replica step: kept "
+        f"packs {c['pack_into']}, packs {c['pack']}, fused {c['fused']} "
+        f"(expected 0, 0, {per_step})")
+    if (c["pack_into"], c["pack"], c["fused"]) != (0, 0, per_step):
+        raise AssertionError(f"phase 26: clamp replica step launches {c}")
+    del tr
+    plan.ensure_replicas(b_er)
+
+    # ---- (e) replica losses against the exact run: the band
+    for stale, sync_every in ((0, 2), (1, 2)):
+        tr = trainer(plan, "a2a", replica_budget=b_er,
+                     sync_every=sync_every, halo_staleness=stale)
+        rep, _ = counted(lambda: tr.fit(data, epochs=5, warmup=1,
+                                        verbose=False))
+        got, want = (np.asarray(rep["loss_history"]),
+                     np.asarray(rep5["loss_history"]))
+        band = bool(np.allclose(got, want, **BAND_REPLICA))
+        log(f"  {'composed' if stale else 'replica'} sync_every="
+            f"{sync_every}: losses {got.tolist()} vs exact {want.tolist()}: "
+            f"max |gap| {np.abs(got - want).max():.3g}, inside "
+            f"{BAND_REPLICA}: {band}")
+        if not band or not np.isfinite(got).all():
+            raise AssertionError("phase 26: replica losses outside the band "
+                                 "of the exact run")
+        del tr
+
+    # ---- (f) the partial refresh: band 0 ships every drifted copy, a
+    # huge band none.  The rows that drift are those of the layers whose
+    # aggregated input moves with the weights — the ones with a backward
+    # pass (an aggregate-first layer 0 exchanges the fixed features)
+    for band in (0.0, 1e12):
+        tr = trainer(plan, "a2a", replica_budget=b_er, sync_every=2,
+                     refresh_band=band)
+        rep, _ = counted(lambda: [tr.step(data) for _ in range(5)])
+        r = tr.stats.report()
+        full = 2 * 2 * bwd * plan.replica_send_saving
+        log(f"  refresh_band={band}: {r['partial_refresh_steps']} partial "
+            f"refreshes shipped {r['partial_refresh_rows_total']} rows, "
+            f"forward and backward (every replica copy of the {bwd} "
+            f"drifting layers, each refresh: {full}); losses {rep}")
+        if r["partial_refresh_rows_total"] != (full if band == 0 else 0):
+            raise AssertionError(f"phase 26: refresh_band={band} shipped "
+                                 f"{r['partial_refresh_rows_total']}")
+        del tr
+
+    # ---- times, in two interleaved rounds
+    cfgs = {}
+    for sched in ("a2a", "ragged"):
+        cfgs[f"ER exact {sched}"] = trainer(plan, sched)
+        cfgs[f"ER replica {sched}"] = trainer(plan, sched,
+                                              replica_budget=b_er)
+        cfgs[f"ER composed {sched}"] = trainer(plan, sched,
+                                               replica_budget=b_er,
+                                               halo_staleness=1)
+    p_hp = plans["DCSBM hp"]
+    for kind, kw in (("exact", {}),
+                     ("replica", {"replica_budget": budgets["DCSBM hp"]}),
+                     ("composed", {"replica_budget": budgets["DCSBM hp"],
+                                   "halo_staleness": 1})):
+        cfgs[f"DCSBM hp {kind} a2a"] = trainer(p_hp, "a2a", params=None,
+                                               seed=5, **kw)
+    times = {name: {"epoch_s": [], "event_ms": []} for name in cfgs}
+    for _round in range(2):
+        for name, tr in cfgs.items():
+            d = data_dc if name.startswith("DCSBM") else data
+            rep, _ = counted(lambda: tr.fit(d, epochs=8, warmup=2,
+                                            verbose=False))
+            times[name]["epoch_s"].append(rep["epoch_s"])
+            (ms, _) = counted(lambda: cuda_ms(
+                lambda: tr.step(d, sync=False), reps=8, warmup=1))
+            times[name]["event_ms"].append(ms)
+    for name, t in times.items():
+        tr = cfgs[name]
+        extra = (f"; carries {replica_carry_bytes(tr)} B"
+                 if tr.replica_budget else "")
+        log(f"  {name}: epoch_s {t['epoch_s']!r} (host clock, 8 timed steps "
+            f"a round; sync_every 0, so a replica or composed trainer "
+            f"refreshed once, at its first step); CUDA events "
+            f"{t['event_ms']!r} ms a step (8 steps, no readback){extra}; "
+            f"card: {smi}")
+    counted(lambda: device_split(
+        "ER replica a2a training", lambda: cfgs["ER replica a2a"].step(data),
+        classes=REPLICA_CLASSES))
+    torch.cuda.synchronize()
+    log(f"  peak device memory so far {torch.cuda.max_memory_allocated()} B")
+    del cfgs
+
+    # ---- (h) the train CLI with --replica-budget auto --sync-every 3
+    (losses, rep), _ = counted(lambda: run_train_cli(
+        cli_base + ["--epochs", "5", "--warmup", "0", "--replica-budget",
+                    "auto", "--sync-every", "3"]))
+    log(f"  cora CLI --replica-budget auto --sync-every 3: B "
+        f"{rep['replica_budget']} (knee, score_covered "
+        f"{rep['replica_auto']['score_covered']!r}), {rep['comm_schedule']}, "
+        f"losses {losses}, replica exchanges {rep['replica_exchanges']} of "
+        f"{rep['exchanges']}, wire rows {rep['wire_rows_per_exchange']} -> "
+        f"{rep['wire_rows_per_exchange_replica']}")
+    # steps 1, 2 and 4 of 0-4 are replica steps: 3 x 2 exchanges x 2 layers
+    if not (rep["replica_budget"] > 0 and rep["replica_exchanges"] == 12
+            and np.isfinite(losses).all()):
+        raise AssertionError(f"phase 26: the replica CLI reported {rep}")
+
+    # ---- (g) the uninterrupted run of the killed child, here; then the
+    # resuming child
+    tr = FullBatchTrainer(plan, fin=128, widths=widths, seed=0,
+                          comm_schedule="a2a", replica_budget="auto",
+                          sync_every=3, device=dev)
+    full_losses, _ = counted(lambda: [tr.step(data) for _ in range(6)])
+    codes = children.join(kill)
+    listing = sorted(os.listdir(os.path.join(REPLICA_DIR, "ck")))
+    if codes != [faults.FAULT_EXIT_CODE] or listing != ["ckpt_00000004.npz"]:
+        raise AssertionError(f"phase 26: killed child exited {codes}, "
+                             f"directory {listing}")
+    final = os.path.join(REPLICA_DIR, "final.npz")
+    wave = children.start([("train", argv + ["--resume", "auto",
+                                             "--save-checkpoint", final],
+                            None, os.path.join(REPLICA_DIR, "resume.json"))])
+    if children.join(wave) != [0]:
+        raise AssertionError("phase 26: the resuming child failed")
+    with open(os.path.join(REPLICA_DIR, "resume.json")) as fh:
+        res = json.load(fh)
+    with np.load(final) as z:
+        leaves = [z[f"leaf_{i}"] for i in range(
+            sum(f.startswith("leaf_") for f in z.files))]
+        carry = [z[f"carry_{i}"] for i in range(
+            sum(f.startswith("carry_") for f in z.files))]
+    got = (leaves_digest(leaves), leaves_digest(carry))
+    want = (leaves_digest(to_leaves(tr.params, tr.opt)),
+            leaves_digest(tr.resume_state()[1]))
+    rep = res["report"]
+    log(f"  killed child exit {codes[0]} after its step-4 save; resumed at "
+        f"step {rep['resumed']['step']}, losses {rep['losses']} vs "
+        f"uninterrupted {full_losses[4:]}; weights + Adam digest {got[0]} / "
+        f"{want[0]}, replica carry digest {got[1]} / {want[1]}; child "
+        f"launches {res['launches']}")
+    if rep["losses"] != full_losses[4:] or got != want:
+        raise AssertionError("phase 26: the resumed replica run differs "
+                             "from the uninterrupted one")
+    for key, v in res["launches"].items():
+        totals[key] = totals.get(key, 0) + v
+    log(f"  phase 26's main-path launches: {json.dumps(totals)}")
+    return totals, pack_t["ER"]
+
+
 def main() -> int:
     import torch
 
@@ -4447,11 +4889,25 @@ def main() -> int:
     log(f"  phase 25 took {time.perf_counter() - t25:.1f} s")
 
     # ---------------------------------------------------------- phase 26
+    log("phase 26: hot-halo replicas (replica_budget) at the flagship "
+        "width, the ER plan on both transports and the DCSBM flagship on "
+        "phase 24's hp parts: sync_every=1 == exact, replica ring == a2a, "
+        "the kept pack == plain, launches per replica and refresh step, "
+        "the clamp, the loss band, the partial refresh's extremes, times, "
+        "kill and resume, the CLI")
+    t26 = time.perf_counter()
+    p26, pack26 = phase_replicas(plan, data, p_init, widths_f, rep, fit_f,
+                                 halo_runs, parts_bg, ahat_dc, dev, tb,
+                                 cli_base, smi)
+    MAIN_PATH_PACKS[0] += p26["pack"]
+    log(f"  phase 26 took {time.perf_counter() - t26:.1f} s")
+
+    # ---------------------------------------------------------- phase 27
     fused_main = (launches_c + launches_f + launches_tc + launches_tf
                   + launches_fr + launches_rt + launches_ca + launches_cr
                   + l15["wire"] + l15["bf16"] + launches_16 + asym["fused"]
                   + p23["fused"] + p24["fused"] + p25["fused"]
-                  + p25["fused_wire"])
+                  + p25["fused_wire"] + p26["fused"] + p26["fused_wire"])
     kernels = [{
         # K1's own float32-weight family entry: its launches on the main
         # path are the asymmetric backward's halo-ᵀ launches (the
@@ -4477,7 +4933,7 @@ def main() -> int:
         "source": "sgcn_tpu_torch/csrc/tile_spmm.cu",
         "replaces": "sgcn_tpu/ops/pallas_spmm.py:457-464",
         "launches": (bwd_tc + bwd_tf + p23["sym_bwd"] + p24["sym_bwd"]
-                     + p25["sym_bwd"]),
+                     + p25["sym_bwd"] + p26["sym_bwd"]),
         "max_abs_err": max(grad_err, fused_err),
         "ms": k3b["ms"],
         "plain_ms": k3b["plain_ms"],
@@ -4518,7 +4974,7 @@ def main() -> int:
         "source": "sgcn_tpu_torch/csrc/tile_spmm.cu",
         "replaces": "sgcn_tpu/ops/pallas_spmm.py:469-527",
         "launches": (launches_fr + ring_rt + ring_cr + p23["ring"]
-                     + p24["ring"] + p25["ring"]),
+                     + p24["ring"] + p25["ring"] + p26["ring"]),
         "max_abs_err": max(k4_err, fused_err),
         "ms": k4["ms"],
         "plain_ms": k4["plain_ms"],
@@ -4531,7 +4987,8 @@ def main() -> int:
         "source": "sgcn_tpu_torch/csrc/tile_spmm.cu",
         "replaces": "sgcn_tpu/ops/pallas_spmm.py:517-523",
         "launches": (ring_bwd_rt + ring_bwd_cr + p23["ring_bwd"]
-                     + p24["ring_bwd"] + p25["ring_bwd"]),
+                     + p24["ring_bwd"] + p25["ring_bwd"]
+                     + p26["ring_bwd"]),
         "max_abs_err": max(k4b_err, fused_err),
         "ms": k4b["ms"],
         "plain_ms": k4b["plain_ms"],
@@ -4606,6 +5063,21 @@ def main() -> int:
         "bound_ms": k3["fused"]["bound_ms"],
         "bound_by": k3["fused"]["bound_by"],
         "library_ms": k3["fused"]["library_ms"],
+    }, {
+        # the destination-indexed pack: a replica step's kept rows into
+        # the carried receive layout (K3/K4's exchange under replicas);
+        # timed on the ER flagship's layer-0 kept list (a2a, float32)
+        "name": "row_pack_into",
+        "route": "cuda",
+        "source": "sgcn_tpu_torch/csrc/row_shuffle.cu",
+        "replaces": "sgcn_tpu/ops/pspmm.py:577",
+        "launches": p26["pack_into"],
+        "max_abs_err": 0.0,
+        "ms": pack26["ms"],
+        "plain_ms": pack26["plain_ms"],
+        "bound_ms": pack26["bound_ms"],
+        "bound_by": "bytes",
+        "library_ms": pack26["library_ms"],
     }]
     # every kernel must be on the main path (K1's family entries through
     # the asymmetric backward only: asserted 0 on the symmetric paths)

@@ -1,6 +1,8 @@
 // Row gathers for Hopper (sm_90a): the row shuffle K6,
-// out[i, :] = x[idx[i], :], and below it the stacked row pack that moves
-// the halo exchange and the ragged ring (K3, K4).
+// out[i, :] = x[idx[i], :], below it the stacked row pack that moves
+// the halo exchange and the ragged ring (K3, K4), and last its
+// destination-indexed form that writes a replica step's kept rows into
+// the carried receive layout.
 //
 // The row shuffle, out[i, :] = x[idx[i], :].
 //
@@ -128,38 +130,92 @@ struct Raw {
   __device__ static Out cvt(In v) { return v; }
 };
 
-// units: the number of output units, upr units per row (< 2^31 both)
-template <typename C>
+bool aligned(const void* p, int bytes) {
+  return (uintptr_t)p % (uintptr_t)bytes == 0;
+}
+
+// units: the number of units moved, upr units per row (< 2^31 both).
+// kInto: row j goes to output row dst[j] of an existing buffer of
+// n_out_rows rows (the destination-indexed pack below), else to row j.
+template <typename C, bool kInto>
 __global__ void __launch_bounds__(kThreads)
 row_pack_kernel(const typename C::In* __restrict__ src,
                 const int32_t* __restrict__ flat,
+                const int32_t* __restrict__ dst,
                 typename C::Out* __restrict__ out, unsigned units,
-                unsigned upr, unsigned n_src_rows) {
+                unsigned upr, unsigned n_src_rows, unsigned n_out_rows) {
   const unsigned i = blockIdx.x * kThreads + threadIdx.x;
   if (i >= units) return;
   const unsigned row = i / upr;
   const unsigned col = i - row * upr;
   const int s = __ldg(flat + row);
   if ((unsigned)s >= n_src_rows) __trap();
-  out[i] = C::cvt(__ldg(src + (unsigned long long)s * upr + col));
+  const typename C::Out v = C::cvt(__ldg(src + (unsigned long long)s * upr
+                                         + col));
+  if (kInto) {
+    const int d = __ldg(dst + row);
+    if ((unsigned)d >= n_out_rows) __trap();
+    out[(unsigned long long)d * upr + col] = v;
+  } else {
+    out[i] = v;
+  }
 }
 
 template <typename C>
-int launch_pack(const void* src, const void* flat, void* out,
-                long long units, long long upr, int n_src_rows,
-                cudaStream_t stream) {
+int launch_pack(const void* src, const void* flat, const void* dst,
+                void* out, long long units, long long upr, int n_src_rows,
+                int n_out_rows, cudaStream_t stream) {
   if (units > 0x7fffffffLL || upr > 0x7fffffffLL)
     return (int)cudaErrorInvalidValue;
   const unsigned blocks = (unsigned)((units + kThreads - 1) / kThreads);
-  row_pack_kernel<C><<<blocks, kThreads, 0, stream>>>(
-      (const typename C::In*)src, (const int32_t*)flat,
-      (typename C::Out*)out, (unsigned)units, (unsigned)upr,
-      (unsigned)n_src_rows);
+  if (dst != nullptr)
+    row_pack_kernel<C, true><<<blocks, kThreads, 0, stream>>>(
+        (const typename C::In*)src, (const int32_t*)flat,
+        (const int32_t*)dst, (typename C::Out*)out, (unsigned)units,
+        (unsigned)upr, (unsigned)n_src_rows, (unsigned)n_out_rows);
+  else
+    row_pack_kernel<C, false><<<blocks, kThreads, 0, stream>>>(
+        (const typename C::In*)src, (const int32_t*)flat, nullptr,
+        (typename C::Out*)out, (unsigned)units, (unsigned)upr,
+        (unsigned)n_src_rows, 0u);
   return (int)cudaGetLastError();
 }
 
-bool aligned(const void* p, int bytes) {
-  return (uintptr_t)p % (uintptr_t)bytes == 0;
+// The pack's dtype dispatch: n rows of w elements, row j from src row
+// flat[j] (dst == nullptr: to out row j; else to out row dst[j] of
+// n_out rows), the widest unit the row width and both bases allow.
+int pack_rows(const void* src, const void* flat, const void* dst, void* out,
+              int n, int n_src, int n_out, int w, int in_type, int out_type,
+              cudaStream_t st) {
+  const long long rows = n;
+  if (in_type == out_type) {
+    // raw words: the widest of 16, 4 and 2 bytes that divides the row and
+    // both bases
+    const long long bytes = (long long)w * (in_type == 0 ? 4 : 2);
+    if (bytes % 16 == 0 && aligned(src, 16) && aligned(out, 16))
+      return launch_pack<Raw<uint4>>(src, flat, dst, out,
+                                     rows * (bytes / 16), bytes / 16, n_src,
+                                     n_out, st);
+    if (bytes % 4 == 0 && aligned(src, 4) && aligned(out, 4))
+      return launch_pack<Raw<uint32_t>>(src, flat, dst, out,
+                                        rows * (bytes / 4), bytes / 4, n_src,
+                                        n_out, st);
+    return launch_pack<Raw<unsigned short>>(src, flat, dst, out,
+                                            rows * (bytes / 2), bytes / 2,
+                                            n_src, n_out, st);
+  }
+  if (in_type == 0) {  // float32 -> bfloat16
+    if (w % 4 == 0 && aligned(src, 16) && aligned(out, 8))
+      return launch_pack<Narrow4>(src, flat, dst, out, rows * (w / 4), w / 4,
+                                  n_src, n_out, st);
+    return launch_pack<Narrow1>(src, flat, dst, out, rows * w, w, n_src,
+                                n_out, st);
+  }
+  if (w % 4 == 0 && aligned(src, 8) && aligned(out, 16))  // bf16 -> f32
+    return launch_pack<Widen4>(src, flat, dst, out, rows * (w / 4), w / 4,
+                               n_src, n_out, st);
+  return launch_pack<Widen1>(src, flat, dst, out, rows * w, w, n_src, n_out,
+                             st);
 }
 
 
@@ -201,29 +257,45 @@ extern "C" int sgcn_row_pack(const void* src, const void* flat, void* out,
     return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
-  cudaStream_t st = (cudaStream_t)stream;
-  const long long rows = n_out;
-  if (in_type == out_type) {
-    // raw words: the widest of 16, 4 and 2 bytes that divides the row and
-    // both bases
-    const long long bytes = (long long)w * (in_type == 0 ? 4 : 2);
-    if (bytes % 16 == 0 && aligned(src, 16) && aligned(out, 16))
-      return launch_pack<Raw<uint4>>(src, flat, out, rows * (bytes / 16),
-                                     bytes / 16, n_src, st);
-    if (bytes % 4 == 0 && aligned(src, 4) && aligned(out, 4))
-      return launch_pack<Raw<uint32_t>>(src, flat, out, rows * (bytes / 4),
-                                        bytes / 4, n_src, st);
-    return launch_pack<Raw<unsigned short>>(src, flat, out, rows * (bytes / 2),
-                                            bytes / 2, n_src, st);
-  }
-  if (in_type == 0) {  // float32 -> bfloat16
-    if (w % 4 == 0 && aligned(src, 16) && aligned(out, 8))
-      return launch_pack<Narrow4>(src, flat, out, rows * (w / 4), w / 4,
-                                  n_src, st);
-    return launch_pack<Narrow1>(src, flat, out, rows * w, w, n_src, st);
-  }
-  if (w % 4 == 0 && aligned(src, 8) && aligned(out, 16))  // bf16 -> f32
-    return launch_pack<Widen4>(src, flat, out, rows * (w / 4), w / 4, n_src,
-                               st);
-  return launch_pack<Widen1>(src, flat, out, rows * w, w, n_src, st);
+  return pack_rows(src, flat, nullptr, out, n_out, n_src, n_out, w, in_type,
+                   out_type, (cudaStream_t)stream);
+}
+
+// ---------------------------------------------------------------------------
+// Destination-indexed row pack: out[dst[j], :] = cast(src[flat[j], :]) for
+// j < n, into a buffer the caller owns; the other rows of out keep what
+// they hold.
+//
+// Replaces the TPU exchange of a replica step: the shrunken all_to_all of
+// the kept rows into the halo table and the replica slots' overwrite from
+// the carry (sgcn_tpu/ops/pspmm.py:559-579, `_replica_halo`'s
+// `.at[rep_slots].set`; the ring's per-round `.at[nrep_rhalo_dst].set`,
+// :695-709, and the composed mode's carry scatters, :836-971).  Here the
+// replica carry IS the receive layout of the exact exchange, and a replica
+// step rewrites only its kept slots: each kept slot is one (flat, dst)
+// pair of the plan (real slots only, no pads), so the replica slots keep
+// what the last sync wrote without a copy.  The same kernel as the pack
+// above, the output row taken from dst; an out-of-range source or
+// destination traps.  Every destination is distinct, so the order of the
+// stores does not matter and the result is bit-identical to the plain
+// `index_copy_` of the gathered rows.
+//
+// What bounds it on the H100: bytes, counted as for the pack above.  Each
+// distinct source row is read once, the two int32 index lists once, and
+// each named row written once: u·w·in + 8·n + n·w·out, u the distinct
+// entries of flat.  A boundary row goes to several parts, so u < n: on the
+// flagship a2a (f = 128 float32) the kept slots are the kept share of the
+// exact exchange's 578 MB of receive slots, read from far fewer rows of h —
+// the wire rows the replicas take off are rows it does not write.
+extern "C" int sgcn_row_pack_into(const void* src, const void* flat,
+                                  const void* dst, void* out, int n,
+                                  int n_src, int n_out, int w, int in_type,
+                                  int out_type, int device, void* stream) {
+  if (n < 1 || n_src < 1 || n_out < 1 || w < 1 || in_type < 0 ||
+      in_type > 1 || out_type < 0 || out_type > 1)
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  return pack_rows(src, flat, dst, out, n, n_src, n_out, w, in_type,
+                   out_type, (cudaStream_t)stream);
 }

@@ -3,9 +3,11 @@ losses.
 
 Port of the tile-kernel branches of ``sgcn_tpu/models/gcn.py``
 (``gcn_forward_local``, over the dense a2a exchange or the ragged ring,
-and on an asymmetric Â the ``pspmm_overlap`` branch, a2a only) and of the
-non-replica branches of ``gcn_forward_local_stale`` (the pipelined
-trainer's forward, both transports), run over all ``k`` parts stacked on
+and on an asymmetric Â the ``pspmm_overlap`` branch, a2a only), of
+``gcn_forward_local_stale`` (the pipelined trainer's forward, with its
+replica × stale branch, both transports) and of
+``gcn_forward_local_replica`` (hot-halo replicas, both transports, and
+the partial refresh on the a2a), run over all ``k`` parts stacked on
 a leading axis: per layer, halo
 exchange → tile SpMM → dense projection → activation, with the
 reference's project-first layer order.  Weights keep
@@ -28,8 +30,8 @@ from torch import nn
 
 from ..ops.pspmm import exchange_recv, narrow_dtype, ring_concat
 from ..ops.tile_spmm import (pspmm_tiles_gen, pspmm_tiles_ragged,
-                              pspmm_tiles_stale, pspmm_tiles_stale_ragged,
-                              pspmm_tiles_sym)
+                              pspmm_tiles_replica, pspmm_tiles_stale,
+                              pspmm_tiles_stale_ragged, pspmm_tiles_sym)
 from .activations import get_activation
 
 # Minimum input width (f32 elements) for the project-before-aggregate
@@ -187,9 +189,11 @@ def gcn_forward_local_stale(
     gwire_dtype: str | None = None,  # the gradient wire's dtype
     fresh: bool = False,            # a sync step (exact math)
     gauges: bool = False,           # also return the per-layer qerr
+    replica: bool = False,          # replicas composed in: stale steps
+                                    # ship the kept rows alone
 ):
     """Stacked forward under the pipelined stale-halo exchange (port of
-    the non-replica branches of ``gcn_forward_local_stale``).
+    ``gcn_forward_local_stale``, its replica × stale branch included).
 
     The layer math and project-first order of ``gcn_forward_local``
     (``exchange_widths`` encodes the same rule, so the carries' widths
@@ -205,7 +209,18 @@ def gcn_forward_local_stale(
     ``gauges=True`` also returns, per layer, ``Σ (full − carry_next)²``
     over the send buffer — this step's halo-delta rounding residual (zero
     without ``delta`` and on sync steps): ``(out, new_halos, qerrs)``.
-    Its extra pack of the full rows runs only then."""
+    Its extra pack of the full rows runs only then.
+
+    ``replica=True`` (``replica_budget`` with ``halo_staleness=1``): a
+    stale step ships only the kept rows (the plan's ``keep_*`` lists, in
+    ``pa``) into the carry, whose replica slots keep their last-sync rows
+    (``pspmm_replica_stale[_ragged]``); a sync step is the stale mode's.
+    No ``delta`` with it (the trainer gates the composition)."""
+    if replica and delta:
+        raise ValueError(
+            "replica × stale × delta is deferred: the delta baseline and "
+            "the replica carry would disagree on what a stale step ships "
+            "(docs/replication.md)")
     if comm_schedule not in ("a2a", "ragged"):
         raise ValueError(f"unknown comm_schedule {comm_schedule!r} "
                          "(the trainer resolves 'auto' before the forward)")
@@ -223,6 +238,9 @@ def gcn_forward_local_stale(
         mode = dict(delta=delta, wire_dtype=wire_dtype,
                     gwire_dtype=gwire_dtype, fresh=fresh, gholder=gholder,
                     layer=i)
+        if replica:
+            pre = "keep_ring" if comm_schedule == "ragged" else "keep_recv"
+            mode["keep"] = (pa[f"{pre}_src"], pa[f"{pre}_dst"])
         if comm_schedule == "ragged":
             z, hn = pspmm_tiles_stale_ragged(
                 x, halos[i], ghalos[i], pa["ring_src"],
@@ -252,6 +270,116 @@ def gcn_forward_local_stale(
     if gauges:
         return h, new_halos, qerrs
     return h, new_halos
+
+
+def gcn_forward_local_replica(
+    params,
+    h,                              # (k, B, f_in) stacked local rows
+    pa,                             # plan tensors (the transport's tile
+                                    # fields + REPLICA_TILE_FIELDS[_RAGGED],
+                                    # + REPLICA_PARTIAL_TILE_FIELDS)
+    carries,                        # per-layer feature carries
+    gcarries,                       # per-layer gradient carries
+    gholder,                        # list the backward writes the next
+                                    # gradient carries into
+    activation: str = "relu",
+    final_activation: str = "none",
+    pallas_tb: int = 256,
+    pallas_lclasses: tuple = (),
+    pallas_hclasses: tuple = (),
+    comm_schedule: str = "a2a",
+    rr_sizes: tuple | None = None,
+    halo_dtype: str | None = None,  # the wire's dtype, both directions
+    fresh: bool = False,            # a refresh (sync) step: exact math
+    rep_base=None,                  # per-layer (k, RS, f) baselines
+                                    # (refresh_band only)
+    partial_step: bool = False,     # this step is the partial refresh
+    band: float = 0.0,              # the relative drift band
+):
+    """Stacked forward under hot-halo replicas (port of
+    ``gcn_forward_local_replica``): the layer math and project-first
+    order of ``gcn_forward_local`` with every aggregation a replica op
+    (``pspmm_tiles_replica``).  The carries are the transport's receive
+    layout; a sync step (``fresh``) runs the exact exchange into new ones
+    (the stale op's sync step, ``pspmm_tiles_stale[_ragged]`` with
+    ``fresh``; float32 under ``rep_base``), a replica step packs only the
+    kept rows into them in place, so
+    the replica slots hold the last sync's rows; ``partial_step`` (a2a,
+    with ``rep_base``) also ships the rows whose drift passes ``band``
+    (``ops/pspmm.py::partial_refresh``).  Returns ``(out, new_carries,
+    new_bases, nships)`` — ``new_bases`` under ``rep_base`` (a sync step
+    re-anchors them at the wire-rounded rows the consumers received),
+    ``nships`` the per-layer refreshed copies of a partial step (else
+    ``None``); the backward writes each layer's next gradient carry into
+    ``gholder[ℓ]``.  Symmetric Â and float32 only (the trainer gates
+    them)."""
+    if comm_schedule not in ("a2a", "ragged"):
+        raise ValueError(f"unknown comm_schedule {comm_schedule!r} "
+                         "(the trainer resolves 'auto' before the forward)")
+    if comm_schedule == "ragged" and rr_sizes is None:
+        raise ValueError("the ragged replica forward needs the plan's "
+                         "static rr_sizes (CommPlan.ensure_ragged)")
+    if partial_step and (rep_base is None or comm_schedule != "a2a"):
+        raise ValueError(
+            "the partial refresh step needs the threaded baselines "
+            "(track_base=True) and rides the dense a2a transport only "
+            "(docs/replication.md)")
+    ragged = comm_schedule == "ragged"
+    if ragged:
+        src, keep = pa["ring_src"], (pa["keep_ring_src"], pa["keep_ring_dst"])
+        hsrc, ring = pa["ptile_hrsrc"], (rr_sizes,)
+    else:
+        src, keep = pa["recv_src"], (pa["keep_recv_src"], pa["keep_recv_dst"])
+        hsrc, ring = pa["ptile_hwsrc"], ()
+    sync_op = pspmm_tiles_stale_ragged if ragged else pspmm_tiles_stale
+    tiles = (pa["ptile_lsrc"], pa["ptile_lld"], pa["ptile_lw"], hsrc,
+             pa["ptile_hld"], pa["ptile_hw"], pallas_tb, pallas_lclasses,
+             pallas_hclasses)
+    side = None
+    if rep_base is not None:
+        side = {name: pa[name] for name in ("rep_rows_flat", "rep_row_valid",
+                                            "rep_base_flat", "rep_src_flat")}
+        side["rep_dst"] = pa["rep_recv_dst"]
+    kind = "partial" if partial_step else "replica"
+    wdt = narrow_dtype(halo_dtype)
+    act = get_activation(activation)
+    fact = get_activation(final_activation)
+    nl = len(params)
+    new_carries, new_bases, nships = [], [], []
+    for i, w in enumerate(params):
+        project_first = (w.shape[1] < h.shape[-1]
+                         and h.shape[-1] >= PROJECT_FIRST_MIN_FIN)
+        x = (h @ w) if project_first else h
+        if fresh:
+            z, cn = sync_op(x, carries[i], gcarries[i], src, *tiles, *ring,
+                            wire_dtype=halo_dtype, gwire_dtype=halo_dtype,
+                            fresh=True, gholder=gholder, layer=i)
+            # the partial refresh's replicas are float32
+            cn, bn, ns = cn.to(carries[i].dtype), None, None
+        else:
+            z, cn, bn, ns = pspmm_tiles_replica(
+                x, carries[i], gcarries[i], keep, tiles, kind,
+                halo_dtype=halo_dtype, gholder=gholder, layer=i,
+                base=None if rep_base is None else rep_base[i], side=side,
+                band=band)
+        if rep_base is not None and fresh:
+            # a full refresh re-anchors the senders' baselines at what the
+            # consumers received: the wire-rounded rows (no gradient)
+            with torch.no_grad():
+                k, rs = pa["rep_rows_flat"].shape
+                bn = x.detach().reshape(-1, x.shape[-1]).index_select(
+                    0, pa["rep_rows_flat"].reshape(-1).long()).reshape(
+                        k, rs, -1)
+                if wdt is not None:
+                    bn = bn.to(wdt).to(x.dtype)
+                bn = bn * pa["rep_row_valid"][..., None].to(x.dtype)
+        if not project_first:
+            z = z @ w
+        new_carries.append(cn)
+        new_bases.append(bn)
+        nships.append(ns)
+        h = fact(z) if i == nl - 1 else act(z)
+    return h, new_carries, new_bases, nships
 
 
 class GCN(nn.Module):

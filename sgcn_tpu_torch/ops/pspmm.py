@@ -35,6 +35,16 @@ cache's arithmetic included); the reference's ``(R, f)`` halo tables and
 ``(k, S, f)`` baselines exist in the port only at the checkpoint's edge
 (``train/fullbatch.py``).
 
+The hot-halo replicas live in the same receive layouts: a replica slot
+is a receive slot that stops being overwritten between syncs.  A sync
+step is the exact exchange; a replica step is ``replica_pack``, the
+destination-indexed pack of the kept slots alone
+(``row_shuffle.py::row_pack_into``); ``partial_refresh`` and
+``partial_refresh_grad`` are the drift-banded refresh's side channels
+(the reference's ``_partial_mask`` and masked increments), and
+``carry_replica_rows``/``carry_set_replica_rows`` convert to and from the
+reference's ``(k, RP, f)`` replica tables.
+
 The functions take the reference's ``halo_dtype``, a narrower dtype for
 the WIRE only: the pack rounds each row to it as it stores it, so the receive
 buffer and the ring concat hold half the bytes under ``'bfloat16'``; the
@@ -46,7 +56,7 @@ from __future__ import annotations
 
 import torch
 
-from .row_shuffle import row_pack
+from .row_shuffle import row_pack, row_pack_into
 
 # the dtypes a halo_dtype or compute_dtype may name, by the reference's
 # names: float32 (no narrowing, None) or bfloat16
@@ -296,3 +306,111 @@ def ring_to_send_bases(ring, rr_sizes, inverse: bool = False):
                                                d if inverse else -d, dims=0)
         off += sd
     return out
+
+
+# ---------------------------------------------------------- hot-halo replicas
+def replica_pack(carry, x, keep_src, keep_dst, wire_dtype=None):
+    """A replica step's exchange (port of the shrunken exchange of
+    ``_replica_halo``/``_replica_ring_halo``/``_replica_stale_exchange``):
+    the kept (non-replicated) rows of ``x`` go into their slots of the
+    carried receive layout ``carry``, in place, rounded to the wire's
+    dtype; the replica slots, and the pads, keep what the last sync wrote.
+    One launch of ``row_pack_into`` (none when every boundary row is
+    replicated).
+
+    Args:
+      carry: ``(k, J, f)`` the receive layout (a2a buffer or ring
+        concat), float32 or the wire's dtype.
+      x: ``(k, B, f)`` float32 local rows.
+      keep_src/keep_dst: the plan's ``keep_recv_*`` or ``keep_ring_*``.
+      wire_dtype: the wire's dtype (``'bfloat16'``) or ``None``.
+
+    Returns ``carry``.  A bf16 wire into a float32 carry (the partial
+    refresh keeps its replica values float32) rounds ``x`` first."""
+    wire = narrow_dtype(wire_dtype) or x.dtype
+    src = x if carry.dtype == wire else x.to(wire)
+    return row_pack_into(carry, src.contiguous(), keep_src, keep_dst)
+
+
+def carry_replica_rows(carry, rep_dst, rep_table_pos, rp: int):
+    """The reference's ``(k, RP, f)`` replica tables from a receive-layout
+    carry, float32: each replica slot's row at its (part, rank), 0 on the
+    pads (``rep_*_dst`` and ``rep_table_pos`` of the plan)."""
+    k, _, f = carry.shape
+    out = carry.new_zeros((k * rp, f), dtype=torch.float32)
+    out.index_copy_(0, rep_table_pos.long(),
+                    carry.reshape(-1, f).index_select(0, rep_dst.long())
+                    .float())
+    return out.reshape(k, rp, f)
+
+
+def carry_set_replica_rows(carry, table, rep_dst, rep_table_pos):
+    """Inverse of ``carry_replica_rows`` on the replica slots: write the
+    ``(k, RP, f)`` table's real rows into ``carry`` in place."""
+    f = carry.shape[-1]
+    rows = table.reshape(-1, f).index_select(0, rep_table_pos.long())
+    carry.view(-1, f).index_copy_(0, rep_dst.long(), rows.to(carry.dtype))
+    return carry
+
+
+def partial_refresh(x, carry, base, side, band: float, wire_dtype=None):
+    """The drift-banded partial refresh's forward side channel (port of
+    ``_partial_mask`` and the masked increment of
+    ``_pspmm_replica_partial_once``), in place on the replica slots of a
+    float32 ``carry``.
+
+    Row ``i`` of a sender's owned replicated rows refreshes iff
+    ``‖x_i − base_i‖² > band²·‖base_i‖²``; its increment, rounded to the
+    wire's dtype, is added to the sender's baseline and to every consumer
+    copy (the lockstep of the two ends).
+
+    Args:
+      x: ``(k, B, f)`` float32 local rows.
+      carry: ``(k, J, f)`` float32 receive layout; its replica slots hold
+        the replicas.
+      base: ``(k, RS, f)`` float32 sender baselines.
+      side: the plan tensors ``rep_rows_flat``, ``rep_row_valid``,
+        ``rep_base_flat``, ``rep_dst`` (the transport's replica slots).
+      band: the relative drift band ``RHO``.
+
+    Returns ``(base_next, nship, active)``: the new baselines, the number
+    of replica copies refreshed (the side channel's true rows) and the
+    per-replica-slot 0/1 refresh mask the gradient's side channel uses."""
+    k, rs = side["rep_rows_flat"].shape
+    f = x.shape[-1]
+    xr = x.reshape(-1, f).index_select(
+        0, side["rep_rows_flat"].reshape(-1).long()).reshape(k, rs, f)
+    valid = side["rep_row_valid"]
+    diff = (xr - base) * valid[..., None].to(x.dtype)
+    drift2 = torch.sum(torch.square(diff), dim=-1)
+    ref2 = torch.sum(torch.square(base), dim=-1)
+    mask = (drift2 > (band * band) * ref2) & (valid > 0)
+    wdt = narrow_dtype(wire_dtype) or x.dtype
+    qinc = (diff * mask[..., None].to(x.dtype)).to(wdt).to(x.dtype)
+    base_next = base + qinc
+    pos = side["rep_base_flat"].long()
+    active = mask.reshape(-1).index_select(0, pos)
+    dst = side["rep_dst"].long()
+    cf = carry.view(-1, f)
+    cf.index_copy_(0, dst, cf.index_select(0, dst)
+                   + qinc.reshape(-1, f).index_select(0, pos))
+    return base_next, active.sum(), active
+
+
+def partial_refresh_grad(gcarry, g, side, active, wire_dtype=None):
+    """The partial refresh's gradient side channel (port of the backward
+    of ``pspmm_replica_partial``), in place on ``gcarry``'s replica slots:
+    the slots ``active`` marks take the owner's fresh gradient row rounded
+    to the wire's dtype, the others keep theirs (set semantics: the
+    reference's ``grep·(1 − r) + vals·r``).  ``side``: ``rep_src_flat``
+    and ``rep_dst``."""
+    f = g.shape[-1]
+    wdt = narrow_dtype(wire_dtype) or g.dtype
+    act = active.to(g.dtype)[:, None]
+    vals = (g.reshape(-1, f).index_select(0, side["rep_src_flat"].long())
+            * act).to(wdt).to(g.dtype)
+    dst = side["rep_dst"].long()
+    cf = gcarry.view(-1, f)
+    old = cf.index_select(0, dst).to(g.dtype)
+    cf.index_copy_(0, dst, (old * (1.0 - act) + vals * act).to(cf.dtype))
+    return gcarry

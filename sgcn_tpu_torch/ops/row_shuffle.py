@@ -13,7 +13,14 @@
     src[flat[q, j] // rows, flat[q, j] % rows]`` over a ``(k, rows, ...)``
     stack, cast to the output dtype as it is stored.  On CPU tensors it is
     ``row_pack_plain``; a CUDA tensor launches the kernel or raises.
-    ``row_pack.launches`` counts kernel launches.
+    ``row_pack.launches`` counts kernel launches;
+  * ``row_pack_into`` — the same pack into rows of a buffer the caller
+    owns, ``out.flat[dst[i]] = cast(src.flat[flat[i]])``: a replica
+    step's kept rows written into the carried receive layout
+    (``ops/pspmm.py::replica_pack``).  On CPU tensors it is
+    ``row_pack_into_plain``; a CUDA tensor launches the kernel or
+    raises.  ``row_pack_into.launches`` counts kernel launches; an empty
+    list launches nothing.
 
 A copy rounds nothing, and the pack's float32 → bf16 store rounds as
 torch's cast on the same device does, so each kernel agrees with its plain
@@ -44,6 +51,9 @@ def _lib():
         lib.sgcn_row_pack.argtypes = (
             [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p])
         lib.sgcn_row_pack.restype = ctypes.c_int
+        lib.sgcn_row_pack_into.argtypes = (
+            [ctypes.c_void_p] * 4 + [ctypes.c_int] * 7 + [ctypes.c_void_p])
+        lib.sgcn_row_pack_into.restype = ctypes.c_int
         lib.sgcn_row_shuffle_error_string.argtypes = [ctypes.c_int]
         lib.sgcn_row_shuffle_error_string.restype = ctypes.c_char_p
         lib._sgcn_typed = True
@@ -178,3 +188,87 @@ def row_pack(src, flat, dtype=None):
 
 
 row_pack.launches = 0
+
+
+def row_pack_into_plain(out, src, flat, dst):
+    """``out.flat[dst] = src.flat[flat]`` in ``out``'s dtype, in place:
+    the rows gathered by ``index_select`` and stored by ``index_copy_``.
+    ``out`` ``(k, J, ...)``, ``src`` ``(k, rows, ...)``, ``flat``/``dst``
+    ``(n,)`` int.  Returns ``out``."""
+    w = out[0, 0].numel()
+    rows = src.reshape(-1, w).index_select(0, flat.long()).to(out.dtype)
+    out.view(-1, w).index_copy_(0, dst.long(), rows)
+    return out
+
+
+def row_pack_into(out, src, flat, dst):
+    """Gather rows of the ``k`` stacked parts into given rows of ``out``,
+    casting as they are stored; every other row of ``out`` keeps its
+    value.
+
+    Args:
+      out: ``(k, J, ...)`` float32 or bfloat16, row-major, written in
+        place (row ``(q, j)`` is flat row ``q·J + j``).
+      src: ``(k, rows, ...)`` float32 or bfloat16 with ``out``'s row
+        width (a row is everything past the first two axes).
+      flat: ``(n,)`` int32 — the flat source row ``part·rows + row`` of
+        each moved row.
+      dst: ``(n,)`` int32 — its flat row of ``out``; no two alike.
+
+    Returns ``out``.  ``n = 0`` moves and launches nothing.  On CPU
+    tensors this is ``row_pack_into_plain``; on CUDA tensors it launches
+    the kernel on the current stream (no synchronize) and counts it in
+    ``row_pack_into.launches``.  A non-contiguous tensor, another dtype or
+    device raises; an index outside ``[0, k·rows)`` or a destination
+    outside ``[0, k·J)`` fails the launch."""
+    if src.dim() < 2 or out.dim() < 2 or flat.dim() != 1 \
+            or dst.shape != flat.shape:
+        raise ValueError(f"row_pack_into takes (k, ·, ...) tensors and two "
+                         f"(n,) indices, got {tuple(out.shape)}, "
+                         f"{tuple(src.shape)}, {tuple(flat.shape)}, "
+                         f"{tuple(dst.shape)}")
+    if flat.dtype != torch.int32 or dst.dtype != torch.int32:
+        raise TypeError(f"row_pack_into takes int32 indices, got "
+                        f"{flat.dtype} and {dst.dtype}")
+    w = out[0, 0].numel() if out.numel() else 0
+    if src.shape[0] * src.shape[1] and src[0, 0].numel() != w:
+        raise ValueError(f"row widths differ: out {tuple(out.shape)}, src "
+                         f"{tuple(src.shape)}")
+    if not all(x.device == out.device for x in (src, flat, dst)):
+        raise ValueError("tensors and indices must be on the same device")
+    if flat.numel() == 0:
+        return out
+    if out.device.type == "cpu":
+        return row_pack_into_plain(out, src, flat, dst)
+    if out.device.type != "cuda":
+        raise ValueError(f"row_pack_into runs on cpu or cuda tensors, got "
+                         f"{out.device}")
+    if src.dtype not in _PACK_DTYPES or out.dtype not in _PACK_DTYPES:
+        raise TypeError(f"row_pack_into moves float32 and bfloat16 rows, "
+                        f"got {src.dtype} -> {out.dtype}")
+    if not all(x.is_contiguous() for x in (out, src, flat, dst)):
+        raise ValueError("row_pack_into takes row-major tensors and "
+                         "contiguous indices")
+    n_src = src.shape[0] * src.shape[1]
+    n_out = out.shape[0] * out.shape[1]
+    if n_src == 0 or w == 0:
+        raise ValueError(f"empty row pack: source {tuple(src.shape)}, "
+                         f"output {tuple(out.shape)}")
+    lib = _lib()
+    dev = out.device.index if out.device.index is not None \
+        else torch.cuda.current_device()
+    rc = lib.sgcn_row_pack_into(
+        src.data_ptr(), flat.data_ptr(), dst.data_ptr(), out.data_ptr(),
+        flat.numel(), n_src, n_out, w, _PACK_DTYPES[src.dtype],
+        _PACK_DTYPES[out.dtype], dev,
+        torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(
+            f"row_pack_into launch failed: "
+            f"{lib.sgcn_row_shuffle_error_string(rc).decode()} "
+            f"(cudaError {rc})")
+    row_pack_into.launches += 1
+    return out
+
+
+row_pack_into.launches = 0

@@ -51,6 +51,17 @@ holds, in the reference's order:
     kernel) as ``PspmmTilesStale``, on the same pack and fused launch: the
     exchange goes into a carry in the receive layout, the fused launch
     reads the previous step's carry;
+  * ``pspmm_tiles_replica`` — the reference's ``pspmm_replica``,
+    ``pspmm_replica_ragged`` and ``pspmm_replica_partial`` (hot-halo
+    replicas, whose reference runs no Pallas kernel) as
+    ``PspmmTilesReplica``: the carry is the receive layout, a replica
+    step packs only the kept slots into it (``ops/pspmm.py::
+    replica_pack``), then the fused launch reads it; the backward mirrors
+    it on the gradient carry.  A sync step refills the carry with the
+    exact exchange: ``pspmm_tiles_stale`` with ``fresh``.  The
+    composed replica × stale steps (``pspmm_replica_stale[_ragged]``) are
+    ``pspmm_tiles_stale`` with the kept lists: the fused launch reads the
+    previous carry, then the kept pack turns it into the next;
   * ``gat_tiles_pass`` — ``gat_pallas_pass`` (K5): the GAT attention pass,
     the kernel over the combined-edge tiles with int8 0/1 mask weights.
     An int8 ``tw`` launches the kernel's int8 entry point, counted in
@@ -84,7 +95,8 @@ import ctypes
 import numpy as np
 import torch
 
-from .pspmm import (exchange_recv, reverse_exchange, ring_concat,
+from .pspmm import (exchange_recv, partial_refresh, partial_refresh_grad,
+                    replica_pack, reverse_exchange, ring_concat,
                     stale_exchange, stale_ring_exchange)
 
 
@@ -969,13 +981,21 @@ def _stale_exchange_of(rr_sizes):
 def pspmm_tiles_stale(x, halo_in, ghalo_in, recv_src, lsrc, lld, lw, hwsrc,
                       hld, hw, tb: int, lclasses, hclasses, delta=False,
                       wire_dtype=None, gwire_dtype=None, fresh=False,
-                      gholder=None, layer: int = 0):
+                      gholder=None, layer: int = 0, keep=None):
     """``pspmm_stale`` over stacked parts (``PspmmTilesStale``, a2a).
     ``x``: ``(k, b, f)`` float32; ``halo_in``/``ghalo_in``: the feature
     and gradient carries, ``(k, k·S, f)`` receive buffers (float32 under
     ``delta``, else the wire's dtype).  Returns ``(out, halo_next)``;
     differentiable in ``x``, the next gradient carry goes to
-    ``gholder[layer]``."""
+    ``gholder[layer]``.  ``keep``: the plan's ``(keep_recv_src,
+    keep_recv_dst)`` — the composed replica × stale mode
+    (``pspmm_replica_stale``), whose stale steps ship the kept rows alone
+    (``_replica_stale_step``)."""
+    if keep is not None and not fresh:
+        return _replica_stale_step(
+            x, halo_in, ghalo_in, keep, (lsrc, lld, lw, hwsrc, hld, hw, tb,
+                                         lclasses, hclasses),
+            wire_dtype, gwire_dtype, gholder, layer)
     return PspmmTilesStale.apply(
         x, halo_in, ghalo_in, recv_src, lsrc, lld, lw, hwsrc, hld, hw,
         (tb, lclasses, hclasses, None),
@@ -986,17 +1006,144 @@ def pspmm_tiles_stale_ragged(x, halo_in, ghalo_in, ring_src, lsrc, lld, lw,
                              rsrc, rld, rw, tb: int, lclasses, hclasses,
                              rr_sizes, delta=False, wire_dtype=None,
                              gwire_dtype=None, fresh=False, gholder=None,
-                             layer: int = 0):
+                             layer: int = 0, keep=None):
     """``pspmm_stale_ragged`` over stacked parts (``PspmmTilesStale`` on
     the ring): as ``pspmm_tiles_stale`` with ``(k, ΣS_d, f)`` ring-concat
     carries and the ring-re-based halo tiles (``ptile_hrsrc``).  The
     carries hold the same rows as the a2a flavor's and the fused launch
     walks the same slot order, so it equals ``pspmm_tiles_stale`` bit for
-    bit."""
+    bit.  ``keep``: ``(keep_ring_src, keep_ring_dst)``, the composed
+    mode's ring flavor (``pspmm_replica_stale_ragged``)."""
+    if keep is not None and not fresh:
+        return _replica_stale_step(
+            x, halo_in, ghalo_in, keep, (lsrc, lld, lw, rsrc, rld, rw, tb,
+                                         lclasses, hclasses),
+            wire_dtype, gwire_dtype, gholder, layer)
     return PspmmTilesStale.apply(
         x, halo_in, ghalo_in, ring_src, lsrc, lld, lw, rsrc, rld, rw,
         (tb, lclasses, hclasses, tuple(rr_sizes)),
         (delta, wire_dtype, gwire_dtype, fresh), gholder, layer)
+
+
+# ----------------------------------------------------------------- replicas
+class PspmmTilesReplica(torch.autograd.Function):
+    """The aggregation of the replica modes over a carried receive layout
+    (``ops/pspmm.py``'s replica section): the forward is one fused launch
+    over ``x`` and ``table``, the layout the caller's exchange just
+    filled; the backward makes the gradient's exchange by ``kind`` and
+    one fused launch over it, and stores the gradient carry it leaves in
+    ``gholder[layer]`` (a list the caller owns, as ``PspmmTilesStale``
+    does; a layer whose input needs no gradient runs no backward and its
+    slot keeps what the caller put there).  A sync step is not a kind of
+    its own: it is ``PspmmTilesStale`` with ``fresh``, which makes the
+    exact exchange in both directions and keeps the gradient carry.
+
+      * ``'replica'`` — a replica step: the kept rows of ``g`` packed into
+        the gradient carry in place (its replica slots keep the last
+        sync's rows), then the launch over it;
+      * ``'partial'`` — a partial-refresh step: as ``'replica'``, and the
+        replica slots ``active`` marks take the owner's fresh gradient
+        row (``partial_refresh_grad``);
+      * ``'stale'`` — a composed replica × stale step: the launch over the
+        gradient carry of step t−1, then the kept pack of ``g`` turns it
+        into the next (``pspmm_replica_stale``: the fused launch is
+        enqueued first, so one buffer serves as both).
+
+    ``spec``: ``(keep_src, keep_dst, lsrc, lld, lw, hsrc, hld, hw, tb,
+    lclasses, hclasses, gwire_dtype, side, active)``.
+    Carries are held as attributes, never saved tensors: the in-place
+    packs change them.  ``PspmmTilesReplica.backward_launches`` counts
+    the backward's fused launches (CUDA tensors only)."""
+
+    backward_launches = 0
+
+    @staticmethod
+    def forward(ctx, x, table, gcarry, spec, kind, gholder, layer):
+        (_ks, _kd, lsrc, lld, lw, hsrc, hld, hw, tb, lclasses,
+         hclasses, *_rest) = spec
+        ctx.state = (gcarry, spec, kind, gholder, layer)
+        ctx.set_materialize_grads(False)
+        return _fused_on(x, table, lsrc, lld, lw, hsrc, hld, hw, tb,
+                         lclasses, hclasses)
+
+    @staticmethod
+    def backward(ctx, g):
+        gcarry, spec, kind, gholder, layer = ctx.state
+        ctx.state = None
+        if g is None:
+            return (None,) * 7
+        (keep_src, keep_dst, lsrc, lld, lw, hsrc, hld, hw, tb, lclasses,
+         hclasses, gwire_dtype, side, active) = spec
+        g = g.contiguous()
+        if kind == "stale":
+            table = gcarry
+        else:
+            table = replica_pack(gcarry, g, keep_src, keep_dst, gwire_dtype)
+            if kind == "partial":
+                partial_refresh_grad(table, g, side, active, gwire_dtype)
+        before = fused_launches()
+        gx = _fused_on(g, table, lsrc, lld, lw, hsrc, hld, hw, tb, lclasses,
+                       hclasses)
+        PspmmTilesReplica.backward_launches += fused_launches() - before
+        if kind == "stale":
+            table = replica_pack(gcarry, g, keep_src, keep_dst, gwire_dtype)
+        if gholder is not None:
+            gholder[layer] = table
+        return (gx,) + (None,) * 6
+
+
+def _replica_stale_step(x, halo_in, ghalo_in, keep, tiles, wire_dtype,
+                        gwire_dtype, gholder, layer):
+    """A composed replica × stale step (``pspmm_replica_stale``'s
+    ``fresh=False``): the fused launch over the carry of step t−1, then
+    the kept rows of ``x`` packed into that carry in place — the replica
+    slots keep their last-sync rows — which is the next carry.  Returns
+    ``(out, halo_next)``; the backward mirrors it on ``ghalo_in``."""
+    spec = (*keep, *tiles, gwire_dtype, None, None)
+    out = PspmmTilesReplica.apply(x, halo_in, ghalo_in, spec, "stale",
+                                  gholder, layer)
+    with torch.no_grad():
+        replica_pack(halo_in, x.detach(), *keep, wire_dtype)
+    return out, halo_in
+
+
+def pspmm_tiles_replica(x, carry, gcarry, keep, tiles, kind: str,
+                        halo_dtype=None, gholder=None, layer: int = 0,
+                        base=None, side=None, band: float = 0.0):
+    """One replica-step aggregation of the pure replica mode over stacked
+    parts (port of ``pspmm_replica`` and ``pspmm_replica_ragged`` without
+    ``fresh``, and of ``pspmm_replica_partial``); their sync step is
+    ``pspmm_tiles_stale[_ragged]`` with ``fresh``.
+
+    Args:
+      x: ``(k, b, f)`` float32 local rows.
+      carry/gcarry: the feature and gradient carries, receive layouts
+        ``(k, k·S, f)`` (a2a) or ``(k, ΣS_d, f)`` (ring): the wire's
+        dtype, the feature carry float32 under the partial refresh.
+      keep: ``(keep_src, keep_dst)`` of the transport; ``tiles``: ``(lsrc, lld, lw, hsrc, hld, hw, tb,
+        lclasses, hclasses)`` with the halo tiles of the transport.
+      kind: ``'replica'`` or ``'partial'`` (a2a only: ``base`` the
+        ``(k, RS, f)`` baselines, ``side`` the plan's partial-refresh
+        tensors, ``band``).
+      halo_dtype: the wire's dtype, both directions.
+
+    Returns ``(out, carry_next, base_next, nship)``: the aggregation
+    (differentiable in ``x``; the backward leaves the next gradient carry
+    in ``gholder[layer]``), the next feature carry (``carry`` written in
+    place), and on a partial step
+    the new baselines and the number of replica copies refreshed (else
+    ``base`` and ``None``)."""
+    active, nship, base_next = None, None, base
+    with torch.no_grad():
+        xd = x.detach()
+        table = replica_pack(carry, xd, *keep, halo_dtype)
+        if kind == "partial":
+            base_next, nship, active = partial_refresh(
+                xd, table, base, side, band, halo_dtype)
+    spec = (*keep, *tiles, halo_dtype, side, active)
+    out = PspmmTilesReplica.apply(x, table, gcarry, spec, kind, gholder,
+                                  layer)
+    return out, table, base_next, nship
 
 
 def gat_tiles_pass(csrc, cld, cw, table, cclasses, tb: int, num_rows: int):

@@ -52,9 +52,16 @@ array (``tests/test_torch_plan.py``):
     ``rev_csrc``).
 
 ``stale_carry_shapes`` gives the stale-halo mode's carries in the
-reference's layout (the checkpoint's).  Not ported: the forced ring
-envelope and the per-round edge split (``rr_edge_sizes``, ``redge_*``),
-and the replica layouts (ROADMAP A7b).
+reference's layout (the checkpoint's).  ``ensure_replicas`` builds the
+hot-halo replica layout of the reference (``replica_scores``' λ·degree
+selection, the shrunken ``nrep_*`` exchange of both transports, the
+partial refresh's side channel), ``choose_replica_budget`` its ``auto``
+budget and ``replica_carry_shapes`` its carries; ``ensure_replicas`` also
+builds the port-only lists the trainer packs by: each kept receive
+slot's source and destination (``keep_*``) and each replica slot's
+position (``rep_*_dst``, ``rep_src_flat``, ``rep_base_flat``,
+``rep_table_pos``).  Not ported: the forced ring envelope and the
+per-round edge split (``rr_edge_sizes``, ``redge_*``).
 Everything here is offline numpy.
 """
 
@@ -73,6 +80,44 @@ import scipy.sparse as sp
 # transport for the flagship GCN and for cora 8-hp (PERF.md; ROADMAP
 # A16 replaces it).
 RAGGED_AUTO_EFFICIENCY = 0.5
+
+# The reference's contract tuples of the replica modes' shipped plan
+# arrays (``sgcn_tpu/parallel/plan.py:101-150``), kept under its names:
+# the pure replica step (a2a and ring), the composed replica × stale step
+# and the partial refresh.  The port's trainer ships the tile layout and
+# the port-only lists of ``REPLICA_TILE_FIELDS`` instead
+# (``train/fullbatch.py``).
+REPLICA_PLAN_FIELDS = (
+    "send_idx", "halo_src",
+    "nrep_send_idx", "nrep_halo_src", "rep_slots",
+    "ell_idx", "ell_w", "ltail_dst", "ltail_src", "ltail_w",
+    "hedge_dst", "hedge_src", "hedge_w",
+)
+REPLICA_PLAN_FIELDS_RAGGED = (
+    "rsend_idx", "nrep_rsend_idx", "nrep_rhalo_dst", "rep_slots",
+    "rep_ring_pos",
+    "ell_idx", "ell_w", "ltail_dst", "ltail_src", "ltail_w",
+    "hedge_dst", "hedge_src", "hedge_w",
+    "redge_dst", "redge_src", "redge_w",
+)
+REPLICA_STALE_PLAN_FIELDS = REPLICA_PLAN_FIELDS
+REPLICA_STALE_PLAN_FIELDS_RAGGED = (
+    "rsend_idx", "nrep_rsend_idx", "nrep_ring_dst",
+    "ell_idx", "ell_w", "ltail_dst", "ltail_src", "ltail_w",
+    "redge_dst", "redge_src", "redge_w",
+)
+REPLICA_PARTIAL_PLAN_FIELDS = REPLICA_PLAN_FIELDS + (
+    "rep_rows", "rep_row_counts",
+    "ronly_send_idx", "ronly_send_counts", "ronly_base_pos",
+    "rep_recv_src",
+)
+# the port-only lists a replica step packs by, per transport, and the
+# partial refresh's (``CommPlan.ensure_replicas``)
+REPLICA_TILE_FIELDS = ("keep_recv_src", "keep_recv_dst", "rep_recv_dst")
+REPLICA_TILE_FIELDS_RAGGED = ("keep_ring_src", "keep_ring_dst",
+                              "rep_ring_dst")
+REPLICA_PARTIAL_TILE_FIELDS = ("rep_rows_flat", "rep_row_valid",
+                               "rep_base_flat", "rep_src_flat")
 
 
 @dataclass
@@ -236,6 +281,62 @@ class CommPlan:
     ptile_tc1ld: np.ndarray | None = None
     ptile_tc1w: np.ndarray | None = None
     rev_csrc: np.ndarray | None = None
+
+    # hot-halo replica layout (lazy, ``ensure_replicas``; the reference's
+    # fields and meanings): the top-B boundary rows by λ·degree leave the
+    # per-layer wire; ``nrep_*`` is the exchange without them, ``rep_*``
+    # where their copies sit on the consumers, ``ronly_*``/``rep_rows``
+    # the partial refresh's side channel
+    replica_budget: int | None = None     # the budget B ensure_replicas ran at
+    rp: int | None = None                 # padded replica slots per part
+    replica_rows: int = 0                 # replicated rows (<= B)
+    replica_send_saving: int = 0          # Σ λ_v — true rows off the wire
+    rep_slots: np.ndarray | None = None   # (k, RP) halo ranks; r = pad
+    rep_counts: np.ndarray | None = None  # (k,) true replica slots per part
+    nrep_s: int | None = None             # shrunken per-pair bucket pad
+    nrep_send_idx: np.ndarray | None = None     # (k, k, S') int32
+    nrep_send_counts: np.ndarray | None = None  # (k, k) int32
+    nrep_halo_src: np.ndarray | None = None     # (k, R) int32; replica
+    #                                             slots point at 0
+    nrep_rr_sizes: tuple | None = None          # shrunken round sizes
+    nrep_rsend_idx: np.ndarray | None = None    # (k, ΣS'_d) int32
+    nrep_rhalo_dst: np.ndarray | None = None    # (k, ΣS'_d) int32; r = pad
+    rep_ring_pos: np.ndarray | None = None      # (k, RP) int32 into the full
+    #                                             ring concat
+    nrep_ring_dst: np.ndarray | None = None     # (k, ΣS'_d) int32 full-ring
+    #                                             position per shrunken slot
+    #                                             (ΣS_d = pad)
+    rs: int | None = None                       # padded owned-replicated rows
+    rep_rows: np.ndarray | None = None          # (k, RS) int32 local rows
+    rep_row_counts: np.ndarray | None = None    # (k,) int32 true counts
+    ronly_s: int | None = None                  # replica-only bucket pad
+    ronly_send_idx: np.ndarray | None = None    # (k, k, RS') int32
+    ronly_send_counts: np.ndarray | None = None  # (k, k) int32
+    ronly_base_pos: np.ndarray | None = None    # (k, k, RS') int32 into
+    #                                             rep_rows
+    rep_recv_src: np.ndarray | None = None      # (k, RP) int32 o·RS' + pos
+    # port only (``ensure_replicas``): the kept (non-replicated) receive
+    # slots as flat lists over the stacked parts, real slots only — the
+    # source row p·B + send_idx[p, q, t] and the destination in the a2a
+    # receive layout q·k·S + p·S + t (``keep_recv_*``) or in the ring
+    # concat q·ΣS_d + position (``keep_ring_*``); the replica slots, in
+    # (part, rank) order, real only: their destinations (``rep_recv_dst``,
+    # ``rep_ring_dst``), owners' rows p·B + i (``rep_src_flat``), rows of
+    # the owners' (k·RS) baselines (``rep_base_flat``) and rows of the
+    # reference's (k·RP) replica tables (``rep_table_pos``); the owned
+    # replicated rows as p·B + rep_rows (``rep_rows_flat``, 0 on a pad)
+    # with their 0/1 mask (``rep_row_valid``)
+    keep_recv_src: np.ndarray | None = None     # (n_keep,) int32
+    keep_recv_dst: np.ndarray | None = None     # (n_keep,) int32
+    keep_ring_src: np.ndarray | None = None     # (n_keep,) int32
+    keep_ring_dst: np.ndarray | None = None     # (n_keep,) int32
+    rep_recv_dst: np.ndarray | None = None      # (n_rep,) int32
+    rep_ring_dst: np.ndarray | None = None      # (n_rep,) int32
+    rep_src_flat: np.ndarray | None = None      # (n_rep,) int32
+    rep_base_flat: np.ndarray | None = None     # (n_rep,) int32
+    rep_table_pos: np.ndarray | None = None     # (n_rep,) int32
+    rep_rows_flat: np.ndarray | None = None     # (k, RS) int32
+    rep_row_valid: np.ndarray | None = None     # (k, RS) float32
 
     def _pallas_family(self, dst, src, w, tb: int, class_tiles):
         """Stack one edge family's per-part tile classes into flat
@@ -596,19 +697,331 @@ class CommPlan:
         wire = self.wire_rows_per_exchange("a2a")
         return float(self.send_counts.sum()) / wire if wire else 1.0
 
-    def wire_rows_per_exchange(self, schedule: str = "a2a") -> int:
+    def wire_rows_per_exchange(self, schedule: str = "a2a",
+                               replica: bool = False) -> int:
         """Padded rows the schedule puts on the wire per exchange over all
         parts: the dense a2a ships each part's whole (k, S) buffer, k²·S
         rows in all; the ragged ring ships Σ_d S_d rows per part,
-        k·Σ_d S_d in all."""
+        k·Σ_d S_d in all.  ``replica=True`` prices the shrunken exchange
+        of a replica step (``ensure_replicas``): ``nrep_s`` /
+        ``nrep_rr_sizes`` in place of ``s`` / ``rr_sizes``."""
         rows, peers = np.asarray(self.send_counts).shape
+        if replica and self.rep_slots is None:
+            raise ValueError("build the replication layout first "
+                             "(ensure_replicas)")
         if schedule == "a2a":
-            return int(rows * peers * self.s)
+            return int(rows * peers * (self.nrep_s if replica else self.s))
         if schedule == "ragged":
-            sizes = (self.rr_sizes if self.rr_sizes is not None
-                     else self.ragged_round_sizes())
+            if replica:
+                if self.nrep_rr_sizes is None:
+                    raise ValueError(
+                        "ragged replica wire needs ensure_ragged() before "
+                        "ensure_replicas()")
+                sizes = self.nrep_rr_sizes
+            else:
+                sizes = (self.rr_sizes if self.rr_sizes is not None
+                         else self.ragged_round_sizes())
             return int(rows * sum(sizes))
         raise ValueError(f"unknown comm schedule {schedule!r}")
+
+    # ----------------------------------------------------- hot-halo replicas
+    def replica_scores(self) -> tuple:
+        """Per (owner part, local row): ``(λ, consumer-edge count)`` of
+        every owned row — λ the number of parts it ships to per exchange,
+        the edge count the remote halo-source edges that read it.
+        ``λ·edges`` is the replica ranking."""
+        k, b, s = self.k, self.b, self.s
+        lam = np.zeros((k, b), np.int64)
+        cons = np.zeros((k, b), np.int64)
+        for q in range(k):
+            hs = int(self.halo_counts[q])
+            if not hs:
+                continue
+            hedge_cnt = np.bincount(self.hedge_src[q, : int(self.hnnz[q])],
+                                    minlength=self.r)
+            slots = np.asarray(self.halo_src[q, :hs])
+            o = slots // s
+            j = slots % s
+            rows = self.send_idx[o, q, j]
+            np.add.at(lam, (o, rows), 1)
+            np.add.at(cons, (o, rows), hedge_cnt[:hs])
+        return lam, cons
+
+    def ensure_replicas(self, budget: int) -> "CommPlan":
+        """Build the hot-halo replica layout for ``budget`` rows (the
+        reference's construction, array for array): the top-``budget``
+        boundary rows by λ·degree (ties by (owner, row)) are replicated;
+        the shrunken a2a buckets and, when the ring exists, the shrunken
+        ring keep every other row in its order; the partial refresh's
+        side channel holds exactly the deleted rows.  A budget above the
+        boundary row count clamps (everything replicated).  Idempotent per
+        budget; call ``ensure_ragged()`` first when the ring is in play.
+        Also builds the port-only lists (``keep_*``, ``rep_*_dst``,
+        ``rep_src_flat``, ``rep_base_flat``, ``rep_table_pos``,
+        ``rep_rows_flat``, ``rep_row_valid``)."""
+        if budget < 0:
+            raise ValueError(f"replica budget must be >= 0, got {budget}")
+        ring = self.rr_sizes is not None
+        if (self.replica_budget == budget and self.rep_slots is not None
+                and (not ring or self.nrep_rsend_idx is not None)):
+            return self
+        k, b, s, r = self.k, self.b, self.s, self.r
+        sc = np.asarray(self.send_counts)
+        lam, cons = self.replica_scores()
+        score = (lam * cons).ravel()
+        boundary = np.nonzero(lam.ravel() > 0)[0]
+        order = boundary[np.lexsort((boundary, -score[boundary]))]
+        chosen = order[:budget]
+        rep_mask = np.zeros(k * b, bool)
+        rep_mask[chosen] = True
+        rep_mask = rep_mask.reshape(k, b)
+        self.replica_rows = int(len(chosen))
+        self.replica_send_saving = int(lam.ravel()[chosen].sum())
+        # shrunken send buckets: kept entries keep their id-sorted order
+        nrep_counts = np.zeros((k, k), np.int32)
+        kept_lists: dict[tuple[int, int], np.ndarray] = {}
+        for p in range(k):
+            for q in range(k):
+                cnt = int(sc[p, q])
+                if not cnt:
+                    continue
+                kept = np.nonzero(~rep_mask[p, self.send_idx[p, q, :cnt]])[0]
+                kept_lists[(p, q)] = kept
+                nrep_counts[p, q] = len(kept)
+        nrep_s = max(1, int(nrep_counts.max()) if k else 1)
+        nrep_send_idx = np.zeros((k, k, nrep_s), np.int32)
+        for (p, q), kept in kept_lists.items():
+            nrep_send_idx[p, q, : len(kept)] = self.send_idx[p, q, kept]
+        # the partial refresh's side channel: each sender's owned
+        # replicated rows and the replica-only per-pair buckets (the
+        # deleted rows, in send-list order)
+        rows_lists = [np.nonzero(rep_mask[p])[0] for p in range(k)]
+        rs = max(1, max((len(x) for x in rows_lists), default=0))
+        rep_rows = np.zeros((k, rs), np.int32)
+        rep_row_counts = np.zeros(k, np.int32)
+        for p in range(k):
+            rep_rows[p, : len(rows_lists[p])] = rows_lists[p]
+            rep_row_counts[p] = len(rows_lists[p])
+        ronly_counts = (sc.astype(np.int32) - nrep_counts)
+        ronly_s = max(1, int(ronly_counts.max()) if k else 1)
+        ronly_send_idx = np.zeros((k, k, ronly_s), np.int32)
+        ronly_base_pos = np.zeros((k, k, ronly_s), np.int32)
+        for p in range(k):
+            for q in range(k):
+                cnt = int(sc[p, q])
+                if not cnt:
+                    continue
+                rows_pq = self.send_idx[p, q, :cnt]
+                deleted = np.nonzero(rep_mask[p, rows_pq])[0]
+                if not len(deleted):
+                    continue
+                ronly_send_idx[p, q, : len(deleted)] = rows_pq[deleted]
+                ronly_base_pos[p, q, : len(deleted)] = np.searchsorted(
+                    rows_lists[p], rows_pq[deleted]).astype(np.int32)
+        # receive side: shrunken halo gather and the replica slot lists
+        # (ring positions: round d's slice starts at Σ_{d'<d} S_d' and a
+        # slot sits at its send-list position j within it)
+        offsets = (np.concatenate([[0], np.cumsum(self.rr_sizes)])
+                   if ring else None)
+        base_pos = np.zeros(k * b, np.int64)     # replicated row → its
+        for p in range(k):                       # position in rep_rows[p]
+            base_pos[p * b + rows_lists[p]] = np.arange(len(rows_lists[p]))
+        nrep_halo_src = np.zeros((k, r), np.int32)
+        rep_slot_lists, rep_ring_lists, rep_recv_lists = [], [], []
+        rep_base_lists = []
+        for q in range(k):
+            hs = int(self.halo_counts[q])
+            if not hs:
+                for lst in (rep_slot_lists, rep_ring_lists, rep_recv_lists,
+                            rep_base_lists):
+                    lst.append(np.zeros(0, np.int64))
+                continue
+            slots = np.asarray(self.halo_src[q, :hs])
+            o = slots // s
+            j = slots % s
+            rows = self.send_idx[o, q, j]
+            keep = ~rep_mask[o, rows]
+            newpos = np.zeros(hs, np.int64)
+            npos_del = np.zeros(hs, np.int64)
+            for oo in np.unique(o):
+                m = o == oo
+                newpos[m] = np.cumsum(keep[m]) - 1
+                npos_del[m] = np.cumsum(~keep[m]) - 1
+            nrep_halo_src[q, :hs] = np.where(
+                keep, o * nrep_s + newpos, 0).astype(np.int32)
+            reps = np.nonzero(~keep)[0]
+            rep_slot_lists.append(reps)
+            rep_recv_lists.append(o[reps] * ronly_s + npos_del[reps])
+            # port only: the owner's flat baseline row of each replica
+            rep_base_lists.append(o[reps] * rs
+                                  + base_pos[o[reps] * b + rows[reps]])
+            rep_ring_lists.append(offsets[(q - o[reps]) % k - 1] + j[reps]
+                                  if ring else np.zeros(0, np.int64))
+        rp = max(1, max((len(x) for x in rep_slot_lists), default=0))
+        rep_slots = np.full((k, rp), r, np.int32)
+        rep_ring_pos = np.zeros((k, rp), np.int32)
+        rep_recv_src = np.zeros((k, rp), np.int32)
+        for q in range(k):
+            rep_slots[q, : len(rep_slot_lists[q])] = rep_slot_lists[q]
+            rep_recv_src[q, : len(rep_recv_lists[q])] = rep_recv_lists[q]
+            rep_ring_pos[q, : len(rep_ring_lists[q])] = rep_ring_lists[q]
+        self.rep_counts = np.array([len(x) for x in rep_slot_lists],
+                                   np.int64)
+        self.rep_slots = rep_slots
+        self.rp = rp
+        self.nrep_s = nrep_s
+        self.nrep_send_idx = nrep_send_idx
+        self.nrep_send_counts = nrep_counts
+        self.nrep_halo_src = nrep_halo_src
+        self.rep_ring_pos = rep_ring_pos if ring else None
+        self.rs = rs
+        self.rep_rows = rep_rows
+        self.rep_row_counts = rep_row_counts
+        self.ronly_s = ronly_s
+        self.ronly_send_idx = ronly_send_idx
+        self.ronly_send_counts = ronly_counts
+        self.ronly_base_pos = ronly_base_pos
+        self.rep_recv_src = rep_recv_src
+        if ring:
+            idxk = np.arange(k)
+            nrr = tuple(int(nrep_counts[idxk, (idxk + d) % k].max())
+                        for d in range(1, k))
+            st = max(1, sum(nrr))
+            full_total = int(sum(self.rr_sizes))
+            nrep_rsend_idx = np.zeros((k, st), np.int32)
+            nrep_rhalo_dst = np.full((k, st), r, np.int32)
+            nrep_ring_dst = np.full((k, st), full_total, np.int32)
+            off = 0
+            for d, sd in enumerate(nrr, start=1):
+                for p in range(k):
+                    q2 = (p + d) % k
+                    cnt = int(nrep_counts[p, q2])
+                    if cnt:
+                        nrep_rsend_idx[p, off: off + cnt] = \
+                            nrep_send_idx[p, q2, :cnt]
+                    o = (p - d) % k
+                    rc = int(nrep_counts[o, p])
+                    if rc:
+                        hs = int(self.halo_counts[p])
+                        slots = np.asarray(self.halo_src[p, :hs])
+                        oarr = slots // s
+                        rows = self.send_idx[oarr, p, slots % s]
+                        m = (oarr == o) & ~rep_mask[oarr, rows]
+                        ranks = np.nonzero(m)[0]
+                        if len(ranks) != rc:         # plan invariant
+                            raise ValueError(
+                                f"kept halo sublist of owner {o} on part "
+                                f"{p} has {len(ranks)} rows, shrunken send "
+                                f"list says {rc}")
+                        nrep_rhalo_dst[p, off: off + rc] = \
+                            ranks.astype(np.int32)
+                        nrep_ring_dst[p, off: off + rc] = (
+                            offsets[d - 1]
+                            + (slots % s)[ranks]).astype(np.int32)
+                off += sd
+            self.nrep_rr_sizes = nrr
+            self.nrep_rsend_idx = nrep_rsend_idx
+            self.nrep_rhalo_dst = nrep_rhalo_dst
+            self.nrep_ring_dst = nrep_ring_dst
+        self._replica_lists(rep_mask, rep_slot_lists, rep_base_lists)
+        self.replica_budget = int(budget)
+        return self
+
+    def _replica_lists(self, rep_mask, rep_slot_lists, rep_base_lists):
+        """The port-only flat lists of ``ensure_replicas`` (see the
+        fields): real slots only, so a pack writes no pad slot and no
+        slot out of range."""
+        k, b, s, r = self.k, self.b, self.s, self.r
+        if k * b >= 2 ** 31 or k * k * s >= 2 ** 31:
+            raise ValueError(f"stacked exchange of k={k}, B={b}, S={s} "
+                             "overflows int32 row indices")
+        # a2a: receive slot (q, p, t) holds h[p, send_idx[p, q, t]]
+        q_, p_, t_ = np.meshgrid(np.arange(k), np.arange(k), np.arange(s),
+                                 indexing="ij")
+        row = self.send_idx[p_, q_, t_]
+        real = t_ < np.asarray(self.send_counts)[p_, q_]
+        keep = real & ~rep_mask[p_, row]
+        self.keep_recv_src = (p_ * b + row)[keep].astype(np.int32)
+        self.keep_recv_dst = (q_ * k * s + p_ * s + t_)[keep].astype(np.int32)
+        reps = [np.asarray(x, np.int64) for x in rep_slot_lists]
+        owner_slot = [np.asarray(self.halo_src[q], np.int64)[reps[q]]
+                      for q in range(k)]
+        self.rep_recv_dst = np.concatenate(
+            [q * k * s + owner_slot[q] for q in range(k)]
+            + [np.zeros(0, np.int64)]).astype(np.int32)
+        self.rep_src_flat = np.concatenate(
+            [(x // s) * b + self.send_idx[x // s, q, x % s]
+             for q, x in enumerate(owner_slot)]
+            + [np.zeros(0, np.int64)]).astype(np.int32)
+        self.rep_base_flat = np.concatenate(
+            rep_base_lists + [np.zeros(0, np.int64)]).astype(np.int32)
+        self.rep_table_pos = np.concatenate(
+            [q * self.rp + np.arange(len(x)) for q, x in enumerate(reps)]
+            + [np.zeros(0, np.int64)]).astype(np.int32)
+        self.rep_rows_flat = (np.asarray(self.rep_rows, np.int64)
+                              + (np.arange(k) * b)[:, None]).astype(np.int32)
+        self.rep_row_valid = (np.arange(self.rs)[None, :]
+                              < self.rep_row_counts[:, None]).astype(
+                                  np.float32)
+        self.rep_rows_flat *= self.rep_row_valid.astype(np.int32)
+        if self.rr_sizes is None:
+            self.keep_ring_src = self.keep_ring_dst = None
+            self.rep_ring_dst = None
+            return
+        # ring: the same slots at their full ring positions
+        st = max(1, sum(self.rr_sizes))
+        full_total = int(sum(self.rr_sizes))
+        dst, src = [], []
+        for q in range(k):
+            live = self.nrep_ring_dst[q] < full_total
+            pos = self.nrep_ring_dst[q][live].astype(np.int64)
+            dst.append(q * st + pos)
+            src.append(self.ring_src[q][pos].astype(np.int64))
+        self.keep_ring_dst = np.concatenate(dst).astype(np.int32)
+        self.keep_ring_src = np.concatenate(src).astype(np.int32)
+        self.rep_ring_dst = np.concatenate(
+            [q * st + self.rep_ring_pos[q, : len(x)].astype(np.int64)
+             for q, x in enumerate(reps)]
+            + [np.zeros(0, np.int64)]).astype(np.int32)
+
+    def replica_carry_shapes(self, fin: int, widths,
+                             partial: bool = False) -> dict:
+        """The replica mode's carries in the reference's layout (its
+        checkpoint's), without the stacked leading ``k`` axis: per layer
+        one ``(RP, f_ℓ)`` feature-replica and one gradient-replica table
+        at the exchanged width, and under ``partial`` (``refresh_band``)
+        the senders' ``(RS, f_ℓ)`` refresh baselines.  The port's trainer
+        carries the receive layouts and converts at the checkpoint."""
+        from ..models.gcn import exchange_widths   # deferred: avoids a cycle
+
+        if self.rep_slots is None:
+            raise ValueError(
+                "replica carries need the replication layout; call "
+                "ensure_replicas() before replica_carry_shapes()")
+        fs = exchange_widths(fin, list(widths))
+        out = {"reps": [(self.rp, f) for f in fs],
+               "greps": [(self.rp, f) for f in fs]}
+        if partial:
+            out["rep_base"] = [(self.rs, f) for f in fs]
+        return out
+
+    @property
+    def partial_refresh_wire_rows(self) -> int:
+        """Padded wire rows of one partial-refresh side-channel exchange:
+        the dense ``(k, RS')`` bucket per part."""
+        if self.ronly_send_counts is None:
+            raise ValueError("build the replication layout first "
+                             "(ensure_replicas)")
+        rows, peers = np.asarray(self.ronly_send_counts).shape
+        return int(rows * peers * self.ronly_s)
+
+    @property
+    def replica_send_volume(self) -> np.ndarray:
+        """Per-part true boundary rows of one shrunken exchange (k,)."""
+        if self.nrep_send_counts is None:
+            raise ValueError("build the replication layout first "
+                             "(ensure_replicas)")
+        return self.nrep_send_counts.astype(np.int64).sum(axis=1)
 
     # ------------------------------------------------------------ stale halo
     def stale_carry_shapes(self, fin: int, widths, delta: bool = False,
@@ -923,11 +1336,37 @@ def _check_symmetric(a: sp.spmatrix) -> bool:
     return float(np.abs(a.data - at.data).max()) <= 1e-6 * scale
 
 
+def choose_replica_budget(plan, decision: dict | None = None) -> int:
+    """The ``replica_budget='auto'`` rule of the reference: rank the
+    boundary rows by λ·edges (``replica_scores``) and take the knee of
+    the descending score curve — the prefix length where the normalized
+    cumulative score sits farthest above the diagonal.  Returns B;
+    ``decision`` (filled in place) logs the inputs under the reference's
+    keys."""
+    lam, cons = plan.replica_scores()
+    score = (lam.astype(np.float64) * cons).ravel()
+    boundary = np.sort(score[lam.ravel() > 0])[::-1]
+    log = decision if decision is not None else {}
+    m = int(len(boundary))
+    log.update(rule="lambda-degree-knee", boundary_rows=m)
+    if m == 0 or boundary[0] <= 0:
+        log.update(chosen=0, score_covered=0.0)
+        return 0
+    cum = np.cumsum(boundary)
+    gap = cum / cum[-1] - np.arange(1, m + 1) / m
+    b = int(np.argmax(gap)) + 1
+    log.update(chosen=b, score_total=float(cum[-1]),
+               score_covered=float(cum[b - 1] / cum[-1]),
+               knee_gap=float(gap[b - 1]))
+    return b
+
+
 def resolve_comm_schedule(schedule: str | None, plans, model: str,
                           decision: dict | None = None,
-                          halo_staleness: int = 0) -> str:
+                          halo_staleness: int = 0,
+                          replica_budget: int = 0) -> str:
     """Resolve a ``comm_schedule`` knob to a transport, by the reference's
-    rules (the replica-aware scoring is ROADMAP A7b).
+    rules.
 
     ``None`` reads ``$SGCN_COMM_SCHEDULE`` (default ``'a2a'``).  An
     explicit ``'a2a'``/``'ragged'`` resolves to itself (callers validate an
@@ -941,6 +1380,11 @@ def resolve_comm_schedule(schedule: str | None, plans, model: str,
     * stale mode (``halo_staleness=1``): the exchange has no same-step
       consumer, so only wire bytes count — the ring wins whenever it
       ships strictly fewer wire rows (the hidden-exchange rule).
+
+    ``replica_budget`` (B > 0, ``auto`` already resolved): the transports
+    are scored on the shrunken exchange a replica step ships (the full
+    figures logged beside it); builds each plan's ring and replica
+    layouts as a side effect.
 
     Every exchange of a plan ships the same row set at every lane width,
     so the byte ratio is the row ratio for both models.
@@ -958,7 +1402,7 @@ def resolve_comm_schedule(schedule: str | None, plans, model: str,
             f"comm_schedule must be 'a2a', 'ragged' or 'auto', got "
             f"{schedule!r}")
     log.update(asked=asked, model=model, halo_staleness=int(halo_staleness),
-               replica_budget=0)
+               replica_budget=int(replica_budget))
 
     def resolved(value: str, rule: str) -> str:
         log.update(resolved=value, rule=rule)
@@ -972,12 +1416,25 @@ def resolve_comm_schedule(schedule: str | None, plans, model: str,
         if not (p.symmetric and sc.shape[1] > 1):
             return resolved("a2a", "plan does not support the ragged ring "
                                    "(asymmetric, sliced, or k == 1)")
+        if replica_budget:
+            p.ensure_ragged()
+            p.ensure_replicas(replica_budget)
         true += int(sc.sum())
         wire += p.wire_rows_per_exchange("a2a")
         wire_ragged += p.wire_rows_per_exchange("ragged")
     log.update(true_rows=true, wire_rows_a2a=wire,
-               wire_rows_ragged=wire_ragged,
-               padding_efficiency=(true / wire if wire else 1.0),
+               wire_rows_ragged=wire_ragged)
+    if replica_budget:
+        true = sum(int(np.asarray(p.nrep_send_counts).sum()) for p in plans)
+        wire = sum(p.wire_rows_per_exchange("a2a", replica=True)
+                   for p in plans)
+        wire_ragged = sum(p.wire_rows_per_exchange("ragged", replica=True)
+                          for p in plans)
+        log.update(replica_rows=sum(int(p.replica_rows) for p in plans),
+                   true_rows_replica=true,
+                   wire_rows_a2a_replica=wire,
+                   wire_rows_ragged_replica=wire_ragged)
+    log.update(padding_efficiency=(true / wire if wire else 1.0),
                threshold=RAGGED_AUTO_EFFICIENCY)
     if halo_staleness:
         if wire_ragged < wire:

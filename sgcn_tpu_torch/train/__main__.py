@@ -26,11 +26,16 @@ corrupts a run after a named save.  ``--halo-staleness 1`` trains the
 pipelined stale-halo GCN (``--halo-delta`` adds the bf16 halo-delta
 cache, ``--sync-every N`` a sync step every N steps, and with
 ``--comm-schedule auto`` the controller retunes N), with the reference's
-guards.  Flags whose feature is not ported are not defined (mini-batch,
-replicas, profiling, metrics, memory budget).  Prints ONE JSON line: the
+guards.  ``--replica-budget B|auto`` trains with hot-halo replicas
+(``--sync-every N`` refreshes them every N steps, ``--refresh-band RHO``
+makes the refreshes after step 0 partial; with ``--halo-staleness 1``
+the replicas compose with the stale carry), with the reference's guards.
+Flags whose feature is not ported are not defined (mini-batch,
+profiling, metrics, memory budget).  Prints ONE JSON line: the
 comm report and epoch timing under the reference's keys (in the stale
 mode with its hidden/exposed split, the stale flags and the controller's
-log) (with ``--checkpoint-dir``: ``steps``, ``step_s_wall``
+log; in the replica mode its replica figures and flags) (with
+``--checkpoint-dir``: ``steps``, ``step_s_wall``
 and the per-step ``losses``), or with ``--experiment accuracy`` the
 oracle's and the partitioned trainer's test accuracy.
 """
@@ -40,6 +45,14 @@ from __future__ import annotations
 import argparse
 import json
 import sys
+
+
+def _budget(text: str):
+    """``--replica-budget`` values: a non-negative int or ``auto`` (the
+    λ·degree-knee rule, ``parallel/plan.py::choose_replica_budget``)."""
+    if text == "auto":
+        return "auto"
+    return int(text)
 
 
 def build_parser(description: str = "sgcn_tpu_torch partitioned full-batch "
@@ -80,7 +93,26 @@ def build_parser(description: str = "sgcn_tpu_torch partitioned full-batch "
     p.add_argument("--sync-every", type=int, default=0,
                    help="stale mode: run a full-sync (exact-math) step "
                         "every N steps to bound staleness/quantization "
-                        "drift; 0 = only the initializing first step")
+                        "drift; replica mode: refresh the replica tables "
+                        "every N steps; 0 = only the initializing first "
+                        "step")
+    p.add_argument("--replica-budget", type=_budget, default=0,
+                   metavar="B|auto",
+                   help="hot-halo replication: the top-B boundary rows (by "
+                        "λ·degree from the comm plan) become persistent "
+                        "replicas on their consumer parts and leave the "
+                        "per-layer wire, refreshed only on --sync-every "
+                        "steps (at --sync-every 1 the run is the exact "
+                        "one bit for bit); full-batch GCN, symmetric "
+                        "adjacency, f32; composes with --comm-schedule, "
+                        "--halo-dtype and --halo-staleness 1; 'auto' picks "
+                        "B at the knee of the λ·degree curve; 0 = off")
+    p.add_argument("--refresh-band", type=float, default=None, metavar="RHO",
+                   help="partial replica refresh: refresh steps after step "
+                        "0 ship only the replica rows whose relative drift "
+                        "‖x−base‖/‖base‖ exceeds RHO, as increments on the "
+                        "refresh baseline; requires --replica-budget > 0, "
+                        "--comm-schedule a2a, no staleness")
     p.add_argument("--epochs", type=int, default=4)
     p.add_argument("--warmup", type=int, default=1)
     p.add_argument("--lr", type=float, default=0.01)
@@ -217,11 +249,33 @@ def main(argv=None) -> None:
         raise SystemExit(
             "--halo-delta configures the stale pipelined exchange; add "
             "--halo-staleness 1")
-    if args.sync_every and not args.halo_staleness:
+    if args.sync_every and not (args.halo_staleness or args.replica_budget):
         raise SystemExit(
             "--sync-every schedules the stale mode's full-sync steps or "
             "the replica mode's refresh steps; add --halo-staleness 1 or "
             "--replica-budget B")
+    if args.replica_budget and (args.model != "gcn"
+                                or args.experiment == "accuracy"
+                                or args.dtype
+                                or args.halo_delta):
+        raise SystemExit(
+            "--replica-budget replicates rows of the full-batch GCN "
+            "exchange only (the mini-batch trainer re-plans per batch, so "
+            "replica carries have no stable identity across batch plans; "
+            "GAT ships per-layer attention tables; the accuracy-parity "
+            "harness is defined for the exact exchange; the carries are "
+            "f32 state; composition with --halo-delta is deferred — the "
+            "delta baseline and the replica carry would disagree on what "
+            "a stale step ships — drop the conflicting flag)")
+    if args.refresh_band is not None and (not args.replica_budget
+                                          or args.halo_staleness
+                                          or args.comm_schedule == "ragged"):
+        raise SystemExit(
+            "--refresh-band schedules the drift-driven PARTIAL replica "
+            "refresh: it requires --replica-budget > 0, rides the dense "
+            "a2a transport, and does not compose with --halo-staleness 1 "
+            "(the composed mode's replica state lives inside the stale "
+            "carry) — drop the conflicting flag")
     if args.comm_schedule == "ragged" and args.experiment == "accuracy":
         raise SystemExit(
             "--comm-schedule ragged: the accuracy-parity harness is "
@@ -287,7 +341,9 @@ def main(argv=None) -> None:
                           halo_staleness=args.halo_staleness,
                           halo_delta=args.halo_delta,
                           sync_every=args.sync_every,
-                          comm_schedule=args.comm_schedule, device=device)
+                          comm_schedule=args.comm_schedule,
+                          replica_budget=args.replica_budget,
+                          refresh_band=args.refresh_band, device=device)
     # durable checkpointing: one manager per checkpoint directory
     mgr = None
     if args.checkpoint_dir:
@@ -348,8 +404,15 @@ def main(argv=None) -> None:
         # at the end (the controller may have retuned it) and its log
         report.update(halo_staleness=args.halo_staleness,
                       halo_delta=args.halo_delta, sync_every=tr.sync_every)
-        if tr.controller is not None:
-            report["controller"] = tr.comm_decision["controller"]
+    if tr.replica_budget:
+        # the replica block: the budget in force ('auto' resolved) and
+        # its flags
+        report.update(replica_budget=tr.replica_budget,
+                      refresh_band=tr.refresh_band, sync_every=tr.sync_every)
+        if "replica_auto" in tr.comm_decision:
+            report["replica_auto"] = tr.comm_decision["replica_auto"]
+    if tr.controller is not None:
+        report["controller"] = tr.comm_decision["controller"]
     report.pop("loss_history", None)
     print(json.dumps(report), flush=True)
 

@@ -36,9 +36,20 @@ step 0 and every ``sync_every``-th step run the sync step (exact math);
 retunes the interval from the drift measured at sync steps.  The carries
 live in the receive layouts the fused launch reads
 (``ops/pspmm.py::stale_exchange``) and take the reference's layout only
-in checkpoints and drift gauges.  The levers of the reference that are
-not ported — remat, replicas, memory budgets — raise "not ported yet"
-with their ROADMAP item.
+in checkpoints and drift gauges.
+
+``replica_budget=B`` (or ``'auto'``, the λ·degree knee) is the
+reference's hot-halo replicas (GCN, symmetric Â, float32, both
+transports): the top-B boundary rows leave the per-layer wire, their
+copies sit in the receive layout's replica slots, refreshed on step 0
+and every ``sync_every``-th step (the exact exchange) and between them
+kept as the last sync wrote them
+(``models/gcn.py::gcn_forward_local_replica``); ``refresh_band`` makes
+every refresh after step 0 a partial one (a2a) that ships only the rows
+whose drift passes the band.  With ``halo_staleness=1`` the replicas
+compose with the stale carry: a stale step ships the kept rows alone.
+The levers of the reference that are not ported — remat, memory
+budgets — raise "not ported yet" with their ROADMAP item.
 """
 
 from __future__ import annotations
@@ -53,15 +64,18 @@ from ..models.gat import (GAT, GAT_PLAN_FIELDS_PALLAS,
                           GAT_PLAN_FIELDS_PALLAS_GEN,
                           GAT_PLAN_FIELDS_PALLAS_RAGGED,
                           gat_exchange_lane_widths, init_gat_params)
-from ..models.gcn import (GCN, exchange_widths, gcn_forward_local_stale,
-                          init_gcn_params, masked_accuracy_local,
+from ..models.gcn import (GCN, exchange_widths, gcn_forward_local_replica,
+                          gcn_forward_local_stale, init_gcn_params,
+                          masked_accuracy_local,
                           masked_err_local, masked_sigmoid_bce_local,
                           masked_softmax_xent_local)
 from ..ops import pspmm as layout
 from ..ops.pspmm import narrow_dtype
 from ..ops.tile_spmm import (TILE_PLAN_FIELDS, TILE_PLAN_FIELDS_GEN,
                              TILE_PLAN_FIELDS_RAGGED, choose_tile_dispatch)
-from ..parallel.plan import resolve_comm_schedule
+from ..parallel.plan import (REPLICA_PARTIAL_TILE_FIELDS,
+                             REPLICA_TILE_FIELDS, REPLICA_TILE_FIELDS_RAGGED,
+                             choose_replica_budget, resolve_comm_schedule)
 from ..utils.backend import resolve_device, synchronize
 from ..utils.stats import CommStats
 from ..utils.timers import PhaseTimer, SpanTimer
@@ -124,6 +138,7 @@ class ForwardSetup:
     lane_widths_fn: object
     activation: str
     mask_fields: tuple
+    replica_budget: int = 0       # resolved: 'auto' → the λ·degree knee
 
     def ship_arrays(self, plan, device, compute_dtype=None) -> dict:
         """The plan arrays the forward consumes, as tensors on ``device``
@@ -149,7 +164,9 @@ class ForwardSetup:
 
 def resolve_forward_setup(plan, model: str = "gcn",
                           comm_schedule: str | None = None,
-                          halo_staleness: int = 0) -> ForwardSetup:
+                          halo_staleness: int = 0,
+                          replica_budget: int | str = 0,
+                          refresh_band: float | None = None) -> ForwardSetup:
     """Resolve the ported subset: GCN or GAT over the transport
     ``resolve_comm_schedule`` picks (``None`` reads
     ``$SGCN_COMM_SCHEDULE``, default a2a; ``auto`` takes the ring when the
@@ -163,15 +180,32 @@ def resolve_forward_setup(plan, model: str = "gcn",
     ``auto`` to the hidden exchange's wire-row rule.  Builds the plan's
     tile and ring layouts as a side effect, as the reference does.  The
     reference's ``fin``/``widths`` fed its VMEM-fit rule, which is not
-    carried."""
+    carried.
+
+    ``replica_budget`` (a training lever; GCN): ``'auto'`` resolves to
+    the λ·degree knee first (``choose_replica_budget``, its log in
+    ``decision['replica_auto']``), ``auto`` scores the transports on the
+    shrunken exchange, the plan gets its replica layout
+    (``ensure_replicas``) and the shipped fields gain the replica lists
+    of the transport (and the partial refresh's under
+    ``refresh_band``)."""
     if model not in MODELS:
         raise NotImplementedError(
             f"model {model!r} is not ported yet (ported: "
             f"{', '.join(MODELS)})")
     decision: dict = {}
-    schedule = resolve_comm_schedule(comm_schedule, [plan], model,
-                                     decision=decision,
-                                     halo_staleness=halo_staleness)
+    if replica_budget == "auto":
+        if model != "gcn":
+            raise ValueError("replica_budget='auto' is a GCN lever "
+                             "(replication is GCN-only)")
+        knee: dict = {}
+        replica_budget = choose_replica_budget(plan, decision=knee)
+        decision["replica_auto"] = knee
+    replica_budget = int(replica_budget or 0)
+    schedule = resolve_comm_schedule(
+        comm_schedule, [plan], model, decision=decision,
+        halo_staleness=halo_staleness,
+        replica_budget=replica_budget if model == "gcn" else 0)
     if schedule == "ragged" and not plan.symmetric:
         raise ValueError(
             "comm_schedule='ragged' uses the symmetric custom backward (the "
@@ -189,8 +223,16 @@ def resolve_forward_setup(plan, model: str = "gcn",
         spec["plan_fields"] = ragged_fields
     elif not plan.symmetric:
         spec["plan_fields"] = gen_fields
+    if model == "gcn" and replica_budget:
+        plan.ensure_replicas(replica_budget)
+        spec["plan_fields"] += (REPLICA_TILE_FIELDS_RAGGED
+                                if schedule == "ragged"
+                                else REPLICA_TILE_FIELDS)
+        if refresh_band is not None:
+            spec["plan_fields"] += REPLICA_PARTIAL_TILE_FIELDS
     return ForwardSetup(model=model, comm_schedule=schedule,
-                        fwd_static=fwd_static, decision=decision, **spec)
+                        fwd_static=fwd_static, decision=decision,
+                        replica_budget=replica_budget, **spec)
 
 
 def check_param_dims(params, dims) -> None:
@@ -242,17 +284,16 @@ def make_train_data(plan, features: np.ndarray, labels: np.ndarray,
 # name -> (default meaning "off", ROADMAP item)
 _UNPORTED_LEVERS = {
     "remat": (False, "A3"),
-    "replica_budget": (0, "A7b"),
-    "refresh_band": (None, "A7b"),
     "memory_budget": (None, "A10"),
 }
 
 
-def check_stale_levers(model: str, symmetric: bool, halo_staleness: int,
+def check_carry_levers(model: str, symmetric: bool, halo_staleness: int,
                        halo_delta: bool, sync_every: int, compute_dtype,
-                       remat: bool, replica_budget=0) -> None:
-    """The reference trainer's gates on the stale-halo levers, with its
-    messages (``ValueError``)."""
+                       remat: bool, replica_budget=0,
+                       refresh_band=None) -> None:
+    """The reference trainer's gates on the stale-halo and replica
+    levers, in its order, with its messages (``ValueError``)."""
     if halo_staleness not in (0, 1):
         raise ValueError(
             f"halo_staleness must be 0 (exact) or 1 (pipelined), got "
@@ -269,6 +310,49 @@ def check_stale_levers(model: str, symmetric: bool, halo_staleness: int,
             "the replica mode's refresh steps; it requires "
             "halo_staleness=1 or replica_budget>0 (exact mode is "
             "always in sync)")
+    if replica_budget != "auto" and replica_budget < 0:
+        raise ValueError(
+            f"replica_budget must be >= 0 or 'auto', got "
+            f"{replica_budget}")
+    if replica_budget:
+        if model != "gcn":
+            raise ValueError(
+                "replica_budget replicates rows of the GCN feature "
+                "exchange; the GAT exchange ships per-layer attention "
+                "tables whose replication is not supported")
+        if halo_delta:
+            raise ValueError(
+                "replica_budget composed with halo_delta is deferred: "
+                "the delta baseline and the replica carry would "
+                "disagree on what a stale step ships — compose "
+                "replication with plain --halo-staleness 1 instead "
+                "(docs/replication.md)")
+        if not symmetric:
+            raise ValueError(
+                "replica_budget uses the symmetric-Â custom backward "
+                "(gradient replicas mirror the feature replicas); this "
+                "plan is asymmetric — run without replication")
+        if compute_dtype is not None or remat:
+            raise ValueError(
+                "replica_budget is defined for the f32 non-remat "
+                "trainer (replica carries are f32 state threaded "
+                "through the step); drop compute_dtype/remat or run "
+                "without replication")
+    if refresh_band is not None:
+        if refresh_band < 0:
+            raise ValueError(
+                f"refresh_band must be >= 0, got {refresh_band}")
+        if not replica_budget:
+            raise ValueError(
+                "refresh_band schedules the drift-driven PARTIAL "
+                "replica refresh; it requires replica_budget > 0 "
+                "(docs/replication.md)")
+        if halo_staleness:
+            raise ValueError(
+                "refresh_band with halo_staleness=1 is deferred: the "
+                "composed mode's replica state lives inside the stale "
+                "halo carry, which partial refresh cannot address per "
+                "row — run full refreshes there (docs/replication.md)")
     if halo_staleness:
         if model != "gcn":
             raise ValueError(
@@ -344,26 +428,36 @@ class FullBatchTrainer:
         ``comm_schedule='auto'`` and ``sync_every`` the drift-banded
         ``CommController`` retunes ``sync_every`` at each sync step
         (``comm_decision['controller']`` holds its log).  Evaluation runs
-        the exact forward.  The reference's gates raise its
-        ``ValueError``s; the levers not ported raise
-        ``NotImplementedError``."""
+        the exact forward.
+
+        ``replica_budget=B`` (B > 0, or ``'auto'``: the λ·degree knee)
+        trains with hot-halo replicas (GCN, symmetric plan, float32, both
+        transports, ``halo_dtype`` allowed): each step's exchanges ship
+        only the rows not replicated, the replica slots of the carried
+        receive layouts keep what the last refresh wrote; step 0 and
+        every ``sync_every``-th step refresh with the exact exchange
+        (``sync_every=1`` is the exact trainer bit for bit).
+        ``refresh_band=RHO`` (a2a, no staleness) makes every refresh after
+        step 0 partial: only the replica rows whose relative drift passes
+        ``RHO`` ship, as increments on float32 replicas.  With
+        ``halo_staleness=1`` (no ``halo_delta``) the two compose.  The
+        reference's gates raise its ``ValueError``s; the levers not
+        ported raise ``NotImplementedError``."""
         if halo_dtype is not None and model != "gcn":
             raise ValueError(
                 "halo_dtype is a GCN-trainer lever; for GAT use "
                 "compute_dtype='bfloat16' (the packed exchange already "
                 "ships half-width rows)")
-        check_stale_levers(model, plan.symmetric, halo_staleness,
+        check_carry_levers(model, plan.symmetric, halo_staleness,
                            halo_delta, sync_every, compute_dtype, remat,
-                           replica_budget)
-        given = {"remat": remat, "replica_budget": replica_budget,
-                 "refresh_band": refresh_band,
-                 "memory_budget": memory_budget}
+                           replica_budget, refresh_band)
+        given = {"remat": remat, "memory_budget": memory_budget}
         for name, (off, item) in _UNPORTED_LEVERS.items():
             if given[name] != off:
                 raise NotImplementedError(
                     f"{name}={given[name]!r} is not ported yet (ROADMAP "
-                    f"item {item}); this port trains the exact and stale "
-                    "paths")
+                    f"item {item}); this port trains the exact, stale and "
+                    "replica paths")
         narrowed = {name: "bfloat16" for name, dt in (
             ("compute_dtype", narrow_dtype(compute_dtype, "compute_dtype")),
             ("halo_dtype", narrow_dtype(halo_dtype))) if dt is not None}
@@ -372,10 +466,19 @@ class FullBatchTrainer:
         self.device = resolve_device(device)
         setup = resolve_forward_setup(plan, model=model,
                                       comm_schedule=comm_schedule,
-                                      halo_staleness=halo_staleness)
+                                      halo_staleness=halo_staleness,
+                                      replica_budget=replica_budget,
+                                      refresh_band=refresh_band)
         self.setup = setup
         self.comm_decision = setup.decision
         self.comm_schedule = setup.comm_schedule
+        self.replica_budget = setup.replica_budget   # 'auto' → the knee
+        self.refresh_band = refresh_band
+        if refresh_band is not None and self.comm_schedule != "a2a":
+            raise ValueError(
+                "refresh_band rides the dense-a2a replica path; the "
+                "ragged partial-refresh side channel is deferred — run "
+                "--comm-schedule a2a (docs/replication.md)")
         self.plan = plan
         self.fin = int(fin)
         self.widths = list(widths)
@@ -409,6 +512,8 @@ class FullBatchTrainer:
                                              self.compute_dtype),
             wire_itemsize=2 if gcn and (narrowed or halo_delta) else 4,
             wire_itemsize_bwd=2 if gcn and narrowed else 4)
+        if self.replica_budget:
+            self.stats.set_replica(plan)
         self.timer = PhaseTimer()
         self.spans = SpanTimer(timer=self.timer)
         self._step_count = 0
@@ -421,7 +526,7 @@ class FullBatchTrainer:
         # as 'auto' and there is a sync schedule to tune
         self.controller = None
         if (str(self.comm_decision.get("asked")) == "auto" and sync_every
-                and halo_staleness):
+                and (halo_staleness or self.replica_budget)):
             from .controller import CommController
             self.controller = CommController(sync_every=sync_every)
             self.comm_decision["controller"] = self.controller.log()
@@ -429,9 +534,20 @@ class FullBatchTrainer:
         # steps); the newest land in last_gauges
         self.drift_gauges = False
         self.last_gauges = None
+        self.last_refresh_rows = None   # a partial refresh's shipped rows
         self.halo_carry = None
+        self.replica_carry = None
+        if self.replica_budget:
+            ragged = self.comm_schedule == "ragged"
+            self._rep_dst = torch.as_tensor(
+                plan.rep_ring_dst if ragged else plan.rep_recv_dst).to(
+                    self.device)
+            self._rep_pos = torch.as_tensor(plan.rep_table_pos).to(
+                self.device)
         if halo_staleness:
             self._init_stale_carry()
+        elif self.replica_budget:
+            self._init_replica_carry()
 
     # ------------------------------------------------------------- state
     @property
@@ -448,32 +564,40 @@ class FullBatchTrainer:
         synchronize(self.device)
 
     # ------------------------------------------------------- stale halos
-    def _init_stale_carry(self) -> None:
-        """Zero carries in the receive layouts (never consumed: step 0 is
-        a sync step), float32 under ``halo_delta``, else the wire's dtype;
-        the gradient carries in the gradient wire's."""
+    def _zero_carries(self, float32_features: bool) -> dict:
+        """Per layer a zero feature and gradient carry in the receive
+        layout of the transport (never consumed: step 0 syncs): the
+        wire's dtype, the feature carries float32 if asked."""
         plan, k = self.plan, self.plan.k
-        ragged = self.comm_schedule == "ragged"
-        rows = max(1, sum(plan.rr_sizes)) if ragged else k * plan.s
+        rows = (max(1, sum(plan.rr_sizes)) if self.comm_schedule == "ragged"
+                else k * plan.s)
         wire = narrow_dtype(self.halo_dtype) or torch.float32
-        hdt = torch.float32 if self.halo_delta else wire
+        hdt = torch.float32 if float32_features else wire
         fs = exchange_widths(self.fin, self.widths)
-        self.halo_carry = {
-            "halos": [torch.zeros((k, rows, f), dtype=hdt,
-                                  device=self.device) for f in fs],
-            "ghalos": [torch.zeros((k, rows, f), dtype=wire,
-                                   device=self.device) for f in fs]}
-        self._halo_src_flat = (None if ragged else torch.as_tensor(
-            plan.halo_src_flat.astype(np.int64)).to(self.device))
+        return {"halos": [torch.zeros((k, rows, f), dtype=hdt,
+                                      device=self.device) for f in fs],
+                "ghalos": [torch.zeros((k, rows, f), dtype=wire,
+                                       device=self.device) for f in fs]}
+
+    def _init_stale_carry(self) -> None:
+        """Zero carries (``_zero_carries``), float32 under
+        ``halo_delta``."""
+        self.halo_carry = self._zero_carries(self.halo_delta)
+        self._halo_src_flat = (
+            None if self.comm_schedule == "ragged" else torch.as_tensor(
+                self.plan.halo_src_flat.astype(np.int64)).to(self.device))
         self._stale_step_idx = 0
         self._last_sync_idx = 0
 
-    def _stale_sync_due(self) -> bool:
-        """Carry init (step 0) + the periodic full-sync schedule."""
-        if self._stale_step_idx == 0:
+    def _sync_due(self, step_idx: int) -> bool:
+        """Carry init (step 0) + the periodic sync (refresh) schedule;
+        with ``sync_every=0`` only step 0 syncs."""
+        if step_idx == 0:
             return True
-        return bool(self.sync_every) and \
-            self._stale_step_idx % self.sync_every == 0
+        return bool(self.sync_every) and step_idx % self.sync_every == 0
+
+    def _stale_sync_due(self) -> bool:
+        return self._sync_due(self._stale_step_idx)
 
     def _halo_rows(self, carry):
         """A carry's rows in the reference's layout, float32: the a2a
@@ -482,6 +606,41 @@ class FullBatchTrainer:
         if self._halo_src_flat is None:
             return carry.float()
         return layout.recv_halo_rows(carry, self._halo_src_flat)
+
+    def _carried_step(self, data: TrainData, carry: dict, forward,
+                      rows_of, gauges: bool):
+        """One optimizer step of a carried mode (stale or replica):
+        ``forward(gholder)`` runs the mode's forward over ``carry`` and
+        returns its outputs, the logits first and the next feature
+        carries second; the backward writes the next gradient carries
+        into ``gholder``; then Adam.  ``gauges``: the drift gauges over
+        ``rows_of`` each carry (the reference's layout) — ``drift_sq[ℓ] =
+        Σ (next − in)²`` and ``ref_sq[ℓ] = Σ next²`` into
+        ``last_gauges`` (float64 numpy).  Returns ``(loss, err, outputs,
+        gholder)``."""
+        self.opt.zero_grad(set_to_none=True)
+        # both modes may rewrite a carry in place (a composed or a replica
+        # step): read the rows it starts from first
+        old = [rows_of(x) for x in carry["halos"]] if gauges else None
+        gholder = list(carry["ghalos"])
+        out = forward(gholder)
+        logits = out[0].float()
+        loss = self._loss_fn(logits, data.labels, data.train_valid)
+        err = (masked_err_local(logits.detach(), data.labels,
+                                data.train_valid)
+               if self.loss_name == "bce" else loss.detach())
+        loss.backward()
+        self.opt.step()
+        if gauges:
+            with torch.no_grad():
+                new = [rows_of(x) for x in out[1]]
+                sums = {"drift_sq": [torch.sum(torch.square(n - o))
+                                     for n, o in zip(new, old)],
+                        "ref_sq": [torch.sum(torch.square(n)) for n in new]}
+                self.last_gauges = {
+                    name: np.array([float(x) for x in v], np.float64)
+                    for name, v in sums.items()}
+        return loss.detach(), err, out, gholder
 
     def _one_step_stale(self, data: TrainData, fresh: bool,
                         gauges: bool = False):
@@ -492,41 +651,28 @@ class FullBatchTrainer:
         ``(R, f)`` rows (padding rows included) — ``drift_sq[ℓ] = Σ
         (halo_next − halo_in)²``, ``ref_sq[ℓ] = Σ halo_next²`` and the
         halo-delta residual ``qerr_sq[ℓ]`` (float64 numpy)."""
-        self.opt.zero_grad(set_to_none=True)
-        halos_in = self.halo_carry["halos"]
-        gholder = list(self.halo_carry["ghalos"])
-        out = gcn_forward_local_stale(
-            list(self.model.weights), data.h0, self.pa, halos_in,
-            self.halo_carry["ghalos"], gholder,
-            activation=self.activation,
-            final_activation=self.final_activation,
-            delta=self.halo_delta,
-            # the delta cache IS the bf16 wire; otherwise the stale feature
-            # wire keeps the exact mode's halo_dtype
-            wire_dtype="bfloat16" if self.halo_delta else self.halo_dtype,
-            gwire_dtype=self.halo_dtype, fresh=fresh, gauges=gauges,
-            **self.setup.fwd_static)
-        logits = out[0].float()
-        loss = self._loss_fn(logits, data.labels, data.train_valid)
-        err = (masked_err_local(logits.detach(), data.labels,
-                                data.train_valid)
-               if self.loss_name == "bce" else loss.detach())
-        loss.backward()
-        self.opt.step()
+        carry = self.halo_carry
+
+        def forward(gholder):
+            return gcn_forward_local_stale(
+                list(self.model.weights), data.h0, self.pa, carry["halos"],
+                carry["ghalos"], gholder, activation=self.activation,
+                final_activation=self.final_activation,
+                delta=self.halo_delta,
+                # the delta cache IS the bf16 wire; otherwise the stale
+                # feature wire keeps the exact mode's halo_dtype
+                wire_dtype="bfloat16" if self.halo_delta else self.halo_dtype,
+                gwire_dtype=self.halo_dtype, fresh=fresh, gauges=gauges,
+                replica=bool(self.replica_budget), **self.setup.fwd_static)
+
+        loss, err, out, gholder = self._carried_step(
+            data, carry, forward, self._halo_rows, gauges)
         # carries are per-part state: never reduced, never differentiated
         self.halo_carry = {"halos": out[1], "ghalos": gholder}
         if gauges:
-            with torch.no_grad():
-                new = [self._halo_rows(x) for x in out[1]]
-                old = [self._halo_rows(x) for x in halos_in]
-                sums = {"drift_sq": [torch.sum(torch.square(n - o))
-                                     for n, o in zip(new, old)],
-                        "ref_sq": [torch.sum(torch.square(n)) for n in new],
-                        "qerr_sq": out[2]}
-                self.last_gauges = {
-                    name: np.array([float(x) for x in v], np.float64)
-                    for name, v in sums.items()}
-        return loss.detach(), err
+            self.last_gauges["qerr_sq"] = np.array(
+                [float(x) for x in out[2]], np.float64)
+        return loss, err
 
     def _stale_run_one(self, data: TrainData):
         """One stale-mode optimizer step, sync or pipelined per schedule;
@@ -538,46 +684,173 @@ class FullBatchTrainer:
                                        and sync_step)
         loss, err = self._one_step_stale(data, sync_step, gauges)
         if sync_step:
-            self._controller_observe(first)
+            self._controller_observe(first, self._stale_step_idx)
             self._last_sync_idx = self._stale_step_idx
         self._stale_step_idx += 1
+        # a composed replica × stale step ships the shrunken wire, hidden
         self.stats.count_step(
             nlayers=self.nlayers, hidden=not sync_step,
-            wire_itemsize=4 if (self.halo_delta and sync_step) else None)
+            wire_itemsize=4 if (self.halo_delta and sync_step) else None,
+            replica=bool(self.replica_budget) and not sync_step)
         return loss, err
 
-    def _controller_observe(self, first: bool = False) -> None:
-        """Feed a sync step's measured drift (the max over layers of the
-        relative RMS) to the controller and apply its ``sync_every``.  The
-        initializing sync is skipped: it compares against the zero carry,
-        which measures initialization, not drift."""
+    def _controller_observe(self, first: bool, step_idx: int) -> None:
+        """Feed a sync (refresh) step's measured drift (the max over
+        layers of the relative RMS) to the controller and apply its
+        ``sync_every``.  The initializing sync is skipped: it compares
+        against the zero carry, which measures initialization, not
+        drift."""
         if self.controller is None or first:
             return
         g = self.last_gauges
         d = np.sqrt(np.maximum(g["drift_sq"], 0))
         r = np.sqrt(np.maximum(g["ref_sq"], 0))
         rel = float(np.max(d / np.maximum(r, 1e-30))) if d.size else 0.0
-        self.sync_every = self.controller.observe(self._stale_step_idx, rel)
+        self.sync_every = self.controller.observe(step_idx, rel)
         self.comm_decision["controller"] = self.controller.log()
+
+    # ------------------------------------------------- hot-halo replicas
+    def _init_replica_carry(self) -> None:
+        """Zero carries (``_zero_carries``), the feature carries float32
+        under ``refresh_band`` (its replicas are float32 sums), and then
+        also the ``(k, RS, f)`` float32 baselines."""
+        band = self.refresh_band is not None
+        self.replica_carry = self._zero_carries(band)
+        if band:
+            self.replica_carry["rep_base"] = [
+                torch.zeros((self.plan.k, self.plan.rs, f),
+                            device=self.device)
+                for f in exchange_widths(self.fin, self.widths)]
+        self._rep_step_idx = 0
+        self._last_refresh_idx = 0
+
+    def _rep_rows(self, carry):
+        """A carry's replica rows as the reference's ``(k, RP, f)``
+        float32 table (0 on the pads)."""
+        return layout.carry_replica_rows(carry, self._rep_dst,
+                                         self._rep_pos, self.plan.rp)
+
+    def _replica_sync_due(self) -> bool:
+        return self._sync_due(self._rep_step_idx)
+
+    def _one_step_replica(self, data: TrainData, fresh: bool,
+                          partial: bool = False, gauges: bool = False):
+        """One step of the replica mode: the replica forward over the
+        carries (a refresh, a partial refresh or a replica step), the
+        backward leaving the next gradient carries in a holder, Adam.
+        ``gauges``: the reference's replica drift gauges over its
+        ``(RP, f)`` tables — ``drift_sq[ℓ] = Σ (rep_next − rep_in)²``
+        (zero on replica steps), ``ref_sq[ℓ] = Σ rep_next²`` (float64
+        numpy, in ``last_gauges``).  Returns the loss, ``err`` and, on a
+        partial step, the per-layer refreshed copies."""
+        carry = self.replica_carry
+
+        def forward(gholder):
+            return gcn_forward_local_replica(
+                list(self.model.weights), data.h0, self.pa, carry["halos"],
+                carry["ghalos"], gholder, activation=self.activation,
+                final_activation=self.final_activation,
+                halo_dtype=self.halo_dtype, fresh=fresh,
+                rep_base=carry.get("rep_base"), partial_step=partial,
+                band=float(self.refresh_band or 0.0),
+                **self.setup.fwd_static)
+
+        loss, err, (_, halos, bases, nships), gholder = self._carried_step(
+            data, carry, forward, self._rep_rows, gauges)
+        self.replica_carry = {"halos": halos, "ghalos": gholder}
+        if "rep_base" in carry:
+            self.replica_carry["rep_base"] = bases
+        rows = [int(x) for x in nships] if partial else None
+        return loss, err, rows
+
+    def _replica_run_one(self, data: TrainData):
+        """One replica-mode optimizer step, a refresh or a replica step
+        per schedule; under ``refresh_band`` every refresh but step 0 is
+        partial.  Books a replica step at the shrunken exchange, a full
+        refresh at the full one and a partial refresh at the shrunken
+        exchange plus the side-channel rows it shipped."""
+        sync_step = self._replica_sync_due()
+        first = sync_step and self._rep_step_idx == 0
+        partial = (sync_step and not first
+                   and self.refresh_band is not None)
+        gauges = self.drift_gauges or (self.controller is not None
+                                       and sync_step)
+        loss, err, rows = self._one_step_replica(
+            data, sync_step and not partial, partial, gauges)
+        self.last_refresh_rows = rows
+        if sync_step:
+            self._controller_observe(first, self._rep_step_idx)
+            self._last_refresh_idx = self._rep_step_idx
+        self._rep_step_idx += 1
+        if partial:
+            self.stats.count_partial_refresh_step(
+                nlayers=self.nlayers, refresh_rows=rows,
+                wire_rows=int(self.plan.partial_refresh_wire_rows))
+        else:
+            self.stats.count_step(nlayers=self.nlayers,
+                                  replica=not sync_step)
+        return loss, err
 
     # ------------------------------------------------- checkpoint/resume state
     def _carry_attr(self) -> str | None:
         """The carry attribute a full-state checkpoint persists:
-        ``'halo_carry'`` in the stale mode, none on the exact path (the
-        replica carries are ROADMAP A7b)."""
-        return "halo_carry" if self.halo_staleness else None
+        ``'halo_carry'`` in the stale mode (the composed replica × stale
+        mode too: the stale carry holds its replicas, as in the
+        reference), ``'replica_carry'`` in the replica mode, none on the
+        exact path."""
+        if self.halo_staleness:
+            return "halo_carry"
+        return "replica_carry" if self.replica_budget else None
 
     def carry_leaf_shapes(self) -> list:
-        """The checkpoint's carry leaf shapes: the reference's ``jax.tree``
-        order of ``{halos, ghalos, bases}`` (sorted keys: bases, ghalos,
-        halos; each a list by layer), stacked ``(k,) + shape``
-        (``CommPlan.stale_carry_shapes``)."""
-        shapes = self.plan.stale_carry_shapes(
-            self.fin, self.widths, delta=self.halo_delta,
-            comm_schedule=self.comm_schedule)
-        return [(self.plan.k,) + tuple(x) for key in ("bases", "ghalos",
-                                                      "halos")
-                for x in shapes[key]]
+        """The checkpoint's carry leaf shapes in the reference's
+        ``jax.tree`` order, stacked ``(k,) + shape``: ``{halos, ghalos,
+        bases}`` (sorted: bases, ghalos, halos; each a list by layer;
+        ``CommPlan.stale_carry_shapes``) in the stale mode, ``{reps,
+        greps, rep_base}`` (sorted: greps, rep_base, reps;
+        ``CommPlan.replica_carry_shapes``) in the replica mode."""
+        if self._carry_attr() == "replica_carry":
+            shapes = self.plan.replica_carry_shapes(
+                self.fin, self.widths, partial=self.refresh_band is not None)
+            keys = ("greps", "rep_base", "reps")
+        else:
+            shapes = self.plan.stale_carry_shapes(
+                self.fin, self.widths, delta=self.halo_delta,
+                comm_schedule=self.comm_schedule)
+            keys = ("bases", "ghalos", "halos")
+        return [(self.plan.k,) + tuple(x) for key in keys
+                for x in shapes.get(key, [])]
+
+    def _replica_leaves(self) -> list:
+        """The replica mode's carries in the reference's layout and order
+        (greps, rep_base, reps), float32 numpy: each receive layout's
+        replica slots gathered to ``(k, RP, f)`` tables."""
+        c = self.replica_carry
+        rows = ([self._rep_rows(x) for x in c["ghalos"]]
+                + list(c.get("rep_base", []))
+                + [self._rep_rows(x) for x in c["halos"]])
+        return [x.detach().cpu().numpy().astype(np.float32) for x in rows]
+
+    def _restore_replica_carry(self, leaves) -> None:
+        """Inverse of ``_replica_leaves``: zero receive layouts with the
+        replica tables' rows in their replica slots (every other slot is
+        rewritten by the next step before it is read, or carries weight 0
+        in every halo tile)."""
+        n = self.nlayers
+        t = [torch.as_tensor(np.asarray(x, np.float32)).to(self.device)
+             for x in leaves]
+        band = self.refresh_band is not None
+        greps, reps = t[:n], t[2 * n:] if band else t[n:]
+        live = self.replica_carry
+
+        def fill(tables, like):
+            return [layout.carry_set_replica_rows(
+                torch.zeros_like(c), x, self._rep_dst, self._rep_pos)
+                for x, c in zip(tables, like)]
+        self.replica_carry = {"halos": fill(reps, live["halos"]),
+                              "ghalos": fill(greps, live["ghalos"])}
+        if band:
+            self.replica_carry["rep_base"] = t[n:2 * n]
 
     def _carry_leaves(self) -> list:
         """The carries in the reference's layout and order, float32
@@ -637,12 +910,18 @@ class FullBatchTrainer:
                  "comm_stats": self.stats.state()}
         if self.controller is not None:
             state["controller"] = self.controller.state()
-        if not self.halo_staleness:
+        attr = self._carry_attr()
+        if attr is None:
             return state, []
-        state["stale_step_idx"] = int(self._stale_step_idx)
-        state["last_sync_idx"] = int(self._last_sync_idx)
-        carry = self._carry_leaves()
-        state["carry"] = "halo_carry"
+        if attr == "halo_carry":
+            state["stale_step_idx"] = int(self._stale_step_idx)
+            state["last_sync_idx"] = int(self._last_sync_idx)
+            carry = self._carry_leaves()
+        else:
+            state["rep_step_idx"] = int(self._rep_step_idx)
+            state["last_refresh_idx"] = int(self._last_refresh_idx)
+            carry = self._replica_leaves()
+        state["carry"] = attr
         state["n_carry"] = len(carry)
         return state, carry
 
@@ -657,14 +936,19 @@ class FullBatchTrainer:
         if self.halo_staleness:
             self._stale_step_idx = int(state.get("stale_step_idx", 0))
             self._last_sync_idx = int(state.get("last_sync_idx", 0))
+        elif self.replica_budget:
+            self._rep_step_idx = int(state.get("rep_step_idx", 0))
+            self._last_refresh_idx = int(state.get("last_refresh_idx", 0))
         if self.controller is not None and state.get("controller"):
             self.controller.load_state(state["controller"])
             self.comm_decision["controller"] = self.controller.log()
         if state.get("comm_stats"):
             self.stats.load_state(state["comm_stats"])
         self.stats.backward_exchanges = self.nlayers * self._step_count
-        if self.halo_staleness and carry_leaves:
+        if carry_leaves and self.halo_staleness:
             self._restore_carry(carry_leaves)
+        elif carry_leaves and self.replica_budget:
+            self._restore_replica_carry(carry_leaves)
 
     # ----------------------------------------------------------------- step
     def _forward(self, h0):
@@ -692,11 +976,14 @@ class FullBatchTrainer:
 
     def step(self, data: TrainData, sync: bool = True):
         """One training step (a stale-mode step under
-        ``halo_staleness=1``).  ``sync=True`` returns the loss as a float
+        ``halo_staleness=1``, a replica-mode step under
+        ``replica_budget``).  ``sync=True`` returns the loss as a float
         (a device readback); ``sync=False`` returns the device scalar."""
         data = data.to(self.device)
         if self.halo_staleness:
             loss, err = self._stale_run_one(data)
+        elif self.replica_budget:
+            loss, err = self._replica_run_one(data)
         else:
             loss, err = self._one_step(data)
             self.stats.count_step(nlayers=self.nlayers)

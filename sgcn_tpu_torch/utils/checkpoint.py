@@ -31,7 +31,8 @@ atomic``), every array carries a CRC32, and any damage raises
 back to the previous intact file.  A file claiming a NEWER format version
 than ``CKPT_VERSION`` is refused.
 
-A stale-halo run (``halo_staleness=1``) also writes ``carry_<i>``: its
+A stale-halo run (``halo_staleness=1``) or a replica run
+(``replica_budget``: ``replica_carry``) also writes ``carry_<i>``: its
 carries in the reference's layout and ``jax.tree`` order
 (``FullBatchTrainer.carry_leaf_shapes``), so its files and the
 reference's restore each other with full state.
@@ -471,9 +472,10 @@ def verify_checkpoint_file(path: str) -> dict:
 
 def _trainer_is_stateful(trainer) -> bool:
     """Does this trainer hold state beyond (params, Adam state) — a
-    stale carry or a live controller — that a params-only restore would
-    silently reinitialize?"""
+    stale or replica carry or a live controller — that a params-only
+    restore would silently reinitialize?"""
     return (getattr(trainer, "halo_carry", None) is not None
+            or getattr(trainer, "replica_carry", None) is not None
             or getattr(trainer, "controller", None) is not None)
 
 
@@ -484,7 +486,7 @@ def load_checkpoint(trainer, path: str, verify: bool = True) -> int:
     The recorded provenance (plan digest, model kind, dims, activations)
     is verified FIRST with a clear message (``verify=False`` skips it),
     then the leaves are validated against the trainer's params and Adam
-    state, and a stale run's carry leaves against the trainer's
+    state, and a stale or replica run's carry leaves against the trainer's
     ``carry_leaf_shapes()``; nothing is assigned before everything checks
     out.  The file's train state (step counters, the effective
     ``sync_every`` and controller, comm gauges, carries) is restored

@@ -1,5 +1,5 @@
 """Communication statistics in the reference's vocabulary (port of
-``sgcn_tpu/utils/stats.py::CommStats`` without its replica fields).
+``sgcn_tpu/utils/stats.py::CommStats``).
 
 Per part, ``send/recv_comm_volume`` (feature rows shipped) and
 ``send/recv_message_count``, summed and maxed over parts into one
@@ -22,8 +22,12 @@ hidden (no same-step consumer) and the exposed/hidden split prices them
 apart; the feature and gradient wires have their own itemsizes
 (``wire_itemsize``/``wire_itemsize_bwd``: the halo-delta cache narrows
 only the feature wire), and a step may override the feature wire's (the
-delta cache's float32 re-base on sync steps).  The replica and
-partial-refresh fields of the reference are not ported (ROADMAP A7b).
+delta cache's float32 re-base on sync steps).  Under hot-halo replicas
+(``set_replica``) a replica step books its exchanges at the shrunken
+exchange's figures (``count_step(replica=True)``; a composed replica ×
+stale step is both hidden and replica), and a partial refresh step adds
+its side channel at the rows it really shipped
+(``count_partial_refresh_step``), with the reference's figures.
 """
 
 from __future__ import annotations
@@ -54,6 +58,20 @@ class CommStats:
     reverse_backward: bool = False         # the backward ships in reverse
     backward_exchanges: int = 0            # subset of ``exchanges``
     hidden_exchanges: int = 0              # stale-mode exchanges (subset)
+    # hot-halo replicas (``set_replica``): the shrunken exchange's figures
+    # and the exchanges booked at them
+    replica_send_volume_per_exchange: np.ndarray | None = None  # (k,)
+    replica_recv_volume_per_exchange: np.ndarray | None = None  # (k,)
+    replica_send_msgs_per_exchange: np.ndarray | None = None    # (k,)
+    replica_recv_msgs_per_exchange: np.ndarray | None = None    # (k,)
+    replica_wire_rows_per_exchange: int | None = None
+    replica_rows: int = 0
+    replica_exchanges: int = 0             # subset of ``exchanges``
+    hidden_replica_exchanges: int = 0      # ... also hidden (composed)
+    # the partial refresh's side channel, at the rows really shipped
+    partial_refresh_steps: int = 0
+    partial_refresh_rows_total: int = 0        # true rows, fwd + bwd
+    partial_refresh_wire_rows_total: int = 0   # padded side-channel rows
 
     @classmethod
     def from_plan(cls, plan, schedule: str = "a2a", lane_widths: tuple = (),
@@ -81,47 +99,103 @@ class CommStats:
             reverse_backward=not plan.symmetric,
         )
 
+    def set_replica(self, plan) -> None:
+        """Record the shrunken exchange's figures of a plan with the
+        replica layout (``CommPlan.ensure_replicas``);
+        ``count_step(replica=True)`` books at them."""
+        if plan.nrep_send_counts is None:
+            raise ValueError(
+                "CommStats.set_replica needs the plan's replication layout "
+                "(ensure_replicas)")
+        counts = plan.nrep_send_counts.astype(np.int64)
+        self.replica_send_volume_per_exchange = counts.sum(axis=1)
+        self.replica_recv_volume_per_exchange = counts.sum(axis=0)
+        self.replica_send_msgs_per_exchange = (counts > 0).sum(axis=1)
+        self.replica_recv_msgs_per_exchange = (counts > 0).sum(axis=0)
+        self.replica_wire_rows_per_exchange = int(
+            plan.wire_rows_per_exchange(self.schedule, replica=True))
+        self.replica_rows = int(plan.replica_rows)
+
     def _bwd_itemsize(self) -> int:
         return (self.wire_itemsize if self.wire_itemsize_bwd is None
                 else self.wire_itemsize_bwd)
 
     def _accumulate_bytes(self, fwd_sweeps: int, bwd_sweeps: int,
-                          fwd_itemsize: int | None = None) -> None:
+                          fwd_itemsize: int | None = None,
+                          replica: bool = False) -> None:
         """Advance the byte gauges by ``fwd_sweeps`` forward +
         ``bwd_sweeps`` backward sweeps (one exchange per layer each, at
         that layer's lane width and its direction's itemsize;
-        ``fwd_itemsize`` overrides the forward's for this step)."""
+        ``fwd_itemsize`` overrides the forward's for this step;
+        ``replica``: at the shrunken exchange's figures)."""
         if not self.lane_widths:
             return
         fwd = self.wire_itemsize if fwd_itemsize is None else fwd_itemsize
         factor = sum(self.lane_widths) * (fwd * fwd_sweeps
                                           + self._bwd_itemsize() * bwd_sweeps)
-        self.halo_bytes_true_total += int(
-            self.send_volume_per_exchange.sum()) * factor
-        self.halo_bytes_wire_total += self.wire_rows_per_exchange * factor
+        if replica:
+            per_true = int(self.replica_send_volume_per_exchange.sum())
+            wire = self.replica_wire_rows_per_exchange
+        else:
+            per_true = int(self.send_volume_per_exchange.sum())
+            wire = self.wire_rows_per_exchange
+        self.halo_bytes_true_total += per_true * factor
+        self.halo_bytes_wire_total += wire * factor
 
     def count_step(self, nlayers: int, hidden: bool = False,
-                   wire_itemsize: int | None = None) -> None:
+                   wire_itemsize: int | None = None,
+                   replica: bool = False) -> None:
         """One training step = ``nlayers`` forward + ``nlayers`` backward
         exchanges (the backward exchange mirrors the forward).
         ``hidden=True`` books them as latency-hidden (a stale step);
         ``wire_itemsize`` overrides this step's forward wire itemsize
-        (the halo-delta cache's float32 re-base on sync steps)."""
+        (the halo-delta cache's float32 re-base on sync steps);
+        ``replica=True`` books them at the shrunken exchange's figures
+        (``set_replica`` first): a replica step, or with ``hidden`` a
+        composed replica × stale step."""
+        if replica and self.replica_send_volume_per_exchange is None:
+            raise ValueError(
+                "count_step(replica=True) before set_replica()")
         self.exchanges += 2 * nlayers
         self.backward_exchanges += nlayers
         if hidden:
             self.hidden_exchanges += 2 * nlayers
-        self._accumulate_bytes(1, 1, fwd_itemsize=wire_itemsize)
+        if replica:
+            self.replica_exchanges += 2 * nlayers
+        if hidden and replica:
+            self.hidden_replica_exchanges += 2 * nlayers
+        self._accumulate_bytes(1, 1, fwd_itemsize=wire_itemsize,
+                               replica=replica)
+
+    def count_partial_refresh_step(self, nlayers: int, refresh_rows,
+                                   wire_rows: int) -> None:
+        """One partial refresh step: the shrunken exchange (as
+        ``count_step(replica=True)``) plus the side channel — one more
+        exchange per layer and direction of ``wire_rows`` padded rows, of
+        which ``refresh_rows[ℓ]`` carried a drifted row; the gradient's
+        side channel ships one more 0/1 indicator lane."""
+        refresh_rows = [int(x) for x in refresh_rows]
+        if len(refresh_rows) != nlayers:
+            raise ValueError(
+                f"count_partial_refresh_step: {len(refresh_rows)} per-layer "
+                f"row counts for {nlayers} layers")
+        self.count_step(nlayers=nlayers, replica=True)
+        self.partial_refresh_steps += 1
+        self.partial_refresh_rows_total += 2 * sum(refresh_rows)
+        self.partial_refresh_wire_rows_total += 2 * nlayers * int(wire_rows)
+        if self.lane_widths:
+            fwd, bwd = self.wire_itemsize, self._bwd_itemsize()
+            for rows, lane in zip(refresh_rows, self.lane_widths):
+                self.halo_bytes_true_total += rows * lane * (fwd + bwd)
+                self.halo_bytes_wire_total += int(wire_rows) * (
+                    lane * fwd + (lane + 1) * bwd)
 
     def count_forward(self, nlayers: int) -> None:
         self.exchanges += nlayers
         self._accumulate_bytes(1, 0)
 
     # ----------------------------------------------------- checkpoint state
-    # the reference's cumulative gauges (its ``_CUMULATIVE_ATTRS``), all
-    # nine written so a port-written file restores cleanly there; the
-    # replica and partial-refresh ones are not counted here (ROADMAP A7b)
-    # and are written as 0.
+    # the reference's cumulative gauges (its ``_CUMULATIVE_ATTRS``).
     # ``backward_exchanges`` is not among them: the trainer re-derives it
     # from its step count (``FullBatchTrainer.restore_resume_state``).
     _CUMULATIVE_ATTRS = (
@@ -129,27 +203,35 @@ class CommStats:
         "hidden_replica_exchanges", "halo_bytes_true_total",
         "halo_bytes_wire_total", "partial_refresh_steps",
         "partial_refresh_rows_total", "partial_refresh_wire_rows_total")
-    _COUNTED_ATTRS = ("exchanges", "hidden_exchanges",
-                      "halo_bytes_true_total", "halo_bytes_wire_total")
 
     def state(self) -> dict:
         """JSON-able snapshot of the cumulative gauges."""
-        return {a: int(getattr(self, a, 0)) for a in self._CUMULATIVE_ATTRS}
+        return {a: int(getattr(self, a)) for a in self._CUMULATIVE_ATTRS}
 
     def load_state(self, state: dict) -> None:
         """Restore ``state()`` onto a freshly built counter (``from_plan``
-        already re-derived the per-exchange figures)."""
-        for a in self._COUNTED_ATTRS:
+        and ``set_replica`` already re-derived the per-exchange
+        figures)."""
+        for a in self._CUMULATIVE_ATTRS:
             if a in state:
                 setattr(self, a, int(state[a]))
 
     def cumulative(self) -> tuple:
         """Per-part cumulative (send_vol, send_msgs, recv_vol, recv_msgs);
-        under ``reverse_backward`` the backward exchanges book each part's
+        replica-booked exchanges advance at the shrunken figures; under
+        ``reverse_backward`` the backward exchanges book each part's
         forward receive figures as its send ones and the other way
-        round."""
+        round (no replica mode runs on such a plan)."""
         per = (self.send_volume_per_exchange, self.send_msgs_per_exchange,
                self.recv_volume_per_exchange, self.recv_msgs_per_exchange)
+        if self.replica_exchanges:
+            rep = (self.replica_send_volume_per_exchange,
+                   self.replica_send_msgs_per_exchange,
+                   self.replica_recv_volume_per_exchange,
+                   self.replica_recv_msgs_per_exchange)
+            full = self.exchanges - self.replica_exchanges
+            return tuple(p * full + rp * self.replica_exchanges
+                         for p, rp in zip(per, rep))
         if not self.reverse_backward:
             return tuple(p * self.exchanges for p in per)
         fwd, bwd = self.exchanges - self.backward_exchanges, \
@@ -181,20 +263,46 @@ class CommStats:
         wire = self.wire_rows_per_exchange
         hidden = self.hidden_exchanges
         exposed = self.exchanges - hidden
+        # each (exposed/hidden) × (full/replica) subset at its own figure
+        rex, hrex = self.replica_exchanges, self.hidden_replica_exchanges
+        erex = rex - hrex
+        per_ex_rep = (int(self.replica_send_volume_per_exchange.sum())
+                      if rex else per_ex)
+        rep_wire = (self.replica_wire_rows_per_exchange
+                    if rex else wire)
+        pwire = self.partial_refresh_wire_rows_total
         rep.update(
             exchanges=self.exchanges,
             exposed_exchanges=exposed,
             hidden_exchanges=hidden,
-            exposed_send_volume=per_ex * exposed,
-            hidden_send_volume=per_ex * hidden,
+            exposed_send_volume=per_ex * (exposed - erex) + per_ex_rep * erex,
+            hidden_send_volume=per_ex * (hidden - hrex) + per_ex_rep * hrex,
             comm_schedule=self.schedule,
             true_rows_per_exchange=per_ex,
             wire_rows_per_exchange=wire,
-            wire_rows_total=wire * self.exchanges,
-            exposed_wire_rows_total=wire * exposed,
-            hidden_wire_rows_total=wire * hidden,
+            wire_rows_total=(wire * (self.exchanges - rex) + rep_wire * rex
+                             + pwire),
+            exposed_wire_rows_total=(wire * (exposed - erex)
+                                     + rep_wire * erex + pwire),
+            hidden_wire_rows_total=wire * (hidden - hrex) + rep_wire * hrex,
             padding_efficiency=self.padding_efficiency,
         )
+        if self.replica_wire_rows_per_exchange is not None:
+            rep.update(
+                replica_exchanges=rex,
+                hidden_replica_exchanges=hrex,
+                replica_rows=self.replica_rows,
+                true_rows_per_exchange_replica=int(
+                    self.replica_send_volume_per_exchange.sum()),
+                wire_rows_per_exchange_replica=(
+                    self.replica_wire_rows_per_exchange),
+            )
+        if self.partial_refresh_steps:
+            rep.update(
+                partial_refresh_steps=self.partial_refresh_steps,
+                partial_refresh_rows_total=self.partial_refresh_rows_total,
+                partial_refresh_wire_rows_total=pwire,
+            )
         if self.lane_widths:
             lane_b = sum(self.lane_widths) * (self.wire_itemsize
                                               + self._bwd_itemsize())

@@ -17,7 +17,10 @@ card bit-identical; the pack, the fused entry and the ring on a plan from
 the port's native hypergraph partitioner (a DCSBM graph at n = 20 000);
 the stale-halo ops (``PspmmTilesStale``, both transports) against their
 CPU versions, and the stale trainer's ``sync_every=1`` == exact and ring
-== a2a on the card.
+== a2a on the card; the destination-indexed pack (``row_pack_into``)
+against its plain version, one replica and one composed replica × stale
+step against their CPU versions, and the replica trainer's launches on
+the card.
 
 This module imports no JAX, so it also runs on a GPU machine without it:
 
@@ -36,15 +39,19 @@ import torch
 from sgcn_tpu_torch.io.datasets import er_graph
 from sgcn_tpu_torch.models import gat as gat_mod
 from sgcn_tpu_torch.models.gat import GatLayerSym
-from sgcn_tpu_torch.ops.row_shuffle import (row_pack, row_pack_plain,
-                                            row_shuffle, row_shuffle_plain)
+from sgcn_tpu_torch.ops.row_shuffle import (row_pack, row_pack_into,
+                                            row_pack_into_plain,
+                                            row_pack_plain, row_shuffle,
+                                            row_shuffle_plain)
 from sgcn_tpu_torch.ops.tile_spmm import (TILE_PLAN_FIELDS,
                                           TILE_PLAN_FIELDS_RAGGED,
                                           PspmmTilesGen, PspmmTilesRagged,
+                                          PspmmTilesReplica,
                                           PspmmTilesStale, PspmmTilesSym,
                                           choose_tile_dispatch,
                                           pspmm_tiles_gen,
                                           pspmm_tiles_ragged,
+                                          pspmm_tiles_replica,
                                           pspmm_tiles_stale,
                                           pspmm_tiles_stale_ragged,
                                           pspmm_tiles_sym, spmm_tiles,
@@ -1169,3 +1176,198 @@ def test_stale_trainer_on_cuda_sync_every_1_is_exact_and_ring_is_a2a(
     # first at fin 24, so its input needs no gradient)
     assert runs["stale a2a"][2] == (18, 18, 0)
     assert runs["stale a2a"][0] != runs["exact a2a"][0]
+
+
+# --------------------------------------------------- hot-halo replicas
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("kind", ["f32", "f32->bf16", "bf16", "bf16->f32"])
+@pytest.mark.parametrize("w", [1, 7, 41, 128])
+def test_row_pack_into_equals_plain_bitwise(cuda_device, w, kind, aligned):
+    """The destination-indexed pack on the card == its plain version
+    (``index_copy_`` of the gathered rows, torch on the card) bit for
+    bit — the rows it does not name untouched, ±inf, NaN (the bits
+    torch's cast writes) and float32 → bf16 ties included — from a
+    16-byte aligned source or one whose base is 4-byte (bf16: 2-byte) but
+    not 16-byte aligned; one launch each, counted in
+    ``row_pack_into.launches``; an empty list launches nothing."""
+    src_dt, out_dt = {"f32": (torch.float32, torch.float32),
+                      "f32->bf16": (torch.float32, torch.bfloat16),
+                      "bf16": (torch.bfloat16, torch.bfloat16),
+                      "bf16->f32": (torch.bfloat16, torch.float32)}[kind]
+    dev = cuda_device
+    rng = np.random.default_rng(w)
+    src = _special(torch.from_numpy(rng.standard_normal(
+        (4, 300, w)).astype(np.float32))).to(src_dt).to(dev)
+    if not aligned:
+        odd = torch.empty(src.numel() + 1, dtype=src_dt,
+                          device=dev)[1:].view(src.shape)
+        odd.copy_(src)
+        src = odd
+        assert src.data_ptr() % 16
+    out0 = torch.from_numpy(rng.standard_normal((4, 250, w)).astype(
+        np.float32)).to(out_dt).to(dev)
+    n = 600
+    flat = torch.from_numpy(rng.integers(0, 1200, n).astype(
+        np.int32)).to(dev)
+    dst = torch.from_numpy(rng.permutation(1000)[:n].astype(
+        np.int32)).to(dev)
+    want = row_pack_into_plain(out0.clone(), src, flat, dst)
+    got = out0.clone()
+    before = row_pack_into.launches
+    row_pack_into(got, src, flat, dst)
+    empty = torch.zeros(0, dtype=torch.int32, device=dev)
+    row_pack_into(got, src, empty, empty)
+    torch.cuda.synchronize()
+    assert row_pack_into.launches - before == 1
+    assert torch.equal(_bits(got), _bits(want))
+    untouched = torch.ones(1000, dtype=torch.bool, device=dev)
+    untouched[dst.long()] = False
+    assert torch.equal(_bits(got.view(-1, w)[untouched]),
+                       _bits(out0.view(-1, w)[untouched]))
+
+
+def test_row_pack_into_refuses_bad_inputs(cuda_device):
+    """No CPU fallback on the card: a float64 source, int64 indices, a
+    non-contiguous output or a width mismatch raise."""
+    dev = cuda_device
+    out = torch.zeros((2, 5, 4), device=dev)
+    src = torch.zeros((2, 6, 4), device=dev)
+    idx = torch.zeros(3, dtype=torch.int32, device=dev)
+    with pytest.raises(TypeError):
+        row_pack_into(out, src.double(), idx, idx)
+    with pytest.raises(TypeError):
+        row_pack_into(out, src, idx.long(), idx)
+    with pytest.raises(ValueError):
+        row_pack_into(out.transpose(0, 1), src, idx, idx)
+    with pytest.raises(ValueError):
+        row_pack_into(out, src[..., :3].contiguous(), idx, idx)
+
+
+def _replica_plan():
+    plan = _er_plan()
+    plan.ensure_ragged()
+    plan.ensure_replicas(200)
+    return plan
+
+
+@pytest.mark.parametrize("sched,kind", [
+    ("a2a", "replica"), ("a2a", "partial"), ("a2a", "stale"),
+    ("ragged", "replica"), ("ragged", "stale")])
+def test_replica_ops_on_cuda_equal_cpu_bitwise(cuda_device, sched, kind):
+    """One replica step (``pspmm_tiles_replica``: the kept pack into the
+    carry, the fused launch; its backward the same on the gradient
+    carry), one partial refresh step (a2a) and one composed replica ×
+    stale step (``pspmm_tiles_stale`` with the kept lists) on the card
+    equal the same ops on the CPU bit for bit: output, next carries,
+    input gradient, baselines; one pack and one fused launch per
+    direction.  The partial refresh rides the a2a only, as in the
+    reference."""
+    plan = _replica_plan()
+    st = choose_tile_dispatch(plan, schedule=sched)
+    ragged = sched == "ragged"
+    pre = "ring" if ragged else "recv"
+    names = ["ptile_lsrc", "ptile_lld", "ptile_lw",
+             "ptile_hrsrc" if ragged else "ptile_hwsrc", "ptile_hld",
+             "ptile_hw", f"keep_{pre}_src", f"keep_{pre}_dst",
+             "ring_src" if ragged else "recv_src", "rep_rows_flat",
+             "rep_row_valid", "rep_base_flat", "rep_src_flat",
+             "rep_recv_dst"]
+    pa = {f: torch.from_numpy(np.ascontiguousarray(getattr(plan, f)))
+          for f in names}
+    rows = sum(plan.rr_sizes) if ragged else plan.k * plan.s
+    rng = np.random.default_rng(21)
+
+    def draw(*shape):
+        return torch.from_numpy(rng.standard_normal(shape)
+                                .astype(np.float32))
+
+    h, g = draw(plan.k, plan.b, 40), draw(plan.k, plan.b, 40)
+    carry, gcarry = draw(plan.k, rows, 40), draw(plan.k, rows, 40)
+    base = draw(plan.k, plan.rs, 40)
+    out = {}
+    for dev in ("cpu", cuda_device):
+        t = {f: v.to(dev) for f, v in pa.items()}
+        x = h.to(dev, copy=True).requires_grad_()
+        c, gc, holder = carry.to(dev, copy=True), gcarry.to(dev, copy=True), \
+            [None]
+        tiles = (*(t[f] for f in names[:6]), st["pallas_tb"],
+                 st["pallas_lclasses"], st["pallas_hclasses"])
+        keep = (t[names[6]], t[names[7]])
+        before = (row_pack_into.launches, spmm_tiles_fused.launches)
+        bnext = None
+        if kind == "stale":
+            y, nxt = (pspmm_tiles_stale_ragged if ragged
+                      else pspmm_tiles_stale)(
+                x, c, gc, t[names[8]], *tiles[:6], *tiles[6:],
+                *((st["rr_sizes"],) if ragged else ()), gholder=holder,
+                keep=keep)
+        else:
+            side = None
+            if kind == "partial":
+                side = {f: t[f] for f in names[9:13]}
+                side["rep_dst"] = t["rep_recv_dst"]
+            y, nxt, bnext, _ = pspmm_tiles_replica(
+                x, c, gc, keep, tiles, kind, gholder=holder,
+                base=base.to(dev) if side else None, side=side, band=1.0)
+        y.backward(g.to(dev))
+        torch.cuda.synchronize()
+        out[str(dev)] = ([y.detach().cpu(), nxt.cpu(), x.grad.cpu(),
+                          holder[0].cpu()]
+                         + ([bnext.cpu()] if bnext is not None else []),
+                         (row_pack_into.launches - before[0],
+                          spmm_tiles_fused.launches - before[1]))
+    (cpu, cpu_n), (gpu, gpu_n) = out["cpu"], out["cuda"]
+    assert cpu_n == (0, 0) and gpu_n == (2, 2)
+    for i, (a, b) in enumerate(zip(gpu, cpu)):
+        assert torch.equal(a, b), i
+
+
+def test_replica_trainer_on_cuda_sync_1_is_exact_and_counts_launches(
+        cuda_device):
+    """On the card: a replica run at ``sync_every=1`` trains bit for bit
+    as the exact trainer, the replica ring equals the replica a2a
+    (``sync_every`` 3) and the composed ring the composed a2a; a replica
+    step makes one destination-indexed pack and one fused launch per
+    aggregation and direction, a refresh the exact exchange's pack."""
+    plan = _er_plan()
+    rng = np.random.default_rng(15)
+    feats = rng.standard_normal((plan.n, 24)).astype(np.float32)
+    labels = rng.integers(0, 5, plan.n)
+    data = make_train_data(plan, feats, labels, device=cuda_device)
+    kw = dict(fin=24, widths=[32, 5], seed=6, device=cuda_device)
+    runs = {}
+    for name, extra in (
+            ("exact a2a", {"comm_schedule": "a2a"}),
+            ("sync1 a2a", {"comm_schedule": "a2a", "replica_budget": 200,
+                           "sync_every": 1}),
+            ("sync1 ragged", {"comm_schedule": "ragged",
+                              "replica_budget": 200, "sync_every": 1}),
+            ("rep a2a", {"comm_schedule": "a2a", "replica_budget": 200,
+                         "sync_every": 3}),
+            ("rep ragged", {"comm_schedule": "ragged", "replica_budget": 200,
+                            "sync_every": 3}),
+            ("comp a2a", {"comm_schedule": "a2a", "replica_budget": 200,
+                          "sync_every": 3, "halo_staleness": 1}),
+            ("comp ragged", {"comm_schedule": "ragged",
+                             "replica_budget": 200, "sync_every": 3,
+                             "halo_staleness": 1})):
+        tr = FullBatchTrainer(plan, **kw, **extra)
+        counts = (row_pack.launches, row_pack_into.launches,
+                  spmm_tiles_fused.launches)
+        losses = [tr.step(data) for _ in range(6)]
+        torch.cuda.synchronize()
+        runs[name] = (losses, [p.detach().cpu() for p in tr.params],
+                      (row_pack.launches - counts[0],
+                       row_pack_into.launches - counts[1],
+                       spmm_tiles_fused.launches - counts[2]))
+    for a, b in (("exact a2a", "sync1 a2a"), ("exact a2a", "sync1 ragged"),
+                 ("rep a2a", "rep ragged"), ("comp a2a", "comp ragged")):
+        assert runs[a][0] == runs[b][0], (a, b)
+        assert all(torch.equal(x, y) for x, y in zip(runs[a][1],
+                                                     runs[b][1])), (a, b)
+    # 6 steps x 3 aggregations (2 forward, 1 backward: layer 0 aggregates
+    # first at fin 24); steps 0 and 3 refresh, the other 4 are replica
+    # steps
+    assert runs["rep a2a"][2] == (2 * 3, 4 * 3, 6 * 3)
+    assert runs["comp a2a"][2] == (2 * 3, 4 * 3, 6 * 3)
+    assert runs["rep a2a"][0] != runs["exact a2a"][0]

@@ -85,3 +85,33 @@ def test_scan_sees_the_stale_halo_modules():
                 ("ops", "tile_spmm.py"), ("parallel", "plan.py"),
                 ("utils", "stats.py")):
         assert os.path.join("sgcn_tpu_torch", *rel) in names
+
+
+def test_scan_sees_the_replica_modules_and_names():
+    """The hot-halo replica modules are in the scan, and the names the
+    replica modes run on live in them (the destination-indexed pack and
+    its plain version, the replica exchanges and converters, the replica
+    op, the replica forward, the plan's replica layout), so none of it
+    imports JAX or the JAX package."""
+    names = {os.path.relpath(p, REPO) for p in _sources()}
+    want = {("ops", "row_shuffle.py"): ("row_pack_into",
+                                        "row_pack_into_plain"),
+            ("ops", "pspmm.py"): ("replica_pack", "partial_refresh",
+                                  "partial_refresh_grad",
+                                  "carry_replica_rows",
+                                  "carry_set_replica_rows"),
+            ("ops", "tile_spmm.py"): ("PspmmTilesReplica",
+                                      "pspmm_tiles_replica"),
+            ("models", "gcn.py"): ("gcn_forward_local_replica",),
+            ("parallel", "plan.py"): ("choose_replica_budget",
+                                      "ensure_replicas",
+                                      "replica_carry_shapes"),
+            ("train", "__main__.py"): ("--replica-budget",
+                                       "--refresh-band")}
+    for rel, defs in want.items():
+        path = os.path.join("sgcn_tpu_torch", *rel)
+        assert path in names
+        with open(os.path.join(REPO, path)) as fh:
+            text = fh.read()
+        for d in defs:
+            assert d in text, (path, d)

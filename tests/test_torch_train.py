@@ -493,6 +493,7 @@ def test_cli_accuracy_experiment_in_process(capsys):
 CHECKPOINT_FLAGS = ("--resume", "--save-checkpoint", "--checkpoint-dir",
                     "--checkpoint-every", "--keep-checkpoints")
 STALE_FLAGS = ("--halo-staleness", "--halo-delta", "--sync-every")
+REPLICA_FLAGS = ("--replica-budget", "--refresh-band")
 
 
 @pytest.mark.parametrize("flag", [
@@ -503,14 +504,15 @@ STALE_FLAGS = ("--halo-staleness", "--halo-delta", "--sync-every")
     "--keep-checkpoints", "--profile", "--metrics-out", "--memory-budget"])
 def test_cli_leaves_unported_flags_undefined(flag, capsys):
     """Flags of features not ported are undefined (argparse exit 2).  The
-    checkpoint flags (``tests/test_torch_checkpoint.py``) and the stale
-    flags (``tests/test_torch_stale.py``) are ported: they parse, and the
-    run stops at a guard or the input check instead (``--halo-delta``
-    takes no value)."""
+    checkpoint flags (``tests/test_torch_checkpoint.py``), the stale
+    flags (``tests/test_torch_stale.py``) and the replica flags
+    (``tests/test_torch_replica.py``) are ported: they parse, and the run
+    stops at a guard or the input check instead (``--halo-delta`` takes
+    no value)."""
     value = [] if flag == "--halo-delta" else ["1"]
     with pytest.raises(SystemExit) as exc:
         train_main(["-p", HP8, "-s", "8", "--device", "cpu", flag, *value])
-    if flag in CHECKPOINT_FLAGS + STALE_FLAGS:
+    if flag in CHECKPOINT_FLAGS + STALE_FLAGS + REPLICA_FLAGS:
         assert exc.value.code != 2
         assert "unrecognized arguments" not in capsys.readouterr().err
         return
@@ -542,17 +544,21 @@ def test_without_cpu_the_entry_points_raise_when_no_gpu(cora):
     pytest.param({"sync_every": 2}, ValueError,
                  "sync_every schedules the stale mode",
                  id="sync_every-2-A7"),
-    pytest.param({"replica_budget": 4}, NotImplementedError,
-                 "not ported.*A7b", id="replica_budget-4-A7"),
-    pytest.param({"refresh_band": 0.1}, NotImplementedError,
-                 "not ported.*A7b", id="refresh_band-0.1-A7"),
+    pytest.param({"replica_budget": 4, "model": "gat",
+                  "activation": "none"}, ValueError,
+                 "replica_budget replicates rows of the GCN feature "
+                 "exchange", id="replica_budget-4-A7"),
+    pytest.param({"refresh_band": 0.1}, ValueError,
+                 "refresh_band schedules the drift-driven PARTIAL",
+                 id="refresh_band-0.1-A7"),
     pytest.param({"memory_budget": 1 << 30}, NotImplementedError,
                  "not ported.*A10", id="memory_budget-1073741824-A10")])
 def test_unported_levers_raise(cora, kwargs, error, match):
     """The levers not ported raise ``NotImplementedError`` naming their
-    ROADMAP item (the replicas' is A7b); the stale levers are ported, and
-    these cases of them raise the reference's gates (``ValueError``, its
-    messages: ``tests/test_torch_stale.py`` compares them verbatim)."""
+    ROADMAP item; the stale and replica levers are ported, and these
+    cases of them raise the reference's gates (``ValueError``, its
+    messages: ``tests/test_torch_stale.py`` and
+    ``tests/test_torch_replica.py`` compare them verbatim)."""
     with pytest.raises(error, match=match):
         FullBatchTrainer(cora["plan"], fin=1433, widths=WIDTHS,
                          device="cpu", **kwargs)
