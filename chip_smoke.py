@@ -275,21 +275,45 @@ failure raises and the script exits non-zero:
      killed after its step-4 save and resumed == the uninterrupted run;
      the cora CLI with ``--replica-budget auto --sync-every 3``
      (``build/chip_smoke_replica/``);
-  27. one JSON line ``{"kernels": [...]}`` — per ported kernel (the tile
+  27. the mini-batch trainer (``train/minibatch.py``) and the stochastic
+     hypergraph partitioner (``shp/``).  The DCSBM flagship of phase 24 at
+     batch 4096 (126 batches, each its own plan, padded to the shared
+     envelope), 128 → 128 → 128 → 40, on phase 24's hp parts and on the
+     stchp parts of ``shp.run_shp`` (100 sampled batches of 4096, 20
+     simulated, seed 1; run on the partition threads beside phases 1–23,
+     its hp vector asserted == phase 24's): per part vector the envelope,
+     the plans' and layouts' host seconds, the pad share of the tiled
+     slots and the longest pad chain, GCN 3 epochs on a2a and on the ring
+     (ring == a2a bit for bit, exact launches: 5 packs + 5 fused launches
+     a step, no K1 family launch, losses finite and falling), the plans'
+     send rows per layer pass and their stchp / hp ratio, SHP's km1 and
+     simulated volumes; on hp every pack and fused launch of one step on
+     the batch plan with the longest pad chain == plain (both transports),
+     ``run_epochs_fused`` == the stepwise run bit for bit, the step ms
+     (CUDA events) and the device split, GAT 3 epochs (K5 and pack counts
+     exact, every K5 pass of one step == plain), GCN under
+     ``compute_dtype`` (the reference's bf16 band), ``evaluate_fullgraph``
+     on the card; meanwhile, on cora2708, children (one wave after
+     another, on a host thread) run ``python -m sgcn_tpu_torch.shp`` and
+     the train CLI's ``-n 512`` on its stchp parts, both transports, 2
+     epochs with ``--checkpoint-every 1``, then a resume to 3 epochs in
+     new ones: == the uninterrupted run in this process, exact launches
+     (``build/chip_smoke_minibatch/``);
+  28. one JSON line ``{"kernels": [...]}`` — per ported kernel (the tile
      SpMM, the GCN aggregation's backward, the GAT attention pass and its
      use in the GAT layer's backward, the ragged ring aggregation and its
      backward, the row shuffle, the tile SpMM's and the GAT pass's bf16
      flavors, the row pack, the fused local + remote entry and the
      destination-indexed pack) its
      launches on the main path (phases 2–5, 7–13, 15–17, 19–21 and
-     23–26, the children's included), max
+     23–27, the children's included), max
      |kernel − plain|, kernel / plain / bound / library times at the
      flagship layer.  The tile SpMM's own float-weight family entries
      (both tables) launch on the main path only in the asymmetric
      backward (phases 20–21): the symmetric phases must show 0 of them —
      the fused entry runs their chains and counts those launches — and any
      kernel with no launch on the main path fails the run;
-  28. the last line: ``{"ok": true, "device": {...}}``.
+  29. the last line: ``{"ok": true, "device": {...}}``.
 
 Without CUDA, or without the rest of the repository beside it, the script
 prints no result and exits with code 2 or 3.
@@ -1187,29 +1211,38 @@ def forward_breakdown(eng):
     return rows
 
 
-def device_busy(run, reps: int = 5):
+def device_busy(run, reps: int = 5, tries: int = 1):
     """Device time vs wall over ``reps`` calls of ``run`` under
     ``torch.profiler``: returns (wall ms, device ms, top kernels).  The
     device time sums the events the profiler recorded ON the device
     (kernels, copies — one stream, so they do not overlap; the host-side
     aten ops that launched them are not counted again); the profiler's
     own overhead lengthens the wall, so 1 − device/wall is an upper bound
-    of the idle share."""
+    of the idle share.  The profiler now and then records no device event
+    at all (device ms 0): with ``tries`` > 1 the calls are profiled again,
+    up to ``tries`` times in all — only for a ``run`` that may be
+    repeated."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(reps):
-            run()
+    for attempt in range(tries):
         torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
-    rows = [(e.key, e.self_device_time_total / 1e3)
-            for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
-    rows = sorted((r for r in rows if r[1] > 0), key=lambda r: -r[1])
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                run()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+        rows = [(e.key, e.self_device_time_total / 1e3)
+                for e in prof.key_averages()
+                if e.device_type == DeviceType.CUDA]
+        rows = sorted((r for r in rows if r[1] > 0), key=lambda r: -r[1])
+        if rows:
+            break
+        log(f"  the profiler recorded no device time (try {attempt + 1} "
+            f"of {tries})")
     return wall_ms, sum(ms for _, ms in rows), rows[:5]
 
 
@@ -1231,17 +1264,25 @@ def device_split(name, run, reps: int = 3, what: str = "steps",
                  classes=DEVICE_CLASSES):
     """Device time of ``reps`` calls of ``run`` under ``torch.profiler``,
     split into ``classes`` by kernel name (the rest as "other"), and the
-    idle share's upper bound; logged and returned as a dict."""
+    idle share's upper bound; logged and returned as a dict.  CUDA events
+    around the same calls give ``event_ms``, the span of the stream from
+    the first launch to the last kernel's end.  Where the profiler
+    recorded no device event (it now and then records none),
+    ``device_ms`` and ``idle_le`` are None — not measured — and the
+    caller's ``run`` is not repeated, since its launches may be counted."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
+        ev[0].record()
         for _ in range(reps):
             run()
+        ev[1].record()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
     split = {label: 0.0 for label, _ in classes}
@@ -1253,13 +1294,20 @@ def device_split(name, run, reps: int = 3, what: str = "steps",
         label = next((lab for lab, keys in classes
                       if any(k in e.key for k in keys)), "other")
         split[label] += ms
-    dev_ms = sum(split.values())
-    out = {"wall_ms": wall, "device_ms": dev_ms,
+    dev_ms = sum(split.values()) or None
+    out = {"wall_ms": wall, "event_ms": ev[0].elapsed_time(ev[1]),
+           "device_ms": dev_ms,
            "idle_le": (1 - dev_ms / wall) if dev_ms else None, **split}
+    if dev_ms is None:
+        log(f"  {name}: {reps} {what} under torch.profiler: wall "
+            f"{wall:.3f} ms, CUDA events {out['event_ms']:.3f} ms; the "
+            "profiler recorded no device time — device time and idle "
+            "share not measured")
+        return out
     log(f"  {name}: {reps} {what} under torch.profiler: wall {wall:.3f} ms, "
-        f"device {dev_ms:.3f} ms, idle share <= "
-        f"{out['idle_le'] if dev_ms else 'not measured'}; device ms by "
-        "class: " + ", ".join(f"{k} {v:.3f}" for k, v in split.items()))
+        f"CUDA events {out['event_ms']:.3f} ms, device {dev_ms:.3f} ms, "
+        f"idle share <= {out['idle_le']}; device ms by class: "
+        + ", ".join(f"{k} {v:.3f}" for k, v in split.items()))
     return out
 
 
@@ -2505,7 +2553,7 @@ CKPT_CASES = {"gcn-a2a": ("gcn", "a2a"), "gcn-ragged": ("gcn", "ragged"),
 
 
 def launch_counts(zero: bool = False) -> dict:
-    """The launch counts of every kernel entry phases 23–26's paths run
+    """The launch counts of every kernel entry phases 23–27's paths run
     (and K1's float-weight family entries, which must stay 0 there); with
     ``zero``, each is set to 0 first — the start of a path."""
     from sgcn_tpu_torch.models.gat import GatLayerSym
@@ -2518,6 +2566,7 @@ def launch_counts(zero: bool = False) -> dict:
 
     owners = {"fused": (spmm_tiles_fused, "launches"),
               "fused_wire": (spmm_tiles_fused, "wire_bf16_launches"),
+              "fused_bf16": (spmm_tiles_fused, "bf16_launches"),
               "stale_bwd": (PspmmTilesStale, "backward_launches"),
               "rep_bwd": (PspmmTilesReplica, "backward_launches"),
               "pack": (row_pack, "launches"),
@@ -2912,16 +2961,25 @@ def _phase_checkpoints(children, plan, ahat, feats, labels, pv, widths,
 PIPE_DIR = os.path.join(REPO, "build", "chip_smoke_pipeline")
 # the DCSBM flagship's partitions: k parts, the partition CLI's seed
 PART_K, PART_SEED = 8, 1
+# phase 27's mini-batch configuration: the reference's SHP → mini-batch
+# run (scripts/shp_minibatch_reddit.py: batch 4096, 100 sampled batches,
+# 20 simulation iterations, seed 1)
+MB_BATCH, SHP_SAMPLED, SHP_SIM = 4096, 100, 20
+MB_DIR = os.path.join(REPO, "build", "chip_smoke_minibatch")
 # threads and pools that must not outlive the script (closed at exit)
 BACKGROUND = []
 
 
 class FlagshipPartitions:
     """Phase 24's hp and gp partitions of the DCSBM flagship graph, each
-    twice (the determinism check), on two host threads started after
-    phase 0, so that their host seconds pass beside the card's phases 1–23
-    (the native calls release the interpreter lock).  ``result`` waits for
-    all four and re-raises a failure; ``close`` cancels what has not
+    twice (the determinism check), and phase 27's SHP pipeline
+    (``shp.run_shp``: the hp partition once more, the stochastic
+    hypergraph of ``SHP_SAMPLED`` batches of ``MB_BATCH`` and its
+    partition, the simulated batch volumes), on two host threads started
+    after phase 0, so that their host seconds pass beside the card's
+    phases 1–23 (the native calls release the interpreter lock).
+    ``result`` waits for the four partitions and ``shp_result`` for the
+    SHP run, each re-raising a failure; ``close`` cancels what has not
     started."""
 
     def __init__(self, ahat, k, seed):
@@ -2932,7 +2990,20 @@ class FlagshipPartitions:
         self.futures = {(mode, rep): self.pool.submit(
             self._run, ahat, mode, k, seed)
             for mode in ("hp", "gp") for rep in (0, 1)}
+        self.shp = self.pool.submit(self._shp, ahat, k, seed)
         BACKGROUND.append(self)
+
+    @staticmethod
+    def _shp(ahat, k, seed):
+        from sgcn_tpu_torch.shp import run_shp
+
+        t0, c0 = time.perf_counter(), time.thread_time()
+        res = run_shp(ahat, k, nsampled_batches=SHP_SAMPLED,
+                      batch_size=MB_BATCH, sim_iters=SHP_SIM, seed=seed)
+        return res, time.perf_counter() - t0, time.thread_time() - c0
+
+    def shp_result(self):
+        return self.shp.result()
 
     @staticmethod
     def _run(ahat, mode, k, seed):
@@ -3320,8 +3391,9 @@ def _pipeline_flagship(parts_bg, ahat_dc, dev, tb, smi):
         "K3 ms": k3["hp"]["ms"] / k3["rp"]["ms"],
         "served p50": serve["hp"][1]["latency_p50_ms"]
         / serve["rp"][1]["latency_p50_ms"],
-        "device ms a step": split["hp"]["device_ms"]
-        / split["rp"]["device_ms"],
+        "device ms a step": (split["hp"]["device_ms"]
+                             / split["rp"]["device_ms"])
+        if split["hp"]["device_ms"] and split["rp"]["device_ms"] else None,
     }
     log("  hp / rp: " + json.dumps(ratio))
     summary = {mode: {"B": plans[mode].b, "S": plans[mode].s,
@@ -3565,10 +3637,15 @@ def _phase_stale(children, plan, data, p_init, widths, rep5, fit_w,
         splits[name], _ = counted(lambda: device_split(
             f"{name} training", lambda: tr.step(data),
             classes=STALE_CLASSES))
-    delta_dev = (splits["stale+delta a2a"]["elementwise"]
-                 - splits["stale a2a"]["elementwise"]) / 3
-    log(f"  the delta cache's elementwise device time, stale+delta a2a "
-        f"minus stale a2a: {delta_dev:.3f} ms a step ({nl} layers)")
+    if splits["stale+delta a2a"]["device_ms"] and \
+            splits["stale a2a"]["device_ms"]:
+        delta_dev = (splits["stale+delta a2a"]["elementwise"]
+                     - splits["stale a2a"]["elementwise"]) / 3
+        log(f"  the delta cache's elementwise device time, stale+delta a2a "
+            f"minus stale a2a: {delta_dev:.3f} ms a step ({nl} layers)")
+    else:
+        log("  the delta cache's elementwise device time: not measured "
+            "(the profiler recorded no device time)")
     # the delta arithmetic of one layer alone, on the real layer-0 carry
     trd = cfgs["stale+delta a2a"]
     carry = trd.halo_carry["halos"][0]
@@ -4053,6 +4130,371 @@ def _phase_replicas(children, plan, data, p_init, widths, rep5, fit_w,
     return totals, pack_t["ER"]
 
 
+# ---------------------------------------------------- the mini-batch trainer
+def pad_stats(plans, model):
+    """The shared envelope's padding in the tiles the kernel walks, over
+    every batch plan: the share of stored tile slots that hold no edge,
+    and the longest pad chain — the weight-0 pad edges of one part's
+    padded edge list, which all land on row b−1 of its last tile (one
+    serial chain there)."""
+    if model == "gcn":
+        tiled = sum(p.ptile_lw.size + p.ptile_hw.size for p in plans)
+        real = sum(int(p.lnnz.sum() + p.hnnz.sum()) for p in plans)
+        chain = max(max(int((p.el - p.lnnz).max()),
+                        int((p.eh - p.hnnz).max())) for p in plans)
+    else:
+        tiled = sum(p.ptile_cw.size for p in plans)
+        real = sum(int(p.nnz.sum()) for p in plans)
+        chain = max(int((p.e - p.nnz).max()) for p in plans)
+    return {"pad_share": 1 - real / tiled, "pad_chain": chain,
+            "tiled_slots": tiled, "edges": real}
+
+
+def phase_minibatch(parts_bg, ahat_dc, fix, dev, smi):
+    """Phase 27 (module docstring): the mini-batch trainer and SHP.
+    Returns the launch counts of its paths by kernel entry (this
+    process's and the children's) and the max |kernel − plain| of the
+    fused entry and of K5 on the batch plans."""
+    children = Children()
+    try:
+        return _phase_minibatch(children, parts_bg, ahat_dc, fix, dev, smi)
+    finally:
+        children.stop()
+
+
+def _phase_minibatch(children, parts_bg, ahat_dc, fix, dev, smi):
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from sgcn_tpu_torch.io.datasets import load_npz_dataset
+    from sgcn_tpu_torch.io.mtx import write_mtx
+    from sgcn_tpu_torch.prep import normalize_adjacency
+    from sgcn_tpu_torch.train.minibatch import MiniBatchTrainer
+
+    t_phase = time.perf_counter()
+    total = {key: 0 for key in launch_counts()}
+
+    def counted(run):
+        launch_counts(zero=True)               # a main-path run starts here
+        out = run()
+        torch.cuda.synchronize()
+        got = launch_counts()                  # ... and ends here
+        for key in total:
+            total[key] += got[key]
+        return out, got
+
+    # ---- (a) the cora CLIs in children, one wave after another on a
+    # host thread, beside (b): the SHP CLI, then the train CLI's -n 512 on
+    # its stchp parts for 2 epochs with a checkpoint an epoch, then a
+    # resume to 3 epochs in new children; each wave's results are read
+    # and checked in (c)
+    shutil.rmtree(MB_DIR, ignore_errors=True)
+    os.makedirs(MB_DIR)
+    a_c, _, _ = load_npz_dataset(os.path.join(fix, "cora2708.npz"))
+    amtx = os.path.join(MB_DIR, "cora.A.mtx")
+    write_mtx(amtx, normalize_adjacency(a_c))
+    stchp = os.path.join(MB_DIR, "partvec.stchp.8")
+    base = ["--npz", os.path.join(fix, "cora2708.npz"), "--normalize", "-p",
+            stchp, "-s", "8", "-l", "2", "--hidden", "16", "-n", "512",
+            "--warmup", "1"]
+    ck = {s_: ["--comm-schedule", s_, "--checkpoint-dir",
+               os.path.join(MB_DIR, f"ck-{s_}"), "--checkpoint-every", "1"]
+          for s_ in ("a2a", "ragged")}
+
+    def run_waves():
+        waves = [
+            [("shp", "shp", ["-p", amtx, "-k", "8", "-b", "512", "-m", "10",
+                             "-s", "20", "-o", MB_DIR])],
+            [(f"train-{s_}", "train", base + ck[s_] + ["--epochs", "2"])
+             for s_ in ck],
+            [(f"resume-{s_}", "train", base + ck[s_]
+              + ["--epochs", "3", "--resume", "auto"]) for s_ in ck]]
+        out = {}
+        for jobs in waves:
+            procs = children.start([
+                (module, argv, None, os.path.join(MB_DIR, f"{nm}.json"))
+                for nm, module, argv in jobs])
+            codes = children.join(procs)
+            for (_, t_spawn), (nm, _, _), code in zip(procs, jobs, codes):
+                res = None
+                if code == 0:
+                    with open(os.path.join(MB_DIR, f"{nm}.json")) as fh:
+                        res = json.load(fh)
+                out[nm] = (code, t_spawn, res)
+            if codes != [0] * len(jobs):
+                break
+        return out
+
+    from concurrent.futures import ThreadPoolExecutor
+    cli_pool = ThreadPoolExecutor(max_workers=1, thread_name_prefix="clis")
+    cli_future = cli_pool.submit(run_waves)
+
+    # ---- (b) the DCSBM flagship on its hp and SHP's stchp parts
+    n, k = ahat_dc.shape[0], PART_K
+    t0 = time.perf_counter()
+    parts = parts_bg.result()
+    shp, shp_wall, shp_cpu = parts_bg.shp_result()
+    log(f"  SHP on the DCSBM flagship (shp.run_shp: k={k}, "
+        f"{SHP_SAMPLED} sampled batches of {MB_BATCH}, {SHP_SIM} simulated, "
+        f"seed {PART_SEED}) on a host thread beside phases 1-23: "
+        f"{shp_wall!r} s wall, {shp_cpu!r} s thread CPU; "
+        f"{time.perf_counter() - t0:.2f} s waited for it here")
+    pvs = {"hp": parts[("hp", 0)][0], "stchp": shp["partvec_stchp"]}
+    check_partvec(pvs["stchp"], n, k, "DCSBM stchp")
+    same_hp = np.array_equal(shp["partvec_hp"], pvs["hp"])
+    log(f"  SHP: km1 hp {shp['km1_hp']} (phase 24's "
+        f"{parts[('hp', 0)][1]}), stchp {shp['km1_stchp']} (on the "
+        f"stochastic hypergraph); simulated batch volume hp "
+        f"{shp['sim_comm_volume_hp']}, stchp {shp['sim_comm_volume_stchp']}"
+        f" (stchp / hp {shp['sim_comm_volume_stchp'] / max(shp['sim_comm_volume_hp'], 1):.4f}); "
+        f"its hp vector == phase 24's: {same_hp}")
+    if not same_hp or shp["km1_hp"] != parts[("hp", 0)][1]:
+        raise AssertionError("phase 27: run_shp's hp partition differs from "
+                             "phase 24's with the same arguments")
+    feats = np.random.default_rng(2).standard_normal((n, 128)).astype(
+        np.float32)
+    labels = np.random.default_rng(4).integers(0, 40, n)
+    widths = [128, 128, 40]
+    per_step = len(widths) + backward_passes(128, widths)   # 3 + 2
+
+    def build(pv, sched, model="gcn", dtype=None):
+        tr = MiniBatchTrainer(ahat_dc, pv, k, fin=128, widths=widths,
+                              batch_size=MB_BATCH, model=model,
+                              activation="relu" if model == "gcn" else "none",
+                              comm_schedule=sched, compute_dtype=dtype,
+                              seed=0, device=dev)
+        batches = tr.make_batches(feats, labels)
+        return tr, batches
+
+    summary, fused_err, k5_err = {}, 0.0, 0.0
+    runs = {}
+    for name, pv in pvs.items():
+        for sched in ("a2a", "ragged"):
+            tr, batches = build(pv, sched)
+            nb = len(batches)
+            p0 = tr.plans[0]
+            ps = pad_stats(tr.plans, "gcn")
+            log(f"  {name} GCN {sched}: {nb} batch plans, envelope B {p0.b} S "
+                f"{p0.s} R {p0.r} E {p0.e} (EL {p0.el} EH {p0.eh}"
+                + (f", rounds {list(p0.rr_sizes)}" if sched == "ragged"
+                   else "") + f"); plans built in {tr.plan_build_s!r} s, "
+                f"tile layouts + shipping {tr.layout_s!r} s (host); pad share "
+                f"of the tiled slots {ps['pad_share']:.4f} ({ps['edges']} "
+                f"edges in {ps['tiled_slots']} slots), longest pad chain "
+                f"{ps['pad_chain']}")
+            rep, got = counted(lambda: tr.fit(feats, labels, epochs=3,
+                                              warmup=0, verbose=False))
+            hist = rep["loss_history"]
+            steps = 3 * nb
+            want = {"pack": steps * per_step, "fused": steps * per_step,
+                    "k1": 0, "k1_bf16": 0}
+            if sched == "a2a":
+                want["sym_bwd"] = steps * (per_step - len(widths))
+            else:
+                want.update(ring=steps * len(widths),
+                            ring_bwd=steps * (per_step - len(widths)))
+            log(f"  {name} GCN {sched}: batch-averaged losses {hist}; "
+                f"epoch_s {rep['epoch_s']!r} (host clock, one pass over {nb} "
+                f"batches); launches {json.dumps({x: got[x] for x in want})}"
+                f", expected {json.dumps(want)} ({steps} steps x "
+                f"{per_step} aggregations); comm {json.dumps({x: rep[x] for x in ('total_send_volume', 'wire_rows_total', 'padding_efficiency')})}")
+            if any(got[x] != v for x, v in want.items()):
+                raise AssertionError(f"phase 27: {name} GCN {sched} launch "
+                                     "counts differ from the steps run")
+            if not (np.isfinite(hist).all() and hist[-1] < hist[0]):
+                raise AssertionError(f"phase 27: {name} GCN {sched} losses "
+                                     f"not finite and falling: {hist}")
+            runs[(name, sched)] = (tr, batches, rep, [
+                w.detach().clone() for w in tr.inner.params])
+        (_, _, ra, wa), (_, _, rr, wr) = (runs[(name, "a2a")],
+                                         runs[(name, "ragged")])
+        same = ra["loss_history"] == rr["loss_history"] and all(
+            torch.equal(x, y) for x, y in zip(wa, wr))
+        log(f"  {name}: ring == a2a bit for bit (3 epochs of losses and the "
+            f"weights after): {same}")
+        if not same:
+            raise AssertionError(f"phase 27: {name} ring != a2a")
+        tr = runs[(name, "a2a")][0]
+        summary[name] = {
+            "nbatches": len(tr.plans), "B": tr.plans[0].b,
+            "S": tr.plans[0].s, "R": tr.plans[0].r, "E": tr.plans[0].e,
+            "send_rows_per_layer_pass": sum(
+                int(p.predicted_send_volume.sum()) for p in tr.plans),
+            "plan_build_s": tr.plan_build_s, "layout_s": tr.layout_s,
+            "epoch_s_a2a": ra["epoch_s"], "epoch_s_ring": rr["epoch_s"]}
+    ratio = (summary["stchp"]["send_rows_per_layer_pass"]
+             / max(summary["hp"]["send_rows_per_layer_pass"], 1))
+    log(f"  plans' send rows per layer pass: hp "
+        f"{summary['hp']['send_rows_per_layer_pass']}, stchp "
+        f"{summary['stchp']['send_rows_per_layer_pass']}; "
+        f"volume_ratio_stchp_vs_hp {ratio:.4f}")
+
+    # the kernels on the padded batch plan with the longest pad chain
+    tr_a, batches_a, rep_a, _ = runs[("hp", "a2a")]
+    tr_r, batches_r, _, _ = runs[("hp", "ragged")]
+    j = int(np.argmax([max(int((p.el - p.lnnz).max()),
+                           int((p.eh - p.hnnz).max())) for p in tr_a.plans]))
+    for what, trn, bt in (("a2a", tr_a, batches_a[j]),
+                          ("ring", tr_r, batches_r[j])):
+        inner = trn.inner
+        inner.pa, inner.model.fwd_static = bt.pa, bt.fwd_static
+        fused_err = max(fused_err, check_launches(
+            f"hp batch plan {j} (longest pad chain) GCN {what} step",
+            record_launches(lambda: gcn_train_pass(inner, bt.data))))
+
+    # the epoch sweep (no readback between steps) == stepwise
+    trf, _ = build(pvs["hp"], "a2a")
+    t0 = time.perf_counter()
+    fl, _ = counted(lambda: trf.run_epochs_fused(feats, labels, epochs=3))
+    t_sweep = (time.perf_counter() - t0) / 3
+    same = fl.tolist() == rep_a["loss_history"] and all(
+        torch.equal(x, y) for x, y in zip(trf.inner.params,
+                                          runs[("hp", "a2a")][3]))
+    log(f"  run_epochs_fused (3 epochs) == fit's stepwise run bit for bit "
+        f"(losses {fl.tolist()}, weights): {same}; {t_sweep!r} s an epoch "
+        f"(host clock, one readback an epoch) against fit's "
+        f"{rep_a['epoch_s']!r}")
+    if not same:
+        raise AssertionError("phase 27: the epoch sweep != stepwise")
+
+    # per-batch step time (CUDA events), the device's split and idle share
+    run_epoch = (lambda: [trf._run(b) for b in trf._fused_batches])
+    ms = cuda_ms(run_epoch, reps=1, warmup=0) / len(trf._fused_batches)
+    log(f"  hp GCN a2a: {ms!r} ms a batch step (CUDA events over one epoch "
+        f"of {len(trf._fused_batches)} steps, no readback); card: {smi}")
+    split = device_split("hp GCN a2a mini-batch epoch", run_epoch, reps=1,
+                         what="epochs")
+
+    # GAT and the bf16 GCN on hp
+    trg, batches_g = build(pvs["hp"], "a2a", "gat")
+    ps = pad_stats(trg.plans, "gat")
+    rep_g, got = counted(lambda: trg.fit(feats, labels, epochs=3, warmup=0,
+                                         verbose=False))
+    steps = 3 * len(batches_g)
+    want_g = {"k5": steps * 2 * gat_passes(widths),
+              "gat_bwd": steps * gat_passes(widths),
+              "pack": steps * 2 * pack_launches("gat", "a2a", widths),
+              "fused": 0, "k1": 0}
+    hist = rep_g["loss_history"]
+    log(f"  hp GAT a2a: losses {hist}; epoch_s {rep_g['epoch_s']!r}; "
+        f"launches {json.dumps({x: got[x] for x in want_g})}, expected "
+        f"{json.dumps(want_g)} (per step 2 directions x "
+        f"{gat_passes(widths)} K5 passes, "
+        f"{2 * pack_launches('gat', 'a2a', widths)} packs); combined "
+        f"envelope {trg.plans[0].cell_buckets} ctl {trg.plans[0].ctl}; pad "
+        f"share {ps['pad_share']:.4f}, longest pad chain {ps['pad_chain']}; "
+        f"plans {trg.plan_build_s!r} s, layouts {trg.layout_s!r} s (host)")
+    if any(got[x] != v for x, v in want_g.items()) \
+            or not (np.isfinite(hist).all() and hist[-1] < hist[0]):
+        raise AssertionError("phase 27: hp GAT launches or losses")
+    bg = batches_g[j]
+    trg.inner.pa, trg.inner.model.fwd_static = bg.pa, bg.fwd_static
+    k5_err = check_gat_passes(record_gat_passes(
+        lambda: gat_train_pass(trg.inner, bg.data)),
+        f"hp batch plan {j} GAT step")
+    log(f"  hp batch plan {j} GAT step: every K5 pass == plain bit for bit")
+    trb, _ = build(pvs["hp"], "a2a", dtype="bfloat16")
+    rep_b, got = counted(lambda: trb.fit(feats, labels, epochs=3, warmup=0,
+                                         verbose=False))
+    steps = 3 * len(trb.plans)
+    want_b = {"fused_bf16": steps * per_step, "fused": 0,
+              "pack": steps * per_step, "k1_bf16": 0, "k1": 0}
+    hist, h32 = rep_b["loss_history"], rep_a["loss_history"]
+    band = np.allclose(hist, h32, rtol=0.05, atol=0.02)
+    log(f"  hp GCN compute_dtype=bfloat16 a2a: losses {hist} (float32 "
+        f"{h32}: in the reference's bf16 band rtol 0.05 / atol 0.02: "
+        f"{band}); epoch_s {rep_b['epoch_s']!r}; launches "
+        f"{json.dumps({x: got[x] for x in want_b})}, expected "
+        f"{json.dumps(want_b)}")
+    if any(got[x] != v for x, v in want_b.items()) or not band \
+            or not np.isfinite(hist).all():
+        raise AssertionError("phase 27: hp GCN bf16 launches or losses")
+
+    # evaluation on the full graph's plan, on the card
+    t0 = time.perf_counter()
+    (loss_e, acc_e), got = counted(lambda: tr_a.evaluate_fullgraph(
+        feats, labels))
+    ev = tr_a._fullgraph_eval[1]
+    log(f"  hp evaluate_fullgraph on the full plan (B {ev.plan.b}, on "
+        f"{ev.device}): loss {loss_e!r}, accuracy {acc_e!r} "
+        f"({time.perf_counter() - t0:.2f} s with its plan); launches pack "
+        f"{got['pack']}, fused {got['fused']} (expected {len(widths)} each)")
+    if not (np.isfinite(loss_e) and 0 <= acc_e <= 1
+            and ev.device.type == dev.type and got["pack"] == len(widths)
+            and got["fused"] == len(widths)):
+        raise AssertionError("phase 27: evaluate_fullgraph")
+
+    # ---- (c) the cora CLIs: SHP's stchp parts into the train CLI's -n 512
+    t0 = time.perf_counter()
+    try:
+        waves = cli_future.result()
+    finally:
+        cli_pool.shutdown()
+    log(f"  the cora CLI children ran beside (b); {time.perf_counter() - t0:.2f}"
+        " s waited for them here")
+    for nm, (code, t_spawn, res) in waves.items():
+        if code != 0:
+            raise AssertionError(f"phase 27: child {nm} exited {code}")
+        for key in total:
+            total[key] += res["launches"][key]
+        log(f"  {nm} child: start-up {res['t_imported'] - t_spawn:.2f} s, "
+            f"in the CLI {res['t_end'] - res['t_imported']:.2f} s")
+    if len(waves) != 5:
+        raise AssertionError(f"phase 27: children {sorted(waves)} ran")
+    lines = waves["shp"][2]["stdout"].strip().splitlines()
+    log("  shp CLI: " + " | ".join(lines))
+    if len(lines) != 2 or not (
+            lines[0].startswith(f"hp: {MB_DIR}/partvec.hp.8  km1=")
+            and lines[1].startswith(f"stchp: {stchp}  km1=")):
+        raise AssertionError(f"phase 27: the SHP CLI printed {lines}")
+    c_step = 2 + backward_passes(1433, [16, 7])
+    nb_c = 3 * (2708 // 512 + 1)
+
+    def losses_of(text):
+        return [float(x.split()[-1]) for x in text.splitlines()
+                if x.startswith("epoch ")]
+
+    cli = {}
+    for s_ in ck:
+        (full, rep_c), got = counted(lambda: run_train_cli(
+            base + ["--comm-schedule", s_, "--epochs", "3"]))
+        f_, r_ = waves[f"train-{s_}"][2], waves[f"resume-{s_}"][2]
+        seam = losses_of(f_["stdout"]) + losses_of(r_["stdout"])
+        want = {"train": (1 + 2 * nb_c) * c_step, "resume": nb_c * c_step,
+                "full": (1 + 3 * nb_c) * c_step}
+        have = {"train": f_["launches"]["fused"],
+                "resume": r_["launches"]["fused"], "full": got["fused"]}
+        packs = {"train": f_["launches"]["pack"],
+                 "resume": r_["launches"]["pack"], "full": got["pack"]}
+        log(f"  cora -n 512 {s_} ({rep_c['nbatches']} batches, "
+            f"{rep_c['comm_schedule']}): 2 epochs + resume to 3 {seam}; "
+            f"uninterrupted {full}; resumed at {r_['report']['resumed']}; "
+            f"fused launches {have}, packs {packs}, expected {want}")
+        if (seam != full or rep_c["nbatches"] != nb_c
+                or r_["report"]["resumed"]["step"] != 2
+                or have != want or packs != want):
+            raise AssertionError(f"phase 27: cora -n 512 {s_}: the resume or "
+                                 "the launches")
+        cli[s_] = full
+    if cli["a2a"] != cli["ragged"]:
+        raise AssertionError("phase 27: cora -n 512 ring != a2a")
+    log(f"  cora -n 512: ring == a2a ({cli['a2a']})")
+    summary["split"] = split
+    summary["step_ms"] = ms
+    summary["shp_s"] = shp_wall
+    summary["sim_comm_volume"] = {x: shp[f"sim_comm_volume_{x}"]
+                                  for x in ("hp", "stchp")}
+    summary["volume_ratio_stchp_vs_hp"] = ratio
+    log(f"  mini-batch summary: {json.dumps(summary)}; card: {smi}")
+    if total["k1"] or total["k1_bf16"]:
+        raise AssertionError(f"phase 27: K1 family launches {total}")
+    log(f"  phase 27 launches {json.dumps(total)}; phase wall "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return total, fused_err, k5_err
+
+
 def main() -> int:
     import torch
 
@@ -4103,7 +4545,8 @@ def main() -> int:
         f"14, seed 0), Â normalized, in {time.perf_counter() - t0:.2f} s: "
         f"nnz {ahat_dc.nnz}, longest row {row_nnz.max()} slots, p99 "
         f"{np.percentile(row_nnz, 99):.0f}; its hp and gp partitions (k="
-        f"{PART_K}, seed {PART_SEED}, twice each) start on two threads")
+        f"{PART_K}, seed {PART_SEED}, twice each) and phase 27's SHP run "
+        "start on two threads")
     parts_bg = FlagshipPartitions(ahat_dc, PART_K, PART_SEED)
 
     # ---------------------------------------------------------- phase 1
@@ -4776,7 +5219,7 @@ def main() -> int:
     calls = {"ms": lambda: row_shuffle(chunk, gidx),
              "plain_ms": lambda: row_shuffle_plain(chunk, gidx),
              "library_ms": lambda: torch.take_along_dim(chunk, idx_l, dim=0)}
-    k6 = {key: device_busy(fn, reps=100)[1] / 100
+    k6 = {key: device_busy(fn, reps=100, tries=3)[1] / 100
           for key, fn in calls.items()}
     if not all(v > 0 for v in k6.values()):
         raise AssertionError(f"the profiler saw no device time: {k6}")
@@ -4903,11 +5346,25 @@ def main() -> int:
     log(f"  phase 26 took {time.perf_counter() - t26:.1f} s")
 
     # ---------------------------------------------------------- phase 27
+    log("phase 27: the mini-batch trainer (batch 4096, 126 padded batch "
+        "plans) on the DCSBM flagship's hp parts and SHP's stchp parts: GCN "
+        "on both transports, GAT, GCN under compute_dtype, the epoch sweep, "
+        "the kernels on a padded batch plan, full-graph evaluation; the SHP "
+        "and the train CLI's -n 512 (checkpoint, resume) on cora2708")
+    t27 = time.perf_counter()
+    p27, fused_err27, k5_err27 = phase_minibatch(parts_bg, ahat_dc, fix, dev,
+                                                 smi)
+    MAIN_PATH_PACKS[0] += p27["pack"]
+    fused_err = max(fused_err, fused_err27)
+    log(f"  phase 27 took {time.perf_counter() - t27:.1f} s")
+
+    # ---------------------------------------------------------- phase 28
     fused_main = (launches_c + launches_f + launches_tc + launches_tf
                   + launches_fr + launches_rt + launches_ca + launches_cr
                   + l15["wire"] + l15["bf16"] + launches_16 + asym["fused"]
                   + p23["fused"] + p24["fused"] + p25["fused"]
-                  + p25["fused_wire"] + p26["fused"] + p26["fused_wire"])
+                  + p25["fused_wire"] + p26["fused"] + p26["fused_wire"]
+                  + p27["fused"] + p27["fused_bf16"])
     kernels = [{
         # K1's own float32-weight family entry: its launches on the main
         # path are the asymmetric backward's halo-ᵀ launches (the
@@ -4933,7 +5390,7 @@ def main() -> int:
         "source": "sgcn_tpu_torch/csrc/tile_spmm.cu",
         "replaces": "sgcn_tpu/ops/pallas_spmm.py:457-464",
         "launches": (bwd_tc + bwd_tf + p23["sym_bwd"] + p24["sym_bwd"]
-                     + p25["sym_bwd"] + p26["sym_bwd"]),
+                     + p25["sym_bwd"] + p26["sym_bwd"] + p27["sym_bwd"]),
         "max_abs_err": max(grad_err, fused_err),
         "ms": k3b["ms"],
         "plain_ms": k3b["plain_ms"],
@@ -4947,8 +5404,9 @@ def main() -> int:
         "replaces": "sgcn_tpu/ops/pallas_spmm.py:530-545",
         "launches": (launches_gc + launches_gf + launches_gt + launches_gtc
                      + launches_gfr + launches_grt + launches_gcr
-                     + l17["f32"] + asym["k5"] + p23["k5"] + p24["k5"]),
-        "max_abs_err": max(k5_err, err_f, err_b, k5r_err),
+                     + l17["f32"] + asym["k5"] + p23["k5"] + p24["k5"]
+                     + p27["k5"]),
+        "max_abs_err": max(k5_err, err_f, err_b, k5r_err, k5_err27),
         "ms": gat_fwd["ms"],
         "plain_ms": gat_fwd["plain_ms"],
         "bound_ms": gat_fwd["bound_ms"],
@@ -4960,7 +5418,7 @@ def main() -> int:
         "source": "sgcn_tpu_torch/csrc/tile_spmm.cu",
         "replaces": "sgcn_tpu/models/gat.py:637-687",
         "launches": (bwd_gt + bwd_gtc + bwd_grt + bwd_gcr + p23["gat_bwd"]
-                     + p24["gat_bwd"]),
+                     + p24["gat_bwd"] + p27["gat_bwd"]),
         "max_abs_err": max(err_b, k5r_err),
         "ms": gat_bwd["ms"],
         "plain_ms": gat_bwd["plain_ms"],
@@ -4974,7 +5432,8 @@ def main() -> int:
         "source": "sgcn_tpu_torch/csrc/tile_spmm.cu",
         "replaces": "sgcn_tpu/ops/pallas_spmm.py:469-527",
         "launches": (launches_fr + ring_rt + ring_cr + p23["ring"]
-                     + p24["ring"] + p25["ring"] + p26["ring"]),
+                     + p24["ring"] + p25["ring"] + p26["ring"]
+                     + p27["ring"]),
         "max_abs_err": max(k4_err, fused_err),
         "ms": k4["ms"],
         "plain_ms": k4["plain_ms"],
@@ -4988,7 +5447,7 @@ def main() -> int:
         "replaces": "sgcn_tpu/ops/pallas_spmm.py:517-523",
         "launches": (ring_bwd_rt + ring_bwd_cr + p23["ring_bwd"]
                      + p24["ring_bwd"] + p25["ring_bwd"]
-                     + p26["ring_bwd"]),
+                     + p26["ring_bwd"] + p27["ring_bwd"]),
         "max_abs_err": max(k4b_err, fused_err),
         "ms": k4b["ms"],
         "plain_ms": k4b["plain_ms"],

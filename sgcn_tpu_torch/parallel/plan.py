@@ -60,8 +60,12 @@ budget and ``replica_carry_shapes`` its carries; ``ensure_replicas`` also
 builds the port-only lists the trainer packs by: each kept receive
 slot's source and destination (``keep_*``) and each replica slot's
 position (``rep_*_dst``, ``rep_src_flat``, ``rep_base_flat``,
-``rep_table_pos``).  Not ported: the forced ring envelope and the
-per-round edge split (``rr_edge_sizes``, ``redge_*``).
+``rep_table_pos``).  The mini-batch trainer's shared envelope:
+``pad_comm_plan`` re-pads a batch plan to it, ``shared_ell_buckets``
+gives the buckets every batch plan shares, and ``ensure_cell`` /
+``ensure_ragged`` take a forced combined layout and forced round sizes.
+Not ported: the per-round halo-edge split of the ELL ring aggregator
+(``rr_edge_sizes``, ``redge_*``).
 Everything here is offline numpy.
 """
 
@@ -449,15 +453,25 @@ class CommPlan:
         ]).astype(np.int32)
         return self
 
-    def ensure_cell(self) -> "CommPlan":
+    def ensure_cell(self, buckets: tuple | None = None,
+                    ctl: int | None = None,
+                    max_buckets: int | None = None) -> "CommPlan":
         """Build the combined-edge bucketed layout on first use (GAT):
-        ``_build_ell`` over the whole dst-sorted edge list."""
-        if self.cell_buckets is None:
+        ``_build_ell`` over the whole dst-sorted edge list.  ``buckets`` /
+        ``ctl`` force the bucket structure and tail length (the mini-batch
+        plans share one), and rebuild a layout built with others;
+        ``max_buckets`` caps the bucket count (default 6).  A rebuild
+        drops the combined tiles built from the old layout."""
+        if (self.cell_buckets is None
+                or buckets not in (None, self.cell_buckets)
+                or (ctl is not None and ctl != self.ctl)):
             fields = _cell_fields(_build_ell(
                 self.edge_dst, self.edge_src, self.edge_w, self.nnz, self.b,
-                row_order=self.row_order))
+                row_order=self.row_order, buckets=buckets, tl=ctl,
+                max_buckets=6 if max_buckets is None else max_buckets))
             for name, val in fields.items():
                 setattr(self, name, val)
+            self.ptile_csrc = self.ptile_crsrc = None
         return self
 
     def ensure_pallas_cell_tiles(self, tb: int = 256) -> "CommPlan":
@@ -638,17 +652,38 @@ class CommPlan:
         idx = np.arange(k)
         return tuple(int(sc[idx, (idx + d) % k].max()) for d in range(1, k))
 
-    def ensure_ragged(self) -> "CommPlan":
+    def ensure_ragged(self, rr_sizes: tuple | None = None,
+                      rr_edge_sizes: tuple | None = None) -> "CommPlan":
         """Build the ragged ring layout on first use: ``rr_sizes``, the
         send rows ``rsend_idx`` (round d's slots of part p hold
         ``send_idx[p, (p+d) mod k]``) and the receive map ``rhalo_dst``
         (round d's slots of part q name the halo ranks of the rows owner
         ``(q−d) mod k`` sends; pads name rank R).  The halo order is
         (owner, vertex) and every send list is id-sorted, so a round's
-        rows arrive exactly as the owner's contiguous halo slice."""
-        if self.rr_sizes is not None:
+        rows arrive exactly as the owner's contiguous halo slice.
+
+        ``rr_sizes`` forces larger per-round sizes (the mini-batch trainer
+        pads every batch plan's rounds to a shared envelope, as the
+        reference does); a forced size below the natural one raises, and
+        a layout built at other sizes is rebuilt (with the ring-re-based
+        tile sources, ``ptile_hrsrc``/``ptile_crsrc``, dropped).
+        ``rr_edge_sizes`` is accepted so call sites read like the
+        reference's, and ignored: the reference's per-round halo-edge split
+        (``redge_*``, sized by it) feeds its ELL ring aggregator, which is
+        not ported — the tile layout reads the ring concat through
+        ``ptile_hrsrc``."""
+        del rr_edge_sizes                  # the redge_* split: not ported
+        if self.rr_sizes is not None and rr_sizes in (None, self.rr_sizes):
             return self
-        rr_sizes = self.ragged_round_sizes()
+        nat = self.ragged_round_sizes()
+        if rr_sizes is None:
+            rr_sizes = nat
+        elif (len(rr_sizes) != len(nat)
+                or any(a < b for a, b in zip(rr_sizes, nat))):
+            raise ValueError(
+                f"forced rr_sizes {tuple(rr_sizes)} smaller than natural "
+                f"{nat}")
+        rr_sizes = tuple(int(x) for x in rr_sizes)
         k, s, r = self.k, self.s, self.r
         sc = np.asarray(self.send_counts)
         owner_rank = np.asarray(self.halo_src) // s       # (k, R) owner per
@@ -689,6 +724,7 @@ class CommPlan:
         self.rsend_idx = rsend_idx
         self.rhalo_dst = rhalo_dst
         self.ring_src = ring_src.astype(np.int32)
+        self.ptile_hrsrc = self.ptile_crsrc = None   # re-based on the ring
         return self
 
     def padding_efficiency(self) -> float:
@@ -1133,15 +1169,18 @@ def _relabel(n: int, partvec: np.ndarray, k: int, pad_rows_to: int,
     return owner, local_idx, part_sizes, b, row_valid
 
 
-def _split_edges(edge_dst, edge_src, edge_w, nnz, b, halo_fold_key=None):
+def _split_edges(edge_dst, edge_src, edge_w, nnz, b,
+                 el: int | None = None, eh: int | None = None,
+                 halo_fold_key=None):
     """Split padded (k, E) edge lists into local-src and halo-src lists.
 
     Local edges (``src < b``) keep their src; halo edges re-base src to the
-    halo block (``src - b``).  ``halo_fold_key`` ((k, R) int, optional):
-    each part's halo edges are re-sorted by (dst, fold, rank) — the
-    reference's arrival-round order of the ragged ring, kept so the edge
-    order (and the tile layout built from it) matches the reference.
-    Padding edges carry dst ``b-1`` and weight 0.
+    halo block (``src - b``).  ``el`` / ``eh`` force a larger padded width
+    (the mini-batch plans' shared envelope).  ``halo_fold_key`` ((k, R)
+    int, optional): each part's halo edges are re-sorted by (dst, fold,
+    rank) — the reference's arrival-round order of the ragged ring, kept
+    so the edge order (and the tile layout built from it) matches the
+    reference.  Padding edges carry dst ``b-1`` and weight 0.
     """
     k = edge_dst.shape[0]
     parts = []
@@ -1157,8 +1196,12 @@ def _split_edges(edge_dst, edge_src, edge_w, nnz, b, halo_fold_key=None):
         parts.append((d[lm], s0[lm], w[lm], hd, hs, hw))
     lnnz = np.array([len(t[0]) for t in parts], dtype=np.int64)
     hnnz = np.array([len(t[3]) for t in parts], dtype=np.int64)
-    el = max(1, int(lnnz.max()) if k else 1)
-    eh = max(1, int(hnnz.max()) if k else 1)
+    el_nat = max(1, int(lnnz.max()) if k else 1)
+    eh_nat = max(1, int(hnnz.max()) if k else 1)
+    el = el_nat if el is None else el
+    eh = eh_nat if eh is None else eh
+    if el < el_nat or eh < eh_nat:
+        raise ValueError("split envelope smaller than natural edge counts")
     ld = np.full((k, el), b - 1, dtype=np.int32)
     ls = np.zeros((k, el), dtype=np.int32)
     lw = np.zeros((k, el), dtype=np.float32)
@@ -1248,22 +1291,27 @@ def _single_bucket_width(alldeg: np.ndarray, tail_frac: float) -> int:
 
 
 def _build_ell(ledge_dst, ledge_src, ledge_w, lnnz, b,
-               row_order: str = "degree", tail_frac: float = 0.02,
-               max_buckets: int = 6):
+               row_order: str = "degree",
+               buckets: tuple | None = None, tl: int | None = None,
+               tail_frac: float = 0.02, max_buckets: int = 6):
     """Bucketed-ELL layout of dst-sorted edge lists (see CommPlan):
     ``row_order='degree'`` takes the buckets of ``_choose_buckets``,
-    ``'id'`` one bucket of the classic tail-bounded width."""
+    ``'id'`` one bucket of the classic tail-bounded width.  ``buckets`` /
+    ``tl`` force the bucket structure and a larger tail length (the
+    mini-batch plans' shared envelope); edges past a forced row width
+    spill to the tail."""
     k = ledge_dst.shape[0]
     degs = [np.bincount(ledge_dst[p, : int(lnnz[p])], minlength=b)
             for p in range(k)]
-    if row_order == "degree":
-        prof = np.zeros(b, dtype=np.int64)
-        for dg in degs:
-            np.maximum(prof, dg, out=prof)
-        buckets = _choose_buckets(prof, max_buckets=max_buckets)
-    else:
-        alldeg = (np.concatenate(degs) if k else np.zeros(1, np.int64))
-        buckets = ((b, _single_bucket_width(alldeg, tail_frac)),)
+    if buckets is None:
+        if row_order == "degree":
+            prof = np.zeros(b, dtype=np.int64)
+            for dg in degs:
+                np.maximum(prof, dg, out=prof)
+            buckets = _choose_buckets(prof, max_buckets=max_buckets)
+        else:
+            alldeg = (np.concatenate(degs) if k else np.zeros(1, np.int64))
+            buckets = ((b, _single_bucket_width(alldeg, tail_frac)),)
     if sum(nb for nb, _ in buckets) != b:
         raise ValueError(f"buckets {buckets} do not cover {b} rows")
     et = sum(nb * wb for nb, wb in buckets)
@@ -1296,7 +1344,10 @@ def _build_ell(ledge_dst, ledge_src, ledge_w, lnnz, b,
         ell_wv[p][slots] = w[main]
         tails.append((d[~main].astype(np.int32), s0[~main], w[~main]))
     ltail_nnz = np.array([len(t[0]) for t in tails], dtype=np.int64)
-    tl = max(1, int(ltail_nnz.max()) if k else 1)
+    tl_nat = max(1, int(ltail_nnz.max()) if k else 1)
+    tl = tl_nat if tl is None else tl
+    if tl < tl_nat:
+        raise ValueError("tail envelope smaller than natural tail size")
     ltail_dst = np.full((k, tl), b - 1, dtype=np.int32)
     ltail_src = np.zeros((k, tl), dtype=np.int32)
     ltail_w = np.zeros((k, tl), dtype=np.float32)
@@ -1308,6 +1359,32 @@ def _build_ell(ledge_dst, ledge_src, ledge_w, lnnz, b,
                 ell_buckets=buckets, ell_idx=ell_idx, ell_w=ell_wv,
                 ltail_dst=ltail_dst, ltail_src=ltail_src, ltail_w=ltail_w,
                 ltail_nnz=ltail_nnz)
+
+
+def shared_ell_buckets(plans: list, b: int, combined: bool = False) -> tuple:
+    """Bucket structure covering every plan's degree profile — the shared
+    envelope companion of ``pad_comm_plan`` for mini-batch plans (all
+    padded to ``b`` rows).  ``combined=True`` covers the combined
+    local + halo edge lists (the GAT layout) instead of the local-src
+    ones."""
+    prof = np.zeros(b, dtype=np.int64)
+    for pl in plans:
+        q = (ell_degree_profile(pl.edge_dst, pl.nnz, pl.b) if combined
+             else ell_degree_profile(pl.ledge_dst, pl.lnnz, pl.b))
+        np.maximum(prof[: pl.b], q, out=prof[: pl.b])
+    if all(pl.row_order == "degree" for pl in plans):
+        return _choose_buckets(prof)
+    # id-ordered rows: one classic tail-bounded width shared by all, each
+    # plan's natural combined width read from its degree counts
+    if combined:
+        widths = []
+        for pl in plans:
+            alldeg = np.concatenate(
+                [np.bincount(pl.edge_dst[p, : int(pl.nnz[p])], minlength=pl.b)
+                 for p in range(pl.k)])
+            widths.append(_single_bucket_width(alldeg, tail_frac=0.02))
+        return ((b, max(widths)),)
+    return ((b, max(pl.ell_k for pl in plans)),)
 
 
 def _cell_fields(ell: dict) -> dict:
@@ -1445,6 +1522,81 @@ def resolve_comm_schedule(schedule: str | None, plans, model: str,
     if not wire or true / wire >= RAGGED_AUTO_EFFICIENCY:
         return resolved("a2a", "padding efficiency at/above threshold")
     return resolved("ragged", "padding efficiency below threshold")
+
+
+def pad_comm_plan(plan: CommPlan, b: int, s: int, r: int, e: int,
+                  el: int | None = None, eh: int | None = None,
+                  tl: int | None = None, ctl: int | None = None,
+                  ell_buckets: tuple | None = None,
+                  cell_buckets: tuple | None = None) -> CommPlan:
+    """Re-pad a plan to a larger (B, S, R, E) envelope (and EL, EH, TL,
+    CTL, the ELL buckets): the reference's construction, array for array,
+    by which every mini-batch plan takes one shared envelope.  Pad edges
+    carry weight 0 and dst ``b-1`` (each ``edge_dst`` stays
+    non-decreasing), the halo sources re-base from ``plan.b`` to ``b``,
+    the flat receive slots ``q·S_old + t`` move to ``q·S + t``, and pad
+    send / halo slots index row 0.  Returns a plan with none of the lazy
+    layouts (tiles, exchange, ring) built; a plan already at the envelope
+    comes back as it is."""
+    el = plan.el if el is None else el
+    eh = plan.eh if eh is None else eh
+    tl = plan.tl if tl is None else tl
+    if ctl is None:
+        ctl = plan.ctl
+    if (b, s, r, e, el, eh, tl) == (
+            plan.b, plan.s, plan.r, plan.e, plan.el, plan.eh, plan.tl) \
+            and ctl == plan.ctl \
+            and ell_buckets in (None, plan.ell_buckets) \
+            and cell_buckets in (None, plan.cell_buckets):
+        return plan
+    if (b < plan.b or s < plan.s or r < plan.r or e < plan.e
+            or el < plan.el or eh < plan.eh or tl < plan.tl
+            or (ctl is not None and plan.ctl is not None and ctl < plan.ctl)):
+        raise ValueError("pad_comm_plan cannot shrink an envelope")
+    k = plan.k
+
+    send_idx = np.zeros((k, k, s), dtype=np.int32)
+    send_idx[:, :, : plan.s] = plan.send_idx
+    halo_src = np.zeros((k, r), dtype=np.int32)
+    # old flat receive slots q·S_old + t → q·S + t
+    q_old, t_old = plan.halo_src // plan.s, plan.halo_src % plan.s
+    halo_src[:, : plan.r] = (q_old * s + t_old).astype(np.int32)
+    edge_dst = np.full((k, e), b - 1, dtype=np.int32)
+    edge_dst[:, : plan.e] = plan.edge_dst
+    # the old pad edges pointed at plan.b-1: move them to b-1 (weight 0
+    # either way) so each list stays non-decreasing
+    for p in range(k):
+        edge_dst[p, plan.nnz[p]: plan.e] = b - 1
+    edge_src = np.zeros((k, e), dtype=np.int32)
+    # the halo block moves from plan.b to b
+    old_src = plan.edge_src
+    edge_src[:, : plan.e] = np.where(
+        old_src >= plan.b, old_src - plan.b + b, old_src)
+    edge_w = np.zeros((k, e), dtype=np.float32)
+    edge_w[:, : plan.e] = plan.edge_w
+    row_valid = np.zeros((k, b), dtype=np.float32)
+    row_valid[:, : plan.b] = plan.row_valid
+
+    peers = plan.send_counts.shape[1]
+    split = _split_edges(edge_dst, edge_src, edge_w, plan.nnz, b, el=el, eh=eh,
+                         halo_fold_key=(np.arange(k)[:, None]
+                                        - halo_src // s) % peers)
+    ell = _build_ell(split["ledge_dst"], split["ledge_src"], split["ledge_w"],
+                     split["lnnz"], b, row_order=plan.row_order,
+                     buckets=ell_buckets, tl=tl)
+    padded = CommPlan(
+        n=plan.n, k=k, b=b, s=s, r=r, e=e,
+        owner=plan.owner, local_idx=plan.local_idx, part_sizes=plan.part_sizes,
+        send_idx=send_idx, send_counts=plan.send_counts.copy(),
+        halo_src=halo_src, halo_counts=plan.halo_counts.copy(),
+        edge_dst=edge_dst, edge_src=edge_src, edge_w=edge_w,
+        nnz=plan.nnz.copy(), row_valid=row_valid,
+        symmetric=plan.symmetric, row_order=plan.row_order,
+        **split, **ell,
+    )
+    if cell_buckets is not None or plan.cell_buckets is not None:
+        padded.ensure_cell(buckets=cell_buckets, ctl=ctl)
+    return padded
 
 
 def build_comm_plan(

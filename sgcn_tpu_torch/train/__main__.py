@@ -1,5 +1,6 @@
 """Training CLI of the port — the exact full-batch GCN/GAT trainer
-(``--model gat``) and the accuracy-parity experiment.
+(``--model gat``), the mini-batch trainer (``-n BATCH``) and the
+accuracy-parity experiment.
 
 ::
 
@@ -30,8 +31,14 @@ guards.  ``--replica-budget B|auto`` trains with hot-halo replicas
 (``--sync-every N`` refreshes them every N steps, ``--refresh-band RHO``
 makes the refreshes after step 0 partial; with ``--halo-staleness 1``
 the replicas compose with the stale carry), with the reference's guards.
-Flags whose feature is not ported are not defined (mini-batch,
-profiling, metrics, memory budget).  Prints ONE JSON line: the
+``-n BATCH`` trains the mini-batch trainer (``train/minibatch.py``:
+``3·(n//BATCH + 1)`` sampled batches, one padded plan each, an epoch a
+pass over all of them; GCN or GAT, ``--dtype`` and ``--comm-schedule``
+apply, the full-batch levers exit with the reference's messages); with
+``--checkpoint-dir`` it saves every ``--checkpoint-every`` EPOCHS and
+``--resume auto`` trains the remaining epochs, ``--warmup`` only on a
+fresh start.  Flags whose feature is not ported are not defined
+(profiling, metrics, memory budget).  Prints ONE JSON line: the
 comm report and epoch timing under the reference's keys (in the stale
 mode with its hidden/exposed split, the stale flags and the controller's
 log; in the replica mode its replica figures and flags) (with
@@ -55,6 +62,86 @@ def _budget(text: str):
     return int(text)
 
 
+def _fit_minibatch_durable(tr, feats, labels, args, mgr,
+                           start_ep: int = 0) -> dict:
+    """The mini-batch trainer's durable path: ``fit`` in chunks of
+    ``--checkpoint-every`` EPOCHS (its checkpoint grain: the batch plans
+    have no stable step identity), saving the inner trainer's state after
+    each chunk.  ``--warmup`` runs only on a fresh start (warm-up steps
+    are real optimizer steps a resumed run must not repeat)."""
+    from ..resilience.runner import save_and_record
+
+    every = args.checkpoint_every
+    total = args.epochs
+    history: list = []
+    warm = args.warmup if start_ep == 0 else 0
+    done, report = start_ep, None
+    while done < total:
+        run = total - done
+        if every:
+            run = min(run, every - done % every)
+        report = tr.fit(feats, labels, epochs=run, warmup=warm)
+        warm = 0
+        history += report.get("loss_history", [])
+        done += run
+        if every and done % every == 0:
+            save_and_record(mgr, tr.inner, done)
+    if report is None:
+        # resumed at (or past) the full schedule: nothing left to train
+        report = {"note": "resume found the epoch schedule complete"}
+    report.update(epochs=done, loss_history=history, start_epoch=start_ep)
+    return report
+
+
+def _run_minibatch(args, a, feats, labels, pv, k, f, widths, activation,
+                   device) -> dict:
+    """``-n BATCH``: the mini-batch trainer, with the durable path under
+    ``--checkpoint-dir`` (checkpoints count EPOCHS), ``--resume`` and
+    ``--save-checkpoint`` as the reference CLI runs them.  Returns the
+    report."""
+    from .minibatch import MiniBatchTrainer
+
+    tr = MiniBatchTrainer(a, pv, k, fin=f, widths=widths,
+                          batch_size=args.batch_size, lr=args.lr,
+                          model=args.model, loss=args.loss,
+                          activation=activation, seed=args.seed,
+                          compute_dtype=args.dtype,
+                          comm_schedule=args.comm_schedule, device=device)
+    mgr = None
+    if args.checkpoint_dir:
+        from ..resilience.checkpoint import CheckpointManager
+        mgr = CheckpointManager(args.checkpoint_dir,
+                                keep_last=args.keep_checkpoints)
+    state = tr.inner                 # the checkpointable weights and Adam
+    start, resumed = 0, None
+    if args.resume == "auto":
+        # mini-batch checkpoints count the EPOCHS completed
+        start, rpath, skipped = mgr.load_latest(state)
+        resumed = {"step": start, "path": rpath, "fallback": bool(skipped)}
+    elif args.resume:
+        from ..utils.checkpoint import load_checkpoint
+        start = load_checkpoint(state, args.resume)
+    if mgr is not None:
+        report = _fit_minibatch_durable(
+            tr, feats, labels, args, mgr,
+            start_ep=start if args.resume == "auto" else 0)
+    else:
+        report = tr.fit(feats, labels, epochs=args.epochs,
+                        warmup=args.warmup)
+    if resumed is not None:
+        report["resumed"] = resumed
+    if args.save_checkpoint:
+        # the durable path stamps at EPOCH grain everywhere, so the final
+        # stamp agrees with its files whether or not this run resumed;
+        # otherwise warm-up steps count, chained resumes add up
+        from ..utils.checkpoint import save_checkpoint
+        final = (args.epochs if mgr is not None
+                 else start + args.epochs + args.warmup)
+        report["checkpoint"] = save_checkpoint(state, args.save_checkpoint,
+                                               step=final)
+    return report
+
+
 def build_parser(description: str = "sgcn_tpu_torch partitioned full-batch "
                  "trainer") -> argparse.ArgumentParser:
     """The trainer's flags (``tools/repeat_run.py`` adds its own)."""
@@ -66,6 +153,8 @@ def build_parser(description: str = "sgcn_tpu_torch partitioned full-batch "
     p.add_argument("-s", "--nparts", type=int, required=True)
     p.add_argument("-l", "--nlayers", type=int, default=2)
     p.add_argument("-f", "--nfeatures", type=int, default=16)
+    p.add_argument("-n", "--batch-size", type=int, default=None,
+                   help="enable the mini-batch trainer")
     p.add_argument("--model", default="gcn", choices=["gcn", "gat"])
     p.add_argument("--activation", default=None,
                    choices=["relu", "sigmoid", "elu", "none"],
@@ -157,7 +246,8 @@ def build_parser(description: str = "sgcn_tpu_torch partitioned full-batch "
                         "directory --resume auto restores from")
     p.add_argument("--checkpoint-every", type=int, default=0, metavar="N",
                    help="write a durable full-state checkpoint into "
-                        "--checkpoint-dir every N optimizer steps.  0 = off")
+                        "--checkpoint-dir every N optimizer steps (for the "
+                        "mini-batch trainer N counts EPOCHS).  0 = off")
     p.add_argument("--keep-checkpoints", type=int, default=3, metavar="K",
                    help="rotation depth of --checkpoint-dir (keep the "
                         "newest K checkpoints; default 3)")
@@ -227,7 +317,8 @@ def main(argv=None) -> None:
 
     # pure flag conflicts fail before any dataset load (the reference's
     # guards, with its words)
-    if args.halo_dtype and (args.model != "gcn"
+    if args.halo_dtype and (args.batch_size is not None
+                            or args.model != "gcn"
                             or args.experiment == "accuracy"
                             or args.dtype):
         raise SystemExit(
@@ -236,7 +327,8 @@ def main(argv=None) -> None:
             "accuracy-parity harness is defined for the f32-wire config; "
             "under --dtype bfloat16 the wire is already bf16, so the flag "
             "would be a silent no-op)")
-    if args.halo_staleness and (args.model != "gcn"
+    if args.halo_staleness and (args.batch_size is not None
+                                or args.model != "gcn"
                                 or args.experiment == "accuracy"
                                 or args.dtype):
         raise SystemExit(
@@ -254,7 +346,8 @@ def main(argv=None) -> None:
             "--sync-every schedules the stale mode's full-sync steps or "
             "the replica mode's refresh steps; add --halo-staleness 1 or "
             "--replica-budget B")
-    if args.replica_budget and (args.model != "gcn"
+    if args.replica_budget and (args.batch_size is not None
+                                or args.model != "gcn"
                                 or args.experiment == "accuracy"
                                 or args.dtype
                                 or args.halo_delta):
@@ -295,6 +388,14 @@ def main(argv=None) -> None:
             "--experiment accuracy trains fresh oracle+partitioned pairs; "
             "durable checkpointing (--checkpoint-dir) is not supported "
             "there")
+    if (args.checkpoint_dir and args.batch_size is not None
+            and args.resume and args.resume != "auto"):
+        raise SystemExit(
+            "mini-batch: explicit --resume CKPT does not compose with "
+            "--checkpoint-dir (the durable stamps count EPOCHS of THIS "
+            "schedule and would collide with the chained run's) — resume "
+            "the durable directory with --resume auto, or drop "
+            "--checkpoint-dir for a chained run")
 
     if args.experiment == "accuracy" and (
             args.model != "gcn" or args.loss != "xent" or args.dtype
@@ -326,9 +427,20 @@ def main(argv=None) -> None:
             labels, per_class=args.train_per_class, seed=args.seed)
         report = run_accuracy_parity(
             a, feats, labels, pv, k, widths, train_mask, test_mask,
-            epochs=args.epochs, lr=args.lr, seed=args.seed, device=device)
+            epochs=args.epochs, batch_size=args.batch_size, lr=args.lr,
+            seed=args.seed, device=device)
         report["experiment"] = "accuracy"
         report["device"] = args.device
+        print(json.dumps(report), flush=True)
+        return
+
+    if args.batch_size is not None:
+        report = _run_minibatch(args, a, feats, labels, pv, k, f, widths,
+                                activation, device)
+        report.update(device=args.device, model=args.model,
+                      activation=activation, loss=args.loss,
+                      dtype=args.dtype, halo_dtype=args.halo_dtype)
+        report.pop("loss_history", None)
         print(json.dumps(report), flush=True)
         return
 

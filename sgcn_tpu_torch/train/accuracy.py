@@ -1,10 +1,11 @@
 """Accuracy-parity experiment — does partitioning change predictive power?
-(port of ``sgcn_tpu/train/accuracy.py``, full-batch branch).
+(port of ``sgcn_tpu/train/accuracy.py``).
 
-Trains (a) the single-device dense oracle and (b) the partitioned
-full-batch trainer from the same init seed on the same split, and
-reports the test accuracy of each.  The mini-batch flavor is not ported
-yet (ROADMAP A8).
+Trains (a) the single-device dense oracle, (b) the partitioned
+full-batch trainer and, with ``batch_size``, (c) the partitioned
+mini-batch trainer, all from the same init seed on the same split, and
+reports the test accuracy of each (the mini-batch one evaluated on the
+whole graph).
 """
 
 from __future__ import annotations
@@ -15,6 +16,7 @@ import scipy.sparse as sp
 from ..baselines.oracle import DenseOracle
 from ..parallel.plan import build_comm_plan
 from .fullbatch import FullBatchTrainer, make_train_data
+from .minibatch import MiniBatchTrainer
 
 
 def train_test_split_masks(n: int, train_frac: float = 0.6,
@@ -45,13 +47,12 @@ def run_accuracy_parity(
     lr: float = 0.01,
     seed: int = 0,
     device=None,
+    verbose: bool = False,
 ) -> dict:
-    """Train the oracle and the partitioned trainer on the same split;
-    report ``oracle_test_acc`` and ``fullbatch_test_acc``.  ``device``
-    as in ``FullBatchTrainer`` (``None`` = ``cuda``)."""
-    if batch_size is not None:
-        raise NotImplementedError(
-            "mini-batch trainer not ported yet (ROADMAP A8)")
+    """Train the oracle and the partitioned trainer(s) on the same split;
+    report ``oracle_test_acc``, ``fullbatch_test_acc`` and, with
+    ``batch_size``, ``minibatch_test_acc``.  ``device`` as in
+    ``FullBatchTrainer`` (``None`` = ``cuda``)."""
     fin = features.shape[1]
     results: dict = {}
 
@@ -70,4 +71,12 @@ def run_accuracy_parity(
         tr.step(data)
     _, acc = tr.evaluate(data)
     results["fullbatch_test_acc"] = float(acc)
+
+    if batch_size is not None:
+        mb = MiniBatchTrainer(a, partvec, k, fin, widths,
+                              batch_size=batch_size, lr=lr, seed=seed,
+                              device=device)
+        mb.fit(features, labels, train_mask, epochs=epochs, verbose=verbose)
+        _, acc = mb.evaluate_fullgraph(features, labels, test_mask)
+        results["minibatch_test_acc"] = float(acc)
     return results

@@ -23,7 +23,10 @@ Provenance: ``load_checkpoint`` and the serve engine verify the recorded
 plan digest and model config FIRST and fail with the reference's message
 on a mismatch; weights are partition-independent, so a deliberate
 same-graph re-partition restore stays possible with ``verify=False``.
-Files with no provenance (v1, params-only) still load.
+Files with no provenance (v1, params-only) still load.  A trainer whose
+``checkpoint_plan`` attribute is an explicit ``None`` (the mini-batch
+trainer's inner trainer, whose plan is a padded per-batch plan) records
+no plan digest, as the reference's sentinel does.
 
 Durability: writes are atomic (temp + fsync + rename, ``resilience.
 atomic``), every array carries a CRC32, and any damage raises
@@ -312,7 +315,10 @@ def save_checkpoint(trainer, path: str, step: int = 0) -> str:
     leaves = to_leaves(trainer.params, trainer.opt)
     arrays = {f"leaf_{i}": x for i, x in enumerate(leaves)}
     arrays[_META_STEP] = np.asarray(step, dtype=np.int64)
-    plan = getattr(trainer, "plan", None)
+    # ``checkpoint_plan`` (may be an explicit None) overrides ``plan``: the
+    # mini-batch trainer saves through its inner trainer, whose plan is a
+    # padded per-batch plan — no stable run identity, so no digest
+    plan = getattr(trainer, "checkpoint_plan", getattr(trainer, "plan", None))
     if plan is not None:
         from ..obs.recorder import plan_digest
         arrays[_META_DIGEST] = np.asarray(plan_digest(plan))

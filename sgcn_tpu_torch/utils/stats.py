@@ -313,3 +313,58 @@ class CommStats:
                 halo_bytes_wire_total=self.halo_bytes_wire_total,
             )
         return rep
+
+    @staticmethod
+    def merged_report(stats_list) -> dict:
+        """One report over many counters (one per mini-batch plan), as one
+        rank of the reference accumulates across batches: per-part sums
+        first, then the sums and maxima over parts.  Each counter's
+        per-exchange volumes and wire rows are its own plan's, so the
+        exposed/hidden split and the wire totals sum per counter; the
+        padding efficiency is the cumulative true / wire ratio.  The
+        reference's keys and arithmetic."""
+        parts = [s.cumulative() for s in stats_list]
+        sums = [np.sum([p[i] for p in parts], axis=0) for i in range(4)]
+        rep = CommStats.report_from_cumulative(*sums)
+        exchanges = sum(s.exchanges for s in stats_list)
+        hidden = sum(s.hidden_exchanges for s in stats_list)
+        schedules = {s.schedule for s in stats_list} or {"a2a"}
+        wire_total = sum(
+            s.wire_rows_per_exchange * (s.exchanges - s.replica_exchanges)
+            + (s.replica_wire_rows_per_exchange or 0) * s.replica_exchanges
+            + s.partial_refresh_wire_rows_total
+            for s in stats_list)
+
+        def split_vol(s, hidden_side: bool) -> int:
+            # (exposed/hidden) × (full/replica-booked), each subset at its
+            # own per-exchange volume, as a single report() prices them
+            per = int(s.send_volume_per_exchange.sum())
+            per_rep = (int(s.replica_send_volume_per_exchange.sum())
+                       if s.replica_exchanges else per)
+            hrex = s.hidden_replica_exchanges
+            if hidden_side:
+                return per * (s.hidden_exchanges - hrex) + per_rep * hrex
+            erex = s.replica_exchanges - hrex
+            return per * (s.exchanges - s.hidden_exchanges - erex) \
+                + per_rep * erex
+
+        rep.update(
+            exchanges=exchanges,
+            exposed_exchanges=exchanges - hidden,
+            hidden_exchanges=hidden,
+            exposed_send_volume=sum(split_vol(s, False) for s in stats_list),
+            hidden_send_volume=sum(split_vol(s, True) for s in stats_list),
+            comm_schedule=(schedules.pop() if len(schedules) == 1
+                           else "mixed"),
+            wire_rows_total=wire_total,
+            padding_efficiency=(rep["total_send_volume"] / wire_total
+                                if wire_total else 1.0),
+        )
+        if any(s.lane_widths for s in stats_list):
+            rep.update(
+                halo_bytes_true_total=sum(
+                    s.halo_bytes_true_total for s in stats_list),
+                halo_bytes_wire_total=sum(
+                    s.halo_bytes_wire_total for s in stats_list),
+            )
+        return rep

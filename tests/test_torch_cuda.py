@@ -1371,3 +1371,116 @@ def test_replica_trainer_on_cuda_sync_1_is_exact_and_counts_launches(
     assert runs["rep a2a"][2] == (2 * 3, 4 * 3, 6 * 3)
     assert runs["comp a2a"][2] == (2 * 3, 4 * 3, 6 * 3)
     assert runs["rep a2a"][0] != runs["exact a2a"][0]
+
+
+# ------------------------------------------------ the mini-batch trainer
+@functools.lru_cache(maxsize=None)
+def _cora_minibatch_inputs():
+    """cora2708 (Â normalized), its features and labels, the 8-part hp
+    vector — the mini-batch tests' inputs (the fixture files)."""
+    import os
+
+    from sgcn_tpu_torch.io.datasets import load_npz_dataset
+    from sgcn_tpu_torch.partition import read_partvec
+
+    fix = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       "fixtures")
+    a, feats, labels = load_npz_dataset(os.path.join(fix, "cora2708.npz"))
+    return (normalize_adjacency(a), feats, labels,
+            read_partvec(os.path.join(fix, "cora2708.8.hp")))
+
+
+@pytest.mark.parametrize("sched", ["a2a", "ragged"])
+@pytest.mark.parametrize("f", [16, 128])
+def test_fused_entry_equals_plain_on_padded_batch_plan(cuda_device, sched, f):
+    """On the padded batch plan with the longest pad chain (the shared
+    envelope's weight-0 edges in each part's last tile): the exchange's
+    pack and the fused local + remote entry == their plain versions bit
+    for bit, on both transports (the ring at the shared round sizes)."""
+    from sgcn_tpu_torch.ops.pspmm import ring_concat
+    from sgcn_tpu_torch.train.minibatch import MiniBatchTrainer
+
+    ahat, feats, labels, pv = _cora_minibatch_inputs()
+    tr = MiniBatchTrainer(ahat, pv, 8, fin=feats.shape[1], widths=[16, 7],
+                          batch_size=512, comm_schedule=sched,
+                          device=cuda_device)
+    batches = tr.make_batches(feats, labels)
+    pads = [int((p.el - p.lnnz).max()) for p in tr.plans]
+    b = batches[int(np.argmax(pads))]
+    st, pa = b.fwd_static, b.pa
+    tb, lcls, hcls = st["pallas_tb"], st["pallas_lclasses"], \
+        st["pallas_hclasses"]
+    h = torch.from_numpy(np.random.default_rng(f).standard_normal(
+        (8, b.plan.b, f)).astype(np.float32)).to(cuda_device)
+    lt = [pa[x] for x in ("ptile_lsrc", "ptile_lld", "ptile_lw")]
+    if sched == "ragged":
+        ht = [pa[x] for x in ("ptile_hrsrc", "ptile_hld", "ptile_hw")]
+        remote = ring_concat(h, pa["ring_src"], st["rr_sizes"])
+        assert st["rr_sizes"] == tr.plans[0].rr_sizes
+        flat = pa["ring_src"]
+    else:
+        ht = [pa[x] for x in ("ptile_hwsrc", "ptile_hld", "ptile_hw")]
+        flat = pa["recv_src"]
+        remote = row_pack(h, flat)
+    assert torch.equal(row_pack(h, flat), row_pack_plain(h, flat))
+    one = spmm_tiles_fused(lt, h, ht, remote, lcls, hcls, tb)
+    plain = spmm_tiles_fused_plain(lt, h, ht, remote, lcls, hcls, tb)
+    torch.cuda.synchronize()
+    assert max(pads) > 0
+    assert torch.equal(_bits(one), _bits(plain)), (
+        f"fused != plain, max diff {(one - plain).abs().max()}")
+
+
+@pytest.mark.parametrize("model", ["gcn", "gat"])
+def test_minibatch_epoch_on_cuda_ragged_equals_a2a(cuda_device, model):
+    """One mini-batch epoch on cora 8-hp (18 batches of 512) on the card:
+    the ring's losses and weights == a2a's bit for bit, within rtol 1e-5
+    (GCN) / 5e-5 (GAT) of the CPU's; every batch step makes the launches
+    of a full-batch step (GCN: one pack and one fused launch per
+    aggregation, no K1 family launch; GAT: its K5 passes)."""
+    from sgcn_tpu_torch.train.minibatch import MiniBatchTrainer
+
+    ahat, feats, labels, pv = _cora_minibatch_inputs()
+    act = "relu" if model == "gcn" else "none"
+    runs = {}
+    for dev, sched in ((cuda_device, "a2a"), (cuda_device, "ragged"),
+                       ("cpu", "a2a")):
+        tr = MiniBatchTrainer(ahat, pv, 8, fin=feats.shape[1],
+                              widths=[16, 7], batch_size=512, model=model,
+                              activation=act, comm_schedule=sched, seed=2,
+                              device=dev)
+        counts = (row_pack.launches, spmm_tiles_fused.launches,
+                  spmm_tiles.launches, spmm_tiles.mask_launches)
+        rep = tr.fit(feats, labels, epochs=1, warmup=0, verbose=False)
+        if str(dev) == "cuda":
+            torch.cuda.synchronize()
+        runs[(str(dev), sched)] = (
+            rep["loss_history"], [p.detach().cpu()
+                                  for p in tr.inner.model.parameters()],
+            tuple(x - c for x, c in zip(
+                (row_pack.launches, spmm_tiles_fused.launches,
+                 spmm_tiles.launches, spmm_tiles.mask_launches), counts)),
+            rep["nbatches"])
+    a2a, ring, cpu = (runs[("cuda", "a2a")], runs[("cuda", "ragged")],
+                      runs[("cpu", "a2a")])
+    assert a2a[0] == ring[0]
+    assert all(torch.equal(x, y) for x, y in zip(a2a[1], ring[1]))
+    np.testing.assert_allclose(a2a[0], cpu[0],
+                               rtol=1e-5 if model == "gcn" else 5e-5)
+    nb = a2a[3]
+    assert nb == 18
+    # one full-batch step on the full plan, for its launches
+    plan = build_comm_plan(ahat, pv, 8)
+    full = FullBatchTrainer(plan, fin=feats.shape[1], widths=[16, 7],
+                            model=model, activation=act, comm_schedule="a2a",
+                            device=cuda_device)
+    counts = (row_pack.launches, spmm_tiles_fused.launches,
+              spmm_tiles.launches, spmm_tiles.mask_launches)
+    full.step(make_train_data(plan, feats, labels, device=cuda_device))
+    torch.cuda.synchronize()
+    per_step = tuple(x - c for x, c in zip(
+        (row_pack.launches, spmm_tiles_fused.launches, spmm_tiles.launches,
+         spmm_tiles.mask_launches), counts))
+    assert a2a[2] == tuple(nb * x for x in per_step)
+    assert a2a[2][2] == 0                        # no K1 family launch
+    assert (a2a[2][1] > 0) if model == "gcn" else (a2a[2][3] > 0)

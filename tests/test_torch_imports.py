@@ -115,3 +115,30 @@ def test_scan_sees_the_replica_modules_and_names():
             text = fh.read()
         for d in defs:
             assert d in text, (path, d)
+
+
+def test_scan_sees_the_minibatch_and_shp_modules():
+    """The stochastic hypergraph partitioner and the mini-batch trainer
+    are in the scan, and the names they run on live in them, so none of
+    it imports JAX or the JAX package."""
+    names = {os.path.relpath(p, REPO) for p in _sources()}
+    want = {("shp", "__init__.py"): ("run_shp",),
+            ("shp", "model.py"): ("sample_sparse_submatrix",
+                                  "generate_stochastic_hypergraph",
+                                  "communication_volume", "simulate",
+                                  "run_shp"),
+            ("shp", "__main__.py"): ("write_partvec_pickle",),
+            ("train", "minibatch.py"): ("sample_batches", "sample_adjacency",
+                                        "MiniBatchTrainer",
+                                        "run_epochs_fused",
+                                        "evaluate_fullgraph"),
+            ("parallel", "plan.py"): ("pad_comm_plan", "shared_ell_buckets"),
+            ("train", "__main__.py"): ("--batch-size",
+                                       "_fit_minibatch_durable")}
+    for rel, defs in want.items():
+        path = os.path.join("sgcn_tpu_torch", *rel)
+        assert path in names
+        with open(os.path.join(REPO, path)) as fh:
+            text = fh.read()
+        for d in defs:
+            assert d in text, (path, d)

@@ -419,9 +419,12 @@ def test_accuracy_parity_cora_4hp():
     print(rep)
     assert rep["oracle_test_acc"] > 0.75
     assert abs(rep["oracle_test_acc"] - rep["fullbatch_test_acc"]) < 0.03
-    with pytest.raises(NotImplementedError, match="A8"):
-        run_accuracy_parity(a, feats, labels, read_partvec(HP4), 4, WIDTHS,
-                            train, test, batch_size=256, device="cpu")
+    # the mini-batch flavor runs too (its parity with the reference's is
+    # tests/test_torch_minibatch.py's)
+    mb = run_accuracy_parity(normalize_adjacency(a), feats, labels,
+                             read_partvec(HP4), 4, WIDTHS, train, test,
+                             epochs=2, batch_size=1024, device="cpu")
+    assert 0.0 <= mb["minibatch_test_acc"] <= 1.0
 
 
 def test_splits_equal_reference():
@@ -494,6 +497,7 @@ CHECKPOINT_FLAGS = ("--resume", "--save-checkpoint", "--checkpoint-dir",
                     "--checkpoint-every", "--keep-checkpoints")
 STALE_FLAGS = ("--halo-staleness", "--halo-delta", "--sync-every")
 REPLICA_FLAGS = ("--replica-budget", "--refresh-band")
+MINIBATCH_FLAGS = ("-n", "--batch-size")
 
 
 @pytest.mark.parametrize("flag", [
@@ -505,14 +509,16 @@ REPLICA_FLAGS = ("--replica-budget", "--refresh-band")
 def test_cli_leaves_unported_flags_undefined(flag, capsys):
     """Flags of features not ported are undefined (argparse exit 2).  The
     checkpoint flags (``tests/test_torch_checkpoint.py``), the stale
-    flags (``tests/test_torch_stale.py``) and the replica flags
-    (``tests/test_torch_replica.py``) are ported: they parse, and the run
-    stops at a guard or the input check instead (``--halo-delta`` takes
-    no value)."""
+    flags (``tests/test_torch_stale.py``), the replica flags
+    (``tests/test_torch_replica.py``) and the mini-batch flags
+    (``tests/test_torch_minibatch.py``) are ported: they parse, and the
+    run stops at a guard or the input check instead (``--halo-delta``
+    takes no value)."""
     value = [] if flag == "--halo-delta" else ["1"]
     with pytest.raises(SystemExit) as exc:
         train_main(["-p", HP8, "-s", "8", "--device", "cpu", flag, *value])
-    if flag in CHECKPOINT_FLAGS + STALE_FLAGS + REPLICA_FLAGS:
+    if flag in (CHECKPOINT_FLAGS + STALE_FLAGS + REPLICA_FLAGS
+                + MINIBATCH_FLAGS):
         assert exc.value.code != 2
         assert "unrecognized arguments" not in capsys.readouterr().err
         return
