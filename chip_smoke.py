@@ -299,21 +299,40 @@ failure raises and the script exits non-zero:
      epochs with ``--checkpoint-every 1``, then a resume to 3 epochs in
      new ones: == the uninterrupted run in this process, exact launches
      (``build/chip_smoke_minibatch/``);
-  28. one JSON line ``{"kernels": [...]}`` — per ported kernel (the tile
+  28. sub-graph serving (``serve/subgraph.py``, ``ServeEngine(mode=
+     'subgraph')``): (a) cora2708 8-hp, GCN 1433 → 16 → 7 on both
+     transports and on the bf16 wire and GAT on both transports, batches of
+     1, 8 and 32 queries: every routed row within rtol 1e-4 / atol 1e-5 of
+     the float64 forward (5e-3 on the bf16 wire) and within ``SUB_TOL``
+     of the full engine's (the gaps and whether they are 0 printed), exact launches a batch (GCN one fused launch a layer, no
+     pack; GAT K5's passes); (b) the DCSBM flagship on phase 24's hp parts
+     (not partitioned again), GCN and GAT 128 → 128 → 128 → 40, batches of
+     1, 8 and 32: the largest batch's compact fused and K5 launches ==
+     plain bit for bit, exact launches a batch, rows against the full
+     engine's; touched rows and recipe edges a query, FLOPs a query
+     against a full forward's, the host ms to build a batch against its
+     device ms (CUDA events), p50/p99 of sub-graph against full mode on the
+     same 128 queries (runs full, sub-graph, sub-graph, full), the idle
+     share; (c) meanwhile, on a host thread, serve CLI children: cora from
+     phase 24's GCN checkpoint with ``--serve-mode subgraph``, with
+     ``--concurrent``, with ``--shed-factor 2``, and in full mode with
+     both flags, and the ER flagship from phase 23's GAT checkpoint with
+     all three (launches exact; ``build/chip_smoke_subgraph/``);
+  29. one JSON line ``{"kernels": [...]}`` — per ported kernel (the tile
      SpMM, the GCN aggregation's backward, the GAT attention pass and its
      use in the GAT layer's backward, the ragged ring aggregation and its
      backward, the row shuffle, the tile SpMM's and the GAT pass's bf16
      flavors, the row pack, the fused local + remote entry and the
      destination-indexed pack) its
      launches on the main path (phases 2–5, 7–13, 15–17, 19–21 and
-     23–27, the children's included), max
+     23–28, the children's included), max
      |kernel − plain|, kernel / plain / bound / library times at the
      flagship layer.  The tile SpMM's own float-weight family entries
      (both tables) launch on the main path only in the asymmetric
      backward (phases 20–21): the symmetric phases must show 0 of them —
      the fused entry runs their chains and counts those launches — and any
      kernel with no launch on the main path fails the run;
-  29. the last line: ``{"ok": true, "device": {...}}``.
+  30. the last line: ``{"ok": true, "device": {...}}``.
 
 Without CUDA, or without the rest of the repository beside it, the script
 prints no result and exits with code 2 or 3.
@@ -4495,6 +4514,399 @@ def _phase_minibatch(children, parts_bg, ahat_dc, fix, dev, smi):
     return total, fused_err, k5_err
 
 
+# ------------------------------------------------ phase 28: sub-graph serving
+SUB_DIR = os.path.join(REPO, "build", "chip_smoke_subgraph")
+# the flagship's batch sizes, batches a size, and the queries of the
+# p50/p99 comparison against full mode
+SUB_QUERIES, SUB_BATCHES, SUB_LOADGEN = (1, 8, 32), 3, 128
+# the routed-logit contract of sub-graph mode against the full engine
+# (README): the aggregation repeats the full chains bit for bit; the dense
+# projections run at another row count, where cuBLAS may pick another GEMM
+# (cora's 1433 → 16 layer: rows 1.2e-7 apart at most on an H100, 1.2e-5
+# relative; the DCSBM flagship's 128-wide layers: ==), and on the bf16
+# wire a last-bit change of a projected row can move its bf16 rounding by
+# one bf16 step (1.0e-5 apart at most) — rows within these tolerances, the
+# measured gaps printed
+SUB_TOL = {"float32": dict(rtol=1e-5, atol=1e-6),
+           "bf16 wire": dict(rtol=1e-3, atol=1e-4)}
+
+
+def gap_stats(got, want):
+    """(max |got − want|, max |got − want| / |want| over |want| > 1e-3)."""
+    import numpy as np
+
+    d = np.abs(np.asarray(got, np.float64) - want)
+    big = np.abs(want) > 1e-3
+    return float(d.max()), float((d[big] / np.abs(want[big])).max()
+                                 if big.any() else 0.0)
+
+
+@contextlib.contextmanager
+def record_subgraph_launches():
+    """Record the inputs and outputs of every fused-entry and K5 launch the
+    compact forwards make (``serve/subgraph.py``'s names), to hold each
+    against its plain version afterwards; launches nothing itself."""
+    from sgcn_tpu_torch.serve import subgraph as sg
+
+    real = (sg.spmm_tiles_fused, sg.gat_tiles_pass)
+    calls = {"fused": [], "k5": []}
+
+    def fused(*args):
+        out = real[0](*args)
+        calls["fused"].append((args, out))
+        return out
+
+    def k5(*args):
+        out = real[1](*args)
+        calls["k5"].append((args, out))
+        return out
+
+    sg.spmm_tiles_fused, sg.gat_tiles_pass = fused, k5
+    try:
+        yield calls
+    finally:
+        sg.spmm_tiles_fused, sg.gat_tiles_pass = real
+
+
+def check_subgraph_launches(calls, what):
+    """Each recorded compact launch == its plain version, bit for bit;
+    returns the max |kernel − plain| (0)."""
+    import torch
+
+    from sgcn_tpu_torch.ops.tile_spmm import (spmm_tiles_classes_plain,
+                                              spmm_tiles_fused_plain)
+
+    for name, (args, out) in [("fused", c) for c in calls["fused"]] + [
+            ("K5", c) for c in calls["k5"]]:
+        if name == "fused":
+            plain = spmm_tiles_fused_plain(*args)
+        else:
+            *tiles, table, cls, tb, rows = args
+            plain = spmm_tiles_classes_plain(*tiles, table, cls, tb)[:, :rows]
+        torch.cuda.synchronize()
+        if not same_bits(out, plain):
+            raise AssertionError(f"{what}: compact {name} launch != plain, "
+                                 f"max diff {(out - plain).abs().max()}")
+    log(f"  {what}: {len(calls['fused'])} fused and {len(calls['k5'])} K5 "
+        "compact launches == plain bit for bit")
+    return 0.0
+
+
+def phase_subgraph(parts_bg, ahat_dc, ahat_c, feats_c, pv_c, dev, smi):
+    """Phase 28 (module docstring): sub-graph serving on cora and on the
+    DCSBM flagship's hp parts in this process, the serve CLI's sub-graph
+    children beside them.  Returns the launch counts of its paths by
+    kernel entry and the compact launches' max |kernel − plain|."""
+    children = Children()
+    try:
+        return _phase_subgraph(children, parts_bg, ahat_dc, ahat_c, feats_c,
+                               pv_c, dev, smi)
+    finally:
+        children.stop()
+
+
+def _phase_subgraph(children, parts_bg, ahat_dc, ahat_c, feats_c, pv_c, dev,
+                    smi):
+    import shutil
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    import torch
+
+    from sgcn_tpu_torch.models import gat as gat_model
+    from sgcn_tpu_torch.models.gcn import params_from_jax
+    from sgcn_tpu_torch.parallel import build_comm_plan
+    from sgcn_tpu_torch.serve import (ServeEngine, run_loadgen,
+                                      synthetic_query_ids)
+
+    t_phase = time.perf_counter()
+    total = {key: 0 for key in launch_counts()}
+
+    def counted(run):
+        launch_counts(zero=True)               # a main-path run starts here
+        out = run()
+        torch.cuda.synchronize()
+        got = launch_counts()                  # ... and ends here
+        for key in total:
+            total[key] += got[key]
+        return out, got
+
+    # ---- (c) the serve CLI's sub-graph mode in children, on a host
+    # thread beside (a) and (b): cora from phase 24's GCN checkpoint (plain,
+    # --concurrent, --shed-factor 2; full mode with both flags) and the ER
+    # flagship from phase 23's GAT checkpoint
+    shutil.rmtree(SUB_DIR, ignore_errors=True)
+    os.makedirs(SUB_DIR)
+    amtx = os.path.join(PIPE_DIR, "cora.A.mtx")
+    cora_cli = ["-a", amtx, "-p", f"{amtx}.8.hp", "-s", "8", "--features-mtx",
+                os.path.join(PIPE_DIR, "cora.H.mtx"), "--checkpoint",
+                os.path.join(PIPE_DIR, "a2a.npz"), "--queries", "128",
+                "--max-batch", "32", "--device", "cuda"]
+    sub = ["--serve-mode", "subgraph"]
+    jobs = [("sub-gcn", cora_cli + sub),
+            ("sub-gcn-concurrent", cora_cli + sub + ["--concurrent"]),
+            ("sub-gcn-shed", cora_cli + sub + ["--shed-factor", "2"]),
+            ("full-gcn-concurrent-shed", cora_cli + [
+                "--concurrent", "--shed-factor", "2"]),
+            ("sub-gat-flagship", [
+                "--npz", os.path.join(CKPT_DIR, "flagship.npz"), "-p",
+                os.path.join(CKPT_DIR, "flagship.8.rp"), "-s", "8",
+                "--checkpoint", os.path.join(CKPT_DIR, "gat-a2a.final.npz"),
+                "--queries", "64", "--max-batch", "32", "--device", "cuda",
+                "--concurrent", "--shed-factor", "2"] + sub)]
+
+    def run_children():
+        procs = children.start([("serve", argv, None,
+                                 os.path.join(SUB_DIR, f"{nm}.json"))
+                                for nm, argv in jobs])
+        codes = children.join(procs)
+        out = {}
+        for (_, t_spawn), (nm, _), code in zip(procs, jobs, codes):
+            res = None
+            if code == 0:
+                with open(os.path.join(SUB_DIR, f"{nm}.json")) as fh:
+                    res = json.load(fh)
+            out[nm] = (code, t_spawn, res)
+        return out
+
+    cli_pool = ThreadPoolExecutor(max_workers=1, thread_name_prefix="clis")
+    cli_future = cli_pool.submit(run_children)
+
+    # ---- (a) cora2708 8-hp: GCN 1433 -> 16 -> 7 (both transports, the
+    # bf16 wire) and GAT (both transports), sub-graph against the float64
+    # forward and the full engine
+    t_part = time.perf_counter()
+    widths_c = [16, 7]
+    dims_c = list(zip([1433] + widths_c[:-1], widths_c))
+    plan_c = build_comm_plan(ahat_c, pv_c, 8)
+    q_rng = np.random.default_rng(21)
+    gap, same, kerr = {}, True, 0.0
+    for model, sched, halo in (("gcn", "a2a", None), ("gcn", "ragged", None),
+                               ("gcn", "a2a", "bfloat16"),
+                               ("gat", "a2a", None), ("gat", "ragged", None)):
+        if model == "gat":
+            p_np = gat_params_numpy(31, dims_c)
+            params = gat_model.params_from_jax(p_np)
+            want64 = gat64(ahat_c, feats_c, p_np)
+        else:
+            p_np = glorot_numpy(31, dims_c)
+            params = params_from_jax(p_np)
+            want64 = oracle_forward(ahat_c, feats_c, p_np)
+        kw = dict(fin=1433, widths=widths_c, model=model, params=params,
+                  comm_schedule=sched, halo_dtype=halo, max_batch=32,
+                  device=dev)
+        full = ServeEngine(plan_c, **kw)
+        full.set_features(feats_c)
+        eng = ServeEngine(plan_c, mode="subgraph", **kw)
+        counted(lambda: eng.set_features(feats_c))   # GAT: the stabilizers
+        name = f"cora {model} {sched}" + (" bf16 wire" if halo else "")
+        g, eq, nrow, e64 = (0.0, 0.0), True, 0, 0.0
+        sub_tol = SUB_TOL["bf16 wire" if halo else "float32"]
+        for nq in (1, 8, 32, 32):
+            q = q_rng.permutation(plan_c.n)[:nq]
+            got, ln = counted(lambda: eng.query(q))
+            rows_full, _ = counted(lambda: full.query(q))
+            want = {"pack": 0, "k1": 0, "k1_bf16": 0}
+            if model == "gat":
+                want.update(k5=gat_passes(widths_c), fused=0)
+            else:
+                want["fused_wire" if halo else "fused"] = len(widths_c)
+            if any(ln[x] != v for x, v in want.items()):
+                raise AssertionError(f"phase 28: {name} batch of {nq}: "
+                                     f"launches {ln}, expected {want}")
+            tol = (dict(rtol=5e-3, atol=5e-3) if halo
+                   else dict(rtol=RTOL, atol=ATOL))
+            e64 = max(e64, float(np.abs(got - want64[q]).max()))
+            if not np.allclose(got, want64[q], **tol):
+                raise AssertionError(f"phase 28: {name} rows vs float64")
+            if not np.allclose(got, rows_full, **sub_tol):
+                raise AssertionError(
+                    f"phase 28: {name} rows vs the full engine: max gap "
+                    f"{gap_stats(got, rows_full)} (abs, rel)")
+            g = tuple(map(max, g, gap_stats(got, rows_full)))
+            eq = eq and np.array_equal(got, rows_full)
+            nrow += nq
+        gap[name], same = g, same and eq
+        gz = eng.gauges()
+        log(f"  {name}: {nrow} routed rows vs float64 within "
+            f"{'5e-3' if halo else 'rtol 1e-4 / atol 1e-5'} (max abs err "
+            f"{e64:.3g}); vs the full engine max gap (abs, rel) {g!r} (== "
+            f"in every batch: {eq}); touched rows "
+            f"a query {gz['touched_rows_per_query']}, recipe edges "
+            f"{gz['recipe_edges_total']}, flops a query "
+            f"{gz['subgraph_flops_per_query']} vs a full forward's "
+            f"{gz['full_forward_flops']}; launches a batch: "
+            + ("K5 passes" if model == "gat" else "fused, no pack"))
+
+    # ---- (b) the DCSBM flagship on phase 24's hp parts, 128 -> 128 ->
+    # 128 -> 40, GCN and GAT: batches of 1, 8 and 32 queries
+    log(f"  (a) took {time.perf_counter() - t_part:.1f} s")
+    n = ahat_dc.shape[0]
+    t0 = time.perf_counter()
+    pv = parts_bg.result()[("hp", 0)][0]
+    t_wait = time.perf_counter() - t0
+    plan = build_comm_plan(ahat_dc, pv, PART_K)
+    log(f"  DCSBM hp plan {time.perf_counter() - t0 - t_wait:.2f} s (host; "
+        f"phase 24's parts, {t_wait:.2f} s waited for them)")
+    feats = np.random.default_rng(2).standard_normal((n, 128)).astype(
+        np.float32)
+    widths = [128, 128, 40]
+    dims = list(zip([128] + widths[:-1], widths))
+    summary = {}
+    for model in ("gcn", "gat"):
+        t_part = time.perf_counter()
+        params = (gat_model.params_from_jax(gat_params_numpy(33, dims))
+                  if model == "gat"
+                  else params_from_jax(glorot_numpy(33, dims)))
+        kw = dict(fin=128, widths=widths, model=model, params=params,
+                  comm_schedule="a2a", max_batch=32, device=dev)
+        t0 = time.perf_counter()
+        full = ServeEngine(plan, **kw)
+        full.set_features(feats)
+        t_full = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        eng = ServeEngine(plan, mode="subgraph", **kw)
+        counted(lambda: eng.set_features(feats))
+        log(f"  DCSBM hp {model.upper()}: full engine {t_full:.2f} s, "
+            f"sub-graph engine (index, stabilizers) "
+            f"{time.perf_counter() - t0:.2f} s (host)")
+        per = {}
+        for nq in SUB_QUERIES:
+            rows = {"host_ms": [], "device_ms": [], "touched": [],
+                    "edges": []}
+            g, eq = (0.0, 0.0), True
+            for b in range(SUB_BATCHES):
+                q = q_rng.permutation(n)[:nq]
+                t0 = time.perf_counter()
+                batch = eng.subgraph_batch(q)
+                rows["host_ms"].append((time.perf_counter() - t0) * 1e3)
+                last = nq == SUB_QUERIES[-1] and b == SUB_BATCHES - 1
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+
+                def run():
+                    ev[0].record()
+                    out = eng.run_subgraph(batch)
+                    ev[1].record()
+                    return out.cpu().numpy()[:nq]
+
+                if last:        # the largest batch: every launch vs plain
+                    with record_subgraph_launches() as calls:
+                        got, ln = counted(run)
+                    kerr = max(kerr, check_subgraph_launches(
+                        calls, f"DCSBM hp {model.upper()} batch of {nq}"))
+                else:
+                    got, ln = counted(run)
+                rows["device_ms"].append(ev[0].elapsed_time(ev[1]))
+                rows["touched"].append(batch.touched_rows / nq)
+                rows["edges"].append(batch.recipe_edges / nq)
+                want = {"pack": 0, "k1": 0, "k1_bf16": 0,
+                        "fused": 0 if model == "gat" else len(widths),
+                        "k5": gat_passes(widths) if model == "gat" else 0}
+                if any(ln[x] != v for x, v in want.items()):
+                    raise AssertionError(f"phase 28: DCSBM {model} batch of "
+                                         f"{nq}: launches {ln}, expected "
+                                         f"{want}")
+                full_rows, _ = counted(lambda: full.query(q))
+                if not (np.isfinite(got).all() and np.allclose(
+                        got, full_rows, **SUB_TOL["float32"])):
+                    raise AssertionError(
+                        f"phase 28: DCSBM {model} rows vs the full engine: "
+                        f"max gap {gap_stats(got, full_rows)} (abs, rel)")
+                g = tuple(map(max, g, gap_stats(got, full_rows)))
+                eq = eq and np.array_equal(got, full_rows)
+            same = same and eq
+            gap[f"DCSBM hp {model} {nq}"] = g
+            per[nq] = {key: statistics.median(v) for key, v in rows.items()}
+            log(f"  DCSBM hp {model.upper()} batches of {nq} ({SUB_BATCHES}):"
+                f" host build ms {rows['host_ms']!r}, device ms (CUDA events:"
+                f" upload + compact forward + gather) {rows['device_ms']!r}; "
+                f"touched rows a query {rows['touched']!r}, recipe edges a "
+                f"query {rows['edges']!r}; vs the full engine max gap (abs, "
+                f"rel) {g!r} (== in every batch: {eq})")
+        gz = eng.gauges()
+        log(f"  DCSBM hp {model.upper()}: flops a query "
+            f"{gz['subgraph_flops_per_query']} vs a full forward's "
+            f"{gz['full_forward_flops']} "
+            f"({gz['subgraph_flops_per_query'] / gz['full_forward_flops']:.4g}"
+            f"); launches a batch: "
+            + (f"{gat_passes(widths)} K5" if model == "gat"
+               else f"{len(widths)} fused") + ", no pack, no K1 family")
+        # p50 / p99, sub-graph against full mode on the same queries, in
+        # turns full, sub-graph, sub-graph, full
+        qids = synthetic_query_ids(n, SUB_LOADGEN, seed=9)
+        lat = {"full": [], "subgraph": []}
+        for e in (full, eng):
+            counted(lambda: e.warmup(qids))
+        for mode_, e in (("full", full), ("subgraph", eng),
+                         ("subgraph", eng), ("full", full)):
+            res, _ = counted(lambda: run_loadgen(e, qids))
+            s = res.summary()
+            lat[mode_].append((s["latency_p50_ms"], s["latency_p99_ms"],
+                               s["achieved_qps"]))
+        log(f"  DCSBM hp {model.upper()} closed loop, {SUB_LOADGEN} queries "
+            f"at batch 32, (p50 ms, p99 ms, QPS) by run: full "
+            f"{lat['full']}, sub-graph {lat['subgraph']}")
+        q32 = q_rng.permutation(n)[:32]
+        wall, dev_ms, _top = device_busy(lambda: eng.query(q32), reps=5)
+        idle = (1 - dev_ms / wall) if dev_ms else None
+        log(f"  DCSBM hp {model.upper()} sub-graph, 5 batches of 32 under "
+            f"torch.profiler: wall {wall:.3f} ms, device {dev_ms:.3f} ms, "
+            f"idle share <= {idle}")
+        summary[model] = {"per_batch": per, "latency": lat, "idle_le": idle,
+                          "flops_per_query": gz["subgraph_flops_per_query"],
+                          "full_forward_flops": gz["full_forward_flops"]}
+        log(f"  (b) {model.upper()} took {time.perf_counter() - t_part:.1f} s")
+
+    # ---- (c) read the children
+    t0 = time.perf_counter()
+    res = cli_future.result()
+    cli_pool.shutdown()
+    log(f"  children: {time.perf_counter() - t0:.2f} s waited for them here")
+    for nm, (code, t_spawn, r) in res.items():
+        if code != 0:
+            raise AssertionError(f"phase 28: child {nm} exited {code}")
+        rep, ln = r["report"], r["launches"]
+        for key in total:
+            total[key] += ln[key]
+        gat = nm.endswith("flagship")
+        nl = len(rep["widths"])
+        if rep["serve_mode"] == "subgraph":
+            batches = rep["subgraph_batches_total"]
+            want = {"pack": rep["forwards"] * pack_launches(
+                        "gat", "a2a", rep["widths"]) if gat else 0,
+                    "fused": 0 if gat else nl * batches,
+                    "k5": gat_passes(rep["widths"]) * (
+                        batches + rep["forwards"]) if gat else 0}
+        else:
+            want = {"pack": nl * rep["forwards"], "fused": nl * rep["forwards"],
+                    "k5": 0}
+        total_q = 64 if gat else 128
+        log(f"  {nm} child: start-up {r['t_imported'] - t_spawn:.2f} s, in "
+            f"the CLI {r['t_end'] - r['t_imported']:.2f} s; {rep['queries']} "
+            f"served + {rep['shed']} shed in {rep['batches']} batches, p50 "
+            f"{rep['latency_p50_ms']} ms, p99 {rep['latency_p99_ms']} ms, "
+            f"{rep['achieved_qps']} QPS, concurrent {rep['concurrent']}; "
+            + (f"touched rows a query {rep['touched_rows_per_query']}; "
+               if rep["serve_mode"] == "subgraph" else "")
+            + f"launches {json.dumps({x: ln[x] for x in want})}, expected "
+            f"{json.dumps(want)}")
+        if (rep["weights"] != "checkpoint"
+                or rep["queries"] + rep["shed"] != total_q
+                or any(ln[x] != v for x, v in want.items())
+                or ln["k1"] or ln["k1_bf16"]
+                or not np.isfinite([rep["latency_p50_ms"],
+                                    rep["latency_p99_ms"]]).all()):
+            raise AssertionError(f"phase 28: child {nm}: {rep}, launches "
+                                 f"{ln}")
+    if total["k1"] or total["k1_bf16"]:
+        raise AssertionError(f"phase 28: K1 family launches {total}")
+    log(f"  sub-graph vs full max gaps {json.dumps(gap)}; == in every batch "
+        f"measured: {same}; summary {json.dumps(summary)}; card: {smi}")
+    log(f"  phase 28 launches {json.dumps(total)}; phase wall "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return total, kerr
+
+
 def main() -> int:
     import torch
 
@@ -5359,12 +5771,27 @@ def main() -> int:
     log(f"  phase 27 took {time.perf_counter() - t27:.1f} s")
 
     # ---------------------------------------------------------- phase 28
+    log("phase 28: sub-graph serving — cora2708 GCN (both transports, the "
+        "bf16 wire) and GAT, the DCSBM flagship on phase 24's hp parts "
+        "(GCN and GAT, batches of 1, 8 and 32): compact launches == plain, "
+        "exact launches, rows vs float64 and the full engine, host and "
+        "device ms, p50/p99 against full mode; the serve CLI's --serve-mode "
+        "subgraph, --concurrent and --shed-factor in children")
+    t28 = time.perf_counter()
+    p28, sub_err = phase_subgraph(parts_bg, ahat_dc, ahat, feats, pv, dev,
+                                  smi)
+    MAIN_PATH_PACKS[0] += p28["pack"]
+    fused_err = max(fused_err, sub_err)
+    log(f"  phase 28 took {time.perf_counter() - t28:.1f} s")
+
+    # ---------------------------------------------------------- phase 29
     fused_main = (launches_c + launches_f + launches_tc + launches_tf
                   + launches_fr + launches_rt + launches_ca + launches_cr
                   + l15["wire"] + l15["bf16"] + launches_16 + asym["fused"]
                   + p23["fused"] + p24["fused"] + p25["fused"]
                   + p25["fused_wire"] + p26["fused"] + p26["fused_wire"]
-                  + p27["fused"] + p27["fused_bf16"])
+                  + p27["fused"] + p27["fused_bf16"] + p28["fused"]
+                  + p28["fused_wire"])
     kernels = [{
         # K1's own float32-weight family entry: its launches on the main
         # path are the asymmetric backward's halo-ᵀ launches (the
@@ -5405,8 +5832,8 @@ def main() -> int:
         "launches": (launches_gc + launches_gf + launches_gt + launches_gtc
                      + launches_gfr + launches_grt + launches_gcr
                      + l17["f32"] + asym["k5"] + p23["k5"] + p24["k5"]
-                     + p27["k5"]),
-        "max_abs_err": max(k5_err, err_f, err_b, k5r_err, k5_err27),
+                     + p27["k5"] + p28["k5"]),
+        "max_abs_err": max(k5_err, err_f, err_b, k5r_err, k5_err27, sub_err),
         "ms": gat_fwd["ms"],
         "plain_ms": gat_fwd["plain_ms"],
         "bound_ms": gat_fwd["bound_ms"],

@@ -56,7 +56,11 @@ one fused launch of the local rows' transposed masks plus the owner's sum
 of what came back).  a2a only, as in the reference.  Under
 ``compute_dtype='bfloat16'`` this is the packed table's true gradient;
 the reference differentiates through ``_pack_rows``'s bit cast, which
-carries none (ROADMAP C5).  Not ported: the sub-graph stabilizers (A11).
+carries none (ROADMAP C5).
+
+``gat_forward_local(collect_stabilizers=True)`` also returns each layer's
+softmax stabilizer ``cg``, the one full-graph quantity sub-graph serving
+(``serve/subgraph.py``) takes as an input.
 """
 
 from __future__ import annotations
@@ -384,14 +388,15 @@ class GatLayerSym(torch.autograd.Function):
     dtypes, as the reference's VJP hands float32 cotangents to its casts.
 
     ``GatLayerSym.backward_launches`` counts the kernel launches the
-    backward made (CUDA tensors only)."""
+    backward made (CUDA tensors only).  ``stabilizers``, a list, receives
+    the layer's ``cg`` (``gat_forward_local(collect_stabilizers=True)``)."""
 
     backward_launches = 0
 
     @staticmethod
     def forward(ctx, w, a1, a2, h, ex_src, halo_src_flat, csrc, cld, cw,
                 row_valid, tb, cclasses, form=None, rr_sizes=None,
-                compute_dtype=None):
+                compute_dtype=None, stabilizers=None):
         dt = narrow_dtype(compute_dtype, "compute_dtype")
         dtypes = (w.dtype, a2.dtype, h.dtype)
         if dt is not None:
@@ -401,6 +406,8 @@ class GatLayerSym(torch.autograd.Function):
         out, _z, _u, den, cg = _gat_factored_fwd_core(
             w, a2, h, ex_src, halo_src_flat, csrc, cld, cw, row_valid, tb,
             cclasses, form, rr_sizes)
+        if stabilizers is not None:
+            stabilizers.append(cg)
         ctx.save_for_backward(w, a1, a2, h, cg, den, out, ex_src,
                               halo_src_flat, csrc, cld, cw)
         ctx.static = (tb, cclasses, form, rr_sizes, dtypes)
@@ -416,7 +423,7 @@ class GatLayerSym(torch.autograd.Function):
                 dn, dd, form, ex_src, halo_src_flat, csrc, cld, cw, tb,
                 cclasses, rr_sizes))
         GatLayerSym.backward_launches += k5_launches() - before
-        return grads + (None,) * 11
+        return grads + (None,) * 12
 
 
 def _gat_layer_grads(ctx, gbar, aggregate):
@@ -471,11 +478,11 @@ class GatLayerGen(torch.autograd.Function):
     @staticmethod
     def forward(ctx, w, a1, a2, h, ex_src, halo_src_flat, csrc, cld, cw,
                 row_valid, tb, cclasses, transposed, form=None,
-                compute_dtype=None):
+                compute_dtype=None, stabilizers=None):
         ctx.transposed = transposed
         return GatLayerSym.forward(ctx, w, a1, a2, h, ex_src, halo_src_flat,
                                    csrc, cld, cw, row_valid, tb, cclasses,
-                                   form, None, compute_dtype)
+                                   form, None, compute_dtype, stabilizers)
 
     @staticmethod
     def backward(ctx, gbar):
@@ -485,7 +492,7 @@ class GatLayerGen(torch.autograd.Function):
             ctx, gbar, lambda dn, dd: _gat_tiles_aggregate_T(
                 dn, dd, form, *ctx.transposed, tb))
         GatLayerGen.backward_launches += k5_launches() - before
-        return grads + (None,) * 11
+        return grads + (None,) * 12
 
 
 def gat_forward_local(
@@ -505,6 +512,7 @@ def gat_forward_local(
     pallas_tclclasses: tuple = (),  # static transposed combined classes
     pallas_tchclasses: tuple = (),  # (asymmetric)
     pallas_tc1classes: tuple = (),
+    collect_stabilizers: bool = False,  # also return the per-layer cg
 ):
     """Stacked forward: L × (``GatLayerSym`` → activation) →
     ``(k, B, nout)`` float32.  The reference stacks bare PGAT layers (no
@@ -514,7 +522,10 @@ def gat_forward_local(
     (``GatLayerSym``), each on its float32 input cast to bf16 — the
     reference's cast of ``h`` between layers.  ``symmetric=False`` (an
     asymmetric pattern, the reference's ``gat_layer_local``) runs every
-    layer as ``GatLayerGen`` on ``GAT_PLAN_FIELDS_PALLAS_GEN``, a2a only."""
+    layer as ``GatLayerGen`` on ``GAT_PLAN_FIELDS_PALLAS_GEN``, a2a only.
+    ``collect_stabilizers=True`` returns ``(out, cgs)``: ``cgs`` the
+    ``(L,)`` float32 softmax stabilizers the layers used (each the max of
+    ``z2`` over every part's real rows)."""
     if not symmetric and comm_schedule != "a2a":
         raise ValueError(
             "comm_schedule='ragged' uses the symmetric custom backward (the "
@@ -541,16 +552,20 @@ def gat_forward_local(
             tuple(pa[f"ptile_tc1{x}"] for x in ("src", "ld", "w")),
             pa["rev_csrc"], pallas_tclclasses, pallas_tchclasses,
             pallas_tc1classes)
+    cgs = [] if collect_stabilizers else None
     for i, p in enumerate(params):
         plan_args = (p["w"], p["a1"], p["a2"], h, *ex, pa["ptile_cld"],
                      pa["ptile_cw"], pa["row_valid"], pallas_tb,
                      pallas_cclasses)
         if symmetric:
-            h = GatLayerSym.apply(*plan_args, None, rr_sizes, compute_dtype)
+            h = GatLayerSym.apply(*plan_args, None, rr_sizes, compute_dtype,
+                                  cgs)
         else:
             h = GatLayerGen.apply(*plan_args, transposed, None,
-                                  compute_dtype)
+                                  compute_dtype, cgs)
         h = fact(h) if i == nl - 1 else act(h)
+    if collect_stabilizers:
+        return h, torch.stack(cgs).float()
     return h
 
 

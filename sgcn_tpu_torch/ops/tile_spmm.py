@@ -161,6 +161,38 @@ def build_dst_tile_classes(edge_dst, edge_src, edge_w, num_rows: int,
     return out
 
 
+def stack_tile_family(dsts, srcs, ws, num_rows: int, tb: int, class_tiles,
+                      src_fill: int = 0):
+    """One edge family's tiles over stacked parts: per part
+    ``build_dst_tile_classes`` on its dst-sorted ``(dst, src, w)`` list,
+    then per class every part's tiles padded to that class's largest
+    ``Emax`` (pads: local dst ``tb-1``, weight 0) and laid out flat, class
+    after class.  ``src_fill`` given, every weight-0 slot reads that row
+    (sub-graph serving points them at its all-zero dump row).  Returns
+    ``(src, ld, w, classes)``: ``(k, ΣT_c·Emax_c)`` int32 / int32 /
+    float32 and ``((T_c, Emax_c), ...)``.  Raises if a tile's local
+    destinations decrease along its slots (``check_tile_layout``)."""
+    per = [build_dst_tile_classes(d, s, w, num_rows, tb, class_tiles)
+           for d, s, w in zip(dsts, srcs, ws)]
+    fills = (0, tb - 1, 0.0)
+    dtypes = (np.int32, np.int32, np.float32)
+    flats: list[list] = [[], [], []]
+    classes = []
+    for c, tc in enumerate(class_tiles):
+        emax = max(x[c][0].shape[1] for x in per)
+        classes.append((int(tc), int(emax)))
+        for i in range(3):
+            flats[i].append(np.stack([
+                np.pad(x[c][i], ((0, 0), (0, emax - x[c][i].shape[1])),
+                       constant_values=fills[i]).astype(dtypes[i])
+                .reshape(-1) for x in per]))
+    src, ld, w = (np.concatenate(f, axis=1) for f in flats)
+    if src_fill:
+        src[w == 0] = src_fill
+    check_tile_layout(ld, classes, tb)
+    return src, ld, w, tuple(classes)
+
+
 # ------------------------------------------------------------- the kernel
 def spmm_tiles_plain(tsrc, tld, tw, table, tb: int = 256):
     """Plain PyTorch version of the tile SpMM: a literal loop over the

@@ -345,29 +345,16 @@ class CommPlan:
     def _pallas_family(self, dst, src, w, tb: int, class_tiles):
         """Stack one edge family's per-part tile classes into flat
         ``(k, ΣT_c·Emax_c)`` arrays (per class, Emax_c padded to the max
-        across parts) + the static class structure.  Raises if a tile's
+        across parts) + the static class structure
+        (``ops/tile_spmm.py::stack_tile_family``).  Raises if a tile's
         local destinations decrease along its slots (``check_tile_layout``:
         the CUDA kernel finds each row's slots by that order)."""
-        from ..ops.tile_spmm import build_dst_tile_classes, check_tile_layout
+        from ..ops.tile_spmm import stack_tile_family
 
-        per = [build_dst_tile_classes(dst[p], src[p], w[p], self.b, tb,
-                                      class_tiles)
-               for p in range(self.k)]
-        fills = (0, tb - 1, 0.0)           # src, local dst, weight pads
-        dtypes = (np.int32, np.int32, np.float32)
-        flats: list[list] = [[], [], []]
-        classes = []
-        for c, tc in enumerate(class_tiles):
-            emax = max(x[c][0].shape[1] for x in per)
-            classes.append((int(tc), int(emax)))
-            for i in range(3):
-                flats[i].append(np.stack([
-                    np.pad(x[c][i], ((0, 0), (0, emax - x[c][i].shape[1])),
-                           constant_values=fills[i]).astype(dtypes[i])
-                    .reshape(-1) for x in per]))
-        flats = tuple(np.concatenate(f, axis=1) for f in flats)
-        check_tile_layout(flats[1], classes, tb)
-        return flats + (tuple(classes),)
+        return stack_tile_family([dst[p] for p in range(self.k)],
+                                 [src[p] for p in range(self.k)],
+                                 [w[p] for p in range(self.k)], self.b, tb,
+                                 class_tiles)
 
     def ensure_pallas_tiles(self, tb: int = 256) -> "CommPlan":
         """Build the dst-tile layout of both edge families on first use:
@@ -1137,6 +1124,23 @@ class CommPlan:
         −1 on padding slots."""
         out = np.full((self.k, self.b), -1, dtype=np.int64)
         out[self.owner, self.local_idx] = np.arange(self.n, dtype=np.int64)
+        return out
+
+    def halo_global_rows(self) -> np.ndarray:
+        """(k, R) int64: the global vertex id each halo rank holds after one
+        exchange; −1 on padding ranks.  Halo rank ``j`` of part ``c`` reads
+        receive slot ``halo_src[c, j] = q·S + t``, which owner ``q`` filled
+        from its local row ``send_idx[q, c, t]``, so the map comes from the
+        plan alone.  Sub-graph serving (``serve/subgraph.py``) maps the halo
+        family's sources to global rows through it."""
+        si = np.asarray(self.send_idx)
+        glob = self.global_row_ids()
+        out = np.full((self.k, self.r), -1, dtype=np.int64)
+        for c in range(self.k):
+            hs = int(self.halo_counts[c])
+            flat = np.asarray(self.halo_src[c, :hs], dtype=np.int64)
+            q = flat // self.s
+            out[c, :hs] = glob[q, si[q, c, flat % self.s]]
         return out
 
 

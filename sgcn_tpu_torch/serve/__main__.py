@@ -16,11 +16,16 @@ GCN exchange's wire.  ``--checkpoint`` (either package's ``.npz``) has its
 plan digest and model config verified, and its config supplies the model,
 widths and activations (the flags fill the gaps);
 ``--watch-checkpoint-dir DIR`` hot-swaps the newest intact checkpoint of
-a trainer's ``--checkpoint-dir`` in before each micro-batch.  Flags whose
-feature is not ported are not defined (sub-graph mode, concurrent
-dispatch, metrics, memory budget, shedding).  Prints ONE JSON line:
-achieved QPS, p50/p95/p99 latency and the batching/wire gauges, under the
-reference's keys, with ``"weights": "checkpoint"`` or ``"random-init"``.
+a trainer's ``--checkpoint-dir`` in before each micro-batch.
+``--serve-mode subgraph`` computes only each batch's L-hop receptive rows
+(``serve/subgraph.py``; a GCN plan must be symmetric), ``--concurrent``
+submits batch t+1 before batch t's result is read, ``--shed-factor F``
+returns queries older than ``F`` × the latency budget at dispatch as shed.
+Flags whose feature is not ported are not defined (metrics, memory
+budget).  Prints ONE JSON line: achieved QPS, p50/p95/p99 latency, the
+shed count and the batching/wire gauges (sub-graph mode: touched rows,
+recipe edges and FLOPs per query), under the reference's keys, with
+``"weights": "checkpoint"`` or ``"random-init"``.
 """
 
 from __future__ import annotations
@@ -68,6 +73,24 @@ def main(argv=None) -> None:
     p.add_argument("--latency-budget-ms", type=float, default=50.0,
                    help="micro-batcher deadline: flush once the oldest "
                         "pending query has waited this long")
+    p.add_argument("--shed-factor", type=float, default=None, metavar="F",
+                   help="deadline shedding (docs/resilience.md): a query "
+                        "whose age already exceeds latency-budget-ms × F "
+                        "at dispatch is returned as an explicit shed "
+                        "marker instead of silently blowing the p99; "
+                        "the shed count lands in the serve event (F >= 1; "
+                        "default: never shed)")
+    p.add_argument("--serve-mode", default="full",
+                   choices=["full", "subgraph"],
+                   help="'full' recomputes the whole partitioned forward "
+                        "per micro-batch; 'subgraph' computes only the "
+                        "routed queries' L-hop receptive sets — "
+                        "query-proportional FLOPs (docs/serving.md phase "
+                        "2); a GCN plan must be symmetric")
+    p.add_argument("--concurrent", action="store_true",
+                   help="double-buffered dispatch: submit batch t+1 while "
+                        "batch t's device program runs (the serve:overlap "
+                        "span measures the host/device overlap)")
     p.add_argument("--max-batch", type=int, default=32)
     p.add_argument("--buckets", default=None,
                    help="comma-separated padded batch-size buckets "
@@ -174,7 +197,8 @@ def main(argv=None) -> None:
         comm_schedule=args.comm_schedule, halo_dtype=args.halo_dtype,
         checkpoint=args.checkpoint, max_batch=args.max_batch,
         buckets=buckets, latency_budget_ms=args.latency_budget_ms,
-        seed=args.seed, device=device)
+        shed_factor=args.shed_factor, seed=args.seed, device=device,
+        mode=args.serve_mode)
     engine.set_features(feats)
     if args.watch_checkpoint_dir:
         engine.attach_checkpoint_watch(args.watch_checkpoint_dir)
@@ -184,7 +208,8 @@ def main(argv=None) -> None:
     mode = "open" if args.qps > 0 else "closed"
     engine.warmup(qids)      # every bucket, outside the measured window
     result = run_loadgen(engine, qids,
-                         offered_qps=args.qps if args.qps > 0 else None)
+                         offered_qps=args.qps if args.qps > 0 else None,
+                         concurrent=args.concurrent)
 
     report = {
         "metric": "serve_qps",
@@ -198,6 +223,9 @@ def main(argv=None) -> None:
         "deadline_flushes": engine.batcher.deadline_flushes,
         "full_flushes": engine.batcher.full_flushes,
         "latency_budget_ms": args.latency_budget_ms,
+        "shed": result.shed,
+        "shed_factor": args.shed_factor,
+        "concurrent": args.concurrent,
         "model": model,
         "activation": engine.activation,
         "widths": widths,

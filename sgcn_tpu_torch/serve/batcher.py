@@ -39,6 +39,19 @@ def default_buckets(max_batch: int) -> tuple[int, ...]:
     return tuple(out)
 
 
+def pad_pow2(x: int, lo: int = 8) -> int:
+    """The same doubling rule for one dynamic dimension: the smallest power
+    of two ≥ ``max(x, 1)``, floored at ``lo``.  Sub-graph serving
+    (``serve/subgraph.py``) pads its compact row count and query count
+    through it, so each dimension takes at most ``log2`` distinct
+    values."""
+    x = max(int(x), 1)
+    out = lo
+    while out < x:
+        out *= 2
+    return out
+
+
 @dataclass
 class Pending:
     """One queued query: global vertex id + the arrival time its latency is

@@ -1,26 +1,33 @@
-"""Partitioned inference engine, full-forward mode (port of
-``sgcn_tpu/serve/engine.py``, ``mode='full'``, GCN or GAT, float32, over
-the dense a2a exchange or the ragged ring; for GCN the reference's
-``halo_dtype`` wire lever).
+"""Partitioned inference engine (port of ``sgcn_tpu/serve/engine.py``):
+GCN or GAT, float32, over the dense a2a exchange or the ragged ring; for
+GCN the reference's ``halo_dtype`` wire lever.
 
-Each micro-batch runs the whole partitioned forward over the ``k`` parts
-stacked on one device — halo exchange, tile SpMM, projection, activation
-per layer — and then gathers the queried rows.  Query path per batch
-(host stages spanned through ``SpanTimer``):
+``mode='full'``: each micro-batch runs the whole partitioned forward over
+the ``k`` parts stacked on one device — halo exchange, tile SpMM,
+projection, activation per layer — and then gathers the queried rows.
+``mode='subgraph'``: each micro-batch computes only the routed queries'
+L-hop receptive rows (``serve/subgraph.py``), with no exchange, on the
+same kernels — one fused-entry launch per GCN layer, K5 per GAT pass.
+Query path per batch (host stages spanned through ``SpanTimer``):
 
   * ``serve:route``   — global vertex ids → (owner, local slot) through the
-    ``VertexRouter``;
+    ``VertexRouter``; in sub-graph mode also the receptive sets and the
+    compact layout (``build_batch``, numpy);
   * ``serve:batch``   — pad the batch up to its bucket (owner −1 on
-    padding) and copy the index vectors to the device;
+    padding) and copy the index vectors (sub-graph mode: the compact
+    tiles) to the device;
   * ``serve:forward`` — wait for the forward and copy the ``(Q, nout)``
     rows back.  Kernels are queued asynchronously, so the device time of
     the forward lands in this span.
 
 The reference's in-program gather (take + owner mask + ``psum`` across
 chips) is, over the stacked ``(k, B, nout)`` logits, one advanced index
-``logits[q_owner, q_local]``; padding slots are masked to zeros.  There is
-no per-bucket compile (``compile_count`` stays 0); capturing one CUDA
-graph per bucket is a later slice.
+``logits[q_owner, q_local]``; padding slots are masked to zeros (with a
+``where``: a sub-graph batch's outer-shell rows are not meant to be
+read).  There is no per-bucket compile (``compile_count`` stays 0);
+capturing one CUDA graph per bucket is a later slice.  A GAT sub-graph
+engine keeps the per-layer softmax stabilizers of the full graph, from one
+full forward per feature load or weight swap (``_refresh_stabilizers``).
 
 Weights come from a trainer checkpoint (``checkpoint=``, either package's
 ``.npz``: provenance verified first, then the params read off the leading
@@ -46,6 +53,8 @@ from ..utils.checkpoint import (check_leaves, from_leaves,
 from ..utils.timers import PhaseTimer, SpanTimer
 from .batcher import MicroBatcher, default_buckets
 from .router import VertexRouter
+from .subgraph import (SubgraphIndex, build_batch, subgraph_forward_gat,
+                       subgraph_forward_gcn)
 
 SERVE_STAGES = ("serve:route", "serve:batch", "serve:forward",
                 "serve:overlap")
@@ -123,10 +132,16 @@ class ServeEngine:
         max_batch: int = 64,
         buckets: tuple | None = None,
         latency_budget_ms: float = 50.0,
+        shed_factor: float | None = None,
         seed: int = 0,
         device=None,
+        mode: str = "full",
     ):
-        """The reference engine's ``mode='full'``.  ``activation``:
+        """The reference engine.  ``mode``: ``'full'`` (one full
+        partitioned forward per micro-batch) or ``'subgraph'`` (the routed
+        queries' L-hop receptive rows only; a GCN plan must be symmetric).
+        ``shed_factor``: the batcher's deadline shedding (``None``: never
+        shed).  ``activation``:
         between layers, ``None`` for the model's own (ReLU for GCN, none
         for GAT, PGAT's bare layers); ``final_activation`` after the last.
         ``checkpoint``: a trainer checkpoint ``.npz`` of either package —
@@ -146,8 +161,15 @@ class ServeEngine:
             raise ValueError(
                 "halo_dtype is a GCN wire lever; the GAT exchange ships "
                 "attention tables (same rule as the trainer)")
+        if mode not in ("full", "subgraph"):
+            raise ValueError(f"unknown serve mode {mode!r} "
+                             "(know 'full', 'subgraph')")
         narrow_dtype(halo_dtype)
         self.device = resolve_device(device)
+        self.mode = mode
+        # sub-graph serving state; the index refuses a GCN asymmetric plan
+        self.sgindex = (SubgraphIndex(plan, model) if mode == "subgraph"
+                        else None)
         self.plan = plan
         self.fin = int(fin)
         self.widths = list(widths)
@@ -173,7 +195,8 @@ class ServeEngine:
             max_batch=max_batch,
             latency_budget_ms=latency_budget_ms,
             buckets=buckets if buckets is not None
-            else default_buckets(max_batch))
+            else default_buckets(max_batch),
+            shed_factor=shed_factor)
         self.timer = PhaseTimer()
         self.spans = SpanTimer(timer=self.timer)
 
@@ -195,6 +218,11 @@ class ServeEngine:
         self._h0 = None                    # set_features()
         self.compile_count = 0             # no per-bucket compile (yet)
         self.forward_count = 0             # full forwards run
+        self._feats = None                 # (n + 1, fin): set_features()
+        self._stabilizers = None           # GAT per-layer cg (L,), device
+        self._sg_keys = set()              # sub-graph shape keys served
+        self._sg_totals = {"queries": 0, "batches": 0, "touched_rows": 0,
+                           "recipe_edges": 0, "wire_rows": 0, "flops": 0}
 
     # ------------------------------------------------------------- loading
     def _load_leaves(self, path: str) -> list:
@@ -226,6 +254,8 @@ class ServeEngine:
         leaves = self._load_leaves(checkpoint)
         from_leaves(leaves, self.model.layer_params())
         self.weights_rev += 1
+        if self._stabilizers is not None:
+            self._refresh_stabilizers()
         return self.checkpoint_meta
 
     def attach_checkpoint_watch(self, directory: str) -> CheckpointWatcher:
@@ -251,6 +281,32 @@ class ServeEngine:
                 f"({self.plan.n}, {self.fin})")
         self._h0 = torch.as_tensor(self.plan.scatter_rows(features)).to(
             self.device)
+        if self.mode == "subgraph":
+            # the receptive rows' features are gathered on the device; row
+            # n (zeros) feeds the pad rows and the dump row
+            self._feats = torch.as_tensor(np.concatenate(
+                [features, np.zeros((1, self.fin), np.float32)])).to(
+                    self.device)
+            if self.model_kind == "gat":
+                self._refresh_stabilizers()
+
+    # ------------------------------------------------- GAT stabilizer cache
+    def _refresh_stabilizers(self) -> None:
+        """The per-layer softmax stabilizers ``cg`` of the FULL graph under
+        the current weights and features — the one full-graph quantity the
+        compact GAT forward takes as an input
+        (``gat_forward_local(collect_stabilizers=True)``): one full forward
+        per feature load or weight swap, amortized over every query served
+        from it; counted in ``forward_count``."""
+        from ..models.gat import gat_forward_local
+
+        with torch.inference_mode():
+            _, self._stabilizers = gat_forward_local(
+                self.model.layer_params(), self._h0, self.pa,
+                activation=self.activation,
+                final_activation=self.final_activation,
+                collect_stabilizers=True, **self.model.fwd_static)
+        self.forward_count += 1
 
     # --------------------------------------------------------------- query
     def forward(self):
@@ -278,6 +334,8 @@ class ServeEngine:
             # one poll per micro-batch: a newer intact checkpoint in the
             # watched directory swaps in before this batch dispatches
             self._watch.poll(self)
+        if self.mode == "subgraph":
+            return self._submit_subgraph(qids)
         with self.spans.span("serve:route"):
             owners, locals_ = self.router.lookup(qids)
         with self.spans.span("serve:batch"):
@@ -292,6 +350,64 @@ class ServeEngine:
         sel = logits[q_owner.clamp(min=0), q_local]          # (Q, nout)
         out = torch.where((q_owner >= 0)[:, None], sel, 0.0)
         return InFlightBatch(self, out, nq)
+
+    def _submit_subgraph(self, qids) -> InFlightBatch:
+        """One sub-graph micro-batch: the compact layout on the host, then
+        the compact forward and the query gather queued on the device."""
+        with self.spans.span("serve:route"):
+            batch = self.subgraph_batch(qids)
+        return InFlightBatch(self, self.run_subgraph(batch), batch.nq)
+
+    def subgraph_batch(self, qids):
+        """The host half of a sub-graph micro-batch: route ``qids``, take
+        each part's receptive set and cut its compact tiles
+        (``serve/subgraph.py::build_batch``, numpy)."""
+        if self.sgindex is None:
+            raise ValueError("engine was built with mode='full' — "
+                             "sub-graph batches exist under "
+                             "mode='subgraph'")
+        if self._feats is None:
+            raise ValueError(
+                "sub-graph serving gathers receptive-set features — call "
+                "set_features(features) first")
+        return build_batch(self.sgindex, self.router, qids, self.nlayers,
+                           tb=self.setup.fwd_static["pallas_tb"])
+
+    def run_subgraph(self, batch):
+        """The device half: copy ``batch``'s compact tiles to the device,
+        gather its rows' features, queue the compact forward and the query
+        gather.  Returns the ``(Qb, nout)`` rows (padding slots zero), not
+        waited for."""
+        from ..obs.attribution import subgraph_batch_flops
+
+        with self.spans.span("serve:batch"):
+            arrs = batch.to_device(self.device)
+        with torch.inference_mode():
+            h = self._feats[arrs["gids"]]  # −1 reads the zero row n (last)
+            if self.model_kind == "gat":
+                h = subgraph_forward_gat(
+                    self.model.layer_params(), self._stabilizers, h,
+                    arrs["valid"], arrs["families"][0], batch.classes[0],
+                    batch.tb, self.activation, self.final_activation)
+            else:
+                h = subgraph_forward_gcn(
+                    self.model.layer_params(), h, arrs["families"],
+                    batch.classes, batch.tb, self.activation,
+                    self.final_activation, self.halo_dtype)
+            q_owner = arrs["q_owner"]
+            sel = h[q_owner.clamp(min=0), arrs["q_pos"]]     # (Qb, nout)
+            out = torch.where((q_owner >= 0)[:, None], sel, 0.0)
+        self._sg_keys.add(batch.key)
+        t = self._sg_totals
+        t["queries"] += batch.nq
+        t["batches"] += 1
+        t["touched_rows"] += batch.touched_rows
+        t["recipe_edges"] += batch.recipe_edges
+        t["wire_rows"] += batch.key[1]              # the padded gather rows
+        t["flops"] += subgraph_batch_flops(
+            batch.touched_rows, batch.recipe_edges, self.fin, self.widths,
+            model=self.model_kind)
+        return out
 
     def query(self, qids) -> np.ndarray:
         """Serve one micro-batch of global vertex ids → ``(len(qids),
@@ -315,9 +431,40 @@ class ServeEngine:
         return len(self.widths)
 
     def gauges(self) -> dict:
-        """Plan-derived per-batch gauges of the full-forward mode, under
-        the reference's report keys where they apply; the wire rows are
-        the resolved schedule's (a2a k²·S, ragged k·Σ_d S_d)."""
+        """Per-batch gauges under the reference's report keys where they
+        apply.  Full mode: plan-derived, the wire rows the resolved
+        schedule's (a2a k²·S, ragged k·Σ_d S_d).  Sub-graph mode:
+        accumulated over the batches served (warm-up included, hence the
+        ``_total`` keys): touched rows and real recipe edges per query,
+        analytic FLOPs per query beside one full forward's, and the padded
+        query-gather rows per query (the mode's only cross-part traffic,
+        the reference's psum)."""
+        from ..obs.attribution import forward_flops
+
+        full_flops = forward_flops(self.plan, self.fin, self.widths,
+                                   model=self.model_kind)
+        if self.mode == "subgraph":
+            t = self._sg_totals
+            nq = max(t["queries"], 1)
+            return {
+                "serve_mode": "subgraph",
+                "comm_schedule": self.comm_schedule,
+                "halo_dtype": self.halo_dtype,
+                "weights_rev": self.weights_rev,
+                "subgraph_queries_total": t["queries"],
+                "subgraph_batches_total": t["batches"],
+                "touched_rows_total": t["touched_rows"],
+                "touched_rows_per_query": round(t["touched_rows"] / nq, 6),
+                "recipe_edges_total": t["recipe_edges"],
+                "subgraph_flops_per_query": round(t["flops"] / nq, 3),
+                "wire_rows_per_query": round(t["wire_rows"] / nq, 6),
+                "full_rows_per_forward": int(self.plan.k * self.plan.b),
+                "full_forward_flops": full_flops,
+                "buckets": [list(key) for key in sorted(self._sg_keys)],
+                "compiles": self.compile_count,
+                "forwards": self.forward_count,
+                "device": device_name(self.device),
+            }
         wire = self.plan.wire_rows_per_exchange(self.comm_schedule)
         true = int(self.plan.predicted_send_volume.sum())
         return {
@@ -331,6 +478,7 @@ class ServeEngine:
             "wire_rows_per_query": round(
                 self.nlayers * wire / self.batcher.max_batch, 6),
             "full_rows_per_forward": int(self.plan.k * self.plan.b),
+            "full_forward_flops": full_flops,
             "buckets": list(self.batcher.buckets),
             "compiles": self.compile_count,
             "forwards": self.forward_count,

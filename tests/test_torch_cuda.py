@@ -20,7 +20,9 @@ CPU versions, and the stale trainer's ``sync_every=1`` == exact and ring
 == a2a on the card; the destination-indexed pack (``row_pack_into``)
 against its plain version, one replica and one composed replica × stale
 step against their CPU versions, and the replica trainer's launches on
-the card.
+the card; sub-graph serving's compact fused and K5 launches against their
+plain versions on a batch holding a hub row, and the sub-graph engine's
+launches and rows on the card.
 
 This module imports no JAX, so it also runs on a GPU machine without it:
 
@@ -63,7 +65,8 @@ from sgcn_tpu_torch.ops.tile_spmm import (TILE_PLAN_FIELDS,
 from sgcn_tpu_torch.parallel import build_comm_plan
 from sgcn_tpu_torch.partition import balanced_random_partition
 from sgcn_tpu_torch.prep import normalize_adjacency
-from sgcn_tpu_torch.serve import ServeEngine
+from sgcn_tpu_torch.serve import (ServeEngine, SubgraphIndex, VertexRouter,
+                                  build_batch)
 from sgcn_tpu_torch.train import (FullBatchTrainer, make_train_data,
                                   resolve_forward_setup)
 
@@ -1484,3 +1487,89 @@ def test_minibatch_epoch_on_cuda_ragged_equals_a2a(cuda_device, model):
     assert a2a[2] == tuple(nb * x for x in per_step)
     assert a2a[2][2] == 0                        # no K1 family launch
     assert (a2a[2][1] > 0) if model == "gcn" else (a2a[2][3] > 0)
+
+
+@functools.lru_cache(maxsize=1)
+def _hub_plan():
+    """An ER graph (n = 3000, degree 8) with one hub row of 1200 extra
+    neighbors, normalized, on 4 balanced random parts."""
+    a = er_graph(3000, avg_deg=8, seed=5).tolil()
+    nb = np.random.default_rng(5).choice(3000, 1200, replace=False)
+    nb = nb[nb != 17]
+    a[17, nb] = 1.0
+    a[nb, 17] = 1.0
+    return build_comm_plan(normalize_adjacency(a.tocsr()),
+                           balanced_random_partition(3000, 4, seed=1), 4)
+
+
+@pytest.mark.parametrize("f", [1, 16, 41, 128])
+@pytest.mark.parametrize("model", ["gcn", "gat"])
+def test_subgraph_compact_launches_equal_plain(cuda_device, model, f):
+    """A sub-graph batch holding the hub row and its 1200 slots: the
+    compact fused entry (GCN, float32 and on the bf16 wire) and K5 (GAT)
+    == their plain versions bit for bit, and two launches agree."""
+    plan = _hub_plan()
+    index = SubgraphIndex(plan, model)
+    q = np.array([17, 5, 900, 2999])
+    batch = build_batch(index, VertexRouter(plan), q, 2)
+    assert batch.touched_rows > 1200
+    fams = batch.to_device(cuda_device)["families"]
+    rows = batch.gids.shape[1]
+    x = torch.from_numpy(np.random.default_rng(f).standard_normal(
+        (plan.k, rows, f)).astype(np.float32)).to(cuda_device)
+    if model == "gcn":
+        for remote in (x, x.to(torch.bfloat16)):
+            one = spmm_tiles_fused(fams[0], x, fams[1], remote,
+                                   *batch.classes, batch.tb)
+            two = spmm_tiles_fused(fams[0], x, fams[1], remote,
+                                   *batch.classes, batch.tb)
+            plain = spmm_tiles_fused_plain(fams[0], x, fams[1], remote,
+                                           *batch.classes, batch.tb)
+            torch.cuda.synchronize()
+            assert torch.equal(_bits(one), _bits(two))
+            assert torch.equal(_bits(one), _bits(plain)), (
+                f"fused != plain, max diff {(one - plain).abs().max()}")
+    else:
+        before = spmm_tiles.mask_launches
+        one = gat_mod.gat_tiles_pass(*fams[0], x, batch.classes[0],
+                                     batch.tb, rows)
+        two = gat_mod.gat_tiles_pass(*fams[0], x, batch.classes[0],
+                                     batch.tb, rows)
+        plain = spmm_tiles_classes_plain(*fams[0], x, batch.classes[0],
+                                         batch.tb)[:, :rows]
+        torch.cuda.synchronize()
+        assert spmm_tiles.mask_launches == before + 2
+        assert torch.equal(_bits(one), _bits(two))
+        assert torch.equal(_bits(one), _bits(plain)), (
+            f"K5 != plain, max diff {(one - plain).abs().max()}")
+
+
+@pytest.mark.parametrize("model", ["gcn", "gat"])
+def test_subgraph_engine_on_cuda_launches_and_rows(cuda_device, model):
+    """The sub-graph engine on the card: per GCN batch one fused launch a
+    layer and no pack, per GAT batch the K5 passes of its layers; rows
+    within rtol 1e-5 / atol 1e-6 of the card's full engine (the
+    projections run at another row count)."""
+    plan = _hub_plan()
+    feats = np.random.default_rng(2).standard_normal((3000, 24)).astype(
+        np.float32)
+    kw = dict(fin=24, widths=[32, 32, 5], model=model, max_batch=16,
+              device="cuda", seed=3)
+    full = ServeEngine(plan, **kw)
+    full.set_features(feats)
+    sub = ServeEngine(plan, mode="subgraph", params=[
+        {n_: t.detach().cpu() for n_, t in p.items()} if isinstance(p, dict)
+        else p.detach().cpu() for p in full.model.layer_params()], **kw)
+    sub.set_features(feats)
+    q = np.array([17, 3, 400, 1234, 2999])
+    want = full.query(q)
+    packs, fused, k5 = (row_pack.launches, spmm_tiles_fused.launches,
+                        spmm_tiles.mask_launches)
+    got = sub.query(q)
+    torch.cuda.synchronize()
+    assert row_pack.launches == packs
+    if model == "gcn":
+        assert spmm_tiles_fused.launches - fused == 3
+    else:
+        assert spmm_tiles.mask_launches - k5 == 3     # 3 fused-form layers
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)

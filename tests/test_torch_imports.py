@@ -142,3 +142,32 @@ def test_scan_sees_the_minibatch_and_shp_modules():
             text = fh.read()
         for d in defs:
             assert d in text, (path, d)
+
+
+def test_scan_sees_the_subgraph_serving_modules():
+    """Sub-graph serving (the recipes, the compact layout and forwards,
+    the stabilizers, the FLOP gauges, the CLI flags) is in the scan, and
+    the names it runs on live in it, so none of it imports JAX or the JAX
+    package."""
+    names = {os.path.relpath(p, REPO) for p in _sources()}
+    want = {("serve", "subgraph.py"): ("SubgraphIndex", "build_batch",
+                                       "subgraph_forward_gcn",
+                                       "subgraph_forward_gat",
+                                       "compact_gat_aggregate"),
+            ("serve", "batcher.py"): ("pad_pow2",),
+            ("serve", "engine.py"): ("_submit_subgraph",
+                                     "_refresh_stabilizers"),
+            ("serve", "__main__.py"): ("--serve-mode", "--concurrent",
+                                       "--shed-factor"),
+            ("obs", "attribution.py"): ("forward_flops",
+                                        "subgraph_batch_flops"),
+            ("models", "gat.py"): ("collect_stabilizers",),
+            ("ops", "tile_spmm.py"): ("stack_tile_family",),
+            ("parallel", "plan.py"): ("halo_global_rows",)}
+    for rel, defs in want.items():
+        path = os.path.join("sgcn_tpu_torch", *rel)
+        assert path in names
+        with open(os.path.join(REPO, path)) as fh:
+            text = fh.read()
+        for d in defs:
+            assert d in text, (path, d)

@@ -219,9 +219,10 @@ def test_cli_runs_in_process(capsys):
 
 def test_cli_leaves_unported_flags_undefined(capsys):
     """Flags of features not ported are undefined (argparse exit 2);
-    ``--checkpoint`` is ported and exclusive with ``--random-init``."""
-    for flag in ("--serve-mode", "--concurrent", "--metrics-out",
-                 "--shed-factor"):
+    ``--checkpoint`` is ported and exclusive with ``--random-init``.
+    (``--serve-mode``, ``--concurrent`` and ``--shed-factor`` are ported:
+    ``tests/test_torch_subgraph.py``.)"""
+    for flag in ("--metrics-out", "--memory-budget"):
         with pytest.raises(SystemExit) as exc:
             serve_main(["-p", HP8, "-s", "8", "--random-init", flag, "x"])
         assert exc.value.code == 2
