@@ -318,21 +318,43 @@ failure raises and the script exits non-zero:
      ``--concurrent``, with ``--shed-factor 2``, and in full mode with
      both flags, and the ER flagship from phase 23's GAT checkpoint with
      all three (launches exact; ``build/chip_smoke_subgraph/``);
-  29. one JSON line ``{"kernels": [...]}`` — per ported kernel (the tile
+  29. run telemetry, the memory model and remat (``obs/``): GCN and GAT
+     on phase 3's ER plan, a2a and ring, 128 → 128 → 128 → 40 from one
+     initial weight set, 1 warm-up + 3 steps plain and with ``remat=True``,
+     each under a ``RunRecorder`` (``build/chip_smoke_telemetry/``):
+     losses and weights remat == plain bit for bit, exact launches (remat
+     adds one forward's packs and fused / K5 launches a step), every event
+     and manifest re-validated (``load_run``), the memory block per family
+     (model against the live tensors) and the measured step (peak ≤ model
+     total × ``MEM_MODEL_TOL`` and × ``MEM_CARD_TOL``, arguments ≤ modeled
+     + 256 B, alias ≥ params + Adam), each step's peak and ``epoch_s``
+     plain against remat; the budget gate (total − 1 raises
+     ``MemoryBudgetError``, ``memory_allocated`` unchanged); the cora
+     mini-batch trainer (batch 1024, every batch plan and batch on the
+     card) under a recorder, its measured step joined against the model
+     of the whole batch set; the cora train CLI with
+     ``--metrics-out --profile`` in a child (the port's
+     ``summarize_trace``: ``spmm`` and ``exchange`` non-zero, every
+     ``tile_spmm*`` kernel under ``spmm`` and every ``row_pack*`` under
+     ``exchange``, per-class device seconds beside the CUDA-event step)
+     and the serve CLI with ``--metrics-out --memory-budget 8G`` (the
+     report's memory block, its peak ≤ the model × ``MEM_CARD_TOL``, the
+     serve event);
+  30. one JSON line ``{"kernels": [...]}`` — per ported kernel (the tile
      SpMM, the GCN aggregation's backward, the GAT attention pass and its
      use in the GAT layer's backward, the ragged ring aggregation and its
      backward, the row shuffle, the tile SpMM's and the GAT pass's bf16
      flavors, the row pack, the fused local + remote entry and the
      destination-indexed pack) its
      launches on the main path (phases 2–5, 7–13, 15–17, 19–21 and
-     23–28, the children's included), max
+     23–29, the children's included), max
      |kernel − plain|, kernel / plain / bound / library times at the
      flagship layer.  The tile SpMM's own float-weight family entries
      (both tables) launch on the main path only in the asymmetric
      backward (phases 20–21): the symmetric phases must show 0 of them —
      the fused entry runs their chains and counts those launches — and any
      kernel with no launch on the main path fails the run;
-  30. the last line: ``{"ok": true, "device": {...}}``.
+  31. the last line: ``{"ok": true, "device": {...}}``.
 
 Without CUDA, or without the rest of the repository beside it, the script
 prints no result and exits with code 2 or 3.
@@ -368,7 +390,14 @@ RTOL, ATOL = 1e-4, 1e-5          # served logits vs the float64 forward
 GRAD_RTOL = 1e-5
 
 
+_T_IMPORT = time.perf_counter()
+
+
 def log(*a):
+    """Print a line; a phase's header line gets the seconds since the
+    script started."""
+    if a and isinstance(a[0], str) and a[0].startswith("phase "):
+        a = (*a, f"[{time.perf_counter() - _T_IMPORT:.1f} s]")
     print(*a, flush=True)
 
 
@@ -587,8 +616,10 @@ def check_k1(tiles, table, classes, tb, what, nan_ok=False):
     return diff
 
 
-def time_k1(tiles_np, tiles, table, classes, tb, n, what, plain_reps=3):
-    """Kernel, plain and library times (CUDA events) and the bound."""
+def time_k1(tiles_np, tiles, table, classes, tb, n, what):
+    """Kernel, plain and library times (CUDA events) and the bound.  The
+    plain version (a host loop over the classes, seconds at the flagship)
+    is timed on one call, as the fused entry's is."""
     import torch
 
     from sgcn_tpu_torch.ops.tile_spmm import (spmm_tiles_classes,
@@ -598,7 +629,7 @@ def time_k1(tiles_np, tiles, table, classes, tb, n, what, plain_reps=3):
     t_all = sum(t for t, _e, *_ in classes)
     ms = cuda_ms(lambda: spmm_tiles_classes(*tiles, table, classes, tb))
     plain_ms = cuda_ms(lambda: spmm_tiles_classes_plain(
-        *tiles, table, classes, tb), reps=plain_reps, warmup=1)
+        *tiles, table, classes, tb), reps=1, warmup=0)
     dense = table.reshape(k * n, f)
     try:
         # on a bf16 table, a bf16 CSR: where this torch has no CUDA kernel
@@ -1265,25 +1296,20 @@ def device_busy(run, reps: int = 5, tries: int = 1):
     return wall_ms, sum(ms for _, ms in rows), rows[:5]
 
 
-# device-time classes of a flagship step, by kernel name (torch.profiler);
-# the first class whose key the name holds ("roll_cuda", not "roll": the
-# casts and copies run in unrolled_elementwise_kernel)
-DEVICE_CLASSES = (("K3/K4 fused", ("tile_spmm_fused_kernel",)),
-                  ("K1/K5", ("tile_spmm_kernel",)),
-                  ("pack", ("row_pack_kernel",)),
-                  ("gathers", ("index", "gather")),
-                  ("roll", ("roll_cuda",)),
-                  ("cat", ("CatArray",)),
-                  ("copies (transpose, casts)", ("copy",)),
-                  ("matmul", ("gemm", "Kernel2", "cutlass", "sm90_xmma",
-                              "cublas")))
+# device-time classes of a flagship step: printed class -> the labels of
+# the port's one kernel-name table (sgcn_tpu_torch/obs/tracing.py
+# KERNEL_TABLE) it sums
+DEVICE_CLASSES = tuple((lab, (lab,)) for lab in (
+    "K3/K4 fused", "K1/K5", "pack", "gathers", "roll", "cat",
+    "copies (transpose, casts)", "matmul"))
 
 
 def device_split(name, run, reps: int = 3, what: str = "steps",
                  classes=DEVICE_CLASSES):
     """Device time of ``reps`` calls of ``run`` under ``torch.profiler``,
-    split into ``classes`` by kernel name (the rest as "other"), and the
-    idle share's upper bound; logged and returned as a dict.  CUDA events
+    split into ``classes`` by each kernel's ``KERNEL_TABLE`` label (the
+    rest as "other"), and the idle share's upper bound; logged and
+    returned as a dict.  CUDA events
     around the same calls give ``event_ms``, the span of the stream from
     the first launch to the last kernel's end.  Where the profiler
     recorded no device event (it now and then records none),
@@ -1292,6 +1318,8 @@ def device_split(name, run, reps: int = 3, what: str = "steps",
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+
+    from sgcn_tpu_torch.obs.tracing import kernel_label
 
     torch.cuda.synchronize()
     ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
@@ -1310,8 +1338,9 @@ def device_split(name, run, reps: int = 3, what: str = "steps",
         ms = e.self_device_time_total / 1e3
         if e.device_type != DeviceType.CUDA or ms <= 0:
             continue
-        label = next((lab for lab, keys in classes
-                      if any(k in e.key for k in keys)), "other")
+        lab = kernel_label(e.key)
+        label = next((cls for cls, labels in classes if lab in labels),
+                     "other")
         split[label] += ms
     dev_ms = sum(split.values()) or None
     out = {"wall_ms": wall, "event_ms": ev[0].elapsed_time(ev[1]),
@@ -1616,7 +1645,7 @@ def check_time_gat_call(passes, what):
         f = table.shape[-1]
         err = max(err, check_k1(tiles, table, cls, tb, f"{what} f={f}"))
         t = time_k1([x.cpu().numpy() for x in tiles], tiles, table, cls, tb,
-                    table.shape[1], f"{what} f={f}", plain_reps=2)
+                    table.shape[1], f"{what} f={f}")
         for key in ("ms", "plain_ms", "library_ms", "bound_ms"):
             tot[key] = tot.get(key, 0.0) + t[key]
         bound_by = bound_by or t["bound_by"]
@@ -3448,12 +3477,15 @@ BAND_STALE = dict(rtol=1e-2, atol=1e-2)
 # phase 25's device-time classes: DEVICE_CLASSES with the elementwise
 # kernels apart (the delta cache's sub, casts and add run there, beside
 # the ReLUs and the loss; the delta's share is the difference to the
-# plain stale step)
-STALE_CLASSES = (("K3/K4 fused", ("tile_spmm_fused_kernel",)),
-                 ("pack", ("row_pack_kernel",)),
-                 ("elementwise", ("elementwise_kernel", "copy")),
-                 ("matmul", ("gemm", "Kernel2", "cutlass", "sm90_xmma",
-                             "cublas")))
+# plain stale step).  Up to PR 14 the group held every kernel whose name
+# holds "elementwise_kernel" or "copy", index kernels such as
+# index_elementwise_kernel included; the "gathers" label keeps those in
+# (and adds the index kernels without either word in their name)
+STALE_CLASSES = (("K3/K4 fused", ("K3/K4 fused",)),
+                 ("pack", ("pack",)),
+                 ("elementwise", ("elementwise",
+                                  "copies (transpose, casts)", "gathers")),
+                 ("matmul", ("matmul",)))
 
 
 def carry_bytes(tr) -> int:
@@ -3740,12 +3772,12 @@ REPLICA_DIR = os.path.join(REPO, "build", "chip_smoke_replica")
 # replica losses are held to its band for the other approximate-halo mode,
 # the stale one (tests/test_stale_halo.py:192-200)
 BAND_REPLICA = BAND_STALE
-REPLICA_CLASSES = (("K3/K4 fused", ("tile_spmm_fused_kernel",)),
-                   ("pack", ("row_pack_kernel",)),
-                   ("gather/scatter", ("index", "gather", "scatter")),
-                   ("elementwise", ("elementwise_kernel", "copy")),
-                   ("matmul", ("gemm", "Kernel2", "cutlass", "sm90_xmma",
-                               "cublas")))
+REPLICA_CLASSES = (("K3/K4 fused", ("K3/K4 fused",)),
+                   ("pack", ("pack",)),
+                   ("gather/scatter", ("gathers",)),
+                   ("elementwise", ("elementwise",
+                                    "copies (transpose, casts)")),
+                   ("matmul", ("matmul",)))
 
 
 def replica_carry_bytes(tr) -> int:
@@ -4907,6 +4939,325 @@ def _phase_subgraph(children, parts_bg, ahat_dc, ahat_c, feats_c, pv_c, dev,
     return total, kerr
 
 
+# ------------------------------------- phase 29: run telemetry, memory, remat
+TEL_DIR = os.path.join(REPO, "build", "chip_smoke_telemetry")
+# the card's band for a measured step's peak against the model's total:
+# MEM_MODEL_TOL (2.5) is the reference's structural default; the model
+# prices every mode phase 29 runs as an envelope, so a peak more than 5 %
+# above the total is a buffer the model does not know about
+MEM_CARD_TOL = 1.05
+
+
+def phase_telemetry(plan, feats, labels, p_init, params_g, widths, fix,
+                    dev, smi):
+    """Phase 29 (module docstring): remat against the plain step and the
+    memory joins at the flagship width under a ``RunRecorder``, the budget
+    gate, then the cora train CLI with ``--metrics-out --profile`` and the
+    serve CLI with ``--metrics-out --memory-budget`` in children.  Returns
+    the launch counts of its paths by kernel entry."""
+    children = Children()
+    try:
+        return _phase_telemetry(children, plan, feats, labels, p_init,
+                                params_g, widths, fix, dev, smi)
+    finally:
+        children.stop()
+
+
+def _phase_telemetry(children, plan, feats, labels, p_init, params_g,
+                     widths, fix, dev, smi):
+    import gc
+    import shutil
+
+    import torch
+
+    from sgcn_tpu_torch.models.gat import params_from_jax as gat_from_numpy
+    from sgcn_tpu_torch.obs import (MEM_MODEL_TOL, MemoryBudgetError,
+                                    RunRecorder, classify_op,
+                                    find_trace_files, load_run,
+                                    summarize_trace)
+    from sgcn_tpu_torch.train import FullBatchTrainer, make_train_data
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(TEL_DIR, ignore_errors=True)
+    os.makedirs(TEL_DIR)
+    total = {key: 0 for key in launch_counts()}
+    steps, nl = 1 + 3, len(widths)
+    gc.collect()
+    torch.cuda.synchronize()
+
+    # ---- (a)+(b) GCN and GAT, a2a and ring: plain and remat from one
+    # initial weight set, 1 warm-up + 3 steps under a RunRecorder each
+    rows = {}
+    for model in ("gcn", "gat"):
+        for sched in ("a2a", "ragged"):
+            runs = {}
+            for remat in (False, True):
+                name = f"{model} {sched}{' remat' if remat else ''}"
+                rundir = os.path.join(TEL_DIR, name.replace(" ", "-"))
+                kw = (dict(params=[w.copy() for w in p_init])
+                      if model == "gcn" else
+                      dict(model="gat", activation="none",
+                           params=gat_from_numpy(params_g)))
+                tr = FullBatchTrainer(plan, fin=128, widths=widths,
+                                      comm_schedule=sched, remat=remat,
+                                      device=dev, **kw)
+                data = make_train_data(plan, feats, labels, device=dev)
+                rec = RunRecorder(rundir, config={"phase": 29, "run": name},
+                                  argv=[])
+                rec.set_plan(plan)
+                rec.set_backend(dev, parts=plan.k)
+                tr.attach_recorder(rec)
+                launch_counts(zero=True)        # the main path starts here
+                k1_open()
+                rep = tr.fit(data, epochs=3, warmup=1, verbose=False)
+                k1_close()
+                ln = launch_counts()            # ... and ends here
+                rec.close()
+                for key in total:
+                    total[key] += ln[key]
+                log_ = load_run(rundir)       # every record re-validated
+                runs[remat] = {
+                    "losses": [e["loss"] for e in log_.steps()],
+                    "w": [p.detach().clone() for p in tr.model.parameters()],
+                    "epoch_s": rep["epoch_s"], "ln": ln,
+                    "join": tr.memory_join, "model": tr.memory,
+                    "events": len(log_.events)}
+                del tr, data
+                gc.collect()
+            plain, re_ = runs[False], runs[True]
+            same = plain["losses"] == re_["losses"] and all(
+                torch.equal(x, y) for x, y in zip(plain["w"], re_["w"]))
+            log(f"  {model} {sched}: remat == plain bit for bit (losses of "
+                f"{steps} steps, weights after): {same}; losses "
+                f"{plain['losses']}")
+            if not same:
+                raise AssertionError(f"phase 29: {model} {sched} remat != "
+                                     "plain")
+            # exact launches: remat re-runs every forward launch once more
+            if model == "gcn":
+                bwd = backward_passes(128, widths)
+                fwd = {"fused": nl, "pack": nl,
+                       "ring": nl if sched == "ragged" else 0}
+                want = {"fused": steps * (nl + bwd),
+                        "pack": steps * (nl + bwd),
+                        "sym_bwd": steps * bwd if sched == "a2a" else 0,
+                        "ring": steps * nl if sched == "ragged" else 0,
+                        "ring_bwd": steps * bwd if sched == "ragged" else 0,
+                        "k5": 0, "gat_bwd": 0}
+            else:
+                gp = gat_passes(widths)
+                pk = pack_launches("gat", sched, widths)
+                fwd = {"k5": gp, "pack": pk}
+                want = {"k5": steps * 2 * gp, "gat_bwd": steps * gp,
+                        "pack": steps * 2 * pk, "fused": 0, "sym_bwd": 0,
+                        "ring": 0, "ring_bwd": 0}
+            want_re = {key: v + steps * fwd.get(key, 0)
+                       for key, v in want.items()}
+            for tag, run, w in (("plain", plain, want), ("remat", re_,
+                                                         want_re)):
+                got = {key: run["ln"][key] for key in w}
+                log(f"  {model} {sched} {tag} launches {json.dumps(got)}")
+                if got != w or run["ln"]["k1"] or run["ln"]["k1_bf16"]:
+                    raise AssertionError(
+                        f"phase 29: {model} {sched} {tag} launches {got}, "
+                        f"expected {w}")
+            # the memory joins: peak, arguments and alias
+            for tag, run in (("plain", plain), ("remat", re_)):
+                join, mm = run["join"], run["model"]
+                blk = join["block"]
+                meas = {key: blk[key]["measured_bytes"]
+                        for key in ("total", "arguments", "donated")}
+                rows[(model, sched, tag)] = {
+                    "peak": meas["total"], "args": meas["arguments"],
+                    "alias": meas["donated"], "epoch_s": run["epoch_s"],
+                    "total_model": mm.total_bytes,
+                    "families": {f: (e["model_bytes"], e["measured_bytes"])
+                                 for f, e in blk["families"].items()}}
+                ratio = meas["total"] / mm.total_bytes
+                log(f"  {model} {sched} {tag}: memory model vs measured "
+                    f"(B): " + json.dumps(rows[(model, sched, tag)])
+                    + f"; peak / total {ratio:.4f} (MEM_MODEL_TOL "
+                    f"{MEM_MODEL_TOL}, a structural default; the card's band "
+                    f"{MEM_CARD_TOL}); {run['events']} events; card: {smi}")
+                if join["violations"] or ratio > MEM_CARD_TOL:
+                    raise AssertionError(f"phase 29: {model} {sched} {tag} "
+                                         f"memory: {join['violations']}, "
+                                         f"peak / total {ratio}")
+            pk_plain = rows[(model, sched, "plain")]["peak"]
+            pk_remat = rows[(model, sched, "remat")]["peak"]
+            log(f"  {model} {sched}: a step's peak (max_memory_allocated "
+                f"over the trainer's start) plain {pk_plain} B vs remat "
+                f"{pk_remat} B ({pk_remat / pk_plain:.4f}); epoch_s plain "
+                f"{plain['epoch_s']!r} vs remat {re_['epoch_s']!r} (3 timed "
+                f"steps, host clock, recorder on); card: {smi}")
+            # remat keeps one layer's intermediates at a time: GCN's peak
+            # (the saved activations of every layer) drops; GAT's sits in
+            # one layer's backward and must not rise
+            if pk_remat > pk_plain * (0.95 if model == "gcn" else 1.0):
+                raise AssertionError(f"phase 29: {model} {sched} remat "
+                                     f"peak {pk_remat} vs plain {pk_plain}")
+
+    # ---- (c) the budget gate: total − 1 fails before any tensor ships
+    need = rows[("gcn", "a2a", "plain")]["total_model"]
+    gc.collect()
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    try:
+        FullBatchTrainer(plan, fin=128, widths=widths, comm_schedule="a2a",
+                         memory_budget=need - 1, device=dev)
+    except MemoryBudgetError as e:
+        msg = str(e)
+    else:
+        raise AssertionError("phase 29: memory_budget = total - 1 built")
+    after = torch.cuda.memory_allocated()
+    log(f"  memory_budget = total - 1 ({need - 1} B): MemoryBudgetError "
+        f"({msg.splitlines()[0]!r}); memory_allocated {before} -> {after}")
+    if after != before or "exceeds --memory-budget" not in msg:
+        raise AssertionError("phase 29: the budget gate allocated or "
+                             "changed its message")
+
+    # ---- (c') the mini-batch trainer keeps every batch plan and batch on
+    # the card: its measured step against the model of the whole set
+    from sgcn_tpu_torch.io.datasets import load_npz_dataset
+    from sgcn_tpu_torch.parallel.plan import build_comm_plan
+    from sgcn_tpu_torch.partition import read_partvec
+    from sgcn_tpu_torch.prep import normalize_adjacency
+    from sgcn_tpu_torch.train.minibatch import MiniBatchTrainer
+    a, fc, lc = load_npz_dataset(os.path.join(fix, "cora2708.npz"))
+    ahat_c = normalize_adjacency(a)
+    pv_c = read_partvec(os.path.join(fix, "cora2708.8.hp"))
+    mb = MiniBatchTrainer(ahat_c, pv_c, 8, fin=fc.shape[1], widths=[16, 7],
+                          batch_size=1024, device=dev)
+    rundir = os.path.join(TEL_DIR, "minibatch")
+    rec = RunRecorder(rundir, config={"phase": 29, "run": "minibatch"},
+                      argv=[])
+    mb.attach_recorder(rec)
+    launch_counts(zero=True)                    # a path of its own
+    mb.fit(fc, lc, epochs=1, warmup=1, verbose=False)
+    ln = launch_counts()
+    rec.close()
+    for key in total:
+        total[key] += ln[key]
+    load_run(rundir)                            # every record re-validated
+    join, mm = mb.memory_join, mb.memory
+    blk = join["block"]
+    ratio = blk["total"]["measured_bytes"] / mm.total_bytes
+    log(f"  cora mini-batch (batch 1024, {len(mb.plans)} batch plans, "
+        "GCN 1433 -> 16 -> 7): memory model vs measured (B): "
+        + json.dumps({f: (e["model_bytes"], e["measured_bytes"])
+                      for f, e in blk["families"].items()})
+        + f"; total {mm.total_bytes}, peak {blk['total']['measured_bytes']} "
+        f"({ratio:.4f}), arguments {blk['arguments']['measured_bytes']} vs "
+        f"{blk['arguments']['model_bytes']}; the envelope plan alone "
+        f"prices {mb.inner.memory.total_bytes}; launches "
+        f"{json.dumps({k: v for k, v in ln.items() if v})}; card: {smi}")
+    if join["violations"] or ratio > MEM_CARD_TOL or not ln["fused"]:
+        raise AssertionError(f"phase 29: mini-batch memory "
+                             f"{join['violations']}, peak / total {ratio}, "
+                             f"launches {ln}")
+    del mb
+    gc.collect()
+
+    # ---- (d)+(e) the cora train CLI under --metrics-out --profile and the
+    # serve CLI under --metrics-out --memory-budget, in children
+    cora = ["--npz", os.path.join(fix, "cora2708.npz"), "--normalize", "-p",
+            os.path.join(fix, "cora2708.8.hp"), "-s", "8"]
+    run_t, prof = os.path.join(TEL_DIR, "cli-train"), \
+        os.path.join(TEL_DIR, "cli-profile")
+    run_s = os.path.join(TEL_DIR, "cli-serve")
+    jobs = [("train", cora + ["-l", "2", "--hidden", "16", "--epochs", "5",
+                              "--warmup", "1", "--metrics-out", run_t,
+                              "--profile", prof]),
+            ("serve", cora + ["--random-init", "--queries", "64",
+                              "--max-batch", "32", "--metrics-out", run_s,
+                              "--memory-budget", "8G"])]
+    res = {}
+    for attempt in range(3):
+        # the profiler now and then records no device event: the train
+        # child runs again (up to 3 times in all) when its trace has none
+        todo = jobs if attempt == 0 else jobs[:1]
+        for d in (run_t, prof, run_s)[:len(todo) + 1]:
+            shutil.rmtree(d, ignore_errors=True)
+        t0 = time.perf_counter()
+        procs = children.start([(m, argv, None,
+                                 os.path.join(TEL_DIR, f"{m}.json"))
+                                for m, argv in todo])
+        codes = children.join(procs, timeout=300)
+        log(f"  CLI children {[m for m, _ in todo]} "
+            f"{time.perf_counter() - t0:.2f} s, exit codes {codes}")
+        if any(codes):
+            raise AssertionError(f"phase 29: CLI children exited {codes}")
+        for m, _ in todo:
+            with open(os.path.join(TEL_DIR, f"{m}.json")) as fh:
+                res[m] = json.load(fh)
+            for key in total:
+                total[key] += res[m]["launches"][key]
+        paths = find_trace_files(prof)
+        if not paths:
+            raise AssertionError(f"phase 29: no trace under {prof}")
+        ts = summarize_trace(paths[0]["path"])
+        if ts.on_device:
+            break
+        log(f"  the profiler recorded no device event (try {attempt + 1} "
+            "of 3)")
+    tlog, slog = load_run(run_t), load_run(run_s)
+    if tlog.manifest.get("profile", {}).get("trace_files") != paths:
+        raise AssertionError(f"phase 29: trace files {paths} vs manifest "
+                             f"{tlog.manifest.get('profile')}")
+    import gzip
+    with gzip.open(paths[0]["path"], "rt") as fh:
+        names = {e.get("name", "") for e in json.load(fh)["traceEvents"]
+                 if e.get("ph") == "X" and e.get("cat") == "kernel"}
+    wrong = sorted(n for n in names
+                   if ("tile_spmm" in n and classify_op(n) != "spmm")
+                   or ("row_pack" in n and classify_op(n) != "exchange"))
+    # the same cora configuration's step on CUDA events, in this process
+    pc = build_comm_plan(ahat_c, pv_c, 8)
+    trc = FullBatchTrainer(pc, fin=fc.shape[1], widths=[16, 7], device=dev)
+    dc = make_train_data(pc, fc, lc, device=dev)
+    launch_counts(zero=True)                    # a path of its own
+    step_ms = cuda_ms(lambda: trc.step(dc, sync=False), reps=10, warmup=2)
+    ln = launch_counts()
+    for key in total:
+        total[key] += ln[key]
+    nsteps = len(tlog.steps())
+    log(f"  cora train CLI: {nsteps} step events, trace "
+        f"{os.path.basename(paths[0]['path'])} ({paths[0]['bytes']} B, "
+        f"device tracks: {ts.on_device}); device s by class per step "
+        + json.dumps({k: v for k, v in ts.per_step(nsteps).items()})
+        + "; by label (whole run) " + json.dumps(ts.labels)
+        + f"; the same step on CUDA events {step_ms!r} ms; card: {smi}")
+    if not (ts.on_device and ts.classes["spmm"] > 0
+            and ts.classes["exchange"] > 0) or wrong:
+        raise AssertionError(f"phase 29: trace classes {ts.classes}, "
+                             f"misclassified kernels {wrong}")
+    # a fresh process's join: the train CLI child's manifest memory block
+    tmem = tlog.manifest.get("memory", {})
+    t_arg, t_tot = tmem.get("arguments", {}), tmem.get("total", {})
+    log("  cora train CLI memory block: total "
+        + json.dumps(t_tot) + ", arguments " + json.dumps(t_arg))
+    if t_arg.get("measured_bytes") is None or \
+            t_arg["measured_bytes"] > t_arg["model_bytes"] + 256 or \
+            t_tot["measured_bytes"] > MEM_CARD_TOL * t_tot["model_bytes"]:
+        raise AssertionError(f"phase 29: train CLI memory join {tmem}")
+    serves = slog.serves()
+    srep = res["serve"]["report"]
+    log(f"  serve CLI: {len(serves)} serve event(s), memory block "
+        + json.dumps(srep.get("memory")) + "; manifest memory total "
+        + json.dumps(slog.manifest.get("memory", {}).get("total")))
+    donated = slog.manifest.get("memory", {}).get("donated", {})
+    smem = srep.get("memory") or {}
+    if len(serves) != 1 or not smem.get("measured") or \
+            donated.get("measured_bytes") != 0 or \
+            smem["measured_peak_bytes"] > MEM_CARD_TOL * smem["model_bytes"]:
+        raise AssertionError("phase 29: serve CLI telemetry (a forward "
+                             f"aliases 0 B: {donated}; peak within "
+                             f"{MEM_CARD_TOL} of the model: {smem})")
+    log(f"  phase 29 launches {json.dumps(total)}; phase wall "
+        f"{time.perf_counter() - t_phase:.1f} s")
+    return total, rows
+
+
 def main() -> int:
     import torch
 
@@ -5553,8 +5904,12 @@ def main() -> int:
             or launches_ca != want_cc or launches_cr != want_cc
             or ring_cr + ring_bwd_cr != want_cc
             or packs_ca != want_cc or packs_cr != want_cc):
-        raise AssertionError("cora GCN CLI: auto did not train the ring "
-                             "with the a2a losses and exact launches")
+        raise AssertionError(
+            f"cora GCN CLI: auto did not train the ring with the a2a losses "
+            f"and exact launches: schedule {rep_cr['comm_schedule']}, losses "
+            f"{losses_cr} vs a2a {losses_ca}, fused launches {launches_ca} / "
+            f"{launches_cr} (ring {ring_cr} + {ring_bwd_cr}), row pack "
+            f"{packs_ca} / {packs_cr}, expected {want_cc}")
     spmm_tiles.mask_launches = 0                # the main path starts here
     k1_open()
     row_pack.launches = 0
@@ -5570,11 +5925,16 @@ def main() -> int:
         f"phase 9's a2a {cli_losses}; K5 launches {launches_gcr} (backward "
         f"{bwd_gcr}), expected {want_gtc}; epoch_s a2a "
         f"{rep_gc['epoch_s']!r}, ring {rep_gcr['epoch_s']!r}")
+    want_pgcr = 5 * 2 * pack_launches("gat", "ragged", [16, 7])
     if (rep_gcr["comm_schedule"] != "ragged" or losses_gcr != cli_losses
             or launches_gcr != want_gtc or bwd_gcr != want_gtc // 2
-            or packs_gcr != 5 * 2 * pack_launches("gat", "ragged", [16, 7])):
-        raise AssertionError("cora GAT CLI: auto did not train the ring "
-                             "with the a2a losses and exact launches")
+            or packs_gcr != want_pgcr):
+        raise AssertionError(
+            f"cora GAT CLI: auto did not train the ring with the a2a losses "
+            f"and exact launches: schedule {rep_gcr['comm_schedule']}, "
+            f"losses {losses_gcr} vs a2a {cli_losses}, K5 launches "
+            f"{launches_gcr} (backward {bwd_gcr}) vs {want_gtc}, row pack "
+            f"{packs_gcr} vs {want_pgcr}")
     # epoch_s of each transport, 3 runs each of 3 warm-up + 20 timed
     # steps, in the order a2a, ring, ring, a2a, a2a, ring so that a drift
     # of the shared host weighs on both alike
@@ -5785,13 +6145,26 @@ def main() -> int:
     log(f"  phase 28 took {time.perf_counter() - t28:.1f} s")
 
     # ---------------------------------------------------------- phase 29
+    log("phase 29: run telemetry, the memory model and remat — GCN and "
+        "GAT on both transports at the flagship width, plain and remat "
+        "under a RunRecorder (bits, launches, the memory joins, peak and "
+        "epoch_s), the budget gate, the cora train CLI with --metrics-out "
+        "--profile and the serve CLI with --metrics-out --memory-budget in "
+        "children")
+    t29 = time.perf_counter()
+    p29, _mem29 = phase_telemetry(plan, feats_f, labels_f, p_init, params_g,
+                                  widths_f, fix, dev, smi)
+    MAIN_PATH_PACKS[0] += p29["pack"]
+    log(f"  phase 29 took {time.perf_counter() - t29:.1f} s")
+
+    # ---------------------------------------------------------- phase 30
     fused_main = (launches_c + launches_f + launches_tc + launches_tf
                   + launches_fr + launches_rt + launches_ca + launches_cr
                   + l15["wire"] + l15["bf16"] + launches_16 + asym["fused"]
                   + p23["fused"] + p24["fused"] + p25["fused"]
                   + p25["fused_wire"] + p26["fused"] + p26["fused_wire"]
                   + p27["fused"] + p27["fused_bf16"] + p28["fused"]
-                  + p28["fused_wire"])
+                  + p28["fused_wire"] + p29["fused"])
     kernels = [{
         # K1's own float32-weight family entry: its launches on the main
         # path are the asymmetric backward's halo-ᵀ launches (the
@@ -5817,7 +6190,8 @@ def main() -> int:
         "source": "sgcn_tpu_torch/csrc/tile_spmm.cu",
         "replaces": "sgcn_tpu/ops/pallas_spmm.py:457-464",
         "launches": (bwd_tc + bwd_tf + p23["sym_bwd"] + p24["sym_bwd"]
-                     + p25["sym_bwd"] + p26["sym_bwd"] + p27["sym_bwd"]),
+                     + p25["sym_bwd"] + p26["sym_bwd"] + p27["sym_bwd"]
+                     + p29["sym_bwd"]),
         "max_abs_err": max(grad_err, fused_err),
         "ms": k3b["ms"],
         "plain_ms": k3b["plain_ms"],
@@ -5832,7 +6206,7 @@ def main() -> int:
         "launches": (launches_gc + launches_gf + launches_gt + launches_gtc
                      + launches_gfr + launches_grt + launches_gcr
                      + l17["f32"] + asym["k5"] + p23["k5"] + p24["k5"]
-                     + p27["k5"] + p28["k5"]),
+                     + p27["k5"] + p28["k5"] + p29["k5"]),
         "max_abs_err": max(k5_err, err_f, err_b, k5r_err, k5_err27, sub_err),
         "ms": gat_fwd["ms"],
         "plain_ms": gat_fwd["plain_ms"],
@@ -5845,7 +6219,7 @@ def main() -> int:
         "source": "sgcn_tpu_torch/csrc/tile_spmm.cu",
         "replaces": "sgcn_tpu/models/gat.py:637-687",
         "launches": (bwd_gt + bwd_gtc + bwd_grt + bwd_gcr + p23["gat_bwd"]
-                     + p24["gat_bwd"] + p27["gat_bwd"]),
+                     + p24["gat_bwd"] + p27["gat_bwd"] + p29["gat_bwd"]),
         "max_abs_err": max(err_b, k5r_err),
         "ms": gat_bwd["ms"],
         "plain_ms": gat_bwd["plain_ms"],
@@ -5860,7 +6234,7 @@ def main() -> int:
         "replaces": "sgcn_tpu/ops/pallas_spmm.py:469-527",
         "launches": (launches_fr + ring_rt + ring_cr + p23["ring"]
                      + p24["ring"] + p25["ring"] + p26["ring"]
-                     + p27["ring"]),
+                     + p27["ring"] + p29["ring"]),
         "max_abs_err": max(k4_err, fused_err),
         "ms": k4["ms"],
         "plain_ms": k4["plain_ms"],
@@ -5874,7 +6248,8 @@ def main() -> int:
         "replaces": "sgcn_tpu/ops/pallas_spmm.py:517-523",
         "launches": (ring_bwd_rt + ring_bwd_cr + p23["ring_bwd"]
                      + p24["ring_bwd"] + p25["ring_bwd"]
-                     + p26["ring_bwd"] + p27["ring_bwd"]),
+                     + p26["ring_bwd"] + p27["ring_bwd"]
+                     + p29["ring_bwd"]),
         "max_abs_err": max(k4b_err, fused_err),
         "ms": k4b["ms"],
         "plain_ms": k4b["plain_ms"],

@@ -70,6 +70,7 @@ import math
 import numpy as np
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.pspmm import halo_exchange, narrow_dtype, ring_concat
 from ..ops.tile_spmm import (gat_tiles_pass, k5_launches,
@@ -415,23 +416,27 @@ class GatLayerSym(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, gbar):
-        ex_src, halo_src_flat, csrc, cld, cw = ctx.saved_tensors[7:]
+        # ctx.saved_tensors is read once: a non-reentrant checkpoint
+        # (the trainer's remat) unpacks each saved tensor once only
+        saved = ctx.saved_tensors
+        ex_src, halo_src_flat, csrc, cld, cw = saved[7:]
         tb, cclasses, form, rr_sizes, _dtypes = ctx.static
         before = k5_launches()
         grads = _gat_layer_grads(
-            ctx, gbar, lambda dn, dd: _gat_tiles_aggregate(
+            ctx, saved, gbar, lambda dn, dd: _gat_tiles_aggregate(
                 dn, dd, form, ex_src, halo_src_flat, csrc, cld, cw, tb,
                 cclasses, rr_sizes))
         GatLayerSym.backward_launches += k5_launches() - before
         return grads + (None,) * 12
 
 
-def _gat_layer_grads(ctx, gbar, aggregate):
+def _gat_layer_grads(ctx, saved, gbar, aggregate):
     """The GAT layer's chain rules (``GatLayerSym``'s backward) with the
     aggregation of ``[dn ‖ dd]`` given: ``aggregate(dn, dd)`` returns
     ``(dp, du)`` — the same passes as the forward for a symmetric
-    pattern, their transpose otherwise.  Returns ``(dw, da1, da2, dh)``."""
-    w, a1, a2, h, cg, den, out = ctx.saved_tensors[:7]
+    pattern, their transpose otherwise.  ``saved``: the layer's
+    ``ctx.saved_tensors``.  Returns ``(dw, da1, da2, dh)``."""
+    w, a1, a2, h, cg, den, out = saved[:7]
     form, dtypes = ctx.static[2], ctx.static[4]
     z = h @ w                                    # recomputed
     fin, fout = w.shape
@@ -489,8 +494,9 @@ class GatLayerGen(torch.autograd.Function):
         tb, form = ctx.static[0], ctx.static[2]
         before = k5_launches()
         grads = _gat_layer_grads(
-            ctx, gbar, lambda dn, dd: _gat_tiles_aggregate_T(
-                dn, dd, form, *ctx.transposed, tb))
+            ctx, ctx.saved_tensors, gbar,
+            lambda dn, dd: _gat_tiles_aggregate_T(dn, dd, form,
+                                                  *ctx.transposed, tb))
         GatLayerGen.backward_launches += k5_launches() - before
         return grads + (None,) * 12
 
@@ -513,6 +519,7 @@ def gat_forward_local(
     pallas_tchclasses: tuple = (),  # (asymmetric)
     pallas_tc1classes: tuple = (),
     collect_stabilizers: bool = False,  # also return the per-layer cg
+    remat: bool = False,            # recompute each layer in the backward
 ):
     """Stacked forward: L × (``GatLayerSym`` → activation) →
     ``(k, B, nout)`` float32.  The reference stacks bare PGAT layers (no
@@ -525,7 +532,8 @@ def gat_forward_local(
     layer as ``GatLayerGen`` on ``GAT_PLAN_FIELDS_PALLAS_GEN``, a2a only.
     ``collect_stabilizers=True`` returns ``(out, cgs)``: ``cgs`` the
     ``(L,)`` float32 softmax stabilizers the layers used (each the max of
-    ``z2`` over every part's real rows)."""
+    ``z2`` over every part's real rows).  ``remat=True`` (with autograd
+    recording) checkpoints each layer as ``gcn_forward_local`` does."""
     if not symmetric and comm_schedule != "a2a":
         raise ValueError(
             "comm_schedule='ragged' uses the symmetric custom backward (the "
@@ -553,17 +561,24 @@ def gat_forward_local(
             pa["rev_csrc"], pallas_tclclasses, pallas_tchclasses,
             pallas_tc1classes)
     cgs = [] if collect_stabilizers else None
-    for i, p in enumerate(params):
-        plan_args = (p["w"], p["a1"], p["a2"], h, *ex, pa["ptile_cld"],
-                     pa["ptile_cw"], pa["row_valid"], pallas_tb,
-                     pallas_cclasses)
+
+    def layer(h, w, a1, a2, last):
+        plan_args = (w, a1, a2, h, *ex, pa["ptile_cld"], pa["ptile_cw"],
+                     pa["row_valid"], pallas_tb, pallas_cclasses)
         if symmetric:
             h = GatLayerSym.apply(*plan_args, None, rr_sizes, compute_dtype,
                                   cgs)
         else:
             h = GatLayerGen.apply(*plan_args, transposed, None,
                                   compute_dtype, cgs)
-        h = fact(h) if i == nl - 1 else act(h)
+        return fact(h) if last else act(h)
+
+    # a recompute would append its stabilizer again: no remat with cgs
+    remat = remat and torch.is_grad_enabled() and cgs is None
+    for i, p in enumerate(params):
+        args = (h, p["w"], p["a1"], p["a2"], i == nl - 1)
+        h = (checkpoint(layer, *args, use_reentrant=False) if remat
+             else layer(*args))
     if collect_stabilizers:
         return h, torch.stack(cgs).float()
     return h
@@ -585,6 +600,7 @@ class GAT(nn.Module):
         self.activation = activation
         self.final_activation = final_activation
         self.fwd_static = dict(fwd_static or {})
+        self.remat = False            # checkpoint each layer (the trainer's)
 
     def layer_params(self) -> list:
         """Per layer ``{w, a1, a2}`` (the live parameters)."""
@@ -594,4 +610,5 @@ class GAT(nn.Module):
     def forward(self, h, pa):
         return gat_forward_local(
             self.layer_params(), h, pa, activation=self.activation,
-            final_activation=self.final_activation, **self.fwd_static)
+            final_activation=self.final_activation, remat=self.remat,
+            **self.fwd_static)

@@ -27,6 +27,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from ..ops.pspmm import exchange_recv, narrow_dtype, ring_concat
 from ..ops.tile_spmm import (pspmm_tiles_gen, pspmm_tiles_ragged,
@@ -102,6 +103,7 @@ def gcn_forward_local(
     pallas_tlclasses: tuple = (),   # static transposed classes (asymmetric)
     pallas_thclasses: tuple = (),
     pallas_t1classes: tuple = (),
+    remat: bool = False,            # recompute each layer in the backward
 ):
     """Stacked forward: L × (tile pspmm ⊗ dense matmul → activation) →
     ``(k, B, nout)``.  A wide input narrowed by the layer is projected
@@ -116,7 +118,13 @@ def gcn_forward_local(
     (``sgcn_tpu/train/fullbatch.py::_forward``): weights and ``h`` cast to
     bf16 here (autograd carries float32 gradients back to float32 master
     weights), bf16 tables into the kernel, each aggregation rounded once
-    to bf16, bf16 matmuls; the result stays bf16 (the caller upcasts)."""
+    to bf16, bf16 matmuls; the result stays bf16 (the caller upcasts).
+
+    ``remat=True`` (with autograd recording) runs each layer inside a
+    non-reentrant ``torch.utils.checkpoint``: the forward keeps only the
+    layer inputs, and the backward re-runs one layer at a time (its
+    exchange and fused launch included) before differentiating it, so at
+    most one layer's intermediates are live.  Same bits as without."""
     act = get_activation(activation)
     fact = get_activation(final_activation)
     nl = len(params)
@@ -159,12 +167,17 @@ def gcn_forward_local(
         raise ValueError(f"unknown comm_schedule {comm_schedule!r} (the "
                          "trainer resolves 'auto' before the forward)")
 
-    for i, w in enumerate(params):
+    def layer(h, w, last):
         if w.shape[1] < h.shape[-1] and h.shape[-1] >= PROJECT_FIRST_MIN_FIN:
             z = agg(h @ w)
         else:
             z = agg(h) @ w
-        h = fact(z) if i == nl - 1 else act(z)
+        return fact(z) if last else act(z)
+
+    remat = remat and torch.is_grad_enabled()
+    for i, w in enumerate(params):
+        h = (checkpoint(layer, h, w, i == nl - 1, use_reentrant=False)
+             if remat else layer(h, w, i == nl - 1))
     return h
 
 
@@ -397,6 +410,7 @@ class GCN(nn.Module):
         self.activation = activation
         self.final_activation = final_activation
         self.fwd_static = dict(fwd_static or {})
+        self.remat = False            # checkpoint each layer (the trainer's)
 
     def layer_params(self) -> list:
         """Per layer the ``(fin, fout)`` weight (the live parameters)."""
@@ -405,7 +419,8 @@ class GCN(nn.Module):
     def forward(self, h, pa):
         return gcn_forward_local(
             list(self.weights), h, pa, activation=self.activation,
-            final_activation=self.final_activation, **self.fwd_static)
+            final_activation=self.final_activation, remat=self.remat,
+            **self.fwd_static)
 
 
 def _picked(logp, labels):

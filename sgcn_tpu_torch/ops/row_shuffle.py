@@ -33,6 +33,8 @@ import ctypes
 
 import torch
 
+from ..utils.backend import plain_region
+
 
 def row_shuffle_plain(x, idx):
     """``x[idx]`` row by row: ``x`` ``(N, f)``, ``idx`` ``(S,)`` or
@@ -83,7 +85,8 @@ def row_shuffle(x, idx):
     if idx.device != x.device:
         raise ValueError("table and index must be on the same device")
     if x.device.type == "cpu":
-        return row_shuffle_plain(x, idx)
+        with plain_region("row_shuffle_f32_kernel"):
+            return row_shuffle_plain(x, idx)
     if x.device.type != "cuda":
         raise ValueError(f"row_shuffle runs on cpu or cuda tensors, got "
                          f"{x.device}")
@@ -154,7 +157,8 @@ def row_pack(src, flat, dtype=None):
     if flat.device != src.device:
         raise ValueError("source and index must be on the same device")
     if src.device.type == "cpu":
-        return row_pack_plain(src, flat, dtype)
+        with plain_region("row_pack_kernel"):
+            return row_pack_plain(src, flat, dtype)
     if src.device.type != "cuda":
         raise ValueError(f"row_pack runs on cpu or cuda tensors, got "
                          f"{src.device}")
@@ -239,7 +243,8 @@ def row_pack_into(out, src, flat, dst):
     if flat.numel() == 0:
         return out
     if out.device.type == "cpu":
-        return row_pack_into_plain(out, src, flat, dst)
+        with plain_region("row_pack_kernel"):
+            return row_pack_into_plain(out, src, flat, dst)
     if out.device.type != "cuda":
         raise ValueError(f"row_pack_into runs on cpu or cuda tensors, got "
                          f"{out.device}")

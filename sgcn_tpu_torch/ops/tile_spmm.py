@@ -95,6 +95,7 @@ import ctypes
 import numpy as np
 import torch
 
+from ..utils.backend import plain_region
 from .pspmm import (exchange_recv, partial_refresh, partial_refresh_grad,
                     replica_pack, reverse_exchange, ring_concat,
                     stale_exchange, stale_ring_exchange)
@@ -451,7 +452,8 @@ def spmm_tiles(tsrc, tld, tw, table, tb: int = 256):
     raises (a float16 table among them).
     """
     if _on_cpu(table, tsrc, tld, tw):
-        return spmm_tiles_plain(tsrc, tld, tw, table, tb)
+        with plain_region("tile_spmm_kernel"):
+            return spmm_tiles_plain(tsrc, tld, tw, table, tb)
     single = tsrc.dim() == 2
     if single:
         tsrc, tld, tw, table = (x.unsqueeze(0) for x in (tsrc, tld, tw, table))
@@ -497,8 +499,9 @@ def spmm_tiles_classes(flat_src, flat_ld, flat_w, table, classes, tb: int):
                 *(x.unsqueeze(0) for x in (flat_src, flat_ld, flat_w)),
                 table.unsqueeze(0), classes, tb)[0]
         return _launch_family(flat_src, flat_ld, flat_w, table, classes, tb)
-    return spmm_tiles_classes_plain(flat_src, flat_ld, flat_w, table,
-                                    classes, tb)
+    with plain_region("tile_spmm_kernel"):
+        return spmm_tiles_classes_plain(flat_src, flat_ld, flat_w, table,
+                                        classes, tb)
 
 
 def spmm_tiles_classes_plain(flat_src, flat_ld, flat_w, table, classes,
@@ -558,8 +561,9 @@ def spmm_tiles_fused(ltiles, h, htiles, remote, lclasses, hclasses,
     layout raises."""
     arrays = (*ltiles, *htiles)
     if _on_cpu(h, *arrays) and _on_cpu(remote, *arrays):
-        return spmm_tiles_fused_plain(ltiles, h, htiles, remote, lclasses,
-                                      hclasses, tb)
+        with plain_region("tile_spmm_fused_kernel"):
+            return spmm_tiles_fused_plain(ltiles, h, htiles, remote,
+                                          lclasses, hclasses, tb)
     if not all(x.device == h.device for x in (*arrays, remote)):
         raise ValueError("tile arrays and tables must be on the same device")
     key = (h.dtype, remote.dtype)

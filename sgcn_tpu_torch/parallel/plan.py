@@ -747,6 +747,50 @@ class CommPlan:
             return int(rows * sum(sizes))
         raise ValueError(f"unknown comm schedule {schedule!r}")
 
+    def wire_buffer_shapes(self, schedule: str = "a2a",
+                           replica: bool = False) -> list:
+        """The reference's per-dispatch wire-buffer shapes of ONE halo
+        exchange, without the lane axis: ``'a2a'`` one ``(peers, S)``
+        bucket (``nrep_s`` under ``replica``), ``'ragged'`` one ``(S_d,)``
+        per live round (``ops/pspmm.py::ragged_live_rounds``; the
+        shrunken ``nrep_rr_sizes`` under ``replica``).  The port's pack
+        writes the receive layout directly (``recv_layout_shape``)."""
+        if replica and self.rep_slots is None:
+            raise ValueError("build the replication layout first "
+                             "(ensure_replicas)")
+        if schedule == "a2a":
+            peers = int(np.asarray(self.send_counts).shape[1])
+            return [(peers, self.nrep_s if replica else self.s)]
+        if schedule == "ragged":
+            from ..ops.pspmm import ragged_live_rounds   # deferred: a cycle
+
+            if replica:
+                if self.nrep_rr_sizes is None:
+                    raise ValueError(
+                        "ragged replica wire needs ensure_ragged() before "
+                        "ensure_replicas()")
+                sizes = self.nrep_rr_sizes
+            else:
+                sizes = (self.rr_sizes if self.rr_sizes is not None
+                         else self.ragged_round_sizes())
+            return [(int(sizes[d - 1]),)
+                    for d in ragged_live_rounds(sizes)]
+        raise ValueError(f"unknown comm schedule {schedule!r}")
+
+    def recv_layout_shape(self, schedule: str = "a2a") -> tuple:
+        """The port's receive layout of one exchange, stacked, without the
+        lane axis: ``(k, k·S)`` for the a2a (every sender's padded bucket
+        in peer order, ``recv_src``) and ``(k, max(1, Σ_d S_d))`` for the
+        ring's round-major concat (``ring_src``) — the table the row pack
+        writes and the fused launch reads, and the carries' layout."""
+        if schedule == "a2a":
+            return (int(self.k), int(self.k * self.s))
+        if schedule == "ragged":
+            sizes = (self.rr_sizes if self.rr_sizes is not None
+                     else self.ragged_round_sizes())
+            return (int(self.k), max(1, int(sum(sizes))))
+        raise ValueError(f"unknown comm schedule {schedule!r}")
+
     # ----------------------------------------------------- hot-halo replicas
     def replica_scores(self) -> tuple:
         """Per (owner part, local row): ``(λ, consumer-edge count)`` of

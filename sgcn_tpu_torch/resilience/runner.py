@@ -15,12 +15,14 @@ new process → resume → train t−s steps* yields losses, weights and Adam
 state ``==`` (float32 bit for bit) the uninterrupted t-step run, with
 cumulative CommStats totals that reconcile across the seam.
 
-The port has no run recorder yet (ROADMAP A10): ``recorder=None`` is the
-only path, and no checkpoint or summary event is written anywhere.
+Under a trainer's ``RunRecorder`` every committed save appends a
+``checkpoint`` event and the loop's end a ``summary`` event (the train
+CLI appends the ``resume`` event of ``--resume auto``).
 """
 
 from __future__ import annotations
 
+import os
 import time
 
 from . import faults
@@ -28,13 +30,15 @@ from . import faults
 
 def save_and_record(manager, state_holder, step: int, recorder=None) -> str:
     """The ONE durable-commit protocol: atomic save through the manager,
-    then the fault-injection kill point.  Returns the committed path.
-    ``recorder`` must be ``None`` (the reference emits its checkpoint event
-    here; the port's recorder is ROADMAP A10)."""
-    if recorder is not None:
-        raise NotImplementedError(
-            "the run recorder is not ported yet (ROADMAP A10)")
+    the ``checkpoint`` event (after the rename: the event certifies the
+    file was on disk), then the fault-injection kill point.  Returns the
+    committed path."""
+    t0 = time.perf_counter()
     path = manager.save(state_holder, step=step)
+    if recorder is not None:
+        recorder.record_checkpoint(step=step, path=path,
+                                   wall_s=time.perf_counter() - t0,
+                                   bytes=os.path.getsize(path))
     # the kill point: a fault-injected run dies HERE, after the save
     # committed — the closest a test gets to a preemption
     faults.after_checkpoint_save(path, step)
@@ -70,7 +74,8 @@ def run_resumable(trainer, data, total_steps: int, *, manager=None,
             print(f"step {done}: loss {loss:.6f}", flush=True)
         if manager is not None and checkpoint_every \
                 and done % checkpoint_every == 0:
-            save_and_record(manager, trainer, done)
+            save_and_record(manager, trainer, done,
+                            recorder=getattr(trainer, "recorder", None))
     elapsed = time.perf_counter() - t0
     report = trainer.stats.report()
     steps_run = total_steps - start_step
@@ -92,4 +97,9 @@ def run_resumable(trainer, data, total_steps: int, *, manager=None,
     if trainer.loss_name == "bce" and trainer.last_err is not None:
         # last_err is None on a zero-remaining-steps resume
         report["err"] = float(trainer.last_err)
+    if getattr(trainer, "recorder", None) is not None:
+        # the summary fit() emits (the loss list left out, as fit leaves
+        # out its loss_history)
+        trainer.recorder.record_summary(
+            {k: v for k, v in report.items() if k != "losses"})
     return report

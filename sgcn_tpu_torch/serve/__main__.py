@@ -21,11 +21,15 @@ a trainer's ``--checkpoint-dir`` in before each micro-batch.
 (``serve/subgraph.py``; a GCN plan must be symmetric), ``--concurrent``
 submits batch t+1 before batch t's result is read, ``--shed-factor F``
 returns queries older than ``F`` × the latency budget at dispatch as shed.
-Flags whose feature is not ported are not defined (metrics, memory
-budget).  Prints ONE JSON line: achieved QPS, p50/p95/p99 latency, the
-shed count and the batching/wire gauges (sub-graph mode: touched rows,
-recipe edges and FLOPs per query), under the reference's keys, with
-``"weights": "checkpoint"`` or ``"random-init"``.
+``--metrics-out DIR`` writes the run's telemetry (manifest, the window's
+``serve`` event, span, swap and memory events; render with
+``scripts/obs_report.py DIR``); ``--memory-budget BYTES`` fails a mode
+whose analytic device footprint exceeds the budget before any tensor
+ships.  Prints ONE JSON line: achieved QPS, p50/p95/p99 latency, the
+shed count, the batching/wire gauges (sub-graph mode: touched rows,
+recipe edges and FLOPs per query) and the ``memory`` block, under the
+reference's keys, with ``"weights": "checkpoint"`` or
+``"random-init"``.
 """
 
 from __future__ import annotations
@@ -33,6 +37,17 @@ from __future__ import annotations
 import argparse
 import json
 import sys
+
+
+def _mem_budget(text: str) -> int:
+    """``--memory-budget`` values: bytes with optional binary suffix
+    (``512M``, ``2G``; ``obs/memory.py::parse_bytes``)."""
+    from ..obs.memory import parse_bytes
+
+    try:
+        return parse_bytes(text)
+    except ValueError as e:
+        raise argparse.ArgumentTypeError(str(e)) from e
 
 
 def main(argv=None) -> None:
@@ -111,6 +126,17 @@ def main(argv=None) -> None:
                    help="poll a --checkpoint-dir rotation directory once "
                         "per micro-batch and hot-swap the newest INTACT "
                         "checkpoint into the running server")
+    p.add_argument("--metrics-out", default=None, metavar="DIR",
+                   help="run-telemetry directory (sgcn_tpu_torch.obs): "
+                        "manifest + serve/span events; render with "
+                        "scripts/obs_report.py")
+    p.add_argument("--memory-budget", type=_mem_budget, default=None,
+                   metavar="BYTES",
+                   help="device memory budget (suffixes K/M/G/T, e.g. "
+                        "2G): the analytic footprint model "
+                        "(sgcn_tpu_torch.obs.memory) is checked before "
+                        "any tensor ships; over budget fails with the "
+                        "itemized per-family breakdown")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="where the forward runs (default cuda; no CPU "
@@ -188,20 +214,33 @@ def main(argv=None) -> None:
     buckets = (tuple(int(b) for b in args.buckets.split(","))
                if args.buckets else None)
 
+    from ..obs.memory import MemoryBudgetError
     from .engine import ServeEngine
     from .loadgen import run_loadgen, synthetic_query_ids
 
-    engine = ServeEngine(
-        plan, fin=f, widths=widths, model=model, activation=activation,
-        final_activation=final_activation or "none",
-        comm_schedule=args.comm_schedule, halo_dtype=args.halo_dtype,
-        checkpoint=args.checkpoint, max_batch=args.max_batch,
-        buckets=buckets, latency_budget_ms=args.latency_budget_ms,
-        shed_factor=args.shed_factor, seed=args.seed, device=device,
-        mode=args.serve_mode)
+    try:
+        engine = ServeEngine(
+            plan, fin=f, widths=widths, model=model, activation=activation,
+            final_activation=final_activation or "none",
+            comm_schedule=args.comm_schedule, halo_dtype=args.halo_dtype,
+            checkpoint=args.checkpoint, max_batch=args.max_batch,
+            buckets=buckets, latency_budget_ms=args.latency_budget_ms,
+            shed_factor=args.shed_factor, seed=args.seed, device=device,
+            mode=args.serve_mode, memory_budget=args.memory_budget)
+    except MemoryBudgetError as e:
+        raise SystemExit(str(e)) from e
     engine.set_features(feats)
     if args.watch_checkpoint_dir:
         engine.attach_checkpoint_watch(args.watch_checkpoint_dir)
+    recorder = None
+    if args.metrics_out:
+        from ..obs import RunRecorder
+        recorder = RunRecorder(args.metrics_out, config=vars(args),
+                               run_kind="serve")
+        recorder.set_plan(plan, partitioner={"partvec": args.partvec,
+                                             "k": k})
+        recorder.set_backend(device, parts=k)
+        engine.attach_recorder(recorder)
 
     qids = synthetic_query_ids(n, args.queries, seed=args.seed,
                                skew=args.query_skew)
@@ -210,6 +249,7 @@ def main(argv=None) -> None:
     result = run_loadgen(engine, qids,
                          offered_qps=args.qps if args.qps > 0 else None,
                          concurrent=args.concurrent)
+    engine.record_window(result, offered_qps=args.qps or None, mode=mode)
 
     report = {
         "metric": "serve_qps",
@@ -232,6 +272,9 @@ def main(argv=None) -> None:
         "weights": ("checkpoint" if args.checkpoint else "random-init"),
         **engine.gauges(),
     }
+    if recorder is not None:
+        recorder.record_summary(report)
+        recorder.close()
     print(json.dumps(report), flush=True)
 
 

@@ -36,13 +36,24 @@ from a seeded init.  ``swap_weights`` hot-swaps a new checkpoint in place
 — every parameter tensor keeps its storage, so a forward captured once
 (CUDA graphs, ROADMAP A20) stays valid — and ``attach_checkpoint_watch``
 polls a ``CheckpointManager`` directory once per micro-batch.
+
+``memory_budget`` holds the mode's analytic device footprint
+(``obs/memory.py``) to a byte budget before any tensor ships; ``warmup``
+measures the widest bucket's batch on the card against it.
+``attach_recorder`` writes the ``serve:*`` spans, one ``serve`` event per
+``record_window``, a ``swap`` event per hot swap and the memory block.
 """
 
 from __future__ import annotations
 
+import time
+
 import numpy as np
 import torch
 
+from ..obs.memory import (check_memory_budget, device_bytes,
+                          measure_device_step, memory_model, reconcile)
+from ..obs.tracing import SpanTimer
 from ..ops.pspmm import narrow_dtype
 from ..train.fullbatch import (MODELS, check_param_dims,
                                resolve_forward_setup)
@@ -50,7 +61,7 @@ from ..utils.backend import device_name, resolve_device, synchronize
 from ..utils.checkpoint import (check_leaves, from_leaves,
                                 load_checkpoint_leaves,
                                 verify_checkpoint_provenance)
-from ..utils.timers import PhaseTimer, SpanTimer
+from ..utils.timers import PhaseTimer
 from .batcher import MicroBatcher, default_buckets
 from .router import VertexRouter
 from .subgraph import (SubgraphIndex, build_batch, subgraph_forward_gat,
@@ -136,6 +147,7 @@ class ServeEngine:
         seed: int = 0,
         device=None,
         mode: str = "full",
+        memory_budget: int | None = None,
     ):
         """The reference engine.  ``mode``: ``'full'`` (one full
         partitioned forward per micro-batch) or ``'subgraph'`` (the routed
@@ -156,7 +168,9 @@ class ServeEngine:
         or ``None`` (``$SGCN_COMM_SCHEDULE``), resolved as the trainer
         resolves it (``resolve_forward_setup``).  ``halo_dtype``
         (``'bfloat16'``, GCN only): every exchange ships bf16 rows, every
-        table and sum stays float32."""
+        table and sum stays float32.  ``memory_budget`` (bytes):
+        ``MemoryBudgetError`` before any tensor ships when the mode's
+        analytic device footprint (``self.memory``) exceeds it."""
         if halo_dtype is not None and model != "gcn":
             raise ValueError(
                 "halo_dtype is a GCN wire lever; the GAT exchange ships "
@@ -189,6 +203,19 @@ class ServeEngine:
         self.setup = resolve_forward_setup(plan, model=model,
                                            comm_schedule=comm_schedule)
         self.comm_schedule = self.setup.comm_schedule
+        self.comm_decision = self.setup.decision
+        # the analytic footprint and the --memory-budget gate, before any
+        # tensor ships; the allocator's state now is the measured side's
+        # zero (obs/memory.py)
+        self.memory = memory_model(
+            plan, fin, widths,
+            workload="serve_subgraph" if mode == "subgraph" else "serve",
+            model=model, halo_dtype=halo_dtype, setup=self.setup)
+        check_memory_budget(self.memory, memory_budget,
+                            what=f"{model} serve engine ({mode})")
+        self._mem_base = device_bytes(self.device)
+        self.memory_join = None        # reconcile() of the widest bucket
+        self.recorder = None           # attach_recorder
         self.halo_dtype = halo_dtype
         self.router = VertexRouter(plan)
         self.batcher = MicroBatcher(
@@ -251,11 +278,17 @@ class ServeEngine:
         copied into the live parameter tensors in place (each keeps its
         storage), and ``weights_rev`` goes up by one.  Returns the new
         checkpoint's meta block."""
+        t0 = time.perf_counter()
         leaves = self._load_leaves(checkpoint)
         from_leaves(leaves, self.model.layer_params())
         self.weights_rev += 1
         if self._stabilizers is not None:
             self._refresh_stabilizers()
+        if self.recorder is not None:
+            self.recorder.record_swap(
+                path=checkpoint, weights_rev=self.weights_rev,
+                checkpoint_step=self.checkpoint_meta.get("step"),
+                wall_s=time.perf_counter() - t0)
         return self.checkpoint_meta
 
     def attach_checkpoint_watch(self, directory: str) -> CheckpointWatcher:
@@ -417,13 +450,55 @@ class ServeEngine:
     def warmup(self, qids) -> None:
         """Serve one throwaway batch per bucket (cycling ``qids``): the
         first launch builds the kernel and initializes the device, which
-        must not land in a measured window."""
+        must not land in a measured window.  The widest bucket's batch is
+        the memory join's measured step (``_join_memory``)."""
         qids = np.asarray(qids, dtype=np.int64).reshape(-1)
         if qids.size == 0:
             raise ValueError("warmup needs at least one query id")
+        widest = max(self.batcher.buckets)
         for b in self.batcher.buckets:
-            self.query(np.resize(qids, b))
+            q = np.resize(qids, b)
+            if b == widest and self.memory_join is None:
+                # the widest bucket's batch, measured on the card; a
+                # forward updates no tensor in place, so none is named
+                self._join_memory(widest, measure_device_step(
+                    lambda: self.query(q), self.device, self._mem_base))
+            else:
+                self.query(q)
         synchronize(self.device)
+
+    # -------------------------------------------------------------- memory
+    def resident_bytes(self) -> dict:
+        """The live tensors' bytes per memory family: params, features,
+        the shipped plan arrays (the per-family measured side of the
+        memory block)."""
+        def nb(ts):
+            return int(sum(t.numel() * t.element_size() for t in ts))
+
+        feats = [t for t in (self._h0, self._feats) if t is not None]
+        return {
+            "params": nb(self.model.parameters()),
+            "opt_state": 0,
+            "features": nb(feats),
+            "plan_arrays": nb([t for f, t in self.pa.items()
+                               if not f.startswith("ptile_")]),
+            "pallas_tiles": nb([t for f, t in self.pa.items()
+                                if f.startswith("ptile_")]),
+        }
+
+    def _join_memory(self, bucket: int, measured: dict | None) -> None:
+        """Join the widest bucket's measured batch (``warmup``:
+        ``obs.memory.measure_device_step``, ``None`` on the CPU; a forward
+        updates no weights in place, so it aliases 0) and the live tensors
+        against the model into ``memory_join``; under a recorder also the
+        manifest's memory block and one ``memory`` event."""
+        self.memory_join = reconcile(self.memory, measured,
+                                     resident=self.resident_bytes())
+        if self.recorder is not None:
+            self.recorder.set_memory(self.memory_join["block"])
+            self.recorder.record_memory(
+                ("subgraph" if self.mode == "subgraph" else "bucket")
+                + str(bucket), self.memory, measured)
 
     # -------------------------------------------------------------- gauges
     @property
@@ -443,11 +518,13 @@ class ServeEngine:
 
         full_flops = forward_flops(self.plan, self.fin, self.widths,
                                    model=self.model_kind)
+        mem = self.memory_gauge()
         if self.mode == "subgraph":
             t = self._sg_totals
             nq = max(t["queries"], 1)
             return {
                 "serve_mode": "subgraph",
+                "memory": mem,
                 "comm_schedule": self.comm_schedule,
                 "halo_dtype": self.halo_dtype,
                 "weights_rev": self.weights_rev,
@@ -469,6 +546,7 @@ class ServeEngine:
         true = int(self.plan.predicted_send_volume.sum())
         return {
             "serve_mode": "full",
+            "memory": mem,
             "comm_schedule": self.comm_schedule,
             "halo_dtype": self.halo_dtype,
             "exchanges_per_batch": self.nlayers,
@@ -485,3 +563,71 @@ class ServeEngine:
             "weights_rev": self.weights_rev,
             "device": device_name(self.device),
         }
+
+    def memory_gauge(self) -> dict:
+        """The report's ``memory`` block under the reference's keys: the
+        analytic device total and its non-zero families, and, once the
+        widest bucket was measured on the card, its peak."""
+        mem = {"analytic": True,
+               "model_bytes": self.memory.total_bytes,
+               **{f"{name}_bytes": int(v)
+                  for name, v in self.memory.families.items() if v}}
+        block = (self.memory_join or {}).get("block", {})
+        peak = block.get("total", {}).get("measured_bytes")
+        if peak is not None:
+            mem["measured"] = True
+            mem["measured_peak_bytes"] = int(peak)
+        return mem
+
+    # ------------------------------------------------------------ recorder
+    def attach_recorder(self, recorder) -> None:
+        """Attach a ``RunRecorder``: the ``serve:*`` spans become span
+        events, the transport decision and the memory block (with its
+        measured join, once ``warmup`` measured the widest bucket) land in
+        the manifest, ``swap_weights`` appends swap events and
+        ``record_window`` serve events."""
+        self.recorder = recorder
+        self.spans.recorder = recorder
+        if recorder is None:
+            return
+        if self.comm_decision:
+            recorder.set_comm_schedule(self.comm_decision)
+        recorder.set_memory(self.memory_join["block"]
+                            if self.memory_join is not None
+                            else self.memory.block())
+
+    def record_window(self, result, offered_qps: float | None = None,
+                      mode: str = "open") -> None:
+        """One ``serve`` event for a completed traffic window
+        (``loadgen.ServeResult``), with the batching counters and the
+        analytic gauges riding along."""
+        if self.recorder is None:
+            return
+        g = self.gauges()
+        self.recorder.record_serve(
+            queries=result.queries,
+            achieved_qps=result.achieved_qps,
+            latency_p50_ms=result.p50_ms,
+            latency_p95_ms=result.p95_ms,
+            latency_p99_ms=result.p99_ms,
+            window_s=result.window_s,
+            offered_qps=offered_qps,
+            mode=mode,
+            batches=result.batches,
+            mean_batch=result.mean_batch,
+            deadline_flushes=self.batcher.deadline_flushes,
+            full_flushes=self.batcher.full_flushes,
+            latency_budget_ms=self.batcher.latency_budget_ms,
+            compiles=self.compile_count,
+            buckets=list(self.batcher.buckets),
+            comm_schedule=self.comm_schedule,
+            wire_rows_per_query=g["wire_rows_per_query"],
+            serve_mode=self.mode,
+            weights_rev=self.weights_rev,
+            touched_rows_per_query=g.get("touched_rows_per_query"),
+            subgraph_flops_per_query=g.get("subgraph_flops_per_query"),
+            # the window's shed count, present only when shedding is on
+            shed=(result.shed if self.batcher.shed_factor is not None
+                  else None),
+            shed_factor=self.batcher.shed_factor,
+        )

@@ -258,6 +258,10 @@ def main(argv=None) -> dict:
     if args.experiment is not None:
         raise SystemExit("repeat_run repeats a training run; --experiment "
                          "is the train CLI's")
+    if args.metrics_out or args.profile or args.memory_budget is not None:
+        raise SystemExit("repeat_run repeats a training run; --metrics-out, "
+                         "--profile and --memory-budget are the train "
+                         "CLI's")
     if args.deterministic:
         os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
         torch.use_deterministic_algorithms(True)

@@ -37,8 +37,13 @@ pass over all of them; GCN or GAT, ``--dtype`` and ``--comm-schedule``
 apply, the full-batch levers exit with the reference's messages); with
 ``--checkpoint-dir`` it saves every ``--checkpoint-every`` EPOCHS and
 ``--resume auto`` trains the remaining epochs, ``--warmup`` only on a
-fresh start.  Flags whose feature is not ported are not defined
-(profiling, metrics, memory budget).  Prints ONE JSON line: the
+fresh start.  ``--metrics-out DIR`` writes the run's telemetry
+(``obs/recorder.py``: manifest, step / span / eval / checkpoint / resume
+/ memory / summary events; render with ``scripts/obs_report.py DIR``),
+``--profile DIR`` a ``torch.profiler`` chrome trace of the run (the
+manifest records it under ``--metrics-out``), and ``--memory-budget
+BYTES`` fails a mode whose analytic device footprint exceeds the budget
+before any tensor ships.  Prints ONE JSON line: the
 comm report and epoch timing under the reference's keys (in the stale
 mode with its hidden/exposed split, the stale flags and the controller's
 log; in the replica mode its replica figures and flags) (with
@@ -62,7 +67,32 @@ def _budget(text: str):
     return int(text)
 
 
-def _fit_minibatch_durable(tr, feats, labels, args, mgr,
+def _mem_budget(text: str) -> int:
+    """``--memory-budget`` values: bytes with optional binary suffix
+    (``512M``, ``2G``; ``obs/memory.py::parse_bytes``)."""
+    from ..obs.memory import parse_bytes
+
+    try:
+        return parse_bytes(text)
+    except ValueError as e:
+        raise argparse.ArgumentTypeError(str(e)) from e
+
+
+def _resume_auto(mgr, target, recorder):
+    """The one ``--resume auto`` sequence of both trainers: restore the
+    newest intact checkpoint into ``target`` and emit the resume event.
+    Returns ``(start_step, resumed_block)``."""
+    start_step, rpath, skipped = mgr.load_latest(target)
+    resumed = {"step": start_step, "path": rpath, "fallback": bool(skipped)}
+    if recorder is not None:
+        recorder.record_resume(
+            step=start_step, path=rpath, fallback=bool(skipped),
+            partial_state=getattr(target, "last_restore_partial", False),
+            skipped=skipped or None)
+    return start_step, resumed
+
+
+def _fit_minibatch_durable(tr, feats, labels, args, mgr, recorder,
                            start_ep: int = 0) -> dict:
     """The mini-batch trainer's durable path: ``fit`` in chunks of
     ``--checkpoint-every`` EPOCHS (its checkpoint grain: the batch plans
@@ -85,7 +115,7 @@ def _fit_minibatch_durable(tr, feats, labels, args, mgr,
         history += report.get("loss_history", [])
         done += run
         if every and done % every == 0:
-            save_and_record(mgr, tr.inner, done)
+            save_and_record(mgr, tr.inner, done, recorder=recorder)
     if report is None:
         # resumed at (or past) the full schedule: nothing left to train
         report = {"note": "resume found the epoch schedule complete"}
@@ -94,19 +124,29 @@ def _fit_minibatch_durable(tr, feats, labels, args, mgr,
 
 
 def _run_minibatch(args, a, feats, labels, pv, k, f, widths, activation,
-                   device) -> dict:
+                   device, recorder) -> dict:
     """``-n BATCH``: the mini-batch trainer, with the durable path under
     ``--checkpoint-dir`` (checkpoints count EPOCHS), ``--resume`` and
     ``--save-checkpoint`` as the reference CLI runs them.  Returns the
     report."""
+    from ..obs.memory import MemoryBudgetError
     from .minibatch import MiniBatchTrainer
 
-    tr = MiniBatchTrainer(a, pv, k, fin=f, widths=widths,
-                          batch_size=args.batch_size, lr=args.lr,
-                          model=args.model, loss=args.loss,
-                          activation=activation, seed=args.seed,
-                          compute_dtype=args.dtype,
-                          comm_schedule=args.comm_schedule, device=device)
+    try:
+        tr = MiniBatchTrainer(a, pv, k, fin=f, widths=widths,
+                              batch_size=args.batch_size, lr=args.lr,
+                              model=args.model, loss=args.loss,
+                              activation=activation, seed=args.seed,
+                              compute_dtype=args.dtype,
+                              comm_schedule=args.comm_schedule,
+                              memory_budget=args.memory_budget,
+                              device=device)
+    except MemoryBudgetError as e:
+        raise SystemExit(str(e)) from e
+    if recorder is not None:
+        recorder.set_partitioner({"partvec": args.partvec, "k": k})
+        recorder.set_backend(device, parts=k)
+        tr.attach_recorder(recorder)
     mgr = None
     if args.checkpoint_dir:
         from ..resilience.checkpoint import CheckpointManager
@@ -116,14 +156,13 @@ def _run_minibatch(args, a, feats, labels, pv, k, f, widths, activation,
     start, resumed = 0, None
     if args.resume == "auto":
         # mini-batch checkpoints count the EPOCHS completed
-        start, rpath, skipped = mgr.load_latest(state)
-        resumed = {"step": start, "path": rpath, "fallback": bool(skipped)}
+        start, resumed = _resume_auto(mgr, state, recorder)
     elif args.resume:
         from ..utils.checkpoint import load_checkpoint
         start = load_checkpoint(state, args.resume)
     if mgr is not None:
         report = _fit_minibatch_durable(
-            tr, feats, labels, args, mgr,
+            tr, feats, labels, args, mgr, recorder,
             start_ep=start if args.resume == "auto" else 0)
     else:
         report = tr.fit(feats, labels, epochs=args.epochs,
@@ -251,6 +290,29 @@ def build_parser(description: str = "sgcn_tpu_torch partitioned full-batch "
     p.add_argument("--keep-checkpoints", type=int, default=3, metavar="K",
                    help="rotation depth of --checkpoint-dir (keep the "
                         "newest K checkpoints; default 3)")
+    p.add_argument("--profile", default=None, metavar="DIR",
+                   help="capture a torch.profiler trace of the training "
+                        "run into DIR (a chrome trace, "
+                        "DIR/<host>_<pid>.pt.trace.json.gz; the "
+                        "reference's analogue is its manual phase timers, "
+                        "Cagnet/main.c:35-38 — see utils/timers.py for "
+                        "those)")
+    p.add_argument("--metrics-out", default=None, metavar="DIR",
+                   help="run-telemetry directory (sgcn_tpu_torch.obs): "
+                        "writes a run manifest (config, git rev, plan "
+                        "digest) plus a per-step JSONL event stream — "
+                        "loss, grad-norm, wall time, the hidden/exposed "
+                        "comm split and (stale mode) drift gauges; render "
+                        "with scripts/obs_report.py, schema in "
+                        "docs/observability.md")
+    p.add_argument("--memory-budget", type=_mem_budget, default=None,
+                   metavar="BYTES",
+                   help="device memory budget (suffixes K/M/G/T, e.g. "
+                        "2G): the analytic footprint model "
+                        "(sgcn_tpu_torch.obs.memory) is checked at PLAN "
+                        "time — before any tensor ships — and an "
+                        "over-budget (plan, mode) fails with the itemized "
+                        "per-family breakdown")
     p.add_argument("--seed", type=int, default=0)
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="where training runs (default cuda; no CPU "
@@ -410,52 +472,92 @@ def main(argv=None) -> None:
             "--experiment accuracy trains fresh oracle+partitioned pairs "
             "for the parity comparison; --resume/--save-checkpoint are "
             "not supported there")
-    from ..parallel.plan import build_comm_plan
     from ..utils.backend import resolve_device
-    from .fullbatch import MODELS, FullBatchTrainer, make_train_data
+    from .fullbatch import MODELS
 
     # the model's own inter-layer activation unless one is asked for
     activation = args.activation or MODELS[args.model].activation
 
     device = resolve_device(args.device)
-    a, feats, labels, pv, k, f, widths = load_inputs(args)
+    inputs = load_inputs(args)
+    recorder = None
+    if args.metrics_out:
+        from ..obs import RunRecorder
+        recorder = RunRecorder(args.metrics_out, config=vars(args))
+        recorder.set_backend(device)
+    try:
+        report = _train(args, device, activation, recorder, inputs)
+    finally:
+        if recorder is not None:
+            recorder.close()
+    print(json.dumps(report), flush=True)
+
+
+def _train(args, device, activation, recorder, inputs) -> dict:
+    """Run the asked experiment on the loaded ``inputs`` under
+    ``--profile``; returns the end-of-run report (the trainers write their
+    events to ``recorder``)."""
+    from ..obs.memory import MemoryBudgetError
+    from ..obs.tracing import profile_to
+    from ..parallel.plan import build_comm_plan
+    from .fullbatch import FullBatchTrainer, make_train_data
+
+    a, feats, labels, pv, k, f, widths = inputs
 
     if args.experiment == "accuracy":
         from ..io.datasets import planetoid_split
         from .accuracy import run_accuracy_parity
         train_mask, test_mask = planetoid_split(
             labels, per_class=args.train_per_class, seed=args.seed)
-        report = run_accuracy_parity(
-            a, feats, labels, pv, k, widths, train_mask, test_mask,
-            epochs=args.epochs, batch_size=args.batch_size, lr=args.lr,
-            seed=args.seed, device=device)
+        with profile_to(args.profile, device):
+            report = run_accuracy_parity(
+                a, feats, labels, pv, k, widths, train_mask, test_mask,
+                epochs=args.epochs, batch_size=args.batch_size, lr=args.lr,
+                seed=args.seed, device=device)
         report["experiment"] = "accuracy"
         report["device"] = args.device
-        print(json.dumps(report), flush=True)
-        return
+        if recorder is not None:
+            # the parity harness drives its own trainers: the run's
+            # identity and outcome, no per-step stream
+            if args.profile:
+                recorder.set_profile(args.profile)
+            recorder.record_summary(report)
+        return report
 
     if args.batch_size is not None:
-        report = _run_minibatch(args, a, feats, labels, pv, k, f, widths,
-                                activation, device)
+        with profile_to(args.profile, device):
+            report = _run_minibatch(args, a, feats, labels, pv, k, f,
+                                    widths, activation, device, recorder)
+        if recorder is not None and args.profile:
+            recorder.set_profile(args.profile)
         report.update(device=args.device, model=args.model,
                       activation=activation, loss=args.loss,
                       dtype=args.dtype, halo_dtype=args.halo_dtype)
         report.pop("loss_history", None)
-        print(json.dumps(report), flush=True)
-        return
+        return report
 
     plan = build_comm_plan(a, pv, k)
-    tr = FullBatchTrainer(plan, fin=f, widths=widths, lr=args.lr,
-                          model=args.model, loss=args.loss,
-                          activation=activation, seed=args.seed,
-                          compute_dtype=args.dtype,
-                          halo_dtype=args.halo_dtype,
-                          halo_staleness=args.halo_staleness,
-                          halo_delta=args.halo_delta,
-                          sync_every=args.sync_every,
-                          comm_schedule=args.comm_schedule,
-                          replica_budget=args.replica_budget,
-                          refresh_band=args.refresh_band, device=device)
+    try:
+        tr = FullBatchTrainer(plan, fin=f, widths=widths, lr=args.lr,
+                              model=args.model, loss=args.loss,
+                              activation=activation, seed=args.seed,
+                              compute_dtype=args.dtype,
+                              halo_dtype=args.halo_dtype,
+                              halo_staleness=args.halo_staleness,
+                              halo_delta=args.halo_delta,
+                              sync_every=args.sync_every,
+                              comm_schedule=args.comm_schedule,
+                              replica_budget=args.replica_budget,
+                              refresh_band=args.refresh_band,
+                              memory_budget=args.memory_budget,
+                              device=device)
+    except MemoryBudgetError as e:
+        raise SystemExit(str(e)) from e
+    if recorder is not None:
+        recorder.set_plan(plan, partitioner={"partvec": args.partvec,
+                                             "k": k})
+        recorder.set_backend(device, parts=k)
+        tr.attach_recorder(recorder)
     # durable checkpointing: one manager per checkpoint directory
     mgr = None
     if args.checkpoint_dir:
@@ -465,31 +567,17 @@ def main(argv=None) -> None:
     resumed = None
     start_step = 0
     if args.resume == "auto":
-        start_step, rpath, skipped = mgr.load_latest(tr)
-        resumed = {"step": start_step, "path": rpath,
-                   "fallback": bool(skipped)}
+        start_step, resumed = _resume_auto(mgr, tr, recorder)
     elif args.resume:
         from ..utils.checkpoint import load_checkpoint
         start_step = load_checkpoint(tr, args.resume)
     data = make_train_data(plan, feats, labels, device=device)
-    if mgr is not None:
-        # the resumable per-step loop: durable checkpoints every N steps +
-        # the fault-injection kill point.  --resume auto: --warmup/--epochs
-        # name the run's TOTAL step schedule and the resumed process
-        # completes the remainder (the bit-identity contract).  Explicit
-        # --resume CKPT keeps its chained meaning (train warmup+epochs MORE
-        # steps) but threads the loaded step through, so the durable stamps
-        # continue the trainer's real step count instead of restarting at 1
-        from ..resilience.runner import run_resumable
-        total = args.warmup + args.epochs
-        if args.resume and args.resume != "auto":
-            total += start_step
-        report = run_resumable(
-            tr, data, total, manager=mgr,
-            checkpoint_every=args.checkpoint_every,
-            start_step=start_step if args.resume else 0)
-    else:
-        report = tr.fit(data, epochs=args.epochs, warmup=args.warmup)
+    with profile_to(args.profile, device):
+        report = _fit(args, tr, data, mgr, start_step)
+    if recorder is not None and args.profile:
+        # the trace is written when the profiled block exits: now the
+        # manifest can record its path and size
+        recorder.set_profile(args.profile)
     if resumed is not None:
         report["resumed"] = resumed
     if args.save_checkpoint:
@@ -526,7 +614,28 @@ def main(argv=None) -> None:
     if tr.controller is not None:
         report["controller"] = tr.comm_decision["controller"]
     report.pop("loss_history", None)
-    print(json.dumps(report), flush=True)
+    return report
+
+
+def _fit(args, tr, data, mgr, start_step: int) -> dict:
+    """Train the full-batch schedule: ``fit`` (warm-up + timed epochs), or
+    under ``--checkpoint-dir`` the resumable per-step loop with a durable
+    checkpoint every N steps and the fault-injection kill point.
+    ``--resume auto``: ``--warmup``/``--epochs`` name the run's TOTAL step
+    schedule and the resumed process completes the remainder (the
+    bit-identity contract).  Explicit ``--resume CKPT`` keeps its chained
+    meaning (warmup + epochs MORE steps) but threads the loaded step
+    through, so the durable stamps continue the real step count."""
+    if mgr is None:
+        return tr.fit(data, epochs=args.epochs, warmup=args.warmup)
+    from ..resilience.runner import run_resumable
+    total = args.warmup + args.epochs
+    if args.resume and args.resume != "auto":
+        total += start_step
+    return run_resumable(
+        tr, data, total, manager=mgr,
+        checkpoint_every=args.checkpoint_every,
+        start_step=start_step if args.resume else 0)
 
 
 if __name__ == "__main__":

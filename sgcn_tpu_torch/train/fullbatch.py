@@ -48,8 +48,18 @@ kept as the last sync wrote them
 every refresh after step 0 a partial one (a2a) that ships only the rows
 whose drift passes the band.  With ``halo_staleness=1`` the replicas
 compose with the stale carry: a stale step ships the kept rows alone.
-The levers of the reference that are not ported — remat, memory
-budgets — raise "not ported yet" with their ROADMAP item.
+
+``remat=True`` recomputes the forward inside the backward, one layer at
+a time (a non-reentrant ``torch.utils.checkpoint`` per layer, where the
+reference wraps the whole forward in ``jax.checkpoint``): the same bits
+and launches as one checkpoint over the forward, but only one layer's
+intermediates live at once.
+``memory_budget`` holds the mode's analytic device footprint
+(``obs/memory.py``) to a byte budget before any tensor ships.
+``attach_recorder`` writes the run's telemetry (``obs/recorder.py``): one
+``step`` event per step (loss, wall time, grad norm, the comm split, the
+stale and replica gauges), span, eval and summary events, and the memory
+block joined against the card's measured step.
 """
 
 from __future__ import annotations
@@ -69,6 +79,9 @@ from ..models.gcn import (GCN, exchange_widths, gcn_forward_local_replica,
                           masked_accuracy_local,
                           masked_err_local, masked_sigmoid_bce_local,
                           masked_softmax_xent_local)
+from ..obs.memory import (check_memory_budget, device_bytes,
+                          measure_device_step, memory_model, reconcile)
+from ..obs.tracing import SpanTimer
 from ..ops import pspmm as layout
 from ..ops.pspmm import narrow_dtype
 from ..ops.tile_spmm import (TILE_PLAN_FIELDS, TILE_PLAN_FIELDS_GEN,
@@ -78,7 +91,7 @@ from ..parallel.plan import (REPLICA_PARTIAL_TILE_FIELDS,
                              choose_replica_budget, resolve_comm_schedule)
 from ..utils.backend import resolve_device, synchronize
 from ..utils.stats import CommStats
-from ..utils.timers import PhaseTimer, SpanTimer
+from ..utils.timers import PhaseTimer
 
 class ModelSpec(NamedTuple):
     """One model's facts, as the forward setup, trainer and engine read
@@ -140,21 +153,27 @@ class ForwardSetup:
     mask_fields: tuple
     replica_budget: int = 0       # resolved: 'auto' → the λ·degree knee
 
-    def ship_arrays(self, plan, device, compute_dtype=None) -> dict:
-        """The plan arrays the forward consumes, as tensors on ``device``
-        (integer arrays stay int32, the kernel's stored form; the
-        ``mask_fields`` narrow to int8 0/1).  Under
-        ``compute_dtype='bfloat16'`` every float32 array is rounded
-        through bf16 and kept as float32, as the reference's trainer casts
-        its float32 plan arrays to the compute dtype and its kernel
-        wrappers upcast the tile weights again (``ptile_lw``/``ptile_hw``:
-        one rounding of each weight)."""
+    def host_arrays(self, plan) -> dict:
+        """The plan arrays the forward consumes, as the host arrays
+        ``ship_arrays`` copies (integer arrays stay int32, the kernel's
+        stored form; the ``mask_fields`` narrow to int8 0/1) — what the
+        memory model prices."""
         arrays = {f: np.ascontiguousarray(getattr(plan, f))
                   for f in self.plan_fields}
         for f in self.mask_fields:
             if f in arrays:
                 arrays[f] = (arrays[f] != 0).astype(np.int8)
-        out = {f: torch.as_tensor(a).to(device) for f, a in arrays.items()}
+        return arrays
+
+    def ship_arrays(self, plan, device, compute_dtype=None) -> dict:
+        """``host_arrays`` as tensors on ``device``.  Under
+        ``compute_dtype='bfloat16'`` every float32 array is rounded
+        through bf16 and kept as float32, as the reference's trainer casts
+        its float32 plan arrays to the compute dtype and its kernel
+        wrappers upcast the tile weights again (``ptile_lw``/``ptile_hw``:
+        one rounding of each weight)."""
+        out = {f: torch.as_tensor(a).to(device)
+               for f, a in self.host_arrays(plan).items()}
         dt = narrow_dtype(compute_dtype, "compute_dtype")
         if dt is not None:
             out = {f: t.to(dt).float() if t.dtype == torch.float32 else t
@@ -278,14 +297,6 @@ def make_train_data(plan, features: np.ndarray, labels: np.ndarray,
                            .reshape(n, 1))[..., 0] * plan.row_valid
     return TrainData(*(torch.as_tensor(np.ascontiguousarray(x)).to(device)
                        for x in (h0, lab, tv, ev)))
-
-
-# trainer levers of the reference that this port does not carry yet:
-# name -> (default meaning "off", ROADMAP item)
-_UNPORTED_LEVERS = {
-    "remat": (False, "A3"),
-    "memory_budget": (None, "A10"),
-}
 
 
 def check_carry_levers(model: str, symmetric: bool, halo_staleness: int,
@@ -441,8 +452,15 @@ class FullBatchTrainer:
         step 0 partial: only the replica rows whose relative drift passes
         ``RHO`` ship, as increments on float32 replicas.  With
         ``halo_staleness=1`` (no ``halo_delta``) the two compose.  The
-        reference's gates raise its ``ValueError``s; the levers not
-        ported raise ``NotImplementedError``."""
+        reference's gates raise its ``ValueError``s.
+
+        ``remat=True`` (exact path, either model, either transport, either
+        precision) checkpoints each layer: the forward keeps the layer
+        inputs alone, the backward re-runs each layer's forward (each
+        pack and fused or K5 launch) before it differentiates it, the
+        same bits as the plain step.  ``memory_budget`` (bytes):
+        ``MemoryBudgetError`` here, before any tensor ships, when the
+        mode's analytic device footprint (``self.memory``) exceeds it."""
         if halo_dtype is not None and model != "gcn":
             raise ValueError(
                 "halo_dtype is a GCN-trainer lever; for GAT use "
@@ -451,13 +469,6 @@ class FullBatchTrainer:
         check_carry_levers(model, plan.symmetric, halo_staleness,
                            halo_delta, sync_every, compute_dtype, remat,
                            replica_budget, refresh_band)
-        given = {"remat": remat, "memory_budget": memory_budget}
-        for name, (off, item) in _UNPORTED_LEVERS.items():
-            if given[name] != off:
-                raise NotImplementedError(
-                    f"{name}={given[name]!r} is not ported yet (ROADMAP "
-                    f"item {item}); this port trains the exact, stale and "
-                    "replica paths")
         narrowed = {name: "bfloat16" for name, dt in (
             ("compute_dtype", narrow_dtype(compute_dtype, "compute_dtype")),
             ("halo_dtype", narrow_dtype(halo_dtype))) if dt is not None}
@@ -469,6 +480,24 @@ class FullBatchTrainer:
                                       halo_staleness=halo_staleness,
                                       replica_budget=replica_budget,
                                       refresh_band=refresh_band)
+        # the analytic footprint and the --memory-budget gate, before any
+        # tensor ships (obs/memory.py); the allocator's state now is the
+        # measured side's zero
+        self.memory = memory_model(
+            plan, fin, widths, workload="train", model=model,
+            compute_dtype=narrowed.get("compute_dtype"),
+            halo_dtype=narrowed.get("halo_dtype"),
+            halo_staleness=halo_staleness, halo_delta=halo_delta,
+            refresh_band=refresh_band, remat=remat, setup=setup)
+        check_memory_budget(self.memory, memory_budget,
+                            what=f"{model} trainer")
+        self.memory_budget = memory_budget
+        self.memory_join = None        # reconcile() of the measured step
+        self._mem_base = device_bytes(self.device)
+        self.remat = bool(remat)
+        self.recorder = None           # attach_recorder
+        self._grad_norm = None         # device scalar, under a recorder
+        self._last_info = {}           # the step's schedule facts
         self.setup = setup
         self.comm_decision = setup.decision
         self.comm_schedule = setup.comm_schedule
@@ -495,6 +524,7 @@ class FullBatchTrainer:
         self.model = setup.module(
             params, activation=activation, final_activation=final_activation,
             fwd_static={**setup.fwd_static, **narrowed}).to(self.device)
+        self.model.remat = self.remat
         self.pa = setup.ship_arrays(plan, self.device, self.compute_dtype)
         self.opt = (optimizer(list(self.model.parameters()))
                     if optimizer is not None else
@@ -515,7 +545,8 @@ class FullBatchTrainer:
         if self.replica_budget:
             self.stats.set_replica(plan)
         self.timer = PhaseTimer()
-        self.spans = SpanTimer(timer=self.timer)
+        self.spans = SpanTimer(timer=self.timer)   # span events under a
+        # recorder; without one a span is a phase of the timer
         self._step_count = 0
         self.last_err = None
         self.last_restore_partial = False  # set by load_checkpoint
@@ -630,6 +661,7 @@ class FullBatchTrainer:
                                 data.train_valid)
                if self.loss_name == "bce" else loss.detach())
         loss.backward()
+        self._note_grad_norm()
         self.opt.step()
         if gauges:
             with torch.no_grad():
@@ -680,8 +712,10 @@ class FullBatchTrainer:
         delta sync step's feature wire at 4 bytes: the float32 re-base)."""
         sync_step = self._stale_sync_due()
         first = sync_step and self._stale_step_idx == 0
-        gauges = self.drift_gauges or (self.controller is not None
-                                       and sync_step)
+        self._last_info = {"age": self._stale_step_idx - self._last_sync_idx,
+                           "sync_step": sync_step}
+        gauges = self.drift_gauges or self.recorder is not None or (
+            self.controller is not None and sync_step)
         loss, err = self._one_step_stale(data, sync_step, gauges)
         if sync_step:
             self._controller_observe(first, self._stale_step_idx)
@@ -708,6 +742,8 @@ class FullBatchTrainer:
         rel = float(np.max(d / np.maximum(r, 1e-30))) if d.size else 0.0
         self.sync_every = self.controller.observe(step_idx, rel)
         self.comm_decision["controller"] = self.controller.log()
+        if self.recorder is not None:
+            self.recorder.set_comm_schedule(self.comm_decision)
 
     # ------------------------------------------------- hot-halo replicas
     def _init_replica_carry(self) -> None:
@@ -773,11 +809,14 @@ class FullBatchTrainer:
         first = sync_step and self._rep_step_idx == 0
         partial = (sync_step and not first
                    and self.refresh_band is not None)
-        gauges = self.drift_gauges or (self.controller is not None
-                                       and sync_step)
+        gauges = self.drift_gauges or self.recorder is not None or (
+            self.controller is not None and sync_step)
         loss, err, rows = self._one_step_replica(
             data, sync_step and not partial, partial, gauges)
         self.last_refresh_rows = rows
+        self._last_info = {"age": self._rep_step_idx - self._last_refresh_idx,
+                           "sync_step": sync_step, "first": first,
+                           "rows": rows}
         if sync_step:
             self._controller_observe(first, self._rep_step_idx)
             self._last_refresh_idx = self._rep_step_idx
@@ -958,7 +997,8 @@ class FullBatchTrainer:
     def _one_step(self, data: TrainData):
         """Loss, backward and optimizer update of one step; returns the
         loss and ``err`` (the loss itself unless ``loss='bce'``) as
-        device scalars."""
+        device scalars.  Under ``remat`` the model checkpoints each layer
+        (``models/gcn.py::gcn_forward_local``)."""
         self.opt.zero_grad(set_to_none=True)
         logits = self._forward(data.h0)
         loss = self._loss_fn(logits, data.labels, data.train_valid)
@@ -971,15 +1011,25 @@ class FullBatchTrainer:
         # over the k·b rows of each h @ w.  A multi-process runtime
         # (ROADMAP A2b) all-reduces .grad here.
         loss.backward()
+        self._note_grad_norm()
         self.opt.step()
         return loss.detach(), err
 
-    def step(self, data: TrainData, sync: bool = True):
-        """One training step (a stale-mode step under
-        ``halo_staleness=1``, a replica-mode step under
-        ``replica_budget``).  ``sync=True`` returns the loss as a float
-        (a device readback); ``sync=False`` returns the device scalar."""
-        data = data.to(self.device)
+    def _note_grad_norm(self) -> None:
+        """Under a recorder, keep the global L2 norm of the weight
+        gradients (the reference's ``_global_grad_norm`` of its psum'd
+        grads: with the k parts on one device autograd's grads are that
+        sum) as a device scalar for the step event."""
+        if self.recorder is None:
+            return
+        with torch.no_grad():
+            self._grad_norm = torch.sqrt(sum(
+                torch.sum(torch.square(p.grad.float()))
+                for p in self.model.parameters() if p.grad is not None))
+
+    def _step_body(self, data: TrainData):
+        """One optimizer step of the trainer's mode and its counters;
+        returns the loss as a device scalar."""
         if self.halo_staleness:
             loss, err = self._stale_run_one(data)
         elif self.replica_budget:
@@ -989,7 +1039,198 @@ class FullBatchTrainer:
             self.stats.count_step(nlayers=self.nlayers)
         self.last_err = err
         self._step_count += 1
-        return float(loss) if sync else loss
+        return loss
+
+    def step(self, data: TrainData, sync: bool = True):
+        """One training step (a stale-mode step under
+        ``halo_staleness=1``, a replica-mode step under
+        ``replica_budget``).  ``sync=True`` returns the loss as a float
+        (a device readback); ``sync=False`` returns the device scalar.
+
+        With a recorder attached every step reads the loss back inside
+        its ``step`` span and appends one ``step`` event; the first step
+        after Adam's state exists is measured (``measure_step``) and the
+        memory block joined."""
+        data = data.to(self.device)
+        if self.recorder is None:
+            loss = self._step_body(data)
+            return float(loss) if sync else loss
+        join = self.memory_join is None and self._step_count >= 1
+        with self.spans.span("step", step=self._step_count + 1) as sp:
+            if join:
+                loss, measured = self.measure_step(data)
+            else:
+                loss = self._step_body(data)
+            loss = float(loss)          # readback = the span's sync point
+        self._record_step_event(loss, sp.dur_s)
+        if join:
+            self.publish_memory(measured, data)
+        return loss
+
+    # -------------------------------------------------------------- memory
+    def _updated_tensors(self) -> list:
+        """The tensors a step updates in place: the parameters and Adam's
+        moment tensors (its ``step`` counters are host scalars)."""
+        out = list(self.model.parameters())
+        for st in self.opt.state.values():
+            out += [t for key, t in st.items()
+                    if torch.is_tensor(t) and key != "step"]
+        return out
+
+    def resident_bytes(self, data: TrainData | None = None) -> dict:
+        """The live tensors' bytes per memory family (``obs/memory.py``):
+        params, Adam's moments, ``data`` (if given), the shipped plan
+        arrays and the carries.  The per-family measured side of the
+        memory block."""
+        def nb(ts):
+            return int(sum(t.numel() * t.element_size() for t in ts))
+
+        aux = [t for t in (getattr(self, "_halo_src_flat", None),
+                           getattr(self, "_rep_dst", None),
+                           getattr(self, "_rep_pos", None))
+               if t is not None]
+        params = list(self.model.parameters())
+        carries = {"halo_carries": self.halo_carry,
+                   "replica_carries": self.replica_carry}
+        out = {
+            "params": nb(params),
+            "opt_state": nb(self._updated_tensors()[len(params):]),
+            "plan_arrays": nb([t for f, t in self.pa.items()
+                               if not f.startswith("ptile_")] + aux),
+            "pallas_tiles": nb([t for f, t in self.pa.items()
+                                if f.startswith("ptile_")]),
+        }
+        for fam, carry in carries.items():
+            out[fam] = nb([x for v in (carry or {}).values() for x in v])
+        if data is not None:
+            out["features"] = nb(vars(data).values())
+        return out
+
+    def measure_step(self, data: TrainData):
+        """One training step measured on the card
+        (``obs.memory.measure_device_step``: argument bytes at its start,
+        after the last step's gradients are released, its peak, and the
+        params and Adam state it updated in place).  Returns ``(loss,
+        measured)``; ``measured`` is ``None`` on the CPU."""
+        data = data.to(self.device)
+        self.opt.zero_grad(set_to_none=True)
+        out = []
+        measured = measure_device_step(
+            lambda: out.append(self._step_body(data)), self.device,
+            self._mem_base, self._updated_tensors())
+        return out[0], measured
+
+    def publish_memory(self, measured: dict | None,
+                       data: TrainData | None = None) -> dict:
+        """Join ``measured`` and the live tensors against the model
+        (``obs.memory.reconcile``) into ``memory_join`` and, under a
+        recorder, the manifest's memory block and one ``memory`` event."""
+        self.memory_join = reconcile(self.memory, measured,
+                                     resident=self.resident_bytes(data))
+        if self.recorder is not None:
+            self.recorder.set_memory(self.memory_join["block"])
+            self.recorder.record_memory(
+                "train_step", self.memory, measured,
+                budget_bytes=self.memory_budget)
+        return self.memory_join
+
+    # ------------------------------------------------------ run telemetry
+    def attach_recorder(self, recorder) -> None:
+        """Attach a ``RunRecorder``: span exits become span events, every
+        ``step`` appends one step event, ``evaluate`` an eval event and
+        ``fit`` a summary; the transport decision and the memory model
+        land in the manifest (the measured join follows at the first step
+        after Adam's state exists).  ``None`` detaches."""
+        self.recorder = recorder
+        self.spans.recorder = recorder
+        if recorder is None:
+            return
+        if self.comm_decision:
+            recorder.set_comm_schedule(self.comm_decision)
+        recorder.set_memory(self.memory.block())
+
+    def _record_step_event(self, loss: float, wall_s: float) -> None:
+        """The step event: the reference's fields, with the stale mode's
+        drift block and the replica mode's replica block (no roofline and
+        no ``measured_vs_model``: the reference books neither for its
+        tile kernels)."""
+        info, g = self._last_info, self.last_gauges
+        drift = replica = None
+        if self.halo_staleness:
+            drift = self._drift_fields(
+                g, info["age"], info["sync_step"],
+                rr_sizes=(self.plan.rr_sizes
+                          if self.comm_schedule == "ragged" else None))
+        elif self.replica_budget:
+            rows = info["rows"]
+            replica = self._replica_fields(
+                g, info["age"], info["sync_step"], self.plan.replica_rows,
+                first_refresh=info["first"], refresh_rows=rows,
+                refresh_wire_rows=(int(self.plan.partial_refresh_wire_rows)
+                                   if rows is not None else None))
+        self.recorder.record_step(
+            step=self._step_count, loss=loss, wall_s=wall_s,
+            err=float(self.last_err) if self.loss_name == "bce" else None,
+            grad_norm=(float(self._grad_norm)
+                       if self._grad_norm is not None else None),
+            comm=self.stats.report(),
+            phases=self.timer.report() or None,
+            drift=drift, replica=replica)
+
+    @staticmethod
+    def _drift_fields(gauges: dict, age: int, sync_step: bool,
+                      rr_sizes: tuple | None = None) -> dict:
+        """The reference's drift block from the stale gauges
+        (``schema.DRIFT_KEYS``; ``round_age`` per ring round on the
+        ring)."""
+        d = np.sqrt(np.maximum(np.asarray(gauges["drift_sq"], np.float64),
+                               0))
+        r = np.sqrt(np.maximum(np.asarray(gauges["ref_sq"], np.float64), 0))
+        q = np.sqrt(np.maximum(np.asarray(gauges["qerr_sq"], np.float64),
+                               0))
+        out = {
+            "staleness_age": int(age),
+            "sync_step": bool(sync_step),
+            "halo_drift_rms": [float(x) for x in d],
+            "halo_drift_rel": [float(x / max(y, 1e-30))
+                               for x, y in zip(d, r)],
+            "halo_quant_err_rms": [float(x) for x in q],
+        }
+        if rr_sizes is not None:
+            out["round_age"] = [None if sd == 0
+                                else (0 if sync_step else int(age))
+                                for sd in rr_sizes]
+        return out
+
+    @staticmethod
+    def _replica_fields(gauges: dict, age: int, sync_step: bool,
+                        replica_rows: int, first_refresh: bool = False,
+                        refresh_rows=None,
+                        refresh_wire_rows: int | None = None) -> dict:
+        """The reference's replica block (``schema.REPLICA_KEYS``): the
+        per-layer drift a refresh erased (zero at step 0, whose gauge
+        measures the zero-initialized carry), the refresh age, and on a
+        partial refresh the rows it shipped."""
+        d = np.sqrt(np.maximum(np.asarray(gauges["drift_sq"], np.float64),
+                               0))
+        r = np.sqrt(np.maximum(np.asarray(gauges["ref_sq"], np.float64), 0))
+        if first_refresh:
+            d = np.zeros_like(d)
+        out = {
+            "refresh_age": int(age),
+            "sync_step": bool(sync_step),
+            "replica_rows": int(replica_rows),
+            "replica_drift_rms": [float(x) for x in d],
+            "replica_drift_rel": [float(x / max(y, 1e-30))
+                                  for x, y in zip(d, r)],
+        }
+        if refresh_rows is not None:
+            out["refresh_kind"] = "partial"
+            out["refresh_rows"] = [int(x) for x in refresh_rows]
+            out["refresh_wire_rows"] = int(refresh_wire_rows or 0)
+        elif sync_step:
+            out["refresh_kind"] = "full"
+        return out
 
     def _eval_logits(self, data: TrainData):
         with torch.no_grad():
@@ -999,12 +1240,15 @@ class FullBatchTrainer:
         """(loss, accuracy) over the eval split, with the training
         objective."""
         data = data.to(self.device)
-        with self.spans.span("eval"):
+        with self.spans.span("eval") as sp:
             logits = self._eval_logits(data)
             loss = self._loss_fn(logits, data.labels, data.eval_valid)
             acc = masked_accuracy_local(logits, data.labels, data.eval_valid)
             loss, acc = float(loss), float(acc)
         self.stats.count_forward(nlayers=self.nlayers)
+        if self.recorder is not None:
+            self.recorder.record_eval(step=self._step_count, loss=loss,
+                                      acc=acc, wall_s=sp.dur_s)
         return loss, acc
 
     def predict(self, data: TrainData) -> np.ndarray:
@@ -1043,4 +1287,7 @@ class FullBatchTrainer:
         )
         if self.loss_name == "bce":
             report["err"] = float(self.last_err)
+        if self.recorder is not None:
+            self.recorder.record_summary(
+                {k: v for k, v in report.items() if k != "loss_history"})
         return report

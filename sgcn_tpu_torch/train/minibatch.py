@@ -19,10 +19,19 @@ layouts are built and shipped to the device once (``make_batches``);
 port's kernels on every batch: the row pack and the fused tile launch
 (``PspmmTilesSym`` on a2a, ``PspmmTilesRagged`` on the ring) for GCN,
 the int8-mask pass (K5) for GAT.
+
+``memory_budget`` holds the footprint of what the trainer keeps on the
+device (``obs/memory.py::minibatch_memory_model``: every batch plan's
+arrays and tiles and every batch's data, beside one step's scratch) to a
+byte budget before anything ships; ``attach_recorder`` writes one step
+event per batch step, with the comm split merged over the batch counters
+(``_comm_snapshot``), and joins the model against the card's measured
+step.
 """
 
 from __future__ import annotations
 
+import contextlib
 import time
 from dataclasses import dataclass
 
@@ -30,11 +39,19 @@ import numpy as np
 import scipy.sparse as sp
 import torch
 
+from ..obs.memory import (check_memory_budget, measure_device_step,
+                          minibatch_memory_model, reconcile)
+from ..ops.pspmm import narrow_dtype
 from ..ops.tile_spmm import choose_tile_dispatch
 from ..parallel.plan import (build_comm_plan, pad_comm_plan,
                              resolve_comm_schedule, shared_ell_buckets)
 from ..utils.stats import CommStats
-from .fullbatch import FullBatchTrainer, TrainData, make_train_data
+from .fullbatch import (FullBatchTrainer, TrainData, make_train_data,
+                        resolve_forward_setup)
+
+
+def _nbytes(tensors) -> int:
+    return int(sum(t.numel() * t.element_size() for t in tensors))
 
 
 def sample_batches(n: int, batch_size: int, nbatches: int | None = None,
@@ -155,6 +172,27 @@ class MiniBatchTrainer:
                     p.ensure_ragged(rr_sizes=shared_s)
         self.plan_build_s = time.perf_counter() - t0
 
+        # every batch plan's tile layouts and tile classes, then the
+        # footprint of the whole batch set and the --memory-budget gate,
+        # before anything ships
+        t0 = time.perf_counter()
+        setup = resolve_forward_setup(self.plans[0], model=model,
+                                      comm_schedule=comm_schedule)
+        self._statics = [choose_tile_dispatch(p, model=model,
+                                              schedule=setup.comm_schedule)
+                         for p in self.plans]
+        # host seconds of the tile layouts (and of the shipping, added by
+        # ``_plan_arrays``)
+        self.layout_s = time.perf_counter() - t0
+        self.memory = minibatch_memory_model(
+            self.plans, fin, widths, setup=setup, model=model,
+            compute_dtype=("bfloat16" if narrow_dtype(
+                compute_dtype, "compute_dtype") is not None else None))
+        check_memory_budget(self.memory, memory_budget,
+                            what=f"{model} mini-batch trainer")
+        self.memory_budget = memory_budget
+        self.memory_join = None        # reconcile() of the measured step
+
         # The reference runs this trainer with allow_pallas=False: one
         # compiled XLA step serves every batch, and its Pallas tile
         # statics are per plan.  The port compiles nothing per shape, so
@@ -164,15 +202,20 @@ class MiniBatchTrainer:
             self.plans[0], fin, widths, lr=lr, activation=activation,
             model=model, loss=loss, optimizer=optimizer, seed=seed,
             compute_dtype=compute_dtype, comm_schedule=comm_schedule,
-            memory_budget=memory_budget, params=params, device=device)
+            params=params, device=device)
+        self._pa0 = self.inner.pa      # plans[0]'s arrays: batch 0's too
         # a padded per-batch plan is no stable run identity: checkpoints
         # through ``inner`` record no plan digest (utils/checkpoint.py)
         self.inner.checkpoint_plan = None
         self.nlayers = len(widths)
+        self.recorder = None          # run telemetry (attach_recorder)
+        self._gstep = 0               # completed batch steps (events count
+        #                               from 1, as the full-batch trainer's)
+        self._comm_cum = None         # the running cross-batch comm sums
         self._narrowed = ({"compute_dtype": self.inner.compute_dtype}
                           if self.inner.compute_dtype else {})
         self._shipped = None          # per plan (pa, fwd_static), once
-        self.layout_s = None          # host seconds of the tile layouts
+        self._data_bytes = None       # the last make_batches' data bytes
         self._fullgraph_eval = None   # built on first use, then cached
         self._fused_batches = None
         self._fused_key = None
@@ -189,20 +232,19 @@ class MiniBatchTrainer:
 
     # ------------------------------------------------------------------- data
     def _plan_arrays(self) -> list:
-        """Per batch plan its tile layouts (built here) and plan arrays on
-        the device, with its forward's static kwargs — once per trainer."""
+        """Per batch plan its plan arrays on the device, with its
+        forward's static kwargs — once per trainer (``plans[0]``'s are the
+        inner trainer's own)."""
         if self._shipped is None:
             t0 = time.perf_counter()
             setup = self.inner.setup
-            out = []
-            for plan in self.plans:
-                static = choose_tile_dispatch(
-                    plan, model=setup.model, schedule=setup.comm_schedule)
-                out.append((setup.ship_arrays(plan, self.device,
-                                              self.inner.compute_dtype),
-                            {**static, **self._narrowed}))
-            self._shipped = out
-            self.layout_s = time.perf_counter() - t0
+            self._shipped = [
+                (self._pa0 if i == 0 else setup.ship_arrays(
+                    plan, self.device, self.inner.compute_dtype),
+                 {**static, **self._narrowed})
+                for i, (plan, static) in enumerate(zip(self.plans,
+                                                       self._statics))]
+            self.layout_s += time.perf_counter() - t0
         return self._shipped
 
     def make_batches(self, features: np.ndarray, labels: np.ndarray,
@@ -226,7 +268,39 @@ class MiniBatchTrainer:
                     lane_widths=st.lane_widths,
                     wire_itemsize=st.wire_itemsize,
                     wire_itemsize_bwd=st.wire_itemsize_bwd)))
+        self._data_bytes = _nbytes(t for b in out
+                                   for t in vars(b.data).values())
         return out
+
+    # ----------------------------------------------------------------- memory
+    def resident_bytes(self) -> dict:
+        """The live tensors' bytes per memory family: the inner
+        trainer's params and Adam's moments, every batch plan's shipped
+        arrays and tiles, and the last ``make_batches``' data (the
+        per-family measured side of the memory block)."""
+        out = self.inner.resident_bytes()
+        pas = [pa for pa, _ in self._plan_arrays()]
+        out["plan_arrays"] = _nbytes(t for pa in pas for f, t in pa.items()
+                                     if not f.startswith("ptile_"))
+        out["pallas_tiles"] = _nbytes(t for pa in pas for f, t in pa.items()
+                                      if f.startswith("ptile_"))
+        if self._data_bytes is not None:
+            out["features"] = self._data_bytes
+        return out
+
+    def publish_memory(self, measured: dict | None) -> dict:
+        """Join ``measured`` (``obs.memory.measure_device_step``, ``None``
+        on the CPU) and the live tensors against the model into
+        ``memory_join``; under a recorder also the manifest's memory block
+        and one ``memory`` event."""
+        self.memory_join = reconcile(self.memory, measured,
+                                     resident=self.resident_bytes())
+        if self.recorder is not None:
+            self.recorder.set_memory(self.memory_join["block"])
+            self.recorder.record_memory(
+                "train_step", self.memory, measured,
+                budget_bytes=self.memory_budget)
+        return self.memory_join
 
     # ------------------------------------------------------------------- api
     def _run(self, batch: Batch):
@@ -238,11 +312,85 @@ class MiniBatchTrainer:
         loss, tr.last_err = tr._one_step(batch.data)
         return loss
 
+    def attach_recorder(self, recorder) -> None:
+        """Attach a ``RunRecorder``: every ``step(batch)`` appends one step
+        event (loss, wall time, the comm split merged over the batch
+        counters so far), ``fit`` a summary; span events ride the inner
+        trainer's ``SpanTimer``.  ``run_epochs_fused`` emits no per-step
+        events."""
+        self.recorder = recorder
+        self.inner.spans.recorder = recorder
+        if recorder is None:
+            return
+        if self.comm_decision:
+            recorder.set_comm_schedule(self.comm_decision)
+        recorder.set_memory(self.memory.block())
+
+    def _comm_snapshot(self, stats: CommStats) -> dict:
+        """The running equivalent of ``CommStats.merged_report`` over every
+        batch counter that has passed through ``step`` (one step advances
+        one batch's counters by a fixed delta, so the cumulative grows by
+        that delta instead of re-merging every counter).  Covers the
+        recorded steps only."""
+        d = 2 * self.nlayers
+        per = (stats.send_volume_per_exchange, stats.send_msgs_per_exchange,
+               stats.recv_volume_per_exchange, stats.recv_msgs_per_exchange)
+        if self._comm_cum is None:
+            self._comm_cum = {
+                "arrs": [np.zeros_like(p, dtype=np.int64) for p in per],
+                "exchanges": 0, "send_volume": 0, "wire_rows": 0,
+            }
+        c = self._comm_cum
+        for acc, p in zip(c["arrs"], per):
+            acc += p.astype(np.int64) * d
+        c["exchanges"] += d
+        c["send_volume"] += int(per[0].sum()) * d
+        c["wire_rows"] += stats.wire_rows_per_exchange * d
+        rep = CommStats.report_from_cumulative(*c["arrs"])
+        rep.update(                 # mini-batch steps are never pipelined
+            exchanges=c["exchanges"],
+            exposed_exchanges=c["exchanges"], hidden_exchanges=0,
+            exposed_send_volume=c["send_volume"], hidden_send_volume=0,
+            # the current batch's per-exchange figures (the wire is one
+            # envelope for every batch), the cumulative ones over every
+            # recorded step
+            comm_schedule=stats.schedule,
+            true_rows_per_exchange=int(per[0].sum()),
+            wire_rows_per_exchange=stats.wire_rows_per_exchange,
+            wire_rows_total=c["wire_rows"],
+            padding_efficiency=(c["send_volume"] / c["wire_rows"]
+                                if c["wire_rows"] else 1.0),
+        )
+        return rep
+
     def step(self, batch: Batch) -> float:
         """One optimizer step on one batch; its counters advance as the
-        full-batch trainer's do.  Returns the loss (a device readback)."""
-        loss = float(self._run(batch))
+        full-batch trainer's do.  Returns the loss (a device readback);
+        under a recorder the step runs in a ``step`` span and appends one
+        step event, and the first step after Adam's state exists is
+        measured and the memory block joined."""
+        rec = self.recorder is not None
+        join = rec and self.memory_join is None and self._gstep >= 1
+        cm = (self.inner.spans.span("step", step=self._gstep + 1)
+              if rec else contextlib.nullcontext())
+        with cm as sp:
+            if join:
+                tr, out = self.inner, []
+                tr.opt.zero_grad(set_to_none=True)
+                measured = measure_device_step(
+                    lambda: out.append(self._run(batch)), self.device,
+                    tr._mem_base, tr._updated_tensors())
+                loss = float(out[0])
+            else:
+                loss = float(self._run(batch))
         batch.stats.count_step(nlayers=self.nlayers)
+        self._gstep += 1
+        if rec:
+            self.recorder.record_step(
+                step=self._gstep, loss=loss, wall_s=sp.dur_s,
+                comm=self._comm_snapshot(batch.stats))
+        if join:
+            self.publish_memory(measured)
         return loss
 
     def fit(self, features: np.ndarray, labels: np.ndarray,
@@ -281,6 +429,9 @@ class MiniBatchTrainer:
             # rows shipped over all exchanges (an alias of the total)
             total_exchanged_rows=report["total_send_volume"],
         )
+        if self.recorder is not None:
+            self.recorder.record_summary(
+                {k: v for k, v in report.items() if k != "loss_history"})
         return report
 
     # ------------------------------------------------------ the epoch sweep

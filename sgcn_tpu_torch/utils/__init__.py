@@ -1,4 +1,4 @@
 from .backend import resolve_device
-from .timers import PhaseTimer, SpanTimer
+from .timers import PhaseTimer
 
-__all__ = ["PhaseTimer", "SpanTimer", "resolve_device"]
+__all__ = ["PhaseTimer", "resolve_device"]

@@ -7,6 +7,8 @@ ask for the CPU raises: it never falls back silently.
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 
@@ -42,3 +44,13 @@ def synchronize(device) -> None:
     """Wait for the device's queued work (a no-op on the CPU)."""
     if torch.device(device).type == "cuda":
         torch.cuda.synchronize(device)
+
+
+def plain_region(kernel: str):
+    """While ``torch.profiler`` records, a region named after the CUDA
+    kernel a plain version stands for (a CPU trace then classifies the
+    plain version's ops as that kernel's, ``obs/tracing.py``); otherwise
+    nothing."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function(kernel)
+    return contextlib.nullcontext()

@@ -1,6 +1,5 @@
-"""Phase timers and nested spans (port of ``sgcn_tpu/utils/timers.py`` and
-the ``SpanTimer`` of ``sgcn_tpu/obs/tracing.py`` that the serve engine
-uses).
+"""Phase timers (port of ``sgcn_tpu/utils/timers.py``); the nested spans
+over them are ``obs/tracing.py::SpanTimer``.
 
 Host-clock timing: a phase that must include device work passes a
 ``sync`` callable (``torch.cuda.synchronize`` on the card), run after the
@@ -58,14 +57,3 @@ class PhaseTimer:
                    "inclusive_s": self.inclusive[name]}
             for name in self.totals
         }
-
-
-class SpanTimer:
-    """Named nested spans over a shared ``PhaseTimer`` (the engine's
-    ``serve:*`` stages)."""
-
-    def __init__(self, timer: PhaseTimer | None = None):
-        self.timer = timer if timer is not None else PhaseTimer()
-
-    def span(self, name: str, sync=None):
-        return self.timer.phase(name, sync=sync)

@@ -1573,3 +1573,134 @@ def test_subgraph_engine_on_cuda_launches_and_rows(cuda_device, model):
     else:
         assert spmm_tiles.mask_launches - k5 == 3     # 3 fused-form layers
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+
+
+# ------------------------------------------ remat and the memory join
+@pytest.mark.parametrize("sched", ["a2a", "ragged"])
+@pytest.mark.parametrize("model", ["gcn", "gat"])
+def test_remat_on_cuda_equals_plain_bitwise(cuda_device, model, sched):
+    """On the card: 3 steps with ``remat=True`` == 3 plain steps, losses
+    and every parameter bit for bit; remat re-runs one forward's launches
+    a step in the backward (GCN: a fused launch and a pack per layer; GAT:
+    its K5 passes), the backward's own launches unchanged."""
+    from sgcn_tpu_torch.models.gat import gat_table_form
+
+    plan = _er_plan()
+    rng = np.random.default_rng(21)
+    feats = rng.standard_normal((plan.n, 24)).astype(np.float32)
+    labels = rng.integers(0, 5, plan.n)
+    data = make_train_data(plan, feats, labels, device=cuda_device)
+    widths = [32, 32, 5]
+    act = {} if model == "gcn" else {"activation": "none"}
+    runs = {}
+    for remat in (False, True):
+        tr = FullBatchTrainer(plan, fin=24, widths=widths, seed=6,
+                              model=model, comm_schedule=sched, remat=remat,
+                              device=cuda_device, **act)
+        before = (spmm_tiles_fused.launches, row_pack.launches,
+                  spmm_tiles.mask_launches, GatLayerSym.backward_launches,
+                  PspmmTilesSym.backward_launches
+                  + PspmmTilesRagged.backward_launches)
+        losses = [tr.step(data) for _ in range(3)]
+        torch.cuda.synchronize()
+        after = (spmm_tiles_fused.launches, row_pack.launches,
+                 spmm_tiles.mask_launches, GatLayerSym.backward_launches,
+                 PspmmTilesSym.backward_launches
+                 + PspmmTilesRagged.backward_launches)
+        runs[remat] = (losses, [p.detach().cpu() for p in
+                                tr.model.parameters()],
+                       [b - a for a, b in zip(before, after)])
+    assert runs[False][0] == runs[True][0]
+    assert all(torch.equal(x, y) for x, y in zip(runs[False][1],
+                                                 runs[True][1]))
+    plain, remat = runs[False][2], runs[True][2]
+    if model == "gcn":
+        extra = [3 * len(widths), 3 * len(widths), 0, 0, 0]
+    else:
+        passes = sum(1 if gat_table_form(w) == "fused" else 2
+                     for w in widths)
+        packs = (len(widths) if sched == "ragged" else
+                 sum(4 if gat_table_form(w) == "split" else 2
+                     for w in widths))
+        extra = [0, 3 * packs, 3 * passes, 0, 0]
+    assert [r - p for r, p in zip(remat, plain)] == extra
+
+
+@pytest.mark.parametrize("remat", [False, True])
+def test_memory_join_on_cuda(cuda_device, remat):
+    """On the card: one measured step (``measure_step``) joined against the
+    model (``publish_memory``): the reference's contract holds — peak ≤
+    total × ``MEM_MODEL_TOL``, arguments ≤ modeled + 256 B, alias ≥
+    params + Adam's moments — and the argument families equal the live
+    tensors."""
+    from sgcn_tpu_torch.obs.memory import ARGUMENT_FAMILIES
+
+    plan = _er_plan()
+    rng = np.random.default_rng(22)
+    feats = rng.standard_normal((plan.n, 24)).astype(np.float32)
+    labels = rng.integers(0, 5, plan.n)
+    torch.cuda.synchronize()
+    tr = FullBatchTrainer(plan, fin=24, widths=[32, 5], seed=6,
+                          remat=remat, device=cuda_device)
+    data = make_train_data(plan, feats, labels, device=cuda_device)
+    tr.step(data)
+    _loss, measured = tr.measure_step(data)
+    join = tr.publish_memory(measured, data)
+    assert join["ok"], join["violations"]
+    assert measured["peak_bytes"] > measured["argument_bytes"] > 0
+    assert measured["alias_bytes"] >= tr.memory.donated_floor_bytes
+    live = tr.resident_bytes(data)
+    for fam in ARGUMENT_FAMILIES:
+        assert tr.memory.families.get(fam, 0) == live.get(fam, 0), fam
+
+
+@pytest.mark.parametrize("mode", ["full", "subgraph"])
+def test_serve_memory_join_on_cuda(cuda_device, mode):
+    """On the card: the widest bucket's batch measured in ``warmup``
+    joins the engine's model with no violation: it aliases 0 (a forward
+    updates no weight in place) and its peak is under total × tol."""
+    plan = _er_plan()
+    feats = np.random.default_rng(23).standard_normal(
+        (plan.n, 24)).astype(np.float32)
+    torch.cuda.synchronize()
+    eng = ServeEngine(plan, fin=24, widths=[32, 5], device=cuda_device,
+                      max_batch=16, mode=mode)
+    eng.set_features(feats)
+    eng.warmup(np.arange(16))
+    join = eng.memory_join
+    assert join["ok"], join["violations"]
+    assert join["block"]["donated"]["measured_bytes"] == 0
+    assert join["block"]["total"]["measured_bytes"] > 0
+    assert eng.gauges()["memory"]["measured"]
+
+
+def test_minibatch_memory_join_on_cuda(cuda_device, tmp_path):
+    """On the card: the mini-batch trainer's measured step (the first
+    recorded step after Adam's state exists) joins the model of the whole
+    batch set with no violation: the arguments (every batch plan's arrays
+    and tiles, every batch's data, the weights and Adam's moments) within
+    256 B of the model either way, the peak under 1.05 × its total (the
+    band ``chip_smoke.py`` holds the card to)."""
+    from sgcn_tpu_torch.obs import RunRecorder
+    from sgcn_tpu_torch.train.minibatch import MiniBatchTrainer
+
+    n = 3000
+    ahat = normalize_adjacency(er_graph(n, avg_deg=8, seed=1))
+    pv = balanced_random_partition(n, 4, seed=1)
+    rng = np.random.default_rng(24)
+    feats = rng.standard_normal((n, 24)).astype(np.float32)
+    labels = rng.integers(0, 5, n)
+    torch.cuda.synchronize()
+    mb = MiniBatchTrainer(ahat, pv, 4, fin=24, widths=[32, 5],
+                          batch_size=1024, device=cuda_device)
+    with RunRecorder(str(tmp_path / "mb")) as rec:
+        mb.attach_recorder(rec)
+        mb.fit(feats, labels, epochs=1, warmup=1, verbose=False)
+    join = mb.memory_join
+    assert join["ok"], join["violations"]
+    blk = join["block"]
+    assert abs(blk["arguments"]["measured_bytes"]
+               - blk["arguments"]["model_bytes"]) <= 256
+    assert blk["total"]["measured_bytes"] <= \
+        1.05 * blk["total"]["model_bytes"]
+    assert blk["donated"]["measured_bytes"] >= mb.memory.donated_floor_bytes

@@ -171,3 +171,48 @@ def test_scan_sees_the_subgraph_serving_modules():
             text = fh.read()
         for d in defs:
             assert d in text, (path, d)
+
+
+def test_scan_sees_the_telemetry_modules():
+    """Run telemetry (the schema's copy, the recorder, the trace parser and
+    its one kernel-name table, the memory model, the trainers' and the
+    engine's hooks, the CLI flags) is in the scan, and the names it runs
+    on live in it, so none of it imports JAX or the JAX package; and
+    ``chip_smoke.py`` classifies the card's kernels through that table
+    instead of a copy of its own."""
+    names = {os.path.relpath(p, REPO) for p in _sources()}
+    want = {("obs", "schema.py"): ("SCHEMA_VERSION = 6", "validate_event",
+                                   "validate_manifest"),
+            ("obs", "recorder.py"): ("class RunRecorder", "def load_run",
+                                     "set_backend", "record_memory"),
+            ("obs", "tracing.py"): ("KERNEL_TABLE", "class SpanTimer",
+                                    "def summarize_trace", "profile_to"),
+            ("obs", "memory.py"): ("def memory_model", "MemoryBudgetError",
+                                   "def parse_bytes", "measure_device_step",
+                                   "MEM_MODEL_TOL = 2.5"),
+            ("obs", "__init__.py"): ("RunRecorder", "memory_model"),
+            ("train", "fullbatch.py"): ("attach_recorder", "measure_step"),
+            ("models", "gcn.py"): ("use_reentrant=False",),
+            ("models", "gat.py"): ("use_reentrant=False",),
+            ("train", "minibatch.py"): ("attach_recorder",
+                                        "_comm_snapshot",
+                                        "minibatch_memory_model"),
+            ("serve", "engine.py"): ("attach_recorder", "record_window",
+                                     "record_swap"),
+            ("resilience", "runner.py"): ("record_checkpoint",),
+            ("train", "__main__.py"): ("--metrics-out", "--profile",
+                                       "--memory-budget"),
+            ("serve", "__main__.py"): ("--metrics-out", "--memory-budget")}
+    for rel, defs in want.items():
+        path = os.path.join("sgcn_tpu_torch", *rel)
+        assert path in names
+        with open(os.path.join(REPO, path)) as fh:
+            text = fh.read()
+        for d in defs:
+            assert d in text, (path, d)
+    with open(os.path.join(REPO, "chip_smoke.py")) as fh:
+        smoke = fh.read()
+    assert "kernel_label" in smoke and "phase_telemetry" in smoke
+    for key in ('"tile_spmm_fused_kernel"', '"row_pack_kernel"',
+                '"sm90_xmma"', '"roll_cuda"'):
+        assert key not in smoke, key

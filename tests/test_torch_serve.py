@@ -218,15 +218,26 @@ def test_cli_runs_in_process(capsys):
 
 
 def test_cli_leaves_unported_flags_undefined(capsys):
-    """Flags of features not ported are undefined (argparse exit 2);
-    ``--checkpoint`` is ported and exclusive with ``--random-init``.
-    (``--serve-mode``, ``--concurrent`` and ``--shed-factor`` are ported:
-    ``tests/test_torch_subgraph.py``.)"""
-    for flag in ("--metrics-out", "--memory-budget"):
-        with pytest.raises(SystemExit) as exc:
-            serve_main(["-p", HP8, "-s", "8", "--random-init", flag, "x"])
-        assert exc.value.code == 2
-        assert "unrecognized arguments" in capsys.readouterr().err
+    """Every flag of the reference's serve CLI is ported: ``--metrics-out``
+    parses and the run stops at the input check, ``--memory-budget``
+    refuses a value that is no size with the reference's message
+    (argparse exit 2, not an unknown flag); ``--checkpoint`` is exclusive
+    with ``--random-init``.  (``--serve-mode``, ``--concurrent`` and
+    ``--shed-factor``: ``tests/test_torch_subgraph.py``; the telemetry
+    flags' runs: ``tests/test_torch_obs.py``,
+    ``tests/test_torch_memory.py``.)"""
+    with pytest.raises(SystemExit) as exc:
+        serve_main(["-p", HP8, "-s", "8", "--random-init", "--metrics-out",
+                    "x", "--device", "cpu"])
+    assert exc.value.code != 2 and "--npz" in str(exc.value.code)
+    assert "unrecognized arguments" not in capsys.readouterr().err
+    with pytest.raises(SystemExit) as exc:
+        serve_main(["-p", HP8, "-s", "8", "--random-init", "--memory-budget",
+                    "x"])
+    assert exc.value.code == 2
+    err = capsys.readouterr().err
+    assert "unrecognized arguments" not in err
+    assert "is not BYTES or a K/M/G/T-suffixed size" in err
     with pytest.raises(SystemExit, match="exclusive"):
         serve_main(["-p", HP8, "-s", "8", "--random-init",
                     "--checkpoint", "x"])

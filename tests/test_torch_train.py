@@ -48,6 +48,7 @@ from sgcn_tpu_torch.baselines import DenseOracle
 from sgcn_tpu_torch.io.datasets import load_npz_dataset, planetoid_split
 from sgcn_tpu_torch.models import gcn as port_gcn
 from sgcn_tpu_torch.models.gcn import exchange_widths
+from sgcn_tpu_torch.obs.memory import MemoryBudgetError
 from sgcn_tpu_torch.ops.tile_spmm import (TILE_PLAN_FIELDS, PspmmTilesSym,
                                           _pspmm_tiles_once, pspmm_tiles_sym)
 from sgcn_tpu_torch.parallel import build_comm_plan
@@ -498,6 +499,7 @@ CHECKPOINT_FLAGS = ("--resume", "--save-checkpoint", "--checkpoint-dir",
 STALE_FLAGS = ("--halo-staleness", "--halo-delta", "--sync-every")
 REPLICA_FLAGS = ("--replica-budget", "--refresh-band")
 MINIBATCH_FLAGS = ("-n", "--batch-size")
+OBS_FLAGS = ("--profile", "--metrics-out", "--memory-budget")
 
 
 @pytest.mark.parametrize("flag", [
@@ -510,15 +512,17 @@ def test_cli_leaves_unported_flags_undefined(flag, capsys):
     """Flags of features not ported are undefined (argparse exit 2).  The
     checkpoint flags (``tests/test_torch_checkpoint.py``), the stale
     flags (``tests/test_torch_stale.py``), the replica flags
-    (``tests/test_torch_replica.py``) and the mini-batch flags
-    (``tests/test_torch_minibatch.py``) are ported: they parse, and the
-    run stops at a guard or the input check instead (``--halo-delta``
-    takes no value)."""
+    (``tests/test_torch_replica.py``), the mini-batch flags
+    (``tests/test_torch_minibatch.py``) and the telemetry flags
+    (``tests/test_torch_obs.py``, ``tests/test_torch_memory.py``,
+    ``tests/test_torch_tracing.py``) are ported: they parse, and the run
+    stops at a guard or the input check instead (``--halo-delta`` takes
+    no value)."""
     value = [] if flag == "--halo-delta" else ["1"]
     with pytest.raises(SystemExit) as exc:
         train_main(["-p", HP8, "-s", "8", "--device", "cpu", flag, *value])
     if flag in (CHECKPOINT_FLAGS + STALE_FLAGS + REPLICA_FLAGS
-                + MINIBATCH_FLAGS):
+                + MINIBATCH_FLAGS + OBS_FLAGS):
         assert exc.value.code != 2
         assert "unrecognized arguments" not in capsys.readouterr().err
         return
@@ -538,7 +542,8 @@ def test_without_cpu_the_entry_points_raise_when_no_gpu(cora):
 
 
 @pytest.mark.parametrize("kwargs,error,match", [
-    pytest.param({"remat": True}, NotImplementedError, "not ported.*A3",
+    pytest.param({"remat": True, "halo_staleness": 1}, ValueError,
+                 "halo_staleness=1 is defined for the f32 non-remat",
                  id="remat-True-A3"),
     pytest.param({"halo_staleness": 1, "model": "gat",
                   "activation": "none"}, ValueError,
@@ -557,14 +562,18 @@ def test_without_cpu_the_entry_points_raise_when_no_gpu(cora):
     pytest.param({"refresh_band": 0.1}, ValueError,
                  "refresh_band schedules the drift-driven PARTIAL",
                  id="refresh_band-0.1-A7"),
-    pytest.param({"memory_budget": 1 << 30}, NotImplementedError,
-                 "not ported.*A10", id="memory_budget-1073741824-A10")])
+    pytest.param({"memory_budget": 1 << 20}, MemoryBudgetError,
+                 "exceeds --memory-budget 1,048,576 B",
+                 id="memory_budget-1073741824-A10")])
 def test_unported_levers_raise(cora, kwargs, error, match):
-    """The levers not ported raise ``NotImplementedError`` naming their
-    ROADMAP item; the stale and replica levers are ported, and these
-    cases of them raise the reference's gates (``ValueError``, its
-    messages: ``tests/test_torch_stale.py`` and
-    ``tests/test_torch_replica.py`` compare them verbatim)."""
+    """Every lever of the reference's trainer is ported, and these cases
+    raise the reference's gates: remat with the stale mode and the
+    stale and replica levers (``ValueError``, its messages:
+    ``tests/test_torch_stale.py`` and ``tests/test_torch_replica.py``
+    compare them verbatim), and a memory budget (1 MiB; the case keeps
+    the id it had when the lever was refused at 1 GiB) below the mode's
+    analytic footprint (``MemoryBudgetError``:
+    ``tests/test_torch_memory.py``)."""
     with pytest.raises(error, match=match):
         FullBatchTrainer(cora["plan"], fin=1433, widths=WIDTHS,
                          device="cpu", **kwargs)
