@@ -340,21 +340,48 @@ failure raises and the script exits non-zero:
      and the serve CLI with ``--metrics-out --memory-budget 8G`` (the
      report's memory block, its peak ≤ the model × ``MEM_CARD_TOL``, the
      serve event);
-  30. one JSON line ``{"kernels": [...]}`` — per ported kernel (the tile
+  30. the paper's comparison and the rank runtime
+     (``build/chip_smoke_ranks/``).  (a) The CAGNET broadcast baseline
+     (``baselines/cagnet1d.py``): cora2708 8-hp, 1433 → 16 → 7 with
+     sigmoid, rows within rtol 1e-4 / atol 1e-5 of the float64
+     ``sigmoid((Â·H)·W)`` forward and of the partitioned forward on the
+     same weights; on phase 3's ER plan and phase 24's DCSBM hp parts (not
+     partitioned again) at 128 → 128 → 128 → 40: layer 0's K1 family
+     launch over the gathered ``(k, k·B, f)`` table == plain bit for bit,
+     ``fused=True`` == the phase split, exact launches (one pack and one
+     K1 launch a layer), per-layer ``data_comm`` and ``local_spmm`` times
+     (CUDA events, bound, plain, library) beside the partitioned
+     forward's pack and fused launch, the wire rows ``(k−1)·n`` beside
+     the a2a's and the ring's.  (b) The shard proxy
+     (``parallel/proxy.py``): on every chip of both flagship plans, GCN 1
+     + 3 steps of the part's slice (its loopback pack of ``k·S`` rows,
+     one per exchange, exact launches), CUDA-event ms a step, the max
+     over chips, the stacked 8-part step beside it; chip 0 again (== the
+     first run bit for bit) and its GAT.  (c) One NCCL rank (world size
+     1, a ``file://`` rendezvous) trains chip 0's ER slice through the
+     rank path (the send pack, the collective, the local and halo K1
+     family launches) on both transports: losses and weights == the
+     stacked proxy's bit for bit; NCCL's kernels on a ``torch.profiler``
+     trace, labeled by ``KERNEL_TABLE``; the group destroyed.  Meanwhile
+     ``python -m sgcn_tpu_torch.baselines cagnet`` and ``oracle`` run on
+     cora in children; then ``python -m sgcn_tpu_torch``'s map;
+  31. one JSON line ``{"kernels": [...]}`` — per ported kernel (the tile
      SpMM, the GCN aggregation's backward, the GAT attention pass and its
      use in the GAT layer's backward, the ragged ring aggregation and its
      backward, the row shuffle, the tile SpMM's and the GAT pass's bf16
      flavors, the row pack, the fused local + remote entry and the
      destination-indexed pack) its
      launches on the main path (phases 2–5, 7–13, 15–17, 19–21 and
-     23–29, the children's included), max
+     23–30, the children's included), max
      |kernel − plain|, kernel / plain / bound / library times at the
      flagship layer.  The tile SpMM's own float-weight family entries
      (both tables) launch on the main path only in the asymmetric
-     backward (phases 20–21): the symmetric phases must show 0 of them —
-     the fused entry runs their chains and counts those launches — and any
-     kernel with no launch on the main path fails the run;
-  31. the last line: ``{"ok": true, "device": {...}}``.
+     backward (phases 20–21) and in phase 30 (the broadcast's local
+     SpMM, the rank path's two passes): the symmetric phases 2–29 must
+     show 0 of them — the fused entry runs their chains and counts those
+     launches — and any kernel with no launch on the main path fails the
+     run;
+  32. the last line: ``{"ok": true, "device": {...}}``.
 
 Without CUDA, or without the rest of the repository beside it, the script
 prints no result and exits with code 2 or 3.
@@ -3110,15 +3137,17 @@ def km1_count(a, pv, k):
 def phase_pipeline(parts_bg, ahat_dc, fix, dev, tb, smi):
     """Phase 24 (module docstring): the cora CLI pipeline in child
     processes, then the DCSBM flagship on its hp, gp and rp parts in this
-    one.  Returns the launch counts of its paths by kernel entry and the
-    fused entry's max |kernel − plain| on the hp plan."""
+    one.  Returns the launch counts of its paths by kernel entry, the
+    fused entry's max |kernel − plain| on the hp plan and K3's layer-0
+    times there (``time_whole_op``; phase 30 reads them)."""
     children = Children()
     try:
         cora = _pipeline_cora_clis(children, fix, smi)
     finally:
         children.stop()
-    flag, fused_err = _pipeline_flagship(parts_bg, ahat_dc, dev, tb, smi)
-    return {key: cora[key] + flag[key] for key in flag}, fused_err
+    flag, fused_err, k3_hp = _pipeline_flagship(parts_bg, ahat_dc, dev, tb,
+                                                smi)
+    return {key: cora[key] + flag[key] for key in flag}, fused_err, k3_hp
 
 
 def _pipeline_cora_clis(children, fix, smi):
@@ -3466,7 +3495,7 @@ def _pipeline_flagship(parts_bg, ahat_dc, dev, tb, smi):
             device_ms_3_steps=split[mode]["device_ms"])
     log("  DCSBM summary: " + json.dumps(summary))
     log(f"  card: {smi}")
-    return total, fused_err
+    return total, fused_err, k3["hp"]
 
 
 # ------------------------------------------- the pipelined stale trainer
@@ -5258,6 +5287,346 @@ def _phase_telemetry(children, plan, feats, labels, p_init, params_g,
     return total, rows
 
 
+# ----------------------------------- phase 30: the broadcast baseline, the
+# shard proxy and the rank runtime
+RANKS_DIR = os.path.join(REPO, "build", "chip_smoke_ranks")
+
+
+def sigmoid64(ahat, feats, params):
+    """The broadcast baseline's float64 forward on the host:
+    sigmoid((Â·H)·W) on every layer."""
+    import numpy as np
+
+    a = ahat.astype(np.float64)
+    h = np.asarray(feats, np.float64)
+    for w in params:
+        h = 1.0 / (1.0 + np.exp(-((a @ h) @ np.asarray(w, np.float64))))
+    return h
+
+
+def event_ms(run, reps):
+    """CUDA-event ms per call of ``run`` over ``reps`` calls (no warm-up:
+    the caller warms up)."""
+    import torch
+
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = [run() for _ in range(reps)]
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps, out
+
+
+def phase_ranks(plan, ahat_f, feats_f, labels_f, pv_f, p_init, params_g,
+                widths, parts_bg, ahat_dc, ahat_c, feats_c, pv_c, k3, k3_dc,
+                dev, tb, smi):
+    """Phase 30 (module docstring): the CAGNET broadcast baseline, the
+    shard proxy per chip and one NCCL rank of the rank runtime; ``k3`` and
+    ``k3_dc`` are the partitioned forward's layer-0 times on the ER and
+    DCSBM hp plans (phases 3 and 24).  Returns the launch counts of its
+    paths by kernel entry and its measurements."""
+    children = Children()
+    try:
+        return _phase_ranks(children, plan, ahat_f, feats_f, labels_f, pv_f,
+                            p_init, params_g, widths, parts_bg, ahat_dc,
+                            ahat_c, feats_c, pv_c, k3, k3_dc, dev, tb, smi)
+    finally:
+        children.stop()
+
+
+def _phase_ranks(children, plan, ahat_f, feats_f, labels_f, pv_f, p_init,
+                 params_g, widths, parts_bg, ahat_dc, ahat_c, feats_c, pv_c,
+                 k3, k3_dc, dev, tb, smi):
+    import gc
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from sgcn_tpu_torch.__main__ import main as dispatch_main
+    from sgcn_tpu_torch.baselines.cagnet1d import BroadcastGCN1D
+    from sgcn_tpu_torch.io.config import ModelConfig, write_config
+    from sgcn_tpu_torch.io.mtx import write_mtx
+    from sgcn_tpu_torch.models.gat import params_from_jax as gat_from_numpy
+    from sgcn_tpu_torch.models.gcn import gcn_forward_local, params_from_jax
+    from sgcn_tpu_torch.obs.tracing import kernel_label
+    from sgcn_tpu_torch.parallel import (build_comm_plan, init_rank_group,
+                                         shard_proxy_data, shard_proxy_plan)
+    from sgcn_tpu_torch.train import (FullBatchTrainer, make_train_data,
+                                      resolve_forward_setup)
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(RANKS_DIR, ignore_errors=True)
+    os.makedirs(RANKS_DIR)
+    total = {key: 0 for key in launch_counts()}
+    nl = len(widths)
+    n_f = ahat_f.shape[0]
+    gc.collect()
+
+    # ---- the two baseline CLIs on cora in children (beside the rest):
+    # the normalized Â and a config; all-ones features at width 16
+    a_path = os.path.join(RANKS_DIR, "cora.A.mtx")
+    write_mtx(a_path, ahat_c)
+    write_config(os.path.join(RANKS_DIR, "config"),
+                 ModelConfig(nlayers=2, nvtx=ahat_c.shape[0], widths=[16, 7]))
+    cfg = os.path.join(RANKS_DIR, "config")
+    cli_jobs = {
+        "cagnet": ["cagnet", "-a", a_path, "-c", cfg, "-s", "8",
+                   "--epochs", "3"],
+        "oracle": ["oracle", "-a", a_path, "-c", cfg, "--epochs", "3"]}
+    cli_procs = children.start([
+        ("baselines", argv, None, os.path.join(RANKS_DIR, f"{name}.json"))
+        for name, argv in cli_jobs.items()])
+
+    # ---- (a) the broadcast baseline: cora2708 8-hp, 1433 -> 16 -> 7
+    params_c = glorot_numpy(31, [(1433, 16), (16, 7)])
+    bc = BroadcastGCN1D(ahat_c, pv_c, 8, fin=1433, widths=[16, 7],
+                        params=params_c, device=dev)
+    launch_counts(zero=True)                    # the main path starts here
+    rows = bc.forward(feats_c)
+    torch.cuda.synchronize()
+    ln = launch_counts()                        # ... and ends here
+    for key in total:
+        total[key] += ln[key]
+    want = sigmoid64(ahat_c, feats_c, params_c)
+    plan_c = build_comm_plan(ahat_c, pv_c, 8)
+    setup = resolve_forward_setup(plan_c)
+    with torch.inference_mode():
+        part = gcn_forward_local(
+            params_from_jax(params_c, dev),
+            torch.as_tensor(plan_c.scatter_rows(feats_c)).to(dev),
+            setup.ship_arrays(plan_c, dev), activation="sigmoid",
+            final_activation="sigmoid", **setup.fwd_static)
+    part = plan_c.gather_rows(part.cpu().numpy())
+    e64, epart = np.abs(rows - want).max(), np.abs(rows - part).max()
+    log(f"  cora broadcast 1433 -> 16 -> 7 (sigmoid): max |rows - float64| "
+        f"{e64:.3g}, max |rows - partitioned forward| {epart:.3g} (rtol "
+        f"{RTOL} / atol {ATOL} each); launches {json.dumps(ln)}")
+    if not (np.allclose(rows, want, rtol=RTOL, atol=ATOL)
+            and np.allclose(rows, part, rtol=RTOL, atol=ATOL)) \
+            or ln["k1"] != 2 or ln["pack"] != 2:
+        raise AssertionError("phase 30: cora broadcast rows or launches")
+
+    # ---- the flagship plans: phase 3's ER and phase 24's DCSBM hp parts
+    t0 = time.perf_counter()
+    pv_hp = parts_bg.result()[("hp", 0)][0]
+    plan_dc = build_comm_plan(ahat_dc, pv_hp, PART_K)
+    log(f"  DCSBM hp plan (phase 24's parts) {time.perf_counter() - t0:.2f} "
+        "s (host)")
+    flag = {"ER": (ahat_f, pv_f, plan), "DCSBM hp": (ahat_dc, pv_hp,
+                                                     plan_dc)}
+    bcast = {}
+    k1_err = 0.0
+    for name, (a_, pv_, full) in flag.items():
+        t0 = time.perf_counter()
+        bc = BroadcastGCN1D(a_, pv_, 8, fin=128, widths=widths,
+                            params=p_init, device=dev)
+        host_s = time.perf_counter() - t0
+        h = torch.as_tensor(bc.plan.scatter_rows(feats_f)).to(dev)
+        tiles = [bc.pa["tsrc"], bc.pa["tld"], bc.pa["tw"]]
+        with torch.inference_mode():
+            table = bc.gather(h)
+            k1_err = max(k1_err, check_k1(
+                tiles, table, bc.classes, tb,
+                f"{name} broadcast local SpMM layer 0 f=128"))
+        launch_counts(zero=True)                # the main path starts here
+        r_split = bc.forward(feats_f)
+        bc.fused = True
+        r_fused = bc.forward(feats_f)
+        torch.cuda.synchronize()
+        ln = launch_counts()                    # ... and ends here
+        for key in total:
+            total[key] += ln[key]
+        if not np.array_equal(r_split, r_fused) or \
+                not np.isfinite(r_split).all() or \
+                ln["k1"] != 2 * nl or ln["pack"] != 2 * nl:
+            raise AssertionError(f"phase 30: {name} broadcast fused != "
+                                 f"split, or launches {ln}")
+        with torch.inference_mode():
+            dc = time_pack(h, bc.pa["bcast_src"], h.dtype,
+                           f"{name} broadcast data_comm layer 0")
+            ls = time_k1([t.cpu().numpy() for t in tiles], tiles, table,
+                         bc.classes, tb, table.shape[1],
+                         f"{name} broadcast local SpMM layer 0")
+            w0 = bc.params[0]
+            layer = cuda_ms(lambda: bc.compute(w0, bc.gather(h)), reps=5)
+        kp = k3 if name == "ER" else k3_dc
+        wire = {"broadcast": (8 - 1) * n_f,
+                "true": int(full.predicted_send_volume.sum()),
+                "a2a": full.wire_rows_per_exchange("a2a"),
+                "ring": full.wire_rows_per_exchange("ragged")}
+        bcast[name] = {"data_comm": dc, "local_spmm": ls, "layer": layer,
+                       "wire": wire, "host_s": host_s}
+        log(f"  {name} broadcast (host build {host_s:.2f} s, B {bc.plan.b}, "
+            f"classes {list(bc.classes)}): fused == split bit for bit; "
+            f"per layer (f=128, CUDA events) data_comm {dc['ms']!r} ms, "
+            f"local SpMM {ls['ms']!r} ms, whole layer (pack + K1 + matmul "
+            f"+ sigmoid) {layer!r} ms; the partitioned forward's pack "
+            f"{kp['pack']['ms']!r} ms and fused launch "
+            f"{kp['fused']['ms']!r} ms (whole K3 {kp['ms']!r} ms); wire "
+            f"rows an exchange: broadcast {wire['broadcast']}, a2a "
+            f"{wire['a2a']}, ring {wire['ring']}, true {wire['true']} "
+            f"(broadcast / a2a {wire['broadcast'] / wire['a2a']:.2f}); "
+            f"card: {smi}")
+        del bc, h, table, tiles
+        gc.collect()
+
+    # ---- (b) the shard proxy: every chip of both plans, GCN 1 + 3 steps
+    def run(full, chip, model="gcn", sched="a2a", mesh=None):
+        kw = (dict(params=[w.copy() for w in p_init]) if model == "gcn" else
+              dict(model="gat", activation="none",
+                   params=gat_from_numpy(params_g)))
+        trp = full if chip is None else shard_proxy_plan(full, chip)
+        data = (make_train_data(full, feats_f, labels_f, device=dev)
+                if chip is None else
+                shard_proxy_data(full, chip, feats_f, labels_f, device=dev))
+        tr = FullBatchTrainer(trp, fin=128, widths=widths, comm_schedule=sched,
+                              device=dev, mesh=mesh, **kw)
+        first = tr.step(data)
+        launch_counts(zero=True)                # the main path starts here
+        ms, losses = event_ms(lambda: tr.step(data, sync=False), 3)
+        ln = launch_counts()                    # ... and ends here
+        for key in total:
+            total[key] += ln[key]
+        return {"ms": ms, "losses": [first] + [float(x) for x in losses],
+                "w": [p.detach().clone() for p in tr.model.parameters()],
+                "ln": ln, "tr": tr, "data": data}
+
+    bwd = backward_passes(128, widths)
+    want_gcn = {"fused": 3 * (nl + bwd), "pack": 3 * (nl + bwd),
+                "sym_bwd": 3 * bwd, "k1": 0}
+    proxy = {}
+    for name, (_a, _pv, full) in flag.items():
+        full.ensure_pallas_tiles(tb)
+        stacked = run(full, None)
+        per = []
+        for chip in range(full.k):
+            r = run(full, chip)
+            got = {key: r["ln"][key] for key in want_gcn}
+            ks = tuple(r["tr"].pa["recv_src"].shape)
+            if got != want_gcn or ks != (1, full.k * full.s) or \
+                    not np.isfinite(r["losses"]).all():
+                raise AssertionError(f"phase 30: {name} proxy chip {chip}: "
+                                     f"launches {got} (want {want_gcn}), "
+                                     f"pack rows {ks}, losses {r['losses']}")
+            per.append(r["ms"])
+            if name == "ER" and chip == 0:
+                proxy["er0"] = r
+            del r
+        proxy[name] = {"per_chip_ms": per, "max_ms": max(per),
+                       "stacked_ms": stacked["ms"]}
+        log(f"  {name} proxy GCN step ms by chip (CUDA events, 3 steps "
+            f"each): {per!r}; max {max(per)!r} ms; the stacked 8-part step "
+            f"{stacked['ms']!r} ms; one pack of k*S = {full.k * full.s} "
+            f"rows per exchange, launches a chip {json.dumps(want_gcn)}")
+        del stacked
+        gc.collect()
+    again = run(plan, 0)
+    same = again["losses"] == proxy["er0"]["losses"] and all(
+        torch.equal(a, b) for a, b in zip(again["w"], proxy["er0"]["w"]))
+    log(f"  ER chip 0 proxy run twice: losses {again['losses']} == "
+        f"{proxy['er0']['losses']} and weights equal: {same}")
+    if not same:
+        raise AssertionError("phase 30: the proxy's runs differ")
+    del again
+    plan.ensure_pallas_cell_tiles(tb)
+    gat = run(plan, 0, model="gat")
+    gp, pk = gat_passes(widths), pack_launches("gat", "a2a", widths)
+    want_gat = {"k5": 3 * 2 * gp, "gat_bwd": 3 * gp, "pack": 3 * 2 * pk}
+    got = {key: gat["ln"][key] for key in want_gat}
+    log(f"  ER chip 0 proxy GAT: {gat['ms']!r} ms a step, losses "
+        f"{gat['losses']}, launches {json.dumps(got)}")
+    if got != want_gat or not np.isfinite(gat["losses"]).all():
+        raise AssertionError(f"phase 30: proxy GAT launches {got}")
+    proxy["gat0_ms"] = gat["ms"]
+    del gat
+    gc.collect()
+
+    # ---- (c) one NCCL rank on chip 0's ER slice, both transports
+    plan.ensure_ragged()
+    plan.ensure_pallas_ragged_tiles()
+    mesh = init_rank_group("file://" + os.path.join(RANKS_DIR, "rendezvous"),
+                           1, 0)
+    nccl = {}
+    try:
+        for sched in ("a2a", "ragged"):
+            ref_run = (proxy["er0"] if sched == "a2a"
+                       else run(plan, 0, sched="ragged"))
+            rk = run(plan, 0, sched=sched, mesh=mesh)
+            same = rk["losses"] == ref_run["losses"] and all(
+                torch.equal(a, b) for a, b in zip(rk["w"], ref_run["w"]))
+            want_rk = {"k1": 3 * 2 * (nl + bwd), "pack": 3 * (nl + bwd),
+                       "fused": 0}
+            got = {key: rk["ln"][key] for key in want_rk}
+            log(f"  one NCCL rank, chip 0's ER slice, {sched}: losses "
+                f"{rk['losses']}; == the stacked proxy's bit for bit "
+                f"(losses and weights): {same}; {rk['ms']!r} ms a step vs "
+                f"the stacked proxy's {ref_run['ms']!r} ms; launches "
+                f"{json.dumps(got)}")
+            if not same or got != want_rk:
+                raise AssertionError(f"phase 30: NCCL rank {sched}: same "
+                                     f"{same}, launches {got}")
+            nccl[sched] = {"ms": rk["ms"], "proxy_ms": ref_run["ms"]}
+            if sched == "a2a":
+                tr, data = rk["tr"], rk["data"]
+                with torch.profiler.profile(activities=[
+                        torch.profiler.ProfilerActivity.CPU,
+                        torch.profiler.ProfilerActivity.CUDA]) as prof:
+                    tr.step(data)
+                    torch.cuda.synchronize()
+                evs = prof.key_averages()
+                names = {e.key: [e.self_device_time_total,
+                                 e.self_cpu_time_total]
+                         for e in evs if "nccl" in e.key.lower()}
+                labels = {k_: kernel_label(k_) for k_ in names}
+                top = sorted(((e.self_device_time_total, e.key) for e in evs
+                              if e.self_device_time_total > 0),
+                             reverse=True)[:8]
+                log(f"  NCCL on the trace (device us, host us): "
+                    f"{json.dumps(names)}, KERNEL_TABLE labels "
+                    f"{json.dumps(labels)}; NCCL kernels with device time: "
+                    f"{sum(v[0] > 0 for v in names.values())}; the step's "
+                    f"top device events {top}")
+                if not names or any(v != "nccl" for v in labels.values()):
+                    raise AssertionError("phase 30: no NCCL event on the "
+                                         "trace, or one not labeled nccl")
+            del rk, ref_run
+    finally:
+        mesh.close()
+
+    # ---- the CLI children and the dispatcher
+    codes = children.join(cli_procs, timeout=300.0)
+    res = {}
+    for name in cli_jobs:
+        with open(os.path.join(RANKS_DIR, f"{name}.json")) as fh:
+            res[name] = json.load(fh)
+        log(f"  baselines {name} CLI child: {json.dumps(res[name]['report'])}"
+            f"; launches {json.dumps(res[name]['launches'])}")
+    cg, orc = res["cagnet"]["report"], res["oracle"]["report"]
+    if codes != [0, 0] or cg["backend"] != "cuda" or \
+            cg["send_volume_per_exchange"] != 7 * ahat_c.shape[0] or \
+            cg["phases"]["data_comm"]["count"] != 6 or \
+            res["cagnet"]["launches"]["k1"] != 6 or \
+            orc["epochs"] != 3 or not np.isfinite(orc["final_loss"]):
+        raise AssertionError(f"phase 30: baseline CLIs {codes}: {res}")
+    for key in total:
+        total[key] += res["cagnet"]["launches"][key]
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = dispatch_main([])
+    tools = [line.split()[2] for line in buf.getvalue().splitlines()
+             if line.strip().startswith("python -m")]
+    log(f"  python -m sgcn_tpu_torch: exit {rc}, tools {tools}")
+    if rc != 0 or "sgcn_tpu_torch.baselines" not in tools:
+        raise AssertionError("phase 30: the dispatcher's map")
+    log(f"  phase 30 launches {json.dumps(total)}; phase wall "
+        f"{time.perf_counter() - t_phase:.1f} s; card: {smi}")
+    return total, {"bcast": bcast, "proxy": proxy, "nccl": nccl,
+                   "k1_err": k1_err}
+
+
 def main() -> int:
     import torch
 
@@ -6086,7 +6455,8 @@ def main() -> int:
         "partition (hp, gp, rp), train (both transports) and serve CLIs in "
         "child processes; then the DCSBM flagship on its hp, gp and rp "
         "parts: GCN (both transports) and GAT training, GCN serving")
-    p24, fused_err24 = phase_pipeline(parts_bg, ahat_dc, fix, dev, tb, smi)
+    p24, fused_err24, k3_hp = phase_pipeline(parts_bg, ahat_dc, fix, dev, tb,
+                                             smi)
     MAIN_PATH_PACKS[0] += p24["pack"]
     fused_err = max(fused_err, fused_err24)
 
@@ -6158,25 +6528,40 @@ def main() -> int:
     log(f"  phase 29 took {time.perf_counter() - t29:.1f} s")
 
     # ---------------------------------------------------------- phase 30
+    log("phase 30: the CAGNET broadcast baseline (cora, the ER and DCSBM hp "
+        "flagships: rows, K1 == plain, fused == split, per-layer times and "
+        "wire rows against the partitioned forward), the shard proxy on "
+        "every chip of both flagship plans, one NCCL rank == the stacked "
+        "proxy, the baselines CLIs in children and the dispatcher")
+    t30 = time.perf_counter()
+    p30, r30 = phase_ranks(plan, ahat_f, feats_f, labels_f, pv_f, p_init,
+                           params_g, widths_f, parts_bg, ahat_dc, ahat, feats,
+                           pv, k3, k3_hp, dev, tb, smi)
+    MAIN_PATH_PACKS[0] += p30["pack"]
+    log(f"  phase 30 took {time.perf_counter() - t30:.1f} s")
+
+    # ---------------------------------------------------------- phase 31
     fused_main = (launches_c + launches_f + launches_tc + launches_tf
                   + launches_fr + launches_rt + launches_ca + launches_cr
                   + l15["wire"] + l15["bf16"] + launches_16 + asym["fused"]
                   + p23["fused"] + p24["fused"] + p25["fused"]
                   + p25["fused_wire"] + p26["fused"] + p26["fused_wire"]
                   + p27["fused"] + p27["fused_bf16"] + p28["fused"]
-                  + p28["fused_wire"] + p29["fused"])
+                  + p28["fused_wire"] + p29["fused"] + p30["fused"])
     kernels = [{
         # K1's own float32-weight family entry: its launches on the main
-        # path are the asymmetric backward's halo-ᵀ launches (the
-        # symmetric paths run its chains inside the fused entry, which
-        # counts those launches under tile_spmm_fused); the times are its
-        # own family launches at the flagship layer
+        # path are the asymmetric backward's halo-ᵀ launches and phase
+        # 30's (the broadcast's local SpMM, the rank path's local and halo
+        # passes); the symmetric phases 2-29 run its chains inside the
+        # fused entry, which counts those launches under tile_spmm_fused;
+        # the times are its own family launches at the flagship layer
         "name": "tile_spmm",
         "route": "cuda",
         "source": "sgcn_tpu_torch/csrc/tile_spmm.cu",
         "replaces": "sgcn_tpu/ops/pallas_spmm.py:203",
-        "launches": asym["k1"],
-        "max_abs_err": max(max_err, grad_err, k4_err, k4b_err, asym["err"]),
+        "launches": asym["k1"] + p30["k1"],
+        "max_abs_err": max(max_err, grad_err, k4_err, k4b_err, asym["err"],
+                           r30["k1_err"]),
         "ms": layer["ms"],
         "plain_ms": layer["plain_ms"],
         "bound_ms": layer["bound_ms"],
@@ -6191,7 +6576,7 @@ def main() -> int:
         "replaces": "sgcn_tpu/ops/pallas_spmm.py:457-464",
         "launches": (bwd_tc + bwd_tf + p23["sym_bwd"] + p24["sym_bwd"]
                      + p25["sym_bwd"] + p26["sym_bwd"] + p27["sym_bwd"]
-                     + p29["sym_bwd"]),
+                     + p29["sym_bwd"] + p30["sym_bwd"]),
         "max_abs_err": max(grad_err, fused_err),
         "ms": k3b["ms"],
         "plain_ms": k3b["plain_ms"],
@@ -6206,7 +6591,7 @@ def main() -> int:
         "launches": (launches_gc + launches_gf + launches_gt + launches_gtc
                      + launches_gfr + launches_grt + launches_gcr
                      + l17["f32"] + asym["k5"] + p23["k5"] + p24["k5"]
-                     + p27["k5"] + p28["k5"] + p29["k5"]),
+                     + p27["k5"] + p28["k5"] + p29["k5"] + p30["k5"]),
         "max_abs_err": max(k5_err, err_f, err_b, k5r_err, k5_err27, sub_err),
         "ms": gat_fwd["ms"],
         "plain_ms": gat_fwd["plain_ms"],
@@ -6219,7 +6604,8 @@ def main() -> int:
         "source": "sgcn_tpu_torch/csrc/tile_spmm.cu",
         "replaces": "sgcn_tpu/models/gat.py:637-687",
         "launches": (bwd_gt + bwd_gtc + bwd_grt + bwd_gcr + p23["gat_bwd"]
-                     + p24["gat_bwd"] + p27["gat_bwd"] + p29["gat_bwd"]),
+                     + p24["gat_bwd"] + p27["gat_bwd"] + p29["gat_bwd"]
+                     + p30["gat_bwd"]),
         "max_abs_err": max(err_b, k5r_err),
         "ms": gat_bwd["ms"],
         "plain_ms": gat_bwd["plain_ms"],
@@ -6234,7 +6620,7 @@ def main() -> int:
         "replaces": "sgcn_tpu/ops/pallas_spmm.py:469-527",
         "launches": (launches_fr + ring_rt + ring_cr + p23["ring"]
                      + p24["ring"] + p25["ring"] + p26["ring"]
-                     + p27["ring"] + p29["ring"]),
+                     + p27["ring"] + p29["ring"] + p30["ring"]),
         "max_abs_err": max(k4_err, fused_err),
         "ms": k4["ms"],
         "plain_ms": k4["plain_ms"],
@@ -6249,7 +6635,7 @@ def main() -> int:
         "launches": (ring_bwd_rt + ring_bwd_cr + p23["ring_bwd"]
                      + p24["ring_bwd"] + p25["ring_bwd"]
                      + p26["ring_bwd"] + p27["ring_bwd"]
-                     + p29["ring_bwd"]),
+                     + p29["ring_bwd"] + p30["ring_bwd"]),
         "max_abs_err": max(k4b_err, fused_err),
         "ms": k4b["ms"],
         "plain_ms": k4b["plain_ms"],

@@ -22,11 +22,16 @@ format), crash-safe resume (``resilience/``) and serving from a
 checkpoint with hot swap (``serve/engine.py``).
 All ``k`` parts run stacked along a leading axis in one process on one
 device (``ops/pspmm.py::halo_exchange`` and ``ring_concat`` are the one
-place that knows).
+place that knows), or one process per part on a ``torch.distributed``
+group (``parallel/mesh.py``, ``FullBatchTrainer(mesh=...)``, GCN); one
+part's share runs alone through ``parallel/proxy.py``.  The CAGNET
+broadcast baseline is ``baselines/cagnet1d.py``.
 
 Entry points run on ``cuda`` unless the caller asks for ``device="cpu"``;
-without a GPU they raise instead of falling back.  CLI:
-``python -m sgcn_tpu_torch.serve``, ``python -m sgcn_tpu_torch.train`` and
+without a GPU they raise instead of falling back.  CLI (``python -m
+sgcn_tpu_torch`` prints the map): ``python -m sgcn_tpu_torch.serve``,
+``python -m sgcn_tpu_torch.train``, ``python -m
+sgcn_tpu_torch.baselines`` and
 the micro-benchmark ``python -m sgcn_tpu_torch.tools.spmm_micro`` (its
 row-shuffle probe is a CUDA kernel too, ``csrc/row_shuffle.cu``).
 """

@@ -31,8 +31,9 @@ from torch.utils.checkpoint import checkpoint
 
 from ..ops.pspmm import exchange_recv, narrow_dtype, ring_concat
 from ..ops.tile_spmm import (pspmm_tiles_gen, pspmm_tiles_ragged,
-                              pspmm_tiles_replica, pspmm_tiles_stale,
-                              pspmm_tiles_stale_ragged, pspmm_tiles_sym)
+                              pspmm_tiles_ranks, pspmm_tiles_replica,
+                              pspmm_tiles_stale, pspmm_tiles_stale_ragged,
+                              pspmm_tiles_sym)
 from .activations import get_activation
 
 # Minimum input width (f32 elements) for the project-before-aggregate
@@ -104,6 +105,7 @@ def gcn_forward_local(
     pallas_thclasses: tuple = (),
     pallas_t1classes: tuple = (),
     remat: bool = False,            # recompute each layer in the backward
+    mesh=None,                      # a RankGroup: one process per part
 ):
     """Stacked forward: L × (tile pspmm ⊗ dense matmul → activation) →
     ``(k, B, nout)``.  A wide input narrowed by the layer is projected
@@ -124,7 +126,13 @@ def gcn_forward_local(
     non-reentrant ``torch.utils.checkpoint``: the forward keeps only the
     layer inputs, and the backward re-runs one layer at a time (its
     exchange and fused launch included) before differentiating it, so at
-    most one layer's intermediates are live.  Same bits as without."""
+    most one layer's intermediates are live.  Same bits as without.
+
+    ``mesh`` (a ``parallel/mesh.py::RankGroup``): one process per part,
+    ``h`` the rank's ``(1, B, f)`` rows and ``pa`` its slice's tensors;
+    each aggregation is ``pspmm_tiles_ranks`` on either transport (its
+    exchange overlapped with the local pass), the same bits as the
+    stacked forward's row for that part."""
     act = get_activation(activation)
     fact = get_activation(final_activation)
     nl = len(params)
@@ -133,7 +141,19 @@ def gcn_forward_local(
         params = [w.to(dt) for w in params]
         h = h.to(dt)
 
-    if not symmetric:
+    if mesh is not None:
+        if not symmetric or dt is not None:
+            raise ValueError("the rank path runs the symmetric float32 GCN "
+                             "(ROADMAP A2c)")
+        if comm_schedule == "ragged" and rr_sizes is None:
+            raise ValueError("the ragged GCN forward needs the plan's "
+                             "static rr_sizes (CommPlan.ensure_ragged)")
+
+        def agg(x):
+            return pspmm_tiles_ranks(
+                x, pa, pallas_tb, pallas_lclasses, pallas_hclasses, mesh,
+                rr_sizes if comm_schedule == "ragged" else None, halo_dtype)
+    elif not symmetric:
         if comm_schedule != "a2a":
             raise ValueError(
                 "comm_schedule='ragged' uses the symmetric custom backward "
@@ -428,25 +448,34 @@ def _picked(logp, labels):
     return logp.gather(-1, labels.long()[..., None])[..., 0]
 
 
-def masked_softmax_xent_local(logits, labels, valid):
+def _count(valid, group):
+    """Valid rows over the parts: summed over the stacked axis, and over
+    the ranks of ``group`` (a ``RankGroup``) when given."""
+    count = valid.sum(dim=-1).sum()
+    return count if group is None else group.all_reduce_sum(count)
+
+
+def masked_softmax_xent_local(logits, labels, valid, group=None):
     """Global mean softmax cross-entropy over valid (non-padding) rows:
     per-part sums, then the sum over parts (the reference's ``psum``);
-    a batch with no valid row divides by 1, not 0."""
+    a batch with no valid row divides by 1, not 0.  ``group`` (one
+    process per part): the count is all-reduced, so each rank returns its
+    share of the one global mean (its total over the global count), whose
+    sum over the ranks is the loss and whose gradient is the rank's."""
     picked = _picked(torch.log_softmax(logits, dim=-1), labels)
     total = (-(picked * valid).sum(dim=-1)).sum()
-    count = valid.sum(dim=-1).sum()
-    return total / torch.clamp(count, min=1.0)
+    return total / torch.clamp(_count(valid, group), min=1.0)
 
 
-def masked_sigmoid_bce_local(logits, labels, valid):
+def masked_sigmoid_bce_local(logits, labels, valid, group=None):
     """Global mean elementwise sigmoid + BCE against one-hot targets (the
-    MPI trainer's loss flavor), in the stable softplus form."""
+    MPI trainer's loss flavor), in the stable softplus form; ``group`` as
+    in ``masked_softmax_xent_local``."""
     y = F.one_hot(labels.long(), logits.shape[-1]).to(logits.dtype)
     bce = (torch.clamp(logits, min=0) - logits * y
            + torch.log1p(torch.exp(-logits.abs())))
     total = (bce * valid[..., None]).sum(dim=(-2, -1)).sum()
-    count = valid.sum(dim=-1).sum()
-    return total / torch.clamp(count, min=1.0)
+    return total / torch.clamp(_count(valid, group), min=1.0)
 
 
 def masked_err_local(logits, labels, valid):
@@ -456,8 +485,10 @@ def masked_err_local(logits, labels, valid):
     return (-(picked * valid).sum(dim=-1)).sum()
 
 
-def masked_accuracy_local(logits, labels, valid):
-    """Global accuracy over valid rows."""
-    hits = ((logits.argmax(dim=-1) == labels.long()) * valid).sum(dim=-1)
-    count = valid.sum(dim=-1).sum()
-    return hits.sum() / torch.clamp(count, min=1.0)
+def masked_accuracy_local(logits, labels, valid, group=None):
+    """Global accuracy over valid rows (hits and count all-reduced over
+    ``group``'s ranks when given)."""
+    hits = ((logits.argmax(dim=-1) == labels.long()) * valid).sum()
+    if group is not None:
+        hits = group.all_reduce_sum(hits)
+    return hits / torch.clamp(_count(valid, group), min=1.0)

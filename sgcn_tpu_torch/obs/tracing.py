@@ -112,6 +112,9 @@ KERNEL_TABLE: tuple = (
     ("pack", "exchange", ("row_pack_kernel", "row_shuffle")),
     ("nccl wait", "collective_wait", ("ncclwait", "nccl:wait",
                                       "c10d::wait")),
+    # the rank runtime's collectives: NCCL's device kernels
+    # (ncclDevKernel_*), its profiler ranges (nccl:all_to_all) and c10d's
+    # host ops
     ("nccl", "exchange", ("nccl", "c10d::")),
     ("matmul", "dense", ("gemm", "Kernel2", "cutlass", "sm90_xmma",
                          "cublas", "aten::mm", "aten::addmm", "aten::bmm",

@@ -17,11 +17,12 @@ receive buffer ``recv[q, p·S + t] = h[p, send_idx[p, q, t]]``
 reference's ``lax.ppermute``).  Each is one launch of the row pack
 (``ops/row_shuffle.py::row_pack``) that writes the receive layout
 directly: no send buffer, transpose, roll or concatenation.  The functions
-here are the one place that knows the layout: under one process per GPU
-(ROADMAP A2b) each rank's gather by ``recv_src`` becomes its send pack
-(``send_idx[p]`` in peer order), ``torch.distributed.all_to_all_single``
+here are the one place that knows the layout.  With one process per part
+(``rank_exchange``, ROADMAP A2b) each rank holds its slice of the plan
+(``parallel/proxy.py``), whose ``recv_src`` is its send pack's index
+(``send_idx[c]`` in peer order), ``torch.distributed.all_to_all_single``
 takes the place of the stacked layout's transpose, and the ring's rounds
-become ``batch_isend_irecv``; nothing else changes.
+become ``batch_isend_irecv``; the receive layouts are the same.
 
 An asymmetric Â (a directed graph) sends each aggregation's backward the
 other way: every part's halo rows' partial gradients, laid out in its
@@ -179,6 +180,63 @@ def ring_concat(h, ring_src, rr_sizes, halo_dtype=None):
         return h.new_zeros((h.shape[0], 1) + tuple(h.shape[2:]),
                            dtype=_wire(h, halo_dtype))
     return row_pack(h.contiguous(), ring_src, _wire(h, halo_dtype))
+
+
+# ------------------------------------------------ one process per part
+def rank_exchange(h, send_flat, mesh, halo_dtype=None, rr_sizes=None):
+    """Issue one rank's exchange without waiting on it (ROADMAP A2b): the
+    send pack, then the collective, asynchronously.  Returns ``(recv,
+    wait)``; ``recv`` holds the rank's receive layout once ``wait()`` has
+    returned.
+
+    The pack is one ``row_pack`` of the rank's own rows by ``send_flat``
+    (its slice's ``recv_src`` — ``send_idx[c]`` in peer order — or
+    ``ring_src`` — ``rsend_idx[c]`` in round order) into one buffer in the
+    wire's dtype.  The a2a: one ``all_to_all_single`` of the ``(k·S, f)``
+    buffer, so slot ``p·S + t`` receives ``h_p[send_idx[p, c, t]]``: the
+    stacked receive layout's row ``c``.  The ring (``rr_sizes`` given):
+    per live round ``d`` (``ragged_live_rounds``) one
+    ``batch_isend_irecv`` that sends the round's
+    slots to the rank ``d`` steps on and receives the same slots from the
+    rank ``d`` steps back, the rounds concatenated in round order: the
+    ring concat.  On a one-rank group both are the loopback of
+    ``parallel/proxy.py``: the a2a's collective delivers the buffer to
+    itself, and a round whose peer is the rank itself is a device copy
+    (gloo refuses a send to self).
+
+    Args:
+      h: ``(1, B, f)`` the rank's local rows.
+      send_flat: ``(1, J)`` int32 on ``h``'s device.
+      mesh: the ``RankGroup``.
+      halo_dtype: the wire's dtype (``'bfloat16'``) or ``None``.
+      rr_sizes: the plan's static round sizes (the ring), or ``None``
+        (the a2a)."""
+    import torch.distributed as dist
+
+    if rr_sizes is not None and not ragged_live_rounds(rr_sizes):
+        # an empty ring ships nothing: ring_concat's zero table
+        return ring_concat(h, send_flat, rr_sizes, halo_dtype), lambda: None
+    # the collectives keep their tensors alive until they complete
+    pack = row_pack(h.contiguous(), send_flat, _wire(h, halo_dtype))
+    recv = torch.empty_like(pack)
+    if rr_sizes is None:
+        works = [dist.all_to_all_single(recv[0], pack[0], async_op=True)]
+    else:
+        works, off = [], 0
+        for d in ragged_live_rounds(rr_sizes):
+            sl = slice(off, off + rr_sizes[d - 1])
+            if mesh.peer(d) == mesh.rank:      # a one-rank group: loopback
+                recv[0, sl].copy_(pack[0, sl])
+            else:
+                works += dist.batch_isend_irecv([
+                    dist.P2POp(dist.isend, pack[0, sl], mesh.peer(d)),
+                    dist.P2POp(dist.irecv, recv[0, sl], mesh.peer(-d))])
+            off += rr_sizes[d - 1]
+
+    def wait():
+        for w in works:
+            w.wait()
+    return recv, wait
 
 
 def _stale_step(exchange, x, carry_in, delta, wire_dtype, fresh):

@@ -62,6 +62,12 @@ holds, in the reference's order:
     composed replica × stale steps (``pspmm_replica_stale[_ragged]``) are
     ``pspmm_tiles_stale`` with the kept lists: the fused launch reads the
     previous carry, then the kept pack turns it into the next;
+  * ``pspmm_tiles_ranks`` — the same GCN aggregation with one process per
+    part (``PspmmTilesRanks``, ROADMAP A2b): the send pack and the
+    asynchronous collective (``ops/pspmm.py::rank_exchange``), the local
+    family launch while the exchange is in flight, then the halo family
+    over the received buffer and one float32 add: the fused entry's
+    arithmetic in two launches;
   * ``gat_tiles_pass`` — ``gat_pallas_pass`` (K5): the GAT attention pass,
     the kernel over the combined-edge tiles with int8 0/1 mask weights.
     An int8 ``tw`` launches the kernel's int8 entry point, counted in
@@ -97,8 +103,8 @@ import torch
 
 from ..utils.backend import plain_region
 from .pspmm import (exchange_recv, partial_refresh, partial_refresh_grad,
-                    replica_pack, reverse_exchange, ring_concat,
-                    stale_exchange, stale_ring_exchange)
+                    rank_exchange, replica_pack, reverse_exchange,
+                    ring_concat, stale_exchange, stale_ring_exchange)
 
 
 # ----------------------------------------------------------- tile builders
@@ -874,6 +880,64 @@ def pspmm_tiles_gen(h, pa, tb: int, lclasses, hclasses, tclasses,
         h, pa["recv_src"], pa["ptile_lsrc"], pa["ptile_lld"], pa["ptile_lw"],
         pa["ptile_hwsrc"], pa["ptile_hld"], pa["ptile_hw"], tb, lclasses,
         hclasses, transposed, halo_dtype)
+
+
+def _pspmm_ranks_once(h, send_flat, lsrc, lld, lw, hsrc, hld, hw, tb,
+                      lclasses, hclasses, mesh, rr_sizes=None,
+                      halo_dtype=None):
+    """One GCN aggregation on one rank, its exchange overlapped with the
+    local pass (ROADMAP A2b): issue the exchange (``ops/pspmm.py::
+    rank_exchange``: the send pack and the asynchronous collective), run
+    the local family over ``h`` into a float32 partial (one K1 family
+    launch), wait, run the halo family over the receive layout in place
+    (a second launch; the bf16 family entry on a ``halo_dtype`` wire),
+    add in float32 and round once to ``h``'s dtype for the ``b`` owned
+    rows (``pallas_spmm.py:428``).  The fused entry's arithmetic, split
+    in two launches, so it equals the stacked path bit for bit."""
+    recv, wait = rank_exchange(h, send_flat, mesh, halo_dtype, rr_sizes)
+    b = h.shape[1]
+    local = spmm_tiles_classes(lsrc, lld, lw, h, lclasses, tb)[:, :b]
+    wait()
+    remote = spmm_tiles_classes(hsrc, hld, hw, recv, hclasses, tb)[:, :b]
+    return (local + remote).to(h.dtype)
+
+
+class PspmmTilesRanks(torch.autograd.Function):
+    """``PspmmTilesSym`` (a2a) and ``PspmmTilesRagged`` (the ring) with one
+    process per part (``_pspmm_ranks_once``): each rank holds its slice's
+    tiles and its own ``(1, B, f)`` rows.  The backward is the same op on
+    the gradient (Â symmetric).  Plan tensors get no gradient."""
+
+    @staticmethod
+    def forward(ctx, h, send_flat, lsrc, lld, lw, hsrc, hld, hw, tb,
+                lclasses, hclasses, mesh, rr_sizes, halo_dtype=None):
+        ctx.save_for_backward(send_flat, lsrc, lld, lw, hsrc, hld, hw)
+        ctx.static = (tb, lclasses, hclasses, mesh, rr_sizes, halo_dtype)
+        return _pspmm_ranks_once(h, send_flat, lsrc, lld, lw, hsrc, hld, hw,
+                                 tb, lclasses, hclasses, mesh, rr_sizes,
+                                 halo_dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        gh = _pspmm_ranks_once(g.contiguous(), *ctx.saved_tensors,
+                               *ctx.static)
+        return (gh,) + (None,) * 13
+
+
+def pspmm_tiles_ranks(h, pa, tb: int, lclasses, hclasses, mesh,
+                      rr_sizes=None, halo_dtype=None):
+    """Â·h on one rank of a rank group (``PspmmTilesRanks``): ``pa`` the
+    rank's slice tensors (``TILE_PLAN_FIELDS``, or
+    ``TILE_PLAN_FIELDS_RAGGED`` with ``rr_sizes``), ``h`` ``(1, B, f)``
+    float32.  Returns ``(1, B, f)``; differentiable in ``h``."""
+    if rr_sizes is None:
+        send, hsrc = pa["recv_src"], pa["ptile_hwsrc"]
+    else:
+        send, hsrc = pa["ring_src"], pa["ptile_hrsrc"]
+    return PspmmTilesRanks.apply(
+        h, send, pa["ptile_lsrc"], pa["ptile_lld"], pa["ptile_lw"], hsrc,
+        pa["ptile_hld"], pa["ptile_hw"], tb, lclasses, hclasses, mesh,
+        rr_sizes, halo_dtype)
 
 
 def _pspmm_tiles_ragged_once(h, ring_src, lsrc, lld, lw, rsrc, rld, rw,

@@ -123,6 +123,69 @@ REPLICA_TILE_FIELDS_RAGGED = ("keep_ring_src", "keep_ring_dst",
 REPLICA_PARTIAL_TILE_FIELDS = ("rep_rows_flat", "rep_row_valid",
                                "rep_base_flat", "rep_src_flat")
 
+# Every CommPlan array field stacked per part along a leading ``k`` axis:
+# the explicit classification anything slicing a plan per part reads
+# (``parallel/proxy.py::shard_proxy_plan``, the rank runtime), never a
+# ``shape[0] == k`` coincidence.  The reference's members first, under its
+# name (``redge_*`` is not ported and stays ``None``-absent); then the
+# port-only per-part layouts (tile sources re-based into the part's own
+# receive buffer, the transposed families, a mask).  Lazy layouts are
+# listed too and skipped while ``None``.
+PER_CHIP_ARRAY_FIELDS = (
+    "part_sizes",
+    "send_idx", "send_counts", "halo_src", "halo_counts",
+    "edge_dst", "edge_src", "edge_w", "nnz", "row_valid",
+    "ledge_dst", "ledge_src", "ledge_w",
+    "hedge_dst", "hedge_src", "hedge_w", "lnnz", "hnnz",
+    "ell_idx", "ell_w", "ltail_dst", "ltail_src", "ltail_w", "ltail_nnz",
+    "cell_idx", "cell_w", "ctail_dst", "ctail_src", "ctail_w", "ctail_nnz",
+    "ptile_lsrc", "ptile_lld", "ptile_lw",
+    "ptile_hsrc", "ptile_hld", "ptile_hw", "ptile_hrsrc",
+    "ptile_csrc", "ptile_cld", "ptile_cw", "ptile_crsrc",
+    "rsend_idx", "rhalo_dst", "redge_dst", "redge_src", "redge_w",
+    "nrep_send_idx", "nrep_send_counts", "nrep_halo_src",
+    "rep_slots", "rep_counts", "nrep_rsend_idx", "nrep_rhalo_dst",
+    "rep_ring_pos", "nrep_ring_dst",
+    "rep_rows", "rep_row_counts", "ronly_send_idx", "ronly_send_counts",
+    "ronly_base_pos", "rep_recv_src",
+    # port only
+    "ptile_hwsrc",
+    "ptile_tlsrc", "ptile_tlld", "ptile_tlw",
+    "ptile_thsrc", "ptile_thld", "ptile_thw",
+    "ptile_t1src", "ptile_t1ld", "ptile_t1w",
+    "ptile_tclsrc", "ptile_tclld", "ptile_tclw",
+    "ptile_tchsrc", "ptile_tchld", "ptile_tchw",
+    "ptile_tc1src", "ptile_tc1ld", "ptile_tc1w",
+    "rep_row_valid",
+)
+
+# Global-vertex-indexed arrays (plus a slice's part-identity record): a
+# per-part slice passes them through untouched.
+_GLOBAL_ARRAY_FIELDS = ("owner", "local_idx", "chip_ids")
+
+# Port-only flat indices over the STACKED layout (``part·rows + row``, or
+# lists over every part's slots): a slice of part ``c`` re-bases each by
+# its rule (``parallel/proxy.py::REBASE``).  The slice's exchange is a
+# loopback, the reference proxy's "halo contents are the chip's own sent
+# rows": receive slot ``q·S + t`` holds ``h_c[send_idx[c, q, t]]``.
+REBASED_ARRAY_FIELDS = (
+    "recv_src",        # q·S + t ↦ send_idx[c, q, t] (the loopback)
+    "halo_src_flat",   # q·k·S + halo_src[q, r] ↦ halo_src[c, r]
+    "ring_src",        # ((q−d) mod k)·B + rsend_idx[...] ↦ rsend_idx[c]
+    "rev_src",         # q·rows + p·S + t ↦ q·S + t (the loopback's
+    "rev_csrc",        #   transpose: the own partial goes back in place)
+    "keep_recv_src",   # part c's kept a2a slots: the loopback row there
+    "keep_recv_dst",   # q·k·S + j with q = c ↦ j
+    "keep_ring_src",   # part c's kept ring slots: the loopback row there
+    "keep_ring_dst",   # q·ΣS_d + j with q = c ↦ j
+    "rep_recv_dst",    # part c's replica slots, as keep_recv_dst
+    "rep_ring_dst",    # ... and as keep_ring_dst
+    "rep_src_flat",    # the a2a loopback row at each of them
+    "rep_base_flat",   # o·RS + pos ↦ pos (the part's own baseline row)
+    "rep_table_pos",   # q·RP + i with q = c ↦ i
+    "rep_rows_flat",   # c·B + rep_rows[c] ↦ rep_rows[c] (0 on a pad)
+)
+
 
 @dataclass
 class CommPlan:
@@ -342,6 +405,11 @@ class CommPlan:
     rep_rows_flat: np.ndarray | None = None     # (k, RS) int32
     rep_row_valid: np.ndarray | None = None     # (k, RS) float32
 
+    # the part each row of a per-part slice is (``parallel/proxy.py``;
+    # ``None`` on a full plan): row 0 of part c's slice self-sends at
+    # column c, which the comm counters zero
+    chip_ids: np.ndarray | None = None
+
     def _pallas_family(self, dst, src, w, tb: int, class_tiles):
         """Stack one edge family's per-part tile classes into flat
         ``(k, ΣT_c·Emax_c)`` arrays (per class, Emax_c padded to the max
@@ -363,6 +431,7 @@ class CommPlan:
         carry weight 0 and local dst ``tb-1``."""
         if self.pallas_tb == tb and self.ptile_lsrc is not None:
             return self
+        self._full_only("ensure_pallas_tiles()")
         from ..ops.tile_spmm import tile_classes_from_buckets
 
         class_tiles = tile_classes_from_buckets(self.ell_buckets, self.b, tb)
@@ -390,6 +459,7 @@ class CommPlan:
         indices of ``ops/pspmm.py``'s row packs."""
         if self.recv_src is not None:
             return self
+        self._full_only("ensure_exchange()")
         k, s, b = self.k, self.s, self.b
         if k * b >= 2 ** 31 or k * k * s >= 2 ** 31:
             raise ValueError(f"stacked exchange of k={k}, B={b}, S={s} "
@@ -425,6 +495,7 @@ class CommPlan:
         ``ensure_pallas_tiles`` and ``ensure_ragged``."""
         if self.ptile_hrsrc is not None:
             return self
+        self._full_only("ensure_pallas_ragged_tiles()")
         if self.ptile_hsrc is None:
             raise ValueError(
                 "ragged tiles need the tile layout first "
@@ -452,6 +523,7 @@ class CommPlan:
         if (self.cell_buckets is None
                 or buckets not in (None, self.cell_buckets)
                 or (ctl is not None and ctl != self.ctl)):
+            self._full_only("ensure_cell()")
             fields = _cell_fields(_build_ell(
                 self.edge_dst, self.edge_src, self.edge_w, self.nnz, self.b,
                 row_order=self.row_order, buckets=buckets, tl=ctl,
@@ -468,6 +540,7 @@ class CommPlan:
         attention aggregates by edge presence, not Â's values."""
         if self.pallas_ctb == tb and self.ptile_csrc is not None:
             return self
+        self._full_only("ensure_pallas_cell_tiles()")
         from ..ops.tile_spmm import tile_classes_from_buckets
 
         self.ensure_cell()
@@ -488,6 +561,7 @@ class CommPlan:
         Needs ``ensure_pallas_cell_tiles`` and ``ensure_ragged``."""
         if self.ptile_crsrc is not None:
             return self
+        self._full_only("ensure_pallas_cell_ragged_tiles()")
         if self.ptile_csrc is None:
             raise ValueError(
                 "ragged cell tiles need the combined tile layout first "
@@ -587,6 +661,7 @@ class CommPlan:
         one serial chain: no scatter, no float atomics."""
         if self.pallas_ttb == tb and self.ptile_tlsrc is not None:
             return self
+        self._full_only("ensure_transpose_tiles()")
         local, halo = [], []
         for p in range(self.k):
             lc, hc = int(self.lnnz[p]), int(self.hnnz[p])
@@ -612,6 +687,7 @@ class CommPlan:
         ``ptile_tc1*``, ``rev_csrc``."""
         if self.pallas_tctb == tb and self.ptile_tclsrc is not None:
             return self
+        self._full_only("ensure_cell_transpose_tiles()")
         local, halo = [], []
         for p in range(self.k):
             c = int(self.nnz[p])
@@ -634,6 +710,7 @@ class CommPlan:
     def ragged_round_sizes(self) -> tuple:
         """Natural round sizes S_d = max_p send_counts[p, (p+d) mod k] for
         d = 1..k−1: the ring's static buffer sizes."""
+        self._full_only("ragged_round_sizes()")
         sc = np.asarray(self.send_counts)
         k = sc.shape[0]
         idx = np.arange(k)
@@ -662,6 +739,7 @@ class CommPlan:
         del rr_edge_sizes                  # the redge_* split: not ported
         if self.rr_sizes is not None and rr_sizes in (None, self.rr_sizes):
             return self
+        self._full_only("ensure_ragged()")
         nat = self.ragged_round_sizes()
         if rr_sizes is None:
             rr_sizes = nat
@@ -832,6 +910,7 @@ class CommPlan:
         if (self.replica_budget == budget and self.rep_slots is not None
                 and (not ring or self.nrep_rsend_idx is not None)):
             return self
+        self._full_only("ensure_replicas()")
         k, b, s, r = self.k, self.b, self.s, self.r
         sc = np.asarray(self.send_counts)
         lam, cons = self.replica_scores()
@@ -1134,10 +1213,22 @@ class CommPlan:
     # ------------------------------------------------------------------ stats
     def offwire_send_counts(self) -> np.ndarray:
         """``send_counts`` with each part's self-slot zeroed — the rows that
-        actually leave a part."""
+        actually leave a part.  On the full square plan row i's self-slot
+        is column i; a per-part slice records its part in ``chip_ids``."""
         off = self.send_counts.astype(np.int64).copy()
-        np.fill_diagonal(off, 0)
+        if self.chip_ids is not None:
+            off[np.arange(off.shape[0]), np.asarray(self.chip_ids)] = 0
+        else:
+            np.fill_diagonal(off, 0)
         return off
+
+    def _full_only(self, what: str) -> None:
+        """Raise on a per-part slice: ``what`` is built over all parts,
+        so it must be built on the full plan before slicing."""
+        if self.chip_ids is not None:
+            raise ValueError(
+                f"{what} is built over every part: call it on the full "
+                "plan BEFORE shard_proxy_plan (this is a one-part slice)")
 
     @property
     def predicted_send_volume(self) -> np.ndarray:
@@ -1151,12 +1242,23 @@ class CommPlan:
         return (self.offwire_send_counts() > 0).sum(axis=1)
 
     # --------------------------------------------------------- data placement
-    def scatter_rows(self, x: np.ndarray, fill: float = 0.0) -> np.ndarray:
-        """Global (n, f) row data → stacked per-part (k, B, f) padded blocks."""
+    def scatter_rows(self, x: np.ndarray, fill: float = 0.0,
+                     chips=None) -> np.ndarray:
+        """Global (n, f) row data → stacked per-part (k, B, f) padded
+        blocks; ``chips`` restricts the stack to those parts, reading only
+        the rows they own (a rank's own block)."""
         x = np.asarray(x)
         f = x.shape[1] if x.ndim > 1 else 1
-        out = np.full((self.k, self.b, f), fill, dtype=x.dtype)
-        out[self.owner, self.local_idx] = x.reshape(self.n, f)
+        if chips is None:
+            out = np.full((self.k, self.b, f), fill, dtype=x.dtype)
+            out[self.owner, self.local_idx] = x.reshape(self.n, f)
+            return out
+        chips = list(chips)
+        out = np.full((len(chips), self.b, f), fill, dtype=x.dtype)
+        x2 = x.reshape(self.n, f)
+        for i, p in enumerate(chips):
+            sel = self.owner == p
+            out[i, self.local_idx[sel]] = x2[sel]
         return out
 
     def gather_rows(self, blocks: np.ndarray) -> np.ndarray:
@@ -1570,6 +1672,48 @@ def resolve_comm_schedule(schedule: str | None, plans, model: str,
     if not wire or true / wire >= RAGGED_AUTO_EFFICIENCY:
         return resolved("a2a", "padding efficiency at/above threshold")
     return resolved("ragged", "padding efficiency below threshold")
+
+
+def relabel_plan(a: sp.spmatrix, partvec: np.ndarray, k: int,
+                 pad_rows_to: int = 1) -> CommPlan:
+    """Vertex relabeling and padding fields only, no halo or send
+    construction (the reference's, array for array): the broadcast
+    baseline ships every row every layer, so the partitioned path's
+    exchange layout would be dead work.  Fills owner, local_idx,
+    part_sizes, b, e, nnz and row_valid (rows ranked by global id); the
+    comm fields are trivial."""
+    a = sp.coo_matrix(a)
+    n = a.shape[0]
+    owner, local_idx, part_sizes, b, row_valid = _relabel(
+        n, partvec, k, pad_rows_to)
+    nnz = np.bincount(owner[a.row], minlength=k)
+    e = max(1, int(nnz.max()) if len(nnz) else 1)
+    z = np.zeros
+    return CommPlan(
+        n=n, k=k, b=b, s=1, r=1, e=e,
+        owner=owner, local_idx=local_idx,
+        part_sizes=part_sizes.astype(np.int64),
+        send_idx=z((k, k, 1), np.int32), send_counts=z((k, k), np.int32),
+        halo_src=z((k, 1), np.int32), halo_counts=z(k, np.int32),
+        edge_dst=z((k, e), np.int32), edge_src=z((k, e), np.int32),
+        edge_w=z((k, e), np.float32), nnz=nnz.astype(np.int64),
+        row_valid=row_valid,
+        el=1, eh=1,
+        ledge_dst=z((k, 1), np.int32), ledge_src=z((k, 1), np.int32),
+        ledge_w=z((k, 1), np.float32),
+        hedge_dst=z((k, 1), np.int32), hedge_src=z((k, 1), np.int32),
+        hedge_w=z((k, 1), np.float32),
+        lnnz=z(k, np.int64), hnnz=z(k, np.int64),
+        ell_k=1, tl=1, ell_buckets=((b, 1),),
+        ell_idx=z((k, b), np.int32), ell_w=z((k, b), np.float32),
+        ltail_dst=z((k, 1), np.int32), ltail_src=z((k, 1), np.int32),
+        ltail_w=z((k, 1), np.float32), ltail_nnz=z(k, np.int64),
+        ctl=1, cell_buckets=((b, 1),),
+        cell_idx=z((k, b), np.int32), cell_w=z((k, b), np.float32),
+        ctail_dst=z((k, 1), np.int32), ctail_src=z((k, 1), np.int32),
+        ctail_w=z((k, 1), np.float32), ctail_nnz=z(k, np.int64),
+        symmetric=_check_symmetric(a), row_order="id",
+    )
 
 
 def pad_comm_plan(plan: CommPlan, b: int, s: int, r: int, e: int,

@@ -1,5 +1,7 @@
 from .fullbatch import (LOSSES, ForwardSetup, FullBatchTrainer, TrainData,
-                        make_train_data, resolve_forward_setup)
+                        make_train_data, make_train_data_multihost,
+                        resolve_forward_setup)
 
 __all__ = ["LOSSES", "ForwardSetup", "FullBatchTrainer", "TrainData",
-           "make_train_data", "resolve_forward_setup"]
+           "make_train_data", "make_train_data_multihost",
+           "resolve_forward_setup"]

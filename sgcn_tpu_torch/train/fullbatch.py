@@ -89,6 +89,7 @@ from ..ops.tile_spmm import (TILE_PLAN_FIELDS, TILE_PLAN_FIELDS_GEN,
 from ..parallel.plan import (REPLICA_PARTIAL_TILE_FIELDS,
                              REPLICA_TILE_FIELDS, REPLICA_TILE_FIELDS_RAGGED,
                              choose_replica_budget, resolve_comm_schedule)
+from ..parallel.proxy import shard_proxy_plan
 from ..utils.backend import resolve_device, synchronize
 from ..utils.stats import CommStats
 from ..utils.timers import PhaseTimer
@@ -230,7 +231,7 @@ def resolve_forward_setup(plan, model: str = "gcn",
             "comm_schedule='ragged' uses the symmetric custom backward (the "
             "gradient rides the same ring); this plan is asymmetric — run "
             "the a2a schedule")
-    if schedule == "ragged" and plan.k == 1:
+    if schedule == "ragged" and plan.k == 1 and plan.chip_ids is None:
         raise ValueError("comm_schedule='ragged' needs k > 1 parts: with "
                          "one part there is no ring")
     fwd_static = choose_tile_dispatch(plan, decision=decision, model=model,
@@ -297,6 +298,40 @@ def make_train_data(plan, features: np.ndarray, labels: np.ndarray,
                            .reshape(n, 1))[..., 0] * plan.row_valid
     return TrainData(*(torch.as_tensor(np.ascontiguousarray(x)).to(device)
                        for x in (h0, lab, tv, ev)))
+
+
+def make_train_data_multihost(plan, mesh, features: np.ndarray,
+                              labels: np.ndarray,
+                              train_mask: np.ndarray | None = None,
+                              eval_mask: np.ndarray | None = None
+                              ) -> TrainData:
+    """One rank's ``TrainData``: only its own part's rows of the global
+    (n, f) features, labels and masks, as ``(1, B, ...)`` blocks on the
+    group's device — each MPI rank reading its own
+    ``H.r`` shard (``Parallel-GCN/main.c:456-504``).  ``plan`` is the full
+    k-way plan; the rank's part is ``mesh.rank``."""
+    if plan.chip_ids is not None:
+        raise ValueError("make_train_data_multihost takes the full k-way "
+                         "plan; a slice's data is shard_proxy_data(full "
+                         "plan, chip, ...)")
+    chips = [mesh.rank]
+    n = plan.n
+    if train_mask is None:
+        train_mask = np.ones(n, dtype=np.float32)
+    if eval_mask is None:
+        eval_mask = train_mask
+
+    def scatter(x, dt):
+        return plan.scatter_rows(np.asarray(x, dt).reshape(n, -1),
+                                 chips=chips)
+
+    rv = plan.row_valid[mesh.rank: mesh.rank + 1]
+    blocks = (scatter(features, np.float32),
+              scatter(labels, np.int64)[..., 0],
+              scatter(train_mask, np.float32)[..., 0] * rv,
+              scatter(eval_mask, np.float32)[..., 0] * rv)
+    return TrainData(*(torch.as_tensor(np.ascontiguousarray(x)).to(
+        mesh.device) for x in blocks))
 
 
 def check_carry_levers(model: str, symmetric: bool, halo_staleness: int,
@@ -382,6 +417,32 @@ def check_carry_levers(model: str, symmetric: bool, halo_staleness: int,
                 "step); drop compute_dtype/remat or run exact mode")
 
 
+def check_rank_levers(plan, mesh, model: str, compute_dtype, remat: bool,
+                      halo_staleness: int, replica_budget) -> None:
+    """The rank path's scope (ROADMAP A2b): GCN on a symmetric plan,
+    exact mode, float32 (``halo_dtype`` allowed), both transports; a
+    ``k``-rank group on the full k-way plan, or one rank on a slice.  The
+    rest raises a ``ValueError`` naming ROADMAP A2c."""
+    for bad, what in ((model != "gcn", f"model={model!r}"),
+                      (not plan.symmetric, "an asymmetric plan (a directed "
+                                           "graph)"),
+                      (compute_dtype is not None, "compute_dtype"),
+                      (bool(remat), "remat"),
+                      (bool(halo_staleness), "halo_staleness"),
+                      (bool(replica_budget), "replica_budget")):
+        if bad:
+            raise ValueError(
+                f"{what} does not run on a rank group yet (ROADMAP A2c): "
+                "the rank path trains the exact float32 GCN on a symmetric "
+                "plan; train it stacked or on a shard_proxy_plan slice")
+    want = 1 if plan.chip_ids is not None else plan.k
+    if mesh.size != want:
+        raise ValueError(
+            f"a rank group of {mesh.size} ranks for a plan of k={plan.k} "
+            f"parts{' (a one-part slice)' if plan.chip_ids is not None else ''}"
+            f": one rank per part, {want} ranks")
+
+
 class FullBatchTrainer:
     """Full-batch partitioned GCN/GAT trainer over the a2a exchange or the
     ragged ring (the reference's ``FullBatchTrainer``): the exact path,
@@ -411,6 +472,7 @@ class FullBatchTrainer:
         memory_budget: int | None = None,
         params=None,
         device=None,
+        mesh=None,
     ):
         """Arguments keep the reference's names.  ``optimizer``: a
         callable taking the parameter list and returning a
@@ -460,7 +522,23 @@ class FullBatchTrainer:
         pack and fused or K5 launch) before it differentiates it, the
         same bits as the plain step.  ``memory_budget`` (bytes):
         ``MemoryBudgetError`` here, before any tensor ships, when the
-        mode's analytic device footprint (``self.memory``) exceeds it."""
+        mode's analytic device footprint (``self.memory``) exceeds it.
+
+        ``mesh`` (a ``parallel/mesh.py::RankGroup``): one process per
+        part (ROADMAP A2b).  Rank ``r`` of a ``k``-rank group trains part
+        ``r`` of the full k-way ``plan`` (every rank builds the plan, the
+        layouts are built on it and the rank keeps its slice,
+        ``parallel/proxy.py``); a one-rank group trains a slice given as
+        ``plan``.  Each aggregation's exchange is a collective overlapped
+        with the local pass (``ops/tile_spmm.py::pspmm_tiles_ranks``), the
+        loss's count and every weight gradient are all-reduced.  GCN on a
+        symmetric plan, exact mode, float32 with or without
+        ``halo_dtype``, both transports; the rest raises (ROADMAP A2c).
+        ``device`` defaults to the group's; data comes from
+        ``make_train_data_multihost``."""
+        if mesh is not None:
+            check_rank_levers(plan, mesh, model, compute_dtype, remat,
+                              halo_staleness, replica_budget)
         if halo_dtype is not None and model != "gcn":
             raise ValueError(
                 "halo_dtype is a GCN-trainer lever; for GAT use "
@@ -474,12 +552,19 @@ class FullBatchTrainer:
             ("halo_dtype", narrow_dtype(halo_dtype))) if dt is not None}
         if loss not in LOSSES:
             raise ValueError(f"unknown loss {loss!r}; one of {sorted(LOSSES)}")
-        self.device = resolve_device(device)
+        self.device = resolve_device(
+            mesh.device if device is None and mesh is not None else device)
         setup = resolve_forward_setup(plan, model=model,
                                       comm_schedule=comm_schedule,
                                       halo_staleness=halo_staleness,
                                       replica_budget=replica_budget,
                                       refresh_band=refresh_band)
+        # one process per part: the layouts are built on the full plan
+        # (above), then the rank keeps its part's slice
+        self.mesh = mesh
+        self.full_plan = plan
+        if mesh is not None and plan.chip_ids is None:
+            plan = shard_proxy_plan(plan, mesh.rank)
         # the analytic footprint and the --memory-budget gate, before any
         # tensor ships (obs/memory.py); the allocator's state now is the
         # measured side's zero
@@ -523,7 +608,9 @@ class FullBatchTrainer:
         check_param_dims(params, dims)
         self.model = setup.module(
             params, activation=activation, final_activation=final_activation,
-            fwd_static={**setup.fwd_static, **narrowed}).to(self.device)
+            fwd_static={**setup.fwd_static, **narrowed,
+                        **({"mesh": mesh} if mesh is not None else {})}
+        ).to(self.device)
         self.model.remat = self.remat
         self.pa = setup.ship_arrays(plan, self.device, self.compute_dtype)
         self.opt = (optimizer(list(self.model.parameters()))
@@ -1001,19 +1088,34 @@ class FullBatchTrainer:
         (``models/gcn.py::gcn_forward_local``)."""
         self.opt.zero_grad(set_to_none=True)
         logits = self._forward(data.h0)
-        loss = self._loss_fn(logits, data.labels, data.train_valid)
-        err = (masked_err_local(logits.detach(), data.labels,
-                                data.train_valid)
-               if self.loss_name == "bce" else loss.detach())
+        loss = self._loss(logits, data.labels, data.train_valid)
+        err = (self._reduced(masked_err_local(logits.detach(), data.labels,
+                                              data.train_valid))
+               if self.loss_name == "bce" else None)
         # the reference all-reduces per-chip weight gradients
         # (lax.psum); with all k parts stacked on one device that sum is
         # the one autograd (GCN) or GatLayerSym's backward (GAT) forms
-        # over the k·b rows of each h @ w.  A multi-process runtime
-        # (ROADMAP A2b) all-reduces .grad here.
+        # over the k·b rows of each h @ w; with one process per part each
+        # rank's .grad is all-reduced here
         loss.backward()
+        if self.mesh is not None:
+            for p in self.model.parameters():
+                torch.distributed.all_reduce(p.grad)
         self._note_grad_norm()
         self.opt.step()
-        return loss.detach(), err
+        loss = self._reduced(loss.detach())
+        return loss, (loss if err is None else err)
+
+    def _loss(self, logits, labels, valid):
+        """The training objective; on a rank group the rank's share of the
+        global mean (``models/gcn.py``: the count all-reduced)."""
+        if self.mesh is None:
+            return self._loss_fn(logits, labels, valid)
+        return self._loss_fn(logits, labels, valid, group=self.mesh)
+
+    def _reduced(self, x):
+        """A per-part sum over the rank group (as is without one)."""
+        return x if self.mesh is None else self.mesh.all_reduce_sum(x)
 
     def _note_grad_norm(self) -> None:
         """Under a recorder, keep the global L2 norm of the weight
@@ -1242,8 +1344,10 @@ class FullBatchTrainer:
         data = data.to(self.device)
         with self.spans.span("eval") as sp:
             logits = self._eval_logits(data)
-            loss = self._loss_fn(logits, data.labels, data.eval_valid)
-            acc = masked_accuracy_local(logits, data.labels, data.eval_valid)
+            loss = self._reduced(self._loss(logits, data.labels,
+                                            data.eval_valid))
+            acc = masked_accuracy_local(logits, data.labels, data.eval_valid,
+                                        group=self.mesh)
             loss, acc = float(loss), float(acc)
         self.stats.count_forward(nlayers=self.nlayers)
         if self.recorder is not None:
@@ -1252,9 +1356,15 @@ class FullBatchTrainer:
         return loss, acc
 
     def predict(self, data: TrainData) -> np.ndarray:
-        """Global (n, nout) logits in original vertex order."""
+        """Global (n, nout) logits in original vertex order (on a rank
+        group every rank's rows, all-gathered; a one-part slice's
+        ``gather_rows`` raises, as the reference's does)."""
         logits = self._eval_logits(data.to(self.device))
         self.stats.count_forward(nlayers=self.nlayers)
+        if self.mesh is not None and self.mesh.size > 1:
+            logits = self.mesh.all_gather(logits[0]).reshape(
+                self.mesh.size, *logits.shape[1:])
+            return self.full_plan.gather_rows(logits.cpu().numpy())
         return self.plan.gather_rows(logits.cpu().numpy())
 
     def fit(self, data: TrainData, epochs: int = 5, warmup: int = 1,

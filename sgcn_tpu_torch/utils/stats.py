@@ -80,7 +80,19 @@ class CommStats:
         off = plan.offwire_send_counts()
         send_vol = plan.predicted_send_volume.astype(np.int64)
         send_msg = plan.predicted_message_count.astype(np.int64)
-        recv_vol, recv_msg = off.sum(axis=0), (off > 0).sum(axis=0)
+        if off.shape[0] == off.shape[1]:
+            recv_vol, recv_msg = off.sum(axis=0), (off > 0).sum(axis=0)
+        elif not plan.symmetric:
+            # a one-part slice (parallel/proxy.py): the peers' sends are
+            # out of view, and only a symmetric pattern receives what it
+            # sends — anything else would fabricate the receive counters
+            raise ValueError(
+                "CommStats.from_plan: shard-proxy slice of an ASYMMETRIC "
+                "plan — peers' sends are out of view and per-chip recv "
+                "!= send, so recv counters cannot be derived; proxy a "
+                "symmetric plan or build stats from the full plan")
+        else:
+            recv_vol, recv_msg = send_vol, send_msg
         wire = int(plan.wire_rows_per_exchange(schedule))
         true = int(send_vol.sum())
         return cls(
@@ -109,9 +121,11 @@ class CommStats:
                 "(ensure_replicas)")
         counts = plan.nrep_send_counts.astype(np.int64)
         self.replica_send_volume_per_exchange = counts.sum(axis=1)
-        self.replica_recv_volume_per_exchange = counts.sum(axis=0)
         self.replica_send_msgs_per_exchange = (counts > 0).sum(axis=1)
-        self.replica_recv_msgs_per_exchange = (counts > 0).sum(axis=0)
+        # a one-part slice receives what it sends (symmetric, from_plan)
+        recv = counts if counts.shape[0] == counts.shape[1] else counts.T
+        self.replica_recv_volume_per_exchange = recv.sum(axis=0)
+        self.replica_recv_msgs_per_exchange = (recv > 0).sum(axis=0)
         self.replica_wire_rows_per_exchange = int(
             plan.wire_rows_per_exchange(self.schedule, replica=True))
         self.replica_rows = int(plan.replica_rows)

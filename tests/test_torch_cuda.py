@@ -22,7 +22,9 @@ against its plain version, one replica and one composed replica × stale
 step against their CPU versions, and the replica trainer's launches on
 the card; sub-graph serving's compact fused and K5 launches against their
 plain versions on a batch holding a hub row, and the sub-graph engine's
-launches and rows on the card.
+launches and rows on the card; one NCCL rank training a proxy slice
+through the rank path against the stacked proxy, bit for bit, and the
+broadcast baseline's K1 launch against its plain version.
 
 This module imports no JAX, so it also runs on a GPU machine without it:
 
@@ -1704,3 +1706,93 @@ def test_minibatch_memory_join_on_cuda(cuda_device, tmp_path):
     assert blk["total"]["measured_bytes"] <= \
         1.05 * blk["total"]["model_bytes"]
     assert blk["donated"]["measured_bytes"] >= mb.memory.donated_floor_bytes
+
+
+# ------------------------------------------ the rank runtime and baseline
+def _proxy_inputs(sched):
+    """Part 2's slice of a 4-way ER plan (the ring built when asked) and
+    its data."""
+    from sgcn_tpu_torch.parallel import shard_proxy_data, shard_proxy_plan
+
+    n = 3000
+    ahat = normalize_adjacency(er_graph(n, avg_deg=8, seed=5))
+    plan = build_comm_plan(ahat, balanced_random_partition(n, 4, seed=5), 4)
+    if sched == "ragged":
+        plan.ensure_pallas_tiles()
+        plan.ensure_ragged()
+        plan.ensure_pallas_ragged_tiles()
+    rng = np.random.default_rng(26)
+    feats = rng.standard_normal((n, 24)).astype(np.float32)
+    labels = rng.integers(0, 5, n)
+    return (shard_proxy_plan(plan, 2),
+            shard_proxy_data(plan, 2, feats, labels, device="cuda"))
+
+
+@pytest.mark.parametrize("sched", ["a2a", "ragged"])
+@pytest.mark.parametrize("halo_dtype", [None, "bfloat16"])
+def test_one_nccl_rank_equals_the_stacked_proxy(cuda_device, tmp_path,
+                                                sched, halo_dtype):
+    """On the card: one NCCL rank (a ``file://`` rendezvous, world size
+    1) trains part 2's slice through the rank path — the send pack, the
+    collective's loopback (on the ring, sends to self), the local and
+    halo K1 family launches, the float32 add — and its 3 losses and final
+    weights equal the stacked proxy's (the fused entry) bit for bit; two
+    family launches and one pack per aggregation."""
+    from sgcn_tpu_torch.parallel import init_rank_group
+
+    sl, data = _proxy_inputs(sched)
+    kw = dict(fin=24, widths=[32, 5], seed=3, comm_schedule=sched,
+              halo_dtype=halo_dtype)
+    stacked = FullBatchTrainer(sl, device=cuda_device, **kw)
+    want = [stacked.step(data) for _ in range(3)]
+    mesh = init_rank_group("file://" + str(tmp_path / "rdv"), 1, 0)
+    try:
+        before = (spmm_tiles.launches, spmm_tiles.bf16_launches,
+                  row_pack.launches)
+        tr = FullBatchTrainer(sl, mesh=mesh, **kw)
+        got = [tr.step(data) for _ in range(3)]
+        torch.cuda.synchronize()
+        fam = (spmm_tiles.launches - before[0]
+               + spmm_tiles.bf16_launches - before[1])
+        packs = row_pack.launches - before[2]
+    finally:
+        mesh.close()
+    assert got == want
+    for a, b in zip(tr.params, stacked.params):
+        assert torch.equal(a, b)
+    # 2 forward + 1 backward aggregations a step (layer 0 aggregates its
+    # input first, which needs no gradient)
+    assert packs == 3 * 3 and fam == 2 * packs
+
+
+def test_broadcast_kernel_equals_plain_on_cuda(cuda_device):
+    """On the card: the broadcast baseline's local SpMM (one K1 family
+    launch over the gathered table) equals its plain version bit for
+    bit; fused == phase-split rows; the rows within rtol 1e-4 / atol
+    1e-5 of the CPU run's."""
+    from sgcn_tpu_torch.baselines.cagnet1d import BroadcastGCN1D
+
+    n = 3000
+    ahat = normalize_adjacency(er_graph(n, avg_deg=8, seed=6))
+    pv = balanced_random_partition(n, 4, seed=6)
+    feats = np.random.default_rng(27).standard_normal(
+        (n, 24)).astype(np.float32)
+    kw = dict(fin=24, widths=[32, 5], seed=2)
+    bc = BroadcastGCN1D(ahat, pv, 4, device=cuda_device, **kw)
+    h = torch.as_tensor(bc.plan.scatter_rows(feats)).to(cuda_device)
+    table = bc.gather(h)
+    assert table.shape == (4, 4 * bc.plan.b, 24)
+    before = spmm_tiles.launches
+    got = spmm_tiles_classes(bc.pa["tsrc"], bc.pa["tld"], bc.pa["tw"],
+                             table, bc.classes, 256)
+    want = spmm_tiles_classes_plain(bc.pa["tsrc"], bc.pa["tld"],
+                                    bc.pa["tw"], table, bc.classes, 256)
+    torch.cuda.synchronize()
+    assert spmm_tiles.launches == before + 1
+    assert torch.equal(got, want)
+    rows = bc.forward(feats)
+    fused = BroadcastGCN1D(ahat, pv, 4, device=cuda_device, fused=True,
+                           **kw).forward(feats)
+    assert np.array_equal(rows, fused)
+    cpu = BroadcastGCN1D(ahat, pv, 4, device="cpu", **kw).forward(feats)
+    np.testing.assert_allclose(rows, cpu, rtol=1e-4, atol=1e-5)

@@ -216,3 +216,28 @@ def test_scan_sees_the_telemetry_modules():
     for key in ('"tile_spmm_fused_kernel"', '"row_pack_kernel"',
                 '"sm90_xmma"', '"roll_cuda"'):
         assert key not in smoke, key
+
+
+def test_scan_sees_the_rank_runtime_and_baseline_modules():
+    """The broadcast baseline, its CLI, the dispatcher, the shard proxy
+    and the rank group are in the scan, so they too import nothing of JAX
+    or the JAX package."""
+    names = {os.path.relpath(p, REPO) for p in _sources()}
+    want = {("__main__.py",): ("_TOOLS",),
+            ("baselines", "cagnet1d.py"): ("class BroadcastGCN1D",
+                                           "def broadcast_edge_lists"),
+            ("baselines", "__main__.py"): ('"oracle"', '"cagnet"'),
+            ("parallel", "proxy.py"): ("def shard_proxy_plan",
+                                       "def shard_proxy_data", "REBASE"),
+            ("parallel", "mesh.py"): ("class RankGroup",
+                                      "def init_rank_group"),
+            ("parallel", "plan.py"): ("PER_CHIP_ARRAY_FIELDS",
+                                      "REBASED_ARRAY_FIELDS",
+                                      "def relabel_plan")}
+    for rel, defs in want.items():
+        path = os.path.join("sgcn_tpu_torch", *rel)
+        assert path in names
+        with open(os.path.join(REPO, path)) as fh:
+            text = fh.read()
+        for d in defs:
+            assert d in text, (path, d)
