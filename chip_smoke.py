@@ -246,7 +246,8 @@ failure raises and the script exits non-zero:
      the device split (pack, fused, elementwise, matmul) and idle share,
      the delta arithmetic timed alone, the carries' bytes; a flagship
      child (``cli_child``, GCN a2a, stale + delta, ``--sync-every 3``)
-     killed after its step-4 save and resumed in a new one: losses and
+     killed after its step-4 save (started once phase 23 has written its
+     inputs, beside phase 24) and resumed in a new one: losses and
      the weights + Adam and carry digests == the uninterrupted run in
      this process; the cora CLI with ``--comm-schedule auto
      --halo-staleness 1 --sync-every 2`` resolves to the ring by the
@@ -272,7 +273,8 @@ failure raises and the script exits non-zero:
      a replica step's layer against an exact step's, the kept pack
      against its bound and ``index_copy_``, carry bytes, the device
      split; a flagship child (``--replica-budget auto --sync-every 3``)
-     killed after its step-4 save and resumed == the uninterrupted run;
+     killed after its step-4 save (started with phase 25's) and resumed
+     == the uninterrupted run;
      the cora CLI with ``--replica-budget auto --sync-every 3``
      (``build/chip_smoke_replica/``);
   27. the mini-batch trainer (``train/minibatch.py``) and the stochastic
@@ -365,23 +367,44 @@ failure raises and the script exits non-zero:
      trace, labeled by ``KERNEL_TABLE``; the group destroyed.  Meanwhile
      ``python -m sgcn_tpu_torch.baselines cagnet`` and ``oracle`` run on
      cora in children; then ``python -m sgcn_tpu_torch``'s map;
-  31. one JSON line ``{"kernels": [...]}`` — per ported kernel (the tile
+  31. GAT, bf16 and remat on the rank path and the launch layer
+     (``build/chip_smoke_rank_levers/``).  (a) One NCCL rank (world size
+     1) on chip 0's slice of phase 3's ER plan, 128 → 128 → 128 → 40 at
+     full width: GAT a2a and ring, GAT under ``compute_dtype`` (packed
+     layers) a2a, GAT under ``remat`` a2a, and GCN under ``compute_dtype``
+     a2a, 1 + 3 steps each: losses and weights == the stacked proxy's bit
+     for bit, exact launches per entry (K5 float32 and bf16 tables, the
+     GAT backward's, packs, K1's bf16 family entry two a GCN aggregation,
+     no fused launch), the K5 launches (float32 and bf16 tables) of one
+     GAT step's forward first layer on both transports and its last
+     layer on the a2a (float32: the split pair, the fused table; under
+     ``compute_dtype`` the packed pairs, and the backward's first layer)
+     and of one GCN ``compute_dtype`` step the first aggregation's two
+     bf16 family launches forward and backward == plain on their real
+     inputs: each table form once; each case's CUDA-event ms of steps 2–4
+     beside the stacked proxy's and its host seconds; (b)
+     meanwhile the cora train CLI, GCN and GAT, in children under
+     ``python -m torch.distributed.run --standalone --nproc_per_node 1``
+     with ``--metrics-out``: the launched report == the unlaunched CLI's
+     (in this process) bit for bit, timings aside, and the run
+     directory's ``heartbeat.jsonl`` valid under the port's schema;
+  32. one JSON line ``{"kernels": [...]}`` — per ported kernel (the tile
      SpMM, the GCN aggregation's backward, the GAT attention pass and its
      use in the GAT layer's backward, the ragged ring aggregation and its
      backward, the row shuffle, the tile SpMM's and the GAT pass's bf16
      flavors, the row pack, the fused local + remote entry and the
      destination-indexed pack) its
      launches on the main path (phases 2–5, 7–13, 15–17, 19–21 and
-     23–30, the children's included), max
+     23–31, the children's included), max
      |kernel − plain|, kernel / plain / bound / library times at the
      flagship layer.  The tile SpMM's own float-weight family entries
      (both tables) launch on the main path only in the asymmetric
-     backward (phases 20–21) and in phase 30 (the broadcast's local
+     backward (phases 20–21) and in phases 30–31 (the broadcast's local
      SpMM, the rank path's two passes): the symmetric phases 2–29 must
      show 0 of them — the fused entry runs their chains and counts those
      launches — and any kernel with no launch on the main path fails the
      run;
-  32. the last line: ``{"ok": true, "device": {...}}``.
+  33. the last line: ``{"ok": true, "device": {...}}``.
 
 Without CUDA, or without the rest of the repository beside it, the script
 prints no result and exits with code 2 or 3.
@@ -2647,6 +2670,7 @@ def launch_counts(zero: bool = False) -> dict:
               "pack": (row_pack, "launches"),
               "pack_into": (row_pack_into, "launches"),
               "k5": (spmm_tiles, "mask_launches"),
+              "k5_bf16": (spmm_tiles, "bf16_mask_launches"),
               "k1": (spmm_tiles, "launches"),
               "k1_bf16": (spmm_tiles, "bf16_launches"),
               "sym_bwd": (PspmmTilesSym, "backward_launches"),
@@ -2740,6 +2764,9 @@ class Children:
             if p.is_alive():
                 p.terminate()
                 p.join()
+
+    def close(self):
+        self.stop()
 
 
 def leaves_digest(leaves) -> str:
@@ -3525,23 +3552,22 @@ def carry_bytes(tr) -> int:
 
 
 def phase_stale(plan, data, p_init, widths, rep5, fit_w, halo_runs, dev, tb,
-                cli_base, smi):
+                cli_base, killed, smi):
     """Phase 25: the pipelined stale-halo trainer at the flagship width
     (module docstring).  Returns the main path's launches by entry
     (``launch_counts`` keys, this process's and the resumed child's) and
-    the max |fused − plain| of its checks."""
+    the max |fused − plain| of its checks.  ``killed``: its child killed
+    after a save (``start_killed_children``)."""
     children = Children()
     try:
         return _phase_stale(children, plan, data, p_init, widths, rep5,
-                            fit_w, halo_runs, dev, tb, cli_base, smi)
+                            fit_w, halo_runs, dev, tb, cli_base, killed, smi)
     finally:
         children.stop()
 
 
 def _phase_stale(children, plan, data, p_init, widths, rep5, fit_w,
-                 halo_runs, dev, tb, cli_base, smi):
-    import shutil
-
+                 halo_runs, dev, tb, cli_base, killed, smi):
     import numpy as np
     import torch
 
@@ -3576,20 +3602,21 @@ def _phase_stale(children, plan, data, p_init, widths, rep5, fit_w,
                                 comm_schedule=sched, device=dev,
                                 halo_staleness=1, **kw)
 
-    # ---- (g) first: the flagship child killed after its step-4 save, in
-    # the background (phase 23's inputs), while the rest runs here
-    shutil.rmtree(STALE_DIR, ignore_errors=True)
-    os.makedirs(STALE_DIR)
-    argv = ["--npz", os.path.join(CKPT_DIR, "flagship.npz"), "-p",
-            os.path.join(CKPT_DIR, "flagship.8.rp"), "-s", "8", "-l",
-            str(nl), "--hidden", str(widths[0]), "--warmup", "0",
-            "--epochs", "6", "--device", "cuda", "--comm-schedule", "a2a",
-            "--halo-staleness", "1", "--halo-delta", "--sync-every", "3",
-            "--checkpoint-dir", os.path.join(STALE_DIR, "ck"),
-            "--checkpoint-every", "4"]
-    kill = children.start([("train", argv, "kill-after-save:4",
-                            os.path.join(STALE_DIR, "kill.json"))])
-
+    marks = [("start", time.perf_counter())]
+    # ---- (g) first: the flagship child killed after its step-4 save
+    # (started after phase 23), then the child resuming it, in the
+    # background while the rest runs here
+    kill_children, kill, argv = killed
+    codes = kill_children.join(kill)
+    listing = sorted(os.listdir(os.path.join(STALE_DIR, "ck")))
+    if codes != [faults.FAULT_EXIT_CODE] or listing != ["ckpt_00000004.npz"]:
+        raise AssertionError(f"phase 25: killed child exited {codes}, "
+                             f"directory {listing}")
+    final = os.path.join(STALE_DIR, "final.npz")
+    wave = children.start([("train", argv + ["--resume", "auto",
+                                             "--save-checkpoint", final],
+                            None, os.path.join(STALE_DIR, "resume.json"))])
+    marks.append(("(g) killed child joined", time.perf_counter()))
     # ---- (a) sync_every=1 == exact, bit for bit
     runs = [(sched, delta, None) for sched in ("a2a", "ragged")
             for delta in (False, True)]
@@ -3615,6 +3642,7 @@ def _phase_stale(children, plan, data, p_init, widths, rep5, fit_w,
                                  "from the exact run or its launches")
         del tr
 
+    marks.append(("(a)", time.perf_counter()))
     # ---- (d) stale ragged == stale a2a, bit for bit, 1 + 8 steps
     for sync_every in (0, 4):
         for delta in (False, True):
@@ -3637,6 +3665,7 @@ def _phase_stale(children, plan, data, p_init, widths, rep5, fit_w,
                                      f"sync_every={sync_every}, "
                                      f"delta={delta}")
 
+    marks.append(("(d)", time.perf_counter()))
     # ---- (b, c) launches per stale and per sync step, and the pack and
     # the fused entry == plain on every exchange and aggregation of one
     # stale and one sync step, on their real carry tables
@@ -3670,6 +3699,7 @@ def _phase_stale(children, plan, data, p_init, widths, rep5, fit_w,
                 raise AssertionError(f"phase 25: {kind} step launches {c}")
         del tr
 
+    marks.append(("(b, c)", time.perf_counter()))
     # ---- (e) the stale losses against the exact run: the reference's band
     for delta, sync_every in ((True, 2), (False, 0)):
         tr = stale("a2a", halo_delta=delta, sync_every=sync_every)
@@ -3686,6 +3716,7 @@ def _phase_stale(children, plan, data, p_init, widths, rep5, fit_w,
                                  "the reference's band of the exact run")
         del tr
 
+    marks.append(("(e)", time.perf_counter()))
     # ---- (f) times, in two interleaved rounds
     cfgs = {}
     for sched in ("a2a", "ragged"):
@@ -3741,6 +3772,7 @@ def _phase_stale(children, plan, data, p_init, widths, rep5, fit_w,
     log(f"  peak device memory so far {torch.cuda.max_memory_allocated()} B")
     del cfgs, trd, carry, full
 
+    marks.append(("(f)", time.perf_counter()))
     # ---- (h) the controller on the cora CLI
     (losses, rep), _ = counted(lambda: run_train_cli(
         cli_base + ["--epochs", "5", "--warmup", "0", "--comm-schedule",
@@ -3754,23 +3786,16 @@ def _phase_stale(children, plan, data, p_init, widths, rep5, fit_w,
             rep["controller"]["initial_sync_every"] != 2:
         raise AssertionError(f"phase 25: the stale CLI resolved {rep}")
 
-    # ---- (g) the uninterrupted run of the killed child, here; then the
-    # resuming child
+    marks.append(("(h)", time.perf_counter()))
+    # ---- (g) the uninterrupted run here; then the resuming child's end
     tr = FullBatchTrainer(plan, fin=128, widths=widths, seed=0,
                           comm_schedule="a2a", halo_staleness=1,
                           halo_delta=True, sync_every=3, device=dev)
     full_losses, _ = counted(lambda: [tr.step(data) for _ in range(6)])
-    codes = children.join(kill)
-    listing = sorted(os.listdir(os.path.join(STALE_DIR, "ck")))
-    if codes != [faults.FAULT_EXIT_CODE] or listing != ["ckpt_00000004.npz"]:
-        raise AssertionError(f"phase 25: killed child exited {codes}, "
-                             f"directory {listing}")
-    final = os.path.join(STALE_DIR, "final.npz")
-    wave = children.start([("train", argv + ["--resume", "auto",
-                                             "--save-checkpoint", final],
-                            None, os.path.join(STALE_DIR, "resume.json"))])
+    marks.append(("(g) uninterrupted run", time.perf_counter()))
     if children.join(wave) != [0]:
         raise AssertionError("phase 25: the resuming child failed")
+    marks.append(("(g) resumed child joined", time.perf_counter()))
     with open(os.path.join(STALE_DIR, "resume.json")) as fh:
         res = json.load(fh)
     with np.load(final) as z:
@@ -3792,6 +3817,10 @@ def _phase_stale(children, plan, data, p_init, widths, rep5, fit_w,
                              "the uninterrupted one")
     for key, v in res["launches"].items():
         totals[key] = totals.get(key, 0) + v
+    marks.append(("(g) end", time.perf_counter()))
+    log("  phase 25 host seconds by section: " + json.dumps(
+        {name: round(t - t0, 1) for (_n, t0), (name, t) in
+         zip(marks, marks[1:])}))
     log(f"  phase 25's main-path launches: {json.dumps(totals)}")
     return totals, fused_err
 
@@ -3801,6 +3830,35 @@ REPLICA_DIR = os.path.join(REPO, "build", "chip_smoke_replica")
 # replica losses are held to its band for the other approximate-halo mode,
 # the stale one (tests/test_stale_halo.py:192-200)
 BAND_REPLICA = BAND_STALE
+
+
+def start_killed_children(widths):
+    """Phases 25 and 26's flagship children killed after their step-4
+    save (GCN a2a, stale + delta, and GCN a2a, replicas, each with
+    ``--sync-every 3``, on phase 23's inputs), started together as soon
+    as phase 23 has written those inputs, so that they run beside phase
+    24 and not in series with their own phases.  Returns ``{phase:
+    (children, procs, argv)}``; the children are closed at exit."""
+    import shutil
+
+    children = Children()
+    BACKGROUND.append(children)
+    modes = {25: (STALE_DIR, ["--halo-staleness", "1", "--halo-delta"]),
+             26: (REPLICA_DIR, ["--replica-budget", "auto"])}
+    out = {}
+    for phase, (d, mode) in modes.items():
+        shutil.rmtree(d, ignore_errors=True)
+        os.makedirs(d)
+        argv = ["--npz", os.path.join(CKPT_DIR, "flagship.npz"), "-p",
+                os.path.join(CKPT_DIR, "flagship.8.rp"), "-s", "8", "-l",
+                str(len(widths)), "--hidden", str(widths[0]), "--warmup",
+                "0", "--epochs", "6", "--device", "cuda", "--comm-schedule",
+                "a2a", *mode, "--sync-every", "3", "--checkpoint-dir",
+                os.path.join(d, "ck"), "--checkpoint-every", "4"]
+        out[phase] = (children, children.start([
+            ("train", argv, "kill-after-save:4", os.path.join(d, "kill.json"))
+        ]), argv)
+    return out
 REPLICA_CLASSES = (("K3/K4 fused", ("K3/K4 fused",)),
                    ("pack", ("pack",)),
                    ("gather/scatter", ("gathers",)),
@@ -3870,24 +3928,24 @@ def time_pack_into(out, src, flat, dst, what):
 
 
 def phase_replicas(plan, data, p_init, widths, rep5, fit_w, halo_runs,
-                   parts_bg, ahat_dc, dev, tb, cli_base, smi):
+                   parts_bg, ahat_dc, dev, tb, cli_base, killed, smi):
     """Phase 26: hot-halo replicas at the flagship width (module
     docstring).  Returns the main path's launches by entry
     (``launch_counts`` keys, this process's and the resumed child's) and
-    the timing of the destination-indexed pack."""
+    the timing of the destination-indexed pack.  ``killed``: its child
+    killed after a save (``start_killed_children``)."""
     children = Children()
     try:
         return _phase_replicas(children, plan, data, p_init, widths, rep5,
                                fit_w, halo_runs, parts_bg, ahat_dc, dev, tb,
-                               cli_base, smi)
+                               cli_base, killed, smi)
     finally:
         children.stop()
 
 
 def _phase_replicas(children, plan, data, p_init, widths, rep5, fit_w,
-                    halo_runs, parts_bg, ahat_dc, dev, tb, cli_base, smi):
-    import shutil
-
+                    halo_runs, parts_bg, ahat_dc, dev, tb, cli_base, killed,
+                    smi):
     import numpy as np
     import torch
 
@@ -3923,18 +3981,18 @@ def _phase_replicas(children, plan, data, p_init, widths, rep5, fit_w,
         return FullBatchTrainer(p, fin=128, widths=widths, params=params,
                                 comm_schedule=sched, device=dev, **kw)
 
-    # ---- the killed child first, in the background (phase 23's inputs)
-    shutil.rmtree(REPLICA_DIR, ignore_errors=True)
-    os.makedirs(REPLICA_DIR)
-    argv = ["--npz", os.path.join(CKPT_DIR, "flagship.npz"), "-p",
-            os.path.join(CKPT_DIR, "flagship.8.rp"), "-s", "8", "-l",
-            str(nl), "--hidden", str(widths[0]), "--warmup", "0",
-            "--epochs", "6", "--device", "cuda", "--comm-schedule", "a2a",
-            "--replica-budget", "auto", "--sync-every", "3",
-            "--checkpoint-dir", os.path.join(REPLICA_DIR, "ck"),
-            "--checkpoint-every", "4"]
-    kill = children.start([("train", argv, "kill-after-save:4",
-                            os.path.join(REPLICA_DIR, "kill.json"))])
+    # ---- the flagship child killed after its step-4 save (started after
+    # phase 23), then the child resuming it, in the background
+    kill_children, kill, argv = killed
+    codes = kill_children.join(kill)
+    listing = sorted(os.listdir(os.path.join(REPLICA_DIR, "ck")))
+    if codes != [faults.FAULT_EXIT_CODE] or listing != ["ckpt_00000004.npz"]:
+        raise AssertionError(f"phase 26: killed child exited {codes}, "
+                             f"directory {listing}")
+    final = os.path.join(REPLICA_DIR, "final.npz")
+    wave = children.start([("train", argv + ["--resume", "auto",
+                                             "--save-checkpoint", final],
+                            None, os.path.join(REPLICA_DIR, "resume.json"))])
 
     # ---- plans: the ER flagship (phase 5's, both transports) and the
     # DCSBM flagship on phase 24's hp parts; budgets 'auto' and the clamp
@@ -4169,20 +4227,11 @@ def _phase_replicas(children, plan, data, p_init, widths, rep5, fit_w,
         raise AssertionError(f"phase 26: the replica CLI reported {rep}")
 
     # ---- (g) the uninterrupted run of the killed child, here; then the
-    # resuming child
+    # resuming child's end
     tr = FullBatchTrainer(plan, fin=128, widths=widths, seed=0,
                           comm_schedule="a2a", replica_budget="auto",
                           sync_every=3, device=dev)
     full_losses, _ = counted(lambda: [tr.step(data) for _ in range(6)])
-    codes = children.join(kill)
-    listing = sorted(os.listdir(os.path.join(REPLICA_DIR, "ck")))
-    if codes != [faults.FAULT_EXIT_CODE] or listing != ["ckpt_00000004.npz"]:
-        raise AssertionError(f"phase 26: killed child exited {codes}, "
-                             f"directory {listing}")
-    final = os.path.join(REPLICA_DIR, "final.npz")
-    wave = children.start([("train", argv + ["--resume", "auto",
-                                             "--save-checkpoint", final],
-                            None, os.path.join(REPLICA_DIR, "resume.json"))])
     if children.join(wave) != [0]:
         raise AssertionError("phase 26: the resuming child failed")
     with open(os.path.join(REPLICA_DIR, "resume.json")) as fh:
@@ -5627,6 +5676,274 @@ def _phase_ranks(children, plan, ahat_f, feats_f, labels_f, pv_f, p_init,
                    "k1_err": k1_err}
 
 
+
+RANK31_DIR = os.path.join(REPO, "build", "chip_smoke_rank_levers")
+
+# phase 31's cases: name -> (model, transport, trainer levers)
+RANK31_CASES = {
+    "GAT a2a": ("gat", "a2a", {}),
+    "GAT ring": ("gat", "ragged", {}),
+    "GAT bf16 a2a": ("gat", "a2a", {"compute_dtype": "bfloat16"}),
+    "GAT remat a2a": ("gat", "a2a", {"remat": True}),
+    "GCN bf16 a2a": ("gcn", "a2a", {"compute_dtype": "bfloat16"}),
+}
+
+
+def rank_case_launches(model, sched, widths, lever, steps=3):
+    """Exact launches per entry of ``steps`` training steps of a phase 31
+    case on the rank path: a GAT layer's K5 passes by table form (fused 1,
+    split 2 on float32 tables; packed: the bf16 ``u·z`` lanes and the
+    float32 ``u`` lane; the backward ships the same forms, float32 but for
+    the packed ``ḡ/D`` lanes), the forward run again in the backward
+    under ``remat``; a GCN aggregation one pack and two K1 family
+    launches (bf16 tables under ``compute_dtype``); no fused launch."""
+    from sgcn_tpu_torch.models.gat import gat_table_form
+
+    cd = lever.get("compute_dtype")
+    fwd_runs = 2 if lever.get("remat") else 1
+    if model == "gcn":
+        aggs = fwd_runs * len(widths) + backward_passes(128, widths)
+        return {"pack": steps * aggs,
+                "k1_bf16" if cd else "k1": steps * 2 * aggs, "fused": 0,
+                "fused_bf16": 0, "k5": 0}
+    fwd32 = fwd16 = bwd32 = bwd16 = 0
+    for w in widths:
+        form = gat_table_form(w, cd)
+        if form == "packed":
+            fwd32, fwd16, bwd32, bwd16 = (fwd32 + 1, fwd16 + 1, bwd32 + 1,
+                                          bwd16 + 1)
+        else:
+            n = 2 if form == "split" else 1
+            if cd:
+                fwd16 += n
+            else:
+                fwd32 += n
+            bwd32 += n
+    packs = pack_launches("gat", sched, widths, cd)
+    return {"k5": steps * (fwd_runs * fwd32 + bwd32),
+            "k5_bf16": steps * (fwd_runs * fwd16 + bwd16),
+            "gat_bwd": steps * (bwd32 + bwd16),
+            "pack": steps * packs * (fwd_runs + 1), "fused": 0, "k1": 0,
+            "k1_bf16": 0}
+
+
+def phase_rank_levers(plan, feats_f, labels_f, p_init, params_g, widths,
+                      fix, dev, tb, smi):
+    """Phase 31 (module docstring): GAT, bf16 and remat on one NCCL rank
+    against the stacked proxy, and the cora train CLI under
+    ``torch.distributed.run``.  Returns the launch counts of the rank
+    path by kernel entry and its measurements."""
+    import shutil
+
+    from sgcn_tpu_torch.obs import load_run
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(RANK31_DIR, ignore_errors=True)
+    os.makedirs(RANK31_DIR)
+    total = {key: 0 for key in launch_counts()}
+
+    # ---- (b) first: the cora CLI under torchrun, in children beside (a)
+    cli_base = ["--npz", os.path.join(fix, "cora2708.npz"), "--normalize",
+                "-p", os.path.join(fix, "cora2708.8.hp"), "-s", "8", "-l",
+                "2", "--hidden", "16", "--epochs", "3", "--warmup", "0"]
+    env = dict(os.environ, PYTHONPATH=REPO)
+    for var in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
+                "MASTER_PORT", "SGCN_METRICS_OUT"):
+        env.pop(var, None)
+    procs = {}
+    for model in ("gcn", "gat"):
+        d = os.path.join(RANK31_DIR, model)
+        argv = cli_base + ["--model", model, "--metrics-out", d + "-run",
+                           "--checkpoint-dir", d + "-ck"]
+        out = open(d + ".out", "w")
+        procs[model] = (subprocess.Popen(
+            [sys.executable, "-m", "torch.distributed.run", "--standalone",
+             "--nproc_per_node", "1", "-m", "sgcn_tpu_torch.train", *argv],
+            cwd=REPO, env=env, stdout=out, stderr=subprocess.STDOUT), out, d)
+
+    try:
+        t0 = time.perf_counter()
+        rank = _rank_levers(plan, feats_f, labels_f, p_init, params_g,
+                            widths, dev, tb, smi, total)
+        log(f"  (a) took {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        # the unlaunched CLI, here, beside the launched children
+        cli = {}
+        for model, (proc, out, d) in procs.items():
+            _l, want = run_train_cli(cli_base + [
+                "--model", model, "--checkpoint-dir", d + "-ck1"])
+            code = proc.wait(timeout=300)
+            out.close()
+            with open(d + ".out") as fh:
+                text = fh.read()
+            lines = [x for x in text.splitlines() if x.startswith("{")]
+            if code != 0 or not lines:
+                raise AssertionError(f"phase 31: torchrun {model} CLI exit "
+                                     f"{code}: {text[-2000:]}")
+            got = json.loads(lines[-1])
+            timing = ("elapsed_s", "step_s_wall", "phases")
+            same = ({k: v for k, v in got.items() if k not in timing}
+                    == {k: v for k, v in want.items() if k not in timing})
+            run = load_run(d + "-run")
+            beats = [h["event"] for h in run.heartbeats]
+            log(f"  cora {model} CLI under torch.distributed.run "
+                f"--standalone --nproc_per_node 1: losses {got['losses']}; "
+                f"== the unlaunched CLI's report bit for bit (timings "
+                f"aside): {same}; heartbeat.jsonl {beats} (valid), "
+                f"{len(run.steps())} step events; JSON lines printed "
+                f"{len(lines)}")
+            if not same or beats != ["train:start", "train:done"] or \
+                    len(lines) != 1:
+                raise AssertionError(f"phase 31: launched {model} CLI "
+                                     f"{got} != {want}, beats {beats}")
+            cli[model] = got["losses"]
+        log(f"  (b) after (a): {time.perf_counter() - t0:.1f} s")
+    finally:
+        for proc, out, _d in procs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            out.close()
+    log(f"  phase 31 launches {json.dumps(total)}; phase wall "
+        f"{time.perf_counter() - t_phase:.1f} s; card: {smi}")
+    return total, {"rank": rank, "cli": cli}
+
+
+def _rank_levers(plan, feats_f, labels_f, p_init, params_g, widths, dev, tb,
+                 smi, total):
+    """Phase 31 (a): every ``RANK31_CASES`` case on one NCCL rank against
+    the stacked proxy of chip 0's slice; adds the rank runs' launches to
+    ``total``."""
+    import numpy as np
+    import torch
+
+    from sgcn_tpu_torch.models.gat import gat_table_form
+    from sgcn_tpu_torch.models.gat import params_from_jax as gat_from_numpy
+    from sgcn_tpu_torch.ops import tile_spmm as ts
+    from sgcn_tpu_torch.parallel import (init_rank_group, shard_proxy_data,
+                                         shard_proxy_plan)
+    from sgcn_tpu_torch.train import FullBatchTrainer
+
+    plan.ensure_pallas_tiles(tb)
+    plan.ensure_ragged()
+    plan.ensure_pallas_ragged_tiles()
+    plan.ensure_pallas_cell_tiles(tb)
+    plan.ensure_pallas_cell_ragged_tiles()
+    sl = shard_proxy_plan(plan, 0)          # every layout built above
+    data = shard_proxy_data(plan, 0, feats_f, labels_f, device=dev)
+    family = ts.spmm_tiles_classes
+
+    def run(model, sched, lever, mesh=None, picks=None):
+        kw = (dict(params=[w.copy() for w in p_init]) if model == "gcn" else
+              dict(model="gat", activation="none",
+                   params=gat_from_numpy(params_g)))
+        tr = FullBatchTrainer(sl, fin=128, widths=widths, comm_schedule=sched,
+                              device=dev, mesh=mesh, **kw, **lever)
+        calls = []
+        if picks is not None:
+            # the first step's family launches kept to hold against their
+            # plain versions: those whose index among the step's launches
+            # of their entry (K5, K1-bf16) is in ``picks[entry]``
+            seen = {"k5": 0, "k1_bf16": 0}
+
+            def recorded(*args):
+                out = family(*args)
+                key = ("k5" if args[2].dtype == torch.int8 else "k1_bf16"
+                       if args[3].dtype == torch.bfloat16 else None)
+                if key is not None:
+                    if seen[key] in picks.get(key, ()):
+                        calls.append((args, out))
+                    seen[key] += 1
+                return out
+            ts.spmm_tiles_classes = recorded
+        try:
+            first = tr.step(data)
+        finally:
+            ts.spmm_tiles_classes = family
+        launch_counts(zero=True)                # the main path starts here
+        steps = [event_ms(lambda: tr.step(data, sync=False), 1)
+                 for _ in range(3)]
+        ln = launch_counts()                    # ... and ends here
+        return {"ms": [ms for ms, _ in steps],
+                "losses": [first] + [float(out[0]) for _, out in steps],
+                "w": [p.detach().clone() for p in tr.model.parameters()],
+                "ln": ln, "calls": calls}
+
+    # the launches held against plain, by their index among the first
+    # step's launches of their entry: each table form the rank path ships
+    # at flagship width once.  GAT: the forward's first layer (split pair
+    # at width 128; packed under compute_dtype: bf16 u·z words and the
+    # float32 u lane) and last layer (the fused table at width 40;
+    # packed), on the ring the first layer's, and under compute_dtype the
+    # backward's first layer too (its packed ḡ/D lanes are float32); GCN
+    # under compute_dtype: the first aggregation's two K1-bf16 launches
+    # in the forward and in the backward
+    def gat_picks(cd, last=True, backward=False):
+        n = [1 if gat_table_form(w, cd) == "fused" else 2 for w in widths]
+        fwd = sum(n)
+        got = set(range(n[0]))
+        if last:
+            got |= set(range(fwd - n[-1], fwd))
+        if backward:
+            got |= set(range(fwd, fwd + n[-1]))
+        return {"k5": got}
+    picks = {"GAT a2a": gat_picks(None), "GAT ring": gat_picks(None, False),
+             "GAT bf16 a2a": gat_picks("bfloat16", backward=True),
+             "GCN bf16 a2a": {"k1_bf16": {0, 1, 2 * len(widths),
+                                         2 * len(widths) + 1}}}
+    mesh = init_rank_group("file://" + os.path.join(RANK31_DIR,
+                                                    "rendezvous"), 1, 0)
+    out = {}
+    err = {"k5": 0.0, "k5_bf16": 0.0, "k1_bf16": 0.0}
+    try:
+        for name, (model, sched, lever) in RANK31_CASES.items():
+            t0 = time.perf_counter()
+            stacked = run(model, sched, lever)
+            pick = picks.get(name)
+            rk = run(model, sched, lever, mesh=mesh, picks=pick)
+            t_runs = time.perf_counter() - t0
+            for key in total:
+                total[key] += rk["ln"][key]
+            same = rk["losses"] == stacked["losses"] and all(
+                torch.equal(a, b) for a, b in zip(rk["w"], stacked["w"]))
+            want = rank_case_launches(model, sched, widths, lever)
+            got = {key: rk["ln"][key] for key in want}
+            checked, lanes = 0, []
+            for args, k_out in rk["calls"]:
+                plain = ts.spmm_tiles_classes_plain(*args)
+                key = ("k1_bf16" if args[2].dtype != torch.int8 else
+                       "k5_bf16" if args[3].dtype == torch.bfloat16
+                       else "k5")
+                err[key] = max(err[key], float(
+                    (k_out - plain).detach().abs().max()))
+                if not same_bits(k_out, plain):
+                    raise AssertionError(f"phase 31: {name} {key} launch "
+                                         "!= plain")
+                checked += 1
+                lanes.append(int(args[3].shape[-1]))
+            log(f"  one NCCL rank, chip 0's ER slice, {name}: losses "
+                f"{rk['losses']}; == the stacked proxy's bit for bit "
+                f"(losses and weights): {same}; ms of steps 2-4 (CUDA "
+                f"events) {rk['ms']!r}, the stacked proxy's "
+                f"{stacked['ms']!r}; launches {json.dumps(got)} (expected "
+                f"{json.dumps(want)}); {checked} family launches of one "
+                f"step == plain (table lanes {lanes}); host s: runs "
+                f"{t_runs:.1f}, plain checks "
+                f"{time.perf_counter() - t0 - t_runs:.1f}; card: {smi}")
+            short = pick is not None and checked != sum(
+                len(v) for v in pick.values())
+            if not same or got != want or short or \
+                    not np.isfinite(rk["losses"]).all():
+                raise AssertionError(f"phase 31: {name}: same {same}, "
+                                     f"launches {got} (want {want})")
+            out[name] = {"ms": rk["ms"], "proxy_ms": stacked["ms"],
+                         "losses": rk["losses"]}
+            del stacked, rk
+    finally:
+        mesh.close()
+    out["err"] = err
+    return out
+
 def main() -> int:
     import torch
 
@@ -6449,6 +6766,7 @@ def main() -> int:
     p23 = phase_checkpoints(plan, ahat_f, feats_f, labels_f, pv_f, widths_f,
                             data, dev, smi)
     MAIN_PATH_PACKS[0] += p23["pack"]
+    killed = start_killed_children(widths_f)
 
     # ---------------------------------------------------------- phase 24
     log("phase 24: the offline pipeline — cora2708 through the prep, "
@@ -6468,7 +6786,8 @@ def main() -> int:
         "the CLI")
     t25 = time.perf_counter()
     p25, fused_err25 = phase_stale(plan, data, p_init, widths_f, rep, fit_f,
-                                   halo_runs, dev, tb, cli_base, smi)
+                                   halo_runs, dev, tb, cli_base, killed[25],
+                                   smi)
     MAIN_PATH_PACKS[0] += p25["pack"]
     fused_err = max(fused_err, fused_err25)
     log(f"  phase 25 took {time.perf_counter() - t25:.1f} s")
@@ -6483,7 +6802,7 @@ def main() -> int:
     t26 = time.perf_counter()
     p26, pack26 = phase_replicas(plan, data, p_init, widths_f, rep, fit_f,
                                  halo_runs, parts_bg, ahat_dc, dev, tb,
-                                 cli_base, smi)
+                                 cli_base, killed[26], smi)
     MAIN_PATH_PACKS[0] += p26["pack"]
     log(f"  phase 26 took {time.perf_counter() - t26:.1f} s")
 
@@ -6541,6 +6860,17 @@ def main() -> int:
     log(f"  phase 30 took {time.perf_counter() - t30:.1f} s")
 
     # ---------------------------------------------------------- phase 31
+    log("phase 31: GAT (a2a, ring, compute_dtype, remat) and GCN "
+        "compute_dtype on one NCCL rank == the stacked proxy, exact "
+        "launches, K5 and K1-bf16 == plain; the cora train CLI under "
+        "torch.distributed.run == the unlaunched CLI, its heartbeats")
+    t31 = time.perf_counter()
+    p31, r31 = phase_rank_levers(plan, feats_f, labels_f, p_init, params_g,
+                                 widths_f, fix, dev, tb, smi)
+    MAIN_PATH_PACKS[0] += p31["pack"]
+    log(f"  phase 31 took {time.perf_counter() - t31:.1f} s")
+
+    # ---------------------------------------------------------- phase 32
     fused_main = (launches_c + launches_f + launches_tc + launches_tf
                   + launches_fr + launches_rt + launches_ca + launches_cr
                   + l15["wire"] + l15["bf16"] + launches_16 + asym["fused"]
@@ -6550,16 +6880,16 @@ def main() -> int:
                   + p28["fused_wire"] + p29["fused"] + p30["fused"])
     kernels = [{
         # K1's own float32-weight family entry: its launches on the main
-        # path are the asymmetric backward's halo-ᵀ launches and phase
-        # 30's (the broadcast's local SpMM, the rank path's local and halo
-        # passes); the symmetric phases 2-29 run its chains inside the
+        # path are the asymmetric backward's halo-ᵀ launches and phases
+        # 30-31's (the broadcast's local SpMM, the rank path's local and
+        # halo passes); the symmetric phases 2-29 run its chains inside the
         # fused entry, which counts those launches under tile_spmm_fused;
         # the times are its own family launches at the flagship layer
         "name": "tile_spmm",
         "route": "cuda",
         "source": "sgcn_tpu_torch/csrc/tile_spmm.cu",
         "replaces": "sgcn_tpu/ops/pallas_spmm.py:203",
-        "launches": asym["k1"] + p30["k1"],
+        "launches": asym["k1"] + p30["k1"] + p31["k1"],
         "max_abs_err": max(max_err, grad_err, k4_err, k4b_err, asym["err"],
                            r30["k1_err"]),
         "ms": layer["ms"],
@@ -6591,8 +6921,10 @@ def main() -> int:
         "launches": (launches_gc + launches_gf + launches_gt + launches_gtc
                      + launches_gfr + launches_grt + launches_gcr
                      + l17["f32"] + asym["k5"] + p23["k5"] + p24["k5"]
-                     + p27["k5"] + p28["k5"] + p29["k5"] + p30["k5"]),
-        "max_abs_err": max(k5_err, err_f, err_b, k5r_err, k5_err27, sub_err),
+                     + p27["k5"] + p28["k5"] + p29["k5"] + p30["k5"]
+                     + p31["k5"]),
+        "max_abs_err": max(k5_err, err_f, err_b, k5r_err, k5_err27, sub_err,
+                           r31["rank"]["err"]["k5"]),
         "ms": gat_fwd["ms"],
         "plain_ms": gat_fwd["plain_ms"],
         "bound_ms": gat_fwd["bound_ms"],
@@ -6605,7 +6937,7 @@ def main() -> int:
         "replaces": "sgcn_tpu/models/gat.py:637-687",
         "launches": (bwd_gt + bwd_gtc + bwd_grt + bwd_gcr + p23["gat_bwd"]
                      + p24["gat_bwd"] + p27["gat_bwd"] + p29["gat_bwd"]
-                     + p30["gat_bwd"]),
+                     + p30["gat_bwd"] + p31["gat_bwd"]),
         "max_abs_err": max(err_b, k5r_err),
         "ms": gat_bwd["ms"],
         "plain_ms": gat_bwd["plain_ms"],
@@ -6656,15 +6988,16 @@ def main() -> int:
         "library_ms": k6["library_ms"],
     }, {
         # K1's own family entry on bf16 tables: its main-path launches
-        # are the asymmetric compute_dtype backward's (the symmetric
+        # are the asymmetric compute_dtype backward's and phase 31's (the
+        # rank path's two passes under compute_dtype; the stacked
         # compute_dtype path runs it inside the fused bf16 entry); the
         # times are its own family launches at the flagship layer
         "name": "tile_spmm_bf16",
         "route": "cuda",
         "source": "sgcn_tpu_torch/csrc/tile_spmm.cu",
         "replaces": "sgcn_tpu/ops/pallas_spmm.py:203",
-        "launches": asym["k1_bf16"],
-        "max_abs_err": max(err16["k1"], err15),
+        "launches": asym["k1_bf16"] + p31["k1_bf16"],
+        "max_abs_err": max(err16["k1"], err15, r31["rank"]["err"]["k1_bf16"]),
         "ms": k1_16["ms"],
         "plain_ms": k1_16["plain_ms"],
         "bound_ms": k1_16["bound_ms"],
@@ -6675,8 +7008,8 @@ def main() -> int:
         "route": "cuda",
         "source": "sgcn_tpu_torch/csrc/tile_spmm.cu",
         "replaces": "sgcn_tpu/ops/pallas_spmm.py:530-545",
-        "launches": l17["bf16"],
-        "max_abs_err": max(err16["k5"], err17),
+        "launches": l17["bf16"] + p31["k5_bf16"],
+        "max_abs_err": max(err16["k5"], err17, r31["rank"]["err"]["k5_bf16"]),
         "ms": k5_16["ms"],
         "plain_ms": k5_16["plain_ms"],
         "bound_ms": k5_16["bound_ms"],

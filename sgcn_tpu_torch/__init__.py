@@ -23,8 +23,10 @@ checkpoint with hot swap (``serve/engine.py``).
 All ``k`` parts run stacked along a leading axis in one process on one
 device (``ops/pspmm.py::halo_exchange`` and ``ring_concat`` are the one
 place that knows), or one process per part on a ``torch.distributed``
-group (``parallel/mesh.py``, ``FullBatchTrainer(mesh=...)``, GCN); one
-part's share runs alone through ``parallel/proxy.py``.  The CAGNET
+group (``parallel/mesh.py``, ``FullBatchTrainer(mesh=...)``, GCN and
+GAT), opened by the train CLI from ``torchrun``'s or SLURM's environment
+(``parallel/launch.py``, ``launch/gpu.slurm``); one part's share runs
+alone through ``parallel/proxy.py``.  The CAGNET
 broadcast baseline is ``baselines/cagnet1d.py``.
 
 Entry points run on ``cuda`` unless the caller asks for ``device="cpu"``;

@@ -29,6 +29,17 @@ Both transports: the dense a2a exchange and the ragged ring
 ring_concat`` and the pass reads ``[local ‖ ring concat]``), bit for bit
 the same.
 
+One process per part (``mesh``, a ``parallel/mesh.py::RankGroup``; ROADMAP
+A2c): each rank holds its slice of the plan and its own ``(1, B, f)``
+rows; every table the layer exchanges, forward and backward, rides
+``ops/pspmm.py::rank_halo_exchange`` (the rank's pack and collective,
+then on the a2a the second pack by the slice's ``halo_src_flat``) in the
+same table form on the same wire, and the stabilizer ``C`` is the
+all-reduced max (``RankGroup.all_reduce_max``, the reference's ``pmax``),
+so a rank's rows equal the stacked layer's bit for bit.  K5 reads a row's
+local and halo in-edges in one chain per element, so each pass waits for
+its exchange: nothing overlaps the exchange on this path.
+
 Mixed precision (``compute_dtype='bfloat16'``, the reference's
 ``--dtype bfloat16``): each layer casts ``w``, ``a2`` and ``h`` to bf16
 inside ``GatLayerSym`` (``z = h·w`` in bf16; the scores' ``u`` and the
@@ -72,7 +83,8 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from ..ops.pspmm import halo_exchange, narrow_dtype, ring_concat
+from ..ops.pspmm import (halo_exchange, narrow_dtype, rank_halo_exchange,
+                         ring_concat)
 from ..ops.tile_spmm import (gat_tiles_pass, k5_launches,
                              pspmm_tiles_transposed)
 from .activations import get_activation
@@ -236,7 +248,7 @@ def edge_softmax(scores, edge_mask, edge_dst, num_rows: int):
 
 
 def _gat_tiles_aggregate(p, s, form, ex_src, halo_src_flat, csrc, cld, cw,
-                         tb, cclasses, rr_sizes=None):
+                         tb, cclasses, rr_sizes=None, mesh=None):
     """Masked Σ over every row's in-edges of ``[p ‖ s]`` — the reference's
     ``_gat_pallas_aggregate``.  ``p``: ``(k, b, fout)``, ``s``: ``(k, b)``.
     ``form='fused'`` exchanges one ``(k, b, fout+1)`` table and runs ONE
@@ -262,14 +274,26 @@ def _gat_tiles_aggregate(p, s, form, ex_src, halo_src_flat, csrc, cld, cw,
     concat]`` (one row pack).  The split form ships ONE ring of ``[p ‖ s]`` (the
     reference's two-lane ring) and cuts it into the two tables with a
     ``cat``, which also makes the kernel's tables row-major.  Same bits as
-    the a2a flavor.  Returns ``(N (k, b, fout), D (k, b))``."""
+    the a2a flavor.  ``mesh`` (a ``RankGroup``): one rank's part, every
+    table through ``rank_halo_exchange`` (the slice's ``recv_src`` or
+    ``ring_src``, its re-based ``halo_src_flat``).  Returns ``(N (k, b,
+    fout), D (k, b))``."""
     b, fout = p.shape[1], p.shape[2]
     ragged = rr_sizes is not None
+    if mesh is not None:
+        def exchange(t):
+            return rank_halo_exchange(t, ex_src, halo_src_flat, mesh,
+                                      rr_sizes)
+    elif ragged:
+        def exchange(t):
+            return ring_concat(t, ex_src, rr_sizes)
+    else:
+        def exchange(t):
+            return halo_exchange(t, ex_src, halo_src_flat)
     if form == "packed":
         half = fout // 2
         table = torch.cat([_pack_rows(p), s[..., None]], dim=-1)
-        halo = (ring_concat(table, ex_src, rr_sizes) if ragged
-                else halo_exchange(table, ex_src, halo_src_flat))
+        halo = exchange(table)
         full_p = torch.cat([p, _unpack_rows(halo[..., :half])], dim=1)
         full_u = torch.cat([s, halo[..., half]], dim=1)
         num = gat_tiles_pass(csrc, cld, cw, full_p, cclasses, tb, b)
@@ -278,24 +302,19 @@ def _gat_tiles_aggregate(p, s, form, ex_src, halo_src_flat, csrc, cld, cw,
         return num, den
     if form == "fused":
         table = torch.cat([p, s[..., None]], dim=-1)
-        halo = (ring_concat(table, ex_src, rr_sizes) if ragged
-                else halo_exchange(table, ex_src, halo_src_flat))
-        full = torch.cat([table, halo], dim=1)       # (k, B+R, fout+1)
+        full = torch.cat([table, exchange(table)], dim=1)  # (k, B+R, fout+1)
         out = gat_tiles_pass(csrc, cld, cw, full, cclasses, tb, b)
         return out[..., :fout], out[..., fout]
     if form != "split":
         raise ValueError(f"the tile GAT pass takes the fused, split and "
                          f"packed table forms, not {form!r}")
     if ragged:
-        ring = ring_concat(torch.cat([p, s[..., None]], dim=-1), ex_src,
-                           rr_sizes)
+        ring = exchange(torch.cat([p, s[..., None]], dim=-1))
         full_p = torch.cat([p, ring[..., :fout]], dim=1)
         full_u = torch.cat([s, ring[..., fout]], dim=1)
     else:
-        full_p = torch.cat([p, halo_exchange(p, ex_src, halo_src_flat)],
-                           dim=1)
-        full_u = torch.cat([s, halo_exchange(s, ex_src, halo_src_flat)],
-                           dim=1)
+        full_p = torch.cat([p, exchange(p)], dim=1)
+        full_u = torch.cat([s, exchange(s)], dim=1)
     num = gat_tiles_pass(csrc, cld, cw, full_p, cclasses, tb, b)
     den = gat_tiles_pass(csrc, cld, cw, full_u[..., None], cclasses, tb,
                          b)[..., 0]
@@ -336,12 +355,13 @@ def _gat_tiles_aggregate_T(p, s, form, tl, th, t1, rev, tlclasses,
 
 def _gat_factored_fwd_core(w, a2, h, ex_src, halo_src_flat, csrc, cld, cw,
                            row_valid, tb, cclasses, form=None,
-                           rr_sizes=None):
+                           rr_sizes=None, mesh=None):
     """The factored layer over stacked parts: returns
     ``(out, z, u, den, cg)``.  ``cg`` is the max of ``z2`` over every
     part's real rows (the reference's ``pmax``, pad rows excluded),
     without gradient: ``out`` is exactly invariant to it.  ``rr_sizes``
-    selects the ragged ring (``_gat_tiles_aggregate``).  ``w``, ``a2``
+    selects the ragged ring (``_gat_tiles_aggregate``); ``mesh`` one
+    rank's part, ``cg`` then the max over the ranks.  ``w``, ``a2``
     and ``h`` in bf16 run the layer in bf16 (``z`` bf16; ``u``, ``cg``,
     the sums and ``out`` float32, as in the reference)."""
     z = h @ w
@@ -349,6 +369,8 @@ def _gat_factored_fwd_core(w, a2, h, ex_src, halo_src_flat, csrc, cld, cw,
     z2m = torch.where(row_valid > 0, z2.detach(),
                       torch.full_like(z2, -math.inf))
     cg = z2m.max()
+    if mesh is not None:
+        cg = mesh.all_reduce_max(cg)
     u = torch.exp(z2 - cg)                           # (k, b) in (0, 1]
     if form is None:
         form = gat_table_form(z.shape[-1], z.dtype)
@@ -357,7 +379,7 @@ def _gat_factored_fwd_core(w, a2, h, ex_src, halo_src_flat, csrc, cld, cw,
     s = u if form == "packed" else u.to(z.dtype)
     num, den = _gat_tiles_aggregate(u.to(z.dtype)[..., None] * z, s, form,
                                     ex_src, halo_src_flat, csrc, cld, cw,
-                                    tb, cclasses, rr_sizes)
+                                    tb, cclasses, rr_sizes, mesh)
     # max(den, tiny): u > 0 on every real edge, so this stays exact until
     # genuine f32 underflow; the reference's guard, kept as it is
     out = num / torch.clamp(den, min=1e-30)[..., None]
@@ -390,14 +412,17 @@ class GatLayerSym(torch.autograd.Function):
 
     ``GatLayerSym.backward_launches`` counts the kernel launches the
     backward made (CUDA tensors only).  ``stabilizers``, a list, receives
-    the layer's ``cg`` (``gat_forward_local(collect_stabilizers=True)``)."""
+    the layer's ``cg`` (``gat_forward_local(collect_stabilizers=True)``).
+    ``mesh`` (a ``RankGroup``): one rank's part; ``dn``/``dd`` ride the
+    same rank exchange, and ``dw``/``da2`` are the rank's share (the
+    trainer all-reduces them)."""
 
     backward_launches = 0
 
     @staticmethod
     def forward(ctx, w, a1, a2, h, ex_src, halo_src_flat, csrc, cld, cw,
                 row_valid, tb, cclasses, form=None, rr_sizes=None,
-                compute_dtype=None, stabilizers=None):
+                compute_dtype=None, stabilizers=None, mesh=None):
         dt = narrow_dtype(compute_dtype, "compute_dtype")
         dtypes = (w.dtype, a2.dtype, h.dtype)
         if dt is not None:
@@ -406,12 +431,12 @@ class GatLayerSym(torch.autograd.Function):
             form = gat_table_form(w.shape[1], w.dtype)
         out, _z, _u, den, cg = _gat_factored_fwd_core(
             w, a2, h, ex_src, halo_src_flat, csrc, cld, cw, row_valid, tb,
-            cclasses, form, rr_sizes)
+            cclasses, form, rr_sizes, mesh)
         if stabilizers is not None:
             stabilizers.append(cg)
         ctx.save_for_backward(w, a1, a2, h, cg, den, out, ex_src,
                               halo_src_flat, csrc, cld, cw)
-        ctx.static = (tb, cclasses, form, rr_sizes, dtypes)
+        ctx.static = (tb, cclasses, form, rr_sizes, dtypes, mesh)
         return out
 
     @staticmethod
@@ -420,14 +445,14 @@ class GatLayerSym(torch.autograd.Function):
         # (the trainer's remat) unpacks each saved tensor once only
         saved = ctx.saved_tensors
         ex_src, halo_src_flat, csrc, cld, cw = saved[7:]
-        tb, cclasses, form, rr_sizes, _dtypes = ctx.static
+        tb, cclasses, form, rr_sizes, _dtypes, mesh = ctx.static
         before = k5_launches()
         grads = _gat_layer_grads(
             ctx, saved, gbar, lambda dn, dd: _gat_tiles_aggregate(
                 dn, dd, form, ex_src, halo_src_flat, csrc, cld, cw, tb,
-                cclasses, rr_sizes))
+                cclasses, rr_sizes, mesh))
         GatLayerSym.backward_launches += k5_launches() - before
-        return grads + (None,) * 12
+        return grads + (None,) * 13
 
 
 def _gat_layer_grads(ctx, saved, gbar, aggregate):
@@ -520,6 +545,7 @@ def gat_forward_local(
     pallas_tc1classes: tuple = (),
     collect_stabilizers: bool = False,  # also return the per-layer cg
     remat: bool = False,            # recompute each layer in the backward
+    mesh=None,                      # a RankGroup: one process per part
 ):
     """Stacked forward: L × (``GatLayerSym`` → activation) →
     ``(k, B, nout)`` float32.  The reference stacks bare PGAT layers (no
@@ -533,7 +559,15 @@ def gat_forward_local(
     ``collect_stabilizers=True`` returns ``(out, cgs)``: ``cgs`` the
     ``(L,)`` float32 softmax stabilizers the layers used (each the max of
     ``z2`` over every part's real rows).  ``remat=True`` (with autograd
-    recording) checkpoints each layer as ``gcn_forward_local`` does."""
+    recording) checkpoints each layer as ``gcn_forward_local`` does: the
+    backward re-runs each layer's exchanges (on ranks, its collectives,
+    in the same order on every rank).  ``mesh`` (a ``RankGroup``): one
+    process per part, ``h`` the rank's ``(1, B, f)`` rows and ``pa`` its
+    slice's tensors, symmetric plans only; the same bits as the stacked
+    forward's row for that part."""
+    if mesh is not None and not symmetric:
+        raise ValueError("the rank path runs the GAT on a symmetric plan "
+                         "(ROADMAP A2c)")
     if not symmetric and comm_schedule != "a2a":
         raise ValueError(
             "comm_schedule='ragged' uses the symmetric custom backward (the "
@@ -567,7 +601,7 @@ def gat_forward_local(
                      pa["row_valid"], pallas_tb, pallas_cclasses)
         if symmetric:
             h = GatLayerSym.apply(*plan_args, None, rr_sizes, compute_dtype,
-                                  cgs)
+                                  cgs, mesh)
         else:
             h = GatLayerGen.apply(*plan_args, transposed, None,
                                   compute_dtype, cgs)

@@ -131,8 +131,12 @@ def gcn_forward_local(
     ``mesh`` (a ``parallel/mesh.py::RankGroup``): one process per part,
     ``h`` the rank's ``(1, B, f)`` rows and ``pa`` its slice's tensors;
     each aggregation is ``pspmm_tiles_ranks`` on either transport (its
-    exchange overlapped with the local pass), the same bits as the
-    stacked forward's row for that part."""
+    exchange overlapped with the local pass; under ``compute_dtype`` K1's
+    bf16 family entry in two launches, then one float32 add and one
+    rounding to bf16: the fused bf16 entry's arithmetic), the same bits
+    as the stacked forward's row for that part.  Under ``remat`` the
+    checkpoint re-runs each layer's collectives in the backward, in the
+    same order on every rank."""
     act = get_activation(activation)
     fact = get_activation(final_activation)
     nl = len(params)
@@ -142,9 +146,9 @@ def gcn_forward_local(
         h = h.to(dt)
 
     if mesh is not None:
-        if not symmetric or dt is not None:
-            raise ValueError("the rank path runs the symmetric float32 GCN "
-                             "(ROADMAP A2c)")
+        if not symmetric:
+            raise ValueError("the rank path runs the GCN on a symmetric "
+                             "plan (ROADMAP A2c)")
         if comm_schedule == "ragged" and rr_sizes is None:
             raise ValueError("the ragged GCN forward needs the plan's "
                              "static rr_sizes (CommPlan.ensure_ragged)")

@@ -11,8 +11,11 @@ One ``RunRecorder`` per run directory (``--metrics-out DIR``):
     ``serve``/``checkpoint``/``resume``/``swap``/``memory``/``summary``),
     appended and flushed per event.
   * ``heartbeat.jsonl`` — liveness pings of other layers and processes
-    (``load_run`` reads the file where one exists; no port layer writes
-    one yet).
+    (``heartbeat()`` below, through ``$SGCN_METRICS_OUT``): the launch
+    rendezvous (``parallel/launch.py``) and the train CLI's phases, from
+    every rank, so an operator tells "slow" (heartbeats advancing) from
+    "stalled" (the last one stale, ``resilience/faults.py::
+    classify_stall``) without a debugger.
 
 Every record is validated against ``schema`` (the reference's copy) before
 it is written, and ``load_run`` re-validates on read, so a directory the
@@ -22,8 +25,9 @@ for byte: a checkpoint records it as provenance, and a file written by
 either package is verified against the other's plan.
 
 ``set_backend`` records the torch device in place of the reference's jax
-mesh: ``platform`` (``gpu`` or ``cpu``), ``device_count`` (1: the port
-stacks all ``k`` parts on one device) and ``process_count`` under the
+mesh: ``platform`` (``gpu`` or ``cpu``), ``device_count`` and
+``process_count`` (1 when the port stacks all ``k`` parts on one device;
+the world size on a rank group, one device per rank) under the
 reference's keys, and beside them the device ``kind``
 (``torch.cuda.get_device_name``), the ``count`` of devices the machine
 shows and the ``parts`` stacked on the one the run uses.
@@ -149,10 +153,12 @@ class RunRecorder:
         self.manifest["memory"] = _jsonable(block)
         self._write_manifest()
 
-    def set_backend(self, device=None, parts: int | None = None) -> None:
+    def set_backend(self, device=None, parts: int | None = None,
+                    processes: int = 1) -> None:
         """Record the torch device the run uses (``None``: the current
         CUDA device if there is one, else the CPU) and, given ``parts``,
-        the ``k`` parts stacked on it."""
+        the ``k`` parts stacked on it; ``processes`` > 1: one process per
+        part (a rank group), each on its own device."""
         import torch
 
         dev = torch.device(device if device is not None else
@@ -160,15 +166,16 @@ class RunRecorder:
         gpu = dev.type == "cuda"
         backend = {
             "platform": "gpu" if gpu else "cpu",
-            "device_count": 1,
-            "process_count": 1,
+            "device_count": int(processes),
+            "process_count": int(processes),
             "kind": torch.cuda.get_device_name(dev) if gpu else "cpu",
         }
         # the devices the machine shows (the contract line's ``count``)
         backend["count"] = torch.cuda.device_count() if gpu else 1
         if parts is not None:
             backend["parts"] = int(parts)
-            backend["layout"] = "stacked"      # all k parts on one device
+            # all k parts on one device, or one rank per part
+            backend["layout"] = "stacked" if processes == 1 else "ranks"
         self.manifest["backend"] = backend
         self._write_manifest()
 
@@ -305,6 +312,36 @@ class RunRecorder:
     def __exit__(self, *exc):
         self.close()
         return False
+
+
+# ------------------------------------------------- out-of-recorder emission
+def append_env_event(filename: str, ev: dict) -> None:
+    """Validate and append one event to ``$SGCN_METRICS_OUT/<filename>``,
+    the one emission path outside a recorder.  A no-op unless the variable
+    names a directory; best effort: an ``OSError`` (a full disk) or a
+    ``ValueError`` (an invalid event) does not kill the run it observes."""
+    outdir = os.environ.get("SGCN_METRICS_OUT")
+    if not outdir:
+        return
+    try:
+        schema.validate_event(ev)
+        os.makedirs(outdir, exist_ok=True)
+        with open(os.path.join(outdir, filename), "a") as fh:
+            fh.write(json.dumps(_jsonable(ev)) + "\n")
+    except (OSError, ValueError):
+        pass
+
+
+def heartbeat(event: str, **fields) -> None:
+    """Append a liveness ping to ``$SGCN_METRICS_OUT/heartbeat.jsonl``
+    (``pid`` and ``ts`` added; ``phase``/``detail`` optional).  A no-op
+    without the variable, so callers ping at phase boundaries
+    unconditionally and pay nothing when telemetry is off."""
+    if not os.environ.get("SGCN_METRICS_OUT"):
+        return
+    append_env_event(schema.HEARTBEAT_NAME, {
+        "v": schema.SCHEMA_VERSION, "ts": time.time(), "kind": "heartbeat",
+        "event": str(event), "pid": os.getpid(), **fields})
 
 
 # -------------------------------------------------------------------- loader

@@ -22,7 +22,9 @@ here are the one place that knows the layout.  With one process per part
 (``parallel/proxy.py``), whose ``recv_src`` is its send pack's index
 (``send_idx[c]`` in peer order), ``torch.distributed.all_to_all_single``
 takes the place of the stacked layout's transpose, and the ring's rounds
-become ``batch_isend_irecv``; the receive layouts are the same.
+become ``batch_isend_irecv``; the receive layouts are the same.  A GAT table's
+exchange on a rank is ``rank_halo_exchange``: the same collective, then
+the a2a's second pack by the slice's ``halo_src_flat``.
 
 An asymmetric Â (a directed graph) sends each aggregation's backward the
 other way: every part's halo rows' partial gradients, laid out in its
@@ -237,6 +239,25 @@ def rank_exchange(h, send_flat, mesh, halo_dtype=None, rr_sizes=None):
         for w in works:
             w.wait()
     return recv, wait
+
+
+def rank_halo_exchange(h, send_flat, halo_src_flat, mesh, rr_sizes=None):
+    """One rank's halo rows of a GAT table (the rank form of
+    ``halo_exchange`` and, with ``rr_sizes``, of ``ring_concat``): the
+    exchange (``rank_exchange``), waited on at once, then on the a2a the
+    second row pack of the receive layout by the rank's re-based
+    ``halo_src_flat`` (``halo_src[c]``: positions in its own ``(k·S)``
+    window), upcast to ``h``'s dtype.  Returns ``(1, R, f)`` (or ``(1,
+    R)``) halo rows, or on the ring the ``(1, ΣS_d, f)`` concat: the
+    stacked functions' row for this rank, bit for bit.
+
+    The GAT pass reads a row's local and halo in-edges in one chain, so
+    nothing overlaps this exchange: the caller's K5 launch waits for it."""
+    recv, wait = rank_exchange(h, send_flat, mesh, None, rr_sizes)
+    wait()
+    if rr_sizes is not None:
+        return recv
+    return row_pack(recv, halo_src_flat, h.dtype)
 
 
 def _stale_step(exchange, x, carry_in, delta, wire_dtype, fresh):

@@ -929,7 +929,9 @@ def pspmm_tiles_ranks(h, pa, tb: int, lclasses, hclasses, mesh,
     """Â·h on one rank of a rank group (``PspmmTilesRanks``): ``pa`` the
     rank's slice tensors (``TILE_PLAN_FIELDS``, or
     ``TILE_PLAN_FIELDS_RAGGED`` with ``rr_sizes``), ``h`` ``(1, B, f)``
-    float32.  Returns ``(1, B, f)``; differentiable in ``h``."""
+    float32 or bfloat16 (``compute_dtype``: the bf16 wire, K1's bf16
+    family entry in both launches).  Returns ``(1, B, f)`` in ``h``'s
+    dtype; differentiable in ``h``."""
     if rr_sizes is None:
         send, hsrc = pa["recv_src"], pa["ptile_hwsrc"]
     else:

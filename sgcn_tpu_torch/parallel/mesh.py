@@ -5,9 +5,10 @@ The reference's process topology is flat: k MPI ranks or k
 ``torch.distributed`` workers, one graph part each
 (``Parallel-GCN/main.c:101-103``, ``GPU/PGCN.py:241-253``); the JAX
 package's counterpart is a 1-D device mesh.  Here it is a
-``torch.distributed`` process group opened with an explicit
-``init_method``, world size and rank (nothing is read from the
-environment), NCCL on cards and gloo on the CPU.  Rank ``r`` holds part
+``torch.distributed`` process group opened with an ``init_method``, world
+size and rank given explicitly (``parallel/launch.py::init_distributed``
+resolves them from ``torchrun``'s or SLURM's environment), NCCL on cards
+and gloo on the CPU.  Rank ``r`` holds part
 ``r`` of a k-way plan (``world_size == k``); a one-rank group may hold any
 one part's slice (``parallel/proxy.py``), whose exchange is then the
 loopback through the collective.  ``FullBatchTrainer(mesh=...)`` and
@@ -48,6 +49,14 @@ class RankGroup:
         dist.all_reduce(out, op=dist.ReduceOp.SUM)
         return out
 
+    def all_reduce_max(self, t: torch.Tensor) -> torch.Tensor:
+        """The maximum of ``t`` over the ranks, as a new tensor (no
+        gradient): the reference's ``lax.pmax`` (GAT's softmax
+        stabilizer).  Exact, so every rank holds the stacked max's bits."""
+        out = t.detach().clone()
+        dist.all_reduce(out, op=dist.ReduceOp.MAX)
+        return out
+
     def all_gather(self, t: torch.Tensor) -> torch.Tensor:
         """Every rank's ``t`` stacked along the first axis, in rank
         order: ``(size·N, ...)`` for an ``(N, ...)`` ``t`` (one
@@ -63,18 +72,22 @@ class RankGroup:
 
 
 def init_rank_group(init_method: str, world_size: int, rank: int,
-                    device=None) -> RankGroup:
+                    device=None, timeout=None) -> RankGroup:
     """Open the default process group with an explicit rendezvous:
-    ``init_method`` (``file://<path>`` or ``tcp://localhost:<port>``),
-    ``world_size`` and ``rank``.  NCCL on a CUDA ``device`` (``None``
-    means ``cuda:<rank>``, made the current device), gloo on the CPU."""
+    ``init_method`` (``file://<path>``, ``tcp://<host>:<port>`` or
+    ``env://``: ``MASTER_ADDR``/``MASTER_PORT``, as ``torchrun`` sets
+    them), ``world_size`` and ``rank``.  NCCL on a CUDA ``device``
+    (``None`` means ``cuda:<rank>``, made the current device), gloo on the
+    CPU.  ``timeout`` (a ``datetime.timedelta``) bounds the rendezvous
+    and each collective; ``None`` keeps torch's default."""
     dev = torch.device(f"cuda:{rank}" if device is None else device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError("a CUDA rank group needs a GPU: pass "
                                "device='cpu' for gloo ranks")
         torch.cuda.set_device(dev)
+    kw = {} if timeout is None else {"timeout": timeout}
     dist.init_process_group("nccl" if dev.type == "cuda" else "gloo",
                             init_method=init_method, world_size=world_size,
-                            rank=rank)
+                            rank=rank, **kw)
     return RankGroup(rank, world_size, dev)

@@ -28,9 +28,11 @@ uninterrupted run.
     multichip dryrun hooks ``'dryrun'``; a stalled child stops
     heartbeating, which is exactly what the parent's stalled-vs-slow
     classifier (``classify_stall``) must distinguish from a merely slow
-    child whose heartbeats keep advancing.  The port has no heartbeat
-    writer yet (ROADMAP A10); ``classify_stall`` reads the reference's
-    ``heartbeat.jsonl`` layout.
+    child whose heartbeats keep advancing.  The port's writer is
+    ``obs/recorder.py::heartbeat`` (the launch rendezvous and the train
+    CLI's phases, every rank, through ``$SGCN_METRICS_OUT``), and
+    ``classify_stall`` reads its ``heartbeat.jsonl`` — the reference's
+    layout, so it reads the reference's files too.
 """
 
 from __future__ import annotations

@@ -77,7 +77,9 @@ def run_resumable(trainer, data, total_steps: int, *, manager=None,
             save_and_record(manager, trainer, done,
                             recorder=getattr(trainer, "recorder", None))
     elapsed = time.perf_counter() - t0
-    report = trainer.stats.report()
+    # the whole run's figures (a rank's trainer books its own part's)
+    report = (trainer.job_report() if hasattr(trainer, "job_report")
+              else trainer.stats.report())
     steps_run = total_steps - start_step
     report.update(
         steps=total_steps,

@@ -43,7 +43,17 @@ fresh start.  ``--metrics-out DIR`` writes the run's telemetry
 ``--profile DIR`` a ``torch.profiler`` chrome trace of the run (the
 manifest records it under ``--metrics-out``), and ``--memory-budget
 BYTES`` fails a mode whose analytic device footprint exceeds the budget
-before any tensor ships.  Prints ONE JSON line: the
+before any tensor ships.  Launched by ``torchrun`` or under SLURM
+(``launch/gpu.slurm``), the CLI opens a rank group first
+(``parallel/launch.py::init_distributed``; one process is the stacked
+layout): a world of ``-s K`` processes trains one part per rank (GCN and
+GAT, ``--dtype``, ``--halo-dtype``, both transports), rank 0 alone
+prints, records ``--metrics-out`` and saves, every rank restores, and
+every rank appends its rendezvous and ``train:start|done`` heartbeats
+to ``--metrics-out``'s ``heartbeat.jsonl``; another world size, and
+``-n``, ``--experiment accuracy``, ``--halo-staleness``,
+``--replica-budget`` or a directed graph on ranks, exit with the
+reason.  Prints ONE JSON line: the
 comm report and epoch timing under the reference's keys (in the stale
 mode with its hidden/exposed split, the stale flags and the controller's
 log; in the replica mode its replica figures and flags) (with
@@ -56,6 +66,7 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
 import sys
 
 
@@ -479,30 +490,98 @@ def main(argv=None) -> None:
     activation = args.activation or MODELS[args.model].activation
 
     device = resolve_device(args.device)
-    inputs = load_inputs(args)
-    recorder = None
+    # the heartbeats (obs/recorder.py::heartbeat) read this variable: set
+    # before the rendezvous so its pings land in the run directory, and
+    # put back after the run for an in-process caller
+    before = os.environ.get("SGCN_METRICS_OUT")
     if args.metrics_out:
-        from ..obs import RunRecorder
-        recorder = RunRecorder(args.metrics_out, config=vars(args))
-        recorder.set_backend(device)
+        os.environ["SGCN_METRICS_OUT"] = args.metrics_out
     try:
-        report = _train(args, device, activation, recorder, inputs)
+        report, lead = _launched_run(args, device, activation)
     finally:
-        if recorder is not None:
-            recorder.close()
-    print(json.dumps(report), flush=True)
+        if args.metrics_out and before is None:
+            os.environ.pop("SGCN_METRICS_OUT", None)
+        elif args.metrics_out:
+            os.environ["SGCN_METRICS_OUT"] = before
+    if lead:
+        print(json.dumps(report), flush=True)
 
 
-def _train(args, device, activation, recorder, inputs) -> dict:
+def _launched_run(args, device, activation):
+    """The run inside the launcher's rendezvous (a no-op for one
+    process; ``torchrun``'s or SLURM's otherwise, ``parallel/launch.py``),
+    its phases bracketed by heartbeats on every rank.  Returns ``(report,
+    whether this process prints it)``: rank 0 alone prints, and owns the
+    run directory's recorder (the reference's ``GPU/PGCN.py:226-238``)."""
+    from ..obs.recorder import heartbeat
+    from ..parallel.launch import init_distributed
+    from ..utils.backend import resolve_device
+
+    ctx = init_distributed(device=args.device)
+    try:
+        mesh = _rank_group(args, ctx)
+        if mesh is not None:
+            device = resolve_device(mesh.device)
+        inputs = load_inputs(args)
+        where = f"rank {ctx.process_id}/{ctx.num_processes}"
+        heartbeat("train:start", phase="train", detail=where)
+        recorder = None
+        if args.metrics_out and ctx.is_coordinator:
+            from ..obs import RunRecorder
+            recorder = RunRecorder(args.metrics_out, config=vars(args))
+            recorder.set_backend(device)
+        try:
+            report = _train(args, device, activation, recorder, inputs,
+                            mesh)
+        finally:
+            if recorder is not None:
+                recorder.close()
+        heartbeat("train:done", phase="train", detail=where)
+    finally:
+        ctx.close()
+    return report, ctx.is_coordinator
+
+
+def _rank_group(args, ctx):
+    """The run's ``RankGroup`` (one process per part) or ``None`` (one
+    process: the stacked layout); exits for another world size and for
+    the modes that never reach the rank trainer (ROADMAP A2c): the
+    mini-batch trainer and the accuracy harness.  The trainer's own guard
+    (``check_rank_levers``, turned into an exit by ``_train``) covers the
+    stale halo, replicas and directed plans."""
+    from ..parallel.launch import global_mesh_1d
+
+    if ctx.num_processes == 1:
+        return None
+    try:
+        mesh = global_mesh_1d(args.nparts, ctx)
+    except ValueError as e:
+        raise SystemExit(str(e)) from e
+    for bad, what in ((args.batch_size is not None, "-n/--batch-size"),
+                      (args.experiment == "accuracy",
+                       "--experiment accuracy")):
+        if bad:
+            raise SystemExit(
+                f"{what} does not run on {ctx.num_processes} ranks yet "
+                "(ROADMAP A2c): the rank path trains the exact full-batch "
+                "GCN and GAT on a symmetric adjacency; launch one process "
+                "for the stacked layout")
+    return mesh
+
+
+def _train(args, device, activation, recorder, inputs, mesh=None) -> dict:
     """Run the asked experiment on the loaded ``inputs`` under
     ``--profile``; returns the end-of-run report (the trainers write their
-    events to ``recorder``)."""
+    events to ``recorder``).  ``mesh``: one process per part — this
+    rank's part of the full-batch trainer; only rank 0 saves."""
     from ..obs.memory import MemoryBudgetError
     from ..obs.tracing import profile_to
     from ..parallel.plan import build_comm_plan
-    from .fullbatch import FullBatchTrainer, make_train_data
+    from .fullbatch import (FullBatchTrainer, make_train_data,
+                            make_train_data_multihost)
 
     a, feats, labels, pv, k, f, widths = inputs
+    lead = mesh is None or mesh.rank == 0
 
     if args.experiment == "accuracy":
         from ..io.datasets import planetoid_split
@@ -536,6 +615,8 @@ def _train(args, device, activation, recorder, inputs) -> dict:
         report.pop("loss_history", None)
         return report
 
+    # on ranks every process builds the full plan and the trainer keeps
+    # its part's slice (train/fullbatch.py)
     plan = build_comm_plan(a, pv, k)
     try:
         tr = FullBatchTrainer(plan, fin=f, widths=widths, lr=args.lr,
@@ -550,13 +631,20 @@ def _train(args, device, activation, recorder, inputs) -> dict:
                               replica_budget=args.replica_budget,
                               refresh_band=args.refresh_band,
                               memory_budget=args.memory_budget,
-                              device=device)
+                              device=device, mesh=mesh)
     except MemoryBudgetError as e:
+        raise SystemExit(str(e)) from e
+    except ValueError as e:
+        if mesh is None:
+            raise
+        # a mode the rank path does not run yet (ROADMAP A2c: the stale
+        # halo, replicas, a directed plan)
         raise SystemExit(str(e)) from e
     if recorder is not None:
         recorder.set_plan(plan, partitioner={"partvec": args.partvec,
                                              "k": k})
-        recorder.set_backend(device, parts=k)
+        recorder.set_backend(device, parts=k,
+                             processes=1 if mesh is None else mesh.size)
         tr.attach_recorder(recorder)
     # durable checkpointing: one manager per checkpoint directory
     mgr = None
@@ -571,19 +659,23 @@ def _train(args, device, activation, recorder, inputs) -> dict:
     elif args.resume:
         from ..utils.checkpoint import load_checkpoint
         start_step = load_checkpoint(tr, args.resume)
-    data = make_train_data(plan, feats, labels, device=device)
+    data = (make_train_data(plan, feats, labels, device=device)
+            if mesh is None else
+            make_train_data_multihost(plan, mesh, feats, labels))
     with profile_to(args.profile, device):
-        report = _fit(args, tr, data, mgr, start_step)
+        report = _fit(args, tr, data, mgr if lead else None, start_step,
+                      verbose=lead)
     if recorder is not None and args.profile:
         # the trace is written when the profiled block exits: now the
         # manifest can record its path and size
         recorder.set_profile(args.profile)
     if resumed is not None:
         report["resumed"] = resumed
-    if args.save_checkpoint:
-        # warm-up steps are real optimizer steps, so they count toward the
-        # saved step; --resume auto completes a FIXED total schedule, so
-        # its final step is absolute, not additive
+    if args.save_checkpoint and lead:
+        # rank 0 alone writes (the ranks hold the same weights and Adam
+        # state); warm-up steps are real optimizer steps, so they count
+        # toward the saved step; --resume auto completes a FIXED total
+        # schedule, so its final step is absolute, not additive
         from ..utils.checkpoint import save_checkpoint
         if args.resume == "auto":
             final_step = args.epochs + args.warmup
@@ -617,7 +709,7 @@ def _train(args, device, activation, recorder, inputs) -> dict:
     return report
 
 
-def _fit(args, tr, data, mgr, start_step: int) -> dict:
+def _fit(args, tr, data, mgr, start_step: int, verbose: bool = True) -> dict:
     """Train the full-batch schedule: ``fit`` (warm-up + timed epochs), or
     under ``--checkpoint-dir`` the resumable per-step loop with a durable
     checkpoint every N steps and the fault-injection kill point.
@@ -625,17 +717,21 @@ def _fit(args, tr, data, mgr, start_step: int) -> dict:
     schedule and the resumed process completes the remainder (the
     bit-identity contract).  Explicit ``--resume CKPT`` keeps its chained
     meaning (warmup + epochs MORE steps) but threads the loaded step
-    through, so the durable stamps continue the real step count."""
-    if mgr is None:
-        return tr.fit(data, epochs=args.epochs, warmup=args.warmup)
+    through, so the durable stamps continue the real step count.
+    ``mgr=None`` under ``--checkpoint-dir``: a rank other than 0 runs the
+    same loop and saves nothing; ``verbose`` prints the per-step lines
+    (rank 0 only)."""
+    if not args.checkpoint_dir:
+        return tr.fit(data, epochs=args.epochs, warmup=args.warmup,
+                      verbose=verbose)
     from ..resilience.runner import run_resumable
     total = args.warmup + args.epochs
     if args.resume and args.resume != "auto":
         total += start_step
     return run_resumable(
         tr, data, total, manager=mgr,
-        checkpoint_every=args.checkpoint_every,
-        start_step=start_step if args.resume else 0)
+        checkpoint_every=args.checkpoint_every if mgr is not None else 0,
+        start_step=start_step if args.resume else 0, verbose=verbose)
 
 
 if __name__ == "__main__":

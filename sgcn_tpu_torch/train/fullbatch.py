@@ -417,24 +417,24 @@ def check_carry_levers(model: str, symmetric: bool, halo_staleness: int,
                 "step); drop compute_dtype/remat or run exact mode")
 
 
-def check_rank_levers(plan, mesh, model: str, compute_dtype, remat: bool,
-                      halo_staleness: int, replica_budget) -> None:
-    """The rank path's scope (ROADMAP A2b): GCN on a symmetric plan,
-    exact mode, float32 (``halo_dtype`` allowed), both transports; a
-    ``k``-rank group on the full k-way plan, or one rank on a slice.  The
-    rest raises a ``ValueError`` naming ROADMAP A2c."""
-    for bad, what in ((model != "gcn", f"model={model!r}"),
-                      (not plan.symmetric, "an asymmetric plan (a directed "
+def check_rank_levers(plan, mesh, halo_staleness: int,
+                      replica_budget) -> None:
+    """The rank path's scope (ROADMAP A2b, A2c's first half): GCN or GAT
+    on a symmetric plan, exact mode, float32 or ``compute_dtype``, with or
+    without ``remat`` (``halo_dtype`` allowed for GCN), both transports;
+    a ``k``-rank group on the full k-way plan, or one rank on a slice.
+    The stale halo, replicas and an asymmetric plan raise a
+    ``ValueError`` naming ROADMAP A2c."""
+    for bad, what in ((not plan.symmetric, "an asymmetric plan (a directed "
                                            "graph)"),
-                      (compute_dtype is not None, "compute_dtype"),
-                      (bool(remat), "remat"),
                       (bool(halo_staleness), "halo_staleness"),
                       (bool(replica_budget), "replica_budget")):
         if bad:
             raise ValueError(
                 f"{what} does not run on a rank group yet (ROADMAP A2c): "
-                "the rank path trains the exact float32 GCN on a symmetric "
-                "plan; train it stacked or on a shard_proxy_plan slice")
+                "the rank path trains the exact GCN and GAT on a "
+                "symmetric plan; train it stacked or on a shard_proxy_plan "
+                "slice")
     want = 1 if plan.chip_ids is not None else plan.k
     if mesh.size != want:
         raise ValueError(
@@ -530,15 +530,17 @@ class FullBatchTrainer:
         layouts are built on it and the rank keeps its slice,
         ``parallel/proxy.py``); a one-rank group trains a slice given as
         ``plan``.  Each aggregation's exchange is a collective overlapped
-        with the local pass (``ops/tile_spmm.py::pspmm_tiles_ranks``), the
-        loss's count and every weight gradient are all-reduced.  GCN on a
-        symmetric plan, exact mode, float32 with or without
-        ``halo_dtype``, both transports; the rest raises (ROADMAP A2c).
-        ``device`` defaults to the group's; data comes from
-        ``make_train_data_multihost``."""
+        with the local pass (``ops/tile_spmm.py::pspmm_tiles_ranks``; a
+        GAT table's exchange, ``ops/pspmm.py::rank_halo_exchange``, is
+        waited on before K5), GAT's stabilizer is all-reduced to its max,
+        the loss's count and every weight gradient are all-reduced.  GCN
+        and GAT on a symmetric plan, exact mode, float32 or
+        ``compute_dtype``, with or without ``remat`` (``halo_dtype`` for
+        GCN), both transports; the stale halo, replicas and asymmetric
+        plans raise (ROADMAP A2c).  ``device`` defaults to the group's;
+        data comes from ``make_train_data_multihost``."""
         if mesh is not None:
-            check_rank_levers(plan, mesh, model, compute_dtype, remat,
-                              halo_staleness, replica_budget)
+            check_rank_levers(plan, mesh, halo_staleness, replica_budget)
         if halo_dtype is not None and model != "gcn":
             raise ValueError(
                 "halo_dtype is a GCN-trainer lever; for GAT use "
@@ -564,6 +566,9 @@ class FullBatchTrainer:
         self.mesh = mesh
         self.full_plan = plan
         if mesh is not None and plan.chip_ids is None:
+            # a checkpoint names the full plan, whichever rank writes or
+            # reads it (utils/checkpoint.py)
+            self.checkpoint_plan = plan
             plan = shard_proxy_plan(plan, mesh.rank)
         # the analytic footprint and the --memory-budget gate, before any
         # tensor ships (obs/memory.py); the allocator's state now is the
@@ -623,12 +628,13 @@ class FullBatchTrainer:
         # bytes under either bf16 lever, both directions, and the
         # halo-delta cache narrows the feature wire alone
         gcn = setup.model == "gcn"
-        self.stats = CommStats.from_plan(
-            plan, schedule=self.comm_schedule,
+        self._stats_args = dict(
+            schedule=self.comm_schedule,
             lane_widths=setup.lane_widths_fn(self.fin, self.widths,
                                              self.compute_dtype),
             wire_itemsize=2 if gcn and (narrowed or halo_delta) else 4,
             wire_itemsize_bwd=2 if gcn and narrowed else 4)
+        self.stats = CommStats.from_plan(plan, **self._stats_args)
         if self.replica_budget:
             self.stats.set_replica(plan)
         self.timer = PhaseTimer()
@@ -1334,6 +1340,25 @@ class FullBatchTrainer:
             out["refresh_kind"] = "full"
         return out
 
+    def job_report(self) -> dict:
+        """The comm report of the whole run: ``stats.report()``, and on
+        a ``k``-rank group the full plan's figures under this rank's
+        counters (every rank books the same exchanges), as the stacked
+        trainer reports them, the byte totals summed over the ranks (one
+        all-reduce: every rank calls this); ``stats`` itself keeps the
+        rank's own part's rows."""
+        if self.mesh is None or self.full_plan is self.plan:
+            return self.stats.report()
+        job = CommStats.from_plan(self.full_plan, **self._stats_args)
+        job.load_state(self.stats.state())
+        job.backward_exchanges = self.stats.backward_exchanges
+        mine = torch.tensor([self.stats.halo_bytes_true_total,
+                             self.stats.halo_bytes_wire_total],
+                            dtype=torch.int64, device=self.mesh.device)
+        job.halo_bytes_true_total, job.halo_bytes_wire_total = (
+            int(x) for x in self.mesh.all_reduce_sum(mine).cpu())
+        return job.report()
+
     def _eval_logits(self, data: TrainData):
         with torch.no_grad():
             return self._forward(data.h0)
@@ -1387,7 +1412,7 @@ class FullBatchTrainer:
             if verbose:
                 print(f"epoch {ep}: loss {loss:.6f}", flush=True)
         elapsed = self.timer.inclusive_total("train_step") - t_prior
-        report = self.stats.report()
+        report = self.job_report()
         report.update(
             epochs=epochs,
             elapsed_s=elapsed,

@@ -26,7 +26,9 @@ same-graph re-partition restore stays possible with ``verify=False``.
 Files with no provenance (v1, params-only) still load.  A trainer whose
 ``checkpoint_plan`` attribute is an explicit ``None`` (the mini-batch
 trainer's inner trainer, whose plan is a padded per-batch plan) records
-no plan digest, as the reference's sentinel does.
+no plan digest, as the reference's sentinel does.  A rank's trainer
+(``FullBatchTrainer(mesh=...)``) names its full k-way plan there, so its
+files carry the stacked trainer's digest and load on every rank.
 
 Durability: writes are atomic (temp + fsync + rename, ``resilience.
 atomic``), every array carries a CRC32, and any damage raises
@@ -512,7 +514,8 @@ def load_checkpoint(trainer, path: str, verify: bool = True) -> int:
     file_carry = [arrays[f"carry_{i}"] for i in range(meta["n_carry"])]
     if verify:
         verify_checkpoint_provenance(
-            meta, plan=getattr(trainer, "plan", None),
+            meta, plan=(getattr(trainer, "checkpoint_plan", None)
+                        or getattr(trainer, "plan", None)),
             model=model_kind(trainer),
             fin=getattr(trainer, "fin", None),
             widths=getattr(trainer, "widths", None),

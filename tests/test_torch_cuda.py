@@ -23,8 +23,10 @@ step against their CPU versions, and the replica trainer's launches on
 the card; sub-graph serving's compact fused and K5 launches against their
 plain versions on a batch holding a hub row, and the sub-graph engine's
 launches and rows on the card; one NCCL rank training a proxy slice
-through the rank path against the stacked proxy, bit for bit, and the
-broadcast baseline's K1 launch against its plain version.
+through the rank path against the stacked proxy, bit for bit (GCN on
+float32, the bf16 wire, ``compute_dtype`` and ``remat``; GAT with every
+K5 launch against its plain version), the broadcast baseline's K1 launch
+against its plain version, and the launch layer's one-process no-op.
 
 This module imports no JAX, so it also runs on a GPU machine without it:
 
@@ -1796,3 +1798,134 @@ def test_broadcast_kernel_equals_plain_on_cuda(cuda_device):
     assert np.array_equal(rows, fused)
     cpu = BroadcastGCN1D(ahat, pv, 4, device="cpu", **kw).forward(feats)
     np.testing.assert_allclose(rows, cpu, rtol=1e-4, atol=1e-5)
+
+
+# ------------------------------- GAT, bf16 and remat on one NCCL rank
+def _cora_slice(chip=2):
+    """Cora2708's 8-hp plan, every layout the rank path reads built on
+    the full plan, part ``chip``'s slice and its data on the card."""
+    import os
+
+    from sgcn_tpu_torch.io.datasets import load_npz_dataset
+    from sgcn_tpu_torch.parallel import shard_proxy_data, shard_proxy_plan
+    from sgcn_tpu_torch.partition import read_partvec
+
+    fix = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       "fixtures")
+    a, feats, labels = load_npz_dataset(os.path.join(fix, "cora2708.npz"))
+    pv = read_partvec(os.path.join(fix, "cora2708.8.hp"))
+    plan = build_comm_plan(normalize_adjacency(a), pv, 8)
+    plan.ensure_pallas_tiles()
+    plan.ensure_ragged()
+    plan.ensure_pallas_ragged_tiles()
+    plan.ensure_pallas_cell_tiles()
+    plan.ensure_pallas_cell_ragged_tiles()
+    return (shard_proxy_plan(plan, chip),
+            shard_proxy_data(plan, chip, feats, labels, device="cuda"))
+
+
+@pytest.mark.parametrize("sched", ["a2a", "ragged"])
+@pytest.mark.parametrize("compute_dtype", [None, "bfloat16"])
+def test_one_nccl_rank_gat_k5_equals_plain(cuda_device, tmp_path, sched,
+                                           compute_dtype, monkeypatch):
+    """On the card: GAT (1433 → 16 → 7, no activation) on one NCCL rank
+    training cora's part-2 slice: every K5 launch of a step (forward and
+    backward, every table form: fused, packed, fused bf16) equals its
+    plain version on the same inputs bit for bit, and 3 losses and the
+    final weights equal the stacked proxy's, with as many K5 launches."""
+    from sgcn_tpu_torch.ops import tile_spmm as ts
+    from sgcn_tpu_torch.parallel import init_rank_group
+
+    sl, data = _cora_slice()
+    kw = dict(fin=1433, widths=[16, 7], seed=3, model="gat",
+              activation="none", comm_schedule=sched,
+              compute_dtype=compute_dtype)
+    stacked = FullBatchTrainer(sl, device=cuda_device, **kw)
+    k5 = ts.k5_launches()
+    want = [stacked.step(data) for _ in range(3)]
+    torch.cuda.synchronize()
+    want_k5 = ts.k5_launches() - k5
+    mesh = init_rank_group("file://" + str(tmp_path / "rdv"), 1, 0)
+    calls = []
+    family = ts.spmm_tiles_classes
+
+    def recorded(*args):
+        out = family(*args)
+        if args[2].dtype == torch.int8:
+            calls.append((args, out))
+        return out
+
+    try:
+        tr = FullBatchTrainer(sl, mesh=mesh, **kw)
+        got = [tr.step(data)]
+        monkeypatch.setattr(ts, "spmm_tiles_classes", recorded)
+        got.append(tr.step(data))
+        monkeypatch.setattr(ts, "spmm_tiles_classes", family)
+        k5 = ts.k5_launches()
+        got.append(tr.step(data))
+        torch.cuda.synchronize()
+        got_k5 = ts.k5_launches() - k5
+    finally:
+        mesh.close()
+    assert calls and got_k5 == len(calls) == want_k5 // 3
+    for args, out in calls:
+        assert torch.equal(out, spmm_tiles_classes_plain(*args))
+    assert got == want
+    for a, b in zip(tr.model.parameters(), stacked.model.parameters()):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("sched", ["a2a", "ragged"])
+@pytest.mark.parametrize("lever", ["compute_dtype", "remat"])
+def test_one_nccl_rank_bf16_and_remat_equal_the_stacked_proxy(
+        cuda_device, tmp_path, sched, lever):
+    """On the card: GCN under ``compute_dtype`` (K1's bf16 family entry,
+    two launches an aggregation) and under ``remat`` (the checkpoint
+    re-runs each layer's collective in the backward) on one NCCL rank:
+    3 losses and the final weights equal the stacked proxy's bit for bit;
+    two family launches per pack."""
+    from sgcn_tpu_torch.parallel import init_rank_group
+
+    sl, data = _proxy_inputs(sched)
+    kw = dict(fin=24, widths=[32, 5], seed=3, comm_schedule=sched,
+              **({"compute_dtype": "bfloat16"} if lever == "compute_dtype"
+                 else {"remat": True}))
+    stacked = FullBatchTrainer(sl, device=cuda_device, **kw)
+    want = [stacked.step(data) for _ in range(3)]
+    mesh = init_rank_group("file://" + str(tmp_path / "rdv"), 1, 0)
+    try:
+        before = (spmm_tiles.launches, spmm_tiles.bf16_launches,
+                  row_pack.launches)
+        tr = FullBatchTrainer(sl, mesh=mesh, **kw)
+        got = [tr.step(data) for _ in range(3)]
+        torch.cuda.synchronize()
+        f32 = spmm_tiles.launches - before[0]
+        bf16 = spmm_tiles.bf16_launches - before[1]
+        packs = row_pack.launches - before[2]
+    finally:
+        mesh.close()
+    assert got == want
+    for a, b in zip(tr.params, stacked.params):
+        assert torch.equal(a, b)
+    fam = bf16 if lever == "compute_dtype" else f32
+    assert (f32 if lever == "compute_dtype" else bf16) == 0
+    assert packs > 0 and fam == 2 * packs
+
+
+def test_init_distributed_without_env_is_a_noop_on_card(cuda_device,
+                                                        monkeypatch):
+    """On the card, with no launcher in the environment:
+    ``init_distributed()`` opens no group, names ``cuda:0`` and one
+    process; ``global_mesh_1d(8)`` is the stacked layout (``None``)."""
+    import torch.distributed as dist
+
+    from sgcn_tpu_torch.parallel import launch
+
+    for var in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
+                "MASTER_PORT", "SLURM_NPROCS", "SLURM_PROCID"):
+        monkeypatch.delenv(var, raising=False)
+    ctx = launch.init_distributed()
+    assert (ctx.num_processes, ctx.process_id, ctx.group) == (1, 0, None)
+    assert ctx.device == torch.device("cuda:0") and ctx.is_coordinator
+    assert launch.global_mesh_1d(8, ctx) is None
+    assert not dist.is_initialized()

@@ -1,5 +1,6 @@
 """Rank-process entries of the port's rank-runtime tests
-(``tests/test_torch_ranks.py``, ``tests/test_torch_cagnet1d.py``).
+(``tests/test_torch_ranks.py``, ``tests/test_torch_ranks_gat.py``,
+``tests/test_torch_launch.py``, ``tests/test_torch_cagnet1d.py``).
 
 A test spawns one process per part (``torch.multiprocessing``, ``spawn``)
 through ``spawn_ranks``; each opens a gloo group on a ``file://``
@@ -16,6 +17,11 @@ FIX = os.path.join(os.path.dirname(os.path.abspath(__file__)), "fixtures")
 NPZ = os.path.join(FIX, "cora2708.npz")
 FIN, WIDTHS, STEPS, LR = 1433, [16, 7], 3, 0.01
 LAYER_F = 16                     # one aggregation's width in the op checks
+# the rendezvous ports of ``cli_rank_main``'s jobs, below Linux's default
+# ephemeral range (32768-60999): a port picked in that range could be
+# taken, before its job binds it, by a listener of another rank group
+# (gloo's listeners bind ephemeral ports)
+PORT_RANGE = (20000, 32768)
 
 
 def spawn_ranks(target, world, out_dir, timeout=240.0):
@@ -77,6 +83,205 @@ def op_inputs(plan, seed=0):
             rng.standard_normal(shape).astype(np.float32))
 
 
+# one GAT layer's table form by (fout, compute_dtype): the fused
+# (fout + 1)-lane table, the split pair, the packed bf16 words, and the
+# fused form on bf16 tables (an odd fout)
+GAT_OP_CASES = {"fused": (16, None), "split": (128, None),
+                "packed": (16, "bfloat16"), "fused-bf16": (7, "bfloat16")}
+SCHEDS = ("a2a", "ragged")
+# the trainer cases of A2c's first half: GAT both transports, GAT under
+# compute_dtype and remat, and GCN under compute_dtype
+STEP_CASES = {"gat-a2a": {"model": "gat", "comm_schedule": "a2a"},
+              "gat-ragged": {"model": "gat", "comm_schedule": "ragged"},
+              "gat-bf16": {"model": "gat", "compute_dtype": "bfloat16"},
+              "gat-remat": {"model": "gat", "remat": True},
+              "gcn-bf16": {"compute_dtype": "bfloat16"}}
+
+
+def step_kwargs(case, p0):
+    """``FullBatchTrainer`` keyword arguments of a ``STEP_CASES`` case
+    from the initial weights ``p0`` (``{"gcn": [...], "gat": [...]}``)."""
+    kw = dict(STEP_CASES[case])
+    model = kw.get("model", "gcn")
+    kw.setdefault("comm_schedule", "a2a")
+    kw["params"] = p0[model]
+    if model == "gat":
+        kw["activation"] = "none"       # PGAT stacks bare layers
+    return kw
+
+
+def gat_op_inputs(plan, fout, seed=1):
+    """The stacked ``(k, B, LAYER_F)`` rows, the ``(k, B, fout)``
+    gradient and one layer's ``{w, a1, a2}`` of a one-layer GAT check."""
+    rng = np.random.default_rng(seed)
+    h = rng.standard_normal((plan.k, plan.b, LAYER_F)).astype(np.float32)
+    g = rng.standard_normal((plan.k, plan.b, fout)).astype(np.float32)
+    w = (rng.standard_normal((LAYER_F, fout))
+         / np.sqrt(LAYER_F)).astype(np.float32)
+    a = (rng.standard_normal((2, fout)) / np.sqrt(fout)).astype(np.float32)
+    return h, g, [{"w": w, "a1": a[0], "a2": a[1]}]
+
+
+def gat_layer_run(plan, setup, h, g, params, compute_dtype, mesh=None):
+    """One GAT layer's forward rows and VJP in ``h`` on ``plan`` (the
+    stacked plan, or a rank's slice with ``mesh``)."""
+    import torch
+
+    from sgcn_tpu_torch.models.gat import (gat_forward_local,
+                                           gat_param_tensors)
+
+    pa = setup.ship_arrays(plan, "cpu", compute_dtype)
+    h = torch.tensor(h, requires_grad=True)
+    out = gat_forward_local(gat_param_tensors(params), h, pa,
+                            compute_dtype=compute_dtype, mesh=mesh,
+                            **setup.fwd_static)
+    out.backward(torch.as_tensor(g))
+    return out.detach().numpy(), h.grad.numpy()
+
+
+def gcn_bf16_op(plan, sched, h, g, mesh=None, rank=None):
+    """One GCN aggregation on bf16 rows (``compute_dtype``) and its VJP,
+    stacked or on a rank (``mesh``, the rank's slice ``plan``), as
+    float32 arrays (the widening is exact)."""
+    import torch
+
+    from sgcn_tpu_torch.ops.tile_spmm import (pspmm_tiles_ragged,
+                                              pspmm_tiles_ranks,
+                                              pspmm_tiles_sym)
+
+    pa = {f: torch.as_tensor(getattr(plan, f)) for f in (
+        "recv_src", "ring_src", "ptile_lsrc", "ptile_lld", "ptile_lw",
+        "ptile_hwsrc", "ptile_hrsrc", "ptile_hld", "ptile_hw")}
+    # the trainer's one rounding of the tile weights through bf16
+    for f in ("ptile_lw", "ptile_hw"):
+        pa[f] = pa[f].to(torch.bfloat16).float()
+    sl = slice(None) if rank is None else slice(rank, rank + 1)
+    x = torch.tensor(h[sl]).to(torch.bfloat16).requires_grad_()
+    rr = plan.rr_sizes if sched == "ragged" else None
+    tiles = (pa["ptile_lsrc"], pa["ptile_lld"], pa["ptile_lw"])
+    if mesh is not None:
+        y = pspmm_tiles_ranks(x, pa, plan.pallas_tb, plan.pallas_lclasses,
+                              plan.pallas_hclasses, mesh, rr)
+    elif rr is None:
+        y = pspmm_tiles_sym(x, pa["recv_src"], *tiles, pa["ptile_hwsrc"],
+                            pa["ptile_hld"], pa["ptile_hw"], plan.pallas_tb,
+                            plan.pallas_lclasses, plan.pallas_hclasses)
+    else:
+        y = pspmm_tiles_ragged(x, pa["ring_src"], *tiles, pa["ptile_hrsrc"],
+                               pa["ptile_hld"], pa["ptile_hw"],
+                               plan.pallas_tb, plan.pallas_lclasses,
+                               plan.pallas_hclasses, rr)
+    y.backward(torch.tensor(g[sl]).to(torch.bfloat16))
+    return y.detach().float().numpy(), x.grad.float().numpy()
+
+
+def gat_ranks_main(rank, world, init, out_dir):
+    """The rank checks of ``tests/test_torch_ranks_gat.py`` on cora 8-hp:
+    one GAT layer's forward and VJP per table form and transport, one GCN
+    aggregation on bf16 rows per transport, and three training steps per
+    ``STEP_CASES`` case from the weights in ``<out_dir>/init.pkl``."""
+    import torch
+
+    torch.set_num_threads(1)
+    from sgcn_tpu_torch.parallel import init_rank_group, shard_proxy_plan
+    from sgcn_tpu_torch.train import (FullBatchTrainer,
+                                      make_train_data_multihost,
+                                      resolve_forward_setup)
+
+    mesh = init_rank_group(init, world, rank, device="cpu")
+    try:
+        _ahat, feats, labels, _pv, plan = cora_plan("cora2708.8.hp")
+        res = {"gat_op": {}, "gcn_op": {}, "losses": {}, "params": {}}
+        for sched in SCHEDS:
+            setup = resolve_forward_setup(plan, model="gat",
+                                          comm_schedule=sched)
+            sl = shard_proxy_plan(plan, rank)
+            for form, (fout, cd) in GAT_OP_CASES.items():
+                h, g, params = gat_op_inputs(plan, fout)
+                res["gat_op"][f"{form}-{sched}"] = gat_layer_run(
+                    sl, setup, h[rank: rank + 1], g[rank: rank + 1], params,
+                    cd, mesh)
+            h_all, g_all = op_inputs(plan)
+            res["gcn_op"][sched] = gcn_bf16_op(sl, sched, h_all, g_all,
+                                               mesh, rank)
+        with open(os.path.join(out_dir, "init.pkl"), "rb") as fh:
+            p0 = pickle.load(fh)
+        data = make_train_data_multihost(plan, mesh, feats, labels)
+        for case in STEP_CASES:
+            tr = FullBatchTrainer(plan, fin=FIN, widths=WIDTHS, lr=LR,
+                                  mesh=mesh, **step_kwargs(case, p0))
+            res["losses"][case] = [tr.step(data) for _ in range(STEPS)]
+            res["params"][case] = [w.detach().numpy()
+                                   for w in tr.model.parameters()]
+        _write(out_dir, rank, res)
+    finally:
+        mesh.close()
+
+
+def job_port(out_dir, name, rank, timeout=120.0):
+    """The rendezvous port of job ``name``: rank 0 picks a free one in
+    ``PORT_RANGE`` just before the job and publishes it in
+    ``<out_dir>/port.<name>``; the other ranks wait for the file."""
+    import random
+    import socket
+    import time
+
+    path = os.path.join(out_dir, f"port.{name}")
+    if rank == 0:
+        rng = random.Random()
+        while True:
+            port = rng.randrange(*PORT_RANGE)
+            with socket.socket() as s:
+                try:
+                    s.bind(("", port))
+                except OSError:
+                    continue
+            break
+        with open(path + ".tmp", "w") as fh:
+            fh.write(str(port))
+        os.replace(path + ".tmp", path)
+        return port
+    deadline = time.monotonic() + timeout
+    while not os.path.exists(path):
+        if time.monotonic() > deadline:
+            raise TimeoutError(f"rank 0 published no port for job {name}")
+        time.sleep(0.02)
+    with open(path) as fh:
+        return int(fh.read())
+
+
+def cli_rank_main(rank, world, init, out_dir):
+    """``python -m sgcn_tpu_torch.train``'s ``main`` as rank ``rank`` of a
+    ``torchrun``-launched world: the launcher's environment set here, one
+    job after another from ``<out_dir>/jobs.pkl`` (``{name: argv}``, each
+    job its own rendezvous port, ``job_port``); per job the rank's
+    standard output and, for a run that exits, its message."""
+    import contextlib
+    import io
+
+    import torch
+
+    torch.set_num_threads(1)
+    from sgcn_tpu_torch.train.__main__ import main as train_main
+
+    with open(os.path.join(out_dir, "jobs.pkl"), "rb") as fh:
+        jobs = pickle.load(fh)
+    res = {}
+    for name, argv in jobs.items():
+        port = job_port(out_dir, name, rank)
+        os.environ.update(RANK=str(rank), WORLD_SIZE=str(world),
+                          LOCAL_RANK=str(rank), LOCAL_WORLD_SIZE=str(world),
+                          MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port))
+        buf = io.StringIO()
+        try:
+            with contextlib.redirect_stdout(buf):
+                train_main(list(argv))
+            res[name] = {"stdout": buf.getvalue(), "exit": None}
+        except SystemExit as e:
+            res[name] = {"stdout": buf.getvalue(), "exit": str(e)}
+    _write(out_dir, rank, res)
+
+
 def _write(out_dir, rank, res):
     with open(os.path.join(out_dir, f"rank{rank}.pkl"), "wb") as fh:
         pickle.dump(res, fh)
@@ -87,6 +292,8 @@ def ranks_main(rank, world, init, out_dir):
     one aggregation's forward and VJP per transport and wire, with the
     order of its launches and waits; three training steps per transport
     from the weights in ``<out_dir>/init.pkl``; the refusals."""
+    import dataclasses
+
     import torch
 
     torch.set_num_threads(1)
@@ -154,13 +361,18 @@ def ranks_main(rank, world, init, out_dir):
                 res["eval"] = tr.evaluate(data)
                 res["pred"] = tr.predict(data)
                 res["report"] = tr.stats.report()
-        for name, kw in (("gat", {"model": "gat"}),
-                         ("compute_dtype", {"compute_dtype": "bfloat16"}),
-                         ("stale", {"halo_staleness": 1}),
-                         ("replica", {"replica_budget": 50})):
+        asym = dataclasses.replace(plan, symmetric=False)
+        res["built"] = []
+        for name, kw, pl in (("gat", {"model": "gat"}, plan),
+                             ("compute_dtype",
+                              {"compute_dtype": "bfloat16"}, plan),
+                             ("stale", {"halo_staleness": 1}, plan),
+                             ("replica", {"replica_budget": 50}, plan),
+                             ("asymmetric", {}, asym)):
             try:
-                FullBatchTrainer(plan, fin=FIN, widths=WIDTHS, mesh=mesh,
+                FullBatchTrainer(pl, fin=FIN, widths=WIDTHS, mesh=mesh,
                                  **kw)
+                res["built"].append(name)
             except ValueError as exc:
                 res["errors"][name] = str(exc)
         _write(out_dir, rank, res)
