@@ -202,13 +202,14 @@ failure raises and the script exits non-zero:
      limit.  The children's inputs come from an ``.npz`` written under
      ``build/chip_smoke_ckpt/``, and every child is stopped when the
      phase ends;
-  24. the offline pipeline.  (a) cora2708 through the CLIs, each in a
-     child process as phase 23 runs them: its adjacency written with the
-     port's ``write_mtx``, ``python -m sgcn_tpu_torch.prep`` on it (the
-     printed line checked), ``python -m sgcn_tpu_torch.partition -k 8 -m
-     hp,gp,rp`` (every part vector complete, its printed km1 / edge cut
-     equal to a numpy recount, hp and gp sending fewer rows than rp),
-     then three children at once: the train CLI on ``cora.A.mtx`` and
+  24. the offline pipeline.  (a) cora2708 through the CLIs: its
+     adjacency written with the port's ``write_mtx``, ``python -m
+     sgcn_tpu_torch.prep`` on it (the printed line checked) and ``python
+     -m sgcn_tpu_torch.partition -k 8 -m hp,gp,rp`` (every part vector
+     complete, its printed km1 / edge cut equal to a numpy recount, hp
+     and gp sending fewer rows than rp), both host-only CLIs' ``main`` in
+     this process, then three child processes at once, as phase 23 runs
+     them: the train CLI on ``cora.A.mtx`` and
      ``….8.hp`` for 1 + 5 steps on each transport (exact launches; the
      ring's losses and its saved weights and Adam state == a2a's bit for
      bit) and the serve CLI with ``--random-init`` (exact launches);
@@ -226,7 +227,8 @@ failure raises and the script exits non-zero:
      (512 closed-loop queries at batch 64, rows vs the float64 forward,
      exact launches); the row pack and the fused entry == plain on the hp
      plan's layer 0, whose tiles hold the longest row (checked); K3's
-     whole op timed on both plans.  Partition seconds are host seconds.
+     whole op timed on both plans (its plain version on the hp plan's
+     alone).  Partition seconds are host seconds.
      K1's float-weight family entries must stay at 0 launches;
   25. the pipelined stale-halo trainer (``halo_staleness=1``) at the
      flagship width of phases 5 and 11 (same plan, data and initial
@@ -388,23 +390,40 @@ failure raises and the script exits non-zero:
      with ``--metrics-out``: the launched report == the unlaunched CLI's
      (in this process) bit for bit, timings aside, and the run
      directory's ``heartbeat.jsonl`` valid under the port's schema;
-  32. one JSON line ``{"kernels": [...]}`` — per ported kernel (the tile
+  32. the carried modes on the rank path (``build/chip_smoke_rank_carried
+     /``): one NCCL rank (world size 1) on chip 0's slice of phase 3's ER
+     plan, 128 → 128 → 128 → 40 at full width, ``sync_every=2``: the
+     stale halo (its exchange in flight until the next read) on the a2a
+     and the ring, stale + the halo-delta cache, the stale halo on a bf16
+     ``halo_dtype`` wire, replicas at the λ·degree knee (``auto``,
+     resolved on the full plan) on both transports and on the bf16 wire,
+     replica × stale and the partial refresh (``refresh_band=0.05``), 4
+     steps each (sync, carried, sync, carried): losses and weights == the
+     stacked proxy's bit for bit, exact launches per entry
+     (``rank32_launches``: packs, fused launches on a float32 and a bf16
+     carry and their backward counts, K1 and K1-bf16 family launches,
+     pack-intos), the first fused launch of a stale step on the rank's
+     carry and the first pack-into of a replica step from the shrunken
+     receive == plain, on both wires, each step's CUDA-event ms
+     beside the proxy's; the replica case's sixth step measured against
+     the rank's memory model (``MEM_CARD_TOL``);
+  33. one JSON line ``{"kernels": [...]}`` — per ported kernel (the tile
      SpMM, the GCN aggregation's backward, the GAT attention pass and its
      use in the GAT layer's backward, the ragged ring aggregation and its
      backward, the row shuffle, the tile SpMM's and the GAT pass's bf16
      flavors, the row pack, the fused local + remote entry and the
      destination-indexed pack) its
      launches on the main path (phases 2–5, 7–13, 15–17, 19–21 and
-     23–31, the children's included), max
+     23–32, the children's included), max
      |kernel − plain|, kernel / plain / bound / library times at the
      flagship layer.  The tile SpMM's own float-weight family entries
      (both tables) launch on the main path only in the asymmetric
-     backward (phases 20–21) and in phases 30–31 (the broadcast's local
+     backward (phases 20–21) and in phases 30–32 (the broadcast's local
      SpMM, the rank path's two passes): the symmetric phases 2–29 must
      show 0 of them — the fused entry runs their chains and counts those
      launches — and any kernel with no launch on the main path fails the
      run;
-  33. the last line: ``{"ok": true, "device": {...}}``.
+  34. the last line: ``{"ok": true, "device": {...}}``.
 
 Without CUDA, or without the rest of the repository beside it, the script
 prints no result and exits with code 2 or 3.
@@ -853,10 +872,11 @@ def library_fused(ltiles, h, htiles, remote, lcls, hcls, tb):
     return csr, dense
 
 
-def time_fused(ltiles, h, htiles, remote, lcls, hcls, tb, what):
+def time_fused(ltiles, h, htiles, remote, lcls, hcls, tb, what,
+               plain=True):
     """The fused launch's time, its plain version's (one call: it takes
-    seconds at the flagship), the library yardstick's (``library_fused``)
-    and the bound."""
+    seconds at the flagship; ``plain=False`` skips it: ``None``), the
+    library yardstick's (``library_fused``) and the bound."""
     import torch
 
     from sgcn_tpu_torch.ops.tile_spmm import (spmm_tiles_fused,
@@ -864,8 +884,8 @@ def time_fused(ltiles, h, htiles, remote, lcls, hcls, tb, what):
 
     args = (ltiles, h, htiles, remote, lcls, hcls, tb)
     ms = cuda_ms(lambda: spmm_tiles_fused(*args))
-    plain_ms = cuda_ms(lambda: spmm_tiles_fused_plain(*args), reps=1,
-                       warmup=0)
+    plain_ms = (cuda_ms(lambda: spmm_tiles_fused_plain(*args), reps=1,
+                        warmup=0) if plain else None)
     lib = library_fused(*args)
     try:
         library_ms = (cuda_ms(lambda: torch.sparse.mm(*lib))
@@ -887,10 +907,11 @@ def time_fused(ltiles, h, htiles, remote, lcls, hcls, tb, what):
             "bound_ms": bound_ms, "bound_by": bound_by, "bytes": nbytes}
 
 
-def time_whole_op(h, pa, st, tb, ragged, what):
+def time_whole_op(h, pa, st, tb, ragged, what, plain=True):
     """One GCN aggregation (K3, or K4 on the ring) at this table: the
     whole op (exchange pack + fused launch), each part alone, the plain
-    version (torch indexing + the plain family passes, add and cast), the
+    version (torch indexing + the plain family passes, add and cast;
+    ``plain=False`` skips it and the fused launch's: ``None``), the
     library yardsticks summed, and the whole op's bound (the pack's bytes
     plus the fused launch's)."""
     import torch
@@ -913,16 +934,17 @@ def time_whole_op(h, pa, st, tb, ragged, what):
     static = (tb, st["pallas_lclasses"], st["pallas_hclasses"])
     pack = time_pack(h, flat, h.dtype, f"{what} exchange")
     fused = time_fused(lt, h, ht, remote, st["pallas_lclasses"],
-                       st["pallas_hclasses"], tb, f"{what} fused launch")
+                       st["pallas_hclasses"], tb, f"{what} fused launch",
+                       plain=plain)
     with torch.inference_mode():
         if ragged:
             op = cuda_ms(lambda: pspmm_tiles_ragged(
                 h, flat, *lt, *ht, *static, st["rr_sizes"]))
         else:
             op = cuda_ms(lambda: pspmm_tiles_sym(h, flat, *lt, *ht, *static))
-    plain = cuda_ms(lambda: spmm_tiles_fused_plain(
+    plain = (cuda_ms(lambda: spmm_tiles_fused_plain(
         lt, h, ht, row_pack_plain(h, flat), *static[1:], tb), reps=1,
-        warmup=0)
+        warmup=0) if plain else None)
     bound = (pack["bytes"] + fused["bytes"]) / HBM_BYTES_PER_S * 1e3
     lib = (None if pack["library_ms"] is None or fused["library_ms"] is None
            else pack["library_ms"] + fused["library_ms"])
@@ -3195,28 +3217,39 @@ def _pipeline_cora_clis(children, fix, smi):
     amtx = os.path.join(PIPE_DIR, "cora.A.mtx")
     total = {key: 0 for key in launch_counts()}
 
-    def run(jobs):
-        wave = children.start([(module, argv, None,
-                                os.path.join(PIPE_DIR, f"{name}.json"))
-                               for name, module, argv in jobs])
-        codes = children.join(wave)
-        if codes != [0] * len(jobs):
-            raise AssertionError(f"phase 24: children {[j[0] for j in jobs]}"
-                                 f" exited {codes}")
+    def run(jobs, here=False):
+        # here: the CLI's main in this process (the prep and partition
+        # CLIs run on the host: a child would add ≈ 11 s of start-up)
+        if here:
+            for name, module, argv in jobs:
+                cli_child(module, argv, None,
+                          os.path.join(PIPE_DIR, f"{name}.json"))
+            wave = [(None, None)] * len(jobs)
+        else:
+            wave = children.start([(module, argv, None,
+                                    os.path.join(PIPE_DIR, f"{name}.json"))
+                                   for name, module, argv in jobs])
+            codes = children.join(wave)
+            if codes != [0] * len(jobs):
+                raise AssertionError(f"phase 24: children "
+                                     f"{[j[0] for j in jobs]} exited {codes}")
         out = {}
         for (_, t_spawn), (name, _, _) in zip(wave, jobs):
             with open(os.path.join(PIPE_DIR, f"{name}.json")) as fh:
                 res = json.load(fh)
             for key in total:
                 total[key] += res["launches"][key]
-            log(f"  {name} child: start-up {res['t_imported'] - t_spawn:.2f}"
-                f" s, in the CLI {res['t_end'] - res['t_imported']:.2f} s")
+            t0 = res["t_enter"] if t_spawn is None else t_spawn
+            log(f"  {name} {'in this process' if here else 'child'}: "
+                f"start-up {res['t_imported'] - t0:.2f} s, in the CLI "
+                f"{res['t_end'] - res['t_imported']:.2f} s")
             out[name] = res
         return out
 
     # ---- python -m sgcn_tpu_torch.prep on the raw adjacency
     res = run([("prep", "prep", ["-a", raw, "-o", PIPE_DIR, "-n", "cora",
-                                 "-l", "2", "-f", "16", "-c", "7"])])["prep"]
+                                 "-l", "2", "-f", "16", "-c", "7"])],
+              here=True)["prep"]
     log(f"  prep: {res['stdout'].strip()}")
     if res["stdout"] != (f"wrote cora.A/H/Y.mtx + config (n=2708, "
                          f"widths=[16, 7]) to {PIPE_DIR}\n"):
@@ -3224,7 +3257,8 @@ def _pipeline_cora_clis(children, fix, smi):
 
     # ---- python -m sgcn_tpu_torch.partition -k 8 -m hp,gp,rp on Â
     res = run([("partition", "partition",
-                ["-a", amtx, "-k", "8", "-m", "hp,gp,rp"])])["partition"]
+                ["-a", amtx, "-k", "8", "-m", "hp,gp,rp"])],
+              here=True)["partition"]
     lines = res["stdout"].strip().splitlines()
     ahat = read_mtx(amtx)
     sent = {}
@@ -3479,8 +3513,11 @@ def _pipeline_flagship(parts_bg, ahat_dc, dev, tb, smi):
     if local + halo != row_nnz[hub] or not tiled:
         raise AssertionError("phase 24: the hp tiles do not hold the "
                              "longest row")
+    # the plain versions (≈ 9 s a plan) on the hp plan alone: phase 30
+    # reads its K3 times; rp's kernel times are for the ratios below
     k3 = {mode: time_whole_op(e._h0, e.pa, e.setup.fwd_static, tb, False,
-                              f"DCSBM {mode} K3 layer 0 forward f=128")
+                              f"DCSBM {mode} K3 layer 0 forward f=128",
+                              plain=mode == "hp")
           for mode, (e, _) in serve.items()}
 
     # ---- hp against rp
@@ -5809,6 +5846,250 @@ def phase_rank_levers(plan, feats_f, labels_f, p_init, params_g, widths,
     return total, {"rank": rank, "cli": cli}
 
 
+# ------------------------ phase 32: the carried modes on one NCCL rank
+RANK32_DIR = os.path.join(REPO, "build", "chip_smoke_rank_carried")
+
+# phase 32's cases: name -> (transport, trainer levers), each with
+# sync_every=2 ('auto': the knee resolved on the full plan)
+RANK32_CASES = {
+    "stale a2a": ("a2a", {"halo_staleness": 1}),
+    "stale ring": ("ragged", {"halo_staleness": 1}),
+    "stale + delta a2a": ("a2a", {"halo_staleness": 1, "halo_delta": True}),
+    "stale bf16 wire a2a": ("a2a", {"halo_staleness": 1,
+                                    "halo_dtype": "bfloat16"}),
+    "replica auto a2a": ("a2a", {"replica_budget": "auto"}),
+    "replica auto bf16 wire a2a": ("a2a", {"replica_budget": "auto",
+                                           "halo_dtype": "bfloat16"}),
+    "replica auto ring": ("ragged", {"replica_budget": "auto"}),
+    "replica x stale a2a": ("a2a", {"replica_budget": "auto",
+                                    "halo_staleness": 1}),
+    "partial refresh a2a": ("a2a", {"replica_budget": "auto",
+                                    "refresh_band": 0.05}),
+}
+RANK32_STEPS = 4          # a sync step, a carried step, a sync, a carried
+
+
+def rank32_launches(lever, widths, fin=128):
+    """Exact launches per entry of phase 32's four steps (sync, carried,
+    sync, carried) on the rank path.  Every sync step is the stale op's
+    fresh step: a pack and one fused launch an aggregation, forward and
+    backward.  A stale step the same, its exchange in flight.  A pure
+    replica step: the shrunken pack, two K1 family launches and one
+    pack-into an aggregation; a partial refresh also packs each side
+    channel.  A composed replica × stale step: the shrunken pack and one
+    fused launch, the pack-into at the next read (the last one when the
+    run waits on its carries).  On a ``halo_dtype`` wire every fused
+    launch reads a bf16 carry (the ``_f32_bf16wire`` entry) and a replica
+    step's halo family is K1-bf16."""
+    nl, bwd = len(widths), backward_passes(fin, widths)
+    aggs = nl + bwd
+    wire = bool(lever.get("halo_dtype"))
+    fused = "fused_wire" if wire else "fused"
+    sync = {"pack": aggs, fused: aggs, "stale_bwd": bwd}
+    if not lever.get("replica_budget"):
+        carried = dict(sync)
+    elif lever.get("halo_staleness"):
+        carried = {"pack": aggs, fused: aggs, "rep_bwd": bwd,
+                   "pack_into": aggs}
+    else:
+        # the local family over x, the halo family over the carry
+        halo = "k1_bf16" if wire else "k1"
+        carried = {"pack": aggs, "pack_into": aggs, "k1": aggs}
+        carried[halo] = carried.get(halo, 0) + aggs
+    steps = [sync, carried, sync, carried]
+    if lever.get("refresh_band") is not None:
+        steps[2] = {"pack": 2 * aggs, "k1": 2 * aggs, "pack_into": aggs}
+    keys = ("pack", "fused", "stale_bwd", "rep_bwd", "pack_into", "k1",
+            "k1_bf16", "fused_wire", "sym_bwd", "ring", "ring_bwd")
+    return {key: sum(s.get(key, 0) for s in steps) for key in keys}
+
+
+def phase_rank_carried(plan, feats_f, labels_f, p_init, widths, dev, tb,
+                       smi):
+    """Phase 32 (module docstring): the carried modes on one NCCL rank
+    against the stacked proxy of chip 0's ER slice.  Returns the launch
+    counts of the rank runs by kernel entry and the measurements."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from sgcn_tpu_torch.obs.memory import MEM_MODEL_TOL
+    from sgcn_tpu_torch.ops import pspmm as ps
+    from sgcn_tpu_torch.ops import tile_spmm as ts
+    from sgcn_tpu_torch.ops.row_shuffle import row_pack_into_plain
+    from sgcn_tpu_torch.parallel import (init_rank_group, shard_proxy_data,
+                                         shard_proxy_plan)
+    from sgcn_tpu_torch.parallel.plan import choose_replica_budget
+    from sgcn_tpu_torch.train import FullBatchTrainer
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(RANK32_DIR, ignore_errors=True)
+    os.makedirs(RANK32_DIR)
+    total = {key: 0 for key in launch_counts()}
+    plan.ensure_pallas_tiles(tb)
+    plan.ensure_ragged()
+    plan.ensure_pallas_ragged_tiles()
+    t0 = time.perf_counter()
+    knee = {}
+    budget = choose_replica_budget(plan, decision=knee)
+    plan.ensure_replicas(budget)
+    sl = shard_proxy_plan(plan, 0)          # every layout built above
+    data = shard_proxy_data(plan, 0, feats_f, labels_f, device=dev)
+    log(f"  replica_budget auto -> B {budget} on the full plan "
+        f"(score_covered {knee.get('score_covered')}); chip 0's slice: "
+        f"{len(sl.keep_recv_dst)} kept a2a slots, {len(sl.rep_recv_dst)} "
+        f"replica slots, shrunken a2a {sl.k * sl.nrep_s * plan.k} rows, "
+        f"side channel {sl.partial_refresh_wire_rows} rows; layout and "
+        f"slice {time.perf_counter() - t0:.2f} s (host)")
+    fused_fn, pack_into_fn = ts.spmm_tiles_fused, ps.row_pack_into
+
+    def run(sched, lever, mesh=None, pick=None):
+        kw = dict(lever, sync_every=2, comm_schedule=sched, device=dev,
+                  params=[w.copy() for w in p_init])
+        if kw.get("replica_budget") == "auto":
+            kw["replica_budget"] = budget
+        tr = FullBatchTrainer(sl, fin=128, widths=widths, mesh=mesh, **kw)
+        calls = []
+
+        # the rank forms held against plain: the first fused launch of
+        # the first carried step (a rank's carry), or its first pack-into
+        # (a shrunken receive into the carried layout)
+        def fused_rec(*args):
+            out = fused_fn(*args)
+            if not calls:
+                calls.append(("fused", args, out))
+            return out
+
+        def pack_into_rec(out, src, flat, dst):
+            before = out.clone() if not calls else None
+            res = pack_into_fn(out, src, flat, dst)
+            if before is not None:
+                calls.append(("pack_into", (before, src, flat, dst),
+                              res.clone()))
+            return res
+        fused_rec.__dict__ = fused_fn.__dict__
+        pack_into_rec.__dict__ = pack_into_fn.__dict__
+        launch_counts(zero=True)                # the main path starts here
+        losses, ms = [], []
+        for step in range(RANK32_STEPS):
+            if pick is not None and step == 1:
+                if pick == "fused":
+                    ts.spmm_tiles_fused = fused_rec
+                else:
+                    ps.row_pack_into = pack_into_rec
+            try:
+                t, out = event_ms(lambda: tr.step(data, sync=False), 1)
+            finally:
+                ts.spmm_tiles_fused, ps.row_pack_into = fused_fn, \
+                    pack_into_fn
+            ms.append(t)
+            losses.append(float(out[0]))
+        tr._settle_carries()                    # the last in-flight waits
+        torch.cuda.synchronize()
+        ln = launch_counts()                    # ... and ends here
+        return {"tr": tr, "ms": ms, "losses": losses, "ln": ln,
+                "w": [p.detach().clone() for p in tr.model.parameters()],
+                "calls": calls}
+
+    picks = {"stale a2a": "fused", "replica auto a2a": "pack_into",
+             "stale bf16 wire a2a": "fused",
+             "replica auto bf16 wire a2a": "pack_into"}
+    mesh = init_rank_group("file://" + os.path.join(RANK32_DIR,
+                                                    "rendezvous"), 1, 0)
+    out, err = {}, {"fused": 0.0, "pack_into": 0.0}
+    try:
+        for name, (sched, lever) in RANK32_CASES.items():
+            t0 = time.perf_counter()
+            stacked = run(sched, lever)
+            rk = run(sched, lever, mesh=mesh, pick=picks.get(name))
+            t_runs = time.perf_counter() - t0
+            for key in total:
+                total[key] += rk["ln"][key]
+            same = rk["losses"] == stacked["losses"] and all(
+                torch.equal(a, b) for a, b in zip(rk["w"], stacked["w"]))
+            want = rank32_launches(lever, widths)
+            got = {key: rk["ln"][key] for key in want}
+            checked = []
+            for kind, args, k_out in rk["calls"]:
+                plain = (ts.spmm_tiles_fused_plain(*args) if kind == "fused"
+                         else row_pack_into_plain(*args))
+                err[kind] = max(err[kind], float(
+                    (k_out.float() - plain.float()).abs().max()))
+                if not same_bits(k_out, plain):
+                    raise AssertionError(f"phase 32: {name}: the rank's "
+                                         f"{kind} launch != plain")
+                checked.append(f"{kind} on {tuple(args[3 if kind == 'fused' else 0].shape)}")
+            log(f"  one NCCL rank, chip 0's ER slice, {name}: losses "
+                f"{rk['losses']}; == the stacked proxy's bit for bit "
+                f"(losses and weights): {same}; ms of steps 1-4 (CUDA "
+                f"events; sync, carried, sync, carried) {rk['ms']!r}, the "
+                f"stacked proxy's {stacked['ms']!r}; launches "
+                f"{json.dumps(got)} (expected {json.dumps(want)}); == "
+                f"plain: {checked}; host s: runs {t_runs:.1f}, plain "
+                f"checks {time.perf_counter() - t0 - t_runs:.1f}; card: "
+                f"{smi}")
+            if not same or got != want or \
+                    len(checked) != (name in picks) or \
+                    not np.isfinite(rk["losses"]).all():
+                raise AssertionError(f"phase 32: {name}: same {same}, "
+                                     f"launches {got} (want {want}), "
+                                     f"checked {checked}")
+            out[name] = {"ms": rk["ms"], "proxy_ms": stacked["ms"],
+                         "losses": rk["losses"]}
+            del stacked, rk
+        out["memory"] = _rank32_memory(sl, data, p_init, widths, budget,
+                                       mesh, dev, smi)
+    finally:
+        mesh.close()
+    log(f"  phase 32 launches {json.dumps(total)}; phase wall "
+        f"{time.perf_counter() - t_phase:.1f} s; card: {smi}")
+    out["err"] = err
+    return total, out
+
+
+def _rank32_memory(sl, data, p_init, widths, budget, mesh, dev, smi):
+    """Phase 32's memory join: a fresh rank trainer in the replica mode
+    (``replica_budget`` at the knee, a2a, ``sync_every=2``) measured on
+    its sixth step, a replica step, against the rank's memory model; the
+    live tensors' bytes and the allocator's before it are logged
+    beside the model's argument families."""
+    import torch
+
+    from sgcn_tpu_torch.obs.memory import MEM_MODEL_TOL, device_bytes
+    from sgcn_tpu_torch.train import FullBatchTrainer
+
+    tr = FullBatchTrainer(sl, fin=128, widths=widths, mesh=mesh,
+                          params=[w.copy() for w in p_init],
+                          replica_budget=budget, sync_every=2,
+                          comm_schedule="a2a")
+    for _ in range(5):
+        tr.step(data)
+    torch.cuda.synchronize()
+    held = device_bytes(dev)[0] - tr._mem_base[0]
+    live = tr.resident_bytes()
+    _loss, measured = tr.measure_step(data)
+    join = tr.publish_memory(measured, data)
+    peak, model_b = measured["peak_bytes"], tr.memory.total_bytes
+    ratio = peak / model_b
+    fams = {f: (tr.memory.families.get(f, 0), b) for f, b in live.items()}
+    log(f"  replica auto a2a, a fresh rank trainer's sixth step (a replica "
+        f"step): memory model {model_b} B (layout "
+        f"{tr.memory.config['layout']}), measured peak {peak} B, ratio "
+        f"{ratio:.4f} (MEM_MODEL_TOL {MEM_MODEL_TOL}, MEM_CARD_TOL "
+        f"{MEM_CARD_TOL}); arguments {measured['argument_bytes']} B (model "
+        f"{tr.memory.argument_bytes}, the data made before the trainer), "
+        f"the allocator before the step {held} B, the live tensors by "
+        f"family (model, live) {json.dumps(fams)} = "
+        f"{sum(live.values())} B; violations {join['violations']}; card: "
+        f"{smi}")
+    if join["violations"] or ratio > MEM_CARD_TOL:
+        raise AssertionError(f"phase 32: memory join {join}")
+    return {"peak": peak, "model": model_b, "ratio": ratio,
+            "arguments": measured["argument_bytes"], "held": held,
+            "live": sum(live.values()), "violations": join["violations"]}
+
+
 def _rank_levers(plan, feats_f, labels_f, p_init, params_g, widths, dev, tb,
                  smi, total):
     """Phase 31 (a): every ``RANK31_CASES`` case on one NCCL rank against
@@ -6871,25 +7152,39 @@ def main() -> int:
     log(f"  phase 31 took {time.perf_counter() - t31:.1f} s")
 
     # ---------------------------------------------------------- phase 32
+    log("phase 32: the carried modes on one NCCL rank — stale (a2a, ring, "
+        "delta, bf16 wire), replicas (auto: a2a, ring, bf16 wire), replica "
+        "x stale and the partial refresh on chip 0's ER slice, 4 steps each "
+        "== the stacked proxy, exact launches, the rank's fused entry and "
+        "pack-into == plain on both wires, the memory join")
+    t32 = time.perf_counter()
+    p32, r32 = phase_rank_carried(plan, feats_f, labels_f, p_init, widths_f,
+                                  dev, tb, smi)
+    MAIN_PATH_PACKS[0] += p32["pack"]
+    log(f"  phase 32 took {time.perf_counter() - t32:.1f} s")
+
+    # ---------------------------------------------------------- phase 33
     fused_main = (launches_c + launches_f + launches_tc + launches_tf
                   + launches_fr + launches_rt + launches_ca + launches_cr
                   + l15["wire"] + l15["bf16"] + launches_16 + asym["fused"]
                   + p23["fused"] + p24["fused"] + p25["fused"]
                   + p25["fused_wire"] + p26["fused"] + p26["fused_wire"]
                   + p27["fused"] + p27["fused_bf16"] + p28["fused"]
-                  + p28["fused_wire"] + p29["fused"] + p30["fused"])
+                  + p28["fused_wire"] + p29["fused"] + p30["fused"]
+                  + p32["fused"] + p32["fused_wire"])
     kernels = [{
         # K1's own float32-weight family entry: its launches on the main
         # path are the asymmetric backward's halo-ᵀ launches and phases
-        # 30-31's (the broadcast's local SpMM, the rank path's local and
-        # halo passes); the symmetric phases 2-29 run its chains inside the
-        # fused entry, which counts those launches under tile_spmm_fused;
-        # the times are its own family launches at the flagship layer
+        # 30-32's (the broadcast's local SpMM, the rank path's local and
+        # halo passes, a rank's replica steps); the symmetric phases 2-29
+        # run its chains inside the fused entry, which counts those
+        # launches under tile_spmm_fused; the times are its own family
+        # launches at the flagship layer
         "name": "tile_spmm",
         "route": "cuda",
         "source": "sgcn_tpu_torch/csrc/tile_spmm.cu",
         "replaces": "sgcn_tpu/ops/pallas_spmm.py:203",
-        "launches": asym["k1"] + p30["k1"] + p31["k1"],
+        "launches": asym["k1"] + p30["k1"] + p31["k1"] + p32["k1"],
         "max_abs_err": max(max_err, grad_err, k4_err, k4b_err, asym["err"],
                            r30["k1_err"]),
         "ms": layer["ms"],
@@ -6988,15 +7283,16 @@ def main() -> int:
         "library_ms": k6["library_ms"],
     }, {
         # K1's own family entry on bf16 tables: its main-path launches
-        # are the asymmetric compute_dtype backward's and phase 31's (the
+        # are the asymmetric compute_dtype backward's, phase 31's (the
         # rank path's two passes under compute_dtype; the stacked
-        # compute_dtype path runs it inside the fused bf16 entry); the
+        # compute_dtype path runs it inside the fused bf16 entry) and
+        # phase 32's (a rank's replica step on a bf16 carry); the
         # times are its own family launches at the flagship layer
         "name": "tile_spmm_bf16",
         "route": "cuda",
         "source": "sgcn_tpu_torch/csrc/tile_spmm.cu",
         "replaces": "sgcn_tpu/ops/pallas_spmm.py:203",
-        "launches": asym["k1_bf16"] + p31["k1_bf16"],
+        "launches": asym["k1_bf16"] + p31["k1_bf16"] + p32["k1_bf16"],
         "max_abs_err": max(err16["k1"], err15, r31["rank"]["err"]["k1_bf16"]),
         "ms": k1_16["ms"],
         "plain_ms": k1_16["plain_ms"],
@@ -7037,7 +7333,7 @@ def main() -> int:
         "source": "sgcn_tpu_torch/csrc/tile_spmm.cu",
         "replaces": "sgcn_tpu/ops/pallas_spmm.py:413-428",
         "launches": fused_main,
-        "max_abs_err": fused_err,
+        "max_abs_err": max(fused_err, r32["err"]["fused"]),
         "ms": k3["fused"]["ms"],
         "plain_ms": k3["fused"]["plain_ms"],
         "bound_ms": k3["fused"]["bound_ms"],
@@ -7051,8 +7347,8 @@ def main() -> int:
         "route": "cuda",
         "source": "sgcn_tpu_torch/csrc/row_shuffle.cu",
         "replaces": "sgcn_tpu/ops/pspmm.py:577",
-        "launches": p26["pack_into"],
-        "max_abs_err": 0.0,
+        "launches": p26["pack_into"] + p32["pack_into"],
+        "max_abs_err": r32["err"]["pack_into"],
         "ms": pack26["ms"],
         "plain_ms": pack26["plain_ms"],
         "bound_ms": pack26["bound_ms"],

@@ -29,7 +29,8 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from ..ops.pspmm import exchange_recv, narrow_dtype, ring_concat
+from ..ops.pspmm import exchange_recv, narrow_dtype, ring_concat, settle
+from ..ops.row_shuffle import row_pack
 from ..ops.tile_spmm import (pspmm_tiles_gen, pspmm_tiles_ragged,
                               pspmm_tiles_ranks, pspmm_tiles_replica,
                               pspmm_tiles_stale, pspmm_tiles_stale_ragged,
@@ -228,6 +229,10 @@ def gcn_forward_local_stale(
     gauges: bool = False,           # also return the per-layer qerr
     replica: bool = False,          # replicas composed in: stale steps
                                     # ship the kept rows alone
+    mesh=None,                      # a RankGroup: one process per part
+    bases=None,                     # a rank's per-layer delta baselines
+    nrep_rr_sizes: tuple | None = None,  # static plan.nrep_rr_sizes (a
+                                    # rank's shrunken ring)
 ):
     """Stacked forward under the pipelined stale-halo exchange (port of
     ``gcn_forward_local_stale``, its replica × stale branch included).
@@ -252,7 +257,18 @@ def gcn_forward_local_stale(
     stale step ships only the kept rows (the plan's ``keep_*`` lists, in
     ``pa``) into the carry, whose replica slots keep their last-sync rows
     (``pspmm_replica_stale[_ragged]``); a sync step is the stale mode's.
-    No ``delta`` with it (the trainer gates the composition)."""
+    No ``delta`` with it (the trainer gates the composition).
+
+    ``mesh`` (a ``parallel/mesh.py::RankGroup``): one process per part,
+    ``h`` the rank's ``(1, B, f)`` rows and ``pa`` its slice's tensors
+    (with ``replica``, ``REPLICA_RANK_FIELDS[_RAGGED]``).  Each layer's
+    exchange is issued and left in flight: the carries come back as
+    ``ops/pspmm.py::InFlight`` objects that the next read waits on
+    (``ops/tile_spmm.py::_rank_stale_step``).  Under ``delta`` the
+    senders' baselines are ``bases``, one ``(1, J, f)`` float32 tensor a
+    layer, replaced in place, and the qerr gauge reads the rank's own
+    send pack against them: the same slots as the stacked receive
+    layout's, summed on the rank."""
     if replica and delta:
         raise ValueError(
             "replica × stale × delta is deferred: the delta baseline and "
@@ -268,6 +284,7 @@ def gcn_forward_local_stale(
     fact = get_activation(final_activation)
     nl = len(params)
     new_halos, qerrs = [], []
+    ragged = comm_schedule == "ragged"
     for i, w in enumerate(params):
         project_first = (w.shape[1] < h.shape[-1]
                          and h.shape[-1] >= PROJECT_FIRST_MIN_FIN)
@@ -275,7 +292,11 @@ def gcn_forward_local_stale(
         mode = dict(delta=delta, wire_dtype=wire_dtype,
                     gwire_dtype=gwire_dtype, fresh=fresh, gholder=gholder,
                     layer=i)
-        if replica:
+        if mesh is not None:
+            mode.update(mesh=mesh, bases=bases)
+        if replica and mesh is not None:
+            mode["keep"] = rank_keep(pa, comm_schedule, nrep_rr_sizes)
+        elif replica:
             pre = "keep_ring" if comm_schedule == "ragged" else "keep_recv"
             mode["keep"] = (pa[f"{pre}_src"], pa[f"{pre}_dst"])
         if comm_schedule == "ragged":
@@ -293,11 +314,19 @@ def gcn_forward_local_stale(
                 pallas_tb, pallas_lclasses, pallas_hclasses, **mode)
         if gauges:
             # a sync step re-bases with the full row: its residual is 0
-            if delta and not fresh:
+            if delta and not fresh and mesh is not None:
+                # the rank's own send pack against its baselines: the
+                # values its receivers now hold
+                full = row_pack(x.detach().contiguous(),
+                                pa["ring_src" if ragged else "recv_src"])
+                qerrs.append(torch.sum(torch.square(full - bases[i]),
+                                       dtype=torch.float64))
+            elif delta and not fresh:
                 full = (ring_concat(x.detach(), pa["ring_src"], rr_sizes)
                         if comm_schedule == "ragged"
                         else exchange_recv(x.detach(), pa["recv_src"]))
-                qerrs.append(torch.sum(torch.square(full - hn)))
+                qerrs.append(torch.sum(torch.square(full - hn),
+                                       dtype=torch.float64))
             else:
                 qerrs.append(x.new_zeros(()))
         if not project_first:
@@ -332,6 +361,9 @@ def gcn_forward_local_replica(
                                     # (refresh_band only)
     partial_step: bool = False,     # this step is the partial refresh
     band: float = 0.0,              # the relative drift band
+    mesh=None,                      # a RankGroup: one process per part
+    nrep_rr_sizes: tuple | None = None,  # static plan.nrep_rr_sizes (a
+                                    # rank's shrunken ring)
 ):
     """Stacked forward under hot-halo replicas (port of
     ``gcn_forward_local_replica``): the layer math and project-first
@@ -349,7 +381,15 @@ def gcn_forward_local_replica(
     ``nships`` the per-layer refreshed copies of a partial step (else
     ``None``); the backward writes each layer's next gradient carry into
     ``gholder[ℓ]``.  Symmetric Â and float32 only (the trainer gates
-    them)."""
+    them).
+
+    ``mesh``: one process per part (``pa`` the rank's slice tensors with
+    ``REPLICA_RANK_FIELDS[_RAGGED]`` and ``REPLICA_PARTIAL_RANK_FIELDS``):
+    a replica step issues the shrunken exchange, runs the local family,
+    waits, packs the received rows into the carry and runs the halo
+    family over it (``ops/tile_spmm.py::_rank_replica_step``); a sync
+    step is the rank's stale op with ``fresh``; ``nships`` are the
+    rank's own counts."""
     if comm_schedule not in ("a2a", "ragged"):
         raise ValueError(f"unknown comm_schedule {comm_schedule!r} "
                          "(the trainer resolves 'auto' before the forward)")
@@ -362,20 +402,27 @@ def gcn_forward_local_replica(
             "(track_base=True) and rides the dense a2a transport only "
             "(docs/replication.md)")
     ragged = comm_schedule == "ragged"
-    if ragged:
-        src, keep = pa["ring_src"], (pa["keep_ring_src"], pa["keep_ring_dst"])
-        hsrc, ring = pa["ptile_hrsrc"], (rr_sizes,)
+    pre = "keep_ring" if ragged else "keep_recv"
+    if mesh is not None:
+        keep = rank_keep(pa, comm_schedule, nrep_rr_sizes)
     else:
-        src, keep = pa["recv_src"], (pa["keep_recv_src"], pa["keep_recv_dst"])
-        hsrc, ring = pa["ptile_hwsrc"], ()
+        keep = (pa[f"{pre}_src"], pa[f"{pre}_dst"])
+    if ragged:
+        src, hsrc, ring = pa["ring_src"], pa["ptile_hrsrc"], (rr_sizes,)
+    else:
+        src, hsrc, ring = pa["recv_src"], pa["ptile_hwsrc"], ()
     sync_op = pspmm_tiles_stale_ragged if ragged else pspmm_tiles_stale
     tiles = (pa["ptile_lsrc"], pa["ptile_lld"], pa["ptile_lw"], hsrc,
              pa["ptile_hld"], pa["ptile_hw"], pallas_tb, pallas_lclasses,
              pallas_hclasses)
+    ranked = {} if mesh is None else {"mesh": mesh}
     side = None
     if rep_base is not None:
-        side = {name: pa[name] for name in ("rep_rows_flat", "rep_row_valid",
-                                            "rep_base_flat", "rep_src_flat")}
+        side = {name: pa[name] for name in (
+            ("rep_rows_flat", "rep_row_valid", "ronly_base_pos",
+             "ronly_send_counts", "rep_recv_src") if mesh is not None
+            else ("rep_rows_flat", "rep_row_valid", "rep_base_flat",
+                  "rep_src_flat"))}
         side["rep_dst"] = pa["rep_recv_dst"]
     kind = "partial" if partial_step else "replica"
     wdt = narrow_dtype(halo_dtype)
@@ -390,15 +437,15 @@ def gcn_forward_local_replica(
         if fresh:
             z, cn = sync_op(x, carries[i], gcarries[i], src, *tiles, *ring,
                             wire_dtype=halo_dtype, gwire_dtype=halo_dtype,
-                            fresh=True, gholder=gholder, layer=i)
+                            fresh=True, gholder=gholder, layer=i, **ranked)
             # the partial refresh's replicas are float32
-            cn, bn, ns = cn.to(carries[i].dtype), None, None
+            cn, bn, ns = cn.to(settle(carries[i]).dtype), None, None
         else:
             z, cn, bn, ns = pspmm_tiles_replica(
                 x, carries[i], gcarries[i], keep, tiles, kind,
                 halo_dtype=halo_dtype, gholder=gholder, layer=i,
                 base=None if rep_base is None else rep_base[i], side=side,
-                band=band)
+                band=band, **ranked)
         if rep_base is not None and fresh:
             # a full refresh re-anchors the senders' baselines at what the
             # consumers received: the wire-rounded rows (no gradient)
@@ -417,6 +464,21 @@ def gcn_forward_local_replica(
         nships.append(ns)
         h = fact(z) if i == nl - 1 else act(z)
     return h, new_carries, new_bases, nships
+
+
+def rank_keep(pa, comm_schedule: str, nrep_rr_sizes=None) -> tuple:
+    """A rank's shrunken exchange from its slice tensors: ``(send, nsrc,
+    dst, rr_sizes)`` — the shrunken send list it packs (``nrep_send_idx``
+    flat, or ``nrep_rsend_idx`` on the ring with its static round sizes)
+    and where each received row goes in the carried layout."""
+    if comm_schedule == "ragged":
+        if nrep_rr_sizes is None:
+            raise ValueError("a rank's ragged replica exchange needs the "
+                             "plan's static nrep_rr_sizes")
+        return (pa["nrep_rsend_idx"], pa["keep_nring_src"],
+                pa["keep_ring_dst"], tuple(nrep_rr_sizes))
+    return (pa["nrep_send_idx"].reshape(1, -1), pa["keep_nrecv_src"],
+            pa["keep_recv_dst"], None)
 
 
 class GCN(nn.Module):

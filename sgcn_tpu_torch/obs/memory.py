@@ -192,14 +192,23 @@ def memory_model(plan, fin: int, widths, *, workload: str = "train",
                  halo_dtype: str | None = None, halo_staleness: int = 0,
                  halo_delta: bool = False, replica_budget=0,
                  refresh_band: float | None = None, remat: bool = False,
-                 setup=None) -> MemoryModel:
+                 setup=None, ranks: bool = False) -> MemoryModel:
     """The analytic footprint of one resolved mode on the port's device.
 
     ``setup`` is the caller's ``ForwardSetup`` (the trainer and the serve
     engine hold one), so the model prices exactly the arrays it ships;
     ``None`` resolves one with the given knobs (building the plan's tile
     layouts on the host, as the trainer does).  Nothing here allocates on
-    a device."""
+    a device.
+
+    ``ranks``: ``plan`` is one rank's slice of a rank group
+    (``parallel/proxy.py``), priced as that rank's device holds it; its
+    carried modes add what the stacked layout does not hold: under
+    ``halo_delta`` the senders' float32 baselines beside the receivers'
+    carries (the stacked layout's one tensor is both), and to the scratch
+    a replica step's shrunken receive buffer and the partial refresh's
+    side-channel buffers (the forward's ``(k·RS', f)``, the gradient's
+    ``(k·RS', f + 1)``, each sent and received)."""
     widths = [int(w) for w in widths]
     fin = int(fin)
     if setup is None:
@@ -266,12 +275,24 @@ def memory_model(plan, fin: int, widths, *, workload: str = "train",
             else refresh_band is not None
         carry = sum(rows * f * ((4 if f32_features else wire) + wire)
                     for f in fs)
+        if halo_staleness and halo_delta and ranks:
+            carry += sum(rows * f * 4 for f in fs)      # senders' bases
         if halo_staleness:
             families["halo_carries"] = carry
         else:
             if refresh_band is not None:
-                carry += sum(k * int(plan.rs) * f * 4 for f in fs)
+                carry += sum(k * plan.rep_base_rows * f * 4 for f in fs)
             families["replica_carries"] = carry
+
+    if train and ranks and replica_budget and model == "gcn":
+        # a replica step's shrunken receive buffer, and the partial
+        # refresh's side channels (sent and received, both directions)
+        nrows = int(plan.wire_rows_per_exchange(schedule, replica=True))
+        families["wire_buffers"] += nrows * fmax * wire_isize
+        if refresh_band is not None:
+            side = int(plan.partial_refresh_wire_rows)
+            families["wire_buffers"] += 2 * side * (2 * fmax + 1) * \
+                wire_isize
 
     # layer activations (+ backward mirrors to train), every layer width
     npass = 2 if train else 1
@@ -293,8 +314,9 @@ def memory_model(plan, fin: int, widths, *, workload: str = "train",
         "halo_staleness": int(halo_staleness), "halo_delta": bool(halo_delta),
         "replica_budget": replica_budget,
         "partial_refresh": refresh_band is not None, "remat": bool(remat),
-        # the port's layout: all k parts on one device, priced in full
-        "layout": "stacked", "parts_per_device": k,
+        # the port's layout: all k parts on one device, priced in full,
+        # or one rank's part of a rank group
+        "layout": "ranks" if ranks else "stacked", "parts_per_device": k,
     }
     return MemoryModel(workload=workload, families=families, config=config,
                        overlays=overlays)

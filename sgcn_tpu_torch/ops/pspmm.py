@@ -48,6 +48,16 @@ destination-indexed pack of the kept slots alone
 ``carry_replica_rows``/``carry_set_replica_rows`` convert to and from the
 reference's ``(k, RP, f)`` replica tables.
 
+The carried modes on a rank (ROADMAP A2c) leave their exchanges in
+flight: ``rank_stale_exchange`` issues step t's collective into a new
+receive buffer and returns it as an ``InFlight`` carry, waited on only
+when the carry is next read (``settle``).  Under the halo-delta cache a
+rank keeps its senders' baselines itself, in its send-pack order.  A
+replica step's exchange is the shrunken one (``rank_replica_exchange``:
+its kept rows packed into the carry once they arrive), and the partial
+refresh adds two side channels (``rank_partial_refresh`` and
+``rank_partial_refresh_grad``).
+
 The functions take the reference's ``halo_dtype``, a narrower dtype for
 the WIRE only: the pack rounds each row to it as it stores it, so the receive
 buffer and the ring concat hold half the bytes under ``'bfloat16'``; the
@@ -213,32 +223,216 @@ def rank_exchange(h, send_flat, mesh, halo_dtype=None, rr_sizes=None):
       halo_dtype: the wire's dtype (``'bfloat16'``) or ``None``.
       rr_sizes: the plan's static round sizes (the ring), or ``None``
         (the a2a)."""
-    import torch.distributed as dist
-
     if rr_sizes is not None and not ragged_live_rounds(rr_sizes):
         # an empty ring ships nothing: ring_concat's zero table
         return ring_concat(h, send_flat, rr_sizes, halo_dtype), lambda: None
-    # the collectives keep their tensors alive until they complete
     pack = row_pack(h.contiguous(), send_flat, _wire(h, halo_dtype))
-    recv = torch.empty_like(pack)
-    if rr_sizes is None:
-        works = [dist.all_to_all_single(recv[0], pack[0], async_op=True)]
-    else:
-        works, off = [], 0
-        for d in ragged_live_rounds(rr_sizes):
-            sl = slice(off, off + rr_sizes[d - 1])
-            if mesh.peer(d) == mesh.rank:      # a one-rank group: loopback
-                recv[0, sl].copy_(pack[0, sl])
-            else:
-                works += dist.batch_isend_irecv([
-                    dist.P2POp(dist.isend, pack[0, sl], mesh.peer(d)),
-                    dist.P2POp(dist.irecv, recv[0, sl], mesh.peer(-d))])
-            off += rr_sizes[d - 1]
+    recv, works = _rank_issue(pack, mesh, rr_sizes)
 
     def wait():
         for w in works:
             w.wait()
     return recv, wait
+
+
+def _rank_issue(pack, mesh, rr_sizes=None):
+    """Issue the collective of one rank's packed send buffer ``pack``
+    ``(1, J, ...)``: the a2a's ``all_to_all_single`` (equal splits of
+    ``J``), or per live ring round one ``batch_isend_irecv`` (a round to
+    the rank itself, on a one-rank group, a device copy).  Returns
+    ``(recv, works)``: the receive buffer and the pending works.  The
+    collectives keep their tensors alive until they complete."""
+    import torch.distributed as dist
+
+    recv = torch.empty_like(pack)
+    if rr_sizes is None:
+        return recv, [dist.all_to_all_single(recv[0], pack[0],
+                                             async_op=True)]
+    works, off = [], 0
+    for d in ragged_live_rounds(rr_sizes):
+        sl = slice(off, off + rr_sizes[d - 1])
+        if mesh.peer(d) == mesh.rank:          # a one-rank group: loopback
+            recv[0, sl].copy_(pack[0, sl])
+        else:
+            works += dist.batch_isend_irecv([
+                dist.P2POp(dist.isend, pack[0, sl], mesh.peer(d)),
+                dist.P2POp(dist.irecv, recv[0, sl], mesh.peer(-d))])
+        off += rr_sizes[d - 1]
+    return recv, works
+
+
+# ------------------------------------- the carried modes on one process a part
+class InFlight:
+    """A rank's carry whose exchange may still be in flight (ROADMAP
+    A2c): the buffer the collective writes, its pending works, and what
+    the receiver makes of the buffer once they complete (``finish``: the
+    halo-delta cache's add, or a replica step's pack into the carried
+    layout).  Nothing waits until the carry is read: ``wait()`` (or
+    ``settle``) waits on the works once, applies ``finish`` once and
+    returns the carry; ``waited`` says whether that has happened."""
+
+    __slots__ = ("_value", "_works", "_finish", "waited")
+
+    def __init__(self, value, works=(), finish=None):
+        self._value, self._works, self._finish = value, list(works), finish
+        self.waited = not self._works and finish is None
+
+    def wait(self):
+        if not self.waited:
+            for w in self._works:
+                w.wait()
+            if self._finish is not None:
+                self._value = self._finish(self._value)
+            self._works, self._finish, self.waited = [], None, True
+        return self._value
+
+
+def settle(carry):
+    """A carry as a tensor: an ``InFlight`` waited on, a tensor as is."""
+    return carry.wait() if isinstance(carry, InFlight) else carry
+
+
+def rank_stale_exchange(x, carry_in, base_in, send_flat, mesh,
+                        rr_sizes=None, delta=False, wire_dtype=None,
+                        fresh=False):
+    """Issue step t's stale exchange on one rank and return ``(carry_next,
+    base_next)`` without waiting: ``carry_next`` is an ``InFlight`` over a
+    new receive buffer (the rank form of ``stale_exchange`` /
+    ``stale_ring_exchange``; ``send_flat`` the slice's ``recv_src`` or
+    ``ring_src``, ``rr_sizes`` the ring's).  Its consumer is the next
+    read of the carry, not this step.
+
+    Under ``delta`` the halo-delta cache's two ends are on two
+    processes: the sender keeps ``base`` — ``(1, J, f)`` float32 in its
+    send-pack order, the value every receiver holds for each slot — ships
+    ``wire = (pack(x) − base)`` rounded to ``wire_dtype`` (``None``:
+    bf16) and adds it, ``base_next = base + wire``; the receiver adds the
+    wire to ``carry_in`` once it arrives.  A ``fresh`` step ships the
+    float32 row and both ends take it.  The same values as the stacked
+    tensor, slot for slot, so the same bits.  Without ``delta``
+    ``base_next`` is ``None``."""
+    if not delta:
+        pack = row_pack(x.contiguous(), send_flat, _wire(x, wire_dtype))
+        recv, works = _rank_issue(pack, mesh, rr_sizes)
+        return InFlight(recv, works), None
+    full = row_pack(x.contiguous(), send_flat, x.dtype)
+    if fresh:
+        recv, works = _rank_issue(full, mesh, rr_sizes)
+        return InFlight(recv, works), full
+    wdt = (torch.bfloat16 if wire_dtype is None
+           else narrow_dtype(wire_dtype) or torch.float32)
+    wire = torch.empty(full.shape, dtype=wdt, device=full.device)
+    torch.sub(full, base_in, out=wire)
+    recv, works = _rank_issue(wire, mesh, rr_sizes)
+    return (InFlight(recv, works, lambda w: settle(carry_in) + w),
+            base_in + wire)
+
+
+def rank_replica_exchange(x, send_flat, nsrc, dst, mesh, rr_sizes=None,
+                          wire_dtype=None):
+    """Issue a replica step's SHRUNKEN exchange on one rank: its kept rows
+    (``send_flat``: the slice's ``nrep_send_idx`` flat, or
+    ``nrep_rsend_idx`` with the shrunken ring's ``rr_sizes``) packed in
+    the wire's dtype and the collective issued.  Returns ``(works,
+    finish)``: once the works are done, ``finish(carry)`` packs the
+    received rows into ``carry`` in place (``row_pack_into`` by the
+    slice's ``keep_nrecv_src`` / ``keep_nring_src`` → ``keep_recv_dst`` /
+    ``keep_ring_dst``; the replica slots keep the last sync's rows) —
+    ``InFlight(carry, works, finish)``."""
+    if rr_sizes is not None and not ragged_live_rounds(rr_sizes):
+        return [], None
+    pack = row_pack(x.contiguous(), send_flat, _wire(x, wire_dtype))
+    recv, works = _rank_issue(pack, mesh, rr_sizes)
+    return works, lambda carry: row_pack_into(carry, recv, nsrc, dst)
+
+
+def _real_slots(side):
+    """A rank's ``(k·RS')`` side-channel slots that hold a row (the
+    reference's ``slot_valid``: below its count to each peer)."""
+    pos, counts = side["ronly_base_pos"], side["ronly_send_counts"]
+    return (torch.arange(pos.shape[-1], device=pos.device)[None, None]
+            < counts[..., None]).reshape(-1)
+
+
+def rank_partial_refresh(x, base, side, band: float, mesh, wire_dtype=None):
+    """The partial refresh's forward side channel on one rank (the rank
+    form of ``partial_refresh``): the sender's mask and wire-rounded
+    increments over its owned replicated rows, the baselines advanced,
+    and one ``all_to_all_single`` of the ``(k·RS', f)`` increments packed
+    by ``ronly_base_pos`` (the reference's ``_pspmm_replica_partial_once``;
+    a pad slot ships 0, its ``slot_valid``: no receiver of a full group
+    reads one, a one-rank group's loopback may).  ``side``: the slice
+    tensors ``rep_rows_flat``,
+    ``rep_row_valid``, ``ronly_base_pos``, ``ronly_send_counts``,
+    ``rep_recv_src``, ``rep_dst``.
+
+    Returns ``(works, finish, base_next, nship, mask)``: once the works
+    are done, ``finish(carry)`` adds each replica slot's increment into
+    the float32 ``carry`` in place; ``nship`` this rank's side-channel
+    slots that carried a row (the stats sum it over the ranks); ``mask``
+    the ``(1, RS)`` rows refreshed, which the gradient's side channel
+    ships again."""
+    f = x.shape[-1]
+    wdt = narrow_dtype(wire_dtype) or x.dtype
+    mask, qinc = _drift_increments(x, base, side, band, wire_dtype)
+    pos, real = side["ronly_base_pos"].reshape(1, -1), _real_slots(side)
+    nship = (mask.reshape(-1)[pos[0].long()] & real).sum()
+    wire = row_pack(qinc, pos, wdt)
+    wire.mul_(real[None, :, None].to(wdt))
+    recv, works = _rank_issue(wire, mesh)
+
+    def finish(carry):
+        src, dst = side["rep_recv_src"], side["rep_dst"].long()
+        inc = recv.reshape(-1, f).index_select(
+            0, src[0, : dst.numel()].long()).to(carry.dtype)
+        cf = carry.view(-1, f)
+        cf.index_copy_(0, dst, cf.index_select(0, dst) + inc)
+        return carry
+    return works, finish, base + qinc, nship, mask
+
+
+def rank_partial_refresh_grad(g, side, mask, mesh, wire_dtype=None):
+    """The partial refresh's gradient side channel on one rank (the rank
+    form of ``partial_refresh_grad``): the rows ``mask`` marks ship their
+    gradient and a 0/1 indicator lane, ``(k·RS', f + 1)`` in the wire's
+    dtype by ``ronly_base_pos``, one ``all_to_all_single``.  Returns
+    ``(works, finish)``: once the works are done, ``finish(gcarry)``
+    writes the slots whose indicator is 1 with the owner's row (set
+    semantics, the reference's ``grep·(1 − r) + vals·r``), in place."""
+    _one, rs = side["rep_rows_flat"].shape
+    f = g.shape[-1]
+    wdt = narrow_dtype(wire_dtype) or g.dtype
+    gr = g.reshape(-1, f).index_select(
+        0, side["rep_rows_flat"].reshape(-1).long()).reshape(1, rs, f)
+    m = mask.to(g.dtype)[..., None]
+    gtab = torch.cat([gr * m, m], dim=-1)
+    gwire = row_pack(gtab, side["ronly_base_pos"].reshape(1, -1), wdt)
+    gwire.mul_(_real_slots(side)[None, :, None].to(wdt))  # pads: no lane
+    recv, works = _rank_issue(gwire, mesh)
+
+    def finish(gcarry):
+        src, dst = side["rep_recv_src"], side["rep_dst"].long()
+        vals = recv.reshape(-1, f + 1).index_select(
+            0, src[0, : dst.numel()].long()).to(g.dtype)
+        act = vals[:, f:]
+        cf = gcarry.view(-1, f)
+        old = cf.index_select(0, dst).to(g.dtype)
+        cf.index_copy_(0, dst, (old * (1.0 - act) + vals[:, :f] * act)
+                       .to(cf.dtype))
+        return gcarry
+    return works, finish
+
+
+def chain(*finishes):
+    """One ``finish`` that applies each given one (``None`` skipped) in
+    turn: a replica step's pack into the carry, then its side channel."""
+    steps = [f for f in finishes if f is not None]
+
+    def finish(carry):
+        for step in steps:
+            carry = step(carry)
+        return carry
+    return finish if steps else None
 
 
 def rank_halo_exchange(h, send_flat, halo_src_flat, mesh, rr_sizes=None):
@@ -432,6 +626,26 @@ def carry_set_replica_rows(carry, table, rep_dst, rep_table_pos):
     return carry
 
 
+def _drift_increments(x, base, side, band: float, wire_dtype=None):
+    """The senders' side of the partial refresh (the reference's
+    ``_partial_mask`` and masked increment): over each part's owned
+    replicated rows (``side``'s ``rep_rows_flat`` / ``rep_row_valid``),
+    row ``i`` refreshes iff ``‖x_i − base_i‖² > band²·‖base_i‖²``.
+    Returns ``(mask, qinc)``: the ``(k, RS)`` rows refreshed and their
+    increments rounded to the wire's dtype (0 elsewhere), float32."""
+    k, rs = side["rep_rows_flat"].shape
+    f = x.shape[-1]
+    xr = x.reshape(-1, f).index_select(
+        0, side["rep_rows_flat"].reshape(-1).long()).reshape(k, rs, f)
+    valid = side["rep_row_valid"]
+    diff = (xr - base) * valid[..., None].to(x.dtype)
+    drift2 = torch.sum(torch.square(diff), dim=-1)
+    ref2 = torch.sum(torch.square(base), dim=-1)
+    mask = (drift2 > (band * band) * ref2) & (valid > 0)
+    wdt = narrow_dtype(wire_dtype) or x.dtype
+    return mask, (diff * mask[..., None].to(x.dtype)).to(wdt).to(x.dtype)
+
+
 def partial_refresh(x, carry, base, side, band: float, wire_dtype=None):
     """The drift-banded partial refresh's forward side channel (port of
     ``_partial_mask`` and the masked increment of
@@ -455,17 +669,8 @@ def partial_refresh(x, carry, base, side, band: float, wire_dtype=None):
     Returns ``(base_next, nship, active)``: the new baselines, the number
     of replica copies refreshed (the side channel's true rows) and the
     per-replica-slot 0/1 refresh mask the gradient's side channel uses."""
-    k, rs = side["rep_rows_flat"].shape
     f = x.shape[-1]
-    xr = x.reshape(-1, f).index_select(
-        0, side["rep_rows_flat"].reshape(-1).long()).reshape(k, rs, f)
-    valid = side["rep_row_valid"]
-    diff = (xr - base) * valid[..., None].to(x.dtype)
-    drift2 = torch.sum(torch.square(diff), dim=-1)
-    ref2 = torch.sum(torch.square(base), dim=-1)
-    mask = (drift2 > (band * band) * ref2) & (valid > 0)
-    wdt = narrow_dtype(wire_dtype) or x.dtype
-    qinc = (diff * mask[..., None].to(x.dtype)).to(wdt).to(x.dtype)
+    mask, qinc = _drift_increments(x, base, side, band, wire_dtype)
     base_next = base + qinc
     pos = side["rep_base_flat"].long()
     active = mask.reshape(-1).index_select(0, pos)

@@ -67,7 +67,13 @@ holds, in the reference's order:
     asynchronous collective (``ops/pspmm.py::rank_exchange``), the local
     family launch while the exchange is in flight, then the halo family
     over the received buffer and one float32 add: the fused entry's
-    arithmetic in two launches;
+    arithmetic in two launches.  The carried modes take a ``mesh`` too
+    (ROADMAP A2c): a stale step issues its exchange and leaves it in
+    flight (``ops/pspmm.py::InFlight``) while ONE fused launch reads the
+    previous step's carry (``PspmmTilesStaleRanks``); a replica step
+    issues the shrunken exchange, runs the local family, waits, packs the
+    received rows into the carry (``row_pack_into``) and runs the halo
+    family over it (``PspmmTilesReplicaRanks``);
   * ``gat_tiles_pass`` — ``gat_pallas_pass`` (K5): the GAT attention pass,
     the kernel over the combined-edge tiles with int8 0/1 mask weights.
     An int8 ``tw`` launches the kernel's int8 entry point, counted in
@@ -102,9 +108,12 @@ import numpy as np
 import torch
 
 from ..utils.backend import plain_region
-from .pspmm import (exchange_recv, partial_refresh, partial_refresh_grad,
-                    rank_exchange, replica_pack, reverse_exchange,
-                    ring_concat, stale_exchange, stale_ring_exchange)
+from .pspmm import (InFlight, chain, exchange_recv, partial_refresh,
+                    partial_refresh_grad, rank_exchange,
+                    rank_partial_refresh, rank_partial_refresh_grad,
+                    rank_replica_exchange, rank_stale_exchange, replica_pack,
+                    reverse_exchange, ring_concat, settle, stale_exchange,
+                    stale_ring_exchange)
 
 
 # ----------------------------------------------------------- tile builders
@@ -895,11 +904,12 @@ def _pspmm_ranks_once(h, send_flat, lsrc, lld, lw, hsrc, hld, hw, tb,
     rows (``pallas_spmm.py:428``).  The fused entry's arithmetic, split
     in two launches, so it equals the stacked path bit for bit."""
     recv, wait = rank_exchange(h, send_flat, mesh, halo_dtype, rr_sizes)
-    b = h.shape[1]
-    local = spmm_tiles_classes(lsrc, lld, lw, h, lclasses, tb)[:, :b]
-    wait()
-    remote = spmm_tiles_classes(hsrc, hld, hw, recv, hclasses, tb)[:, :b]
-    return (local + remote).to(h.dtype)
+
+    def arrived():
+        wait()
+        return recv
+    return _split_on(h, arrived, (lsrc, lld, lw, hsrc, hld, hw, tb,
+                                  lclasses, hclasses))
 
 
 class PspmmTilesRanks(torch.autograd.Function):
@@ -1083,7 +1093,8 @@ def _stale_exchange_of(rr_sizes):
 def pspmm_tiles_stale(x, halo_in, ghalo_in, recv_src, lsrc, lld, lw, hwsrc,
                       hld, hw, tb: int, lclasses, hclasses, delta=False,
                       wire_dtype=None, gwire_dtype=None, fresh=False,
-                      gholder=None, layer: int = 0, keep=None):
+                      gholder=None, layer: int = 0, keep=None, mesh=None,
+                      bases=None):
     """``pspmm_stale`` over stacked parts (``PspmmTilesStale``, a2a).
     ``x``: ``(k, b, f)`` float32; ``halo_in``/``ghalo_in``: the feature
     and gradient carries, ``(k, k·S, f)`` receive buffers (float32 under
@@ -1092,7 +1103,15 @@ def pspmm_tiles_stale(x, halo_in, ghalo_in, recv_src, lsrc, lld, lw, hwsrc,
     ``gholder[layer]``.  ``keep``: the plan's ``(keep_recv_src,
     keep_recv_dst)`` — the composed replica × stale mode
     (``pspmm_replica_stale``), whose stale steps ship the kept rows alone
-    (``_replica_stale_step``)."""
+    (``_replica_stale_step``).  ``mesh``: one rank of a rank group
+    (``_rank_stale_step``; ``keep`` then the rank's ``(send, nsrc, dst,
+    rr_sizes)`` of its shrunken exchange, ``bases`` the per-layer delta
+    baselines it replaces)."""
+    if mesh is not None:
+        return _rank_stale_step(
+            x, halo_in, ghalo_in, recv_src, (lsrc, lld, lw, hwsrc, hld, hw),
+            (tb, lclasses, hclasses, None, mesh), delta, wire_dtype,
+            gwire_dtype, fresh, gholder, layer, keep, bases)
     if keep is not None and not fresh:
         return _replica_stale_step(
             x, halo_in, ghalo_in, keep, (lsrc, lld, lw, hwsrc, hld, hw, tb,
@@ -1108,14 +1127,21 @@ def pspmm_tiles_stale_ragged(x, halo_in, ghalo_in, ring_src, lsrc, lld, lw,
                              rsrc, rld, rw, tb: int, lclasses, hclasses,
                              rr_sizes, delta=False, wire_dtype=None,
                              gwire_dtype=None, fresh=False, gholder=None,
-                             layer: int = 0, keep=None):
+                             layer: int = 0, keep=None, mesh=None,
+                             bases=None):
     """``pspmm_stale_ragged`` over stacked parts (``PspmmTilesStale`` on
     the ring): as ``pspmm_tiles_stale`` with ``(k, ΣS_d, f)`` ring-concat
     carries and the ring-re-based halo tiles (``ptile_hrsrc``).  The
     carries hold the same rows as the a2a flavor's and the fused launch
     walks the same slot order, so it equals ``pspmm_tiles_stale`` bit for
     bit.  ``keep``: ``(keep_ring_src, keep_ring_dst)``, the composed
-    mode's ring flavor (``pspmm_replica_stale_ragged``)."""
+    mode's ring flavor (``pspmm_replica_stale_ragged``).  ``mesh`` and
+    ``bases``: as ``pspmm_tiles_stale``'s, on the ring."""
+    if mesh is not None:
+        return _rank_stale_step(
+            x, halo_in, ghalo_in, ring_src, (lsrc, lld, lw, rsrc, rld, rw),
+            (tb, lclasses, hclasses, tuple(rr_sizes), mesh), delta,
+            wire_dtype, gwire_dtype, fresh, gholder, layer, keep, bases)
     if keep is not None and not fresh:
         return _replica_stale_step(
             x, halo_in, ghalo_in, keep, (lsrc, lld, lw, rsrc, rld, rw, tb,
@@ -1211,7 +1237,8 @@ def _replica_stale_step(x, halo_in, ghalo_in, keep, tiles, wire_dtype,
 
 def pspmm_tiles_replica(x, carry, gcarry, keep, tiles, kind: str,
                         halo_dtype=None, gholder=None, layer: int = 0,
-                        base=None, side=None, band: float = 0.0):
+                        base=None, side=None, band: float = 0.0,
+                        mesh=None):
     """One replica-step aggregation of the pure replica mode over stacked
     parts (port of ``pspmm_replica`` and ``pspmm_replica_ragged`` without
     ``fresh``, and of ``pspmm_replica_partial``); their sync step is
@@ -1234,7 +1261,15 @@ def pspmm_tiles_replica(x, carry, gcarry, keep, tiles, kind: str,
     in ``gholder[layer]``), the next feature carry (``carry`` written in
     place), and on a partial step
     the new baselines and the number of replica copies refreshed (else
-    ``base`` and ``None``)."""
+    ``base`` and ``None``).
+
+    ``mesh``: one rank of a rank group (``_rank_replica_step``), ``keep``
+    its ``(send, nsrc, dst, rr_sizes)``, ``side`` its slice's partial
+    refresh tensors; the count is then this rank's."""
+    if mesh is not None:
+        return _rank_replica_step(x, carry, gcarry, keep, tiles, kind,
+                                  halo_dtype, gholder, layer, base, side,
+                                  band, mesh)
     active, nship, base_next = None, None, base
     with torch.no_grad():
         xd = x.detach()
@@ -1246,6 +1281,215 @@ def pspmm_tiles_replica(x, carry, gcarry, keep, tiles, kind: str,
     out = PspmmTilesReplica.apply(x, table, gcarry, spec, kind, gholder,
                                   layer)
     return out, table, base_next, nship
+
+
+# ------------------------------------- the carried modes on one rank each
+class PspmmTilesStaleRanks(torch.autograd.Function):
+    """``PspmmTilesStale`` on one rank of a rank group (ROADMAP A2c): the
+    forward is ONE fused launch over ``x`` and ``table`` — the carry of
+    step t−1, or on a sync step the exchange just waited on — while step
+    t's exchange is in flight (``_rank_stale_step`` issued it).  The
+    backward issues the gradient's exchange (never delta) and leaves it
+    in flight in ``gholder[layer]`` (an ``InFlight``), waits on the
+    gradient carry of step t−1 and makes one fused launch over it; a sync
+    step waits on its own exchange first and launches over that.  Its
+    fused launches count in ``PspmmTilesStale.backward_launches``.  The
+    carries are attributes, never saved tensors."""
+
+    @staticmethod
+    def forward(ctx, x, table, ghalo_in, src, lsrc, lld, lw, hsrc, hld, hw,
+                spec, gwire_dtype, fresh, gholder, layer):
+        tb, lclasses, hclasses, _rr, _mesh = spec
+        ctx.save_for_backward(src, lsrc, lld, lw, hsrc, hld, hw)
+        ctx.state = (ghalo_in, spec, gwire_dtype, fresh, gholder, layer)
+        ctx.set_materialize_grads(False)
+        return _fused_on(x, table, lsrc, lld, lw, hsrc, hld, hw, tb,
+                         lclasses, hclasses)
+
+    @staticmethod
+    def backward(ctx, g):
+        ghalo_in, spec, gwire_dtype, fresh, gholder, layer = ctx.state
+        ctx.state = None
+        if g is None:
+            return (None,) * 15
+        src, lsrc, lld, lw, hsrc, hld, hw = ctx.saved_tensors
+        tb, lclasses, hclasses, rr_sizes, mesh = spec
+        g = g.contiguous()
+        gh_next, _ = rank_stale_exchange(g, None, None, src, mesh, rr_sizes,
+                                         False, gwire_dtype)
+        # a sync step's launch reads its own exchange; step t−1's is
+        # waited on all the same (its consumer is gone), so no work dangles
+        old = settle(ghalo_in)
+        table = gh_next.wait() if fresh else old
+        before = fused_launches()
+        gx = _fused_on(g, table, lsrc, lld, lw, hsrc, hld, hw, tb, lclasses,
+                       hclasses)
+        PspmmTilesStale.backward_launches += fused_launches() - before
+        if gholder is not None:
+            gholder[layer] = table if fresh else gh_next
+        return (gx,) + (None,) * 14
+
+
+def _rank_stale_step(x, halo_in, ghalo_in, src, tiles, spec, delta,
+                     wire_dtype, gwire_dtype, fresh, gholder, layer, keep,
+                     bases):
+    """One stale-mode aggregation on a rank: issue step t's exchange
+    (``ops/pspmm.py::rank_stale_exchange``; the halo-delta cache's sender
+    baseline is ``bases[layer]``, replaced by the next), then ONE fused
+    launch over the carry of step t−1, waited on only now — or, on a
+    sync step, over the exchange just issued, waited on at once.
+    Returns ``(out, halo_next)``: ``halo_next`` an ``InFlight`` that the
+    next read waits on (the tensor itself on a sync step).  ``keep``
+    (the composed replica × stale mode): a stale step ships the kept rows
+    alone (``_rank_replica_stale_step``)."""
+    if keep is not None and not fresh:
+        return _rank_replica_stale_step(x, halo_in, ghalo_in, keep, tiles,
+                                        spec, wire_dtype, gwire_dtype,
+                                        gholder, layer)
+    rr_sizes, mesh = spec[3], spec[4]
+    with torch.no_grad():
+        base_in = bases[layer] if delta else None
+        halo_next, base_next = rank_stale_exchange(
+            x.detach(), halo_in, base_in, src, mesh, rr_sizes, delta,
+            wire_dtype, fresh)
+    if delta:
+        bases[layer] = base_next
+    # a sync step's launch reads its own exchange; step t−1's is waited on
+    # all the same (its consumer is gone), so no work dangles
+    old = settle(halo_in)
+    table = halo_next.wait() if fresh else old
+    out = PspmmTilesStaleRanks.apply(x, table, ghalo_in, src, *tiles, spec,
+                                     gwire_dtype, fresh, gholder, layer)
+    return out, (table if fresh else halo_next)
+
+
+class PspmmTilesReplicaRanks(torch.autograd.Function):
+    """``PspmmTilesReplica`` on one rank of a rank group (ROADMAP A2c).
+
+      * ``'replica'`` / ``'partial'`` (the pure replica mode): the
+        forward is handed the step's shrunken exchange in flight
+        (``pending``, an ``InFlight`` over the carry); it runs the local
+        family over ``x`` (one K1 launch), waits, packs the received rows
+        into the carry (and on a partial step adds the side channel's
+        increments), runs the halo family over the carry (a second K1
+        launch; K1-bf16 on a ``halo_dtype`` carry) and adds once in
+        float32 — the fused entry's arithmetic in two launches.  The
+        backward mirrors it on the gradient carry: the shrunken exchange
+        of ``g`` (and the gradient side channel) issued, the local
+        launch, the wait and the packs, the halo launch;
+      * ``'stale'`` (a composed replica × stale step): the forward is one
+        fused launch over the carry of step t−1 (``pending``, waited on
+        before); the backward issues ``g``'s shrunken exchange, makes one
+        fused launch over the gradient carry of step t−1 and leaves the
+        exchange in flight in ``gholder[layer]``, to be packed into that
+        carry at the next read.
+
+    ``spec``: ``(keep, tiles, mesh, gwire_dtype, side, mask)`` — ``keep``
+    the rank's ``(send, nsrc, dst, rr_sizes)``, ``tiles`` as
+    ``pspmm_tiles_replica``'s, ``mask`` the partial step's refreshed
+    rows.  The fused launches of the backward count in
+    ``PspmmTilesReplica.backward_launches``."""
+
+    @staticmethod
+    def forward(ctx, x, pending, gcarry, spec, kind, gholder, layer):
+        (_keep, tiles, *_rest) = spec
+        lsrc, lld, lw, hsrc, hld, hw, tb, lclasses, hclasses = tiles
+        ctx.state = (gcarry, spec, kind, gholder, layer)
+        ctx.set_materialize_grads(False)
+        if kind == "stale":
+            return _fused_on(x, settle(pending), lsrc, lld, lw, hsrc, hld,
+                             hw, tb, lclasses, hclasses)
+        return _split_on(x, pending.wait, tiles)
+
+    @staticmethod
+    def backward(ctx, g):
+        gcarry, spec, kind, gholder, layer = ctx.state
+        ctx.state = None
+        if g is None:
+            return (None,) * 7
+        (send, nsrc, dst, rr_sizes), tiles, mesh, gwire, side, mask = spec
+        lsrc, lld, lw, hsrc, hld, hw, tb, lclasses, hclasses = tiles
+        g = g.contiguous()
+        works, finish = rank_replica_exchange(g, send, nsrc, dst, mesh,
+                                              rr_sizes, gwire)
+        if kind == "stale":
+            table = settle(gcarry)
+            before = fused_launches()
+            gx = _fused_on(g, table, lsrc, lld, lw, hsrc, hld, hw, tb,
+                           lclasses, hclasses)
+            PspmmTilesReplica.backward_launches += fused_launches() - before
+            nxt = InFlight(table, works, finish)
+        else:
+            if kind == "partial":
+                w2, fin2 = rank_partial_refresh_grad(g, side, mask, mesh,
+                                                     gwire)
+                works, finish = works + w2, chain(finish, fin2)
+            pending = InFlight(settle(gcarry), works, finish)
+            gx = _split_on(g, pending.wait, tiles)
+            nxt = pending.wait()
+        if gholder is not None:
+            gholder[layer] = nxt
+        return (gx,) + (None,) * 6
+
+
+def _split_on(h, arrived, tiles):
+    """The rank path's two-launch aggregation over a remote table whose
+    exchange is in flight: the local family over ``h`` (one K1 launch),
+    then ``arrived()`` — the wait (and a replica step's packs into its
+    carry), which returns the table — the halo family over it, one
+    float32 add rounded to ``h``'s dtype for the ``b`` owned rows: the
+    fused entry's arithmetic in two launches."""
+    lsrc, lld, lw, hsrc, hld, hw, tb, lclasses, hclasses = tiles
+    b = h.shape[1]
+    local = spmm_tiles_classes(lsrc, lld, lw, h, lclasses, tb)[:, :b]
+    table = arrived()
+    remote = spmm_tiles_classes(hsrc, hld, hw, table, hclasses, tb)[:, :b]
+    return (local + remote).to(h.dtype)
+
+
+def _rank_replica_stale_step(x, halo_in, ghalo_in, keep, tiles, spec,
+                             wire_dtype, gwire_dtype, gholder, layer):
+    """A composed replica × stale step on a rank: issue the shrunken
+    exchange of ``x``, wait on the carry of step t−1, ONE fused launch
+    over it, and return the carry with the exchange in flight: the next
+    read waits and packs the kept rows into it (its replica slots keep
+    their last-sync rows).  Returns ``(out, halo_next)``."""
+    send, nsrc, dst, rr_sizes = keep
+    tb, lclasses, hclasses, _rr, mesh = spec
+    with torch.no_grad():
+        works, finish = rank_replica_exchange(x.detach(), send, nsrc, dst,
+                                              mesh, rr_sizes, wire_dtype)
+    table = settle(halo_in)
+    rspec = (keep, (*tiles, tb, lclasses, hclasses), mesh, gwire_dtype,
+             None, None)
+    out = PspmmTilesReplicaRanks.apply(x, table, ghalo_in, rspec, "stale",
+                                       gholder, layer)
+    return out, InFlight(table, works, finish)
+
+
+def _rank_replica_step(x, carry, gcarry, keep, tiles, kind, halo_dtype,
+                       gholder, layer, base, side, band, mesh):
+    """A replica (or partial refresh) step on a rank: issue the shrunken
+    exchange (and the partial refresh's forward side channel), then the
+    two-launch aggregation that waits between its launches
+    (``PspmmTilesReplicaRanks``).  The exchange is synchronous: the carry
+    is this step's, as in the reference.  Returns ``(out, carry_next,
+    base_next, nship)`` as ``pspmm_tiles_replica`` does."""
+    send, nsrc, dst, rr_sizes = keep
+    mask, nship, base_next = None, None, base
+    with torch.no_grad():
+        xd = x.detach()
+        works, finish = rank_replica_exchange(xd, send, nsrc, dst, mesh,
+                                              rr_sizes, halo_dtype)
+        if kind == "partial":
+            w2, fin2, base_next, nship, mask = rank_partial_refresh(
+                xd, base, side, band, mesh, halo_dtype)
+            works, finish = works + w2, chain(finish, fin2)
+    pending = InFlight(settle(carry), works, finish)
+    spec = (keep, tiles, mesh, halo_dtype, side, mask)
+    out = PspmmTilesReplicaRanks.apply(x, pending, gcarry, spec, kind,
+                                       gholder, layer)
+    return out, pending.wait(), base_next, nship
 
 
 def gat_tiles_pass(csrc, cld, cw, table, cclasses, tb: int, num_rows: int):

@@ -122,6 +122,16 @@ REPLICA_TILE_FIELDS_RAGGED = ("keep_ring_src", "keep_ring_dst",
                               "rep_ring_dst")
 REPLICA_PARTIAL_TILE_FIELDS = ("rep_rows_flat", "rep_row_valid",
                                "rep_base_flat", "rep_src_flat")
+# ... and what one rank of a rank group reads instead (its slice's): the
+# shrunken send list it packs, where each row of its shrunken receive goes
+# in the carried layout, and the partial refresh's side-channel lists
+REPLICA_RANK_FIELDS = ("nrep_send_idx", "keep_nrecv_src", "keep_recv_dst",
+                       "rep_recv_dst")
+REPLICA_RANK_FIELDS_RAGGED = ("nrep_rsend_idx", "keep_nring_src",
+                              "keep_ring_dst", "rep_ring_dst")
+REPLICA_PARTIAL_RANK_FIELDS = ("rep_rows_flat", "rep_row_valid",
+                               "ronly_base_pos", "ronly_send_counts",
+                               "rep_recv_src")
 
 # Every CommPlan array field stacked per part along a leading ``k`` axis:
 # the explicit classification anything slicing a plan per part reads
@@ -174,16 +184,23 @@ REBASED_ARRAY_FIELDS = (
     "ring_src",        # ((q−d) mod k)·B + rsend_idx[...] ↦ rsend_idx[c]
     "rev_src",         # q·rows + p·S + t ↦ q·S + t (the loopback's
     "rev_csrc",        #   transpose: the own partial goes back in place)
-    "keep_recv_src",   # part c's kept a2a slots: the loopback row there
+    "keep_recv_src",   # part c's kept a2a slots: the shrunken loopback
+    #                    row there, nrep_send_idx[c] at keep_nrecv_src
     "keep_recv_dst",   # q·k·S + j with q = c ↦ j
-    "keep_ring_src",   # part c's kept ring slots: the loopback row there
+    "keep_ring_src",   # part c's kept ring slots: nrep_rsend_idx[c] at
+    #                    keep_nring_src (the shrunken ring's loopback)
     "keep_ring_dst",   # q·ΣS_d + j with q = c ↦ j
     "rep_recv_dst",    # part c's replica slots, as keep_recv_dst
     "rep_ring_dst",    # ... and as keep_ring_dst
-    "rep_src_flat",    # the a2a loopback row at each of them
-    "rep_base_flat",   # o·RS + pos ↦ pos (the part's own baseline row)
+    "rep_src_flat",    # the side channel's loopback: the own row of
+    "rep_base_flat",   #   the baseline row ronly_base_pos[c] names at
+    #                    rep_recv_src[c, i] (and that baseline row); a
+    #                    pad slot there names a row past the part's own
+    #                    count, whose increment is 0
     "rep_table_pos",   # q·RP + i with q = c ↦ i
     "rep_rows_flat",   # c·B + rep_rows[c] ↦ rep_rows[c] (0 on a pad)
+    "keep_nrecv_src",  # q·k·S' + p·S' + t' with q = c ↦ p·S' + t'
+    "keep_nring_src",  # q·ΣS'_d + j' with q = c ↦ j'
 )
 
 
@@ -402,8 +419,16 @@ class CommPlan:
     rep_src_flat: np.ndarray | None = None      # (n_rep,) int32
     rep_base_flat: np.ndarray | None = None     # (n_rep,) int32
     rep_table_pos: np.ndarray | None = None     # (n_rep,) int32
-    rep_rows_flat: np.ndarray | None = None     # (k, RS) int32
-    rep_row_valid: np.ndarray | None = None     # (k, RS) float32
+    rep_rows_flat: np.ndarray | None = None     # (k, rep_base_rows) int32
+    rep_row_valid: np.ndarray | None = None     # (k, rep_base_rows) f32
+    # port only: where each kept slot arrives in the SHRUNKEN exchange,
+    # aligned with ``keep_recv_*`` / ``keep_ring_*`` — its row of the
+    # stacked shrunken a2a receive buffers q·k·S' + p·S' + t' (t' its
+    # place among the kept rows of p's list to q) or of the shrunken ring
+    # concat q·ΣS'_d + j'; a rank packs its shrunken receive into the
+    # carried layout by them (``ops/pspmm.py::rank_replica_exchange``)
+    keep_nrecv_src: np.ndarray | None = None    # (n_keep,) int32
+    keep_nring_src: np.ndarray | None = None    # (n_keep,) int32
 
     # the part each row of a per-part slice is (``parallel/proxy.py``;
     # ``None`` on a full plan): row 0 of part c's slice self-sends at
@@ -862,7 +887,10 @@ class CommPlan:
         ring's round-major concat (``ring_src``) — the table the row pack
         writes and the fused launch reads, and the carries' layout."""
         if schedule == "a2a":
-            return (int(self.k), int(self.k * self.s))
+            # a one-part slice (parallel/proxy.py) keeps every peer's
+            # bucket: send_idx's second axis, not the slice's k
+            peers = int(np.asarray(self.send_idx).shape[1])
+            return (int(self.k), int(peers * self.s))
         if schedule == "ragged":
             sizes = (self.rr_sizes if self.rr_sizes is not None
                      else self.ragged_round_sizes())
@@ -1089,6 +1117,14 @@ class CommPlan:
         keep = real & ~rep_mask[p_, row]
         self.keep_recv_src = (p_ * b + row)[keep].astype(np.int32)
         self.keep_recv_dst = (q_ * k * s + p_ * s + t_)[keep].astype(np.int32)
+        # a kept slot's place among the kept rows of its (p → q) list
+        ns = self.nrep_s
+        tk = np.cumsum(keep, axis=-1) - 1
+        if k * k * ns >= 2 ** 31:
+            raise ValueError(f"shrunken exchange of k={k}, S'={ns} "
+                             "overflows int32 row indices")
+        self.keep_nrecv_src = (q_ * k * ns + p_ * ns + tk)[keep].astype(
+            np.int32)
         reps = [np.asarray(x, np.int64) for x in rep_slot_lists]
         owner_slot = [np.asarray(self.halo_src[q], np.int64)[reps[q]]
                       for q in range(k)]
@@ -1112,19 +1148,22 @@ class CommPlan:
         self.rep_rows_flat *= self.rep_row_valid.astype(np.int32)
         if self.rr_sizes is None:
             self.keep_ring_src = self.keep_ring_dst = None
-            self.rep_ring_dst = None
+            self.keep_nring_src = self.rep_ring_dst = None
             return
         # ring: the same slots at their full ring positions
         st = max(1, sum(self.rr_sizes))
+        nst = self.nrep_ring_dst.shape[1]       # max(1, ΣS'_d)
         full_total = int(sum(self.rr_sizes))
-        dst, src = [], []
+        dst, src, nsrc = [], [], []
         for q in range(k):
             live = self.nrep_ring_dst[q] < full_total
             pos = self.nrep_ring_dst[q][live].astype(np.int64)
             dst.append(q * st + pos)
             src.append(self.ring_src[q][pos].astype(np.int64))
+            nsrc.append(q * nst + np.nonzero(live)[0])
         self.keep_ring_dst = np.concatenate(dst).astype(np.int32)
         self.keep_ring_src = np.concatenate(src).astype(np.int32)
+        self.keep_nring_src = np.concatenate(nsrc).astype(np.int32)
         self.rep_ring_dst = np.concatenate(
             [q * st + self.rep_ring_pos[q, : len(x)].astype(np.int64)
              for q, x in enumerate(reps)]
@@ -1148,8 +1187,15 @@ class CommPlan:
         out = {"reps": [(self.rp, f) for f in fs],
                "greps": [(self.rp, f) for f in fs]}
         if partial:
-            out["rep_base"] = [(self.rs, f) for f in fs]
+            out["rep_base"] = [(self.rep_base_rows, f) for f in fs]
         return out
+
+    @property
+    def rep_base_rows(self) -> int:
+        """Rows of each part's partial-refresh baselines: ``rs``, and on a
+        slice one more where its loopback reads a pad of the side channel
+        (``parallel/proxy.py::_spare_row``)."""
+        return int(self.rep_rows_flat.shape[1])
 
     @property
     def partial_refresh_wire_rows(self) -> int:

@@ -17,7 +17,10 @@ The slice is cut by the plan's explicit field classification
 (``parallel/plan.py``): ``PER_CHIP_ARRAY_FIELDS`` are sliced to
 ``[c:c+1]``, ``_GLOBAL_ARRAY_FIELDS`` pass through, and the port-only
 flat indices over the stacked layout (``REBASED_ARRAY_FIELDS``) are
-re-based by the rules in ``REBASE``.  Any other dataclass array that
+re-based by the rules in ``REBASE``.  A replica step's loopback is that
+of the SHRUNKEN exchange (``nrep_*``), and the partial refresh's that of
+its side channel: the values a one-rank group's collectives and the
+reference proxy's size-1 collective deliver.  Any other dataclass array that
 looks stacked per part raises.  A lazy layout (the ring, the GAT tiles,
 the transposed layouts, the replicas) is sliced only if it was built on
 the full plan first; a slice that lacks one raises when the trainer asks
@@ -58,17 +61,32 @@ def _rep_mask(plan, c):
     return np.asarray(plan.rep_table_pos, np.int64) // plan.rp == c
 
 
-def _keep(dst_name, ring):
+def _nrep_stride(plan, ring):
+    """Rows of one part's shrunken receive layout: ``k·S'`` (a2a) or the
+    shrunken ring concat's ``max(1, ΣS'_d)``."""
+    return plan.nrep_ring_dst.shape[1] if ring else plan.k * plan.nrep_s
+
+
+def _keep(ring):
+    """The rules of the kept slots' lists.  A replica step's exchange is
+    the SHRUNKEN one, so its loopback delivers, at each kept slot, the
+    part's own row of its shrunken send list at the slot's place in the
+    shrunken receive layout (what the reference proxy's size-1
+    collective and a one-rank group deliver)."""
     def dst_rule(plan, c, v):
         stride = _ring_stride(plan) if ring else plan.k * plan.s
         return _part_entries(plan, c, v, stride)[1]
 
+    def nsrc_rule(plan, c, v):
+        return _part_entries(plan, c, v, _nrep_stride(plan, ring))[1]
+
     def src_rule(plan, c, v):
-        rows = plan.rsend_idx[c] if ring else _loopback(plan, c)
-        stride = _ring_stride(plan) if ring else plan.k * plan.s
-        _m, dst = _part_entries(plan, c, getattr(plan, dst_name), stride)
-        return np.ascontiguousarray(rows[dst], np.int32)
-    return src_rule, dst_rule
+        sends = (plan.nrep_rsend_idx[c] if ring
+                 else plan.nrep_send_idx[c].reshape(-1))
+        pos = nsrc_rule(plan, c, plan.keep_nring_src if ring
+                        else plan.keep_nrecv_src)
+        return np.ascontiguousarray(sends[pos], np.int32)
+    return src_rule, dst_rule, nsrc_rule
 
 
 def _rep_dst(ring):
@@ -78,14 +96,40 @@ def _rep_dst(ring):
     return rule
 
 
-def _rep_src_flat(plan, c, v):
-    _m, dst = _part_entries(plan, c, plan.rep_recv_dst, plan.k * plan.s)
-    return np.ascontiguousarray(_loopback(plan, c)[dst], np.int32)
-
-
 def _rep_base_flat(plan, c, v):
-    return (np.asarray(v, np.int64)[_rep_mask(plan, c)]
-            % plan.rs).astype(np.int32)
+    """The partial refresh's loopback: replica slot ``i`` reads the side
+    channel's slot ``rep_recv_src[c, i]``, which holds the part's own
+    baseline row ``ronly_base_pos[c]`` names there.  A pad slot (past the
+    part's own count to the slot's peer) carries 0, the reference's
+    ``slot_valid``: it names row ``rep_row_counts[c]``, past the part's
+    own rows, whose increment is 0 (``rep_row_valid``; ``_spare_row``
+    adds that row where the part fills all ``rs``)."""
+    n = int(plan.rep_counts[c])
+    src = np.asarray(plan.rep_recv_src[c, :n], np.int64)
+    peer, pos = src // plan.ronly_s, src % plan.ronly_s
+    real = pos < np.asarray(plan.ronly_send_counts)[c, peer]
+    return np.where(real, plan.ronly_base_pos[c].reshape(-1)[src],
+                    plan.rep_row_counts[c]).astype(np.int32)
+
+
+def _rep_src_flat(plan, c, v):
+    """... and the gradient side channel's: that baseline row's own
+    row (0 past the part's own rows)."""
+    rows = np.append(plan.rep_rows[c] * (plan.rep_row_valid[c] > 0), 0)
+    return np.ascontiguousarray(rows[_rep_base_flat(plan, c, v)], np.int32)
+
+
+def _spare_row(plan, c, repl) -> dict:
+    """A part that owns ``rs`` replicated rows and whose loopback reads a
+    pad of the side channel (``_rep_base_flat``) gains one baseline row
+    past its own, never valid: a zero column in its port-only
+    ``rep_row_valid`` and ``rep_rows_flat`` (``CommPlan.rep_base_rows``;
+    the reference-equal ``rs`` and ``rep_rows`` stay)."""
+    flat = repl.get("rep_base_flat")
+    if flat is None or not np.any(flat == plan.rs):
+        return {}
+    return {name: np.pad(repl[name], ((0, 0), (0, 1)))
+            for name in ("rep_row_valid", "rep_rows_flat")}
 
 
 def _rep_table_pos(plan, c, v):
@@ -97,8 +141,8 @@ def _rev(plan, c, v):
     return np.arange(plan.k * plan.s, dtype=np.int32)[None]
 
 
-_keep_recv = _keep("keep_recv_dst", ring=False)
-_keep_ring = _keep("keep_ring_dst", ring=True)
+_keep_recv = _keep(ring=False)
+_keep_ring = _keep(ring=True)
 
 # ``REBASED_ARRAY_FIELDS``' rules (``parallel/plan.py`` states each in a
 # line): each maps (full plan, part c, the field's full value) to the
@@ -123,6 +167,8 @@ REBASE = {
     "rep_rows_flat": lambda plan, c, v: np.ascontiguousarray(
         plan.rep_rows[c: c + 1] * (plan.rep_row_valid[c: c + 1] > 0),
         np.int32),
+    "keep_nrecv_src": _keep_recv[2],
+    "keep_nring_src": _keep_ring[2],
 }
 
 
@@ -171,6 +217,7 @@ def shard_proxy_plan(plan: CommPlan, chip: int = 0) -> CommPlan:
         v = getattr(plan, name)
         if v is not None:
             repl[name] = rule(plan, chip, v)
+    repl.update(_spare_row(plan, chip, repl))
     return dataclasses.replace(plan, **repl)
 
 

@@ -47,13 +47,17 @@ before any tensor ships.  Launched by ``torchrun`` or under SLURM
 (``launch/gpu.slurm``), the CLI opens a rank group first
 (``parallel/launch.py::init_distributed``; one process is the stacked
 layout): a world of ``-s K`` processes trains one part per rank (GCN and
-GAT, ``--dtype``, ``--halo-dtype``, both transports), rank 0 alone
-prints, records ``--metrics-out`` and saves, every rank restores, and
-every rank appends its rendezvous and ``train:start|done`` heartbeats
-to ``--metrics-out``'s ``heartbeat.jsonl``; another world size, and
-``-n``, ``--experiment accuracy``, ``--halo-staleness``,
-``--replica-budget`` or a directed graph on ranks, exit with the
-reason.  Prints ONE JSON line: the
+GAT, ``--dtype``, ``--halo-dtype``, both transports, and the GCN's
+carried modes: ``--halo-staleness 1``, ``--halo-delta``,
+``--sync-every``, ``--replica-budget B|auto``, ``--refresh-band`` and
+``--comm-schedule auto``'s controller), rank 0 alone prints, records
+``--metrics-out`` and saves, every rank restores, and every rank appends
+its rendezvous and ``train:start|done`` heartbeats to
+``--metrics-out``'s ``heartbeat.jsonl``; another world size, ``-n``,
+``--experiment accuracy`` or a directed graph on ranks exit with the
+reason, and so do ``--checkpoint-dir``, ``--save-checkpoint`` and
+``--resume`` in a carried mode (the reference's deferral: the carry is
+sharded over the ranks).  Prints ONE JSON line: the
 comm report and epoch timing under the reference's keys (in the stale
 mode with its hidden/exposed split, the stale flags and the controller's
 log; in the replica mode its replica figures and flags) (with
@@ -544,28 +548,41 @@ def _launched_run(args, device, activation):
 
 def _rank_group(args, ctx):
     """The run's ``RankGroup`` (one process per part) or ``None`` (one
-    process: the stacked layout); exits for another world size and for
-    the modes that never reach the rank trainer (ROADMAP A2c): the
-    mini-batch trainer and the accuracy harness.  The trainer's own guard
-    (``check_rank_levers``, turned into an exit by ``_train``) covers the
-    stale halo, replicas and directed plans."""
+    process: the stacked layout); exits for another world size, for the
+    modes that never reach the rank trainer (ROADMAP A2c): the mini-batch
+    trainer and the accuracy harness, and for a carried mode's
+    checkpoint (the reference's deferral), before any step.  The
+    trainer's own guard (``check_rank_levers``, turned into an exit by
+    ``_train``) covers directed plans."""
+    import torch.distributed as dist
+
     from ..parallel.launch import global_mesh_1d
+    from .fullbatch import CARRY_CHECKPOINT_DEFERRAL
 
     if ctx.num_processes == 1:
         return None
+
+    def leave(reason):
+        # every rank refuses alike; the barrier lets the slowest finish
+        # the rendezvous before a faster one tears the group down
+        dist.barrier()
+        raise SystemExit(reason)
     try:
         mesh = global_mesh_1d(args.nparts, ctx)
     except ValueError as e:
-        raise SystemExit(str(e)) from e
+        leave(str(e))
     for bad, what in ((args.batch_size is not None, "-n/--batch-size"),
                       (args.experiment == "accuracy",
                        "--experiment accuracy")):
         if bad:
-            raise SystemExit(
-                f"{what} does not run on {ctx.num_processes} ranks yet "
-                "(ROADMAP A2c): the rank path trains the exact full-batch "
-                "GCN and GAT on a symmetric adjacency; launch one process "
-                "for the stacked layout")
+            leave(f"{what} does not run on {ctx.num_processes} ranks yet "
+                  "(ROADMAP A2c): the rank path trains the exact full-batch "
+                  "GCN and GAT on a symmetric adjacency; launch one process "
+                  "for the stacked layout")
+    carried = args.halo_staleness or args.replica_budget
+    if carried and (args.checkpoint_dir or args.save_checkpoint
+                    or args.resume):
+        leave(CARRY_CHECKPOINT_DEFERRAL)
     return mesh
 
 
@@ -637,9 +654,12 @@ def _train(args, device, activation, recorder, inputs, mesh=None) -> dict:
     except ValueError as e:
         if mesh is None:
             raise
-        # a mode the rank path does not run yet (ROADMAP A2c: the stale
-        # halo, replicas, a directed plan)
+        # a mode the rank path does not run yet (ROADMAP A2c: a directed
+        # plan), or a carried mode's own gate
         raise SystemExit(str(e)) from e
+    if mesh is not None and args.metrics_out:
+        # rank 0's step events read the gauges, a collective of every rank
+        tr.drift_gauges = True
     if recorder is not None:
         recorder.set_plan(plan, partitioner={"partvec": args.partvec,
                                              "k": k})

@@ -49,6 +49,11 @@ every refresh after step 0 a partial one (a2a) that ships only the rows
 whose drift passes the band.  With ``halo_staleness=1`` the replicas
 compose with the stale carry: a stale step ships the kept rows alone.
 
+On a rank group (``mesh``) the carried modes run one process per part:
+a stale step's exchanges stay in flight until the carry is next read, a
+replica step ships the shrunken exchange, and the gauges, refresh counts
+and the controller's decision are the group's (ROADMAP A2c).
+
 ``remat=True`` recomputes the forward inside the backward, one layer at
 a time (a non-reentrant ``torch.utils.checkpoint`` per layer, where the
 reference wraps the whole forward in ``jax.checkpoint``): the same bits
@@ -86,8 +91,10 @@ from ..ops import pspmm as layout
 from ..ops.pspmm import narrow_dtype
 from ..ops.tile_spmm import (TILE_PLAN_FIELDS, TILE_PLAN_FIELDS_GEN,
                              TILE_PLAN_FIELDS_RAGGED, choose_tile_dispatch)
-from ..parallel.plan import (REPLICA_PARTIAL_TILE_FIELDS,
-                             REPLICA_TILE_FIELDS, REPLICA_TILE_FIELDS_RAGGED,
+from ..parallel.plan import (REPLICA_PARTIAL_RANK_FIELDS,
+                             REPLICA_PARTIAL_TILE_FIELDS, REPLICA_RANK_FIELDS,
+                             REPLICA_RANK_FIELDS_RAGGED, REPLICA_TILE_FIELDS,
+                             REPLICA_TILE_FIELDS_RAGGED,
                              choose_replica_budget, resolve_comm_schedule)
 from ..parallel.proxy import shard_proxy_plan
 from ..utils.backend import resolve_device, synchronize
@@ -186,7 +193,8 @@ def resolve_forward_setup(plan, model: str = "gcn",
                           comm_schedule: str | None = None,
                           halo_staleness: int = 0,
                           replica_budget: int | str = 0,
-                          refresh_band: float | None = None) -> ForwardSetup:
+                          refresh_band: float | None = None,
+                          ranks: bool = False) -> ForwardSetup:
     """Resolve the ported subset: GCN or GAT over the transport
     ``resolve_comm_schedule`` picks (``None`` reads
     ``$SGCN_COMM_SCHEDULE``, default a2a; ``auto`` takes the ring when the
@@ -208,7 +216,9 @@ def resolve_forward_setup(plan, model: str = "gcn",
     shrunken exchange, the plan gets its replica layout
     (``ensure_replicas``) and the shipped fields gain the replica lists
     of the transport (and the partial refresh's under
-    ``refresh_band``)."""
+    ``refresh_band``) — with ``ranks``, those one rank of a rank group
+    reads (``REPLICA_RANK_FIELDS[_RAGGED]``,
+    ``REPLICA_PARTIAL_RANK_FIELDS``)."""
     if model not in MODELS:
         raise NotImplementedError(
             f"model {model!r} is not ported yet (ported: "
@@ -245,11 +255,16 @@ def resolve_forward_setup(plan, model: str = "gcn",
         spec["plan_fields"] = gen_fields
     if model == "gcn" and replica_budget:
         plan.ensure_replicas(replica_budget)
-        spec["plan_fields"] += (REPLICA_TILE_FIELDS_RAGGED
-                                if schedule == "ragged"
-                                else REPLICA_TILE_FIELDS)
+        ragged = schedule == "ragged"
+        if ranks:
+            spec["plan_fields"] += (REPLICA_RANK_FIELDS_RAGGED if ragged
+                                    else REPLICA_RANK_FIELDS)
+        else:
+            spec["plan_fields"] += (REPLICA_TILE_FIELDS_RAGGED if ragged
+                                    else REPLICA_TILE_FIELDS)
         if refresh_band is not None:
-            spec["plan_fields"] += REPLICA_PARTIAL_TILE_FIELDS
+            spec["plan_fields"] += (REPLICA_PARTIAL_RANK_FIELDS if ranks
+                                    else REPLICA_PARTIAL_TILE_FIELDS)
     return ForwardSetup(model=model, comm_schedule=schedule,
                         fwd_static=fwd_static, decision=decision,
                         replica_budget=replica_budget, **spec)
@@ -417,24 +432,31 @@ def check_carry_levers(model: str, symmetric: bool, halo_staleness: int,
                 "step); drop compute_dtype/remat or run exact mode")
 
 
-def check_rank_levers(plan, mesh, halo_staleness: int,
-                      replica_budget) -> None:
-    """The rank path's scope (ROADMAP A2b, A2c's first half): GCN or GAT
-    on a symmetric plan, exact mode, float32 or ``compute_dtype``, with or
-    without ``remat`` (``halo_dtype`` allowed for GCN), both transports;
-    a ``k``-rank group on the full k-way plan, or one rank on a slice.
-    The stale halo, replicas and an asymmetric plan raise a
-    ``ValueError`` naming ROADMAP A2c."""
-    for bad, what in ((not plan.symmetric, "an asymmetric plan (a directed "
-                                           "graph)"),
-                      (bool(halo_staleness), "halo_staleness"),
-                      (bool(replica_budget), "replica_budget")):
-        if bad:
-            raise ValueError(
-                f"{what} does not run on a rank group yet (ROADMAP A2c): "
-                "the rank path trains the exact GCN and GAT on a "
-                "symmetric plan; train it stacked or on a shard_proxy_plan "
-                "slice")
+# The reference's deferral of a carried mode's checkpoint on more than one
+# process (``sgcn_tpu/train/fullbatch.py::resume_state``), word for word
+CARRY_CHECKPOINT_DEFERRAL = (
+    "full-state checkpointing of the stale/replica carry is "
+    "single-process for now: the carry is sharded across hosts and the "
+    "coordinator cannot fetch it — run exact mode for multi-host durable "
+    "checkpoints, or checkpoint carried modes from a single-process run "
+    "(docs/resilience.md)")
+
+
+def check_rank_levers(plan, mesh) -> None:
+    """The rank path's scope (ROADMAP A2b, A2c): GCN or GAT on a
+    symmetric plan, float32 or ``compute_dtype``, with or without
+    ``remat`` (``halo_dtype`` allowed for GCN), both transports, and for
+    GCN the carried modes (``halo_staleness``, ``halo_delta``,
+    ``sync_every``, ``replica_budget``, ``refresh_band``, under the
+    reference's own gates); a ``k``-rank group on the full k-way plan, or
+    one rank on a slice.  An asymmetric plan raises a ``ValueError``
+    naming ROADMAP A2c."""
+    if not plan.symmetric:
+        raise ValueError(
+            "an asymmetric plan (a directed graph) does not run on a rank "
+            "group yet (ROADMAP A2c): the rank path trains GCN and GAT on "
+            "a symmetric plan; train it stacked or on a shard_proxy_plan "
+            "slice")
     want = 1 if plan.chip_ids is not None else plan.k
     if mesh.size != want:
         raise ValueError(
@@ -534,13 +556,21 @@ class FullBatchTrainer:
         GAT table's exchange, ``ops/pspmm.py::rank_halo_exchange``, is
         waited on before K5), GAT's stabilizer is all-reduced to its max,
         the loss's count and every weight gradient are all-reduced.  GCN
-        and GAT on a symmetric plan, exact mode, float32 or
-        ``compute_dtype``, with or without ``remat`` (``halo_dtype`` for
-        GCN), both transports; the stale halo, replicas and asymmetric
-        plans raise (ROADMAP A2c).  ``device`` defaults to the group's;
-        data comes from ``make_train_data_multihost``."""
+        and GAT on a symmetric plan, float32 or ``compute_dtype``, with
+        or without ``remat`` (``halo_dtype`` for GCN), both transports,
+        and the GCN's carried modes (ROADMAP A2c): a stale step leaves
+        each exchange in flight until the carry is next read
+        (``ops/pspmm.py::InFlight``; ``fit`` waits on every one before it
+        returns), the halo-delta cache keeps each sender's baseline on
+        its own rank, a replica step ships the shrunken exchange, the
+        drift gauges and the partial refresh's counts are all-reduced,
+        and the controller's ``sync_every`` is rank 0's, broadcast.  A
+        carried mode's checkpoint on more than one rank raises the
+        reference's deferral; an asymmetric plan raises (ROADMAP A2c).
+        ``device`` defaults to the group's; data comes from
+        ``make_train_data_multihost``."""
         if mesh is not None:
-            check_rank_levers(plan, mesh, halo_staleness, replica_budget)
+            check_rank_levers(plan, mesh)
         if halo_dtype is not None and model != "gcn":
             raise ValueError(
                 "halo_dtype is a GCN-trainer lever; for GAT use "
@@ -560,7 +590,8 @@ class FullBatchTrainer:
                                       comm_schedule=comm_schedule,
                                       halo_staleness=halo_staleness,
                                       replica_budget=replica_budget,
-                                      refresh_band=refresh_band)
+                                      refresh_band=refresh_band,
+                                      ranks=mesh is not None)
         # one process per part: the layouts are built on the full plan
         # (above), then the rank keeps its part's slice
         self.mesh = mesh
@@ -578,7 +609,8 @@ class FullBatchTrainer:
             compute_dtype=narrowed.get("compute_dtype"),
             halo_dtype=narrowed.get("halo_dtype"),
             halo_staleness=halo_staleness, halo_delta=halo_delta,
-            refresh_band=refresh_band, remat=remat, setup=setup)
+            refresh_band=refresh_band, remat=remat, setup=setup,
+            ranks=mesh is not None)
         check_memory_budget(self.memory, memory_budget,
                             what=f"{model} trainer")
         self.memory_budget = memory_budget
@@ -692,9 +724,7 @@ class FullBatchTrainer:
         """Per layer a zero feature and gradient carry in the receive
         layout of the transport (never consumed: step 0 syncs): the
         wire's dtype, the feature carries float32 if asked."""
-        plan, k = self.plan, self.plan.k
-        rows = (max(1, sum(plan.rr_sizes)) if self.comm_schedule == "ragged"
-                else k * plan.s)
+        k, rows = self.plan.recv_layout_shape(self.comm_schedule)
         wire = narrow_dtype(self.halo_dtype) or torch.float32
         hdt = torch.float32 if float32_features else wire
         fs = exchange_widths(self.fin, self.widths)
@@ -705,8 +735,14 @@ class FullBatchTrainer:
 
     def _init_stale_carry(self) -> None:
         """Zero carries (``_zero_carries``), float32 under
-        ``halo_delta``."""
+        ``halo_delta``; on a rank under ``halo_delta`` also the sender's
+        float32 baselines, one per layer in its send-pack order (the
+        stacked layout's one tensor is both ends; a rank holds the
+        receiver's end in its carry and the sender's here)."""
         self.halo_carry = self._zero_carries(self.halo_delta)
+        if self.halo_delta and self.mesh is not None:
+            self.halo_carry["bases"] = [
+                torch.zeros_like(x) for x in self.halo_carry["halos"]]
         self._halo_src_flat = (
             None if self.comm_schedule == "ragged" else torch.as_tensor(
                 self.plan.halo_src_flat.astype(np.int64)).to(self.device))
@@ -737,35 +773,53 @@ class FullBatchTrainer:
         ``forward(gholder)`` runs the mode's forward over ``carry`` and
         returns its outputs, the logits first and the next feature
         carries second; the backward writes the next gradient carries
-        into ``gholder``; then Adam.  ``gauges``: the drift gauges over
-        ``rows_of`` each carry (the reference's layout) — ``drift_sq[ℓ] =
-        Σ (next − in)²`` and ``ref_sq[ℓ] = Σ next²`` into
-        ``last_gauges`` (float64 numpy).  Returns ``(loss, err, outputs,
-        gholder)``."""
+        into ``gholder``; then ``_loss_backward_update``, as in
+        ``_one_step``.  ``gauges``: the drift gauges over ``rows_of``
+        each carry (the reference's layout) —
+        ``drift_sq[ℓ] = Σ (next − in)²`` and ``ref_sq[ℓ] = Σ next²`` into
+        ``last_gauges`` (float64 numpy; on ranks the per-rank sums
+        all-reduced).  A gauge reads the carries, so it waits on their
+        exchanges.  Returns ``(loss, err, outputs, gholder)``."""
         self.opt.zero_grad(set_to_none=True)
         # both modes may rewrite a carry in place (a composed or a replica
         # step): read the rows it starts from first
-        old = [rows_of(x) for x in carry["halos"]] if gauges else None
+        old = ([rows_of(layout.settle(x)) for x in carry["halos"]]
+               if gauges else None)
         gholder = list(carry["ghalos"])
         out = forward(gholder)
-        logits = out[0].float()
-        loss = self._loss_fn(logits, data.labels, data.train_valid)
-        err = (masked_err_local(logits.detach(), data.labels,
-                                data.train_valid)
-               if self.loss_name == "bce" else loss.detach())
-        loss.backward()
-        self._note_grad_norm()
-        self.opt.step()
+        loss, err = self._loss_backward_update(out[0], data)
         if gauges:
             with torch.no_grad():
-                new = [rows_of(x) for x in out[1]]
-                sums = {"drift_sq": [torch.sum(torch.square(n - o))
-                                     for n, o in zip(new, old)],
-                        "ref_sq": [torch.sum(torch.square(n)) for n in new]}
-                self.last_gauges = {
-                    name: np.array([float(x) for x in v], np.float64)
+                new = [rows_of(layout.settle(x)) for x in out[1]]
+                self.last_gauges = self._gauge_sums({
+                    "drift_sq": [torch.sum(torch.square(n - o),
+                                           dtype=torch.float64)
+                                 for n, o in zip(new, old)],
+                    "ref_sq": [torch.sum(torch.square(n),
+                                         dtype=torch.float64)
+                               for n in new]})
+        return loss, err, out, gholder
+
+    def _gauge_sums(self, sums: dict) -> dict:
+        """Per-layer gauge sums (float64 device scalars: the same squares
+        summed in any order give the same figure to float64 rounding) as
+        float64 numpy arrays; on a rank group each rank's sums
+        all-reduced in one collective."""
+        if self.mesh is not None:
+            flat = self.mesh.all_reduce_sum(torch.stack(
+                [x.double() for v in sums.values() for x in v]))
+            it = iter(flat.cpu().tolist())
+            return {name: np.array([next(it) for _ in v], np.float64)
                     for name, v in sums.items()}
-        return loss.detach(), err, out, gholder
+        return {name: np.array([float(x) for x in v], np.float64)
+                for name, v in sums.items()}
+
+    def _settle_carries(self) -> None:
+        """Wait on every carry whose exchange is still in flight (a rank's
+        stale or composed steps leave them so until the next read)."""
+        for carry in (self.halo_carry, self.replica_carry):
+            for key, xs in (carry or {}).items():
+                carry[key] = [layout.settle(x) for x in xs]
 
     def _one_step_stale(self, data: TrainData, fresh: bool,
                         gauges: bool = False):
@@ -777,6 +831,8 @@ class FullBatchTrainer:
         (halo_next − halo_in)²``, ``ref_sq[ℓ] = Σ halo_next²`` and the
         halo-delta residual ``qerr_sq[ℓ]`` (float64 numpy)."""
         carry = self.halo_carry
+        # a rank's delta baselines: the forward replaces them per layer
+        bases = list(carry["bases"]) if "bases" in carry else None
 
         def forward(gholder):
             return gcn_forward_local_stale(
@@ -788,16 +844,25 @@ class FullBatchTrainer:
                 # feature wire keeps the exact mode's halo_dtype
                 wire_dtype="bfloat16" if self.halo_delta else self.halo_dtype,
                 gwire_dtype=self.halo_dtype, fresh=fresh, gauges=gauges,
-                replica=bool(self.replica_budget), **self.setup.fwd_static)
+                replica=bool(self.replica_budget), **self._rank_static(),
+                bases=bases, **self.setup.fwd_static)
 
         loss, err, out, gholder = self._carried_step(
             data, carry, forward, self._halo_rows, gauges)
         # carries are per-part state: never reduced, never differentiated
         self.halo_carry = {"halos": out[1], "ghalos": gholder}
+        if bases is not None:
+            self.halo_carry["bases"] = bases
         if gauges:
-            self.last_gauges["qerr_sq"] = np.array(
-                [float(x) for x in out[2]], np.float64)
+            self.last_gauges.update(self._gauge_sums({"qerr_sq": out[2]}))
         return loss, err
+
+    def _rank_static(self) -> dict:
+        """The carried forwards' rank arguments: the group and the
+        shrunken ring's static round sizes (none without a group)."""
+        if self.mesh is None:
+            return {}
+        return {"mesh": self.mesh, "nrep_rr_sizes": self.plan.nrep_rr_sizes}
 
     def _stale_run_one(self, data: TrainData):
         """One stale-mode optimizer step, sync or pipelined per schedule;
@@ -807,9 +872,8 @@ class FullBatchTrainer:
         first = sync_step and self._stale_step_idx == 0
         self._last_info = {"age": self._stale_step_idx - self._last_sync_idx,
                            "sync_step": sync_step}
-        gauges = self.drift_gauges or self.recorder is not None or (
-            self.controller is not None and sync_step)
-        loss, err = self._one_step_stale(data, sync_step, gauges)
+        loss, err = self._one_step_stale(data, sync_step,
+                                         self._gauges_due(sync_step))
         if sync_step:
             self._controller_observe(first, self._stale_step_idx)
             self._last_sync_idx = self._stale_step_idx
@@ -820,6 +884,16 @@ class FullBatchTrainer:
             wire_itemsize=4 if (self.halo_delta and sync_step) else None,
             replica=bool(self.replica_budget) and not sync_step)
         return loss, err
+
+    def _gauges_due(self, sync_step: bool) -> bool:
+        """Whether this step computes the drift gauges: ``drift_gauges``,
+        a controller's sync step, or a recorder.  On a rank group the
+        gauges are a collective, so the choice reads only what every rank
+        shares: a recorder lives on rank 0 alone, and counts through
+        ``drift_gauges``, which ``attach_recorder`` requires there."""
+        return (self.drift_gauges
+                or (self.mesh is None and self.recorder is not None)
+                or (self.controller is not None and sync_step))
 
     def _controller_observe(self, first: bool, step_idx: int) -> None:
         """Feed a sync (refresh) step's measured drift (the max over
@@ -834,6 +908,14 @@ class FullBatchTrainer:
         r = np.sqrt(np.maximum(g["ref_sq"], 0))
         rel = float(np.max(d / np.maximum(r, 1e-30))) if d.size else 0.0
         self.sync_every = self.controller.observe(step_idx, rel)
+        if self.mesh is not None and self.mesh.size > 1:
+            # every rank decided on the same all-reduced gauges; rank 0's
+            # decision is the group's all the same: two ranks that
+            # disagree on the next sync step would deadlock the exchanges
+            t = torch.tensor([self.sync_every], dtype=torch.int64,
+                             device=self.mesh.device)
+            torch.distributed.broadcast(t, src=0)
+            self.sync_every = int(t.item())
         self.comm_decision["controller"] = self.controller.log()
         if self.recorder is not None:
             self.recorder.set_comm_schedule(self.comm_decision)
@@ -847,7 +929,7 @@ class FullBatchTrainer:
         self.replica_carry = self._zero_carries(band)
         if band:
             self.replica_carry["rep_base"] = [
-                torch.zeros((self.plan.k, self.plan.rs, f),
+                torch.zeros((self.plan.k, self.plan.rep_base_rows, f),
                             device=self.device)
                 for f in exchange_widths(self.fin, self.widths)]
         self._rep_step_idx = 0
@@ -882,7 +964,7 @@ class FullBatchTrainer:
                 halo_dtype=self.halo_dtype, fresh=fresh,
                 rep_base=carry.get("rep_base"), partial_step=partial,
                 band=float(self.refresh_band or 0.0),
-                **self.setup.fwd_static)
+                **self._rank_static(), **self.setup.fwd_static)
 
         loss, err, (_, halos, bases, nships), gholder = self._carried_step(
             data, carry, forward, self._rep_rows, gauges)
@@ -902,10 +984,15 @@ class FullBatchTrainer:
         first = sync_step and self._rep_step_idx == 0
         partial = (sync_step and not first
                    and self.refresh_band is not None)
-        gauges = self.drift_gauges or self.recorder is not None or (
-            self.controller is not None and sync_step)
-        loss, err, rows = self._one_step_replica(
-            data, sync_step and not partial, partial, gauges)
+        loss, err, own = self._one_step_replica(
+            data, sync_step and not partial, partial,
+            self._gauges_due(sync_step))
+        # the job's refreshed copies: on a rank group every rank's own
+        # count, summed (the stats book the rank's own, job_report sums)
+        rows = own
+        if own is not None and self.mesh is not None:
+            rows = [int(x) for x in self.mesh.all_reduce_sum(
+                torch.tensor(own, device=self.mesh.device)).cpu()]
         self.last_refresh_rows = rows
         self._last_info = {"age": self._rep_step_idx - self._last_refresh_idx,
                            "sync_step": sync_step, "first": first,
@@ -916,7 +1003,7 @@ class FullBatchTrainer:
         self._rep_step_idx += 1
         if partial:
             self.stats.count_partial_refresh_step(
-                nlayers=self.nlayers, refresh_rows=rows,
+                nlayers=self.nlayers, refresh_rows=own,
                 wire_rows=int(self.plan.partial_refresh_wire_rows))
         else:
             self.stats.count_step(nlayers=self.nlayers,
@@ -957,6 +1044,7 @@ class FullBatchTrainer:
         """The replica mode's carries in the reference's layout and order
         (greps, rep_base, reps), float32 numpy: each receive layout's
         replica slots gathered to ``(k, RP, f)`` tables."""
+        self._settle_carries()
         c = self.replica_carry
         rows = ([self._rep_rows(x) for x in c["ghalos"]]
                 + list(c.get("rep_base", []))
@@ -989,13 +1077,21 @@ class FullBatchTrainer:
         numpy: the a2a receive buffers gathered to ``(R, f)`` tables and
         the delta baselines transposed back to the senders' ``(k, S, f)``;
         the ring concat as it is, its baselines rolled back per round.  A
-        placeholder base without ``halo_delta``."""
+        placeholder base without ``halo_delta``.  A rank (one rank on a
+        slice: more raise in ``resume_state``) holds its senders'
+        baselines itself, in its send-pack order: ``(1, k·S, f)`` is the
+        reference's ``(1, k, S, f)``, the ring's round-major as is."""
+        self._settle_carries()
         halos, ghalos = self.halo_carry["halos"], self.halo_carry["ghalos"]
         k = self.plan.k
         ragged = self.comm_schedule == "ragged"
         if not self.halo_delta:
             pad = (k, 1, 1) if ragged else (k, 1, 1, 1)
             bases = [torch.zeros(pad) for _ in halos]
+        elif "bases" in self.halo_carry:
+            bases = [x if ragged else x.reshape(k, -1, self.plan.s,
+                                                x.shape[-1])
+                     for x in self.halo_carry["bases"]]
         elif ragged:
             bases = [layout.ring_to_send_bases(x, self.plan.rr_sizes)
                      for x in halos]
@@ -1017,6 +1113,18 @@ class FullBatchTrainer:
              for x in leaves]
         bases, ghalos, halos = t[:n], t[n:2 * n], t[2 * n:]
         live = self.halo_carry
+        if "bases" in live:
+            # one rank on a slice: its exchange is the loopback, so every
+            # receive slot holds what the rank sent there — its baseline
+            k, rows = self.plan.recv_layout_shape(self.comm_schedule)
+            own = [b.reshape(k, rows, -1).contiguous() for b in bases]
+            new_g = [layout.recv_from_halo_rows(
+                g, self._halo_src_flat, c.shape, c.dtype)
+                if self._halo_src_flat is not None else g.to(c.dtype)
+                for g, c in zip(ghalos, live["ghalos"])]
+            self.halo_carry = {"halos": [b.clone() for b in own],
+                               "ghalos": new_g, "bases": own}
+            return
         if self._halo_src_flat is None:
             new_h = [h.to(c.dtype) for h, c in zip(halos, live["halos"])]
             new_g = [g.to(c.dtype) for g, c in zip(ghalos, live["ghalos"])]
@@ -1045,6 +1153,7 @@ class FullBatchTrainer:
         attr = self._carry_attr()
         if attr is None:
             return state, []
+        self._check_carry_checkpoint()
         if attr == "halo_carry":
             state["stale_step_idx"] = int(self._stale_step_idx)
             state["last_sync_idx"] = int(self._last_sync_idx)
@@ -1077,10 +1186,18 @@ class FullBatchTrainer:
         if state.get("comm_stats"):
             self.stats.load_state(state["comm_stats"])
         self.stats.backward_exchanges = self.nlayers * self._step_count
+        if carry_leaves:
+            self._check_carry_checkpoint()
         if carry_leaves and self.halo_staleness:
             self._restore_carry(carry_leaves)
         elif carry_leaves and self.replica_budget:
             self._restore_replica_carry(carry_leaves)
+
+    def _check_carry_checkpoint(self) -> None:
+        """A carried mode's state on more than one rank is sharded over
+        the ranks' processes: the reference's deferral."""
+        if self.mesh is not None and self.mesh.size > 1:
+            raise ValueError(CARRY_CHECKPOINT_DEFERRAL)
 
     # ----------------------------------------------------------------- step
     def _forward(self, h0):
@@ -1093,7 +1210,13 @@ class FullBatchTrainer:
         device scalars.  Under ``remat`` the model checkpoints each layer
         (``models/gcn.py::gcn_forward_local``)."""
         self.opt.zero_grad(set_to_none=True)
-        logits = self._forward(data.h0)
+        return self._loss_backward_update(self._forward(data.h0), data)
+
+    def _loss_backward_update(self, logits, data: TrainData):
+        """The loss of ``logits``, its backward and Adam's update; returns
+        the loss and ``err`` (the loss itself unless ``loss='bce'``),
+        reduced over the rank group, as device scalars."""
+        logits = logits.float()
         loss = self._loss(logits, data.labels, data.train_valid)
         err = (self._reduced(masked_err_local(logits.detach(), data.labels,
                                               data.train_valid))
@@ -1198,6 +1321,7 @@ class FullBatchTrainer:
                            getattr(self, "_rep_pos", None))
                if t is not None]
         params = list(self.model.parameters())
+        self._settle_carries()
         carries = {"halo_carries": self.halo_carry,
                    "replica_carries": self.replica_carry}
         out = {
@@ -1248,7 +1372,16 @@ class FullBatchTrainer:
         ``step`` appends one step event, ``evaluate`` an eval event and
         ``fit`` a summary; the transport decision and the memory model
         land in the manifest (the measured join follows at the first step
-        after Adam's state exists).  ``None`` detaches."""
+        after Adam's state exists).  ``None`` detaches.  On a rank group
+        a carried mode's step events need the gauges on every rank: set
+        ``drift_gauges`` on each first (``_gauges_due``)."""
+        if (recorder is not None and self.mesh is not None
+                and (self.halo_staleness or self.replica_budget)
+                and not self.drift_gauges):
+            raise ValueError(
+                "a recorder on a rank group reads the drift gauges, which "
+                "every rank all-reduces: set drift_gauges=True on every "
+                "rank before attaching it on any")
         self.recorder = recorder
         self.spans.recorder = recorder
         if recorder is None:
@@ -1350,13 +1483,19 @@ class FullBatchTrainer:
         if self.mesh is None or self.full_plan is self.plan:
             return self.stats.report()
         job = CommStats.from_plan(self.full_plan, **self._stats_args)
+        if self.replica_budget:
+            job.set_replica(self.full_plan)
         job.load_state(self.stats.state())
         job.backward_exchanges = self.stats.backward_exchanges
-        mine = torch.tensor([self.stats.halo_bytes_true_total,
-                             self.stats.halo_bytes_wire_total],
+        # the byte totals and the partial refresh's rows: each rank booked
+        # its own part's
+        summed = ("halo_bytes_true_total", "halo_bytes_wire_total",
+                  "partial_refresh_rows_total",
+                  "partial_refresh_wire_rows_total")
+        mine = torch.tensor([getattr(self.stats, a) for a in summed],
                             dtype=torch.int64, device=self.mesh.device)
-        job.halo_bytes_true_total, job.halo_bytes_wire_total = (
-            int(x) for x in self.mesh.all_reduce_sum(mine).cpu())
+        for a, x in zip(summed, self.mesh.all_reduce_sum(mine).cpu()):
+            setattr(job, a, int(x))
         return job.report()
 
     def _eval_logits(self, data: TrainData):
@@ -1411,6 +1550,9 @@ class FullBatchTrainer:
             history.append(loss)
             if verbose:
                 print(f"epoch {ep}: loss {loss:.6f}", flush=True)
+        # a rank's last stale exchanges are still in flight: their
+        # consumer is the next step, which fit does not run
+        self._settle_carries()
         elapsed = self.timer.inclusive_total("train_step") - t_prior
         report = self.job_report()
         report.update(

@@ -25,8 +25,12 @@ plain versions on a batch holding a hub row, and the sub-graph engine's
 launches and rows on the card; one NCCL rank training a proxy slice
 through the rank path against the stacked proxy, bit for bit (GCN on
 float32, the bf16 wire, ``compute_dtype`` and ``remat``; GAT with every
-K5 launch against its plain version), the broadcast baseline's K1 launch
-against its plain version, and the launch layer's one-process no-op.
+K5 launch against its plain version; the carried modes — the stale
+halo, the halo-delta cache, replicas, replica × stale and the partial
+refresh — with the rank's fused launch on its carry and its pack-into
+from a shrunken receive against their plain versions), the broadcast
+baseline's K1 launch against its plain version, and the launch layer's
+one-process no-op.
 
 This module imports no JAX, so it also runs on a GPU machine without it:
 
@@ -37,6 +41,7 @@ whether there is a card is decided inside the fixture, never at import.
 """
 
 import functools
+import itertools
 
 import numpy as np
 import pytest
@@ -1910,6 +1915,134 @@ def test_one_nccl_rank_bf16_and_remat_equal_the_stacked_proxy(
     fam = bf16 if lever == "compute_dtype" else f32
     assert (f32 if lever == "compute_dtype" else bf16) == 0
     assert packs > 0 and fam == 2 * packs
+
+
+# ----------------------- the carried modes on one NCCL rank (A2c)
+CARRIED_NCCL_CASES = {
+    "stale-a2a": dict(halo_staleness=1),
+    "stale-ring": dict(halo_staleness=1, comm_schedule="ragged"),
+    "stale-delta": dict(halo_staleness=1, halo_delta=True),
+    "stale-bf16": dict(halo_staleness=1, halo_dtype="bfloat16"),
+    "replica-a2a": dict(replica_budget=64),
+    "replica-bf16": dict(replica_budget=64, halo_dtype="bfloat16"),
+    "replica-ring": dict(replica_budget=64, comm_schedule="ragged"),
+    "replica-stale": dict(replica_budget=64, halo_staleness=1),
+    "partial": dict(replica_budget=64, refresh_band=0.05),
+}
+
+
+def _carried_slice(chip=2):
+    """Cora's 8-hp plan with the ring and 64 replicas built on the full
+    plan, part ``chip``'s slice and its data on the card."""
+    import os
+
+    from sgcn_tpu_torch.io.datasets import load_npz_dataset
+    from sgcn_tpu_torch.parallel import shard_proxy_data, shard_proxy_plan
+    from sgcn_tpu_torch.partition import read_partvec
+
+    fix = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       "fixtures")
+    a, feats, labels = load_npz_dataset(os.path.join(fix, "cora2708.npz"))
+    pv = read_partvec(os.path.join(fix, "cora2708.8.hp"))
+    plan = build_comm_plan(normalize_adjacency(a), pv, 8)
+    plan.ensure_pallas_tiles()
+    plan.ensure_ragged()
+    plan.ensure_pallas_ragged_tiles()
+    plan.ensure_replicas(64)
+    return (shard_proxy_plan(plan, chip),
+            shard_proxy_data(plan, chip, feats, labels, device="cuda"))
+
+
+@pytest.mark.parametrize("case", list(CARRIED_NCCL_CASES))
+def test_one_nccl_rank_carried_mode_equals_the_stacked_proxy(
+        cuda_device, tmp_path, case):
+    """On the card: each carried mode on one NCCL rank (GCN 1433 → 16 →
+    7, ``sync_every=2``) training cora's part-2 slice — its stale
+    exchanges in flight until the next read, its shrunken exchange packed
+    into the carry — gives the stacked proxy's 4 losses and final
+    weights bit for bit."""
+    from sgcn_tpu_torch.parallel import init_rank_group
+
+    sl, data = _carried_slice()
+    kw = dict(fin=1433, widths=[16, 7], seed=3, sync_every=2,
+              **CARRIED_NCCL_CASES[case])
+    kw.setdefault("comm_schedule", "a2a")
+    stacked = FullBatchTrainer(sl, device=cuda_device, **kw)
+    want = [stacked.step(data) for _ in range(4)]
+    mesh = init_rank_group("file://" + str(tmp_path / "rdv"), 1, 0)
+    try:
+        tr = FullBatchTrainer(sl, mesh=mesh, **kw)
+        got = [tr.step(data) for _ in range(4)]
+        tr._settle_carries()
+        torch.cuda.synchronize()
+    finally:
+        mesh.close()
+    assert got == want
+    for a, b in zip(tr.params, stacked.params):
+        assert torch.equal(a, b)
+
+
+def test_one_nccl_rank_fused_carry_and_pack_into_equal_plain(
+        cuda_device, tmp_path, monkeypatch):
+    """On the card, one NCCL rank: every fused launch of a stale step
+    (forward over the carry of the step before, backward over the
+    gradient carry) and every pack-into of a replica step (the shrunken
+    receive into the carried layout, forward and backward) equals its
+    plain version on the same inputs bit for bit, on a float32 and on a
+    bf16 ``halo_dtype`` carry (the fused entry's ``_f32_bf16wire``
+    form)."""
+    from sgcn_tpu_torch.ops import pspmm as ps
+    from sgcn_tpu_torch.ops import tile_spmm as ts
+    from sgcn_tpu_torch.ops.row_shuffle import row_pack_into_plain
+    from sgcn_tpu_torch.parallel import init_rank_group
+
+    sl, data = _carried_slice()
+    fused_fn, into_fn = ts.spmm_tiles_fused, ps.row_pack_into
+    calls = []
+
+    def fused_rec(*args):
+        out = fused_fn(*args)
+        calls.append(("fused", [a.clone() if torch.is_tensor(a) else a
+                                for a in args], out))
+        return out
+
+    def into_rec(out, src, flat, dst):
+        before = out.clone()
+        res = into_fn(out, src, flat, dst)
+        calls.append(("into", (before, src.clone(), flat, dst),
+                      res.clone()))
+        return res
+    fused_rec.__dict__ = fused_fn.__dict__
+    into_rec.__dict__ = into_fn.__dict__
+    mesh = init_rank_group("file://" + str(tmp_path / "rdv"), 1, 0)
+    try:
+        for (kw, fn, name), wire in itertools.product(
+                ((dict(halo_staleness=1), fused_rec, "fused"),
+                 (dict(replica_budget=64), into_rec, "into")),
+                (None, "bfloat16")):
+            tr = FullBatchTrainer(sl, fin=1433, widths=[16, 7], seed=3,
+                                  sync_every=2, comm_schedule="a2a",
+                                  halo_dtype=wire, mesh=mesh, **kw)
+            tr.step(data)                     # the sync step
+            target = ts if name == "fused" else ps
+            attr = "spmm_tiles_fused" if name == "fused" else "row_pack_into"
+            monkeypatch.setattr(target, attr, fn)
+            tr.step(data)                     # the carried step
+            monkeypatch.setattr(target, attr,
+                                fused_fn if name == "fused" else into_fn)
+            tr._settle_carries()
+        torch.cuda.synchronize()
+    finally:
+        mesh.close()
+    kinds = [c[0] for c in calls]
+    # 2 forward + 2 backward aggregations a step (layer 0 projects first)
+    assert kinds.count("fused") == 8 and kinds.count("into") == 8
+    assert sum(c[1][3].dtype == torch.bfloat16
+               for c in calls if c[0] == "fused") == 4
+    for kind, args, out in calls:
+        plain = (ts.spmm_tiles_fused_plain(*args) if kind == "fused"
+                 else row_pack_into_plain(*args))
+        assert torch.equal(out, plain), kind
 
 
 def test_init_distributed_without_env_is_a_noop_on_card(cuda_device,

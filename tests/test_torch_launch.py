@@ -40,6 +40,7 @@ from sgcn_tpu_torch.obs import append_env_event, heartbeat, load_run
 from sgcn_tpu_torch.parallel import RankGroup, build_comm_plan, launch
 from sgcn_tpu_torch.resilience.faults import classify_stall
 from sgcn_tpu_torch.train import FullBatchTrainer
+from sgcn_tpu_torch.train.fullbatch import CARRY_CHECKPOINT_DEFERRAL
 from sgcn_tpu_torch.train.__main__ import build_parser, load_inputs
 from sgcn_tpu_torch.train.__main__ import main as train_main
 
@@ -320,8 +321,13 @@ BASE = ["--npz", child.NPZ, "--normalize", "-p",
         os.path.join(child.FIX, "cora2708.8.hp"), "-s", "8", "-l", "2",
         "--hidden", "16", "--epochs", "3", "--warmup", "0", "--device",
         "cpu"]
-GUARDS = {"batch": ["-n", "512"], "stale": ["--halo-staleness", "1"],
-          "replica": ["--replica-budget", "50"],
+# the carried modes run on ranks; their checkpoints exit with the
+# reference's deferral (the carry is sharded over the ranks)
+GUARDS = {"batch": ["-n", "512"],
+          "stale": ["--halo-staleness", "1", "--save-checkpoint",
+                    os.path.join(os.sep, "nonexistent", "stale.npz")],
+          "replica": ["--replica-budget", "50", "--checkpoint-dir",
+                      os.path.join(os.sep, "nonexistent", "replica")],
           "accuracy": ["--experiment", "accuracy"]}
 
 
@@ -456,12 +462,15 @@ def test_cli_on_ranks_writes_heartbeats_and_rank0_telemetry(cli_runs):
 @pytest.mark.parametrize("job", sorted(GUARDS) + ["world", "directed"])
 def test_cli_on_ranks_guards_exit(cli_runs, job):
     """A world size that is neither 1 nor k exits with the numbers; the
-    mini-batch, accuracy, stale, replica and directed runs on ranks exit
-    naming ROADMAP A2c; nothing is printed."""
+    mini-batch, accuracy and directed runs on ranks exit naming ROADMAP
+    A2c; a stale or replica run that would checkpoint exits with the
+    reference's deferral; nothing is printed."""
     for r in range(K):
         got = cli_runs["ranks"][r][job]
         assert got["stdout"] == "" and got["exit"], (r, got)
         if job == "world":
             assert "a world of 8 processes for k=4" in got["exit"]
+        elif job in ("stale", "replica"):
+            assert got["exit"] == CARRY_CHECKPOINT_DEFERRAL, got["exit"]
         else:
             assert "ROADMAP A2c" in got["exit"], got["exit"]

@@ -10,6 +10,10 @@
   params are equal, the per-part families are ``k`` times the
   reference's per-chip figures (the port stacks the k parts on one
   device), Adam's moments are the reference's less optax's step count.
+* One rank of a rank group in each carried mode (a one-rank gloo group
+  on a part's slice): its argument families equal its live tensors,
+  under delta with the senders' baselines beside the carries, and its
+  scratch prices the shrunken receive and the side channels.
 * ``CommPlan.wire_buffer_shapes`` == the reference's on every plan
   (both transports, with and without replicas).
 * ``parse_bytes`` == the reference's on valid and invalid sizes, and the
@@ -125,6 +129,64 @@ def test_argument_families_equal_live_tensor_bytes(cora, mode):
             e = join["block"]["families"][fam]
             assert e["measured_bytes"] == e["model_bytes"]
     assert join["block"]["total"]["measured_bytes"] is None   # CPU
+
+
+RANK_MODES = ("stale-a2a", "stale-delta-ragged", "replica-a2a",
+              "replica-ragged-halo-bf16", "replica-band", "replica-stale")
+
+
+@pytest.mark.parametrize("mode", RANK_MODES)
+def test_rank_carried_families_equal_live_tensor_bytes(cora, mode,
+                                                       tmp_path):
+    """One rank of a rank group (a one-rank gloo group on part 3's slice:
+    the collectives a loopback) after two steps of a carried mode: every
+    argument family equals the bytes the rank holds for it, to the byte —
+    under ``halo_delta`` the senders' float32 baselines beside the
+    carries, which the stacked layout's one tensor serves for both;
+    the scratch adds the shrunken receive (replica modes) and the partial
+    refresh's side channels to the stacked slice's, and the layout is
+    recorded."""
+    from sgcn_tpu_torch.parallel import (init_rank_group, shard_proxy_data,
+                                         shard_proxy_plan)
+
+    kw = dict(MODES[mode])
+    plan = cora["plan"]
+    plan.ensure_pallas_tiles()
+    plan.ensure_ragged()
+    plan.ensure_pallas_ragged_tiles()
+    if kw.get("replica_budget"):
+        plan.ensure_replicas(kw["replica_budget"])
+    sl = shard_proxy_plan(plan, 3)
+    data = shard_proxy_data(plan, 3, cora["feats"], cora["labels"])
+    mesh = init_rank_group("file://" + str(tmp_path / "rdv"), 1, 0,
+                           device="cpu")
+    try:
+        tr = FullBatchTrainer(sl, fin=cora["feats"].shape[1],
+                              widths=WIDTHS, mesh=mesh, **kw)
+        for _ in range(2):
+            tr.step(data)
+        tr._settle_carries()
+        live = tr.resident_bytes(data)
+    finally:
+        mesh.close()
+    fams = tr.memory.families
+    for fam in ARGUMENT_FAMILIES:
+        assert fams.get(fam, 0) == live.get(fam, 0), (fam, fams, live)
+    stacked = port_memory.memory_model(
+        sl, cora["feats"].shape[1], WIDTHS, setup=tr.setup,
+        halo_staleness=kw.get("halo_staleness", 0),
+        halo_delta=kw.get("halo_delta", False),
+        halo_dtype=kw.get("halo_dtype"),
+        refresh_band=kw.get("refresh_band"))
+    assert tr.memory.config["layout"] == "ranks"
+    assert stacked.config["layout"] == "stacked"
+    from sgcn_tpu_torch.models.gcn import exchange_widths
+    fs = exchange_widths(cora["feats"].shape[1], WIDTHS)
+    rows = int(np.prod(sl.recv_layout_shape(tr.comm_schedule)))
+    base = (4 * rows * sum(fs)) if kw.get("halo_delta") else 0
+    assert fams["halo_carries"] == stacked.families["halo_carries"] + base
+    extra = fams["wire_buffers"] - stacked.families["wire_buffers"]
+    assert (extra > 0) == bool(kw.get("replica_budget"))
 
 
 @pytest.mark.parametrize("mode", ["full", "subgraph"])

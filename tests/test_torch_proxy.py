@@ -126,7 +126,11 @@ def test_rebased_fields_follow_their_rules(cora, chip):
     """The port-only flat indices of a slice, each against its rule
     computed here from the full plan: the loopback (receive slot
     ``q·S + t`` reads the own row ``send_idx[c, q, t]``, ring slot ``j``
-    the own ``rsend_idx[c, j]``), the part's own entries of the flat
+    the own ``rsend_idx[c, j]``; a kept slot the own row of the shrunken
+    send list at its shrunken slot, a replica slot's side channel the own
+    baseline row ``ronly_base_pos`` names there, or on a pad of it a row
+    past the part's own, which the slice adds where the part fills
+    ``rs``: chip 0 with 64 replicas), the part's own entries of the flat
     lists, re-based."""
     full, k, s = cora["port"], cora["port"].k, cora["port"].s
     sl = shard_proxy_plan(full, chip)
@@ -137,14 +141,21 @@ def test_rebased_fields_follow_their_rules(cora, chip):
     np.testing.assert_array_equal(sl.ring_src, full.rsend_idx[chip:
                                                               chip + 1])
     st = sum(full.rr_sizes)
-    for kind, stride, rows in (("recv", k * s, loop),
-                               ("ring", st, full.rsend_idx[chip])):
+    nst = full.nrep_ring_dst.shape[1]
+    for kind, stride, nstride, sends in (
+            ("recv", k * s, k * full.nrep_s,
+             full.nrep_send_idx[chip].reshape(-1)),
+            ("ring", st, nst, full.nrep_rsend_idx[chip])):
         dst = getattr(full, f"keep_{kind}_dst")
         mine = dst // stride == chip
         np.testing.assert_array_equal(getattr(sl, f"keep_{kind}_dst"),
                                       dst[mine] - chip * stride)
+        nsrc = getattr(full, f"keep_n{kind}_src")
+        np.testing.assert_array_equal(nsrc // nstride == chip, mine)
+        np.testing.assert_array_equal(getattr(sl, f"keep_n{kind}_src"),
+                                      nsrc[mine] - chip * nstride)
         np.testing.assert_array_equal(getattr(sl, f"keep_{kind}_src"),
-                                      rows[dst[mine] - chip * stride])
+                                      sends[nsrc[mine] - chip * nstride])
         rep = getattr(full, f"rep_{kind}_dst")
         np.testing.assert_array_equal(
             getattr(sl, f"rep_{kind}_dst"),
@@ -152,12 +163,25 @@ def test_rebased_fields_follow_their_rules(cora, chip):
     mine = full.rep_table_pos // full.rp == chip
     np.testing.assert_array_equal(sl.rep_table_pos,
                                   full.rep_table_pos[mine] - chip * full.rp)
-    np.testing.assert_array_equal(sl.rep_base_flat,
-                                  full.rep_base_flat[mine] % full.rs)
-    np.testing.assert_array_equal(
-        sl.rep_rows_flat,
-        full.rep_rows[chip: chip + 1] * (full.rep_row_valid[chip: chip + 1]
-                                         > 0))
+    n_rep = int(full.rep_counts[chip])
+    src = full.rep_recv_src[chip, :n_rep].astype(np.int64)
+    real = src % full.ronly_s < full.ronly_send_counts[chip,
+                                                       src // full.ronly_s]
+    own = int(full.rep_row_counts[chip])
+    base_rows = np.where(real, full.ronly_base_pos[chip].reshape(-1)[src],
+                         own)
+    np.testing.assert_array_equal(sl.rep_base_flat, base_rows)
+    rows = full.rep_rows[chip] * (full.rep_row_valid[chip] > 0)
+    np.testing.assert_array_equal(sl.rep_src_flat,
+                                  np.append(rows, 0)[base_rows])
+    spare = int(own == full.rs and not real.all())
+    assert spare == (chip == 0) and sl.rep_base_rows == full.rs + spare
+    np.testing.assert_array_equal(sl.rep_rows_flat[0, :full.rs], rows)
+    np.testing.assert_array_equal(sl.rep_row_valid[0, :full.rs],
+                                  full.rep_row_valid[chip])
+    for f in ("rep_rows_flat", "rep_row_valid"):
+        assert getattr(sl, f).shape == (1, sl.rep_base_rows), f
+        assert not getattr(sl, f)[0, full.rs:].any(), f
     for f in ("rev_src", "rev_csrc"):   # the loopback's transpose
         np.testing.assert_array_equal(getattr(sl, f),
                                       np.arange(k * s)[None])
@@ -262,6 +286,48 @@ def test_proxy_steps_track_the_references_proxy(cora, model, rtol):
     for g, w in zip(got, want):
         gap = np.abs(g.detach().numpy() - np.asarray(w))
         assert np.mean(gap <= 1e-5) >= 0.99 and gap.max() <= 5e-3
+
+
+@pytest.mark.parametrize("mode", ["replica", "partial"])
+def test_proxy_replica_steps_track_the_references_proxy(cora, mode):
+    """A replica step's loopback is the SHRUNKEN exchange's (the
+    reference proxy's size-1 collective delivers, at each kept slot, the
+    part's own row of its shrunken send list), and the partial refresh's
+    that of its side channel: four steps of chip 0's slice with 64
+    replicas and ``sync_every=2`` (a refresh, a replica step, a refresh —
+    partial under ``refresh_band`` — and a replica step) within rtol 1e-5
+    of the reference's proxy."""
+    full, chip = cora["port"], 0
+    kw = dict(replica_budget=64, sync_every=2, comm_schedule="a2a")
+    if mode == "partial":
+        kw["refresh_band"] = 0.05
+    ref = RefTrainer(ref_proxy_plan(cora["ref"], chip),
+                     fin=cora["feats"].shape[1], widths=WIDTHS, seed=4,
+                     activation="relu", **kw)
+    p0 = [np.asarray(w) for w in ref.params]
+    rdata = ref_proxy_data(cora["ref"], chip, cora["feats"], cora["labels"])
+    want = [ref.step(rdata) for _ in range(4)]
+    tr = FullBatchTrainer(shard_proxy_plan(full, chip),
+                          fin=cora["feats"].shape[1], widths=WIDTHS,
+                          params=p0, device="cpu", **kw)
+    data = shard_proxy_data(full, chip, cora["feats"], cora["labels"])
+    got = [tr.step(data) for _ in range(4)]
+    print(f"{mode}: proxy {got} reference proxy {want}")
+    np.testing.assert_allclose(got, want, rtol=1e-5)
+
+
+def test_slice_receive_layout_keeps_every_peers_bucket(cora):
+    """A slice's a2a receive layout is ``(1, k·S)``: every peer's bucket
+    (the loopback pack's rows), as its exchange writes it; a stale
+    trainer's zero carries on it have that shape."""
+    full = cora["port"]
+    sl = shard_proxy_plan(full, 5)
+    assert sl.recv_layout_shape("a2a") == (1, full.k * full.s)
+    assert sl.recv_layout_shape("ragged") == (1, sum(full.rr_sizes))
+    tr = FullBatchTrainer(sl, fin=cora["feats"].shape[1], widths=WIDTHS,
+                          device="cpu", halo_staleness=1, halo_delta=True)
+    for c in tr.halo_carry["halos"] + tr.halo_carry["ghalos"]:
+        assert tuple(c.shape[:2]) == (1, full.k * full.s)
 
 
 def test_loopback_pack_shape_and_count(cora, monkeypatch):

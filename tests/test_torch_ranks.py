@@ -190,20 +190,20 @@ def test_evaluate_predict_and_report(cora, ranks, stacked):
 
 
 def test_non_gcn_modes_raise(ranks):
-    """On a rank group GAT and compute_dtype build (A2c's first half);
-    only the stale halo, replicas and an asymmetric plan raise, naming
-    ROADMAP A2c."""
+    """On a rank group GAT and compute_dtype build (A2c's first half),
+    and so do the stale halo and replicas (its second half); only an
+    asymmetric plan raises, naming ROADMAP A2c."""
     errs = ranks[0]["errors"]
-    assert set(errs) == {"stale", "replica", "asymmetric"}
-    assert ranks[0]["built"] == ["gat", "compute_dtype"]
+    assert set(errs) == {"asymmetric"}
+    assert ranks[0]["built"] == ["gat", "compute_dtype", "stale", "replica"]
     for msg in errs.values():
         assert "ROADMAP A2c" in msg
 
 
 def test_group_size_and_slice_guards(cora):
     """A rank group must hold one rank per part of a full plan, or one
-    rank for a slice; replicas and a directed plan raise too (no
-    collective is needed to reach the guards)."""
+    rank for a slice; a directed plan raises too, with or without
+    replicas (no collective is needed to reach the guards)."""
     plan = cora["plan"]
     with pytest.raises(ValueError, match="one rank per part, 8 ranks"):
         FullBatchTrainer(plan, fin=8, widths=[4], device="cpu",
@@ -212,8 +212,8 @@ def test_group_size_and_slice_guards(cora):
     with pytest.raises(ValueError, match="one rank per part, 1 ranks"):
         FullBatchTrainer(sl, fin=8, widths=[4], device="cpu",
                          mesh=RankGroup(0, 8, "cpu"))
-    for kw, bad in ((dict(replica_budget=50), plan),
-                    ({}, dataclasses.replace(plan, symmetric=False))):
+    asym = dataclasses.replace(plan, symmetric=False)
+    for kw, bad in ((dict(replica_budget=50), asym), ({}, asym)):
         with pytest.raises(ValueError, match="ROADMAP A2c"):
             FullBatchTrainer(bad, fin=8, widths=[4], device="cpu",
                              mesh=RankGroup(0, 8, "cpu"), **kw)

@@ -304,24 +304,25 @@ def test_three_steps_track_the_reference_trainer(ranks, stacked, reference,
 
 
 def test_rank_levers_raise_only_for_a2c_modes(cora):
-    """On a rank group GAT, compute_dtype and remat build; the stale halo,
-    replicas and an asymmetric plan raise naming ROADMAP A2c (no
-    collective is needed to reach the guards)."""
+    """On a rank group GAT, compute_dtype and remat build, and so do the
+    stale halo and replicas; an asymmetric plan raises naming ROADMAP A2c
+    (no collective is needed to reach the guards)."""
     import dataclasses
 
     plan = cora["plan"]
     mesh = RankGroup(0, K, "cpu")
     for kw in ({"model": "gat", "activation": "none"},
                {"compute_dtype": "bfloat16"}, {"remat": True},
-               {"model": "gat", "compute_dtype": "bfloat16", "remat": True}):
+               {"model": "gat", "compute_dtype": "bfloat16", "remat": True},
+               {"halo_staleness": 1}, {"replica_budget": 50}):
         tr = FullBatchTrainer(plan, fin=8, widths=[4], device="cpu",
                               mesh=mesh, **kw)
         assert tr.plan.chip_ids is not None
         assert tr.model.fwd_static["mesh"] is mesh
-    for kw, bad in (({"halo_staleness": 1}, plan),
-                    ({"replica_budget": 50}, plan),
-                    ({"model": "gat"},
-                     dataclasses.replace(plan, symmetric=False))):
+    asym = dataclasses.replace(plan, symmetric=False)
+    for kw, bad in (({"halo_staleness": 1}, asym),
+                    ({"replica_budget": 50}, asym),
+                    ({"model": "gat"}, asym)):
         with pytest.raises(ValueError, match="ROADMAP A2c"):
             FullBatchTrainer(bad, fin=8, widths=[4], device="cpu",
                              mesh=mesh, **kw)

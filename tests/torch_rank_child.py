@@ -256,12 +256,18 @@ def cli_rank_main(rank, world, init, out_dir):
     job after another from ``<out_dir>/jobs.pkl`` (``{name: argv}``, each
     job its own rendezvous port, ``job_port``); per job the rank's
     standard output and, for a run that exits, its message."""
-    import contextlib
-    import io
-
     import torch
 
     torch.set_num_threads(1)
+    _write(out_dir, rank, _cli_jobs(rank, world, out_dir))
+
+
+def _cli_jobs(rank, world, out_dir):
+    """``cli_rank_main``'s jobs as rank ``rank``: per job its standard
+    output and exit message."""
+    import contextlib
+    import io
+
     from sgcn_tpu_torch.train.__main__ import main as train_main
 
     with open(os.path.join(out_dir, "jobs.pkl"), "rb") as fh:
@@ -279,7 +285,7 @@ def cli_rank_main(rank, world, init, out_dir):
             res[name] = {"stdout": buf.getvalue(), "exit": None}
         except SystemExit as e:
             res[name] = {"stdout": buf.getvalue(), "exit": str(e)}
-    _write(out_dir, rank, res)
+    return res
 
 
 def _write(out_dir, rank, res):
@@ -405,3 +411,219 @@ def broadcast_main(rank, world, init, out_dir):
         _write(out_dir, rank, res)
     finally:
         mesh.close()
+
+
+# ------------------------------------------- the carried modes on ranks
+# ROADMAP A2c's second half on cora 8-hp (GCN 1433 -> 16 -> 7): each case
+# a ``FullBatchTrainer`` mode beside ``sync_every=2`` and the a2a
+CARRIED_CASES = {
+    "stale-a2a": {"halo_staleness": 1},
+    "stale-ring": {"halo_staleness": 1, "comm_schedule": "ragged"},
+    "stale-delta": {"halo_staleness": 1, "halo_delta": True},
+    "stale-delta-ring": {"halo_staleness": 1, "halo_delta": True,
+                         "comm_schedule": "ragged"},
+    "stale-bf16": {"halo_staleness": 1, "halo_dtype": "bfloat16"},
+    "replica-a2a": {"replica_budget": "auto"},
+    "replica-ring": {"replica_budget": "auto", "comm_schedule": "ragged"},
+    "replica-bf16": {"replica_budget": "auto", "halo_dtype": "bfloat16"},
+    "replica-stale": {"replica_budget": "auto", "halo_staleness": 1},
+    "partial": {"replica_budget": "auto", "refresh_band": 0.05},
+    "controller": {"halo_staleness": 1, "comm_schedule": "auto"},
+}
+# ... and the ones held to the exact trainer: a sync every step
+EXACT_CASES = {"stale-se1": {"halo_staleness": 1, "sync_every": 1},
+               "replica-se1": {"replica_budget": "auto", "sync_every": 1},
+               "exact": {}}
+# the one-layer checks: a sync step, then a carried one
+OP_CASES = ("stale-a2a", "stale-ring", "stale-delta", "stale-delta-ring",
+            "stale-bf16", "replica-a2a", "replica-ring", "replica-bf16",
+            "replica-stale", "partial")
+CARRIED_STEPS = 5
+
+
+def carried_kwargs(case, **extra):
+    """``FullBatchTrainer`` keyword arguments of a ``CARRIED_CASES`` or
+    ``EXACT_CASES`` case: ``sync_every=2`` and the a2a unless it says
+    otherwise."""
+    kw = dict(CARRIED_CASES.get(case) or EXACT_CASES[case])
+    if case in CARRIED_CASES:
+        kw.setdefault("sync_every", 2)
+    kw.setdefault("comm_schedule", "a2a")
+    kw.update(extra)
+    return kw
+
+
+def carried_op_inputs(plan):
+    """Two steps' stacked ``(k, B, LAYER_F)`` rows and gradients, and the
+    ``(LAYER_F, LAYER_F)`` weight of the one-layer checks."""
+    rng = np.random.default_rng(7)
+    shape = (plan.k, plan.b, LAYER_F)
+    hs = [rng.standard_normal(shape).astype(np.float32) for _ in range(2)]
+    gs = [rng.standard_normal(shape).astype(np.float32) for _ in range(2)]
+    w = (rng.standard_normal((LAYER_F, LAYER_F))
+         / np.sqrt(LAYER_F)).astype(np.float32)
+    return hs, gs, w
+
+
+def carried_layer_steps(tr, hs, gs):
+    """One layer of ``tr``'s carried mode (``fin = widths[0] =
+    LAYER_F``), two steps from its zero carries: a sync step on ``hs[0]``,
+    then a carried one on ``hs[1]`` (a replica step, or under
+    ``refresh_band`` the partial refresh), each differentiated against
+    ``gs[i]``.  Per step: the rows, the VJP in ``h``, the next feature and
+    gradient carries (waited on), the senders' delta baselines (a rank's
+    own, or the stacked carry's transpose), the stale mode's
+    quantization residual gauge and the refresh count.
+    ``hs``/``gs`` are the stacked arrays or a rank's own part of them."""
+    import torch
+
+    from sgcn_tpu_torch.models.gcn import (gcn_forward_local_replica,
+                                           gcn_forward_local_stale)
+    from sgcn_tpu_torch.ops import pspmm
+
+    stale = bool(tr.halo_staleness)
+    carry = dict(tr.halo_carry if stale else tr.replica_carry)
+    ragged = tr.comm_schedule == "ragged"
+    out = []
+    for step, (h, g) in enumerate(zip(hs, gs)):
+        fresh = step == 0
+        x = torch.tensor(h, requires_grad=True)
+        gholder = list(carry["ghalos"])
+        kw = dict(activation="none", **tr._rank_static(),
+                  **tr.setup.fwd_static)
+        nship = qerr = None
+        if stale:
+            bases = list(carry["bases"]) if "bases" in carry else None
+            y, halos, qerrs = gcn_forward_local_stale(
+                list(tr.model.weights), x, tr.pa, carry["halos"],
+                carry["ghalos"], gholder, delta=tr.halo_delta,
+                wire_dtype="bfloat16" if tr.halo_delta else tr.halo_dtype,
+                gwire_dtype=tr.halo_dtype, fresh=fresh,
+                replica=bool(tr.replica_budget), bases=bases, gauges=True,
+                **kw)
+            qerr = float(qerrs[0])
+            nxt = {"halos": halos, "ghalos": gholder}
+            if bases is not None:
+                nxt["bases"] = bases
+        else:
+            y, halos, rbases, nships = gcn_forward_local_replica(
+                list(tr.model.weights), x, tr.pa, carry["halos"],
+                carry["ghalos"], gholder, halo_dtype=tr.halo_dtype,
+                fresh=fresh, rep_base=carry.get("rep_base"),
+                partial_step=tr.refresh_band is not None and not fresh,
+                band=float(tr.refresh_band or 0.0), **kw)
+            nxt = {"halos": halos, "ghalos": gholder}
+            if "rep_base" in carry:
+                nxt["rep_base"] = rbases
+            if nships[0] is not None:
+                nship = int(nships[0])
+        y.backward(torch.as_tensor(g))
+        carry = nxt
+        res = {"out": y.detach().numpy(), "vjp": x.grad.numpy(),
+               "halo": pspmm.settle(carry["halos"][0]).float().numpy(),
+               "ghalo": pspmm.settle(carry["ghalos"][0]).float().numpy(),
+               "nship": nship, "qerr": qerr}
+        if "rep_base" in carry:
+            res["rep_base"] = carry["rep_base"][0].numpy()
+        if tr.halo_delta:
+            if "bases" in carry:
+                res["base"] = carry["bases"][0].numpy()
+            else:
+                c = carry["halos"][0]
+                res["base"] = (pspmm.ring_to_send_bases(c, tr.plan.rr_sizes)
+                               if ragged else pspmm.recv_to_send_bases(
+                                   c, tr.plan.s).reshape(c.shape)).numpy()
+        out.append(res)
+    return out
+
+
+def carried_run(tr, data, steps=CARRIED_STEPS):
+    """``steps`` training steps of ``tr`` with its drift gauges on: the
+    losses, the gauges and refresh counts after each step, the weights,
+    the controller's log and the job's comm report."""
+    tr.drift_gauges = True
+    losses, gauges, rows = [], [], []
+    for _ in range(steps):
+        losses.append(tr.step(data))
+        gauges.append({k: v.copy() for k, v in (tr.last_gauges or {}).items()})
+        rows.append(tr.last_refresh_rows)
+    tr._settle_carries()
+    return {"losses": losses, "gauges": gauges, "rows": rows,
+            "params": [w.detach().numpy() for w in tr.params],
+            "controller": tr.comm_decision.get("controller"),
+            "sync_every": tr.sync_every, "report": tr.job_report()}
+
+
+def carried_ranks_main(rank, world, init, out_dir):
+    """The rank checks of ``tests/test_torch_ranks_carried.py`` on cora
+    8-hp: one carried layer's two steps per ``OP_CASES`` case, then
+    ``CARRIED_STEPS`` training steps per ``CARRIED_CASES`` and
+    ``EXACT_CASES`` case from the weights in ``<out_dir>/init.pkl``, the
+    in-flight exchanges of a stale run, the refusals; then the train
+    CLI's jobs of ``<out_dir>/jobs.pkl`` (``cli_rank_main``)."""
+    import dataclasses
+
+    import torch
+
+    torch.set_num_threads(1)
+    from sgcn_tpu_torch.ops import pspmm
+    from sgcn_tpu_torch.parallel import init_rank_group
+    from sgcn_tpu_torch.train import (FullBatchTrainer,
+                                      make_train_data_multihost)
+
+    mesh = init_rank_group(init, world, rank, device="cpu")
+    try:
+        _ahat, feats, labels, _pv, plan = cora_plan("cora2708.8.hp")
+        res = {"op": {}, "runs": {}, "errors": {}}
+        hs, gs, w = carried_op_inputs(plan)
+        mine = slice(rank, rank + 1)
+        for case in OP_CASES:
+            tr = FullBatchTrainer(plan, fin=LAYER_F, widths=[LAYER_F],
+                                  params=[w], mesh=mesh,
+                                  **carried_kwargs(case))
+            res["op"][case] = carried_layer_steps(
+                tr, [h[mine] for h in hs], [g[mine] for g in gs])
+        with open(os.path.join(out_dir, "init.pkl"), "rb") as fh:
+            p0 = pickle.load(fh)
+        data = make_train_data_multihost(plan, mesh, feats, labels)
+        for case in list(CARRIED_CASES) + list(EXACT_CASES):
+            tr = FullBatchTrainer(plan, fin=FIN, widths=WIDTHS, lr=LR,
+                                  params=p0, mesh=mesh,
+                                  **carried_kwargs(case))
+            res["runs"][case] = carried_run(tr, data)
+        # the stale exchanges stay in flight until their next read
+        tr = FullBatchTrainer(plan, fin=FIN, widths=WIDTHS, lr=LR,
+                              params=p0, mesh=mesh,
+                              **carried_kwargs("stale-a2a"))
+        flight = []
+        for _ in range(3):
+            tr.step(data)
+            now = tr.halo_carry["halos"] + tr.halo_carry["ghalos"]
+            flight.append({
+                "pending": [isinstance(x, pspmm.InFlight) and not x.waited
+                            for x in now],
+                "before": [x.waited for x in prev] if flight else []})
+            prev = [x for x in now if isinstance(x, pspmm.InFlight)]
+        tr._settle_carries()
+        res["flight"] = flight
+        for name, kw, pl in (
+                ("stale-ckpt", carried_kwargs("stale-a2a"), plan),
+                ("replica-ckpt", carried_kwargs("replica-a2a"), plan),
+                ("asymmetric", carried_kwargs("stale-a2a"),
+                 dataclasses.replace(plan, symmetric=False))):
+            try:
+                tr = FullBatchTrainer(pl, fin=FIN, widths=WIDTHS, mesh=mesh,
+                                      **kw)
+                tr.resume_state()
+            except ValueError as exc:
+                res["errors"][name] = str(exc)
+        tr = FullBatchTrainer(plan, fin=FIN, widths=WIDTHS, mesh=mesh,
+                              **carried_kwargs("stale-a2a"))
+        try:
+            tr.attach_recorder(object())
+        except ValueError as exc:
+            res["errors"]["recorder"] = str(exc)
+    finally:
+        mesh.close()
+    res["cli"] = _cli_jobs(rank, world, out_dir)
+    _write(out_dir, rank, res)
