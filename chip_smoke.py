@@ -207,13 +207,13 @@ failure raises and the script exits non-zero:
      sgcn_tpu_torch.prep`` on it (the printed line checked) and ``python
      -m sgcn_tpu_torch.partition -k 8 -m hp,gp,rp`` (every part vector
      complete, its printed km1 / edge cut equal to a numpy recount, hp
-     and gp sending fewer rows than rp), both host-only CLIs' ``main`` in
-     this process, then three child processes at once, as phase 23 runs
-     them: the train CLI on ``cora.A.mtx`` and
+     and gp sending fewer rows than rp), then the train CLI on
+     ``cora.A.mtx`` and
      ``….8.hp`` for 1 + 5 steps on each transport (exact launches; the
      ring's losses and its saved weights and Adam state == a2a's bit for
-     bit) and the serve CLI with ``--random-init`` (exact launches);
-     files under ``build/chip_smoke_pipeline/``.  (b) the DCSBM flagship
+     bit) and the serve CLI with ``--random-init`` (exact launches),
+     every CLI's ``main`` in this process (``cli_child``), one after
+     another; files under ``build/chip_smoke_pipeline/``.  (b) the DCSBM flagship
      (``dcsbm_graph(169343)``: 64 communities, degree 14, seed 0; Â
      normalized) on its hp and gp parts from the port's native binding
      (k = 8, seed 1; each partitioned twice, the vectors equal, the
@@ -407,23 +407,46 @@ failure raises and the script exits non-zero:
      receive == plain, on both wires, each step's CUDA-event ms
      beside the proxy's; the replica case's sixth step measured against
      the rank's memory model (``MEM_CARD_TOL``);
-  33. one JSON line ``{"kernels": [...]}`` — per ported kernel (the tile
+  33. directed plans and the mini-batch trainer on the rank path
+     (``build/chip_smoke_rank_minibatch/``): (a) one NCCL rank on chip 0's
+     slice of phase 19's directed flagship plan, 128 → 128 → 128 → 40:
+     GCN a2a in float32, on a bf16 ``halo_dtype`` wire and under
+     ``compute_dtype``, GAT a2a in float32, 3 steps each — the backward's
+     halo rows' partials go back through the reverse
+     ``all_to_all_single`` (a loopback on one rank) while the local-ᵀ
+     family runs; losses and weights == the stacked proxy's bit for bit,
+     exact launches per entry (``rank33_directed_launches``: the halo-ᵀ,
+     local-ᵀ and weight-1 K1 launches of every backward aggregation, no
+     reverse pack and no fused launch), the first halo-ᵀ launch on the
+     slice's ``ptile_th*`` and the first weight-1 launch over a received
+     buffer (float32, and bf16 on the bf16 wire) == plain and timed
+     against their bounds, each step's CUDA-event ms beside the proxy's,
+     and a fresh GCN rank trainer's
+     third step against its memory model (``MEM_CARD_TOL``); (b) the
+     mini-batch trainer on one NCCL rank training part 0 of phase 3's ER
+     graph under its random parts, batch 4096, 6 batches, one epoch: GCN
+     a2a and ring, GAT a2a, each batch's loss and the final weights ==
+     the shard proxy's (the same part's batch slices trained stacked)
+     bit for bit, exact launches, each batch step's ms beside the
+     proxy's;
+  34. one JSON line ``{"kernels": [...]}`` — per ported kernel (the tile
      SpMM, the GCN aggregation's backward, the GAT attention pass and its
      use in the GAT layer's backward, the ragged ring aggregation and its
      backward, the row shuffle, the tile SpMM's and the GAT pass's bf16
      flavors, the row pack, the fused local + remote entry and the
      destination-indexed pack) its
      launches on the main path (phases 2–5, 7–13, 15–17, 19–21 and
-     23–32, the children's included), max
+     23–33, the children's included), max
      |kernel − plain|, kernel / plain / bound / library times at the
      flagship layer.  The tile SpMM's own float-weight family entries
      (both tables) launch on the main path only in the asymmetric
-     backward (phases 20–21) and in phases 30–32 (the broadcast's local
-     SpMM, the rank path's two passes): the symmetric phases 2–29 must
+     backward (phases 20–21) and in phases 30–33 (the broadcast's local
+     SpMM, the rank path's two passes, a rank's directed backward): the
+     symmetric phases 2–29 must
      show 0 of them — the fused entry runs their chains and counts those
      launches — and any kernel with no launch on the main path fails the
      run;
-  34. the last line: ``{"ok": true, "device": {...}}``.
+  35. the last line: ``{"ok": true, "device": {...}}``.
 
 Without CUDA, or without the rest of the repository beside it, the script
 prints no result and exits with code 2 or 3.
@@ -2673,12 +2696,14 @@ CKPT_CASES = {"gcn-a2a": ("gcn", "a2a"), "gcn-ragged": ("gcn", "ragged"),
 
 
 def launch_counts(zero: bool = False) -> dict:
-    """The launch counts of every kernel entry phases 23–27's paths run
-    (and K1's float-weight family entries, which must stay 0 there); with
+    """The launch counts of every kernel entry phases 23–33's paths run
+    (and K1's float-weight family entries, which must stay 0 on the
+    symmetric phases 23–29); with
     ``zero``, each is set to 0 first — the start of a path."""
-    from sgcn_tpu_torch.models.gat import GatLayerSym
+    from sgcn_tpu_torch.models.gat import GatLayerGen, GatLayerSym
     from sgcn_tpu_torch.ops.row_shuffle import row_pack, row_pack_into
-    from sgcn_tpu_torch.ops.tile_spmm import (PspmmTilesRagged,
+    from sgcn_tpu_torch.ops.tile_spmm import (PspmmTilesGenRanks,
+                                              PspmmTilesRagged,
                                               PspmmTilesReplica,
                                               PspmmTilesStale,
                                               PspmmTilesSym, spmm_tiles,
@@ -2698,7 +2723,9 @@ def launch_counts(zero: bool = False) -> dict:
               "sym_bwd": (PspmmTilesSym, "backward_launches"),
               "gat_bwd": (GatLayerSym, "backward_launches"),
               "ring": (PspmmTilesRagged, "launches"),
-              "ring_bwd": (PspmmTilesRagged, "backward_launches")}
+              "ring_bwd": (PspmmTilesRagged, "backward_launches"),
+              "gen_rank_bwd": (PspmmTilesGenRanks, "backward_launches"),
+              "gat_gen_bwd": (GatLayerGen, "backward_launches")}
     if zero:
         for obj, attr in owners.values():
             setattr(obj, attr, 0)
@@ -2803,6 +2830,22 @@ def leaves_digest(leaves) -> str:
         h.update(repr((x.dtype.str, x.shape)).encode())
         h.update(x.tobytes())
     return h.hexdigest()[:16]
+
+
+def leaves_equal(got, want) -> bool:
+    """Two leaf lists equal array for array (dtype, shape and every
+    element's bits; NaN == NaN): ``leaves_digest``'s verdict without its
+    copies and hashing of every byte."""
+    import numpy as np
+
+    if len(got) != len(want):
+        return False
+    for x, y in zip(got, want):
+        x, y = np.ascontiguousarray(x), np.ascontiguousarray(y)
+        if x.dtype != y.dtype or x.shape != y.shape or not np.array_equal(
+                x.reshape(-1).view(np.uint8), y.reshape(-1).view(np.uint8)):
+            return False
+    return True
 
 
 def phase_checkpoints(plan, ahat, feats, labels, pv, widths, data, dev, smi):
@@ -3184,22 +3227,18 @@ def km1_count(a, pv, k):
 
 
 def phase_pipeline(parts_bg, ahat_dc, fix, dev, tb, smi):
-    """Phase 24 (module docstring): the cora CLI pipeline in child
-    processes, then the DCSBM flagship on its hp, gp and rp parts in this
-    one.  Returns the launch counts of its paths by kernel entry, the
-    fused entry's max |kernel − plain| on the hp plan and K3's layer-0
-    times there (``time_whole_op``; phase 30 reads them)."""
-    children = Children()
-    try:
-        cora = _pipeline_cora_clis(children, fix, smi)
-    finally:
-        children.stop()
+    """Phase 24 (module docstring): the cora CLI pipeline, then the
+    DCSBM flagship on its hp, gp and rp parts, all in this process.
+    Returns the launch counts of its paths by kernel entry, the fused
+    entry's max |kernel − plain| on the hp plan and K3's layer-0 times
+    there (``time_whole_op``; phase 30 reads them)."""
+    cora = _pipeline_cora_clis(fix, smi)
     flag, fused_err, k3_hp = _pipeline_flagship(parts_bg, ahat_dc, dev, tb,
                                                 smi)
     return {key: cora[key] + flag[key] for key in flag}, fused_err, k3_hp
 
 
-def _pipeline_cora_clis(children, fix, smi):
+def _pipeline_cora_clis(fix, smi):
     import shutil
 
     import numpy as np
@@ -3217,39 +3256,27 @@ def _pipeline_cora_clis(children, fix, smi):
     amtx = os.path.join(PIPE_DIR, "cora.A.mtx")
     total = {key: 0 for key in launch_counts()}
 
-    def run(jobs, here=False):
-        # here: the CLI's main in this process (the prep and partition
-        # CLIs run on the host: a child would add ≈ 11 s of start-up)
-        if here:
-            for name, module, argv in jobs:
-                cli_child(module, argv, None,
-                          os.path.join(PIPE_DIR, f"{name}.json"))
-            wave = [(None, None)] * len(jobs)
-        else:
-            wave = children.start([(module, argv, None,
-                                    os.path.join(PIPE_DIR, f"{name}.json"))
-                                   for name, module, argv in jobs])
-            codes = children.join(wave)
-            if codes != [0] * len(jobs):
-                raise AssertionError(f"phase 24: children "
-                                     f"{[j[0] for j in jobs]} exited {codes}")
+    def run(jobs):
+        # each CLI's main in this process, one job after another (a child
+        # would add ≈ 11 s of start-up; the cora train and serve runs
+        # take 1-3 s each)
         out = {}
-        for (_, t_spawn), (name, _, _) in zip(wave, jobs):
-            with open(os.path.join(PIPE_DIR, f"{name}.json")) as fh:
+        for name, module, argv in jobs:
+            path = os.path.join(PIPE_DIR, f"{name}.json")
+            cli_child(module, argv, None, path)
+            with open(path) as fh:
                 res = json.load(fh)
             for key in total:
                 total[key] += res["launches"][key]
-            t0 = res["t_enter"] if t_spawn is None else t_spawn
-            log(f"  {name} {'in this process' if here else 'child'}: "
-                f"start-up {res['t_imported'] - t0:.2f} s, in the CLI "
+            log(f"  {name} in this process: start-up "
+                f"{res['t_imported'] - res['t_enter']:.2f} s, in the CLI "
                 f"{res['t_end'] - res['t_imported']:.2f} s")
             out[name] = res
         return out
 
     # ---- python -m sgcn_tpu_torch.prep on the raw adjacency
     res = run([("prep", "prep", ["-a", raw, "-o", PIPE_DIR, "-n", "cora",
-                                 "-l", "2", "-f", "16", "-c", "7"])],
-              here=True)["prep"]
+                                 "-l", "2", "-f", "16", "-c", "7"])])["prep"]
     log(f"  prep: {res['stdout'].strip()}")
     if res["stdout"] != (f"wrote cora.A/H/Y.mtx + config (n=2708, "
                          f"widths=[16, 7]) to {PIPE_DIR}\n"):
@@ -3257,8 +3284,7 @@ def _pipeline_cora_clis(children, fix, smi):
 
     # ---- python -m sgcn_tpu_torch.partition -k 8 -m hp,gp,rp on Â
     res = run([("partition", "partition",
-                ["-a", amtx, "-k", "8", "-m", "hp,gp,rp"])],
-              here=True)["partition"]
+                ["-a", amtx, "-k", "8", "-m", "hp,gp,rp"])])["partition"]
     lines = res["stdout"].strip().splitlines()
     ahat = read_mtx(amtx)
     sent = {}
@@ -3283,7 +3309,7 @@ def _pipeline_cora_clis(children, fix, smi):
                                and sent["gp"] < sent["rp"]):
         raise AssertionError(f"phase 24: cora partitions {lines}, {sent}")
 
-    # ---- train (both transports) and serve on the files, 3 children
+    # ---- train (both transports) and serve on the files, in this process
     files = ["-a", amtx, "-p", f"{amtx}.8.hp", "-s", "8", "--features-mtx",
              os.path.join(PIPE_DIR, "cora.H.mtx"), "-l", "2", "--hidden",
              "16", "--device", "cuda"]
@@ -3840,16 +3866,18 @@ def _phase_stale(children, plan, data, p_init, widths, rep5, fit_w,
             sum(f.startswith("leaf_") for f in z.files))]
         carry = [z[f"carry_{i}"] for i in range(
             sum(f.startswith("carry_") for f in z.files))]
-    got = (leaves_digest(leaves), leaves_digest(carry))
-    want = (leaves_digest(to_leaves(tr.params, tr.opt)),
-            leaves_digest(tr.resume_state()[1]))
+    # the saved leaves against the uninterrupted run's, array for array
+    # (phase 23 logs the digests; here equality is the check)
+    same = (leaves_equal(leaves, to_leaves(tr.params, tr.opt)),
+            leaves_equal(carry, tr.resume_state()[1]))
+    nbytes = sum(np.asarray(x).nbytes for x in leaves + carry)
     rep = res["report"]
     log(f"  killed child exit {codes[0]} after its step-4 save; resumed at "
         f"step {rep['resumed']['step']}, losses {rep['losses']} vs "
-        f"uninterrupted {full_losses[4:]}; weights + Adam digest {got[0]} / "
-        f"{want[0]}, carry digest {got[1]} / {want[1]}; child launches "
-        f"{res['launches']}")
-    if rep["losses"] != full_losses[4:] or got != want:
+        f"uninterrupted {full_losses[4:]}; weights + Adam == "
+        f"{same[0]}, carry == {same[1]} "
+        f"({nbytes} B compared); child launches {res['launches']}")
+    if rep["losses"] != full_losses[4:] or not all(same):
         raise AssertionError("phase 25: the resumed stale run differs from "
                              "the uninterrupted one")
     for key, v in res["launches"].items():
@@ -4278,16 +4306,18 @@ def _phase_replicas(children, plan, data, p_init, widths, rep5, fit_w,
             sum(f.startswith("leaf_") for f in z.files))]
         carry = [z[f"carry_{i}"] for i in range(
             sum(f.startswith("carry_") for f in z.files))]
-    got = (leaves_digest(leaves), leaves_digest(carry))
-    want = (leaves_digest(to_leaves(tr.params, tr.opt)),
-            leaves_digest(tr.resume_state()[1]))
+    # the saved leaves against the uninterrupted run's, array for array
+    # (phase 23 logs the digests; here equality is the check)
+    same = (leaves_equal(leaves, to_leaves(tr.params, tr.opt)),
+            leaves_equal(carry, tr.resume_state()[1]))
+    nbytes = sum(np.asarray(x).nbytes for x in leaves + carry)
     rep = res["report"]
     log(f"  killed child exit {codes[0]} after its step-4 save; resumed at "
         f"step {rep['resumed']['step']}, losses {rep['losses']} vs "
-        f"uninterrupted {full_losses[4:]}; weights + Adam digest {got[0]} / "
-        f"{want[0]}, replica carry digest {got[1]} / {want[1]}; child "
-        f"launches {res['launches']}")
-    if rep["losses"] != full_losses[4:] or got != want:
+        f"uninterrupted {full_losses[4:]}; weights + Adam == "
+        f"{same[0]}, replica carry == {same[1]} "
+        f"({nbytes} B compared); child launches {res['launches']}")
+    if rep["losses"] != full_losses[4:] or not all(same):
         raise AssertionError("phase 26: the resumed replica run differs "
                              "from the uninterrupted one")
     for key, v in res["launches"].items():
@@ -6225,6 +6255,309 @@ def _rank_levers(plan, feats_f, labels_f, p_init, params_g, widths, dev, tb,
     out["err"] = err
     return out
 
+
+# ------------- phase 33: directed plans and mini-batch on one NCCL rank
+RANK33_DIR = os.path.join(REPO, "build", "chip_smoke_rank_minibatch")
+
+# phase 33 (a): the directed flagship's levers on a rank
+RANK33_DIRECTED = {
+    "directed GCN a2a": {},
+    "directed GCN bf16 wire a2a": {"halo_dtype": "bfloat16"},
+    "directed GCN compute_dtype a2a": {"compute_dtype": "bfloat16"},
+    "directed GAT a2a": {"model": "gat"},
+}
+# ... (b): the mini-batch trainer's cases, (model, transport)
+RANK33_MINIBATCH = {"mini-batch GCN a2a": ("gcn", "a2a"),
+                    "mini-batch GCN ring": ("gcn", "ragged"),
+                    "mini-batch GAT a2a": ("gat", "a2a")}
+RANK33_STEPS = 3
+MB33_BATCH, MB33_NBATCHES = 4096, 6
+RANK33_KEYS = ("k1", "k1_bf16", "k5", "k5_bf16", "pack", "fused",
+               "fused_wire", "fused_bf16", "gen_rank_bwd", "gat_gen_bwd",
+               "gat_bwd")
+
+
+def rank33_directed_launches(lever, widths, steps=RANK33_STEPS, fin=128):
+    """Exact launches per entry of ``steps`` directed training steps on
+    the rank path.  A GCN aggregation's forward: one pack and two K1
+    family launches (local over h, halo over the receive buffer: K1-bf16
+    on a bf16 wire or on bf16 rows); its backward: three K1 launches and
+    no pack (halo-ᵀ and local-ᵀ over g, the weight-1 family over what the
+    reverse all-to-all delivered: K1-bf16 under either lever), counted in
+    ``PspmmTilesGenRanks.backward_launches``.  A GAT layer's forward as
+    on a symmetric plan (phase 31); its backward per exchanged table one
+    K5 (halo-ᵀ masks) and two K1 launches, no pack.  No fused launch."""
+    out = {key: 0 for key in RANK33_KEYS}
+    if lever.get("model") == "gat":
+        tables = gat_passes(widths)          # a table per forward pass
+        out.update(k5=steps * 2 * tables, k1=steps * 2 * tables,
+                   pack=steps * pack_launches("gat", "a2a", widths),
+                   gat_gen_bwd=steps * tables)
+        return out
+    nf, nb = len(widths), backward_passes(fin, widths)
+    cd, wire = lever.get("compute_dtype"), lever.get("halo_dtype")
+    k16 = "k1_bf16"
+    for key, n in (((k16 if cd else "k1"), nf),
+                   ((k16 if cd or wire else "k1"), nf),
+                   ((k16 if cd else "k1"), 2 * nb),
+                   ((k16 if cd or wire else "k1"), nb)):
+        out[key] += steps * n
+    out.update(pack=steps * nf, gen_rank_bwd=steps * 3 * nb)
+    return out
+
+
+def rank33_minibatch_launches(model, widths, nbatches, live, fin=128):
+    """Exact launches of one epoch of ``nbatches`` batch steps on the
+    rank path (symmetric batch plans: phase 31's per-step counts);
+    ``live``: whether the batch set's shared ring has a live round (an
+    empty ring ships nothing and packs nothing)."""
+    out = {key: 0 for key in RANK33_KEYS}
+    got = rank_case_launches(model, "a2a", widths, {}, steps=nbatches)
+    out.update({key: v for key, v in got.items() if key in out})
+    if not live:
+        out["pack"] = 0
+    return out
+
+
+def phase_rank_directed_minibatch(asym, ahat_f, feats_f, labels_f, pv_f,
+                                  p_init, params_g, widths, dev, smi):
+    """Phase 33 (module docstring): directed plans and the mini-batch
+    trainer on one NCCL rank against the stacked proxy.  Returns the
+    launch counts of the rank runs by kernel entry and the
+    measurements."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from sgcn_tpu_torch.models.gat import params_from_jax as gat_from_numpy
+    from sgcn_tpu_torch.ops import tile_spmm as ts
+    from sgcn_tpu_torch.parallel import (init_rank_group, shard_proxy_data,
+                                         shard_proxy_plan)
+    from sgcn_tpu_torch.train import FullBatchTrainer, resolve_forward_setup
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(RANK33_DIR, ignore_errors=True)
+    os.makedirs(RANK33_DIR)
+    total = {key: 0 for key in launch_counts()}
+    plan = asym["plan"]
+    for model in ("gcn", "gat"):
+        resolve_forward_setup(plan, model=model)   # built: a no-op
+    sl = shard_proxy_plan(plan, 0)
+    data = shard_proxy_data(plan, 0, feats_f, labels_f, device=dev)
+    family = ts.spmm_tiles_classes
+
+    def model_kw(lever):
+        if lever.get("model") == "gat":
+            return dict(lever, activation="none",
+                        params=gat_from_numpy(params_g))
+        return dict(lever, params=[w.copy() for w in p_init])
+
+    def run(lever, mesh=None, picks=()):
+        tr = FullBatchTrainer(sl, fin=128, widths=widths, device=dev,
+                              mesh=mesh, **model_kw(lever))
+        calls = {}
+        wanted = {name: tr.pa[f"ptile_{name}src"].data_ptr()
+                  for name in picks}
+
+        def recorded(*args):
+            out = family(*args)
+            for name, ptr in wanted.items():
+                if name not in calls and args[0].data_ptr() == ptr:
+                    calls[name] = (args, out)
+            return out
+        recorded.__dict__ = family.__dict__
+        launch_counts(zero=True)                # the main path starts here
+        ts.spmm_tiles_classes = recorded
+        try:
+            first = tr.step(data)
+        finally:
+            ts.spmm_tiles_classes = family
+        steps = [event_ms(lambda: tr.step(data, sync=False), 1)
+                 for _ in range(RANK33_STEPS - 1)]
+        torch.cuda.synchronize()
+        ln = launch_counts()                    # ... and ends here
+        return {"ms": [ms for ms, _ in steps],
+                "losses": [first] + [float(out[0]) for _, out in steps],
+                "w": [p.detach().clone() for p in tr.model.parameters()],
+                "ln": ln, "calls": calls}
+
+    # the rank forms held against plain: the first halo-ᵀ launch (the
+    # slice's ptile_th*) and the first weight-1 launch over a received
+    # buffer (ptile_t1*), float32 and on the bf16 wire
+    picks = {"directed GCN a2a": ("th", "t1"),
+             "directed GCN bf16 wire a2a": ("t1",)}
+    mesh = init_rank_group("file://" + os.path.join(RANK33_DIR,
+                                                    "rendezvous"), 1, 0)
+    out, err = {}, {"th": 0.0, "t1": 0.0, "t1_bf16": 0.0}
+    try:
+        # ---- (a) the directed flagship's slice
+        for name, lever in RANK33_DIRECTED.items():
+            t0 = time.perf_counter()
+            stacked = run(lever)
+            rk = run(lever, mesh=mesh, picks=picks.get(name, ()))
+            t_runs = time.perf_counter() - t0
+            for key in total:
+                total[key] += rk["ln"][key]
+            same = rk["losses"] == stacked["losses"] and all(
+                torch.equal(a, b) for a, b in zip(rk["w"], stacked["w"]))
+            want = rank33_directed_launches(lever, widths)
+            got = {key: rk["ln"][key] for key in want}
+            checked = []
+            for form, (args, k_out) in rk["calls"].items():
+                torch.cuda.synchronize()
+                t_plain = time.perf_counter()
+                plain = ts.spmm_tiles_classes_plain(*args)
+                torch.cuda.synchronize()
+                plain_ms = (time.perf_counter() - t_plain) * 1e3
+                key = form + ("_bf16" if args[3].dtype == torch.bfloat16
+                              else "")
+                err[key] = max(err[key], float(
+                    (k_out - plain).abs().max()))
+                if not same_bits(k_out, plain):
+                    raise AssertionError(f"phase 33: {name}: the rank's "
+                                         f"{key} launch != plain")
+                # its time on the rank's slice (these launches are not
+                # the main path's: its counts were read above)
+                table = args[3]
+                nbytes, flops = k1_work(
+                    args[0].cpu().numpy(), args[2].cpu().numpy(), 1,
+                    table.shape[1], table.shape[2], k_out.shape[1],
+                    table.element_size())
+                bound, by = k1_bound_ms(nbytes, flops)
+                out.setdefault("forms", {})[key] = {
+                    "ms": cuda_ms(lambda args=args: family(*args)),
+                    "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by}
+                checked.append(f"{key} on {tuple(table.shape)} "
+                               f"{table.dtype}: "
+                               + json.dumps(out["forms"][key]))
+            log(f"  one NCCL rank, chip 0's directed slice, {name}: losses "
+                f"{rk['losses']}; == the stacked proxy's bit for bit "
+                f"(losses and weights): {same}; ms of steps 2-3 (CUDA "
+                f"events) {rk['ms']!r}, the stacked proxy's "
+                f"{stacked['ms']!r}; launches {json.dumps(got)} (expected "
+                f"{json.dumps(want)}); == plain: {checked}; host s: runs "
+                f"{t_runs:.1f}, plain checks "
+                f"{time.perf_counter() - t0 - t_runs:.1f}; card: {smi}")
+            if not same or got != want or \
+                    len(checked) != len(picks.get(name, ())) or \
+                    not np.isfinite(rk["losses"]).all():
+                raise AssertionError(f"phase 33: {name}: same {same}, "
+                                     f"launches {got} (want {want}), "
+                                     f"checked {checked}")
+            out[name] = {"ms": rk["ms"], "proxy_ms": stacked["ms"],
+                         "losses": rk["losses"]}
+            del stacked, rk
+        out["memory"] = _rank33_memory(sl, data, p_init, widths, mesh, dev,
+                                       smi)
+        del data
+        # ---- (b) the mini-batch trainer on part 0's batch slices
+        for name, (model, sched) in RANK33_MINIBATCH.items():
+            t0 = time.perf_counter()
+            runs = [_rank33_minibatch(model, sched, group, ahat_f, feats_f,
+                                      labels_f, pv_f, p_init, params_g,
+                                      widths, dev)
+                    for group in (None, mesh)]
+            stacked, rk = runs
+            for key in total:
+                total[key] += rk["ln"][key]
+            same = rk["losses"] == stacked["losses"] and all(
+                torch.equal(a, b) for a, b in zip(rk["w"], stacked["w"]))
+            want = rank33_minibatch_launches(model, widths, MB33_NBATCHES,
+                                             rk["live"])
+            got = {key: rk["ln"][key] for key in want}
+            log(f"  one NCCL rank, part 0 of the ER batches (batch "
+                f"{MB33_BATCH}, {MB33_NBATCHES} padded plans, B "
+                f"{rk['b']}, S {rk['s']}, real rows {rk['rows']}), {name}: "
+                f"losses {rk['losses']}; == the shard proxy's bit for bit "
+                f"(losses and weights): {same}; ms a batch step (CUDA "
+                f"events, readback included) {rk['ms']!r}, the proxy's "
+                f"{stacked['ms']!r}; launches {json.dumps(got)} (expected "
+                f"{json.dumps(want)}); host s {time.perf_counter() - t0:.1f}"
+                f" (trainers {rk['build_s']:.1f} + {stacked['build_s']:.1f})"
+                f"; card: {smi}")
+            if not same or got != want or \
+                    not np.isfinite(rk["losses"]).all():
+                raise AssertionError(f"phase 33: {name}: same {same}, "
+                                     f"launches {got} (want {want})")
+            out[name] = {"ms": rk["ms"], "proxy_ms": stacked["ms"],
+                         "losses": rk["losses"]}
+            del runs, stacked, rk
+    finally:
+        mesh.close()
+    log(f"  phase 33 launches {json.dumps(total)}; phase wall "
+        f"{time.perf_counter() - t_phase:.1f} s; card: {smi}")
+    out["err"] = err
+    return total, out
+
+
+def _rank33_minibatch(model, sched, mesh, ahat, feats, labels, pv, p_init,
+                      params_g, widths, dev):
+    """One epoch of the mini-batch trainer on part 0's batch slices: on
+    the one-rank ``mesh``, or the shard proxy without it; counts zeroed
+    before the epoch and read after."""
+    import torch
+
+    from sgcn_tpu_torch.models.gat import params_from_jax as gat_from_numpy
+    from sgcn_tpu_torch.ops.pspmm import ragged_live_rounds
+    from sgcn_tpu_torch.train.minibatch import MiniBatchTrainer
+
+    kw = (dict(params=[w.copy() for w in p_init]) if model == "gcn" else
+          dict(activation="none", params=gat_from_numpy(params_g)))
+    t0 = time.perf_counter()
+    tr = MiniBatchTrainer(ahat, pv, 8, fin=128, widths=widths,
+                          batch_size=MB33_BATCH, nbatches=MB33_NBATCHES,
+                          seed=0, model=model, comm_schedule=sched, part=0,
+                          mesh=mesh, device=dev, **kw)
+    batches = tr.make_batches(feats, labels)
+    build_s = time.perf_counter() - t0
+    launch_counts(zero=True)                    # the main path starts here
+    steps = [event_ms(lambda b=b: tr.step(b), 1) for b in batches]
+    torch.cuda.synchronize()
+    ln = launch_counts()                        # ... and ends here
+    plan = tr.plans[0]
+    return {"ms": [ms for ms, _ in steps],
+            "losses": [out[0] for _, out in steps],
+            "w": [p.detach().clone() for p in tr.inner.model.parameters()],
+            "ln": ln, "build_s": build_s, "b": plan.b, "s": plan.s,
+            "rows": [int(b.data.train_valid.sum()) for b in batches],
+            "live": sched == "a2a" or bool(ragged_live_rounds(plan.rr_sizes))}
+
+
+def _rank33_memory(sl, data, p_init, widths, mesh, dev, smi):
+    """Phase 33's memory join: a fresh GCN rank trainer on the directed
+    slice measured on its third step against the rank's memory model
+    (the backward's reverse exchange buffers priced), within
+    ``MEM_CARD_TOL``."""
+    import torch
+
+    from sgcn_tpu_torch.obs.memory import MEM_MODEL_TOL
+    from sgcn_tpu_torch.train import FullBatchTrainer
+
+    tr = FullBatchTrainer(sl, fin=128, widths=widths, mesh=mesh,
+                          params=[w.copy() for w in p_init])
+    for _ in range(2):
+        tr.step(data)
+    torch.cuda.synchronize()
+    live = tr.resident_bytes()
+    _loss, measured = tr.measure_step(data)
+    join = tr.publish_memory(measured, data)
+    peak, model_b = measured["peak_bytes"], tr.memory.total_bytes
+    ratio = peak / model_b
+    log(f"  directed GCN a2a, a fresh rank trainer's third step: memory "
+        f"model {model_b} B (layout {tr.memory.config['layout']}, wire "
+        f"buffers {tr.memory.families['wire_buffers']} B with the reverse "
+        f"exchange's), measured peak {peak} B, ratio {ratio:.4f} "
+        f"(MEM_MODEL_TOL {MEM_MODEL_TOL}, MEM_CARD_TOL {MEM_CARD_TOL}); "
+        f"arguments {measured['argument_bytes']} B (model "
+        f"{tr.memory.argument_bytes}), live tensors "
+        f"{sum(live.values())} B; violations {join['violations']}; card: "
+        f"{smi}")
+    if join["violations"] or ratio > MEM_CARD_TOL:
+        raise AssertionError(f"phase 33: memory join {join}")
+    return {"peak": peak, "model": model_b, "ratio": ratio,
+            "arguments": measured["argument_bytes"]}
+
 def main() -> int:
     import torch
 
@@ -7052,7 +7385,7 @@ def main() -> int:
     # ---------------------------------------------------------- phase 24
     log("phase 24: the offline pipeline — cora2708 through the prep, "
         "partition (hp, gp, rp), train (both transports) and serve CLIs in "
-        "child processes; then the DCSBM flagship on its hp, gp and rp "
+        "this process; then the DCSBM flagship on its hp, gp and rp "
         "parts: GCN (both transports) and GAT training, GCN serving")
     p24, fused_err24, k3_hp = phase_pipeline(parts_bg, ahat_dc, fix, dev, tb,
                                              smi)
@@ -7164,6 +7497,20 @@ def main() -> int:
     log(f"  phase 32 took {time.perf_counter() - t32:.1f} s")
 
     # ---------------------------------------------------------- phase 33
+    log("phase 33: directed plans (GCN float32, bf16 wire, compute_dtype; "
+        "GAT) on one NCCL rank on chip 0's directed flagship slice, the "
+        "backward's reverse all_to_all_single; the mini-batch trainer (GCN "
+        "a2a and ring, GAT) on one NCCL rank on part 0's ER batch slices; "
+        "== the stacked proxy, exact launches, the halo-T and weight-1 "
+        "families == plain, the memory join")
+    t33 = time.perf_counter()
+    p33, r33 = phase_rank_directed_minibatch(
+        asym, ahat_f, feats_f, labels_f, pv_f, p_init, params_g, widths_f,
+        dev, smi)
+    MAIN_PATH_PACKS[0] += p33["pack"]
+    log(f"  phase 33 took {time.perf_counter() - t33:.1f} s")
+
+    # ---------------------------------------------------------- phase 34
     fused_main = (launches_c + launches_f + launches_tc + launches_tf
                   + launches_fr + launches_rt + launches_ca + launches_cr
                   + l15["wire"] + l15["bf16"] + launches_16 + asym["fused"]
@@ -7175,8 +7522,9 @@ def main() -> int:
     kernels = [{
         # K1's own float32-weight family entry: its launches on the main
         # path are the asymmetric backward's halo-ᵀ launches and phases
-        # 30-32's (the broadcast's local SpMM, the rank path's local and
-        # halo passes, a rank's replica steps); the symmetric phases 2-29
+        # 30-33's (the broadcast's local SpMM, the rank path's local and
+        # halo passes, a rank's replica steps, a rank's directed
+        # backward: halo-ᵀ, local-ᵀ, weight-1); the symmetric phases 2-29
         # run its chains inside the fused entry, which counts those
         # launches under tile_spmm_fused; the times are its own family
         # launches at the flagship layer
@@ -7184,9 +7532,11 @@ def main() -> int:
         "route": "cuda",
         "source": "sgcn_tpu_torch/csrc/tile_spmm.cu",
         "replaces": "sgcn_tpu/ops/pallas_spmm.py:203",
-        "launches": asym["k1"] + p30["k1"] + p31["k1"] + p32["k1"],
+        "launches": (asym["k1"] + p30["k1"] + p31["k1"] + p32["k1"]
+                     + p33["k1"]),
         "max_abs_err": max(max_err, grad_err, k4_err, k4b_err, asym["err"],
-                           r30["k1_err"]),
+                           r30["k1_err"], r33["err"]["th"],
+                           r33["err"]["t1"]),
         "ms": layer["ms"],
         "plain_ms": layer["plain_ms"],
         "bound_ms": layer["bound_ms"],
@@ -7217,7 +7567,7 @@ def main() -> int:
                      + launches_gfr + launches_grt + launches_gcr
                      + l17["f32"] + asym["k5"] + p23["k5"] + p24["k5"]
                      + p27["k5"] + p28["k5"] + p29["k5"] + p30["k5"]
-                     + p31["k5"]),
+                     + p31["k5"] + p33["k5"]),
         "max_abs_err": max(k5_err, err_f, err_b, k5r_err, k5_err27, sub_err,
                            r31["rank"]["err"]["k5"]),
         "ms": gat_fwd["ms"],
@@ -7232,7 +7582,7 @@ def main() -> int:
         "replaces": "sgcn_tpu/models/gat.py:637-687",
         "launches": (bwd_gt + bwd_gtc + bwd_grt + bwd_gcr + p23["gat_bwd"]
                      + p24["gat_bwd"] + p27["gat_bwd"] + p29["gat_bwd"]
-                     + p30["gat_bwd"] + p31["gat_bwd"]),
+                     + p30["gat_bwd"] + p31["gat_bwd"] + p33["gat_bwd"]),
         "max_abs_err": max(err_b, k5r_err),
         "ms": gat_bwd["ms"],
         "plain_ms": gat_bwd["plain_ms"],
@@ -7292,8 +7642,10 @@ def main() -> int:
         "route": "cuda",
         "source": "sgcn_tpu_torch/csrc/tile_spmm.cu",
         "replaces": "sgcn_tpu/ops/pallas_spmm.py:203",
-        "launches": asym["k1_bf16"] + p31["k1_bf16"] + p32["k1_bf16"],
-        "max_abs_err": max(err16["k1"], err15, r31["rank"]["err"]["k1_bf16"]),
+        "launches": (asym["k1_bf16"] + p31["k1_bf16"] + p32["k1_bf16"]
+                     + p33["k1_bf16"]),
+        "max_abs_err": max(err16["k1"], err15, r31["rank"]["err"]["k1_bf16"],
+                           r33["err"]["t1_bf16"]),
         "ms": k1_16["ms"],
         "plain_ms": k1_16["plain_ms"],
         "bound_ms": k1_16["bound_ms"],

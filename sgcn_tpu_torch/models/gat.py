@@ -38,7 +38,10 @@ same table form on the same wire, and the stabilizer ``C`` is the
 all-reduced max (``RankGroup.all_reduce_max``, the reference's ``pmax``),
 so a rank's rows equal the stacked layer's bit for bit.  K5 reads a row's
 local and halo in-edges in one chain per element, so each pass waits for
-its exchange: nothing overlaps the exchange on this path.
+its exchange: nothing overlaps the forward's exchange on this path.  On
+an asymmetric pattern the backward's transposed passes split as the GCN
+backward does on a rank (``GatLayerGen``): the reverse
+``all_to_all_single`` is in flight while the local-ᵀ pass runs.
 
 Mixed precision (``compute_dtype='bfloat16'``, the reference's
 ``--dtype bfloat16``): each layer casts ``w``, ``a2`` and ``h`` to bf16
@@ -86,7 +89,7 @@ from torch.utils.checkpoint import checkpoint
 from ..ops.pspmm import (halo_exchange, narrow_dtype, rank_halo_exchange,
                          ring_concat)
 from ..ops.tile_spmm import (gat_tiles_pass, k5_launches,
-                             pspmm_tiles_transposed)
+                             pspmm_tiles_transposed, transposed_ranks)
 from .activations import get_activation
 
 # plan arrays the tile-kernel GAT forward ships: the reference's
@@ -322,7 +325,7 @@ def _gat_tiles_aggregate(p, s, form, ex_src, halo_src_flat, csrc, cld, cw,
 
 
 def _gat_tiles_aggregate_T(p, s, form, tl, th, t1, rev, tlclasses,
-                           thclasses, t1classes, tb):
+                           thclasses, t1classes, tb, mesh=None):
     """The transpose of ``_gat_tiles_aggregate`` for an asymmetric
     pattern: per owned row j, the masked Σ of ``[p ‖ s]`` over every row
     that reads j (``Mᵀ·[p ‖ s]``), from the plan's transposed combined
@@ -335,8 +338,13 @@ def _gat_tiles_aggregate_T(p, s, form, tl, th, t1, rev, tlclasses,
     (``t1``).  ``form='fused'`` ships one ``(fout+1)``-lane table; the
     split and packed forms two, the features and the scalar (the packed
     form's bf16 ``p`` widened exactly to float32: the partials and their
-    sums stay float32, as the reference's float32 scatter-adds).  Returns
-    ``(N (k, b, fout), D (k, b))`` float32."""
+    sums stay float32, as the reference's float32 scatter-adds).  ``mesh``
+    (a ``RankGroup``): one rank's part, each table through
+    ``ops/tile_spmm.py::transposed_ranks`` — the halo-ᵀ K5 pass, the
+    reverse ``all_to_all_single`` of ``rev``'s ``k·S`` slots issued, the
+    local-ᵀ pass while it is in flight, the weight-1 pass over what came
+    back, one add: the fused launch's arithmetic in two launches.
+    Returns ``(N (k, b, fout), D (k, b))`` float32."""
     fout = p.shape[2]
     if form == "fused":
         tables = [torch.cat([p, s[..., None]], dim=-1)]
@@ -345,9 +353,15 @@ def _gat_tiles_aggregate_T(p, s, form, tl, th, t1, rev, tlclasses,
     else:
         raise ValueError(f"the tile GAT pass takes the fused, split and "
                          f"packed table forms, not {form!r}")
-    outs = [pspmm_tiles_transposed(table.contiguous(), tl, th, t1, rev, tb,
-                                   tlclasses, thclasses, t1classes)
-            for table in tables]
+    if mesh is None:
+        outs = [pspmm_tiles_transposed(table.contiguous(), tl, th, t1, rev,
+                                       tb, tlclasses, thclasses, t1classes)
+                for table in tables]
+    else:
+        outs = [transposed_ranks(table.contiguous(), tl, th, t1,
+                                 int(rev.shape[-1]), tb, tlclasses,
+                                 thclasses, t1classes, mesh)
+                for table in tables]
     if form == "fused":
         return outs[0][..., :fout], outs[0][..., fout]
     return outs[0], outs[1][..., 0]
@@ -486,9 +500,10 @@ def _gat_layer_grads(ctx, saved, gbar, aggregate):
 
 
 class GatLayerGen(torch.autograd.Function):
-    """``gat_layer_local`` over stacked parts, for an ASYMMETRIC edge
-    pattern: ``GatLayerSym``'s forward (the factored
-    ``_gat_factored_fwd_core``, a2a) and its chain rules, with the
+    """``gat_layer_local`` over stacked parts (or one rank's part:
+    ``mesh``), for an ASYMMETRIC edge pattern: ``GatLayerSym``'s forward
+    (the factored ``_gat_factored_fwd_core``, a2a) and its chain rules,
+    with the
     aggregation of ``[ḡ/D ‖ −(ḡ·out)/D]`` replaced by its transpose
     (``_gat_tiles_aggregate_T`` on the plan's transposed combined
     layouts, ``transposed = (tl, th, t1, rev_csrc, tlclasses, thclasses,
@@ -508,22 +523,23 @@ class GatLayerGen(torch.autograd.Function):
     @staticmethod
     def forward(ctx, w, a1, a2, h, ex_src, halo_src_flat, csrc, cld, cw,
                 row_valid, tb, cclasses, transposed, form=None,
-                compute_dtype=None, stabilizers=None):
+                compute_dtype=None, stabilizers=None, mesh=None):
         ctx.transposed = transposed
         return GatLayerSym.forward(ctx, w, a1, a2, h, ex_src, halo_src_flat,
                                    csrc, cld, cw, row_valid, tb, cclasses,
-                                   form, None, compute_dtype, stabilizers)
+                                   form, None, compute_dtype, stabilizers,
+                                   mesh)
 
     @staticmethod
     def backward(ctx, gbar):
-        tb, form = ctx.static[0], ctx.static[2]
+        tb, form, mesh = ctx.static[0], ctx.static[2], ctx.static[5]
         before = k5_launches()
         grads = _gat_layer_grads(
             ctx, ctx.saved_tensors, gbar,
             lambda dn, dd: _gat_tiles_aggregate_T(dn, dd, form,
-                                                  *ctx.transposed, tb))
+                                                  *ctx.transposed, tb, mesh))
         GatLayerGen.backward_launches += k5_launches() - before
-        return grads + (None,) * 12
+        return grads + (None,) * 13
 
 
 def gat_forward_local(
@@ -563,11 +579,9 @@ def gat_forward_local(
     backward re-runs each layer's exchanges (on ranks, its collectives,
     in the same order on every rank).  ``mesh`` (a ``RankGroup``): one
     process per part, ``h`` the rank's ``(1, B, f)`` rows and ``pa`` its
-    slice's tensors, symmetric plans only; the same bits as the stacked
-    forward's row for that part."""
-    if mesh is not None and not symmetric:
-        raise ValueError("the rank path runs the GAT on a symmetric plan "
-                         "(ROADMAP A2c)")
+    slice's tensors, on either pattern (an asymmetric one on the a2a,
+    its backward's reverse exchange an ``all_to_all_single``); the same
+    bits as the stacked forward's row for that part."""
     if not symmetric and comm_schedule != "a2a":
         raise ValueError(
             "comm_schedule='ragged' uses the symmetric custom backward (the "
@@ -604,7 +618,7 @@ def gat_forward_local(
                                   cgs, mesh)
         else:
             h = GatLayerGen.apply(*plan_args, transposed, None,
-                                  compute_dtype, cgs)
+                                  compute_dtype, cgs, mesh)
         return fact(h) if last else act(h)
 
     # a recompute would append its stabilizer again: no remat with cgs

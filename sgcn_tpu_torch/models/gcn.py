@@ -3,7 +3,8 @@ losses.
 
 Port of the tile-kernel branches of ``sgcn_tpu/models/gcn.py``
 (``gcn_forward_local``, over the dense a2a exchange or the ragged ring,
-and on an asymmetric Â the ``pspmm_overlap`` branch, a2a only), of
+and on an asymmetric Â the ``pspmm_overlap`` branch, a2a only, stacked
+or one process per part), of
 ``gcn_forward_local_stale`` (the pipelined trainer's forward, with its
 replica × stale branch, both transports) and of
 ``gcn_forward_local_replica`` (hot-halo replicas, both transports, and
@@ -31,8 +32,9 @@ from torch.utils.checkpoint import checkpoint
 
 from ..ops.pspmm import exchange_recv, narrow_dtype, ring_concat, settle
 from ..ops.row_shuffle import row_pack
-from ..ops.tile_spmm import (pspmm_tiles_gen, pspmm_tiles_ragged,
-                              pspmm_tiles_ranks, pspmm_tiles_replica,
+from ..ops.tile_spmm import (pspmm_tiles_gen, pspmm_tiles_gen_ranks,
+                              pspmm_tiles_ragged, pspmm_tiles_ranks,
+                              pspmm_tiles_replica,
                               pspmm_tiles_stale, pspmm_tiles_stale_ragged,
                               pspmm_tiles_sym)
 from .activations import get_activation
@@ -135,9 +137,11 @@ def gcn_forward_local(
     exchange overlapped with the local pass; under ``compute_dtype`` K1's
     bf16 family entry in two launches, then one float32 add and one
     rounding to bf16: the fused bf16 entry's arithmetic), the same bits
-    as the stacked forward's row for that part.  Under ``remat`` the
-    checkpoint re-runs each layer's collectives in the backward, in the
-    same order on every rank."""
+    as the stacked forward's row for that part; on an asymmetric plan
+    (a2a) ``pspmm_tiles_gen_ranks``, whose backward sends the halo rows'
+    partials back to their owners with the reverse ``all_to_all_single``.
+    Under ``remat`` the checkpoint re-runs each layer's collectives in the
+    backward, in the same order on every rank."""
     act = get_activation(activation)
     fact = get_activation(final_activation)
     nl = len(params)
@@ -146,10 +150,18 @@ def gcn_forward_local(
         params = [w.to(dt) for w in params]
         h = h.to(dt)
 
-    if mesh is not None:
-        if not symmetric:
-            raise ValueError("the rank path runs the GCN on a symmetric "
-                             "plan (ROADMAP A2c)")
+    if not symmetric and comm_schedule != "a2a":
+        raise ValueError(
+            "comm_schedule='ragged' uses the symmetric custom backward "
+            "(the gradient rides the same ring); asymmetric plans run "
+            "the a2a schedule")
+    tclasses = (pallas_tlclasses, pallas_thclasses, pallas_t1classes)
+    if mesh is not None and not symmetric:
+        def agg(x):
+            return pspmm_tiles_gen_ranks(x, pa, pallas_tb, pallas_lclasses,
+                                         pallas_hclasses, tclasses, mesh,
+                                         halo_dtype)
+    elif mesh is not None:
         if comm_schedule == "ragged" and rr_sizes is None:
             raise ValueError("the ragged GCN forward needs the plan's "
                              "static rr_sizes (CommPlan.ensure_ragged)")
@@ -159,13 +171,6 @@ def gcn_forward_local(
                 x, pa, pallas_tb, pallas_lclasses, pallas_hclasses, mesh,
                 rr_sizes if comm_schedule == "ragged" else None, halo_dtype)
     elif not symmetric:
-        if comm_schedule != "a2a":
-            raise ValueError(
-                "comm_schedule='ragged' uses the symmetric custom backward "
-                "(the gradient rides the same ring); asymmetric plans run "
-                "the a2a schedule")
-        tclasses = (pallas_tlclasses, pallas_thclasses, pallas_t1classes)
-
         def agg(x):
             return pspmm_tiles_gen(x, pa, pallas_tb, pallas_lclasses,
                                    pallas_hclasses, tclasses, halo_dtype)

@@ -208,7 +208,11 @@ def memory_model(plan, fin: int, widths, *, workload: str = "train",
     carries (the stacked layout's one tensor is both), and to the scratch
     a replica step's shrunken receive buffer and the partial refresh's
     side-channel buffers (the forward's ``(k·RS', f)``, the gradient's
-    ``(k·RS', f + 1)``, each sent and received)."""
+    ``(k·RS', f + 1)``, each sent and received), and on an asymmetric
+    plan the backward's reverse exchange: the halo-ᵀ launch's float32
+    output (the send buffer is its first ``k·S`` rows, narrowed to the
+    wire's dtype in a copy of its own when the wire is narrower) and the
+    ``(k·S, f)`` receive buffer in the wire's dtype."""
     widths = [int(w) for w in widths]
     fin = int(fin)
     if setup is None:
@@ -284,6 +288,19 @@ def memory_model(plan, fin: int, widths, *, workload: str = "train",
                 carry += sum(k * plan.rep_base_rows * f * 4 for f in fs)
             families["replica_carries"] = carry
 
+    if train and ranks and not plan.symmetric:
+        # the reverse exchange of the directed backward: the halo-ᵀ
+        # output, the narrowed send copy (a narrower wire only) and the
+        # receive buffer, at the widest lane width
+        fwd = setup.fwd_static
+        th = fwd["pallas_tchclasses" if model == "gat"
+                 else "pallas_thclasses"]
+        out_rows = int(sum(t for t, *_ in th)) * int(fwd["pallas_tb"])
+        slots = k * int(plan.s)
+        narrow = 1 if wire_isize < 4 else 0
+        families["wire_buffers"] += (out_rows * 4 + (1 + narrow) * slots
+                                     * wire_isize) * fmax
+
     if train and ranks and replica_budget and model == "gcn":
         # a replica step's shrunken receive buffer, and the partial
         # refresh's side channels (sent and received, both directions)
@@ -325,7 +342,8 @@ def memory_model(plan, fin: int, widths, *, workload: str = "train",
 def minibatch_memory_model(plans, fin: int, widths, *, setup,
                            model: str = "gcn",
                            compute_dtype: str | None = None,
-                           remat: bool = False) -> MemoryModel:
+                           remat: bool = False,
+                           ranks: bool = False) -> MemoryModel:
     """The mini-batch trainer's footprint (``train/minibatch.py``): one
     step's families on the plan every batch plan is padded to
     (``plans[0]``: the same receive layout, halo and row counts), with
@@ -333,9 +351,13 @@ def minibatch_memory_model(plans, fin: int, widths, *, setup,
     of one plan's arrays and one ``TrainData``: every batch plan's arrays
     and tiles (shipped once) and every batch's features, labels and
     masks.  ``setup`` is resolved on ``plans[0]``, and every plan's tile
-    layouts are built (``choose_tile_dispatch``) before this is called."""
+    layouts are built (``choose_tile_dispatch``) before this is called.
+    One part's batch set (a rank of a rank group, ``ranks``, or the
+    shard proxy): ``plans`` are that part's slices of the batch plans,
+    each priced as the part's device holds it."""
     mm = memory_model(plans[0], fin, widths, workload="train", model=model,
-                      compute_dtype=compute_dtype, remat=remat, setup=setup)
+                      compute_dtype=compute_dtype, remat=remat, setup=setup,
+                      ranks=ranks)
     shipped = [shipped_bytes(setup, p) for p in plans]
     mm.families["plan_arrays"] = sum(pb for pb, _ in shipped)
     mm.families["pallas_tiles"] = sum(tb for _, tb in shipped)

@@ -30,7 +30,9 @@ An asymmetric Â (a directed graph) sends each aggregation's backward the
 other way: every part's halo rows' partial gradients, laid out in its
 forward receive layout, go back to their owners — ``reverse_exchange``,
 one row pack by the plan's ``rev_src`` (the transpose of ``recv_src``);
-under NCCL ranks it is the reverse ``all_to_all_single`` of the forward's.
+with one process per part it is the reverse ``all_to_all_single`` of the
+forward's (``rank_reverse_exchange``: the halo-ᵀ output's first ``k·S``
+rows are already the send buffer in peer order, so no pack runs).
 
 ``stale_exchange`` and ``stale_ring_exchange`` issue the stale mode's
 exchange into a carry that stays in the receive layout (the halo-delta
@@ -233,6 +235,35 @@ def rank_exchange(h, send_flat, mesh, halo_dtype=None, rr_sizes=None):
         for w in works:
             w.wait()
     return recv, wait
+
+
+def rank_reverse_exchange(send_rev, slots: int, mesh, halo_dtype=None,
+                          dtype=None):
+    """Issue one rank's reverse exchange of an asymmetric Â's backward
+    without waiting on it (the rank form of ``reverse_exchange``; ROADMAP
+    A2c): the first ``slots = k·S`` rows of ``send_rev`` — the halo-ᵀ
+    launch's ``(1, rows, f)`` float32 output, slot ``q·S + t`` the
+    partial for row ``send_idx[q, c, t]`` of part ``q`` — narrowed to the
+    wire's dtype (the stacked pack's rounding point: one rounding of each
+    float32 partial), then one asynchronous ``all_to_all_single`` with
+    equal splits of ``S``, so slot ``q·S + t`` of the received buffer
+    holds part ``q``'s partial for this rank's row ``send_idx[c, q, t]``:
+    the stacked ``rwire``'s row ``c``.  The stacked ``rev_src`` gather is
+    the collective itself, so no row pack runs.  On a one-rank group the
+    collective delivers the buffer to itself, the loopback of the
+    slice's ``rev_src`` (``parallel/proxy.py``).  Returns ``(rwire,
+    wait)`` as ``rank_exchange`` does; ``halo_dtype`` and ``dtype`` as in
+    ``reverse_exchange``."""
+    wire = narrow_dtype(halo_dtype) or dtype or send_rev.dtype
+    send = send_rev[:, :slots]
+    if send.dtype != wire or not send.is_contiguous():
+        send = send.to(wire, memory_format=torch.contiguous_format)
+    rwire, works = _rank_issue(send, mesh)
+
+    def wait():
+        for w in works:
+            w.wait()
+    return rwire, wait
 
 
 def _rank_issue(pack, mesh, rr_sizes=None):

@@ -73,7 +73,12 @@ holds, in the reference's order:
     previous step's carry (``PspmmTilesStaleRanks``); a replica step
     issues the shrunken exchange, runs the local family, waits, packs the
     received rows into the carry (``row_pack_into``) and runs the halo
-    family over it (``PspmmTilesReplicaRanks``);
+    family over it (``PspmmTilesReplicaRanks``).  An asymmetric Â on a
+    rank is ``pspmm_tiles_gen_ranks`` (``PspmmTilesGenRanks``): the same
+    forward, and a backward of three K1 family launches — the halo-ᵀ
+    family into the reverse send buffer, the reverse ``all_to_all_single``
+    issued, the local-ᵀ family while it is in flight, then the weight-1
+    owner sum over what came back (``transposed_ranks``);
   * ``gat_tiles_pass`` — ``gat_pallas_pass`` (K5): the GAT attention pass,
     the kernel over the combined-edge tiles with int8 0/1 mask weights.
     An int8 ``tw`` launches the kernel's int8 entry point, counted in
@@ -111,7 +116,8 @@ from ..utils.backend import plain_region
 from .pspmm import (InFlight, chain, exchange_recv, partial_refresh,
                     partial_refresh_grad, rank_exchange,
                     rank_partial_refresh, rank_partial_refresh_grad,
-                    rank_replica_exchange, rank_stale_exchange, replica_pack,
+                    rank_replica_exchange, rank_reverse_exchange,
+                    rank_stale_exchange, replica_pack,
                     reverse_exchange, ring_concat, settle, stale_exchange,
                     stale_ring_exchange)
 
@@ -644,6 +650,11 @@ spmm_tiles_fused.wire_bf16_launches = 0  # float32 h, bf16 wire
 spmm_tiles_fused.bf16_launches = 0       # bf16 h and remote table
 
 
+def k1_launches() -> int:
+    """Float32-weight family launches (K1) on either table dtype."""
+    return spmm_tiles.launches + spmm_tiles.bf16_launches
+
+
 def fused_launches() -> int:
     """Fused-entry launches on any dtype pair: one per GCN aggregation."""
     return (spmm_tiles_fused.launches + spmm_tiles_fused.wire_bf16_launches
@@ -950,6 +961,86 @@ def pspmm_tiles_ranks(h, pa, tb: int, lclasses, hclasses, mesh,
         h, send, pa["ptile_lsrc"], pa["ptile_lld"], pa["ptile_lw"], hsrc,
         pa["ptile_hld"], pa["ptile_hw"], tb, lclasses, hclasses, mesh,
         rr_sizes, halo_dtype)
+
+
+def transposed_ranks(g, tl, th, t1, slots, tb, tlclasses, thclasses,
+                     t1classes, mesh, halo_dtype=None):
+    """``pspmm_tiles_transposed`` on one rank of a rank group (ROADMAP
+    A2c): Âᵀ·g of the rank's part, its reverse exchange overlapped with
+    the local-ᵀ pass.  One K1 family launch of the halo rows' Âᵀ over
+    ``g`` (``th``; K5 on GAT's int8 masks) writes the reverse send
+    buffer; the reverse ``all_to_all_single`` of its first ``slots =
+    k·S`` rows is issued (``ops/pspmm.py::rank_reverse_exchange``,
+    narrowed to ``halo_dtype`` — or to ``g``'s bf16 — at the stacked
+    pack's rounding point); while it is in flight the local-ᵀ family over
+    ``g`` (``tl``) runs into a float32 partial; then the wait, the
+    weight-1 family over what came back (``t1``, in q order) and one
+    float32 add rounded to ``g``'s dtype: the stacked fused launch's
+    arithmetic split in two launches (``_split_on``), so the same bits
+    as ``pspmm_tiles_transposed``'s row for this part."""
+    send_rev = spmm_tiles_classes(*th, g, thclasses, tb)
+    rwire, wait = rank_reverse_exchange(send_rev, slots, mesh, halo_dtype,
+                                        g.dtype)
+
+    def arrived():
+        wait()
+        return rwire
+    return _split_on(g, arrived, (*tl, *t1, tb, tlclasses, t1classes))
+
+
+class PspmmTilesGenRanks(torch.autograd.Function):
+    """``PspmmTilesGen`` on one rank of a rank group (ROADMAP A2c): the
+    forward is ``_pspmm_ranks_once`` (the send pack and the collective,
+    the local family in flight, the wait, the halo family, one add — the
+    forward of an asymmetric Â is the symmetric one's), the backward
+    ``transposed_ranks`` on the slice's transposed layouts: three K1
+    family launches and one reverse ``all_to_all_single`` an
+    aggregation, no pack and no fused launch.
+    ``PspmmTilesGenRanks.backward_launches`` counts the family launches
+    the backward made (CUDA tensors only; the plain versions on the CPU
+    launch nothing).  ``halo_dtype`` narrows both directions' wire.  Plan
+    tensors get no gradient."""
+
+    backward_launches = 0
+
+    @staticmethod
+    def forward(ctx, h, send_flat, lsrc, lld, lw, hsrc, hld, hw, tb,
+                lclasses, hclasses, transposed, mesh, halo_dtype=None):
+        ctx.transposed = transposed
+        ctx.static = (tb, mesh, halo_dtype)
+        return _pspmm_ranks_once(h, send_flat, lsrc, lld, lw, hsrc, hld, hw,
+                                 tb, lclasses, hclasses, mesh, None,
+                                 halo_dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        tb, mesh, halo_dtype = ctx.static
+        tl, th, t1, slots, *classes = ctx.transposed
+        before = k1_launches()
+        gh = transposed_ranks(g.contiguous(), tl, th, t1, slots, tb,
+                              *classes, mesh, halo_dtype)
+        PspmmTilesGenRanks.backward_launches += k1_launches() - before
+        return (gh,) + (None,) * 13
+
+
+def pspmm_tiles_gen_ranks(h, pa, tb: int, lclasses, hclasses, tclasses,
+                          mesh, halo_dtype=None):
+    """Â·h on one rank of a rank group for an asymmetric Â
+    (``PspmmTilesGenRanks``): ``pa`` the rank's slice tensors
+    (``TILE_PLAN_FIELDS_GEN``; the slice's ``rev_src`` is read for its
+    length ``k·S`` only), ``tclasses`` the transposed families' classes
+    ``(tl, th, t1)``, ``h`` ``(1, B, f)`` float32 or bfloat16.  Returns
+    ``(1, B, f)`` in ``h``'s dtype; differentiable in ``h`` (Âᵀ on the
+    gradient, its reverse exchange a collective)."""
+    transposed = (
+        tuple(pa[f"ptile_tl{x}"] for x in ("src", "ld", "w")),
+        tuple(pa[f"ptile_th{x}"] for x in ("src", "ld", "w")),
+        tuple(pa[f"ptile_t1{x}"] for x in ("src", "ld", "w")),
+        int(pa["rev_src"].shape[-1]), *tclasses)
+    return PspmmTilesGenRanks.apply(
+        h, pa["recv_src"], pa["ptile_lsrc"], pa["ptile_lld"], pa["ptile_lw"],
+        pa["ptile_hwsrc"], pa["ptile_hld"], pa["ptile_hw"], tb, lclasses,
+        hclasses, transposed, mesh, halo_dtype)
 
 
 def _pspmm_tiles_ragged_once(h, ring_src, lsrc, lld, lw, rsrc, rld, rw,

@@ -47,17 +47,18 @@ before any tensor ships.  Launched by ``torchrun`` or under SLURM
 (``launch/gpu.slurm``), the CLI opens a rank group first
 (``parallel/launch.py::init_distributed``; one process is the stacked
 layout): a world of ``-s K`` processes trains one part per rank (GCN and
-GAT, ``--dtype``, ``--halo-dtype``, both transports, and the GCN's
-carried modes: ``--halo-staleness 1``, ``--halo-delta``,
-``--sync-every``, ``--replica-budget B|auto``, ``--refresh-band`` and
-``--comm-schedule auto``'s controller), rank 0 alone prints, records
-``--metrics-out`` and saves, every rank restores, and every rank appends
-its rendezvous and ``train:start|done`` heartbeats to
-``--metrics-out``'s ``heartbeat.jsonl``; another world size, ``-n``,
-``--experiment accuracy`` or a directed graph on ranks exit with the
-reason, and so do ``--checkpoint-dir``, ``--save-checkpoint`` and
-``--resume`` in a carried mode (the reference's deferral: the carry is
-sharded over the ranks).  Prints ONE JSON line: the
+GAT, ``--dtype``, ``--halo-dtype``, both transports, the GCN's carried
+modes: ``--halo-staleness 1``, ``--halo-delta``, ``--sync-every``,
+``--replica-budget B|auto``, ``--refresh-band`` and ``--comm-schedule
+auto``'s controller, a directed graph on the a2a, the mini-batch trainer
+``-n BATCH`` with its durable path, and ``--experiment accuracy``), rank
+0 alone prints, records ``--metrics-out`` and saves, every rank
+restores, and every rank appends its rendezvous and ``train:start|done``
+heartbeats to ``--metrics-out``'s ``heartbeat.jsonl``; another world
+size exits with the reason, and so do ``--checkpoint-dir``,
+``--save-checkpoint`` and ``--resume`` in a carried mode (the
+reference's deferral: the carry is sharded over the ranks).  Prints ONE
+JSON line: the
 comm report and epoch timing under the reference's keys (in the stale
 mode with its hidden/exposed split, the stale flags and the controller's
 log; in the replica mode its replica figures and flags) (with
@@ -108,12 +109,13 @@ def _resume_auto(mgr, target, recorder):
 
 
 def _fit_minibatch_durable(tr, feats, labels, args, mgr, recorder,
-                           start_ep: int = 0) -> dict:
+                           start_ep: int = 0, verbose: bool = True) -> dict:
     """The mini-batch trainer's durable path: ``fit`` in chunks of
     ``--checkpoint-every`` EPOCHS (its checkpoint grain: the batch plans
     have no stable step identity), saving the inner trainer's state after
     each chunk.  ``--warmup`` runs only on a fresh start (warm-up steps
-    are real optimizer steps a resumed run must not repeat)."""
+    are real optimizer steps a resumed run must not repeat).  ``mgr=None``:
+    a rank other than 0 runs the same chunks and saves nothing."""
     from ..resilience.runner import save_and_record
 
     every = args.checkpoint_every
@@ -125,11 +127,12 @@ def _fit_minibatch_durable(tr, feats, labels, args, mgr, recorder,
         run = total - done
         if every:
             run = min(run, every - done % every)
-        report = tr.fit(feats, labels, epochs=run, warmup=warm)
+        report = tr.fit(feats, labels, epochs=run, warmup=warm,
+                        verbose=verbose)
         warm = 0
         history += report.get("loss_history", [])
         done += run
-        if every and done % every == 0:
+        if every and done % every == 0 and mgr is not None:
             save_and_record(mgr, tr.inner, done, recorder=recorder)
     if report is None:
         # resumed at (or past) the full schedule: nothing left to train
@@ -139,11 +142,13 @@ def _fit_minibatch_durable(tr, feats, labels, args, mgr, recorder,
 
 
 def _run_minibatch(args, a, feats, labels, pv, k, f, widths, activation,
-                   device, recorder) -> dict:
+                   device, recorder, mesh=None) -> dict:
     """``-n BATCH``: the mini-batch trainer, with the durable path under
     ``--checkpoint-dir`` (checkpoints count EPOCHS), ``--resume`` and
-    ``--save-checkpoint`` as the reference CLI runs them.  Returns the
-    report."""
+    ``--save-checkpoint`` as the reference CLI runs them.  ``mesh``: one
+    part per rank; every rank restores, rank 0 alone prints its epoch
+    lines and saves (the weights and Adam state are the same on every
+    rank).  Returns the report."""
     from ..obs.memory import MemoryBudgetError
     from .minibatch import MiniBatchTrainer
 
@@ -155,12 +160,14 @@ def _run_minibatch(args, a, feats, labels, pv, k, f, widths, activation,
                               compute_dtype=args.dtype,
                               comm_schedule=args.comm_schedule,
                               memory_budget=args.memory_budget,
-                              device=device)
+                              device=device, mesh=mesh)
     except MemoryBudgetError as e:
         raise SystemExit(str(e)) from e
+    lead = mesh is None or mesh.rank == 0
     if recorder is not None:
         recorder.set_partitioner({"partvec": args.partvec, "k": k})
-        recorder.set_backend(device, parts=k)
+        recorder.set_backend(device, parts=k,
+                             processes=1 if mesh is None else mesh.size)
         tr.attach_recorder(recorder)
     mgr = None
     if args.checkpoint_dir:
@@ -177,14 +184,14 @@ def _run_minibatch(args, a, feats, labels, pv, k, f, widths, activation,
         start = load_checkpoint(state, args.resume)
     if mgr is not None:
         report = _fit_minibatch_durable(
-            tr, feats, labels, args, mgr, recorder,
-            start_ep=start if args.resume == "auto" else 0)
+            tr, feats, labels, args, mgr if lead else None, recorder,
+            start_ep=start if args.resume == "auto" else 0, verbose=lead)
     else:
         report = tr.fit(feats, labels, epochs=args.epochs,
-                        warmup=args.warmup)
+                        warmup=args.warmup, verbose=lead)
     if resumed is not None:
         report["resumed"] = resumed
-    if args.save_checkpoint:
+    if args.save_checkpoint and lead:
         # the durable path stamps at EPOCH grain everywhere, so the final
         # stamp agrees with its files whether or not this run resumed;
         # otherwise warm-up steps count, chained resumes add up
@@ -548,12 +555,10 @@ def _launched_run(args, device, activation):
 
 def _rank_group(args, ctx):
     """The run's ``RankGroup`` (one process per part) or ``None`` (one
-    process: the stacked layout); exits for another world size, for the
-    modes that never reach the rank trainer (ROADMAP A2c): the mini-batch
-    trainer and the accuracy harness, and for a carried mode's
-    checkpoint (the reference's deferral), before any step.  The
-    trainer's own guard (``check_rank_levers``, turned into an exit by
-    ``_train``) covers directed plans."""
+    process: the stacked layout); exits for another world size and for a
+    carried mode's checkpoint (the reference's deferral), before any
+    step.  The trainers' own gates (turned into exits by ``_train``)
+    cover the rest, as on one process."""
     import torch.distributed as dist
 
     from ..parallel.launch import global_mesh_1d
@@ -571,14 +576,6 @@ def _rank_group(args, ctx):
         mesh = global_mesh_1d(args.nparts, ctx)
     except ValueError as e:
         leave(str(e))
-    for bad, what in ((args.batch_size is not None, "-n/--batch-size"),
-                      (args.experiment == "accuracy",
-                       "--experiment accuracy")):
-        if bad:
-            leave(f"{what} does not run on {ctx.num_processes} ranks yet "
-                  "(ROADMAP A2c): the rank path trains the exact full-batch "
-                  "GCN and GAT on a symmetric adjacency; launch one process "
-                  "for the stacked layout")
     carried = args.halo_staleness or args.replica_budget
     if carried and (args.checkpoint_dir or args.save_checkpoint
                     or args.resume):
@@ -609,7 +606,7 @@ def _train(args, device, activation, recorder, inputs, mesh=None) -> dict:
             report = run_accuracy_parity(
                 a, feats, labels, pv, k, widths, train_mask, test_mask,
                 epochs=args.epochs, batch_size=args.batch_size, lr=args.lr,
-                seed=args.seed, device=device)
+                seed=args.seed, device=device, mesh=mesh)
         report["experiment"] = "accuracy"
         report["device"] = args.device
         if recorder is not None:
@@ -623,7 +620,8 @@ def _train(args, device, activation, recorder, inputs, mesh=None) -> dict:
     if args.batch_size is not None:
         with profile_to(args.profile, device):
             report = _run_minibatch(args, a, feats, labels, pv, k, f,
-                                    widths, activation, device, recorder)
+                                    widths, activation, device, recorder,
+                                    mesh)
         if recorder is not None and args.profile:
             recorder.set_profile(args.profile)
         report.update(device=args.device, model=args.model,
@@ -654,8 +652,8 @@ def _train(args, device, activation, recorder, inputs, mesh=None) -> dict:
     except ValueError as e:
         if mesh is None:
             raise
-        # a mode the rank path does not run yet (ROADMAP A2c: a directed
-        # plan), or a carried mode's own gate
+        # a gate of the reference's (a carried mode on a directed plan,
+        # the ring on one): every rank exits alike
         raise SystemExit(str(e)) from e
     if mesh is not None and args.metrics_out:
         # rank 0's step events read the gauges, a collective of every rank

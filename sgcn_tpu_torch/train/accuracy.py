@@ -5,7 +5,10 @@ Trains (a) the single-device dense oracle, (b) the partitioned
 full-batch trainer and, with ``batch_size``, (c) the partitioned
 mini-batch trainer, all from the same init seed on the same split, and
 reports the test accuracy of each (the mini-batch one evaluated on the
-whole graph).
+whole graph).  On a rank group (``mesh``; ROADMAP A2c) the partitioned
+trainers run one part per process and the dense oracle runs on every
+rank, on its own device, as the reference's harness does on each
+process; every rank returns the same report.
 """
 
 from __future__ import annotations
@@ -15,7 +18,8 @@ import scipy.sparse as sp
 
 from ..baselines.oracle import DenseOracle
 from ..parallel.plan import build_comm_plan
-from .fullbatch import FullBatchTrainer, make_train_data
+from .fullbatch import (FullBatchTrainer, make_train_data,
+                        make_train_data_multihost)
 from .minibatch import MiniBatchTrainer
 
 
@@ -48,11 +52,15 @@ def run_accuracy_parity(
     seed: int = 0,
     device=None,
     verbose: bool = False,
+    mesh=None,
 ) -> dict:
     """Train the oracle and the partitioned trainer(s) on the same split;
     report ``oracle_test_acc``, ``fullbatch_test_acc`` and, with
     ``batch_size``, ``minibatch_test_acc``.  ``device`` as in
-    ``FullBatchTrainer`` (``None`` = ``cuda``)."""
+    ``FullBatchTrainer`` (``None`` = ``cuda``; the group's with
+    ``mesh``); ``mesh`` a ``RankGroup`` of ``k`` ranks."""
+    if mesh is not None and device is None:
+        device = mesh.device
     fin = features.shape[1]
     results: dict = {}
 
@@ -64,9 +72,12 @@ def run_accuracy_parity(
         ((pred == labels) * test_mask).sum() / test_mask.sum())
 
     plan = build_comm_plan(a, partvec, k)
-    tr = FullBatchTrainer(plan, fin, widths, lr=lr, seed=seed, device=device)
-    data = make_train_data(plan, features, labels, train_mask, test_mask,
-                           device=tr.device)
+    tr = FullBatchTrainer(plan, fin, widths, lr=lr, seed=seed, device=device,
+                          mesh=mesh)
+    data = (make_train_data(plan, features, labels, train_mask, test_mask,
+                            device=tr.device) if mesh is None else
+            make_train_data_multihost(plan, mesh, features, labels,
+                                      train_mask, test_mask))
     for _ in range(epochs):
         tr.step(data)
     _, acc = tr.evaluate(data)
@@ -75,7 +86,7 @@ def run_accuracy_parity(
     if batch_size is not None:
         mb = MiniBatchTrainer(a, partvec, k, fin, widths,
                               batch_size=batch_size, lr=lr, seed=seed,
-                              device=device)
+                              device=device, mesh=mesh)
         mb.fit(features, labels, train_mask, epochs=epochs, verbose=verbose)
         _, acc = mb.evaluate_fullgraph(features, labels, test_mask)
         results["minibatch_test_acc"] = float(acc)

@@ -325,11 +325,23 @@ def make_train_data_multihost(plan, mesh, features: np.ndarray,
     group's device — each MPI rank reading its own
     ``H.r`` shard (``Parallel-GCN/main.c:456-504``).  ``plan`` is the full
     k-way plan; the rank's part is ``mesh.rank``."""
+    return make_part_data(plan, mesh.rank, features, labels, train_mask,
+                          eval_mask, device=mesh.device)
+
+
+def make_part_data(plan, part: int, features: np.ndarray,
+                   labels: np.ndarray, train_mask: np.ndarray | None = None,
+                   eval_mask: np.ndarray | None = None,
+                   device="cpu") -> TrainData:
+    """Part ``part``'s ``TrainData`` under the FULL k-way ``plan``: its
+    own rows of the global features, labels and masks as ``(1, B, ...)``
+    blocks on ``device`` (``make_train_data``'s row ``part``)."""
     if plan.chip_ids is not None:
-        raise ValueError("make_train_data_multihost takes the full k-way "
-                         "plan; a slice's data is shard_proxy_data(full "
-                         "plan, chip, ...)")
-    chips = [mesh.rank]
+        raise ValueError("a part's data is cut from the full k-way plan "
+                         "(make_train_data_multihost, make_part_data); a "
+                         "slice's data is shard_proxy_data(full plan, "
+                         "chip, ...)")
+    chips = [part]
     n = plan.n
     if train_mask is None:
         train_mask = np.ones(n, dtype=np.float32)
@@ -340,13 +352,13 @@ def make_train_data_multihost(plan, mesh, features: np.ndarray,
         return plan.scatter_rows(np.asarray(x, dt).reshape(n, -1),
                                  chips=chips)
 
-    rv = plan.row_valid[mesh.rank: mesh.rank + 1]
+    rv = plan.row_valid[part: part + 1]
     blocks = (scatter(features, np.float32),
               scatter(labels, np.int64)[..., 0],
               scatter(train_mask, np.float32)[..., 0] * rv,
               scatter(eval_mask, np.float32)[..., 0] * rv)
-    return TrainData(*(torch.as_tensor(np.ascontiguousarray(x)).to(
-        mesh.device) for x in blocks))
+    return TrainData(*(torch.as_tensor(np.ascontiguousarray(x)).to(device)
+                       for x in blocks))
 
 
 def check_carry_levers(model: str, symmetric: bool, halo_staleness: int,
@@ -443,20 +455,15 @@ CARRY_CHECKPOINT_DEFERRAL = (
 
 
 def check_rank_levers(plan, mesh) -> None:
-    """The rank path's scope (ROADMAP A2b, A2c): GCN or GAT on a
-    symmetric plan, float32 or ``compute_dtype``, with or without
-    ``remat`` (``halo_dtype`` allowed for GCN), both transports, and for
-    GCN the carried modes (``halo_staleness``, ``halo_delta``,
-    ``sync_every``, ``replica_budget``, ``refresh_band``, under the
-    reference's own gates); a ``k``-rank group on the full k-way plan, or
-    one rank on a slice.  An asymmetric plan raises a ``ValueError``
-    naming ROADMAP A2c."""
-    if not plan.symmetric:
-        raise ValueError(
-            "an asymmetric plan (a directed graph) does not run on a rank "
-            "group yet (ROADMAP A2c): the rank path trains GCN and GAT on "
-            "a symmetric plan; train it stacked or on a shard_proxy_plan "
-            "slice")
+    """The rank path's scope (ROADMAP A2b, A2c): a ``k``-rank group on
+    the full k-way plan, or one rank on a slice; else a ``ValueError``.
+    Every lever of the stacked trainer runs on it — GCN or GAT, float32
+    or ``compute_dtype``, with or without ``remat`` (``halo_dtype`` for
+    GCN), both transports on a symmetric plan and the a2a on an
+    asymmetric one, and for GCN the carried modes — under the
+    reference's own gates (``check_carry_levers``, the ring's refusal of
+    an asymmetric plan), which the trainer applies as the stacked one
+    does."""
     want = 1 if plan.chip_ids is not None else plan.k
     if mesh.size != want:
         raise ValueError(
@@ -566,9 +573,12 @@ class FullBatchTrainer:
         drift gauges and the partial refresh's counts are all-reduced,
         and the controller's ``sync_every`` is rank 0's, broadcast.  A
         carried mode's checkpoint on more than one rank raises the
-        reference's deferral; an asymmetric plan raises (ROADMAP A2c).
-        ``device`` defaults to the group's; data comes from
-        ``make_train_data_multihost``."""
+        reference's deferral.  An asymmetric plan (a directed graph,
+        a2a) runs each backward's reverse exchange as the reverse
+        ``all_to_all_single`` of the forward's
+        (``ops/tile_spmm.py::pspmm_tiles_gen_ranks``,
+        ``models/gat.py::GatLayerGen``).  ``device`` defaults to the
+        group's; data comes from ``make_train_data_multihost``."""
         if mesh is not None:
             check_rank_levers(plan, mesh)
         if halo_dtype is not None and model != "gcn":
@@ -666,7 +676,11 @@ class FullBatchTrainer:
                                              self.compute_dtype),
             wire_itemsize=2 if gcn and (narrowed or halo_delta) else 4,
             wire_itemsize_bwd=2 if gcn and narrowed else 4)
-        self.stats = CommStats.from_plan(plan, **self._stats_args)
+        # a slice of an asymmetric plan receives other rows than it
+        # sends: its receive counters come from its own halo layout
+        self.stats = (CommStats.from_slice if plan.chip_ids is not None
+                      and not plan.symmetric else CommStats.from_plan)(
+                          plan, **self._stats_args)
         if self.replica_budget:
             self.stats.set_replica(plan)
         self.timer = PhaseTimer()

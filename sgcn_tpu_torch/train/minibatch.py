@@ -20,6 +20,21 @@ port's kernels on every batch: the row pack and the fused tile launch
 (``PspmmTilesSym`` on a2a, ``PspmmTilesRagged`` on the ring) for GCN,
 the int8-mask pass (K5) for GAT.
 
+One process per part (``mesh``, a ``parallel/mesh.py::RankGroup`` of
+``k`` ranks; ROADMAP A2c): every rank draws the same batches, builds
+every padded batch plan and its tile layouts (so every rank launches the
+same tile classes on the same shapes), then keeps its part's slice of
+each (``parallel/proxy.py::shard_proxy_plan``) and its part's rows of
+each batch — the reference's ``shard_stacked`` of each batch plan on a
+multi-process mesh.  A batch that misses a part leaves that rank a slice
+with no real row, which still takes part in every collective.  The inner
+trainer is the rank trainer (``FullBatchTrainer(mesh=...)``): its loss
+and weight gradients are all-reduced each step.  ``part`` trains one
+part's slices alone: on a one-rank group (its collectives loop back) or
+stacked without one — the shard proxy of the batch set.  The comm
+counters stay the full batch plans' on every rank, so each rank reports
+the whole job's figures.
+
 ``memory_budget`` holds the footprint of what the trainer keeps on the
 device (``obs/memory.py::minibatch_memory_model``: every batch plan's
 arrays and tiles and every batch's data, beside one step's scratch) to a
@@ -45,9 +60,10 @@ from ..ops.pspmm import narrow_dtype
 from ..ops.tile_spmm import choose_tile_dispatch
 from ..parallel.plan import (build_comm_plan, pad_comm_plan,
                              resolve_comm_schedule, shared_ell_buckets)
+from ..parallel.proxy import shard_proxy_plan
 from ..utils.stats import CommStats
-from .fullbatch import (FullBatchTrainer, TrainData, make_train_data,
-                        resolve_forward_setup)
+from .fullbatch import (FullBatchTrainer, TrainData, make_part_data,
+                        make_train_data, resolve_forward_setup)
 
 
 def _nbytes(tensors) -> int:
@@ -85,7 +101,7 @@ class Batch:
 
 class MiniBatchTrainer:
     """The reference's mini-batch trainer over the ``k`` parts stacked on
-    one device."""
+    one device, or one part per process (``mesh``)."""
 
     def __init__(
         self,
@@ -109,10 +125,16 @@ class MiniBatchTrainer:
         memory_budget: int | None = None,
         params=None,
         device=None,
+        mesh=None,
+        part: int | None = None,
     ):
         """Arguments keep the reference's names; ``optimizer``, ``params``
         and ``device`` are ``FullBatchTrainer``'s (``None`` device means
-        ``cuda`` and raises without a GPU)."""
+        ``cuda`` and raises without a GPU).  ``mesh``: a ``RankGroup`` of
+        ``k`` ranks (rank r trains part r of every batch plan) or of one
+        rank (it trains ``part``, default 0); ``part`` without ``mesh``
+        trains that part's slices stacked (the shard proxy).  Data comes
+        from the same global arrays on every rank (``make_batches``)."""
         if replica_budget:
             raise ValueError(
                 "replica_budget is a full-batch training lever: the "
@@ -120,6 +142,20 @@ class MiniBatchTrainer:
                 "have no stable identity across batch plans — run the "
                 "full-batch trainer for hot-halo replication")
         t0 = time.perf_counter()
+        self.mesh = mesh
+        if mesh is not None and mesh.size == k:
+            if part not in (None, mesh.rank):
+                raise ValueError(f"part {part} on rank {mesh.rank} of a "
+                                 f"{k}-rank group: rank r trains part r")
+            part = mesh.rank
+        elif mesh is not None and mesh.size != 1:
+            raise ValueError(f"a rank group of {mesh.size} ranks for k={k} "
+                             f"parts: one rank per part, {k} ranks, or one")
+        elif mesh is not None and part is None:
+            part = 0
+        if part is not None and not 0 <= part < k:
+            raise ValueError(f"part {part} out of range for k={k}")
+        self.part = part
         self.a = sp.csr_matrix(a)
         n = self.a.shape[0]
         self.partvec = np.asarray(partvec, dtype=np.int64)
@@ -181,13 +217,18 @@ class MiniBatchTrainer:
         self._statics = [choose_tile_dispatch(p, model=model,
                                               schedule=setup.comm_schedule)
                          for p in self.plans]
+        # one part's slice of every batch plan, its layouts built above on
+        # the full plan (the tile classes stay the full plan's)
+        self.slices = (self.plans if part is None else
+                       [shard_proxy_plan(p, part) for p in self.plans])
         # host seconds of the tile layouts (and of the shipping, added by
         # ``_plan_arrays``)
         self.layout_s = time.perf_counter() - t0
         self.memory = minibatch_memory_model(
-            self.plans, fin, widths, setup=setup, model=model,
+            self.slices, fin, widths, setup=setup, model=model,
             compute_dtype=("bfloat16" if narrow_dtype(
-                compute_dtype, "compute_dtype") is not None else None))
+                compute_dtype, "compute_dtype") is not None else None),
+            ranks=mesh is not None)
         check_memory_budget(self.memory, memory_budget,
                             what=f"{model} mini-batch trainer")
         self.memory_budget = memory_budget
@@ -199,10 +240,11 @@ class MiniBatchTrainer:
         # each batch carries its own tile classes (``fwd_static``) and
         # every batch aggregates on the tile kernels.
         self.inner = FullBatchTrainer(
-            self.plans[0], fin, widths, lr=lr, activation=activation,
-            model=model, loss=loss, optimizer=optimizer, seed=seed,
-            compute_dtype=compute_dtype, comm_schedule=comm_schedule,
-            params=params, device=device)
+            self.plans[0] if self._ranked() else self.slices[0], fin,
+            widths, lr=lr, activation=activation, model=model, loss=loss,
+            optimizer=optimizer, seed=seed, compute_dtype=compute_dtype,
+            comm_schedule=comm_schedule, params=params, device=device,
+            mesh=mesh)
         self._pa0 = self.inner.pa      # plans[0]'s arrays: batch 0's too
         # a padded per-batch plan is no stable run identity: checkpoints
         # through ``inner`` record no plan digest (utils/checkpoint.py)
@@ -214,6 +256,8 @@ class MiniBatchTrainer:
         self._comm_cum = None         # the running cross-batch comm sums
         self._narrowed = ({"compute_dtype": self.inner.compute_dtype}
                           if self.inner.compute_dtype else {})
+        if mesh is not None:
+            self._narrowed["mesh"] = mesh
         self._shipped = None          # per plan (pa, fwd_static), once
         self._data_bytes = None       # the last make_batches' data bytes
         self._fullgraph_eval = None   # built on first use, then cached
@@ -221,6 +265,10 @@ class MiniBatchTrainer:
         self._fused_key = None
         self._fused_stats = None
         self.fused_batch_losses = None
+
+    def _ranked(self) -> bool:
+        """A ``k``-rank group: the inner trainer slices the full plan."""
+        return self.mesh is not None and self.mesh.size == self.k
 
     @property
     def device(self):
@@ -242,7 +290,7 @@ class MiniBatchTrainer:
                 (self._pa0 if i == 0 else setup.ship_arrays(
                     plan, self.device, self.inner.compute_dtype),
                  {**static, **self._narrowed})
-                for i, (plan, static) in enumerate(zip(self.plans,
+                for i, (plan, static) in enumerate(zip(self.slices,
                                                        self._statics))]
             self.layout_s += time.perf_counter() - t0
         return self._shipped
@@ -250,8 +298,9 @@ class MiniBatchTrainer:
     def make_batches(self, features: np.ndarray, labels: np.ndarray,
                      train_mask: np.ndarray | None = None) -> list[Batch]:
         """Scatter the global features and labels into each batch's
-        stacked per-part blocks on the device, beside the batch's plan
-        arrays (shipped on the first call)."""
+        stacked per-part blocks on the device (with ``part``, that part's
+        block alone), beside the batch's plan arrays (shipped on the
+        first call)."""
         st = self.inner.stats
         out = []
         for bv, plan, (pa, static) in zip(self.batches_idx, self.plans,
@@ -259,8 +308,11 @@ class MiniBatchTrainer:
             tm = train_mask[bv] if train_mask is not None else None
             out.append(Batch(
                 vertices=bv, plan=plan, pa=pa, fwd_static=static,
-                data=make_train_data(plan, features[bv], labels[bv], tm,
-                                     device=self.device),
+                data=(make_train_data(plan, features[bv], labels[bv], tm,
+                                      device=self.device)
+                      if self.part is None else
+                      make_part_data(plan, self.part, features[bv],
+                                     labels[bv], tm, device=self.device)),
                 # the inner trainer's wire lanes, so the byte gauges of
                 # every batch compare
                 stats=CommStats.from_plan(
@@ -483,20 +535,27 @@ class MiniBatchTrainer:
         if self._fullgraph_eval is None:
             plan = build_comm_plan(self.a, self.partvec, self.k)
             inner = self.inner
+            own = plan
+            if self.part is not None and not self._ranked():
+                # one part's slice, its layouts built on the full plan
+                resolve_forward_setup(plan, model=inner.setup.model)
+                own = shard_proxy_plan(plan, self.part)
             self._fullgraph_eval = (plan, FullBatchTrainer(
-                plan, features.shape[1], self._widths_from_params(),
+                own, features.shape[1], self._widths_from_params(),
                 activation=inner.activation, model=inner.setup.model,
                 loss=inner.loss_name, compute_dtype=inner.compute_dtype,
-                params=inner.params,
-                device=self.device))
+                params=inner.params, device=self.device, mesh=self.mesh))
         plan, tr = self._fullgraph_eval
         with torch.no_grad():
             for dst, src in zip(tr.model.parameters(),
                                 self.inner.model.parameters()):
                 dst.copy_(src)
-        data = make_train_data(plan, features, labels,
-                               np.ones(self.a.shape[0], np.float32),
-                               eval_mask, device=self.device)
+        every = np.ones(self.a.shape[0], np.float32)
+        data = (make_train_data(plan, features, labels, every, eval_mask,
+                                device=self.device)
+                if self.part is None else
+                make_part_data(plan, self.part, features, labels, every,
+                               eval_mask, device=self.device))
         return tr.evaluate(data)
 
     def _widths_from_params(self) -> list[int]:

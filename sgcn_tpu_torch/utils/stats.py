@@ -32,6 +32,7 @@ its side channel at the rows it really shipped
 
 from __future__ import annotations
 
+import dataclasses
 from dataclasses import dataclass
 
 import numpy as np
@@ -110,6 +111,27 @@ class CommStats:
                                else int(wire_itemsize_bwd)),
             reverse_backward=not plan.symmetric,
         )
+
+    @classmethod
+    def from_slice(cls, plan, **kw) -> "CommStats":
+        """``from_plan`` for a one-part slice of an ASYMMETRIC plan (port
+        only; ``from_plan`` refuses it with the reference's message): the
+        send counters are the slice's own, and the receive ones are read
+        off its halo layout — each halo row arrives once, so the rows
+        received are its ``halo_counts`` and the messages the peers its
+        ``halo_src`` slots name (``q·S + t`` comes from part ``q``): what
+        the full plan's column for the part holds."""
+        if plan.chip_ids is None or plan.symmetric:
+            raise ValueError("CommStats.from_slice takes a one-part slice of "
+                             "an asymmetric plan; use from_plan")
+        # the send side as a symmetric slice's, then the receive side
+        sym = cls.from_plan(dataclasses.replace(plan, symmetric=True), **kw)
+        hc = int(plan.halo_counts[0])
+        peers = np.unique(np.asarray(plan.halo_src[0, :hc]) // plan.s)
+        sym.recv_volume_per_exchange = np.array([hc], np.int64)
+        sym.recv_msgs_per_exchange = np.array([peers.size], np.int64)
+        sym.reverse_backward = True
+        return sym
 
     def set_replica(self, plan) -> None:
         """Record the shrunken exchange's figures of a plan with the

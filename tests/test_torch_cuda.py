@@ -30,7 +30,12 @@ halo, the halo-delta cache, replicas, replica × stale and the partial
 refresh — with the rank's fused launch on its carry and its pack-into
 from a shrunken receive against their plain versions), the broadcast
 baseline's K1 launch against its plain version, and the launch layer's
-one-process no-op.
+one-process no-op; a directed plan on one NCCL rank against the stacked
+proxy (GCN on float32, the bf16 wire and ``compute_dtype``; GAT) with
+every family launch of a step — the backward's halo-ᵀ, local-ᵀ and
+weight-1 families over the reverse ``all_to_all_single``'s buffer among
+them — against its plain version, and the mini-batch trainer on one
+NCCL rank against the shard proxy of the same part's batch slices.
 
 This module imports no JAX, so it also runs on a GPU machine without it:
 
@@ -2043,6 +2048,164 @@ def test_one_nccl_rank_fused_carry_and_pack_into_equal_plain(
         plain = (ts.spmm_tiles_fused_plain(*args) if kind == "fused"
                  else row_pack_into_plain(*args))
         assert torch.equal(out, plain), kind
+
+
+# ------------- directed plans and the mini-batch trainer on one NCCL rank
+DIRECTED_NCCL_CASES = {"gcn": {}, "gcn-halo-bf16": {"halo_dtype": "bfloat16"},
+                       "gcn-bf16": {"compute_dtype": "bfloat16"},
+                       "gat": {"model": "gat", "activation": "none"}}
+
+
+def _directed_slice(chip=2):
+    """The directed cora2708 (each undirected edge kept in one direction
+    by a seeded coin) under its 8-hp partition, both models' layouts
+    built on the full plan, part ``chip``'s slice and its data on the
+    card."""
+    import os
+
+    import scipy.sparse as sp
+
+    from sgcn_tpu_torch.io.datasets import load_npz_dataset
+    from sgcn_tpu_torch.parallel import shard_proxy_data, shard_proxy_plan
+    from sgcn_tpu_torch.partition import read_partvec
+
+    fix = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       "fixtures")
+    a, feats, labels = load_npz_dataset(os.path.join(fix, "cora2708.npz"))
+    up = sp.triu(a, k=1).tocoo()
+    flip = np.random.default_rng(0).random(up.nnz) < 0.5
+    ad = sp.csr_matrix((np.ones(up.nnz, np.float32),
+                        (np.where(flip, up.col, up.row),
+                         np.where(flip, up.row, up.col))), shape=a.shape)
+    pv = read_partvec(os.path.join(fix, "cora2708.8.hp"))
+    plan = build_comm_plan(normalize_adjacency(ad), pv, 8)
+    for model in ("gcn", "gat"):
+        resolve_forward_setup(plan, model=model)
+    return (shard_proxy_plan(plan, chip),
+            shard_proxy_data(plan, chip, feats, labels, device="cuda"))
+
+
+@pytest.mark.parametrize("case", list(DIRECTED_NCCL_CASES))
+def test_one_nccl_rank_directed_equals_the_stacked_proxy(cuda_device,
+                                                         tmp_path, case):
+    """On the card: a directed plan on one NCCL rank (1433 → 16 → 7,
+    cora's part-2 slice; the backward's reverse exchange an
+    ``all_to_all_single`` to itself) gives the stacked proxy's 3 losses
+    and final weights bit for bit, with three K1 family launches and no
+    pack or fused launch an aggregation's backward."""
+    from sgcn_tpu_torch.ops.tile_spmm import (PspmmTilesGenRanks,
+                                              fused_launches, k1_launches)
+    from sgcn_tpu_torch.parallel import init_rank_group
+
+    sl, data = _directed_slice()
+    kw = dict(fin=1433, widths=[16, 7], seed=3, **DIRECTED_NCCL_CASES[case])
+    stacked = FullBatchTrainer(sl, device=cuda_device, **kw)
+    want = [stacked.step(data) for _ in range(3)]
+    mesh = init_rank_group("file://" + str(tmp_path / "rdv"), 1, 0)
+    try:
+        before = (PspmmTilesGenRanks.backward_launches, fused_launches())
+        tr = FullBatchTrainer(sl, mesh=mesh, **kw)
+        got = [tr.step(data) for _ in range(3)]
+        torch.cuda.synchronize()
+        bwd = PspmmTilesGenRanks.backward_launches - before[0]
+        fused = fused_launches() - before[1]
+    finally:
+        mesh.close()
+    assert got == want
+    for a, b in zip(tr.model.parameters(), stacked.model.parameters()):
+        assert torch.equal(a, b)
+    assert fused == 0
+    # GCN: layer 0 projects first, so both layers' aggregations have a
+    # backward; GAT's transposed passes count as K5 + K1 launches
+    assert bwd == (3 * 2 * 3 if kw.get("model") != "gat" else 0)
+    assert k1_launches() > 0
+
+
+@pytest.mark.parametrize("lever", [None, "halo_dtype", "compute_dtype"])
+def test_one_nccl_rank_transposed_families_equal_plain(cuda_device,
+                                                        tmp_path, lever,
+                                                        monkeypatch):
+    """On the card, one NCCL rank on a directed slice: every family
+    launch of a GCN step — the forward's local and halo families and the
+    backward's halo-ᵀ, local-ᵀ and weight-1 families, the last over the
+    buffer the reverse ``all_to_all_single`` delivered (bf16 under either
+    lever) — equals its plain version on the same inputs bit for bit."""
+    from sgcn_tpu_torch.ops import tile_spmm as ts
+    from sgcn_tpu_torch.parallel import init_rank_group
+
+    sl, data = _directed_slice()
+    family = ts.spmm_tiles_classes
+    calls = []
+
+    def recorded(*args):
+        out = family(*args)
+        calls.append(([a.clone() if torch.is_tensor(a) else a
+                       for a in args], out))
+        return out
+    recorded.__dict__ = family.__dict__
+    mesh = init_rank_group("file://" + str(tmp_path / "rdv"), 1, 0)
+    try:
+        tr = FullBatchTrainer(sl, fin=1433, widths=[16, 7], seed=3,
+                              mesh=mesh, **({lever: "bfloat16"} if lever
+                                            else {}))
+        tr.step(data)
+        monkeypatch.setattr(ts, "spmm_tiles_classes", recorded)
+        tr.step(data)
+        monkeypatch.setattr(ts, "spmm_tiles_classes", family)
+        torch.cuda.synchronize()
+    finally:
+        mesh.close()
+    # 2 forward aggregations (2 launches each) + 2 backward (3 each)
+    assert len(calls) == 10
+    assert any(args[3].dtype == torch.bfloat16 for args, _ in calls) == \
+        (lever is not None)
+    for args, out in calls:
+        assert torch.equal(out, spmm_tiles_classes_plain(*args))
+
+
+MINIBATCH_NCCL_CASES = {"gcn-a2a": ("gcn", "a2a"),
+                        "gcn-ring": ("gcn", "ragged"),
+                        "gat-a2a": ("gat", "a2a")}
+
+
+@pytest.mark.parametrize("case", list(MINIBATCH_NCCL_CASES))
+def test_one_nccl_rank_minibatch_equals_the_stacked_proxy(cuda_device,
+                                                          tmp_path, case):
+    """On the card: the mini-batch trainer on one NCCL rank training part
+    2 of cora's batches (512 a batch, 3 batches) gives the shard proxy's
+    batch losses (the same part's slices trained stacked) and final
+    weights bit for bit."""
+    import os
+
+    from sgcn_tpu_torch.io.datasets import load_npz_dataset
+    from sgcn_tpu_torch.parallel import init_rank_group
+    from sgcn_tpu_torch.partition import read_partvec
+    from sgcn_tpu_torch.train.minibatch import MiniBatchTrainer
+
+    fix = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       "fixtures")
+    a, feats, labels = load_npz_dataset(os.path.join(fix, "cora2708.npz"))
+    pv = read_partvec(os.path.join(fix, "cora2708.8.hp"))
+    model, sched = MINIBATCH_NCCL_CASES[case]
+    kw = dict(fin=1433, widths=[16, 7], batch_size=512, nbatches=3, seed=3,
+              model=model, comm_schedule=sched, part=2,
+              activation="relu" if model == "gcn" else "none")
+    out = []
+    mesh = init_rank_group("file://" + str(tmp_path / "rdv"), 1, 0)
+    try:
+        for group in (None, mesh):
+            tr = MiniBatchTrainer(normalize_adjacency(a), pv, 8, mesh=group,
+                                  device=cuda_device, **kw)
+            batches = tr.make_batches(feats, labels)
+            out.append(([tr.step(b) for b in batches],
+                        [w.detach().clone()
+                         for w in tr.inner.model.parameters()]))
+        torch.cuda.synchronize()
+    finally:
+        mesh.close()
+    assert out[0][0] == out[1][0] and np.isfinite(out[0][0]).all()
+    for a_, b_ in zip(out[0][1], out[1][1]):
+        assert torch.equal(a_, b_)
 
 
 def test_init_distributed_without_env_is_a_noop_on_card(cuda_device,

@@ -322,7 +322,9 @@ BASE = ["--npz", child.NPZ, "--normalize", "-p",
         "--hidden", "16", "--epochs", "3", "--warmup", "0", "--device",
         "cpu"]
 # the carried modes run on ranks; their checkpoints exit with the
-# reference's deferral (the carry is sharded over the ranks)
+# reference's deferral (the carry is sharded over the ranks); the
+# mini-batch, accuracy and directed jobs exited until A2c's last part and
+# now run
 GUARDS = {"batch": ["-n", "512"],
           "stale": ["--halo-staleness", "1", "--save-checkpoint",
                     os.path.join(os.sep, "nonexistent", "stale.npz")],
@@ -461,16 +463,25 @@ def test_cli_on_ranks_writes_heartbeats_and_rank0_telemetry(cli_runs):
 
 @pytest.mark.parametrize("job", sorted(GUARDS) + ["world", "directed"])
 def test_cli_on_ranks_guards_exit(cli_runs, job):
-    """A world size that is neither 1 nor k exits with the numbers; the
-    mini-batch, accuracy and directed runs on ranks exit naming ROADMAP
-    A2c; a stale or replica run that would checkpoint exits with the
-    reference's deferral; nothing is printed."""
+    """A world size that is neither 1 nor k exits with the numbers; a
+    stale or replica run that would checkpoint exits with the reference's
+    deferral; nothing is printed.  The mini-batch, accuracy and directed
+    runs, which exited naming ROADMAP A2c before its last part, run: rank
+    0 prints one report (``tests/test_torch_ranks_minibatch.py`` and
+    ``tests/test_torch_ranks_directed.py`` hold their numbers), the
+    other ranks nothing."""
+    if job in ("batch", "accuracy", "directed"):
+        got = cli_runs["ranks"][0][job]
+        assert got["exit"] is None, got
+        report = json.loads(got["stdout"].strip().splitlines()[-1])
+        assert report["device"] == "cpu"
+        for r in range(1, K):
+            assert cli_runs["ranks"][r][job] == {"stdout": "", "exit": None}
+        return
     for r in range(K):
         got = cli_runs["ranks"][r][job]
         assert got["stdout"] == "" and got["exit"], (r, got)
         if job == "world":
             assert "a world of 8 processes for k=4" in got["exit"]
-        elif job in ("stale", "replica"):
-            assert got["exit"] == CARRY_CHECKPOINT_DEFERRAL, got["exit"]
         else:
-            assert "ROADMAP A2c" in got["exit"], got["exit"]
+            assert got["exit"] == CARRY_CHECKPOINT_DEFERRAL, got["exit"]

@@ -13,7 +13,9 @@
 * One rank of a rank group in each carried mode (a one-rank gloo group
   on a part's slice): its argument families equal its live tensors,
   under delta with the senders' baselines beside the carries, and its
-  scratch prices the shrunken receive and the side channels.
+  scratch prices the shrunken receive and the side channels; on a
+  directed plan its scratch prices the backward's reverse exchange, and
+  the mini-batch trainer on a rank prices its part's batch slices.
 * ``CommPlan.wire_buffer_shapes`` == the reference's on every plan
   (both transports, with and without replicas).
 * ``parse_bytes`` == the reference's on valid and invalid sizes, and the
@@ -187,6 +189,93 @@ def test_rank_carried_families_equal_live_tensor_bytes(cora, mode,
     assert fams["halo_carries"] == stacked.families["halo_carries"] + base
     extra = fams["wire_buffers"] - stacked.families["wire_buffers"]
     assert (extra > 0) == bool(kw.get("replica_budget"))
+
+
+DIRECTED_RANK_MODES = ("gcn-directed", "gat-directed",
+                       "gcn-directed-compute-bf16")
+
+
+@pytest.mark.parametrize("mode", DIRECTED_RANK_MODES)
+def test_rank_directed_families_equal_live_tensor_bytes(cora, mode,
+                                                        tmp_path):
+    """One rank of a rank group on a directed plan (a one-rank gloo group
+    on part 3's slice): after two steps every argument family equals the
+    bytes the rank holds (its slice's transposed tiles among the shipped
+    ones), and the scratch adds the backward's reverse exchange to the
+    stacked slice's: the halo-ᵀ launch's float32 output, the receive
+    buffer in the wire's dtype and, on a bf16 wire, the narrowed send
+    copy."""
+    from sgcn_tpu_torch.parallel import (init_rank_group, shard_proxy_data,
+                                         shard_proxy_plan)
+    from sgcn_tpu_torch.train import resolve_forward_setup
+
+    kw = dict(MODES[mode.replace("-compute-bf16", "")])
+    kw.pop("directed")
+    if mode.endswith("compute-bf16"):
+        kw["compute_dtype"] = "bfloat16"
+    model = kw.get("model", "gcn")
+    plan = cora["directed"]
+    resolve_forward_setup(plan, model=model)
+    sl = shard_proxy_plan(plan, 3)
+    data = shard_proxy_data(plan, 3, cora["feats"], cora["labels"])
+    mesh = init_rank_group("file://" + str(tmp_path / "rdv"), 1, 0,
+                           device="cpu")
+    try:
+        tr = FullBatchTrainer(sl, fin=cora["feats"].shape[1],
+                              widths=WIDTHS, mesh=mesh, **kw)
+        for _ in range(2):
+            tr.step(data)
+        live = tr.resident_bytes(data)
+    finally:
+        mesh.close()
+    fams = tr.memory.families
+    for fam in ARGUMENT_FAMILIES:
+        assert fams.get(fam, 0) == live.get(fam, 0), (fam, fams, live)
+    assert any(f.startswith("ptile_t") for f in tr.pa)
+    stacked = port_memory.memory_model(
+        sl, cora["feats"].shape[1], WIDTHS, setup=tr.setup, model=model,
+        compute_dtype=kw.get("compute_dtype"))
+    st = tr.setup.fwd_static
+    th = st["pallas_tchclasses" if model == "gat" else "pallas_thclasses"]
+    out_rows = sum(t for t, *_ in th) * st["pallas_tb"]
+    fmax = max(tr.setup.lane_widths_fn(cora["feats"].shape[1], WIDTHS,
+                                       kw.get("compute_dtype")))
+    wire = 2 if kw.get("compute_dtype") and model == "gcn" else 4
+    slots = sl.k * sl.s
+    want = (out_rows * 4 + (2 if wire == 2 else 1) * slots * wire) * fmax
+    assert fams["wire_buffers"] - stacked.families["wire_buffers"] == want
+    assert tr.memory.config["layout"] == "ranks"
+
+
+def test_rank_minibatch_families_equal_live_tensor_bytes(cora, tmp_path):
+    """The mini-batch trainer on one rank (``part=3`` on a one-rank gloo
+    group): it prices its part's slice of every batch plan and its part's
+    rows of every batch, to the byte against the live tensors after two
+    steps; the plan families are the sum over the slices, the features
+    the batch count times one slice's."""
+    from sgcn_tpu_torch.obs.memory import memory_model, shipped_bytes
+    from sgcn_tpu_torch.parallel import init_rank_group
+
+    mesh = init_rank_group("file://" + str(tmp_path / "rdv"), 1, 0,
+                           device="cpu")
+    try:
+        tr = _minibatch(cora, part=3, mesh=mesh)
+        batches = tr.make_batches(cora["feats"], cora["labels"])
+        for b in batches[:2]:
+            tr.step(b)
+        live = tr.resident_bytes()
+    finally:
+        mesh.close()
+    fams, setup = tr.memory.families, tr.inner.setup
+    for fam in ARGUMENT_FAMILIES:
+        assert fams.get(fam, 0) == live.get(fam, 0), (fam, fams, live)
+    assert all(p.chip_ids is not None and p.k == 1 for p in tr.slices)
+    assert fams["plan_arrays"] + fams["pallas_tiles"] == sum(
+        sum(shipped_bytes(setup, p)) for p in tr.slices)
+    one = memory_model(tr.slices[0], cora["feats"].shape[1], WIDTHS,
+                       setup=setup, ranks=True).families
+    assert fams["features"] == len(tr.slices) * one["features"]
+    assert tr.memory.config["layout"] == "ranks"
 
 
 @pytest.mark.parametrize("mode", ["full", "subgraph"])

@@ -305,8 +305,10 @@ def test_three_steps_track_the_reference_trainer(ranks, stacked, reference,
 
 def test_rank_levers_raise_only_for_a2c_modes(cora):
     """On a rank group GAT, compute_dtype and remat build, and so do the
-    stale halo and replicas; an asymmetric plan raises naming ROADMAP A2c
-    (no collective is needed to reach the guards)."""
+    stale halo and replicas and, since A2c's last part, GAT on an
+    asymmetric plan; the carried modes on an asymmetric plan raise the
+    reference's own gates, as on one process (no collective is needed to
+    reach the guards)."""
     import dataclasses
 
     plan = cora["plan"]
@@ -320,12 +322,15 @@ def test_rank_levers_raise_only_for_a2c_modes(cora):
         assert tr.plan.chip_ids is not None
         assert tr.model.fwd_static["mesh"] is mesh
     asym = dataclasses.replace(plan, symmetric=False)
-    for kw, bad in (({"halo_staleness": 1}, asym),
-                    ({"replica_budget": 50}, asym),
-                    ({"model": "gat"}, asym)):
-        with pytest.raises(ValueError, match="ROADMAP A2c"):
-            FullBatchTrainer(bad, fin=8, widths=[4], device="cpu",
+    for kw, gate in (({"halo_staleness": 1}, "halo_staleness=1"),
+                     ({"replica_budget": 50}, "replica_budget")):
+        with pytest.raises(ValueError, match=f"^{gate} uses the "
+                           "symmetric-Â custom backward"):
+            FullBatchTrainer(asym, fin=8, widths=[4], device="cpu",
                              mesh=mesh, **kw)
+    tr = FullBatchTrainer(asym, fin=8, widths=[4], device="cpu", mesh=mesh,
+                          model="gat", activation="none")
+    assert not tr.plan.symmetric and tr.model.fwd_static["mesh"] is mesh
 
 
 def test_all_reduce_max_on_one_rank(tmp_path):

@@ -1,6 +1,9 @@
 """Rank-process entries of the port's rank-runtime tests
 (``tests/test_torch_ranks.py``, ``tests/test_torch_ranks_gat.py``,
-``tests/test_torch_launch.py``, ``tests/test_torch_cagnet1d.py``).
+``tests/test_torch_launch.py``, ``tests/test_torch_cagnet1d.py``,
+``tests/test_torch_ranks_carried.py``,
+``tests/test_torch_ranks_directed.py``,
+``tests/test_torch_ranks_minibatch.py``).
 
 A test spawns one process per part (``torch.multiprocessing``, ``spawn``)
 through ``spawn_ranks``; each opens a gloo group on a ``file://``
@@ -28,6 +31,13 @@ def spawn_ranks(target, world, out_dir, timeout=240.0):
     """Run ``target(rank, world, init_method, out_dir)`` in ``world``
     spawned processes at once; returns every rank's pickled result.
     Raises if a rank fails or outlives ``timeout``."""
+    return start_ranks(target, world, out_dir, timeout)()
+
+
+def start_ranks(target, world, out_dir, timeout=240.0):
+    """``spawn_ranks`` without waiting: the ranks start, and the returned
+    ``join()`` waits for them (at most ``timeout`` seconds from now) and
+    returns their results, so the caller can work meanwhile."""
     import time
 
     import torch.multiprocessing as mp
@@ -39,6 +49,13 @@ def spawn_ranks(target, world, out_dir, timeout=240.0):
     for p in procs:
         p.start()
     deadline = time.monotonic() + timeout
+    return lambda: _join_ranks(procs, deadline, out_dir)
+
+
+def _join_ranks(procs, deadline, out_dir):
+    import time
+
+    world = len(procs)
     for p in procs:
         p.join(max(0.0, deadline - time.monotonic()))
     alive = [p for p in procs if p.is_alive()]
@@ -623,6 +640,239 @@ def carried_ranks_main(rank, world, init, out_dir):
             tr.attach_recorder(object())
         except ValueError as exc:
             res["errors"]["recorder"] = str(exc)
+    finally:
+        mesh.close()
+    res["cli"] = _cli_jobs(rank, world, out_dir)
+    _write(out_dir, rank, res)
+
+
+# ------------------------------------------- directed plans on ranks
+# ROADMAP A2c's last part on the directed cora2708 8-hp (each undirected
+# edge kept in one direction by a seeded coin), 1433 -> 16 -> 7
+DIRECTED_CASES = {"gcn": {}, "gcn-halo-bf16": {"halo_dtype": "bfloat16"},
+                  "gcn-bf16": {"compute_dtype": "bfloat16"},
+                  "gcn-remat": {"remat": True},
+                  "gat": {"model": "gat"},
+                  "gat-bf16": {"model": "gat", "compute_dtype": "bfloat16"}}
+DIRECTED_STEPS = 5
+# one GCN aggregation's lever: (halo_dtype, compute_dtype)
+GCN_GEN_OPS = {"float32": (None, None), "halo-bf16": ("bfloat16", None),
+               "bf16": (None, "bfloat16")}
+
+
+def cora_directed_plan():
+    """The directed cora (``tests/test_torch_asym.py``'s graph): its
+    normalized Â, features, labels, part vector and plan, with the
+    forward and transposed layouts of both models built."""
+    import scipy.sparse as sp
+
+    from sgcn_tpu_torch.io.datasets import load_npz_dataset
+    from sgcn_tpu_torch.parallel import build_comm_plan
+    from sgcn_tpu_torch.partition import read_partvec
+    from sgcn_tpu_torch.prep import normalize_adjacency
+    from sgcn_tpu_torch.train import resolve_forward_setup
+
+    a, feats, labels = load_npz_dataset(NPZ)
+    up = sp.triu(a, k=1).tocoo()
+    flip = np.random.default_rng(0).random(up.nnz) < 0.5
+    ad = sp.csr_matrix((np.ones(up.nnz, np.float32),
+                        (np.where(flip, up.col, up.row),
+                         np.where(flip, up.row, up.col))), shape=a.shape)
+    pv = read_partvec(os.path.join(FIX, "cora2708.8.hp"))
+    ahat = normalize_adjacency(ad)
+    plan = build_comm_plan(ahat, pv, pv.max() + 1)
+    for model in ("gcn", "gat"):
+        resolve_forward_setup(plan, model=model)
+    return ad, ahat, feats, labels, pv, plan
+
+
+def directed_kwargs(case, p0):
+    """``FullBatchTrainer`` keyword arguments of a ``DIRECTED_CASES``
+    case from the initial weights ``p0``."""
+    kw = dict(DIRECTED_CASES[case])
+    model = kw.get("model", "gcn")
+    kw["params"] = p0[model]
+    if model == "gat":
+        kw["activation"] = "none"
+    return kw
+
+
+def gcn_gen_op(plan, setup, lever, h, g, mesh=None):
+    """One directed GCN aggregation and its VJP on ``plan`` (stacked, or a
+    rank's slice with ``mesh``) under ``GCN_GEN_OPS[lever]``, as float32
+    arrays."""
+    import torch
+
+    from sgcn_tpu_torch.ops.tile_spmm import (pspmm_tiles_gen,
+                                              pspmm_tiles_gen_ranks)
+
+    halo, cd = GCN_GEN_OPS[lever]
+    st = setup.fwd_static
+    pa = setup.ship_arrays(plan, "cpu", cd)
+    tcls = (st["pallas_tlclasses"], st["pallas_thclasses"],
+            st["pallas_t1classes"])
+    x = torch.tensor(h)
+    x = (x.to(torch.bfloat16) if cd else x).requires_grad_()
+    args = (x, pa, st["pallas_tb"], st["pallas_lclasses"],
+            st["pallas_hclasses"], tcls)
+    y = (pspmm_tiles_gen(*args, halo) if mesh is None
+         else pspmm_tiles_gen_ranks(*args, mesh, halo))
+    y.backward(torch.tensor(g).to(x.dtype))
+    return y.detach().float().numpy(), x.grad.float().numpy()
+
+
+def _order_logged(run):
+    """``run()`` with the rank path's launches and waits logged in
+    order: ``family`` per tile family launch, ``issue``/``wait`` of the
+    forward exchange, ``rev-issue``/``rev-wait`` of the reverse one."""
+    from sgcn_tpu_torch.ops import tile_spmm
+
+    log = []
+    saved = (tile_spmm.spmm_tiles_classes, tile_spmm.rank_exchange,
+             tile_spmm.rank_reverse_exchange)
+
+    def family(*a, **kw):
+        log.append("family")
+        return saved[0](*a, **kw)
+
+    def logged(fn, name):
+        def issue(*a, **kw):
+            log.append(name + "issue")
+            recv, wait = fn(*a, **kw)
+
+            def logged_wait():
+                log.append(name + "wait")
+                wait()
+            return recv, logged_wait
+        return issue
+    (tile_spmm.spmm_tiles_classes, tile_spmm.rank_exchange,
+     tile_spmm.rank_reverse_exchange) = (
+        family, logged(saved[1], ""), logged(saved[2], "rev-"))
+    try:
+        out = run()
+    finally:
+        (tile_spmm.spmm_tiles_classes, tile_spmm.rank_exchange,
+         tile_spmm.rank_reverse_exchange) = saved
+    return out, log
+
+
+def directed_ranks_main(rank, world, init, out_dir):
+    """The rank checks of ``tests/test_torch_ranks_directed.py``: one
+    directed GCN aggregation per lever (the f32 one's launch and wait
+    order logged) and one GAT layer per table form, forward and VJP, on
+    the rank's slice; then ``DIRECTED_STEPS`` training steps per
+    ``DIRECTED_CASES`` case from ``<out_dir>/init.pkl``'s weights, with
+    the step-1 weight gradients."""
+    import torch
+
+    torch.set_num_threads(1)
+    from sgcn_tpu_torch.parallel import init_rank_group, shard_proxy_plan
+    from sgcn_tpu_torch.train import (FullBatchTrainer,
+                                      make_train_data_multihost,
+                                      resolve_forward_setup)
+
+    mesh = init_rank_group(init, world, rank, device="cpu")
+    try:
+        _ad, _ahat, feats, labels, _pv, plan = cora_directed_plan()
+        sl = shard_proxy_plan(plan, rank)
+        mine = slice(rank, rank + 1)
+        res = {"gcn_op": {}, "gat_op": {}, "losses": {}, "params": {},
+               "grads": {}}
+        setup = resolve_forward_setup(plan)
+        h, g = op_inputs(plan)
+        for lever in GCN_GEN_OPS:
+            res["gcn_op"][lever], log = _order_logged(
+                lambda lever=lever: gcn_gen_op(sl, setup, lever, h[mine],
+                                               g[mine], mesh))
+            if lever == "float32":
+                res["order"] = log
+        gsetup = resolve_forward_setup(plan, model="gat")
+        for form, (fout, cd) in GAT_OP_CASES.items():
+            hh, gg, params = gat_op_inputs(plan, fout)
+            res["gat_op"][form] = gat_layer_run(sl, gsetup, hh[mine],
+                                                gg[mine], params, cd, mesh)
+        with open(os.path.join(out_dir, "init.pkl"), "rb") as fh:
+            p0 = pickle.load(fh)
+        data = make_train_data_multihost(plan, mesh, feats, labels)
+        for case in DIRECTED_CASES:
+            tr = FullBatchTrainer(plan, fin=FIN, widths=WIDTHS, lr=LR,
+                                  mesh=mesh, **directed_kwargs(case, p0))
+            grads = []
+            tr.opt.register_step_pre_hook(lambda *_a, tr=tr: grads.append(
+                [p.grad.clone().numpy() for p in tr.model.parameters()])
+                if not grads else None)
+            res["losses"][case] = [tr.step(data)
+                                   for _ in range(DIRECTED_STEPS)]
+            res["params"][case] = [w.detach().numpy()
+                                   for w in tr.model.parameters()]
+            res["grads"][case] = grads[0]
+            if case == "gcn":
+                res["report"] = tr.job_report()
+        _write(out_dir, rank, res)
+    finally:
+        mesh.close()
+
+
+# ------------------------------------------ the mini-batch trainer on ranks
+# a batch size and seed that draw a batch missing a part (batch 0 of the
+# four misses one of cora 8-hp's parts)
+MB_BATCH, MB_NBATCHES, MB_SEED = 48, 4, 24
+MB_CASES = {"gcn-a2a": ("gcn", "a2a"), "gcn-ring": ("gcn", "ragged"),
+            "gat-a2a": ("gat", "a2a")}
+
+
+def minibatch_trainer(ahat, pv, case, p0, **kw):
+    """A ``MiniBatchTrainer`` of an ``MB_CASES`` case from ``p0``."""
+    from sgcn_tpu_torch.train.minibatch import MiniBatchTrainer
+
+    model, sched = MB_CASES[case]
+    return MiniBatchTrainer(
+        ahat, pv, pv.max() + 1, fin=FIN, widths=WIDTHS, batch_size=MB_BATCH,
+        nbatches=MB_NBATCHES, seed=MB_SEED, model=model,
+        activation="relu" if model == "gcn" else "none",
+        comm_schedule=sched, lr=LR, params=p0[model], device="cpu", **kw)
+
+
+def minibatch_run(ahat, feats, labels, pv, case, p0, **kw):
+    """One epoch of stepwise batch steps, the full-graph evaluation
+    before and after it, the merged comm report, and one fused epoch of a
+    fresh trainer."""
+    from sgcn_tpu_torch.utils.stats import CommStats
+
+    tr = minibatch_trainer(ahat, pv, case, p0, **kw)
+    batches = tr.make_batches(feats, labels)
+    out = {"eval0": tr.evaluate_fullgraph(feats, labels),
+           "losses": [tr.step(b) for b in batches],
+           "params": [w.detach().numpy()
+                      for w in tr.inner.model.parameters()],
+           "eval": tr.evaluate_fullgraph(feats, labels),
+           "report": CommStats.merged_report([b.stats for b in batches]),
+           "real_rows": [int(b.data.train_valid.sum()) for b in batches]}
+    tr = minibatch_trainer(ahat, pv, case, p0, **kw)
+    out["fused"] = tr.run_epochs_fused(feats, labels, sync=False) \
+        .detach().numpy()[0].tolist()
+    out["fused_params"] = [w.detach().numpy()
+                           for w in tr.inner.model.parameters()]
+    return out
+
+
+def minibatch_ranks_main(rank, world, init, out_dir):
+    """The rank checks of ``tests/test_torch_ranks_minibatch.py`` on cora
+    8-hp: ``minibatch_run`` per ``MB_CASES`` case on the group from
+    ``<out_dir>/init.pkl``'s weights; then the train CLI's jobs of
+    ``<out_dir>/jobs.pkl`` (``cli_rank_main``)."""
+    import torch
+
+    torch.set_num_threads(1)
+    from sgcn_tpu_torch.parallel import init_rank_group
+
+    mesh = init_rank_group(init, world, rank, device="cpu")
+    try:
+        ahat, feats, labels, pv, _plan = cora_plan("cora2708.8.hp")
+        with open(os.path.join(out_dir, "init.pkl"), "rb") as fh:
+            p0 = pickle.load(fh)
+        res = {case: minibatch_run(ahat, feats, labels, pv, case, p0,
+                                   mesh=mesh) for case in MB_CASES}
     finally:
         mesh.close()
     res["cli"] = _cli_jobs(rank, world, out_dir)
