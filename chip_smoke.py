@@ -429,14 +429,27 @@ failure raises and the script exits non-zero:
      the shard proxy's (the same part's batch slices trained stacked)
      bit for bit, exact launches, each batch step's ms beside the
      proxy's;
-  34. one JSON line ``{"kernels": [...]}`` — per ported kernel (the tile
+  34. the ELL aggregator under ``SGCN_PALLAS_SPMM=0``
+     (``build/chip_smoke_ell/``): cora2708 8-hp GCN on the a2a and the
+     ring and the directed cora, 3 steps each; the ER flagship GCN on both
+     transports, 3 steps under a ``RunRecorder``; ring == a2a bit for bit,
+     losses within rtol 1e-5 / atol 1e-6 of the tile path's from the
+     same weights (the weights by the parity tests' rule), no K1, K5 or
+     fused launch and exactly one pack an exchange; each step event
+     valid under the port's schema, its roofline's wire bytes ==
+     ``CommStats``' and its ``stream_ceiling_frac`` ≤ 1.05; the memory
+     join within ``MEM_CARD_TOL`` and the budget gate; epoch_s ELL
+     against tiles in turns, the device split of both, a profiled ELL
+     step's ``exchange_join``; the full-mode server on ELL (3 batches of
+     64, both transports) against phase 3's tile engine;
+  35. one JSON line ``{"kernels": [...]}`` — per ported kernel (the tile
      SpMM, the GCN aggregation's backward, the GAT attention pass and its
      use in the GAT layer's backward, the ragged ring aggregation and its
      backward, the row shuffle, the tile SpMM's and the GAT pass's bf16
      flavors, the row pack, the fused local + remote entry and the
      destination-indexed pack) its
      launches on the main path (phases 2–5, 7–13, 15–17, 19–21 and
-     23–33, the children's included), max
+     23–34, the children's included), max
      |kernel − plain|, kernel / plain / bound / library times at the
      flagship layer.  The tile SpMM's own float-weight family entries
      (both tables) launch on the main path only in the asymmetric
@@ -446,7 +459,7 @@ failure raises and the script exits non-zero:
      show 0 of them — the fused entry runs their chains and counts those
      launches — and any kernel with no launch on the main path fails the
      run;
-  35. the last line: ``{"ok": true, "device": {...}}``.
+  36. the last line: ``{"ok": true, "device": {...}}``.
 
 Without CUDA, or without the rest of the repository beside it, the script
 prints no result and exits with code 2 or 3.
@@ -2848,21 +2861,24 @@ def leaves_equal(got, want) -> bool:
     return True
 
 
-def phase_checkpoints(plan, ahat, feats, labels, pv, widths, data, dev, smi):
+def phase_checkpoints(plan, ahat, feats, labels, pv, widths, data, dev, smi,
+                      on_inputs=None):
     """Phase 23: checkpoints, crash-safe resume and serving from a
     checkpoint at the flagship width (module docstring).  Returns the
     launch counts of its paths (this process's and the resumed
-    children's) by kernel entry."""
+    children's) by kernel entry.  ``on_inputs()`` runs once the
+    children's inputs are written (phases 25–26 start their children
+    there)."""
     children = Children()
     try:
         return _phase_checkpoints(children, plan, ahat, feats, labels, pv,
-                                  widths, data, dev, smi)
+                                  widths, data, dev, smi, on_inputs)
     finally:
         children.stop()
 
 
 def _phase_checkpoints(children, plan, ahat, feats, labels, pv, widths,
-                       data, dev, smi):
+                       data, dev, smi, on_inputs=None):
     import shutil
     import warnings
 
@@ -2895,6 +2911,8 @@ def _phase_checkpoints(children, plan, ahat, feats, labels, pv, widths,
     np.savetxt(parts, pv, fmt="%d")
     log(f"  inputs for the children (Â as normalized, features, labels, "
         f"parts) written in {time.perf_counter() - t0:.2f} s")
+    if on_inputs is not None:
+        on_inputs()
     base = ["--npz", npz, "-p", parts, "-s", "8", "-l", str(len(widths)),
             "--hidden", str(widths[0]), "--warmup", "0", "--epochs", "6",
             "--device", "cuda"]
@@ -3667,18 +3685,13 @@ def _phase_stale(children, plan, data, p_init, widths, rep5, fit_w,
 
     marks = [("start", time.perf_counter())]
     # ---- (g) first: the flagship child killed after its step-4 save
-    # (started after phase 23), then the child resuming it, in the
-    # background while the rest runs here
-    kill_children, kill, argv = killed
-    codes = kill_children.join(kill)
-    listing = sorted(os.listdir(os.path.join(STALE_DIR, "ck")))
+    # (started in phase 23), whose resuming child started as it exited
+    # and runs in the background while the rest runs here
+    codes, listing = killed.killed()
     if codes != [faults.FAULT_EXIT_CODE] or listing != ["ckpt_00000004.npz"]:
         raise AssertionError(f"phase 25: killed child exited {codes}, "
                              f"directory {listing}")
     final = os.path.join(STALE_DIR, "final.npz")
-    wave = children.start([("train", argv + ["--resume", "auto",
-                                             "--save-checkpoint", final],
-                            None, os.path.join(STALE_DIR, "resume.json"))])
     marks.append(("(g) killed child joined", time.perf_counter()))
     # ---- (a) sync_every=1 == exact, bit for bit
     runs = [(sched, delta, None) for sched in ("a2a", "ragged")
@@ -3856,7 +3869,7 @@ def _phase_stale(children, plan, data, p_init, widths, rep5, fit_w,
                           halo_delta=True, sync_every=3, device=dev)
     full_losses, _ = counted(lambda: [tr.step(data) for _ in range(6)])
     marks.append(("(g) uninterrupted run", time.perf_counter()))
-    if children.join(wave) != [0]:
+    if killed.resumed() != [0]:
         raise AssertionError("phase 25: the resuming child failed")
     marks.append(("(g) resumed child joined", time.perf_counter()))
     with open(os.path.join(STALE_DIR, "resume.json")) as fh:
@@ -3897,13 +3910,50 @@ REPLICA_DIR = os.path.join(REPO, "build", "chip_smoke_replica")
 BAND_REPLICA = BAND_STALE
 
 
+class KillResume:
+    """One flagship child killed after its step-4 save and the child that
+    resumes it: a watcher thread waits for the first to exit and starts
+    the second at once, so both run beside the phases before their own.
+    ``killed()`` waits for the watcher and returns the killed child's exit
+    codes and its checkpoint directory's listing as the watcher saw them
+    (before the resuming child could write there); ``resumed()`` waits
+    for the resuming child and returns its exit codes."""
+
+    def __init__(self, children, kill, resume_job, ckdir):
+        import threading
+
+        self.children, self.wave = children, None
+        self.codes = self.listing = None
+
+        def watch():
+            from sgcn_tpu_torch.resilience import faults
+
+            self.codes = children.join(kill)
+            self.listing = sorted(os.listdir(ckdir))
+            if (self.codes == [faults.FAULT_EXIT_CODE]
+                    and self.listing == ["ckpt_00000004.npz"]):
+                self.wave = children.start([resume_job])
+        self.thread = threading.Thread(target=watch, daemon=True)
+        self.thread.start()
+
+    def killed(self):
+        self.thread.join()
+        return self.codes, self.listing
+
+    def resumed(self):
+        self.thread.join()
+        return self.children.join(self.wave) if self.wave else None
+
+
 def start_killed_children(widths):
     """Phases 25 and 26's flagship children killed after their step-4
     save (GCN a2a, stale + delta, and GCN a2a, replicas, each with
-    ``--sync-every 3``, on phase 23's inputs), started together as soon
-    as phase 23 has written those inputs, so that they run beside phase
-    24 and not in series with their own phases.  Returns ``{phase:
-    (children, procs, argv)}``; the children are closed at exit."""
+    ``--sync-every 3``, on phase 23's inputs), started as soon as phase 23
+    has written those inputs, each followed at once by the child that
+    resumes it (``--resume auto --save-checkpoint final.npz``), so that
+    they run beside phases 23 and 24 and not in series with their own
+    phases.  Returns ``{phase: KillResume}``; the children are closed at
+    exit."""
     import shutil
 
     children = Children()
@@ -3920,10 +3970,16 @@ def start_killed_children(widths):
                 "0", "--epochs", "6", "--device", "cuda", "--comm-schedule",
                 "a2a", *mode, "--sync-every", "3", "--checkpoint-dir",
                 os.path.join(d, "ck"), "--checkpoint-every", "4"]
-        out[phase] = (children, children.start([
+        kill = children.start([
             ("train", argv, "kill-after-save:4", os.path.join(d, "kill.json"))
-        ]), argv)
+        ])
+        resume = ("train", argv + ["--resume", "auto", "--save-checkpoint",
+                                   os.path.join(d, "final.npz")],
+                  None, os.path.join(d, "resume.json"))
+        out[phase] = KillResume(children, kill, resume, os.path.join(d, "ck"))
     return out
+
+
 REPLICA_CLASSES = (("K3/K4 fused", ("K3/K4 fused",)),
                    ("pack", ("pack",)),
                    ("gather/scatter", ("gathers",)),
@@ -4046,18 +4102,14 @@ def _phase_replicas(children, plan, data, p_init, widths, rep5, fit_w,
         return FullBatchTrainer(p, fin=128, widths=widths, params=params,
                                 comm_schedule=sched, device=dev, **kw)
 
-    # ---- the flagship child killed after its step-4 save (started after
-    # phase 23), then the child resuming it, in the background
-    kill_children, kill, argv = killed
-    codes = kill_children.join(kill)
-    listing = sorted(os.listdir(os.path.join(REPLICA_DIR, "ck")))
+    # ---- the flagship child killed after its step-4 save (started in
+    # phase 23), whose resuming child started as it exited, in the
+    # background
+    codes, listing = killed.killed()
     if codes != [faults.FAULT_EXIT_CODE] or listing != ["ckpt_00000004.npz"]:
         raise AssertionError(f"phase 26: killed child exited {codes}, "
                              f"directory {listing}")
     final = os.path.join(REPLICA_DIR, "final.npz")
-    wave = children.start([("train", argv + ["--resume", "auto",
-                                             "--save-checkpoint", final],
-                            None, os.path.join(REPLICA_DIR, "resume.json"))])
 
     # ---- plans: the ER flagship (phase 5's, both transports) and the
     # DCSBM flagship on phase 24's hp parts; budgets 'auto' and the clamp
@@ -4297,7 +4349,7 @@ def _phase_replicas(children, plan, data, p_init, widths, rep5, fit_w,
                           comm_schedule="a2a", replica_budget="auto",
                           sync_every=3, device=dev)
     full_losses, _ = counted(lambda: [tr.step(data) for _ in range(6)])
-    if children.join(wave) != [0]:
+    if killed.resumed() != [0]:
         raise AssertionError("phase 26: the resuming child failed")
     with open(os.path.join(REPLICA_DIR, "resume.json")) as fh:
         res = json.load(fh)
@@ -6558,6 +6610,294 @@ def _rank33_memory(sl, data, p_init, widths, mesh, dev, smi):
     return {"peak": peak, "model": model_b, "ratio": ratio,
             "arguments": measured["argument_bytes"]}
 
+ELL_DIR = os.path.join(REPO, "build", "chip_smoke_ell")
+# the ELL aggregator against the tile path and the reference: rtol 1e-5 /
+# atol 1e-6 (tests/test_torch_ell.py)
+ELL_TOL = dict(rtol=1e-5, atol=1e-6)
+
+
+def cora_directed(a):
+    """cora2708 with each undirected edge kept in one direction, which one
+    by a coin from ``default_rng(0)`` (the CPU tests' directed cora)."""
+    import numpy as np
+    import scipy.sparse as sp
+
+    up = sp.triu(a, k=1).tocoo()
+    flip = np.random.default_rng(0).random(up.nnz) < 0.5
+    rows = np.where(flip, up.col, up.row)
+    cols = np.where(flip, up.row, up.col)
+    return sp.csr_matrix((np.ones(up.nnz, np.float32), (rows, cols)),
+                         shape=a.shape)
+
+
+def weights_track(got, want, lr=0.01):
+    """Weights after Adam steps by the trainer parity tests' rule: 99 % of
+    the entries within 1e-5, every one within half a step at ``lr``."""
+    import numpy as np
+
+    gap = np.abs(np.asarray(got, np.float64) - np.asarray(want, np.float64))
+    return bool(np.mean(gap <= 1e-5) >= 0.99 and gap.max() <= 0.5 * lr), \
+        float(gap.max())
+
+
+def phase_ell(plan, data, p_init, widths, eng_f, feats_f, fix, dev, smi):
+    """Phase 34: the ELL aggregator under ``SGCN_PALLAS_SPMM=0``.  Returns
+    its main-path launch counts (``launch_counts`` keys).  The variable
+    is restored after."""
+    prev = os.environ.get("SGCN_PALLAS_SPMM")
+    try:
+        return _phase_ell(plan, data, p_init, widths, eng_f, feats_f, fix,
+                          dev, smi)
+    finally:
+        if prev is None:
+            os.environ.pop("SGCN_PALLAS_SPMM", None)
+        else:
+            os.environ["SGCN_PALLAS_SPMM"] = prev
+
+
+def _phase_ell(plan, data, p_init, widths, eng_f, feats_f, fix, dev, smi):
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from sgcn_tpu_torch.io.datasets import load_npz_dataset
+    from sgcn_tpu_torch.obs import (RunRecorder, exchange_join, load_run,
+                                    summarize_trace)
+    from sgcn_tpu_torch.obs.attribution import (LINK_CEILING_GBS,
+                                                STREAM_CEILING_GBS)
+    from sgcn_tpu_torch.obs.memory import MemoryBudgetError
+    from sgcn_tpu_torch.obs.tracing import find_trace_files, profile_to
+    from sgcn_tpu_torch.parallel import build_comm_plan
+    from sgcn_tpu_torch.partition import read_partvec
+    from sgcn_tpu_torch.prep import normalize_adjacency
+    from sgcn_tpu_torch.serve import ServeEngine
+    from sgcn_tpu_torch.train import FullBatchTrainer, make_train_data
+
+    shutil.rmtree(ELL_DIR, ignore_errors=True)
+    os.makedirs(ELL_DIR)
+    marks = [("start", time.perf_counter())]
+    totals = {}
+
+    def counted(run, packs, what):
+        """``run()`` as a main-path ELL run: counts zeroed before, read
+        after; no K1, K5 or fused launch, and exactly ``packs`` packs."""
+        launch_counts(zero=True)
+        k1_open()
+        out = run()
+        torch.cuda.synchronize()
+        k1_close()
+        c = launch_counts()
+        tiles = {key: v for key, v in c.items()
+                 if v and key not in ("pack",)}
+        if tiles or c["pack"] != packs:
+            raise AssertionError(f"phase 34: {what}: launches {c}, expected "
+                                 f"{packs} packs and nothing else")
+        for key, v in c.items():
+            totals[key] = totals.get(key, 0) + v
+        return out
+
+    def trainer(p, fin, ws, sched, params, **kw):
+        return FullBatchTrainer(p, fin=fin, widths=ws, params=params,
+                                comm_schedule=sched, device=dev, **kw)
+
+    def use_ell(on):
+        if on:
+            os.environ["SGCN_PALLAS_SPMM"] = "0"
+        else:
+            os.environ.pop("SGCN_PALLAS_SPMM", None)
+
+    # ---- (a) cora2708 8-hp (a2a, ring) and the directed cora, 3 steps
+    a, feats, labels = load_npz_dataset(os.path.join(fix, "cora2708.npz"))
+    pv = read_partvec(os.path.join(fix, "cora2708.8.hp"))
+    cw = [16, 7]
+    for name, g in (("cora", a), ("directed cora", cora_directed(a))):
+        cp = build_comm_plan(normalize_adjacency(g), pv, 8)
+        cd = make_train_data(cp, feats, labels, device=dev)
+        c0 = [w.detach().cpu().numpy() for w in trainer(
+            cp, 1433, cw, "a2a", None).params]
+        runs = {}
+        for sched in ("a2a", "ragged") if cp.symmetric else ("a2a",):
+            use_ell(True)
+            tr = trainer(cp, 1433, cw, sched, c0)
+            if tr.setup.aggregator != "ell":
+                raise AssertionError("phase 34: SGCN_PALLAS_SPMM=0 did not "
+                                     "select the ELL aggregator")
+            runs[sched] = (counted(lambda: [tr.step(cd) for _ in range(3)],
+                                   3 * 2 * len(cw), f"{name} {sched}"),
+                           [w.detach().clone() for w in tr.params])
+        use_ell(False)
+        tt = trainer(cp, 1433, cw, "a2a", c0)
+        tl = [tt.step(cd) for _ in range(3)]
+        (el, ew) = runs["a2a"]
+        ring = ("ragged" not in runs or (runs["ragged"][0] == el and all(
+            torch.equal(x, y) for x, y in zip(runs["ragged"][1], ew))))
+        close = np.allclose(el, tl, **ELL_TOL)
+        wt = [weights_track(x.cpu().numpy(), y.detach().cpu().numpy())
+              for x, y in zip(ew, tt.params)]
+        log(f"  {name} ELL a2a losses {el}, tile {tl}; ring == a2a {ring}; "
+            f"within rtol 1e-5 / atol 1e-6: {close}; weights track the tile "
+            f"path: {wt}")
+        if not (ring and close and all(ok for ok, _ in wt)):
+            raise AssertionError(f"phase 34: {name} ELL run differs")
+    marks.append(("(a) cora", time.perf_counter()))
+
+    # ---- (b) the flagship, 3 steps a2a and ring under a recorder
+    nl = len(widths)
+    per_step = nl + backward_passes(128, widths)
+    flag = {}
+    use_ell(True)
+    for sched in ("a2a", "ragged"):
+        tr = trainer(plan, 128, widths, sched, p_init)
+        d = os.path.join(ELL_DIR, f"flagship-{sched}")
+        rec = RunRecorder(d, config={"phase": 34, "comm_schedule": sched})
+        tr.attach_recorder(rec)
+        losses = counted(lambda: [tr.step(data) for _ in range(3)],
+                         3 * per_step, f"flagship {sched}")
+        rec.close()
+        tr.attach_recorder(None)
+        flag[sched] = (tr, losses, d)
+    te, el, _ = flag["a2a"]
+    ter, rl, _ = flag["ragged"]
+    ring = rl == el and all(torch.equal(x, y)
+                            for x, y in zip(ter.params, te.params))
+    use_ell(False)
+    tt = trainer(plan, 128, widths, "a2a", p_init)
+    tl = [tt.step(data) for _ in range(3)]
+    close = np.allclose(el, tl, **ELL_TOL)
+    wt = [weights_track(x.detach().cpu().numpy(), y.detach().cpu().numpy())
+          for x, y in zip(te.params, tt.params)]
+    same = el == tl and all(torch.equal(x, y)
+                            for x, y in zip(te.params, tt.params))
+    log(f"  flagship ELL a2a losses {el}, ring {rl}, tile {tl}; ring == "
+        f"a2a {ring}; ELL within rtol 1e-5 / atol 1e-6 of the tile path: "
+        f"{close} (bit for bit: {same}); weights track: {wt}")
+    if not (ring and close and all(ok for ok, _ in wt)):
+        raise AssertionError("phase 34: the flagship ELL run differs")
+    decision = te.comm_decision["aggregator"]
+    log(f"  ELL decision log: {json.dumps(decision)}")
+    marks.append(("(b) flagship", time.perf_counter()))
+
+    # ---- (c) the step events: schema, roofline, reconciliation
+    fracs = {}
+    for sched, (tr, _l, d) in flag.items():
+        steps = load_run(d).steps()            # validates every record
+        if len(steps) != 3:
+            raise AssertionError(f"phase 34: {sched}: {len(steps)} steps")
+        rows = []
+        for s in steps:
+            roof = s["roofline"]
+            gs = s["measured_vs_model"]["components"]["gather_stream"]
+            if roof["halo_bytes_wire_per_step"] != \
+                    s["comm"]["halo_bytes_wire_per_step"]:
+                raise AssertionError(f"phase 34: {sched} wire bytes "
+                                     f"{roof} vs {s['comm']}")
+            if roof["stream_ceiling_frac"] > 1.05:
+                raise AssertionError(f"phase 34: {sched} step {s['step']} "
+                                     f"stream_ceiling_frac {roof}")
+            rows.append({"step": s["step"], "wall_s": s["wall_s"],
+                         "gather_GB": roof["gather_GB"],
+                         "achieved_gather_GBs": roof["achieved_gather_GBs"],
+                         "stream_ceiling_frac": roof["stream_ceiling_frac"],
+                         "achieved_GFLOPs": roof["achieved_GFLOPs"],
+                         "halo_bytes_wire_per_step":
+                             roof["halo_bytes_wire_per_step"],
+                         "gather_stream_ratio": gs["ratio"]})
+        fracs[sched] = [r["stream_ceiling_frac"] for r in rows]
+        log(f"  flagship {sched} step events (schema-valid, wire bytes == "
+            f"CommStats'): {json.dumps(rows)}")
+        join = tr.memory_join
+        blk = join["block"]
+        ratio = blk["total"]["measured_bytes"] / tr.memory.total_bytes
+        log(f"  flagship {sched} memory: model {tr.memory.total_bytes} B "
+            f"(slot_temps {tr.memory.families['slot_temps']}), peak "
+            f"{blk['total']['measured_bytes']} B, peak / total {ratio:.4f} "
+            f"(the card's band {MEM_CARD_TOL}); arguments "
+            f"{blk['arguments']['measured_bytes']} vs "
+            f"{blk['arguments']['model_bytes']}")
+        if join["violations"] or ratio > MEM_CARD_TOL:
+            raise AssertionError(f"phase 34: {sched} memory "
+                                 f"{join['violations']}, ratio {ratio}")
+    before = torch.cuda.memory_allocated()
+    use_ell(True)
+    try:
+        trainer(plan, 128, widths, "a2a", p_init,
+                memory_budget=te.memory.total_bytes - 1)
+        raise AssertionError("phase 34: the memory budget did not gate")
+    except MemoryBudgetError as e:
+        log(f"  memory_budget = total - 1: MemoryBudgetError "
+            f"({str(e).splitlines()[0]!r}); memory_allocated {before} -> "
+            f"{torch.cuda.memory_allocated()}")
+    marks.append(("(c) events", time.perf_counter()))
+
+    # ---- (d) epoch_s ELL against tiles in turns; the device split; a
+    # profiled step and its exchange join
+    epoch = {"tile": [], "ell a2a": [], "ell ring": []}
+    for kind, tr in (("tile", tt), ("ell a2a", te), ("ell ring", ter),
+                     ("ell a2a", te), ("tile", tt)):
+        run = lambda tr=tr: tr.fit(data, epochs=5, warmup=1, verbose=False)
+        rep = (counted(run, 6 * per_step, kind) if kind != "tile"
+               else run())
+        epoch[kind].append(rep["epoch_s"])
+    log(f"  flagship epoch_s (1 warm-up + 5 steps each, in turns tile, ELL "
+        f"a2a, ELL ring, ELL a2a, tile): {json.dumps(epoch)}; card: {smi}")
+    split = counted(lambda: device_split("flagship ELL a2a step",
+                                         lambda: te.step(data), reps=3),
+                    3 * per_step, "device split")
+    tsplit = device_split("flagship tile a2a step", lambda: tt.step(data),
+                          reps=3)
+    prof_dir = os.path.join(ELL_DIR, "prof")
+    with profile_to(prof_dir, dev):
+        counted(lambda: te.step(data), per_step, "profiled step")
+    summ = summarize_trace(find_trace_files(prof_dir)[0]["path"])
+    per = summ.per_step(1)
+    # every exchange of an exact step is exposed (the roofline's
+    # exposed_halo_bytes)
+    exposed = te._step_cost_model().halo_bytes_wire_per_step
+    join = exchange_join(per, exposed)
+    log(f"  profiled ELL a2a step: trace on device {summ.on_device}, per "
+        f"step {json.dumps({k: round(v, 6) for k, v in per.items()})}; "
+        f"exchange join (exposed wire bytes {exposed} at the link ceiling "
+        f"{LINK_CEILING_GBS} GB/s, a datasheet figure): {json.dumps(join)}")
+    marks.append(("(d) times", time.perf_counter()))
+
+    # ---- (e) the full-mode server on the flagship, both transports
+    params = [w.detach().cpu().numpy() for w in eng_f.model.layer_params()]
+    q = np.arange(3 * 64).reshape(3, 64) * 883 % plan.n
+    want = np.concatenate([eng_f.query(b) for b in q])
+    use_ell(True)
+    served = {}
+    for sched in ("a2a", "ragged"):
+        eng = ServeEngine(plan, 128, widths, comm_schedule=sched,
+                          params=params, device=dev, max_batch=64)
+        if eng.setup.aggregator != "ell":
+            raise AssertionError("phase 34: the engine runs the tile path")
+        eng.set_features(feats_f)
+        served[sched] = counted(
+            lambda: np.concatenate([eng.query(b) for b in q]), 3 * nl,
+            f"serve {sched}")
+    ok = np.array_equal(served["a2a"], served["ragged"])
+    close = np.allclose(served["a2a"], want, **ELL_TOL)
+    gap = float(np.abs(served["a2a"] - want).max())
+    log(f"  flagship full-mode server on ELL: 3 batches of 64, rows finite "
+        f"{bool(np.isfinite(served['a2a']).all())}, ring == a2a {ok}, "
+        f"within rtol 1e-5 / atol 1e-6 of phase 3's tile engine {close} "
+        f"(max gap {gap:.3g})")
+    if not (ok and close):
+        raise AssertionError("phase 34: the ELL server's rows differ")
+    marks.append(("(e) serve", time.perf_counter()))
+    log("  phase 34 host seconds by section: " + json.dumps(
+        {name: round(t - t0, 1) for (_n, t0), (name, t) in
+         zip(marks, marks[1:])}))
+    log(f"  phase 34 ceilings: STREAM_CEILING_GBS {STREAM_CEILING_GBS} "
+        f"(measured, tools/spmm_micro.py), LINK_CEILING_GBS "
+        f"{LINK_CEILING_GBS} (NVLink 4 datasheet, per direction); "
+        f"stream_ceiling_frac a2a {fracs['a2a']}, ring {fracs['ragged']}; "
+        f"device split ELL {json.dumps(split)}, tile {json.dumps(tsplit)}")
+    log(f"  phase 34's main-path launches: {json.dumps(totals)}")
+    return totals
+
+
 def main() -> int:
     import torch
 
@@ -7377,10 +7717,11 @@ def main() -> int:
     log("phase 23: checkpoints at the flagship width (GCN a2a and ring, "
         "GAT a2a, float32): kill after a save and resume in a new process, "
         "a corrupt newest file, serving from a checkpoint, hot swap")
-    p23 = phase_checkpoints(plan, ahat_f, feats_f, labels_f, pv_f, widths_f,
-                            data, dev, smi)
+    killed = {}
+    p23 = phase_checkpoints(
+        plan, ahat_f, feats_f, labels_f, pv_f, widths_f, data, dev, smi,
+        on_inputs=lambda: killed.update(start_killed_children(widths_f)))
     MAIN_PATH_PACKS[0] += p23["pack"]
-    killed = start_killed_children(widths_f)
 
     # ---------------------------------------------------------- phase 24
     log("phase 24: the offline pipeline — cora2708 through the prep, "
@@ -7511,6 +7852,19 @@ def main() -> int:
     log(f"  phase 33 took {time.perf_counter() - t33:.1f} s")
 
     # ---------------------------------------------------------- phase 34
+    log("phase 34: the ELL aggregator (SGCN_PALLAS_SPMM=0) — cora2708 "
+        "(a2a, ring) and the directed cora, the flagship GCN on both "
+        "transports under a recorder, the full-mode server: ring == a2a, "
+        "ELL against tiles, no K1 or fused launch, one pack an exchange, "
+        "the roofline and measured_vs_model blocks, the memory join, "
+        "epoch_s and the device split")
+    t34 = time.perf_counter()
+    p34 = phase_ell(plan, data, p_init, widths_f, eng_f, feats_f, fix, dev,
+                    smi)
+    MAIN_PATH_PACKS[0] += p34["pack"]
+    log(f"  phase 34 took {time.perf_counter() - t34:.1f} s")
+
+    # ---------------------------------------------------------- phase 35
     fused_main = (launches_c + launches_f + launches_tc + launches_tf
                   + launches_fr + launches_rt + launches_ca + launches_cr
                   + l15["wire"] + l15["bf16"] + launches_16 + asym["fused"]

@@ -1,14 +1,16 @@
 """Partitioned GCN: per-layer stack over the tile-SpMM aggregator, and its
 losses.
 
-Port of the tile-kernel branches of ``sgcn_tpu/models/gcn.py``
+Port of ``sgcn_tpu/models/gcn.py``: its tile-kernel branches
 (``gcn_forward_local``, over the dense a2a exchange or the ragged ring,
 and on an asymmetric Â the ``pspmm_overlap`` branch, a2a only, stacked
 or one process per part), of
 ``gcn_forward_local_stale`` (the pipelined trainer's forward, with its
 replica × stale branch, both transports) and of
 ``gcn_forward_local_replica`` (hot-halo replicas, both transports, and
-the partial refresh on the a2a), run over all ``k`` parts stacked on
+the partial refresh on the a2a), and under ``SGCN_PALLAS_SPMM=0`` its
+ELL branches (``pspmm_ell_sym``, ``pspmm_ragged_sym``, ``pspmm_overlap``:
+``ops/pspmm.py``), run over all ``k`` parts stacked on
 a leading axis: per layer, halo
 exchange → tile SpMM → dense projection → activation, with the
 reference's project-first layer order.  Weights keep
@@ -30,7 +32,8 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from ..ops.pspmm import exchange_recv, narrow_dtype, ring_concat, settle
+from ..ops.pspmm import (ELL_RANKS_DEFERRAL, ell_aggregate, exchange_recv,
+                         narrow_dtype, ring_concat, settle)
 from ..ops.row_shuffle import row_pack
 from ..ops.tile_spmm import (pspmm_tiles_gen, pspmm_tiles_gen_ranks,
                               pspmm_tiles_ragged, pspmm_tiles_ranks,
@@ -109,6 +112,12 @@ def gcn_forward_local(
     pallas_t1classes: tuple = (),
     remat: bool = False,            # recompute each layer in the backward
     mesh=None,                      # a RankGroup: one process per part
+    aggregator: str = "tile",       # static: 'tile' or 'ell'
+                                    # (SGCN_PALLAS_SPMM=0)
+    ell_layout: str | None = None,  # static ELL chain layout ('a2a',
+                                    # 'ragged', 'directed')
+    ell_buckets: tuple | None = None,  # static plan.ell_buckets
+    ell_levels: dict | None = None,  # static chain level sizes
 ):
     """Stacked forward: L × (tile pspmm ⊗ dense matmul → activation) →
     ``(k, B, nout)``.  A wide input narrowed by the layer is projected
@@ -141,7 +150,14 @@ def gcn_forward_local(
     (a2a) ``pspmm_tiles_gen_ranks``, whose backward sends the halo rows'
     partials back to their owners with the reverse ``all_to_all_single``.
     Under ``remat`` the checkpoint re-runs each layer's collectives in the
-    backward, in the same order on every rank."""
+    backward, in the same order on every rank.
+
+    ``aggregator='ell'`` (``SGCN_PALLAS_SPMM=0``; ``ops/pspmm.py::
+    choose_ell_dispatch`` gives the ``ell_*`` statics) aggregates with the
+    reference's ELL ops instead of the tile kernel: ``PspmmEllSym`` on the
+    a2a, ``PspmmRaggedSym`` on the ring, ``PspmmOverlap`` on an
+    asymmetric plan (``ops/pspmm.py::ell_aggregate``); one pack per
+    exchange, the sums in torch ops.  Not on a rank group."""
     act = get_activation(activation)
     fact = get_activation(final_activation)
     nl = len(params)
@@ -156,7 +172,18 @@ def gcn_forward_local(
             "(the gradient rides the same ring); asymmetric plans run "
             "the a2a schedule")
     tclasses = (pallas_tlclasses, pallas_thclasses, pallas_t1classes)
-    if mesh is not None and not symmetric:
+    if aggregator == "ell":
+        if mesh is not None:
+            raise ValueError(ELL_RANKS_DEFERRAL)
+        static = {"ell_layout": ell_layout, "ell_buckets": ell_buckets,
+                  "ell_levels": ell_levels, "rr_sizes": rr_sizes}
+
+        def agg(x):
+            return ell_aggregate(x, pa, static, halo_dtype)
+    elif aggregator != "tile":
+        raise ValueError(f"unknown aggregator {aggregator!r} (know 'tile', "
+                         "'ell')")
+    elif mesh is not None and not symmetric:
         def agg(x):
             return pspmm_tiles_gen_ranks(x, pa, pallas_tb, pallas_lclasses,
                                          pallas_hclasses, tclasses, mesh,

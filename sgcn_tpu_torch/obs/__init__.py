@@ -8,7 +8,10 @@
     over the port's one table of kernel names;
   * ``memory``      — the analytic device footprint, the ``--memory-budget``
     gate and the card's measured join;
-  * ``attribution`` — the analytic FLOP counts of serving.
+  * ``attribution`` — the analytic step cost (``step_cost``), the
+    roofline fields and the FLOP counts of serving, priced with the
+    card's ceilings; ``tracing.measured_vs_model_block`` joins a measured
+    step against it (on the ELL aggregator's steps).
 
 Wired through ``FullBatchTrainer.attach_recorder`` /
 ``MiniBatchTrainer.attach_recorder`` / ``ServeEngine.attach_recorder``,
@@ -18,9 +21,8 @@ Wired through ``FullBatchTrainer.attach_recorder`` /
 ``recorder.append_env_event``) appends liveness pings to
 ``$SGCN_METRICS_OUT/heartbeat.jsonl``: the launch rendezvous
 (``parallel/launch.py``) and the train CLI's phases write them.  The
-reference's step cost model, roofline fields and ``measured_vs_model``
-block, and its span emitters (``emit_span``, ``scoped_span``), are
-ROADMAP A10's remainder.
+reference's span emitters (``emit_span``, ``scoped_span``) wait for the
+port's benchmark (ROADMAP A22).
 """
 
 from .memory import (MEM_MODEL_TOL, MemoryBudgetError, MemoryModel,
@@ -30,15 +32,18 @@ from .recorder import (RunLog, RunRecorder, append_env_event, heartbeat,
                        load_run, plan_digest, plan_manifest_block)
 from .schema import SCHEMA_VERSION, validate_event, validate_manifest
 from .tracing import (KERNEL_TABLE, TRACE_CLASSES, SpanTimer, TraceSummary,
-                      classify_op, find_trace_files, kernel_label,
+                      classify_op, exchange_join, find_trace_files,
+                      kernel_label, measured_vs_model_block,
                       summarize_trace)
 
 __all__ = [
     "KERNEL_TABLE", "MEM_MODEL_TOL", "SCHEMA_VERSION", "TRACE_CLASSES",
     "MemoryBudgetError", "MemoryModel", "RunLog", "RunRecorder",
     "SpanTimer", "TraceSummary", "append_env_event",
-    "check_memory_budget", "classify_op", "find_trace_files",
+    "check_memory_budget", "classify_op", "exchange_join",
+    "find_trace_files",
     "heartbeat", "kernel_label", "load_run", "measure_device_step",
+    "measured_vs_model_block",
     "memory_model", "minibatch_memory_model", "parse_bytes", "plan_digest",
     "plan_manifest_block", "reconcile", "summarize_trace",
     "validate_event", "validate_manifest",

@@ -36,7 +36,10 @@ allocates:
     baselines);
   * **workspace** — layer activations (and their backward mirrors to
     train) at the compute dtype; ``remat`` is priced as the plain step,
-    an envelope of its layer-by-layer recompute.
+    an envelope of its layer-by-layer recompute;
+  * **slot_temps** — under the ELL aggregator (``SGCN_PALLAS_SPMM=0``)
+    its transient tables at the widest exchanged width
+    (``ell_temp_bytes``): the family exists only then.
 
 The measured side replaces XLA's ``compiled.memory_analysis()``
 (``measure_device_step``): on the card, ``argument_bytes`` are the bytes
@@ -71,8 +74,10 @@ MEM_MODEL_TOL = 2.5
 # what the measured argument bytes reconcile against).
 ARGUMENT_FAMILIES = ("params", "opt_state", "features", "plan_arrays",
                      "pallas_tiles", "halo_carries", "replica_carries")
-# Families a step materializes while it runs.
-SCRATCH_FAMILIES = ("halo_tables", "wire_buffers", "workspace")
+# Families a step materializes while it runs (``slot_temps``: the ELL
+# aggregator's, under SGCN_PALLAS_SPMM=0).
+SCRATCH_FAMILIES = ("halo_tables", "wire_buffers", "workspace",
+                    "slot_temps")
 # Families a training step updates in place (the reference's donated set).
 DONATED_FAMILIES = ("params", "opt_state", "halo_carries",
                     "replica_carries")
@@ -311,6 +316,10 @@ def memory_model(plan, fin: int, widths, *, workload: str = "train",
             families["wire_buffers"] += 2 * side * (2 * fmax + 1) * \
                 wire_isize
 
+    if setup.aggregator == "ell":
+        families["slot_temps"] = ell_temp_bytes(
+            plan, setup.fwd_static, fmax, compute_isize, wire_isize)
+
     # layer activations (+ backward mirrors to train), every layer width
     npass = 2 if train else 1
     families["workspace"] = npass * k * b * (fin + sum(widths)) \
@@ -337,6 +346,28 @@ def memory_model(plan, fin: int, widths, *, workload: str = "train",
     }
     return MemoryModel(workload=workload, families=families, config=config,
                        overlays=overlays)
+
+
+def ell_temp_bytes(plan, static: dict, f: int, isize: int,
+                   wire_isize: int) -> int:
+    """The ELL aggregator's transient tensors while one aggregation runs
+    at width ``f`` (``ops/pspmm.py``; at most one runs at a time), an
+    envelope: on the symmetric layouts the per-bucket sums and their
+    concatenation, one slot's gather, the tail's and the remote pass's
+    zero-started tables and their sum (five ``(k·B, f)`` tables in all),
+    and the largest level's gather; on an asymmetric plan the backward's
+    ``dh``, owners' sum and their sum (three ``(k·B, f)``), the reverse
+    send buffer and the wire it is packed into (``(k, k·S, f)`` each) and
+    the largest level's gather."""
+    k, b = int(plan.k), int(plan.b)
+    level = max((max(v, default=0) for v in static["ell_levels"].values()),
+                default=0)
+    if static["ell_layout"] == "directed":
+        slots = k * k * int(plan.s)
+        return f * (isize * (3 * k * b + slots + level)
+                    + wire_isize * slots)
+    nb = max(nb for nb, _ in static["ell_buckets"])
+    return f * isize * (5 * k * b + k * nb + level)
 
 
 def minibatch_memory_model(plans, fin: int, widths, *, setup,

@@ -354,3 +354,74 @@ def profile_to(profile_dir: str | None, device):
     with open(path, "rb") as src, gzip.open(path + ".gz", "wb") as dst:
         shutil.copyfileobj(src, dst)
     os.remove(path)
+
+
+# ----------------------------------------------------------- reconciliation
+# (port of ``sgcn_tpu/obs/tracing.py:411-497``)
+
+def _sig(x: float, n: int = 6) -> float:
+    return float(f"{x:.{n}g}")
+
+
+def _mvm_entry(model_s: float, measured_s: float | None) -> dict:
+    """One ``measured_vs_model`` component: model/measured endpoints plus
+    the derived join (ratio + absolute error) whenever both are present."""
+    d = {"model_s": _sig(model_s)}
+    if measured_s is None:
+        d["measured_s"] = None
+        return d
+    d["measured_s"] = _sig(float(measured_s))
+    if d["model_s"] > 0:
+        d["ratio"] = d["measured_s"] / d["model_s"]
+        d["abs_err_s"] = d["measured_s"] - d["model_s"]
+    return d
+
+
+def exchange_join(trace_per_step: dict, exposed_halo_bytes: float) -> dict:
+    """The ``exchange`` component of ``measured_vs_model``: the measured
+    per-step EXPOSED comm seconds (``TraceSummary.per_step``'s
+    ``exposed_comm_s``: the exchange's device time not covered by
+    concurrent compute) joined against the analytic exposed wire bytes
+    serialized at the link ceiling (``exposed_halo_bytes /
+    LINK_CEILING_GBS``, the reference's ``ICI_CEILING_GBS`` join).  Both
+    sides are exposed figures and both exchange-shaped."""
+    from .attribution import LINK_CEILING_GBS
+
+    return _mvm_entry(
+        max(float(exposed_halo_bytes), 0.0) / (LINK_CEILING_GBS * 1e9),
+        trace_per_step.get("exposed_comm_s", 0.0))
+
+
+def measured_vs_model_block(cost, wall_s: float,
+                            phase_total_s: float | None = None,
+                            trace_per_step: dict | None = None,
+                            exposed_halo_bytes: float | None = None) -> dict:
+    """Join measured step time against the analytic ``StepCostModel``
+    into the per-step ``measured_vs_model`` block.
+
+    Components (each ``{model_s, measured_s, ratio, abs_err_s}``; ratio =
+    measured / model, > 1 means the step ran SLOWER than the model):
+
+      * ``gather_stream`` — model ``gather_bytes / STREAM_CEILING_GBS``
+        (the analytic gather-bound step time), measured the step's
+        span-measured wall time: the ratio is ``1 /
+        stream_ceiling_frac``, restated in seconds;
+      * ``exchange`` (only with a parsed profiler trace's
+        ``trace_per_step`` and the roofline's ``exposed_halo_bytes``):
+        ``exchange_join``.
+
+    ``phase_total_s`` defaults to ``wall_s``."""
+    from .attribution import STREAM_CEILING_GBS
+
+    wall_s = float(wall_s)
+    comps = {
+        "gather_stream": _mvm_entry(
+            cost.gather_bytes / (STREAM_CEILING_GBS * 1e9), wall_s),
+    }
+    if trace_per_step is not None and exposed_halo_bytes is not None:
+        comps["exchange"] = exchange_join(trace_per_step, exposed_halo_bytes)
+    return {
+        "phase_total_s": _sig(wall_s if phase_total_s is None
+                              else float(phase_total_s)),
+        "components": comps,
+    }

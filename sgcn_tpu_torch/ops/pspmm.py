@@ -1,5 +1,6 @@
-"""Halo exchange and the ragged ring over stacked parts (port of
-``sgcn_tpu/ops/pspmm.py::halo_exchange``, ``ragged_live_rounds`` and
+"""Halo exchange and the ragged ring over stacked parts, and the ELL
+aggregators (port of ``sgcn_tpu/ops/pspmm.py::halo_exchange``,
+``ragged_live_rounds`` and
 ``sgcn_tpu/ops/pallas_spmm.py::pallas_ring_concat``, and the stale
 mode's ``_stale_exchange`` / ``_stale_ragged_exchange``).
 
@@ -65,9 +66,24 @@ the WIRE only: the pack rounds each row to it as it stores it, so the receive
 buffer and the ring concat hold half the bytes under ``'bfloat16'``; the
 tile kernel reads them in place and widens each value exactly, which is
 the reference's upcast of the received rows.
+
+The reference's default aggregator, which ``SGCN_PALLAS_SPMM=0`` selects
+(``ell_selected``, ``choose_ell_dispatch``), is ported at the end of this
+module in torch ops (ROADMAP A2): ``bucketed_slot_reduce``, ``spmm_ell``,
+``spmm_local``, ``pspmm`` / ``pspmm_exchange``,
+``halo_exchange_ragged(_multi)``, ``_ragged_remote`` and the
+``autograd.Function``s ``PspmmEllSym`` (a2a), ``PspmmRaggedSym`` (the
+ring) and ``PspmmOverlap`` (any Â, the reference's ``pspmm_overlap``).
+They read the chain layout the plan builds (``parallel/plan.py::
+ell_chain_layout``): every scatter-add runs level by level
+(``chain_add``), so each row's sum is the reference's serial chain in
+stored order, run to run and ring against a2a bit for bit.  Their
+exchange is this module's pack, one per exchange.
 """
 
 from __future__ import annotations
+
+import os
 
 import torch
 
@@ -729,3 +745,398 @@ def partial_refresh_grad(gcarry, g, side, active, wire_dtype=None):
     old = cf.index_select(0, dst).to(g.dtype)
     cf.index_copy_(0, dst, (old * (1.0 - act) + vals * act).to(cf.dtype))
     return gcarry
+
+
+# ------------------------------------------------------ the ELL aggregators
+# The reference's default aggregator (``sgcn_tpu/ops/pspmm.py:48-107,
+# 169-556``): XLA gathers and segment sums outside any ``pallas_call``,
+# here torch ops over the stacked parts (ROADMAP A2).  The exchange is the
+# port's own row pack, one per exchange as on the tile path; the sums
+# launch no kernel of this package.
+#
+# The order of the sums.  XLA:CPU's sorted ``segment_sum`` and
+# ``.at[].add`` apply their updates one after another in stored order, so
+# each output row is one serial chain from +0.  ``torch.index_add_`` on a
+# CUDA tensor with a row named twice adds in an order that changes from
+# run to run, so every scatter here runs level by level
+# (``parallel/plan.py::chain_levels``): level j holds each row's j-th
+# update, no row twice, and the levels in order form the reference's
+# chains.  The ring folds its rounds' levels after one another, the same
+# chain per row as the a2a fold over ``hedge_*`` (sorted by (dst, round,
+# receive position)): ELL ring == ELL a2a bit for bit.  The slot passes
+# start from the first slot's product and add the rest in slot order, the
+# reference's unrolled branch; its scan branch (above 1.5 GiB of slot
+# temps, ``_CONCURRENT_TEMP_LIMIT`` & co.) is an XLA scheduling budget
+# and not carried: this loop holds one slot's gather at a time.
+
+def _rows(x):
+    """``(k, rows, f)`` → the ``(k·rows, f)`` view the flat indices name."""
+    return x.reshape(-1, x.shape[-1])
+
+
+def chain_add(out, table, src, dst, w, levels):
+    """``out[dst_e] += table[src_e] · w_e`` over the updates in
+    ``chain_levels`` order, one level at a time (in place; returns
+    ``out``).  ``table`` rows are cast to ``out``'s dtype before the
+    product (a bf16 wire's upcast), ``w`` (``None``: weight 1) to it
+    too; each level is one gather, one product and one ``index_add_``
+    whose rows are distinct, so each row's sum is its serial chain."""
+    if w is not None and w.dtype != out.dtype:
+        w = w.to(out.dtype)
+    off = 0
+    for n in levels:
+        seg = slice(off, off + n)
+        vals = table.index_select(0, src[seg])
+        if vals.dtype != out.dtype:
+            vals = vals.to(out.dtype)
+        if w is not None:
+            vals.mul_(w[seg, None])
+        out.index_add_(0, dst[seg], vals)
+        off += n
+    return out
+
+
+def bucketed_slot_reduce(flat_src, flat_w, buckets, contrib, k: int = 1):
+    """Σ over width slots of ``contrib(src_t, w_t)`` per bucket (port of
+    the reference's unrolled branch): ``buckets = ((nb, wb), ...)``, the
+    flat arrays hold, bucket after bucket and slot after slot, one
+    ``(k·nb)`` run per slot (``ell_chain_layout``'s ``ell_src`` /
+    ``ell_w``).  Each bucket's sum starts from its first slot's
+    contribution and adds the others in slot order.  Returns the
+    per-bucket sums in bucket order."""
+    outs, off = [], 0
+    for nb, wb in buckets:
+        run, acc = k * nb, None
+        for t in range(wb):
+            seg = slice(off + t * run, off + (t + 1) * run)
+            c = contrib(flat_src[seg], flat_w[seg])
+            acc = c if acc is None else acc.add_(c)
+        outs.append(acc)
+        off += run * wb
+    return outs
+
+
+def spmm_local(edge_dst, edge_src, edge_w, table, num_rows: int, levels):
+    """Masked segment-sum SpMM (port of ``spmm_local``): ``out[i] = Σ_e
+    w_e · table[src_e]`` for ``dst_e = i``, each row one serial chain in
+    stored order.  ``table`` ``(rows, f)`` flat over the stacked parts;
+    the edges are a ``chain_levels`` family with flat indices.  Returns
+    ``(num_rows, f)`` in ``table``'s dtype."""
+    out = table.new_zeros((num_rows, table.shape[-1]))
+    return chain_add(out, table, edge_src, edge_dst, edge_w, levels)
+
+
+def spmm_ell(ell_src, ell_w, tail_dst, tail_src, tail_w, h, buckets,
+             tail_levels):
+    """Local SpMM in bucketed-ELL layout plus the COO hub tail (port of
+    ``spmm_ell``) over stacked ``h`` ``(k, B, f)``: per width slot one
+    gather·weight and one add into the bucket's rows, then the tail's
+    chains (from +0) added.  ``ell_w`` and ``tail_w`` are cast to ``h``'s
+    dtype (the reference's plan arrays under ``compute_dtype``).
+    Returns ``(k, B, f)``."""
+    if sum(nb * wb for nb, wb in buckets) * h.shape[0] != ell_src.shape[0]:
+        raise ValueError(
+            f"bucket structure {buckets} does not cover the flat ELL arrays "
+            f"({ell_src.shape[0]} slots over {h.shape[0]} parts) — pass the "
+            "owning plan's ell_buckets")
+    k, _, f = h.shape
+    table = _rows(h)
+    w = ell_w.to(h.dtype)
+
+    def contrib(src, wt):
+        return table.index_select(0, src).mul_(wt[:, None])
+    outs = [o.view(k, -1, f) for o in bucketed_slot_reduce(
+        ell_src, w, buckets, contrib, k)]
+    out = outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
+    if tail_levels:
+        tsum = spmm_local(tail_dst, tail_src, tail_w, table, table.shape[0],
+                          tail_levels)
+        out = out + tsum.view(k, -1, f)
+    return out
+
+
+def pspmm(h, halo, edge_dst, edge_src, edge_w, levels):
+    """Aggregate with an already-exchanged halo: ``Â_local · [h; halo]``
+    (port of ``pspmm``) over the stacked ``(k, B + R, f)`` table;
+    ``ell_chain_layout(plan, 'edge')``'s ``edge_*``."""
+    k, b, f = h.shape
+    table = _rows(torch.cat([h, halo.to(h.dtype)], dim=1))
+    return spmm_local(edge_dst, edge_src, edge_w, table, k * b,
+                      levels).view(k, b, f)
+
+
+def pspmm_exchange(h, recv_src, halo_src_flat, edge_dst, edge_src, edge_w,
+                   levels):
+    """``PSpMM`` over the combined ``[h; halo]`` edge list (port of
+    ``pspmm_exchange``): the halo rows (``halo_exchange``, two packs),
+    then ``pspmm``."""
+    halo = halo_exchange(h, recv_src, halo_src_flat)
+    return pspmm(h, halo, edge_dst, edge_src, edge_w, levels)
+
+
+def halo_exchange_ragged_multi(parts, ring_src, rhalo_dst, rr_sizes, r: int,
+                               halo_dtype=None):
+    """The ring exchange of several row tables at once (port of
+    ``halo_exchange_ragged_multi``): the tables ride one ring concat
+    side by side (one pack, the ``(ΣS_d, Σ d_i)``-lane buffer of every
+    round, ``halo_dtype`` narrowing it), then each part's rows scatter into
+    its ``(k, r, ...)`` halo table at ``rhalo_dst`` (each slot written
+    once; pads name row ``r`` and are dropped, pad rows hold 0).  Returns
+    a tuple of halo tables in the parts' dtypes."""
+    k = parts[0].shape[0]
+    lanes = [p.shape[2] if p.dim() == 3 else 1 for p in parts]
+    dt = parts[0].dtype
+    for p in parts[1:]:
+        dt = torch.promote_types(dt, p.dtype)
+    wide = torch.cat([p.reshape(k, p.shape[1], ln).to(dt)
+                      for p, ln in zip(parts, lanes)], dim=-1)
+    recv = ring_concat(wide, ring_src, rr_sizes, halo_dtype)
+    live = bool(ragged_live_rounds(rr_sizes))
+    dst = (rhalo_dst.long() + (torch.arange(k, device=recv.device)
+                               * (r + 1))[:, None]).reshape(-1)
+    halos, col = [], 0
+    for p, ln in zip(parts, lanes):
+        tab = p.new_zeros((k * (r + 1), ln))
+        if live:
+            tab.index_copy_(0, dst, recv[..., col: col + ln]
+                            .reshape(-1, ln).to(p.dtype))
+        halos.append(tab.view(k, r + 1, ln)[:, :r].reshape(
+            (k, r) + tuple(p.shape[2:])))
+        col += ln
+    return tuple(halos)
+
+
+def halo_exchange_ragged(h, ring_src, rhalo_dst, rr_sizes, r: int,
+                         halo_dtype=None):
+    """The ring's ``(k, r, f)`` halo table (port of
+    ``halo_exchange_ragged``): the one-table form of
+    ``halo_exchange_ragged_multi``."""
+    (halo,) = halo_exchange_ragged_multi((h,), ring_src, rhalo_dst, rr_sizes,
+                                         r, halo_dtype)
+    return halo
+
+
+def _ragged_remote(x, ring_src, redge_dst, redge_src, redge_w, rr_sizes,
+                   levels, halo_dtype=None):
+    """Σ_d of round d's halo edges over its received rows (port of
+    ``_ragged_remote``): the ring concat (one pack), then each round's
+    ``redge_*`` levels folded into ``remote`` after the rounds before."""
+    k, b, f = x.shape
+    recv = ring_concat(x, ring_src, rr_sizes, halo_dtype)
+    remote = x.new_zeros((k * b, f))
+    chain_add(remote, _rows(recv), redge_src, redge_dst, redge_w, levels)
+    return remote.view(k, b, f)
+
+
+def _ell_local(h, pa, buckets, levels):
+    return spmm_ell(pa["ell_src"], pa["ell_w"], pa["ltail_dst"],
+                    pa["ltail_src"], pa["ltail_w"], h, buckets,
+                    levels["ltail"])
+
+
+def _pspmm_ell_once(h, pa, buckets, levels, halo_dtype):
+    k, b, f = h.shape
+    recv = exchange_recv(h, pa["recv_src"], halo_dtype)
+    local = _ell_local(h, pa, buckets, levels)
+    remote = h.new_zeros((k * b, f))
+    chain_add(remote, _rows(recv), pa["hedge_src"], pa["hedge_dst"],
+              pa["hedge_w"], levels["hedge"])
+    return local + remote.view(k, b, f)
+
+
+def _pspmm_ragged_once(h, pa, buckets, levels, rr_sizes, halo_dtype):
+    local = _ell_local(h, pa, buckets, levels)
+    remote = _ragged_remote(h, pa["ring_src"], pa["redge_dst"],
+                            pa["redge_src"], pa["redge_w"], rr_sizes,
+                            levels["redge"], halo_dtype)
+    return local + remote
+
+
+class PspmmEllSym(torch.autograd.Function):
+    """``PSpMM`` for a SYMMETRIC Â on the a2a exchange (port of
+    ``pspmm_ell_sym``): the exchange (``exchange_recv``, one pack), the
+    ELL local pass, the halo edges' chains over the receive buffer, and
+    ``local + remote``; the backward is the same form on ``g``
+    (Âᵀg = Âg), its exchange on the same wire.  ``pa``: the
+    ``ell_chain_layout(plan, 'a2a')`` tensors; ``levels`` their level
+    sizes by family name."""
+
+    @staticmethod
+    def forward(ctx, h, pa, buckets, levels, halo_dtype=None):
+        ctx.args = (pa, buckets, levels, halo_dtype)
+        return _pspmm_ell_once(h, pa, buckets, levels, halo_dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_pspmm_ell_once(g.contiguous(), *ctx.args),
+                None, None, None, None)
+
+
+class PspmmRaggedSym(torch.autograd.Function):
+    """``PSpMM`` over the ragged ring for a SYMMETRIC Â (port of
+    ``pspmm_ragged_sym``): the ELL local pass and the round-by-round fold
+    of the ring (``_ragged_remote``); the backward is the same form on
+    ``g``.  ``pa``: ``ell_chain_layout(plan, 'ragged')``'s tensors."""
+
+    @staticmethod
+    def forward(ctx, h, pa, buckets, levels, rr_sizes, halo_dtype=None):
+        ctx.args = (pa, buckets, levels, rr_sizes, halo_dtype)
+        return _pspmm_ragged_once(h, pa, buckets, levels, rr_sizes,
+                                  halo_dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (_pspmm_ragged_once(g.contiguous(), *ctx.args),
+                None, None, None, None, None)
+
+
+class PspmmOverlap(torch.autograd.Function):
+    """``PSpMM`` of any Â over the split edge lists (port of
+    ``pspmm_overlap``): the exchange (one pack), the local-src chains
+    over ``h`` and the halo-src chains over the receive buffer, ``local +
+    remote``.  The backward is the transpose the reference takes from
+    ``jax.vjp``, every scatter in the stored edge order: the local edges'
+    transposed chains into ``dh``, the halo edges' into each part's
+    reverse send buffer (its receive layout), the reverse exchange (one
+    pack by ``rev_src``, narrowed to ``halo_dtype``), the owners' weight-1
+    chains over what came back, and the two sums added.  ``pa``:
+    ``ell_chain_layout(plan, 'directed')``'s tensors."""
+
+    @staticmethod
+    def forward(ctx, h, pa, levels, halo_dtype=None):
+        ctx.args = (pa, levels, halo_dtype)
+        k, b, f = h.shape
+        recv = exchange_recv(h, pa["recv_src"], halo_dtype)
+        local = spmm_local(pa["ledge_dst"], pa["ledge_src"], pa["ledge_w"],
+                           _rows(h), k * b, levels["ledge"])
+        remote = h.new_zeros((k * b, f))
+        chain_add(remote, _rows(recv), pa["hedge_src"], pa["hedge_dst"],
+                  pa["hedge_w"], levels["hedge"])
+        return (local + remote).view(k, b, f)
+
+    @staticmethod
+    def backward(ctx, g):
+        pa, levels, halo_dtype = ctx.args
+        g = g.contiguous()
+        k, b, f = g.shape
+        gf = _rows(g)
+        dh = spmm_local(pa["ledge_t_dst"], pa["ledge_t_src"],
+                        pa["ledge_t_w"], gf, k * b, levels["ledge_t"])
+        send_rev = g.new_zeros((k, pa["rev_src"].shape[1], f))
+        chain_add(_rows(send_rev), gf, pa["hedge_t_src"], pa["hedge_t_dst"],
+                  pa["hedge_t_w"], levels["hedge_t"])
+        rwire = reverse_exchange(send_rev, pa["rev_src"], halo_dtype,
+                                 g.dtype)
+        back = g.new_zeros((k * b, f))
+        chain_add(back, _rows(rwire), pa["owner_src"], pa["owner_dst"],
+                  None, levels["owner"])
+        return (dh + back).view(k, b, f), None, None, None
+
+
+def pspmm_ell_sym(h, pa, buckets, levels, halo_dtype=None):
+    return PspmmEllSym.apply(h, pa, buckets, levels, halo_dtype)
+
+
+def pspmm_ragged_sym(h, pa, buckets, levels, rr_sizes, halo_dtype=None):
+    return PspmmRaggedSym.apply(h, pa, buckets, levels, rr_sizes, halo_dtype)
+
+
+def pspmm_overlap(h, pa, levels, halo_dtype=None):
+    return PspmmOverlap.apply(h, pa, levels, halo_dtype)
+
+
+# ------------------------------------------------------ the selection
+# plan arrays the ELL GCN forward ships (``ell_chain_layout``'s names): the
+# symmetric a2a aggregation, the ring's and an asymmetric plan's
+ELL_PLAN_FIELDS = ("recv_src", "ell_src", "ell_w", "ltail_dst", "ltail_src",
+                   "ltail_w", "hedge_dst", "hedge_src", "hedge_w")
+ELL_PLAN_FIELDS_RAGGED = ("ring_src", "ell_src", "ell_w", "ltail_dst",
+                          "ltail_src", "ltail_w", "redge_dst", "redge_src",
+                          "redge_w")
+ELL_PLAN_FIELDS_GEN = ("recv_src", "ledge_dst", "ledge_src", "ledge_w",
+                       "hedge_dst", "hedge_src", "hedge_w",
+                       "ledge_t_dst", "ledge_t_src", "ledge_t_w",
+                       "hedge_t_dst", "hedge_t_src", "hedge_t_w",
+                       "owner_dst", "owner_src", "rev_src")
+
+# what SGCN_PALLAS_SPMM=0 refuses, naming the ROADMAP item each waits on
+ELL_RANKS_DEFERRAL = (
+    "SGCN_PALLAS_SPMM=0 selects the ELL aggregator, which runs on the "
+    "stacked parts only: ELL on ranks is ROADMAP A2d — unset "
+    "SGCN_PALLAS_SPMM (or set 'auto') to train on ranks")
+ELL_GAT_DEFERRAL = (
+    "SGCN_PALLAS_SPMM=0 selects the ELL aggregator, which is ported for "
+    "GCN only: GAT's slot passes are ROADMAP A2 (its GAT half) — unset "
+    "SGCN_PALLAS_SPMM (or set 'auto') to run GAT on the tile kernel")
+ELL_MODE_DEFERRAL = (
+    "SGCN_PALLAS_SPMM=0 selects the ELL aggregator, which runs the exact "
+    "full-batch step and the full-mode server only: the {mode} runs on "
+    "the tile kernel (ROADMAP, 'Not carried': the ELL flavours of the "
+    "stale, replica, mini-batch and sub-graph modes) — unset "
+    "SGCN_PALLAS_SPMM (or set 'auto')")
+
+# why the reference's ``auto`` is not carried: it means "the Pallas
+# kernel only on a TPU" (``sgcn_tpu/ops/pallas_spmm.py:304-325``)
+ELL_SELECTION_RULE = (
+    "SGCN_PALLAS_SPMM unset, 'auto' or '1': every class runs the tile "
+    "kernel (the reference's 'auto' picks Pallas only on a TPU whose "
+    "per-chip tables fit 4 MiB of VMEM, a rule with no meaning on the "
+    "card); '0': the ELL aggregator")
+
+
+def ell_selected() -> bool:
+    """The reference's switch: ``SGCN_PALLAS_SPMM=0`` selects the ELL
+    aggregator, anything else (unset, ``auto``, ``1``) the tile kernel."""
+    return os.environ.get("SGCN_PALLAS_SPMM", "auto") == "0"
+
+
+def choose_ell_dispatch(plan, schedule: str = "a2a",
+                        decision: dict | None = None) -> dict:
+    """Build the plan's ELL chain layout for ``schedule`` (``'a2a'``,
+    ``'ragged'``; an asymmetric plan takes ``'directed'``) and return the
+    forward's static kwargs: ``aggregator='ell'``, the buckets, every
+    chain family's level sizes (``ell_levels``) and, on the ring, its
+    round sizes.  Logs the choice in ``decision['aggregator']``."""
+    if schedule not in ("a2a", "ragged"):
+        raise ValueError(f"unknown comm schedule {schedule!r} (resolve "
+                         "'auto' first: parallel/plan.py::"
+                         "resolve_comm_schedule)")
+    layout = schedule if plan.symmetric else "directed"
+    plan.ensure_ell_chains(layout)
+    chains = plan.ell_chains[layout]
+    out = {"aggregator": "ell", "ell_layout": layout,
+           "ell_buckets": plan.ell_buckets,
+           "ell_levels": {name[: -len("_levels")]: sizes
+                          for name, sizes in chains.items()
+                          if name.endswith("_levels")}}
+    if not plan.symmetric:
+        out["symmetric"] = False
+    if schedule == "ragged":
+        out.update(comm_schedule="ragged", rr_sizes=plan.rr_sizes)
+    if decision is not None:
+        decision["aggregator"] = {
+            "chosen": "ell", "layout": layout,
+            "env": os.environ.get("SGCN_PALLAS_SPMM"),
+            "rule": ELL_SELECTION_RULE,
+            "levels": {k: len(v) for k, v in out["ell_levels"].items()}}
+    return out
+
+
+def ell_plan_fields(layout: str) -> tuple:
+    """The shipped chain arrays of an ELL layout (``choose_ell_dispatch``'s
+    ``ell_layout``)."""
+    return {"a2a": ELL_PLAN_FIELDS, "ragged": ELL_PLAN_FIELDS_RAGGED,
+            "directed": ELL_PLAN_FIELDS_GEN}[layout]
+
+
+def ell_aggregate(x, pa, static, halo_dtype=None):
+    """One ELL aggregation of the forward's static kwargs ``static``
+    (``choose_ell_dispatch``): ``PspmmEllSym`` on the a2a, ``PspmmRaggedSym``
+    on the ring, ``PspmmOverlap`` on an asymmetric plan."""
+    levels = static["ell_levels"]
+    if static["ell_layout"] == "directed":
+        return pspmm_overlap(x, pa, levels, halo_dtype)
+    if static["ell_layout"] == "ragged":
+        return pspmm_ragged_sym(x, pa, static["ell_buckets"], levels,
+                                static["rr_sizes"], halo_dtype)
+    return pspmm_ell_sym(x, pa, static["ell_buckets"], levels, halo_dtype)

@@ -64,8 +64,10 @@ position (``rep_*_dst``, ``rep_src_flat``, ``rep_base_flat``,
 ``pad_comm_plan`` re-pads a batch plan to it, ``shared_ell_buckets``
 gives the buckets every batch plan shares, and ``ensure_cell`` /
 ``ensure_ragged`` take a forced combined layout and forced round sizes.
-Not ported: the per-round halo-edge split of the ELL ring aggregator
-(``rr_edge_sizes``, ``redge_*``).
+``ensure_ragged`` also splits the halo-src edges per arrival round
+(``rr_edge_sizes``, ``redge_*``), which the ELL ring aggregator folds, and
+``ensure_ell_chains`` lays the ELL aggregators' sums out as serial chains
+over the stacked parts (port only: ``ell_chain_layout``).
 Everything here is offline numpy.
 """
 
@@ -137,10 +139,10 @@ REPLICA_PARTIAL_RANK_FIELDS = ("rep_rows_flat", "rep_row_valid",
 # the explicit classification anything slicing a plan per part reads
 # (``parallel/proxy.py::shard_proxy_plan``, the rank runtime), never a
 # ``shape[0] == k`` coincidence.  The reference's members first, under its
-# name (``redge_*`` is not ported and stays ``None``-absent); then the
-# port-only per-part layouts (tile sources re-based into the part's own
-# receive buffer, the transposed families, a mask).  Lazy layouts are
-# listed too and skipped while ``None``.
+# name; then the port-only per-part layouts (tile sources re-based into
+# the part's own receive buffer, the transposed families, a mask, the
+# ring's per-round edge counts).  Lazy layouts are listed too and skipped
+# while ``None``.
 PER_CHIP_ARRAY_FIELDS = (
     "part_sizes",
     "send_idx", "send_counts", "halo_src", "halo_counts",
@@ -166,7 +168,7 @@ PER_CHIP_ARRAY_FIELDS = (
     "ptile_tclsrc", "ptile_tclld", "ptile_tclw",
     "ptile_tchsrc", "ptile_tchld", "ptile_tchw",
     "ptile_tc1src", "ptile_tc1ld", "ptile_tc1w",
-    "rep_row_valid",
+    "rep_row_valid", "redge_nnz",
 )
 
 # Global-vertex-indexed arrays (plus a slice's part-identity record): a
@@ -319,6 +321,16 @@ class CommPlan:
     ring_src: np.ndarray | None = None     # (k, ΣS_d) int32 flat stacked
     #                                        row p·B + i of each ring concat
     #                                        slot (port only)
+    # the halo-src edges split per arrival round (``ensure_ragged``):
+    # round d's edges of part q are those whose source part is (q−d) mod
+    # k, src re-based to the round's receive buffer; round d owns the next
+    # E_d slots (``rr_edge_sizes``), pads dst B−1, src 0, weight 0
+    rr_edge_sizes: tuple | None = None     # (k-1,) static per-round edges
+    redge_dst: np.ndarray | None = None    # (k, ΣE_d) int32 local dst row
+    redge_src: np.ndarray | None = None    # (k, ΣE_d) int32 round slot
+    redge_w: np.ndarray | None = None      # (k, ΣE_d) float32, 0 on pads
+    redge_nnz: np.ndarray | None = None    # (k, k-1) int32 true edges per
+    #                                        round (port only)
 
     # a2a receive layout over the stacked parts (lazy, ``ensure_exchange``;
     # port only): recv[q, p·S + t] = h[p, send_idx[p, q, t]]
@@ -434,6 +446,11 @@ class CommPlan:
     # ``None`` on a full plan): row 0 of part c's slice self-sends at
     # column c, which the comm counters zero
     chip_ids: np.ndarray | None = None
+
+    # the ELL aggregators' serial-chain layouts (lazy, ``ensure_ell_chains``;
+    # port only): flat arrays over the stacked parts and their static
+    # level sizes, by name (``ell_chain_layout`` documents each)
+    ell_chains: dict | None = None
 
     def _pallas_family(self, dst, src, w, tb: int, class_tiles):
         """Stack one edge family's per-part tile classes into flat
@@ -751,18 +768,22 @@ class CommPlan:
         (owner, vertex) and every send list is id-sorted, so a round's
         rows arrive exactly as the owner's contiguous halo slice.
 
-        ``rr_sizes`` forces larger per-round sizes (the mini-batch trainer
-        pads every batch plan's rounds to a shared envelope, as the
-        reference does); a forced size below the natural one raises, and
-        a layout built at other sizes is rebuilt (with the ring-re-based
-        tile sources, ``ptile_hrsrc``/``ptile_crsrc``, dropped).
-        ``rr_edge_sizes`` is accepted so call sites read like the
-        reference's, and ignored: the reference's per-round halo-edge split
-        (``redge_*``, sized by it) feeds its ELL ring aggregator, which is
-        not ported — the tile layout reads the ring concat through
-        ``ptile_hrsrc``."""
-        del rr_edge_sizes                  # the redge_* split: not ported
-        if self.rr_sizes is not None and rr_sizes in (None, self.rr_sizes):
+        The halo-src edges are split per arrival round as the reference
+        does (``redge_*``, round d in ``rr_edge_sizes[d−1]`` slots, src
+        re-based to the round's receive buffer): ``hedge_*`` is sorted by
+        (dst, round, receive position), so folding the rounds in order
+        adds each row's edges in the a2a fold's order — the ragged == a2a
+        bit-identity of the ELL aggregators.  ``redge_nnz`` (port only)
+        counts each round's true edges per part.
+
+        ``rr_sizes`` / ``rr_edge_sizes`` force larger per-round envelopes
+        (the mini-batch trainer pads every batch plan's rounds to a shared
+        envelope, as the reference does); a forced size below the natural
+        one raises, and a layout built at other sizes is rebuilt (when the
+        round sizes change, with the ring-re-based tile sources,
+        ``ptile_hrsrc``/``ptile_crsrc``, dropped)."""
+        if (self.rr_sizes is not None and rr_sizes in (None, self.rr_sizes)
+                and rr_edge_sizes in (None, self.rr_edge_sizes)):
             return self
         self._full_only("ensure_ragged()")
         nat = self.ragged_round_sizes()
@@ -777,7 +798,8 @@ class CommPlan:
         k, s, r = self.k, self.s, self.r
         sc = np.asarray(self.send_counts)
         owner_rank = np.asarray(self.halo_src) // s       # (k, R) owner per
-        st = max(1, sum(rr_sizes))                        # halo rank
+        pos_rank = np.asarray(self.halo_src) % s          # halo rank + pos
+        st = max(1, sum(rr_sizes))
         rsend_idx = np.zeros((k, st), np.int32)
         rhalo_dst = np.full((k, st), r, np.int32)         # r = dropped pad
         off = 0
@@ -797,24 +819,95 @@ class CommPlan:
                             f"{len(ranks)} rows, send list says {rc}")
                     rhalo_dst[p, off: off + rc] = ranks.astype(np.int32)
             off += sd
-        # each concat slot's flat stacked row: round d's slots of part q
-        # hold what part (q−d) mod k sends
-        ring_src = np.zeros((k, st), np.int64)
+        # per-round halo-src edge families: hedge is (dst, round, pos)-sorted
+        # at build time, so each round's subsequence is (dst, pos)-sorted
+        rounds = []
+        for q in range(k):
+            cnt = int(self.hnnz[q])
+            d_ = self.hedge_dst[q, :cnt]
+            s_ = self.hedge_src[q, :cnt]
+            w_ = self.hedge_w[q, :cnt]
+            fold = (q - owner_rank[q, s_]) % k            # arrival round
+            rounds.append([(d_[fold == d], pos_rank[q, s_[fold == d]],
+                            w_[fold == d]) for d in range(1, k)])
+        nat_es = tuple(max((len(rounds[q][d][0]) for q in range(k)),
+                           default=0) for d in range(max(k - 1, 0)))
+        if rr_edge_sizes is None:
+            rr_edge_sizes = nat_es
+        elif (len(rr_edge_sizes) != len(nat_es)
+                or any(a < b for a, b in zip(rr_edge_sizes, nat_es))):
+            raise ValueError(
+                f"forced rr_edge_sizes {tuple(rr_edge_sizes)} smaller than "
+                f"natural {nat_es}")
+        rr_edge_sizes = tuple(int(x) for x in rr_edge_sizes)
+        et = max(1, sum(rr_edge_sizes))
+        redge_dst = np.full((k, et), self.b - 1, np.int32)
+        redge_src = np.zeros((k, et), np.int32)
+        redge_w = np.zeros((k, et), np.float32)
+        redge_nnz = np.zeros((k, max(k - 1, 0)), np.int32)
         off = 0
-        for d, sd in enumerate(rr_sizes, start=1):
+        for d, ed in enumerate(rr_edge_sizes):
             for q in range(k):
-                o = (q - d) % k
-                ring_src[q, off: off + sd] = (
-                    o * self.b + rsend_idx[o, off: off + sd])
-            off += sd
-        if k * self.b >= 2 ** 31:
-            raise ValueError(f"stacked ring of k={k}, B={self.b} overflows "
-                             "int32 row indices")
+                dd, ss, ww = rounds[q][d]
+                redge_dst[q, off: off + len(dd)] = dd
+                redge_src[q, off: off + len(ss)] = ss
+                redge_w[q, off: off + len(ww)] = ww
+                redge_nnz[q, d] = len(dd)
+            off += ed
+        if rr_sizes != self.rr_sizes:
+            # each concat slot's flat stacked row: round d's slots of part q
+            # hold what part (q−d) mod k sends
+            ring_src = np.zeros((k, st), np.int64)
+            off = 0
+            for d, sd in enumerate(rr_sizes, start=1):
+                for q in range(k):
+                    o = (q - d) % k
+                    ring_src[q, off: off + sd] = (
+                        o * self.b + rsend_idx[o, off: off + sd])
+                off += sd
+            if k * self.b >= 2 ** 31:
+                raise ValueError(f"stacked ring of k={k}, B={self.b} "
+                                 "overflows int32 row indices")
+            self.ring_src = ring_src.astype(np.int32)
+            self.ptile_hrsrc = self.ptile_crsrc = None  # re-based on the ring
         self.rr_sizes = rr_sizes
         self.rsend_idx = rsend_idx
         self.rhalo_dst = rhalo_dst
-        self.ring_src = ring_src.astype(np.int32)
-        self.ptile_hrsrc = self.ptile_crsrc = None   # re-based on the ring
+        self.rr_edge_sizes = rr_edge_sizes
+        self.redge_dst = redge_dst
+        self.redge_src = redge_src
+        self.redge_w = redge_w
+        self.redge_nnz = redge_nnz
+        if self.ell_chains is not None:
+            self.ell_chains.pop("ragged", None)        # built on the old ring
+        return self
+
+    # ------------------------------------------------ ELL serial chains
+    def ensure_ell_chains(self, schedule: str = "a2a") -> "CommPlan":
+        """Lay out the ELL aggregators' sums for ``schedule`` on first use
+        (port only; ``ell_chain_layout`` documents the arrays): ``'a2a'``
+        and ``'ragged'`` the symmetric aggregation (``ops/pspmm.py::
+        PspmmEllSym`` / ``PspmmRaggedSym``), ``'directed'`` the
+        split-edge aggregation of an asymmetric Â and its transpose
+        (``pspmm_overlap``), ``'edge'`` the combined ``[local; halo]``
+        edge list (``pspmm``).  Builds the exchange layout it reads
+        (``ensure_exchange``, and ``ensure_ragged`` for the ring)."""
+        if schedule not in ("a2a", "ragged", "directed", "edge"):
+            raise ValueError(f"unknown ELL chain layout {schedule!r}")
+        if self.chip_ids is not None:
+            # the chains index the stacked parts' receive layouts; a
+            # slice's is a loopback of k·S rows (ROADMAP A2d)
+            raise ValueError("the ELL aggregator runs on the stacked "
+                             "parts only: a one-part slice (the shard "
+                             "proxy, a rank) has no ELL chain layout — "
+                             "ELL on ranks is ROADMAP A2d")
+        chains = self.ell_chains if self.ell_chains is not None else {}
+        if schedule not in chains:
+            self.ensure_exchange()
+            if schedule == "ragged":
+                self.ensure_ragged()
+            chains[schedule] = ell_chain_layout(self, schedule)
+        self.ell_chains = chains
         return self
 
     def padding_efficiency(self) -> float:
@@ -1589,6 +1682,155 @@ def _cell_fields(ell: dict) -> dict:
                 cell_idx=ell["ell_idx"], cell_w=ell["ell_w"],
                 ctail_dst=ell["ltail_dst"], ctail_src=ell["ltail_src"],
                 ctail_w=ell["ltail_w"], ctail_nnz=ell["ltail_nnz"])
+
+
+def chain_levels(dst) -> tuple:
+    """The serial chains of a scatter-add ``out[dst_e] += v_e`` in stored
+    order ``e = 0, 1, …``, as levels: each update's rank among the earlier
+    updates of its row is its level, and level ``j`` holds every row's
+    ``j``-th update, so no level names a row twice.  Adding the levels in
+    order into a zero table forms each row's sum as the one chain
+    ``((0 + v_a) + v_b) + …`` in stored order: XLA:CPU's sorted
+    ``segment_sum`` and ``.at[].add``, with no two updates of a level
+    racing on a row.  Returns ``(perm, sizes)``: the updates in level
+    order (stored order within a level) and each level's size."""
+    dst = np.asarray(dst, np.int64).reshape(-1)
+    n = dst.size
+    if n == 0:
+        return np.zeros(0, np.int64), ()
+    order = np.argsort(dst, kind="stable")
+    sd = dst[order]
+    start = np.r_[0, np.flatnonzero(sd[1:] != sd[:-1]) + 1]
+    first = np.repeat(start, np.diff(np.r_[start, n]))
+    rank = np.empty(n, np.int64)
+    rank[order] = np.arange(n) - first
+    return (np.argsort(rank, kind="stable"),
+            tuple(int(x) for x in np.bincount(rank)))
+
+
+def _chain(out: dict, name: str, dst, src, w=None) -> None:
+    """Store one scatter-add family as ``{name}_dst/_src[/_w]`` (int32
+    flat rows, float32 weights) in level order and ``{name}_levels``."""
+    perm, sizes = chain_levels(dst)
+    out[f"{name}_dst"] = np.asarray(dst, np.int64)[perm].astype(np.int32)
+    out[f"{name}_src"] = np.asarray(src, np.int64)[perm].astype(np.int32)
+    if w is not None:
+        out[f"{name}_w"] = np.asarray(w, np.float32)[perm]
+    out[f"{name}_levels"] = sizes
+
+
+def _real(plan, dst, src, w, counts, dst_base, src_base):
+    """Every part's first ``counts[p]`` edges, flattened over the parts:
+    flat dst ``p·dst_base + dst``, flat src ``src_base(p, src)``."""
+    ds, ss, ws = [], [], []
+    for p in range(plan.k):
+        c = int(counts[p])
+        ds.append(p * dst_base + np.asarray(dst[p, :c], np.int64))
+        ss.append(src_base(p, np.asarray(src[p, :c], np.int64)))
+        ws.append(np.asarray(w[p, :c], np.float32))
+    return np.concatenate(ds), np.concatenate(ss), np.concatenate(ws)
+
+
+def ell_chain_layout(plan, schedule: str) -> dict:
+    """The flat arrays the ELL aggregators read (port only), over the
+    ``k`` parts stacked: a row of part ``p`` is ``p·B + i``, a receive
+    slot ``q·k·S + j`` (a2a buffer) or ``q·ΣS_d + j`` (ring concat).
+    Only true edges enter a chain; every chain family (``*_dst``,
+    ``*_src``, ``*_w``, ``*_levels``) is in ``chain_levels`` order.
+
+      * ``ell_src`` / ``ell_w`` (``'a2a'``, ``'ragged'``): ``ell_idx`` /
+        ``ell_w`` re-laid bucket by bucket, slot by slot, part by part,
+        so each width slot of a bucket is one ``(k·nb)`` run, in the
+        reference's width-major slot order;
+      * ``ltail_*``: the hub tail ``ltail_*``, local rows;
+      * ``hedge_*`` (``'a2a'``, ``'directed'``): the halo-src edges, each
+        source the receive slot of its halo row (``halo_src_flat``), so
+        the remote pass reads the exchange's receive buffer in place;
+      * ``redge_*`` (``'ragged'``): the per-round split ``redge_*``, round
+        after round, each source its slot of the ring concat;
+      * ``ledge_*`` (``'directed'``): the local-src edges; ``ledge_t_*``
+        and ``hedge_t_*`` their transposes (dst a source row or receive
+        slot, in the stored edge order: XLA's transpose of a gather is a
+        scatter-add in that order); ``owner_*`` the owners' sum of the
+        reverse exchange (dst ``p·B + send_idx[p, q, t]``, src ``p·k·S +
+        q·S + t``, weight 1) and ``rev_src`` its pack, ``rwire[p, q·S + t]
+        = send_rev[q, p·S + t]`` over ``(k, k·S)`` buffers;
+      * ``edge_*`` (``'edge'``): the combined edge list over ``[local;
+        halo]`` tables ``(k, B + R, f)``;
+      * ``recv_src`` or ``ring_src``: the exchange's pack."""
+    k, b, s = plan.k, plan.b, plan.s
+    out: dict = {}
+    if schedule in ("a2a", "ragged"):
+        srcs, ws, off = [], [], 0
+        base = (np.arange(k, dtype=np.int64) * b)[:, None, None]
+        for nb, wb in plan.ell_buckets:
+            blk = np.asarray(plan.ell_idx[:, off: off + nb * wb], np.int64)
+            srcs.append((blk.reshape(k, wb, nb) + base).transpose(1, 0, 2)
+                        .reshape(-1))
+            ws.append(np.asarray(plan.ell_w[:, off: off + nb * wb])
+                      .reshape(k, wb, nb).transpose(1, 0, 2).reshape(-1))
+            off += nb * wb
+        out["ell_src"] = np.concatenate(srcs).astype(np.int32)
+        out["ell_w"] = np.concatenate(ws).astype(np.float32)
+        _chain(out, "ltail", *_real(
+            plan, plan.ltail_dst, plan.ltail_src, plan.ltail_w,
+            plan.ltail_nnz, b, lambda p, x: p * b + x))
+    hsf = np.asarray(plan.halo_src_flat, np.int64)
+    if schedule in ("a2a", "directed"):
+        _chain(out, "hedge", *_real(
+            plan, plan.hedge_dst, plan.hedge_src, plan.hedge_w, plan.hnnz,
+            b, lambda p, x: hsf[p, x]))
+        out["recv_src"] = plan.recv_src
+    if schedule == "ragged":
+        st = plan.ring_src.shape[1]
+        ds, ss, ws, levels = [], [], [], ()
+        off_s = off_e = 0
+        for d, (sd, ed) in enumerate(zip(plan.rr_sizes,
+                                         plan.rr_edge_sizes)):
+            fam: dict = {}
+            cnt = plan.redge_nnz[:, d]
+            sl = slice(off_e, off_e + ed)
+            _chain(fam, "r", *_real(
+                plan, plan.redge_dst[:, sl], plan.redge_src[:, sl],
+                plan.redge_w[:, sl], cnt, b,
+                lambda p, x, o=off_s: p * st + o + x))
+            ds.append(fam["r_dst"])
+            ss.append(fam["r_src"])
+            ws.append(fam["r_w"])
+            levels += fam["r_levels"]
+            off_s += sd
+            off_e += ed
+        out["redge_dst"] = np.concatenate(ds).astype(np.int32)
+        out["redge_src"] = np.concatenate(ss).astype(np.int32)
+        out["redge_w"] = np.concatenate(ws).astype(np.float32)
+        out["redge_levels"] = levels
+        out["ring_src"] = plan.ring_src
+    if schedule == "directed":
+        ld, ls, lw = _real(plan, plan.ledge_dst, plan.ledge_src,
+                           plan.ledge_w, plan.lnnz, b,
+                           lambda p, x: p * b + x)
+        _chain(out, "ledge", ld, ls, lw)
+        _chain(out, "ledge_t", ls, ld, lw)
+        hd, hs, hw = _real(plan, plan.hedge_dst, plan.hedge_src,
+                           plan.hedge_w, plan.hnnz, b, lambda p, x: hsf[p, x])
+        _chain(out, "hedge_t", hs, hd, hw)
+        sc = np.asarray(plan.send_counts)
+        t = np.arange(s)
+        real = t[None, None, :] < sc[:, :, None]             # (k, k, S)
+        p_, q_, t_ = np.nonzero(real)                        # p, q, t order
+        _chain(out, "owner",
+               p_ * b + np.asarray(plan.send_idx, np.int64)[p_, q_, t_],
+               p_ * k * s + q_ * s + t_)
+        rev = (np.arange(k)[None, :, None] * (k * s)
+               + np.arange(k)[:, None, None] * s + t[None, None, :])
+        out["rev_src"] = rev.reshape(k, k * s).astype(np.int32)
+    if schedule == "edge":
+        _chain(out, "edge", *_real(
+            plan, plan.edge_dst, plan.edge_src, plan.edge_w, plan.nnz, b,
+            lambda p, x: p * (b + plan.r) + x))
+        out["recv_src"] = plan.recv_src
+        out["halo_src_flat"] = plan.halo_src_flat
+    return out
 
 
 def _check_symmetric(a: sp.spmatrix) -> bool:

@@ -191,7 +191,8 @@ def shard_proxy_plan(plan: CommPlan, chip: int = 0) -> CommPlan:
     plan.ensure_pallas_tiles()
     classified = (set(PER_CHIP_ARRAY_FIELDS) | set(_GLOBAL_ARRAY_FIELDS)
                   | set(REBASED_ARRAY_FIELDS))
-    repl: dict = {"k": 1, "chip_ids": np.array([chip])}
+    # the ELL chains index the stacked parts (CommPlan.ensure_ell_chains)
+    repl: dict = {"k": 1, "chip_ids": np.array([chip]), "ell_chains": None}
     for fld in dataclasses.fields(plan):
         v = getattr(plan, fld.name)
         if fld.name in classified or not isinstance(v, np.ndarray):

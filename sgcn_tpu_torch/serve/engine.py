@@ -200,8 +200,9 @@ class ServeEngine:
         # plan's tile layouts included); an unknown model raises below
         leaves = (self._load_leaves(checkpoint)
                   if checkpoint is not None and spec is not None else None)
-        self.setup = resolve_forward_setup(plan, model=model,
-                                           comm_schedule=comm_schedule)
+        self.setup = resolve_forward_setup(
+            plan, model=model, comm_schedule=comm_schedule,
+            serve_subgraph=mode == "subgraph")
         self.comm_schedule = self.setup.comm_schedule
         self.comm_decision = self.setup.decision
         # the analytic footprint and the --memory-budget gate, before any

@@ -65,10 +65,19 @@ intermediates live at once.
 ``step`` event per step (loss, wall time, grad norm, the comm split, the
 stale and replica gauges), span, eval and summary events, and the memory
 block joined against the card's measured step.
+
+``SGCN_PALLAS_SPMM=0`` (the reference's switch) runs the GCN's exact step
+and the full-mode server on the reference's ELL aggregator instead of the
+tile kernel (``ops/pspmm.py``: the symmetric a2a and ring aggregations,
+an asymmetric plan's ``pspmm_overlap``); its step events also carry the
+reference's ``roofline`` and ``measured_vs_model`` blocks, priced by
+``obs/attribution.py::step_cost`` with the card's ceilings, as the
+reference books them on its slot-pass steps only.
 """
 
 from __future__ import annotations
 
+import os
 from dataclasses import dataclass
 from typing import NamedTuple
 
@@ -86,9 +95,13 @@ from ..models.gcn import (GCN, exchange_widths, gcn_forward_local_replica,
                           masked_softmax_xent_local)
 from ..obs.memory import (check_memory_budget, device_bytes,
                           measure_device_step, memory_model, reconcile)
-from ..obs.tracing import SpanTimer
+from ..obs.attribution import roofline_fields, stacked_cost, step_cost
+from ..obs.tracing import SpanTimer, measured_vs_model_block
 from ..ops import pspmm as layout
-from ..ops.pspmm import narrow_dtype
+from ..ops.pspmm import (ELL_GAT_DEFERRAL, ELL_MODE_DEFERRAL,
+                         ELL_RANKS_DEFERRAL, ELL_SELECTION_RULE,
+                         choose_ell_dispatch, ell_plan_fields, ell_selected,
+                         narrow_dtype)
 from ..ops.tile_spmm import (TILE_PLAN_FIELDS, TILE_PLAN_FIELDS_GEN,
                              TILE_PLAN_FIELDS_RAGGED, choose_tile_dispatch)
 from ..parallel.plan import (REPLICA_PARTIAL_RANK_FIELDS,
@@ -161,12 +174,21 @@ class ForwardSetup:
     mask_fields: tuple
     replica_budget: int = 0       # resolved: 'auto' → the λ·degree knee
 
+    @property
+    def aggregator(self) -> str:
+        """``'ell'`` under ``SGCN_PALLAS_SPMM=0``, else ``'tile'``."""
+        return self.fwd_static.get("aggregator", "tile")
+
     def host_arrays(self, plan) -> dict:
         """The plan arrays the forward consumes, as the host arrays
         ``ship_arrays`` copies (integer arrays stay int32, the kernel's
         stored form; the ``mask_fields`` narrow to int8 0/1) — what the
-        memory model prices."""
-        arrays = {f: np.ascontiguousarray(getattr(plan, f))
+        memory model prices.  The ELL aggregator's come from the plan's
+        chain layout (``CommPlan.ensure_ell_chains``)."""
+        src = (plan.ell_chains[self.fwd_static["ell_layout"]]
+               if self.aggregator == "ell" else {})
+        arrays = {f: np.ascontiguousarray(src[f] if f in src
+                                          else getattr(plan, f))
                   for f in self.plan_fields}
         for f in self.mask_fields:
             if f in arrays:
@@ -194,7 +216,8 @@ def resolve_forward_setup(plan, model: str = "gcn",
                           halo_staleness: int = 0,
                           replica_budget: int | str = 0,
                           refresh_band: float | None = None,
-                          ranks: bool = False) -> ForwardSetup:
+                          ranks: bool = False,
+                          serve_subgraph: bool = False) -> ForwardSetup:
     """Resolve the ported subset: GCN or GAT over the transport
     ``resolve_comm_schedule`` picks (``None`` reads
     ``$SGCN_COMM_SCHEDULE``, default a2a; ``auto`` takes the ring when the
@@ -218,11 +241,31 @@ def resolve_forward_setup(plan, model: str = "gcn",
     of the transport (and the partial refresh's under
     ``refresh_band``) — with ``ranks``, those one rank of a rank group
     reads (``REPLICA_RANK_FIELDS[_RAGGED]``,
-    ``REPLICA_PARTIAL_RANK_FIELDS``)."""
+    ``REPLICA_PARTIAL_RANK_FIELDS``).
+
+    ``SGCN_PALLAS_SPMM=0`` (the reference's switch) selects the ELL
+    aggregator instead (``ops/pspmm.py::choose_ell_dispatch``: the
+    symmetric a2a and ring aggregations, or an asymmetric plan's
+    ``pspmm_overlap``), for the GCN's exact step and full-mode serving;
+    GAT, ``ranks``, the carried modes and the sub-graph server
+    (``serve_subgraph``) raise under it (the mini-batch trainer raises
+    before it builds its batch plans).  Unset, ``auto`` or ``1`` keep
+    the tile kernel.  ``decision['aggregator']`` logs which and why."""
     if model not in MODELS:
         raise NotImplementedError(
             f"model {model!r} is not ported yet (ported: "
             f"{', '.join(MODELS)})")
+    ell = ell_selected()
+    if ell:
+        if model != "gcn":
+            raise ValueError(ELL_GAT_DEFERRAL)
+        if ranks:
+            raise ValueError(ELL_RANKS_DEFERRAL)
+        for on, mode in ((halo_staleness, "stale-halo trainer"),
+                         (replica_budget, "replica trainer"),
+                         (serve_subgraph, "sub-graph server")):
+            if on:
+                raise ValueError(ELL_MODE_DEFERRAL.format(mode=mode))
     decision: dict = {}
     if replica_budget == "auto":
         if model != "gcn":
@@ -244,11 +287,20 @@ def resolve_forward_setup(plan, model: str = "gcn",
     if schedule == "ragged" and plan.k == 1 and plan.chip_ids is None:
         raise ValueError("comm_schedule='ragged' needs k > 1 parts: with "
                          "one part there is no ring")
-    fwd_static = choose_tile_dispatch(plan, decision=decision, model=model,
-                                      schedule=schedule)
     spec = MODELS[model]._asdict()
     ragged_fields = spec.pop("plan_fields_ragged")
     gen_fields = spec.pop("plan_fields_gen")
+    if ell:
+        fwd_static = choose_ell_dispatch(plan, schedule, decision=decision)
+        spec["plan_fields"] = ell_plan_fields(fwd_static["ell_layout"])
+        return ForwardSetup(model=model, comm_schedule=schedule,
+                            fwd_static=fwd_static, decision=decision,
+                            replica_budget=0, **spec)
+    fwd_static = choose_tile_dispatch(plan, decision=decision, model=model,
+                                      schedule=schedule)
+    decision["aggregator"] = {"chosen": "tile",
+                              "env": os.environ.get("SGCN_PALLAS_SPMM"),
+                              "rule": ELL_SELECTION_RULE}
     if schedule == "ragged":
         spec["plan_fields"] = ragged_fields
     elif not plan.symmetric:
@@ -683,6 +735,7 @@ class FullBatchTrainer:
                           plan, **self._stats_args)
         if self.replica_budget:
             self.stats.set_replica(plan)
+        self._step_cost = None         # _step_cost_model
         self.timer = PhaseTimer()
         self.spans = SpanTimer(timer=self.timer)   # span events under a
         # recorder; without one a span is a phase of the timer
@@ -1404,13 +1457,35 @@ class FullBatchTrainer:
             recorder.set_comm_schedule(self.comm_decision)
         recorder.set_memory(self.memory.block())
 
+    def _step_cost_model(self):
+        """The exact step's analytic cost (``obs/attribution.py::
+        step_cost``, the only step the ELL aggregator runs), a
+        ``halo_dtype`` wire at 2 bytes both ways; cached."""
+        if self._step_cost is None:
+            self._step_cost = step_cost(
+                self.plan, self.fin, self.widths,
+                compute_dtype=self.compute_dtype,
+                wire_itemsize=2 if self.halo_dtype == "bfloat16" else None,
+                comm_schedule=self.comm_schedule, model=self.setup.model)
+        return self._step_cost
+
     def _record_step_event(self, loss: float, wall_s: float) -> None:
         """The step event: the reference's fields, with the stale mode's
-        drift block and the replica mode's replica block (no roofline and
-        no ``measured_vs_model``: the reference books neither for its
-        tile kernels)."""
+        drift block and the replica mode's replica block.  An ELL step
+        (``SGCN_PALLAS_SPMM=0``) also carries the ``roofline`` and
+        ``measured_vs_model`` blocks, the step cost of all ``k`` stacked
+        parts (``attribution.stacked_cost``) joined against the step's
+        wall time, every exchange exposed; a tile step books neither, the
+        reference's own gate (its gather model describes the slot-pass
+        aggregators, not the kernel that ran)."""
         info, g = self._last_info, self.last_gauges
-        drift = replica = None
+        drift = replica = roofline = mvm = None
+        if self.setup.aggregator == "ell":
+            cost = stacked_cost(self._step_cost_model(), self.plan.k)
+            ex = 2 * self.nlayers
+            roofline = roofline_fields(cost, wall_s, exchanges=ex,
+                                       exposed_exchanges=ex)
+            mvm = measured_vs_model_block(cost, wall_s)
         if self.halo_staleness:
             drift = self._drift_fields(
                 g, info["age"], info["sync_step"],
@@ -1430,7 +1505,8 @@ class FullBatchTrainer:
                        if self._grad_norm is not None else None),
             comm=self.stats.report(),
             phases=self.timer.report() or None,
-            drift=drift, replica=replica)
+            drift=drift, replica=replica, roofline=roofline,
+            measured_vs_model=mvm)
 
     @staticmethod
     def _drift_fields(gauges: dict, age: int, sync_step: bool,

@@ -56,7 +56,7 @@ import torch
 
 from ..obs.memory import (check_memory_budget, measure_device_step,
                           minibatch_memory_model, reconcile)
-from ..ops.pspmm import narrow_dtype
+from ..ops.pspmm import ELL_MODE_DEFERRAL, ell_selected, narrow_dtype
 from ..ops.tile_spmm import choose_tile_dispatch
 from ..parallel.plan import (build_comm_plan, pad_comm_plan,
                              resolve_comm_schedule, shared_ell_buckets)
@@ -141,6 +141,9 @@ class MiniBatchTrainer:
                 "mini-batch trainer re-plans per batch, so replica carries "
                 "have no stable identity across batch plans — run the "
                 "full-batch trainer for hot-halo replication")
+        if ell_selected():
+            raise ValueError(ELL_MODE_DEFERRAL.format(
+                mode="mini-batch trainer"))
         t0 = time.perf_counter()
         self.mesh = mesh
         if mesh is not None and mesh.size == k:

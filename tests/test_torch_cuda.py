@@ -35,7 +35,10 @@ proxy (GCN on float32, the bf16 wire and ``compute_dtype``; GAT) with
 every family launch of a step — the backward's halo-ᵀ, local-ᵀ and
 weight-1 families over the reverse ``all_to_all_single``'s buffer among
 them — against its plain version, and the mini-batch trainer on one
-NCCL rank against the shard proxy of the same part's batch slices.
+NCCL rank against the shard proxy of the same part's batch slices; the
+ELL aggregator (``SGCN_PALLAS_SPMM=0``): ring == a2a and the card == the
+CPU bit for bit, trainers deterministic, with no K1 or fused launch and
+one pack an exchange.
 
 This module imports no JAX, so it also runs on a GPU machine without it:
 
@@ -2225,3 +2228,88 @@ def test_init_distributed_without_env_is_a_noop_on_card(cuda_device,
     assert ctx.device == torch.device("cuda:0") and ctx.is_coordinator
     assert launch.global_mesh_1d(8, ctx) is None
     assert not dist.is_initialized()
+
+
+# ------------------------------------------------ the ELL aggregator
+def _ell_static(plan, layout):
+    plan.ensure_ell_chains(layout)
+    chains = plan.ell_chains[layout]
+    static = {"ell_layout": layout, "ell_buckets": plan.ell_buckets,
+              "rr_sizes": plan.rr_sizes,
+              "ell_levels": {k[: -len("_levels")]: v
+                             for k, v in chains.items()
+                             if k.endswith("_levels")}}
+    pa = {k: torch.from_numpy(np.ascontiguousarray(v))
+          for k, v in chains.items() if isinstance(v, np.ndarray)}
+    return pa, static
+
+
+@pytest.mark.parametrize("halo_dtype", [None, "bfloat16"])
+def test_ell_ring_equals_a2a_and_the_cpu_on_card(cuda_device, halo_dtype):
+    """One ELL aggregation and its gradient on the card (``PspmmEllSym``,
+    ``PspmmRaggedSym``; ``PspmmOverlap`` on a directed plan): the ring ==
+    the a2a bit for bit, each == the same ops on CPU tensors bit for bit
+    (every sum a serial chain of single float32 adds, no two updates of a
+    level on one row), one pack an exchange and no tile launch."""
+    from sgcn_tpu_torch.ops.pspmm import ell_aggregate
+
+    for plan, layouts in ((_er_plan(), ("a2a", "ragged")),
+                          (_directed_plan(), ("directed",))):
+        rng = np.random.default_rng(5)
+        h = rng.standard_normal((plan.k, plan.b, 24)).astype(np.float32)
+        g = rng.standard_normal((plan.k, plan.b, 24)).astype(np.float32)
+        res = []
+        for layout in layouts:
+            pa, static = _ell_static(plan, layout)
+            for dev in (cuda_device, torch.device("cpu")):
+                x = torch.tensor(h, device=dev, requires_grad=True)
+                k1, fused, packs = (spmm_tiles.launches,
+                                    spmm_tiles_fused.launches,
+                                    row_pack.launches)
+                out = ell_aggregate(x, {k: v.to(dev) for k, v in pa.items()},
+                                    static, halo_dtype)
+                out.backward(torch.tensor(g, device=dev))
+                if dev.type == "cuda":
+                    torch.cuda.synchronize()
+                    assert (spmm_tiles.launches, spmm_tiles_fused.launches,
+                            row_pack.launches) == (k1, fused, packs + 2)
+                res.append((out.detach().cpu(), x.grad.cpu()))
+        for out, grad in res[1:]:
+            assert torch.equal(out, res[0][0])
+            assert torch.equal(grad, res[0][1])
+
+
+@pytest.mark.parametrize("case", ["a2a", "ragged", "directed"])
+def test_ell_trainer_on_card_is_deterministic(cuda_device, case,
+                                              monkeypatch):
+    """Three steps of the GCN trainer under ``SGCN_PALLAS_SPMM=0`` on the
+    card, twice: losses and weights bit for bit, the ring's == the a2a's,
+    no K1 or fused launch, and one pack an exchange (the forward's, and
+    the backward's where the aggregation's input needs a gradient)."""
+    monkeypatch.setenv("SGCN_PALLAS_SPMM", "0")
+    plan = _directed_plan() if case == "directed" else _er_plan()
+    rng = np.random.default_rng(7)
+    feats = rng.standard_normal((plan.n, 24)).astype(np.float32)
+    labels = rng.integers(0, 8, plan.n)
+    data = make_train_data(plan, feats, labels, device=cuda_device)
+    widths = [16, 8]
+    runs = []
+    scheds = {"a2a": ("a2a", "a2a"), "ragged": ("ragged", "ragged", "a2a"),
+              "directed": ("a2a", "a2a")}[case]
+    for sched in scheds:
+        tr = FullBatchTrainer(plan, fin=24, widths=widths, seed=1,
+                              comm_schedule=sched, device=cuda_device)
+        assert tr.setup.aggregator == "ell"
+        k1, fused, packs = (spmm_tiles.launches, spmm_tiles_fused.launches,
+                            row_pack.launches)
+        losses = [tr.step(data) for _ in range(3)]
+        torch.cuda.synchronize()
+        # fin < 256: layer 0 aggregates the data, whose gradient nobody
+        # needs, so its backward sends nothing
+        want = 3 * (len(widths) + len(widths) - 1)
+        assert (spmm_tiles.launches - k1, spmm_tiles_fused.launches - fused,
+                row_pack.launches - packs) == (0, 0, want)
+        runs.append((losses, [w.detach().clone() for w in tr.params]))
+    for losses, params in runs[1:]:
+        assert losses == runs[0][0] and np.isfinite(losses).all()
+        assert all(torch.equal(a, b) for a, b in zip(params, runs[0][1]))
