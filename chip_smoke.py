@@ -227,8 +227,8 @@ failure raises and the script exits non-zero:
      (512 closed-loop queries at batch 64, rows vs the float64 forward,
      exact launches); the row pack and the fused entry == plain on the hp
      plan's layer 0, whose tiles hold the longest row (checked); K3's
-     whole op timed on both plans (its plain version on the hp plan's
-     alone).  Partition seconds are host seconds.
+     whole op timed on both plans (no plain version timed: phase 3 times
+     K3's).  Partition seconds are host seconds.
      K1's float-weight family entries must stay at 0 launches;
   25. the pipelined stale-halo trainer (``halo_staleness=1``) at the
      flagship width of phases 5 and 11 (same plan, data and initial
@@ -238,9 +238,10 @@ failure raises and the script exits non-zero:
      stale a2a bit for bit for ``sync_every`` 0 and 4, delta off and on,
      over 1 + 8 steps; exact launch counts per stale and per sync step
      (packs, fused launches, backward fused launches; K1's family
-     entries 0), and the pack and the fused entry == plain on every
-     exchange and aggregation of one stale and one sync step of the a2a
-     delta run, on their real carry tables; the stale + delta losses
+     entries 0), and the pack == plain on every exchange and the fused
+     entry on the first forward and the first backward aggregation of one
+     stale and one sync step of the a2a delta run, on their real carry
+     tables; the stale + delta losses
      within the reference's
      band (rtol/atol 1e-2, ``tests/test_stale_halo.py:192-200``) of phase
      5's, the gap printed; epoch_s (host clock and CUDA events) of exact,
@@ -442,24 +443,42 @@ failure raises and the script exits non-zero:
      against tiles in turns, the device split of both, a profiled ELL
      step's ``exchange_join``; the full-mode server on ELL (3 batches of
      64, both transports) against phase 3's tile engine;
-  35. one JSON line ``{"kernels": [...]}`` — per ported kernel (the tile
+  35. serving on the rank path (``build/chip_smoke_rank_serving/``): (a)
+     ``ServeEngine(mesh=...)`` on one NCCL rank (world size 1) serving
+     chip 0's slice of phase 3's ER plan, 128 → 128 → 128 → 40 at full
+     width — GCN a2a, ring and bf16 ``halo_dtype`` wire, GAT a2a — and
+     the stacked engine on the same slice, the same weights and the same
+     12 batches of 64 of part 0's vertices: rows == bit for bit, exact
+     launches per entry (``rank35_launches``: per GCN aggregation one
+     pack and two K1 family launches, the halo one on the bf16-table
+     entry on a bf16 wire; per GAT layer its K5 passes and packs; no
+     fused launch), the first batch's first-layer family launches ==
+     plain on their real inputs, p50 and QPS of the rank beside the
+     proxy's (host clock, one card, loopback collectives); a hot swap
+     through a watched directory serves the file's weights on the rank;
+     (b) meanwhile the cora serve CLI in a child under ``python -m
+     torch.distributed.run --standalone --nproc_per_node 1`` with
+     ``--metrics-out``: its one JSON line == the unlaunched CLI's (in this
+     process), timings and the measured peak aside, heartbeats
+     ``serve:start`` and ``serve:done``;
+  36. one JSON line ``{"kernels": [...]}`` — per ported kernel (the tile
      SpMM, the GCN aggregation's backward, the GAT attention pass and its
      use in the GAT layer's backward, the ragged ring aggregation and its
      backward, the row shuffle, the tile SpMM's and the GAT pass's bf16
      flavors, the row pack, the fused local + remote entry and the
      destination-indexed pack) its
      launches on the main path (phases 2–5, 7–13, 15–17, 19–21 and
-     23–34, the children's included), max
+     23–35, the children's included), max
      |kernel − plain|, kernel / plain / bound / library times at the
      flagship layer.  The tile SpMM's own float-weight family entries
      (both tables) launch on the main path only in the asymmetric
-     backward (phases 20–21) and in phases 30–33 (the broadcast's local
-     SpMM, the rank path's two passes, a rank's directed backward): the
+     backward (phases 20–21) and in phases 30–33 and 35 (the broadcast's
+     local SpMM, the rank path's two passes, a rank's directed backward): the
      symmetric phases 2–29 must
      show 0 of them — the fused entry runs their chains and counts those
      launches — and any kernel with no launch on the main path fails the
      run;
-  36. the last line: ``{"ok": true, "device": {...}}``.
+  37. the last line: ``{"ok": true, "device": {...}}``.
 
 Without CUDA, or without the rest of the repository beside it, the script
 prints no result and exits with code 2 or 3.
@@ -3557,11 +3576,12 @@ def _pipeline_flagship(parts_bg, ahat_dc, dev, tb, smi):
     if local + halo != row_nnz[hub] or not tiled:
         raise AssertionError("phase 24: the hp tiles do not hold the "
                              "longest row")
-    # the plain versions (≈ 9 s a plan) on the hp plan alone: phase 30
-    # reads its K3 times; rp's kernel times are for the ratios below
+    # the kernel times alone (each plain version ≈ 8 s a plan; the hp
+    # layer-0 fused launch was held to plain above): phase 30 reads the hp
+    # K3 times, rp's are for the ratios below
     k3 = {mode: time_whole_op(e._h0, e.pa, e.setup.fwd_static, tb, False,
                               f"DCSBM {mode} K3 layer 0 forward f=128",
-                              plain=mode == "hp")
+                              plain=False)
           for mode, (e, _) in serve.items()}
 
     # ---- hp against rp
@@ -3742,11 +3762,13 @@ def _phase_stale(children, plan, data, p_init, widths, rep5, fit_w,
                                      f"delta={delta}")
 
     marks.append(("(d)", time.perf_counter()))
-    # ---- (b, c) launches per stale and per sync step, and the pack and
-    # the fused entry == plain on every exchange and aggregation of one
-    # stale and one sync step, on their real carry tables
-    # (the ring's fused launches read the same rows in the same order:
-    # its steps are counted, and (d) holds it to a2a bit for bit)
+    # ---- (b, c) launches per stale and per sync step, and the pack ==
+    # plain on every exchange of one stale and one sync step, the fused
+    # entry on the first forward and the first backward aggregation of
+    # each (its carry tables' two kinds, ≈ 2 s a plain version), on their
+    # real carry tables (the ring's fused launches read the same rows in
+    # the same order: its steps are counted, and (d) holds it to a2a bit
+    # for bit)
     for sched, delta in (("a2a", True), ("ragged", False)):
         tr = stale(sched, halo_delta=delta, sync_every=2)
         counted(lambda: tr.step(data))                # the initializing sync
@@ -3760,7 +3782,9 @@ def _phase_stale(children, plan, data, p_init, widths, rep5, fit_w,
             for j, (src, flat, dtype) in enumerate(packs):
                 check_pack(src, flat, dtype, f"stale {sched} delta={delta} "
                            f"{kind} step exchange {j}")
-            for j, args in enumerate(fused):
+            picked = [j for j in (0, nl) if j < len(fused)]
+            for j in picked:
+                args = fused[j]
                 fused_err = max(fused_err, check_fused(
                     *args, f"stale {sched} delta={delta} {kind} step "
                     f"aggregation {j} (carry {tuple(args[3].shape)} "
@@ -3768,8 +3792,8 @@ def _phase_stale(children, plan, data, p_init, widths, rep5, fit_w,
             log(f"  {sched} delta={delta} {kind} step: packs {c['pack']}, "
                 f"fused {c['fused']}, backward fused {c['stale_bwd']} "
                 f"(expected {per_step}, {per_step}, {bwd}); K1 family "
-                f"{c['k1']}; {len(packs)} packs and {len(fused)} fused "
-                "launches checked == plain")
+                f"{c['k1']}; {len(packs)} packs and {len(picked)} fused "
+                f"launches (aggregations {picked}) checked == plain")
             if (c["pack"], c["fused"], c["stale_bwd"]) != \
                     (per_step, per_step, bwd) or fams:
                 raise AssertionError(f"phase 25: {kind} step launches {c}")
@@ -6898,6 +6922,283 @@ def _phase_ell(plan, data, p_init, widths, eng_f, feats_f, fix, dev, smi):
     return totals
 
 
+# ------------------------------- phase 35: serving on one NCCL rank
+RANK35_DIR = os.path.join(REPO, "build", "chip_smoke_rank_serving")
+
+# phase 35's cases: name -> (model, transport, halo_dtype)
+RANK35_CASES = {"GCN a2a": ("gcn", "a2a", None),
+                "GCN ring": ("gcn", "ragged", None),
+                "GCN bf16 wire": ("gcn", "a2a", "bfloat16"),
+                "GAT a2a": ("gat", "a2a", None)}
+RANK35_BATCH = 64          # part-0 queries a batch (one bucket)
+RANK35_BATCHES = 12        # timed batches a case
+# the report keys a host clock decides
+SERVE_TIMED = ("value", "window_s", "achieved_qps", "latency_p50_ms",
+               "latency_p95_ms", "latency_p99_ms")
+
+
+def rank35_launches(model, sched, widths, halo_dtype,
+                    batches=RANK35_BATCHES):
+    """Exact launches per entry of ``batches`` served batches on the rank
+    path: a GCN aggregation one pack and two K1 family launches (the
+    halo one on K1's bf16-table entry on a bf16 wire), no fused launch; a
+    GAT layer its K5 passes (fused 1, split 2) and its packs
+    (``pack_launches``)."""
+    if model == "gcn":
+        nl = len(widths)
+        return {"pack": batches * nl,
+                "k1": batches * nl * (1 if halo_dtype else 2),
+                "k1_bf16": batches * nl if halo_dtype else 0, "k5": 0,
+                "fused": 0, "fused_wire": 0}
+    return {"pack": batches * pack_launches("gat", sched, widths),
+            "k5": batches * gat_passes(widths), "k1": 0, "k1_bf16": 0,
+            "fused": 0, "fused_wire": 0}
+
+
+def run_serve_cli(argv):
+    """``python -m sgcn_tpu_torch.serve``'s ``main`` in-process: its one
+    JSON report."""
+    from sgcn_tpu_torch.serve.__main__ import main as serve_main
+
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        serve_main(argv)
+    lines = out.getvalue().strip().splitlines()
+    if len(lines) != 1:
+        raise AssertionError(f"the serve CLI printed {lines}")
+    return json.loads(lines[0])
+
+
+def phase_rank_serving(plan, feats_f, p_init, params_g, widths, fix, dev,
+                       tb, smi):
+    """Phase 35 (module docstring): serving on one NCCL rank against the
+    stacked proxy, and the cora serve CLI under ``torch.distributed.run``.
+    Returns the launch counts of the rank path by kernel entry and its
+    measurements."""
+    import shutil
+
+    from sgcn_tpu_torch.obs import load_run
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(RANK35_DIR, ignore_errors=True)
+    os.makedirs(RANK35_DIR)
+
+    # ---- (b) first: the cora serve CLI under torchrun, in a child
+    cli_base = ["--npz", os.path.join(fix, "cora2708.npz"), "--normalize",
+                "-p", os.path.join(fix, "cora2708.8.hp"), "-s", "8",
+                "--random-init", "--hidden", "16", "--queries", "128",
+                "--max-batch", "32", "--seed", "1"]
+    env = dict(os.environ, PYTHONPATH=REPO)
+    for var in ("RANK", "WORLD_SIZE", "LOCAL_RANK", "MASTER_ADDR",
+                "MASTER_PORT", "SGCN_METRICS_OUT"):
+        env.pop(var, None)
+    d = os.path.join(RANK35_DIR, "cora")
+    out = open(d + ".out", "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "torch.distributed.run", "--standalone",
+         "--nproc_per_node", "1", "-m", "sgcn_tpu_torch.serve", *cli_base,
+         "--metrics-out", d + "-run"],
+        cwd=REPO, env=env, stdout=out, stderr=subprocess.STDOUT)
+    try:
+        t0 = time.perf_counter()
+        total, res = _rank_serving(plan, feats_f, p_init, params_g, widths,
+                                   dev, tb, smi)
+        log(f"  (a) took {time.perf_counter() - t0:.1f} s")
+        t0 = time.perf_counter()
+        want = run_serve_cli(cli_base)       # the unlaunched CLI, here
+        code = proc.wait(timeout=300)
+        out.close()
+        with open(d + ".out") as fh:
+            text = fh.read()
+        lines = [x for x in text.splitlines() if x.startswith("{")]
+        if code != 0 or len(lines) != 1:
+            raise AssertionError(f"phase 35: torchrun serve CLI exit "
+                                 f"{code}: {text[-2000:]}")
+        got = json.loads(lines[0])
+
+        def untimed(rep):
+            rep = {k: v for k, v in rep.items() if k not in SERVE_TIMED}
+            rep["memory"] = {k: v for k, v in rep["memory"].items()
+                             if k != "measured_peak_bytes"}
+            return rep
+        same = untimed(got) == untimed(want)
+        run = load_run(d + "-run")
+        beats = [h["event"] for h in run.heartbeats]
+        log(f"  cora serve CLI under torch.distributed.run --standalone "
+            f"--nproc_per_node 1: {got['queries']} queries, p50 "
+            f"{got['latency_p50_ms']} ms (the unlaunched CLI's "
+            f"{want['latency_p50_ms']} ms); == the unlaunched CLI's report "
+            f"(timings and the measured peak aside): {same}; "
+            f"heartbeat.jsonl {beats} (valid), {len(run.serves())} serve "
+            f"event; JSON lines printed {len(lines)}; card: {smi}")
+        if not same or beats != ["serve:start", "serve:done"]:
+            raise AssertionError(f"phase 35: launched serve CLI {got} != "
+                                 f"{want}, beats {beats}")
+        log(f"  (b) after (a): {time.perf_counter() - t0:.1f} s")
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        out.close()
+    log(f"  phase 35 launches {json.dumps(total)}; phase wall "
+        f"{time.perf_counter() - t_phase:.1f} s; card: {smi}")
+    return total, res
+
+
+def _rank_serving(plan, feats_f, p_init, params_g, widths, dev, tb, smi):
+    """Phase 35 (a): every ``RANK35_CASES`` case served on one NCCL rank
+    and by the stacked engine on chip 0's slice, the same batches of part
+    0's vertices; a hot swap through a watched directory on the rank.
+    Returns the rank runs' launches and the kernels' errors against
+    plain."""
+    import numpy as np
+    import torch
+
+    from sgcn_tpu_torch.models.gat import params_from_jax as gat_from_numpy
+    from sgcn_tpu_torch.ops import tile_spmm as ts
+    from sgcn_tpu_torch.parallel import init_rank_group, shard_proxy_plan
+    from sgcn_tpu_torch.serve import ServeEngine
+    from sgcn_tpu_torch.train import FullBatchTrainer
+    from sgcn_tpu_torch.utils.checkpoint import save_checkpoint
+
+    plan.ensure_pallas_tiles(tb)
+    plan.ensure_ragged()
+    plan.ensure_pallas_ragged_tiles()
+    plan.ensure_pallas_cell_tiles(tb)
+    plan.ensure_pallas_cell_ragged_tiles()
+    sl = shard_proxy_plan(plan, 0)          # every layout built above
+    own = np.flatnonzero(np.asarray(plan.owner) == 0)
+    rng = np.random.default_rng(35)
+    batches = [rng.choice(own, RANK35_BATCH, replace=False)
+               for _ in range(RANK35_BATCHES)]
+    family = ts.spmm_tiles_classes
+
+    def engine(model, sched, hd, mesh=None, **kw):
+        params = ([w.copy() for w in p_init] if model == "gcn"
+                  else gat_from_numpy(params_g))
+        eng = ServeEngine(sl, fin=128, widths=widths, model=model,
+                          comm_schedule=sched, halo_dtype=hd, params=params,
+                          max_batch=RANK35_BATCH, buckets=(RANK35_BATCH,),
+                          device=dev, mesh=mesh, **kw)
+        eng.set_features(feats_f)
+        return eng
+
+    def serve(eng, picks=0):
+        """Warm up, then the timed batches; ``picks``: the first batch's
+        first family launches kept to hold against plain."""
+        eng.query(batches[0])               # the first launches
+        torch.cuda.synchronize()
+        calls = []
+
+        def recorded(*args):
+            got = family(*args)
+            if len(calls) < picks:
+                calls.append((args, got))
+            return got
+        ts.spmm_tiles_classes = recorded
+        try:
+            launch_counts(zero=True)        # the main path starts here
+            rows, lat = [], []
+            t0 = time.perf_counter()
+            for q in batches:
+                t = time.perf_counter()
+                rows.append(eng.query(q))
+                lat.append((time.perf_counter() - t) * 1e3)
+            wall = time.perf_counter() - t0
+            ln = launch_counts()            # ... and ends here
+        finally:
+            ts.spmm_tiles_classes = family
+        return {"rows": rows, "p50": statistics.median(lat),
+                "qps": len(batches) * RANK35_BATCH / wall, "ln": ln,
+                "calls": calls}
+
+    mesh = init_rank_group("file://" + os.path.join(RANK35_DIR,
+                                                    "rendezvous"), 1, 0)
+    total = {key: 0 for key in launch_counts()}
+    err = {"k1": 0.0, "k1_bf16": 0.0, "k5": 0.0}
+    out = {}
+    try:
+        for name, (model, sched, hd) in RANK35_CASES.items():
+            t0 = time.perf_counter()
+            stacked = serve(engine(model, sched, hd))
+            rank_eng = engine(model, sched, hd, mesh=mesh)
+            # the first layer's launches: GCN local and halo, GAT's pair
+            rk = serve(rank_eng, picks=2)
+            t_runs = time.perf_counter() - t0
+            for key in total:
+                total[key] += rk["ln"][key]
+            same = all(np.array_equal(a.view(np.int32), b.view(np.int32))
+                       for a, b in zip(rk["rows"], stacked["rows"]))
+            finite = all(np.isfinite(r).all() for r in rk["rows"])
+            want = rank35_launches(model, sched, widths, hd)
+            got = {key: rk["ln"][key] for key in want}
+            lanes = []
+            for args, k_out in rk["calls"]:
+                plain = ts.spmm_tiles_classes_plain(*args)
+                key = ("k5" if args[2].dtype == torch.int8 else "k1_bf16"
+                       if args[3].dtype == torch.bfloat16 else "k1")
+                err[key] = max(err[key], float(
+                    (k_out - plain).detach().abs().max()))
+                if not same_bits(k_out, plain):
+                    raise AssertionError(f"phase 35: {name} {key} launch "
+                                         "!= plain")
+                lanes.append((key, int(args[3].shape[-1])))
+            log(f"  one NCCL rank, chip 0's ER slice, {name}: "
+                f"{RANK35_BATCHES} batches of {RANK35_BATCH} part-0 "
+                f"queries == the stacked proxy's rows bit for bit: {same}; "
+                f"p50 {rk['p50']!r} ms, {rk['qps']!r} QPS on the rank, "
+                f"the stacked proxy's {stacked['p50']!r} ms, "
+                f"{stacked['qps']!r} QPS (host clock, one card, loopback "
+                f"collectives); launches {json.dumps(got)} (expected "
+                f"{json.dumps(want)}); the first batch's first layer "
+                f"launches == plain {lanes}; host s: runs {t_runs:.1f}, "
+                f"plain checks {time.perf_counter() - t0 - t_runs:.1f}; "
+                f"card: {smi}")
+            if not same or not finite or got != want or len(lanes) != 2:
+                raise AssertionError(f"phase 35: {name}: same {same}, "
+                                     f"launches {got} (want {want})")
+            out[name] = {"p50_ms": rk["p50"], "qps": rk["qps"],
+                         "proxy_p50_ms": stacked["p50"],
+                         "proxy_qps": stacked["qps"]}
+            if name == "GCN a2a":
+                out["swap"] = _rank35_swap(rank_eng, sl, widths, engine,
+                                           batches[0], rk["rows"][0], dev,
+                                           FullBatchTrainer,
+                                           save_checkpoint, smi)
+            del stacked, rk, rank_eng
+    finally:
+        mesh.close()
+    out["err"] = err
+    return total, out
+
+
+def _rank35_swap(rank_eng, sl, widths, engine, q, before, dev, trainer,
+                 save, smi):
+    """A hot swap on the rank: a checkpoint of the slice lands in the
+    watched directory, the next batch serves its weights (== a stacked
+    engine built from the file), ``weights_rev`` 1, the poll + swap ms."""
+    import numpy as np
+
+    watch = os.path.join(RANK35_DIR, "watch")
+    os.makedirs(watch)
+    path = save(trainer(sl, fin=128, widths=widths, seed=35, device=dev),
+                os.path.join(watch, "ckpt_00000001.npz"), 1)
+    rank_eng.attach_checkpoint_watch(watch)
+    t0 = time.perf_counter()
+    got = rank_eng.query(q)                  # the header carries the swap
+    ms = (time.perf_counter() - t0) * 1e3
+    want = engine("gcn", "a2a", None, checkpoint=path).query(q)
+    same = np.array_equal(got.view(np.int32), want.view(np.int32))
+    log(f"  hot swap on the rank through a watched directory: the next "
+        f"batch serves the file's weights == a stacked engine built from "
+        f"it: {same}; weights_rev {rank_eng.weights_rev}; rows changed: "
+        f"{not np.array_equal(got, before)}; that batch (poll, load, swap, "
+        f"serve) {ms:.1f} ms; card: {smi}")
+    if not same or rank_eng.weights_rev != 1 or np.array_equal(got, before):
+        raise AssertionError("phase 35: the rank's hot swap")
+    return {"ms": ms}
+
+
 def main() -> int:
     import torch
 
@@ -7865,6 +8166,19 @@ def main() -> int:
     log(f"  phase 34 took {time.perf_counter() - t34:.1f} s")
 
     # ---------------------------------------------------------- phase 35
+    log("phase 35: serving on one NCCL rank — ServeEngine(mesh=...) on "
+        "chip 0's ER slice (GCN a2a, ring, bf16 wire; GAT a2a) == the "
+        "stacked proxy engine bit for bit, exact launches per batch, the "
+        "first layer's launches == plain, a hot swap through a watched "
+        "directory, p50 and QPS against the proxy; the cora serve CLI "
+        "under torch.distributed.run == the unlaunched CLI, its heartbeats")
+    t35 = time.perf_counter()
+    p35, r35 = phase_rank_serving(plan, feats_f, p_init, params_g, widths_f,
+                                  fix, dev, tb, smi)
+    MAIN_PATH_PACKS[0] += p35["pack"]
+    log(f"  phase 35 took {time.perf_counter() - t35:.1f} s")
+
+    # ---------------------------------------------------------- phase 36
     fused_main = (launches_c + launches_f + launches_tc + launches_tf
                   + launches_fr + launches_rt + launches_ca + launches_cr
                   + l15["wire"] + l15["bf16"] + launches_16 + asym["fused"]
@@ -7876,9 +8190,10 @@ def main() -> int:
     kernels = [{
         # K1's own float32-weight family entry: its launches on the main
         # path are the asymmetric backward's halo-ᵀ launches and phases
-        # 30-33's (the broadcast's local SpMM, the rank path's local and
-        # halo passes, a rank's replica steps, a rank's directed
-        # backward: halo-ᵀ, local-ᵀ, weight-1); the symmetric phases 2-29
+        # 30-33's and 35's (the broadcast's local SpMM, the rank path's
+        # local and halo passes, a rank's replica steps, a rank's directed
+        # backward: halo-ᵀ, local-ᵀ, weight-1, a rank's serving forward);
+        # the symmetric phases 2-29
         # run its chains inside the fused entry, which counts those
         # launches under tile_spmm_fused; the times are its own family
         # launches at the flagship layer
@@ -7887,10 +8202,10 @@ def main() -> int:
         "source": "sgcn_tpu_torch/csrc/tile_spmm.cu",
         "replaces": "sgcn_tpu/ops/pallas_spmm.py:203",
         "launches": (asym["k1"] + p30["k1"] + p31["k1"] + p32["k1"]
-                     + p33["k1"]),
+                     + p33["k1"] + p35["k1"]),
         "max_abs_err": max(max_err, grad_err, k4_err, k4b_err, asym["err"],
                            r30["k1_err"], r33["err"]["th"],
-                           r33["err"]["t1"]),
+                           r33["err"]["t1"], r35["err"]["k1"]),
         "ms": layer["ms"],
         "plain_ms": layer["plain_ms"],
         "bound_ms": layer["bound_ms"],
@@ -7921,9 +8236,9 @@ def main() -> int:
                      + launches_gfr + launches_grt + launches_gcr
                      + l17["f32"] + asym["k5"] + p23["k5"] + p24["k5"]
                      + p27["k5"] + p28["k5"] + p29["k5"] + p30["k5"]
-                     + p31["k5"] + p33["k5"]),
+                     + p31["k5"] + p33["k5"] + p35["k5"]),
         "max_abs_err": max(k5_err, err_f, err_b, k5r_err, k5_err27, sub_err,
-                           r31["rank"]["err"]["k5"]),
+                           r31["rank"]["err"]["k5"], r35["err"]["k5"]),
         "ms": gat_fwd["ms"],
         "plain_ms": gat_fwd["plain_ms"],
         "bound_ms": gat_fwd["bound_ms"],
@@ -7989,17 +8304,18 @@ def main() -> int:
         # K1's own family entry on bf16 tables: its main-path launches
         # are the asymmetric compute_dtype backward's, phase 31's (the
         # rank path's two passes under compute_dtype; the stacked
-        # compute_dtype path runs it inside the fused bf16 entry) and
-        # phase 32's (a rank's replica step on a bf16 carry); the
+        # compute_dtype path runs it inside the fused bf16 entry), phase
+        # 32's (a rank's replica step on a bf16 carry) and phase 35's (a
+        # rank's serving halo pass on a bf16 wire); the
         # times are its own family launches at the flagship layer
         "name": "tile_spmm_bf16",
         "route": "cuda",
         "source": "sgcn_tpu_torch/csrc/tile_spmm.cu",
         "replaces": "sgcn_tpu/ops/pallas_spmm.py:203",
         "launches": (asym["k1_bf16"] + p31["k1_bf16"] + p32["k1_bf16"]
-                     + p33["k1_bf16"]),
+                     + p33["k1_bf16"] + p35["k1_bf16"]),
         "max_abs_err": max(err16["k1"], err15, r31["rank"]["err"]["k1_bf16"],
-                           r33["err"]["t1_bf16"]),
+                           r33["err"]["t1_bf16"], r35["err"]["k1_bf16"]),
         "ms": k1_16["ms"],
         "plain_ms": k1_16["plain_ms"],
         "bound_ms": k1_16["bound_ms"],

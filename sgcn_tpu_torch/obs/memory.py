@@ -217,7 +217,11 @@ def memory_model(plan, fin: int, widths, *, workload: str = "train",
     plan the backward's reverse exchange: the halo-ᵀ launch's float32
     output (the send buffer is its first ``k·S`` rows, narrowed to the
     wire's dtype in a copy of its own when the wire is narrower) and the
-    ``(k·S, f)`` receive buffer in the wire's dtype."""
+    ``(k·S, f)`` receive buffer in the wire's dtype.  A serving rank
+    (``workload='serve'`` or ``'serve_subgraph'``: the rank's part rows,
+    its receive window, the params replicated) also holds its exchange's
+    send pack beside the receive buffer, the same size (the stacked
+    pack writes the receive layout itself)."""
     widths = [int(w) for w in widths]
     fin = int(fin)
     if setup is None:
@@ -262,6 +266,8 @@ def memory_model(plan, fin: int, widths, *, workload: str = "train",
     rows = _prod(plan.recv_layout_shape(schedule))
     fmax = max(lane_widths) if lane_widths else 0
     families["wire_buffers"] = rows * fmax * wire_isize
+    if ranks and not train:
+        families["wire_buffers"] *= 2          # the send pack, the receive
     # the fused entry folds the receive layout in place; GAT's pass reads
     # [p ‖ u] over the local and the received rows: on the ring the
     # concat's rows, on a2a the (k, R) halo rows gathered out of the

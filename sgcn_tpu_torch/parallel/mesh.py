@@ -12,8 +12,8 @@ and gloo on the CPU.  Rank ``r`` holds part
 ``r`` of a k-way plan (``world_size == k``); a one-rank group may hold any
 one part's slice (``parallel/proxy.py``), whose exchange is then the
 loopback through the collective.  ``FullBatchTrainer(mesh=...)`` and
-``BroadcastGCN1D(mesh=...)`` take a ``RankGroup`` under the reference's
-argument name.
+``BroadcastGCN1D(mesh=...)`` and ``ServeEngine(mesh=...)`` take a
+``RankGroup`` under the reference's argument name.
 """
 
 from __future__ import annotations
@@ -57,13 +57,22 @@ class RankGroup:
         dist.all_reduce(out, op=dist.ReduceOp.MAX)
         return out
 
-    def all_gather(self, t: torch.Tensor) -> torch.Tensor:
+    def all_gather(self, t: torch.Tensor, async_op: bool = False):
         """Every rank's ``t`` stacked along the first axis, in rank
         order: ``(size·N, ...)`` for an ``(N, ...)`` ``t`` (one
-        collective)."""
+        collective).  ``async_op=True`` returns ``(out, work)`` at once:
+        ``out`` holds the rows once ``work.wait()`` has returned."""
         out = t.new_empty((self.size * t.shape[0], *t.shape[1:]))
-        _ALL_GATHER(out, t.contiguous())
-        return out
+        work = _ALL_GATHER(out, t.contiguous(), async_op=async_op)
+        return (out, work) if async_op else out
+
+    def broadcast(self, t: torch.Tensor, src: int = 0) -> torch.Tensor:
+        """Rank ``src``'s ``t`` on every rank, in place (every rank
+        passes a tensor of the same shape and dtype on ``device``);
+        returns ``t``.  The serve engine's batch header and query ids
+        (``serve/engine.py``)."""
+        dist.broadcast(t, src)
+        return t
 
     def close(self) -> None:
         """Destroy the process group (every rank calls it)."""

@@ -25,7 +25,17 @@ returns queries older than ``F`` × the latency budget at dispatch as shed.
 ``serve`` event, span, swap and memory events; render with
 ``scripts/obs_report.py DIR``); ``--memory-budget BYTES`` fails a mode
 whose analytic device footprint exceeds the budget before any tensor
-ships.  Prints ONE JSON line: achieved QPS, p50/p95/p99 latency, the
+ships.  Launched by ``torchrun`` or under SLURM (``launch/gpu.slurm -m
+serve``), the CLI opens a rank group first
+(``parallel/launch.py::init_distributed``; one process is the stacked
+layout): a world of ``-s K`` processes serves one part per rank
+(``ServeEngine(mesh=...)``; both modes, both transports, every flag
+above), every rank loads the inputs and builds the plan, rank 0 alone
+runs the traffic, prints and records ``--metrics-out``, the others
+follow its batches, and every rank appends its rendezvous and
+``serve:start|done`` heartbeats to ``--metrics-out``'s
+``heartbeat.jsonl``; another world size exits with the reason on every
+rank.  Prints ONE JSON line: achieved QPS, p50/p95/p99 latency, the
 shed count, the batching/wire gauges (sub-graph mode: touched rows,
 recipe edges and FLOPs per query) and the ``memory`` block, under the
 reference's keys, with ``"weights": "checkpoint"`` or
@@ -148,15 +158,75 @@ def main(argv=None) -> None:
     if args.checkpoint and args.random_init:
         raise SystemExit("--checkpoint and --random-init are exclusive")
 
+    # the heartbeats (obs/recorder.py::heartbeat) read this variable: set
+    # before the rendezvous so its pings land in the run directory, and
+    # put back after the run for an in-process caller
+    import os
+
+    before = os.environ.get("SGCN_METRICS_OUT")
+    if args.metrics_out:
+        os.environ["SGCN_METRICS_OUT"] = args.metrics_out
+    try:
+        report, lead = _launched_run(args)
+    finally:
+        if args.metrics_out and before is None:
+            os.environ.pop("SGCN_METRICS_OUT", None)
+        elif args.metrics_out:
+            os.environ["SGCN_METRICS_OUT"] = before
+    if lead:
+        print(json.dumps(report), flush=True)
+
+
+def _launched_run(args):
+    """The run inside the launcher's rendezvous (a no-op for one
+    process; ``torchrun``'s or SLURM's otherwise), bracketed by heartbeats
+    on every rank.  Returns ``(report, whether this process prints it)``:
+    rank 0 alone."""
+    from ..obs.recorder import heartbeat
+    from ..parallel.launch import init_distributed
+    from ..utils.backend import resolve_device
+
+    ctx = init_distributed(device=args.device)
+    try:
+        mesh = _rank_group(args, ctx)
+        device = resolve_device(mesh.device if mesh is not None
+                                else args.device)
+        inputs = _load_inputs(args)
+        where = f"rank {ctx.process_id}/{ctx.num_processes}"
+        heartbeat("serve:start", phase="serve", detail=where)
+        report = _serve(args, device, inputs, mesh)
+        heartbeat("serve:done", phase="serve", detail=where)
+    finally:
+        ctx.close()
+    return report, ctx.is_coordinator
+
+
+def _rank_group(args, ctx):
+    """The run's ``RankGroup`` (one process per part) or ``None`` (one
+    process: the stacked layout); another world size exits on every rank
+    after a barrier (the slowest finishes its rendezvous first)."""
+    import torch.distributed as dist
+
+    from ..parallel.launch import global_mesh_1d
+
+    if ctx.num_processes == 1:
+        return None
+    try:
+        return global_mesh_1d(args.nparts, ctx)
+    except ValueError as e:
+        dist.barrier()
+        raise SystemExit(str(e)) from e
+
+
+def _load_inputs(args):
+    """The graph, features, labels and part vector the flags name, checked
+    against each other: ``(a, feats, labels, pv)``."""
     import numpy as np
 
     from ..io.mtx import read_dense_features, read_mtx
-    from ..parallel.plan import build_comm_plan
     from ..partition.emit import read_partvec, read_partvec_pickle
     from ..prep.normalize import normalize_adjacency
-    from ..utils.backend import resolve_device
 
-    device = resolve_device(args.device)
     feats = labels = None
     if args.npz:
         from ..io.datasets import load_npz_dataset
@@ -184,7 +254,18 @@ def main(argv=None) -> None:
     if feats is None:
         # the trainer CLI's synthetic harness inputs
         feats = np.tile(np.arange(n, dtype=np.float32)[:, None], (1, f))
+    return a, feats, labels, pv
 
+
+def _serve(args, device, inputs, mesh=None):
+    """Build the plan and the engine from the loaded ``inputs``, and on
+    rank 0 run the traffic window; returns the report (``None`` on the
+    other ranks, which follow rank 0's batches until it closes the
+    engine)."""
+    from ..parallel.plan import build_comm_plan
+
+    a, feats, labels, pv = inputs
+    n, f, k = a.shape[0], feats.shape[1], args.nparts
     # model config: checkpoint provenance wins; CLI flags fill the gaps.
     # activation comes ONLY from provenance — it is part of the served
     # function, and the engine re-verifies it against the checkpoint
@@ -216,7 +297,6 @@ def main(argv=None) -> None:
 
     from ..obs.memory import MemoryBudgetError
     from .engine import ServeEngine
-    from .loadgen import run_loadgen, synthetic_query_ids
 
     try:
         engine = ServeEngine(
@@ -226,10 +306,24 @@ def main(argv=None) -> None:
             checkpoint=args.checkpoint, max_batch=args.max_batch,
             buckets=buckets, latency_budget_ms=args.latency_budget_ms,
             shed_factor=args.shed_factor, seed=args.seed, device=device,
-            mode=args.serve_mode, memory_budget=args.memory_budget)
+            mode=args.serve_mode, memory_budget=args.memory_budget,
+            mesh=mesh)
     except MemoryBudgetError as e:
         raise SystemExit(str(e)) from e
     engine.set_features(feats)
+    if mesh is not None and mesh.rank != 0:
+        engine.follow()
+        return None
+    try:
+        return _window(args, engine, plan, device, n, k, model, widths)
+    finally:
+        engine.close()       # the followers' stop header, on every path
+
+
+def _window(args, engine, plan, device, n, k, model, widths) -> dict:
+    """Rank 0's (or the one process's) traffic window and its report."""
+    from .loadgen import run_loadgen, synthetic_query_ids
+
     if args.watch_checkpoint_dir:
         engine.attach_checkpoint_watch(args.watch_checkpoint_dir)
     recorder = None
@@ -239,7 +333,8 @@ def main(argv=None) -> None:
                                run_kind="serve")
         recorder.set_plan(plan, partitioner={"partvec": args.partvec,
                                              "k": k})
-        recorder.set_backend(device, parts=k)
+        recorder.set_backend(device, parts=k, processes=(
+            1 if engine.mesh is None else engine.mesh.size))
         engine.attach_recorder(recorder)
 
     qids = synthetic_query_ids(n, args.queries, seed=args.seed,
@@ -275,7 +370,7 @@ def main(argv=None) -> None:
     if recorder is not None:
         recorder.record_summary(report)
         recorder.close()
-    print(json.dumps(report), flush=True)
+    return report
 
 
 if __name__ == "__main__":

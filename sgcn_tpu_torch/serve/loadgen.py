@@ -11,6 +11,12 @@ The loop submits on arrival, executes on a max-batch flush, and sleeps
 toward whichever comes first of the next arrival and the pending head's
 deadline.  An OPEN-loop tail still deadline-flushes; a CLOSED-loop tail
 drains immediately.  Clock/sleep are injectable for deterministic tests.
+
+On a rank group (``ServeEngine(mesh=...)``) the load generator runs on
+rank 0 alone and drives the engine unchanged: each batch it submits is one
+round of the engine's batch protocol on every rank.  Its caller ends the
+window with ``engine.close()`` (in a ``finally``), which sends the other
+ranks the stop header.
 """
 
 from __future__ import annotations

@@ -211,16 +211,21 @@ class SubgraphBatch:
 
 
 def build_batch(index: SubgraphIndex, router, qids, nhops: int,
-                tb: int = 256) -> SubgraphBatch:
+                tb: int = 256, parts=None) -> SubgraphBatch:
     """Route ``qids``, take each part's ``nhops``-hop receptive set, lay
     out the compact rows and cut the compact recipes into tiles (module
-    docstring)."""
+    docstring).  ``parts`` (default: every part) selects the parts laid
+    out, stacked in that order: a rank of a rank group builds its own
+    part's alone (``ServeEngine(mesh=...)``).  ``q_owner`` is then each
+    query's place in ``parts``, −1 for a query another part owns (its
+    row is masked to zeros) and on padding."""
     qids = np.asarray(qids, dtype=np.int64).reshape(-1)
     owners, _ = router.lookup(qids)
     by_chip = router.route(qids)
-    k = index.k
+    parts = list(range(index.k)) if parts is None else list(parts)
+    k = len(parts)
     sets = [index.receptive(by_chip[c], nhops) if c in by_chip
-            else np.zeros(0, np.int64) for c in range(k)]
+            else np.zeros(0, np.int64) for c in parts]
     rows = pad_pow2(max(len(u) for u in sets) + 1)
     dump = rows - 1
     ntiles = -(-rows // tb)
@@ -231,13 +236,15 @@ def build_batch(index: SubgraphIndex, router, qids, nhops: int,
     pos_map = np.full(index.n, dump, np.int64)
     lists = [[] for _ in index.recipes]
     loads = np.zeros((len(index.recipes), k, ntiles), np.int64)
+    place = np.full(index.k, -1, np.int64)     # part → its place in parts
+    place[parts] = np.arange(k)
     for c, u in enumerate(sets):
         # descending degree keeps each tile's rows alike, so its class
         # pads little; each row's own chain does not depend on its place
         cu = u[np.argsort(-index.degree[u], kind="stable")]
         gids[c, :len(cu)] = cu
         pos_map[cu] = np.arange(len(cu))
-        mine = owners == c
+        mine = owners == parts[c]
         q_pos[:len(qids)][mine] = pos_map[qids[mine]]
         for f, csr in enumerate(index.recipes):
             cnt, srcs, ws = _take_rows(csr, cu)
@@ -254,7 +261,7 @@ def build_batch(index: SubgraphIndex, router, qids, nhops: int,
         families.append(tuple(arrays))
         classes.append(cls)
     q_owner = np.full(len(q_pos), -1, np.int64)
-    q_owner[:len(qids)] = owners
+    q_owner[:len(qids)] = place[owners]
     return SubgraphBatch(
         key=(index.model, len(q_pos), rows), gids=gids, families=families,
         classes=classes, tb=tb, q_owner=q_owner, q_pos=q_pos, nq=len(qids),

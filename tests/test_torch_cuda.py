@@ -2230,6 +2230,91 @@ def test_init_distributed_without_env_is_a_noop_on_card(cuda_device,
     assert not dist.is_initialized()
 
 
+# -------------------------------------------------- serving on ranks
+def _serve_proxy_inputs():
+    """Part 2's slice of a 4-way ER plan (every layout the serving forward
+    reads built on the full plan first), the features and three batches
+    of part 2's vertices."""
+    from sgcn_tpu_torch.parallel import shard_proxy_plan
+
+    n = 3000
+    ahat = normalize_adjacency(er_graph(n, avg_deg=8, seed=7))
+    plan = build_comm_plan(ahat, balanced_random_partition(n, 4, seed=7), 4)
+    plan.ensure_pallas_tiles()
+    plan.ensure_ragged()
+    plan.ensure_pallas_ragged_tiles()
+    plan.ensure_pallas_cell_tiles()
+    plan.ensure_pallas_cell_ragged_tiles()
+    rng = np.random.default_rng(28)
+    feats = rng.standard_normal((n, 24)).astype(np.float32)
+    own = np.flatnonzero(np.asarray(plan.owner) == 2)
+    return (shard_proxy_plan(plan, 2), feats,
+            [rng.choice(own, m, replace=False) for m in (5, 17, 32)])
+
+
+@pytest.mark.parametrize("model,sched,halo_dtype", [
+    ("gcn", "a2a", None), ("gcn", "ragged", None),
+    ("gcn", "a2a", "bfloat16"), ("gat", "a2a", None),
+    ("gat", "ragged", None)])
+def test_one_nccl_rank_serving_equals_the_stacked_proxy(
+        cuda_device, tmp_path, model, sched, halo_dtype):
+    """On the card: ``ServeEngine(mesh=...)`` on one NCCL rank (a
+    ``file://`` rendezvous, world size 1) serving part 2's slice — the
+    header and id broadcasts, the rank forward (send pack, collective
+    loopback, two K1 family launches an aggregation; GAT: its exchanges
+    and K5 passes), the row all-gather — returns the stacked engine's
+    rows on the same slice bit for bit, with the launches per batch of
+    the rank path and no fused launch."""
+    from sgcn_tpu_torch.models.gat import gat_table_form
+    from sgcn_tpu_torch.parallel import init_rank_group
+
+    sl, feats, batches = _serve_proxy_inputs()
+    widths = [32, 5]
+    kw = dict(fin=24, widths=widths, model=model, seed=3,
+              comm_schedule=sched, halo_dtype=halo_dtype, max_batch=32,
+              buckets=(32,))
+    stacked = ServeEngine(sl, device=cuda_device, **kw)
+    stacked.set_features(feats)
+    want = [stacked.query(q) for q in batches]
+    mesh = init_rank_group("file://" + str(tmp_path / "rdv"), 1, 0)
+    try:
+        eng = ServeEngine(sl, mesh=mesh, **kw)
+        eng.set_features(feats)
+        eng.query(batches[0])                     # the first launches
+        torch.cuda.synchronize()
+        before = (spmm_tiles.launches, spmm_tiles.bf16_launches,
+                  spmm_tiles.mask_launches, row_pack.launches,
+                  spmm_tiles_fused.launches,
+                  spmm_tiles_fused.wire_bf16_launches)
+        got = [eng.query(q) for q in batches]
+        torch.cuda.synchronize()
+        after = (spmm_tiles.launches, spmm_tiles.bf16_launches,
+                 spmm_tiles.mask_launches, row_pack.launches,
+                 spmm_tiles_fused.launches,
+                 spmm_tiles_fused.wire_bf16_launches)
+        eng.close()
+    finally:
+        mesh.close()
+    k1, k1_16, k5, packs, fused, fused_wire = (
+        a - b for a, b in zip(after, before))
+    for a, b in zip(got, want):
+        assert a.dtype == np.float32 and a.shape == b.shape
+        assert np.array_equal(a.view(np.int32), b.view(np.int32))
+    nb = len(batches)
+    assert fused == fused_wire == 0
+    if model == "gcn":
+        assert packs == nb * len(widths)
+        assert (k1, k1_16) == ((nb * 2, nb * 2) if halo_dtype
+                               else (nb * 4, 0))
+        assert k5 == 0
+    else:
+        forms = [gat_table_form(w) for w in widths]
+        assert k5 == nb * sum(2 if f == "split" else 1 for f in forms)
+        assert packs == nb * (len(widths) if sched == "ragged" else sum(
+            4 if f == "split" else 2 for f in forms))
+        assert k1 == k1_16 == 0
+
+
 # ------------------------------------------------ the ELL aggregator
 def _ell_static(plan, layout):
     plan.ensure_ell_chains(layout)

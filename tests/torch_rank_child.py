@@ -3,7 +3,8 @@
 ``tests/test_torch_launch.py``, ``tests/test_torch_cagnet1d.py``,
 ``tests/test_torch_ranks_carried.py``,
 ``tests/test_torch_ranks_directed.py``,
-``tests/test_torch_ranks_minibatch.py``).
+``tests/test_torch_ranks_minibatch.py``,
+``tests/test_torch_ranks_serve.py``).
 
 A test spawns one process per part (``torch.multiprocessing``, ``spawn``)
 through ``spawn_ranks``; each opens a gloo group on a ``file://``
@@ -279,13 +280,16 @@ def cli_rank_main(rank, world, init, out_dir):
     _write(out_dir, rank, _cli_jobs(rank, world, out_dir))
 
 
-def _cli_jobs(rank, world, out_dir):
+def _cli_jobs(rank, world, out_dir, main=None):
     """``cli_rank_main``'s jobs as rank ``rank``: per job its standard
-    output and exit message."""
+    output and exit message.  ``main``: the CLI's (default the train
+    CLI's)."""
     import contextlib
     import io
 
-    from sgcn_tpu_torch.train.__main__ import main as train_main
+    if main is None:
+        from sgcn_tpu_torch.train.__main__ import main
+    train_main = main
 
     with open(os.path.join(out_dir, "jobs.pkl"), "rb") as fh:
         jobs = pickle.load(fh)
@@ -876,4 +880,137 @@ def minibatch_ranks_main(rank, world, init, out_dir):
     finally:
         mesh.close()
     res["cli"] = _cli_jobs(rank, world, out_dir)
+    _write(out_dir, rank, res)
+
+
+# ``ServeEngine(mesh=...)``'s cases on cora 8-hp
+# (``tests/test_torch_ranks_serve.py``): full mode per transport and wire,
+# both models, and sub-graph mode
+SERVE_CASES = {"gcn-a2a": {}, "gcn-ring": {"comm_schedule": "ragged"},
+               "gcn-bf16": {"halo_dtype": "bfloat16"},
+               "gat-a2a": {"model": "gat"},
+               "gat-ring": {"model": "gat", "comm_schedule": "ragged"},
+               "gcn-sub": {"mode": "subgraph"},
+               "gat-sub": {"model": "gat", "mode": "subgraph"}}
+SERVE_BATCHES = (5, 17, 32)      # query counts of the batches served
+
+
+def serve_queries(plan, seed=21):
+    """The batches of global ids every case serves (``SERVE_BATCHES``),
+    drawn from a permutation; the widest holds a vertex of every part
+    (the hot-swap batches: every rank's rows read)."""
+    rng = np.random.default_rng(seed)
+    qs = [rng.permutation(plan.n)[:m] for m in SERVE_BATCHES]
+    owner = np.asarray(plan.owner)
+    each = [int(np.flatnonzero(owner == c)[0]) for c in range(plan.k)]
+    rest = [int(x) for x in qs[-1] if x not in each]
+    qs[-1] = np.asarray(each + rest[: SERVE_BATCHES[-1] - plan.k], np.int64)
+    return qs
+
+
+def serve_engine(plan, feats, case, p0, mesh=None, **kw):
+    """A ``SERVE_CASES`` engine from the weights ``p0`` (``{"gcn": [...],
+    "gat": [...]}``; ``params=None`` in ``kw`` for a checkpoint's), one
+    bucket of 32, features loaded; stacked on the CPU without ``mesh``."""
+    from sgcn_tpu_torch.serve import ServeEngine
+
+    kw = {**SERVE_CASES[case], **kw}
+    model = kw.setdefault("model", "gcn")
+    kw.setdefault("params", p0[model])
+    eng = ServeEngine(plan, fin=FIN, widths=WIDTHS, max_batch=32,
+                      buckets=(32,), mesh=mesh,
+                      device=None if mesh is not None else "cpu", **kw)
+    eng.set_features(feats)
+    return eng
+
+
+def _serve_round(eng, rank, lead):
+    """Rank 0 runs ``lead(eng)`` and closes the engine (also on an
+    exception); the others follow.  Returns rank 0's result or a
+    follower's ``{served, rev}``; an exception is kept as ``{err}``."""
+    try:
+        if rank == 0:
+            try:
+                return lead(eng)
+            finally:
+                eng.close()
+        return {"served": eng.follow(), "rev": eng.weights_rev}
+    except ValueError as e:
+        return {"err": str(e), "rev": eng.weights_rev}
+
+
+def _swap_lead(eng, out_dir, q):
+    """Rank 0 of the watched-directory case: a batch before any file,
+    then one after each file lands in the watched directory: the step-1
+    checkpoint, a corrupt step 2, a wrong-plan step 3."""
+    import shutil
+    import warnings
+
+    import time
+
+    stage, watch = (os.path.join(out_dir, d) for d in ("stage", "watch"))
+    while not os.path.exists(os.path.join(stage, "ready")):
+        time.sleep(0.02)              # the parent writes the files
+    eng.attach_checkpoint_watch(watch)
+    rows, revs, warned = [], [], []
+    for name in (None, "ckpt_00000001.npz", "ckpt_00000002.npz"):
+        if name is not None:
+            shutil.copy(os.path.join(stage, name), watch)
+        with warnings.catch_warnings(record=True) as w:
+            warnings.simplefilter("always")
+            rows.append(eng.query(q))
+        warned.append(any("corrupt" in str(x.message) for x in w))
+        revs.append(eng.weights_rev)
+    shutil.copy(os.path.join(stage, "ckpt_00000003.npz"), watch)
+    try:
+        eng.query(q)
+        err = None
+    except ValueError as e:
+        err = str(e)
+    return {"rows": rows, "revs": revs, "warned": warned, "err": err,
+            "rev": eng.weights_rev}
+
+
+def _swap_call_lead(eng, out_dir, q):
+    """Rank 0 of the direct swap: a batch, ``swap_weights`` (a header
+    with no queries), a batch."""
+    before = eng.query(q)
+    eng.swap_weights(os.path.join(out_dir, "stage", "gat.npz"))
+    return {"rows": [before, eng.query(q)], "rev": eng.weights_rev}
+
+
+def serve_ranks_main(rank, world, init, out_dir):
+    """The rank checks of ``tests/test_torch_ranks_serve.py`` on cora
+    8-hp: every ``SERVE_CASES`` engine serving ``serve_queries`` from
+    ``<out_dir>/init.pkl``'s weights (rank 0 queries and reads the
+    gauges, the others follow), a hot swap through a watched directory
+    (GCN a2a; the files of ``<out_dir>/stage``) and one by
+    ``swap_weights`` (GAT sub-graph mode); then the serve CLI's jobs of
+    ``<out_dir>/jobs.pkl`` (``cli_rank_main``)."""
+    import torch
+
+    torch.set_num_threads(1)
+    from sgcn_tpu_torch.parallel import init_rank_group
+    from sgcn_tpu_torch.serve.__main__ import main as serve_main
+
+    mesh = init_rank_group(init, world, rank, device="cpu")
+    res = {}
+    try:
+        _ahat, feats, _labels, _pv, plan = cora_plan("cora2708.8.hp")
+        with open(os.path.join(out_dir, "init.pkl"), "rb") as fh:
+            p0 = pickle.load(fh)
+        qs = serve_queries(plan)
+        for case in SERVE_CASES:
+            eng = serve_engine(plan, feats, case, p0, mesh)
+            res[case] = _serve_round(eng, rank, lambda e: {
+                "rows": [e.query(q) for q in qs], "gauges": e.gauges()})
+        eng = serve_engine(plan, feats, "gcn-a2a", p0, mesh)
+        res["watch"] = _serve_round(
+            eng, rank, lambda e: _swap_lead(e, out_dir, qs[-1]))
+        eng = serve_engine(plan, feats, "gat-sub", p0, mesh)
+        res["swap"] = _serve_round(
+            eng, rank, lambda e: _swap_call_lead(e, out_dir, qs[-1]))
+    finally:
+        mesh.close()
+    res["cli"] = _cli_jobs(rank, world, out_dir, serve_main)
     _write(out_dir, rank, res)
