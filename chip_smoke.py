@@ -238,10 +238,10 @@ failure raises and the script exits non-zero:
      stale a2a bit for bit for ``sync_every`` 0 and 4, delta off and on,
      over 1 + 8 steps; exact launch counts per stale and per sync step
      (packs, fused launches, backward fused launches; K1's family
-     entries 0), and the pack == plain on every exchange and the fused
-     entry on the first forward and the first backward aggregation of one
-     stale and one sync step of the a2a delta run, on their real carry
-     tables; the stale + delta losses
+     entries 0), and the pack == plain on every exchange of one stale and
+     one sync step of the a2a delta run and the fused entry on the stale
+     step's first forward and first backward aggregation, on their real
+     carry tables; the stale + delta losses
      within the reference's
      band (rtol/atol 1e-2, ``tests/test_stale_halo.py:192-200``) of phase
      5's, the gap printed; epoch_s (host clock and CUDA events) of exact,
@@ -378,13 +378,12 @@ failure raises and the script exits non-zero:
      a2a, 1 + 3 steps each: losses and weights == the stacked proxy's bit
      for bit, exact launches per entry (K5 float32 and bf16 tables, the
      GAT backward's, packs, K1's bf16 family entry two a GCN aggregation,
-     no fused launch), the K5 launches (float32 and bf16 tables) of one
-     GAT step's forward first layer on both transports and its last
-     layer on the a2a (float32: the split pair, the fused table; under
-     ``compute_dtype`` the packed pairs, and the backward's first layer)
-     and of one GCN ``compute_dtype`` step the first aggregation's two
-     bf16 family launches forward and backward == plain on their real
-     inputs: each table form once; each case's CUDA-event ms of steps 2–4
+     no fused launch), the first K5 launch of one GAT step on the a2a
+     (float32: the split form's rows at width 128; under
+     ``compute_dtype`` K5's bf16 entry on the packed form's rows) and
+     the first K1-bf16 launch of one GCN ``compute_dtype`` step == plain
+     on their real inputs: each kernel entry of the rank path once;
+     each case's CUDA-event ms of steps 2–4
      beside the stacked proxy's and its host seconds; (b)
      meanwhile the cora train CLI, GCN and GAT, in children under
      ``python -m torch.distributed.run --standalone --nproc_per_node 1``
@@ -461,14 +460,28 @@ failure raises and the script exits non-zero:
      ``--metrics-out``: its one JSON line == the unlaunched CLI's (in this
      process), timings and the measured peak aside, heartbeats
      ``serve:start`` and ``serve:done``;
-  36. one JSON line ``{"kernels": [...]}`` — per ported kernel (the tile
+  36. GAT on the ELL slot passes under ``SGCN_PALLAS_SPMM=0``
+     (``build/chip_smoke_ell_gat/``): cora2708 8-hp GAT 1433 → 16 → 7 on
+     the a2a, the ring and under ``compute_dtype`` (a2a), the directed
+     cora (float32, ``compute_dtype``), 3 steps each; the ER flagship GAT
+     (split, split, fused) on both transports, 3 steps under a
+     ``RunRecorder``; ring == a2a bit for bit, ELL == the tile path bit
+     for bit on cora and the directed cora (losses, weights) and within
+     rtol 1e-5 / atol 1e-6 on the flagship (weights by the parity tests'
+     rule), no K1, K5 or fused launch and exactly the tile path's packs
+     (``ell_gat_packs``); each step event valid, its roofline's wire
+     bytes == ``CommStats``'; the memory join within ``MEM_CARD_TOL`` and
+     the budget gate; epoch_s ELL against tiles in turns and the device
+     split of both; the full-mode server on ELL (2 batches of 64, both
+     transports) against phase 7's tile engine;
+  37. one JSON line ``{"kernels": [...]}`` — per ported kernel (the tile
      SpMM, the GCN aggregation's backward, the GAT attention pass and its
      use in the GAT layer's backward, the ragged ring aggregation and its
      backward, the row shuffle, the tile SpMM's and the GAT pass's bf16
      flavors, the row pack, the fused local + remote entry and the
      destination-indexed pack) its
      launches on the main path (phases 2–5, 7–13, 15–17, 19–21 and
-     23–35, the children's included), max
+     23–36, the children's included), max
      |kernel − plain|, kernel / plain / bound / library times at the
      flagship layer.  The tile SpMM's own float-weight family entries
      (both tables) launch on the main path only in the asymmetric
@@ -478,7 +491,7 @@ failure raises and the script exits non-zero:
      show 0 of them — the fused entry runs their chains and counts those
      launches — and any kernel with no launch on the main path fails the
      run;
-  37. the last line: ``{"ok": true, "device": {...}}``.
+  38. the last line: ``{"ok": true, "device": {...}}``.
 
 Without CUDA, or without the rest of the repository beside it, the script
 prints no result and exits with code 2 or 3.
@@ -3764,11 +3777,12 @@ def _phase_stale(children, plan, data, p_init, widths, rep5, fit_w,
     marks.append(("(d)", time.perf_counter()))
     # ---- (b, c) launches per stale and per sync step, and the pack ==
     # plain on every exchange of one stale and one sync step, the fused
-    # entry on the first forward and the first backward aggregation of
-    # each (its carry tables' two kinds, ≈ 2 s a plain version), on their
-    # real carry tables (the ring's fused launches read the same rows in
-    # the same order: its steps are counted, and (d) holds it to a2a bit
-    # for bit)
+    # entry on the stale step's first forward and first backward
+    # aggregation (its carry tables' two kinds, ≈ 2–3.5 s a plain
+    # version), on their real carry tables (a sync step's fused launches
+    # read a fresh exchange, the exact step's, held to plain in phases
+    # 3–5 and 18; the ring's read the same rows in the same order: its
+    # steps are counted, and (d) holds it to a2a bit for bit)
     for sched, delta in (("a2a", True), ("ragged", False)):
         tr = stale(sched, halo_delta=delta, sync_every=2)
         counted(lambda: tr.step(data))                # the initializing sync
@@ -3782,7 +3796,8 @@ def _phase_stale(children, plan, data, p_init, widths, rep5, fit_w,
             for j, (src, flat, dtype) in enumerate(packs):
                 check_pack(src, flat, dtype, f"stale {sched} delta={delta} "
                            f"{kind} step exchange {j}")
-            picked = [j for j in (0, nl) if j < len(fused)]
+            picked = [j for j in ((0, nl) if kind == "stale" else ())
+                      if j < len(fused)]
             for j in picked:
                 args = fused[j]
                 fused_err = max(fused_err, check_fused(
@@ -6204,7 +6219,6 @@ def _rank_levers(plan, feats_f, labels_f, p_init, params_g, widths, dev, tb,
     import numpy as np
     import torch
 
-    from sgcn_tpu_torch.models.gat import gat_table_form
     from sgcn_tpu_torch.models.gat import params_from_jax as gat_from_numpy
     from sgcn_tpu_torch.ops import tile_spmm as ts
     from sgcn_tpu_torch.parallel import (init_rank_group, shard_proxy_data,
@@ -6257,27 +6271,16 @@ def _rank_levers(plan, feats_f, labels_f, p_init, params_g, widths, dev, tb,
                 "ln": ln, "calls": calls}
 
     # the launches held against plain, by their index among the first
-    # step's launches of their entry: each table form the rank path ships
-    # at flagship width once.  GAT: the forward's first layer (split pair
-    # at width 128; packed under compute_dtype: bf16 u·z words and the
-    # float32 u lane) and last layer (the fused table at width 40;
-    # packed), on the ring the first layer's, and under compute_dtype the
-    # backward's first layer too (its packed ḡ/D lanes are float32); GCN
-    # under compute_dtype: the first aggregation's two K1-bf16 launches
-    # in the forward and in the backward
-    def gat_picks(cd, last=True, backward=False):
-        n = [1 if gat_table_form(w, cd) == "fused" else 2 for w in widths]
-        fwd = sum(n)
-        got = set(range(n[0]))
-        if last:
-            got |= set(range(fwd - n[-1], fwd))
-        if backward:
-            got |= set(range(fwd, fwd + n[-1]))
-        return {"k5": got}
-    picks = {"GAT a2a": gat_picks(None), "GAT ring": gat_picks(None, False),
-             "GAT bf16 a2a": gat_picks("bfloat16", backward=True),
-             "GCN bf16 a2a": {"k1_bf16": {0, 1, 2 * len(widths),
-                                         2 * len(widths) + 1}}}
+    # step's launches of their entry: each kernel entry the rank path
+    # launches at flagship width once (a plain version costs ≈ 3.5 s
+    # here).  GAT a2a: the first K5 launch (the split form's feature rows
+    # at width 128 on the rank's [local; halo] table); under
+    # compute_dtype the first (K5's bf16 entry on the packed form's
+    # unpacked u·z rows); GCN under compute_dtype: the first K1-bf16
+    # launch.  The ring's launches are the same entry on the ring concat
+    # (its rank == the stacked proxy bit for bit, held above)
+    picks = {"GAT a2a": {"k5": {0}}, "GAT bf16 a2a": {"k5": {0}},
+             "GCN bf16 a2a": {"k1_bf16": {0}}}
     mesh = init_rank_group("file://" + os.path.join(RANK31_DIR,
                                                     "rendezvous"), 1, 0)
     out = {}
@@ -6919,6 +6922,275 @@ def _phase_ell(plan, data, p_init, widths, eng_f, feats_f, fix, dev, smi):
         f"stream_ceiling_frac a2a {fracs['a2a']}, ring {fracs['ragged']}; "
         f"device split ELL {json.dumps(split)}, tile {json.dumps(tsplit)}")
     log(f"  phase 34's main-path launches: {json.dumps(totals)}")
+    return totals
+
+
+# ------------------------------- phase 36: GAT on the ELL slot passes
+ELL_GAT_DIR = os.path.join(REPO, "build", "chip_smoke_ell_gat")
+
+
+def ell_gat_packs(schedule, widths, compute_dtype=None, directed=False):
+    """Row-pack launches of one GAT step on the ELL slot passes — the
+    tile path's: the forward's exchanges (``pack_launches``), and the
+    backward's, the same on a symmetric plan; a directed backward's one
+    reverse pack an exchanged table (two for the split and packed
+    forms)."""
+    from sgcn_tpu_torch.models.gat import gat_table_form
+
+    fwd = pack_launches("gat", schedule, widths, compute_dtype)
+    if not directed:
+        return 2 * fwd
+    return fwd + sum(1 if gat_table_form(w, compute_dtype) == "fused"
+                     else 2 for w in widths)
+
+
+def phase_ell_gat(plan, data, params_g, widths, eng_gf, feats_f, fix, dev,
+                  smi):
+    """Phase 36: GAT on the ELL slot passes under ``SGCN_PALLAS_SPMM=0``.
+    Returns its main-path launch counts (``launch_counts`` keys).  The
+    variable is restored after."""
+    prev = os.environ.get("SGCN_PALLAS_SPMM")
+    try:
+        return _phase_ell_gat(plan, data, params_g, widths, eng_gf, feats_f,
+                              fix, dev, smi)
+    finally:
+        if prev is None:
+            os.environ.pop("SGCN_PALLAS_SPMM", None)
+        else:
+            os.environ["SGCN_PALLAS_SPMM"] = prev
+
+
+def _phase_ell_gat(plan, data, params_g, widths, eng_gf, feats_f, fix, dev,
+                   smi):
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from sgcn_tpu_torch.io.datasets import load_npz_dataset
+    from sgcn_tpu_torch.models.gat import params_from_jax as gat_from_numpy
+    from sgcn_tpu_torch.obs import RunRecorder, load_run
+    from sgcn_tpu_torch.obs.memory import MemoryBudgetError
+    from sgcn_tpu_torch.parallel import build_comm_plan
+    from sgcn_tpu_torch.partition import read_partvec
+    from sgcn_tpu_torch.prep import normalize_adjacency
+    from sgcn_tpu_torch.serve import ServeEngine
+    from sgcn_tpu_torch.train import FullBatchTrainer, make_train_data
+
+    shutil.rmtree(ELL_GAT_DIR, ignore_errors=True)
+    os.makedirs(ELL_GAT_DIR)
+    marks = [("start", time.perf_counter())]
+    totals = {}
+
+    def counted(run, packs, what):
+        """``run()`` as a main-path ELL run: counts zeroed before, read
+        after; no K1, K5 or fused launch, and exactly ``packs`` packs."""
+        launch_counts(zero=True)
+        k1_open()
+        out = run()
+        torch.cuda.synchronize()
+        k1_close()
+        c = launch_counts()
+        tiles = {key: v for key, v in c.items() if v and key != "pack"}
+        if tiles or c["pack"] != packs:
+            raise AssertionError(f"phase 36: {what}: launches {c}, expected "
+                                 f"{packs} packs and nothing else")
+        for key, v in c.items():
+            totals[key] = totals.get(key, 0) + v
+        return out
+
+    def trainer(p, fin, ws, sched, params, **kw):
+        return FullBatchTrainer(p, fin=fin, widths=ws, model="gat",
+                                activation="none", params=params,
+                                comm_schedule=sched, device=dev, **kw)
+
+    def use_ell(on):
+        if on:
+            os.environ["SGCN_PALLAS_SPMM"] = "0"
+        else:
+            os.environ.pop("SGCN_PALLAS_SPMM", None)
+
+    def leaves(tr):
+        return [{k: v.detach().clone() for k, v in p.items()}
+                for p in tr.params]
+
+    def same(a, b):
+        return all(torch.equal(x[k], y[k]) for x, y in zip(a, b) for k in x)
+
+    # ---- (a) cora2708 8-hp: a2a, ring, compute_dtype, the directed cora
+    a, feats, labels = load_npz_dataset(os.path.join(fix, "cora2708.npz"))
+    pv = read_partvec(os.path.join(fix, "cora2708.8.hp"))
+    cw = [16, 7]
+    c0 = gat_params_numpy(5, list(zip([1433] + cw[:-1], cw)))
+    for name, g in (("cora", a), ("directed cora", cora_directed(a))):
+        cp = build_comm_plan(normalize_adjacency(g), pv, 8)
+        cd = make_train_data(cp, feats, labels, device=dev)
+        use_ell(False)
+        tt = trainer(cp, 1433, cw, "a2a", gat_from_numpy(c0))
+        tl = [tt.step(cd) for _ in range(3)]
+        tw = leaves(tt)
+        cases = ((("a2a", None), ("ragged", None), ("a2a", "bfloat16"))
+                 if cp.symmetric else (("a2a", None), ("a2a", "bfloat16")))
+        runs = {}
+        use_ell(True)
+        for sched, dt in cases:
+            tr = trainer(cp, 1433, cw, sched, gat_from_numpy(c0),
+                         compute_dtype=dt)
+            if tr.setup.aggregator != "ell":
+                raise AssertionError("phase 36: SGCN_PALLAS_SPMM=0 did not "
+                                     "select the ELL slot passes")
+            packs = 3 * ell_gat_packs(sched, cw, dt, not cp.symmetric)
+            runs[sched, dt] = (counted(
+                lambda: [tr.step(cd) for _ in range(3)], packs,
+                f"{name} {sched} {dt}"), leaves(tr))
+        ring = all(runs[s, dt][0] == runs["a2a", dt][0]
+                   and same(runs[s, dt][1], runs["a2a", dt][1])
+                   for s, dt in runs)
+        el, ew = runs["a2a", None]
+        close = np.allclose(el, tl, **ELL_TOL)
+        bits = el == tl and same(ew, tw)
+        log(f"  {name} GAT ELL a2a losses {el}, tile {tl}; bf16 "
+            f"{runs['a2a', 'bfloat16'][0]}; ring == a2a {ring}; ELL == "
+            f"tiles bit for bit (losses and weights) "
+            f"{bits}, within rtol 1e-5 / atol 1e-6 {close}")
+        if not (ring and close and bits
+                and np.isfinite(runs["a2a", "bfloat16"][0]).all()):
+            raise AssertionError(f"phase 36: {name} GAT ELL run differs")
+    marks.append(("(a) cora", time.perf_counter()))
+
+    # ---- (b) the ER flagship, 3 steps a2a and ring under a recorder
+    per_step = {s: ell_gat_packs(s, widths) for s in ("a2a", "ragged")}
+    flag = {}
+    use_ell(True)
+    for sched in ("a2a", "ragged"):
+        tr = trainer(plan, 128, widths, sched, gat_from_numpy(params_g))
+        d = os.path.join(ELL_GAT_DIR, f"flagship-{sched}")
+        rec = RunRecorder(d, config={"phase": 36, "comm_schedule": sched})
+        tr.attach_recorder(rec)
+        losses = counted(lambda: [tr.step(data) for _ in range(3)],
+                         3 * per_step[sched], f"flagship {sched}")
+        rec.close()
+        tr.attach_recorder(None)
+        flag[sched] = (tr, losses, d)
+    te, el, _ = flag["a2a"]
+    ter, rl, _ = flag["ragged"]
+    ring = rl == el and same(leaves(ter), leaves(te))
+    use_ell(False)
+    tt = trainer(plan, 128, widths, "a2a", gat_from_numpy(params_g))
+    tl = [tt.step(data) for _ in range(3)]
+    close = np.allclose(el, tl, **ELL_TOL)
+    bits = el == tl and same(leaves(te), leaves(tt))
+    wt = [weights_track(x[k].cpu().numpy(), y[k].cpu().numpy())
+          for x, y in zip(leaves(te), leaves(tt)) for k in ("w", "a2")]
+    log(f"  flagship GAT ELL a2a losses {el}, ring {rl}, tile {tl}; ring "
+        f"== a2a {ring}; ELL within rtol 1e-5 / atol 1e-6 of the tiles "
+        f"{close} (bit for bit: {bits}); weights track: {wt}")
+    if not (ring and close and all(ok for ok, _ in wt)):
+        raise AssertionError("phase 36: the flagship GAT ELL run differs")
+    log(f"  GAT ELL decision log: "
+        f"{json.dumps(te.comm_decision['aggregator'])}")
+    marks.append(("(b) flagship", time.perf_counter()))
+
+    # the step events: schema, roofline, wire bytes == CommStats', memory
+    fracs = {}
+    for sched, (tr, _l, d) in flag.items():
+        steps = load_run(d).steps()            # validates every record
+        if len(steps) != 3:
+            raise AssertionError(f"phase 36: {sched}: {len(steps)} steps")
+        rows = []
+        for s in steps:
+            roof = s["roofline"]
+            if roof["halo_bytes_wire_per_step"] != \
+                    s["comm"]["halo_bytes_wire_per_step"]:
+                raise AssertionError(f"phase 36: {sched} wire bytes "
+                                     f"{roof} vs {s['comm']}")
+            rows.append({"step": s["step"], "wall_s": s["wall_s"],
+                         "gather_GB": roof["gather_GB"],
+                         "stream_ceiling_frac": roof["stream_ceiling_frac"],
+                         "achieved_GFLOPs": roof["achieved_GFLOPs"],
+                         "halo_bytes_wire_per_step":
+                             roof["halo_bytes_wire_per_step"],
+                         "gather_stream_ratio": s["measured_vs_model"][
+                             "components"]["gather_stream"]["ratio"]})
+        fracs[sched] = [r["stream_ceiling_frac"] for r in rows]
+        log(f"  flagship GAT {sched} step events (schema-valid, wire bytes "
+            f"== CommStats'): {json.dumps(rows)}")
+        blk = tr.memory_join["block"]
+        ratio = blk["total"]["measured_bytes"] / tr.memory.total_bytes
+        log(f"  flagship GAT {sched} memory: model {tr.memory.total_bytes} "
+            f"B (slot_temps {tr.memory.families['slot_temps']}), peak "
+            f"{blk['total']['measured_bytes']} B, peak / total {ratio:.4f} "
+            f"(the card's band {MEM_CARD_TOL}); arguments "
+            f"{blk['arguments']['measured_bytes']} vs "
+            f"{blk['arguments']['model_bytes']}")
+        if tr.memory_join["violations"] or ratio > MEM_CARD_TOL:
+            raise AssertionError(f"phase 36: {sched} memory "
+                                 f"{tr.memory_join['violations']}, ratio "
+                                 f"{ratio}")
+    use_ell(True)
+    try:
+        trainer(plan, 128, widths, "a2a", gat_from_numpy(params_g),
+                memory_budget=te.memory.total_bytes - 1)
+        raise AssertionError("phase 36: the memory budget did not gate")
+    except MemoryBudgetError as e:
+        log(f"  memory_budget = total - 1: MemoryBudgetError "
+            f"({str(e).splitlines()[0]!r})")
+
+    # epoch_s ELL against the tiles in turns; the device split
+    epoch = {"tile": [], "ell a2a": [], "ell ring": []}
+    for kind, tr in (("tile", tt), ("ell a2a", te), ("ell ring", ter),
+                     ("ell a2a", te), ("tile", tt)):
+        run = lambda tr=tr: tr.fit(data, epochs=3, warmup=1, verbose=False)
+        sched = "ragged" if kind == "ell ring" else "a2a"
+        rep = (counted(run, 4 * per_step[sched], kind) if kind != "tile"
+               else run())
+        epoch[kind].append(rep["epoch_s"])
+    log(f"  flagship GAT epoch_s (1 warm-up + 3 steps each, in turns tile, "
+        f"ELL a2a, ELL ring, ELL a2a, tile): {json.dumps(epoch)}; card: "
+        f"{smi}")
+    split = counted(lambda: device_split("flagship GAT ELL a2a step",
+                                         lambda: te.step(data), reps=2),
+                    2 * per_step["a2a"], "device split")
+    tsplit = device_split("flagship GAT tile a2a step",
+                          lambda: tt.step(data), reps=2)
+    marks.append(("(b) events, times", time.perf_counter()))
+
+    # ---- (c) the full-mode server on the flagship, both transports
+    params = [{k: v.detach().cpu().numpy() for k, v in p.items()}
+              for p in eng_gf.model.layer_params()]
+    q = np.arange(2 * 64).reshape(2, 64) * 883 % plan.n
+    use_ell(False)
+    want = np.concatenate([eng_gf.query(b) for b in q])
+    use_ell(True)
+    served = {}
+    for sched in ("a2a", "ragged"):
+        eng = ServeEngine(plan, 128, widths, model="gat", comm_schedule=sched,
+                          params=gat_from_numpy(params), device=dev,
+                          max_batch=64)
+        if eng.setup.aggregator != "ell":
+            raise AssertionError("phase 36: the engine runs the tile path")
+        eng.set_features(feats_f)
+        served[sched] = counted(
+            lambda: np.concatenate([eng.query(b) for b in q]),
+            2 * pack_launches("gat", sched, widths), f"serve {sched}")
+    ok = np.array_equal(served["a2a"], served["ragged"])
+    close = np.allclose(served["a2a"], want, **ELL_TOL)
+    gap = float(np.abs(served["a2a"] - want).max())
+    log(f"  flagship GAT full-mode server on ELL: 2 batches of 64, rows "
+        f"finite {bool(np.isfinite(served['a2a']).all())}, ring == a2a "
+        f"{ok}, within rtol 1e-5 / atol 1e-6 of phase 7's tile engine "
+        f"{close} (max gap {gap:.3g}, bit for bit "
+        f"{bool(np.array_equal(served['a2a'], want))})")
+    if not (ok and close):
+        raise AssertionError("phase 36: the GAT ELL server's rows differ")
+    marks.append(("(c) serve", time.perf_counter()))
+    log("  phase 36 host seconds by section: " + json.dumps(
+        {name: round(t - t0, 1) for (_n, t0), (name, t) in
+         zip(marks, marks[1:])}))
+    log(f"  phase 36 stream_ceiling_frac a2a {fracs['a2a']}, ring "
+        f"{fracs['ragged']}; device split ELL {json.dumps(split)}, tile "
+        f"{json.dumps(tsplit)}")
+    log(f"  phase 36's main-path launches: {json.dumps(totals)}")
     return totals
 
 
@@ -8179,6 +8451,19 @@ def main() -> int:
     log(f"  phase 35 took {time.perf_counter() - t35:.1f} s")
 
     # ---------------------------------------------------------- phase 36
+    log("phase 36: GAT on the ELL slot passes (SGCN_PALLAS_SPMM=0) — "
+        "cora2708 (a2a, ring, compute_dtype) and the directed cora, the "
+        "flagship GAT on both transports under a recorder, the full-mode "
+        "server: ring == a2a, ELL against tiles, no K1, K5 or fused "
+        "launch, the predicted packs, the roofline, the memory join, "
+        "epoch_s and the device split")
+    t36 = time.perf_counter()
+    p36 = phase_ell_gat(plan, data, params_g, widths_f, eng_gf, feats_f, fix,
+                        dev, smi)
+    MAIN_PATH_PACKS[0] += p36["pack"]
+    log(f"  phase 36 took {time.perf_counter() - t36:.1f} s")
+
+    # ---------------------------------------------------------- phase 37
     fused_main = (launches_c + launches_f + launches_tc + launches_tf
                   + launches_fr + launches_rt + launches_ca + launches_cr
                   + l15["wire"] + l15["bf16"] + launches_16 + asym["fused"]

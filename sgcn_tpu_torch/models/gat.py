@@ -58,7 +58,26 @@ cannot read packed words.  The port unpacks the received words with a
 ``u`` lane as a float32 one — so it computes the same function, every
 in-edge summed in float32, on the combined-edge tiles it already builds,
 through the kernel's bf16 entry point (the order of each row's sum is the
-tiles', not the ELL buckets').  The ELL path stays ROADMAP item A2.
+tiles', not the ELL buckets').
+
+``SGCN_PALLAS_SPMM=0`` (``aggregator='ell'``) runs the reference's own
+aggregator instead, its slot passes over the combined-edge ELL layout
+(``_edge_pass``, ``_mask_slot_pass``, ``_pair_slot_pass``,
+``_packed_aggregate``, ``sgcn_tpu/models/gat.py:255-483``) in torch ops:
+``GatLayerEll``.  Per table one exchange (``ops/pspmm.py::
+gat_exchange_table`` / ``gat_exchange_rows_scalar``, the a2a's two packs or
+the ring's one, the halo table the same on both), then per width slot one
+gather of the stacked ``[local; halo]`` table, one mask product and one
+add, and the hub tail's level-by-level ``index_add_`` chains
+(``parallel/plan.py::ell_chain_layout(plan, 'cell')``).  The packed form's
+words are unpacked before the mask multiplies.  The split form's
+denominator gathers ``u`` itself, at every table size: the reference's
+own branch at ``_ONED_U_ROWS`` = 10⁶ rows a chip and above; below it the
+reference gathers a 128-lane broadcast of ``u``, sums the lanes and
+scales by 1/128, which rounds in XLA:CPU's order of the 128 adds (a
+device for the TPU's tile padding; ROADMAP C12).  On an asymmetric
+plan the backward runs the transposed chains of ``'cell_t'`` and the
+reverse exchange, as ``ops/pspmm.py::PspmmOverlap`` does for the GCN.
 
 An asymmetric edge pattern (a directed graph; the reference's
 ``gat_layer_local``, the factored forward with autodiff as its backward)
@@ -86,8 +105,10 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from ..ops.pspmm import (halo_exchange, narrow_dtype, rank_halo_exchange,
-                         ring_concat)
+from ..ops.pspmm import (ELL_RANKS_DEFERRAL, bucketed_slot_reduce,
+                         ell_transpose, gat_exchange_rows_scalar,
+                         gat_exchange_table, halo_exchange, narrow_dtype,
+                         rank_halo_exchange, ring_concat)
 from ..ops.tile_spmm import (gat_tiles_pass, k5_launches,
                              pspmm_tiles_transposed, transposed_ranks)
 from .activations import get_activation
@@ -370,14 +391,29 @@ def _gat_tiles_aggregate_T(p, s, form, tl, th, t1, rev, tlclasses,
 def _gat_factored_fwd_core(w, a2, h, ex_src, halo_src_flat, csrc, cld, cw,
                            row_valid, tb, cclasses, form=None,
                            rr_sizes=None, mesh=None):
-    """The factored layer over stacked parts: returns
-    ``(out, z, u, den, cg)``.  ``cg`` is the max of ``z2`` over every
-    part's real rows (the reference's ``pmax``, pad rows excluded),
-    without gradient: ``out`` is exactly invariant to it.  ``rr_sizes``
-    selects the ragged ring (``_gat_tiles_aggregate``); ``mesh`` one
-    rank's part, ``cg`` then the max over the ranks.  ``w``, ``a2``
-    and ``h`` in bf16 run the layer in bf16 (``z`` bf16; ``u``, ``cg``,
-    the sums and ``out`` float32, as in the reference)."""
+    """The factored layer over stacked parts on the tile kernel
+    (``_gat_tiles_aggregate``): returns ``(out, z, u, den, cg)``
+    (``_gat_factored_core``).  ``rr_sizes`` selects the ragged ring;
+    ``mesh`` one rank's part."""
+    if form is None:
+        form = gat_table_form(w.shape[-1], w.dtype)
+    return _gat_factored_core(
+        w, a2, h, row_valid, form,
+        lambda p, s: _gat_tiles_aggregate(p, s, form, ex_src, halo_src_flat,
+                                          csrc, cld, cw, tb, cclasses,
+                                          rr_sizes, mesh), mesh)
+
+
+def _gat_factored_core(w, a2, h, row_valid, form, aggregate, mesh=None):
+    """The factored layer over stacked parts, its two aggregations
+    given (``aggregate(p, s) → (N, D)``, ``p = u·z`` in ``z``'s dtype and
+    ``s`` the ``u`` the form ships): returns ``(out, z, u, den, cg)``.
+    ``cg`` is the max of ``z2`` over every part's real rows (the
+    reference's ``pmax``, pad rows excluded), without gradient: ``out`` is
+    exactly invariant to it; with ``mesh`` (one rank's part) the max over
+    the ranks.  ``w``, ``a2`` and ``h`` in bf16 run the layer in bf16
+    (``z`` bf16; ``u``, ``cg``, the sums and ``out`` float32, as in the
+    reference)."""
     z = h @ w
     z2 = _widened(score_project(z, a2))
     z2m = torch.where(row_valid > 0, z2.detach(),
@@ -386,14 +422,10 @@ def _gat_factored_fwd_core(w, a2, h, ex_src, halo_src_flat, csrc, cld, cw,
     if mesh is not None:
         cg = mesh.all_reduce_max(cg)
     u = torch.exp(z2 - cg)                           # (k, b) in (0, 1]
-    if form is None:
-        form = gat_table_form(z.shape[-1], z.dtype)
     # the packed form keeps u in float32 beside the bf16 u·z; the others
     # ship both in z's dtype
     s = u if form == "packed" else u.to(z.dtype)
-    num, den = _gat_tiles_aggregate(u.to(z.dtype)[..., None] * z, s, form,
-                                    ex_src, halo_src_flat, csrc, cld, cw,
-                                    tb, cclasses, rr_sizes, mesh)
+    num, den = aggregate(u.to(z.dtype)[..., None] * z, s)
     # max(den, tiny): u > 0 on every real edge, so this stays exact until
     # genuine f32 underflow; the reference's guard, kept as it is
     out = num / torch.clamp(den, min=1e-30)[..., None]
@@ -451,6 +483,7 @@ class GatLayerSym(torch.autograd.Function):
         ctx.save_for_backward(w, a1, a2, h, cg, den, out, ex_src,
                               halo_src_flat, csrc, cld, cw)
         ctx.static = (tb, cclasses, form, rr_sizes, dtypes, mesh)
+        ctx.form, ctx.dtypes = form, dtypes
         return out
 
     @staticmethod
@@ -474,9 +507,10 @@ def _gat_layer_grads(ctx, saved, gbar, aggregate):
     aggregation of ``[dn ‖ dd]`` given: ``aggregate(dn, dd)`` returns
     ``(dp, du)`` — the same passes as the forward for a symmetric
     pattern, their transpose otherwise.  ``saved``: the layer's
-    ``ctx.saved_tensors``.  Returns ``(dw, da1, da2, dh)``."""
+    ``ctx.saved_tensors``; ``ctx.form`` and ``ctx.dtypes`` the forward's
+    table form and its inputs' dtypes.  Returns ``(dw, da1, da2, dh)``."""
     w, a1, a2, h, cg, den, out = saved[:7]
-    form, dtypes = ctx.static[2], ctx.static[4]
+    form, dtypes = ctx.form, ctx.dtypes
     z = h @ w                                    # recomputed
     fin, fout = w.shape
     u = torch.exp(_widened(score_project(z, a2)) - cg)
@@ -542,6 +576,177 @@ class GatLayerGen(torch.autograd.Function):
         return grads + (None,) * 13
 
 
+# ------------------------------------------------- the ELL slot passes
+# The reference's default GAT aggregator (``SGCN_PALLAS_SPMM=0``): masked
+# sums over the combined-edge bucketed layout, one gather of the stacked
+# ``[local; halo]`` table per width slot.  ``pa``: the shipped
+# ``ell_chain_layout(plan, 'cell')`` arrays (``cell_src``, ``cell_m``,
+# ``chub_*``) and the exchange's; ``static``: ``choose_ell_dispatch``'s
+# kwargs (``ell_buckets`` the plan's ``cell_buckets``, ``ell_levels``,
+# ``halo_r``, ``rr_sizes`` on the ring).  Not carried: the reference's
+# chunked tail scan (``SGCN_GAT_TAIL_CHUNK``, past 256 MiB of tail temps)
+# and its slot scan under ``_GAT_SCAN_LIVE``: XLA memory budgets that
+# only reorder the sums (ROADMAP C10).
+
+def _edge_pass(pa, static, k, b, contrib):
+    """Masked Σ over every row's combined in-edges (port of
+    ``_edge_pass``): ``bucketed_slot_reduce`` over ``cell_src`` /
+    ``cell_m`` (each bucket's sum from its first slot's product, the
+    others added in slot order), then the hub tail's chains from +0
+    (``chub_*``, level by level), added after the buckets.  ``contrib(src,
+    m)`` returns a tuple of float ``(n, ...)`` products; returns the
+    tuple of ``(k, b, ...)`` sums."""
+    outs = bucketed_slot_reduce(pa["cell_src"], pa["cell_m"],
+                                static["ell_buckets"], contrib, k)
+    res = []
+    for per_bucket in zip(*outs):
+        views = [o.view(k, -1, *o.shape[1:]) for o in per_bucket]
+        res.append(views[0] if len(views) == 1 else torch.cat(views, dim=1))
+    levels = static["ell_levels"]["chub"]
+    if not levels:
+        return tuple(res)
+    tails = [r.new_zeros((k * b, *r.shape[2:])) for r in res]
+    off = 0
+    for n in levels:
+        seg = slice(off, off + n)
+        dst = pa["chub_dst"][seg]
+        for t, v in zip(tails, contrib(pa["chub_src"][seg],
+                                       pa["chub_w"][seg])):
+            t.index_add_(0, dst, v)
+        off += n
+    return tuple(r + t.view_as(r) for r, t in zip(res, tails))
+
+
+def _full_rows(table, halo):
+    """The stacked ``[local; halo]`` table as the ``(k·(B + R), d)`` rows
+    ``cell_src`` names."""
+    full = torch.cat([table, halo], dim=1)
+    return full.reshape(-1, *full.shape[2:])
+
+
+def _mask_slot_pass(p, s, pa, static):
+    """The fused form (port of ``_mask_slot_pass``): one ``(fout + 1)``
+    -lane ``[p ‖ s]`` table exchanged, one gather a slot, both parts of
+    the gathered row widened to float32 and multiplied by the mask.
+    Returns ``(N (k, b, fout), D (k, b))``."""
+    k, b, fout = p.shape
+    table = torch.cat([p, s[..., None]], dim=-1)
+    full = _full_rows(table, gat_exchange_table(
+        table, pa, static.get("rr_sizes"), static["halo_r"]))
+
+    def contrib(src, m):
+        g = _widened(full.index_select(0, src))
+        return g[:, :fout] * m[:, None], g[:, fout] * m
+    return _edge_pass(pa, static, k, b, contrib)
+
+
+def _pair_slot_pass(p, s, pa, static):
+    """The split form (port of ``_pair_slot_pass``): the feature rows and
+    ``u`` exchanged apart (``gat_exchange_rows_scalar``), then two edge
+    passes, the features' and ``u``'s.  The denominator gathers ``u``
+    itself (the reference's branch at ``_ONED_U_ROWS`` rows and above),
+    not a 128-lane broadcast of it: one semantics at every size.
+    Returns ``(N (k, b, fout), D (k, b))``."""
+    k, b, _fout = p.shape
+    full_p, full_u = gat_exchange_rows_scalar(
+        p, s, pa, static.get("rr_sizes"), static["halo_r"])
+    fp, fu = full_p.reshape(-1, full_p.shape[-1]), full_u.reshape(-1)
+    (num,) = _edge_pass(pa, static, k, b, lambda src, m: (
+        _widened(fp.index_select(0, src)) * m[:, None],))
+    (den,) = _edge_pass(pa, static, k, b, lambda src, m: (
+        _widened(fu.index_select(0, src)) * m,))
+    return num, den
+
+
+def _packed_aggregate(p16, s, pa, static):
+    """The packed bf16 form (port of ``_packed_aggregate``): ``p16``
+    bit-paired into ``fout/2`` float32 words beside the float32 ``s``,
+    one ``(fout/2 + 1)``-word table exchanged and gathered once a slot;
+    the words are copied, never computed on, until the gathered row is
+    unpacked to bf16 and widened, and only then masked.  Returns ``(N
+    (k, b, fout), D (k, b))`` float32."""
+    k, b, fout = p16.shape
+    half = fout // 2
+    table = torch.cat([_pack_rows(p16), s[..., None]], dim=-1)
+    full = _full_rows(table, gat_exchange_table(
+        table, pa, static.get("rr_sizes"), static["halo_r"]))
+
+    def contrib(src, m):
+        g = full.index_select(0, src)
+        return (_unpack_rows(g[:, :half]).float() * m[:, None],
+                g[:, half] * m)
+    return _edge_pass(pa, static, k, b, contrib)
+
+
+_ELL_PASSES = {"fused": _mask_slot_pass, "split": _pair_slot_pass,
+               "packed": _packed_aggregate}
+
+
+def _gat_ell_aggregate(p, s, form, pa, static):
+    """Masked Σ over every row's in-edges of ``[p ‖ s]`` on the slot
+    passes of the table form ``form``."""
+    return _ELL_PASSES[form](p, s, pa, static)
+
+
+def _gat_ell_aggregate_T(p, s, form, pa, static):
+    """The transpose of ``_gat_ell_aggregate`` for an asymmetric pattern:
+    per table (one ``(fout + 1)``-lane table for the fused form, the
+    features and the scalar for the split and packed ones, the packed
+    form's bf16 ``p`` widened exactly to float32) the transposed chains
+    of ``'cell_t'`` in stored edge order, the halo sources' sums home
+    through the reverse exchange (``ops/pspmm.py::ell_transpose``).
+    Returns ``(N (k, b, fout), D (k, b))``."""
+    fout = p.shape[2]
+    levels = static["ell_levels"]
+    if form == "fused":
+        out = ell_transpose(torch.cat([p, s[..., None]], dim=-1), pa,
+                            levels, "cl_t", "ch_t")
+        return out[..., :fout], out[..., fout]
+    num = ell_transpose(_widened(p), pa, levels, "cl_t", "ch_t")
+    den = ell_transpose(_widened(s)[..., None], pa, levels, "cl_t", "ch_t")
+    return num, den[..., 0]
+
+
+class GatLayerEll(torch.autograd.Function):
+    """The GAT layer on the reference's slot passes
+    (``SGCN_PALLAS_SPMM=0``): ``GatLayerSym``'s factored forward and
+    chain rules with the aggregation of ``_gat_ell_aggregate`` (either
+    transport, ``static['rr_sizes']`` selecting the ring).  The backward
+    of a symmetric pattern (``ell_layout='cell'``) is the same passes over
+    ``[ḡ/D ‖ −(ḡ·out)/D]``, exchanged on the same wire; of an asymmetric
+    one (``'cell_t'``, a2a) their transpose (``_gat_ell_aggregate_T``), a
+    chain of gathers and level-by-level adds in stored edge order, never
+    autograd's transpose of ``index_select`` (float atomics on the card).
+    ``compute_dtype='bfloat16'`` as ``GatLayerSym``'s; the packed form's
+    gradient is the true one on either pattern (ROADMAP C5)."""
+
+    @staticmethod
+    def forward(ctx, w, a1, a2, h, pa, static, compute_dtype=None,
+                stabilizers=None):
+        dt = narrow_dtype(compute_dtype, "compute_dtype")
+        dtypes = (w.dtype, a2.dtype, h.dtype)
+        if dt is not None:
+            w, a2, h = w.to(dt), a2.to(dt), h.to(dt)
+        form = gat_table_form(w.shape[1], w.dtype)
+        out, _z, _u, den, cg = _gat_factored_core(
+            w, a2, h, pa["row_valid"], form,
+            lambda p, s: _gat_ell_aggregate(p, s, form, pa, static))
+        if stabilizers is not None:
+            stabilizers.append(cg)
+        ctx.save_for_backward(w, a1, a2, h, cg, den, out)
+        ctx.pa, ctx.static, ctx.form, ctx.dtypes = pa, static, form, dtypes
+        return out
+
+    @staticmethod
+    def backward(ctx, gbar):
+        agg = (_gat_ell_aggregate_T if ctx.static["ell_layout"] == "cell_t"
+               else _gat_ell_aggregate)
+        grads = _gat_layer_grads(
+            ctx, ctx.saved_tensors, gbar.contiguous(),
+            lambda dn, dd: agg(dn, dd, ctx.form, ctx.pa, ctx.static))
+        return grads + (None,) * 4
+
+
 def gat_forward_local(
     params,
     h,                              # (k, B, f_in) stacked local rows
@@ -562,6 +767,13 @@ def gat_forward_local(
     collect_stabilizers: bool = False,  # also return the per-layer cg
     remat: bool = False,            # recompute each layer in the backward
     mesh=None,                      # a RankGroup: one process per part
+    aggregator: str = "tile",       # static: 'tile' or 'ell'
+                                    # (SGCN_PALLAS_SPMM=0)
+    ell_layout: str | None = None,  # static ELL chain layout ('cell',
+                                    # 'cell_t')
+    ell_buckets: tuple | None = None,  # static plan.cell_buckets
+    ell_levels: dict | None = None,  # static chain level sizes
+    halo_r: int | None = None,      # static plan.r (the halo table)
 ):
     """Stacked forward: L × (``GatLayerSym`` → activation) →
     ``(k, B, nout)`` float32.  The reference stacks bare PGAT layers (no
@@ -581,13 +793,33 @@ def gat_forward_local(
     process per part, ``h`` the rank's ``(1, B, f)`` rows and ``pa`` its
     slice's tensors, on either pattern (an asymmetric one on the a2a,
     its backward's reverse exchange an ``all_to_all_single``); the same
-    bits as the stacked forward's row for that part."""
+    bits as the stacked forward's row for that part.
+
+    ``aggregator='ell'`` (``SGCN_PALLAS_SPMM=0``; ``ops/pspmm.py::
+    choose_ell_dispatch`` gives the ``ell_*`` statics and ``halo_r``) runs
+    every layer as ``GatLayerEll``, the reference's slot passes, on
+    ``ELL_GAT_PLAN_FIELDS`` (``_RAGGED`` on the ring, ``_GEN`` on an
+    asymmetric plan); not on a rank group."""
     if not symmetric and comm_schedule != "a2a":
         raise ValueError(
             "comm_schedule='ragged' uses the symmetric custom backward (the "
             "gradient table rides the same ring); asymmetric plans run the "
             "a2a schedule")
-    if comm_schedule == "ragged":
+    if aggregator == "ell":
+        if mesh is not None:
+            raise ValueError(ELL_RANKS_DEFERRAL)
+        if comm_schedule == "ragged" and rr_sizes is None:
+            raise ValueError("the ragged GAT forward needs the plan's "
+                             "static rr_sizes (CommPlan.ensure_ragged)")
+        static = {"ell_layout": ell_layout, "ell_buckets": ell_buckets,
+                  "ell_levels": ell_levels, "halo_r": halo_r,
+                  "rr_sizes": rr_sizes if comm_schedule == "ragged"
+                  else None}
+        ex = None
+    elif aggregator != "tile":
+        raise ValueError(f"unknown aggregator {aggregator!r} (know 'tile', "
+                         "'ell')")
+    elif comm_schedule == "ragged":
         if rr_sizes is None:
             raise ValueError("the ragged GAT forward needs the plan's "
                              "static rr_sizes (CommPlan.ensure_ragged)")
@@ -601,7 +833,7 @@ def gat_forward_local(
     act = get_activation(activation)
     fact = get_activation(final_activation)
     nl = len(params)
-    if not symmetric:
+    if not symmetric and ex is not None:
         transposed = (
             tuple(pa[f"ptile_tcl{x}"] for x in ("src", "ld", "w")),
             tuple(pa[f"ptile_tch{x}"] for x in ("src", "ld", "w")),
@@ -611,6 +843,10 @@ def gat_forward_local(
     cgs = [] if collect_stabilizers else None
 
     def layer(h, w, a1, a2, last):
+        if ex is None:
+            h = GatLayerEll.apply(w, a1, a2, h, pa, static, compute_dtype,
+                                  cgs)
+            return fact(h) if last else act(h)
         plan_args = (w, a1, a2, h, *ex, pa["ptile_cld"], pa["ptile_cw"],
                      pa["row_valid"], pallas_tb, pallas_cclasses)
         if symmetric:

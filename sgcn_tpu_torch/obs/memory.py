@@ -39,7 +39,8 @@ allocates:
     an envelope of its layer-by-layer recompute;
   * **slot_temps** — under the ELL aggregator (``SGCN_PALLAS_SPMM=0``)
     its transient tables at the widest exchanged width
-    (``ell_temp_bytes``): the family exists only then.
+    (``ell_temp_bytes``; the GAT's per table form,
+    ``ell_gat_temp_bytes``): the family exists only then.
 
 The measured side replaces XLA's ``compiled.memory_analysis()``
 (``measure_device_step``): on the card, ``argument_bytes`` are the bytes
@@ -322,7 +323,10 @@ def memory_model(plan, fin: int, widths, *, workload: str = "train",
             families["wire_buffers"] += 2 * side * (2 * fmax + 1) * \
                 wire_isize
 
-    if setup.aggregator == "ell":
+    if setup.aggregator == "ell" and model == "gat":
+        families["slot_temps"] = ell_gat_temp_bytes(
+            plan, setup.fwd_static, widths, compute_dtype)
+    elif setup.aggregator == "ell":
         families["slot_temps"] = ell_temp_bytes(
             plan, setup.fwd_static, fmax, compute_isize, wire_isize)
 
@@ -374,6 +378,51 @@ def ell_temp_bytes(plan, static: dict, f: int, isize: int,
                     + wire_isize * slots)
     nb = max(nb for nb, _ in static["ell_buckets"])
     return f * isize * (5 * k * b + k * nb + level)
+
+
+def ell_gat_temp_bytes(plan, static: dict, widths,
+                       compute_dtype: str | None = None) -> int:
+    """The GAT slot passes' transient tensors while one layer's
+    aggregation runs (``models/gat.py::_gat_ell_aggregate``; at most one
+    runs at a time), an envelope over the layers, each at its table form
+    (``gat_table_form``): the stacked ``[local; halo]`` table the slots
+    gather from (``k·(B + R)`` rows of the form's lanes: ``fout + 1``
+    fused or split, ``fout/2 + 1`` words packed), the per-bucket sums
+    and their concatenation, the hub tail's zero-started sums and the
+    sum with them (``k·B`` rows of ``fout + 1`` float32 lanes, four
+    times: the split form's two passes' sums alive together), and one
+    slot's gather with its widened copy and mask product (``k·nb``
+    rows; the packed form's gathered words, their unpacked bf16 copy,
+    its float32 widening and product), the largest tail level's the
+    same.  On an asymmetric plan (``'cell_t'``) the backward's
+    transposed sums per table: the owned rows', the owners' and their
+    sum (three ``k·B``), the reverse send buffer and the wire (``(k,
+    k·S)`` each) and the largest level's gather, if larger."""
+    from ..models.gat import gat_table_form
+
+    k, b, r, s = int(plan.k), int(plan.b), int(plan.r), int(plan.s)
+    nb = max(nb for nb, _ in static["ell_buckets"])
+    levels = static["ell_levels"]
+    tail = max(levels.get("chub", ()), default=0)
+    bf16 = compute_dtype == "bfloat16"
+    best = 0
+    for fout in widths:
+        form = gat_table_form(int(fout), compute_dtype)
+        if form == "packed":
+            d, isz = fout // 2 + 1, 4
+            row = d * 4 + (fout // 2) * 4 + 2 * fout * 4 + 4
+        else:
+            d, isz = fout + 1, (2 if bf16 else 4)
+            row = d * isz + 2 * d * 4
+        one = (k * (b + r) * d * isz + 4 * k * b * (fout + 1) * 4
+               + (k * nb + tail) * row)
+        if static["ell_layout"] == "cell_t":
+            lvl = max((max(v, default=0) for v in levels.values()),
+                      default=0)
+            one = max(one, (fout + 1) * 4 * (3 * k * b + 2 * k * k * s
+                                             + lvl))
+        best = max(best, one)
+    return int(best)
 
 
 def minibatch_memory_model(plans, fin: int, widths, *, setup,

@@ -78,7 +78,12 @@ They read the chain layout the plan builds (``parallel/plan.py::
 ell_chain_layout``): every scatter-add runs level by level
 (``chain_add``), so each row's sum is the reference's serial chain in
 stored order, run to run and ring against a2a bit for bit.  Their
-exchange is this module's pack, one per exchange.
+exchange is this module's pack, one per exchange.  The GAT's slot passes
+(``models/gat.py::GatLayerEll``) exchange through
+``gat_exchange_table`` / ``gat_exchange_rows_scalar`` (the reference's
+``_exchange_table`` / ``_exchange_rows_scalar``) and reduce with
+``bucketed_slot_reduce``; an asymmetric plan's transposes, GCN's and
+GAT's, share ``ell_transpose``.
 """
 
 from __future__ import annotations
@@ -801,16 +806,23 @@ def bucketed_slot_reduce(flat_src, flat_w, buckets, contrib, k: int = 1):
     the reference's unrolled branch): ``buckets = ((nb, wb), ...)``, the
     flat arrays hold, bucket after bucket and slot after slot, one
     ``(k·nb)`` run per slot (``ell_chain_layout``'s ``ell_src`` /
-    ``ell_w``).  Each bucket's sum starts from its first slot's
-    contribution and adds the others in slot order.  Returns the
-    per-bucket sums in bucket order."""
+    ``ell_w``, or ``cell_src`` / ``cell_m``).  ``contrib`` returns a
+    tensor or a tuple of tensors (the GAT's feature and scalar sums).
+    Each bucket's sum starts from its first slot's contribution and adds
+    the others in slot order.  Returns the per-bucket sums in bucket
+    order."""
     outs, off = [], 0
     for nb, wb in buckets:
         run, acc = k * nb, None
         for t in range(wb):
             seg = slice(off + t * run, off + (t + 1) * run)
             c = contrib(flat_src[seg], flat_w[seg])
-            acc = c if acc is None else acc.add_(c)
+            if acc is None:
+                acc = c
+            elif isinstance(c, tuple):
+                acc = tuple(a.add_(x) for a, x in zip(acc, c))
+            else:
+                acc = acc.add_(c)
         outs.append(acc)
         off += run * wb
     return outs
@@ -916,6 +928,39 @@ def halo_exchange_ragged(h, ring_src, rhalo_dst, rr_sizes, r: int,
     return halo
 
 
+def gat_exchange_table(table, pa, rr_sizes=None, r=None):
+    """The halo block of one GAT table (port of the reference's
+    ``_exchange_table``): on the a2a ``halo_exchange`` by the plan's
+    ``recv_src`` / ``halo_src_flat`` (two packs), on the ring (``rr_sizes``
+    given) ``halo_exchange_ragged`` by ``ring_src`` / ``rhalo_dst`` into
+    ``(k, r, d)`` (one pack).  Every real halo row is the same copy of
+    its owner's row on both transports, so the slot passes that read it
+    do not depend on the transport (pad rows differ: no true edge reads
+    one).  No arithmetic: the packed form's bit-paired words pass as
+    they are."""
+    if rr_sizes is not None:
+        return halo_exchange_ragged(table, pa["ring_src"], pa["rhalo_dst"],
+                                    rr_sizes, r)
+    return halo_exchange(table, pa["recv_src"], pa["halo_src_flat"])
+
+
+def gat_exchange_rows_scalar(p, u, pa, rr_sizes=None, r=None):
+    """Feature rows ``p`` ``(k, B, f)`` and a scalar a row ``u`` ``(k,
+    B)`` exchanged without a ``(k, B, f + 1)`` table (port of the
+    reference's ``_exchange_rows_scalar``): on the a2a the scalar rides
+    its own pack (``halo_exchange`` twice, four packs), on the ring both
+    ride one ring side by side (``halo_exchange_ragged_multi``, one
+    pack).  Returns the ``[local; halo]`` pair ``((k, B + R, f), (k, B +
+    R))``."""
+    if rr_sizes is not None:
+        halo_p, halo_u = halo_exchange_ragged_multi(
+            (p, u), pa["ring_src"], pa["rhalo_dst"], rr_sizes, r)
+    else:
+        halo_p = halo_exchange(p, pa["recv_src"], pa["halo_src_flat"])
+        halo_u = halo_exchange(u, pa["recv_src"], pa["halo_src_flat"])
+    return torch.cat([p, halo_p], dim=1), torch.cat([u, halo_u], dim=1)
+
+
 def _ragged_remote(x, ring_src, redge_dst, redge_src, redge_w, rr_sizes,
                    levels, halo_dtype=None):
     """Σ_d of round d's halo edges over its received rows (port of
@@ -1017,20 +1062,33 @@ class PspmmOverlap(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         pa, levels, halo_dtype = ctx.args
-        g = g.contiguous()
-        k, b, f = g.shape
-        gf = _rows(g)
-        dh = spmm_local(pa["ledge_t_dst"], pa["ledge_t_src"],
-                        pa["ledge_t_w"], gf, k * b, levels["ledge_t"])
-        send_rev = g.new_zeros((k, pa["rev_src"].shape[1], f))
-        chain_add(_rows(send_rev), gf, pa["hedge_t_src"], pa["hedge_t_dst"],
-                  pa["hedge_t_w"], levels["hedge_t"])
-        rwire = reverse_exchange(send_rev, pa["rev_src"], halo_dtype,
-                                 g.dtype)
-        back = g.new_zeros((k * b, f))
-        chain_add(back, _rows(rwire), pa["owner_src"], pa["owner_dst"],
-                  None, levels["owner"])
-        return (dh + back).view(k, b, f), None, None, None
+        return (ell_transpose(g, pa, levels, "ledge_t", "hedge_t",
+                              halo_dtype), None, None, None)
+
+
+def ell_transpose(g, pa, levels, local: str, halo: str, halo_dtype=None):
+    """The transpose of an aggregation over split edge lists, every
+    scatter in stored edge order (``PspmmOverlap``'s backward, and the
+    GAT's ``'cell_t'`` one): the local edges' transposed chains
+    (``{local}_*``) into the owned rows, the halo edges' (``{halo}_*``)
+    into each part's reverse send buffer (its receive layout), the
+    reverse exchange (one pack by ``rev_src``, narrowed to
+    ``halo_dtype``), the owners' weight-1 chains over what came back, and
+    the two sums added.  ``g`` ``(k, B, f)``; returns ``(k, B, f)`` in its
+    dtype."""
+    g = g.contiguous()
+    k, b, f = g.shape
+    gf = _rows(g)
+    dh = spmm_local(pa[f"{local}_dst"], pa[f"{local}_src"],
+                    pa[f"{local}_w"], gf, k * b, levels[local])
+    send_rev = g.new_zeros((k, pa["rev_src"].shape[1], f))
+    chain_add(_rows(send_rev), gf, pa[f"{halo}_src"], pa[f"{halo}_dst"],
+              pa[f"{halo}_w"], levels[halo])
+    rwire = reverse_exchange(send_rev, pa["rev_src"], halo_dtype, g.dtype)
+    back = g.new_zeros((k * b, f))
+    chain_add(back, _rows(rwire), pa["owner_src"], pa["owner_dst"],
+              None, levels["owner"])
+    return (dh + back).view(k, b, f)
 
 
 def pspmm_ell_sym(h, pa, buckets, levels, halo_dtype=None):
@@ -1058,16 +1116,23 @@ ELL_PLAN_FIELDS_GEN = ("recv_src", "ledge_dst", "ledge_src", "ledge_w",
                        "ledge_t_dst", "ledge_t_src", "ledge_t_w",
                        "hedge_t_dst", "hedge_t_src", "hedge_t_w",
                        "owner_dst", "owner_src", "rev_src")
+# ... and the GAT's slot passes (``ell_chain_layout(plan, 'cell')``): the
+# a2a's, the ring's (``rhalo_dst`` scatters the ring into the halo table)
+# and an asymmetric plan's (``'cell_t'``: the transposed chains, the
+# reverse exchange)
+ELL_GAT_PLAN_FIELDS = ("recv_src", "halo_src_flat", "cell_src", "cell_m",
+                       "chub_dst", "chub_src", "chub_w", "row_valid")
+ELL_GAT_PLAN_FIELDS_RAGGED = ("ring_src", "rhalo_dst", "cell_src", "cell_m",
+                              "chub_dst", "chub_src", "chub_w", "row_valid")
+ELL_GAT_PLAN_FIELDS_GEN = ELL_GAT_PLAN_FIELDS + (
+    "cl_t_dst", "cl_t_src", "cl_t_w", "ch_t_dst", "ch_t_src", "ch_t_w",
+    "owner_dst", "owner_src", "rev_src")
 
 # what SGCN_PALLAS_SPMM=0 refuses, naming the ROADMAP item each waits on
 ELL_RANKS_DEFERRAL = (
     "SGCN_PALLAS_SPMM=0 selects the ELL aggregator, which runs on the "
     "stacked parts only: ELL on ranks is ROADMAP A2d — unset "
     "SGCN_PALLAS_SPMM (or set 'auto') to train on ranks")
-ELL_GAT_DEFERRAL = (
-    "SGCN_PALLAS_SPMM=0 selects the ELL aggregator, which is ported for "
-    "GCN only: GAT's slot passes are ROADMAP A2 (its GAT half) — unset "
-    "SGCN_PALLAS_SPMM (or set 'auto') to run GAT on the tile kernel")
 ELL_MODE_DEFERRAL = (
     "SGCN_PALLAS_SPMM=0 selects the ELL aggregator, which runs the exact "
     "full-batch step and the full-mode server only: the {mode} runs on "
@@ -1091,24 +1156,36 @@ def ell_selected() -> bool:
 
 
 def choose_ell_dispatch(plan, schedule: str = "a2a",
-                        decision: dict | None = None) -> dict:
-    """Build the plan's ELL chain layout for ``schedule`` (``'a2a'``,
-    ``'ragged'``; an asymmetric plan takes ``'directed'``) and return the
-    forward's static kwargs: ``aggregator='ell'``, the buckets, every
-    chain family's level sizes (``ell_levels``) and, on the ring, its
-    round sizes.  Logs the choice in ``decision['aggregator']``."""
+                        decision: dict | None = None,
+                        model: str = "gcn") -> dict:
+    """Build the plan's ELL chain layout for ``schedule`` and ``model``
+    and return the forward's static kwargs: ``aggregator='ell'``, the
+    buckets, every chain family's level sizes (``ell_levels``) and, on
+    the ring, its round sizes.  The GCN's layout is the schedule's
+    (``'a2a'``, ``'ragged'``; an asymmetric plan ``'directed'``); the
+    GAT's is ``'cell'`` on either transport (``'cell_t'`` on an
+    asymmetric plan), its buckets ``cell_buckets``, plus the halo table's
+    height ``halo_r``.  Logs the choice in ``decision['aggregator']``."""
     if schedule not in ("a2a", "ragged"):
         raise ValueError(f"unknown comm schedule {schedule!r} (resolve "
                          "'auto' first: parallel/plan.py::"
                          "resolve_comm_schedule)")
-    layout = schedule if plan.symmetric else "directed"
+    if model == "gat":
+        layout = "cell" if plan.symmetric else "cell_t"
+        if schedule == "ragged":
+            plan.ensure_ragged()
+    else:
+        layout = schedule if plan.symmetric else "directed"
     plan.ensure_ell_chains(layout)
     chains = plan.ell_chains[layout]
     out = {"aggregator": "ell", "ell_layout": layout,
-           "ell_buckets": plan.ell_buckets,
+           "ell_buckets": (plan.cell_buckets if model == "gat"
+                           else plan.ell_buckets),
            "ell_levels": {name[: -len("_levels")]: sizes
                           for name, sizes in chains.items()
                           if name.endswith("_levels")}}
+    if model == "gat":
+        out["halo_r"] = int(plan.r)
     if not plan.symmetric:
         out["symmetric"] = False
     if schedule == "ragged":
@@ -1122,11 +1199,15 @@ def choose_ell_dispatch(plan, schedule: str = "a2a",
     return out
 
 
-def ell_plan_fields(layout: str) -> tuple:
-    """The shipped chain arrays of an ELL layout (``choose_ell_dispatch``'s
-    ``ell_layout``)."""
+def ell_plan_fields(layout: str, schedule: str = "a2a") -> tuple:
+    """The shipped arrays of an ELL layout (``choose_ell_dispatch``'s
+    ``ell_layout``) on ``schedule``'s transport."""
+    if layout == "cell":
+        return (ELL_GAT_PLAN_FIELDS_RAGGED if schedule == "ragged"
+                else ELL_GAT_PLAN_FIELDS)
     return {"a2a": ELL_PLAN_FIELDS, "ragged": ELL_PLAN_FIELDS_RAGGED,
-            "directed": ELL_PLAN_FIELDS_GEN}[layout]
+            "directed": ELL_PLAN_FIELDS_GEN,
+            "cell_t": ELL_GAT_PLAN_FIELDS_GEN}[layout]
 
 
 def ell_aggregate(x, pa, static, halo_dtype=None):

@@ -573,6 +573,9 @@ class CommPlan:
             for name, val in fields.items():
                 setattr(self, name, val)
             self.ptile_csrc = self.ptile_crsrc = None
+            if self.ell_chains is not None:           # built on the old cells
+                self.ell_chains.pop("cell", None)
+                self.ell_chains.pop("cell_t", None)
         return self
 
     def ensure_pallas_cell_tiles(self, tb: int = 256) -> "CommPlan":
@@ -890,9 +893,14 @@ class CommPlan:
         PspmmEllSym`` / ``PspmmRaggedSym``), ``'directed'`` the
         split-edge aggregation of an asymmetric Â and its transpose
         (``pspmm_overlap``), ``'edge'`` the combined ``[local; halo]``
-        edge list (``pspmm``).  Builds the exchange layout it reads
-        (``ensure_exchange``, and ``ensure_ragged`` for the ring)."""
-        if schedule not in ("a2a", "ragged", "directed", "edge"):
+        edge list (``pspmm``), ``'cell'`` the GAT slot passes over the
+        combined-edge layout (``models/gat.py::GatLayerEll``, either
+        transport) and ``'cell_t'`` those plus their transpose (an
+        asymmetric plan).  Builds the exchange layout it reads
+        (``ensure_exchange``, ``ensure_ragged`` for the ring,
+        ``ensure_cell`` for the combined edges)."""
+        if schedule not in ("a2a", "ragged", "directed", "edge", "cell",
+                            "cell_t"):
             raise ValueError(f"unknown ELL chain layout {schedule!r}")
         if self.chip_ids is not None:
             # the chains index the stacked parts' receive layouts; a
@@ -906,6 +914,8 @@ class CommPlan:
             self.ensure_exchange()
             if schedule == "ragged":
                 self.ensure_ragged()
+            if schedule in ("cell", "cell_t"):
+                self.ensure_cell()
             chains[schedule] = ell_chain_layout(self, schedule)
         self.ell_chains = chains
         return self
@@ -1757,6 +1767,20 @@ def ell_chain_layout(plan, schedule: str) -> dict:
         = send_rev[q, p·S + t]`` over ``(k, k·S)`` buffers;
       * ``edge_*`` (``'edge'``): the combined edge list over ``[local;
         halo]`` tables ``(k, B + R, f)``;
+      * ``cell_src`` / ``cell_m`` (``'cell'``, ``'cell_t'``): the GAT's
+        combined-edge slots ``cell_idx`` re-laid as ``ell_src`` is (one
+        ``(k·nb)`` run per slot), each source flat in the stacked
+        ``[local; halo]`` table of ``k·(B + R)`` rows, and each slot's
+        mask ``cell_w != 0`` as float32 0/1 (pad slots keep source 0 and
+        mask 0, as the reference's do); ``chub_*`` the hub tail
+        ``ctail_*`` (true edges, dst ``p·B + i``, the same sources, mask
+        weights);
+      * ``cl_t_*`` / ``ch_t_*`` (``'cell_t'``): the transposes of the
+        combined edges in stored edge order, split by source: a local
+        source's dst its row ``p·B + j``, a halo source's its receive
+        slot (``halo_src_flat``), the src the edge's dst row ``p·B + i``,
+        mask weights; with ``owner_*`` and ``rev_src`` as for
+        ``'directed'``;
       * ``recv_src`` or ``ring_src``: the exchange's pack."""
     k, b, s = plan.k, plan.b, plan.s
     out: dict = {}
@@ -1814,16 +1838,42 @@ def ell_chain_layout(plan, schedule: str) -> dict:
         hd, hs, hw = _real(plan, plan.hedge_dst, plan.hedge_src,
                            plan.hedge_w, plan.hnnz, b, lambda p, x: hsf[p, x])
         _chain(out, "hedge_t", hs, hd, hw)
-        sc = np.asarray(plan.send_counts)
-        t = np.arange(s)
-        real = t[None, None, :] < sc[:, :, None]             # (k, k, S)
-        p_, q_, t_ = np.nonzero(real)                        # p, q, t order
-        _chain(out, "owner",
-               p_ * b + np.asarray(plan.send_idx, np.int64)[p_, q_, t_],
-               p_ * k * s + q_ * s + t_)
-        rev = (np.arange(k)[None, :, None] * (k * s)
-               + np.arange(k)[:, None, None] * s + t[None, None, :])
-        out["rev_src"] = rev.reshape(k, k * s).astype(np.int32)
+        _owner_chains(out, plan)
+    if schedule in ("cell", "cell_t"):
+        rows = b + int(plan.r)
+        base = (np.arange(k, dtype=np.int64) * rows)[:, None, None]
+        srcs, ms, off = [], [], 0
+        for nb, wb in plan.cell_buckets:
+            sl = slice(off, off + nb * wb)
+            blk = np.asarray(plan.cell_idx[:, sl], np.int64)
+            srcs.append((blk.reshape(k, wb, nb) + base).transpose(1, 0, 2)
+                        .reshape(-1))
+            ms.append((np.asarray(plan.cell_w[:, sl]) != 0)
+                      .reshape(k, wb, nb).transpose(1, 0, 2).reshape(-1))
+            off += nb * wb
+        out["cell_src"] = np.concatenate(srcs).astype(np.int32)
+        out["cell_m"] = np.concatenate(ms).astype(np.float32)
+        _chain(out, "chub", *_real(
+            plan, plan.ctail_dst, plan.ctail_src,
+            (np.asarray(plan.ctail_w) != 0).astype(np.float32),
+            plan.ctail_nnz, b, lambda p, x: p * rows + x))
+    if schedule == "cell_t":
+        hsf = np.asarray(plan.halo_src_flat, np.int64)
+        fams = {"l": ([], [], []), "h": ([], [], [])}
+        for p in range(k):
+            c = int(plan.nnz[p])
+            d = np.asarray(plan.edge_dst[p, :c], np.int64)
+            src = np.asarray(plan.edge_src[p, :c], np.int64)
+            m = (np.asarray(plan.edge_w[p, :c]) != 0).astype(np.float32)
+            loc = src < b
+            for key, sel, dst in (("l", loc, p * b + src[loc]),
+                                  ("h", ~loc, hsf[p, src[~loc] - b])):
+                fams[key][0].append(dst)
+                fams[key][1].append(p * b + d[sel])
+                fams[key][2].append(m[sel])
+        for key, name in (("l", "cl_t"), ("h", "ch_t")):
+            _chain(out, name, *(np.concatenate(x) for x in fams[key]))
+        _owner_chains(out, plan)
     if schedule == "edge":
         _chain(out, "edge", *_real(
             plan, plan.edge_dst, plan.edge_src, plan.edge_w, plan.nnz, b,
@@ -1831,6 +1881,25 @@ def ell_chain_layout(plan, schedule: str) -> dict:
         out["recv_src"] = plan.recv_src
         out["halo_src_flat"] = plan.halo_src_flat
     return out
+
+
+def _owner_chains(out: dict, plan) -> None:
+    """The reverse exchange's two ends of an asymmetric Â's backward:
+    ``owner_*``, the owners' weight-1 sum of what comes back (dst ``p·B +
+    send_idx[p, q, t]``, src ``p·k·S + q·S + t``), and ``rev_src``, its
+    pack, ``rwire[p, q·S + t] = send_rev[q, p·S + t]`` over ``(k, k·S)``
+    buffers."""
+    k, b, s = plan.k, plan.b, plan.s
+    sc = np.asarray(plan.send_counts)
+    t = np.arange(s)
+    real = t[None, None, :] < sc[:, :, None]                 # (k, k, S)
+    p_, q_, t_ = np.nonzero(real)                            # p, q, t order
+    _chain(out, "owner",
+           p_ * b + np.asarray(plan.send_idx, np.int64)[p_, q_, t_],
+           p_ * k * s + q_ * s + t_)
+    rev = (np.arange(k)[None, :, None] * (k * s)
+           + np.arange(k)[:, None, None] * s + t[None, None, :])
+    out["rev_src"] = rev.reshape(k, k * s).astype(np.int32)
 
 
 def _check_symmetric(a: sp.spmatrix) -> bool:

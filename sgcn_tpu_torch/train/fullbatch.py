@@ -66,10 +66,11 @@ intermediates live at once.
 stale and replica gauges), span, eval and summary events, and the memory
 block joined against the card's measured step.
 
-``SGCN_PALLAS_SPMM=0`` (the reference's switch) runs the GCN's exact step
-and the full-mode server on the reference's ELL aggregator instead of the
+``SGCN_PALLAS_SPMM=0`` (the reference's switch) runs the exact step and
+the full-mode server on the reference's ELL aggregator instead of the
 tile kernel (``ops/pspmm.py``: the symmetric a2a and ring aggregations,
-an asymmetric plan's ``pspmm_overlap``); its step events also carry the
+an asymmetric plan's ``pspmm_overlap``; GAT's slot passes,
+``models/gat.py::GatLayerEll``); its step events also carry the
 reference's ``roofline`` and ``measured_vs_model`` blocks, priced by
 ``obs/attribution.py::step_cost`` with the card's ceilings, as the
 reference books them on its slot-pass steps only.
@@ -98,7 +99,7 @@ from ..obs.memory import (check_memory_budget, device_bytes,
 from ..obs.attribution import roofline_fields, stacked_cost, step_cost
 from ..obs.tracing import SpanTimer, measured_vs_model_block
 from ..ops import pspmm as layout
-from ..ops.pspmm import (ELL_GAT_DEFERRAL, ELL_MODE_DEFERRAL,
+from ..ops.pspmm import (ELL_MODE_DEFERRAL,
                          ELL_RANKS_DEFERRAL, ELL_SELECTION_RULE,
                          choose_ell_dispatch, ell_plan_fields, ell_selected,
                          narrow_dtype)
@@ -246,8 +247,10 @@ def resolve_forward_setup(plan, model: str = "gcn",
     ``SGCN_PALLAS_SPMM=0`` (the reference's switch) selects the ELL
     aggregator instead (``ops/pspmm.py::choose_ell_dispatch``: the
     symmetric a2a and ring aggregations, or an asymmetric plan's
-    ``pspmm_overlap``), for the GCN's exact step and full-mode serving;
-    GAT, ``ranks``, the carried modes and the sub-graph server
+    ``pspmm_overlap``; for GAT the reference's slot passes over the
+    combined-edge layout, ``models/gat.py::GatLayerEll``), for the exact
+    step and full-mode serving; ``ranks``, the carried modes and the
+    sub-graph server
     (``serve_subgraph``) raise under it (the mini-batch trainer raises
     before it builds its batch plans).  Unset, ``auto`` or ``1`` keep
     the tile kernel.  ``decision['aggregator']`` logs which and why."""
@@ -257,8 +260,6 @@ def resolve_forward_setup(plan, model: str = "gcn",
             f"{', '.join(MODELS)})")
     ell = ell_selected()
     if ell:
-        if model != "gcn":
-            raise ValueError(ELL_GAT_DEFERRAL)
         if ranks:
             raise ValueError(ELL_RANKS_DEFERRAL)
         for on, mode in ((halo_staleness, "stale-halo trainer"),
@@ -291,8 +292,10 @@ def resolve_forward_setup(plan, model: str = "gcn",
     ragged_fields = spec.pop("plan_fields_ragged")
     gen_fields = spec.pop("plan_fields_gen")
     if ell:
-        fwd_static = choose_ell_dispatch(plan, schedule, decision=decision)
-        spec["plan_fields"] = ell_plan_fields(fwd_static["ell_layout"])
+        fwd_static = choose_ell_dispatch(plan, schedule, decision=decision,
+                                         model=model)
+        spec["plan_fields"] = ell_plan_fields(fwd_static["ell_layout"],
+                                              schedule)
         return ForwardSetup(model=model, comm_schedule=schedule,
                             fwd_static=fwd_static, decision=decision,
                             replica_budget=0, **spec)

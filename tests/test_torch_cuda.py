@@ -38,7 +38,9 @@ them — against its plain version, and the mini-batch trainer on one
 NCCL rank against the shard proxy of the same part's batch slices; the
 ELL aggregator (``SGCN_PALLAS_SPMM=0``): ring == a2a and the card == the
 CPU bit for bit, trainers deterministic, with no K1 or fused launch and
-one pack an exchange.
+one pack an exchange; the GAT's slot passes under it (fused, split and
+packed forms, directed too): ring == a2a and run == run bit for bit,
+no K1, K5 or fused launch and the tile path's packs.
 
 This module imports no JAX, so it also runs on a GPU machine without it:
 
@@ -2398,3 +2400,56 @@ def test_ell_trainer_on_card_is_deterministic(cuda_device, case,
     for losses, params in runs[1:]:
         assert losses == runs[0][0] and np.isfinite(losses).all()
         assert all(torch.equal(a, b) for a, b in zip(params, runs[0][1]))
+
+
+@pytest.mark.parametrize("case", ["float32", "bfloat16", "directed"])
+def test_ell_gat_trainer_ring_equals_a2a_on_card(cuda_device, case,
+                                                 monkeypatch):
+    """Three GAT steps under ``SGCN_PALLAS_SPMM=0`` on the card (widths
+    16, 130, 7: the fused, split and fused forms; under ``compute_dtype``
+    packed, packed, fused bf16), twice on the a2a and once on the ring
+    (the directed plan: a2a only): losses and weights bit for bit, no
+    K1, K5 or fused launch, and per step the tile path's packs — on the
+    a2a two an exchanged table (the split form ships two tables), on the
+    ring one a layer, each direction; a directed backward one reverse
+    pack a table."""
+    from sgcn_tpu_torch.ops.tile_spmm import k5_launches
+
+    monkeypatch.setenv("SGCN_PALLAS_SPMM", "0")
+    plan = _directed_plan() if case == "directed" else _er_plan()
+    rng = np.random.default_rng(9)
+    feats = rng.standard_normal((plan.n, 24)).astype(np.float32)
+    labels = rng.integers(0, 7, plan.n)
+    data = make_train_data(plan, feats, labels, device=cuda_device)
+    widths = [16, 130, 7]
+    dt = "bfloat16" if case == "bfloat16" else None
+    forms = [gat_mod.gat_table_form(w, dt) for w in widths]
+    tables = [2 if f == "split" else 1 for f in forms]
+    scheds = ("a2a", "a2a") if case == "directed" else ("a2a", "ragged",
+                                                         "a2a")
+    runs = []
+    for sched in scheds:
+        tr = FullBatchTrainer(plan, fin=24, widths=widths, seed=1,
+                              model="gat", compute_dtype=dt,
+                              comm_schedule=sched, device=cuda_device)
+        assert tr.setup.aggregator == "ell"
+        before = (spmm_tiles.launches, k5_launches(),
+                  spmm_tiles_fused.launches, row_pack.launches)
+        losses = [tr.step(data) for _ in range(3)]
+        torch.cuda.synchronize()
+        if sched == "ragged":
+            per_step = 2 * len(widths)
+        elif case == "directed":
+            per_step = 2 * sum(tables) + sum(tables)
+        else:
+            per_step = 2 * 2 * sum(tables)
+        after = (spmm_tiles.launches, k5_launches(),
+                 spmm_tiles_fused.launches, row_pack.launches)
+        assert tuple(a - b for a, b in zip(after, before)) == \
+            (0, 0, 0, 3 * per_step), (sched, before, after)
+        runs.append((losses, [{k: v.detach().clone() for k, v in p.items()}
+                              for p in tr.params]))
+    for losses, params in runs[1:]:
+        assert losses == runs[0][0] and np.isfinite(losses).all()
+        assert all(torch.equal(a[k], b[k])
+                   for a, b in zip(params, runs[0][1]) for k in a)

@@ -42,6 +42,7 @@ from sgcn_tpu.prep import normalize_adjacency as ref_normalize
 from sgcn_tpu.train.fullbatch import FullBatchTrainer as RefTrainer
 from sgcn_tpu.train.fullbatch import make_train_data as ref_make_train_data
 from sgcn_tpu_torch.io.datasets import load_npz_dataset
+from sgcn_tpu_torch.models import gat as port_gat
 from sgcn_tpu_torch.models import gcn as port_gcn
 from sgcn_tpu_torch.obs.memory import MemoryBudgetError, memory_model
 from sgcn_tpu_torch.ops import pspmm as ops
@@ -450,10 +451,10 @@ def test_ell_trainer_ring_and_remat_equal_bit_for_bit(cora, lever,
 
 
 def test_selection_refusals_name_the_roadmap_item(cora, monkeypatch):
-    """Under ``SGCN_PALLAS_SPMM=0``: GAT, ranks and a one-part slice, the
-    carried modes, the mini-batch trainer and the sub-graph server raise,
-    naming what they wait on; unset, ``auto`` and ``1`` keep the tile
-    kernel."""
+    """Under ``SGCN_PALLAS_SPMM=0``: GAT selects its slot passes; ranks
+    (GCN and GAT) and a one-part slice, the carried modes, the mini-batch
+    trainer and the sub-graph server (GCN and GAT) raise, naming what
+    they wait on; unset, ``auto`` and ``1`` keep the tile kernel."""
     port = cora["sym"][0]
     for env in (None, "auto", "1"):
         if env is None:
@@ -464,10 +465,16 @@ def test_selection_refusals_name_the_roadmap_item(cora, monkeypatch):
         assert setup.aggregator == "tile"
         assert setup.decision["aggregator"]["chosen"] == "tile"
     monkeypatch.setenv("SGCN_PALLAS_SPMM", "0")
-    with pytest.raises(ValueError, match="A2 .its GAT half"):
-        resolve_forward_setup(port, model="gat")
-    with pytest.raises(ValueError, match="ELL on ranks is ROADMAP A2d"):
-        resolve_forward_setup(port, ranks=True)
+    # GAT runs its slot passes (tests/test_torch_ell_gat.py); its ranks
+    # and sub-graph server still raise
+    gat = resolve_forward_setup(port, model="gat")
+    assert gat.aggregator == "ell" and gat.fwd_static["ell_layout"] == "cell"
+    assert gat.decision["aggregator"]["chosen"] == "ell"
+    for model in ("gcn", "gat"):
+        with pytest.raises(ValueError, match="ELL on ranks is ROADMAP A2d"):
+            resolve_forward_setup(port, model=model, ranks=True)
+    with pytest.raises(ValueError, match="the sub-graph server runs on"):
+        resolve_forward_setup(port, model="gat", serve_subgraph=True)
     for kw, mode in (({"halo_staleness": 1}, "stale-halo trainer"),
                      ({"replica_budget": "auto"}, "replica trainer"),
                      ({"serve_subgraph": True}, "sub-graph server")):
@@ -485,6 +492,11 @@ def test_selection_refusals_name_the_roadmap_item(cora, monkeypatch):
     with pytest.raises(ValueError, match="A2d"):
         port_gcn.gcn_forward_local(
             [torch.zeros(4, 2)], torch.zeros(1, 3, 4), {},
+            aggregator="ell", mesh=object())
+    with pytest.raises(ValueError, match="A2d"):
+        port_gat.gat_forward_local(
+            [{"w": torch.zeros(4, 2), "a1": torch.zeros(2),
+              "a2": torch.zeros(2)}], torch.zeros(1, 3, 4), {},
             aggregator="ell", mesh=object())
 
 
