@@ -300,9 +300,9 @@ failure raises and the script exits non-zero:
      ``compute_dtype`` (the reference's bf16 band), ``evaluate_fullgraph``
      on the card; meanwhile, on cora2708, children (one wave after
      another, on a host thread) run ``python -m sgcn_tpu_torch.shp`` and
-     the train CLI's ``-n 512`` on its stchp parts, both transports, 2
-     epochs with ``--checkpoint-every 1``, then a resume to 3 epochs in
-     new ones: == the uninterrupted run in this process, exact launches
+     the train CLI's ``-n 512`` on its stchp parts (a2a), 2 epochs with
+     ``--checkpoint-every 1``, then a resume to 3 epochs in a new one:
+     == the uninterrupted run in this process, exact launches
      (``build/chip_smoke_minibatch/``);
   28. sub-graph serving (``serve/subgraph.py``, ``ServeEngine(mode=
      'subgraph')``): (a) cora2708 8-hp, GCN 1433 → 16 → 7 on both
@@ -311,14 +311,14 @@ failure raises and the script exits non-zero:
      the float64 forward (5e-3 on the bf16 wire) and within ``SUB_TOL``
      of the full engine's (the gaps and whether they are 0 printed), exact launches a batch (GCN one fused launch a layer, no
      pack; GAT K5's passes); (b) the DCSBM flagship on phase 24's hp parts
-     (not partitioned again), GCN and GAT 128 → 128 → 128 → 40, batches of
-     1, 8 and 32: the largest batch's compact fused and K5 launches ==
-     plain bit for bit, exact launches a batch, rows against the full
-     engine's; touched rows and recipe edges a query, FLOPs a query
-     against a full forward's, the host ms to build a batch against its
-     device ms (CUDA events), p50/p99 of sub-graph against full mode on the
-     same 128 queries (runs full, sub-graph, sub-graph, full), the idle
-     share; (c) meanwhile, on a host thread, serve CLI children: cora from
+     (not partitioned again), GCN and GAT 128 → 128 → 128 → 40, two
+     batches each of 1, 8 and 32: the largest batch's first compact fused
+     and first K5 launch == plain bit for bit, exact launches a batch,
+     rows against the full engine's; touched rows and recipe edges a
+     query, FLOPs a query against a full forward's, the host ms to build
+     a batch against its device ms (CUDA events), p50/p99 of sub-graph
+     against full mode on the same 128 queries (one run each), the idle
+     share over 3 profiled batches; (c) meanwhile, on a host thread, serve CLI children: cora from
      phase 24's GCN checkpoint with ``--serve-mode subgraph``, with
      ``--concurrent``, with ``--shed-factor 2``, and in full mode with
      both flags, and the ER flagship from phase 23's GAT checkpoint with
@@ -474,14 +474,29 @@ failure raises and the script exits non-zero:
      the budget gate; epoch_s ELL against tiles in turns and the device
      split of both; the full-mode server on ELL (2 batches of 64, both
      transports) against phase 7's tile engine;
-  37. one JSON line ``{"kernels": [...]}`` — per ported kernel (the tile
+  37. ELL on the rank path under ``SGCN_PALLAS_SPMM=0``
+     (``build/chip_smoke_rank_ell/``): one NCCL rank (world size 1) on
+     chip 0's slice of phase 3's ER plan, 128 → 128 → 128 → 40 — GCN on
+     the a2a, the ring and the bf16 ``halo_dtype`` wire, GAT (split,
+     split, fused) on the a2a and the ring — and on chip 0's slice of
+     phase 19's directed plan, GCN and GAT a2a, against the stacked proxy
+     of the same slice, 1 + 2 steps each: losses and weights == bit for
+     bit, no K1, K5 or fused launch, the tile rank path's packs
+     (``rank37_packs``; a directed rank's backward none, the proxy's its
+     reverse packs), the first send pack of step 1 == plain on its real
+     inputs, each counted step's CUDA-event ms beside the proxy's; one
+     step event of the rank's GCN a2a step, schema-valid, its roofline's
+     wire bytes == the rank's ``CommStats``'; ``ServeEngine(mesh=...)``
+     on ELL (GCN and GAT a2a, 4 batches of 64 part-0 queries) == the
+     stacked engine on the slice bit for bit, p50 beside the proxy's;
+  38. one JSON line ``{"kernels": [...]}`` — per ported kernel (the tile
      SpMM, the GCN aggregation's backward, the GAT attention pass and its
      use in the GAT layer's backward, the ragged ring aggregation and its
      backward, the row shuffle, the tile SpMM's and the GAT pass's bf16
      flavors, the row pack, the fused local + remote entry and the
      destination-indexed pack) its
      launches on the main path (phases 2–5, 7–13, 15–17, 19–21 and
-     23–36, the children's included), max
+     23–37, the children's included), max
      |kernel − plain|, kernel / plain / bound / library times at the
      flagship layer.  The tile SpMM's own float-weight family entries
      (both tables) launch on the main path only in the asymmetric
@@ -491,7 +506,7 @@ failure raises and the script exits non-zero:
      show 0 of them — the fused entry runs their chains and counts those
      launches — and any kernel with no launch on the main path fails the
      run;
-  38. the last line: ``{"ok": true, "device": {...}}``.
+  39. the last line: ``{"ok": true, "device": {...}}``.
 
 Without CUDA, or without the rest of the repository beside it, the script
 prints no result and exits with code 2 or 3.
@@ -4486,9 +4501,10 @@ def _phase_minibatch(children, parts_bg, ahat_dc, fix, dev, smi):
     base = ["--npz", os.path.join(fix, "cora2708.npz"), "--normalize", "-p",
             stchp, "-s", "8", "-l", "2", "--hidden", "16", "-n", "512",
             "--warmup", "1"]
+    # the a2a only: the ring == a2a of -n is held on the flagship in (b)
     ck = {s_: ["--comm-schedule", s_, "--checkpoint-dir",
                os.path.join(MB_DIR, f"ck-{s_}"), "--checkpoint-every", "1"]
-          for s_ in ("a2a", "ragged")}
+          for s_ in ("a2a",)}
 
     def run_waves():
         waves = [
@@ -4728,7 +4744,7 @@ def _phase_minibatch(children, parts_bg, ahat_dc, fix, dev, smi):
             total[key] += res["launches"][key]
         log(f"  {nm} child: start-up {res['t_imported'] - t_spawn:.2f} s, "
             f"in the CLI {res['t_end'] - res['t_imported']:.2f} s")
-    if len(waves) != 5:
+    if len(waves) != 1 + 2 * len(ck):
         raise AssertionError(f"phase 27: children {sorted(waves)} ran")
     lines = waves["shp"][2]["stdout"].strip().splitlines()
     log("  shp CLI: " + " | ".join(lines))
@@ -4743,7 +4759,6 @@ def _phase_minibatch(children, parts_bg, ahat_dc, fix, dev, smi):
         return [float(x.split()[-1]) for x in text.splitlines()
                 if x.startswith("epoch ")]
 
-    cli = {}
     for s_ in ck:
         (full, rep_c), got = counted(lambda: run_train_cli(
             base + ["--comm-schedule", s_, "--epochs", "3"]))
@@ -4764,10 +4779,6 @@ def _phase_minibatch(children, parts_bg, ahat_dc, fix, dev, smi):
                 or have != want or packs != want):
             raise AssertionError(f"phase 27: cora -n 512 {s_}: the resume or "
                                  "the launches")
-        cli[s_] = full
-    if cli["a2a"] != cli["ragged"]:
-        raise AssertionError("phase 27: cora -n 512 ring != a2a")
-    log(f"  cora -n 512: ring == a2a ({cli['a2a']})")
     summary["split"] = split
     summary["step_ms"] = ms
     summary["shp_s"] = shp_wall
@@ -4786,7 +4797,7 @@ def _phase_minibatch(children, parts_bg, ahat_dc, fix, dev, smi):
 SUB_DIR = os.path.join(REPO, "build", "chip_smoke_subgraph")
 # the flagship's batch sizes, batches a size, and the queries of the
 # p50/p99 comparison against full mode
-SUB_QUERIES, SUB_BATCHES, SUB_LOADGEN = (1, 8, 32), 3, 128
+SUB_QUERIES, SUB_BATCHES, SUB_LOADGEN = (1, 8, 32), 2, 128
 # the routed-logit contract of sub-graph mode against the full engine
 # (README): the aggregation repeats the full chains bit for bit; the dense
 # projections run at another row count, where cuBLAS may pick another GEMM
@@ -4837,15 +4848,16 @@ def record_subgraph_launches():
 
 
 def check_subgraph_launches(calls, what):
-    """Each recorded compact launch == its plain version, bit for bit;
-    returns the max |kernel − plain| (0)."""
+    """The first recorded compact launch of each entry (fused, K5) == its
+    plain version, bit for bit (a plain version of a flagship batch's
+    launch costs ≈ 1.5 s); returns the max |kernel − plain| (0)."""
     import torch
 
     from sgcn_tpu_torch.ops.tile_spmm import (spmm_tiles_classes_plain,
                                               spmm_tiles_fused_plain)
 
-    for name, (args, out) in [("fused", c) for c in calls["fused"]] + [
-            ("K5", c) for c in calls["k5"]]:
+    for name, (args, out) in [("fused", c) for c in calls["fused"][:1]] + [
+            ("K5", c) for c in calls["k5"][:1]]:
         if name == "fused":
             plain = spmm_tiles_fused_plain(*args)
         else:
@@ -4855,8 +4867,8 @@ def check_subgraph_launches(calls, what):
         if not same_bits(out, plain):
             raise AssertionError(f"{what}: compact {name} launch != plain, "
                                  f"max diff {(out - plain).abs().max()}")
-    log(f"  {what}: {len(calls['fused'])} fused and {len(calls['k5'])} K5 "
-        "compact launches == plain bit for bit")
+    log(f"  {what}: the first of {len(calls['fused'])} fused and of "
+        f"{len(calls['k5'])} K5 compact launches == plain bit for bit")
     return 0.0
 
 
@@ -5099,14 +5111,13 @@ def _phase_subgraph(children, parts_bg, ahat_dc, ahat_c, feats_c, pv_c, dev,
             f"); launches a batch: "
             + (f"{gat_passes(widths)} K5" if model == "gat"
                else f"{len(widths)} fused") + ", no pack, no K1 family")
-        # p50 / p99, sub-graph against full mode on the same queries, in
-        # turns full, sub-graph, sub-graph, full
+        # p50 / p99, sub-graph against full mode on the same queries, one
+        # run each after its warm-up
         qids = synthetic_query_ids(n, SUB_LOADGEN, seed=9)
         lat = {"full": [], "subgraph": []}
         for e in (full, eng):
             counted(lambda: e.warmup(qids))
-        for mode_, e in (("full", full), ("subgraph", eng),
-                         ("subgraph", eng), ("full", full)):
+        for mode_, e in (("full", full), ("subgraph", eng)):
             res, _ = counted(lambda: run_loadgen(e, qids))
             s = res.summary()
             lat[mode_].append((s["latency_p50_ms"], s["latency_p99_ms"],
@@ -5115,9 +5126,9 @@ def _phase_subgraph(children, parts_bg, ahat_dc, ahat_c, feats_c, pv_c, dev,
             f"at batch 32, (p50 ms, p99 ms, QPS) by run: full "
             f"{lat['full']}, sub-graph {lat['subgraph']}")
         q32 = q_rng.permutation(n)[:32]
-        wall, dev_ms, _top = device_busy(lambda: eng.query(q32), reps=5)
+        wall, dev_ms, _top = device_busy(lambda: eng.query(q32), reps=3)
         idle = (1 - dev_ms / wall) if dev_ms else None
-        log(f"  DCSBM hp {model.upper()} sub-graph, 5 batches of 32 under "
+        log(f"  DCSBM hp {model.upper()} sub-graph, 3 batches of 32 under "
             f"torch.profiler: wall {wall:.3f} ms, device {dev_ms:.3f} ms, "
             f"idle share <= {idle}")
         summary[model] = {"per_batch": per, "latency": lat, "idle_le": idle,
@@ -7471,6 +7482,236 @@ def _rank35_swap(rank_eng, sl, widths, engine, q, before, dev, trainer,
     return {"ms": ms}
 
 
+# ------------------------------- phase 37: ELL on the rank path
+RANK37_DIR = os.path.join(REPO, "build", "chip_smoke_rank_ell")
+
+# phase 37's training cases: name -> (plan, model, trainer kwargs); "er"
+# is phase 3's ER flagship plan, "directed" phase 19's directed one
+RANK37_CASES = {"GCN a2a": ("er", "gcn", {}),
+                "GCN ring": ("er", "gcn", {"comm_schedule": "ragged"}),
+                "GCN bf16 wire": ("er", "gcn", {"halo_dtype": "bfloat16"}),
+                "GAT a2a": ("er", "gat", {}),
+                "GAT ring": ("er", "gat", {"comm_schedule": "ragged"}),
+                "directed GCN a2a": ("directed", "gcn", {}),
+                "directed GAT a2a": ("directed", "gat", {})}
+RANK37_STEPS = 2            # counted and timed steps after the first
+RANK37_SERVE = {"GCN a2a": "gcn", "GAT a2a": "gat"}
+RANK37_BATCH, RANK37_BATCHES = 64, 4
+
+
+def rank37_packs(model, sched, widths, directed, rank, steps=RANK37_STEPS):
+    """Row packs of ``steps`` ELL steps at ``widths`` (fin 128): the tile
+    rank path's — GCN one an aggregation, forward and backward
+    (``backward_passes``), GAT the tile path's per exchanged table
+    (``pack_launches``, both directions).  On a directed plan a rank's
+    backward packs nothing (the reverse exchange is the collective); the
+    stacked proxy's reverse packs by ``rev_src`` (``ell_gat_packs``)."""
+    if model == "gcn":
+        fwd, bwd = len(widths), backward_passes(128, widths)
+    else:
+        fwd = pack_launches("gat", sched, widths)
+        bwd = (fwd if not directed
+               else ell_gat_packs(sched, widths, directed=True) - fwd)
+    return steps * (fwd + (0 if directed and rank else bwd))
+
+
+def phase_rank_ell(plan, asym, feats_f, labels_f, p_init, params_g, widths,
+                   dev, smi):
+    """Phase 37 (module docstring): the ELL aggregator under
+    ``SGCN_PALLAS_SPMM=0`` on one NCCL rank against the stacked proxy.
+    Returns the rank runs' launch counts and their measurements.  The
+    variable is restored after."""
+    prev = os.environ.get("SGCN_PALLAS_SPMM")
+    os.environ["SGCN_PALLAS_SPMM"] = "0"
+    try:
+        return _rank_ell(plan, asym, feats_f, labels_f, p_init, params_g,
+                         widths, dev, smi)
+    finally:
+        if prev is None:
+            os.environ.pop("SGCN_PALLAS_SPMM", None)
+        else:
+            os.environ["SGCN_PALLAS_SPMM"] = prev
+
+
+def _rank_ell(plan, asym, feats_f, labels_f, p_init, params_g, widths, dev,
+              smi):
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from sgcn_tpu_torch.models.gat import params_from_jax as gat_from_numpy
+    from sgcn_tpu_torch.obs import RunRecorder, load_run
+    from sgcn_tpu_torch.ops import pspmm as ps
+    from sgcn_tpu_torch.ops.row_shuffle import row_pack_plain
+    from sgcn_tpu_torch.parallel import (init_rank_group, shard_proxy_data,
+                                         shard_proxy_plan)
+    from sgcn_tpu_torch.serve import ServeEngine
+    from sgcn_tpu_torch.train import FullBatchTrainer
+
+    t_phase = time.perf_counter()
+    shutil.rmtree(RANK37_DIR, ignore_errors=True)
+    os.makedirs(RANK37_DIR)
+    slices = {}
+    for name, full in (("er", plan), ("directed", asym["plan"])):
+        full.ensure_cell()                   # the GAT's layout
+        if full.symmetric:
+            full.ensure_ragged()
+        # the chain layouts are the slice's own (parallel/proxy.py)
+        slices[name] = (shard_proxy_plan(full, 0), shard_proxy_data(
+            full, 0, feats_f, labels_f, device=dev))
+    log(f"  chip 0's slices (ER and directed, their ELL chains) in "
+        f"{time.perf_counter() - t_phase:.1f} s (host)")
+    total = {key: 0 for key in launch_counts()}
+    pack = ps.row_pack
+
+    def trainer(name, mesh=None):
+        graph, model, kw = RANK37_CASES[name]
+        kw = dict(kw, **(dict(params=[w.copy() for w in p_init])
+                         if model == "gcn" else
+                         dict(model="gat", activation="none",
+                              params=gat_from_numpy(params_g))))
+        tr = FullBatchTrainer(slices[graph][0], fin=128, widths=widths,
+                              device=dev, mesh=mesh, **kw)
+        if tr.setup.aggregator != "ell":
+            raise AssertionError("phase 37: SGCN_PALLAS_SPMM=0 did not "
+                                 "select the ELL aggregator")
+        return tr
+
+    def run(name, mesh=None):
+        """One step (its first send pack kept), then ``RANK37_STEPS``
+        counted and timed steps."""
+        tr = trainer(name, mesh)
+        data = slices[RANK37_CASES[name][0]][1]
+        first = []
+
+        def kept(*args):
+            out = pack(*args)
+            if not first:
+                first.append((args, out))
+            return out
+        ps.row_pack = kept
+        try:
+            losses = [tr.step(data)]
+        finally:
+            ps.row_pack = pack
+        launch_counts(zero=True)                # the main path starts here
+        steps = [event_ms(lambda: tr.step(data, sync=False), 1)
+                 for _ in range(RANK37_STEPS)]
+        ln = launch_counts()                    # ... and ends here
+        return {"tr": tr, "ms": [ms for ms, _ in steps], "ln": ln,
+                "losses": losses + [float(out[0]) for _, out in steps],
+                "w": [p.detach().clone() for p in tr.model.parameters()],
+                "first": first}
+
+    mesh = init_rank_group("file://" + os.path.join(RANK37_DIR,
+                                                    "rendezvous"), 1, 0)
+    out, held = {}, {}
+    try:
+        for name, (graph, model, kw) in RANK37_CASES.items():
+            t0 = time.perf_counter()
+            stacked = run(name)
+            rk = run(name, mesh)
+            for key in total:
+                total[key] += rk["ln"][key]
+            same = rk["losses"] == stacked["losses"] and all(
+                torch.equal(a, b) for a, b in zip(rk["w"], stacked["w"]))
+            sched = kw.get("comm_schedule", "a2a")
+            directed = graph == "directed"
+            want = rank37_packs(model, sched, widths, directed, True)
+            want_proxy = rank37_packs(model, sched, widths, directed, False)
+            others = {key: v for key, v in rk["ln"].items()
+                      if v and key != "pack"}
+            (args, k_out), = rk["first"]
+            plain = row_pack_plain(*args)
+            torch.cuda.synchronize()
+            pack_ok = same_bits(k_out, plain, nan_ok=True)
+            log(f"  one NCCL rank, chip 0's {graph} slice, ELL {name}: "
+                f"losses {rk['losses']}; == the stacked proxy's bit for "
+                f"bit (losses and weights): {same}; ms of steps 2-"
+                f"{1 + RANK37_STEPS} (CUDA events) {rk['ms']!r}, the "
+                f"stacked proxy's {stacked['ms']!r}; packs {rk['ln']['pack']}"
+                f" (the tile rank path's {want}; the proxy's "
+                f"{stacked['ln']['pack']}, expected {want_proxy}), other "
+                f"launches {others or 0}; the first send pack of step 1 "
+                f"({tuple(args[0].shape)} -> {tuple(k_out.shape)} "
+                f"{k_out.dtype}) == plain: {pack_ok}; host s "
+                f"{time.perf_counter() - t0:.1f}; card: {smi}")
+            if (not same or others or rk["ln"]["pack"] != want
+                    or stacked["ln"]["pack"] != want_proxy or not pack_ok
+                    or not np.isfinite(rk["losses"]).all()):
+                raise AssertionError(f"phase 37: {name}: same {same}, "
+                                     f"launches {rk['ln']}, want {want} "
+                                     f"packs, pack == plain {pack_ok}")
+            out[name] = {"ms": rk["ms"], "proxy_ms": stacked["ms"],
+                         "losses": rk["losses"]}
+            if name == "GCN a2a":
+                held = {"tr": rk["tr"], "data": slices["er"][1]}
+            del stacked, rk
+        # one step event of the rank's ELL step under a recorder
+        tr, data = held["tr"], held["data"]
+        d = os.path.join(RANK37_DIR, "gcn-a2a-run")
+        rec = RunRecorder(d, config={"phase": 37})
+        tr.attach_recorder(rec)
+        tr.step(data)
+        rec.close()
+        tr.attach_recorder(None)
+        (ev,) = load_run(d).steps()             # validates the record
+        roof = ev["roofline"]
+        wire = ev["comm"]["halo_bytes_wire_per_step"]
+        stats = tr.stats.report()["halo_bytes_wire_per_step"]
+        log(f"  the rank's ELL step event (schema-valid): roofline "
+            f"{json.dumps({k: roof[k] for k in ('halo_bytes_wire_per_step', 'halo_wire_rows_per_exchange', 'model_step_GFLOP', 'gather_GB', 'stream_ceiling_frac')})};"
+            f" the rank's CommStats wire bytes a step {stats}")
+        if not roof["halo_bytes_wire_per_step"] == wire == stats > 0:
+            raise AssertionError(f"phase 37: step event wire bytes {roof} "
+                                 f"vs CommStats {stats}")
+        del held, tr
+        # ---- (c) full-mode serving on ELL, the rank against the proxy
+        sl = slices["er"][0]
+        own = np.flatnonzero(np.asarray(plan.owner) == 0)
+        rng = np.random.default_rng(37)
+        batches = [rng.choice(own, RANK37_BATCH, replace=False)
+                   for _ in range(RANK37_BATCHES)]
+        for name, model in RANK37_SERVE.items():
+            rows, p50 = {}, {}
+            for who, m in (("proxy", None), ("rank", mesh)):
+                params = ([w.copy() for w in p_init] if model == "gcn"
+                          else gat_from_numpy(params_g))
+                eng = ServeEngine(sl, fin=128, widths=widths, model=model,
+                                  params=params, max_batch=RANK37_BATCH,
+                                  buckets=(RANK37_BATCH,), device=dev,
+                                  mesh=m)
+                eng.set_features(feats_f)
+                if eng.setup.aggregator != "ell":
+                    raise AssertionError("phase 37: the engine runs tiles")
+                eng.query(batches[0])          # warm-up
+                torch.cuda.synchronize()
+                lat, got = [], []
+                for q in batches:
+                    t = time.perf_counter()
+                    got.append(eng.query(q))
+                    lat.append((time.perf_counter() - t) * 1e3)
+                rows[who], p50[who] = got, statistics.median(lat)
+                del eng
+            same = all(np.array_equal(a.view(np.int32), b.view(np.int32))
+                       for a, b in zip(rows["rank"], rows["proxy"]))
+            log(f"  ServeEngine(mesh=...) on ELL, {name}: {RANK37_BATCHES} "
+                f"batches of {RANK37_BATCH} part-0 queries == the stacked "
+                f"proxy engine's rows bit for bit: {same}; p50 "
+                f"{p50['rank']!r} ms on the rank, the proxy's "
+                f"{p50['proxy']!r} ms (host clock); card: {smi}")
+            if not same or not all(np.isfinite(r).all()
+                                   for r in rows["rank"]):
+                raise AssertionError(f"phase 37: {name} served rows differ")
+            out[f"serve {name}"] = p50
+    finally:
+        mesh.close()
+    log(f"  phase 37 launches {json.dumps(total)}; phase wall "
+        f"{time.perf_counter() - t_phase:.1f} s; card: {smi}")
+    return total, out
+
+
 def main() -> int:
     import torch
 
@@ -8464,6 +8705,21 @@ def main() -> int:
     log(f"  phase 36 took {time.perf_counter() - t36:.1f} s")
 
     # ---------------------------------------------------------- phase 37
+    log("phase 37: ELL on the rank path (SGCN_PALLAS_SPMM=0) — one NCCL "
+        "rank on chip 0's ER slice (GCN a2a, ring, bf16 wire; GAT a2a, "
+        "ring) and its directed flagship slice (GCN, GAT a2a) == the "
+        "stacked proxy bit for bit, no K1, K5 or fused launch, the tile "
+        "rank path's packs (a directed backward none: the reverse "
+        "exchange is the collective), the first send pack == plain, ms "
+        "beside the proxy's, a schema-valid step event with the rank's "
+        "wire bytes; ServeEngine(mesh=...) on ELL == the proxy engine")
+    t37 = time.perf_counter()
+    p37, r37 = phase_rank_ell(plan, asym, feats_f, labels_f, p_init,
+                              params_g, widths_f, dev, smi)
+    MAIN_PATH_PACKS[0] += p37["pack"]
+    log(f"  phase 37 took {time.perf_counter() - t37:.1f} s")
+
+    # ---------------------------------------------------------- phase 38
     fused_main = (launches_c + launches_f + launches_tc + launches_tf
                   + launches_fr + launches_rt + launches_ca + launches_cr
                   + l15["wire"] + l15["bf16"] + launches_16 + asym["fused"]

@@ -70,7 +70,12 @@ the ring's one, the halo table the same on both), then per width slot one
 gather of the stacked ``[local; halo]`` table, one mask product and one
 add, and the hub tail's level-by-level ``index_add_`` chains
 (``parallel/plan.py::ell_chain_layout(plan, 'cell')``).  The packed form's
-words are unpacked before the mask multiplies.  The split form's
+words are unpacked before the mask multiplies.  With one process per part
+(``mesh``) the slot passes run over the rank's slice's chains, each table
+through the rank's exchange (``rank_halo_exchange`` on the a2a, the
+rank's ring scattered by its ``rhalo_dst``), ``cg`` all-reduced to its
+max and a transpose's reverse exchange the reverse ``all_to_all_single``:
+the stacked layer's row for the part, bit for bit.  The split form's
 denominator gathers ``u`` itself, at every table size: the reference's
 own branch at ``_ONED_U_ROWS`` = 10⁶ rows a chip and above; below it the
 reference gathers a 128-lane broadcast of ``u``, sums the lanes and
@@ -105,9 +110,9 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from ..ops.pspmm import (ELL_RANKS_DEFERRAL, bucketed_slot_reduce,
-                         ell_transpose, gat_exchange_rows_scalar,
-                         gat_exchange_table, halo_exchange, narrow_dtype,
+from ..ops.pspmm import (bucketed_slot_reduce, ell_transpose,
+                         gat_exchange_rows_scalar, gat_exchange_table,
+                         halo_exchange, narrow_dtype,
                          rank_halo_exchange, ring_concat)
 from ..ops.tile_spmm import (gat_tiles_pass, k5_launches,
                              pspmm_tiles_transposed, transposed_ranks)
@@ -583,7 +588,8 @@ class GatLayerGen(torch.autograd.Function):
 # ``ell_chain_layout(plan, 'cell')`` arrays (``cell_src``, ``cell_m``,
 # ``chub_*``) and the exchange's; ``static``: ``choose_ell_dispatch``'s
 # kwargs (``ell_buckets`` the plan's ``cell_buckets``, ``ell_levels``,
-# ``halo_r``, ``rr_sizes`` on the ring).  Not carried: the reference's
+# ``halo_r``, ``rr_sizes`` on the ring, ``mesh`` on a rank).  Not
+# carried: the reference's
 # chunked tail scan (``SGCN_GAT_TAIL_CHUNK``, past 256 MiB of tail temps)
 # and its slot scan under ``_GAT_SCAN_LIVE``: XLA memory budgets that
 # only reorder the sums (ROADMAP C10).
@@ -632,7 +638,8 @@ def _mask_slot_pass(p, s, pa, static):
     k, b, fout = p.shape
     table = torch.cat([p, s[..., None]], dim=-1)
     full = _full_rows(table, gat_exchange_table(
-        table, pa, static.get("rr_sizes"), static["halo_r"]))
+        table, pa, static.get("rr_sizes"), static["halo_r"],
+        static.get("mesh")))
 
     def contrib(src, m):
         g = _widened(full.index_select(0, src))
@@ -649,7 +656,8 @@ def _pair_slot_pass(p, s, pa, static):
     Returns ``(N (k, b, fout), D (k, b))``."""
     k, b, _fout = p.shape
     full_p, full_u = gat_exchange_rows_scalar(
-        p, s, pa, static.get("rr_sizes"), static["halo_r"])
+        p, s, pa, static.get("rr_sizes"), static["halo_r"],
+        static.get("mesh"))
     fp, fu = full_p.reshape(-1, full_p.shape[-1]), full_u.reshape(-1)
     (num,) = _edge_pass(pa, static, k, b, lambda src, m: (
         _widened(fp.index_select(0, src)) * m[:, None],))
@@ -669,7 +677,8 @@ def _packed_aggregate(p16, s, pa, static):
     half = fout // 2
     table = torch.cat([_pack_rows(p16), s[..., None]], dim=-1)
     full = _full_rows(table, gat_exchange_table(
-        table, pa, static.get("rr_sizes"), static["halo_r"]))
+        table, pa, static.get("rr_sizes"), static["halo_r"],
+        static.get("mesh")))
 
     def contrib(src, m):
         g = full.index_select(0, src)
@@ -694,16 +703,18 @@ def _gat_ell_aggregate_T(p, s, form, pa, static):
     features and the scalar for the split and packed ones, the packed
     form's bf16 ``p`` widened exactly to float32) the transposed chains
     of ``'cell_t'`` in stored edge order, the halo sources' sums home
-    through the reverse exchange (``ops/pspmm.py::ell_transpose``).
-    Returns ``(N (k, b, fout), D (k, b))``."""
+    through the reverse exchange (``ops/pspmm.py::ell_transpose``; on a
+    rank the reverse ``all_to_all_single``).  Returns ``(N (k, b, fout),
+    D (k, b))``."""
     fout = p.shape[2]
-    levels = static["ell_levels"]
+    levels, mesh = static["ell_levels"], static.get("mesh")
     if form == "fused":
         out = ell_transpose(torch.cat([p, s[..., None]], dim=-1), pa,
-                            levels, "cl_t", "ch_t")
+                            levels, "cl_t", "ch_t", mesh=mesh)
         return out[..., :fout], out[..., fout]
-    num = ell_transpose(_widened(p), pa, levels, "cl_t", "ch_t")
-    den = ell_transpose(_widened(s)[..., None], pa, levels, "cl_t", "ch_t")
+    num = ell_transpose(_widened(p), pa, levels, "cl_t", "ch_t", mesh=mesh)
+    den = ell_transpose(_widened(s)[..., None], pa, levels, "cl_t", "ch_t",
+                        mesh=mesh)
     return num, den[..., 0]
 
 
@@ -718,7 +729,10 @@ class GatLayerEll(torch.autograd.Function):
     chain of gathers and level-by-level adds in stored edge order, never
     autograd's transpose of ``index_select`` (float atomics on the card).
     ``compute_dtype='bfloat16'`` as ``GatLayerSym``'s; the packed form's
-    gradient is the true one on either pattern (ROADMAP C5)."""
+    gradient is the true one on either pattern (ROADMAP C5).
+    ``static['mesh']`` (a ``RankGroup``): one rank's part, ``cg`` the
+    all-reduced max; under ``remat`` the backward's re-run of the forward
+    all-reduces again, in the same order on every rank."""
 
     @staticmethod
     def forward(ctx, w, a1, a2, h, pa, static, compute_dtype=None,
@@ -730,7 +744,8 @@ class GatLayerEll(torch.autograd.Function):
         form = gat_table_form(w.shape[1], w.dtype)
         out, _z, _u, den, cg = _gat_factored_core(
             w, a2, h, pa["row_valid"], form,
-            lambda p, s: _gat_ell_aggregate(p, s, form, pa, static))
+            lambda p, s: _gat_ell_aggregate(p, s, form, pa, static),
+            static.get("mesh"))
         if stabilizers is not None:
             stabilizers.append(cg)
         ctx.save_for_backward(w, a1, a2, h, cg, den, out)
@@ -799,22 +814,21 @@ def gat_forward_local(
     choose_ell_dispatch`` gives the ``ell_*`` statics and ``halo_r``) runs
     every layer as ``GatLayerEll``, the reference's slot passes, on
     ``ELL_GAT_PLAN_FIELDS`` (``_RAGGED`` on the ring, ``_GEN`` on an
-    asymmetric plan); not on a rank group."""
+    asymmetric plan), stacked or on a rank group (``mesh``: the rank's
+    slice's chains)."""
     if not symmetric and comm_schedule != "a2a":
         raise ValueError(
             "comm_schedule='ragged' uses the symmetric custom backward (the "
             "gradient table rides the same ring); asymmetric plans run the "
             "a2a schedule")
     if aggregator == "ell":
-        if mesh is not None:
-            raise ValueError(ELL_RANKS_DEFERRAL)
         if comm_schedule == "ragged" and rr_sizes is None:
             raise ValueError("the ragged GAT forward needs the plan's "
                              "static rr_sizes (CommPlan.ensure_ragged)")
         static = {"ell_layout": ell_layout, "ell_buckets": ell_buckets,
                   "ell_levels": ell_levels, "halo_r": halo_r,
                   "rr_sizes": rr_sizes if comm_schedule == "ragged"
-                  else None}
+                  else None, "mesh": mesh}
         ex = None
     elif aggregator != "tile":
         raise ValueError(f"unknown aggregator {aggregator!r} (know 'tile', "

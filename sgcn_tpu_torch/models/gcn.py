@@ -10,8 +10,8 @@ replica × stale branch, both transports) and of
 ``gcn_forward_local_replica`` (hot-halo replicas, both transports, and
 the partial refresh on the a2a), and under ``SGCN_PALLAS_SPMM=0`` its
 ELL branches (``pspmm_ell_sym``, ``pspmm_ragged_sym``, ``pspmm_overlap``:
-``ops/pspmm.py``), run over all ``k`` parts stacked on
-a leading axis: per layer, halo
+``ops/pspmm.py``, stacked or one process per part), run over all ``k``
+parts stacked on a leading axis: per layer, halo
 exchange → tile SpMM → dense projection → activation, with the
 reference's project-first layer order.  Weights keep
 the reference's layout, ``(fin, fout)`` with ``h @ w``, so
@@ -32,8 +32,8 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from ..ops.pspmm import (ELL_RANKS_DEFERRAL, ell_aggregate, exchange_recv,
-                         narrow_dtype, ring_concat, settle)
+from ..ops.pspmm import (ell_aggregate, exchange_recv, narrow_dtype,
+                         ring_concat, settle)
 from ..ops.row_shuffle import row_pack
 from ..ops.tile_spmm import (pspmm_tiles_gen, pspmm_tiles_gen_ranks,
                               pspmm_tiles_ragged, pspmm_tiles_ranks,
@@ -157,7 +157,9 @@ def gcn_forward_local(
     reference's ELL ops instead of the tile kernel: ``PspmmEllSym`` on the
     a2a, ``PspmmRaggedSym`` on the ring, ``PspmmOverlap`` on an
     asymmetric plan (``ops/pspmm.py::ell_aggregate``); one pack per
-    exchange, the sums in torch ops.  Not on a rank group."""
+    exchange, the sums in torch ops.  On a rank group (``mesh``) the
+    same ops over the rank's slice's chains, each exchange the rank's
+    collective overlapped with the local pass."""
     act = get_activation(activation)
     fact = get_activation(final_activation)
     nl = len(params)
@@ -173,13 +175,11 @@ def gcn_forward_local(
             "the a2a schedule")
     tclasses = (pallas_tlclasses, pallas_thclasses, pallas_t1classes)
     if aggregator == "ell":
-        if mesh is not None:
-            raise ValueError(ELL_RANKS_DEFERRAL)
         static = {"ell_layout": ell_layout, "ell_buckets": ell_buckets,
                   "ell_levels": ell_levels, "rr_sizes": rr_sizes}
 
         def agg(x):
-            return ell_aggregate(x, pa, static, halo_dtype)
+            return ell_aggregate(x, pa, static, halo_dtype, mesh)
     elif aggregator != "tile":
         raise ValueError(f"unknown aggregator {aggregator!r} (know 'tile', "
                          "'ell')")

@@ -29,6 +29,9 @@ FLOPs in one step, so a stacked step is joined against
 ``stacked_cost(cost, k)`` (the halo bytes are global figures already).
 The trainer books it only where the reference does: on the ELL
 aggregator's steps (``SGCN_PALLAS_SPMM=0``), never on the tile kernel's.
+A rank of a rank group books its own step, ``stacked_cost(cost, 1)``:
+the full plan's per-chip figures and its slice's halo bytes
+(``step_cost(..., halo_plan=slice)``).
 """
 
 from __future__ import annotations
@@ -59,12 +62,15 @@ def _exchange_gather_rows(plan, comm_schedule: str = "a2a") -> int:
     receive buffer; the ragged ring gathers only its per-round send
     buffers (``Σ_d S_d`` rows) and SCATTERS receives (``.set`` — no
     halo-table gather), so charging the dense figure to a ragged run would
-    overstate the stream by exactly the padded rows the ring deletes."""
+    overstate the stream by exactly the padded rows the ring deletes.
+    The send buffer has a bucket for each of the ``k`` peers
+    (``send_idx``'s second axis: a one-part slice keeps them all)."""
     if comm_schedule == "ragged":
         sizes = (plan.rr_sizes if plan.rr_sizes is not None
                  else plan.ragged_round_sizes())
         return int(sum(sizes))
-    return int(plan.k * plan.s + plan.r)
+    peers = int(plan.send_idx.shape[1])
+    return int(peers * plan.s + plan.r)
 
 
 def gather_bytes_per_epoch(plan, fin: int, widths,
@@ -124,7 +130,8 @@ def step_cost(plan, fin: int, widths, compute_dtype: str | None = None,
               wire_itemsize=None,
               comm_schedule: str = "a2a",
               model: str = "gcn",
-              replica: bool = False) -> StepCostModel:
+              replica: bool = False,
+              halo_plan=None) -> StepCostModel:
     """Build the cost model for one (plan, layer-stack) pair.
 
     ``compute_dtype='bfloat16'`` halves the gather/wire itemsize (the
@@ -159,7 +166,18 @@ def step_cost(plan, fin: int, widths, compute_dtype: str | None = None,
     genuinely leave the exchange — ``plan.replica_send_volume``) and the
     wire rows (``plan.wire_rows_per_exchange(..., replica=True)``)
     shrink; refresh steps use the default full model.  GCN only (the
-    trainer gates replication to it)."""
+    trainer gates replication to it).
+
+    ``halo_plan`` (default ``plan``) gives the halo figures alone — the
+    true and wire rows per exchange — while ``plan`` gives the per-chip
+    FLOPs and gather bytes: a rank prices its step with the full plan's
+    per-chip figures and its slice's own exchange
+    (``parallel/proxy.py``), what its ``CommStats`` counts.  On a
+    one-part slice as ``plan`` the per-chip figures are the part's: its
+    own true nnz, where the reference's per-chip figure takes the parts'
+    maximum."""
+    if halo_plan is None:
+        halo_plan = plan
     if model == "gat":
         from ..models.gat import gat_exchange_lane_widths
         plan.ensure_cell()
@@ -185,12 +203,12 @@ def step_cost(plan, fin: int, widths, compute_dtype: str | None = None,
     if replica:
         if model == "gat":
             raise ValueError("replica pricing is a GCN-trainer lever")
-        send_rows = int(plan.replica_send_volume.sum())
-        wire_rows = int(plan.wire_rows_per_exchange(comm_schedule,
-                                                    replica=True))
+        send_rows = int(halo_plan.replica_send_volume.sum())
+        wire_rows = int(halo_plan.wire_rows_per_exchange(comm_schedule,
+                                                         replica=True))
     else:
-        send_rows = int(plan.predicted_send_volume.sum())
-        wire_rows = int(plan.wire_rows_per_exchange(comm_schedule))
+        send_rows = int(halo_plan.predicted_send_volume.sum())
+        wire_rows = int(halo_plan.wire_rows_per_exchange(comm_schedule))
 
     # per-layer bytes are PER EXCHANGE at the mean of the two directions'
     # itemsizes, so 2L × per-layer == the per-step totals exactly (the

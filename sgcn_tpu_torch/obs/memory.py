@@ -300,7 +300,7 @@ def memory_model(plan, fin: int, widths, *, workload: str = "train",
                 carry += sum(k * plan.rep_base_rows * f * 4 for f in fs)
             families["replica_carries"] = carry
 
-    if train and ranks and not plan.symmetric:
+    if train and ranks and not plan.symmetric and setup.aggregator != "ell":
         # the reverse exchange of the directed backward: the halo-ᵀ
         # output, the narrowed send copy (a narrower wire only) and the
         # receive buffer, at the widest lane width
@@ -358,6 +358,12 @@ def memory_model(plan, fin: int, widths, *, workload: str = "train",
                        overlays=overlays)
 
 
+def _peers(plan) -> int:
+    """The parts a receive window holds a bucket of: ``k``, on a one-part
+    slice too (``send_idx``'s second axis)."""
+    return int(plan.send_idx.shape[1])
+
+
 def ell_temp_bytes(plan, static: dict, f: int, isize: int,
                    wire_isize: int) -> int:
     """The ELL aggregator's transient tensors while one aggregation runs
@@ -368,12 +374,15 @@ def ell_temp_bytes(plan, static: dict, f: int, isize: int,
     and the largest level's gather; on an asymmetric plan the backward's
     ``dh``, owners' sum and their sum (three ``(k·B, f)``), the reverse
     send buffer and the wire it is packed into (``(k, k·S, f)`` each) and
-    the largest level's gather."""
+    the largest level's gather.  A rank's slice (``k = 1``, its chains'
+    levels) prices its own: its ``(1, k·S)`` buffers keep every peer's
+    bucket, and a rank's reverse exchange receives into the wire's
+    buffer where the stacked pack writes it."""
     k, b = int(plan.k), int(plan.b)
     level = max((max(v, default=0) for v in static["ell_levels"].values()),
                 default=0)
     if static["ell_layout"] == "directed":
-        slots = k * k * int(plan.s)
+        slots = k * _peers(plan) * int(plan.s)
         return f * (isize * (3 * k * b + slots + level)
                     + wire_isize * slots)
     nb = max(nb for nb, _ in static["ell_buckets"])
@@ -397,10 +406,12 @@ def ell_gat_temp_bytes(plan, static: dict, widths,
     same.  On an asymmetric plan (``'cell_t'``) the backward's
     transposed sums per table: the owned rows', the owners' and their
     sum (three ``k·B``), the reverse send buffer and the wire (``(k,
-    k·S)`` each) and the largest level's gather, if larger."""
+    k·S)`` each) and the largest level's gather, if larger.  A rank's
+    slice prices its own part, as ``ell_temp_bytes`` does."""
     from ..models.gat import gat_table_form
 
     k, b, r, s = int(plan.k), int(plan.b), int(plan.r), int(plan.s)
+    peers = _peers(plan)
     nb = max(nb for nb, _ in static["ell_buckets"])
     levels = static["ell_levels"]
     tail = max(levels.get("chub", ()), default=0)
@@ -419,7 +430,7 @@ def ell_gat_temp_bytes(plan, static: dict, widths,
         if static["ell_layout"] == "cell_t":
             lvl = max((max(v, default=0) for v in levels.values()),
                       default=0)
-            one = max(one, (fout + 1) * 4 * (3 * k * b + 2 * k * k * s
+            one = max(one, (fout + 1) * 4 * (3 * k * b + 2 * k * peers * s
                                              + lvl))
         best = max(best, one)
     return int(best)

@@ -83,7 +83,13 @@ exchange is this module's pack, one per exchange.  The GAT's slot passes
 ``gat_exchange_table`` / ``gat_exchange_rows_scalar`` (the reference's
 ``_exchange_table`` / ``_exchange_rows_scalar``) and reduce with
 ``bucketed_slot_reduce``; an asymmetric plan's transposes, GCN's and
-GAT's, share ``ell_transpose``.
+GAT's, share ``ell_transpose``.  Every ELL op takes ``mesh`` (ROADMAP
+A2d): with one process per part each exchange is the rank's
+(``rank_exchange`` issued before the local pass and waited on after it,
+``rank_halo_exchange`` for a GAT table, ``rank_reverse_exchange`` for a
+transpose's reverse exchange) over the chains of the rank's slice, which
+are the stacked chains of its part, so a rank's rows are the stacked
+op's row for its part bit for bit.
 """
 
 from __future__ import annotations
@@ -886,14 +892,33 @@ def pspmm_exchange(h, recv_src, halo_src_flat, edge_dst, edge_src, edge_w,
     return pspmm(h, halo, edge_dst, edge_src, edge_w, levels)
 
 
+def _exchange(h, send_flat, mesh=None, halo_dtype=None, rr_sizes=None):
+    """Issue one ELL aggregation's exchange: over the stacked parts the
+    row pack of the receive layout (``exchange_recv``, or ``ring_concat``
+    with ``rr_sizes``), complete at once; on a rank (``mesh``)
+    ``rank_exchange``, in flight until ``wait()``.  Returns ``(recv,
+    wait)``."""
+    if mesh is not None:
+        return rank_exchange(h, send_flat, mesh, halo_dtype, rr_sizes)
+    if rr_sizes is None:
+        return exchange_recv(h, send_flat, halo_dtype), _done
+    return ring_concat(h, send_flat, rr_sizes, halo_dtype), _done
+
+
+def _done():
+    return None
+
+
 def halo_exchange_ragged_multi(parts, ring_src, rhalo_dst, rr_sizes, r: int,
-                               halo_dtype=None):
+                               halo_dtype=None, mesh=None):
     """The ring exchange of several row tables at once (port of
     ``halo_exchange_ragged_multi``): the tables ride one ring concat
     side by side (one pack, the ``(ΣS_d, Σ d_i)``-lane buffer of every
     round, ``halo_dtype`` narrowing it), then each part's rows scatter into
     its ``(k, r, ...)`` halo table at ``rhalo_dst`` (each slot written
-    once; pads name row ``r`` and are dropped, pad rows hold 0).  Returns
+    once; pads name row ``r`` and are dropped, pad rows hold 0).  On a
+    rank (``mesh``; ``ring_src`` / ``rhalo_dst`` its slice's) the concat
+    is the rank's ring (``rank_exchange``), waited on at once.  Returns
     a tuple of halo tables in the parts' dtypes."""
     k = parts[0].shape[0]
     lanes = [p.shape[2] if p.dim() == 3 else 1 for p in parts]
@@ -902,7 +927,8 @@ def halo_exchange_ragged_multi(parts, ring_src, rhalo_dst, rr_sizes, r: int,
         dt = torch.promote_types(dt, p.dtype)
     wide = torch.cat([p.reshape(k, p.shape[1], ln).to(dt)
                       for p, ln in zip(parts, lanes)], dim=-1)
-    recv = ring_concat(wide, ring_src, rr_sizes, halo_dtype)
+    recv, wait = _exchange(wide, ring_src, mesh, halo_dtype, rr_sizes)
+    wait()
     live = bool(ragged_live_rounds(rr_sizes))
     dst = (rhalo_dst.long() + (torch.arange(k, device=recv.device)
                                * (r + 1))[:, None]).reshape(-1)
@@ -919,16 +945,26 @@ def halo_exchange_ragged_multi(parts, ring_src, rhalo_dst, rr_sizes, r: int,
 
 
 def halo_exchange_ragged(h, ring_src, rhalo_dst, rr_sizes, r: int,
-                         halo_dtype=None):
+                         halo_dtype=None, mesh=None):
     """The ring's ``(k, r, f)`` halo table (port of
     ``halo_exchange_ragged``): the one-table form of
     ``halo_exchange_ragged_multi``."""
     (halo,) = halo_exchange_ragged_multi((h,), ring_src, rhalo_dst, rr_sizes,
-                                         r, halo_dtype)
+                                         r, halo_dtype, mesh)
     return halo
 
 
-def gat_exchange_table(table, pa, rr_sizes=None, r=None):
+def _halo_rows(table, pa, mesh=None):
+    """The a2a's halo rows of one table: ``halo_exchange`` (two packs),
+    or on a rank ``rank_halo_exchange`` (its send pack, the collective,
+    the halo pack)."""
+    if mesh is not None:
+        return rank_halo_exchange(table, pa["recv_src"], pa["halo_src_flat"],
+                                  mesh)
+    return halo_exchange(table, pa["recv_src"], pa["halo_src_flat"])
+
+
+def gat_exchange_table(table, pa, rr_sizes=None, r=None, mesh=None):
     """The halo block of one GAT table (port of the reference's
     ``_exchange_table``): on the a2a ``halo_exchange`` by the plan's
     ``recv_src`` / ``halo_src_flat`` (two packs), on the ring (``rr_sizes``
@@ -937,37 +973,37 @@ def gat_exchange_table(table, pa, rr_sizes=None, r=None):
     its owner's row on both transports, so the slot passes that read it
     do not depend on the transport (pad rows differ: no true edge reads
     one).  No arithmetic: the packed form's bit-paired words pass as
-    they are."""
+    they are, on a rank's wire too (``mesh``: ``rank_halo_exchange`` on
+    the a2a, the rank's ring on the ring, by its slice's arrays)."""
     if rr_sizes is not None:
         return halo_exchange_ragged(table, pa["ring_src"], pa["rhalo_dst"],
-                                    rr_sizes, r)
-    return halo_exchange(table, pa["recv_src"], pa["halo_src_flat"])
+                                    rr_sizes, r, mesh=mesh)
+    return _halo_rows(table, pa, mesh)
 
 
-def gat_exchange_rows_scalar(p, u, pa, rr_sizes=None, r=None):
+def gat_exchange_rows_scalar(p, u, pa, rr_sizes=None, r=None, mesh=None):
     """Feature rows ``p`` ``(k, B, f)`` and a scalar a row ``u`` ``(k,
     B)`` exchanged without a ``(k, B, f + 1)`` table (port of the
     reference's ``_exchange_rows_scalar``): on the a2a the scalar rides
-    its own pack (``halo_exchange`` twice, four packs), on the ring both
-    ride one ring side by side (``halo_exchange_ragged_multi``, one
-    pack).  Returns the ``[local; halo]`` pair ``((k, B + R, f), (k, B +
-    R))``."""
+    its own pack (``halo_exchange`` twice, four packs; on a rank two
+    ``rank_halo_exchange``), on the ring both ride one ring side by side
+    (``halo_exchange_ragged_multi``, one pack).  Returns the ``[local;
+    halo]`` pair ``((k, B + R, f), (k, B + R))``."""
     if rr_sizes is not None:
         halo_p, halo_u = halo_exchange_ragged_multi(
-            (p, u), pa["ring_src"], pa["rhalo_dst"], rr_sizes, r)
+            (p, u), pa["ring_src"], pa["rhalo_dst"], rr_sizes, r, mesh=mesh)
     else:
-        halo_p = halo_exchange(p, pa["recv_src"], pa["halo_src_flat"])
-        halo_u = halo_exchange(u, pa["recv_src"], pa["halo_src_flat"])
+        halo_p = _halo_rows(p, pa, mesh)
+        halo_u = _halo_rows(u, pa, mesh)
     return torch.cat([p, halo_p], dim=1), torch.cat([u, halo_u], dim=1)
 
 
-def _ragged_remote(x, ring_src, redge_dst, redge_src, redge_w, rr_sizes,
-                   levels, halo_dtype=None):
+def _ragged_remote(x, recv, redge_dst, redge_src, redge_w, levels):
     """Σ_d of round d's halo edges over its received rows (port of
-    ``_ragged_remote``): the ring concat (one pack), then each round's
-    ``redge_*`` levels folded into ``remote`` after the rounds before."""
+    ``_ragged_remote``): over the ring concat ``recv`` of ``x``'s rows,
+    each round's ``redge_*`` levels folded into ``remote`` (``x``'s shape
+    and dtype) after the rounds before."""
     k, b, f = x.shape
-    recv = ring_concat(x, ring_src, rr_sizes, halo_dtype)
     remote = x.new_zeros((k * b, f))
     chain_add(remote, _rows(recv), redge_src, redge_dst, redge_w, levels)
     return remote.view(k, b, f)
@@ -979,22 +1015,31 @@ def _ell_local(h, pa, buckets, levels):
                     levels["ltail"])
 
 
-def _pspmm_ell_once(h, pa, buckets, levels, halo_dtype):
+def _pspmm_ell_once(h, pa, buckets, levels, halo_dtype, mesh=None):
+    """One symmetric a2a aggregation: the exchange issued, the ELL local
+    pass (while a rank's collective is in flight: the reference's
+    overlap, ``sgcn_tpu/ops/pspmm.py:365-374``), the wait, the halo
+    edges' chains over the receive buffer, ``local + remote``."""
     k, b, f = h.shape
-    recv = exchange_recv(h, pa["recv_src"], halo_dtype)
+    recv, wait = _exchange(h, pa["recv_src"], mesh, halo_dtype)
     local = _ell_local(h, pa, buckets, levels)
+    wait()
     remote = h.new_zeros((k * b, f))
     chain_add(remote, _rows(recv), pa["hedge_src"], pa["hedge_dst"],
               pa["hedge_w"], levels["hedge"])
     return local + remote.view(k, b, f)
 
 
-def _pspmm_ragged_once(h, pa, buckets, levels, rr_sizes, halo_dtype):
+def _pspmm_ragged_once(h, pa, buckets, levels, rr_sizes, halo_dtype,
+                       mesh=None):
+    """One symmetric ring aggregation: the ring issued, the ELL local
+    pass, the wait, the rounds' fold (``_ragged_remote``), ``local +
+    remote``."""
+    recv, wait = _exchange(h, pa["ring_src"], mesh, halo_dtype, rr_sizes)
     local = _ell_local(h, pa, buckets, levels)
-    remote = _ragged_remote(h, pa["ring_src"], pa["redge_dst"],
-                            pa["redge_src"], pa["redge_w"], rr_sizes,
-                            levels["redge"], halo_dtype)
-    return local + remote
+    wait()
+    return local + _ragged_remote(h, recv, pa["redge_dst"], pa["redge_src"],
+                                  pa["redge_w"], levels["redge"])
 
 
 class PspmmEllSym(torch.autograd.Function):
@@ -1004,35 +1049,40 @@ class PspmmEllSym(torch.autograd.Function):
     ``local + remote``; the backward is the same form on ``g``
     (Âᵀg = Âg), its exchange on the same wire.  ``pa``: the
     ``ell_chain_layout(plan, 'a2a')`` tensors; ``levels`` their level
-    sizes by family name."""
+    sizes by family name.  ``mesh`` (a ``RankGroup``): one rank's part,
+    ``pa`` its slice's tensors, the exchange ``rank_exchange`` overlapped
+    with the local pass in both directions."""
 
     @staticmethod
-    def forward(ctx, h, pa, buckets, levels, halo_dtype=None):
-        ctx.args = (pa, buckets, levels, halo_dtype)
-        return _pspmm_ell_once(h, pa, buckets, levels, halo_dtype)
+    def forward(ctx, h, pa, buckets, levels, halo_dtype=None, mesh=None):
+        ctx.args = (pa, buckets, levels, halo_dtype, mesh)
+        return _pspmm_ell_once(h, pa, buckets, levels, halo_dtype, mesh)
 
     @staticmethod
     def backward(ctx, g):
         return (_pspmm_ell_once(g.contiguous(), *ctx.args),
-                None, None, None, None)
+                None, None, None, None, None)
 
 
 class PspmmRaggedSym(torch.autograd.Function):
     """``PSpMM`` over the ragged ring for a SYMMETRIC Â (port of
     ``pspmm_ragged_sym``): the ELL local pass and the round-by-round fold
     of the ring (``_ragged_remote``); the backward is the same form on
-    ``g``.  ``pa``: ``ell_chain_layout(plan, 'ragged')``'s tensors."""
+    ``g``.  ``pa``: ``ell_chain_layout(plan, 'ragged')``'s tensors;
+    ``mesh``: one rank's part, its ring the rank's rounds at the plan's
+    static ``rr_sizes``, overlapped with the local pass."""
 
     @staticmethod
-    def forward(ctx, h, pa, buckets, levels, rr_sizes, halo_dtype=None):
-        ctx.args = (pa, buckets, levels, rr_sizes, halo_dtype)
+    def forward(ctx, h, pa, buckets, levels, rr_sizes, halo_dtype=None,
+                mesh=None):
+        ctx.args = (pa, buckets, levels, rr_sizes, halo_dtype, mesh)
         return _pspmm_ragged_once(h, pa, buckets, levels, rr_sizes,
-                                  halo_dtype)
+                                  halo_dtype, mesh)
 
     @staticmethod
     def backward(ctx, g):
         return (_pspmm_ragged_once(g.contiguous(), *ctx.args),
-                None, None, None, None, None)
+                None, None, None, None, None, None)
 
 
 class PspmmOverlap(torch.autograd.Function):
@@ -1045,15 +1095,19 @@ class PspmmOverlap(torch.autograd.Function):
     reverse send buffer (its receive layout), the reverse exchange (one
     pack by ``rev_src``, narrowed to ``halo_dtype``), the owners' weight-1
     chains over what came back, and the two sums added.  ``pa``:
-    ``ell_chain_layout(plan, 'directed')``'s tensors."""
+    ``ell_chain_layout(plan, 'directed')``'s tensors.  ``mesh``: one
+    rank's part, the forward's exchange overlapped with the local chains,
+    the backward's reverse exchange the reverse ``all_to_all_single``
+    (``ell_transpose``)."""
 
     @staticmethod
-    def forward(ctx, h, pa, levels, halo_dtype=None):
-        ctx.args = (pa, levels, halo_dtype)
+    def forward(ctx, h, pa, levels, halo_dtype=None, mesh=None):
+        ctx.args = (pa, levels, halo_dtype, mesh)
         k, b, f = h.shape
-        recv = exchange_recv(h, pa["recv_src"], halo_dtype)
+        recv, wait = _exchange(h, pa["recv_src"], mesh, halo_dtype)
         local = spmm_local(pa["ledge_dst"], pa["ledge_src"], pa["ledge_w"],
                            _rows(h), k * b, levels["ledge"])
+        wait()
         remote = h.new_zeros((k * b, f))
         chain_add(remote, _rows(recv), pa["hedge_src"], pa["hedge_dst"],
                   pa["hedge_w"], levels["hedge"])
@@ -1061,46 +1115,58 @@ class PspmmOverlap(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        pa, levels, halo_dtype = ctx.args
+        pa, levels, halo_dtype, mesh = ctx.args
         return (ell_transpose(g, pa, levels, "ledge_t", "hedge_t",
-                              halo_dtype), None, None, None)
+                              halo_dtype, mesh), None, None, None, None)
 
 
-def ell_transpose(g, pa, levels, local: str, halo: str, halo_dtype=None):
+def ell_transpose(g, pa, levels, local: str, halo: str, halo_dtype=None,
+                  mesh=None):
     """The transpose of an aggregation over split edge lists, every
     scatter in stored edge order (``PspmmOverlap``'s backward, and the
-    GAT's ``'cell_t'`` one): the local edges' transposed chains
-    (``{local}_*``) into the owned rows, the halo edges' (``{halo}_*``)
-    into each part's reverse send buffer (its receive layout), the
-    reverse exchange (one pack by ``rev_src``, narrowed to
-    ``halo_dtype``), the owners' weight-1 chains over what came back, and
-    the two sums added.  ``g`` ``(k, B, f)``; returns ``(k, B, f)`` in its
-    dtype."""
+    GAT's ``'cell_t'`` one): the halo edges' transposed chains
+    (``{halo}_*``) into each part's reverse send buffer (its receive
+    layout), the reverse exchange (one pack by ``rev_src``, narrowed to
+    ``halo_dtype``), the local edges' (``{local}_*``) into the owned
+    rows, the owners' weight-1 chains over what came back, and the two
+    sums added.  On a rank (``mesh``) the reverse exchange is
+    ``rank_reverse_exchange`` (no pack: the collective is the
+    transpose), in flight while the local chains run.  ``g`` ``(k, B,
+    f)``; returns ``(k, B, f)`` in its dtype."""
     g = g.contiguous()
     k, b, f = g.shape
     gf = _rows(g)
-    dh = spmm_local(pa[f"{local}_dst"], pa[f"{local}_src"],
-                    pa[f"{local}_w"], gf, k * b, levels[local])
-    send_rev = g.new_zeros((k, pa["rev_src"].shape[1], f))
+    slots = pa["rev_src"].shape[1]
+    send_rev = g.new_zeros((k, slots, f))
     chain_add(_rows(send_rev), gf, pa[f"{halo}_src"], pa[f"{halo}_dst"],
               pa[f"{halo}_w"], levels[halo])
-    rwire = reverse_exchange(send_rev, pa["rev_src"], halo_dtype, g.dtype)
+    if mesh is None:
+        rwire, wait = reverse_exchange(send_rev, pa["rev_src"], halo_dtype,
+                                       g.dtype), _done
+    else:
+        rwire, wait = rank_reverse_exchange(send_rev, slots, mesh,
+                                            halo_dtype, g.dtype)
+    dh = spmm_local(pa[f"{local}_dst"], pa[f"{local}_src"],
+                    pa[f"{local}_w"], gf, k * b, levels[local])
+    wait()
     back = g.new_zeros((k * b, f))
     chain_add(back, _rows(rwire), pa["owner_src"], pa["owner_dst"],
               None, levels["owner"])
     return (dh + back).view(k, b, f)
 
 
-def pspmm_ell_sym(h, pa, buckets, levels, halo_dtype=None):
-    return PspmmEllSym.apply(h, pa, buckets, levels, halo_dtype)
+def pspmm_ell_sym(h, pa, buckets, levels, halo_dtype=None, mesh=None):
+    return PspmmEllSym.apply(h, pa, buckets, levels, halo_dtype, mesh)
 
 
-def pspmm_ragged_sym(h, pa, buckets, levels, rr_sizes, halo_dtype=None):
-    return PspmmRaggedSym.apply(h, pa, buckets, levels, rr_sizes, halo_dtype)
+def pspmm_ragged_sym(h, pa, buckets, levels, rr_sizes, halo_dtype=None,
+                     mesh=None):
+    return PspmmRaggedSym.apply(h, pa, buckets, levels, rr_sizes, halo_dtype,
+                                mesh)
 
 
-def pspmm_overlap(h, pa, levels, halo_dtype=None):
-    return PspmmOverlap.apply(h, pa, levels, halo_dtype)
+def pspmm_overlap(h, pa, levels, halo_dtype=None, mesh=None):
+    return PspmmOverlap.apply(h, pa, levels, halo_dtype, mesh)
 
 
 # ------------------------------------------------------ the selection
@@ -1128,11 +1194,7 @@ ELL_GAT_PLAN_FIELDS_GEN = ELL_GAT_PLAN_FIELDS + (
     "cl_t_dst", "cl_t_src", "cl_t_w", "ch_t_dst", "ch_t_src", "ch_t_w",
     "owner_dst", "owner_src", "rev_src")
 
-# what SGCN_PALLAS_SPMM=0 refuses, naming the ROADMAP item each waits on
-ELL_RANKS_DEFERRAL = (
-    "SGCN_PALLAS_SPMM=0 selects the ELL aggregator, which runs on the "
-    "stacked parts only: ELL on ranks is ROADMAP A2d — unset "
-    "SGCN_PALLAS_SPMM (or set 'auto') to train on ranks")
+# what SGCN_PALLAS_SPMM=0 refuses, naming the ROADMAP entry it waits on
 ELL_MODE_DEFERRAL = (
     "SGCN_PALLAS_SPMM=0 selects the ELL aggregator, which runs the exact "
     "full-batch step and the full-mode server only: the {mode} runs on "
@@ -1210,14 +1272,16 @@ def ell_plan_fields(layout: str, schedule: str = "a2a") -> tuple:
             "cell_t": ELL_GAT_PLAN_FIELDS_GEN}[layout]
 
 
-def ell_aggregate(x, pa, static, halo_dtype=None):
+def ell_aggregate(x, pa, static, halo_dtype=None, mesh=None):
     """One ELL aggregation of the forward's static kwargs ``static``
     (``choose_ell_dispatch``): ``PspmmEllSym`` on the a2a, ``PspmmRaggedSym``
-    on the ring, ``PspmmOverlap`` on an asymmetric plan."""
+    on the ring, ``PspmmOverlap`` on an asymmetric plan; ``mesh``: one
+    rank's part (``pa`` its slice's tensors)."""
     levels = static["ell_levels"]
     if static["ell_layout"] == "directed":
-        return pspmm_overlap(x, pa, levels, halo_dtype)
+        return pspmm_overlap(x, pa, levels, halo_dtype, mesh)
     if static["ell_layout"] == "ragged":
         return pspmm_ragged_sym(x, pa, static["ell_buckets"], levels,
-                                static["rr_sizes"], halo_dtype)
-    return pspmm_ell_sym(x, pa, static["ell_buckets"], levels, halo_dtype)
+                                static["rr_sizes"], halo_dtype, mesh)
+    return pspmm_ell_sym(x, pa, static["ell_buckets"], levels, halo_dtype,
+                         mesh)

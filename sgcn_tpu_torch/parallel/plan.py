@@ -67,7 +67,8 @@ gives the buckets every batch plan shares, and ``ensure_cell`` /
 ``ensure_ragged`` also splits the halo-src edges per arrival round
 (``rr_edge_sizes``, ``redge_*``), which the ELL ring aggregator folds, and
 ``ensure_ell_chains`` lays the ELL aggregators' sums out as serial chains
-over the stacked parts (port only: ``ell_chain_layout``).
+over the stacked parts, or over one part's slice (port only:
+``ell_chain_layout``).
 Everything here is offline numpy.
 """
 
@@ -898,17 +899,14 @@ class CommPlan:
         transport) and ``'cell_t'`` those plus their transpose (an
         asymmetric plan).  Builds the exchange layout it reads
         (``ensure_exchange``, ``ensure_ragged`` for the ring,
-        ``ensure_cell`` for the combined edges)."""
+        ``ensure_cell`` for the combined edges).  A one-part slice
+        (``parallel/proxy.py``: the shard proxy, a rank) lays out its own
+        part's chains over its own buffers; the layouts they read are
+        the full plan's, built before slicing (a slice that lacks one
+        raises)."""
         if schedule not in ("a2a", "ragged", "directed", "edge", "cell",
                             "cell_t"):
             raise ValueError(f"unknown ELL chain layout {schedule!r}")
-        if self.chip_ids is not None:
-            # the chains index the stacked parts' receive layouts; a
-            # slice's is a loopback of k·S rows (ROADMAP A2d)
-            raise ValueError("the ELL aggregator runs on the stacked "
-                             "parts only: a one-part slice (the shard "
-                             "proxy, a rank) has no ELL chain layout — "
-                             "ELL on ranks is ROADMAP A2d")
         chains = self.ell_chains if self.ell_chains is not None else {}
         if schedule not in chains:
             self.ensure_exchange()
@@ -1781,7 +1779,17 @@ def ell_chain_layout(plan, schedule: str) -> dict:
         slot (``halo_src_flat``), the src the edge's dst row ``p·B + i``,
         mask weights; with ``owner_*`` and ``rev_src`` as for
         ``'directed'``;
-      * ``recv_src`` or ``ring_src``: the exchange's pack."""
+      * ``recv_src`` or ``ring_src``: the exchange's pack.
+
+    A one-part slice of part ``c`` (``parallel/proxy.py``, ``k = 1``)
+    gets part ``c``'s entries of the stacked layout, re-based to its own
+    buffers: rows ``i`` of its ``(1, B, f)`` table, slots of its own
+    ``(1, k·S)`` receive window (its ``halo_src_flat`` is ``halo_src[c]``)
+    or ring concat, rows of its ``(1, B + R)`` ``[local; halo]`` table,
+    and each chain in the stacked chain's order (``chain_levels`` keeps
+    stored order within a row), so every sum is the stacked part's
+    serial chain.  Its ``recv_src`` / ``ring_src`` is its send pack's
+    index and its ``rev_src`` the loopback's (``_owner_chains``)."""
     k, b, s = plan.k, plan.b, plan.s
     out: dict = {}
     if schedule in ("a2a", "ragged"):
@@ -1888,15 +1896,24 @@ def _owner_chains(out: dict, plan) -> None:
     ``owner_*``, the owners' weight-1 sum of what comes back (dst ``p·B +
     send_idx[p, q, t]``, src ``p·k·S + q·S + t``), and ``rev_src``, its
     pack, ``rwire[p, q·S + t] = send_rev[q, p·S + t]`` over ``(k, k·S)``
-    buffers."""
-    k, b, s = plan.k, plan.b, plan.s
+    buffers.  ``k`` of the buffers is ``send_idx``'s peer axis: on a
+    one-part slice (one row, ``k`` peers) the owners' sum reads the
+    rank's own ``(1, k·S)`` received reverse buffer, and ``rev_src`` is
+    the loopback's (``parallel/proxy.py::REBASE``: the part's own
+    partial goes back in place); a rank's reverse exchange is the
+    collective and packs nothing."""
+    rows, k = plan.send_counts.shape
+    b, s = plan.b, plan.s
     sc = np.asarray(plan.send_counts)
     t = np.arange(s)
-    real = t[None, None, :] < sc[:, :, None]                 # (k, k, S)
+    real = t[None, None, :] < sc[:, :, None]                 # (rows, k, S)
     p_, q_, t_ = np.nonzero(real)                            # p, q, t order
     _chain(out, "owner",
            p_ * b + np.asarray(plan.send_idx, np.int64)[p_, q_, t_],
            p_ * k * s + q_ * s + t_)
+    if plan.chip_ids is not None:
+        out["rev_src"] = np.arange(k * s, dtype=np.int32)[None]
+        return
     rev = (np.arange(k)[None, :, None] * (k * s)
            + np.arange(k)[:, None, None] * s + t[None, None, :])
     out["rev_src"] = rev.reshape(k, k * s).astype(np.int32)

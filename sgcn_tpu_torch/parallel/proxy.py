@@ -182,7 +182,10 @@ def shard_proxy_plan(plan: CommPlan, chip: int = 0) -> CommPlan:
     leading ``k`` axis and sliced to ``[chip:chip+1]``, every built field
     of ``REBASED_ARRAY_FIELDS`` is re-based by its rule (``REBASE``), and
     the global arrays and scalars pass through; ``chip_ids = [chip]``.
-    An unclassified dataclass array with a leading ``k`` axis raises."""
+    An unclassified dataclass array with a leading ``k`` axis raises.
+    Each ELL chain layout built on the full plan is laid out again for
+    the slice (``CommPlan.ensure_ell_chains``): part ``chip``'s chains,
+    re-based to the slice's own buffers."""
     if plan.chip_ids is not None:
         raise ValueError("the plan is already a one-part slice")
     if not 0 <= chip < plan.k:
@@ -191,7 +194,7 @@ def shard_proxy_plan(plan: CommPlan, chip: int = 0) -> CommPlan:
     plan.ensure_pallas_tiles()
     classified = (set(PER_CHIP_ARRAY_FIELDS) | set(_GLOBAL_ARRAY_FIELDS)
                   | set(REBASED_ARRAY_FIELDS))
-    # the ELL chains index the stacked parts (CommPlan.ensure_ell_chains)
+    # the slice lays out its own ELL chains (below), over its own buffers
     repl: dict = {"k": 1, "chip_ids": np.array([chip]), "ell_chains": None}
     for fld in dataclasses.fields(plan):
         v = getattr(plan, fld.name)
@@ -219,7 +222,10 @@ def shard_proxy_plan(plan: CommPlan, chip: int = 0) -> CommPlan:
         if v is not None:
             repl[name] = rule(plan, chip, v)
     repl.update(_spare_row(plan, chip, repl))
-    return dataclasses.replace(plan, **repl)
+    sl = dataclasses.replace(plan, **repl)
+    for layout in plan.ell_chains or ():
+        sl.ensure_ell_chains(layout)
+    return sl
 
 
 def shard_proxy_data(plan: CommPlan, chip: int, features: np.ndarray,

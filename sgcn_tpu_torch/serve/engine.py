@@ -234,8 +234,10 @@ class ServeEngine:
         checkpoint's provenance is verified against the full plan on
         every rank; a swap loads on every rank before the batch its
         header announces.  ``device`` defaults to the group's.
-        ``SGCN_PALLAS_SPMM=0`` raises ``ELL_RANKS_DEFERRAL`` (ROADMAP
-        A2d)."""
+        ``SGCN_PALLAS_SPMM=0`` serves full mode on the ELL aggregator
+        over each rank's slice's chains (GCN on both transports and the
+        bf16 wire, GAT on both transports; ROADMAP A2d); sub-graph mode
+        raises ``ELL_MODE_DEFERRAL`` under it, as stacked."""
         if mesh is not None:
             check_rank_levers(plan, mesh)
         if mode == "subgraph" and plan.chip_ids is not None:
@@ -285,6 +287,7 @@ class ServeEngine:
             # the layouts were built on the full plan (above); the rank
             # keeps its part's slice
             plan = self.plan = shard_proxy_plan(plan, mesh.rank)
+            self.setup = self.setup.on_slice(plan)
         # the parts this process holds, and each part's place in what the
         # forward returns: the stacked (k, B) layout, a slice's one part,
         # or on a k-rank group the rank that holds it (the row gather's

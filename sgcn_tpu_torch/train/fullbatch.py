@@ -73,12 +73,15 @@ an asymmetric plan's ``pspmm_overlap``; GAT's slot passes,
 ``models/gat.py::GatLayerEll``); its step events also carry the
 reference's ``roofline`` and ``measured_vs_model`` blocks, priced by
 ``obs/attribution.py::step_cost`` with the card's ceilings, as the
-reference books them on its slot-pass steps only.
+reference books them on its slot-pass steps only.  It runs stacked or on
+a rank group, one process per part (ROADMAP A2d: each rank runs its
+slice's chains, its exchanges collectives).
 """
 
 from __future__ import annotations
 
 import os
+import dataclasses
 from dataclasses import dataclass
 from typing import NamedTuple
 
@@ -99,8 +102,7 @@ from ..obs.memory import (check_memory_budget, device_bytes,
 from ..obs.attribution import roofline_fields, stacked_cost, step_cost
 from ..obs.tracing import SpanTimer, measured_vs_model_block
 from ..ops import pspmm as layout
-from ..ops.pspmm import (ELL_MODE_DEFERRAL,
-                         ELL_RANKS_DEFERRAL, ELL_SELECTION_RULE,
+from ..ops.pspmm import (ELL_MODE_DEFERRAL, ELL_SELECTION_RULE,
                          choose_ell_dispatch, ell_plan_fields, ell_selected,
                          narrow_dtype)
 from ..ops.tile_spmm import (TILE_PLAN_FIELDS, TILE_PLAN_FIELDS_GEN,
@@ -211,6 +213,17 @@ class ForwardSetup:
                    for f, t in out.items()}
         return out
 
+    def on_slice(self, plan) -> "ForwardSetup":
+        """This setup for a one-part slice of the plan it was resolved on
+        (``parallel/proxy.py::shard_proxy_plan``, a rank's part): the ELL
+        aggregator's level sizes are the slice's own chains'
+        (``choose_ell_dispatch`` on the slice), every other static the
+        full plan's; a tile setup as it is."""
+        if self.aggregator != "ell":
+            return self
+        return dataclasses.replace(self, fwd_static=choose_ell_dispatch(
+            plan, self.comm_schedule, model=self.model))
+
 
 def resolve_forward_setup(plan, model: str = "gcn",
                           comm_schedule: str | None = None,
@@ -249,19 +262,18 @@ def resolve_forward_setup(plan, model: str = "gcn",
     symmetric a2a and ring aggregations, or an asymmetric plan's
     ``pspmm_overlap``; for GAT the reference's slot passes over the
     combined-edge layout, ``models/gat.py::GatLayerEll``), for the exact
-    step and full-mode serving; ``ranks``, the carried modes and the
-    sub-graph server
-    (``serve_subgraph``) raise under it (the mini-batch trainer raises
-    before it builds its batch plans).  Unset, ``auto`` or ``1`` keep
-    the tile kernel.  ``decision['aggregator']`` logs which and why."""
+    step and full-mode serving, stacked or on ``ranks`` (a rank keeps its
+    slice's chains: ``ForwardSetup.on_slice``); the carried modes and
+    the sub-graph server (``serve_subgraph``) raise under it (the
+    mini-batch trainer raises before it builds its batch plans).  Unset,
+    ``auto`` or ``1`` keep the tile kernel.  ``decision['aggregator']``
+    logs which and why."""
     if model not in MODELS:
         raise NotImplementedError(
             f"model {model!r} is not ported yet (ported: "
             f"{', '.join(MODELS)})")
     ell = ell_selected()
     if ell:
-        if ranks:
-            raise ValueError(ELL_RANKS_DEFERRAL)
         for on, mode in ((halo_staleness, "stale-halo trainer"),
                          (replica_budget, "replica trainer"),
                          (serve_subgraph, "sub-graph server")):
@@ -632,8 +644,11 @@ class FullBatchTrainer:
         a2a) runs each backward's reverse exchange as the reverse
         ``all_to_all_single`` of the forward's
         (``ops/tile_spmm.py::pspmm_tiles_gen_ranks``,
-        ``models/gat.py::GatLayerGen``).  ``device`` defaults to the
-        group's; data comes from ``make_train_data_multihost``."""
+        ``models/gat.py::GatLayerGen``).  Under ``SGCN_PALLAS_SPMM=0``
+        the exact step runs the ELL aggregator on the rank's slice's
+        chains (ROADMAP A2d), every lever of the stacked ELL step
+        included.  ``device`` defaults to the group's; data comes from
+        ``make_train_data_multihost``."""
         if mesh is not None:
             check_rank_levers(plan, mesh)
         if halo_dtype is not None and model != "gcn":
@@ -666,6 +681,7 @@ class FullBatchTrainer:
             # reads it (utils/checkpoint.py)
             self.checkpoint_plan = plan
             plan = shard_proxy_plan(plan, mesh.rank)
+            setup = setup.on_slice(plan)
         # the analytic footprint and the --memory-budget gate, before any
         # tensor ships (obs/memory.py); the allocator's state now is the
         # measured side's zero
@@ -1463,13 +1479,18 @@ class FullBatchTrainer:
     def _step_cost_model(self):
         """The exact step's analytic cost (``obs/attribution.py::
         step_cost``, the only step the ELL aggregator runs), a
-        ``halo_dtype`` wire at 2 bytes both ways; cached."""
+        ``halo_dtype`` wire at 2 bytes both ways; cached.  On a rank the
+        per-chip figures are the full plan's (the reference's per-chip
+        roofline: its nnz is the parts' max) and the halo figures the
+        rank's slice's, as its ``CommStats`` counts them; a one-rank
+        group on a slice has only the slice to price."""
         if self._step_cost is None:
             self._step_cost = step_cost(
-                self.plan, self.fin, self.widths,
+                self.full_plan, self.fin, self.widths,
                 compute_dtype=self.compute_dtype,
                 wire_itemsize=2 if self.halo_dtype == "bfloat16" else None,
-                comm_schedule=self.comm_schedule, model=self.setup.model)
+                comm_schedule=self.comm_schedule, model=self.setup.model,
+                halo_plan=self.plan)
         return self._step_cost
 
     def _record_step_event(self, loss: float, wall_s: float) -> None:
@@ -1480,7 +1501,9 @@ class FullBatchTrainer:
         parts (``attribution.stacked_cost``) joined against the step's
         wall time, every exchange exposed; a tile step books neither, the
         reference's own gate (its gather model describes the slot-pass
-        aggregators, not the kernel that ran)."""
+        aggregators, not the kernel that ran).  On a rank the cost is
+        the rank's (``stacked_cost(cost, 1)``: the reference's roofline
+        is per chip)."""
         info, g = self._last_info, self.last_gauges
         drift = replica = roofline = mvm = None
         if self.setup.aggregator == "ell":

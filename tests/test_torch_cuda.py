@@ -40,7 +40,10 @@ ELL aggregator (``SGCN_PALLAS_SPMM=0``): ring == a2a and the card == the
 CPU bit for bit, trainers deterministic, with no K1 or fused launch and
 one pack an exchange; the GAT's slot passes under it (fused, split and
 packed forms, directed too): ring == a2a and run == run bit for bit,
-no K1, K5 or fused launch and the tile path's packs.
+no K1, K5 or fused launch and the tile path's packs; and the ELL
+aggregator on one NCCL rank (GCN and GAT, both transports, the bf16
+levers, directed) training and serving a proxy slice, bit for bit the
+stacked proxy's, with the tile rank path's packs.
 
 This module imports no JAX, so it also runs on a GPU machine without it:
 
@@ -2453,3 +2456,107 @@ def test_ell_gat_trainer_ring_equals_a2a_on_card(cuda_device, case,
         assert losses == runs[0][0] and np.isfinite(losses).all()
         assert all(torch.equal(a[k], b[k])
                    for a, b in zip(params, runs[0][1]) for k in a)
+
+
+# -------------------------------------- the ELL aggregator on one NCCL rank
+ELL_NCCL_CASES = {"gcn-a2a": ("sym", {}),
+                  "gcn-ring": ("sym", {"comm_schedule": "ragged"}),
+                  "gcn-wire": ("sym", {"halo_dtype": "bfloat16"}),
+                  "gcn-bf16": ("sym", {"compute_dtype": "bfloat16"}),
+                  "gcn-directed": ("dir", {}),
+                  "gat-a2a": ("sym", {"model": "gat"}),
+                  "gat-ring": ("sym", {"model": "gat",
+                                       "comm_schedule": "ragged"}),
+                  "gat-bf16": ("sym", {"model": "gat",
+                                       "compute_dtype": "bfloat16"}),
+                  "gat-directed": ("dir", {"model": "gat"})}
+
+
+@pytest.mark.parametrize("case", list(ELL_NCCL_CASES))
+def test_one_nccl_rank_ell_equals_the_stacked_proxy(cuda_device, tmp_path,
+                                                    case, monkeypatch):
+    """On the card under ``SGCN_PALLAS_SPMM=0``: one NCCL rank (a
+    ``file://`` rendezvous, world size 1) training cora's part-2 slice
+    (1433 → 16 → 7; the directed cora too) on the ELL aggregator gives
+    the stacked proxy's 3 losses and final weights bit for bit, with no
+    K1, K5 or fused launch and the tile rank path's packs a step — GCN
+    one an aggregation, GAT two an exchanged table on the a2a and one a
+    layer on the ring, both directions; on a directed plan the rank's
+    backward packs nothing (the reverse exchange is the collective)."""
+    from sgcn_tpu_torch.ops.tile_spmm import k5_launches
+    from sgcn_tpu_torch.parallel import init_rank_group
+
+    monkeypatch.setenv("SGCN_PALLAS_SPMM", "0")
+    graph, kw = ELL_NCCL_CASES[case]
+    sl, data = _directed_slice() if graph == "dir" else _cora_slice()
+    kw = dict(fin=1433, widths=[16, 7], seed=3, **kw)
+    if kw.get("model") == "gat":
+        kw["activation"] = "none"
+    stacked = FullBatchTrainer(sl, device=cuda_device, **kw)
+    want = [stacked.step(data) for _ in range(3)]
+    mesh = init_rank_group("file://" + str(tmp_path / "rdv"), 1, 0)
+    try:
+        tr = FullBatchTrainer(sl, mesh=mesh, **kw)
+        assert tr.setup.aggregator == "ell"
+        before = (spmm_tiles.launches, spmm_tiles.bf16_launches,
+                  k5_launches(), spmm_tiles_fused.launches,
+                  spmm_tiles_fused.bf16_launches, row_pack.launches)
+        got = [tr.step(data) for _ in range(3)]
+        torch.cuda.synchronize()
+        after = (spmm_tiles.launches, spmm_tiles.bf16_launches,
+                 k5_launches(), spmm_tiles_fused.launches,
+                 spmm_tiles_fused.bf16_launches, row_pack.launches)
+    finally:
+        mesh.close()
+    assert got == want and np.isfinite(got).all()
+    for a, b in zip(tr.model.parameters(), stacked.model.parameters()):
+        assert torch.equal(a, b)
+    *tiles, packs = (a - b for a, b in zip(after, before))
+    assert tiles == [0] * 5
+    if kw.get("model") != "gat":
+        # layer 0 projects first (1433 → 16): both aggregations have a
+        # backward
+        fwd, bwd = 2, 2
+    else:
+        forms = [gat_mod.gat_table_form(w, kw.get("compute_dtype"))
+                 for w in kw["widths"]]
+        fwd = bwd = (len(forms) if kw.get("comm_schedule") == "ragged"
+                     else sum(4 if f == "split" else 2 for f in forms))
+    assert packs == 3 * (fwd + (0 if graph == "dir" else bwd))
+
+
+@pytest.mark.parametrize("model", ["gcn", "gat"])
+def test_one_nccl_rank_ell_serving_equals_the_stacked_proxy(
+        cuda_device, tmp_path, model, monkeypatch):
+    """On the card under ``SGCN_PALLAS_SPMM=0``: ``ServeEngine(mesh=...)``
+    on one NCCL rank serving part 2's slice on the ELL aggregator returns
+    the stacked ELL engine's rows bit for bit, with no K1, K5 or fused
+    launch."""
+    from sgcn_tpu_torch.ops.tile_spmm import k5_launches
+    from sgcn_tpu_torch.parallel import init_rank_group
+
+    monkeypatch.setenv("SGCN_PALLAS_SPMM", "0")
+    sl, feats, batches = _serve_proxy_inputs()
+    kw = dict(fin=24, widths=[32, 5], model=model, seed=3, max_batch=32,
+              buckets=(32,))
+    stacked = ServeEngine(sl, device=cuda_device, **kw)
+    stacked.set_features(feats)
+    want = [stacked.query(q) for q in batches]
+    mesh = init_rank_group("file://" + str(tmp_path / "rdv"), 1, 0)
+    try:
+        eng = ServeEngine(sl, mesh=mesh, **kw)
+        assert eng.setup.aggregator == "ell"
+        eng.set_features(feats)
+        before = (spmm_tiles.launches, k5_launches(),
+                  spmm_tiles_fused.launches)
+        got = [eng.query(q) for q in batches]
+        torch.cuda.synchronize()
+        after = (spmm_tiles.launches, k5_launches(),
+                 spmm_tiles_fused.launches)
+        eng.close()
+    finally:
+        mesh.close()
+    assert after == before
+    for a, b in zip(got, want):
+        assert a.dtype == np.float32 and a.shape == b.shape
+        assert np.array_equal(a.view(np.int32), b.view(np.int32))

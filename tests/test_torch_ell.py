@@ -452,9 +452,11 @@ def test_ell_trainer_ring_and_remat_equal_bit_for_bit(cora, lever,
 
 def test_selection_refusals_name_the_roadmap_item(cora, monkeypatch):
     """Under ``SGCN_PALLAS_SPMM=0``: GAT selects its slot passes; ranks
-    (GCN and GAT) and a one-part slice, the carried modes, the mini-batch
-    trainer and the sub-graph server (GCN and GAT) raise, naming what
-    they wait on; unset, ``auto`` and ``1`` keep the tile kernel."""
+    (GCN and GAT) and a one-part slice select the ELL aggregator over the
+    slice's own chains (ROADMAP A2d, ``tests/test_torch_ranks_ell.py``);
+    the carried modes, the mini-batch trainer and the sub-graph server
+    (GCN and GAT) raise, naming what they wait on, on ranks too; unset,
+    ``auto`` and ``1`` keep the tile kernel."""
     port = cora["sym"][0]
     for env in (None, "auto", "1"):
         if env is None:
@@ -465,39 +467,44 @@ def test_selection_refusals_name_the_roadmap_item(cora, monkeypatch):
         assert setup.aggregator == "tile"
         assert setup.decision["aggregator"]["chosen"] == "tile"
     monkeypatch.setenv("SGCN_PALLAS_SPMM", "0")
-    # GAT runs its slot passes (tests/test_torch_ell_gat.py); its ranks
-    # and sub-graph server still raise
+    # GAT runs its slot passes (tests/test_torch_ell_gat.py); its
+    # sub-graph server still raises
     gat = resolve_forward_setup(port, model="gat")
     assert gat.aggregator == "ell" and gat.fwd_static["ell_layout"] == "cell"
     assert gat.decision["aggregator"]["chosen"] == "ell"
-    for model in ("gcn", "gat"):
-        with pytest.raises(ValueError, match="ELL on ranks is ROADMAP A2d"):
-            resolve_forward_setup(port, model=model, ranks=True)
+    for model, layout in (("gcn", "a2a"), ("gat", "cell")):
+        ranked = resolve_forward_setup(port, model=model, ranks=True)
+        assert ranked.aggregator == "ell"
+        assert ranked.fwd_static["ell_layout"] == layout
     with pytest.raises(ValueError, match="the sub-graph server runs on"):
         resolve_forward_setup(port, model="gat", serve_subgraph=True)
     for kw, mode in (({"halo_staleness": 1}, "stale-halo trainer"),
                      ({"replica_budget": "auto"}, "replica trainer"),
                      ({"serve_subgraph": True}, "sub-graph server")):
-        with pytest.raises(ValueError, match=f"the {mode} runs on the tile"):
-            resolve_forward_setup(port, **kw)
+        for ranks in (False, True):
+            with pytest.raises(ValueError,
+                               match=f"the {mode} runs on the tile"):
+                resolve_forward_setup(port, ranks=ranks, **kw)
     with pytest.raises(ValueError, match="mini-batch trainer runs on"):
         MiniBatchTrainer(cora["ahat"], cora["pv"], 8, fin=1433,
                          widths=WIDTHS, batch_size=512, device="cpu")
     with pytest.raises(ValueError, match="sub-graph server runs on"):
         ServeEngine(port, 1433, WIDTHS, mode="subgraph", device="cpu")
     sl = shard_proxy_plan(port, 3)
-    assert sl.ell_chains is None
-    with pytest.raises(ValueError, match="one-part slice .* ROADMAP A2d"):
-        resolve_forward_setup(sl)
-    with pytest.raises(ValueError, match="A2d"):
+    assert set(sl.ell_chains) == set(port.ell_chains)
+    setup = resolve_forward_setup(sl)
+    assert setup.aggregator == "ell"
+    assert setup.fwd_static["ell_levels"]["hedge"] == \
+        sl.ell_chains["a2a"]["hedge_levels"]
+    with pytest.raises(ValueError, match="unknown aggregator"):
         port_gcn.gcn_forward_local(
             [torch.zeros(4, 2)], torch.zeros(1, 3, 4), {},
-            aggregator="ell", mesh=object())
-    with pytest.raises(ValueError, match="A2d"):
+            aggregator="slots", mesh=object())
+    with pytest.raises(ValueError, match="unknown aggregator"):
         port_gat.gat_forward_local(
             [{"w": torch.zeros(4, 2), "a1": torch.zeros(2),
               "a2": torch.zeros(2)}], torch.zeros(1, 3, 4), {},
-            aggregator="ell", mesh=object())
+            aggregator="slots", mesh=object())
 
 
 def test_full_mode_server_on_ell(cora, monkeypatch):

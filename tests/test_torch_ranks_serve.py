@@ -40,7 +40,7 @@ from sgcn_tpu.prep import normalize_adjacency as ref_normalize
 from sgcn_tpu.serve import ServeEngine as RefEngine
 from sgcn_tpu_torch.io.datasets import load_npz_dataset
 from sgcn_tpu_torch.obs import load_run
-from sgcn_tpu_torch.ops.pspmm import ELL_RANKS_DEFERRAL
+from sgcn_tpu_torch.ops.pspmm import ELL_MODE_DEFERRAL
 from sgcn_tpu_torch.parallel import (RankGroup, build_comm_plan,
                                      init_rank_group, shard_proxy_plan)
 from sgcn_tpu_torch.partition import read_partvec
@@ -150,6 +150,11 @@ def runs():
             _stage(plan, dirs["stage"], dirs["watch-cli"])
             open(os.path.join(dirs["stage"], "ready"), "w").close()
             stacked, ref = {}, {}
+            for case in child.ELL_SERVE_CASES:
+                with child.ell_switch():
+                    eng = child.serve_engine(plan, feats, case, p0)
+                assert eng.setup.aggregator == "ell"
+                stacked["ell-" + case] = {"rows": [eng.query(q) for q in qs]}
             for case in CASES:
                 eng = child.serve_engine(plan, feats, case, p0)
                 stacked[case] = {"rows": [eng.query(q) for q in qs],
@@ -311,16 +316,36 @@ def test_serve_cli_on_ranks_refuses_another_world(runs):
         assert "a world of 8 processes for k=4" in got["exit"], (r, got)
 
 
+@pytest.mark.parametrize("case", child.ELL_SERVE_CASES)
+def test_ell_full_mode_on_ranks_equals_the_stacked_engine(runs, case):
+    """Under ``SGCN_PALLAS_SPMM=0`` full-mode ``ServeEngine(mesh=...)``
+    serves on the ELL aggregator over each rank's slice's chains (ROADMAP
+    A2d): rank 0's rows of every batch equal the stacked ELL engine's bit
+    for bit, GCN on both transports and GAT; every follower served the
+    three batches."""
+    got = runs["ranks"][0]["ell-" + case]
+    assert got["aggregator"] == "ell"
+    for a, b in zip(got["rows"], runs["stacked"]["ell-" + case]["rows"]):
+        assert a.dtype == np.float32 and a.shape == b.shape
+        assert np.array_equal(a.view(np.int32), b.view(np.int32)), case
+    for r in range(1, K):
+        assert runs["ranks"][r]["ell-" + case] == {"served": 3, "rev": 0}
+
+
 def test_ell_on_ranks_raises_the_deferral(monkeypatch):
-    """``SGCN_PALLAS_SPMM=0`` with a rank group raises the A2d deferral
-    before anything ships, in full and sub-graph mode."""
+    """``SGCN_PALLAS_SPMM=0`` with a rank group still raises the
+    deferral of the modes that stay on the tiles: sub-graph mode, GCN
+    and GAT, before anything ships (full mode serves on ELL:
+    ``test_ell_full_mode_on_ranks_equals_the_stacked_engine``)."""
     _ahat, _feats, _labels, _pv, plan = child.cora_plan("cora2708.8.hp")
     monkeypatch.setenv("SGCN_PALLAS_SPMM", "0")
-    for mode in ("full", "subgraph"):
+    for model in ("gcn", "gat"):
         with pytest.raises(ValueError) as err:
-            ServeEngine(plan, fin=child.FIN, widths=child.WIDTHS, mode=mode,
+            ServeEngine(plan, fin=child.FIN, widths=child.WIDTHS,
+                        model=model, mode="subgraph",
                         mesh=RankGroup(0, K, "cpu"))
-        assert str(err.value) == ELL_RANKS_DEFERRAL
+        assert str(err.value) == ELL_MODE_DEFERRAL.format(
+            mode="sub-graph server")
 
 
 def test_one_rank_proxy_serves_its_part_only(tmp_path):

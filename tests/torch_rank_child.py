@@ -4,7 +4,7 @@
 ``tests/test_torch_ranks_carried.py``,
 ``tests/test_torch_ranks_directed.py``,
 ``tests/test_torch_ranks_minibatch.py``,
-``tests/test_torch_ranks_serve.py``).
+``tests/test_torch_ranks_serve.py``, ``tests/test_torch_ranks_ell.py``).
 
 A test spawns one process per part (``torch.multiprocessing``, ``spawn``)
 through ``spawn_ranks``; each opens a gloo group on a ``file://``
@@ -893,6 +893,28 @@ SERVE_CASES = {"gcn-a2a": {}, "gcn-ring": {"comm_schedule": "ragged"},
                "gcn-sub": {"mode": "subgraph"},
                "gat-sub": {"model": "gat", "mode": "subgraph"}}
 SERVE_BATCHES = (5, 17, 32)      # query counts of the batches served
+# the full-mode cases served again on the ELL aggregator
+# (``SGCN_PALLAS_SPMM=0``: ROADMAP A2d)
+ELL_SERVE_CASES = ("gcn-a2a", "gcn-ring", "gat-a2a")
+
+
+def ell_switch():
+    """A context in which ``SGCN_PALLAS_SPMM=0`` selects the ELL
+    aggregator (the variable restored after it)."""
+    import contextlib
+
+    @contextlib.contextmanager
+    def switch():
+        before = os.environ.get("SGCN_PALLAS_SPMM")
+        os.environ["SGCN_PALLAS_SPMM"] = "0"
+        try:
+            yield
+        finally:
+            if before is None:
+                del os.environ["SGCN_PALLAS_SPMM"]
+            else:
+                os.environ["SGCN_PALLAS_SPMM"] = before
+    return switch()
 
 
 def serve_queries(plan, seed=21):
@@ -983,7 +1005,8 @@ def serve_ranks_main(rank, world, init, out_dir):
     """The rank checks of ``tests/test_torch_ranks_serve.py`` on cora
     8-hp: every ``SERVE_CASES`` engine serving ``serve_queries`` from
     ``<out_dir>/init.pkl``'s weights (rank 0 queries and reads the
-    gauges, the others follow), a hot swap through a watched directory
+    gauges, the others follow), each ``ELL_SERVE_CASES`` engine again on
+    the ELL aggregator, a hot swap through a watched directory
     (GCN a2a; the files of ``<out_dir>/stage``) and one by
     ``swap_weights`` (GAT sub-graph mode); then the serve CLI's jobs of
     ``<out_dir>/jobs.pkl`` (``cli_rank_main``)."""
@@ -1004,6 +1027,12 @@ def serve_ranks_main(rank, world, init, out_dir):
             eng = serve_engine(plan, feats, case, p0, mesh)
             res[case] = _serve_round(eng, rank, lambda e: {
                 "rows": [e.query(q) for q in qs], "gauges": e.gauges()})
+        for case in ELL_SERVE_CASES:
+            with ell_switch():
+                eng = serve_engine(plan, feats, case, p0, mesh)
+            res["ell-" + case] = _serve_round(eng, rank, lambda e: {
+                "rows": [e.query(q) for q in qs],
+                "aggregator": e.setup.aggregator})
         eng = serve_engine(plan, feats, "gcn-a2a", p0, mesh)
         res["watch"] = _serve_round(
             eng, rank, lambda e: _swap_lead(e, out_dir, qs[-1]))
@@ -1013,4 +1042,147 @@ def serve_ranks_main(rank, world, init, out_dir):
     finally:
         mesh.close()
     res["cli"] = _cli_jobs(rank, world, out_dir, serve_main)
+    _write(out_dir, rank, res)
+
+
+# ---------------------------------------------- the ELL aggregators on ranks
+# the cases of tests/test_torch_ranks_ell.py: name -> (graph, model,
+# trainer kwargs); "sym" is cora 8-hp, "dir" the directed cora; GAT at
+# widths [16, 7] ships the fused form, under compute_dtype the packed one
+# (fout 16) and the fused bf16 one (fout 7), and "gat-split" runs fin 24
+# and widths [128, 7] (fout 128: the split form)
+ELL_CASES = {
+    "gcn-a2a": ("sym", "gcn", {}),
+    "gcn-ring": ("sym", "gcn", {"comm_schedule": "ragged"}),
+    "gcn-wire": ("sym", "gcn", {"halo_dtype": "bfloat16"}),
+    "gcn-bf16": ("sym", "gcn", {"compute_dtype": "bfloat16"}),
+    "gcn-remat": ("sym", "gcn", {"remat": True}),
+    "gcn-directed": ("dir", "gcn", {}),
+    "gat-a2a": ("sym", "gat", {}),
+    "gat-ring": ("sym", "gat", {"comm_schedule": "ragged"}),
+    "gat-bf16": ("sym", "gat", {"compute_dtype": "bfloat16"}),
+    "gat-split": ("sym", "gat", {}),
+    "gat-directed": ("dir", "gat", {}),
+}
+ELL_STEPS = 2
+SPLIT_FIN, SPLIT_WIDTHS = 24, [128, 7]
+
+
+def ell_dims(case):
+    """``(fin, widths)`` of an ``ELL_CASES`` case."""
+    return (SPLIT_FIN, SPLIT_WIDTHS) if case == "gat-split" \
+        else (FIN, WIDTHS)
+
+
+def ell_params(case, seed=23):
+    """A case's initial weights as numpy from ``default_rng(seed)``, the
+    same in every process: GCN a Glorot-uniform ``(fin, fout)`` per
+    layer, GAT ``{w, a1, a2}`` (``w`` normal with variance
+    ``2/(fin + fout)``, ``a1``/``a2`` normal over ``√fout``)."""
+    fin, widths = ell_dims(case)
+    rng = np.random.default_rng(seed)
+    out = []
+    for fi, fo in zip([fin] + widths[:-1], widths):
+        if ELL_CASES[case][1] == "gcn":
+            lim = np.sqrt(6.0 / (fi + fo))
+            out.append(rng.uniform(-lim, lim, (fi, fo)).astype(np.float32))
+            continue
+        out.append({"w": (rng.standard_normal((fi, fo))
+                          * np.sqrt(2.0 / (fi + fo))).astype(np.float32),
+                    "a1": (rng.standard_normal(fo)
+                           / np.sqrt(fo)).astype(np.float32),
+                    "a2": (rng.standard_normal(fo)
+                           / np.sqrt(fo)).astype(np.float32)})
+    return out
+
+
+def ell_graphs():
+    """``{"sym": (plan, feats, labels), "dir": ...}``: cora 8-hp and the
+    directed cora."""
+    _ahat, feats, labels, _pv, plan = cora_plan("cora2708.8.hp")
+    _ad, _ahat_d, _f, _l, _pv_d, plan_d = cora_directed_plan()
+    return {"sym": (plan, feats, labels), "dir": (plan_d, feats, labels)}
+
+
+def ell_trainer(plan, case, mesh=None):
+    """An ``ELL_CASES`` case's ``FullBatchTrainer`` on ``plan``
+    (``SGCN_PALLAS_SPMM=0`` set by the caller): stacked on the CPU, or on
+    the rank group ``mesh``."""
+    from sgcn_tpu_torch.train import FullBatchTrainer
+
+    _graph, model, kw = ELL_CASES[case]
+    fin, widths = ell_dims(case)
+    return FullBatchTrainer(plan, fin=fin, widths=widths, lr=LR, model=model,
+                            activation="none" if model == "gat" else "relu",
+                            params=ell_params(case), mesh=mesh,
+                            device="cpu" if mesh is None else None, **kw)
+
+
+def ell_data(graphs, case, mesh=None):
+    """A case's ``TrainData``: every part stacked, or rank ``mesh.rank``'s
+    part (the features cut to the case's ``fin``)."""
+    from sgcn_tpu_torch.train import (make_train_data,
+                                      make_train_data_multihost)
+
+    plan, feats, labels = graphs[ELL_CASES[case][0]]
+    feats = np.ascontiguousarray(feats[:, :ell_dims(case)[0]])
+    return (make_train_data(plan, feats, labels) if mesh is None
+            else make_train_data_multihost(plan, mesh, feats, labels))
+
+
+def ell_cotangent(plan, case, seed=29):
+    """The stacked ``(k, B, nout)`` cotangent of a case's model VJP."""
+    nout = ell_dims(case)[1][-1]
+    return np.random.default_rng(seed).standard_normal(
+        (plan.k, plan.b, nout)).astype(np.float32)
+
+
+def ell_vjp(tr, data, g):
+    """The model's forward rows and the digests of its VJP in the input
+    features, one per part: ``(rows (k, B, nout) float32, [sha256 hex of
+    part p's (B, fin) gradient rows, ...])``."""
+    import hashlib
+
+    import torch
+
+    x = data.h0.clone().requires_grad_(True)
+    out = tr.model(x, tr.pa).float()
+    out.backward(torch.as_tensor(g))
+    dh = x.grad.float().numpy()
+    tr.opt.zero_grad(set_to_none=True)
+    return out.detach().numpy(), [hashlib.sha256(np.ascontiguousarray(
+        dh[p]).tobytes()).hexdigest() for p in range(dh.shape[0])]
+
+
+def ell_ranks_main(rank, world, init, out_dir):
+    """The rank checks of ``tests/test_torch_ranks_ell.py`` under
+    ``SGCN_PALLAS_SPMM=0``: per ``ELL_CASES`` case the trainer's setup on
+    the rank, its model's forward rows and VJP in the features (the
+    rank's part of ``ell_cotangent``), then ``ELL_STEPS`` steps; then the
+    train CLI's jobs of ``<out_dir>/jobs.pkl`` (``cli_rank_main``)."""
+    import torch
+
+    torch.set_num_threads(1)
+    os.environ["SGCN_PALLAS_SPMM"] = "0"
+    from sgcn_tpu_torch.parallel import init_rank_group
+
+    mesh = init_rank_group(init, world, rank, device="cpu")
+    res = {"setup": {}, "rows": {}, "dh": {}, "losses": {}, "params": {}}
+    try:
+        graphs = ell_graphs()
+        for case in ELL_CASES:
+            plan = graphs[ELL_CASES[case][0]][0]
+            tr = ell_trainer(plan, case, mesh)
+            data = ell_data(graphs, case, mesh)
+            st = tr.setup.fwd_static
+            res["setup"][case] = (tr.setup.aggregator, st["ell_layout"],
+                                  st["ell_levels"])
+            res["rows"][case], res["dh"][case] = ell_vjp(
+                tr, data, ell_cotangent(plan, case)[rank: rank + 1])
+            res["losses"][case] = [tr.step(data) for _ in range(ELL_STEPS)]
+            res["params"][case] = [w.detach().numpy()
+                                   for w in tr.model.parameters()]
+    finally:
+        mesh.close()
+    res["cli"] = _cli_jobs(rank, world, out_dir)
     _write(out_dir, rank, res)
