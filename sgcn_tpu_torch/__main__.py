@@ -2,8 +2,7 @@
 ``python -m sgcn_tpu``).
 
 Each role is a module CLI under one package; this dispatcher only prints
-the map, and each tool owns its flags (``--help`` on any of them).  The
-reference's static-analysis tool (``sgcn_tpu.analysis``) is not ported.
+the map, and each tool owns its flags (``--help`` on any of them).
 """
 
 from __future__ import annotations
@@ -24,6 +23,9 @@ _TOOLS = (
                                  "role) comparison baselines"),
     ("sgcn_tpu_torch.serve", "partitioned inference under synthetic query "
                              "traffic on the card"),
+    ("sgcn_tpu_torch.analysis", "static analysis: the launch and "
+                                "collective census of every mode + AST "
+                                "hygiene"),
 )
 
 

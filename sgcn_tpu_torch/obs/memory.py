@@ -476,6 +476,7 @@ def _make_blas_workspaces(dev) -> None:
     that a base taken after it holds both workspaces and no trainer's or
     engine's join counts them as its own."""
     import torch
+    from ..utils.backend import synchronize
 
     key = (dev.index if dev.index is not None
            else torch.cuda.current_device(),
@@ -486,7 +487,7 @@ def _make_blas_workspaces(dev) -> None:
         x = torch.ones((8, 8), device=dev, requires_grad=True)
         (x @ x).sum().backward()
     del x
-    torch.cuda.synchronize(dev)
+    synchronize(dev)
     _BLAS_READY.add(key)
 
 
@@ -518,17 +519,18 @@ def measure_device_step(run, device, base: tuple[int, int] | None,
     the trainer or engine began).  Off the card ``run`` runs unmeasured
     and the result is ``None``."""
     import torch
+    from ..utils.backend import synchronize
 
     if torch.device(device).type != "cuda":
         run()
         return None
-    torch.cuda.synchronize(device)
+    synchronize(device)
     b_req, b_alloc = base if base is not None else (0, 0)
     before = [(t, t.data_ptr()) for t in updated]
     arg = device_bytes(device)[0] - b_req
     torch.cuda.reset_peak_memory_stats(device)
     run()
-    torch.cuda.synchronize(device)
+    synchronize(device)
     peak = int(torch.cuda.max_memory_allocated(device)) - b_alloc
     alias = sum(t.numel() * t.element_size() for t, ptr in before
                 if t.data_ptr() == ptr)

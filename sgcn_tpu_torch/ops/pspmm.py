@@ -98,6 +98,7 @@ import os
 
 import torch
 
+from ..utils import census
 from .row_shuffle import row_pack, row_pack_into
 
 # the dtypes a halo_dtype or compute_dtype may name, by the reference's
@@ -259,6 +260,7 @@ def rank_exchange(h, send_flat, mesh, halo_dtype=None, rr_sizes=None):
     recv, works = _rank_issue(pack, mesh, rr_sizes)
 
     def wait():
+        census.collective("wait")
         for w in works:
             w.wait()
     return recv, wait
@@ -288,6 +290,7 @@ def rank_reverse_exchange(send_rev, slots: int, mesh, halo_dtype=None,
     rwire, works = _rank_issue(send, mesh)
 
     def wait():
+        census.collective("wait")
         for w in works:
             w.wait()
     return rwire, wait
@@ -304,14 +307,17 @@ def _rank_issue(pack, mesh, rr_sizes=None):
 
     recv = torch.empty_like(pack)
     if rr_sizes is None:
+        census.collective("all_to_all", pack[0])
         return recv, [dist.all_to_all_single(recv[0], pack[0],
                                              async_op=True)]
     works, off = [], 0
     for d in ragged_live_rounds(rr_sizes):
         sl = slice(off, off + rr_sizes[d - 1])
         if mesh.peer(d) == mesh.rank:          # a one-rank group: loopback
+            census.collective("loopback", pack[0, sl])
             recv[0, sl].copy_(pack[0, sl])
         else:
+            census.collective("isend_irecv", pack[0, sl])
             works += dist.batch_isend_irecv([
                 dist.P2POp(dist.isend, pack[0, sl], mesh.peer(d)),
                 dist.P2POp(dist.irecv, recv[0, sl], mesh.peer(-d))])
@@ -335,8 +341,16 @@ class InFlight:
         self._value, self._works, self._finish = value, list(works), finish
         self.waited = not self._works and finish is None
 
+    @property
+    def buffer(self):
+        """The carry's tensor as it stands, without waiting (its storage:
+        what the census's in-place rule compares)."""
+        return self._value
+
     def wait(self):
         if not self.waited:
+            if self._works:
+                census.collective("wait")
             for w in self._works:
                 w.wait()
             if self._finish is not None:

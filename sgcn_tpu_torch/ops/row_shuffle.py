@@ -33,6 +33,7 @@ import ctypes
 
 import torch
 
+from ..utils import census
 from ..utils.backend import plain_region
 
 
@@ -84,6 +85,7 @@ def row_shuffle(x, idx):
                         f"got {idx.dtype} {tuple(idx.shape)}")
     if idx.device != x.device:
         raise ValueError("table and index must be on the same device")
+    census.launch("K6", (idx.shape[0], x.shape[1]), x.dtype, x.device)
     if x.device.type == "cpu":
         with plain_region("row_shuffle_f32_kernel"):
             return row_shuffle_plain(x, idx)
@@ -156,6 +158,7 @@ def row_pack(src, flat, dtype=None):
         raise TypeError(f"row_pack takes an int32 index, got {flat.dtype}")
     if flat.device != src.device:
         raise ValueError("source and index must be on the same device")
+    census.launch("pack", (*flat.shape, *src.shape[2:]), dtype, src.device)
     if src.device.type == "cpu":
         with plain_region("row_pack_kernel"):
             return row_pack_plain(src, flat, dtype)
@@ -242,6 +245,7 @@ def row_pack_into(out, src, flat, dst):
         raise ValueError("tensors and indices must be on the same device")
     if flat.numel() == 0:
         return out
+    census.launch("pack-into", (flat.numel(), w), out.dtype, out.device)
     if out.device.type == "cpu":
         with plain_region("row_pack_kernel"):
             return row_pack_into_plain(out, src, flat, dst)

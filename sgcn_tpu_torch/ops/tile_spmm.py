@@ -112,6 +112,7 @@ import ctypes
 import numpy as np
 import torch
 
+from ..utils import census
 from ..utils.backend import plain_region
 from .pspmm import (InFlight, chain, exchange_recv, partial_refresh,
                     partial_refresh_grad, rank_exchange,
@@ -433,6 +434,26 @@ def _launch_family(flat_src, flat_ld, flat_w, table, classes, tb: int):
     return out
 
 
+# the census label of each family entry point (``utils/census.py``)
+_FAMILY_LABELS = {(False, torch.float32): "K1", (True, torch.float32): "K5",
+                  (False, torch.bfloat16): "K1-bf16",
+                  (True, torch.bfloat16): "K5-bf16"}
+_FUSED_LABELS = {(torch.float32, torch.float32): "fused",
+                 (torch.float32, torch.bfloat16): "fused-wire-bf16",
+                 (torch.bfloat16, torch.bfloat16): "fused-bf16"}
+
+
+def _census_family(w, table, rows: int, single: bool) -> None:
+    """The census hook of one family launch (K1/K5 by ``w``'s dtype, the
+    bf16 flavour on a bf16 table): its ``(k, rows, f)`` float32 output
+    (``(rows, f)`` for one part).  A table dtype no entry point takes
+    (the CPU's float64) is an unknown launch to the census."""
+    key = (w.dtype == torch.int8, table.dtype)
+    lead = () if single else (table.shape[0],)
+    census.launch(_FAMILY_LABELS.get(key, f"family{key}"),
+                  (*lead, rows, table.shape[-1]), table.dtype, table.device)
+
+
 def _on_cpu(table, *arrays):
     """True for CPU tensors (the plain version); raises for a table dtype
     or device the port does not take."""
@@ -472,7 +493,10 @@ def spmm_tiles(tsrc, tld, tw, table, tb: int = 256):
     ``spmm_tiles.bf16_mask_launches``.  Any other device, dtype or layout
     raises (a float16 table among them).
     """
-    if _on_cpu(table, tsrc, tld, tw):
+    cpu = _on_cpu(table, tsrc, tld, tw)
+    if census.active():
+        _census_family(tw, table, tsrc.shape[-2] * tb, tsrc.dim() == 2)
+    if cpu:
         with plain_region("tile_spmm_kernel"):
             return spmm_tiles_plain(tsrc, tld, tw, table, tb)
     single = tsrc.dim() == 2
@@ -514,7 +538,11 @@ def spmm_tiles_classes(flat_src, flat_ld, flat_w, table, classes, tb: int):
     family is ONE kernel launch writing the ``(k, Σ t_c·tb, f)`` output
     directly; on CPU tensors ``spmm_tiles_classes_plain``.  Returns
     ``(k, Σ t_c·tb, f)`` float32 (no leading k for 1-D inputs)."""
-    if not _on_cpu(table, flat_src, flat_ld, flat_w):
+    cpu = _on_cpu(table, flat_src, flat_ld, flat_w)
+    if census.active():
+        _census_family(flat_w, table, sum(c[0] for c in classes) * tb,
+                       flat_src.dim() == 1)
+    if not cpu:
         if flat_src.dim() == 1:
             return _launch_family(
                 *(x.unsqueeze(0) for x in (flat_src, flat_ld, flat_w)),
@@ -581,7 +609,12 @@ def spmm_tiles_fused(ltiles, h, htiles, remote, lclasses, hclasses,
     ``.bf16_launches`` (both bf16).  Any other device, dtype pair or
     layout raises."""
     arrays = (*ltiles, *htiles)
-    if _on_cpu(h, *arrays) and _on_cpu(remote, *arrays):
+    cpu = _on_cpu(h, *arrays) and _on_cpu(remote, *arrays)
+    if census.active():
+        key = (h.dtype, remote.dtype)
+        census.launch(_FUSED_LABELS.get(key, f"fused{key}"), h.shape,
+                      remote.dtype, h.device)
+    if cpu:
         with plain_region("tile_spmm_fused_kernel"):
             return spmm_tiles_fused_plain(ltiles, h, htiles, remote,
                                           lclasses, hclasses, tb)

@@ -21,6 +21,8 @@ from __future__ import annotations
 import torch
 import torch.distributed as dist
 
+from ..utils import census
+
 # ``all_gather_single`` on a torch that has it (``all_gather_into_tensor``
 # is its deprecated name there), else the older name
 _ALL_GATHER = getattr(dist, "all_gather_single", None) or \
@@ -46,6 +48,7 @@ class RankGroup:
         """The sum of ``t`` over the ranks, as a new tensor (no
         gradient)."""
         out = t.detach().clone()
+        census.collective("all_reduce_sum", out)
         dist.all_reduce(out, op=dist.ReduceOp.SUM)
         return out
 
@@ -54,6 +57,7 @@ class RankGroup:
         gradient): the reference's ``lax.pmax`` (GAT's softmax
         stabilizer).  Exact, so every rank holds the stacked max's bits."""
         out = t.detach().clone()
+        census.collective("all_reduce_max", out)
         dist.all_reduce(out, op=dist.ReduceOp.MAX)
         return out
 
@@ -63,6 +67,7 @@ class RankGroup:
         collective).  ``async_op=True`` returns ``(out, work)`` at once:
         ``out`` holds the rows once ``work.wait()`` has returned."""
         out = t.new_empty((self.size * t.shape[0], *t.shape[1:]))
+        census.collective("all_gather", t)
         work = _ALL_GATHER(out, t.contiguous(), async_op=async_op)
         return (out, work) if async_op else out
 
@@ -71,6 +76,7 @@ class RankGroup:
         passes a tensor of the same shape and dtype on ``device``);
         returns ``t``.  The serve engine's batch header and query ids
         (``serve/engine.py``)."""
+        census.collective("broadcast", t)
         dist.broadcast(t, src)
         return t
 

@@ -113,6 +113,7 @@ from ..parallel.plan import (REPLICA_PARTIAL_RANK_FIELDS,
                              REPLICA_TILE_FIELDS_RAGGED,
                              choose_replica_budget, resolve_comm_schedule)
 from ..parallel.proxy import shard_proxy_plan
+from ..utils import census
 from ..utils.backend import resolve_device, synchronize
 from ..utils.stats import CommStats
 from ..utils.timers import PhaseTimer
@@ -1000,7 +1001,7 @@ class FullBatchTrainer:
             # disagree on the next sync step would deadlock the exchanges
             t = torch.tensor([self.sync_every], dtype=torch.int64,
                              device=self.mesh.device)
-            torch.distributed.broadcast(t, src=0)
+            self.mesh.broadcast(t)
             self.sync_every = int(t.item())
         self.comm_decision["controller"] = self.controller.log()
         if self.recorder is not None:
@@ -1315,6 +1316,7 @@ class FullBatchTrainer:
         loss.backward()
         if self.mesh is not None:
             for p in self.model.parameters():
+                census.collective("grad_all_reduce", p.grad)
                 torch.distributed.all_reduce(p.grad)
         self._note_grad_norm()
         self.opt.step()

@@ -11,6 +11,8 @@ import contextlib
 
 import torch
 
+from . import census
+
 
 def resolve_device(device=None) -> torch.device:
     """``None`` → ``cuda``; raises if CUDA is wanted and absent.
@@ -49,8 +51,11 @@ def synchronize(device) -> None:
 def plain_region(kernel: str):
     """While ``torch.profiler`` records, a region named after the CUDA
     kernel a plain version stands for (a CPU trace then classifies the
-    plain version's ops as that kernel's, ``obs/tracing.py``); otherwise
-    nothing."""
-    if torch.autograd._profiler_enabled():
-        return torch.profiler.record_function(kernel)
-    return contextlib.nullcontext()
+    plain version's ops as that kernel's, ``obs/tracing.py``); while a
+    census records (``utils/census.py``), the mark that a plain version
+    runs; otherwise nothing."""
+    region = (torch.profiler.record_function(kernel)
+              if torch.autograd._profiler_enabled() else None)
+    if census.active():
+        return census.plain(region)
+    return region if region is not None else contextlib.nullcontext()

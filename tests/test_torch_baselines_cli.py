@@ -134,16 +134,15 @@ def test_default_device_is_the_card(files, monkeypatch):
 
 def test_dispatcher_prints_the_ports_map(capsys, monkeypatch):
     """``python -m sgcn_tpu_torch``: the port's tools (the reference's
-    map without ``analysis``, which is not ported) on stdout with exit
-    code 0; stray arguments print the map on stderr and return 2, as the
+    map, the static-analysis tool included) on stdout with exit code 0;
+    stray arguments print the map on stderr and return 2, as the
     reference does."""
     monkeypatch.setattr(sys, "argv", ["sgcn_tpu_torch"])
     assert dispatch.main() == 0
     out = capsys.readouterr().out
     names = [m for m, _ in dispatch._TOOLS]
     assert names == [m.replace("sgcn_tpu", "sgcn_tpu_torch")
-                     for m, _ in ref_dispatch._TOOLS
-                     if not m.endswith(".analysis")]
+                     for m, _ in ref_dispatch._TOOLS]
     for m in names:
         assert f"python -m {m}" in out
     monkeypatch.setattr(sys, "argv", ["sgcn_tpu_torch", "train"])

@@ -43,7 +43,10 @@ packed forms, directed too): ring == a2a and run == run bit for bit,
 no K1, K5 or fused launch and the tile path's packs; and the ELL
 aggregator on one NCCL rank (GCN and GAT, both transports, the bf16
 levers, directed) training and serving a proxy slice, bit for bit the
-stacked proxy's, with the tile rank path's packs.
+stacked proxy's, with the tile rank path's packs; and the static-analysis
+tool's census (``sgcn_tpu_torch/analysis``) of ``fast_modes()`` on the
+card == its census on the CPU, each label's launches == the wrappers'
+counter deltas and the profiler's device kernels.
 
 This module imports no JAX, so it also runs on a GPU machine without it:
 
@@ -2560,3 +2563,43 @@ def test_one_nccl_rank_ell_serving_equals_the_stacked_proxy(
     for a, b in zip(got, want):
         assert a.dtype == np.float32 and a.shape == b.shape
         assert np.array_equal(a.view(np.int32), b.view(np.int32))
+
+
+@pytest.mark.parametrize("mode_index", [0, 1])
+def test_card_census_equals_the_cpu_census(cuda_device, mode_index):
+    """The census of one ``fast_modes()`` mode on the card equals its
+    census on the CPU's plain versions — labels, counts, shapes and dtypes
+    of every launch and collective, step for step — both clean, and on
+    the card each step's launches equal the wrappers' counter deltas and,
+    over the run's profiler window, the hooks' launches equal the
+    profiler's device kernels under each KERNEL_TABLE label."""
+    from collections import Counter
+
+    from sgcn_tpu_torch.analysis import census
+    from sgcn_tpu_torch.analysis.modes import fast_modes
+    from sgcn_tpu_torch.utils.census import LAUNCH_LABELS
+
+    mode = fast_modes()[mode_index]
+    threads = torch.get_num_threads()
+    try:
+        torch.set_num_threads(1)
+        cpu = census.census_mode(mode, "cpu")
+    finally:
+        torch.set_num_threads(threads)
+    run = census.run_census(modes=[mode], fast=True, device=cuda_device)
+    card = run["modes"][mode.mode_id]
+    assert cpu["ok"] and card["ok"] and run["ok"], (cpu, run)
+    assert set(card["programs"]) == set(cpu["programs"])
+    for label, prog in card["programs"].items():
+        got, want = prog["census"], cpu["programs"][label]["census"]
+        for key in ("launches", "collectives", "shapes"):
+            assert got[key] == want[key], (label, key)
+        assert got["counters"] == got["launches"]
+    window = run["device_window"]
+    assert window["kernels"] == window["hooks"] and window["kernels"]
+    by_table = Counter()
+    for prog in card["programs"].values():
+        for lab, n in prog["census"]["launches"].items():
+            by_table[LAUNCH_LABELS[lab][0]] += n
+    # the window also holds the warm step's launches
+    assert all(window["hooks"][k] >= n for k, n in by_table.items())

@@ -4,7 +4,8 @@
 ``tests/test_torch_ranks_carried.py``,
 ``tests/test_torch_ranks_directed.py``,
 ``tests/test_torch_ranks_minibatch.py``,
-``tests/test_torch_ranks_serve.py``, ``tests/test_torch_ranks_ell.py``).
+``tests/test_torch_ranks_serve.py``, ``tests/test_torch_ranks_ell.py``,
+``tests/test_torch_ranks_analysis.py``).
 
 A test spawns one process per part (``torch.multiprocessing``, ``spawn``)
 through ``spawn_ranks``; each opens a gloo group on a ``file://``
@@ -1185,4 +1186,65 @@ def ell_ranks_main(rank, world, init, out_dir):
     finally:
         mesh.close()
     res["cli"] = _cli_jobs(rank, world, out_dir)
+    _write(out_dir, rank, res)
+
+
+# the census cases of a k-rank group (tests/test_torch_ranks_analysis.py):
+# (workload, model, schedule[, gat_form])
+ANALYSIS_K = 4
+ANALYSIS_CASES = (("train", "gcn", "a2a", None), ("train", "gcn", "ragged",
+                                                  None),
+                  ("train", "gat", "a2a", "fused"),
+                  ("serve", "gcn", "ragged", None))
+
+
+def analysis_ranks_main(rank, world, init, out_dir):
+    """One rank of a ``world``-rank gloo group on the census fixture's
+    ``world``-part plan: per ``ANALYSIS_CASES`` case one warm step, then
+    one censused step (rank 0 serves the batch, the others follow its
+    round), held to the plan's expectation.  Writes ``{case: {violations,
+    records, overlapped, expected}}``."""
+    import torch
+
+    torch.set_num_threads(1)
+    from sgcn_tpu_torch.analysis import census, expect
+    from sgcn_tpu_torch.analysis.modes import Mode
+    from sgcn_tpu_torch.parallel import init_rank_group
+
+    mesh = init_rank_group(init, world, rank, device="cpu")
+
+    class Group:
+        def get(self):
+            return mesh
+
+    res = {}
+    try:
+        for wl, model, sched, form in ANALYSIS_CASES:
+            mode = Mode(wl, model, sched, gat_form=form, ranks=True)
+            owner, ctx = census.build_owner(mode, "cpu", Group(), k=world)
+            expect.check_selection(owner, mode)
+            if wl == "serve" and rank != 0:
+                def step():
+                    owner._rank_round(owner._header()).result()
+            else:
+                step = ctx["step"]
+            step()                                   # warm
+            rec = census.record_step(step, "cpu")
+            label = census.program_labels(mode)[0]
+            exp = expect.expectation(owner, ctx, mode, label)
+            res[mode.mode_id] = {
+                "violations": expect.check(rec, None, exp, mode, "cpu"),
+                "records": [tuple(r) for r in rec["records"]],
+                "overlapped": expect._overlapped(rec["records"]),
+                "expected": {"overlapped": exp.overlapped,
+                             "collectives": exp.collectives,
+                             "launches": dict(exp.launches)},
+                "host_reads": rec["host"]["host_reads"]}
+            if wl == "serve":
+                if rank == 0:
+                    owner.close()
+                else:
+                    owner.follow()
+    finally:
+        mesh.close()
     _write(out_dir, rank, res)
